@@ -1,0 +1,90 @@
+"""paddle_tpu_torch stands alone: no jax, no paddle_tpu, CUDA by default.
+
+``import paddle_tpu`` (which tests/conftest.py does in every test process)
+loads jax, so the import check runs in a fresh subprocess.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from paddle_tpu_torch import resolve_device
+from paddle_tpu_torch.models import GPTForPretraining, gpt_tiny
+from paddle_tpu_torch.ops.kernels import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "paddle_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import importlib.util\n"
+        f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        bad = {r for r in _imported_roots(path) if r in FORBIDDEN}
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTForPretraining(gpt_tiny())
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    model = GPTForPretraining(gpt_tiny(), device="cpu")
+    assert model.device == torch.device("cpu")
+
+
+def test_every_kernel_source_has_a_stable_build_key():
+    names = _build.sources()
+    assert "flash_attention_fwd" in names
+    for n in names:
+        p = _build.library_path(n)
+        assert p == _build.library_path(n)
+        assert p.parent == _build.BUILD_DIR and p.name.startswith(n + "-")
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
