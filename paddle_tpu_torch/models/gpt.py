@@ -1,12 +1,18 @@
-"""GPT family (counterpart of paddle_tpu/models/gpt.py, inference paths).
+"""GPT family (counterpart of paddle_tpu/models/gpt.py).
 
 Same modules, parameter names and arithmetic as the JAX model, so a state
 dict carries over by name (models/convert.py). What is ported: the
-no-cache forward (scoring; causal attention goes to the flash kernel on the
-card) and the contiguous KV-cache path with a scalar or a per-row offset
-(serving). Training (loss, dropout, recompute), tensor parallelism and
-``generate()`` are not ported yet, so the config has no dropout fields and
-parameters do not require grad.
+no-cache forward (scoring and training; causal attention goes to the flash
+kernels on the card, forward and backward), the training loss
+``forward(ids, labels)`` through the chunked fused LM-head cross entropy,
+dropout, and the contiguous KV-cache path with a scalar or a per-row offset
+(serving). Parameters are trainable; the serving engine runs under
+``no_grad``. Not ported yet: recompute, tensor parallelism and
+``generate()``.
+
+Dropout draws from the model's own ``torch.Generator`` (on the model's
+device, seeded from the constructor's ``seed``), where the JAX model folds
+the step's PRNG key: the masks differ by design.
 
 KV caches are updated in place, where the JAX model returns new arrays: the
 same tensors come back in the returned cache tuple.
@@ -18,11 +24,15 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import nn_functional as F
+from ..ops.fused import fused_linear_cross_entropy
+
+IGNORE_INDEX = -100  # ParallelCrossEntropy's default in the JAX model
 
 
 class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12, num_heads=12,
-                 ffn_hidden_size=None, max_seq_len=1024, dtype="float32",
+                 ffn_hidden_size=None, max_seq_len=1024, dropout=0.0,
+                 attention_dropout=0.0, use_recompute=False, dtype="float32",
                  tie_word_embeddings=True):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -30,6 +40,9 @@ class GPTConfig:
         self.num_heads = num_heads
         self.ffn_hidden_size = ffn_hidden_size or 4 * hidden_size
         self.max_seq_len = max_seq_len
+        self.dropout = dropout
+        self.attention_dropout = attention_dropout
+        self.use_recompute = use_recompute  # not ported: the model refuses it
         self.dtype = dtype
         self.tie_word_embeddings = tie_word_embeddings
 
@@ -42,6 +55,14 @@ def gpt_tiny(**kw):
 def gpt_345m(**kw):
     return GPTConfig(vocab_size=50304, hidden_size=1024, num_layers=24, num_heads=16,
                      max_seq_len=1024, **kw)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose product goes through ``F.linear`` (the autocast
+    lookup of the JAX op ``"linear"``)."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
 
 
 class LayerNorm(nn.Module):
@@ -70,15 +91,19 @@ class GPTAttention(nn.Module):
         self.num_heads = config.num_heads
         self.head_dim = config.hidden_size // config.num_heads
         self.hidden_size = config.hidden_size
-        self.qkv_proj = nn.Linear(config.hidden_size, 3 * config.hidden_size)
-        self.out_proj = nn.Linear(config.hidden_size, config.hidden_size)
+        self.qkv_proj = Linear(config.hidden_size, 3 * config.hidden_size)
+        self.out_proj = Linear(config.hidden_size, config.hidden_size)
+        self.attn_dropout = config.attention_dropout
+        self.generator = None  # the model's dropout generator (set by the model)
 
     def forward(self, x, cache=None):
         b, s = x.shape[0], x.shape[1]
         qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.unbind(dim=2)
         if cache is None:
-            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            out = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=self.attn_dropout,
+                training=self.training, generator=self.generator)
             return self.out_proj(out.reshape(b, s, self.hidden_size))
 
         # KV cache = (k_cache, v_cache, offset), [b, T, nh, hd] buffers; the
@@ -116,8 +141,8 @@ class GPTAttention(nn.Module):
 class GPTMLP(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
-        self.fc1 = nn.Linear(config.hidden_size, config.ffn_hidden_size)
-        self.fc2 = nn.Linear(config.ffn_hidden_size, config.hidden_size)
+        self.fc1 = Linear(config.hidden_size, config.ffn_hidden_size)
+        self.fc2 = Linear(config.ffn_hidden_size, config.hidden_size)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=True))
@@ -130,14 +155,20 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(config)
         self.ln2 = LayerNorm(config.hidden_size)
         self.mlp = GPTMLP(config)
+        self.dropout = config.dropout
+        self.generator = None  # the model's dropout generator (set by the model)
+
+    def _drop(self, x):
+        return F.dropout(x, self.dropout, training=self.training,
+                         generator=self.generator)
 
     def forward(self, x, cache=None):
         if cache is not None:
             a, new_cache = self.attn(self.ln1(x), cache=cache)
             h = x + a
             return h + self.mlp(self.ln2(h)), new_cache
-        h = x + self.attn(self.ln1(x))
-        return h + self.mlp(self.ln2(h))
+        h = x + self._drop(self.attn(self.ln1(x)))
+        return h + self._drop(self.mlp(self.ln2(h)))
 
 
 class GPTModel(nn.Module):
@@ -148,6 +179,8 @@ class GPTModel(nn.Module):
         self.wpe = Embedding(config.max_seq_len, config.hidden_size)
         self.blocks = nn.ModuleList([GPTBlock(config) for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size)
+        self.dropout = config.dropout
+        self.generator = None  # the model's dropout generator (set by the model)
 
     def forward(self, input_ids, caches=None):
         s = input_ids.shape[1]
@@ -162,6 +195,7 @@ class GPTModel(nn.Module):
         else:
             pos = torch.arange(s, device=dev)
         x = self.wte(input_ids) + self.wpe(pos)
+        x = F.dropout(x, self.dropout, training=self.training, generator=self.generator)
         if caches is not None:
             new_caches = []
             for blk, cache in zip(self.blocks, caches):
@@ -177,27 +211,33 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class GPTForPretraining(nn.Module):
-    """GPT with its LM head. ``forward(ids)`` / ``logits(ids)`` -> [b, s, vocab].
+    """GPT with its LM head. ``forward(ids)`` / ``logits(ids)`` -> [b, s, vocab];
+    ``forward(ids, labels)`` -> the scalar LM loss (the engine's signature).
 
     Weights are random, drawn from ``seed`` with an explicit generator (GPT-2's
     scheme: N(0, 0.02) for matrices and embeddings, zero biases, unit norm
     scales), or loaded with models/convert.py. ``device`` defaults to
     ``cuda`` and raises when there is none; pass ``device="cpu"`` for the
-    plain path."""
+    plain path. The model starts in training mode, as the JAX model does."""
 
     def __init__(self, config: GPTConfig, device=None, seed: int = 0):
         super().__init__()
+        if config.use_recompute:
+            raise NotImplementedError(
+                "recompute (use_recompute=True) is not ported yet; see ROADMAP.md")
         dev = resolve_device(device)
         self.config = config
         with torch.device("meta"):
             self.gpt = GPTModel(config)
             self.lm_head = (None if config.tie_word_embeddings else
-                            nn.Linear(config.hidden_size, config.vocab_size, bias=False))
+                            Linear(config.hidden_size, config.vocab_size, bias=False))
         self.to_empty(device="cpu")
         self.init_weights(seed)
         self.to(device=dev, dtype=_DTYPES[config.dtype])
-        self.requires_grad_(False)
-        self.eval()
+        self.generator = torch.Generator(device=dev).manual_seed(int(seed))
+        for m in self.modules():
+            if hasattr(m, "generator") and m is not self:
+                m.generator = self.generator
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
@@ -214,18 +254,23 @@ class GPTForPretraining(nn.Module):
     def device(self) -> torch.device:
         return self.gpt.wte.weight.device
 
+    def _head_weight(self):
+        """The LM head's [vocab, hidden] weight (the tied embedding or lm_head)."""
+        return self.gpt.wte.weight if self.lm_head is None else self.lm_head.weight
+
     def _head_logits(self, h):
         """Hidden states -> vocab logits (shared by forward and serving)."""
-        if self.lm_head is None:
-            return torch.matmul(h, self.gpt.wte.weight.t())
-        return self.lm_head(h)
+        return F.matmul(h, self._head_weight(), transpose_y=True)
 
     def logits(self, input_ids):
         return self._head_logits(self.gpt(input_ids))
 
     def forward(self, input_ids, labels=None):
-        if labels is not None:
-            raise NotImplementedError(
-                "the LM loss is a training path, not ported yet; call "
-                "forward(ids) for logits")
-        return self.logits(input_ids)
+        if labels is None:
+            return self.logits(input_ids)
+        # chunked LM head + cross entropy: the [b, s, vocab] logits are never
+        # materialized; the mean runs over every position, ignored ones as 0
+        loss = fused_linear_cross_entropy(self.gpt(input_ids), self._head_weight(),
+                                          labels, transpose_y=True,
+                                          ignore_index=IGNORE_INDEX)
+        return F.mean(loss)

@@ -1,14 +1,19 @@
-"""Flash-attention forward (counterpart of paddle_tpu/ops/pallas/flash_attention.py).
+"""Flash attention, forward and FA2 backward (counterpart of
+paddle_tpu/ops/pallas/flash_attention.py).
 
 ``flash_attention`` / ``flash_attention_with_lse`` take paddle's
-``[b, s, h, d]`` layout, as the JAX entry points do. On a CUDA tensor they
-launch the hand-written kernel ``csrc/flash_attention_fwd.cu`` (or raise);
-on a CPU tensor they take ``flash_attention_plain``, the same arithmetic in
-plain PyTorch. ``launches`` counts kernel launches.
+``[b, s, h, d]`` layout, as the JAX entry points do, and are differentiable
+in q, k, v (and, for the second, through both outputs: the lse cotangent
+folds into ``delta``, as ring attention needs). On CUDA tensors the forward
+launches ``csrc/flash_attention_fwd.cu`` and the backward the two kernels of
+``csrc/flash_attention_bwd.cu`` (dK/dV, then dQ), or they raise; on CPU
+tensors they take the plain versions, the same arithmetic in plain PyTorch.
+``delta = rowsum(dO * O) - g_lse`` is plain PyTorch on both devices, as the
+JAX package computes it outside its kernels.
 
-Forward only: the FA2 backward kernels come with the training slice. Blocks
-are fixed by the kernel (64 x 64 tiles); the TPU package's block autotune
-has no counterpart.
+``launches``, ``launches_dkdv`` and ``launches_dq`` count kernel launches of
+the forward and of the two backward kernels. Blocks are fixed by the kernels
+(64 x 64 tiles); the TPU package's block autotune has no counterpart.
 """
 from __future__ import annotations
 
@@ -19,18 +24,35 @@ import torch
 
 from ._common import NEG_INF, pick_block
 
-#: kernel launches since import (chip_smoke.py resets and reads it)
-launches = 0
+#: kernel launches since import (chip_smoke.py resets and reads them)
+launches = 0        # forward
+launches_dkdv = 0   # backward, dK and dV
+launches_dq = 0     # backward, dQ
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_fns = {}
+
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_STRIDES = ctypes.POINTER(_LL)
+_SIGNATURES = {
+    # entry point: (library, argtypes)
+    "flash_attention_fwd": ("flash_attention_fwd",
+                            [_PTR] * 5 + [_INT] * 6 + [_LL] * 12
+                            + [ctypes.c_float, _INT, _PTR]),
+    "flash_attention_bwd_dkdv": ("flash_attention_bwd",
+                                 [_PTR] * 8 + [_INT] * 6
+                                 + [_STRIDES, ctypes.c_float, _INT, _PTR]),
+    "flash_attention_bwd_dq": ("flash_attention_bwd",
+                               [_PTR] * 7 + [_INT] * 6
+                               + [_STRIDES, ctypes.c_float, _INT, _PTR]),
+}
 
 
 def supported(seq_q: int, seq_k: int, head_dim: int) -> bool:
     """The routing predicate of the JAX package, kept so both packages send
     the same shapes to the kernel: at least 8 rows, 8-aligned tiles and
-    head_dim. The CUDA kernel itself masks ragged lengths; it takes the
+    head_dim. The CUDA kernels themselves mask ragged lengths; they take the
     head dims in ``HEAD_DIMS``."""
     return (
         seq_q >= 8
@@ -41,40 +63,85 @@ def supported(seq_q: int, seq_k: int, head_dim: int) -> bool:
     )
 
 
-def flash_attention_plain(q, k, v, causal: bool = False,
-                          sm_scale: float | None = None):
-    """The kernel's arithmetic in plain PyTorch, on any device.
-    q, k, v: [b, s, h, d]. Returns (o [b, sq, h, d] in q's dtype,
-    lse [b, h, sq] f32)."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    qf, kf, vf = (x.transpose(1, 2).float() for x in (q, k, v))
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+# ------------------------------------------------------------ plain versions
+
+def _bhsd(x):
+    """[b, s, h, d] -> [b, h, s, d] in f32 (a bf16 value is exact in f32, so
+    f32 products of widened bf16 inputs are the reference's storage-dtype
+    products with f32 accumulation)."""
+    return x.transpose(1, 2).float()
+
+
+def _scores(q, k, causal, sm_scale):
+    s = torch.matmul(_bhsd(q), _bhsd(k).transpose(-1, -2)) * sm_scale
     if causal:
         sq, sk = s.shape[-2], s.shape[-1]
         keep = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril()
         s = s.masked_fill(~keep, NEG_INF)
+    return s
+
+
+def flash_attention_plain(q, k, v, causal: bool = False,
+                          sm_scale: float | None = None):
+    """The forward kernel's arithmetic in plain PyTorch, on any device.
+    q, k, v: [b, s, h, d]. Returns (o [b, sq, h, d] in q's dtype,
+    lse [b, h, sq] f32)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, causal, sm_scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     l = l.masked_fill(l == 0, 1.0)  # a fully masked row gives 0, not NaN
-    o = torch.matmul(p.to(v.dtype).float(), vf) / l
+    o = torch.matmul(p.to(v.dtype).float(), _bhsd(v)) / l
     lse = (m + torch.log(l))[..., 0]
     return o.to(q.dtype).transpose(1, 2).contiguous(), lse
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def flash_attention_bwd_plain(q, k, v, do, lse, delta, causal: bool = False,
+                              sm_scale: float | None = None):
+    """The two backward kernels' arithmetic in plain PyTorch, on any device.
+    q, do: [b, sq, h, d]; k, v: [b, sk, h, d]; lse, delta: [b, h, sq] f32.
+    Returns (dq, dk, dv) in [b, s, h, d] and the dtypes of q, k, v.
+
+    P = exp(S - lse) from the forward's lse; P is rounded to dO's dtype
+    before Pᵀ·dO, dS = P∘(dP − delta)·scale to q's dtype before dSᵀ·Q and to
+    k's before dS·K (TPU kernels, flash_attention.py:161-176, 205-217)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, causal, sm_scale) - lse[..., None])
+    dof = _bhsd(do)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, _bhsd(v).transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * sm_scale
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), _bhsd(q))
+    dq = torch.matmul(ds.to(k.dtype).float(), _bhsd(k))
+    return tuple(g.to(x.dtype).transpose(1, 2).contiguous()
+                 for g, x in ((dq, q), (dk, k), (dv, v)))
+
+
+def attention_delta(o, do, g_lse=None):
+    """delta = rowsum(dO * O) [b, h, sq] f32, minus the lse cotangent when
+    there is one (dS = P(dP - delta) + P g_lse = P(dP - (delta - g_lse)))."""
+    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta.contiguous()
+
+
+# ---------------------------------------------------------------- kernels
+
+def _kernel(name):
+    fn = _fns.get(name)
+    if fn is None:
         from . import _build
 
-        fn = _build.load("flash_attention_fwd").flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib, argtypes = _SIGNATURES[name]
+        fn = getattr(_build.load(lib), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _check(q, k, v):
@@ -99,6 +166,18 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous in its last dim")
 
 
+def _strides(*xs):
+    return [s for x in xs for s in (x.stride(0), x.stride(1), x.stride(2))]
+
+
+def _call(name, device, *args):
+    fn = _kernel(name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
 def _launch(q, k, v, causal, sm_scale):
     global launches
     _check(q, k, v)
@@ -106,32 +185,118 @@ def _launch(q, k, v, causal, sm_scale):
     sk = k.shape[1]
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), _DTYPE_CODES[q.dtype], d, b, h, sq, sk,
-                 q.stride(0), q.stride(1), q.stride(2),
-                 k.stride(0), k.stride(1), k.stride(2),
-                 v.stride(0), v.stride(1), v.stride(2),
-                 o.stride(0), o.stride(1), o.stride(2),
-                 float(sm_scale), int(bool(causal)), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed with CUDA "
-                           f"error {err}")
+    _call("flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), o.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
+          d, b, h, sq, sk, *_strides(q, k, v, o), float(sm_scale),
+          int(bool(causal)))
     launches += 1
     return o, lse
 
 
+def _check_bwd(q, k, v, do, lse, delta):
+    _check(q, k, v)
+    b, sq, h, _ = q.shape
+    if (tuple(do.shape) != tuple(q.shape) or do.dtype != q.dtype
+            or do.stride(-1) != 1):
+        raise ValueError(f"dO must be {tuple(q.shape)} {q.dtype}, contiguous "
+                         f"in its last dim, got {tuple(do.shape)} {do.dtype}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if (tuple(x.shape) != (b, h, sq) or x.dtype != torch.float32
+                or not x.is_contiguous() or x.device != q.device):
+            raise ValueError(f"{name} must be a contiguous float32 [{b}, {h}, "
+                             f"{sq}] tensor on {q.device}")
+
+
+def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, sm_scale):
+    _check_bwd(q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    strides = (_LL * 18)(*_strides(q, k, v, do, *outs))
+    _call(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+          *(x.data_ptr() for x in outs), _DTYPE_CODES[q.dtype], d, b, h, sq,
+          k.shape[1], strides, float(sm_scale), int(bool(causal)))
+
+
+def _scale(q, sm_scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
+
+
+def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = False,
+                             sm_scale: float | None = None):
+    """(dk, dv) of the FA2 backward: the CUDA kernel on CUDA tensors (dO is
+    copied to contiguous first if its last dim is strided), the plain version
+    on CPU tensors. Shapes as ``flash_attention_bwd_plain``."""
+    global launches_dkdv
+    sm_scale = _scale(q, sm_scale)
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale)[1:]
+    do = do if do.stride(-1) == 1 else do.contiguous()
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("flash_attention_bwd_dkdv", q, k, v, do, lse, delta, (dk, dv),
+                causal, sm_scale)
+    launches_dkdv += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
+                           sm_scale: float | None = None):
+    """dq of the FA2 backward: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    global launches_dq
+    sm_scale = _scale(q, sm_scale)
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale)[0]
+    do = do if do.stride(-1) == 1 else do.contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("flash_attention_bwd_dq", q, k, v, do, lse, delta, (dq,), causal,
+                sm_scale)
+    launches_dq += 1
+    return dq
+
+
+# ---------------------------------------------------------------- autograd
+
+class _FlashAttention(torch.autograd.Function):
+    """(o, lse) = attention(q, k, v), differentiable in q, k, v through both
+    outputs (the custom_vjp pair _flash_bhsd / _flash_bhsd_lse of the JAX
+    package: an unused lse has no cotangent)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        if q.is_cuda:
+            o, lse = _launch(q, k, v, causal, sm_scale)
+        else:
+            o, lse = flash_attention_plain(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g_o, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if g_o is None:
+            g_o = torch.zeros_like(o)
+        delta = attention_delta(o, g_o, g_lse)
+        args = (q, k, v, g_o, lse, delta, ctx.causal, ctx.sm_scale)
+        if not q.is_cuda:
+            return (*flash_attention_bwd_plain(*args), None, None)
+        dq = dk = dv = None
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        if need_k or need_v:
+            dk, dv = flash_attention_bwd_dkdv(*args)
+        if need_q:
+            dq = flash_attention_bwd_dq(*args)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_with_lse(q, k, v, causal: bool = False,
                              sm_scale: float | None = None):
-    """q, k, v: [b, s, h, d]. Returns (out [b, sq, h, d], lse [b, h, sq] f32).
-    The causal mask is top-left aligned (query i sees keys 0..i)."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.is_cuda:
-        return _launch(q, k, v, causal, sm_scale)
-    return flash_attention_plain(q, k, v, causal, sm_scale)
+    """q, k, v: [b, s, h, d]. Returns (out [b, sq, h, d], lse [b, h, sq] f32),
+    both differentiable. The causal mask is top-left aligned (query i sees
+    keys 0..i)."""
+    return _FlashAttention.apply(q, k, v, bool(causal), float(_scale(q, sm_scale)))
 
 
 def flash_attention(q, k, v, causal: bool = False,

@@ -1,11 +1,18 @@
-"""NN functional ops of the GPT path (counterpart of paddle_tpu/ops/nn_functional.py
-and the ``gelu`` of paddle_tpu/ops/activation.py).
+"""NN functional ops of the GPT path (counterpart of paddle_tpu/ops/nn_functional.py,
+the ``gelu`` of paddle_tpu/ops/activation.py and the ``matmul`` / ``mean`` of
+paddle_tpu/ops/linalg.py and reduction.py).
 
 Same numerics as the JAX ops: LayerNorm statistics in f32 with the result
 cast back before the affine; attention softmax in f32 cast to q's dtype
 before P.V; a bool mask fills -1e9, the dense causal mask fills the dtype's
 most negative value. Linear weights use ``nn.Linear``'s ``[out, in]``
 layout (the JAX package stores ``[in, out]``; models/convert.py transposes).
+
+Each op looks itself up under ``amp.auto_cast`` by the JAX op name and casts
+its float inputs as the JAX dispatcher does. Dropout draws its keep mask
+from an explicit ``torch.Generator`` (on the tensor's device): the masks
+differ from the JAX package's threefry bits by design, and are held to
+their statistics and to determinism instead.
 """
 from __future__ import annotations
 
@@ -14,17 +21,33 @@ import math
 import torch
 import torch.nn.functional as TF
 
+from ..amp import cast_inputs
 from .kernels import flash_attention as _fa
 
 
 def linear(x, weight, bias=None):
     """``x @ weight.T + bias`` with an ``[out, in]`` weight."""
+    x, weight, bias = cast_inputs("linear", x, weight, bias)
     return TF.linear(x, weight, bias)
+
+
+def matmul(x, y, transpose_y=False):
+    x, y = cast_inputs("matmul", x, y)
+    if transpose_y:
+        y = y.transpose(-1, -2)
+    return torch.matmul(x, y)
+
+
+def mean(x):
+    """Mean over every element (``paddle.mean`` with no axis)."""
+    (x,) = cast_inputs("mean", x)
+    return x.mean()
 
 
 def embedding(ids, weight, padding_idx=None):
     """Row gather; rows whose id is ``padding_idx`` come out as zeros (the JAX
     op's forward semantics, unlike torch's gradient-only padding_idx)."""
+    (weight,) = cast_inputs("embedding", weight)
     out = weight[ids]
     if padding_idx is not None:
         out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)
@@ -32,6 +55,7 @@ def embedding(ids, weight, padding_idx=None):
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     dims = tuple(range(x.dim() - len(tuple(normalized_shape)), x.dim()))
@@ -47,24 +71,56 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
 
 
 def gelu(x, approximate=False):
+    (x,) = cast_inputs("gelu", x)
     return TF.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def _keep_mask(shape, keep, device, generator):
+    """Bernoulli(keep) as ``uniform < keep`` (jax.random.bernoulli's form)."""
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            generator=None):
+    """paddle's dropout. ``upscale_in_train`` scales kept values by 1/(1-p) in
+    training and is the identity otherwise; ``downscale_in_infer`` keeps
+    values as they are in training and scales by (1-p) otherwise. ``axis``
+    draws one keep decision per index of those axes (broadcast over the
+    rest). ``generator``: the torch.Generator the mask comes from (torch's
+    default one when None)."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"unknown dropout mode {mode!r}")
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            (x,) = cast_inputs("dropout_scale", x)
+            return x * (1 - p)
+        return x
+    (x,) = cast_inputs("dropout", x)
+    if p == 1.0:
+        return torch.zeros_like(x)
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    keep = _keep_mask(shape, 1.0 - p, x.device, generator)
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+    return torch.where(keep, x, 0.0).to(x.dtype)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
+                                 training=True, generator=None):
     """Inputs [batch, seq, heads, head_dim] (paddle convention).
 
-    Mask-free attention on a CUDA tensor goes to the flash kernel when
-    ``_use_flash`` allows; everything else takes the dense path. Attention
-    dropout belongs to training, which is not ported yet."""
-    if training and dropout_p > 0.0:
-        raise NotImplementedError(
-            "attention dropout is a training feature; the port serves and "
-            "scores only (call with training=False or dropout_p=0)")
-    q, k, v = query, key, value
+    Mask-free attention without dropout goes to the flash kernels when
+    ``_use_flash`` allows (CUDA tensors); everything else takes the dense
+    path. Attention dropout (training only) drops attention weights, as
+    paddle does, from ``generator``."""
+    q, k, v, attn_mask = cast_inputs("attention", query, key, value, attn_mask)
+    attn_dropout = dropout_p if training else 0.0
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if attn_mask is None and _use_flash(q, k):
+    if attn_mask is None and attn_dropout == 0.0 and _use_flash(q, k):
         return _fa.flash_attention(q, k, v, causal=is_causal, sm_scale=scale)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     scores = torch.matmul(qt, kt.transpose(-1, -2)) * scale   # [b, h, sq, sk]
@@ -79,6 +135,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                           device=scores.device).tril()
         scores = scores.masked_fill(~keep, torch.finfo(scores.dtype).min)
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    if attn_dropout > 0.0:
+        keep = 1.0 - attn_dropout
+        mask = _keep_mask(probs.shape, keep, probs.device, generator)
+        probs = torch.where(mask, probs / keep, 0.0).to(probs.dtype)
     return torch.matmul(probs, vt).transpose(1, 2)
 
 

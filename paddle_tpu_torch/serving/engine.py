@@ -16,8 +16,10 @@
   of the chunk, and queued requests are prefilled into free slots between
   chunks.
 
-Weights are snapshotted at construction (a private copy of the model);
-call ``refresh_params()`` after updating the model. Not ported yet: the
+Weights are snapshotted at construction (a private copy of the model, in
+eval mode; the caller's model keeps its mode, so a model can be served and
+then trained with its dropout); call ``refresh_params()`` after updating
+the model. Not ported yet: the
 paged KV layout and prefix cache, speculative decoding, drain/SIGTERM, the
 telemetry sinks and the executable registry (PyTorch runs eagerly; there is
 nothing to compile).
@@ -125,8 +127,7 @@ class ServingEngine:
                 f"kv_layout {kv_layout!r} is not ported yet; the port serves "
                 "from the contiguous slot cache")
         cfg = model.config
-        self.model = model
-        model.eval()
+        self.model = model      # its mode stays the caller's; the copy serves in eval
         self.slot_count = int(slot_count)
         if self.slot_count < 1:
             raise ValueError(f"slot_count must be >= 1, got {slot_count}")

@@ -7,16 +7,21 @@ conftest (which loads jax):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Inputs come from numpy with fixed seeds. Tolerances: f32 1e-4 (summation
-order; TF32 is turned off), bf16 2e-2 x max|o| (p rounds to bf16 against the
-running max in the kernel and the final max in the plain version).
+Inputs come from numpy with fixed seeds. Tolerances: f32 1e-4, times
+max(1, max|ref|) for gradients (summation order; TF32 is turned off); bf16
+2e-2 x max|ref| (p rounds to bf16 against the running max in the forward
+kernel and the final max in the plain version; the backward rounds P and dS
+to bf16 where both versions do, but sums in another order).
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.amp import auto_cast
+from paddle_tpu_torch.distributed import TrainStepEngine
 from paddle_tpu_torch.models import GPTForPretraining, gpt_tiny
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -51,6 +56,64 @@ def test_flash_kernel_matches_plain(cuda, dtype, causal, sq, sk, d):
     tol = 1e-4 if dt == torch.float32 else 2e-2 * po.float().abs().max().item()
     assert (o.float() - po.float()).abs().max().item() <= tol
     assert (lse - plse).abs().max().item() <= 1e-4
+
+
+def _bwd_inputs(cuda, dt, b, sq, sk, h, d, causal, seed):
+    """q, k, v, dO and the forward's lse and delta (from the plain version)."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32)).to(cuda, dt)
+                   for s in (sq, sk, sk, sq))
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal)
+    return q, k, v, do, lse, fa.attention_delta(o, do)
+
+
+@pytest.mark.parametrize("dtype,causal,sq,sk,d", [
+    ("float32", True, 256, 256, 64),
+    ("bfloat16", True, 256, 256, 64),
+    ("float32", False, 256, 256, 64),
+    ("bfloat16", False, 192, 192, 64),
+    ("float32", True, 200, 200, 32),     # ragged tiles
+    ("float32", False, 77, 300, 128),    # sq != sk, ragged
+    ("float32", True, 128, 320, 64),     # top-left causal with sq < sk
+    ("bfloat16", True, 300, 100, 128),   # sq > sk
+])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, causal, sq, sk, d):
+    dt = getattr(torch, dtype)
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, dt, 2, sq, sk, 3, d, causal, seed=7)
+    n_dkdv, n_dq = fa.launches_dkdv, fa.launches_dq
+    dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=causal)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.launches_dkdv, fa.launches_dq) == (n_dkdv + 1, n_dq + 1)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=causal)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        scale = ref.float().abs().max().item()
+        tol = 1e-4 * max(1.0, scale) if dt == torch.float32 else 2e-2 * scale
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
+def test_flash_autograd_goes_through_the_kernels(cuda):
+    """q, k, v views of one fused projection with requires_grad: the forward
+    and both backward kernels launch once each, and the gradients (with an
+    lse cotangent) match the same Function run on the CPU."""
+    rng = np.random.RandomState(8)
+    base = rng.randn(2, 192, 3, 4, 64).astype(np.float32)
+    g_o = torch.from_numpy(rng.randn(2, 192, 4, 64).astype(np.float32))
+    g_lse = torch.from_numpy(rng.randn(2, 4, 192).astype(np.float32))
+    grads = []
+    for dev in ("cuda", "cpu"):
+        qkv = torch.from_numpy(base).to(dev).requires_grad_()
+        q, k, v = qkv.unbind(dim=2)
+        before = (fa.launches, fa.launches_dkdv, fa.launches_dq)
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        ((o * g_o.to(dev)).sum() + (lse * g_lse.to(dev)).sum()).backward()
+        after = (fa.launches, fa.launches_dkdv, fa.launches_dq)
+        expect = 1 if dev == "cuda" else 0
+        assert [a - b for a, b in zip(after, before)] == [expect] * 3
+        grads.append(qkv.grad.cpu())
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-4
 
 
 def test_flash_kernel_reads_strided_qkv_views(cuda):
@@ -104,3 +167,55 @@ def test_engine_on_card_gives_the_cpu_engine_tokens(cuda):
         assert all(r.done for r in reqs)
         out.append([r.tokens for r in reqs])
     assert out[0] == out[1]
+
+
+def _train_step(device, ids, labels, amp_dtype=None):
+    model = GPTForPretraining(gpt_tiny(), device=device, seed=6)
+    eng = TrainStepEngine(model, AdamW(learning_rate=1e-3,
+                                       parameters=model.named_parameters()))
+    counts = (fa.launches, fa.launches_dkdv, fa.launches_dq)
+    with auto_cast(enable=amp_dtype is not None, dtype=amp_dtype or "bfloat16"):
+        loss = eng.step(ids, labels).item()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launched = [a - b for a, b in zip((fa.launches, fa.launches_dkdv, fa.launches_dq),
+                                      counts)]
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+    return loss, launched, grads, params
+
+
+@pytest.mark.parametrize("amp_dtype", [None, "bfloat16"])
+def test_gpt_tiny_train_step_on_card_matches_cpu(cuda, amp_dtype):
+    """One TrainStepEngine step of gpt_tiny ([2, 128]): on the card every
+    attention call goes through the three kernels (one launch each per
+    layer); loss, every gradient and the updated parameters match the CPU's
+    plain path. f32: loss rtol 1e-5, gradients 1e-4 x max(1, max|g|). bf16
+    autocast: loss rtol 1e-2, gradients 3e-2 relative in the Frobenius norm
+    (bf16 rounding, met at other points of the sums, moves a gradient by
+    about 1%; a missing or zero gradient is 1 away). Adam's first step moves
+    each entry by about lr x sign(g), so a gradient within rounding of 0 may
+    move it the other way: parameters within 2.5e-3, and at most 0.1% (f32)
+    or 1% (bf16) of the entries more than 1e-5 apart."""
+    rng = np.random.RandomState(9)
+    ids = rng.randint(0, 1024, (2, 128)).astype(np.int64)
+    labels = np.roll(ids, -1, 1)
+    card = _train_step("cuda", ids, labels, amp_dtype)
+    cpu = _train_step("cpu", ids, labels, amp_dtype)
+    n = gpt_tiny().num_layers
+    assert card[1] == [n, n, n] and cpu[1] == [0, 0, 0]
+    f32 = amp_dtype is None
+    assert card[0] == pytest.approx(cpu[0], rel=1e-5 if f32 else 1e-2)
+    apart = total = 0
+    for name in cpu[2]:
+        g_card, g_cpu = card[2][name], cpu[2][name]
+        if f32:
+            tol = 1e-4 * max(1.0, g_cpu.abs().max().item())
+            assert (g_card - g_cpu).abs().max().item() <= tol, name
+        else:
+            assert ((g_card - g_cpu).norm() / g_cpu.norm()).item() <= 3e-2, name
+        diff = (card[3][name] - cpu[3][name]).abs()
+        assert diff.max().item() <= 2.5e-3, name
+        apart += int((diff > 1e-5).sum())
+        total += diff.numel()
+    assert apart <= (1e-3 if f32 else 1e-2) * total, (apart, total)

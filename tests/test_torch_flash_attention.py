@@ -1,17 +1,21 @@
-"""paddle_tpu_torch flash attention vs the JAX package's Pallas kernel.
+"""paddle_tpu_torch flash attention vs the JAX package's Pallas kernels,
+forward and FA2 backward.
 
-On the CPU the port's wrapper takes its plain PyTorch version; the JAX side
-runs the Pallas kernel in interpret mode, as tests/test_flash_attention.py
-does. Inputs come from numpy with a fixed seed.
+On the CPU the port's wrappers take their plain PyTorch versions; the JAX
+side runs the Pallas kernels in interpret mode, as
+tests/test_flash_attention.py does. Inputs come from numpy with a fixed
+seed.
 
-Tolerances: f32 atol 2e-5 (the Pallas tests' own bound: same math, other
-summation order); bf16 2e-2 x max|o| (p is rounded to bf16 against the
-running max in the Pallas kernel and the final max in the plain version).
-The kernel itself is held against the plain version on the card by
+Tolerances: forward f32 atol 2e-5 (the Pallas tests' own bound: same math,
+other summation order); forward bf16 2e-2 x max|o| (p is rounded to bf16
+against the running max in the Pallas kernel and the final max in the
+plain version); gradients as stated above the backward tests. The kernels
+themselves are held against the plain versions on the card by
 chip_smoke.py and tests/test_torch_cuda.py.
 """
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,3 +110,108 @@ def test_common_parity():
         for pref in (512, 256, 128, 64):
             assert port_common.pick_block(n, pref) == jax_common.pick_block(n, pref), \
                 (n, pref)
+
+
+# ------------------------------------------------------------------ backward
+#
+# dq, dk, dv of the port's Function (plain forward and backward on the CPU)
+# against jax.vjp through the Pallas kernels in interpret mode, as
+# tests/test_flash_attention.py:31-41 differentiates them. Tolerances: f32
+# atol 5e-5 (the Pallas tests' own bound for gradients); bf16 3e-2 x max|g|
+# (P and dS round to bf16 in both, but against sums taken in other orders).
+
+GRAD_ATOL = 5e-5
+BWD_CASES = [  # (b, sq, sk, h, d, causal)
+    (1, 128, 128, 2, 32, False),
+    (1, 128, 128, 2, 32, True),
+    (1, 32, 128, 2, 16, False),    # sq != sk
+    (1, 64, 128, 2, 16, True),     # sq != sk, causal is top-left aligned
+    (1, 128, 64, 1, 32, True),     # sq > sk
+]
+
+
+def _jax_grads(q, k, v, cot, causal, dtype=None, with_lse=False, sm_scale=None):
+    jq, jk, jv = (jnp.asarray(x, dtype=dtype) for x in (q, k, v))
+    if with_lse:
+        fn = lambda a, b, c: jax_fa.flash_attention_with_lse(  # noqa: E731
+            a, b, c, causal=causal, sm_scale=sm_scale)
+        cot = (jnp.asarray(cot[0], dtype=dtype), jnp.asarray(cot[1]))
+    else:
+        fn = lambda a, b, c: jax_fa.flash_attention(  # noqa: E731
+            a, b, c, causal=causal, sm_scale=sm_scale)
+        cot = jnp.asarray(cot, dtype=dtype)
+    _, vjp = jax.vjp(fn, jq, jk, jv)
+    return [np.asarray(g.astype(jnp.float32)) for g in vjp(cot)]
+
+
+def _port_grads(q, k, v, cot, causal, dtype=torch.float32, with_lse=False,
+                sm_scale=None):
+    tq, tk, tv = (torch.from_numpy(x).to(dtype).requires_grad_() for x in (q, k, v))
+    if with_lse:
+        o, lse = port_fa.flash_attention_with_lse(tq, tk, tv, causal=causal,
+                                                  sm_scale=sm_scale)
+        outs, cots = (o, lse), (torch.from_numpy(cot[0]).to(dtype),
+                                torch.from_numpy(cot[1]))
+    else:
+        outs = (port_fa.flash_attention(tq, tk, tv, causal=causal, sm_scale=sm_scale),)
+        cots = (torch.from_numpy(cot).to(dtype),)
+    grads = torch.autograd.grad(outs, (tq, tk, tv), cots)
+    assert all(g.dtype == dtype for g in grads)
+    return [g.float().numpy() for g in grads]
+
+
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=lambda c: "b%d_sq%d_sk%d_h%d_d%d_causal%d" % c)
+def test_backward_f32_matches_pallas(case):
+    b, sq, sk, h, d, causal = case
+    q, k, v = _inputs(b, sq, sk, h, d, seed=10)
+    cot = np.random.RandomState(11).randn(b, sq, h, d).astype(np.float32)
+    want = _jax_grads(q, k, v, cot, causal)
+    got = _port_grads(q, k, v, cot, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, atol=GRAD_ATOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_bf16_matches_pallas_loosely(causal):
+    q, k, v = _inputs(1, 128, 128, 2, 32, seed=12)
+    cot = np.random.RandomState(13).randn(1, 128, 2, 32).astype(np.float32)
+    want = _jax_grads(q, k, v, cot, causal, dtype=jnp.bfloat16)
+    got = _port_grads(q, k, v, cot, causal, dtype=torch.bfloat16)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, atol=3e-2 * np.abs(w).max(), rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_with_lse_backward_carries_the_lse_cotangent(causal):
+    """A nonzero cotangent on lse folds into delta (delta - g_lse), as the
+    ring-attention merge needs; checked against the Pallas rule."""
+    q, k, v = _inputs(1, 128, 128, 2, 32, seed=14)
+    rng = np.random.RandomState(15)
+    cot = (rng.randn(1, 128, 2, 32).astype(np.float32),
+           rng.randn(1, 2, 128).astype(np.float32))
+    want = _jax_grads(q, k, v, cot, causal, with_lse=True, sm_scale=0.3)
+    got = _port_grads(q, k, v, cot, causal, with_lse=True, sm_scale=0.3)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, atol=GRAD_ATOL, rtol=0, err_msg=name)
+    # and the fold is visible: without the lse cotangent the grads differ
+    plain = _port_grads(q, k, v, cot[0], causal, sm_scale=0.3)
+    assert max(np.abs(a - b).max() for a, b in zip(plain, got)) > 1e-3
+
+
+def test_backward_wrappers_on_cpu_are_the_plain_version():
+    """The per-kernel wrappers take the plain version for CPU tensors and
+    launch nothing."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 128, 128, 2, 32, seed=16))
+    do = torch.from_numpy(np.random.RandomState(17).randn(1, 128, 2, 32)
+                          .astype(np.float32))
+    o, lse = port_fa.flash_attention_plain(q, k, v, causal=True)
+    delta = port_fa.attention_delta(o, do)
+    before = (port_fa.launches_dkdv, port_fa.launches_dq)
+    dk, dv = port_fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=True)
+    dq = port_fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    assert (port_fa.launches_dkdv, port_fa.launches_dq) == before
+    want = port_fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=True)
+    for g, w in zip((dq, dk, dv), want):
+        assert torch.equal(g, w)

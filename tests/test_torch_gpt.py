@@ -29,6 +29,7 @@ def models():
     jm.eval()
     state = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
     pm = load_jax_state(GPTForPretraining(gpt_tiny(), device="cpu"), state)
+    pm.requires_grad_(False)   # the parameters are trainable; these tests score
     return jm, pm, state
 
 
@@ -114,10 +115,24 @@ def test_cached_step_matches_jax(models, mode, s):
 
 
 def test_labels_path_is_not_ported(models):
-    _, pm, _ = models
-    ids = torch.from_numpy(_ids(1, 8))
-    with pytest.raises(NotImplementedError):
-        pm(ids, labels=ids)
+    """The labels path is ported now (it was refused in the first slice):
+    forward(ids, labels) is the mean fused LM loss, equal to JAX's and to
+    the cross entropy of the logits, ignored positions counting as 0."""
+    import torch.nn.functional as TF
+
+    jm, pm, _ = models
+    ids = _ids(2, 16, seed=4)
+    labels = np.roll(ids, -1, 1)
+    labels[:, -1] = -100
+    want = float(jm(paddle.to_tensor(ids), paddle.to_tensor(labels)).item())
+    with torch.no_grad():
+        got = pm(torch.from_numpy(ids), torch.from_numpy(labels))
+        logits = pm(torch.from_numpy(ids))
+    assert got.shape == () and got.dtype == torch.float32
+    np.testing.assert_allclose(got.item(), want, rtol=1e-5)
+    ce = TF.cross_entropy(logits.reshape(-1, 1024), torch.from_numpy(labels).reshape(-1),
+                          ignore_index=-100, reduction="sum") / labels.size
+    np.testing.assert_allclose(got.item(), ce.item(), rtol=1e-5)
 
 
 def test_seeded_init_is_deterministic():
@@ -126,6 +141,6 @@ def test_seeded_init_is_deterministic():
     c = GPTForPretraining(gpt_tiny(), device="cpu", seed=8)
     wa, wb, wc = (m.gpt.blocks[0].attn.qkv_proj.weight for m in (a, b, c))
     assert torch.equal(wa, wb) and not torch.equal(wa, wc)
-    assert not any(p.requires_grad for p in a.parameters())
+    assert all(p.requires_grad for p in a.parameters())   # trainable
     assert torch.equal(a.gpt.ln_f.weight, torch.ones(128))
     assert torch.equal(a.gpt.ln_f.bias, torch.zeros(128))

@@ -112,6 +112,51 @@ def test_cpu_attention_never_routes_to_the_kernel():
 
 
 def test_attention_dropout_in_training_is_refused():
+    """Attention dropout is refused by the flash route (as in JAX, flash is
+    taken only without it): in training the dense path drops attention
+    weights from the generator, deterministically; out of training it is
+    the identity."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 1, 8, seed=6))
-    with pytest.raises(NotImplementedError):
-        F.scaled_dot_product_attention(q, k, v, dropout_p=0.1, training=True)
+    ref = F.scaled_dot_product_attention(q, k, v, dropout_p=0.0)
+    off = F.scaled_dot_product_attention(q, k, v, dropout_p=0.5, training=False)
+    assert torch.equal(off, ref)
+    a, b = (F.scaled_dot_product_attention(
+        q, k, v, dropout_p=0.5, training=True,
+        generator=torch.Generator().manual_seed(1)) for _ in range(2))
+    assert torch.equal(a, b) and not torch.allclose(a, ref)
+    # with every weight kept (p -> 0 scale) the result is the reference's
+    kept = F.scaled_dot_product_attention(
+        q, k, v, dropout_p=1e-12, training=True,
+        generator=torch.Generator().manual_seed(1))
+    np.testing.assert_allclose(kept.numpy(), ref.numpy(), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["upscale_in_train", "downscale_in_infer"])
+@pytest.mark.parametrize("training", [True, False])
+@pytest.mark.parametrize("p", [0.0, 1.0])
+def test_dropout_deterministic_cases_match_jax(mode, training, p):
+    """p = 0, p = 1 and inference draw no mask: exact against JAX."""
+    x = np.random.RandomState(7).randn(3, 5).astype(np.float32)
+    want = _np(JF.dropout(_t(x), p, training=training, mode=mode))
+    got = F.dropout(torch.from_numpy(x), p, training=training, mode=mode)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-7, rtol=0)
+
+
+def test_dropout_statistics_and_determinism():
+    """Masks come from a torch.Generator, not JAX's threefry: held to the keep
+    rate (4 sigma), the upscale, per-axis broadcast and reproducibility."""
+    x = torch.ones(200, 500)
+    p = 0.3
+    y = F.dropout(x, p, generator=torch.Generator().manual_seed(0))
+    kept = (y != 0).float().mean().item()
+    sigma = (p * (1 - p) / x.numel()) ** 0.5
+    assert abs(kept - (1 - p)) < 4 * sigma
+    assert torch.allclose(y[y != 0], torch.full_like(y[y != 0], 1 / (1 - p)))
+    y2 = F.dropout(x, p, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(y, y2)
+    row = F.dropout(x, p, axis=0, generator=torch.Generator().manual_seed(1))
+    assert all(len(set(r.tolist())) == 1 for r in row)     # one draw per row
+    down = F.dropout(x, p, mode="downscale_in_infer",
+                     generator=torch.Generator().manual_seed(0))
+    assert set(down.unique().tolist()) <= {0.0, 1.0}
+    assert torch.equal(down != 0, y != 0)
