@@ -32,9 +32,22 @@ each:
    then 1 + 3 steps of the same step in f32 (step time only).
 7. train_vs_cpu: one f32 step at full width and 2 layers, ids [1, 1024], on
    the card and on the CPU (plain path): loss and every gradient.
-8. the ``kernels`` line: every ported kernel with its launches on the
-   training main path (phase 6's timed steps) and its numbers from phase 2
-   at that path's shape and dtype (bf16).
+8. library_ops, the direct-call LayerNorm and LM-loss ops (the JAX
+   package's examples/pallas_library_ops.py at full width): each of their
+   six kernels against its plain version at GPT-2 124M's shapes (LayerNorm
+   [8192, 768] f32 and bf16; LM loss h [8192, 768], W [50304, 768], bf16 h
+   with an f32 W and f32, plus vocab 50257 and labels of -100), with kernel,
+   plain, bound and library times; then the composition they exist for: the
+   124M model's hidden state before ln_f through the kernel LayerNorm and the
+   kernel LM loss with the tied embedding, loss and the gradients of wte and
+   ln_f against the model's own route. Each kernel launches once in that
+   pass.
+9. lmloss_compile_probe: the LM-loss forward's stripped variants at the
+   probe's defaults, checked and timed, with ptxas's registers and spills.
+10. the ``kernels`` line: every ported kernel with the path that launched
+   it (the training main path's timed steps, or the library_ops pass), its
+   launches there and its numbers from the kernel_vs_plain phases at that
+   path's shape and dtype.
 
 Any failure raises (exit code 1). Without a CUDA card, or without the
 package beside it, the script exits non-zero before printing a result. The
@@ -86,6 +99,37 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20):
+    """Device time of one call of fn with a cold L2: the median over
+    ``iters`` calls of CUDA events recorded around the call, each call after
+    a 512 MB device-to-device copy. The copy evicts the 50 MB L2, and at
+    ~0.3 ms it outlasts the host's Python time for a call, so the host runs
+    ahead of the card and the events see the call's kernels back to back.
+    For calls of tens of microseconds, where events around a loop of calls
+    would count the host's time between launches and a warm L2."""
+    src = torch.empty(128 << 20, device="cuda")
+    dst = torch.empty_like(src)
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    for start, end in pairs:
+        dst.copy_(src)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in pairs)
+
+
+def _bound(flops, nbytes, dtype):
+    """Least time of the card for ``flops`` operations at the dtype's peak
+    and ``nbytes`` moved at the HBM rate: (ms, what bounds it)."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def attention_bound(b, h, sq, sk, d, causal, dtype, products=2, seq_tensors=None):
     """Least time of the card for attention work: each input read once, each
     output written once, and ``products`` matrix products over the (q, k)
@@ -101,9 +145,7 @@ def attention_bound(b, h, sq, sk, d, causal, dtype, products=2, seq_tensors=None
     n_q, n_k, n_rows = seq_tensors or (2, 2, 1)
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = esize * d * b * h * (n_q * sq + n_k * sk) + 4 * b * h * sq * n_rows
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(flops, nbytes, dtype)
 
 
 def phase_env():
@@ -122,7 +164,7 @@ def phase_env():
               for name in per_source}
     emit(phase="build", seconds=time.perf_counter() - t0, per_source=per_source,
          ptxas=report)
-    return card
+    return per_source
 
 
 def phase_kernels_fwd():
@@ -502,6 +544,283 @@ def phase_train_vs_cpu():
          grad_tol=TRAIN_GRAD_TOL)
 
 
+def _close_or_raise(what, got, want, dtype, grad=False):
+    """max |got - want| and its tolerance: f32 F32_TOL (times max(1, max|ref|)
+    for gradients), bf16 BF16_TOL x max|ref|; raises past it."""
+    scale = want.float().abs().max().item()
+    if dtype == torch.float32:
+        tol = (GRAD_F32_TOL * max(1.0, scale)) if grad else F32_TOL
+    else:
+        tol = BF16_TOL * scale
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{what}: kernel vs plain error {err} (tol {tol})")
+    return err, tol
+
+
+def phase_layer_norm_kernels(n=8192, h=768):
+    """The three LayerNorm kernels against their plain versions at GPT-2
+    124M's final-LayerNorm shape ([8, 1024, 768] as [8192, 768]), f32 and
+    bf16; torch's layer_norm (and its autograd backward) is the library
+    yardstick. Kernel, plain and library times are device times with a cold
+    L2 (``device_ms``); ``wall_ms`` is the CUDA-event time of the wrapper's
+    call in a loop, host time and a warm L2 included. Returns {dtype:
+    {kernel: record}}."""
+    from paddle_tpu_torch.ops.kernels import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(n, h, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+        dy = torch.randn(n, h, device="cuda", generator=gen).to(dtype)
+        g = 1 + 0.1 * torch.randn(h, device="cuda", generator=gen)
+        b = 0.1 * torch.randn(h, device="cuda", generator=gen)
+        oi = ln.layer_norm_fwd(x, g, b, stats=False)
+        o, mu, rstd = ln.layer_norm_fwd(x, g, b, stats=True)
+        dx, dg, db = ln.layer_norm_bwd(x, g, dy, mu, rstd)
+        torch.cuda.synchronize()
+        po, pmu, prstd = ln.layer_norm_fwd_plain(x, g, b)
+        pdx, pdg, pdb = ln.layer_norm_bwd_plain(x, g, dy, pmu, prstd)
+        name = f"layer_norm [{n}, {h}] {str(dtype)[6:]}"
+        err_i, tol_o = _close_or_raise(f"{name} inference forward", oi, po, dtype)
+        err_o, _ = _close_or_raise(f"{name} training forward", o, po, dtype)
+        err_s = max(_close_or_raise(f"{name} mu", mu, pmu, torch.float32)[0],
+                    _close_or_raise(f"{name} rstd", rstd, prstd, torch.float32, True)[0])
+        err_dx, tol_dx = _close_or_raise(f"{name} dx", dx, pdx, dtype, grad=True)
+        err_dgb = max(_close_or_raise(f"{name} {k}", got, ref, torch.float32, True)[0]
+                      for k, got, ref in (("dg", dg, pdg), ("db", db, pdb)))
+
+        gx, bx = g.to(dtype), b.to(dtype)       # torch's op takes one dtype
+        xl = x.detach().clone().requires_grad_()
+        gl, bl = gx.clone().requires_grad_(), bx.clone().requires_grad_()
+        ol = torch.nn.functional.layer_norm(xl, (h,), gl, bl, 1e-5)
+        with torch.no_grad():
+            lib_fwd = device_ms(lambda: torch.nn.functional.layer_norm(x, (h,), gx, bx,
+                                                                       1e-5))
+        lib_bwd = device_ms(lambda: torch.autograd.grad(ol, (xl, gl, bl), dy,
+                                                        retain_graph=True))
+        esize = x.element_size()
+        io = esize * n * h                          # one [n, h] tensor in x's dtype
+        elems = n * h
+        rows = {
+            "layer_norm_infer": dict(
+                fn=lambda: ln.layer_norm_fwd(x, g, b, stats=False), err=err_i, tol=tol_o,
+                plain=lambda: ln.layer_norm_fwd_plain(x, g, b), library_ms=lib_fwd,
+                flops=7 * elems, nbytes=2 * io + 8 * h),
+            "layer_norm_fwd": dict(
+                fn=lambda: ln.layer_norm_fwd(x, g, b, stats=True), err=max(err_o, err_s),
+                tol=tol_o, plain=lambda: ln.layer_norm_fwd_plain(x, g, b),
+                library_ms=lib_fwd, flops=7 * elems, nbytes=2 * io + 8 * h + 8 * n),
+            "layer_norm_bwd": dict(
+                fn=lambda: ln.layer_norm_bwd(x, g, dy, mu, rstd), err=max(err_dx, err_dgb),
+                tol=tol_dx, plain=lambda: ln.layer_norm_bwd_plain(x, g, dy, mu, rstd),
+                library_ms=lib_bwd, flops=13 * elems, nbytes=3 * io + 12 * h + 8 * n),
+        }
+        recs = {}
+        for kernel, r in rows.items():
+            bound_ms, bound_by = _bound(r["flops"], r["nbytes"], torch.float32)
+            recs[kernel] = dict(
+                case=f"final_ln_{str(dtype)[6:]}", shape=[n, h], dtype=str(dtype)[6:],
+                max_abs_err=r["err"], tol=r["tol"], kernel_ms=device_ms(r["fn"]),
+                plain_ms=device_ms(r["plain"]), library_ms=r["library_ms"],
+                bound_ms=bound_ms, bound_by=bound_by, wall_ms=cuda_ms(r["fn"], iters=50))
+            emit(phase="kernel_vs_plain", kernel=kernel, **recs[kernel],
+                 library="torch.nn.functional.layer_norm" + (
+                     " autograd backward (dx, dg, db)" if kernel == "layer_norm_bwd" else ""))
+        out[dtype] = recs
+        del x, dy, oi, o, mu, rstd, dx, dg, db, po, pmu, prstd, pdx, pdg, pdb, xl, ol
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_loss_kernels(ids, vocab=50304, h=768):
+    """The three LM-loss kernels against their plain versions at GPT-2 124M's
+    LM head: h [8192, 768], W [vocab, 768], labels roll(ids, -1). Timed: bf16
+    h with an f32 master W (the on-chip amp configuration) and f32; checked
+    only: GPT-2's own vocabulary 50257 (a ragged last vocab tile) and labels
+    of -100 (their rows' loss is the logsumexp). The library yardstick is
+    cross_entropy(linear(h, W).float()) and its autograd backward (dh and
+    dW together). Returns {case: {kernel: record}}."""
+    from paddle_tpu_torch.ops.kernels import lm_loss as lm
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    labels = torch.roll(ids, -1, 1).reshape(-1).to(torch.int32)
+    n = labels.numel()
+    w32 = torch.randn(vocab, h, device="cuda", generator=gen) * 0.02
+    h32 = torch.randn(n, h, device="cuda", generator=gen)
+    g = torch.ones(n, device="cuda")
+    minus100 = labels.clone()
+    minus100[::97] = -100
+    cases = [  # (name, h, W, labels, timed)
+        ("bf16_h_f32_w", h32.bfloat16(), w32, labels, True),
+        ("f32", h32, w32, labels, True),
+        ("vocab50257_f32", h32, w32[:50257].contiguous(), labels % 50257, False),
+        ("label_minus100_bf16_h_f32_w", h32.bfloat16(), w32, minus100, False),
+    ]
+    out = {}
+    for name, hh, w, lab, timed in cases:
+        dt = hh.dtype
+        loss, lse = lm.lm_loss_fwd(hh, w, lab)
+        dh = lm.lm_loss_dh(hh, w, lab, lse, g)
+        dw = lm.lm_loss_dw(hh, w, lab, lse, g)
+        torch.cuda.synchronize()
+        ploss, plse = lm.lm_loss_fwd_plain(hh, w, lab)
+        pdh, pdw = lm.lm_loss_bwd_plain(hh, w, lab, plse, g)
+        if dw.shape != w.shape or dw.dtype != w.dtype or dh.dtype != dt:
+            raise AssertionError(f"lm_loss {name}: dh {dh.dtype}, dw {tuple(dw.shape)} "
+                                 f"{dw.dtype}")
+        err_f, tol_f = _close_or_raise(f"lm_loss {name} loss", loss, ploss, dt)
+        err_f = max(err_f, _close_or_raise(f"lm_loss {name} lse", lse, plse, dt)[0])
+        err_dh, tol_dh = _close_or_raise(f"lm_loss {name} dh", dh, pdh, dt, grad=True)
+        err_dw, tol_dw = _close_or_raise(f"lm_loss {name} dw", dw, pdw, dt, grad=True)
+        if name.startswith("label_minus100"):
+            ignored = lab == -100
+            if not torch.equal(loss[ignored], lse[ignored]):
+                raise AssertionError("a -100 label picked a logit")
+        recs = {}
+        if timed:
+            v = w.shape[0]
+            hl = hh.detach().clone().requires_grad_()
+            wl = w.detach().clone().requires_grad_()
+            labl = lab.long()
+
+            def library_fwd():
+                return torch.nn.functional.cross_entropy(
+                    torch.nn.functional.linear(hl, wl.to(dt)).float(), labl,
+                    reduction="none")
+
+            lib_loss = library_fwd()
+            with torch.no_grad():
+                lib_fwd_ms = cuda_ms(library_fwd, iters=5)
+            lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_loss, (hl, wl), g,
+                                                             retain_graph=True), iters=5)
+            plain_bwd_ms = cuda_ms(lambda: lm.lm_loss_bwd_plain(hh, w, lab, plse, g),
+                                   iters=3)
+            hb, wb = hh.element_size() * n * h, w.element_size() * v * h
+            rows = {
+                "lm_loss_fwd": (lambda: lm.lm_loss_fwd(hh, w, lab), err_f, tol_f,
+                                cuda_ms(lambda: lm.lm_loss_fwd_plain(hh, w, lab), iters=3),
+                                lib_fwd_ms, 2, hb + wb + 12 * n),
+                "lm_loss_dh": (lambda: lm.lm_loss_dh(hh, w, lab, lse, g), err_dh, tol_dh,
+                               plain_bwd_ms, lib_bwd_ms, 4, 2 * hb + wb + 12 * n),
+                "lm_loss_dw": (lambda: lm.lm_loss_dw(hh, w, lab, lse, g), err_dw, tol_dw,
+                               plain_bwd_ms, lib_bwd_ms, 4, hb + wb + 4 * v * h + 12 * n),
+            }
+            for kernel, (fn, err, tol, plain_ms, lib_ms, products, nbytes) in rows.items():
+                bound_ms, bound_by = _bound(products * n * v * h, nbytes, dt)
+                recs[kernel] = dict(
+                    case=name, shape=[n, v, h], dtype=f"h {str(dt)[6:]}, W {str(w.dtype)[6:]}",
+                    max_abs_err=err, tol=tol, kernel_ms=cuda_ms(fn, iters=5, warmup=1),
+                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                    bound_by=bound_by)
+                emit(phase="kernel_vs_plain", kernel=kernel, **recs[kernel],
+                     plain="lm_loss_bwd_plain (dh, dw)" if kernel != "lm_loss_fwd"
+                     else "lm_loss_fwd_plain",
+                     library="cross_entropy(linear(h, W).float())" + (
+                         " autograd backward (dh, dW)" if kernel != "lm_loss_fwd" else ""))
+            del hl, wl, lib_loss
+        else:
+            emit(phase="kernel_vs_plain", kernel="lm_loss (fwd, dh, dw)", case=name,
+                 shape=[n, w.shape[0], h], max_abs_err=[err_f, err_dh, err_dw],
+                 tol=[tol_f, tol_dh, tol_dw])
+        out[name] = recs
+        del loss, lse, dh, dw, ploss, plse, pdh, pdw
+        torch.cuda.empty_cache()
+    return out
+
+
+def _library_counts():
+    from paddle_tpu_torch.ops.kernels import layer_norm as ln
+    from paddle_tpu_torch.ops.kernels import lm_loss as lm
+
+    return {"layer_norm_fwd": ln.launches_fwd, "layer_norm_infer": ln.launches_infer,
+            "layer_norm_bwd": ln.launches_bwd, "lm_loss_fwd": lm.launches_fwd,
+            "lm_loss_dh": lm.launches_dh, "lm_loss_dw": lm.launches_dw}
+
+
+def _reset_library_counts():
+    from paddle_tpu_torch.ops.kernels import layer_norm as ln
+    from paddle_tpu_torch.ops.kernels import lm_loss as lm
+
+    ln.launches_fwd = ln.launches_infer = ln.launches_bwd = 0
+    lm.launches_fwd = lm.launches_dh = lm.launches_dw = 0
+
+
+def phase_library_ops(ids):
+    """The composition the library ops exist for, at GPT-2 124M width and
+    depth in f32: the hidden state before ln_f through the kernel LayerNorm
+    (no_grad: the inference forward, held against the model's ln_f; then
+    with grad), the tied LM head and loss through the kernel LM loss, mean
+    over rows. Loss and the gradients of wte, ln_f.weight and ln_f.bias are
+    held against the model's own route (plain LayerNorm, chunked fused
+    loss). Returns the launch counts of the pass (each kernel once)."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops.kernels import layer_norm as ln
+    from paddle_tpu_torch.ops.kernels import lm_loss as lm
+
+    model = GPTForPretraining(GPTConfig(), seed=0)
+    labels = torch.roll(ids, -1, 1)
+    gpt = model.gpt
+    params = {"gpt.wte.weight": gpt.wte.weight, "gpt.ln_f.weight": gpt.ln_f.weight,
+              "gpt.ln_f.bias": gpt.ln_f.bias}
+
+    t0 = time.perf_counter()
+    _reset_library_counts()
+    x = gpt.wte(ids) + gpt.wpe(torch.arange(ids.shape[1], device=ids.device))
+    for blk in gpt.blocks:
+        x = blk(x)
+    with torch.no_grad():
+        h_inf = ln.layer_norm(x, gpt.ln_f.weight, gpt.ln_f.bias, gpt.ln_f.epsilon)
+        h_ref = gpt.ln_f(x)
+    hidden = ln.layer_norm(x, gpt.ln_f.weight, gpt.ln_f.bias, gpt.ln_f.epsilon)
+    loss = lm.lm_head_cross_entropy(hidden.reshape(-1, hidden.shape[-1]),
+                                    gpt.wte.weight, labels.reshape(-1)).mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = _library_counts()
+    pass_s = time.perf_counter() - t0
+    if set(launches.values()) != {1}:
+        raise AssertionError(f"the library_ops pass launched {launches}, expected each "
+                             f"kernel once")
+    ln_err = (h_inf - h_ref).abs().max().item()
+    if not ln_err <= F32_TOL * max(1.0, h_ref.abs().max().item()):
+        raise AssertionError(f"kernel LayerNorm vs ln_f: {ln_err}")
+    grads = {k: p.grad.clone() for k, p in params.items()}
+    kernel_loss = loss.item()
+    del x, h_inf, h_ref, hidden, loss
+
+    model.zero_grad(set_to_none=True)
+    ref = model(ids, labels)
+    ref.backward()
+    ref_loss = ref.item()
+    loss_err = abs(kernel_loss - ref_loss) / abs(ref_loss)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"library ops loss {kernel_loss} vs the model's {ref_loss}")
+    worst = {}
+    for k, p in params.items():
+        scale = p.grad.abs().max().item()
+        err = (grads[k] - p.grad).abs().max().item()
+        worst[k] = err / scale
+        if not err <= TRAIN_GRAD_TOL * scale:
+            raise AssertionError(f"library ops gradient of {k}: {err} (max|g| {scale})")
+    emit(phase="library_ops", model="gpt2-124m", batch=list(ids.shape), dtype="float32",
+         loss_kernels=kernel_loss, loss_model=ref_loss, loss_rel_err=loss_err,
+         loss_rtol=TRAIN_LOSS_RTOL, grad_rel_err=worst, grad_tol=TRAIN_GRAD_TOL,
+         ln_inference_vs_ln_f_max_abs_err=ln_err, launches=launches, pass_s=pass_s)
+    del model, grads, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_probe(build_seconds):
+    """The LM-loss compile probe's port at its defaults (rows 4096, vocab
+    8192, hidden 768, bf16): each forward variant checked and timed."""
+    from paddle_tpu_torch.tools import lmloss_compile_probe as probe
+
+    return probe.run(build_seconds=build_seconds,
+                     emit=lambda rec: emit(phase="lmloss_compile_probe", **rec))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -513,7 +832,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_env()
+    per_source = phase_env()
     fwd = phase_kernels_fwd()
     bwd = phase_kernels_bwd()
 
@@ -533,26 +852,47 @@ def main() -> int:
     launches = phase_train(ids)
     torch.cuda.empty_cache()
     phase_train_vs_cpu()
+    torch.cuda.empty_cache()
 
-    # the training main path runs attention in bf16 at [8, 1024, 12, 64]
-    main = {"flash_attention_fwd": fwd["slice_bf16_causal"],
-            "flash_attention_bwd_dkdv": bwd["train_bf16_causal"]["dkdv"],
-            "flash_attention_bwd_dq": bwd["train_bf16_causal"]["dq"]}
-    sources = {"flash_attention_fwd": ("flash_attention_fwd.cu",
-                                       "paddle_tpu/ops/pallas/flash_attention.py:114"),
-               "flash_attention_bwd_dkdv": ("flash_attention_bwd.cu",
-                                            "paddle_tpu/ops/pallas/flash_attention.py:242"),
-               "flash_attention_bwd_dq": ("flash_attention_bwd.cu",
-                                          "paddle_tpu/ops/pallas/flash_attention.py:268")}
+    ln_recs = phase_layer_norm_kernels()
+    lm_recs = phase_lm_loss_kernels(ids)
+    library_launches = phase_library_ops(ids)
+    phase_probe(per_source["lm_loss"] or None)
+
+    # the training main path runs attention in bf16 at [8, 1024, 12, 64]; the
+    # library ops are reported at the composition's shapes: LayerNorm in f32
+    # (black-listed under O1), the LM loss with bf16 h and an f32 master W
+    pallas = "paddle_tpu/ops/pallas/"
+    rows = [  # (name, path, record, source, replaces)
+        ("flash_attention_fwd", "train", fwd["slice_bf16_causal"],
+         "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
+        ("flash_attention_bwd_dkdv", "train", bwd["train_bf16_causal"]["dkdv"],
+         "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
+        ("flash_attention_bwd_dq", "train", bwd["train_bf16_causal"]["dq"],
+         "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
+        ("layer_norm_fwd", "library_ops", ln_recs[torch.float32]["layer_norm_fwd"],
+         "layer_norm.cu", pallas + "layer_norm.py:92"),
+        ("layer_norm_infer", "library_ops", ln_recs[torch.float32]["layer_norm_infer"],
+         "layer_norm.cu", pallas + "layer_norm.py:119"),
+        ("layer_norm_bwd", "library_ops", ln_recs[torch.float32]["layer_norm_bwd"],
+         "layer_norm.cu", pallas + "layer_norm.py:137"),
+        ("lm_loss_fwd", "library_ops", lm_recs["bf16_h_f32_w"]["lm_loss_fwd"],
+         "lm_loss.cu", pallas + "lm_loss.py:162"),
+        ("lm_loss_dh", "library_ops", lm_recs["bf16_h_f32_w"]["lm_loss_dh"],
+         "lm_loss.cu", pallas + "lm_loss.py:261"),
+        ("lm_loss_dw", "library_ops", lm_recs["bf16_h_f32_w"]["lm_loss_dw"],
+         "lm_loss.cu", pallas + "lm_loss.py:279"),
+    ]
+    counts = {**launches, **library_launches}
     kernels = []
-    for name, rec in main.items():
-        src, replaces = sources[name]
+    for name, path, rec, src, replaces in rows:
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"paddle_tpu_torch/ops/kernels/csrc/{src}",
             "replaces": replaces,
-            "launches": launches[name],
+            "path": path,
+            "launches": counts[name],
             "max_abs_err": rec.get("max_abs_err", rec.get("max_abs_err_o")),
             "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"],

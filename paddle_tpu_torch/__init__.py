@@ -4,7 +4,8 @@ The JAX package ``paddle_tpu`` is the reference; this package mirrors its
 module paths (``models/gpt.py``, ``serving/engine.py``,
 ``ops/nn_functional.py``, ``ops/fused.py``, ``amp.py``, ``optimizer/``,
 ``nn/clip.py``, ``distributed/engine.py``) and replaces each Pallas TPU
-kernel with a CUDA kernel written for Hopper (``ops/kernels/``). It imports
+kernel with a CUDA kernel written for Hopper (``ops/kernels/``);
+``tools/`` holds the port's command-line tools. It imports
 ``torch`` and never ``jax`` or ``paddle_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

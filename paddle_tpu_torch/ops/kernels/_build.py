@@ -56,14 +56,14 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile every named source whose library is missing, all at once.
-    Returns {name: seconds} for the sources compiled (0.0 when cached).
-    Raises with nvcc's output if any compile fails."""
+def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, float]:
+    """Compile every named source whose library is missing (every one with
+    ``force``), all at once. Returns {name: seconds} for the sources compiled
+    (0.0 when cached). Raises with nvcc's output if any compile fails."""
     names = list(sources() if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {n: 0.0 for n in names}
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = [n for n in names if force or not library_path(n).exists()]
     if not todo:
         return out
     nvcc = nvcc_path()

@@ -1,0 +1,266 @@
+"""Fused LM head + softmax cross entropy, online over vocab tiles
+(counterpart of paddle_tpu/ops/pallas/lm_loss.py).
+
+``lm_head_cross_entropy(h2, w, labels)`` gives the per-row f32 loss
+``logsumexp(h2 @ wᵀ) - (h2 @ wᵀ)[label]`` without writing the [N, V] logits
+to device memory, and is differentiable in ``h2`` and ``w``: the forward
+saves the per-row logsumexp, the backward recomputes the logits tile by tile
+(dh with the row tile as the outer loop, dW with the vocab tile). W is taken
+in h2's dtype (rounded on load); dh comes back in h2's dtype, dW in W's own
+(an f32 master W under bf16 activations gets an f32 gradient).
+
+Labels are used as given: like the JAX kernel there is no ``ignore_index``
+(callers mask first), and a label outside [0, V) picks nothing, so its row's
+loss is the logsumexp and its gradient ``softmax * g``. The vocab needs no
+padding: the kernels mask the ragged edge by index (the JAX wrapper pads W
+to a multiple of 512 and masks the pad; the results are the same).
+
+On CUDA tensors the three wrappers launch the kernels of ``csrc/lm_loss.cu``
+or raise; on CPU tensors they take the plain versions (dense logits, the
+same rounding points). ``launches_fwd``, ``launches_dh`` and ``launches_dw``
+count their launches (the forward's call also runs the kernel that merges
+its vocab splits). A direct-call library op, as in the JAX package:
+``ops/fused.fused_linear_cross_entropy`` (the model's loss) does not route
+here.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: kernel launches since import (chip_smoke.py resets and reads them)
+launches_fwd = 0   # forward (loss and lse)
+launches_dh = 0    # backward, dh
+launches_dw = 0    # backward, dW
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {"full": 0, "bare": 1, "picked": 2}
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "lm_loss_fwd": [_PTR] * 6 + [_INT] * 8 + [_PTR],
+    "lm_loss_bwd": [_PTR] * 6 + [_INT] * 6 + [_PTR],
+    "lm_loss_fwd_splits": [_INT, _INT],
+}
+_fns = {}
+
+
+def _pick_rows(n: int) -> int:
+    """1024 when n is a positive multiple of 1024, else 0: the JAX kernel's
+    1D row blocks (a TPU layout rule), kept so both packages take the same
+    row counts."""
+    return 1024 if n % 1024 == 0 and n >= 1024 else 0
+
+
+def _check_block_n(v) -> int:
+    """``block_n`` as the JAX package validates it: 256, 512 or 1024, else
+    ValueError."""
+    v = int(v)
+    if v not in (256, 512, 1024):
+        raise ValueError(
+            f"block_n must be 256, 512 or 1024 (the 1D operands tile at "
+            f"1024 and the compute block must divide it); got {v}")
+    return v
+
+
+def supported(n_rows: int, vocab: int, hidden: int) -> bool:
+    """The JAX package's predicate: rows a multiple of 1024, vocab >= 128,
+    hidden a multiple of 128."""
+    return _pick_rows(n_rows) > 0 and vocab >= 128 and hidden % 128 == 0
+
+
+# ------------------------------------------------------------ plain versions
+
+def _logits(h2, w):
+    """[N, V] f32 logits with W taken in h2's dtype (a bf16 value is exact in
+    f32, so this is the storage-dtype product with f32 accumulation)."""
+    return torch.matmul(h2.float(), w.to(h2.dtype).float().t())
+
+
+def _onehot(labels, v, like):
+    """1.0 at each row's label, nothing for a label outside [0, v)."""
+    lab = labels.long()
+    valid = (lab >= 0) & (lab < v)
+    hit = torch.zeros_like(like)
+    rows = torch.arange(lab.shape[0], device=like.device)
+    hit[rows[valid], lab[valid]] = 1.0
+    return hit
+
+
+def lm_loss_fwd_plain(h2, w, labels, v_true=None, pick=True):
+    """The forward kernel's arithmetic in plain PyTorch. Returns (loss [N]
+    f32, lse [N] f32). ``v_true`` masks columns from there on to NEG_INF and
+    ``pick=False`` leaves the label's logit out (the compile probe's
+    variants); the defaults are the public function."""
+    s = _logits(h2, w)
+    v = w.shape[0]
+    if v_true is not None and v_true < v:
+        s[:, v_true:] = -1e30
+    m = s.amax(dim=1)
+    lse = m + torch.log(torch.exp(s - m[:, None]).sum(dim=1))
+    if not pick:
+        return lse.clone(), lse
+    picked = (s * _onehot(labels, v, s)).sum(dim=1)
+    return lse - picked, lse
+
+
+def lm_loss_bwd_plain(h2, w, labels, lse, g):
+    """The two backward kernels' arithmetic in plain PyTorch. Returns (dh
+    [N, H] in h2's dtype, dw [V, H] in w's dtype)."""
+    s = _logits(h2, w)
+    dl = (torch.exp(s - lse[:, None]) - _onehot(labels, w.shape[0], s)) * g.float()[:, None]
+    dl = dl.to(h2.dtype).float()
+    dh = torch.matmul(dl, w.to(h2.dtype).float()).to(h2.dtype)
+    dw = torch.matmul(dl.t(), h2.float()).to(w.dtype)
+    return dh, dw
+
+
+# ---------------------------------------------------------------- kernels
+
+def _kernel(name):
+    fn = _fns.get(name)
+    if fn is None:
+        from . import _build
+
+        fn = getattr(_build.load("lm_loss"), name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def _call(name, device, *args):
+    with torch.cuda.device(device):
+        err = _kernel(name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def _aligned(t):
+    """t contiguous with a 16-byte aligned start (the kernels' vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _prepare(h2, w, labels):
+    """Checked, contiguous, aligned (h2, w, int32 labels) on one card."""
+    if h2.dim() != 2 or w.dim() != 2 or h2.shape[1] != w.shape[1]:
+        raise ValueError(f"h2 must be [N, H] and w [V, H], got {tuple(h2.shape)} and "
+                         f"{tuple(w.shape)}")
+    if h2.dtype not in _DTYPE_CODES or w.dtype not in _DTYPE_CODES:
+        raise TypeError(f"lm_head_cross_entropy takes float32 or bfloat16 h2 and w, "
+                        f"got {h2.dtype} and {w.dtype}")
+    n, hdim = h2.shape
+    if tuple(labels.shape) != (n,):
+        raise ValueError(f"labels must be [{n}], got {tuple(labels.shape)}")
+    if hdim % 128 or n == 0 or w.shape[0] == 0:
+        raise ValueError(f"the CUDA kernels take hidden a multiple of 128 and at least "
+                         f"one row and one vocab entry, got h2 {tuple(h2.shape)}, "
+                         f"w {tuple(w.shape)}")
+    if w.device != h2.device or labels.device != h2.device:
+        raise ValueError("h2, w and labels must be on one device")
+    return _aligned(h2), _aligned(w), labels.to(torch.int32).contiguous()
+
+
+def lm_loss_fwd(h2, w, labels, variant="full", v_true=None):
+    """(loss, lse): the CUDA kernel on CUDA tensors, the plain version on CPU
+    tensors. ``variant`` and ``v_true`` select the compile probe's stripped
+    forwards (``"bare"``, ``"picked"``; bf16 only); the launch counter counts
+    the public ``"full"`` forward."""
+    global launches_fwd
+    if not h2.is_cuda:
+        return lm_loss_fwd_plain(h2, w, labels, v_true, pick=variant != "bare")
+    h2, w, labels = _prepare(h2, w, labels)
+    n, hdim = h2.shape
+    v = w.shape[0]
+    splits = _kernel("lm_loss_fwd_splits")(n, v)  # CTAs sharing a row tile's vocab
+    loss = torch.empty(n, dtype=torch.float32, device=h2.device)
+    lse = torch.empty_like(loss)
+    part = torch.empty((3, splits, n), dtype=torch.float32, device=h2.device)
+    _call("lm_loss_fwd", h2.device, h2.data_ptr(), w.data_ptr(), labels.data_ptr(),
+          loss.data_ptr(), lse.data_ptr(), part.data_ptr(), _DTYPE_CODES[h2.dtype],
+          _DTYPE_CODES[w.dtype], n, v, hdim, v if v_true is None else int(v_true),
+          splits, _VARIANTS[variant])
+    if variant == "full":
+        launches_fwd += 1
+    return loss, lse
+
+
+def _bwd_launch(h2, w, labels, lse, g, dw):
+    h2, w, labels = _prepare(h2, w, labels)
+    n, hdim = h2.shape
+    for name, t in (("lse", lse), ("g", g)):
+        if tuple(t.shape) != (n,) or t.device != h2.device:
+            raise ValueError(f"{name} must be [{n}] on {h2.device}")
+    lse, g = lse.float().contiguous(), g.float().contiguous()
+    out = torch.empty(w.shape if dw else h2.shape, dtype=w.dtype if dw else h2.dtype,
+                      device=h2.device)
+    _call("lm_loss_bwd", h2.device, h2.data_ptr(), w.data_ptr(), labels.data_ptr(),
+          lse.data_ptr(), g.data_ptr(), out.data_ptr(), _DTYPE_CODES[h2.dtype],
+          _DTYPE_CODES[w.dtype], n, w.shape[0], hdim, int(dw))
+    return out
+
+
+def lm_loss_dh(h2, w, labels, lse, g):
+    """dh [N, H] in h2's dtype: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    global launches_dh
+    if not h2.is_cuda:
+        return lm_loss_bwd_plain(h2, w, labels, lse, g)[0]
+    dh = _bwd_launch(h2, w, labels, lse, g, dw=False)
+    launches_dh += 1
+    return dh
+
+
+def lm_loss_dw(h2, w, labels, lse, g):
+    """dW [V, H] in w's dtype: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    global launches_dw
+    if not h2.is_cuda:
+        return lm_loss_bwd_plain(h2, w, labels, lse, g)[1]
+    dw = _bwd_launch(h2, w, labels, lse, g, dw=True)
+    launches_dw += 1
+    return dw
+
+
+# ---------------------------------------------------------------- autograd
+
+class _LMLoss(torch.autograd.Function):
+    """loss = lm_head_cross_entropy(h2, w, labels), differentiable in h2 and
+    w (``_lm_loss`` with its ``_fwd_rule`` / ``_bwd_rule`` in the JAX
+    package; labels get no gradient)."""
+
+    @staticmethod
+    def forward(ctx, h2, w, labels):
+        loss, lse = lm_loss_fwd(h2, w, labels)
+        ctx.save_for_backward(h2, w, labels, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, w, labels, lse = ctx.saved_tensors
+        if not h2.is_cuda:
+            dh, dw = lm_loss_bwd_plain(h2, w, labels, lse, g)
+            return dh, dw, None
+        need_h, need_w = ctx.needs_input_grad[:2]
+        dh = lm_loss_dh(h2, w, labels, lse, g) if need_h else None
+        dw = lm_loss_dw(h2, w, labels, lse, g) if need_w else None
+        return dh, dw, None
+
+
+def lm_head_cross_entropy(h2, w, labels, block_n=256):
+    """h2 [N, H], w [V, H], labels [N] integers (already masked by the caller)
+    -> per-row loss [N] f32. N must be a multiple of 1024, as in the JAX
+    package (``supported``).
+
+    ``block_n`` is validated as the JAX package does (256, 512 or 1024, else
+    ValueError) and then has no effect: on the TPU it sets Mosaic's compute
+    block (a compile-time knob), while the CUDA kernels' tiles are their own,
+    fixed for the H100. Every valid ``block_n`` gives the same bits."""
+    n = h2.shape[0]
+    if _pick_rows(n) != 1024:
+        raise ValueError(f"lm_head_cross_entropy takes a row count that is a multiple "
+                         f"of 1024 (callers pad rows), got {n}")
+    _check_block_n(block_n)
+    return _LMLoss.apply(h2, w, labels.to(torch.int32))
+

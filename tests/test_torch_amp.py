@@ -180,3 +180,44 @@ def test_gpt_tiny_under_bf16_matches_jax(gpt_pair, level):
     with torch.no_grad():
         f32_loss = pm(torch.from_numpy(ids), torch.from_numpy(labels)).item()
     assert f32_loss != p_loss.item()
+
+
+@pytest.mark.parametrize("level", ["O1", "O2"])
+def test_gpt_tiny_residual_stream_dtypes_match_jax(gpt_pair, level):
+    """The dtype of the embedding sum (the first block's input), of each
+    block's output and of the final hidden state, in both packages on the
+    same weights. The port leaves the residual adds to PyTorch's promotion
+    where the JAX dispatcher casts every op off the black list at O2; both
+    give the same dtypes at each point (bf16 through the blocks at O2, f32
+    at O1, the final LayerNorm f32)."""
+    jm, pm = gpt_pair
+    ids = np.random.RandomState(14).randint(0, 1024, (2, 128)).astype(np.int64)
+    seen = {"jax": [], "port": []}
+
+    def jax_dtype(t):
+        return str(np.dtype(t._data.dtype))
+
+    def port_dtype(t):
+        return str(t.dtype).replace("torch.", "")
+
+    hooks = [jm.gpt.blocks[0].register_forward_pre_hook(
+        lambda layer, inputs: seen["jax"].append(jax_dtype(inputs[0])))]
+    hooks += [b.register_forward_post_hook(
+        lambda layer, inputs, out: seen["jax"].append(jax_dtype(out)))
+        for b in list(jm.gpt.blocks) + [jm.gpt.ln_f]]
+    handles = [pm.gpt.blocks[0].register_forward_pre_hook(
+        lambda mod, inputs: seen["port"].append(port_dtype(inputs[0])))]
+    handles += [b.register_forward_hook(
+        lambda mod, inputs, out: seen["port"].append(port_dtype(out)))
+        for b in list(pm.gpt.blocks) + [pm.gpt.ln_f]]
+    try:
+        with paddle.amp.auto_cast(level=level, dtype="bfloat16"):
+            jm.logits(paddle.to_tensor(ids))
+        with torch.no_grad(), amp.auto_cast(level=level, dtype="bfloat16"):
+            pm.logits(torch.from_numpy(ids))
+    finally:
+        for h in hooks + handles:
+            h.remove()
+    inner = "bfloat16" if level == "O2" else "float32"
+    n = len(pm.gpt.blocks)
+    assert seen["port"] == seen["jax"] == [inner] * (1 + n) + ["float32"]

@@ -11,7 +11,9 @@ Inputs come from numpy with fixed seeds. Tolerances: f32 1e-4, times
 max(1, max|ref|) for gradients (summation order; TF32 is turned off); bf16
 2e-2 x max|ref| (p rounds to bf16 against the running max in the forward
 kernel and the final max in the plain version; the backward rounds P and dS
-to bf16 where both versions do, but sums in another order).
+to bf16 where both versions do, but sums in another order). The LayerNorm
+and LM-loss kernels are held to the same two tolerances against their plain
+versions (sums in another order; bf16 outputs round once in both).
 """
 import numpy as np
 import pytest
@@ -21,6 +23,8 @@ from paddle_tpu_torch.amp import auto_cast
 from paddle_tpu_torch.distributed import TrainStepEngine
 from paddle_tpu_torch.models import GPTForPretraining, gpt_tiny
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import layer_norm as ln
+from paddle_tpu_torch.ops.kernels import lm_loss as lm
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import ServingEngine
 
@@ -219,3 +223,143 @@ def test_gpt_tiny_train_step_on_card_matches_cpu(cuda, amp_dtype):
         apart += int((diff > 1e-5).sum())
         total += diff.numel()
     assert apart <= (1e-3 if f32 else 1e-2) * total, (apart, total)
+
+
+def _tol(ref, dt):
+    scale = ref.float().abs().max().item()
+    return 1e-4 * max(1.0, scale) if dt == torch.float32 else 2e-2 * scale
+
+
+def _err(got, ref):
+    assert got.dtype == ref.dtype and got.shape == ref.shape, (got.dtype, ref.dtype)
+    return (got.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,n,h", [
+    ("float32", 37, 768),      # ragged rows: 37 is no multiple of the 8 rows a CTA
+    ("bfloat16", 37, 768),
+    ("float32", 300, 128),
+    ("bfloat16", 64, 256),
+    ("float32", 9, 2048),      # two warps a row
+])
+def test_layer_norm_kernels_match_plain(cuda, dtype, n, h):
+    """The training forward, the inference forward and the backward (dx, dg,
+    db) against their plain versions; each wrapper launches once."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(10)
+    x = torch.from_numpy(rng.randn(n, h).astype(np.float32) * 2 + 0.5).to(cuda, dt)
+    g = torch.from_numpy(rng.rand(h).astype(np.float32) + 0.5).to(cuda)
+    b = torch.from_numpy(rng.randn(h).astype(np.float32)).to(cuda)
+    dy = torch.from_numpy(rng.randn(n, h).astype(np.float32)).to(cuda, dt)
+    before = (ln.launches_fwd, ln.launches_infer, ln.launches_bwd)
+    o, mu, rstd = ln.layer_norm_fwd(x, g, b, stats=True)
+    oi = ln.layer_norm_fwd(x, g, b, stats=False)
+    dx, dg, db = ln.layer_norm_bwd(x, g, dy, mu, rstd)
+    torch.cuda.synchronize()
+    after = (ln.launches_fwd, ln.launches_infer, ln.launches_bwd)
+    assert [a - c for a, c in zip(after, before)] == [1, 1, 1]
+    po, pmu, prstd = ln.layer_norm_fwd_plain(x, g, b)
+    assert _err(o, po) <= _tol(po, dt) and torch.equal(o, oi)
+    assert _err(mu, pmu) <= 1e-4 and _err(rstd, prstd) <= 1e-4 * prstd.max().item()
+    pdx, pdg, pdb = ln.layer_norm_bwd_plain(x, g, dy, pmu, prstd)
+    for got, ref in ((dx, pdx), (dg, pdg), (db, pdb)):
+        tol = _tol(ref, dt) if got.dtype == dt else 1e-4 * max(1.0, ref.abs().max().item())
+        assert _err(got, ref) <= tol
+
+
+def test_layer_norm_autograd_goes_through_the_kernels(cuda):
+    """x [2, 40, 256] with grad: the training forward and the backward launch
+    once each and the gradients match the same op on the CPU; under no_grad
+    the inference forward launches."""
+    rng = np.random.RandomState(11)
+    base = rng.randn(2, 40, 256).astype(np.float32)
+    gy = torch.from_numpy(rng.randn(2, 40, 256).astype(np.float32))
+    gw, bw = rng.rand(256).astype(np.float32) + 0.5, rng.randn(256).astype(np.float32)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        x, g, b = (torch.from_numpy(a).to(dev).requires_grad_() for a in (base, gw, bw))
+        before = (ln.launches_fwd, ln.launches_infer, ln.launches_bwd)
+        (ln.layer_norm(x, g, b) * gy.to(dev)).sum().backward()
+        with torch.no_grad():
+            ln.layer_norm(x, g, b)
+        after = (ln.launches_fwd, ln.launches_infer, ln.launches_bwd)
+        expect = [1, 1, 1] if dev == "cuda" else [0, 0, 0]
+        assert [a - c for a, c in zip(after, before)] == expect
+        grads.append([t.grad.cpu() for t in (x, g, b)])
+    for got, want in zip(*grads):
+        assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("htype,wtype,n,v,hdim", [
+    ("float32", "float32", 1024, 500, 128),       # ragged vocab edge
+    ("bfloat16", "bfloat16", 1024, 640, 256),
+    ("bfloat16", "float32", 2048, 384, 768),      # bf16 h, f32 master W
+    ("float32", "float32", 1024, 300, 1280),      # two hidden chunks in dh / dW
+    ("float32", "bfloat16", 1000, 256, 128),      # ragged rows (the wrappers mask them)
+])
+def test_lm_loss_kernels_match_plain(cuda, htype, wtype, n, v, hdim):
+    """The forward (loss, lse), dh and dW against their plain versions, with
+    a label of -100 and one at the last column; each wrapper launches once."""
+    ht, wt = getattr(torch, htype), getattr(torch, wtype)
+    rng = np.random.RandomState(12)
+    h = torch.from_numpy(rng.randn(n, hdim).astype(np.float32)).to(cuda, ht)
+    w = torch.from_numpy(rng.randn(v, hdim).astype(np.float32) * 0.05).to(cuda, wt)
+    labels = torch.from_numpy(rng.randint(0, v, (n,)).astype(np.int32)).to(cuda)
+    labels[5], labels[6] = -100, v - 1
+    g = torch.from_numpy(rng.rand(n).astype(np.float32)).to(cuda)
+    before = (lm.launches_fwd, lm.launches_dh, lm.launches_dw)
+    loss, lse = lm.lm_loss_fwd(h, w, labels)
+    dh = lm.lm_loss_dh(h, w, labels, lse, g)
+    dw = lm.lm_loss_dw(h, w, labels, lse, g)
+    torch.cuda.synchronize()
+    after = (lm.launches_fwd, lm.launches_dh, lm.launches_dw)
+    assert [a - c for a, c in zip(after, before)] == [1, 1, 1]
+    ploss, plse = lm.lm_loss_fwd_plain(h, w, labels)
+    assert _err(lse, plse) <= _tol(plse, ht) and _err(loss, ploss) <= _tol(ploss, ht)
+    assert abs(loss[5].item() - lse[5].item()) <= 1e-6 * abs(lse[5].item())
+    pdh, pdw = lm.lm_loss_bwd_plain(h, w, labels, plse, g)
+    assert dh.dtype == ht and dw.dtype == wt
+    assert _err(dh, pdh) <= _tol(pdh, ht)
+    # dW is rounded to bf16 where dl is (bf16 h) or where it is stored (bf16 W)
+    assert _err(dw, pdw) <= _tol(pdw, torch.bfloat16 if torch.bfloat16 in (ht, wt)
+                                 else torch.float32)
+
+
+def test_lm_loss_autograd_goes_through_the_kernels(cuda):
+    """lm_head_cross_entropy under autograd: forward, dh and dW launch once
+    each, every valid block_n gives the same bits, and the gradients match
+    the same Function on the CPU."""
+    rng = np.random.RandomState(13)
+    h_np = rng.randn(1024, 256).astype(np.float32)
+    w_np = (rng.randn(700, 256) * 0.05).astype(np.float32)
+    lab = torch.from_numpy(rng.randint(0, 700, (1024,)))
+    out = []
+    for dev in ("cuda", "cpu"):
+        h, w = (torch.from_numpy(a).to(dev).requires_grad_() for a in (h_np, w_np))
+        before = (lm.launches_fwd, lm.launches_dh, lm.launches_dw)
+        loss = lm.lm_head_cross_entropy(h, w, lab.to(dev))
+        loss.mean().backward()
+        after = (lm.launches_fwd, lm.launches_dh, lm.launches_dw)
+        assert [a - c for a, c in zip(after, before)] == ([1, 1, 1] if dev == "cuda"
+                                                         else [0, 0, 0])
+        if dev == "cuda":
+            with torch.no_grad():
+                for bn in (512, 1024):
+                    assert torch.equal(lm.lm_head_cross_entropy(h, w, lab.to(dev), bn),
+                                       loss)
+        out.append([t.detach().cpu() for t in (loss, h.grad, w.grad)])
+    for got, want in zip(*out):
+        assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+def test_library_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.randn(4, 100, device=cuda)
+    with pytest.raises(ValueError):
+        ln.layer_norm(x, torch.ones(100, device=cuda), torch.zeros(100, device=cuda))
+    x16 = torch.randn(4, 128, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ln.layer_norm(x16, torch.ones(128, device=cuda), torch.zeros(128, device=cuda))
+    h = torch.randn(1024, 100, device=cuda)
+    with pytest.raises(ValueError):
+        lm.lm_head_cross_entropy(h, torch.randn(256, 100, device=cuda),
+                                 torch.zeros(1024, dtype=torch.long, device=cuda))

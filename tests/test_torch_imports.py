@@ -82,7 +82,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 def test_every_kernel_source_has_a_stable_build_key():
     names = _build.sources()
-    assert {"flash_attention_fwd", "flash_attention_bwd"} <= set(names)
+    assert {"flash_attention_fwd", "flash_attention_bwd", "layer_norm",
+            "lm_loss"} <= set(names)
     for n in names:
         p = _build.library_path(n)
         assert p == _build.library_path(n)

@@ -1,0 +1,251 @@
+"""paddle_tpu_torch.ops.kernels.lm_loss vs the JAX package's Pallas LM-head
+cross entropy (paddle_tpu/ops/pallas/lm_loss.py, run in interpret mode on the
+CPU as its own tests run it) on the same numpy inputs; then the slice as a
+whole: GPT's final LayerNorm followed by the tied LM head and loss, through
+both library ops, in both packages.
+
+The port's CPU path is the kernels' plain versions, reached through the
+public ``lm_head_cross_entropy`` and autograd. Covered: the cases of
+tests/test_pallas_lm_loss.py (f32 and bf16 values, gradients, the
+``supported`` predicate, unaligned vocab 500, bf16 h with an f32 W, block_n
+256 and 512), the ``block_n`` check, a row count JAX refuses, and a label of
+-100 (no ignore_index: the row's loss is its logsumexp).
+
+Tolerances: f32 loss 2e-5 and gradients of the mean loss 1e-6 absolute (the
+same f32 products and logsumexp in another order; gradients are ~1e-4);
+bf16 loss 1e-4 (bf16 values are exact in f32, so only the sum order
+differs); bf16 h with f32 W: dh 1e-2 x max|ref| (dh rounds to bf16 in both,
+one bf16 step apart at most) and dW 1e-4 x max|ref| (f32, from dl rounded to
+bf16 in both). The composition: loss 2e-5 relative, gradients 1e-4 x max|g|
+(two f32 ops and twelve 128-wide sums in another order).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.models import GPTForPretraining as JaxGPT
+from paddle_tpu.models import gpt_tiny as jax_gpt_tiny
+from paddle_tpu.ops.pallas import layer_norm as jax_pln
+from paddle_tpu.ops.pallas import lm_loss as jax_lm
+from paddle_tpu_torch.models import GPTForPretraining, gpt_tiny, load_jax_state
+from paddle_tpu_torch.ops.kernels import layer_norm as ln
+from paddle_tpu_torch.ops.kernels import lm_loss as lm
+
+LOSS_TOL = 2e-5
+GRAD_TOL = 1e-6
+
+
+def _data(n, v, h, seed, dtype=np.float32, w_scale=0.05):
+    rng = np.random.RandomState(seed)
+    hh = rng.randn(n, h).astype(np.float32)
+    w = (rng.randn(v, h) * w_scale).astype(np.float32)
+    lab = rng.randint(0, v, (n,)).astype(np.int32)
+    return hh, w, lab
+
+
+def _jax(h, w, lab, h_dtype=jnp.float32, w_dtype=jnp.float32, block_n=256):
+    """JAX loss and the gradients of its mean, as float32 numpy, with the
+    gradients' dtypes."""
+    hj, wj = jnp.asarray(h, h_dtype), jnp.asarray(w, w_dtype)
+    labj = jnp.asarray(lab)
+    loss = jax_lm.lm_head_cross_entropy(hj, wj, labj, block_n=block_n)
+    gh, gw = jax.grad(lambda a, b: jax_lm.lm_head_cross_entropy(
+        a, b, labj, block_n=block_n).mean(), argnums=(0, 1))(hj, wj)
+    return ([np.asarray(t, np.float32) for t in (loss, gh, gw)],
+            (str(gh.dtype), str(gw.dtype)))
+
+
+def _port(h, w, lab, h_dtype=torch.float32, w_dtype=torch.float32, block_n=256):
+    th = torch.from_numpy(h).to(h_dtype).requires_grad_()
+    tw = torch.from_numpy(w).to(w_dtype).requires_grad_()
+    loss = lm.lm_head_cross_entropy(th, tw, torch.from_numpy(lab), block_n=block_n)
+    assert loss.dtype == torch.float32 and tuple(loss.shape) == (h.shape[0],)
+    loss.mean().backward()
+    return ([t.detach().float().numpy() for t in (loss, th.grad, tw.grad)],
+            (str(th.grad.dtype).replace("torch.", ""),
+             str(tw.grad.dtype).replace("torch.", "")))
+
+
+def _close(got, want, atol):
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", LOSS_TOL), ("bfloat16", 1e-4)])
+def test_values_match_jax(dtype, atol):
+    h, w, lab = _data(1024, 512, 128, seed=0)
+    want, _ = _jax(h, w, lab, getattr(jnp, dtype), getattr(jnp, dtype))
+    got, _ = _port(h, w, lab, getattr(torch, dtype), getattr(torch, dtype))
+    _close(got[0], want[0], atol)
+
+
+@pytest.mark.parametrize("n,v,seed", [(1024, 256, 1), (1024, 500, 5), (2048, 640, 7)])
+def test_grads_match_jax(n, v, seed):
+    """Loss and the gradients of its mean; vocab 500 is unaligned (JAX pads
+    W to 512 and masks, the port masks by index): dW has exactly V rows."""
+    h, w, lab = _data(n, v, 128, seed=seed)
+    want, _ = _jax(h, w, lab)
+    got, _ = _port(h, w, lab)
+    assert got[2].shape == (v, 128)
+    _close(got[0], want[0], LOSS_TOL)
+    _close(got[1], want[1], GRAD_TOL)
+    _close(got[2], want[2], GRAD_TOL)
+
+
+def test_mixed_dtype_bf16_h_f32_w():
+    """bf16 activations against an f32 master W: W is taken in bf16, dh
+    comes back bf16 and dW f32, in both packages."""
+    h, w, lab = _data(1024, 256, 128, seed=4)
+    want, want_dt = _jax(h, w, lab, jnp.bfloat16, jnp.float32)
+    got, got_dt = _port(h, w, lab, torch.bfloat16, torch.float32)
+    assert got_dt == want_dt == ("bfloat16", "float32")
+    _close(got[0], want[0], 1e-4)
+    _close(got[1], want[1], 1e-2 * np.abs(want[1]).max())
+    _close(got[2], want[2], 1e-4 * np.abs(want[2]).max())
+
+
+@pytest.mark.parametrize("block_n", [256, 512])
+def test_block_n_changes_no_bit(block_n):
+    """block_n is a Mosaic compile knob: every valid value gives the port's
+    same bits, and those match JAX at that block_n."""
+    h, w, lab = _data(2048, 640, 128, seed=7)
+    want, _ = _jax(h, w, lab, block_n=block_n)
+    got, _ = _port(h, w, lab, block_n=block_n)
+    base, _ = _port(h, w, lab, block_n=1024)
+    for a, b in zip(got, base):
+        np.testing.assert_array_equal(a, b)
+    _close(got[0], want[0], LOSS_TOL)
+    _close(got[1], want[1], GRAD_TOL)
+
+
+def test_label_minus_100_picks_nothing():
+    """A label of -100 (JAX's and paddle's ignore index, unmasked by the
+    caller) picks no logit: its loss is the row's logsumexp, its gradient
+    softmax * g, in both packages."""
+    h, w, lab = _data(1024, 384, 128, seed=9)
+    lab[[0, 17, 1000]] = -100
+    want, _ = _jax(h, w, lab)
+    got, _ = _port(h, w, lab)
+    _close(got[0], want[0], LOSS_TOL)
+    _close(got[1], want[1], GRAD_TOL)
+    _close(got[2], want[2], GRAD_TOL)
+    logits = h @ w.T
+    m = logits.max(1)
+    lse = m + np.log(np.exp(logits - m[:, None]).sum(1))
+    _close(got[0][[0, 17, 1000]], lse[[0, 17, 1000]], LOSS_TOL)
+
+
+@pytest.mark.parametrize("n,v,h", [(8192, 50304, 768), (16384, 50304, 768),
+                                   (512, 50304, 768), (100, 512, 128),
+                                   (1024, 500, 128), (1024, 512, 100),
+                                   (1024, 127, 128), (0, 512, 128)])
+def test_supported_predicate_is_the_jax_packages(n, v, h):
+    assert lm.supported(n, v, h) == jax_lm.supported(n, v, h)
+    assert lm._pick_rows(n) == jax_lm._pick_rows(n)
+
+
+@pytest.mark.parametrize("block_n", [128, 255, 2048, 256, 512, 1024])
+def test_block_n_check_is_the_jax_packages(block_n):
+    try:
+        want = jax_lm._check_block_n(block_n)
+    except ValueError:
+        with pytest.raises(ValueError):
+            lm._check_block_n(block_n)
+        h = torch.zeros(1024, 128)
+        with pytest.raises(ValueError):
+            lm.lm_head_cross_entropy(h, torch.zeros(256, 128),
+                                     torch.zeros(1024, dtype=torch.long), block_n)
+    else:
+        assert lm._check_block_n(block_n) == want
+
+
+def test_row_count_jax_refuses_is_refused():
+    """Rows must be a multiple of 1024 in both packages (JAX asserts)."""
+    h, w, lab = _data(512, 256, 128, seed=2)
+    with pytest.raises(AssertionError):
+        jax_lm.lm_head_cross_entropy(jnp.asarray(h), jnp.asarray(w), jnp.asarray(lab))
+    with pytest.raises(ValueError):
+        lm.lm_head_cross_entropy(torch.from_numpy(h), torch.from_numpy(w),
+                                 torch.from_numpy(lab))
+
+
+def test_probe_variants_plain():
+    """The compile probe's stripped forwards on the plain path: bare is the
+    logsumexp alone; masked drops the last 64 columns from it."""
+    h, w, lab = _data(1024, 512, 128, seed=3)
+    th, tw, tl = (torch.from_numpy(a) for a in (h, w, lab))
+    loss_b, lse_b = lm.lm_loss_fwd(th, tw, tl, variant="bare")
+    torch.testing.assert_close(loss_b, lse_b)
+    logits = th @ tw.t()
+    torch.testing.assert_close(lse_b, torch.logsumexp(logits, 1), atol=LOSS_TOL, rtol=0)
+    loss_m, lse_m = lm.lm_loss_fwd(th, tw, tl, variant="full", v_true=448)
+    torch.testing.assert_close(lse_m, torch.logsumexp(logits[:, :448], 1),
+                               atol=LOSS_TOL, rtol=0)
+    picked = torch.where(tl.long() < 448, logits.gather(1, tl.long()[:, None])[:, 0],
+                         torch.tensor(-1e30))
+    torch.testing.assert_close(loss_m, lse_m - picked, atol=LOSS_TOL, rtol=0)
+
+
+# ------------------------------------------------- the slice as a whole
+
+@pytest.fixture(scope="module")
+def tiny_pair():
+    from paddle_tpu.distributed.mesh import set_hybrid_communicate_group
+
+    set_hybrid_communicate_group(None)
+    paddle.seed(0)
+    jm = JaxGPT(jax_gpt_tiny())
+    state = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
+    pm = load_jax_state(GPTForPretraining(gpt_tiny(), device="cpu"), state)
+    return jm, pm, state
+
+
+def _hidden_before_ln_f(pm, ids):
+    g = pm.gpt
+    with torch.no_grad():
+        x = g.wte(ids) + g.wpe(torch.arange(ids.shape[1]))
+        for blk in g.blocks:
+            x = blk(x)
+    return x
+
+
+def test_final_layer_norm_and_lm_loss_match_jax_and_the_model(tiny_pair):
+    """gpt_tiny, ids [8, 128] (1024 rows): the hidden state before ln_f goes
+    through the library LayerNorm with ln_f's weights, then the library LM
+    loss with the tied embedding, mean over rows. Held against the same
+    composition of the JAX package's Pallas ops (loss, and gradients of the
+    hidden state, ln_f's weight and bias, and the embedding) and against the
+    port model's own loss (chunked fused loss, plain LayerNorm)."""
+    jm, pm, state = tiny_pair
+    rng = np.random.RandomState(15)
+    ids = rng.randint(0, 1024, (8, 128)).astype(np.int64)
+    labels = np.roll(ids, -1, 1)
+    x = _hidden_before_ln_f(pm, torch.from_numpy(ids)).numpy()
+    g, b = state["gpt.ln_f.weight"], state["gpt.ln_f.bias"]
+    wte = state["gpt.wte.weight"]
+    lab32 = labels.reshape(-1).astype(np.int32)
+
+    def jax_loss(xx, gg, bb, ww):
+        hh = jax_pln.layer_norm(xx, gg, bb).reshape(-1, xx.shape[-1])
+        return jax_lm.lm_head_cross_entropy(hh, ww, jnp.asarray(lab32)).mean()
+
+    args = tuple(jnp.asarray(a) for a in (x, g, b, wte))
+    j_loss = float(jax_loss(*args))
+    j_grads = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(*args)
+
+    tx, tg, tb, tw = (torch.from_numpy(np.array(a)).requires_grad_()
+                      for a in (x, g, b, wte))
+    hh = ln.layer_norm(tx, tg, tb).reshape(-1, x.shape[-1])
+    p_loss = lm.lm_head_cross_entropy(hh, tw, torch.from_numpy(lab32)).mean()
+    p_loss.backward()
+    assert p_loss.item() == pytest.approx(j_loss, rel=LOSS_TOL)
+    for got, want in zip((tx.grad, tg.grad, tb.grad, tw.grad), j_grads):
+        want = np.asarray(want)
+        _close(got.numpy(), want, 1e-4 * np.abs(want).max())
+
+    with torch.no_grad():
+        model_loss = pm(torch.from_numpy(ids), torch.from_numpy(labels)).item()
+    assert p_loss.item() == pytest.approx(model_loss, rel=LOSS_TOL)
