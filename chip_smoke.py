@@ -37,15 +37,21 @@ each:
    six kernels against its plain version at GPT-2 124M's shapes (LayerNorm
    [8192, 768] f32 and bf16; LM loss h [8192, 768], W [50304, 768], bf16 h
    with an f32 W and f32, plus vocab 50257 and labels of -100), with kernel,
-   plain, bound and library times; then the composition they exist for: the
-   124M model's hidden state before ln_f through the kernel LayerNorm and the
-   kernel LM loss with the tied embedding, loss and the gradients of wte and
-   ln_f against the model's own route. Each kernel launches once in that
-   pass.
+   plain, bound and library times. The LM-loss backward has two routes:
+   bf16 h takes the tensor-core kernels (their times include the bf16 copy
+   of the f32 W, timed beside them), f32 h the FMA kernels, which are also
+   timed at bf16 h as the redesign's predecessor. Then the composition they
+   exist for: the 124M model's hidden state before ln_f through the kernel
+   LayerNorm and the kernel LM loss with the tied embedding, in f32 (loss
+   and the gradients of wte and ln_f against the model's own route; the FMA
+   backward) and with the LayerNorm's output cast to bf16 (loss, dh and
+   dwte against the plain versions; the tensor-core backward). Each kernel
+   of a pass launches once in it.
 9. lmloss_compile_probe: the LM-loss forward's stripped variants at the
    probe's defaults, checked and timed, with ptxas's registers and spills.
 10. the ``kernels`` line: every ported kernel with the path that launched
-   it (the training main path's timed steps, or the library_ops pass), its
+   it (the training main path's timed steps, or a library_ops pass; the
+   LM-loss backward once for each route), its
    launches there and its numbers from the kernel_vs_plain phases at that
    path's shape and dtype.
 
@@ -75,6 +81,10 @@ BF16_TOL = 2e-2         # kernel vs plain, bf16: times max|o| (p rounds to bf16
 LOGITS_TOL = 2e-3       # card vs CPU, or kernel vs dense masked path, f32
                         # logits of ~0.5 scale after 12 layers
 GRAD_F32_TOL = 1e-4     # backward kernels vs plain, f32: times max(1, max|ref|)
+DW_F32_TOL = 1e-3       # LM-loss f32 dW from bf16 h vs plain: times max|ref| (dl
+                        # rounds to bf16 at the same point in both; at BF16_TOL
+                        # the labels' -h spikes set max|ref| and hide the
+                        # softmax term of the rows without a label)
 TRAIN_LOSS_RTOL = 1e-5  # card vs CPU f32 train step: the loss
 TRAIN_GRAD_TOL = 1e-3   # ... and each gradient, times max|grad| of that tensor
                         # (f32 sums in other orders through 2 layers and the
@@ -546,10 +556,13 @@ def phase_train_vs_cpu():
 
 def _close_or_raise(what, got, want, dtype, grad=False):
     """max |got - want| and its tolerance: f32 F32_TOL (times max(1, max|ref|)
-    for gradients), bf16 BF16_TOL x max|ref|; raises past it."""
+    for gradients), bf16 BF16_TOL x max|ref|, an f32 gradient of bf16 inputs
+    DW_F32_TOL x max|ref|; raises past it."""
     scale = want.float().abs().max().item()
     if dtype == torch.float32:
         tol = (GRAD_F32_TOL * max(1.0, scale)) if grad else F32_TOL
+    elif grad and got.dtype == torch.float32:
+        tol = DW_F32_TOL * scale
     else:
         tol = BF16_TOL * scale
     err = (got.float() - want.float()).abs().max().item()
@@ -636,11 +649,17 @@ def phase_layer_norm_kernels(n=8192, h=768):
 def phase_lm_loss_kernels(ids, vocab=50304, h=768):
     """The three LM-loss kernels against their plain versions at GPT-2 124M's
     LM head: h [8192, 768], W [vocab, 768], labels roll(ids, -1). Timed: bf16
-    h with an f32 master W (the on-chip amp configuration) and f32; checked
-    only: GPT-2's own vocabulary 50257 (a ragged last vocab tile) and labels
-    of -100 (their rows' loss is the logsumexp). The library yardstick is
-    cross_entropy(linear(h, W).float()) and its autograd backward (dh and
-    dW together). Returns {case: {kernel: record}}."""
+    h with an f32 master W (the on-chip amp configuration; the tensor-core
+    backward, its time including W's bf16 copy, with the FMA backward at the
+    same inputs and the copy alone timed beside it) and f32 (the FMA
+    backward); checked only: GPT-2's own vocabulary 50257 (a ragged last
+    vocab tile) in f32 and at bf16 h, labels of -100 (their rows' loss is
+    the logsumexp), and every label -100 (dh and dW the softmax term alone,
+    so that max|ref| scales with it). At bf16 h the FMA kernel (the
+    tensor-core kernels' predecessor) is checked at the same inputs in every
+    case. The library yardstick is cross_entropy(linear(h,
+    W).float()) and its autograd backward (dh and dW together). Returns
+    {case: {kernel: record}}."""
     from paddle_tpu_torch.ops.kernels import lm_loss as lm
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -651,19 +670,29 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
     g = torch.ones(n, device="cuda")
     minus100 = labels.clone()
     minus100[::97] = -100
+    all_minus100 = torch.full_like(labels, -100)
+    w50257 = w32[:50257].contiguous()
     cases = [  # (name, h, W, labels, timed)
         ("bf16_h_f32_w", h32.bfloat16(), w32, labels, True),
         ("f32", h32, w32, labels, True),
-        ("vocab50257_f32", h32, w32[:50257].contiguous(), labels % 50257, False),
+        ("vocab50257_f32", h32, w50257, labels % 50257, False),
+        ("vocab50257_bf16_h_f32_w", h32.bfloat16(), w50257, labels % 50257, False),
         ("label_minus100_bf16_h_f32_w", h32.bfloat16(), w32, minus100, False),
+        ("all_minus100_bf16_h_f32_w", h32.bfloat16(), w32, all_minus100, False),
     ]
     out = {}
     for name, hh, w, lab, timed in cases:
         dt = hh.dtype
+        route = lm.backward_plan(dt, h).route
+        before = {k: dict(c) for k, c in lm.launches_by_route.items()}
         loss, lse = lm.lm_loss_fwd(hh, w, lab)
         dh = lm.lm_loss_dh(hh, w, lab, lse, g)
         dw = lm.lm_loss_dw(hh, w, lab, lse, g)
         torch.cuda.synchronize()
+        if (lm.launches_by_route[route]["dh"] - before[route]["dh"],
+                lm.launches_by_route[route]["dw"] - before[route]["dw"]) != (1, 1):
+            raise AssertionError(f"lm_loss {name}: the backward did not take the "
+                                 f"{route} route")
         ploss, plse = lm.lm_loss_fwd_plain(hh, w, lab)
         pdh, pdw = lm.lm_loss_bwd_plain(hh, w, lab, plse, g)
         if dw.shape != w.shape or dw.dtype != w.dtype or dh.dtype != dt:
@@ -673,7 +702,15 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
         err_f = max(err_f, _close_or_raise(f"lm_loss {name} lse", lse, plse, dt)[0])
         err_dh, tol_dh = _close_or_raise(f"lm_loss {name} dh", dh, pdh, dt, grad=True)
         err_dw, tol_dw = _close_or_raise(f"lm_loss {name} dw", dw, pdw, dt, grad=True)
-        if name.startswith("label_minus100"):
+        fma = {}
+        if route == "mma":
+            # the FMA kernels (the f32 route) at the same bf16 h: the
+            # tensor-core kernels' predecessor, held to the same limits
+            fma = {"lm_loss_dh": lambda: lm._bwd_launch(hh, w, lab, lse, g, False, route="fma"),
+                   "lm_loss_dw": lambda: lm._bwd_launch(hh, w, lab, lse, g, True, route="fma")}
+            fma_err = {k: _close_or_raise(f"lm_loss {name} {k} fma", f(), ref, dt, grad=True)[0]
+                       for (k, f), ref in zip(fma.items(), (pdh, pdw))}
+        if "minus100" in name:
             ignored = lab == -100
             if not torch.equal(loss[ignored], lse[ignored]):
                 raise AssertionError("a -100 label picked a logit")
@@ -706,13 +743,26 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
                 "lm_loss_dw": (lambda: lm.lm_loss_dw(hh, w, lab, lse, g), err_dw, tol_dw,
                                plain_bwd_ms, lib_bwd_ms, 4, hb + wb + 4 * v * h + 12 * n),
             }
+            extra = {"lm_loss_fwd": {}, "lm_loss_dh": {"route": route},
+                     "lm_loss_dw": {"route": route}}
+            if route == "mma":
+                # the FMA kernels timed beside the tensor-core ones, and the W
+                # cast that the tensor-core calls include
+                cast_ms = (cuda_ms(lambda: w.to(torch.bfloat16), iters=20)
+                           if w.dtype != torch.bfloat16 else 0.0)
+                for kernel, fn in fma.items():
+                    extra[kernel] = dict(
+                        route="mma", w_cast_ms=cast_ms, fma_max_abs_err=fma_err[kernel],
+                        fma_kernel_ms=cuda_ms(fn, iters=3, warmup=1))
             for kernel, (fn, err, tol, plain_ms, lib_ms, products, nbytes) in rows.items():
-                bound_ms, bound_by = _bound(products * n * v * h, nbytes, dt)
+                flops = products * n * v * h
+                bound_ms, bound_by = _bound(flops, nbytes, dt)
+                kernel_ms = cuda_ms(fn, iters=5, warmup=1)
                 recs[kernel] = dict(
                     case=name, shape=[n, v, h], dtype=f"h {str(dt)[6:]}, W {str(w.dtype)[6:]}",
-                    max_abs_err=err, tol=tol, kernel_ms=cuda_ms(fn, iters=5, warmup=1),
+                    max_abs_err=err, tol=tol, kernel_ms=kernel_ms,
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                    bound_by=bound_by)
+                    bound_by=bound_by, tflops=flops / kernel_ms / 1e9, **extra[kernel])
                 emit(phase="kernel_vs_plain", kernel=kernel, **recs[kernel],
                      plain="lm_loss_bwd_plain (dh, dw)" if kernel != "lm_loss_fwd"
                      else "lm_loss_fwd_plain",
@@ -722,7 +772,8 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
         else:
             emit(phase="kernel_vs_plain", kernel="lm_loss (fwd, dh, dw)", case=name,
                  shape=[n, w.shape[0], h], max_abs_err=[err_f, err_dh, err_dw],
-                 tol=[tol_f, tol_dh, tol_dw])
+                 tol=[tol_f, tol_dh, tol_dw],
+                 fma_max_abs_err=[fma_err[k] for k in fma] if fma else None)
         out[name] = recs
         del loss, lse, dh, dw, ploss, plse, pdh, pdw
         torch.cuda.empty_cache()
@@ -733,9 +784,12 @@ def _library_counts():
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
     from paddle_tpu_torch.ops.kernels import lm_loss as lm
 
+    by_route = lm.launches_by_route
     return {"layer_norm_fwd": ln.launches_fwd, "layer_norm_infer": ln.launches_infer,
             "layer_norm_bwd": ln.launches_bwd, "lm_loss_fwd": lm.launches_fwd,
-            "lm_loss_dh": lm.launches_dh, "lm_loss_dw": lm.launches_dw}
+            "lm_loss_dh": lm.launches_dh, "lm_loss_dw": lm.launches_dw,
+            "lm_loss_dh_mma": by_route["mma"]["dh"], "lm_loss_dw_mma": by_route["mma"]["dw"],
+            "lm_loss_dh_fma": by_route["fma"]["dh"], "lm_loss_dw_fma": by_route["fma"]["dw"]}
 
 
 def _reset_library_counts():
@@ -744,16 +798,21 @@ def _reset_library_counts():
 
     ln.launches_fwd = ln.launches_infer = ln.launches_bwd = 0
     lm.launches_fwd = lm.launches_dh = lm.launches_dw = 0
+    for counts in lm.launches_by_route.values():
+        counts["dh"] = counts["dw"] = 0
 
 
 def phase_library_ops(ids):
     """The composition the library ops exist for, at GPT-2 124M width and
-    depth in f32: the hidden state before ln_f through the kernel LayerNorm
-    (no_grad: the inference forward, held against the model's ln_f; then
-    with grad), the tied LM head and loss through the kernel LM loss, mean
-    over rows. Loss and the gradients of wte, ln_f.weight and ln_f.bias are
-    held against the model's own route (plain LayerNorm, chunked fused
-    loss). Returns the launch counts of the pass (each kernel once)."""
+    depth, twice. In f32: the hidden state before ln_f through the kernel
+    LayerNorm (no_grad: the inference forward, held against the model's
+    ln_f; then with grad), the tied LM head and loss through the kernel LM
+    loss (the FMA backward), mean over rows; loss and the gradients of wte,
+    ln_f.weight and ln_f.bias against the model's own route (plain
+    LayerNorm, chunked fused loss). Then with the kernel LayerNorm's output
+    cast to bf16 against the f32 tied wte (the tensor-core backward): loss,
+    dh and dwte against the plain versions on the card at the same dtypes.
+    Returns the launch counts of each pass ({"f32": ..., "bf16": ...})."""
     from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
     from paddle_tpu_torch.ops.kernels import lm_loss as lm
@@ -764,11 +823,15 @@ def phase_library_ops(ids):
     params = {"gpt.wte.weight": gpt.wte.weight, "gpt.ln_f.weight": gpt.ln_f.weight,
               "gpt.ln_f.bias": gpt.ln_f.bias}
 
+    def hidden_before_ln_f():
+        x = gpt.wte(ids) + gpt.wpe(torch.arange(ids.shape[1], device=ids.device))
+        for blk in gpt.blocks:
+            x = blk(x)
+        return x
+
     t0 = time.perf_counter()
     _reset_library_counts()
-    x = gpt.wte(ids) + gpt.wpe(torch.arange(ids.shape[1], device=ids.device))
-    for blk in gpt.blocks:
-        x = blk(x)
+    x = hidden_before_ln_f()
     with torch.no_grad():
         h_inf = ln.layer_norm(x, gpt.ln_f.weight, gpt.ln_f.bias, gpt.ln_f.epsilon)
         h_ref = gpt.ln_f(x)
@@ -779,9 +842,9 @@ def phase_library_ops(ids):
     torch.cuda.synchronize()
     launches = _library_counts()
     pass_s = time.perf_counter() - t0
-    if set(launches.values()) != {1}:
-        raise AssertionError(f"the library_ops pass launched {launches}, expected each "
-                             f"kernel once")
+    want = {k: 0 if k.endswith("_mma") else 1 for k in launches}
+    if launches != want:
+        raise AssertionError(f"the f32 library_ops pass launched {launches}, expected {want}")
     ln_err = (h_inf - h_ref).abs().max().item()
     if not ln_err <= F32_TOL * max(1.0, h_ref.abs().max().item()):
         raise AssertionError(f"kernel LayerNorm vs ln_f: {ln_err}")
@@ -807,9 +870,49 @@ def phase_library_ops(ids):
          loss_kernels=kernel_loss, loss_model=ref_loss, loss_rel_err=loss_err,
          loss_rtol=TRAIN_LOSS_RTOL, grad_rel_err=worst, grad_tol=TRAIN_GRAD_TOL,
          ln_inference_vs_ln_f_max_abs_err=ln_err, launches=launches, pass_s=pass_s)
-    del model, grads, ref
+    del grads, ref
+
+    # bf16 h against the f32 master wte: the tensor-core route
+    model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        x = hidden_before_ln_f()
+    lab = labels.reshape(-1)
+    t0 = time.perf_counter()
+    _reset_library_counts()
+    hidden = ln.layer_norm(x, gpt.ln_f.weight, gpt.ln_f.bias, gpt.ln_f.epsilon)
+    hb = hidden.reshape(-1, hidden.shape[-1]).to(torch.bfloat16)
+    hb.retain_grad()
+    rows = lm.lm_head_cross_entropy(hb, gpt.wte.weight, lab)
+    loss = rows.mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    bf16_launches = _library_counts()
+    bf16_pass_s = time.perf_counter() - t0
+    want = {k: 0 if k.endswith("_fma") or k == "layer_norm_infer" else 1
+            for k in bf16_launches}
+    if bf16_launches != want:
+        raise AssertionError(f"the bf16 library_ops pass launched {bf16_launches}, "
+                             f"expected {want}")
+    wte = gpt.wte.weight.detach()
+    hbd = hb.detach()
+    ploss, plse = lm.lm_loss_fwd_plain(hbd, wte, lab)
+    g = torch.full_like(plse, 1.0 / plse.numel())
+    pdh, pdw = lm.lm_loss_bwd_plain(hbd, wte, lab, plse, g)
+    bf16 = torch.bfloat16
+    errs = {"loss": _close_or_raise("bf16 library_ops loss", rows, ploss, bf16),
+            "dh": _close_or_raise("bf16 library_ops dh", hb.grad, pdh, bf16, grad=True),
+            "dwte": _close_or_raise("bf16 library_ops dwte", gpt.wte.weight.grad, pdw, bf16,
+                                    grad=True)}
+    if hb.grad.dtype != bf16 or gpt.wte.weight.grad.dtype != torch.float32:
+        raise AssertionError(f"dh {hb.grad.dtype}, dwte {gpt.wte.weight.grad.dtype}")
+    emit(phase="library_ops", model="gpt2-124m", batch=list(ids.shape),
+         dtype="h bfloat16 (ln_f output cast), wte float32", loss_kernels=loss.item(),
+         loss_plain=ploss.mean().item(), max_abs_err={k: e for k, (e, _) in errs.items()},
+         tol={k: t for k, (_, t) in errs.items()}, launches=bf16_launches,
+         pass_s=bf16_pass_s)
+    del model, x, hidden, hb, rows, loss, ploss, plse, pdh, pdw
     torch.cuda.empty_cache()
-    return launches
+    return {"f32": launches, "bf16": bf16_launches}
 
 
 def phase_probe(build_seconds):
@@ -882,8 +985,22 @@ def main() -> int:
          "lm_loss.cu", pallas + "lm_loss.py:261"),
         ("lm_loss_dw", "library_ops", lm_recs["bf16_h_f32_w"]["lm_loss_dw"],
          "lm_loss.cu", pallas + "lm_loss.py:279"),
+        ("lm_loss_dh_f32", "library_ops", lm_recs["f32"]["lm_loss_dh"],
+         "lm_loss.cu", pallas + "lm_loss.py:261"),
+        ("lm_loss_dw_f32", "library_ops", lm_recs["f32"]["lm_loss_dw"],
+         "lm_loss.cu", pallas + "lm_loss.py:279"),
     ]
-    counts = {**launches, **library_launches}
+    # LayerNorm from the f32 pass; the LM loss's forward and tensor-core
+    # backward from the bf16 pass, its FMA backward (f32 h) from the f32 pass
+    lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
+    counts = {**launches,
+              **{k: lib_f32[k] for k in ("layer_norm_fwd", "layer_norm_infer",
+                                         "layer_norm_bwd")},
+              "lm_loss_fwd": lib_bf16["lm_loss_fwd"],
+              "lm_loss_dh": lib_bf16["lm_loss_dh_mma"],
+              "lm_loss_dw": lib_bf16["lm_loss_dw_mma"],
+              "lm_loss_dh_f32": lib_f32["lm_loss_dh_fma"],
+              "lm_loss_dw_f32": lib_f32["lm_loss_dw_fma"]}
     kernels = []
     for name, path, rec, src, replaces in rows:
         kernels.append({

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -95,6 +96,29 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas register and spill report) of the last build."""
     p = library_path(name).with_suffix(".log")
     return p.read_text() if p.exists() else ""
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """{kernel (mangled name): {"registers", "spill_stores", "spill_loads"}}
+    from ptxas's report in the last build's log."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in build_log(name).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)'?",
+                      line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn]["spill_stores"], out[fn]["spill_loads"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m[1])
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

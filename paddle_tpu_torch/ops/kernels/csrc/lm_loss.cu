@@ -42,7 +42,58 @@
 //   units, so its floor is the FP32 one; what it does about the bound: S,
 //   p and dl never leave the chip, each staged tile is reused by 32 or 128
 //   rows, the forward splits the vocab so that ~1000 CTAs fill 132 SMs.
-//   mma.sync and then wgmma with TMA are the next steps.
+//   The FMA backward stays the route for f32 h (bit for bit as it was).
+//
+// The tensor-core backward (lm_grad_mma_kernel, the route for bf16 h): dh
+// and dW again as one template with the roles swapped, now with both
+// products on the bf16 tensor cores (mma.sync.m16n8k16, f32 accumulation),
+// operands from shared memory through ldmatrix. It reads W in bf16: the
+// wrapper makes one bf16 copy of an f32 W and hands it to both kernels (the
+// TPU wrapper's `w.astype(h2.dtype)`), so tiles go straight from device
+// memory to shared memory with cp.async, unconverted. dW still comes out in
+// the original W's dtype.
+//   Bound: the same 1.28 ms of operations each (4 N V H on the tensor
+//   cores); the operand streams are ~20 GB a kernel (every CTA reads the
+//   whole other operand), mostly from L2, since the CTAs in flight walk the
+//   tiles in step.
+//   Design: 256 threads, 8 warps, 1 CTA an SM. The own tile [32, H] bf16
+//   is loaded once and stays; the other operand streams in [32, H] bf16
+//   tiles through a cp.async double buffer (tile t+1 is in flight while
+//   tile t computes; rows past the end are zero-filled through cp.async's
+//   src-size, so the inner loops have no edge branch). Per tile, three
+//   phases between barriers:
+//   - S = own . other^T split over the hidden dim: warp w computes all 32
+//     own rows x 16 other rows over the hidden quarter w / 2 (plain
+//     ldmatrix for both: H is contiguous in both), and the four f32
+//     partials meet in shared memory (20 KB);
+//   - dl = (exp(S - lse) - onehot) * g: a thread sums 4 elements' partials
+//     in a fixed order, computes dl in f32 and rounds it to bf16 into a
+//     [32, 32] tile;
+//   - acc += dl . other: warp w owns the 16-column pairs c0 + (j*8 + w)*16
+//     for all 32 own rows (dl through ldmatrix, other through
+//     ldmatrix.trans: its rows are now the k dimension).
+//   The split makes every warp read each shared fragment once (~290 KB of
+//   shared-memory traffic a tile); a layout of 16 x 8 blocks of S over the
+//   full H, which reads the own tile 4 times and the other 3 times a tile
+//   (~450 KB), took 22% longer (PERF.md). The [32 own, chunk] f32
+//   accumulator lives in registers, 96 floats a thread at chunk 768. 32
+//   own rows, not 64: 64 would need 192 accumulator registers a thread, or
+//   two hidden chunks and 1.5x the operations. Wider H goes in chunks of
+//   <= 768 columns over gridDim.y, each chunk recomputing S over the full
+//   H (which stays in shared memory); above H = 1024 the two other tiles no
+//   longer fit beside the own tile and the tile is single-buffered (the
+//   plan in lm_loss.py picks it; H <= 1536). Rows are padded by 16 bytes
+//   (not swizzled): a row of H bf16 is a multiple of 256 bytes, so without
+//   the pad the 8 rows of an ldmatrix all start in one bank; with it they
+//   start 4 banks apart. No atomics and a fixed summation order: two calls
+//   give the same bits.
+//   Left for wgmma: at 8 warps an SM and three barriers a tile, each
+//   phase's latency shows (~4,300 cycles a tile against ~2,300 of
+//   shared-memory traffic); a wgmma version reads both operands from
+//   shared memory by descriptor, with TMA filling a deeper ring and a
+//   producer warp, so the phases of consecutive tiles overlap. The device
+//   code that issues the products (the S loop and the dl . other loop) is
+//   the one place to change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -439,6 +490,308 @@ bool shape_ok(int n, int v, int hdim) {
   return n > 0 && v > 0 && hdim > 0 && hdim % 128 == 0;
 }
 
+// ----------------------------------------------------- tensor-core backward
+
+constexpr int MB = 32;          // own rows a CTA: 2 warp rows of 16
+constexpr int OB = 32;          // other rows a staged tile: 4 warp columns of 8 in S
+constexpr int PAD = 8;          // bf16 a row of padding (16 bytes)
+constexpr int DLD = OB + PAD;   // row stride of the dl tile (bf16)
+constexpr int KQ = 4;           // hidden quarters of the S product
+constexpr int PST = OB + 8;     // row stride of the S partials (f32)
+constexpr int MAX_SMEM = 232448;
+
+int mma_smem_bytes(int hdim, int stages) {
+  return ((1 + stages) * MB * (hdim + PAD) + MB * DLD) * 2 + KQ * MB * PST * 4;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; src_bytes = 0 writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// d += a . b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+struct MmaParams {
+  const __nv_bfloat16* own;     // dh: h [n, hdim]; dW: W [v, hdim] (bf16)
+  const __nv_bfloat16* other;   // dh: W; dW: h
+  const int* labels;            // [n]
+  const float* lse;             // [n]
+  const float* g;               // [n]
+  void* out;                    // dh [n, hdim] bf16; dW [v, hdim] in TO
+  int n, v, hdim;
+  int chunk;                    // hidden columns a CTA accumulates (<= HC * 128)
+};
+
+// DW = false: dh (own = h rows, other = W rows); DW = true: dW (own = W rows,
+// other = h rows). TO: the output's dtype. HC: the accumulator's width in
+// 128-column units (a warp holds HC pairs of n8 tiles for both own m16
+// tiles). ST: other-tile buffers (2: double-buffered; 1 where two do not fit).
+// blockIdx.x: own tile of 32 rows; blockIdx.y: hidden chunk.
+// S phase: warp w computes S[32 own, 16 other (w & 1)] over the hidden
+// quarter w >> 1; the four partials meet in shared memory. dl phase: thread
+// t owns S[t / 8][(t % 8) * 4 .. + 3]. Product phase: warp w owns the pairs of
+// columns c0 + (j * 8 + w) * 16, all 32 own rows.
+template <bool DW, typename TO, int HC, int ST>
+__global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
+  extern __shared__ float4 smem4[];
+  const int ld = p.hdim + PAD;
+  __nv_bfloat16* s_own = reinterpret_cast<__nv_bfloat16*>(smem4);   // [MB][ld]
+  __nv_bfloat16* s_oth = s_own + MB * ld;                           // ST x [OB][ld]
+  float* s_part = reinterpret_cast<float*>(s_oth + ST * OB * ld);   // [KQ][MB][PST]
+  __nv_bfloat16* s_dl = reinterpret_cast<__nv_bfloat16*>(s_part + KQ * MB * PST);  // [MB][DLD]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kq = warp >> 1, nh = warp & 1;      // S: hidden quarter, 16 other columns
+  const int gq = lane >> 2, tq = lane & 3;      // fragment row, column pair
+  const int dr = tid >> 3, dc = (tid & 7) * 4;  // dl: own row, 4 other columns
+  const int a0 = blockIdx.x * MB;
+  const int c0 = blockIdx.y * p.chunk;
+  const int c_end = min(c0 + p.chunk, p.hdim);
+  const int na = DW ? p.v : p.n;
+  const int nb = DW ? p.n : p.v;
+  const int vecs = p.hdim / 8;                  // 16-byte pieces a row
+  const int kw = p.hdim / KQ;                   // hidden columns a quarter
+
+  // rows r0.. of src (rows past `rows` as zeros) -> dst [32][ld], asynchronously
+  auto stage = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0, int rows) {
+    for (int idx = tid; idx < MB * vecs; idx += NT) {
+      const int r = idx / vecs, c = (idx - r * vecs) * 8;
+      const bool ok = r0 + r < rows;
+      const __nv_bfloat16* s = src + static_cast<long long>(ok ? r0 + r : 0) * p.hdim + c;
+      cp_async16(smem_u32(dst + r * ld + c), s, ok ? 16 : 0);
+    }
+  };
+
+  // dh: the dl row is a token, its lse, g and label load once
+  float own_lse = 0.f, own_g = 0.f;
+  int own_lab = -1;
+  if (!DW && a0 + dr < p.n) {
+    own_lse = p.lse[a0 + dr];
+    own_g = p.g[a0 + dr];
+    own_lab = p.labels[a0 + dr];
+  }
+
+  float acc[HC][2][2][4];
+#pragma unroll
+  for (int j = 0; j < HC; ++j)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][m][e][q] = 0.f;
+  unsigned active = 0;          // pairs inside this chunk (warp-uniform)
+#pragma unroll
+  for (int j = 0; j < HC; ++j)
+    if (c0 + (j * 8 + warp) * 16 < c_end) active |= 1u << j;
+
+  // ldmatrix lane addresses (bytes)
+  const unsigned own_a =        // S: A, own rows lane & 15 (+16), hidden quarter kq
+      smem_u32(s_own + (lane & 15) * ld + kq * kw + (lane >> 4) * 8);
+  const unsigned dl_a = smem_u32(s_dl + (lane & 15) * DLD + (lane >> 4) * 8);
+  const unsigned oth0 = smem_u32(s_oth);
+  const unsigned buf_bytes = OB * ld * 2;
+  const unsigned oth_s =        // S: B, two n8 tiles of other rows nh * 16 ..
+      ((nh * 16 + (lane >> 4) * 8 + (lane & 7)) * ld + kq * kw + ((lane >> 3) & 1) * 8) * 2;
+  const unsigned oth_p =        // product: B (transposed), other rows = k
+      (((lane & 7) + ((lane >> 3) & 1) * 8) * ld + c0 + warp * 16 + (lane >> 4) * 8) * 2;
+
+  stage(s_own, p.own, a0, na);
+  cp_async_commit();
+  const int n_t = (nb + OB - 1) / OB;
+  if (ST == 2) {
+    stage(s_oth, p.other, 0, nb);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_t; ++t) {
+    const int b0 = t * OB;
+    if (ST == 1) {
+      stage(s_oth, p.other, b0, nb);
+      cp_async_commit();
+    }
+    // dW: the dl columns are tokens; their lse, g and label
+    float o_lse[4] = {0.f, 0.f, 0.f, 0.f}, o_g[4] = {0.f, 0.f, 0.f, 0.f};
+    int o_lab[4] = {-1, -1, -1, -1};
+    if (DW) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = b0 + dc + e;
+        if (b < p.n) {
+          o_lse[e] = p.lse[b];
+          o_g[e] = p.g[b];
+          o_lab[e] = p.labels[b];
+        }
+      }
+    }
+    cp_async_wait<0>();         // the own tile and tile t have landed
+    __syncthreads();            // ... for every thread; tile t - 1 is done with
+    if (ST == 2 && t + 1 < n_t) {   // the other buffer, which takes tile t + 1
+      stage(s_oth + ((t + 1) & 1) * OB * ld, p.other, b0 + OB, nb);
+      cp_async_commit();
+    }
+    const unsigned ob = oth0 + (ST == 2 ? (t & 1) : 0) * buf_bytes;
+
+    // S[32 own, 16 other of nh] over hidden quarter kq
+    float sacc[2][2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sacc[m][e][q] = 0.f;
+#pragma unroll 2
+    for (int k = 0; k < kw; k += 16) {
+      unsigned a[2][4], b[4];
+      ldsm_x4(own_a + k * 2, a[0]);
+      ldsm_x4(own_a + (16 * ld + k) * 2, a[1]);
+      ldsm_x4(ob + oth_s + k * 2, b);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        mma_bf16(sacc[m][0], a[m], b[0], b[1]);
+        mma_bf16(sacc[m][1], a[m], b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(s_part + (kq * MB + m * 16 + gq + 8 * i) * PST +
+                                     nh * 16 + e * 8 + 2 * tq) =
+              make_float2(sacc[m][e][2 * i], sacc[m][e][2 * i + 1]);
+    __syncthreads();
+
+    // dl = (exp(s - lse) - onehot) * g, rounded to bf16, into [own][other]
+    {
+      float4 part[KQ];
+#pragma unroll
+      for (int q = 0; q < KQ; ++q)
+        part[q] = *reinterpret_cast<const float4*>(s_part + (q * MB + dr) * PST + dc);
+      const float s[4] = {(part[0].x + part[1].x) + (part[2].x + part[3].x),
+                          (part[0].y + part[1].y) + (part[2].y + part[3].y),
+                          (part[0].z + part[1].z) + (part[2].z + part[3].z),
+                          (part[0].w + part[1].w) + (part[2].w + part[3].w)};
+      const int a = a0 + dr;
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = b0 + dc + e;
+        const int tok = DW ? b : a, voc = DW ? a : b;
+        const float z = DW ? o_lse[e] : own_lse;
+        const float gg = DW ? o_g[e] : own_g;
+        const int lb = DW ? o_lab[e] : own_lab;
+        const float pr = expf(s[e] - z);
+        d[e] = (tok < p.n && voc < p.v) ? (pr - (voc == lb ? 1.f : 0.f)) * gg : 0.f;
+      }
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(s_dl + dr * DLD + dc);
+      dst[0] = __floats2bfloat162_rn(d[0], d[1]);
+      dst[1] = __floats2bfloat162_rn(d[2], d[3]);
+    }
+    __syncthreads();
+
+    // acc[32 own, this warp's columns] += dl[32 own, 32 other] . other
+#pragma unroll
+    for (int kk = 0; kk < OB; kk += 16) {
+      unsigned a[2][4];
+      ldsm_x4(dl_a + kk * 2, a[0]);
+      ldsm_x4(dl_a + (16 * DLD + kk) * 2, a[1]);
+#pragma unroll
+      for (int j = 0; j < HC; ++j) {
+        if (active & (1u << j)) {
+          unsigned b[4];
+          ldsm_x4_t(ob + oth_p + (kk * ld + j * 128) * 2, b);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            mma_bf16(acc[j][m][0], a[m], b[0], b[1]);
+            mma_bf16(acc[j][m][1], a[m], b[2], b[3]);
+          }
+        }
+      }
+    }
+    if (ST == 1) __syncthreads();   // the one buffer takes the next tile
+  }
+
+  TO* out = static_cast<TO*>(p.out);
+#pragma unroll
+  for (int j = 0; j < HC; ++j) {
+    if (!(active & (1u << j))) continue;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + (j * 8 + warp) * 16 + e * 8 + 2 * tq;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int a = a0 + m * 16 + gq + 8 * i;
+          if (a < na)
+            store2(out + static_cast<long long>(a) * p.hdim + col, acc[j][m][e][2 * i],
+                   acc[j][m][e][2 * i + 1]);
+        }
+      }
+  }
+}
+
+template <bool DW, typename TO, int HC, int ST>
+cudaError_t mma_launch(const MmaParams& p, cudaStream_t st) {
+  const int smem = mma_smem_bytes(p.hdim, ST);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(lm_grad_mma_kernel<DW, TO, HC, ST>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int na = DW ? p.v : p.n;
+  const dim3 grid((na + MB - 1) / MB, (p.hdim + p.chunk - 1) / p.chunk);
+  lm_grad_mma_kernel<DW, TO, HC, ST><<<grid, NT, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+// the instances: HC 2, 4, 6 double-buffered; HC 6 single-buffered (H > 1152)
+template <bool DW, typename TO>
+cudaError_t mma_dispatch(const MmaParams& p, int hc, int stages, cudaStream_t st) {
+  if (stages == 2) {
+    switch (hc) {
+      case 2: return mma_launch<DW, TO, 2, 2>(p, st);
+      case 4: return mma_launch<DW, TO, 4, 2>(p, st);
+      case 6: return mma_launch<DW, TO, 6, 2>(p, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (stages == 1 && hc == 6) return mma_launch<DW, TO, 6, 1>(p, st);
+  return cudaErrorInvalidValue;
+}
+
 // The forward kernels, one per (variant, h dtype, W dtype). `full` is the
 // public one (label pick and masking at v_true); `bare` (product and online
 // logsumexp only) and `picked` (plus the label pick) are the compile probe's
@@ -523,5 +876,38 @@ extern "C" int lm_loss_bwd(const void* h, const void* w, const void* labels, con
   else if (htype == 1 && wtype == 0) e = grad_which<__nv_bfloat16, float>(p, dw, st);
   else if (htype == 1 && wtype == 1) e = grad_which<__nv_bfloat16, __nv_bfloat16>(p, dw, st);
   else e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// The tensor-core dh (dw = 0: out [n, hdim] bf16) or dW (dw = 1: out [v, hdim]
+// in otype: 0 = float32, 1 = bfloat16) of the loss. h and w are both bf16
+// (the wrapper casts an f32 W once); the output dtype is given apart from
+// the dtype read, since dW comes out in the master W's. The plan (chunk
+// columns a CTA, a multiple of 128; hc, the accumulator instance, 2, 4 or 6
+// with chunk <= hc * 128; stages, 1 or 2) comes from lm_loss.py's
+// backward_plan. Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// plan without an instance or beyond the shared memory.
+extern "C" int lm_loss_bwd_mma(const void* h, const void* w, const void* labels,
+                               const void* lse, const void* g, void* out, int otype, int n,
+                               int v, int hdim, int dw, int chunk, int hc, int stages,
+                               void* stream) {
+  if (!shape_ok(n, v, hdim) || chunk <= 0 || chunk % 128 || chunk > hc * 128 ||
+      (!dw && otype != 1) || otype < 0 || otype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MmaParams p;
+  const __nv_bfloat16* hb = static_cast<const __nv_bfloat16*>(h);
+  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
+  p.own = dw ? wb : hb;
+  p.other = dw ? hb : wb;
+  p.labels = static_cast<const int*>(labels);
+  p.lse = static_cast<const float*>(lse);
+  p.g = static_cast<const float*>(g);
+  p.out = out;
+  p.n = n; p.v = v; p.hdim = hdim; p.chunk = chunk;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (!dw) e = mma_dispatch<false, __nv_bfloat16>(p, hc, stages, st);
+  else if (otype == 0) e = mma_dispatch<true, float>(p, hc, stages, st);
+  else e = mma_dispatch<true, __nv_bfloat16>(p, hc, stages, st);
   return static_cast<int>(e);
 }

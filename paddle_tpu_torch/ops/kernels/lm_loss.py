@@ -17,22 +17,29 @@ to a multiple of 512 and masks the pad; the results are the same).
 
 On CUDA tensors the three wrappers launch the kernels of ``csrc/lm_loss.cu``
 or raise; on CPU tensors they take the plain versions (dense logits, the
-same rounding points). ``launches_fwd``, ``launches_dh`` and ``launches_dw``
-count their launches (the forward's call also runs the kernel that merges
-its vocab splits). A direct-call library op, as in the JAX package:
-``ops/fused.fused_linear_cross_entropy`` (the model's loss) does not route
-here.
+same rounding points). The backward has two routes, picked by
+``backward_plan`` from h2's dtype and the hidden size: ``"mma"`` for bf16
+h2 (the tensor-core kernels; an f32 W is cast to bf16 once per backward and
+the copy shared by dh and dW, as the JAX ``_bwd`` does), ``"fma"`` for f32
+h2 (FMA on the FP32 units, W rounded on load). ``launches_fwd``,
+``launches_dh`` and ``launches_dw`` count every launch (the forward's call
+also runs the kernel that merges its vocab splits); ``launches_by_route``
+counts dh and dW launches by route. A direct-call library op, as in the JAX
+package: ``ops/fused.fused_linear_cross_entropy`` (the model's loss) does
+not route here.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 #: kernel launches since import (chip_smoke.py resets and reads them)
 launches_fwd = 0   # forward (loss and lse)
-launches_dh = 0    # backward, dh
-launches_dw = 0    # backward, dW
+launches_dh = 0    # backward, dh (either route)
+launches_dw = 0    # backward, dW (either route)
+launches_by_route = {"mma": {"dh": 0, "dw": 0}, "fma": {"dh": 0, "dw": 0}}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"full": 0, "bare": 1, "picked": 2}
@@ -40,6 +47,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "lm_loss_fwd": [_PTR] * 6 + [_INT] * 8 + [_PTR],
     "lm_loss_bwd": [_PTR] * 6 + [_INT] * 6 + [_PTR],
+    "lm_loss_bwd_mma": [_PTR] * 6 + [_INT] * 8 + [_PTR],
     "lm_loss_fwd_splits": [_INT, _INT],
 }
 _fns = {}
@@ -67,6 +75,64 @@ def supported(n_rows: int, vocab: int, hidden: int) -> bool:
     """The JAX package's predicate: rows a multiple of 1024, vocab >= 128,
     hidden a multiple of 128."""
     return _pick_rows(n_rows) > 0 and vocab >= 128 and hidden % 128 == 0
+
+
+# ------------------------------------------------------------- backward plan
+
+#: shared memory a CTA may take on the H100 (227 KB)
+_MAX_SMEM = 232448
+
+
+class BackwardPlan(NamedTuple):
+    """What the backward's launch takes: the ``route`` ("mma" or "fma") and,
+    for the tensor-core route, the arguments of ``lm_loss_bwd_mma``: the
+    hidden columns a CTA accumulates (``chunk``; the grid's y walks
+    ceil(H / chunk) chunks, each recomputing the logits over the full H),
+    the accumulator instance ``hc`` (in 128-column units, >= chunk / 128)
+    and the other-operand buffers ``stages``. The FMA kernel picks its own
+    chunks (``pick_hc`` in csrc/lm_loss.cu), so they are 0 there."""
+    route: str
+    chunk: int = 0
+    hc: int = 0
+    stages: int = 0
+
+
+def _mma_smem(hidden: int, stages: int) -> int:
+    """The tensor-core kernel's shared memory: the resident [32, H] own tile,
+    ``stages`` [32, H] other tiles (rows padded by 8 bf16), the [32, 40]
+    bf16 dl tile and four [32, 40] f32 partials of S."""
+    return ((1 + stages) * 32 * (hidden + 8) + 32 * 40) * 2 + 4 * 32 * 40 * 4
+
+
+def _plan(route: str, h_dtype, hidden: int) -> BackwardPlan:
+    """The plan of ``route`` for h2 of ``h_dtype`` and ``hidden`` columns;
+    ValueError where the route cannot take them."""
+    if route == "fma":
+        return BackwardPlan("fma")
+    if route != "mma":
+        raise ValueError(f"route must be 'mma' or 'fma', got {route!r}")
+    if h_dtype != torch.bfloat16:
+        raise ValueError("the tensor-core backward takes bf16 h2")
+    units = hidden // 128
+    chunks = -(-units // 6)
+    need = -(-units // chunks)
+    hc = 2 if need <= 2 else 4 if need <= 4 else 6
+    stages = 2 if _mma_smem(hidden, 2) <= _MAX_SMEM else 1
+    if _mma_smem(hidden, stages) > _MAX_SMEM:
+        raise ValueError(f"the tensor-core backward takes hidden <= 1536, got {hidden}")
+    return BackwardPlan("mma", need * 128, hc, stages)
+
+
+def backward_plan(h_dtype, hidden: int) -> BackwardPlan:
+    """The backward's route and plan for h2 of ``h_dtype`` and ``hidden``
+    columns (a multiple of 128).
+
+    bf16 h2 takes the tensor-core route while its tiles fit in shared memory
+    (H <= 1536): chunks of at most 768 columns (96 accumulator floats a
+    thread), double-buffered up to H = 1024, single-buffered above. f32 h2
+    (or bf16 past 1536) takes the FMA route."""
+    mma = h_dtype == torch.bfloat16 and _mma_smem(hidden, 1) <= _MAX_SMEM
+    return _plan("mma" if mma else "fma", h_dtype, hidden)
 
 
 # ------------------------------------------------------------ plain versions
@@ -186,41 +252,58 @@ def lm_loss_fwd(h2, w, labels, variant="full", v_true=None):
     return loss, lse
 
 
-def _bwd_launch(h2, w, labels, lse, g, dw):
+def _bwd_launch(h2, w, labels, lse, g, dw, w_read=None, route=None):
+    """dh (dw False) or dW (dw True) through the kernel of ``backward_plan``.
+    ``w_read``: the bf16 copy of an f32 W that the mma route reads (made
+    here when not given); dW comes out in ``w``'s own dtype. ``route``
+    forces a route (chip_smoke.py and the card tests time and check the FMA
+    kernel at bf16 h with "fma"; no path passes it)."""
+    global launches_dh, launches_dw
     h2, w, labels = _prepare(h2, w, labels)
     n, hdim = h2.shape
+    v = w.shape[0]
+    plan = (backward_plan(h2.dtype, hdim) if route is None
+            else _plan(route, h2.dtype, hdim))
     for name, t in (("lse", lse), ("g", g)):
         if tuple(t.shape) != (n,) or t.device != h2.device:
             raise ValueError(f"{name} must be [{n}] on {h2.device}")
     lse, g = lse.float().contiguous(), g.float().contiguous()
     out = torch.empty(w.shape if dw else h2.shape, dtype=w.dtype if dw else h2.dtype,
                       device=h2.device)
-    _call("lm_loss_bwd", h2.device, h2.data_ptr(), w.data_ptr(), labels.data_ptr(),
-          lse.data_ptr(), g.data_ptr(), out.data_ptr(), _DTYPE_CODES[h2.dtype],
-          _DTYPE_CODES[w.dtype], n, w.shape[0], hdim, int(dw))
+    common = (labels.data_ptr(), lse.data_ptr(), g.data_ptr(), out.data_ptr())
+    if plan.route == "mma":
+        if w_read is None:
+            w_read = w if w.dtype == torch.bfloat16 else w.to(torch.bfloat16)
+        w_read = _aligned(w_read)
+        _call("lm_loss_bwd_mma", h2.device, h2.data_ptr(), w_read.data_ptr(), *common,
+              _DTYPE_CODES[out.dtype], n, v, hdim, int(dw), plan.chunk, plan.hc,
+              plan.stages)
+    else:
+        _call("lm_loss_bwd", h2.device, h2.data_ptr(), w.data_ptr(), *common,
+              _DTYPE_CODES[h2.dtype], _DTYPE_CODES[w.dtype], n, v, hdim, int(dw))
+    key = "dw" if dw else "dh"
+    launches_by_route[plan.route][key] += 1
+    if dw:
+        launches_dw += 1
+    else:
+        launches_dh += 1
     return out
 
 
 def lm_loss_dh(h2, w, labels, lse, g):
     """dh [N, H] in h2's dtype: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors."""
-    global launches_dh
     if not h2.is_cuda:
         return lm_loss_bwd_plain(h2, w, labels, lse, g)[0]
-    dh = _bwd_launch(h2, w, labels, lse, g, dw=False)
-    launches_dh += 1
-    return dh
+    return _bwd_launch(h2, w, labels, lse, g, False)
 
 
 def lm_loss_dw(h2, w, labels, lse, g):
     """dW [V, H] in w's dtype: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors."""
-    global launches_dw
     if not h2.is_cuda:
         return lm_loss_bwd_plain(h2, w, labels, lse, g)[1]
-    dw = _bwd_launch(h2, w, labels, lse, g, dw=True)
-    launches_dw += 1
-    return dw
+    return _bwd_launch(h2, w, labels, lse, g, True)
 
 
 # ---------------------------------------------------------------- autograd
@@ -243,8 +326,11 @@ class _LMLoss(torch.autograd.Function):
             dh, dw = lm_loss_bwd_plain(h2, w, labels, lse, g)
             return dh, dw, None
         need_h, need_w = ctx.needs_input_grad[:2]
-        dh = lm_loss_dh(h2, w, labels, lse, g) if need_h else None
-        dw = lm_loss_dw(h2, w, labels, lse, g) if need_w else None
+        # the mma route reads W in bf16: one copy, shared by dh and dW
+        mma = backward_plan(h2.dtype, h2.shape[1]).route == "mma"
+        w_read = w.to(torch.bfloat16) if mma and w.dtype != torch.bfloat16 else None
+        dh = _bwd_launch(h2, w, labels, lse, g, False, w_read=w_read) if need_h else None
+        dw = _bwd_launch(h2, w, labels, lse, g, True, w_read=w_read) if need_w else None
         return dh, dw, None
 
 

@@ -13,7 +13,14 @@ max(1, max|ref|) for gradients (summation order; TF32 is turned off); bf16
 kernel and the final max in the plain version; the backward rounds P and dS
 to bf16 where both versions do, but sums in another order). The LayerNorm
 and LM-loss kernels are held to the same two tolerances against their plain
-versions (sums in another order; bf16 outputs round once in both).
+versions (sums in another order; bf16 outputs round once in both), except
+the f32 dW of bf16 h: 1e-3 x max|ref| (dl rounds to bf16 at the same point
+in both, so only the sum order differs; at bf16 tolerance a dW without its
+softmax term would pass wherever the labels' -h spikes set max|ref|). The
+LM-loss backward's tensor-core kernels (bf16 h) are also held to their
+plain versions with every label -100 (dh and dW the softmax term alone), to
+giving the same bits twice, to their route's launch counts, and to HMMA in
+their SASS with no spills.
 """
 import numpy as np
 import pytest
@@ -230,6 +237,14 @@ def _tol(ref, dt):
     return 1e-4 * max(1.0, scale) if dt == torch.float32 else 2e-2 * scale
 
 
+def _grad_tol(got, ref, ht):
+    """An LM-loss gradient's tolerance: a bf16 one as _tol's bf16; an f32 dW
+    from bf16 h 1e-3 x max|ref|; from f32 h as _tol's f32."""
+    if got.dtype == torch.float32 and ht == torch.bfloat16:
+        return 1e-3 * ref.abs().max().item()
+    return _tol(ref, got.dtype if got.dtype == torch.bfloat16 else ht)
+
+
 def _err(got, ref):
     assert got.dtype == ref.dtype and got.shape == ref.shape, (got.dtype, ref.dtype)
     return (got.float() - ref.float()).abs().max().item()
@@ -296,10 +311,17 @@ def test_layer_norm_autograd_goes_through_the_kernels(cuda):
     ("bfloat16", "float32", 2048, 384, 768),      # bf16 h, f32 master W
     ("float32", "float32", 1024, 300, 1280),      # two hidden chunks in dh / dW
     ("float32", "bfloat16", 1000, 256, 128),      # ragged rows (the wrappers mask them)
+    # bf16 h: the tensor-core backward, at the edges of its 32-row tiles
+    ("bfloat16", "float32", 1024, 500, 128),      # ragged vocab
+    ("bfloat16", "bfloat16", 1024, 50257, 768),   # GPT-2's vocab: a ragged last tile
+    ("bfloat16", "float32", 1000, 256, 768),      # ragged rows
+    ("bfloat16", "float32", 1024, 300, 1280),     # two hidden chunks, one other buffer
+    ("bfloat16", "bfloat16", 1000, 500, 1280),
 ])
 def test_lm_loss_kernels_match_plain(cuda, htype, wtype, n, v, hdim):
     """The forward (loss, lse), dh and dW against their plain versions, with
-    a label of -100 and one at the last column; each wrapper launches once."""
+    a label of -100 and one at the last column; each wrapper launches once,
+    on the route backward_plan gives (tensor cores for bf16 h)."""
     ht, wt = getattr(torch, htype), getattr(torch, wtype)
     rng = np.random.RandomState(12)
     h = torch.from_numpy(rng.randn(n, hdim).astype(np.float32)).to(cuda, ht)
@@ -307,22 +329,152 @@ def test_lm_loss_kernels_match_plain(cuda, htype, wtype, n, v, hdim):
     labels = torch.from_numpy(rng.randint(0, v, (n,)).astype(np.int32)).to(cuda)
     labels[5], labels[6] = -100, v - 1
     g = torch.from_numpy(rng.rand(n).astype(np.float32)).to(cuda)
-    before = (lm.launches_fwd, lm.launches_dh, lm.launches_dw)
+    route = lm.backward_plan(ht, hdim).route
+    assert route == ("mma" if ht == torch.bfloat16 else "fma")
+    before = (lm.launches_fwd, lm.launches_dh, lm.launches_dw,
+              *lm.launches_by_route[route].values())
     loss, lse = lm.lm_loss_fwd(h, w, labels)
     dh = lm.lm_loss_dh(h, w, labels, lse, g)
     dw = lm.lm_loss_dw(h, w, labels, lse, g)
     torch.cuda.synchronize()
-    after = (lm.launches_fwd, lm.launches_dh, lm.launches_dw)
-    assert [a - c for a, c in zip(after, before)] == [1, 1, 1]
+    after = (lm.launches_fwd, lm.launches_dh, lm.launches_dw,
+             *lm.launches_by_route[route].values())
+    assert [a - c for a, c in zip(after, before)] == [1, 1, 1, 1, 1]
     ploss, plse = lm.lm_loss_fwd_plain(h, w, labels)
     assert _err(lse, plse) <= _tol(plse, ht) and _err(loss, ploss) <= _tol(ploss, ht)
     assert abs(loss[5].item() - lse[5].item()) <= 1e-6 * abs(lse[5].item())
     pdh, pdw = lm.lm_loss_bwd_plain(h, w, labels, plse, g)
     assert dh.dtype == ht and dw.dtype == wt
-    assert _err(dh, pdh) <= _tol(pdh, ht)
-    # dW is rounded to bf16 where dl is (bf16 h) or where it is stored (bf16 W)
-    assert _err(dw, pdw) <= _tol(pdw, torch.bfloat16 if torch.bfloat16 in (ht, wt)
-                                 else torch.float32)
+    assert _err(dh, pdh) <= _grad_tol(dh, pdh, ht)
+    assert _err(dw, pdw) <= _grad_tol(dw, pdw, ht)
+
+
+def _lm_inputs(cuda, n, v, hdim, wt, seed):
+    rng = np.random.RandomState(seed)
+    h = torch.from_numpy(rng.randn(n, hdim).astype(np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.randn(v, hdim).astype(np.float32) * 0.05).to(cuda, wt)
+    labels = torch.from_numpy(rng.randint(0, v, (n,)).astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.rand(n).astype(np.float32)).to(cuda)
+    return h, w, labels, g
+
+
+@pytest.mark.parametrize("route,wtype,v", [
+    ("mma", "float32", 500), ("mma", "bfloat16", 640), ("fma", "float32", 500),
+])
+def test_lm_loss_bf16_backward_softmax_term_alone(cuda, route, wtype, v):
+    """Every label -100: dh and dW are the softmax term alone, so max|ref|
+    scales with it and the tolerances see it whole. The tensor-core kernels
+    and the FMA kernel at the same bf16 h (its predecessor) against the
+    plain version."""
+    h, w, labels, g = _lm_inputs(cuda, 1024, v, 768, getattr(torch, wtype), seed=18)
+    labels.fill_(-100)
+    _, lse = lm.lm_loss_fwd(h, w, labels)
+    dh = lm._bwd_launch(h, w, labels, lse, g, False, route=route)
+    dw = lm._bwd_launch(h, w, labels, lse, g, True, route=route)
+    pdh, pdw = lm.lm_loss_bwd_plain(h, w, labels, lse, g)
+    assert pdh.abs().max().item() > 0 and pdw.abs().max().item() > 0
+    assert _err(dh, pdh) <= _grad_tol(dh, pdh, h.dtype)
+    assert _err(dw, pdw) <= _grad_tol(dw, pdw, h.dtype)
+
+
+def test_lm_loss_mma_backward_is_deterministic(cuda):
+    """No atomics and a fixed summation order: two calls on the same inputs
+    give the same bits, for dh and for dW."""
+    h, w, labels, g = _lm_inputs(cuda, 2048, 1000, 768, torch.float32, seed=16)
+    _, lse = lm.lm_loss_fwd(h, w, labels)
+    first = (lm.lm_loss_dh(h, w, labels, lse, g), lm.lm_loss_dw(h, w, labels, lse, g))
+    second = (lm.lm_loss_dh(h, w, labels, lse, g), lm.lm_loss_dw(h, w, labels, lse, g))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_lm_loss_backward_routes(cuda):
+    """bf16 h launches the tensor-core kernels and f32 h the FMA ones, through
+    the direct calls and through autograd; the private route="fma" reaches
+    the FMA kernel at bf16 h (for timing it) and gives the same result
+    within the tolerances of the plain version."""
+    h, w, labels, g = _lm_inputs(cuda, 1024, 640, 256, torch.float32, seed=17)
+    _, lse = lm.lm_loss_fwd(h, w, labels)
+
+    def counts():
+        return {r: dict(c) for r, c in lm.launches_by_route.items()}
+
+    def delta(before):
+        return {r: {k: lm.launches_by_route[r][k] - before[r][k] for k in ("dh", "dw")}
+                for r in ("mma", "fma")}
+
+    one, zero = {"dh": 1, "dw": 1}, {"dh": 0, "dw": 0}
+    for hh, route in ((h, "mma"), (h.float(), "fma")):
+        before = counts()
+        lm.lm_loss_dh(hh, w, labels, lse, g)
+        lm.lm_loss_dw(hh, w, labels, lse, g)
+        assert delta(before) == {"mma": one if route == "mma" else zero,
+                                 "fma": one if route == "fma" else zero}
+        before = counts()
+        ha, wa = hh.detach().requires_grad_(), w.detach().requires_grad_()
+        lm.lm_head_cross_entropy(ha, wa, labels).sum().backward()
+        assert delta(before) == {"mma": one if route == "mma" else zero,
+                                 "fma": one if route == "fma" else zero}
+    before = counts()
+    dh_fma = lm._bwd_launch(h, w, labels, lse, g, False, route="fma")
+    dw_fma = lm._bwd_launch(h, w, labels, lse, g, True, route="fma")
+    assert delta(before) == {"mma": zero, "fma": one}
+    dh, dw = lm.lm_loss_dh(h, w, labels, lse, g), lm.lm_loss_dw(h, w, labels, lse, g)
+    assert _err(dh, dh_fma) <= _grad_tol(dh, dh_fma, torch.bfloat16)
+    assert _err(dw, dw_fma) <= _grad_tol(dw, dw_fma, torch.bfloat16)
+
+
+def _cuobjdump():
+    """cuobjdump from CUDA's bin/, else from Triton's package, else None."""
+    import importlib.util
+    import os
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    try:
+        dirs = [os.path.dirname(_build.nvcc_path())]
+    except RuntimeError:
+        dirs = []
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        dirs.append(os.path.join(os.path.dirname(spec.origin), "backends", "nvidia", "bin"))
+    for d in dirs:
+        path = os.path.join(d, "cuobjdump")
+        if os.path.isfile(path):
+            return path
+    return None
+
+
+def test_lm_loss_mma_kernels_use_tensor_cores_without_spills(cuda):
+    """The built lm_loss library's tensor-core kernels (every instance) hold
+    HMMA instructions in their SASS, and ptxas reports 0 spill bytes and at
+    most 255 registers for each."""
+    import subprocess
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    _build.load("lm_loss")
+    report = {k: r for k, r in _build.ptxas_report("lm_loss").items()
+              if "lm_grad_mma_kernel" in k}
+    assert len(report) == 12, sorted(report)
+    for name, r in report.items():
+        assert r.get("spill_stores") == 0 and r.get("spill_loads") == 0, (name, r)
+        assert r.get("registers", 256) <= 255, (name, r)
+    tool = _cuobjdump()
+    if tool is None:
+        pytest.skip("no cuobjdump under CUDA's bin/ or triton/backends/nvidia/bin/")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("lm_loss"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        funcs[name] = part
+    mma = {k: body for k, body in funcs.items() if "lm_grad_mma_kernel" in k}
+    assert len(mma) == 12, sorted(funcs)
+    for name, body in mma.items():
+        assert "HMMA" in body, name
+    fma = [body for k, body in funcs.items() if "lm_grad_kernel" in k]
+    assert fma and not any("HMMA" in body for body in fma)
 
 
 def test_lm_loss_autograd_goes_through_the_kernels(cuda):

@@ -8,15 +8,17 @@ The port's CPU path is the kernels' plain versions, reached through the
 public ``lm_head_cross_entropy`` and autograd. Covered: the cases of
 tests/test_pallas_lm_loss.py (f32 and bf16 values, gradients, the
 ``supported`` predicate, unaligned vocab 500, bf16 h with an f32 W, block_n
-256 and 512), the ``block_n`` check, a row count JAX refuses, and a label of
--100 (no ignore_index: the row's loss is its logsumexp).
+256 and 512), the ``block_n`` check, a row count JAX refuses, a label of
+-100 (no ignore_index: the row's loss is its logsumexp), the tensor-core
+route's inputs (bf16 h, f32 W) at vocab 500 with -100 labels, and the
+backward's route and hidden-chunk plan (``backward_plan``).
 
 Tolerances: f32 loss 2e-5 and gradients of the mean loss 1e-6 absolute (the
 same f32 products and logsumexp in another order; gradients are ~1e-4);
 bf16 loss 1e-4 (bf16 values are exact in f32, so only the sum order
 differs); bf16 h with f32 W: dh 1e-2 x max|ref| (dh rounds to bf16 in both,
 one bf16 step apart at most) and dW 1e-4 x max|ref| (f32, from dl rounded to
-bf16 in both). The composition: loss 2e-5 relative, gradients 1e-4 x max|g|
+bf16 in both), the tensor-core route's case likewise. The composition: loss 2e-5 relative, gradients 1e-4 x max|g|
 (two f32 ops and twelve 128-wide sums in another order).
 """
 import jax
@@ -187,6 +189,60 @@ def test_probe_variants_plain():
     picked = torch.where(tl.long() < 448, logits.gather(1, tl.long()[:, None])[:, 0],
                          torch.tensor(-1e30))
     torch.testing.assert_close(loss_m, lse_m - picked, atol=LOSS_TOL, rtol=0)
+
+
+def test_bf16_h_f32_w_backward_ragged_vocab_and_minus_100_match_jax():
+    """The tensor-core route's inputs (bf16 h, f32 master W) at a vocab that
+    is not a multiple of the kernels' 32-row tiles, with labels of -100:
+    loss and both gradients against JAX's interpret-mode kernel, at the
+    mixed-dtype limits (loss 1e-4, dh 1e-2 x max|ref|, dW 1e-4 x max|ref|);
+    dh bf16 and dW f32 in both."""
+    h, w, lab = _data(1024, 500, 128, seed=11)
+    lab[[3, 500, 1023]] = -100
+    want, want_dt = _jax(h, w, lab, jnp.bfloat16, jnp.float32)
+    got, got_dt = _port(h, w, lab, torch.bfloat16, torch.float32)
+    assert got_dt == want_dt == ("bfloat16", "float32")
+    assert got[2].shape == (500, 128)
+    _close(got[0], want[0], 1e-4)
+    _close(got[1], want[1], 1e-2 * np.abs(want[1]).max())
+    _close(got[2], want[2], 1e-4 * np.abs(want[2]).max())
+
+
+@pytest.mark.parametrize("dtype,hidden,route,chunks,chunk,hc,stages", [
+    ("bfloat16", 128, "mma", 1, 128, 2, 2),
+    ("bfloat16", 768, "mma", 1, 768, 6, 2),
+    ("bfloat16", 1024, "mma", 2, 512, 4, 2),
+    ("bfloat16", 1280, "mma", 2, 640, 6, 1),     # two other tiles no longer fit
+    ("float32", 128, "fma", None, 0, 0, 0),      # the FMA kernel picks its own chunks
+    ("float32", 768, "fma", None, 0, 0, 0),
+    ("float32", 1024, "fma", None, 0, 0, 0),
+    ("float32", 1280, "fma", None, 0, 0, 0),
+])
+def test_backward_plan_table(dtype, hidden, route, chunks, chunk, hc, stages):
+    """The backward's route and the plan lm_loss_bwd_mma is launched with:
+    bf16 h takes the tensor cores, f32 h the FMA kernel. The tensor-core
+    grid's y is ceil(H / chunk) hidden chunks (the C entry's grid), and the
+    tiles fit in the H100's 227 KB of shared memory."""
+    plan = lm.backward_plan(getattr(torch, dtype), hidden)
+    assert plan == (route, chunk, hc, stages)
+    if route == "mma":
+        assert -(-hidden // plan.chunk) == chunks and chunk <= hc * 128
+        assert lm._mma_smem(hidden, stages) <= 232448
+
+
+def test_backward_plan_limits():
+    """Past H = 1536 the tensor-core tiles do not fit in shared memory and
+    bf16 h takes the FMA kernel; forcing the tensor cores there or at f32
+    h, or naming no route, raises."""
+    assert lm.backward_plan(torch.bfloat16, 1536).route == "mma"
+    assert lm.backward_plan(torch.bfloat16, 1664).route == "fma"
+    assert lm._plan("fma", torch.bfloat16, 768).route == "fma"
+    with pytest.raises(ValueError):
+        lm._plan("mma", torch.bfloat16, 1664)
+    with pytest.raises(ValueError):
+        lm._plan("mma", torch.float32, 768)
+    with pytest.raises(ValueError):
+        lm._plan("wgmma", torch.bfloat16, 768)
 
 
 # ------------------------------------------------- the slice as a whole
