@@ -11,10 +11,13 @@ each:
    CUDA versions, then the kernel build time and ptxas's report.
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and a few edge cases, with kernel, plain, bound and
-   library (yardstick only) times: the flash forward, then the FA2
-   backward's dK/dV and dQ kernels.
+   library (yardstick only) times: the flash forward (bf16 on the tensor
+   cores, with its FMA predecessor checked and timed beside it; f32 on the
+   FMA kernel), then the FA2 backward's dK/dV and dQ kernels, with SDPA's
+   FA2 (flash backend) forward and backward pinned as the yardstick.
 3. scoring forward of GPT-2 124M (random weights from a seed), ids [8, 1024]:
-   the flash kernel must launch exactly once per layer, the logits must be
+   the flash kernel (the FMA one: scoring is f32) must launch exactly once
+   per layer, the logits must be
    finite and the last position of one sequence must match the same
    weights run on the CPU.
 4. serving: ServingEngine answers 8 greedy requests of 17-500 prompt tokens;
@@ -26,7 +29,8 @@ each:
 6. train: TrainStepEngine steps of GPT-2 124M on ids [8, 1024] with
    labels = roll(ids, -1), AdamW(1e-4, weight_decay 0.01), under the port's
    bf16 auto_cast (bench.py's step): 3 warm-up and 10 timed steps on one
-   batch. Every step launches each of the three kernels once per layer;
+   batch. Every step launches each of the three kernels once per layer
+   (the forward on the tensor cores);
    the loss is finite and falls; every gradient is finite and not all zero.
    Step time, tokens/s, peak memory, and one profiled step's busy share;
    then 1 + 3 steps of the same step in f32 (step time only).
@@ -36,11 +40,12 @@ each:
    package's examples/pallas_library_ops.py at full width): each of their
    six kernels against its plain version at GPT-2 124M's shapes (LayerNorm
    [8192, 768] f32 and bf16; LM loss h [8192, 768], W [50304, 768], bf16 h
-   with an f32 W and f32, plus vocab 50257 and labels of -100), with kernel,
-   plain, bound and library times. The LM-loss backward has two routes:
-   bf16 h takes the tensor-core kernels (their times include the bf16 copy
-   of the f32 W, timed beside them), f32 h the FMA kernels, which are also
-   timed at bf16 h as the redesign's predecessor. Then the composition they
+   with an f32 W and f32, plus vocab 50257, a bf16 W and labels of -100),
+   with kernel, plain, bound and library times. The LM-loss forward and
+   backward each have two routes: bf16 h takes the tensor-core kernels
+   (their times include the bf16 copy of the f32 W, timed beside them), f32
+   h the FMA kernels, which are also checked and timed at bf16 h as the
+   redesign's predecessors. Then the composition they
    exist for: the 124M model's hidden state before ln_f through the kernel
    LayerNorm and the kernel LM loss with the tied embedding, in f32 (loss
    and the gradients of wte and ln_f against the model's own route; the FMA
@@ -61,6 +66,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -75,7 +81,9 @@ HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,        # dense tensor-core rate
               torch.float32: 67e12}          # FP32 units (no TF32)
 
-F32_TOL = 1e-4          # kernel vs plain, f32: summation order only
+F32_TOL = 1e-4          # kernel vs plain, f32: summation order only; also an f32
+                        # result of bf16 inputs (flash lse, LM-loss loss and lse),
+                        # times max(1, max|ref|): the products are exact in f32
 BF16_TOL = 2e-2         # kernel vs plain, bf16: times max|o| (p rounds to bf16
                         # against a running, not final, max)
 LOGITS_TOL = 2e-3       # card vs CPU, or kernel vs dense masked path, f32
@@ -177,60 +185,144 @@ def phase_env():
     return per_source
 
 
+def _f32_tol(ref):
+    """Limit of an f32 result of bf16 inputs: F32_TOL x max(1, max|ref|)."""
+    return F32_TOL * max(1.0, ref.abs().max().item())
+
+
 def phase_kernels_fwd():
-    """Flash forward vs its plain version; returns the records by case."""
+    """Flash forward vs its plain version; returns the records by case.
+
+    bf16 takes the tensor-core kernel (checked for its route) and its FMA
+    predecessor (the private route="fma") is held to the same limits on the
+    same inputs: o at BF16_TOL x max|o|, lse at F32_TOL x max(1, max|lse|)
+    (exact bf16 products summed in f32: one dropped kv tile moves a row's lse
+    by far more). f32 takes the FMA kernel, at F32_TOL. The slice cases are
+    timed: kernel, FMA predecessor and SDPA by ``device_ms`` (tens of
+    microseconds), the plain version by ``cuda_ms``."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [  # (name, b, sq, sk, h, d, causal, dtype)
-        ("slice_f32_causal", 8, 1024, 1024, 12, 64, True, torch.float32),
-        ("slice_bf16_causal", 8, 1024, 1024, 12, 64, True, torch.bfloat16),
-        ("slice_f32_noncausal", 8, 1024, 1024, 12, 64, False, torch.float32),
-        ("sq128_sk1024_f32_causal", 8, 128, 1024, 12, 64, True, torch.float32),
-        ("d32_f32_causal", 8, 1024, 1024, 24, 32, True, torch.float32),
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (name, b, sq, sk, h, d, causal, dtype, timed)
+        ("slice_f32_causal", 8, 1024, 1024, 12, 64, True, f32, True),
+        ("slice_bf16_causal", 8, 1024, 1024, 12, 64, True, bf16, True),
+        ("slice_f32_noncausal", 8, 1024, 1024, 12, 64, False, f32, False),
+        ("sq128_sk1024_f32_causal", 8, 128, 1024, 12, 64, True, f32, False),
+        ("d32_f32_causal", 8, 1024, 1024, 24, 32, True, f32, False),
+        ("slice_bf16_noncausal", 8, 1024, 1024, 12, 64, False, bf16, False),
+        ("d32_bf16_causal", 8, 1024, 1024, 24, 32, True, bf16, False),
+        ("d32_bf16_noncausal", 8, 1024, 1024, 24, 32, False, bf16, False),
+        ("d128_bf16_causal", 8, 1024, 1024, 6, 128, True, bf16, False),
+        ("d128_bf16_noncausal", 8, 1024, 1024, 6, 128, False, bf16, False),
+        ("sq128_sk1024_bf16_causal", 8, 128, 1024, 12, 64, True, bf16, False),
+        ("sq128_sk1024_d128_bf16_noncausal", 8, 128, 1024, 6, 128, False, bf16, False),
+        ("ragged1000_bf16_causal", 8, 1000, 1000, 12, 64, True, bf16, False),
+        ("ragged1000_d32_bf16_noncausal", 8, 1000, 1000, 24, 32, False, bf16, False),
+        ("fused_qkv_view_bf16_causal", 8, 1024, 1024, 12, 64, True, bf16, False),
     ]
     recs = {}
-    for name, b, sq, sk, h, d, causal, dtype in cases:
-        q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype)
-        k = torch.randn(b, sk, h, d, device="cuda", generator=gen).to(dtype)
-        v = torch.randn(b, sk, h, d, device="cuda", generator=gen).to(dtype)
+    for name, b, sq, sk, h, d, causal, dtype, timed in cases:
+        if name.startswith("fused_qkv_view"):
+            # the model's strided views of one fused [b, s, 3, h, d] projection
+            qkv = torch.randn(b, sq, 3, h, d, device="cuda", generator=gen).to(dtype)
+            q, k, v = qkv.unbind(dim=2)
+        else:
+            q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype)
+            k = torch.randn(b, sk, h, d, device="cuda", generator=gen).to(dtype)
+            v = torch.randn(b, sk, h, d, device="cuda", generator=gen).to(dtype)
+        scale = 1.0 / math.sqrt(d)
+        route = fa.forward_route(dtype, d)
+        before = dict(fa.launches_by_route)
         o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        moved = {r: n - before[r] for r, n in fa.launches_by_route.items()}
+        if moved != {r: int(r == route) for r in moved}:
+            raise AssertionError(f"flash forward {name} took the routes {moved}, "
+                                 f"expected {route}")
         po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
-        err_o = (o.float() - po.float()).abs().max().item()
-        err_lse = (lse - plse).abs().max().item()
-        if dtype == torch.float32:
+        if dtype == f32:
             tol_o = tol_lse = F32_TOL
         else:
             tol_o = BF16_TOL * po.float().abs().max().item()
-            tol_lse = BF16_TOL * plse.abs().max().item()
-        if not (err_o <= tol_o and err_lse <= tol_lse):
-            raise AssertionError(f"flash kernel disagrees with its plain version "
-                                 f"on {name}: |do| {err_o} (tol {tol_o}), "
-                                 f"|dlse| {err_lse} (tol {tol_lse})")
-        kernel_ms = cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, causal=causal))
-        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal),
-                           iters=5)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal))
-        bound_ms, bound_by = attention_bound(b, h, sq, sk, d, causal, dtype)
+            tol_lse = _f32_tol(plse)
+        outs = {route: (o, lse)}
+        if dtype == bf16:   # the FMA kernel, the tensor-core kernel's predecessor
+            outs["fma"] = fa._launch(q, k, v, causal, scale, route="fma")
+            torch.cuda.synchronize()
+        errs = {}
+        for r, (ro, rlse) in outs.items():
+            errs[r] = ((ro.float() - po.float()).abs().max().item(),
+                       (rlse - plse).abs().max().item())
+            if not (errs[r][0] <= tol_o and errs[r][1] <= tol_lse):
+                raise AssertionError(f"flash kernel ({r}) disagrees with its plain version "
+                                     f"on {name}: |do| {errs[r][0]} (tol {tol_o}), "
+                                     f"|dlse| {errs[r][1]} (tol {tol_lse})")
         rec = dict(case=name, shape=[b, sq, sk, h, d], causal=causal,
-                   dtype=str(dtype).replace("torch.", ""), max_abs_err_o=err_o,
-                   max_abs_err_lse=err_lse, tol_o=tol_o, tol_lse=tol_lse,
-                   kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   dtype=str(dtype).replace("torch.", ""), kernel_route=route,
+                   max_abs_err_o=errs[route][0], max_abs_err_lse=errs[route][1],
+                   tol_o=tol_o, tol_lse=tol_lse)
+        if "fma" in errs and route != "fma":
+            rec.update(fma_max_abs_err_o=errs["fma"][0], fma_max_abs_err_lse=errs["fma"][1])
+        if timed:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            bound_ms, bound_by = attention_bound(b, h, sq, sk, d, causal, dtype)
+            rec.update(
+                kernel_ms=device_ms(lambda: fa.flash_attention_with_lse(q, k, v, causal=causal)),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                                 iters=3),
+                library_ms=device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal)),
+                bound_ms=bound_ms, bound_by=bound_by, timing="device_ms")
+            if dtype == bf16:
+                rec["fma_kernel_ms"] = device_ms(
+                    lambda: fa._launch(q, k, v, causal, scale, route="fma"))
+            del qt, kt, vt
         emit(phase="kernel_vs_plain", kernel="flash_attention_fwd", **rec)
         recs[name] = rec
-        del q, k, v, o, lse, po, plse, qt, kt, vt
+        del q, k, v, o, lse, po, plse, outs
     torch.cuda.empty_cache()
     return recs
 
 
+def sdpa_yardstick(q, k, v, do, causal):
+    """SDPA's forward and backward (dq, dk, dv) on [b, s, h, d] inputs, timed
+    by ``device_ms``: under the default dispatch and, for bf16, pinned to the
+    flash backend (FA2, the algorithm of the port's backward pair), with the
+    name of the backward kernel each one ran (the profiler's largest)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    backends = {"default": None}
+    if q.dtype == torch.bfloat16:
+        backends["flash"] = SDPBackend.FLASH_ATTENTION
+    out = {}
+    for key, backend in backends.items():
+        with sdpa_kernel(backend) if backend is not None else contextlib.nullcontext():
+            with torch.no_grad():
+                out[f"{key}_fwd_ms"] = device_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
+            with torch.enable_grad():
+                ot = sdpa(qt, kt, vt, is_causal=causal)
+
+                def bwd():
+                    return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+                out[f"{key}_bwd_ms"] = device_ms(bwd)
+                out[f"{key}_bwd_kernels"] = device_profile(bwd, top=2)[2]
+            del ot
+    return out
+
+
 def phase_kernels_bwd():
     """The FA2 backward's dK/dV and dQ kernels vs their plain version, with
-    SDPA's backward (all three gradients at once) as the library yardstick.
-    Returns {case: {"dkdv": rec, "dq": rec}}."""
+    SDPA's backward (all three gradients at once) as the library yardstick:
+    pinned to its flash backend (FA2) for bf16, the default dispatch for f32,
+    both by ``device_ms`` (``sdpa_yardstick``). The kernels are timed by
+    ``cuda_ms`` (``kernel_ms``, as before) and by ``device_ms``
+    (``kernel_device_ms``, like the yardstick). Returns {case: {"dkdv":
+    rec, "dq": rec}}."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -265,13 +357,11 @@ def phase_kernels_bwd():
                                      f"plain version on {name}: |{g}| error "
                                      f"{err[g]} (tol {tol[g]})")
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), iters=3)
-        qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
-                      for x in (q, k, v))
-        ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
-                                                              is_causal=causal)
-        dot = do.transpose(1, 2)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
-                                                         retain_graph=True))
+        yard = sdpa_yardstick(q, k, v, do, causal)
+        if name == "train_bf16_causal":
+            emit(phase="fa2_yardstick", case=name, shape=[b, sq, sk, h, d], causal=causal,
+                 dtype=str(dtype).replace("torch.", ""), timing="device_ms", **yard)
+        library_ms = yard.get("flash_bwd_ms", yard["default_bwd_ms"])
         rows = {}
         for kernel, fn, grads, products, moved in (
                 ("dkdv", lambda: fa.flash_attention_bwd_dkdv(*args), ("dk", "dv"),
@@ -285,13 +375,16 @@ def phase_kernels_bwd():
                 dtype=str(dtype).replace("torch.", ""),
                 max_abs_err=max(err[g] for g in grads),
                 tol=min(tol[g] for g in grads), kernel_ms=cuda_ms(fn),
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                kernel_device_ms=device_ms(fn), plain_ms=plain_ms, library_ms=library_ms,
+                library_default_ms=yard["default_bwd_ms"], bound_ms=bound_ms,
                 bound_by=bound_by)
             emit(phase="kernel_vs_plain", kernel=f"flash_attention_bwd_{kernel}",
                  **rows[kernel], plain="flash_attention_bwd_plain (dq, dk, dv)",
-                 library="scaled_dot_product_attention backward (dq, dk, dv)")
+                 library="scaled_dot_product_attention backward (dq, dk, dv), "
+                 + ("flash backend" if "flash_bwd_ms" in yard else "default dispatch")
+                 + ", device_ms")
         out[name] = rows
-        del q, k, v, do, o, lse, delta, dk, dv, dq, want, got, qt, kt, vt, ot, dot
+        del q, k, v, do, o, lse, delta, dk, dv, dq, want, got
     torch.cuda.empty_cache()
     return out
 
@@ -300,14 +393,15 @@ def phase_score(model, cpu_model, ids):
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     cfg = model.config
-    fa.launches = 0
+    _reset_launch_counts()
     with torch.no_grad():
         logits = model(ids)
     torch.cuda.synchronize()
-    launches = fa.launches
-    if launches != cfg.num_layers:
+    launches, routes = fa.launches, dict(fa.launches_by_route)
+    if launches != cfg.num_layers or routes != {"mma": 0, "fma": cfg.num_layers}:
         raise AssertionError(f"scoring forward launched the flash kernel "
-                             f"{launches} times, expected {cfg.num_layers}")
+                             f"{launches} times ({routes}), expected {cfg.num_layers} "
+                             f"on the FMA kernel (f32)")
     if tuple(logits.shape) != (*ids.shape, cfg.vocab_size):
         raise AssertionError(f"logits shape {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()):
@@ -324,8 +418,8 @@ def phase_score(model, cpu_model, ids):
         ms = cuda_ms(lambda: model(ids), iters=iters, warmup=1)
     tokens = ids.numel()
     emit(phase="score", model="gpt2-124m", batch=list(ids.shape), launches=launches,
-         logits_max_abs_err_vs_cpu=err, tol=LOGITS_TOL, forward_ms=ms,
-         tokens_per_s=tokens / (ms / 1e3))
+         launches_by_route=routes, logits_max_abs_err_vs_cpu=err, tol=LOGITS_TOL,
+         forward_ms=ms, tokens_per_s=tokens / (ms / 1e3))
     return logits, launches, ms
 
 
@@ -436,6 +530,8 @@ def _reset_launch_counts():
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     fa.launches = fa.launches_dkdv = fa.launches_dq = 0
+    for r in fa.launches_by_route:
+        fa.launches_by_route[r] = 0
 
 
 def _train_engine(cfg, device, seed=0):
@@ -466,6 +562,7 @@ def phase_train(ids):
     (the main path's run)."""
     from paddle_tpu_torch.amp import auto_cast
     from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     cfg = GPTConfig()
     model, engine = _train_engine(cfg, "cuda")
@@ -477,12 +574,16 @@ def phase_train(ids):
         _reset_launch_counts()
         timed, step_ms = _steps(engine, ids, labels, steps)
         launches = _launch_counts()
+        fwd_routes = dict(fa.launches_by_route)
         peak = torch.cuda.max_memory_allocated()
         losses += timed
         for name, n in launches.items():
             if n != steps * cfg.num_layers:
                 raise AssertionError(f"{steps} train steps launched {name} {n} "
                                      f"times, expected {steps * cfg.num_layers}")
+        if fwd_routes != {"mma": steps * cfg.num_layers, "fma": 0}:
+            raise AssertionError(f"the bf16 train steps' flash forwards took {fwd_routes}, "
+                                 f"expected all {steps * cfg.num_layers} on the tensor cores")
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"non-finite training loss: {losses}")
         if not losses[-1] < losses[0]:
@@ -500,7 +601,7 @@ def phase_train(ids):
          timed_steps=steps, losses=losses, step_ms=step_ms, step_ms_median=median_ms,
          tokens_per_s=ids.numel() / (median_ms / 1e3),
          launches=launches, launches_per_step={k: v // steps for k, v in launches.items()},
-         max_memory_allocated_bytes=peak)
+         flash_fwd_launches_by_route=fwd_routes, max_memory_allocated_bytes=peak)
     emit(phase="profile", what="train_step", batch=list(ids.shape),
          wall_ms_untraced=median_ms, wall_ms_traced=wall, kernel_ms=kernel_ms,
          device_busy_share=kernel_ms / median_ms, top_kernels=top)
@@ -554,17 +655,15 @@ def phase_train_vs_cpu():
          grad_tol=TRAIN_GRAD_TOL)
 
 
-def _close_or_raise(what, got, want, dtype, grad=False):
-    """max |got - want| and its tolerance: f32 F32_TOL (times max(1, max|ref|)
-    for gradients), bf16 BF16_TOL x max|ref|, an f32 gradient of bf16 inputs
-    DW_F32_TOL x max|ref|; raises past it."""
+def _close_or_raise(what, got, want, dtype, grad=False, tol=None):
+    """max |got - want| and its tolerance: ``tol`` where given, else f32
+    F32_TOL (times max(1, max|ref|) for gradients), bf16 BF16_TOL x max|ref|,
+    an f32 gradient of bf16 inputs DW_F32_TOL x max|ref|; raises past it."""
     scale = want.float().abs().max().item()
-    if dtype == torch.float32:
+    if tol is None and dtype == torch.float32:
         tol = (GRAD_F32_TOL * max(1.0, scale)) if grad else F32_TOL
-    elif grad and got.dtype == torch.float32:
-        tol = DW_F32_TOL * scale
-    else:
-        tol = BF16_TOL * scale
+    elif tol is None:
+        tol = (DW_F32_TOL if grad and got.dtype == torch.float32 else BF16_TOL) * scale
     err = (got.float() - want.float()).abs().max().item()
     if not err <= tol:
         raise AssertionError(f"{what}: kernel vs plain error {err} (tol {tol})")
@@ -653,11 +752,14 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
     backward, its time including W's bf16 copy, with the FMA backward at the
     same inputs and the copy alone timed beside it) and f32 (the FMA
     backward); checked only: GPT-2's own vocabulary 50257 (a ragged last
-    vocab tile) in f32 and at bf16 h, labels of -100 (their rows' loss is
-    the logsumexp), and every label -100 (dh and dW the softmax term alone,
-    so that max|ref| scales with it). At bf16 h the FMA kernel (the
-    tensor-core kernels' predecessor) is checked at the same inputs in every
-    case. The library yardstick is cross_entropy(linear(h,
+    vocab tile) in f32 and at bf16 h with an f32 and a bf16 W, labels of
+    -100 (their rows' loss is the logsumexp), and every label -100 (dh and
+    dW the softmax term alone, so that max|ref| scales with it). The forward
+    takes the tensor cores at bf16 h, the FMA kernel at f32; its loss and
+    lse are held at F32_TOL x max(1, max|ref|) at bf16 h (exact products
+    summed in f32). At bf16 h the FMA kernels (the tensor-core kernels'
+    predecessors, forward and backward) are checked at the same inputs and
+    limits in every case. The library yardstick is cross_entropy(linear(h,
     W).float()) and its autograd backward (dh and dW together). Returns
     {case: {kernel: record}}."""
     from paddle_tpu_torch.ops.kernels import lm_loss as lm
@@ -679,37 +781,52 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
         ("vocab50257_bf16_h_f32_w", h32.bfloat16(), w50257, labels % 50257, False),
         ("label_minus100_bf16_h_f32_w", h32.bfloat16(), w32, minus100, False),
         ("all_minus100_bf16_h_f32_w", h32.bfloat16(), w32, all_minus100, False),
+        ("vocab50257_bf16_h_bf16_w", h32.bfloat16(), w50257.bfloat16(), labels % 50257,
+         False),
     ]
     out = {}
     for name, hh, w, lab, timed in cases:
         dt = hh.dtype
         route = lm.backward_plan(dt, h).route
+        fwd_route = lm.forward_route(dt)
         before = {k: dict(c) for k, c in lm.launches_by_route.items()}
         loss, lse = lm.lm_loss_fwd(hh, w, lab)
         dh = lm.lm_loss_dh(hh, w, lab, lse, g)
         dw = lm.lm_loss_dw(hh, w, lab, lse, g)
         torch.cuda.synchronize()
-        if (lm.launches_by_route[route]["dh"] - before[route]["dh"],
-                lm.launches_by_route[route]["dw"] - before[route]["dw"]) != (1, 1):
-            raise AssertionError(f"lm_loss {name}: the backward did not take the "
-                                 f"{route} route")
+        moved = {r: {k: c[k] - before[r][k] for k in c}
+                 for r, c in lm.launches_by_route.items()}
+        if (moved[fwd_route]["fwd"], moved[route]["dh"], moved[route]["dw"]) != (1, 1, 1):
+            raise AssertionError(f"lm_loss {name}: took the routes {moved}, expected the "
+                                 f"forward on {fwd_route} and the backward on {route}")
         ploss, plse = lm.lm_loss_fwd_plain(hh, w, lab)
         pdh, pdw = lm.lm_loss_bwd_plain(hh, w, lab, plse, g)
         if dw.shape != w.shape or dw.dtype != w.dtype or dh.dtype != dt:
             raise AssertionError(f"lm_loss {name}: dh {dh.dtype}, dw {tuple(dw.shape)} "
                                  f"{dw.dtype}")
-        err_f, tol_f = _close_or_raise(f"lm_loss {name} loss", loss, ploss, dt)
-        err_f = max(err_f, _close_or_raise(f"lm_loss {name} lse", lse, plse, dt)[0])
+        # loss and lse: f32 results of exact products (bf16 h) or f32 ones
+        tol_f = _f32_tol(plse) if dt == torch.bfloat16 else F32_TOL
+
+        def fwd_err(what, got):
+            return max(_close_or_raise(f"lm_loss {name} {what} loss", got[0], ploss, dt,
+                                       tol=tol_f)[0],
+                       _close_or_raise(f"lm_loss {name} {what} lse", got[1], plse, dt,
+                                       tol=tol_f)[0])
+
+        err_f = fwd_err(fwd_route, (loss, lse))
         err_dh, tol_dh = _close_or_raise(f"lm_loss {name} dh", dh, pdh, dt, grad=True)
         err_dw, tol_dw = _close_or_raise(f"lm_loss {name} dw", dw, pdw, dt, grad=True)
         fma = {}
         if route == "mma":
             # the FMA kernels (the f32 route) at the same bf16 h: the
-            # tensor-core kernels' predecessor, held to the same limits
-            fma = {"lm_loss_dh": lambda: lm._bwd_launch(hh, w, lab, lse, g, False, route="fma"),
+            # tensor-core kernels' predecessors, held to the same limits
+            fma = {"lm_loss_fwd": lambda: lm.lm_loss_fwd(hh, w, lab, route="fma"),
+                   "lm_loss_dh": lambda: lm._bwd_launch(hh, w, lab, lse, g, False, route="fma"),
                    "lm_loss_dw": lambda: lm._bwd_launch(hh, w, lab, lse, g, True, route="fma")}
-            fma_err = {k: _close_or_raise(f"lm_loss {name} {k} fma", f(), ref, dt, grad=True)[0]
-                       for (k, f), ref in zip(fma.items(), (pdh, pdw))}
+            fma_err = {"lm_loss_fwd": fwd_err("fma", fma["lm_loss_fwd"]())}
+            fma_err.update(
+                {k: _close_or_raise(f"lm_loss {name} {k} fma", fma[k](), ref, dt, grad=True)[0]
+                 for k, ref in (("lm_loss_dh", pdh), ("lm_loss_dw", pdw))})
         if "minus100" in name:
             ignored = lab == -100
             if not torch.equal(loss[ignored], lse[ignored]):
@@ -743,8 +860,9 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
                 "lm_loss_dw": (lambda: lm.lm_loss_dw(hh, w, lab, lse, g), err_dw, tol_dw,
                                plain_bwd_ms, lib_bwd_ms, 4, hb + wb + 4 * v * h + 12 * n),
             }
-            extra = {"lm_loss_fwd": {}, "lm_loss_dh": {"route": route},
-                     "lm_loss_dw": {"route": route}}
+            extra = {"lm_loss_fwd": {"kernel_route": fwd_route},
+                     "lm_loss_dh": {"kernel_route": route},
+                     "lm_loss_dw": {"kernel_route": route}}
             if route == "mma":
                 # the FMA kernels timed beside the tensor-core ones, and the W
                 # cast that the tensor-core calls include
@@ -752,7 +870,8 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
                            if w.dtype != torch.bfloat16 else 0.0)
                 for kernel, fn in fma.items():
                     extra[kernel] = dict(
-                        route="mma", w_cast_ms=cast_ms, fma_max_abs_err=fma_err[kernel],
+                        kernel_route="mma", w_cast_ms=cast_ms,
+                        fma_max_abs_err=fma_err[kernel],
                         fma_kernel_ms=cuda_ms(fn, iters=3, warmup=1))
             for kernel, (fn, err, tol, plain_ms, lib_ms, products, nbytes) in rows.items():
                 flops = products * n * v * h
@@ -788,6 +907,7 @@ def _library_counts():
     return {"layer_norm_fwd": ln.launches_fwd, "layer_norm_infer": ln.launches_infer,
             "layer_norm_bwd": ln.launches_bwd, "lm_loss_fwd": lm.launches_fwd,
             "lm_loss_dh": lm.launches_dh, "lm_loss_dw": lm.launches_dw,
+            "lm_loss_fwd_mma": by_route["mma"]["fwd"], "lm_loss_fwd_fma": by_route["fma"]["fwd"],
             "lm_loss_dh_mma": by_route["mma"]["dh"], "lm_loss_dw_mma": by_route["mma"]["dw"],
             "lm_loss_dh_fma": by_route["fma"]["dh"], "lm_loss_dw_fma": by_route["fma"]["dw"]}
 
@@ -799,7 +919,7 @@ def _reset_library_counts():
     ln.launches_fwd = ln.launches_infer = ln.launches_bwd = 0
     lm.launches_fwd = lm.launches_dh = lm.launches_dw = 0
     for counts in lm.launches_by_route.values():
-        counts["dh"] = counts["dw"] = 0
+        counts["fwd"] = counts["dh"] = counts["dw"] = 0
 
 
 def phase_library_ops(ids):
@@ -899,7 +1019,8 @@ def phase_library_ops(ids):
     g = torch.full_like(plse, 1.0 / plse.numel())
     pdh, pdw = lm.lm_loss_bwd_plain(hbd, wte, lab, plse, g)
     bf16 = torch.bfloat16
-    errs = {"loss": _close_or_raise("bf16 library_ops loss", rows, ploss, bf16),
+    errs = {"loss": _close_or_raise("bf16 library_ops loss", rows, ploss, bf16,
+                                    tol=_f32_tol(ploss)),
             "dh": _close_or_raise("bf16 library_ops dh", hb.grad, pdh, bf16, grad=True),
             "dwte": _close_or_raise("bf16 library_ops dwte", gpt.wte.weight.grad, pdw, bf16,
                                     grad=True)}
@@ -944,7 +1065,7 @@ def main() -> int:
     cpu_model = GPTForPretraining(cfg, device="cpu", seed=0)
     gen = torch.Generator().manual_seed(0)
     ids = torch.randint(0, cfg.vocab_size, (8, 1024), generator=gen).cuda()
-    logits, _, forward_ms = phase_score(model, cpu_model, ids)
+    logits, score_launches, forward_ms = phase_score(model, cpu_model, ids)
     del cpu_model
     phase_serve(model, ids, logits)
     del logits
@@ -962,12 +1083,16 @@ def main() -> int:
     library_launches = phase_library_ops(ids)
     phase_probe(per_source["lm_loss"] or None)
 
-    # the training main path runs attention in bf16 at [8, 1024, 12, 64]; the
-    # library ops are reported at the composition's shapes: LayerNorm in f32
-    # (black-listed under O1), the LM loss with bf16 h and an f32 master W
+    # the training main path runs attention in bf16 at [8, 1024, 12, 64] (the
+    # tensor-core forward), scoring in f32 (the FMA forward); the library ops
+    # are reported at the composition's shapes: LayerNorm in f32 (black-listed
+    # under O1), the LM loss with bf16 h and an f32 master W (the tensor-core
+    # kernels) and in f32 (the FMA kernels)
     pallas = "paddle_tpu/ops/pallas/"
     rows = [  # (name, path, record, source, replaces)
         ("flash_attention_fwd", "train", fwd["slice_bf16_causal"],
+         "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
+        ("flash_attention_fwd_f32", "score", fwd["slice_f32_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_bwd_dkdv", "train", bwd["train_bf16_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
@@ -985,18 +1110,22 @@ def main() -> int:
          "lm_loss.cu", pallas + "lm_loss.py:261"),
         ("lm_loss_dw", "library_ops", lm_recs["bf16_h_f32_w"]["lm_loss_dw"],
          "lm_loss.cu", pallas + "lm_loss.py:279"),
+        ("lm_loss_fwd_f32", "library_ops", lm_recs["f32"]["lm_loss_fwd"],
+         "lm_loss.cu", pallas + "lm_loss.py:162"),
         ("lm_loss_dh_f32", "library_ops", lm_recs["f32"]["lm_loss_dh"],
          "lm_loss.cu", pallas + "lm_loss.py:261"),
         ("lm_loss_dw_f32", "library_ops", lm_recs["f32"]["lm_loss_dw"],
          "lm_loss.cu", pallas + "lm_loss.py:279"),
     ]
-    # LayerNorm from the f32 pass; the LM loss's forward and tensor-core
-    # backward from the bf16 pass, its FMA backward (f32 h) from the f32 pass
+    # LayerNorm from the f32 pass; the LM loss's tensor-core forward and
+    # backward from the bf16 pass, its FMA ones (f32 h) from the f32 pass
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
     counts = {**launches,
+              "flash_attention_fwd_f32": score_launches,
               **{k: lib_f32[k] for k in ("layer_norm_fwd", "layer_norm_infer",
                                          "layer_norm_bwd")},
-              "lm_loss_fwd": lib_bf16["lm_loss_fwd"],
+              "lm_loss_fwd": lib_bf16["lm_loss_fwd_mma"],
+              "lm_loss_fwd_f32": lib_f32["lm_loss_fwd_fma"],
               "lm_loss_dh": lib_bf16["lm_loss_dh_mma"],
               "lm_loss_dw": lib_bf16["lm_loss_dw_mma"],
               "lm_loss_dh_f32": lib_f32["lm_loss_dh_fma"],
@@ -1016,6 +1145,7 @@ def main() -> int:
             "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
+            **({"kernel_route": rec["kernel_route"]} if "kernel_route" in rec else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

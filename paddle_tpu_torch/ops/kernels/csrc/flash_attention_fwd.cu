@@ -10,35 +10,67 @@
 // by 1 and gives 0; writes o in the input dtype and lse = m + log(l) as f32
 // [b*h, sq] (no 128-lane broadcast).
 //
-// Blocking (not the TPU's): one CTA of 128 threads per (b*h, 64-row q tile);
-// the TPU's sequential kv grid axis becomes a loop over 64-row kv tiles
-// staged in shared memory. Thread (ty = tid/16, tx = tid%16) owns q rows
-// ty*8..ty*8+7: for S it holds columns tx+16j (j < 4), so each row's max and
-// sum reduce across the 16 lanes sharing ty with shuffles, and the row
-// statistics m, l never leave registers; for O it holds columns
-// tx*(D/16)..+D/16. Q and P are kept transposed in shared memory so a
-// thread reads its 8 rows with two 16-byte loads. Inputs are read through
-// their strides, so q, k, v may be the [b, s, h, d] views the model slices
-// out of its fused qkv projection without a copy; only the last dim must be
-// contiguous. Ragged sq and sk are masked.
+// Two kernels, picked by dtype (flash_attention.py's forward_route):
+// flash_fwd_kernel (f32, and bf16 when timed as the predecessor) does every
+// product with FMA on the FP32 units; flash_fwd_mma_kernel (bf16) runs both
+// products on the bf16 tensor cores.
 //
 // Bound at the slice shape (b=8, h=12, s=1024, d=64, causal):
 //   work  = 2 * d * b*h * s*(s+1) ~ 12.9 GFLOP (the causal half)
 //   bytes = q,k,v,o + lse: 50.7 MB in bf16, 101 MB in f32
 //   bf16 on tensor cores: max(13 us at 989 TFLOP/s, 15 us at 3.35 TB/s)
 //        = 15 us, bytes-bound.
-//   f32 (the model's dtype on the main path): 12.9 GFLOP at the 67 TFLOP/s
-//        of the FP32 units = 193 us, operations-bound.
-// This first kernel does every product with FMA on the FP32 units (bf16 is
-// widened to f32 in shared memory), so its floor is the 193 us in both
-// dtypes. What the design does about the bound: S and P stay on chip, each
-// K/V tile is read from device memory once per 64 q rows and reused from
-// shared memory, the causal skip halves the work, and causal tiles are
-// launched heaviest first. Tensor cores (mma.sync, then wgmma with TMA) are
-// the next step toward the 15 us bf16 bound.
+//   f32 (scoring's dtype): 12.9 GFLOP at the 67 TFLOP/s of the FP32 units
+//        = 193 us, operations-bound.
+//
+// FMA kernel. Blocking (not the TPU's): one CTA of 128 threads per (b*h,
+// 64-row q tile); the TPU's sequential kv grid axis becomes a loop over
+// 64-row kv tiles staged in shared memory. Thread (ty = tid/16, tx = tid%16)
+// owns q rows ty*8..ty*8+7: for S it holds columns tx+16j (j < 4), so each
+// row's max and sum reduce across the 16 lanes sharing ty with shuffles, and
+// the row statistics m, l never leave registers; for O it holds columns
+// tx*(D/16)..+D/16. Q and P are kept transposed in shared memory so a
+// thread reads its 8 rows with two 16-byte loads. Inputs are read through
+// their strides, so q, k, v may be the [b, s, h, d] views the model slices
+// out of its fused qkv projection without a copy; only the last dim must be
+// contiguous. Ragged sq and sk are masked. Its floor is the 193 us of the
+// FP32 units in both dtypes; S and P stay on chip, each K/V tile is read
+// once per 64 q rows, the causal skip halves the work, and causal tiles are
+// launched heaviest first.
+//
+// Tensor-core kernel (FA2 on mma.sync.m16n8k16, the fragments of
+// mma_sync.cuh). The same CTA grid and causal order; 4 warps, each owning 16
+// of the 64 q rows, so every row statistic lives in one warp.
+//   - The Q tile is copied once into shared memory and from there into
+//     registers as A fragments (D/16 k steps), where it stays.
+//   - K and V tiles of 64 rows come through a cp.async double buffer: tile
+//     t + 1 is in flight while tile t computes. Rows past sk are zero-filled
+//     through cp.async's src-size; their columns are masked by index. Rows
+//     are padded by 16 bytes, so the 8 rows of an ldmatrix fall in distinct
+//     banks.
+//   - S = Q . K^T: K through plain ldmatrix (d is contiguous in K's rows).
+//     The warp's S is 16 x 64 f32 in registers; a thread holds rows gq and
+//     gq + 8. The scale is folded into log2 units (exp2 on the MUFU); the
+//     row max is two quad shuffles; the row sum stays a per-thread partial
+//     until the end (the quad shares the max, so partials rescale alike).
+//   - Only the tiles that cross the diagonal (or the ragged sk edge) pay
+//     for the mask.
+//   - P goes from the S accumulators straight into bf16 A fragments (no
+//     shared-memory round trip); O += P . V reads V with ldmatrix.trans.
+//   - O is staged through the warp's own rows of the Q tile, so each row
+//     leaves in 16-byte stores.
+// Operands are read through their strides like the FMA kernel's, but
+// cp.async needs 16-byte aligned rows: the wrapper hands over a contiguous
+// copy of a view that is not (flash_attention.py `_mma_operand`).
+// Registers: Q fragments D/8, S 32, O D/2 floats a thread. Shared memory
+// (64 + 4 * 64) rows of D + 8 bf16: 46 KB at d = 64, 87 KB at d = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <initializer_list>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -277,6 +309,232 @@ cudaError_t dispatch_head_dim(const Params& p, int head_dim, int bh, cudaStream_
   }
 }
 
+// ------------------------------------------------ tensor-core kernel (bf16)
+
+constexpr int MPAD = 8;  // bf16 a staged row of padding (16 bytes)
+
+template <int D>
+constexpr int mma_smem_bytes() {
+  return (BQ + 4 * BK) * (D + MPAD) * 2;  // Q, then two K and two V tiles
+}
+
+// The launch bounds name a minimum of one CTA an SM: with the maximum
+// thread count alone, ptxas held the d = 32 instance to 96 registers and
+// spilled 16 bytes; with the minimum, it takes 124 and spills none.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_mma_kernel(const Params p) {
+  using namespace mma_sync;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = D + MPAD;  // row stride (bf16) of the staged tiles
+  constexpr int KS = D / 16;    // k steps of S = Q K^T
+  constexpr int NO = D / 8;     // n8 tiles of O
+  constexpr int VEC = D / 8;    // 16-byte pieces a row
+  extern __shared__ float4 smem4[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem4);  // [BQ][LD]
+  bf16* sK = sQ + BQ * LD;                    // 2 x [BK][LD]
+  bf16* sV = sK + 2 * BK * LD;                // 2 x [BK][LD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  const int w0 = q0 + warp * 16;                     // this warp's first q row
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  // rows r0.. of a [rows, D] operand with row stride ss -> dst [64][LD],
+  // asynchronously; rows past `rows` as zeros
+  auto stage = [&](bf16* dst, const bf16* src, long long ss, int r0, int rows) {
+    for (int idx = tid; idx < 64 * VEC; idx += NTHREADS) {
+      const int r = idx / VEC, c = (idx - r * VEC) * 8;
+      const bool ok = r0 + r < rows;
+      cp_async16(smem_u32(dst + r * LD + c), src + (ok ? r0 + r : 0) * ss + c, ok ? 16 : 0);
+    }
+  };
+
+  int n_kv = (p.sk + BK - 1) / BK;
+  if (p.causal) {
+    const int last_q = min(q0 + BQ, p.sq) - 1;
+    n_kv = min(n_kv, last_q / BK + 1);
+  }
+  stage(sQ, q, p.q_ss, q0, p.sq);
+  cp_async_commit();
+  stage(sK, k, p.k_ss, 0, p.sk);
+  stage(sV, v, p.v_ss, 0, p.sk);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed (tile 0 may still be in flight)
+  __syncthreads();
+  unsigned qf[KS][4];
+  {
+    const unsigned a = smem_u32(sQ + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) ldsm_x4(a + ks * 32, qf[ks]);
+  }
+
+  // ldmatrix lane offsets (bytes) inside a K or V tile
+  const unsigned k_lane = (((lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8) * 2;
+  const unsigned v_lane = (((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8) * 2;
+  const float scale2 = p.scale * LOG2E;  // s in log2 units: exp(s - m) = exp2(s2 - m2)
+
+  float oacc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // rows gq, gq + 8 (log2 units)
+  float l[2] = {0.f, 0.f};          // this thread's partial sums
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait<0>();  // tile kt has landed ...
+    __syncthreads();     // ... for every thread; tile kt - 1's buffers are free
+    if (kt + 1 < n_kv) {
+      stage(sK + ((kt + 1) & 1) * BK * LD, k, p.k_ss, k0 + BK, p.sk);
+      stage(sV + ((kt + 1) & 1) * BK * LD, v, p.v_ss, k0 + BK, p.sk);
+      cp_async_commit();
+    }
+    const unsigned kb = smem_u32(sK + (kt & 1) * BK * LD) + k_lane;
+    const unsigned vb = smem_u32(sV + (kt & 1) * BK * LD) + v_lane;
+
+    // S[16 q rows, 64 kv columns] = Q K^T
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned bk[4];
+        ldsm_x4(kb + (np * 16 * LD + ks * 16) * 2, bk);
+        mma_bf16(s[2 * np], qf[ks], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], bk[2], bk[3]);
+      }
+    }
+
+    // scale (log2 units) and, on the diagonal or ragged tiles, mask
+    const bool masked = (p.causal && k0 + BK - 1 > w0) || k0 + BK > p.sk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale2;
+        if (masked) {
+          const int kpos = k0 + j * 8 + 2 * tq + (e & 1);
+          const int qpos = w0 + gq + (e >> 1) * 8;
+          if (p.causal && kpos > qpos) x = NEG_INF;
+          if (kpos >= p.sk) x = -INFINITY;  // not a column: adds exactly 0
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax: the row max over the quad, rescale, p from unrounded s
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[i] = exp2_approx(m[i] - mx);
+      m[i] = mx;
+    }
+    unsigned pf[4][4];  // P as bf16 A fragments, one per 16 kv columns
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = exp2_approx(s[j][0] - m[0]), p1 = exp2_approx(s[j][1] - m[0]);
+      const float p2 = exp2_approx(s[j][2] - m[1]), p3 = exp2_approx(s[j][3] - m[1]);
+      rs[0] += p0 + p1;
+      rs[1] += p2 + p3;
+      pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + rs[i];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      oacc[n][0] *= alpha[0];
+      oacc[n][1] *= alpha[0];
+      oacc[n][2] *= alpha[1];
+      oacc[n][3] *= alpha[1];
+    }
+
+    // O[16, D] += P[16, 64] V[64, D]
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        unsigned bv[4];
+        ldsm_x4_t(vb + (kk * 16 * LD + dp * 16) * 2, bv);
+        mma_bf16(oacc[2 * dp], pf[kk], bv[0], bv[1]);
+        mma_bf16(oacc[2 * dp + 1], pf[kk], bv[2], bv[3]);
+      }
+    }
+  }
+
+  // the row sums over the quad; o = acc / l (l = 0 divides by 1), as a
+  // product with the MUFU reciprocal: l is in [1, sk], and an IEEE division
+  // would call a slow-path subroutine that spills registers around it
+  float li[2], inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float t = l[i];
+    t += __shfl_xor_sync(0xffffffffu, t, 1);
+    t += __shfl_xor_sync(0xffffffffu, t, 2);
+    li[i] = t == 0.f ? 1.f : t;
+    inv[i] = __fdividef(1.f, li[i]);
+  }
+  // stage this warp's 16 rows of o in bf16 over its own rows of the Q tile
+  // (no other warp reads them), then write them out 16 bytes a lane
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<unsigned*>(sQ + (warp * 16 + gq + 8 * i) * LD + n * 8 + 2 * tq) =
+          pack_bf16(oacc[n][2 * i] * inv[i], oacc[n][2 * i + 1] * inv[i]);
+  __syncwarp();
+  for (int idx = lane; idx < 16 * VEC; idx += 32) {
+    const int r = idx / VEC, c = (idx - r * VEC) * 8;
+    if (w0 + r < p.sq)
+      *reinterpret_cast<uint4*>(o + (w0 + r) * p.o_ss + c) =
+          *reinterpret_cast<const uint4*>(sQ + (warp * 16 + r) * LD + c);
+  }
+  if (tq == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = w0 + gq + 8 * i;
+      if (row < p.sq)
+        p.lse[static_cast<long long>(bh) * p.sq + row] = m[i] * LN2 + logf(li[i]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const Params& p, int bh, cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(bh, (p.sq + BQ - 1) / BQ);
+  flash_fwd_mma_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* ptr, std::initializer_list<long long> strides) {
+  if (reinterpret_cast<unsigned long long>(ptr) % 16) return false;
+  for (long long s : strides)
+    if (s % 8) return false;  // 8 bf16 = 16 bytes
+  return true;
+}
+
 }  // namespace
 
 // q, k, v: [batch, s, heads, head_dim] through the given element strides
@@ -312,4 +570,40 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);
+}
+
+// The tensor-core forward: bf16 q, k, v, o as flash_attention_fwd takes them,
+// with every pointer 16-byte aligned and every batch, seq and head stride a
+// multiple of 8 elements (cp.async copies 16-byte pieces). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a head dim without an
+// instance or an operand that is not aligned so.
+extern "C" int flash_attention_fwd_mma(const void* q, const void* k, const void* v, void* o,
+                                       void* lse, int head_dim, int batch, int heads, int sq,
+                                       int sk, long long q_sb, long long q_ss, long long q_sh,
+                                       long long k_sb, long long k_ss, long long k_sh,
+                                       long long v_sb, long long v_ss, long long v_sh,
+                                       long long o_sb, long long o_ss, long long o_sh,
+                                       float scale, int causal, void* stream) {
+  const int bh = batch * heads;
+  if (bh == 0 || sq == 0) return static_cast<int>(cudaSuccess);
+  if (sk == 0 || !aligned16(q, {q_sb, q_ss, q_sh}) || !aligned16(k, {k_sb, k_ss, k_sh}) ||
+      !aligned16(v, {v_sb, v_ss, v_sh}) || !aligned16(o, {o_sb, o_ss, o_sh}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.heads = heads; p.sq = sq; p.sk = sk;
+  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
+  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
+  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
+  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
+  p.scale = scale;
+  p.causal = causal;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32: return static_cast<int>(launch_mma<32>(p, bh, st));
+    case 64: return static_cast<int>(launch_mma<64>(p, bh, st));
+    case 128: return static_cast<int>(launch_mma<128>(p, bh, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -42,7 +42,7 @@
 //   units, so its floor is the FP32 one; what it does about the bound: S,
 //   p and dl never leave the chip, each staged tile is reused by 32 or 128
 //   rows, the forward splits the vocab so that ~1000 CTAs fill 132 SMs.
-//   The FMA backward stays the route for f32 h (bit for bit as it was).
+//   The FMA kernels stay the route for f32 h (bit for bit as they were).
 //
 // The tensor-core backward (lm_grad_mma_kernel, the route for bf16 h): dh
 // and dW again as one template with the roles swapped, now with both
@@ -94,11 +94,36 @@
 //   producer warp, so the phases of consecutive tiles overlap. The device
 //   code that issues the products (the S loop and the dl . other loop) is
 //   the one place to change.
+//
+// The tensor-core forward (lm_fwd_mma_*, the route for bf16 h; f32 h keeps
+// the FMA forward lm_fwd_full_*): a GEMM with a row-reduction epilogue, on
+// mma.sync.m16n8k16 bf16 with f32 accumulation. W is read in bf16 (the
+// wrapper casts an f32 W once a call, inside the call's time).
+//   Bound: 2 N V H = 633 GFLOP, 0.64 ms on the bf16 tensor cores.
+//   Tiles: a CTA takes 128 rows of h against 128-row vocab tiles, 8 warps of
+//   32 x 64. It has none of the backward's [32, H] f32 accumulator, so the
+//   row tile is not capped at 32: every W tile read from L2 feeds 128 rows
+//   (the work per byte read grows with the rows a tile). The hidden dim
+//   streams in 64-column slices (rows of 128 bytes, padded by 16 so an
+//   ldmatrix's 8 rows fall in distinct banks) through a 3-stage cp.async
+//   ring that runs on across tile boundaries, so any hidden that is a
+//   multiple of 64 fits: 3 x 256 rows x 144 bytes = 108 KB, two CTAs an SM.
+//   64 accumulator floats a thread; each k step of 16 reads 2 A and 4 B
+//   fragments for 16 mma.
+//   Epilogue: each thread keeps a running (m, l) per row over only the
+//   columns it holds, in log2 units (exp2 on the MUFU), so a tile costs no
+//   shuffle; the partials of a row merge once at the end over the quad and
+//   the two warp columns, in a fixed order. The vocab splits over gridDim.y
+//   (lm_loss_fwd_mma_splits: 2112 CTAs, 8 waves of 2 an SM on 132 SMs, a
+//   function of the shapes only) and lm_merge_kernel merges the splits in
+//   order: no atomics, and two calls give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -217,14 +242,13 @@ struct FwdParams {
   const int* labels;    // [n]
   float* part;          // [3][splits][n]: m, l, picked
   int n, v, hdim;
-  int v_true;           // columns >= v_true are masked to NEG_INF (MASK)
+  int v_true;           // columns >= v_true are masked to NEG_INF
 };
 
 // One CTA: 32 rows of h against the vocab tiles blockIdx.y, +gridDim.y, ...
-// PICK: accumulate the label's logit; MASK: mask columns >= v_true. Columns
-// past v (the last tile's edge) never count. The compile probe instantiates
-// the stripped variants (no pick, no mask).
-template <typename TH, typename TW, bool PICK, bool MASK>
+// The label's logit is accumulated and columns >= v_true are masked.
+// Columns past v (the last tile's edge) never count.
+template <typename TH, typename TW>
 __device__ __forceinline__ void fwd_body(const FwdParams& p) {
   __shared__ float sA[BK * AST];
   __shared__ float sB[BK * BST];
@@ -238,7 +262,7 @@ __device__ __forceinline__ void fwd_body(const FwdParams& p) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + ty * 4 + i;
-    lab[i] = (PICK && r < p.n) ? p.labels[r] : -1;
+    lab[i] = r < p.n ? p.labels[r] : -1;
     m[i] = NEG_INF;
     l[i] = 0.f;
     pk[i] = 0.f;
@@ -255,8 +279,8 @@ __device__ __forceinline__ void fwd_body(const FwdParams& p) {
       for (int j = 0; j < 4; ++j) {
         const int col = v0 + tx * 4 + j;
         float x = s[i][j];
-        if (MASK && col >= p.v_true) x = NEG_INF;
-        if (PICK && col == lab[i] && col < p.v) pk[i] += x;
+        if (col >= p.v_true) x = NEG_INF;
+        if (col == lab[i] && col < p.v) pk[i] += x;
         if (col >= p.v) x = -INFINITY;  // not a column: adds exactly 0
         s[i][j] = x;
         mx = fmaxf(mx, x);
@@ -274,7 +298,7 @@ __device__ __forceinline__ void fwd_body(const FwdParams& p) {
   const long long plane = static_cast<long long>(gridDim.y) * p.n;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float picked = PICK ? warp_sum(pk[i]) : 0.f;  // one lane holds it
+    const float picked = warp_sum(pk[i]);  // one lane holds it
     const int r = r0 + ty * 4 + i;
     if (tx == 0 && r < p.n) {
       const long long o = static_cast<long long>(blockIdx.y) * p.n + r;
@@ -504,39 +528,6 @@ int mma_smem_bytes(int hdim, int stages) {
   return ((1 + stages) * MB * (hdim + PAD) + MB * DLD) * 2 + KQ * MB * PST * 4;
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared; src_bytes = 0 writes 16 zero bytes
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-// d += a . b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 f32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
@@ -566,6 +557,7 @@ struct MmaParams {
 // columns c0 + (j * 8 + w) * 16, all 32 own rows.
 template <bool DW, typename TO, int HC, int ST>
 __global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
+  using namespace mma_sync;
   extern __shared__ float4 smem4[];
   const int ld = p.hdim + PAD;
   __nv_bfloat16* s_own = reinterpret_cast<__nv_bfloat16*>(smem4);   // [MB][ld]
@@ -792,27 +784,231 @@ cudaError_t mma_dispatch(const MmaParams& p, int hc, int stages, cudaStream_t st
   return cudaErrorInvalidValue;
 }
 
-// The forward kernels, one per (variant, h dtype, W dtype). `full` is the
-// public one (label pick and masking at v_true); `bare` (product and online
-// logsumexp only) and `picked` (plus the label pick) are the compile probe's
-// stripped variants, at bf16. Plain functions rather than template
-// instances, so that their names read plainly in ptxas's report.
-#define LM_FWD_KERNEL(NAME, TH, TW, PICK, MASK)                              \
+// The FMA forward kernels, one per (h dtype, W dtype): the f32 route, and
+// the predecessor of the tensor-core forward when timed at bf16 h. Plain
+// functions rather than template instances, so that their names read
+// plainly in ptxas's report.
+#define LM_FWD_KERNEL(NAME, TH, TW)                                          \
   __global__ void __launch_bounds__(NT) NAME(const FwdParams p) {            \
-    fwd_body<TH, TW, PICK, MASK>(p);                                         \
+    fwd_body<TH, TW>(p);                                                     \
   }
-LM_FWD_KERNEL(lm_fwd_full_f32_f32, float, float, true, true)
-LM_FWD_KERNEL(lm_fwd_full_f32_bf16, float, __nv_bfloat16, true, true)
-LM_FWD_KERNEL(lm_fwd_full_bf16_f32, __nv_bfloat16, float, true, true)
-LM_FWD_KERNEL(lm_fwd_full_bf16_bf16, __nv_bfloat16, __nv_bfloat16, true, true)
-LM_FWD_KERNEL(lm_fwd_bare_bf16_bf16, __nv_bfloat16, __nv_bfloat16, false, false)
-LM_FWD_KERNEL(lm_fwd_picked_bf16_bf16, __nv_bfloat16, __nv_bfloat16, true, false)
+LM_FWD_KERNEL(lm_fwd_full_f32_f32, float, float)
+LM_FWD_KERNEL(lm_fwd_full_f32_bf16, float, __nv_bfloat16)
+LM_FWD_KERNEL(lm_fwd_full_bf16_f32, __nv_bfloat16, float)
+LM_FWD_KERNEL(lm_fwd_full_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 #undef LM_FWD_KERNEL
+
+// ------------------------------------------------------ tensor-core forward
+
+constexpr int FM = 128;        // h rows a CTA: 4 warp rows of 32
+constexpr int FN = 128;        // W rows (vocab columns) a tile: 2 warp columns of 64
+constexpr int FK = 64;         // hidden columns a stage
+constexpr int FLD = FK + PAD;  // row stride (bf16) of a staged slice
+constexpr int FSTAGES = 3;
+constexpr int FWD_MMA_SMEM = FSTAGES * (FM + FN) * FLD * 2;  // 110,592 bytes
+constexpr int FWD_MMA_CTAS = 2112;  // 8 waves of 2 CTAs on each of 132 SMs
+
+struct FwdMmaParams {
+  const __nv_bfloat16* h;   // [n, hdim]
+  const __nv_bfloat16* w;   // [v, hdim]
+  const int* labels;        // [n]
+  float* part;              // [3][splits][n]: m, l, picked
+  int n, v, hdim;
+  int v_true;               // columns >= v_true are masked to NEG_INF (MASK)
+};
+
+// One CTA: 128 rows of h against the vocab tiles blockIdx.y, +gridDim.y, ...
+// as one stream of [128, 64] h and W slices through a FSTAGES-deep cp.async
+// ring (the next tile's slices load while a tile's epilogue runs). Warp
+// (wm, wn) = (warp / 2, warp % 2) computes S[32 rows wm, 64 columns wn] of
+// the tile. After a tile's last slice, each thread folds its 16 values of
+// each of its 4 rows into its own running (m, l) in log2 units (no shuffles
+// a tile), and picks the label's logit when the label falls in its columns.
+// At the end the partials merge over the quad, then over the two warp
+// columns in shared memory, in a fixed order. PICK: the label's logit;
+// MASK: columns >= v_true masked. Columns past v never count.
+template <bool PICK, bool MASK>
+__device__ __forceinline__ void fwd_mma_body(const FwdMmaParams& p) {
+  using namespace mma_sync;
+  extern __shared__ float4 smem4[];
+  __shared__ float red[2][3][FM];  // (m, l, picked) of each warp column
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);  // FSTAGES x [FM + FN][FLD]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int r0 = blockIdx.x * FM;
+  const int n_vt = (p.v + FN - 1) / FN;
+  const int tiles = blockIdx.y < n_vt ? (n_vt - 1 - blockIdx.y) / gridDim.y + 1 : 0;
+  const int nk = p.hdim / FK;
+  const int total = tiles * nk;   // slices this CTA streams
+
+  // slice g (tile g / nk, hidden columns (g % nk) * FK ..) into its buffer;
+  // rows past n or v as zeros
+  auto stage = [&](int g) {
+    const int t = g / nk, kc = (g - t * nk) * FK;
+    const int v0 = (blockIdx.y + t * gridDim.y) * FN;
+    __nv_bfloat16* dst = ring + (g % FSTAGES) * (FM + FN) * FLD;
+#pragma unroll
+    for (int i = 0; i < (FM + FN) * FK / 8 / NT; ++i) {   // 8 pieces of 16 bytes a thread
+      const int idx = tid + i * NT;
+      const int r = idx >> 3, c = (idx & 7) * 8;
+      const bool is_h = r < FM;
+      const int row = is_h ? r0 + r : v0 + r - FM;
+      const bool ok = row < (is_h ? p.n : p.v);
+      const __nv_bfloat16* src = (is_h ? p.h : p.w) +
+                                 static_cast<long long>(ok ? row : 0) * p.hdim + kc + c;
+      cp_async16(smem_u32(dst + r * FLD + c), src, ok ? 16 : 0);
+    }
+  };
+
+  // this thread's rows: ri = mt * 2 + i is row wm * 32 + mt * 16 + gq + 8 * i
+  int lab[4];
+  float m[4], l[4], pk[4];
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri) {
+    const int r = r0 + wm * 32 + (ri >> 1) * 16 + gq + 8 * (ri & 1);
+    lab[ri] = (PICK && r < p.n) ? p.labels[r] : -1;
+    m[ri] = NEG_INF;
+    l[ri] = 0.f;
+    pk[ri] = 0.f;
+  }
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+  // ldmatrix lane offsets (bf16 elements) inside a stage
+  const int a_off = (wm * 32 + (lane & 15)) * FLD + (lane >> 4) * 8;
+  const int b_off = (FM + wn * 64 + (lane >> 4) * 8 + (lane & 7)) * FLD + ((lane >> 3) & 1) * 8;
+
+#pragma unroll
+  for (int g = 0; g < FSTAGES - 1; ++g) {
+    if (g < total) stage(g);
+    cp_async_commit();
+  }
+  for (int g = 0; g < total; ++g) {
+    cp_async_wait<FSTAGES - 2>();   // slice g has landed ...
+    __syncthreads();                // ... for every thread; slice g - 1's buffer is free
+    if (g + FSTAGES - 1 < total) stage(g + FSTAGES - 1);
+    cp_async_commit();
+    const unsigned buf = smem_u32(ring + (g % FSTAGES) * (FM + FN) * FLD);
+#pragma unroll
+    for (int kk = 0; kk < FK / 16; ++kk) {
+      unsigned a[2][4];
+      ldsm_x4(buf + (a_off + kk * 16) * 2, a[0]);
+      ldsm_x4(buf + (a_off + 16 * FLD + kk * 16) * 2, a[1]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned b[4];
+        ldsm_x4(buf + (b_off + np * 16 * FLD + kk * 16) * 2, b);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+    if ((g + 1) % nk) continue;
+
+    // the tile's epilogue: acc[mt][j][2i + e] is row ri = 2mt + i, column
+    // c0 + j * 8 + e
+    const int v0 = (blockIdx.y + (g / nk) * gridDim.y) * FN;
+    const int c0 = v0 + wn * 64 + 2 * tq;
+    const bool edge = v0 + FN > p.v || (MASK && v0 + FN > p.v_true);
+#pragma unroll
+    for (int ri = 0; ri < 4; ++ri) {
+      const int mt = ri >> 1, i = ri & 1;
+      float x2[16];
+      float mx = m[ri];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + j * 8 + e;
+          float x = acc[mt][j][2 * i + e];
+          if (MASK && edge && col >= p.v_true) x = NEG_INF;
+          // the label's logit, compared element by element: a select
+          // indexed by the label would put acc in local memory
+          if (PICK && col == lab[ri] && col < p.v) pk[ri] += x;
+          if (edge && col >= p.v) x = -INFINITY;  // not a column: adds exactly 0
+          x2[j * 2 + e] = x * LOG2E;
+          mx = fmaxf(mx, x2[j * 2 + e]);
+        }
+      float rs = 0.f;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) rs += exp2_approx(x2[c] - mx);
+      l[ri] = l[ri] * exp2_approx(m[ri] - mx) + rs;
+      m[ri] = mx;
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+  }
+
+  // merge the partials: over the quad (lanes tq share a row; both lanes of a
+  // pair compute the same bits), then over the two warp columns
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[ri], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[ri], off);
+      const float po = __shfl_xor_sync(0xffffffffu, pk[ri], off);
+      const float mx = fmaxf(m[ri], mo);
+      l[ri] = l[ri] * exp2_approx(m[ri] - mx) + lo * exp2_approx(mo - mx);
+      m[ri] = mx;
+      pk[ri] += po;
+    }
+    if (tq == 0) {
+      const int r = wm * 32 + (ri >> 1) * 16 + gq + 8 * (ri & 1);
+      red[wn][0][r] = m[ri];
+      red[wn][1][r] = l[ri];
+      red[wn][2][r] = pk[ri];
+    }
+  }
+  __syncthreads();
+  if (tid < FM && r0 + tid < p.n) {
+    const float m0 = red[0][0][tid], m1 = red[1][0][tid];
+    const float mx = fmaxf(m0, m1);
+    const float lsum =
+        red[0][1][tid] * exp2_approx(m0 - mx) + red[1][1][tid] * exp2_approx(m1 - mx);
+    const long long plane = static_cast<long long>(gridDim.y) * p.n;
+    const long long o = static_cast<long long>(blockIdx.y) * p.n + r0 + tid;
+    p.part[o] = mx * LN2;   // back to natural units for the merge kernel
+    p.part[plane + o] = lsum;
+    p.part[2 * plane + o] = red[0][2][tid] + red[1][2][tid];
+  }
+}
+
+// The tensor-core forward's instances: `full` is the public one (label pick
+// and masking at v_true); `bare` (product and online logsumexp only) and
+// `picked` (plus the label pick) are the compile probe's stripped variants.
+#define LM_FWD_MMA_KERNEL(NAME, PICK, MASK)                                   \
+  __global__ void __launch_bounds__(NT, 2) NAME(const FwdMmaParams p) {       \
+    fwd_mma_body<PICK, MASK>(p);                                              \
+  }
+LM_FWD_MMA_KERNEL(lm_fwd_mma_full, true, true)
+LM_FWD_MMA_KERNEL(lm_fwd_mma_bare, false, false)
+LM_FWD_MMA_KERNEL(lm_fwd_mma_picked, true, false)
+#undef LM_FWD_MMA_KERNEL
+
+cudaError_t merge_launch(const float* part, int splits, int n, void* loss, void* lse,
+                         cudaStream_t st) {
+  lm_merge_kernel<<<(n + NT - 1) / NT, NT, 0, st>>>(part, splits, n, static_cast<float*>(loss),
+                                                    static_cast<float*>(lse));
+  return cudaGetLastError();
+}
 
 }  // namespace
 
-// The number of CTAs that share each 32-row tile's vocab in the forward (a
-// function of the shapes only, so results are deterministic): about 1056
+// The number of CTAs that share each 32-row tile's vocab in the FMA forward
+// (a function of the shapes only, so results are deterministic): about 1056
 // CTAs in all, 8 a SM.
 extern "C" int lm_loss_fwd_splits(int n, int v) {
   const int row_tiles = (n + BA - 1) / BA;
@@ -821,25 +1017,19 @@ extern "C" int lm_loss_fwd_splits(int n, int v) {
   return s < 1 ? 1 : (s < vocab_tiles ? s : vocab_tiles);
 }
 
-// h: [n, hdim], w: [v, hdim] contiguous (dtype 0 = float32, 1 = bfloat16, each
-// its own); labels: [n] int32; loss, lse: [n] f32 out; part: [3, splits, n]
-// f32 scratch with splits = lm_loss_fwd_splits(n, v). variant 0 = full (masks columns >= v_true), 1 = bare, 2 =
-// picked (bf16 only). hdim a multiple of 128. Launches the split forward and
-// the merge; returns cudaGetLastError().
+// The FMA forward. h: [n, hdim], w: [v, hdim] contiguous (dtype 0 = float32,
+// 1 = bfloat16, each its own); labels: [n] int32; loss, lse: [n] f32 out;
+// part: [3, splits, n] f32 scratch with splits = lm_loss_fwd_splits(n, v).
+// Columns >= v_true are masked. hdim a multiple of 128. Launches the split
+// forward and the merge; returns cudaGetLastError().
 extern "C" int lm_loss_fwd(const void* h, const void* w, const void* labels, void* loss,
                            void* lse, void* part, int htype, int wtype, int n, int v, int hdim,
-                           int v_true, int splits, int variant, void* stream) {
-  if (!shape_ok(n, v, hdim) || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-  void (*kernel)(const FwdParams) = nullptr;
-  if (variant == 0) {
-    kernel = htype == 0 ? (wtype == 0 ? lm_fwd_full_f32_f32 : lm_fwd_full_f32_bf16)
-                        : (wtype == 0 ? lm_fwd_full_bf16_f32 : lm_fwd_full_bf16_bf16);
-  } else if (htype == 1 && wtype == 1) {
-    kernel = variant == 1 ? lm_fwd_bare_bf16_bf16
-           : variant == 2 ? lm_fwd_picked_bf16_bf16 : nullptr;
-  }
-  if (kernel == nullptr || htype < 0 || htype > 1 || wtype < 0 || wtype > 1)
+                           int v_true, int splits, void* stream) {
+  if (!shape_ok(n, v, hdim) || splits < 1 || htype < 0 || htype > 1 || wtype < 0 || wtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(const FwdParams) =
+      htype == 0 ? (wtype == 0 ? lm_fwd_full_f32_f32 : lm_fwd_full_f32_bf16)
+                 : (wtype == 0 ? lm_fwd_full_bf16_f32 : lm_fwd_full_bf16_bf16);
   FwdParams p;
   p.h = h; p.w = w;
   p.labels = static_cast<const int*>(labels);
@@ -849,10 +1039,49 @@ extern "C" int lm_loss_fwd(const void* h, const void* w, const void* labels, voi
   kernel<<<dim3((n + BA - 1) / BA, splits), NT, 0, st>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  lm_merge_kernel<<<(n + NT - 1) / NT, NT, 0, st>>>(p.part, splits, n,
-                                                    static_cast<float*>(loss),
-                                                    static_cast<float*>(lse));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(merge_launch(p.part, splits, n, loss, lse, st));
+}
+
+// The number of CTAs that share each 128-row tile's vocab in the
+// tensor-core forward (a function of the shapes only): FWD_MMA_CTAS in all,
+// at most one a vocab tile.
+extern "C" int lm_loss_fwd_mma_splits(int n, int v) {
+  const int row_tiles = (n + FM - 1) / FM;
+  const int vocab_tiles = (v + FN - 1) / FN;
+  const int s = (FWD_MMA_CTAS + row_tiles - 1) / row_tiles;
+  return s < 1 ? 1 : (s < vocab_tiles ? s : vocab_tiles);
+}
+
+// The tensor-core forward: h [n, hdim] and w [v, hdim] both bf16 (the
+// wrapper casts an f32 W once a call), contiguous and 16-byte aligned; hdim a
+// multiple of 128. Other arguments as lm_loss_fwd, with splits =
+// lm_loss_fwd_mma_splits(n, v); variant 0 = full, 1 = bare, 2 = picked (the
+// compile probe's). Returns cudaGetLastError().
+extern "C" int lm_loss_fwd_mma(const void* h, const void* w, const void* labels, void* loss,
+                               void* lse, void* part, int n, int v, int hdim, int v_true,
+                               int splits, int variant, void* stream) {
+  if (!shape_ok(n, v, hdim) || splits < 1 || (reinterpret_cast<unsigned long long>(h) |
+                                               reinterpret_cast<unsigned long long>(w)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(const FwdMmaParams) = variant == 0   ? lm_fwd_mma_full
+                                       : variant == 1 ? lm_fwd_mma_bare
+                                       : variant == 2 ? lm_fwd_mma_picked
+                                                      : nullptr;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       FWD_MMA_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  FwdMmaParams p;
+  p.h = static_cast<const __nv_bfloat16*>(h);
+  p.w = static_cast<const __nv_bfloat16*>(w);
+  p.labels = static_cast<const int*>(labels);
+  p.part = static_cast<float*>(part);
+  p.n = n; p.v = v; p.hdim = hdim; p.v_true = v_true;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3((n + FM - 1) / FM, splits), NT, FWD_MMA_SMEM, st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(merge_launch(p.part, splits, n, loss, lse, st));
 }
 
 // dh (dw = 0: out [n, hdim] in h's dtype) or dW (dw = 1: out [v, hdim] in

@@ -1,0 +1,75 @@
+// Building blocks of the tensor-core kernels (sm_90a), shared by
+// flash_attention_fwd.cu and lm_loss.cu: cp.async copies into shared memory,
+// ldmatrix loads of 8 x 8 bf16 blocks, the bf16 mma.sync.m16n8k16 product
+// with f32 accumulation, and the MUFU exp2.
+//
+// Fragment layout of mma.sync.m16n8k16 (lane = 4 * gq + tq):
+//   A (16 x 16, row): a0 = (row gq, k 2tq..+1), a1 = (gq + 8, 2tq..+1),
+//                     a2 = (gq, 2tq + 8..+9), a3 = (gq + 8, 2tq + 8..+9);
+//   B (16 x 8, col):  b0 = (k 2tq..+1, col gq), b1 = (k 2tq + 8..+9, col gq);
+//   C (16 x 8, f32):  c0, c1 = (row gq, cols 2tq, 2tq + 1), c2, c3 = row gq + 8.
+// ldmatrix.x4 with lane l addressing row (l & 15), column (l >> 4) * 8 of a
+// row-major [m][k] tile gives a0..a3; with lane l addressing row
+// (l >> 4) * 8 + (l & 7), column ((l >> 3) & 1) * 8 of a row-major [n][k] tile
+// gives b0, b1 of two n8 tiles; ldmatrix.x4.trans with lane l addressing row
+// (l & 7) + ((l >> 3) & 1) * 8, column (l >> 4) * 8 of a row-major [k][n] tile
+// does the same for a B stored k-major. An f32 C fragment of two n8 tiles
+// (cols 16j..16j+15) packs into the A fragment of k step j: a0 = c[2j][0..1],
+// a1 = c[2j][2..3], a2 = c[2j + 1][0..1], a3 = c[2j + 1][2..3].
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace mma_sync {
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; src_bytes = 0 writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// d += a . b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two floats rounded to bf16 (nearest even) in one register, lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&t);
+}
+// 2^x on the MUFU (ex2.approx, 2 ulp; -inf and very negative x give 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+}  // namespace mma_sync

@@ -5,15 +5,24 @@ paddle_tpu/ops/pallas/flash_attention.py).
 ``[b, s, h, d]`` layout, as the JAX entry points do, and are differentiable
 in q, k, v (and, for the second, through both outputs: the lse cotangent
 folds into ``delta``, as ring attention needs). On CUDA tensors the forward
-launches ``csrc/flash_attention_fwd.cu`` and the backward the two kernels of
-``csrc/flash_attention_bwd.cu`` (dK/dV, then dQ), or they raise; on CPU
-tensors they take the plain versions, the same arithmetic in plain PyTorch.
-``delta = rowsum(dO * O) - g_lse`` is plain PyTorch on both devices, as the
-JAX package computes it outside its kernels.
+launches a kernel of ``csrc/flash_attention_fwd.cu`` and the backward the
+two kernels of ``csrc/flash_attention_bwd.cu`` (dK/dV, then dQ), or they
+raise; on CPU tensors they take the plain versions, the same arithmetic in
+plain PyTorch. ``delta = rowsum(dO * O) - g_lse`` is plain PyTorch on both
+devices, as the JAX package computes it outside its kernels.
+
+The forward has two kernels, picked by dtype (``forward_route``): bf16
+takes the tensor-core kernel (``"mma"``), f32 the FMA kernel on the FP32
+units (``"fma"``). The tensor-core kernel copies 16-byte pieces, so a view
+whose start or strides are not 16-byte aligned is handed over as an aligned
+contiguous copy (``_mma_operand``; the fused qkv projection's views are
+aligned and are read in place).
 
 ``launches``, ``launches_dkdv`` and ``launches_dq`` count kernel launches of
-the forward and of the two backward kernels. Blocks are fixed by the kernels
-(64 x 64 tiles); the TPU package's block autotune has no counterpart.
+the forward (either kernel) and of the two backward kernels;
+``launches_by_route`` counts forward launches by kernel. Blocks are fixed by
+the kernels (64 x 64 tiles); the TPU package's block autotune has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -25,9 +34,10 @@ import torch
 from ._common import NEG_INF, pick_block
 
 #: kernel launches since import (chip_smoke.py resets and reads them)
-launches = 0        # forward
+launches = 0        # forward, either kernel
 launches_dkdv = 0   # backward, dK and dV
 launches_dq = 0     # backward, dQ
+launches_by_route = {"mma": 0, "fma": 0}   # forward, by kernel
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,6 +50,9 @@ _SIGNATURES = {
     "flash_attention_fwd": ("flash_attention_fwd",
                             [_PTR] * 5 + [_INT] * 6 + [_LL] * 12
                             + [ctypes.c_float, _INT, _PTR]),
+    "flash_attention_fwd_mma": ("flash_attention_fwd",
+                                [_PTR] * 5 + [_INT] * 5 + [_LL] * 12
+                                + [ctypes.c_float, _INT, _PTR]),
     "flash_attention_bwd_dkdv": ("flash_attention_bwd",
                                  [_PTR] * 8 + [_INT] * 6
                                  + [_STRIDES, ctypes.c_float, _INT, _PTR]),
@@ -61,6 +74,21 @@ def supported(seq_q: int, seq_k: int, head_dim: int) -> bool:
         and pick_block(seq_k) % 8 == 0
         and head_dim % 8 == 0
     )
+
+
+def forward_route(dtype, head_dim: int) -> str:
+    """The forward kernel for q, k, v of ``dtype`` and ``head_dim``:
+    ``"mma"`` (the bf16 tensor-core kernel) for bfloat16, ``"fma"`` (FMA on
+    the FP32 units) for float32. Picked by dtype alone, never by failure.
+    Both kernels take the head dims in ``HEAD_DIMS``; others raise
+    ValueError, other dtypes TypeError."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels take head_dim in {HEAD_DIMS}, got {head_dim}")
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"flash_attention takes float32 or bfloat16, got {dtype}")
 
 
 # ------------------------------------------------------------ plain versions
@@ -178,18 +206,45 @@ def _call(name, device, *args):
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
-def _launch(q, k, v, causal, sm_scale):
+def _mma_operand(x):
+    """x as the tensor-core kernel reads it: x itself where its start and its
+    batch, seq and head strides are 16-byte aligned (bf16, so strides a
+    multiple of 8; the fused qkv projection's views are), else an aligned
+    contiguous copy."""
+    if x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3]):
+        return x
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _launch(q, k, v, causal, sm_scale, route=None):
+    """(o, lse) from the forward kernel of ``forward_route`` on CUDA tensors.
+    ``route`` forces a kernel: chip_smoke.py and the card tests time and
+    check the FMA kernel at bf16 with "fma"; no path passes it."""
     global launches
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    if route is None:
+        route = forward_route(q.dtype, d)
+    elif route not in launches_by_route:
+        raise ValueError(f"route must be 'mma' or 'fma', got {route!r}")
+    elif route == "mma" and q.dtype != torch.bfloat16:
+        raise ValueError("the tensor-core forward takes bfloat16 q, k, v")
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _call("flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
-          v.data_ptr(), o.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
-          d, b, h, sq, sk, *_strides(q, k, v, o), float(sm_scale),
-          int(bool(causal)))
+    if route == "mma":
+        q, k, v = (_mma_operand(x) for x in (q, k, v))
+        _call("flash_attention_fwd_mma", q.device, q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), o.data_ptr(), lse.data_ptr(), d, b, h, sq, sk,
+              *_strides(q, k, v, o), float(sm_scale), int(bool(causal)))
+    else:
+        _call("flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), o.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
+              d, b, h, sq, sk, *_strides(q, k, v, o), float(sm_scale),
+              int(bool(causal)))
     launches += 1
+    launches_by_route[route] += 1
     return o, lse
 
 

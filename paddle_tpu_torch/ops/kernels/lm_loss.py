@@ -17,16 +17,19 @@ to a multiple of 512 and masks the pad; the results are the same).
 
 On CUDA tensors the three wrappers launch the kernels of ``csrc/lm_loss.cu``
 or raise; on CPU tensors they take the plain versions (dense logits, the
-same rounding points). The backward has two routes, picked by
-``backward_plan`` from h2's dtype and the hidden size: ``"mma"`` for bf16
-h2 (the tensor-core kernels; an f32 W is cast to bf16 once per backward and
-the copy shared by dh and dW, as the JAX ``_bwd`` does), ``"fma"`` for f32
-h2 (FMA on the FP32 units, W rounded on load). ``launches_fwd``,
-``launches_dh`` and ``launches_dw`` count every launch (the forward's call
-also runs the kernel that merges its vocab splits); ``launches_by_route``
-counts dh and dW launches by route. A direct-call library op, as in the JAX
-package: ``ops/fused.fused_linear_cross_entropy`` (the model's loss) does
-not route here.
+same rounding points). Forward and backward each have two routes, picked
+by h2's dtype, never by failure: bf16 h2 takes the tensor-core kernels
+(``"mma"``; ``forward_route`` and ``backward_plan``, the backward while its
+tiles fit, H <= 1536), f32 h2 the FMA kernels on the FP32 units (``"fma"``,
+W rounded on load). The tensor-core kernels read W in bf16: an f32 W is
+cast once in the forward's call and once per backward, the copy shared by
+dh and dW, as the JAX ``_fwd`` and ``_bwd`` do; the forward's copy is not
+kept for the backward. ``launches_fwd``, ``launches_dh`` and
+``launches_dw`` count every launch (the forward's call also runs the
+kernel that merges its vocab splits); ``launches_by_route`` counts them by
+route. A direct-call library op, as in the JAX package:
+``ops/fused.fused_linear_cross_entropy`` (the model's loss) does not route
+here.
 """
 from __future__ import annotations
 
@@ -39,13 +42,15 @@ import torch
 launches_fwd = 0   # forward (loss and lse)
 launches_dh = 0    # backward, dh (either route)
 launches_dw = 0    # backward, dW (either route)
-launches_by_route = {"mma": {"dh": 0, "dw": 0}, "fma": {"dh": 0, "dw": 0}}
+launches_by_route = {r: {"fwd": 0, "dh": 0, "dw": 0} for r in ("mma", "fma")}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"full": 0, "bare": 1, "picked": 2}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "lm_loss_fwd": [_PTR] * 6 + [_INT] * 8 + [_PTR],
+    "lm_loss_fwd": [_PTR] * 6 + [_INT] * 7 + [_PTR],
+    "lm_loss_fwd_mma": [_PTR] * 6 + [_INT] * 6 + [_PTR],
+    "lm_loss_fwd_mma_splits": [_INT, _INT],
     "lm_loss_bwd": [_PTR] * 6 + [_INT] * 6 + [_PTR],
     "lm_loss_bwd_mma": [_PTR] * 6 + [_INT] * 8 + [_PTR],
     "lm_loss_fwd_splits": [_INT, _INT],
@@ -77,7 +82,18 @@ def supported(n_rows: int, vocab: int, hidden: int) -> bool:
     return _pick_rows(n_rows) > 0 and vocab >= 128 and hidden % 128 == 0
 
 
-# ------------------------------------------------------------- backward plan
+# ------------------------------------------------------------------- routes
+
+def forward_route(h_dtype) -> str:
+    """The forward's kernel for h2 of ``h_dtype``: ``"mma"`` (the bf16
+    tensor-core kernel, any hidden a multiple of 128) for bfloat16, ``"fma"``
+    (FMA on the FP32 units) for float32."""
+    if h_dtype == torch.bfloat16:
+        return "mma"
+    if h_dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"lm_head_cross_entropy takes float32 or bfloat16 h2, got {h_dtype}")
+
 
 #: shared memory a CTA may take on the H100 (227 KB)
 _MAX_SMEM = 232448
@@ -228,27 +244,47 @@ def _prepare(h2, w, labels):
     return _aligned(h2), _aligned(w), labels.to(torch.int32).contiguous()
 
 
-def lm_loss_fwd(h2, w, labels, variant="full", v_true=None):
-    """(loss, lse): the CUDA kernel on CUDA tensors, the plain version on CPU
-    tensors. ``variant`` and ``v_true`` select the compile probe's stripped
-    forwards (``"bare"``, ``"picked"``; bf16 only); the launch counter counts
-    the public ``"full"`` forward."""
+def lm_loss_fwd(h2, w, labels, variant="full", v_true=None, route=None):
+    """(loss, lse): the kernel of ``forward_route`` on CUDA tensors, the
+    plain version on CPU tensors. ``variant`` and ``v_true`` select the
+    compile probe's stripped forwards (``"bare"``, ``"picked"``: instances
+    of the tensor-core kernel, bf16 h2); the launch counters count the
+    public ``"full"`` forward. ``route`` forces a kernel (chip_smoke.py and
+    the card tests time and check the FMA kernel at bf16 h with "fma"; no
+    path passes it)."""
     global launches_fwd
     if not h2.is_cuda:
         return lm_loss_fwd_plain(h2, w, labels, v_true, pick=variant != "bare")
     h2, w, labels = _prepare(h2, w, labels)
+    if route is None:
+        route = forward_route(h2.dtype)
+    elif route not in launches_by_route:
+        raise ValueError(f"route must be 'mma' or 'fma', got {route!r}")
+    if route == "mma" and h2.dtype != torch.bfloat16:
+        raise ValueError("the tensor-core forward takes bf16 h2")
+    if variant != "full" and route != "mma":
+        raise ValueError(f"the {variant!r} forward is an instance of the tensor-core kernel")
     n, hdim = h2.shape
     v = w.shape[0]
-    splits = _kernel("lm_loss_fwd_splits")(n, v)  # CTAs sharing a row tile's vocab
+    v_true = v if v_true is None else int(v_true)
     loss = torch.empty(n, dtype=torch.float32, device=h2.device)
     lse = torch.empty_like(loss)
-    part = torch.empty((3, splits, n), dtype=torch.float32, device=h2.device)
-    _call("lm_loss_fwd", h2.device, h2.data_ptr(), w.data_ptr(), labels.data_ptr(),
-          loss.data_ptr(), lse.data_ptr(), part.data_ptr(), _DTYPE_CODES[h2.dtype],
-          _DTYPE_CODES[w.dtype], n, v, hdim, v if v_true is None else int(v_true),
-          splits, _VARIANTS[variant])
+    if route == "mma":
+        w_read = w if w.dtype == torch.bfloat16 else _aligned(w.to(torch.bfloat16))
+        splits = _kernel("lm_loss_fwd_mma_splits")(n, v)  # CTAs sharing a row tile's vocab
+        part = torch.empty((3, splits, n), dtype=torch.float32, device=h2.device)
+        _call("lm_loss_fwd_mma", h2.device, h2.data_ptr(), w_read.data_ptr(),
+              labels.data_ptr(), loss.data_ptr(), lse.data_ptr(), part.data_ptr(), n, v,
+              hdim, v_true, splits, _VARIANTS[variant])
+    else:
+        splits = _kernel("lm_loss_fwd_splits")(n, v)
+        part = torch.empty((3, splits, n), dtype=torch.float32, device=h2.device)
+        _call("lm_loss_fwd", h2.device, h2.data_ptr(), w.data_ptr(), labels.data_ptr(),
+              loss.data_ptr(), lse.data_ptr(), part.data_ptr(), _DTYPE_CODES[h2.dtype],
+              _DTYPE_CODES[w.dtype], n, v, hdim, v_true, splits)
     if variant == "full":
         launches_fwd += 1
+        launches_by_route[route]["fwd"] += 1
     return loss, lse
 
 

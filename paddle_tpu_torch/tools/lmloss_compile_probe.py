@@ -6,13 +6,14 @@ on the card (counterpart of tools/lmloss_compile_probe.py).
 
 The JAX probe times Mosaic's compile of stripped copies of the Pallas
 forward, because that compile once ran for minutes. Here the variants are
-instantiations of the forward kernel of ``ops/kernels/csrc/lm_loss.cu``
-(template parameters of ``fwd_body``), each its own entry point:
+instantiations of the tensor-core forward kernel of
+``ops/kernels/csrc/lm_loss.cu`` (the PICK / MASK template parameters of
+``fwd_mma_body``), each its own entry point:
 
-    bare      s = h . W^T and the online logsumexp only   lm_fwd_bare_bf16_bf16
-    picked    + the label's logit                         lm_fwd_picked_bf16_bf16
-    masked    + columns from v_true = vocab - 64 masked   lm_fwd_full_bf16_bf16
-    full      the public lm_head_cross_entropy forward    lm_fwd_full_bf16_bf16
+    bare      s = h . W^T and the online logsumexp only   lm_fwd_mma_bare
+    picked    + the label's logit                         lm_fwd_mma_picked
+    masked    + columns from v_true = vocab - 64 masked   lm_fwd_mma_full
+    full      the public lm_head_cross_entropy forward    lm_fwd_mma_full
 
 ``masked`` and ``full`` are one instantiation: the public kernel masks by
 index at a v_true it is given, which is the vocab itself for ``full``. The
@@ -37,10 +38,10 @@ import sys
 import torch
 
 VARIANTS = (  # (variant, kernel entry point, lm_loss_fwd variant, masked at vocab - 64)
-    ("bare", "lm_fwd_bare_bf16_bf16", "bare", False),
-    ("picked", "lm_fwd_picked_bf16_bf16", "picked", False),
-    ("masked", "lm_fwd_full_bf16_bf16", "full", True),
-    ("full", "lm_fwd_full_bf16_bf16", None, False),
+    ("bare", "lm_fwd_mma_bare", "bare", False),
+    ("picked", "lm_fwd_mma_picked", "picked", False),
+    ("masked", "lm_fwd_mma_full", "full", True),
+    ("full", "lm_fwd_mma_full", None, False),
 )
 TOL = 1e-4   # times max(1, max|ref|): bf16 inputs are exact in f32, sums differ in order
 

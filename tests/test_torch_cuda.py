@@ -21,6 +21,13 @@ LM-loss backward's tensor-core kernels (bf16 h) are also held to their
 plain versions with every label -100 (dh and dW the softmax term alone), to
 giving the same bits twice, to their route's launch counts, and to HMMA in
 their SASS with no spills.
+
+The tensor-core forwards (flash attention and the LM loss at bf16) hold
+their f32 outputs, lse and the per-row loss, at 1e-4 x max(1, max|ref|):
+bf16 inputs are exact in f32 and both versions sum the products in f32, so
+only the order differs (a dropped kv or vocab tile moves them by far more);
+the flash o at 2e-2 x max|o|. Their FMA predecessors, reached with the
+private ``route="fma"``, are held to the same limits on the same inputs.
 """
 import numpy as np
 import pytest
@@ -125,6 +132,78 @@ def test_flash_autograd_goes_through_the_kernels(cuda):
         assert [a - b for a, b in zip(after, before)] == [expect] * 3
         grads.append(qkv.grad.cpu())
     assert (grads[0] - grads[1]).abs().max().item() <= 1e-4
+
+
+def _f32_tol(ref):
+    """An f32 result of bf16 inputs (flash lse, LM-loss loss and lse)."""
+    return 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("causal,sq,sk,d", [
+    (True, 256, 256, 64),
+    (False, 256, 256, 64),
+    (True, 200, 200, 32),       # ragged tiles
+    (False, 128, 1024, 32),     # sq != sk
+    (True, 128, 1024, 128),     # top-left causal with sq < sk
+    (False, 1000, 1000, 128),   # ragged, non-causal
+    (True, 1000, 1000, 64),
+    (True, 300, 100, 64),       # sq > sk
+])
+def test_flash_mma_kernel_and_its_predecessor_match_plain(cuda, causal, sq, sk, d):
+    """bf16: the tensor-core forward (the default route) and the FMA kernel
+    (route="fma") against the plain version, o at 2e-2 x max|o| and lse at
+    1e-4 x max(1, max|lse|); each launches once on its route."""
+    rng = np.random.RandomState(19)
+    q, k, v = (torch.from_numpy(rng.randn(2, s, 3, d).astype(np.float32))
+               .to(cuda, torch.bfloat16) for s in (sq, sk, sk))
+    po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
+    for route in ("mma", "fma"):
+        before = dict(fa.launches_by_route)
+        o, lse = (fa.flash_attention_with_lse(q, k, v, causal=causal) if route == "mma"
+                  else fa._launch(q, k, v, causal, 1.0 / d ** 0.5, route="fma"))
+        torch.cuda.synchronize()
+        assert {r: fa.launches_by_route[r] - before[r] for r in before} == {
+            "mma": int(route == "mma"), "fma": int(route == "fma")}
+        assert o.dtype == torch.bfloat16 and lse.shape == plse.shape
+        assert _err(o, po) <= 2e-2 * po.float().abs().max().item(), route
+        assert _err(lse, plse) <= _f32_tol(plse), route
+
+
+def test_flash_mma_kernel_reads_the_fused_qkv_views_in_place(cuda):
+    """The model's q, k, v are bf16 views of one fused [b, s, 3, h, d]
+    projection: 16-byte aligned, so the tensor-core kernel reads them
+    through their strides (no copy) and gives the bits of contiguous
+    inputs. A view shifted by one element is copied first, and agrees."""
+    qkv = torch.randn(2, 256, 3, 4, 64, device=cuda).bfloat16()
+    q, k, v = qkv.unbind(dim=2)
+    assert all(fa._mma_operand(x) is x for x in (q, k, v))
+    o = fa.flash_attention(q, k, v, causal=True)
+    oc = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    assert torch.equal(o, oc)
+    flat = torch.randn(2 * 256 * 4 * 64 + 1, device=cuda).bfloat16()
+    shifted = flat[1:].view(2, 256, 4, 64)
+    assert fa._mma_operand(shifted) is not shifted
+    os = fa.flash_attention(shifted, k, v, causal=True)
+    ref = fa.flash_attention(shifted.clone(), k, v, causal=True)
+    assert torch.equal(os, ref)
+
+
+def test_flash_forward_routes_and_determinism(cuda):
+    """bf16 launches the tensor-core forward and f32 the FMA one, directly
+    and under autograd; two calls give the same bits."""
+    rng = np.random.RandomState(20)
+    base = rng.randn(2, 192, 4, 64).astype(np.float32)
+    for dt, route in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+        x = torch.from_numpy(base).to(cuda, dt).requires_grad_()
+        before = dict(fa.launches_by_route)
+        o1, lse1 = fa.flash_attention_with_lse(x, x, x, causal=True)
+        o1.float().sum().backward()
+        o2, lse2 = fa.flash_attention_with_lse(x, x, x, causal=True)
+        assert {r: fa.launches_by_route[r] - before[r] for r in before} == {
+            "mma": 2 * (route == "mma"), "fma": 2 * (route == "fma")}
+        assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    with pytest.raises(ValueError):
+        fa._launch(x, x, x, True, 0.125, route="mma")     # f32 on the tensor cores
 
 
 def test_flash_kernel_reads_strided_qkv_views(cuda):
@@ -339,7 +418,7 @@ def test_lm_loss_kernels_match_plain(cuda, htype, wtype, n, v, hdim):
     torch.cuda.synchronize()
     after = (lm.launches_fwd, lm.launches_dh, lm.launches_dw,
              *lm.launches_by_route[route].values())
-    assert [a - c for a, c in zip(after, before)] == [1, 1, 1, 1, 1]
+    assert [a - c for a, c in zip(after, before)] == [1] * 6
     ploss, plse = lm.lm_loss_fwd_plain(h, w, labels)
     assert _err(lse, plse) <= _tol(plse, ht) and _err(loss, ploss) <= _tol(ploss, ht)
     assert abs(loss[5].item() - lse[5].item()) <= 1e-6 * abs(lse[5].item())
@@ -375,6 +454,56 @@ def test_lm_loss_bf16_backward_softmax_term_alone(cuda, route, wtype, v):
     assert pdh.abs().max().item() > 0 and pdw.abs().max().item() > 0
     assert _err(dh, pdh) <= _grad_tol(dh, pdh, h.dtype)
     assert _err(dw, pdw) <= _grad_tol(dw, pdw, h.dtype)
+
+
+@pytest.mark.parametrize("wtype,n,v,hdim,labels", [
+    ("float32", 1024, 500, 128, "random"),      # ragged vocab, f32 master W
+    ("bfloat16", 1024, 640, 256, "random"),
+    ("float32", 1000, 50257, 768, "minus100"),  # ragged rows, GPT-2's vocab
+    ("bfloat16", 2048, 50304, 768, "random"),
+    ("float32", 1024, 384, 1280, "all_minus100"),
+    ("bfloat16", 1024, 257, 1536, "minus100"),  # one column past a tile
+])
+def test_lm_loss_mma_forward_and_its_predecessor_match_plain(cuda, wtype, n, v, hdim,
+                                                            labels):
+    """bf16 h: the tensor-core forward (the default route) and the FMA
+    forward (route="fma") against the plain version, loss and lse at 1e-4 x
+    max(1, max|ref|), each launched once on its route; a label of -100
+    picks nothing."""
+    h, w, lab, _ = _lm_inputs(cuda, n, v, hdim, getattr(torch, wtype), seed=21)
+    if labels == "minus100":
+        lab[::7] = -100
+    elif labels == "all_minus100":
+        lab.fill_(-100)
+    ploss, plse = lm.lm_loss_fwd_plain(h, w, lab)
+    for route in ("mma", "fma"):
+        before = {r: dict(c) for r, c in lm.launches_by_route.items()}
+        loss, lse = lm.lm_loss_fwd(h, w, lab, route=None if route == "mma" else "fma")
+        torch.cuda.synchronize()
+        assert {r: lm.launches_by_route[r]["fwd"] - before[r]["fwd"] for r in before} == {
+            "mma": int(route == "mma"), "fma": int(route == "fma")}
+        assert _err(lse, plse) <= _f32_tol(plse), route
+        assert _err(loss, ploss) <= _f32_tol(ploss), route
+        ignored = lab == -100
+        assert torch.equal(loss[ignored], lse[ignored])
+
+
+def test_lm_loss_forward_routes_and_determinism(cuda):
+    """bf16 h launches the tensor-core forward, f32 h the FMA one, directly
+    and under autograd; two calls give the same bits; the stripped variants
+    are tensor-core instances only."""
+    h, w, lab, _ = _lm_inputs(cuda, 2048, 1000, 768, torch.float32, seed=22)
+    for hh, route in ((h, "mma"), (h.float(), "fma")):
+        before = {r: c["fwd"] for r, c in lm.launches_by_route.items()}
+        first = lm.lm_loss_fwd(hh, w, lab)
+        second = lm.lm_head_cross_entropy(hh.detach().requires_grad_(), w, lab)
+        assert {r: c["fwd"] - before[r] for r, c in lm.launches_by_route.items()} == {
+            "mma": 2 * (route == "mma"), "fma": 2 * (route == "fma")}
+        assert torch.equal(first[0], second)
+    with pytest.raises(ValueError):
+        lm.lm_loss_fwd(h.float(), w, lab, variant="bare")
+    with pytest.raises(ValueError):
+        lm.lm_loss_fwd(h.float(), w, lab, route="mma")
 
 
 def test_lm_loss_mma_backward_is_deterministic(cuda):
@@ -475,6 +604,38 @@ def test_lm_loss_mma_kernels_use_tensor_cores_without_spills(cuda):
         assert "HMMA" in body, name
     fma = [body for k, body in funcs.items() if "lm_grad_kernel" in k]
     assert fma and not any("HMMA" in body for body in fma)
+
+
+def test_forward_mma_kernels_use_tensor_cores_without_spills(cuda):
+    """The tensor-core forwards, flash_fwd_mma_kernel (d 32, 64, 128) and
+    lm_fwd_mma_* (full, bare, picked), hold HMMA instructions in their SASS,
+    and ptxas reports 0 spill bytes and at most 255 registers for each; the
+    FMA kernels beside them hold none."""
+    import subprocess
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    tool = _cuobjdump()
+    for lib, new, old, count in (("flash_attention_fwd", "flash_fwd_mma_kernel",
+                                  "flash_fwd_kernel", 3),
+                                 ("lm_loss", "lm_fwd_mma_", "lm_fwd_full_", 3)):
+        _build.load(lib)
+        report = {k: r for k, r in _build.ptxas_report(lib).items() if new in k}
+        assert len(report) == count, sorted(report)
+        for name, r in report.items():
+            assert r.get("spill_stores") == 0 and r.get("spill_loads") == 0, (name, r)
+            assert r.get("registers", 256) <= 255, (name, r)
+        if tool is None:
+            continue
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))],
+                              capture_output=True, text=True, check=True).stdout
+        funcs = {part.split(None, 1)[0]: part for part in sass.split("Function : ")[1:]}
+        mma = [body for k, body in funcs.items() if new in k]
+        assert len(mma) == count and all("HMMA" in body for body in mma), sorted(funcs)
+        fma = [body for k, body in funcs.items() if old in k]
+        assert fma and not any("HMMA" in body for body in fma)
+    if tool is None:
+        pytest.skip("no cuobjdump under CUDA's bin/ or triton/backends/nvidia/bin/")
 
 
 def test_lm_loss_autograd_goes_through_the_kernels(cuda):

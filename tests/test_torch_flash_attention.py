@@ -215,3 +215,45 @@ def test_backward_wrappers_on_cpu_are_the_plain_version():
     want = port_fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=True)
     for g, w in zip((dq, dk, dv), want):
         assert torch.equal(g, w)
+
+
+# ------------------------------------------------------------ forward route
+
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    ("bfloat16", 32, "mma"), ("bfloat16", 64, "mma"), ("bfloat16", 128, "mma"),
+    ("float32", 32, "fma"), ("float32", 64, "fma"), ("float32", 128, "fma"),
+])
+def test_forward_route_table(dtype, head_dim, route):
+    """bf16 takes the tensor-core forward, f32 the FMA one, at every head
+    dim the kernels take (the training path is bf16, scoring f32)."""
+    assert port_fa.forward_route(getattr(torch, dtype), head_dim) == route
+
+
+def test_forward_route_refuses_what_no_kernel_takes():
+    for d in (16, 48, 256):
+        with pytest.raises(ValueError):
+            port_fa.forward_route(torch.bfloat16, d)
+    with pytest.raises(TypeError):
+        port_fa.forward_route(torch.float16, 64)
+
+
+def test_mma_operand_reads_aligned_views_in_place_and_copies_the_rest():
+    """The tensor-core kernel copies 16-byte pieces: the fused qkv
+    projection's bf16 views ([b, s, 3, h, d], row stride 3 h d, k and v
+    starting 2 h d and 4 h d bytes in) are aligned and are read through
+    their strides; a view starting off a 16-byte boundary, or with a seq
+    stride that is not a multiple of 8 elements, becomes an aligned
+    contiguous copy with the same values."""
+    qkv = torch.zeros(2, 128, 3, 12, 64, dtype=torch.bfloat16).normal_()
+    q, k, v = qkv.unbind(dim=2)
+    assert q.stride() == (128 * 2304, 2304, 64, 1)
+    for x in (q, k, v):
+        assert port_fa._mma_operand(x) is x
+    flat = torch.zeros(2 * 128 * 4 * 64 + 1, dtype=torch.bfloat16).normal_()
+    shifted = flat[1:].view(2, 128, 4, 64)
+    padded = torch.zeros(2, 128, 4 * 64 + 4, dtype=torch.bfloat16).normal_()[..., :256]
+    padded = padded.view(2, 128, 4, 64)
+    for x in (shifted, padded):
+        y = port_fa._mma_operand(x)
+        assert y is not x and y.is_contiguous() and y.data_ptr() % 16 == 0
+        assert torch.equal(y, x)

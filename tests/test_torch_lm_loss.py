@@ -10,8 +10,10 @@ tests/test_pallas_lm_loss.py (f32 and bf16 values, gradients, the
 ``supported`` predicate, unaligned vocab 500, bf16 h with an f32 W, block_n
 256 and 512), the ``block_n`` check, a row count JAX refuses, a label of
 -100 (no ignore_index: the row's loss is its logsumexp), the tensor-core
-route's inputs (bf16 h, f32 W) at vocab 500 with -100 labels, and the
-backward's route and hidden-chunk plan (``backward_plan``).
+route's inputs (bf16 h, f32 W) at vocab 500 with -100 labels, the
+backward's route and hidden-chunk plan (``backward_plan``), the forward's
+route (``forward_route``) and the compile probe's variants as instances of
+the tensor-core forward.
 
 Tolerances: f32 loss 2e-5 and gradients of the mean loss 1e-6 absolute (the
 same f32 products and logsumexp in another order; gradients are ~1e-4);
@@ -243,6 +245,46 @@ def test_backward_plan_limits():
         lm._plan("mma", torch.float32, 768)
     with pytest.raises(ValueError):
         lm._plan("wgmma", torch.bfloat16, 768)
+
+
+@pytest.mark.parametrize("dtype,route", [("bfloat16", "mma"), ("float32", "fma")])
+def test_forward_route_table(dtype, route):
+    """The forward's route follows h2's dtype alone: bf16 h2 (with a bf16 or
+    an f32 W) takes the tensor-core forward at every hidden, f32 h2 the FMA
+    one; on the CPU both are the plain version and launch nothing."""
+    assert lm.forward_route(getattr(torch, dtype)) == route
+    h, w, lab = _data(1024, 300, 256, seed=13)
+    th = torch.from_numpy(h).to(getattr(torch, dtype))
+    before = {r: dict(c) for r, c in lm.launches_by_route.items()}
+    loss, lse = lm.lm_loss_fwd(th, torch.from_numpy(w), torch.from_numpy(lab))
+    want = lm.lm_loss_fwd_plain(th, torch.from_numpy(w), torch.from_numpy(lab))
+    assert lm.launches_by_route == before
+    assert torch.equal(loss, want[0]) and torch.equal(lse, want[1])
+
+
+def test_forward_route_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        lm.forward_route(torch.float16)
+
+
+def test_probe_variants_name_entry_points_of_the_tensor_core_forward():
+    """Every compile-probe variant names a kernel of csrc/lm_loss.cu that is
+    an instance of the tensor-core forward (fwd_mma_body), with the PICK /
+    MASK switches its variant strips."""
+    import re
+    from pathlib import Path
+
+    from paddle_tpu_torch.tools import lmloss_compile_probe as probe
+
+    src = (Path(lm.__file__).parent / "csrc" / "lm_loss.cu").read_text()
+    instances = dict(re.findall(r"LM_FWD_MMA_KERNEL\((\w+), (true, \w+|false, \w+)\)", src))
+    want = {"bare": "false, false", "picked": "true, false", "masked": "true, true",
+            "full": "true, true"}
+    assert [v[0] for v in probe.VARIANTS] == list(want)
+    for name, entry, variant, masked in probe.VARIANTS:
+        assert instances.get(entry) == want[name], (name, entry)
+        assert (variant or "full") in lm._VARIANTS
+        assert masked == (name == "masked")
 
 
 # ------------------------------------------------- the slice as a whole
