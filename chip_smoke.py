@@ -13,8 +13,10 @@ each:
    paths' shapes and a few edge cases, with kernel, plain, bound and
    library (yardstick only) times: the flash forward (bf16 on the tensor
    cores, with its FMA predecessor checked and timed beside it; f32 on the
-   FMA kernel), then the FA2 backward's dK/dV and dQ kernels, with SDPA's
-   FA2 (flash backend) forward and backward pinned as the yardstick.
+   FMA kernel), then the FA2 backward's dK/dV and dQ kernels (bf16 on the
+   tensor cores, with the FMA pair checked and timed beside them; f32 on the
+   FMA pair), with SDPA's FA2 (flash backend) forward and backward pinned
+   as the yardstick.
 3. scoring forward of GPT-2 124M (random weights from a seed), ids [8, 1024]:
    the flash kernel (the FMA one: scoring is f32) must launch exactly once
    per layer, the logits must be
@@ -30,12 +32,13 @@ each:
    labels = roll(ids, -1), AdamW(1e-4, weight_decay 0.01), under the port's
    bf16 auto_cast (bench.py's step): 3 warm-up and 10 timed steps on one
    batch. Every step launches each of the three kernels once per layer
-   (the forward on the tensor cores);
+   (all three on the tensor cores);
    the loss is finite and falls; every gradient is finite and not all zero.
    Step time, tokens/s, peak memory, and one profiled step's busy share;
    then 1 + 3 steps of the same step in f32 (step time only).
 7. train_vs_cpu: one f32 step at full width and 2 layers, ids [1, 1024], on
-   the card and on the CPU (plain path): loss and every gradient.
+   the card (the FMA backward pair) and on the CPU (plain path): loss and
+   every gradient.
 8. library_ops, the direct-call LayerNorm and LM-loss ops (the JAX
    package's examples/pallas_library_ops.py at full width): each of their
    six kernels against its plain version at GPT-2 124M's shapes (LayerNorm
@@ -89,6 +92,11 @@ BF16_TOL = 2e-2         # kernel vs plain, bf16: times max|o| (p rounds to bf16
 LOGITS_TOL = 2e-3       # card vs CPU, or kernel vs dense masked path, f32
                         # logits of ~0.5 scale after 12 layers
 GRAD_F32_TOL = 1e-4     # backward kernels vs plain, f32: times max(1, max|ref|)
+GRAD_BF16_FROB_TOL = 1e-2  # ... bf16, besides BF16_TOL x max|ref|: each (b, h)
+                        # head's ||got - ref||_F / ||ref||_F (causal P[0, 0] = 1
+                        # makes dV[0] = dO[0], so max|ref| is ~50x a typical
+                        # entry, and the max limit alone passes a q or kv tile
+                        # dropped far from the diagonal)
 DW_F32_TOL = 1e-3       # LM-loss f32 dW from bf16 h vs plain: times max|ref| (dl
                         # rounds to bf16 at the same point in both; at BF16_TOL
                         # the labels' -h spikes set max|ref| and hide the
@@ -188,6 +196,15 @@ def phase_env():
 def _f32_tol(ref):
     """Limit of an f32 result of bf16 inputs: F32_TOL x max(1, max|ref|)."""
     return F32_TOL * max(1.0, ref.abs().max().item())
+
+
+def head_rel_frob(got, want):
+    """The largest over the (b, h) heads of [b, s, h, d] tensors of
+    ||got - want||_F / ||want||_F over the head's [s, d] slice."""
+    g, w = got.float(), want.float()
+    err = (g - w).square().sum(dim=(1, 3)).sqrt()
+    ref = w.square().sum(dim=(1, 3)).sqrt()
+    return (err / ref.clamp_min(1e-30)).max().item()
 
 
 def phase_kernels_fwd():
@@ -319,21 +336,32 @@ def phase_kernels_bwd():
     """The FA2 backward's dK/dV and dQ kernels vs their plain version, with
     SDPA's backward (all three gradients at once) as the library yardstick:
     pinned to its flash backend (FA2) for bf16, the default dispatch for f32,
-    both by ``device_ms`` (``sdpa_yardstick``). The kernels are timed by
-    ``cuda_ms`` (``kernel_ms``, as before) and by ``device_ms``
-    (``kernel_device_ms``, like the yardstick). Returns {case: {"dkdv":
-    rec, "dq": rec}}."""
+    both by ``device_ms`` (``sdpa_yardstick``). bf16 takes the tensor-core
+    pair (checked for its route) and its FMA predecessor (the private
+    route="fma") is held to the same limits on the same inputs, each
+    gradient at BF16_TOL x max|ref| and at GRAD_BF16_FROB_TOL by
+    ``head_rel_frob``; f32 takes the FMA pair, at GRAD_F32_TOL. The timed cases time the kernels by ``device_ms``
+    (``kernel_ms``, like the yardstick; the FMA predecessor's beside it) and
+    by ``cuda_ms`` (a warm loop, ``cuda_ms``). Returns {case: {"dkdv": rec,
+    "dq": rec}} for the timed cases."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = [  # (name, b, sq, sk, h, d, causal, dtype)
-        ("train_bf16_causal", 8, 1024, 1024, 12, 64, True, torch.bfloat16),
-        ("train_f32_causal", 8, 1024, 1024, 12, 64, True, torch.float32),
-        ("sq512_sk1024_f32_noncausal", 8, 512, 1024, 12, 64, False, torch.float32),
-        ("d128_bf16_causal", 8, 1024, 1024, 6, 128, True, torch.bfloat16),
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (name, b, sq, sk, h, d, causal, dtype, timed)
+        ("train_bf16_causal", 8, 1024, 1024, 12, 64, True, bf16, True),
+        ("train_f32_causal", 8, 1024, 1024, 12, 64, True, f32, True),
+        ("sq512_sk1024_f32_noncausal", 8, 512, 1024, 12, 64, False, f32, True),
+        ("d128_bf16_causal", 8, 1024, 1024, 6, 128, True, bf16, True),
+        ("d32_bf16_causal", 8, 1024, 1024, 24, 32, True, bf16, False),
+        ("train_bf16_noncausal", 8, 1024, 1024, 12, 64, False, bf16, False),
+        ("ragged200_d32_bf16_causal", 8, 200, 200, 12, 32, True, bf16, False),
+        ("sq77_sk300_d128_bf16_noncausal", 8, 77, 300, 6, 128, False, bf16, False),
+        ("sq128_sk320_bf16_causal", 8, 128, 320, 12, 64, True, bf16, False),
+        ("sq300_sk100_d128_bf16_causal", 8, 300, 100, 6, 128, True, bf16, False),
     ]
     out = {}
-    for name, b, sq, sk, h, d, causal, dtype in cases:
+    for name, b, sq, sk, h, d, causal, dtype, timed in cases:
         q, do = (torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype)
                  for _ in range(2))
         k, v = (torch.randn(b, sk, h, d, device="cuda", generator=gen).to(dtype)
@@ -341,21 +369,42 @@ def phase_kernels_bwd():
         o, lse = fa.flash_attention_plain(q, k, v, causal=causal)
         delta = fa.attention_delta(o, do)
         args = (q, k, v, do, lse, delta, causal)
-        dk, dv = fa.flash_attention_bwd_dkdv(*args)
-        dq = fa.flash_attention_bwd_dq(*args)
-        torch.cuda.synchronize()
+        route = fa.backward_route(dtype, d)
         want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(*args)))
-        got = {"dq": dq, "dk": dk, "dv": dv}
-        err, tol = {}, {}
-        for g in got:
-            scale = want[g].float().abs().max().item()
-            tol[g] = (GRAD_F32_TOL * max(1.0, scale) if dtype == torch.float32
-                      else BF16_TOL * scale)
-            err[g] = (got[g].float() - want[g].float()).abs().max().item()
-            if not err[g] <= tol[g]:
-                raise AssertionError(f"flash backward kernel disagrees with its "
-                                     f"plain version on {name}: |{g}| error "
-                                     f"{err[g]} (tol {tol[g]})")
+        tol = {g: (GRAD_F32_TOL * max(1.0, w.float().abs().max().item()) if dtype == f32
+                   else BF16_TOL * w.float().abs().max().item()) for g, w in want.items()}
+        routes = [route] + (["fma"] if dtype == bf16 else [])
+        frob_tol = GRAD_BF16_FROB_TOL if dtype == bf16 else None
+        err, frob = {}, {}
+        for r in routes:
+            forced = None if r == route else r
+            before = {x: dict(c) for x, c in fa.launches_bwd_by_route.items()}
+            dk, dv = fa.flash_attention_bwd_dkdv(*args, route=forced)
+            dq = fa.flash_attention_bwd_dq(*args, route=forced)
+            torch.cuda.synchronize()
+            moved = {x: {n: c[n] - before[x][n] for n in c}
+                     for x, c in fa.launches_bwd_by_route.items()}
+            if moved[r] != {"dkdv": 1, "dq": 1} or any(
+                    n for x, c in moved.items() if x != r for n in c.values()):
+                raise AssertionError(f"flash backward {name} ({r}) took the routes {moved}")
+            got = {"dq": dq, "dk": dk, "dv": dv}
+            err[r] = {g: (got[g].float() - want[g].float()).abs().max().item() for g in got}
+            frob[r] = {g: head_rel_frob(got[g], want[g]) for g in got}
+            if not all(err[r][g] <= tol[g] and (frob_tol is None or frob[r][g] <= frob_tol)
+                       for g in got):
+                raise AssertionError(f"flash backward kernel ({r}) disagrees with its plain "
+                                     f"version on {name}: errors {err[r]} (tol {tol}), "
+                                     f"head relative Frobenius {frob[r]} (tol {frob_tol})")
+            del dk, dv, dq, got
+        if not timed:
+            emit(phase="kernel_vs_plain", kernel="flash_attention_bwd (dkdv, dq)", case=name,
+                 shape=[b, sq, sk, h, d], causal=causal,
+                 dtype=str(dtype).replace("torch.", ""), kernel_route=route,
+                 max_abs_err=err[route], tol=tol, rel_frob=frob[route], frob_tol=frob_tol,
+                 **({"fma_max_abs_err": err["fma"], "fma_rel_frob": frob["fma"]}
+                    if route != "fma" else {}))
+            del q, k, v, do, o, lse, delta, want
+            continue
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), iters=3)
         yard = sdpa_yardstick(q, k, v, do, causal)
         if name == "train_bf16_causal":
@@ -364,27 +413,34 @@ def phase_kernels_bwd():
         library_ms = yard.get("flash_bwd_ms", yard["default_bwd_ms"])
         rows = {}
         for kernel, fn, grads, products, moved in (
-                ("dkdv", lambda: fa.flash_attention_bwd_dkdv(*args), ("dk", "dv"),
+                ("dkdv", fa.flash_attention_bwd_dkdv, ("dk", "dv"),
                  4, (2, 4, 2)),    # q, dO in; k, v in, dk, dv out; lse, delta
-                ("dq", lambda: fa.flash_attention_bwd_dq(*args), ("dq",),
+                ("dq", fa.flash_attention_bwd_dq, ("dq",),
                  3, (3, 2, 2))):   # q, dO in, dq out; k, v in; lse, delta
             bound_ms, bound_by = attention_bound(b, h, sq, sk, d, causal, dtype,
                                                  products, moved)
             rows[kernel] = dict(
                 case=name, shape=[b, sq, sk, h, d], causal=causal,
-                dtype=str(dtype).replace("torch.", ""),
-                max_abs_err=max(err[g] for g in grads),
-                tol=min(tol[g] for g in grads), kernel_ms=cuda_ms(fn),
-                kernel_device_ms=device_ms(fn), plain_ms=plain_ms, library_ms=library_ms,
-                library_default_ms=yard["default_bwd_ms"], bound_ms=bound_ms,
-                bound_by=bound_by)
+                dtype=str(dtype).replace("torch.", ""), kernel_route=route,
+                max_abs_err=max(err[route][g] for g in grads),
+                tol=min(tol[g] for g in grads),
+                rel_frob=max(frob[route][g] for g in grads), frob_tol=frob_tol,
+                kernel_ms=device_ms(lambda: fn(*args)),
+                cuda_ms=cuda_ms(lambda: fn(*args)), plain_ms=plain_ms,
+                library_ms=library_ms, library_default_ms=yard["default_bwd_ms"],
+                bound_ms=bound_ms, bound_by=bound_by, timing="device_ms")
+            if route != "fma":
+                rows[kernel].update(
+                    fma_max_abs_err=max(err["fma"][g] for g in grads),
+                    fma_rel_frob=max(frob["fma"][g] for g in grads),
+                    fma_kernel_ms=device_ms(lambda: fn(*args, route="fma")))
             emit(phase="kernel_vs_plain", kernel=f"flash_attention_bwd_{kernel}",
                  **rows[kernel], plain="flash_attention_bwd_plain (dq, dk, dv)",
                  library="scaled_dot_product_attention backward (dq, dk, dv), "
                  + ("flash backend" if "flash_bwd_ms" in yard else "default dispatch")
                  + ", device_ms")
         out[name] = rows
-        del q, k, v, do, o, lse, delta, dk, dv, dq, want, got
+        del q, k, v, do, o, lse, delta, want
     torch.cuda.empty_cache()
     return out
 
@@ -426,21 +482,26 @@ def phase_score(model, cpu_model, ids):
 def device_profile(fn, top=5):
     """Run fn under torch.profiler; returns (traced wall ms, summed CUDA
     kernel ms, the ``top`` kernels with the most time). One stream, so
-    kernel times do not overlap."""
+    kernel times do not overlap. A trace without a single kernel record
+    (seen once on the H100 in a call of SDPA's backward) is taken once
+    more, with another call of fn; a second such trace raises."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.device_time / 1e3
-    total = sum(per_kernel.values())
-    if not total > 0:
-        raise AssertionError("the profiler recorded no device time")
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        per_kernel = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.device_time / 1e3
+        total = sum(per_kernel.values())
+        if total > 0:
+            break
+    else:
+        raise AssertionError("the profiler recorded no device time in two traces")
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
     return wall, total, [[name[:80], ms] for name, ms in ranked]
 
@@ -522,16 +583,24 @@ def _launch_counts():
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     return {"flash_attention_fwd": fa.launches,
-            "flash_attention_bwd_dkdv": fa.launches_dkdv,
-            "flash_attention_bwd_dq": fa.launches_dq}
+            "flash_attention_bwd_dkdv": fa.launches_bwd("dkdv"),
+            "flash_attention_bwd_dq": fa.launches_bwd("dq")}
 
 
 def _reset_launch_counts():
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
-    fa.launches = fa.launches_dkdv = fa.launches_dq = 0
+    fa.launches = 0
     for r in fa.launches_by_route:
         fa.launches_by_route[r] = 0
+    for counts in fa.launches_bwd_by_route.values():
+        counts["dkdv"] = counts["dq"] = 0
+
+
+def _bwd_routes():
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    return {r: dict(c) for r, c in fa.launches_bwd_by_route.items()}
 
 
 def _train_engine(cfg, device, seed=0):
@@ -575,6 +644,7 @@ def phase_train(ids):
         timed, step_ms = _steps(engine, ids, labels, steps)
         launches = _launch_counts()
         fwd_routes = dict(fa.launches_by_route)
+        bwd_routes = _bwd_routes()
         peak = torch.cuda.max_memory_allocated()
         losses += timed
         for name, n in launches.items():
@@ -584,6 +654,10 @@ def phase_train(ids):
         if fwd_routes != {"mma": steps * cfg.num_layers, "fma": 0}:
             raise AssertionError(f"the bf16 train steps' flash forwards took {fwd_routes}, "
                                  f"expected all {steps * cfg.num_layers} on the tensor cores")
+        n = steps * cfg.num_layers
+        if bwd_routes != {"mma": {"dkdv": n, "dq": n}, "fma": {"dkdv": 0, "dq": 0}}:
+            raise AssertionError(f"the bf16 train steps' flash backwards took {bwd_routes}, "
+                                 f"expected all {n} of each on the tensor cores")
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"non-finite training loss: {losses}")
         if not losses[-1] < losses[0]:
@@ -601,7 +675,8 @@ def phase_train(ids):
          timed_steps=steps, losses=losses, step_ms=step_ms, step_ms_median=median_ms,
          tokens_per_s=ids.numel() / (median_ms / 1e3),
          launches=launches, launches_per_step={k: v // steps for k, v in launches.items()},
-         flash_fwd_launches_by_route=fwd_routes, max_memory_allocated_bytes=peak)
+         flash_fwd_launches_by_route=fwd_routes, flash_bwd_launches_by_route=bwd_routes,
+         max_memory_allocated_bytes=peak)
     emit(phase="profile", what="train_step", batch=list(ids.shape),
          wall_ms_untraced=median_ms, wall_ms_traced=wall, kernel_ms=kernel_ms,
          device_busy_share=kernel_ms / median_ms, top_kernels=top)
@@ -631,11 +706,15 @@ def phase_train_vs_cpu():
         _reset_launch_counts()
         loss = engine.step(ids, labels).item()
         out[device] = (loss, {n: p.grad.cpu() for n, p in model.named_parameters()},
-                       _launch_counts())
+                       _launch_counts(), _bwd_routes())
         del model, engine
-    (l_gpu, g_gpu, n_gpu), (l_cpu, g_cpu, n_cpu) = out["cuda"], out["cpu"]
+    (l_gpu, g_gpu, n_gpu, r_gpu), (l_cpu, g_cpu, n_cpu, _) = out["cuda"], out["cpu"]
     if set(n_gpu.values()) != {cfg.num_layers} or set(n_cpu.values()) != {0}:
         raise AssertionError(f"launches: card {n_gpu}, CPU {n_cpu}")
+    n = cfg.num_layers
+    if r_gpu != {"mma": {"dkdv": 0, "dq": 0}, "fma": {"dkdv": n, "dq": n}}:
+        raise AssertionError(f"the f32 step's flash backwards took {r_gpu}, expected the "
+                             f"FMA pair")
     loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
     if not loss_err <= TRAIN_LOSS_RTOL:
         raise AssertionError(f"card vs CPU loss {l_gpu} vs {l_cpu}")
@@ -1084,7 +1163,8 @@ def main() -> int:
     phase_probe(per_source["lm_loss"] or None)
 
     # the training main path runs attention in bf16 at [8, 1024, 12, 64] (the
-    # tensor-core forward), scoring in f32 (the FMA forward); the library ops
+    # tensor-core forward and backward pair), scoring in f32 (the FMA
+    # forward); the library ops
     # are reported at the composition's shapes: LayerNorm in f32 (black-listed
     # under O1), the LM loss with bf16 h and an f32 master W (the tensor-core
     # kernels) and in f32 (the FMA kernels)

@@ -1,5 +1,5 @@
 // Flash-attention backward for Hopper (sm_90a), CUDA C++: the FA2 dK/dV and
-// dQ kernels.
+// dQ kernels, on the FP32 units (f32) and on the bf16 tensor cores (bf16).
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
 // `_bwd_dkdv_kernel` and `_bwd_dq_kernel` (pl.pallas_call at lines 242 and
@@ -19,31 +19,75 @@
 //         a sequential grid axis.)
 //   dq:   one CTA per (b*h, 64-row q tile); a loop over kv tiles up to the
 //         diagonal carries dQ in registers.
-// Thread (ty = tid/16, tx = tid%16) of 128 owns 8 rows of the CTA's own tile
-// (kv rows for dkdv, q rows for dq) and, for the S and dP tiles, the 4 columns
-// tx+16j of the other side; the operand of its own side is staged transposed
-// in shared memory so its 8 rows load as two 16-byte words. P and dS go
-// through shared memory once, laid out so the accumulating products read 8
-// consecutive rows the same way. Inputs are read through their strides (the
-// model's q, k, v are views of one fused projection); only the last dim must
-// be contiguous. Ragged sq and sk are masked.
+// Inputs are read through their strides (the model's q, k, v are views of
+// one fused projection); only the last dim must be contiguous. Ragged sq and
+// sk are masked.
 //
 // Bound at the training shape (b=8, h=12, s=1024, d=64, causal): the FA2
 // backward needs 5 products of 2*d*b*h*s*(s+1)/2 = 6.45 GFLOP each (S, dP,
 // dV, dK, dQ: 32.2 GFLOP); split into two kernels, dkdv does 4 (25.8 GFLOP)
 // and dq 3 (19.3 GFLOP), since each recomputes S and dP. On the FP32 units
 // (67 TFLOP/s, no TF32) that is 0.385 ms for dkdv and 0.289 ms for dq; in
-// bf16 on tensor cores (989 TFLOP/s) both would be bound by bytes (~25 us).
-// This first version does every product with FMA on the FP32 units (bf16 is
-// widened to f32 in shared memory), so its floor is the f32 one in both
-// dtypes. What the design does about it: each CTA reads its own tile from
-// device memory once and the other side's tiles once each per loop step,
-// reusing them from shared memory for 64 rows; S, P, dP and dS never leave
-// the chip; the causal skip halves the work; causal CTAs with the most work
-// are launched first. mma.sync and then wgmma with TMA are the next steps.
+// bf16 on tensor cores (989 TFLOP/s) 26 and 20 us, just above the bytes each
+// must move (76 and 64 MB: 23 and 19 us at 3.35 TB/s).
+//
+// Two kernels for each function, picked by dtype (flash_attention.py's
+// backward_route): flash_bwd_{dkdv,dq}_kernel (f32, and bf16 when timed as
+// the predecessor) do every product with FMA on the FP32 units;
+// flash_bwd_{dkdv,dq}_mma_kernel (bf16) run every product on the bf16
+// tensor cores.
+//
+// FMA kernels. Thread (ty = tid/16, tx = tid%16) of 128 owns 8 rows of the
+// CTA's own tile (kv rows for dkdv, q rows for dq) and, for the S and dP
+// tiles, the 4 columns tx+16j of the other side; the operand of its own
+// side is staged transposed in shared memory (bf16 widened to f32) so its 8
+// rows load as two 16-byte words. P and dS go through shared memory once,
+// laid out so the accumulating products read 8 consecutive rows the same
+// way. Their floor is the f32 one in both dtypes. Each CTA reads its own
+// tile from device memory once and the other side's tiles once each per
+// loop step; S, P, dP and dS never leave the chip; the causal skip halves
+// the work; causal CTAs with the most work are launched first.
+//
+// Tensor-core kernels (mma.sync.m16n8k16 bf16 with f32 accumulation, the
+// fragments of mma_sync.cuh). The same grids, splits and causal order; 4
+// warps, each owning 16 rows of the CTA's 64. Nothing of P or dS goes
+// through shared memory: each is repacked from the f32 accumulators into
+// bf16 A fragments (rounded there, where the reference rounds).
+//   - dkdv: the warp computes the transposed tiles S^T = K_w Q^T and dP^T =
+//     V_w dO^T with its K and V rows as A fragments (kept in registers for
+//     d <= 64, reloaded from the staged tile each pass at d = 128), Q and
+//     dO as B through plain ldmatrix ([q][d] is [n][k]). lse and delta are
+//     per column there: staged with each q tile and read as (2tq, 2tq + 1)
+//     pairs. P^T and dS^T become A fragments (kv x q, q the k dim) and dV
+//     += P^T dO, dK += dS^T Q read dO and Q through ldmatrix.trans. Q, dO,
+//     lse and delta come through a cp.async double buffer: the next q tile
+//     is in flight while this one computes. At d = 128 a q tile is taken in
+//     two passes of 32 columns, so S^T and dP^T take 32 registers, not 64,
+//     beside the 128 of the dK and dV accumulators.
+//   - dq: the forward's structure with dP added. Q and dO are A fragments
+//     (in registers for d <= 64, reloaded from the staged tile at d = 128),
+//     lse and delta per row in registers; K and V tiles come through a
+//     cp.async double buffer; S = Q K^T and dP = dO V^T read K and V through
+//     plain ldmatrix; dS becomes A fragments and dQ += dS K reads K through
+//     ldmatrix.trans.
+//   - The scale is folded into log2 units, P = exp2(S scale log2e - lse
+//     log2e) on the MUFU, as in the forward. Only warps whose tile crosses
+//     the diagonal or a ragged edge pay for the mask, and the mask sets P =
+//     0 by index: a zero-filled q row has lse = 0 and would give exp(0) = 1.
+//   - Staged rows carry a 16-byte pad, so the 8 rows of an ldmatrix fall in
+//     distinct banks; rows past sq or sk are zero-filled by cp.async's
+//     src-size. dK, dV and dQ leave through the warp's own rows of a staged
+//     tile in 16-byte stores.
+// Operands are read through their strides, but cp.async needs 16-byte
+// aligned rows: the wrapper hands over a contiguous copy of a view that is
+// not (flash_attention.py `_mma_operand`). Shared memory: six tiles of 64
+// rows of d + 8 bf16 (55 KB at d = 64, 104 KB at d = 128), and for dkdv two
+// 64-float lse and delta rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -54,7 +98,8 @@ constexpr int ROWS = 8;           // own-tile rows per thread
 constexpr int COLS = 4;           // S / dP columns per thread
 constexpr int TSTRIDE = 64 + 4;   // row stride of transposed tiles (16-byte aligned)
 constexpr float NEG_INF = -1e30f;
-static_assert(BQ == 64 && BK == 64, "the thread layout covers 64 x 64 tiles");
+static_assert(BQ == 64 && BK == 64 && NTHREADS == 128,
+              "the thread layouts cover 64 x 64 tiles with 128 threads");
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -427,6 +472,411 @@ cudaError_t dispatch_head_dim(Which which, const Params& p, int head_dim, int bh
   }
 }
 
+// ----------------------------------------------- tensor-core kernels (bf16)
+
+using mma_sync::MPAD;
+
+template <int D>
+constexpr int dkdv_mma_smem_bytes() {
+  // K, V, two Q and two dO tiles; two [lse 64 | delta 64] rows
+  return 6 * 64 * (D + MPAD) * 2 + 2 * 128 * 4;
+}
+
+template <int D>
+constexpr int dq_mma_smem_bytes() {
+  return 6 * 64 * (D + MPAD) * 2;  // Q, dO, two K and two V tiles
+}
+
+// rows r0.. of a [rows, D] bf16 operand with row stride ss -> dst [64][D +
+// MPAD], asynchronously; rows past `rows` as zeros
+template <int D>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           long long ss, int r0, int rows) {
+  mma_sync::stage_rows<64, NTHREADS>(dst, D + MPAD, src, ss, D / 8, r0, rows);
+}
+
+// lse and delta of q rows q0..q0+63 -> dst[0..63], dst[64..127] (one float a
+// thread), asynchronously; rows past sq as zeros
+__device__ __forceinline__ void stage_row_stats(float* dst, const float* lse,
+                                                const float* delta, int q0, int sq) {
+  const int t = threadIdx.x, r = t & 63;
+  const bool ok = q0 + r < sq;
+  mma_sync::cp_async4(mma_sync::smem_u32(dst + t), (t < 64 ? lse : delta) + (ok ? q0 + r : 0),
+                      ok ? 4 : 0);
+}
+
+// The launch bounds name a minimum of one CTA an SM, as the forward's do:
+// with the thread count alone a ptxas heuristic caps the registers and
+// spills (flash_attention_fwd.cu).
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkdv_mma_kernel(const Params p) {
+  using namespace mma_sync;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = D + MPAD;
+  constexpr int KS = D / 16;               // k steps of S^T and dP^T (over d)
+  constexpr int NO = D / 8;                // n8 tiles of dK and dV
+  constexpr bool RESIDENT = D <= 64;       // K_w, V_w fragments stay in registers
+  constexpr int QC = RESIDENT ? BQ : 32;   // q columns a pass
+  constexpr int NJ = QC / 8;               // n8 tiles of S^T a pass
+  extern __shared__ float4 smem4[];
+  bf16* sK = reinterpret_cast<bf16*>(smem4);                    // [BK][LD]
+  bf16* sV = sK + BK * LD;                                      // [BK][LD]
+  bf16* sQ = sV + BK * LD;                                      // 2 x [BQ][LD]
+  bf16* sdO = sQ + 2 * BQ * LD;                                 // 2 x [BQ][LD]
+  float* sStat = reinterpret_cast<float*>(sdO + 2 * BQ * LD);   // 2 x [lse | delta]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int k0 = blockIdx.y * BK;  // causal: the first kv tiles see the most q tiles
+  const int w0 = k0 + warp * 16;   // this warp's first kv row
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* lse = p.lse + static_cast<long long>(bh) * p.sq;
+  const float* delta = p.delta + static_cast<long long>(bh) * p.sq;
+
+  // causal: q tiles that end before this kv tile starts see none of it
+  const int n_q = (p.sq + BQ - 1) / BQ;
+  const int qt0 = p.causal ? k0 / BQ : 0;
+  stage_tile<D>(sK, k, p.k_ss, k0, p.sk);
+  stage_tile<D>(sV, v, p.v_ss, k0, p.sk);
+  if (qt0 < n_q) {
+    stage_tile<D>(sQ, q, p.q_ss, qt0 * BQ, p.sq);
+    stage_tile<D>(sdO, dout, p.do_ss, qt0 * BQ, p.sq);
+    stage_row_stats(sStat, lse, delta, qt0 * BQ, p.sq);
+  }
+  cp_async_commit();
+
+  const unsigned kA = smem_u32(sK + warp * 16 * LD + a_lane(lane, LD));
+  const unsigned vA = smem_u32(sV + warp * 16 * LD + a_lane(lane, LD));
+  const unsigned bl = b_lane(lane, LD) * 2, btl = bt_lane(lane, LD) * 2;
+  unsigned kf[RESIDENT ? KS : 1][4], vf[RESIDENT ? KS : 1][4];
+  if constexpr (RESIDENT) {
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      ldsm_x4(kA + ks * 32, kf[ks]);
+      ldsm_x4(vA + ks * 32, vf[ks]);
+    }
+  }
+  const float scale2 = p.scale * LOG2E;  // exp(s scale - lse) = exp2(s scale2 - lse log2e)
+
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int qt = qt0; qt < n_q; ++qt) {
+    const int q0 = qt * BQ;
+    const int buf = (qt - qt0) & 1;
+    cp_async_wait<0>();  // q tile qt has landed ...
+    __syncthreads();     // ... for every thread; tile qt - 1's buffers are free
+    if (qt + 1 < n_q) {
+      stage_tile<D>(sQ + (buf ^ 1) * BQ * LD, q, p.q_ss, q0 + BQ, p.sq);
+      stage_tile<D>(sdO + (buf ^ 1) * BQ * LD, dout, p.do_ss, q0 + BQ, p.sq);
+      stage_row_stats(sStat + (buf ^ 1) * 128, lse, delta, q0 + BQ, p.sq);
+      cp_async_commit();
+    }
+    const unsigned qb = smem_u32(sQ + buf * BQ * LD);
+    const unsigned dob = smem_u32(sdO + buf * BQ * LD);
+    const float* st = sStat + buf * 128;
+    const bool masked = (p.causal && w0 + 15 > q0) || q0 + BQ > p.sq || w0 + 16 > p.sk;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < BQ; c0 += QC) {
+      // S^T = K_w Q^T and dP^T = V_w dO^T: [16 kv rows, QC q columns]
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        unsigned ka[4], va[4];
+        if constexpr (RESIDENT) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ka[e] = kf[ks][e];
+            va[e] = vf[ks][e];
+          }
+        } else {
+          ldsm_x4(kA + ks * 32, ka);
+          ldsm_x4(vA + ks * 32, va);
+        }
+#pragma unroll
+        for (int np = 0; np < NJ / 2; ++np) {
+          const unsigned off = bl + ((c0 + np * 16) * LD + ks * 16) * 2;
+          unsigned bq[4], bd[4];
+          ldsm_x4(qb + off, bq);
+          mma_bf16(s[2 * np], ka, bq[0], bq[1]);
+          mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
+          ldsm_x4(dob + off, bd);
+          mma_bf16(dp[2 * np], va, bd[0], bd[1]);
+          mma_bf16(dp[2 * np + 1], va, bd[2], bd[3]);
+        }
+      }
+
+      // P^T = exp2(S^T scale2 - lse log2e) and dS^T = P^T (dP^T - delta)
+      // scale, with lse and delta those of the columns (q rows); straight
+      // into bf16 A fragments (kv x q, q the k dim)
+      unsigned pf[QC / 16][4], dsf[QC / 16][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = c0 + j * 8 + 2 * tq;
+        const float2 l2 = *reinterpret_cast<const float2*>(st + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(st + 64 + col);
+        float pr[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse_c = (e & 1) ? l2.y : l2.x;
+          const float delta_c = (e & 1) ? d2.y : d2.x;
+          float pe = exp2_approx(s[j][e] * scale2 - lse_c * LOG2E);
+          if (masked) {
+            const int qpos = q0 + col + (e & 1);
+            const int kpos = w0 + gq + (e >> 1) * 8;
+            if ((p.causal && kpos > qpos) || qpos >= p.sq || kpos >= p.sk) pe = 0.f;
+          }
+          pr[e] = pe;
+          ds[e] = pe * (dp[j][e] - delta_c) * p.scale;
+        }
+        pf[j >> 1][(j & 1) * 2] = pack_bf16(pr[0], pr[1]);
+        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(pr[2], pr[3]);
+        dsf[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+        dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q over the pass's QC q rows
+#pragma unroll
+      for (int kk = 0; kk < QC / 16; ++kk) {
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          const unsigned off = btl + ((c0 + kk * 16) * LD + dn * 16) * 2;
+          unsigned bo[4], bq[4];
+          ldsm_x4_t(dob + off, bo);
+          mma_bf16(dv[2 * dn], pf[kk], bo[0], bo[1]);
+          mma_bf16(dv[2 * dn + 1], pf[kk], bo[2], bo[3]);
+          ldsm_x4_t(qb + off, bq);
+          mma_bf16(dk[2 * dn], dsf[kk], bq[0], bq[1]);
+          mma_bf16(dk[2 * dn + 1], dsf[kk], bq[2], bq[3]);
+        }
+      }
+    }
+  }
+
+  // a causal kv tile past sq ran no q tile: its K and V copies (made by every
+  // thread, into every warp's rows) must land before the rows are reused
+  cp_async_wait<0>();
+  __syncthreads();
+  bf16* dk_out = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  bf16* dv_out = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  store_rows<D>(dk, sK + warp * 16 * LD, LD, dk_out, p.dk_ss, w0, p.sk);
+  store_rows<D>(dv, sV + warp * 16 * LD, LD, dv_out, p.dv_ss, w0, p.sk);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dq_mma_kernel(const Params p) {
+  using namespace mma_sync;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = D + MPAD;
+  constexpr int KS = D / 16;           // k steps of S and dP (over d)
+  constexpr int NO = D / 8;            // n8 tiles of dQ
+  constexpr bool RESIDENT = D <= 64;   // Q, dO fragments stay in registers
+  extern __shared__ float4 smem4[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem4);  // [BQ][LD]
+  bf16* sdO = sQ + BQ * LD;                   // [BQ][LD]
+  bf16* sK = sdO + BQ * LD;                   // 2 x [BK][LD]
+  bf16* sV = sK + 2 * BK * LD;                // 2 x [BK][LD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  const int w0 = q0 + warp * 16;                     // this warp's first q row
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* lse = p.lse + static_cast<long long>(bh) * p.sq;
+  const float* delta = p.delta + static_cast<long long>(bh) * p.sq;
+
+  // causal: kv tiles starting past this tile's last query row contribute nothing
+  int n_kv = (p.sk + BK - 1) / BK;
+  if (p.causal) {
+    const int last_q = min(q0 + BQ, p.sq) - 1;
+    n_kv = min(n_kv, last_q / BK + 1);
+  }
+  stage_tile<D>(sQ, q, p.q_ss, q0, p.sq);
+  stage_tile<D>(sdO, dout, p.do_ss, q0, p.sq);
+  cp_async_commit();
+  stage_tile<D>(sK, k, p.k_ss, 0, p.sk);
+  stage_tile<D>(sV, v, p.v_ss, 0, p.sk);
+  cp_async_commit();
+
+  const unsigned qA = smem_u32(sQ + warp * 16 * LD + a_lane(lane, LD));
+  const unsigned dA = smem_u32(sdO + warp * 16 * LD + a_lane(lane, LD));
+  const unsigned bl = b_lane(lane, LD) * 2, btl = bt_lane(lane, LD) * 2;
+  unsigned qf[RESIDENT ? KS : 1][4], df[RESIDENT ? KS : 1][4];
+  if constexpr (RESIDENT) {
+    cp_async_wait<1>();  // Q and dO have landed (kv tile 0 may still be in flight)
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      ldsm_x4(qA + ks * 32, qf[ks]);
+      ldsm_x4(dA + ks * 32, df[ks]);
+    }
+  }
+  // rows gq and gq + 8: lse in log2 units and delta (0 past sq: masked)
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = w0 + gq + 8 * i;
+    lse2[i] = row < p.sq ? lse[row] * LOG2E : 0.f;
+    dlt[i] = row < p.sq ? delta[row] : 0.f;
+  }
+  const float scale2 = p.scale * LOG2E;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait<0>();  // tile kt has landed ...
+    __syncthreads();     // ... for every thread; tile kt - 1's buffers are free
+    if (kt + 1 < n_kv) {
+      stage_tile<D>(sK + ((kt + 1) & 1) * BK * LD, k, p.k_ss, k0 + BK, p.sk);
+      stage_tile<D>(sV + ((kt + 1) & 1) * BK * LD, v, p.v_ss, k0 + BK, p.sk);
+      cp_async_commit();
+    }
+    const unsigned kb = smem_u32(sK + (kt & 1) * BK * LD);
+    const unsigned vb = smem_u32(sV + (kt & 1) * BK * LD);
+
+    // S = Q K^T and dP = dO V^T: [16 q rows, 64 kv columns]
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      unsigned qa[4], da[4];
+      if constexpr (RESIDENT) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[e] = qf[ks][e];
+          da[e] = df[ks][e];
+        }
+      } else {
+        ldsm_x4(qA + ks * 32, qa);
+        ldsm_x4(dA + ks * 32, da);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        const unsigned off = bl + (np * 16 * LD + ks * 16) * 2;
+        unsigned bk[4], bv[4];
+        ldsm_x4(kb + off, bk);
+        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+        ldsm_x4(vb + off, bv);
+        mma_bf16(dp[2 * np], da, bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], da, bv[2], bv[3]);
+      }
+    }
+
+    // P = exp2(S scale2 - lse log2e), dS = P (dP - delta) scale, straight
+    // into bf16 A fragments (q x kv, kv the k dim)
+    const bool masked = (p.causal && k0 + BK - 1 > w0) || k0 + BK > p.sk || w0 + 16 > p.sq;
+    unsigned dsf[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pe = exp2_approx(s[j][e] * scale2 - lse2[e >> 1]);
+        if (masked) {
+          const int kpos = k0 + j * 8 + 2 * tq + (e & 1);
+          const int qpos = w0 + gq + (e >> 1) * 8;
+          if ((p.causal && kpos > qpos) || kpos >= p.sk || qpos >= p.sq) pe = 0.f;
+        }
+        ds[e] = pe * (dp[j][e] - dlt[e >> 1]) * p.scale;
+      }
+      dsf[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dQ[16, D] += dS[16, 64] K[64, D]
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        unsigned bk[4];
+        ldsm_x4_t(kb + btl + (kk * 16 * LD + dn * 16) * 2, bk);
+        mma_bf16(acc[2 * dn], dsf[kk], bk[0], bk[1]);
+        mma_bf16(acc[2 * dn + 1], dsf[kk], bk[2], bk[3]);
+      }
+    }
+  }
+
+  bf16* dq_out = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  store_rows<D>(acc, sQ + warp * 16 * LD, LD, dq_out, p.dq_ss, w0, p.sq);
+}
+
+template <int D>
+cudaError_t launch_mma(Which which, const Params& p, int bh, cudaStream_t stream) {
+  if (which == Which::kDkdv) {
+    constexpr int smem = dkdv_mma_smem_bytes<D>();
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(bh, (p.sk + BK - 1) / BK);
+    flash_bwd_dkdv_mma_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+  } else {
+    constexpr int smem = dq_mma_smem_bytes<D>();
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(bh, (p.sq + BQ - 1) / BQ);
+    flash_bwd_dq_mma_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+// The tensor-core route: every bf16 operand and output 16-byte aligned, with
+// batch, seq and head strides multiples of 8 elements (cp.async and the
+// epilogue move 16-byte pieces); else cudaErrorInvalidValue.
+int run_mma(Which which, const Params& p, int head_dim, int batch, void* stream) {
+  const int bh = batch * p.heads;
+  if (bh == 0 || p.sq == 0 || p.sk == 0) return static_cast<int>(cudaErrorInvalidValue);
+  using mma_sync::aligned16;
+  const bool ok =
+      aligned16(p.q, {p.q_sb, p.q_ss, p.q_sh}) && aligned16(p.k, {p.k_sb, p.k_ss, p.k_sh}) &&
+      aligned16(p.v, {p.v_sb, p.v_ss, p.v_sh}) &&
+      aligned16(p.dout, {p.do_sb, p.do_ss, p.do_sh}) &&
+      (which == Which::kDkdv ? aligned16(p.dk, {p.dk_sb, p.dk_ss, p.dk_sh}) &&
+                                   aligned16(p.dv, {p.dv_sb, p.dv_ss, p.dv_sh})
+                             : aligned16(p.dq, {p.dq_sb, p.dq_ss, p.dq_sh}));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32: return static_cast<int>(launch_mma<32>(which, p, bh, st));
+    case 64: return static_cast<int>(launch_mma<64>(which, p, bh, st));
+    case 128: return static_cast<int>(launch_mma<128>(which, p, bh, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 int run(Which which, const Params& p, int dtype, int head_dim, int batch, void* stream) {
   const int bh = batch * p.heads;
   if (bh == 0 || p.sq == 0 || p.sk == 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -495,4 +945,34 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
   p.dq = dq;
   p.dq_sb = strides[12]; p.dq_ss = strides[13]; p.dq_sh = strides[14];
   return run(Which::kDq, p, dtype, head_dim, batch, stream);
+}
+
+// The tensor-core pair: bf16 operands and outputs as the two entries above
+// take them (no dtype argument), aligned as run_mma says.
+extern "C" int flash_attention_bwd_dkdv_mma(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* lse,
+                                            const void* delta, void* dk, void* dv,
+                                            int head_dim, int batch, int heads, int sq,
+                                            int sk, const long long* strides, float scale,
+                                            int causal, void* stream) {
+  Params p = common(q, k, v, dout, lse, delta, heads, sq, sk, strides, strides + 3,
+                    strides + 6, strides + 9, scale, causal);
+  p.dk = dk;
+  p.dv = dv;
+  p.dk_sb = strides[12]; p.dk_ss = strides[13]; p.dk_sh = strides[14];
+  p.dv_sb = strides[15]; p.dv_ss = strides[16]; p.dv_sh = strides[17];
+  return run_mma(Which::kDkdv, p, head_dim, batch, stream);
+}
+
+extern "C" int flash_attention_bwd_dq_mma(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse,
+                                          const void* delta, void* dq, int head_dim,
+                                          int batch, int heads, int sq, int sk,
+                                          const long long* strides, float scale, int causal,
+                                          void* stream) {
+  Params p = common(q, k, v, dout, lse, delta, heads, sq, sk, strides, strides + 3,
+                    strides + 6, strides + 9, scale, causal);
+  p.dq = dq;
+  p.dq_sb = strides[12]; p.dq_ss = strides[13]; p.dq_sh = strides[14];
+  return run_mma(Which::kDq, p, head_dim, batch, stream);
 }

@@ -68,8 +68,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <initializer_list>
-
 #include "mma_sync.cuh"
 
 namespace {
@@ -311,11 +309,9 @@ cudaError_t dispatch_head_dim(const Params& p, int head_dim, int bh, cudaStream_
 
 // ------------------------------------------------ tensor-core kernel (bf16)
 
-constexpr int MPAD = 8;  // bf16 a staged row of padding (16 bytes)
-
 template <int D>
 constexpr int mma_smem_bytes() {
-  return (BQ + 4 * BK) * (D + MPAD) * 2;  // Q, then two K and two V tiles
+  return (BQ + 4 * BK) * (D + mma_sync::MPAD) * 2;  // Q, then two K and two V tiles
 }
 
 // The launch bounds name a minimum of one CTA an SM: with the maximum
@@ -350,11 +346,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_mma_kernel(const Params
   // rows r0.. of a [rows, D] operand with row stride ss -> dst [64][LD],
   // asynchronously; rows past `rows` as zeros
   auto stage = [&](bf16* dst, const bf16* src, long long ss, int r0, int rows) {
-    for (int idx = tid; idx < 64 * VEC; idx += NTHREADS) {
-      const int r = idx / VEC, c = (idx - r * VEC) * 8;
-      const bool ok = r0 + r < rows;
-      cp_async16(smem_u32(dst + r * LD + c), src + (ok ? r0 + r : 0) * ss + c, ok ? 16 : 0);
-    }
+    stage_rows<64, NTHREADS>(dst, LD, src, ss, VEC, r0, rows);
   };
 
   int n_kv = (p.sk + BK - 1) / BK;
@@ -371,14 +363,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_mma_kernel(const Params
   __syncthreads();
   unsigned qf[KS][4];
   {
-    const unsigned a = smem_u32(sQ + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
+    const unsigned a = smem_u32(sQ + warp * 16 * LD + a_lane(lane, LD));
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) ldsm_x4(a + ks * 32, qf[ks]);
   }
 
   // ldmatrix lane offsets (bytes) inside a K or V tile
-  const unsigned k_lane = (((lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8) * 2;
-  const unsigned v_lane = (((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8) * 2;
+  const unsigned k_lane = b_lane(lane, LD) * 2;
+  const unsigned v_lane = bt_lane(lane, LD) * 2;
   const float scale2 = p.scale * LOG2E;  // s in log2 units: exp(s - m) = exp2(s2 - m2)
 
   float oacc[NO][4];
@@ -492,21 +484,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_mma_kernel(const Params
     li[i] = t == 0.f ? 1.f : t;
     inv[i] = __fdividef(1.f, li[i]);
   }
-  // stage this warp's 16 rows of o in bf16 over its own rows of the Q tile
-  // (no other warp reads them), then write them out 16 bytes a lane
+  // o in bf16 out through this warp's own rows of the Q tile (no other warp
+  // reads them)
 #pragma unroll
   for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<unsigned*>(sQ + (warp * 16 + gq + 8 * i) * LD + n * 8 + 2 * tq) =
-          pack_bf16(oacc[n][2 * i] * inv[i], oacc[n][2 * i + 1] * inv[i]);
-  __syncwarp();
-  for (int idx = lane; idx < 16 * VEC; idx += 32) {
-    const int r = idx / VEC, c = (idx - r * VEC) * 8;
-    if (w0 + r < p.sq)
-      *reinterpret_cast<uint4*>(o + (w0 + r) * p.o_ss + c) =
-          *reinterpret_cast<const uint4*>(sQ + (warp * 16 + r) * LD + c);
-  }
+    for (int e = 0; e < 4; ++e) oacc[n][e] *= inv[e >> 1];
+  store_rows<D>(oacc, sQ + warp * 16 * LD, LD, o, p.o_ss, w0, p.sq);
   if (tq == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -526,13 +510,6 @@ cudaError_t launch_mma(const Params& p, int bh, cudaStream_t stream) {
   const dim3 grid(bh, (p.sq + BQ - 1) / BQ);
   flash_fwd_mma_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-bool aligned16(const void* ptr, std::initializer_list<long long> strides) {
-  if (reinterpret_cast<unsigned long long>(ptr) % 16) return false;
-  for (long long s : strides)
-    if (s % 8) return false;  // 8 bf16 = 16 bytes
-  return true;
 }
 
 }  // namespace
@@ -586,6 +563,7 @@ extern "C" int flash_attention_fwd_mma(const void* q, const void* k, const void*
                                        float scale, int causal, void* stream) {
   const int bh = batch * heads;
   if (bh == 0 || sq == 0) return static_cast<int>(cudaSuccess);
+  using mma_sync::aligned16;
   if (sk == 0 || !aligned16(q, {q_sb, q_ss, q_sh}) || !aligned16(k, {k_sb, k_ss, k_sh}) ||
       !aligned16(v, {v_sb, v_ss, v_sh}) || !aligned16(o, {o_sb, o_ss, o_sh}))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -518,14 +518,14 @@ bool shape_ok(int n, int v, int hdim) {
 
 constexpr int MB = 32;          // own rows a CTA: 2 warp rows of 16
 constexpr int OB = 32;          // other rows a staged tile: 4 warp columns of 8 in S
-constexpr int PAD = 8;          // bf16 a row of padding (16 bytes)
-constexpr int DLD = OB + PAD;   // row stride of the dl tile (bf16)
+using mma_sync::MPAD;           // bf16 a row of padding (16 bytes)
+constexpr int DLD = OB + MPAD;  // row stride of the dl tile (bf16)
 constexpr int KQ = 4;           // hidden quarters of the S product
 constexpr int PST = OB + 8;     // row stride of the S partials (f32)
 constexpr int MAX_SMEM = 232448;
 
 int mma_smem_bytes(int hdim, int stages) {
-  return ((1 + stages) * MB * (hdim + PAD) + MB * DLD) * 2 + KQ * MB * PST * 4;
+  return ((1 + stages) * MB * (hdim + MPAD) + MB * DLD) * 2 + KQ * MB * PST * 4;
 }
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
@@ -559,7 +559,7 @@ template <bool DW, typename TO, int HC, int ST>
 __global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
   using namespace mma_sync;
   extern __shared__ float4 smem4[];
-  const int ld = p.hdim + PAD;
+  const int ld = p.hdim + MPAD;
   __nv_bfloat16* s_own = reinterpret_cast<__nv_bfloat16*>(smem4);   // [MB][ld]
   __nv_bfloat16* s_oth = s_own + MB * ld;                           // ST x [OB][ld]
   float* s_part = reinterpret_cast<float*>(s_oth + ST * OB * ld);   // [KQ][MB][PST]
@@ -578,12 +578,7 @@ __global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
 
   // rows r0.. of src (rows past `rows` as zeros) -> dst [32][ld], asynchronously
   auto stage = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0, int rows) {
-    for (int idx = tid; idx < MB * vecs; idx += NT) {
-      const int r = idx / vecs, c = (idx - r * vecs) * 8;
-      const bool ok = r0 + r < rows;
-      const __nv_bfloat16* s = src + static_cast<long long>(ok ? r0 + r : 0) * p.hdim + c;
-      cp_async16(smem_u32(dst + r * ld + c), s, ok ? 16 : 0);
-    }
+    stage_rows<MB, NT>(dst, ld, src, p.hdim, vecs, r0, rows);
   };
 
   // dh: the dl row is a token, its lse, g and label load once
@@ -611,14 +606,14 @@ __global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
 
   // ldmatrix lane addresses (bytes)
   const unsigned own_a =        // S: A, own rows lane & 15 (+16), hidden quarter kq
-      smem_u32(s_own + (lane & 15) * ld + kq * kw + (lane >> 4) * 8);
-  const unsigned dl_a = smem_u32(s_dl + (lane & 15) * DLD + (lane >> 4) * 8);
+      smem_u32(s_own + a_lane(lane, ld) + kq * kw);
+  const unsigned dl_a = smem_u32(s_dl + a_lane(lane, DLD));
   const unsigned oth0 = smem_u32(s_oth);
   const unsigned buf_bytes = OB * ld * 2;
   const unsigned oth_s =        // S: B, two n8 tiles of other rows nh * 16 ..
-      ((nh * 16 + (lane >> 4) * 8 + (lane & 7)) * ld + kq * kw + ((lane >> 3) & 1) * 8) * 2;
+      (nh * 16 * ld + b_lane(lane, ld) + kq * kw) * 2;
   const unsigned oth_p =        // product: B (transposed), other rows = k
-      (((lane & 7) + ((lane >> 3) & 1) * 8) * ld + c0 + warp * 16 + (lane >> 4) * 8) * 2;
+      (bt_lane(lane, ld) + c0 + warp * 16) * 2;
 
   stage(s_own, p.own, a0, na);
   cp_async_commit();
@@ -803,7 +798,7 @@ LM_FWD_KERNEL(lm_fwd_full_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 constexpr int FM = 128;        // h rows a CTA: 4 warp rows of 32
 constexpr int FN = 128;        // W rows (vocab columns) a tile: 2 warp columns of 64
 constexpr int FK = 64;         // hidden columns a stage
-constexpr int FLD = FK + PAD;  // row stride (bf16) of a staged slice
+constexpr int FLD = FK + MPAD;  // row stride (bf16) of a staged slice
 constexpr int FSTAGES = 3;
 constexpr int FWD_MMA_SMEM = FSTAGES * (FM + FN) * FLD * 2;  // 110,592 bytes
 constexpr int FWD_MMA_CTAS = 2112;  // 8 waves of 2 CTAs on each of 132 SMs
@@ -881,8 +876,8 @@ __device__ __forceinline__ void fwd_mma_body(const FwdMmaParams& p) {
       for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
 
   // ldmatrix lane offsets (bf16 elements) inside a stage
-  const int a_off = (wm * 32 + (lane & 15)) * FLD + (lane >> 4) * 8;
-  const int b_off = (FM + wn * 64 + (lane >> 4) * 8 + (lane & 7)) * FLD + ((lane >> 3) & 1) * 8;
+  const int a_off = wm * 32 * FLD + a_lane(lane, FLD);
+  const int b_off = (FM + wn * 64) * FLD + b_lane(lane, FLD);
 
 #pragma unroll
   for (int g = 0; g < FSTAGES - 1; ++g) {
@@ -1060,8 +1055,8 @@ extern "C" int lm_loss_fwd_mma_splits(int n, int v) {
 extern "C" int lm_loss_fwd_mma(const void* h, const void* w, const void* labels, void* loss,
                                void* lse, void* part, int n, int v, int hdim, int v_true,
                                int splits, int variant, void* stream) {
-  if (!shape_ok(n, v, hdim) || splits < 1 || (reinterpret_cast<unsigned long long>(h) |
-                                               reinterpret_cast<unsigned long long>(w)) % 16)
+  if (!shape_ok(n, v, hdim) || splits < 1 || !mma_sync::aligned16(h, {hdim}) ||
+      !mma_sync::aligned16(w, {hdim}))
     return static_cast<int>(cudaErrorInvalidValue);
   void (*kernel)(const FwdMmaParams) = variant == 0   ? lm_fwd_mma_full
                                        : variant == 1 ? lm_fwd_mma_bare

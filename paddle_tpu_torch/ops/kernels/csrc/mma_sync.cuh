@@ -1,7 +1,9 @@
 // Building blocks of the tensor-core kernels (sm_90a), shared by
-// flash_attention_fwd.cu and lm_loss.cu: cp.async copies into shared memory,
-// ldmatrix loads of 8 x 8 bf16 blocks, the bf16 mma.sync.m16n8k16 product
-// with f32 accumulation, and the MUFU exp2.
+// flash_attention_fwd.cu, flash_attention_bwd.cu and lm_loss.cu: cp.async
+// copies into shared memory and the tile stager built on them, ldmatrix
+// loads of 8 x 8 bf16 blocks and their lane offsets, the bf16
+// mma.sync.m16n8k16 product with f32 accumulation, the MUFU exp2, a warp's
+// 16-row bf16 epilogue, and the host's alignment check of a staged operand.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * gq + tq):
 //   A (16 x 16, row): a0 = (row gq, k 2tq..+1), a1 = (gq + 8, 2tq..+1),
@@ -22,7 +24,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <initializer_list>
+
 namespace mma_sync {
+
+// a staged bf16 row's padding: 8 elements (16 bytes), so the eight rows an
+// ldmatrix reads start in different shared-memory banks
+constexpr int MPAD = 8;
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -30,6 +38,11 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 // 16 bytes global -> shared; src_bytes = 0 writes 16 zero bytes
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+// 4 bytes global -> shared (through L1); src_bytes = 0 writes 4 zero bytes
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -67,6 +80,69 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ldmatrix.x4 lane offsets (elements) in a row-major tile of row stride ld,
+// as the fragment layout above has them: the A fragment of rows 0..15 of an
+// [m][k] tile; the B fragments of two n8 tiles (rows 0..15) of an [n][k]
+// tile; the same of a [k][n] tile through ldsm_x4_t
+__device__ __forceinline__ int a_lane(int lane, int ld) {
+  return (lane & 15) * ld + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int b_lane(int lane, int ld) {
+  return ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int bt_lane(int lane, int ld) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
+}
+
+// rows r0 .. r0 + ROWS - 1 of a bf16 operand of `vecs` 16-byte pieces a row
+// and row stride ss -> dst [ROWS][ld], by the block's NT threads,
+// asynchronously (the caller commits); rows past `rows` as zeros
+template <int ROWS, int NT>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld,
+                                           const __nv_bfloat16* src, long long ss, int vecs,
+                                           int r0, int rows) {
+  for (int idx = threadIdx.x; idx < ROWS * vecs; idx += NT) {
+    const int r = idx / vecs, c = (idx - r * vecs) * 8;
+    const bool ok = r0 + r < rows;
+    cp_async16(smem_u32(dst + r * ld + c), src + (ok ? r0 + r : 0) * ss + c, ok ? 16 : 0);
+  }
+}
+
+// A warp's f32 [16, D] accumulator (the C fragments of its D / 8 n8 tiles),
+// rounded to bf16, out to rows w0.. of a [rows, D] output of row stride ss
+// in 16-byte stores, through `stage`: 16 staged rows of stride ld that no
+// other warp reads
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], __nv_bfloat16* stage,
+                                           int ld, __nv_bfloat16* out, long long ss, int w0,
+                                           int rows) {
+  constexpr int VEC = D / 8;  // 16-byte pieces a row
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<unsigned*>(stage + (gq + 8 * i) * ld + n * 8 + 2 * tq) =
+          pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+  __syncwarp();
+  for (int idx = lane; idx < 16 * VEC; idx += 32) {
+    const int r = idx / VEC, c = (idx - r * VEC) * 8;
+    if (w0 + r < rows)
+      *reinterpret_cast<uint4*>(out + (w0 + r) * ss + c) =
+          *reinterpret_cast<const uint4*>(stage + r * ld + c);
+  }
+}
+
+// host: a bf16 operand that is copied in 16-byte pieces starts 16-byte
+// aligned, and each of its strides is a multiple of 8 elements
+inline bool aligned16(const void* ptr, std::initializer_list<long long> strides) {
+  if (reinterpret_cast<unsigned long long>(ptr) % 16) return false;
+  for (long long s : strides)
+    if (s % 8) return false;
+  return true;
 }
 
 constexpr float LOG2E = 1.4426950408889634f;

@@ -5,24 +5,24 @@ paddle_tpu/ops/pallas/flash_attention.py).
 ``[b, s, h, d]`` layout, as the JAX entry points do, and are differentiable
 in q, k, v (and, for the second, through both outputs: the lse cotangent
 folds into ``delta``, as ring attention needs). On CUDA tensors the forward
-launches a kernel of ``csrc/flash_attention_fwd.cu`` and the backward the
-two kernels of ``csrc/flash_attention_bwd.cu`` (dK/dV, then dQ), or they
+launches a kernel of ``csrc/flash_attention_fwd.cu`` and the backward two
+kernels of ``csrc/flash_attention_bwd.cu`` (dK/dV, then dQ), or they
 raise; on CPU tensors they take the plain versions, the same arithmetic in
 plain PyTorch. ``delta = rowsum(dO * O) - g_lse`` is plain PyTorch on both
 devices, as the JAX package computes it outside its kernels.
 
-The forward has two kernels, picked by dtype (``forward_route``): bf16
-takes the tensor-core kernel (``"mma"``), f32 the FMA kernel on the FP32
-units (``"fma"``). The tensor-core kernel copies 16-byte pieces, so a view
-whose start or strides are not 16-byte aligned is handed over as an aligned
-contiguous copy (``_mma_operand``; the fused qkv projection's views are
-aligned and are read in place).
+Each function has two kernels, picked by dtype (``forward_route``,
+``backward_route``): bf16 takes the tensor-core kernels (``"mma"``), f32
+the FMA kernels on the FP32 units (``"fma"``). The tensor-core kernels copy
+16-byte pieces, so a view whose start or strides are not 16-byte aligned is
+handed over as an aligned contiguous copy (``_mma_operand``; the fused qkv
+projection's views are aligned and are read in place).
 
-``launches``, ``launches_dkdv`` and ``launches_dq`` count kernel launches of
-the forward (either kernel) and of the two backward kernels;
-``launches_by_route`` counts forward launches by kernel. Blocks are fixed by
-the kernels (64 x 64 tiles); the TPU package's block autotune has no
-counterpart.
+``launches`` counts the forward's kernel launches (either kernel) and
+``launches_by_route`` the same by kernel; ``launches_bwd_by_route[route]``
+counts the backward's, ``"dkdv"`` and ``"dq"`` apart (``launches_bwd``
+sums a function's over the routes). Blocks are fixed by the kernels
+(64 x 64 tiles); the TPU package's block autotune has no counterpart.
 """
 from __future__ import annotations
 
@@ -35,9 +35,9 @@ from ._common import NEG_INF, pick_block
 
 #: kernel launches since import (chip_smoke.py resets and reads them)
 launches = 0        # forward, either kernel
-launches_dkdv = 0   # backward, dK and dV
-launches_dq = 0     # backward, dQ
 launches_by_route = {"mma": 0, "fma": 0}   # forward, by kernel
+launches_bwd_by_route = {"mma": {"dkdv": 0, "dq": 0},   # backward, by kernel
+                         "fma": {"dkdv": 0, "dq": 0}}
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,6 +59,12 @@ _SIGNATURES = {
     "flash_attention_bwd_dq": ("flash_attention_bwd",
                                [_PTR] * 7 + [_INT] * 6
                                + [_STRIDES, ctypes.c_float, _INT, _PTR]),
+    "flash_attention_bwd_dkdv_mma": ("flash_attention_bwd",
+                                     [_PTR] * 8 + [_INT] * 5
+                                     + [_STRIDES, ctypes.c_float, _INT, _PTR]),
+    "flash_attention_bwd_dq_mma": ("flash_attention_bwd",
+                                   [_PTR] * 7 + [_INT] * 5
+                                   + [_STRIDES, ctypes.c_float, _INT, _PTR]),
 }
 
 
@@ -89,6 +95,20 @@ def forward_route(dtype, head_dim: int) -> str:
     if dtype == torch.float32:
         return "fma"
     raise TypeError(f"flash_attention takes float32 or bfloat16, got {dtype}")
+
+
+def backward_route(dtype, head_dim: int) -> str:
+    """The backward pair's kernels (dK/dV and dQ) for q, k, v and dO of
+    ``dtype`` and ``head_dim``: ``"mma"`` (the bf16 tensor-core kernels) for
+    bfloat16, ``"fma"`` (FMA on the FP32 units) for float32: the forward's
+    table. Picked by dtype alone, never by failure; other head dims raise
+    ValueError, other dtypes TypeError."""
+    return forward_route(dtype, head_dim)
+
+
+def launches_bwd(kernel: str) -> int:
+    """Launches of the backward's ``kernel`` ("dkdv" or "dq") on either route."""
+    return sum(counts[kernel] for counts in launches_bwd_by_route.values())
 
 
 # ------------------------------------------------------------ plain versions
@@ -217,6 +237,16 @@ def _mma_operand(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def _forced(route, dtype):
+    """A route forced by its caller, checked: "fma" at either dtype, "mma"
+    only at bf16 (the tensor-core kernels take nothing else)."""
+    if route not in ("mma", "fma"):
+        raise ValueError(f"route must be 'mma' or 'fma', got {route!r}")
+    if route == "mma" and dtype != torch.bfloat16:
+        raise ValueError(f"the tensor-core kernels take bfloat16 inputs, got {dtype}")
+    return route
+
+
 def _launch(q, k, v, causal, sm_scale, route=None):
     """(o, lse) from the forward kernel of ``forward_route`` on CUDA tensors.
     ``route`` forces a kernel: chip_smoke.py and the card tests time and
@@ -225,12 +255,7 @@ def _launch(q, k, v, causal, sm_scale, route=None):
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if route is None:
-        route = forward_route(q.dtype, d)
-    elif route not in launches_by_route:
-        raise ValueError(f"route must be 'mma' or 'fma', got {route!r}")
-    elif route == "mma" and q.dtype != torch.bfloat16:
-        raise ValueError("the tensor-core forward takes bfloat16 q, k, v")
+    route = forward_route(q.dtype, d) if route is None else _forced(route, q.dtype)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if route == "mma":
@@ -262,14 +287,27 @@ def _check_bwd(q, k, v, do, lse, delta):
                              f"{sq}] tensor on {q.device}")
 
 
-def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, sm_scale):
+def _launch_bwd(kernel, q, k, v, do, lse, delta, outs, causal, sm_scale, route):
+    """One backward kernel ("dkdv" or "dq") of ``backward_route`` on CUDA
+    tensors, writing ``outs``. ``route`` forces a kernel: chip_smoke.py and
+    the card tests check and time the FMA kernels at bf16 with "fma"; no
+    path passes it."""
     _check_bwd(q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
+    route = backward_route(q.dtype, d) if route is None else _forced(route, q.dtype)
+    name = f"flash_attention_bwd_{kernel}"
+    dtype_arg = ()
+    if route == "mma":
+        q, k, v, do = (_mma_operand(x) for x in (q, k, v, do))
+        name += "_mma"
+    else:
+        dtype_arg = (_DTYPE_CODES[q.dtype],)
     strides = (_LL * 18)(*_strides(q, k, v, do, *outs))
     _call(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-          *(x.data_ptr() for x in outs), _DTYPE_CODES[q.dtype], d, b, h, sq,
+          *(x.data_ptr() for x in outs), *dtype_arg, d, b, h, sq,
           k.shape[1], strides, float(sm_scale), int(bool(causal)))
+    launches_bwd_by_route[route][kernel] += 1
 
 
 def _scale(q, sm_scale):
@@ -277,36 +315,31 @@ def _scale(q, sm_scale):
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = False,
-                             sm_scale: float | None = None):
-    """(dk, dv) of the FA2 backward: the CUDA kernel on CUDA tensors (dO is
-    copied to contiguous first if its last dim is strided), the plain version
-    on CPU tensors. Shapes as ``flash_attention_bwd_plain``."""
-    global launches_dkdv
+                             sm_scale: float | None = None, route=None):
+    """(dk, dv) of the FA2 backward: the CUDA kernel of ``backward_route`` on
+    CUDA tensors (dO is copied to contiguous first if its last dim is
+    strided), the plain version on CPU tensors. Shapes as
+    ``flash_attention_bwd_plain``. ``route`` is private (``_launch_bwd``)."""
     sm_scale = _scale(q, sm_scale)
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale)[1:]
     do = do if do.stride(-1) == 1 else do.contiguous()
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("flash_attention_bwd_dkdv", q, k, v, do, lse, delta, (dk, dv),
-                causal, sm_scale)
-    launches_dkdv += 1
+    _launch_bwd("dkdv", q, k, v, do, lse, delta, (dk, dv), causal, sm_scale, route)
     return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
-                           sm_scale: float | None = None):
-    """dq of the FA2 backward: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors."""
-    global launches_dq
+                           sm_scale: float | None = None, route=None):
+    """dq of the FA2 backward: the CUDA kernel of ``backward_route`` on CUDA
+    tensors, the plain version on CPU tensors. ``route`` is private."""
     sm_scale = _scale(q, sm_scale)
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale)[0]
     do = do if do.stride(-1) == 1 else do.contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("flash_attention_bwd_dq", q, k, v, do, lse, delta, (dq,), causal,
-                sm_scale)
-    launches_dq += 1
+    _launch_bwd("dq", q, k, v, do, lse, delta, (dq,), causal, sm_scale, route)
     return dq
 
 

@@ -28,6 +28,13 @@ bf16 inputs are exact in f32 and both versions sum the products in f32, so
 only the order differs (a dropped kv or vocab tile moves them by far more);
 the flash o at 2e-2 x max|o|. Their FMA predecessors, reached with the
 private ``route="fma"``, are held to the same limits on the same inputs.
+The FA2 backward pair at bf16 takes the tensor-core kernels; they and
+their FMA predecessors are held to the plain version at 2e-2 x max|ref| and
+at 1e-2 in each (b, h) head's relative Frobenius norm (causal P[0, 0] = 1
+makes dV[0] = dO[0], so max|ref| is ~50x a typical entry, and the max limit
+alone passes a q or kv tile dropped far from the diagonal), to their
+route's launch counts, to the same bits twice, and to HMMA in their SASS
+with no spills.
 """
 import numpy as np
 import pytest
@@ -76,6 +83,30 @@ def test_flash_kernel_matches_plain(cuda, dtype, causal, sq, sk, d):
     assert (lse - plse).abs().max().item() <= 1e-4
 
 
+def _launch_counts():
+    """Launches of the flash forward, dK/dV and dQ, each on either route."""
+    return fa.launches, fa.launches_bwd("dkdv"), fa.launches_bwd("dq")
+
+
+def _bwd_routes():
+    return {r: dict(c) for r, c in fa.launches_bwd_by_route.items()}
+
+
+def _bwd_moved(before):
+    return {r: {n: fa.launches_bwd_by_route[r][n] - before[r][n] for n in ("dkdv", "dq")}
+            for r in before}
+
+
+def _head_rel_frob(got, ref):
+    """max over the (b, h) heads of ||got - ref||_F / ||ref||_F ([b, s, h, d])."""
+    g, r = got.float(), ref.float()
+    err = (g - r).square().sum(dim=(1, 3)).sqrt()
+    return (err / r.square().sum(dim=(1, 3)).sqrt().clamp_min(1e-30)).max().item()
+
+
+BF16_GRAD_FROB_TOL = 1e-2
+
+
 def _bwd_inputs(cuda, dt, b, sq, sk, h, d, causal, seed):
     """q, k, v, dO and the forward's lse and delta (from the plain version)."""
     rng = np.random.RandomState(seed)
@@ -96,13 +127,17 @@ def _bwd_inputs(cuda, dt, b, sq, sk, h, d, causal, seed):
     ("bfloat16", True, 300, 100, 128),   # sq > sk
 ])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, causal, sq, sk, d):
+    """Each wrapper launches once, on the route of its dtype (bf16 the
+    tensor-core kernels, f32 the FMA ones)."""
     dt = getattr(torch, dtype)
     q, k, v, do, lse, delta = _bwd_inputs(cuda, dt, 2, sq, sk, 3, d, causal, seed=7)
-    n_dkdv, n_dq = fa.launches_dkdv, fa.launches_dq
+    route = fa.backward_route(dt, d)
+    before = _bwd_routes()
     dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=causal)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
     torch.cuda.synchronize()
-    assert (fa.launches_dkdv, fa.launches_dq) == (n_dkdv + 1, n_dq + 1)
+    assert _bwd_moved(before) == {r: {"dkdv": int(r == route), "dq": int(r == route)}
+                                  for r in before}
     want = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=causal)
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.dtype == ref.dtype and got.shape == ref.shape
@@ -110,6 +145,80 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, causal, sq, sk, d):
         tol = 1e-4 * max(1.0, scale) if dt == torch.float32 else 2e-2 * scale
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= tol, (name, err, tol)
+        if dt == torch.bfloat16:
+            frob = _head_rel_frob(got, ref)
+            assert frob <= BF16_GRAD_FROB_TOL, (name, frob)
+
+
+@pytest.mark.parametrize("causal,sq,sk,d", [
+    (True, 256, 256, 64),
+    (False, 256, 256, 64),
+    (False, 192, 192, 64),
+    (True, 200, 200, 32),       # ragged tiles
+    (False, 77, 300, 128),      # sq != sk, ragged
+    (True, 128, 320, 64),       # top-left causal with sq < sk
+    (True, 300, 100, 128),      # sq > sk
+    (True, 1000, 1000, 128),    # ragged, two passes a q tile in dK/dV
+    (False, 130, 130, 32),
+])
+def test_flash_bwd_mma_kernels_and_their_predecessor_match_plain(cuda, causal, sq, sk, d):
+    """bf16: the tensor-core pair (the default route) and the FMA pair
+    (route="fma") against the plain version at 2e-2 x max|ref| and 1e-2 in
+    each head's relative Frobenius norm; each wrapper launches once on its
+    route."""
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, torch.bfloat16, 2, sq, sk, 3, d, causal,
+                                          seed=23)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=causal)
+    for route in ("mma", "fma"):
+        before = _bwd_routes()
+        forced = None if route == "mma" else "fma"
+        dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=causal,
+                                             route=forced)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal, route=forced)
+        torch.cuda.synchronize()
+        one = {"dkdv": 1, "dq": 1}
+        assert _bwd_moved(before) == {r: one if r == route else {"dkdv": 0, "dq": 0}
+                                      for r in before}
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            scale = ref.float().abs().max().item()
+            assert _err(got, ref) <= 2e-2 * scale, (route, name, _err(got, ref), scale)
+            frob = _head_rel_frob(got, ref)
+            assert frob <= BF16_GRAD_FROB_TOL, (route, name, frob)
+
+
+def test_flash_bwd_mma_kernels_are_deterministic(cuda):
+    """No atomics and a fixed summation order: two calls of the tensor-core
+    pair give the same bits, causal and not, at every head dim."""
+    for causal, d in ((True, 64), (False, 32), (True, 128)):
+        args = _bwd_inputs(cuda, torch.bfloat16, 2, 320, 320, 4, d, causal, seed=24)
+        first = (*fa.flash_attention_bwd_dkdv(*args, causal=causal),
+                 fa.flash_attention_bwd_dq(*args, causal=causal))
+        second = (*fa.flash_attention_bwd_dkdv(*args, causal=causal),
+                  fa.flash_attention_bwd_dq(*args, causal=causal))
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), (causal, d)
+
+
+def test_flash_bwd_routes_under_autograd(cuda):
+    """Autograd through flash_attention reaches the tensor-core pair at bf16
+    and the FMA pair at f32, once each; f32 on the tensor cores raises."""
+    rng = np.random.RandomState(25)
+    base = rng.randn(2, 192, 3, 4, 64).astype(np.float32)
+    for dt, route in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+        qkv = torch.from_numpy(base).to(cuda, dt).requires_grad_()
+        q, k, v = qkv.unbind(dim=2)
+        before = _bwd_routes()
+        fa.flash_attention(q, k, v, causal=True).float().square().sum().backward()
+        torch.cuda.synchronize()
+        one = {"dkdv": 1, "dq": 1}
+        assert _bwd_moved(before) == {r: one if r == route else {"dkdv": 0, "dq": 0}
+                                      for r in before}
+        assert bool(torch.isfinite(qkv.grad).all()) and bool(qkv.grad.any())
+    args = _bwd_inputs(cuda, torch.float32, 1, 128, 128, 2, 64, True, seed=26)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dkdv(*args, causal=True, route="mma")
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dq(*args, causal=True, route="mma")
 
 
 def test_flash_autograd_goes_through_the_kernels(cuda):
@@ -124,10 +233,10 @@ def test_flash_autograd_goes_through_the_kernels(cuda):
     for dev in ("cuda", "cpu"):
         qkv = torch.from_numpy(base).to(dev).requires_grad_()
         q, k, v = qkv.unbind(dim=2)
-        before = (fa.launches, fa.launches_dkdv, fa.launches_dq)
+        before = _launch_counts()
         o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
         ((o * g_o.to(dev)).sum() + (lse * g_lse.to(dev)).sum()).backward()
-        after = (fa.launches, fa.launches_dkdv, fa.launches_dq)
+        after = _launch_counts()
         expect = 1 if dev == "cuda" else 0
         assert [a - b for a, b in zip(after, before)] == [expect] * 3
         grads.append(qkv.grad.cpu())
@@ -263,13 +372,12 @@ def _train_step(device, ids, labels, amp_dtype=None):
     model = GPTForPretraining(gpt_tiny(), device=device, seed=6)
     eng = TrainStepEngine(model, AdamW(learning_rate=1e-3,
                                        parameters=model.named_parameters()))
-    counts = (fa.launches, fa.launches_dkdv, fa.launches_dq)
+    counts = _launch_counts()
     with auto_cast(enable=amp_dtype is not None, dtype=amp_dtype or "bfloat16"):
         loss = eng.step(ids, labels).item()
     if device == "cuda":
         torch.cuda.synchronize()
-    launched = [a - b for a, b in zip((fa.launches, fa.launches_dkdv, fa.launches_dq),
-                                      counts)]
+    launched = [a - b for a, b in zip(_launch_counts(), counts)]
     grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
     params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
     return loss, launched, grads, params
@@ -607,10 +715,13 @@ def test_lm_loss_mma_kernels_use_tensor_cores_without_spills(cuda):
 
 
 def test_forward_mma_kernels_use_tensor_cores_without_spills(cuda):
-    """The tensor-core forwards, flash_fwd_mma_kernel (d 32, 64, 128) and
-    lm_fwd_mma_* (full, bare, picked), hold HMMA instructions in their SASS,
-    and ptxas reports 0 spill bytes and at most 255 registers for each; the
-    FMA kernels beside them hold none."""
+    """The tensor-core kernels of flash attention and the LM-loss forward,
+    flash_fwd_mma_kernel, flash_bwd_dkdv_mma_kernel and
+    flash_bwd_dq_mma_kernel (d 32, 64, 128 each) and lm_fwd_mma_* (full,
+    bare, picked), hold HMMA instructions in their SASS, and ptxas reports 0
+    spill bytes and at most 255 registers for each; the FMA kernels beside
+    them hold none."""
+    import re
     import subprocess
 
     from paddle_tpu_torch.ops.kernels import _build
@@ -618,9 +729,11 @@ def test_forward_mma_kernels_use_tensor_cores_without_spills(cuda):
     tool = _cuobjdump()
     for lib, new, old, count in (("flash_attention_fwd", "flash_fwd_mma_kernel",
                                   "flash_fwd_kernel", 3),
+                                 ("flash_attention_bwd", "flash_bwd_(dkdv|dq)_mma_kernel",
+                                  "flash_bwd_(dkdv|dq)_kernel", 6),
                                  ("lm_loss", "lm_fwd_mma_", "lm_fwd_full_", 3)):
         _build.load(lib)
-        report = {k: r for k, r in _build.ptxas_report(lib).items() if new in k}
+        report = {k: r for k, r in _build.ptxas_report(lib).items() if re.search(new, k)}
         assert len(report) == count, sorted(report)
         for name, r in report.items():
             assert r.get("spill_stores") == 0 and r.get("spill_loads") == 0, (name, r)
@@ -630,9 +743,9 @@ def test_forward_mma_kernels_use_tensor_cores_without_spills(cuda):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))],
                               capture_output=True, text=True, check=True).stdout
         funcs = {part.split(None, 1)[0]: part for part in sass.split("Function : ")[1:]}
-        mma = [body for k, body in funcs.items() if new in k]
+        mma = [body for k, body in funcs.items() if re.search(new, k)]
         assert len(mma) == count and all("HMMA" in body for body in mma), sorted(funcs)
-        fma = [body for k, body in funcs.items() if old in k]
+        fma = [body for k, body in funcs.items() if re.search(old, k)]
         assert fma and not any("HMMA" in body for body in fma)
     if tool is None:
         pytest.skip("no cuobjdump under CUDA's bin/ or triton/backends/nvidia/bin/")

@@ -208,10 +208,10 @@ def test_backward_wrappers_on_cpu_are_the_plain_version():
                           .astype(np.float32))
     o, lse = port_fa.flash_attention_plain(q, k, v, causal=True)
     delta = port_fa.attention_delta(o, do)
-    before = (port_fa.launches_dkdv, port_fa.launches_dq)
+    before = (port_fa.launches_bwd("dkdv"), port_fa.launches_bwd("dq"))
     dk, dv = port_fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=True)
     dq = port_fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
-    assert (port_fa.launches_dkdv, port_fa.launches_dq) == before
+    assert (port_fa.launches_bwd("dkdv"), port_fa.launches_bwd("dq")) == before
     want = port_fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=True)
     for g, w in zip((dq, dk, dv), want):
         assert torch.equal(g, w)
@@ -257,3 +257,49 @@ def test_mma_operand_reads_aligned_views_in_place_and_copies_the_rest():
         y = port_fa._mma_operand(x)
         assert y is not x and y.is_contiguous() and y.data_ptr() % 16 == 0
         assert torch.equal(y, x)
+
+
+# ----------------------------------------------------------- backward route
+
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    ("bfloat16", 32, "mma"), ("bfloat16", 64, "mma"), ("bfloat16", 128, "mma"),
+    ("float32", 32, "fma"), ("float32", 64, "fma"), ("float32", 128, "fma"),
+])
+def test_backward_route_table(dtype, head_dim, route):
+    """bf16 takes the tensor-core backward pair, f32 the FMA pair, at every
+    head dim the kernels take (the training path is bf16)."""
+    assert port_fa.backward_route(getattr(torch, dtype), head_dim) == route
+
+
+def test_backward_route_refuses_what_no_kernel_takes():
+    for d in (16, 48, 256):
+        with pytest.raises(ValueError):
+            port_fa.backward_route(torch.bfloat16, d)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            port_fa.backward_route(dt, 64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_backward_launches_no_kernel_of_either_route(dtype):
+    """On CPU tensors autograd and the wrappers take the plain version, at
+    either dtype: no count of launches_bwd_by_route moves, and the gradients
+    are the plain version's bits."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(dt) for x in _inputs(1, 128, 128, 2, 32, seed=18))
+    do = torch.from_numpy(np.random.RandomState(19).randn(1, 128, 2, 32)
+                          .astype(np.float32)).to(dt)
+    before = {r: dict(c) for r, c in port_fa.launches_bwd_by_route.items()}
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = port_fa.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(o, leaves, do)
+    po, lse = port_fa.flash_attention_plain(q, k, v, causal=True)
+    delta = port_fa.attention_delta(po, do)
+    dk, dv = port_fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=True)
+    dq = port_fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    assert port_fa.launches_bwd_by_route == before
+    want = port_fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=True)
+    for g, w in zip((dq, dk, dv), want):
+        assert g.dtype == dt and torch.equal(g, w)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
