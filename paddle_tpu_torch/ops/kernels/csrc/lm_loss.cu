@@ -42,7 +42,8 @@
 //   units, so its floor is the FP32 one; what it does about the bound: S,
 //   p and dl never leave the chip, each staged tile is reused by 32 or 128
 //   rows, the forward splits the vocab so that ~1000 CTAs fill 132 SMs.
-//   The FMA kernels stay the route for f32 h (bit for bit as they were).
+//   The FMA backward stays the route for f32 h past H = 768 and for bf16 h
+//   past 1536 (bit for bit as it was); the FMA forward for all f32 h.
 //
 // The tensor-core backward (lm_grad_mma_kernel, the route for bf16 h): dh
 // and dW again as one template with the roles swapped, now with both
@@ -94,6 +95,40 @@
 //   producer warp, so the phases of consecutive tiles overlap. The device
 //   code that issues the products (the S loop and the dl . other loop) is
 //   the one place to change.
+//
+// The 3xTF32 backward (lm_grad_tf32_kernel, the route for f32 h up to H =
+// 768): both products on the TF32 tensor cores (mma.sync.m16n8k8), each
+// operand split into a TF32 big part and a TF32 small part and three
+// products summed, a_small b_big + a_big b_small + a_big b_big
+// (mma_sync.cuh), which holds f32 accuracy: one TF32 pass errs by ~2e-4 of
+// the gradient's norm. dl stays f32. W is read in f32 (the wrapper casts a
+// bf16 W once per backward, exactly).
+//   Bound: 3 x 4 N V H = 3.8 TFLOP each on the TF32 tensor cores (495
+//   TFLOP/s): 7.67 ms; the f32 work alone on the FP32 units: 18.9 ms.
+//   Design: the bf16 kernel's 32 resident own rows and [32, chunk] register
+//   accumulator, with f32 rows padded by 16 bytes. The own tile takes
+//   98,816 bytes at H = 768, so the other operand streams in 16-row tiles
+//   through a cp.async double buffer (2 x 49,408 bytes; one single-buffered
+//   32-row tile was 3% slower), copied by rows and lanes: mma_sync.cuh's
+//   stage_rows divides by the row width for each 16-byte piece, 8% of the
+//   time here. Past H = 768 nothing fits and f32 h stays on the FMA kernel.
+//   The TF32 mma.sync pipe takes ~7.7 cycles a product (the marginal cost
+//   of a pass, PERF.md), so three passes alone take ~16 ms. S = own .
+//   other^T is split over the hidden dim in eighths, one a warp, so that
+//   each warp's 2 x 2 fragments of a k8 step feed 4 products; the eight
+//   f32 partials meet in shared memory. Its fragments come through ldmatrix
+//   as at bf16 (an f32 [m][k] tile's 8 x 4 blocks are ldmatrix's 8 x 8 b16
+//   blocks). The dl . other product's B is the other tile read k-major,
+//   which ldmatrix cannot transpose at 32 bits: scalar loads (two lanes to
+//   a bank; a k permutation that avoids it measured slower). Each fragment
+//   is split where it is loaded (three ALU instructions a value,
+//   split_tf32), so a k8 step of S issues 12 mma and 36 ALU instructions.
+//   The tensor core truncates as it accumulates, and a
+//   gradient sums 8192 or 50304 products: kept in one accumulator, that
+//   drifted to 1e-4 of the result. So each 16 hidden columns of S and each
+//   tile of the product are summed in a fresh accumulator and added to the
+//   running sums in f32. No atomics and a fixed order: two calls give the
+//   same bits.
 //
 // The tensor-core forward (lm_fwd_mma_*, the route for bf16 h; f32 h keeps
 // the FMA forward lm_fwd_full_*): a GEMM with a row-reduction epilogue, on
@@ -536,15 +571,42 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
 }
 
 struct MmaParams {
-  const __nv_bfloat16* own;     // dh: h [n, hdim]; dW: W [v, hdim] (bf16)
-  const __nv_bfloat16* other;   // dh: W; dW: h
+  const void* own;              // dh: h [n, hdim]; dW: W [v, hdim] (the operand type)
+  const void* other;            // dh: W; dW: h
   const int* labels;            // [n]
   const float* lse;             // [n]
   const float* g;               // [n]
-  void* out;                    // dh [n, hdim] bf16; dW [v, hdim] in TO
+  void* out;                    // dh [n, hdim] in h's dtype; dW [v, hdim] in TO
   int n, v, hdim;
   int chunk;                    // hidden columns a CTA accumulates (<= HC * 128)
 };
+
+// a CTA's [32 own, chunk] accumulator (warp w holds the pairs of columns
+// c0 + (j * 8 + w) * 16, the m16 tiles m, the n8 tiles e) -> rows a0.. of
+// the output, in TO
+template <typename TO, int HC>
+__device__ __forceinline__ void store_acc(const float (&acc)[HC][2][2][4], unsigned active,
+                                          TO* out, int a0, int na, int c0, int hdim) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < HC; ++j) {
+    if (!(active & (1u << j))) continue;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + (j * 8 + warp) * 16 + e * 8 + 2 * tq;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int a = a0 + m * 16 + gq + 8 * i;
+          if (a < na)
+            store2(out + static_cast<long long>(a) * hdim + col, acc[j][m][e][2 * i],
+                   acc[j][m][e][2 * i + 1]);
+        }
+      }
+  }
+}
 
 // DW = false: dh (own = h rows, other = W rows); DW = true: dW (own = W rows,
 // other = h rows). TO: the output's dtype. HC: the accumulator's width in
@@ -575,6 +637,9 @@ __global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
   const int nb = DW ? p.n : p.v;
   const int vecs = p.hdim / 8;                  // 16-byte pieces a row
   const int kw = p.hdim / KQ;                   // hidden columns a quarter
+
+  const __nv_bfloat16* own = static_cast<const __nv_bfloat16*>(p.own);
+  const __nv_bfloat16* other = static_cast<const __nv_bfloat16*>(p.other);
 
   // rows r0.. of src (rows past `rows` as zeros) -> dst [32][ld], asynchronously
   auto stage = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0, int rows) {
@@ -615,17 +680,17 @@ __global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
   const unsigned oth_p =        // product: B (transposed), other rows = k
       (bt_lane(lane, ld) + c0 + warp * 16) * 2;
 
-  stage(s_own, p.own, a0, na);
+  stage(s_own, own, a0, na);
   cp_async_commit();
   const int n_t = (nb + OB - 1) / OB;
   if (ST == 2) {
-    stage(s_oth, p.other, 0, nb);
+    stage(s_oth, other, 0, nb);
     cp_async_commit();
   }
   for (int t = 0; t < n_t; ++t) {
     const int b0 = t * OB;
     if (ST == 1) {
-      stage(s_oth, p.other, b0, nb);
+      stage(s_oth, other, b0, nb);
       cp_async_commit();
     }
     // dW: the dl columns are tokens; their lse, g and label
@@ -645,7 +710,7 @@ __global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
     cp_async_wait<0>();         // the own tile and tile t have landed
     __syncthreads();            // ... for every thread; tile t - 1 is done with
     if (ST == 2 && t + 1 < n_t) {   // the other buffer, which takes tile t + 1
-      stage(s_oth + ((t + 1) & 1) * OB * ld, p.other, b0 + OB, nb);
+      stage(s_oth + ((t + 1) & 1) * OB * ld, other, b0 + OB, nb);
       cp_async_commit();
     }
     const unsigned ob = oth0 + (ST == 2 ? (t & 1) : 0) * buf_bytes;
@@ -731,24 +796,7 @@ __global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
     if (ST == 1) __syncthreads();   // the one buffer takes the next tile
   }
 
-  TO* out = static_cast<TO*>(p.out);
-#pragma unroll
-  for (int j = 0; j < HC; ++j) {
-    if (!(active & (1u << j))) continue;
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = c0 + (j * 8 + warp) * 16 + e * 8 + 2 * tq;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int a = a0 + m * 16 + gq + 8 * i;
-          if (a < na)
-            store2(out + static_cast<long long>(a) * p.hdim + col, acc[j][m][e][2 * i],
-                   acc[j][m][e][2 * i + 1]);
-        }
-      }
-  }
+  store_acc(acc, active, static_cast<TO*>(p.out), a0, na, c0, p.hdim);
 }
 
 template <bool DW, typename TO, int HC, int ST>
@@ -777,6 +825,242 @@ cudaError_t mma_dispatch(const MmaParams& p, int hc, int stages, cudaStream_t st
   }
   if (stages == 1 && hc == 6) return mma_launch<DW, TO, 6, 1>(p, st);
   return cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------ 3xTF32 backward (f32 h)
+
+constexpr int OT = 16;          // other rows a staged tile: 2 n8 tiles in S
+constexpr int KE = 8;           // hidden eighths of the S product, one a warp
+constexpr int TPST = OT + 8;    // row stride of the S partials (f32)
+constexpr int TDLD = OT + 4;    // row stride of the f32 dl tile: the product's scalar A
+                                // loads, rows gq and columns tq, meet no shared bank
+
+// the resident [32, H] own tile and two [16, H] other tiles, rows padded by
+// 16 bytes; eight [32, 24] f32 partials of S; the [32, 20] dl tile
+int tf32_smem_bytes(int hdim) {
+  return ((MB + 2 * OT) * (hdim + 4) + KE * MB * TPST + MB * TDLD) * 4;
+}
+
+// DW = false: dh (own = h rows, other = W rows); DW = true: dW (own = W rows,
+// other = h rows); both f32. TO: the output's dtype. HC: the accumulator's
+// width in 128-column units, as in lm_grad_mma_kernel. blockIdx.x: own tile
+// of 32 rows; blockIdx.y: hidden chunk. Other tiles of 16 rows go through a
+// cp.async double buffer. S phase: warp w computes S[32 own, 16 other] over
+// the hidden eighth w; the eight partials meet in shared memory. dl phase:
+// thread t owns S[t / 8][(t % 8) * 2 .. + 1]. Product phase: warp w owns the
+// pairs of columns c0 + (j * 8 + w) * 16, all 32 own rows. Every product is
+// 3xTF32 (mma_sync.cuh), and each short run of it (16 hidden columns of S,
+// one tile's 16 other rows of the product) is summed in a fresh accumulator
+// and added to the running sum in f32.
+template <bool DW, typename TO, int HC>
+__global__ void __launch_bounds__(NT, 1) lm_grad_tf32_kernel(const MmaParams p) {
+  using namespace mma_sync;
+  extern __shared__ float4 smem4[];
+  const int ld = p.hdim + 4;
+  float* s_own = reinterpret_cast<float*>(smem4);   // [MB][ld]
+  float* s_oth = s_own + MB * ld;                   // 2 x [OT][ld]
+  float* s_part = s_oth + 2 * OT * ld;              // [KE][MB][TPST]
+  float* s_dl = s_part + KE * MB * TPST;            // [MB][TDLD]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;      // fragment row, column
+  const int dr = tid >> 3, dc = (tid & 7) * 2;  // dl: own row, 2 other columns
+  const int a0 = blockIdx.x * MB;
+  const int c0 = blockIdx.y * p.chunk;
+  const int c_end = min(c0 + p.chunk, p.hdim);
+  const int na = DW ? p.v : p.n;
+  const int nb = DW ? p.n : p.v;
+  const int vecs = p.hdim / 4;                  // 16-byte pieces a row
+  const int kw = p.hdim / KE;                   // hidden columns an eighth (16k)
+  const float* own = static_cast<const float*>(p.own);
+  const float* other = static_cast<const float*>(p.other);
+
+  // rows r0 .. r0 + R - 1 of src (rows past `rows` as zeros) -> dst [R][ld],
+  // asynchronously: warp w copies rows w, w + 8, .., lane l its 16-byte
+  // pieces l, l + 32, .. (no division: rows are a loop, not an index)
+  auto stage = [&](float* dst, const float* src, int R, int r0, int rows) {
+    for (int r = warp; r < R; r += NT / 32) {
+      const bool ok = r0 + r < rows;
+      const float* row = src + static_cast<long long>(ok ? r0 + r : 0) * p.hdim;
+      const unsigned d = smem_u32(dst + r * ld);
+      for (int c = lane; c < vecs; c += 32) cp_async16(d + c * 16, row + c * 4, ok ? 16 : 0);
+    }
+  };
+
+  // dh: the dl row is a token, its lse, g and label load once
+  float own_lse = 0.f, own_g = 0.f;
+  int own_lab = -1;
+  if (!DW && a0 + dr < p.n) {
+    own_lse = p.lse[a0 + dr];
+    own_g = p.g[a0 + dr];
+    own_lab = p.labels[a0 + dr];
+  }
+
+  float acc[HC][2][2][4] = {};
+  unsigned active = 0;          // pairs inside this chunk (warp-uniform)
+#pragma unroll
+  for (int j = 0; j < HC; ++j)
+    if (c0 + (j * 8 + warp) * 16 < c_end) active |= 1u << j;
+
+  // ldmatrix lane addresses (bytes) of the S product's TF32 fragments: A,
+  // own rows lane & 15 (+16); B, the two n8 tiles of the other tile; both
+  // at hidden eighth `warp`
+  const unsigned own_a = smem_u32(s_own + a_lane(lane, ld, 4) + warp * kw);
+  const unsigned oth_s = (b_lane(lane, ld, 4) + warp * kw) * 4;
+  const unsigned oth0 = smem_u32(s_oth);
+
+  stage(s_own, own, MB, a0, na);
+  cp_async_commit();
+  stage(s_oth, other, OT, 0, nb);
+  cp_async_commit();
+  const int n_t = (nb + OT - 1) / OT;
+  for (int t = 0; t < n_t; ++t) {
+    const int b0 = t * OT;
+    // dW: the dl columns are tokens; their lse, g and label
+    float o_lse[2] = {0.f, 0.f}, o_g[2] = {0.f, 0.f};
+    int o_lab[2] = {-1, -1};
+    if (DW) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int b = b0 + dc + e;
+        if (b < p.n) {
+          o_lse[e] = p.lse[b];
+          o_g[e] = p.g[b];
+          o_lab[e] = p.labels[b];
+        }
+      }
+    }
+    cp_async_wait<0>();         // the own tile and tile t have landed
+    __syncthreads();            // ... for every thread; tile t - 1 is done with
+    if (t + 1 < n_t) {          // the other buffer, which takes tile t + 1
+      stage(s_oth + ((t + 1) & 1) * OT * ld, other, OT, b0 + OT, nb);
+      cp_async_commit();
+    }
+    const unsigned ob = oth0 + (t & 1) * OT * ld * 4;
+
+    // S[32 own, 16 other] over hidden eighth `warp`
+    float sacc[2][2][4] = {};
+    for (int k0 = 0; k0 < kw; k0 += 16) {
+      float part[2][2][4] = {};
+#pragma unroll
+      for (int k = k0; k < k0 + 16; k += 8) {
+        unsigned a[2][4], b[4];
+        ldsm_x4(own_a + k * 4, a[0]);
+        ldsm_x4(own_a + (16 * ld + k) * 4, a[1]);
+        ldsm_x4(ob + oth_s + k * 4, b);
+        unsigned ab[2][4], as[2][4], bb[2][2], bs[2][2];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          split_tf32(a[0][q], ab[0][q], as[0][q]);
+          split_tf32(a[1][q], ab[1][q], as[1][q]);
+          split_tf32(b[q], bb[q >> 1][q & 1], bs[q >> 1][q & 1]);
+        }
+        mma_tf32x3(part, ab, as, bb, bs);
+      }
+      add_frags(sacc, part);
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(s_part + (warp * MB + m * 16 + gq + 8 * i) * TPST + e * 8 +
+                                     2 * tq) =
+              make_float2(sacc[m][e][2 * i], sacc[m][e][2 * i + 1]);
+    __syncthreads();
+
+    // dl = (exp(s - lse) - onehot) * g in f32, into [own][other]
+    {
+      float2 q8[KE];
+#pragma unroll
+      for (int q = 0; q < KE; ++q)
+        q8[q] = *reinterpret_cast<const float2*>(s_part + (q * MB + dr) * TPST + dc);
+      const float s[2] = {((q8[0].x + q8[1].x) + (q8[2].x + q8[3].x)) +
+                              ((q8[4].x + q8[5].x) + (q8[6].x + q8[7].x)),
+                          ((q8[0].y + q8[1].y) + (q8[2].y + q8[3].y)) +
+                              ((q8[4].y + q8[5].y) + (q8[6].y + q8[7].y))};
+      const int a = a0 + dr;
+      float d[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int b = b0 + dc + e;
+        const int tok = DW ? b : a, voc = DW ? a : b;
+        const float z = DW ? o_lse[e] : own_lse;
+        const float gg = DW ? o_g[e] : own_g;
+        const int lb = DW ? o_lab[e] : own_lab;
+        const float pr = expf(s[e] - z);
+        d[e] = (tok < p.n && voc < p.v) ? (pr - (voc == lb ? 1.f : 0.f)) * gg : 0.f;
+      }
+      *reinterpret_cast<float2*>(s_dl + dr * TDLD + dc) = make_float2(d[0], d[1]);
+    }
+    __syncthreads();
+
+    // acc[32 own, this warp's columns] += dl[32 own, 16 other] . other, two
+    // k8 steps. The B fragments are scalar loads other[k][n + gq] (the tile
+    // is k-major here); at a row stride of 4 banks two lanes share a bank.
+    // Permuting k so that none does (rows 2tq, 2tq + 1, A pairs as float2)
+    // measured 7% slower (PERF.md), so the fragments keep their own order.
+    {
+      unsigned ab[2][2][4], as[2][2][4];   // [k8 step][m]
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {    // rows gq and gq + 8: (a0, a2), (a1, a3)
+            const float* row = s_dl + (m * 16 + gq + 8 * i) * TDLD + ks * 8;
+            split_tf32(__float_as_uint(row[tq]), ab[ks][m][i], as[ks][m][i]);
+            split_tf32(__float_as_uint(row[tq + 4]), ab[ks][m][i + 2], as[ks][m][i + 2]);
+          }
+      const float* ot = s_oth + (t & 1) * OT * ld + c0 + warp * 16 + gq;
+#pragma unroll
+      for (int j = 0; j < HC; ++j) {
+        if (active & (1u << j)) {
+          float part[2][2][4] = {};
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            unsigned bb[2][2], bs[2][2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int q = 0; q < 2; ++q)
+                split_tf32(__float_as_uint(ot[(ks * 8 + tq + 4 * q) * ld + j * 128 + e * 8]),
+                           bb[e][q], bs[e][q]);
+            mma_tf32x3(part, ab[ks], as[ks], bb, bs);
+          }
+          add_frags(acc[j], part);
+        }
+      }
+    }
+  }
+
+  store_acc(acc, active, static_cast<TO*>(p.out), a0, na, c0, p.hdim);
+}
+
+template <bool DW, typename TO, int HC>
+cudaError_t tf32_launch(const MmaParams& p, cudaStream_t st) {
+  const int smem = tf32_smem_bytes(p.hdim);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(lm_grad_tf32_kernel<DW, TO, HC>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int na = DW ? p.v : p.n;
+  const dim3 grid((na + MB - 1) / MB, (p.hdim + p.chunk - 1) / p.chunk);
+  lm_grad_tf32_kernel<DW, TO, HC><<<grid, NT, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+// the instances: HC 2, 4, 6, always double-buffered (H <= 768 fits); one
+// stage only
+template <bool DW, typename TO>
+cudaError_t tf32_dispatch(const MmaParams& p, int hc, int stages, cudaStream_t st) {
+  if (stages != 2) return cudaErrorInvalidValue;
+  switch (hc) {
+    case 2: return tf32_launch<DW, TO, 2>(p, st);
+    case 4: return tf32_launch<DW, TO, 4>(p, st);
+    case 6: return tf32_launch<DW, TO, 6>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The FMA forward kernels, one per (h dtype, W dtype): the f32 route, and
@@ -1103,26 +1387,27 @@ extern "C" int lm_loss_bwd(const void* h, const void* w, const void* labels, con
   return static_cast<int>(e);
 }
 
-// The tensor-core dh (dw = 0: out [n, hdim] bf16) or dW (dw = 1: out [v, hdim]
-// in otype: 0 = float32, 1 = bfloat16) of the loss. h and w are both bf16
-// (the wrapper casts an f32 W once); the output dtype is given apart from
-// the dtype read, since dW comes out in the master W's. The plan (chunk
-// columns a CTA, a multiple of 128; hc, the accumulator instance, 2, 4 or 6
-// with chunk <= hc * 128; stages, 1 or 2) comes from lm_loss.py's
-// backward_plan. Returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// plan without an instance or beyond the shared memory.
+// The tensor-core dh (dw = 0: out [n, hdim] in itype) or dW (dw = 1: out [v,
+// hdim] in otype) of the loss; dtype codes 0 = float32, 1 = bfloat16. h and
+// w are both of itype, contiguous and 16-byte aligned (the wrapper casts a W
+// of the other dtype once): bf16 on the bf16 tensor cores, f32 in 3xTF32.
+// The output dtype is given apart from the dtype read, since dW comes out
+// in the master W's. The plan (chunk columns a CTA, a multiple of 128; hc,
+// the accumulator instance, 2, 4 or 6 with chunk <= hc * 128; stages, 1 or
+// 2) comes from lm_loss.py's backward_plan. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan without an instance or beyond the shared
+// memory.
 extern "C" int lm_loss_bwd_mma(const void* h, const void* w, const void* labels,
-                               const void* lse, const void* g, void* out, int otype, int n,
-                               int v, int hdim, int dw, int chunk, int hc, int stages,
+                               const void* lse, const void* g, void* out, int itype, int otype,
+                               int n, int v, int hdim, int dw, int chunk, int hc, int stages,
                                void* stream) {
-  if (!shape_ok(n, v, hdim) || chunk <= 0 || chunk % 128 || chunk > hc * 128 ||
-      (!dw && otype != 1) || otype < 0 || otype > 1)
+  if (!shape_ok(n, v, hdim) || chunk <= 0 || chunk % 128 || chunk > hc * 128 || itype < 0 ||
+      itype > 1 || otype < 0 || otype > 1 || (!dw && otype != itype) ||
+      !mma_sync::aligned16(h, {hdim}) || !mma_sync::aligned16(w, {hdim}))
     return static_cast<int>(cudaErrorInvalidValue);
   MmaParams p;
-  const __nv_bfloat16* hb = static_cast<const __nv_bfloat16*>(h);
-  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
-  p.own = dw ? wb : hb;
-  p.other = dw ? hb : wb;
+  p.own = dw ? w : h;
+  p.other = dw ? h : w;
   p.labels = static_cast<const int*>(labels);
   p.lse = static_cast<const float*>(lse);
   p.g = static_cast<const float*>(g);
@@ -1130,8 +1415,14 @@ extern "C" int lm_loss_bwd_mma(const void* h, const void* w, const void* labels,
   p.n = n; p.v = v; p.hdim = hdim; p.chunk = chunk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (!dw) e = mma_dispatch<false, __nv_bfloat16>(p, hc, stages, st);
-  else if (otype == 0) e = mma_dispatch<true, float>(p, hc, stages, st);
-  else e = mma_dispatch<true, __nv_bfloat16>(p, hc, stages, st);
+  if (itype == 1) {
+    if (!dw) e = mma_dispatch<false, __nv_bfloat16>(p, hc, stages, st);
+    else if (otype == 0) e = mma_dispatch<true, float>(p, hc, stages, st);
+    else e = mma_dispatch<true, __nv_bfloat16>(p, hc, stages, st);
+  } else {
+    if (!dw) e = tf32_dispatch<false, float>(p, hc, stages, st);
+    else if (otype == 0) e = tf32_dispatch<true, float>(p, hc, stages, st);
+    else e = tf32_dispatch<true, __nv_bfloat16>(p, hc, stages, st);
+  }
   return static_cast<int>(e);
 }

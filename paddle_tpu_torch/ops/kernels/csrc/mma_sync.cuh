@@ -2,8 +2,10 @@
 // flash_attention_fwd.cu, flash_attention_bwd.cu and lm_loss.cu: cp.async
 // copies into shared memory and the tile stager built on them, ldmatrix
 // loads of 8 x 8 bf16 blocks and their lane offsets, the bf16
-// mma.sync.m16n8k16 product with f32 accumulation, the MUFU exp2, a warp's
-// 16-row bf16 epilogue, and the host's alignment check of a staged operand.
+// mma.sync.m16n8k16 product with f32 accumulation, the TF32
+// mma.sync.m16n8k8 product and its error-compensated 3xTF32 form (f32
+// operands at f32 accuracy), the MUFU exp2, a warp's 16-row bf16 epilogue,
+// and the host's alignment check of a staged operand.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * gq + tq):
 //   A (16 x 16, row): a0 = (row gq, k 2tq..+1), a1 = (gq + 8, 2tq..+1),
@@ -18,6 +20,20 @@
 // does the same for a B stored k-major. An f32 C fragment of two n8 tiles
 // (cols 16j..16j+15) packs into the A fragment of k step j: a0 = c[2j][0..1],
 // a1 = c[2j][2..3], a2 = c[2j + 1][0..1], a3 = c[2j + 1][2..3].
+//
+// Fragment layout of mma.sync.m16n8k8 with .tf32 operands (one f32 value a
+// register, its low 13 bits ignored):
+//   A (16 x 8, row):  a0 = (row gq, k tq), a1 = (gq + 8, tq), a2 = (gq, tq + 4),
+//                     a3 = (gq + 8, tq + 4);
+//   B (8 x 8, col):   b0 = (k tq, col gq), b1 = (k tq + 4, col gq);
+//   C (16 x 8, f32):  as m16n8k16's.
+// ldmatrix.x4 (b16) reads an 8 x 4 block of a row-major f32 tile as an 8 x 8
+// b16 block (lane l gets word l & 3 of row l >> 2), so the same lane offsets
+// with 4 f32 (16 bytes) in place of 8 bf16 give the TF32 fragments:
+// a_lane(lane, ld, 4) on a row-major [m][k] tile gives a0..a3, b_lane(lane,
+// ld, 4) on a row-major [n][k] tile b0, b1 of two n8 tiles (registers 0, 1
+// and 2, 3). ldmatrix.trans moves 16-bit elements only, so a B stored k-major
+// ([k][n] f32) takes scalar 32-bit loads.
 
 #pragma once
 
@@ -70,6 +86,64 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+// d += a . b: a 16 x 8 tf32 (row), b 8 x 8 tf32 (col), d 16 x 8 f32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// x (finite f32 bits) = big + small as TF32 operands. big = x's bits plus
+// 0x1000: the tensor core reads the top 19 bits only, so it takes big as x
+// rounded to TF32 (10 mantissa bits, to nearest, ties away: the value of
+// cvt.rna.tf32.f32, which ptxas compiles to this add guarded against inf and
+// NaN). small = x - big rounded, exactly (|small| <= 2^-11 |x|); the tensor
+// core drops its low 13 bits, so big + small holds x to 2^-21 of |x|. Three
+// instructions a value, where two cvt.rna and the subtraction take seven
+// (big = x as it is, truncated, saves the add but measured slower in
+// lm_loss.cu's 3xTF32 backward).
+__device__ __forceinline__ void split_tf32(unsigned x, unsigned& big, unsigned& small) {
+  big = x + 0x1000u;
+  small = __float_as_uint(__uint_as_float(x) - __uint_as_float(big & 0xffffe000u));
+}
+// d[i][j] += a[i] . b[j] for M A fragments and N n8 B fragments (b[j] =
+// {b0, b1}), one TF32 pass
+template <int M, int N>
+__device__ __forceinline__ void mma_tf32_all(float (&d)[M][N][4], const unsigned (&a)[M][4],
+                                             const unsigned (&b)[N][2]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma_tf32(d[i][j], a[i], b[j][0], b[j][1]);
+}
+// the same product at f32 accuracy from split operands (3xTF32): the two
+// small terms first, then big . big; a_small . b_small (~2^-22 of the
+// product) is left out. Pass-major, so that M x N independent products
+// stand between two that share an accumulator.
+template <int M, int N>
+__device__ __forceinline__ void mma_tf32x3(float (&d)[M][N][4], const unsigned (&a_big)[M][4],
+                                           const unsigned (&a_small)[M][4],
+                                           const unsigned (&b_big)[N][2],
+                                           const unsigned (&b_small)[N][2]) {
+  mma_tf32_all(d, a_small, b_big);
+  mma_tf32_all(d, a_big, b_small);
+  mma_tf32_all(d, a_big, b_big);
+}
+// d += s over M x N C fragments, in f32 (round to nearest): a sum of many
+// products kept in one tensor-core accumulator drifts, since the tensor core
+// truncates as it accumulates; a kernel sums a few products in a fresh
+// accumulator and adds it here
+template <int M, int N>
+__device__ __forceinline__ void add_frags(float (&d)[M][N][4], const float (&s)[M][N][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) d[i][j][q] += s[i][j][q];
+}
 // two floats rounded to bf16 (nearest even) in one register, lo in the low half
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
@@ -85,12 +159,13 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // ldmatrix.x4 lane offsets (elements) in a row-major tile of row stride ld,
 // as the fragment layout above has them: the A fragment of rows 0..15 of an
 // [m][k] tile; the B fragments of two n8 tiles (rows 0..15) of an [n][k]
-// tile; the same of a [k][n] tile through ldsm_x4_t
-__device__ __forceinline__ int a_lane(int lane, int ld) {
-  return (lane & 15) * ld + (lane >> 4) * 8;
+// tile; the same of a [k][n] tile through ldsm_x4_t. v: elements in 16
+// bytes (8 bf16; 4 f32 for the TF32 fragments)
+__device__ __forceinline__ int a_lane(int lane, int ld, int v = 8) {
+  return (lane & 15) * ld + (lane >> 4) * v;
 }
-__device__ __forceinline__ int b_lane(int lane, int ld) {
-  return ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
+__device__ __forceinline__ int b_lane(int lane, int ld, int v = 8) {
+  return ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * v;
 }
 __device__ __forceinline__ int bt_lane(int lane, int ld) {
   return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;

@@ -17,19 +17,24 @@ to a multiple of 512 and masks the pad; the results are the same).
 
 On CUDA tensors the three wrappers launch the kernels of ``csrc/lm_loss.cu``
 or raise; on CPU tensors they take the plain versions (dense logits, the
-same rounding points). Forward and backward each have two routes, picked
-by h2's dtype, never by failure: bf16 h2 takes the tensor-core kernels
-(``"mma"``; ``forward_route`` and ``backward_plan``, the backward while its
-tiles fit, H <= 1536), f32 h2 the FMA kernels on the FP32 units (``"fma"``,
-W rounded on load). The tensor-core kernels read W in bf16: an f32 W is
-cast once in the forward's call and once per backward, the copy shared by
-dh and dW, as the JAX ``_fwd`` and ``_bwd`` do; the forward's copy is not
-kept for the backward. ``launches_fwd``, ``launches_dh`` and
-``launches_dw`` count every launch (the forward's call also runs the
-kernel that merges its vocab splits); ``launches_by_route`` counts them by
-route. A direct-call library op, as in the JAX package:
-``ops/fused.fused_linear_cross_entropy`` (the model's loss) does not route
-here.
+same rounding points). The routes are picked by h2's dtype and hidden
+size, never by failure (``forward_route``, ``backward_plan``):
+- bf16 h2: the bf16 tensor-core kernels (``"mma"``), forward at every
+  hidden, backward while its tiles fit (H <= 1536);
+- f32 h2: the FMA forward on the FP32 units (``"fma"``), and the backward
+  on the TF32 tensor cores with error compensation (``"tf32x3"``: each
+  operand split into two TF32 parts and three products summed, which
+  holds f32 accuracy) while its f32 tiles fit (H <= 768);
+- past those sizes the FMA backward (``"fma"``, W rounded on load).
+The tensor-core kernels read W in their operand dtype: a W of the other
+dtype is cast once in the forward's call and once per backward, the copy
+shared by dh and dW, as the JAX ``_fwd`` and ``_bwd`` do (to f32 the cast
+is exact); the forward's copy is not kept for the backward.
+``launches_fwd``, ``launches_dh`` and ``launches_dw`` count every launch
+(the forward's call also runs the kernel that merges its vocab splits);
+``launches_by_route`` counts them by route. A direct-call library op, as
+in the JAX package: ``ops/fused.fused_linear_cross_entropy`` (the model's
+loss) does not route here.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ import torch
 launches_fwd = 0   # forward (loss and lse)
 launches_dh = 0    # backward, dh (either route)
 launches_dw = 0    # backward, dW (either route)
-launches_by_route = {r: {"fwd": 0, "dh": 0, "dw": 0} for r in ("mma", "fma")}
+launches_by_route = {r: {"fwd": 0, "dh": 0, "dw": 0} for r in ("mma", "tf32x3", "fma")}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"full": 0, "bare": 1, "picked": 2}
@@ -52,7 +57,7 @@ _SIGNATURES = {
     "lm_loss_fwd_mma": [_PTR] * 6 + [_INT] * 6 + [_PTR],
     "lm_loss_fwd_mma_splits": [_INT, _INT],
     "lm_loss_bwd": [_PTR] * 6 + [_INT] * 6 + [_PTR],
-    "lm_loss_bwd_mma": [_PTR] * 6 + [_INT] * 8 + [_PTR],
+    "lm_loss_bwd_mma": [_PTR] * 6 + [_INT] * 9 + [_PTR],
     "lm_loss_fwd_splits": [_INT, _INT],
 }
 _fns = {}
@@ -98,15 +103,19 @@ def forward_route(h_dtype) -> str:
 #: shared memory a CTA may take on the H100 (227 KB)
 _MAX_SMEM = 232448
 
+#: the dtype each tensor-core backward reads h2 and W in (and h2 must have)
+_OPERAND = {"mma": torch.bfloat16, "tf32x3": torch.float32}
+
 
 class BackwardPlan(NamedTuple):
-    """What the backward's launch takes: the ``route`` ("mma" or "fma") and,
-    for the tensor-core route, the arguments of ``lm_loss_bwd_mma``: the
-    hidden columns a CTA accumulates (``chunk``; the grid's y walks
-    ceil(H / chunk) chunks, each recomputing the logits over the full H),
-    the accumulator instance ``hc`` (in 128-column units, >= chunk / 128)
-    and the other-operand buffers ``stages``. The FMA kernel picks its own
-    chunks (``pick_hc`` in csrc/lm_loss.cu), so they are 0 there."""
+    """What the backward's launch takes: the ``route`` ("mma", "tf32x3" or
+    "fma") and, for the tensor-core routes, the arguments of
+    ``lm_loss_bwd_mma``: the hidden columns a CTA accumulates (``chunk``;
+    the grid's y walks ceil(H / chunk) chunks, each recomputing the logits
+    over the full H), the accumulator instance ``hc`` (in 128-column units,
+    >= chunk / 128) and the other-operand buffers ``stages``. The FMA kernel
+    picks its own chunks (``pick_hc`` in csrc/lm_loss.cu), so they are 0
+    there."""
     route: str
     chunk: int = 0
     hc: int = 0
@@ -114,10 +123,17 @@ class BackwardPlan(NamedTuple):
 
 
 def _mma_smem(hidden: int, stages: int) -> int:
-    """The tensor-core kernel's shared memory: the resident [32, H] own tile,
-    ``stages`` [32, H] other tiles (rows padded by 8 bf16), the [32, 40]
-    bf16 dl tile and four [32, 40] f32 partials of S."""
+    """The bf16 tensor-core kernel's shared memory: the resident [32, H]
+    own tile, ``stages`` [32, H] other tiles (rows padded by 8 bf16), the
+    [32, 40] bf16 dl tile and four [32, 40] f32 partials of S."""
     return ((1 + stages) * 32 * (hidden + 8) + 32 * 40) * 2 + 4 * 32 * 40 * 4
+
+
+def _tf32_smem(hidden: int) -> int:
+    """The 3xTF32 kernel's shared memory: the resident [32, H] f32 own tile
+    and two [16, H] other tiles (rows padded by 4 f32), eight [32, 24] f32
+    partials of S and the [32, 20] f32 dl tile."""
+    return ((32 + 2 * 16) * (hidden + 4) + 8 * 32 * 24 + 32 * 20) * 4
 
 
 def _plan(route: str, h_dtype, hidden: int) -> BackwardPlan:
@@ -125,30 +141,43 @@ def _plan(route: str, h_dtype, hidden: int) -> BackwardPlan:
     ValueError where the route cannot take them."""
     if route == "fma":
         return BackwardPlan("fma")
-    if route != "mma":
-        raise ValueError(f"route must be 'mma' or 'fma', got {route!r}")
-    if h_dtype != torch.bfloat16:
-        raise ValueError("the tensor-core backward takes bf16 h2")
+    if route not in _OPERAND:
+        raise ValueError(f"route must be 'mma', 'tf32x3' or 'fma', got {route!r}")
+    if h_dtype != _OPERAND[route]:
+        raise ValueError(f"the {route!r} backward takes {_OPERAND[route]} h2, got {h_dtype}")
+    if not _fits(route, hidden):
+        raise ValueError(f"the {route!r} backward's tiles do not fit at hidden {hidden} "
+                         f"(bf16 up to 1536, f32 up to 768)")
     units = hidden // 128
     chunks = -(-units // 6)
     need = -(-units // chunks)
     hc = 2 if need <= 2 else 4 if need <= 4 else 6
-    stages = 2 if _mma_smem(hidden, 2) <= _MAX_SMEM else 1
-    if _mma_smem(hidden, stages) > _MAX_SMEM:
-        raise ValueError(f"the tensor-core backward takes hidden <= 1536, got {hidden}")
-    return BackwardPlan("mma", need * 128, hc, stages)
+    if route == "tf32x3":
+        stages = 2
+    else:
+        stages = 2 if _mma_smem(hidden, 2) <= _MAX_SMEM else 1
+    return BackwardPlan(route, need * 128, hc, stages)
+
+
+def _fits(route: str, hidden: int) -> bool:
+    """Whether the tiles of a tensor-core route fit in shared memory."""
+    smem = _tf32_smem(hidden) if route == "tf32x3" else _mma_smem(hidden, 1)
+    return smem <= _MAX_SMEM
 
 
 def backward_plan(h_dtype, hidden: int) -> BackwardPlan:
     """The backward's route and plan for h2 of ``h_dtype`` and ``hidden``
     columns (a multiple of 128).
 
-    bf16 h2 takes the tensor-core route while its tiles fit in shared memory
-    (H <= 1536): chunks of at most 768 columns (96 accumulator floats a
-    thread), double-buffered up to H = 1024, single-buffered above. f32 h2
-    (or bf16 past 1536) takes the FMA route."""
-    mma = h_dtype == torch.bfloat16 and _mma_smem(hidden, 1) <= _MAX_SMEM
-    return _plan("mma" if mma else "fma", h_dtype, hidden)
+    bf16 h2 takes the bf16 tensor-core route (``"mma"``) and f32 h2 the
+    3xTF32 one (``"tf32x3"``) while their tiles fit in shared memory: bf16
+    up to H = 1536 (chunks of at most 768 columns, 96 accumulator floats a
+    thread; double-buffered up to H = 1024, single-buffered above), f32 up
+    to H = 768 (one chunk, 16-row other tiles double-buffered). Past those,
+    and for other dtypes, the FMA route."""
+    route = "mma" if h_dtype == torch.bfloat16 else "tf32x3"
+    fits = h_dtype == _OPERAND[route] and _fits(route, hidden)
+    return _plan(route if fits else "fma", h_dtype, hidden)
 
 
 # ------------------------------------------------------------ plain versions
@@ -258,8 +287,8 @@ def lm_loss_fwd(h2, w, labels, variant="full", v_true=None, route=None):
     h2, w, labels = _prepare(h2, w, labels)
     if route is None:
         route = forward_route(h2.dtype)
-    elif route not in launches_by_route:
-        raise ValueError(f"route must be 'mma' or 'fma', got {route!r}")
+    elif route not in ("mma", "fma"):
+        raise ValueError(f"the forward's route must be 'mma' or 'fma', got {route!r}")
     if route == "mma" and h2.dtype != torch.bfloat16:
         raise ValueError("the tensor-core forward takes bf16 h2")
     if variant != "full" and route != "mma":
@@ -290,10 +319,11 @@ def lm_loss_fwd(h2, w, labels, variant="full", v_true=None, route=None):
 
 def _bwd_launch(h2, w, labels, lse, g, dw, w_read=None, route=None):
     """dh (dw False) or dW (dw True) through the kernel of ``backward_plan``.
-    ``w_read``: the bf16 copy of an f32 W that the mma route reads (made
-    here when not given); dW comes out in ``w``'s own dtype. ``route``
-    forces a route (chip_smoke.py and the card tests time and check the FMA
-    kernel at bf16 h with "fma"; no path passes it)."""
+    ``w_read``: W in the operand dtype of a tensor-core route, where W has
+    the other one (made here when not given); dW comes out in ``w``'s own
+    dtype. ``route`` forces a route (chip_smoke.py and the card tests time
+    and check the FMA kernel, the tensor-core kernels' predecessor, with
+    "fma"; no path passes it)."""
     global launches_dh, launches_dw
     h2, w, labels = _prepare(h2, w, labels)
     n, hdim = h2.shape
@@ -307,13 +337,14 @@ def _bwd_launch(h2, w, labels, lse, g, dw, w_read=None, route=None):
     out = torch.empty(w.shape if dw else h2.shape, dtype=w.dtype if dw else h2.dtype,
                       device=h2.device)
     common = (labels.data_ptr(), lse.data_ptr(), g.data_ptr(), out.data_ptr())
-    if plan.route == "mma":
+    if plan.route in _OPERAND:
         if w_read is None:
-            w_read = w if w.dtype == torch.bfloat16 else w.to(torch.bfloat16)
+            op = _OPERAND[plan.route]
+            w_read = w if w.dtype == op else w.to(op)
         w_read = _aligned(w_read)
         _call("lm_loss_bwd_mma", h2.device, h2.data_ptr(), w_read.data_ptr(), *common,
-              _DTYPE_CODES[out.dtype], n, v, hdim, int(dw), plan.chunk, plan.hc,
-              plan.stages)
+              _DTYPE_CODES[h2.dtype], _DTYPE_CODES[out.dtype], n, v, hdim, int(dw),
+              plan.chunk, plan.hc, plan.stages)
     else:
         _call("lm_loss_bwd", h2.device, h2.data_ptr(), w.data_ptr(), *common,
               _DTYPE_CODES[h2.dtype], _DTYPE_CODES[w.dtype], n, v, hdim, int(dw))
@@ -362,9 +393,10 @@ class _LMLoss(torch.autograd.Function):
             dh, dw = lm_loss_bwd_plain(h2, w, labels, lse, g)
             return dh, dw, None
         need_h, need_w = ctx.needs_input_grad[:2]
-        # the mma route reads W in bf16: one copy, shared by dh and dW
-        mma = backward_plan(h2.dtype, h2.shape[1]).route == "mma"
-        w_read = w.to(torch.bfloat16) if mma and w.dtype != torch.bfloat16 else None
+        # a tensor-core route reads W in its operand dtype: one copy, shared
+        # by dh and dW
+        op = _OPERAND.get(backward_plan(h2.dtype, h2.shape[1]).route)
+        w_read = w.to(op) if op is not None and w.dtype != op else None
         dh = _bwd_launch(h2, w, labels, lse, g, False, w_read=w_read) if need_h else None
         dw = _bwd_launch(h2, w, labels, lse, g, True, w_read=w_read) if need_w else None
         return dh, dw, None

@@ -20,7 +20,12 @@ softmax term would pass wherever the labels' -h spikes set max|ref|). The
 LM-loss backward's tensor-core kernels (bf16 h) are also held to their
 plain versions with every label -100 (dh and dW the softmax term alone), to
 giving the same bits twice, to their route's launch counts, and to HMMA in
-their SASS with no spills.
+their SASS with no spills. At f32 h the backward takes the 3xTF32 tensor
+cores up to H = 768: its f32 dh and dW, and the FMA kernel's (its
+predecessor), are held besides to 5e-6 in relative Frobenius norm
+(GRAD_F32_FROB_TOL): a TF32 product without its error compensation errs
+by ~2e-4 there while its dh passes the max limit, f32 sums in another
+order by ~4e-7. Its instances hold TF32 HMMA in their SASS.
 
 The tensor-core forwards (flash attention and the LM loss at bf16) hold
 their f32 outputs, lse and the per-row loss, at 1e-4 x max(1, max|ref|):
@@ -419,6 +424,13 @@ def test_gpt_tiny_train_step_on_card_matches_cpu(cuda, amp_dtype):
     assert apart <= (1e-3 if f32 else 1e-2) * total, (apart, total)
 
 
+GRAD_F32_FROB_TOL = 5e-6
+
+
+def _rel_frob(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
 def _tol(ref, dt):
     scale = ref.float().abs().max().item()
     return 1e-4 * max(1.0, scale) if dt == torch.float32 else 2e-2 * scale
@@ -517,16 +529,20 @@ def test_lm_loss_kernels_match_plain(cuda, htype, wtype, n, v, hdim):
     labels[5], labels[6] = -100, v - 1
     g = torch.from_numpy(rng.rand(n).astype(np.float32)).to(cuda)
     route = lm.backward_plan(ht, hdim).route
-    assert route == ("mma" if ht == torch.bfloat16 else "fma")
-    before = (lm.launches_fwd, lm.launches_dh, lm.launches_dw,
-              *lm.launches_by_route[route].values())
+    assert route == ("mma" if ht == torch.bfloat16 else "tf32x3" if hdim <= 768 else "fma")
+    fwd_route = lm.forward_route(ht)
+
+    def counts():
+        return (lm.launches_fwd, lm.launches_dh, lm.launches_dw,
+                lm.launches_by_route[fwd_route]["fwd"], lm.launches_by_route[route]["dh"],
+                lm.launches_by_route[route]["dw"])
+
+    before = counts()
     loss, lse = lm.lm_loss_fwd(h, w, labels)
     dh = lm.lm_loss_dh(h, w, labels, lse, g)
     dw = lm.lm_loss_dw(h, w, labels, lse, g)
     torch.cuda.synchronize()
-    after = (lm.launches_fwd, lm.launches_dh, lm.launches_dw,
-             *lm.launches_by_route[route].values())
-    assert [a - c for a, c in zip(after, before)] == [1] * 6
+    assert [a - c for a, c in zip(counts(), before)] == [1] * 6
     ploss, plse = lm.lm_loss_fwd_plain(h, w, labels)
     assert _err(lse, plse) <= _tol(plse, ht) and _err(loss, ploss) <= _tol(ploss, ht)
     assert abs(loss[5].item() - lse[5].item()) <= 1e-6 * abs(lse[5].item())
@@ -534,6 +550,54 @@ def test_lm_loss_kernels_match_plain(cuda, htype, wtype, n, v, hdim):
     assert dh.dtype == ht and dw.dtype == wt
     assert _err(dh, pdh) <= _grad_tol(dh, pdh, ht)
     assert _err(dw, pdw) <= _grad_tol(dw, pdw, ht)
+    if ht == torch.float32:
+        assert _rel_frob(dh, pdh) <= GRAD_F32_FROB_TOL
+        if wt == torch.float32:
+            assert _rel_frob(dw, pdw) <= GRAD_F32_FROB_TOL
+
+
+@pytest.mark.parametrize("wtype,n,v,hdim,labels", [
+    ("float32", 1024, 500, 128, "minus100"),    # ragged vocab tile; two other buffers
+    ("float32", 1000, 50257, 768, "random"),    # ragged rows and GPT-2's vocab
+    ("float32", 1024, 384, 512, "all_minus100"),
+    ("float32", 2048, 1000, 640, "minus100"),   # one other buffer, 5 of 6 pairs
+    ("bfloat16", 1024, 300, 768, "minus100"),   # bf16 W cast to f32; dW in bf16
+    ("float32", 1024, 700, 256, "all_minus100"),
+])
+def test_lm_loss_tf32x3_backward_and_its_predecessor_match_plain(cuda, wtype, n, v, hdim,
+                                                                 labels):
+    """f32 h: the 3xTF32 backward (the default route) and the FMA backward
+    (route="fma", its predecessor) against the plain f32 version, each
+    launched once on its route: dh and dW within 1e-4 x max(1, max|ref|)
+    and, where f32, within GRAD_F32_FROB_TOL in relative Frobenius norm."""
+    wt = getattr(torch, wtype)
+    rng = np.random.RandomState(24)
+    h = torch.from_numpy(rng.randn(n, hdim).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.randn(v, hdim).astype(np.float32) * 0.05).to(cuda, wt)
+    lab = torch.from_numpy(rng.randint(0, v, (n,)).astype(np.int32)).to(cuda)
+    if labels == "minus100":
+        lab[::7] = -100
+    elif labels == "all_minus100":
+        lab.fill_(-100)
+    g = torch.from_numpy(rng.rand(n).astype(np.float32)).to(cuda)
+    assert lm.backward_plan(torch.float32, hdim).route == "tf32x3"
+    _, lse = lm.lm_loss_fwd(h, w, lab)
+    pdh, pdw = lm.lm_loss_bwd_plain(h, w, lab, lse, g)
+    assert pdh.abs().max().item() > 0 and pdw.float().abs().max().item() > 0
+    for route in ("tf32x3", "fma"):
+        before = {r: dict(c) for r, c in lm.launches_by_route.items()}
+        dh = lm._bwd_launch(h, w, lab, lse, g, False, route=None if route == "tf32x3" else route)
+        dw = lm._bwd_launch(h, w, lab, lse, g, True, route=None if route == "tf32x3" else route)
+        torch.cuda.synchronize()
+        assert {r: (c["dh"] - before[r]["dh"], c["dw"] - before[r]["dw"])
+                for r, c in lm.launches_by_route.items()} == {
+            r: (int(r == route),) * 2 for r in before}
+        assert dh.dtype == torch.float32 and dw.dtype == wt
+        assert _err(dh, pdh) <= _grad_tol(dh, pdh, torch.float32), route
+        assert _err(dw, pdw) <= _grad_tol(dw, pdw, torch.float32), route
+        assert _rel_frob(dh, pdh) <= GRAD_F32_FROB_TOL, route
+        if wt == torch.float32:
+            assert _rel_frob(dw, pdw) <= GRAD_F32_FROB_TOL, route
 
 
 def _lm_inputs(cuda, n, v, hdim, wt, seed):
@@ -589,7 +653,7 @@ def test_lm_loss_mma_forward_and_its_predecessor_match_plain(cuda, wtype, n, v, 
         loss, lse = lm.lm_loss_fwd(h, w, lab, route=None if route == "mma" else "fma")
         torch.cuda.synchronize()
         assert {r: lm.launches_by_route[r]["fwd"] - before[r]["fwd"] for r in before} == {
-            "mma": int(route == "mma"), "fma": int(route == "fma")}
+            "mma": int(route == "mma"), "tf32x3": 0, "fma": int(route == "fma")}
         assert _err(lse, plse) <= _f32_tol(plse), route
         assert _err(loss, ploss) <= _f32_tol(ploss), route
         ignored = lab == -100
@@ -606,7 +670,7 @@ def test_lm_loss_forward_routes_and_determinism(cuda):
         first = lm.lm_loss_fwd(hh, w, lab)
         second = lm.lm_head_cross_entropy(hh.detach().requires_grad_(), w, lab)
         assert {r: c["fwd"] - before[r] for r, c in lm.launches_by_route.items()} == {
-            "mma": 2 * (route == "mma"), "fma": 2 * (route == "fma")}
+            "mma": 2 * (route == "mma"), "tf32x3": 0, "fma": 2 * (route == "fma")}
         assert torch.equal(first[0], second)
     with pytest.raises(ValueError):
         lm.lm_loss_fwd(h.float(), w, lab, variant="bare")
@@ -616,49 +680,84 @@ def test_lm_loss_forward_routes_and_determinism(cuda):
 
 def test_lm_loss_mma_backward_is_deterministic(cuda):
     """No atomics and a fixed summation order: two calls on the same inputs
-    give the same bits, for dh and for dW."""
+    give the same bits, for dh and for dW, at bf16 h (the bf16 tensor cores)
+    and at f32 h (3xTF32)."""
     h, w, labels, g = _lm_inputs(cuda, 2048, 1000, 768, torch.float32, seed=16)
-    _, lse = lm.lm_loss_fwd(h, w, labels)
-    first = (lm.lm_loss_dh(h, w, labels, lse, g), lm.lm_loss_dw(h, w, labels, lse, g))
-    second = (lm.lm_loss_dh(h, w, labels, lse, g), lm.lm_loss_dw(h, w, labels, lse, g))
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
+    for hh in (h, h.float()):
+        _, lse = lm.lm_loss_fwd(hh, w, labels)
+        first = (lm.lm_loss_dh(hh, w, labels, lse, g), lm.lm_loss_dw(hh, w, labels, lse, g))
+        second = (lm.lm_loss_dh(hh, w, labels, lse, g), lm.lm_loss_dw(hh, w, labels, lse, g))
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 def test_lm_loss_backward_routes(cuda):
-    """bf16 h launches the tensor-core kernels and f32 h the FMA ones, through
-    the direct calls and through autograd; the private route="fma" reaches
-    the FMA kernel at bf16 h (for timing it) and gives the same result
-    within the tolerances of the plain version."""
+    """bf16 h launches the bf16 tensor-core kernels, f32 h the 3xTF32 ones up
+    to H = 768 and the FMA ones past it, through the direct calls and
+    through autograd; the private route="fma" reaches the FMA kernel at bf16
+    and f32 h (for timing it) and gives the same result within the
+    tolerances of the plain version; the tensor-core routes refuse the
+    other dtype of h."""
     h, w, labels, g = _lm_inputs(cuda, 1024, 640, 256, torch.float32, seed=17)
     _, lse = lm.lm_loss_fwd(h, w, labels)
+    routes = ("mma", "tf32x3", "fma")
 
     def counts():
         return {r: dict(c) for r, c in lm.launches_by_route.items()}
 
     def delta(before):
         return {r: {k: lm.launches_by_route[r][k] - before[r][k] for k in ("dh", "dw")}
-                for r in ("mma", "fma")}
+                for r in routes}
 
-    one, zero = {"dh": 1, "dw": 1}, {"dh": 0, "dw": 0}
-    for hh, route in ((h, "mma"), (h.float(), "fma")):
+    def only(route):
+        return {r: {"dh": int(r == route), "dw": int(r == route)} for r in routes}
+
+    h1280 = torch.randn(1024, 1280, device=cuda)
+    w1280 = torch.randn(300, 1280, device=cuda) * 0.05
+    for hh, ww, route in ((h, w, "mma"), (h.float(), w, "tf32x3"),
+                          (h1280, w1280, "fma")):
+        _, lse_r = lm.lm_loss_fwd(hh, ww, labels % ww.shape[0])
         before = counts()
-        lm.lm_loss_dh(hh, w, labels, lse, g)
-        lm.lm_loss_dw(hh, w, labels, lse, g)
-        assert delta(before) == {"mma": one if route == "mma" else zero,
-                                 "fma": one if route == "fma" else zero}
+        lm.lm_loss_dh(hh, ww, labels % ww.shape[0], lse_r, g)
+        lm.lm_loss_dw(hh, ww, labels % ww.shape[0], lse_r, g)
+        assert delta(before) == only(route)
         before = counts()
-        ha, wa = hh.detach().requires_grad_(), w.detach().requires_grad_()
-        lm.lm_head_cross_entropy(ha, wa, labels).sum().backward()
-        assert delta(before) == {"mma": one if route == "mma" else zero,
-                                 "fma": one if route == "fma" else zero}
-    before = counts()
-    dh_fma = lm._bwd_launch(h, w, labels, lse, g, False, route="fma")
-    dw_fma = lm._bwd_launch(h, w, labels, lse, g, True, route="fma")
-    assert delta(before) == {"mma": zero, "fma": one}
-    dh, dw = lm.lm_loss_dh(h, w, labels, lse, g), lm.lm_loss_dw(h, w, labels, lse, g)
-    assert _err(dh, dh_fma) <= _grad_tol(dh, dh_fma, torch.bfloat16)
-    assert _err(dw, dw_fma) <= _grad_tol(dw, dw_fma, torch.bfloat16)
+        ha, wa = hh.detach().requires_grad_(), ww.detach().requires_grad_()
+        lm.lm_head_cross_entropy(ha, wa, labels % ww.shape[0]).sum().backward()
+        assert delta(before) == only(route)
+    for hh in (h, h.float()):
+        _, lse_h = lm.lm_loss_fwd(hh, w, labels)
+        before = counts()
+        dh_fma = lm._bwd_launch(hh, w, labels, lse_h, g, False, route="fma")
+        dw_fma = lm._bwd_launch(hh, w, labels, lse_h, g, True, route="fma")
+        assert delta(before) == only("fma")
+        dh, dw = lm.lm_loss_dh(hh, w, labels, lse_h, g), lm.lm_loss_dw(hh, w, labels, lse_h, g)
+        assert _err(dh, dh_fma) <= _grad_tol(dh, dh_fma, hh.dtype)
+        assert _err(dw, dw_fma) <= _grad_tol(dw, dw_fma, hh.dtype)
+    with pytest.raises(ValueError):
+        lm._bwd_launch(h, w, labels, lse, g, False, route="tf32x3")
+    with pytest.raises(ValueError):
+        lm._bwd_launch(h.float(), w, labels, lse, g, False, route="mma")
+
+
+def test_lm_loss_bwd_mma_refuses_plans_without_an_instance(cuda):
+    """The C entry of the tensor-core backward returns cudaErrorInvalidValue
+    (1) for a plan without an instance (f32 single-buffered: the 3xTF32
+    kernel always double-buffers; bf16 HC 4 single-buffered) or an output
+    dtype dh cannot have, and launches nothing."""
+    h, w, labels, g = _lm_inputs(cuda, 1024, 640, 768, torch.float32, seed=19)
+    lse = torch.zeros(1024, device=cuda)
+    fn = lm._kernel("lm_loss_bwd_mma")
+    stream = torch.cuda.current_stream().cuda_stream
+    for hh, itype, otype, dw, hc, stages in ((h.float(), 0, 0, 0, 6, 1),
+                                             (h, 1, 1, 0, 4, 1),
+                                             (h.float(), 0, 1, 0, 6, 2)):
+        ww = w.to(hh.dtype)
+        out = torch.empty(hh.shape, dtype=hh.dtype, device=cuda)
+        err = fn(hh.data_ptr(), ww.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                 g.data_ptr(), out.data_ptr(), itype, otype, 1024, 640, 768, dw, hc * 128, hc,
+                 stages, stream)
+        assert err == 1, (itype, otype, hc, stages)
 
 
 def _cuobjdump():
@@ -683,17 +782,20 @@ def _cuobjdump():
 
 
 def test_lm_loss_mma_kernels_use_tensor_cores_without_spills(cuda):
-    """The built lm_loss library's tensor-core kernels (every instance) hold
-    HMMA instructions in their SASS, and ptxas reports 0 spill bytes and at
-    most 255 registers for each."""
+    """The built lm_loss library's tensor-core backward kernels (every
+    instance: 12 of lm_grad_mma_kernel, bf16; 9 of lm_grad_tf32_kernel, f32)
+    hold HMMA instructions in their SASS, TF32 HMMA (HMMA.1688.F32.TF32) in
+    the f32 ones only, and ptxas reports 0 spill bytes and at most 255
+    registers for each."""
     import subprocess
 
     from paddle_tpu_torch.ops.kernels import _build
 
     _build.load("lm_loss")
     report = {k: r for k, r in _build.ptxas_report("lm_loss").items()
-              if "lm_grad_mma_kernel" in k}
-    assert len(report) == 12, sorted(report)
+              if "lm_grad_mma_kernel" in k or "lm_grad_tf32_kernel" in k}
+    assert len(report) == 21, sorted(report)
+    assert sum("lm_grad_tf32_kernel" in k for k in report) == 9, sorted(report)
     for name, r in report.items():
         assert r.get("spill_stores") == 0 and r.get("spill_loads") == 0, (name, r)
         assert r.get("registers", 256) <= 255, (name, r)
@@ -706,10 +808,12 @@ def test_lm_loss_mma_kernels_use_tensor_cores_without_spills(cuda):
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
         funcs[name] = part
-    mma = {k: body for k, body in funcs.items() if "lm_grad_mma_kernel" in k}
-    assert len(mma) == 12, sorted(funcs)
+    mma = {k: body for k, body in funcs.items()
+           if "lm_grad_mma_kernel" in k or "lm_grad_tf32_kernel" in k}
+    assert len(mma) == 21, sorted(funcs)
     for name, body in mma.items():
         assert "HMMA" in body, name
+        assert ("HMMA.1688.F32.TF32" in body) == ("lm_grad_tf32_kernel" in name), name
     fma = [body for k, body in funcs.items() if "lm_grad_kernel" in k]
     assert fma and not any("HMMA" in body for body in fma)
 

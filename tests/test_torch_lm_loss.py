@@ -12,8 +12,10 @@ tests/test_pallas_lm_loss.py (f32 and bf16 values, gradients, the
 -100 (no ignore_index: the row's loss is its logsumexp), the tensor-core
 route's inputs (bf16 h, f32 W) at vocab 500 with -100 labels, the
 backward's route and hidden-chunk plan (``backward_plan``), the forward's
-route (``forward_route``) and the compile probe's variants as instances of
-the tensor-core forward.
+route (``forward_route``), the compile probe's variants as instances of
+the tensor-core forward, and the numerics the 3xTF32 backward relies on
+(a plain emulation of TF32 products: three terms reach the card's f32
+limit, two terms and one pass do not).
 
 Tolerances: f32 loss 2e-5 and gradients of the mean loss 1e-6 absolute (the
 same f32 products and logsumexp in another order; gradients are ~1e-4);
@@ -215,36 +217,141 @@ def test_bf16_h_f32_w_backward_ragged_vocab_and_minus_100_match_jax():
     ("bfloat16", 768, "mma", 1, 768, 6, 2),
     ("bfloat16", 1024, "mma", 2, 512, 4, 2),
     ("bfloat16", 1280, "mma", 2, 640, 6, 1),     # two other tiles no longer fit
-    ("float32", 128, "fma", None, 0, 0, 0),      # the FMA kernel picks its own chunks
-    ("float32", 768, "fma", None, 0, 0, 0),
-    ("float32", 1024, "fma", None, 0, 0, 0),
+    ("float32", 128, "tf32x3", 1, 128, 2, 2),    # 3xTF32: 16-row other tiles,
+    ("float32", 768, "tf32x3", 1, 768, 6, 2),    # double-buffered at every H
+    ("float32", 1024, "fma", None, 0, 0, 0),     # the FMA kernel picks its own chunks
     ("float32", 1280, "fma", None, 0, 0, 0),
 ])
 def test_backward_plan_table(dtype, hidden, route, chunks, chunk, hc, stages):
     """The backward's route and the plan lm_loss_bwd_mma is launched with:
-    bf16 h takes the tensor cores, f32 h the FMA kernel. The tensor-core
-    grid's y is ceil(H / chunk) hidden chunks (the C entry's grid), and the
-    tiles fit in the H100's 227 KB of shared memory."""
+    bf16 h takes the bf16 tensor cores, f32 h the TF32 ones (3xTF32) up to
+    H = 768 and the FMA kernel past it. The tensor-core grid's y is
+    ceil(H / chunk) hidden chunks (the C entry's grid), and the tiles fit in
+    the H100's 227 KB of shared memory."""
     plan = lm.backward_plan(getattr(torch, dtype), hidden)
     assert plan == (route, chunk, hc, stages)
-    if route == "mma":
+    if route != "fma":
         assert -(-hidden // plan.chunk) == chunks and chunk <= hc * 128
-        assert lm._mma_smem(hidden, stages) <= 232448
+        smem = lm._tf32_smem(hidden) if route == "tf32x3" else lm._mma_smem(hidden, stages)
+        assert smem <= 232448
 
 
 def test_backward_plan_limits():
-    """Past H = 1536 the tensor-core tiles do not fit in shared memory and
-    bf16 h takes the FMA kernel; forcing the tensor cores there or at f32
-    h, or naming no route, raises."""
+    """Past H = 1536 the bf16 tiles, past H = 768 the f32 tiles do not fit
+    in shared memory, and h takes the FMA kernel; forcing a tensor-core
+    route there or at the other dtype, or naming no route, raises."""
     assert lm.backward_plan(torch.bfloat16, 1536).route == "mma"
     assert lm.backward_plan(torch.bfloat16, 1664).route == "fma"
+    assert lm.backward_plan(torch.float32, 768).route == "tf32x3"
+    assert lm.backward_plan(torch.float32, 896).route == "fma"
+    assert lm.backward_plan(torch.float16, 768).route == "fma"
+    assert lm._tf32_smem(768) <= 232448 < lm._tf32_smem(896)
     assert lm._plan("fma", torch.bfloat16, 768).route == "fma"
+    assert lm._plan("fma", torch.float32, 768).route == "fma"
     with pytest.raises(ValueError):
         lm._plan("mma", torch.bfloat16, 1664)
     with pytest.raises(ValueError):
         lm._plan("mma", torch.float32, 768)
     with pytest.raises(ValueError):
+        lm._plan("tf32x3", torch.bfloat16, 768)
+    with pytest.raises(ValueError):
+        lm._plan("tf32x3", torch.float32, 896)
+    with pytest.raises(ValueError):
         lm._plan("wgmma", torch.bfloat16, 768)
+
+
+# The card holds the 3xTF32 backward's dh and dW of f32 h to this limit on
+# ||got - ref||_F / ||ref||_F against the plain f32 version (chip_smoke.py
+# and tests/test_torch_cuda.py: GRAD_F32_FROB_TOL).
+GRAD_F32_FROB_TOL = 5e-6
+
+
+def _tf32_split(x):
+    """x = big + small as the kernel hands them to the TF32 tensor cores
+    (``split_tf32`` in csrc/mma_sync.cuh), emulated by bit operations on the
+    int32 view: big is x rounded to TF32 at mantissa bit 13, to nearest with
+    ties away from zero (0x1000 added to the bits, the low 13 dropped, as
+    cvt.rna.tf32.f32 rounds); small = x - big exactly, with its low 13 bits
+    dropped as the tensor core drops them. (Ties to even would differ on one
+    value in 8192, by one TF32 step.)"""
+    bits = x.contiguous().view(torch.int32)
+    big = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    small = ((x - big).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return big, small
+
+
+def _tf32_product(a, b, terms):
+    """a @ b as the kernel's TF32 mma.sync passes give it: each operand split
+    by ``_tf32_split``; ``terms`` 3 sums a_small b_big + a_big b_small +
+    a_big b_big (3xTF32), 2 drops a_small b_big, 1 is a_big b_big alone. A
+    TF32 product is exact in f32; the sums here are f32 matmuls (the kernel
+    adds short tensor-core sums in f32 too)."""
+    a_big, a_small = _tf32_split(a)
+    b_big, b_small = _tf32_split(b)
+    out = torch.zeros(a.shape[0], b.shape[1])
+    if terms == 3:
+        out = out + a_small @ b_big
+    if terms >= 2:
+        out = out + a_big @ b_small
+    return out + a_big @ b_big
+
+
+def _tf32_backward(h, w, labels, lse, g, terms):
+    """dh and dW as the two kernels compute them: dh's S = h . Wᵀ (A = h),
+    dW's Sᵀ = W . hᵀ (A = W), then dl in f32 and dl . W, dlᵀ . h (A = dl)."""
+    onehot = lm._onehot(labels, w.shape[0], torch.zeros(h.shape[0], w.shape[0]))
+
+    def dl(s):
+        return (torch.exp(s - lse[:, None]) - onehot) * g[:, None]
+
+    dh = _tf32_product(dl(_tf32_product(h, w.t(), terms)), w, terms)
+    dw = _tf32_product(dl(_tf32_product(w, h.t(), terms).t()).t(), h, terms)
+    return dh, dw
+
+
+@pytest.mark.parametrize("terms", [3, 2, 1])
+def test_tf32x3_reaches_the_f32_limit_and_fewer_terms_do_not(terms):
+    """The numerics the 3xTF32 backward relies on, at N = 256, V = 2048,
+    H = 768 with GPT-2's scales (W ~ 0.02 N(0, 1), h ~ N(0, 1)): the
+    emulated dh and dW against the plain f32 version (``lm_loss_bwd_plain``)
+    in relative Frobenius norm. Three terms come within GRAD_F32_FROB_TOL
+    (about 4e-7, the plain version's own f32 rounding); two terms (a_small
+    b_big dropped, ~1.5e-4) and one pass (~2.5e-4) fall outside it, so the
+    card's limit tells them apart."""
+    rng = np.random.RandomState(23)
+    n, v, hid = 256, 2048, 768
+    h = torch.from_numpy(rng.randn(n, hid).astype(np.float32))
+    w = torch.from_numpy((rng.randn(v, hid) * 0.02).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, v, (n,)).astype(np.int32))
+    labels[::17] = -100
+    g = torch.from_numpy(rng.rand(n).astype(np.float32))
+    _, lse = lm.lm_loss_fwd_plain(h, w, labels)
+    pdh, pdw = lm.lm_loss_bwd_plain(h, w, labels, lse, g)
+    dh, dw = _tf32_backward(h, w, labels, lse, g, terms)
+    for got, ref in ((dh, pdh), (dw, pdw)):
+        err = ((got - ref).norm() / ref.norm()).item()
+        if terms == 3:
+            assert err <= GRAD_F32_FROB_TOL / 4, err
+        else:
+            assert err > 10 * GRAD_F32_FROB_TOL, err
+
+
+def test_backward_variants_tool_edits_apply_to_the_kernel_sources():
+    """tools/lmloss_bwd_variants.py, which times and checks the 3xTF32
+    backward's ablations and mutants on the card, names edits that each
+    match the kernel sources exactly once: its two mutants drop one and two
+    of mma_tf32x3's three passes, and an edit that no longer matches raises."""
+    from paddle_tpu_torch.tools import lmloss_bwd_variants as tool
+
+    tool.check()
+    sources = {f: (tool.CSRC / f).read_text() for f in ("lm_loss.cu", "mma_sync.cuh")}
+    passes = sources["mma_sync.cuh"].count("  mma_tf32_all(d, ")
+    assert passes == 3
+    for name, dropped in (("two_term", 1), ("one_pass", 2)):
+        assert tool.edited(name, sources)["mma_sync.cuh"].count("  mma_tf32_all(d, ") == (
+            passes - dropped)
+    with pytest.raises(ValueError):
+        tool.edited("one_pass", tool.edited("two_term", sources))
 
 
 @pytest.mark.parametrize("dtype,route", [("bfloat16", "mma"), ("float32", "fma")])
