@@ -14,9 +14,10 @@ each:
    library (yardstick only) times: the flash forward (bf16 on the tensor
    cores, with its FMA predecessor checked and timed beside it; f32 on the
    FMA kernel), then the FA2 backward's dK/dV and dQ kernels (bf16 on the
-   tensor cores, with the FMA pair checked and timed beside them; f32 on the
-   FMA pair), with SDPA's FA2 (flash backend) forward and backward pinned
-   as the yardstick.
+   bf16 tensor cores, f32 on the TF32 tensor cores in 3xTF32, each with the
+   FMA pair checked and timed beside it), with SDPA's FA2 (flash backend)
+   forward and backward pinned as the bf16 yardstick and SDPA's default
+   dispatch as the f32 one.
 3. scoring forward of GPT-2 124M (random weights from a seed), ids [8, 1024]:
    the flash kernel (the FMA one: scoring is f32) must launch exactly once
    per layer, the logits must be
@@ -35,9 +36,11 @@ each:
    (all three on the tensor cores);
    the loss is finite and falls; every gradient is finite and not all zero.
    Step time, tokens/s, peak memory, and one profiled step's busy share;
-   then 1 + 3 steps of the same step in f32 (step time only).
+   then 1 + 3 steps of the same step in f32 (train_f32: 12 launches a step
+   of the FMA forward and of each 3xTF32 backward kernel), its step time and
+   one profiled f32 step.
 7. train_vs_cpu: one f32 step at full width and 2 layers, ids [1, 1024], on
-   the card (the FMA backward pair) and on the CPU (plain path): loss and
+   the card (the 3xTF32 backward pair) and on the CPU (plain path): loss and
    every gradient.
 8. library_ops, the direct-call LayerNorm and LM-loss ops (the JAX
    package's examples/pallas_library_ops.py at full width): each of their
@@ -59,9 +62,9 @@ each:
 9. lmloss_compile_probe: the LM-loss forward's stripped variants at the
    probe's defaults, checked and timed, with ptxas's registers and spills.
 10. the ``kernels`` line: every ported kernel with the path that launched
-   it (the training main path's timed steps, or a library_ops pass; the
-   LM-loss backward once for each dtype of h, its route in
-   ``kernel_route``), its
+   it (the training main path's timed steps, the f32 steps, scoring, or a
+   library_ops pass; the flash backward and the LM-loss backward once for
+   each dtype, the route in ``kernel_route``), its
    launches there and its numbers from the kernel_vs_plain phases at that
    path's shape and dtype.
 
@@ -95,10 +98,13 @@ BF16_TOL = 2e-2         # kernel vs plain, bf16: times max|o| (p rounds to bf16
 LOGITS_TOL = 2e-3       # card vs CPU, or kernel vs dense masked path, f32
                         # logits of ~0.5 scale after 12 layers
 GRAD_F32_TOL = 1e-4     # backward kernels vs plain, f32: times max(1, max|ref|)
-GRAD_F32_FROB_TOL = 5e-6  # ... LM-loss dh and dW of f32 h, besides GRAD_F32_TOL:
-                        # ||got - ref||_F / ||ref||_F (f32 sums in another order
-                        # read ~4e-7; a TF32 product without its error
-                        # compensation ~2e-4, and its dh passes GRAD_F32_TOL)
+GRAD_F32_FROB_TOL = 5e-6  # ... the f32 gradients of the 3xTF32 kernels and of
+                        # their FMA predecessors, besides GRAD_F32_TOL: LM-loss dh
+                        # and dW of f32 h, ||got - ref||_F / ||ref||_F; the flash
+                        # backward's dq, dk, dv in each (b, h) head (head_rel_frob).
+                        # f32 sums in another order read ~4e-7; a TF32 product
+                        # without its error compensation ~2e-4 (LM loss) or ~5e-4
+                        # (flash), and the LM loss's dh passes GRAD_F32_TOL then
 GRAD_BF16_FROB_TOL = 1e-2  # ... bf16, besides BF16_TOL x max|ref|: each (b, h)
                         # head's ||got - ref||_F / ||ref||_F (causal P[0, 0] = 1
                         # makes dV[0] = dO[0], so max|ref| is ~50x a typical
@@ -163,12 +169,14 @@ def _bound(flops, nbytes, dtype):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def attention_bound(b, h, sq, sk, d, causal, dtype, products=2, seq_tensors=None):
+def attention_bound(b, h, sq, sk, d, causal, dtype, products=2, seq_tensors=None,
+                    peak=None):
     """Least time of the card for attention work: each input read once, each
     output written once, and ``products`` matrix products over the (q, k)
-    pairs these inputs need (the causal half only). ``seq_tensors`` =
-    (tensors of length sq, of length sk, f32 rows of length sq) moved; the
-    forward's (q and o, k and v, lse) by default."""
+    pairs these inputs need (the causal half only), at the peak of ``peak``
+    (a PEAK_FLOPS key; dtype's by default). ``seq_tensors`` = (tensors of
+    length sq, of length sk, f32 rows of length sq) moved; the forward's (q
+    and o, k and v, lse) by default."""
     if causal:
         pairs = (sq * (sq + 1) // 2 if sq <= sk
                  else sk * (sk + 1) // 2 + (sq - sk) * sk)
@@ -178,7 +186,7 @@ def attention_bound(b, h, sq, sk, d, causal, dtype, products=2, seq_tensors=None
     n_q, n_k, n_rows = seq_tensors or (2, 2, 1)
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = esize * d * b * h * (n_q * sq + n_k * sk) + 4 * b * h * sq * n_rows
-    return _bound(flops, nbytes, dtype)
+    return _bound(flops, nbytes, dtype if peak is None else peak)
 
 
 def phase_env():
@@ -359,11 +367,15 @@ def phase_kernels_bwd():
     """The FA2 backward's dK/dV and dQ kernels vs their plain version, with
     SDPA's backward (all three gradients at once) as the library yardstick:
     pinned to its flash backend (FA2) for bf16, the default dispatch for f32,
-    both by ``device_ms`` (``sdpa_yardstick``). bf16 takes the tensor-core
-    pair (checked for its route) and its FMA predecessor (the private
-    route="fma") is held to the same limits on the same inputs, each
-    gradient at BF16_TOL x max|ref| and at GRAD_BF16_FROB_TOL by
-    ``head_rel_frob``; f32 takes the FMA pair, at GRAD_F32_TOL. The timed cases time the kernels by ``device_ms``
+    both by ``device_ms`` (``sdpa_yardstick``, with the name of the kernel
+    it ran). bf16 takes the bf16 tensor-core pair, f32 the 3xTF32 pair (each
+    checked for its route), and the FMA predecessor (the private
+    route="fma") is held to the same limits on the same inputs: bf16
+    gradients at BF16_TOL x max|ref| and GRAD_BF16_FROB_TOL, f32 ones at
+    GRAD_F32_TOL x max(1, max|ref|) and GRAD_F32_FROB_TOL, the Frobenius
+    limits in each (b, h) head (``head_rel_frob``). The f32 rows' bound
+    counts three TF32 products each (f32 accuracy), the FP32 units' bound
+    beside it. The timed cases time the kernels by ``device_ms``
     (``kernel_ms``, like the yardstick; the FMA predecessor's beside it) and
     by ``cuda_ms`` (a warm loop, ``cuda_ms``). Returns {case: {"dkdv": rec,
     "dq": rec}} for the timed cases."""
@@ -382,6 +394,11 @@ def phase_kernels_bwd():
         ("sq77_sk300_d128_bf16_noncausal", 8, 77, 300, 6, 128, False, bf16, False),
         ("sq128_sk320_bf16_causal", 8, 128, 320, 12, 64, True, bf16, False),
         ("sq300_sk100_d128_bf16_causal", 8, 300, 100, 6, 128, True, bf16, False),
+        ("train_f32_noncausal", 8, 1024, 1024, 12, 64, False, f32, False),
+        ("d32_f32_causal", 8, 1024, 1024, 24, 32, True, f32, False),
+        ("d128_f32_causal", 8, 1024, 1024, 6, 128, True, f32, False),
+        ("ragged200_f32_causal", 8, 200, 200, 12, 64, True, f32, False),
+        ("sq128_sk320_f32_causal", 8, 128, 320, 12, 64, True, f32, False),
     ]
     out = {}
     for name, b, sq, sk, h, d, causal, dtype, timed in cases:
@@ -396,8 +413,8 @@ def phase_kernels_bwd():
         want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(*args)))
         tol = {g: (GRAD_F32_TOL * max(1.0, w.float().abs().max().item()) if dtype == f32
                    else BF16_TOL * w.float().abs().max().item()) for g, w in want.items()}
-        routes = [route] + (["fma"] if dtype == bf16 else [])
-        frob_tol = GRAD_BF16_FROB_TOL if dtype == bf16 else None
+        routes = [route] + (["fma"] if route != "fma" else [])
+        frob_tol = GRAD_BF16_FROB_TOL if dtype == bf16 else GRAD_F32_FROB_TOL
         err, frob = {}, {}
         for r in routes:
             forced = None if r == route else r
@@ -413,8 +430,7 @@ def phase_kernels_bwd():
             got = {"dq": dq, "dk": dk, "dv": dv}
             err[r] = {g: (got[g].float() - want[g].float()).abs().max().item() for g in got}
             frob[r] = {g: head_rel_frob(got[g], want[g]) for g in got}
-            if not all(err[r][g] <= tol[g] and (frob_tol is None or frob[r][g] <= frob_tol)
-                       for g in got):
+            if not all(err[r][g] <= tol[g] and frob[r][g] <= frob_tol for g in got):
                 raise AssertionError(f"flash backward kernel ({r}) disagrees with its plain "
                                      f"version on {name}: errors {err[r]} (tol {tol}), "
                                      f"head relative Frobenius {frob[r]} (tol {frob_tol})")
@@ -430,10 +446,12 @@ def phase_kernels_bwd():
             continue
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), iters=3)
         yard = sdpa_yardstick(q, k, v, do, causal)
-        if name == "train_bf16_causal":
-            emit(phase="fa2_yardstick", case=name, shape=[b, sq, sk, h, d], causal=causal,
+        if name in ("train_bf16_causal", "train_f32_causal"):
+            emit(phase="fa2_yardstick" if dtype == bf16 else "sdpa_yardstick", case=name,
+                 shape=[b, sq, sk, h, d], causal=causal,
                  dtype=str(dtype).replace("torch.", ""), timing="device_ms", **yard)
         library_ms = yard.get("flash_bwd_ms", yard["default_bwd_ms"])
+        library_kernels = yard.get("flash_bwd_kernels", yard["default_bwd_kernels"])
         rows = {}
         for kernel, fn, grads, products, moved in (
                 ("dkdv", fa.flash_attention_bwd_dkdv, ("dk", "dv"),
@@ -442,6 +460,12 @@ def phase_kernels_bwd():
                  3, (3, 2, 2))):   # q, dO in, dq out; k, v in; lse, delta
             bound_ms, bound_by = attention_bound(b, h, sq, sk, d, causal, dtype,
                                                  products, moved)
+            extra = {}
+            if route == "tf32x3":
+                # f32 accuracy on the tensor cores: three TF32 products each
+                extra["fp32_bound_ms"] = bound_ms
+                bound_ms, bound_by = attention_bound(b, h, sq, sk, d, causal, dtype,
+                                                     3 * products, moved, peak="tf32")
             rows[kernel] = dict(
                 case=name, shape=[b, sq, sk, h, d], causal=causal,
                 dtype=str(dtype).replace("torch.", ""), kernel_route=route,
@@ -451,7 +475,8 @@ def phase_kernels_bwd():
                 kernel_ms=device_ms(lambda: fn(*args)),
                 cuda_ms=cuda_ms(lambda: fn(*args)), plain_ms=plain_ms,
                 library_ms=library_ms, library_default_ms=yard["default_bwd_ms"],
-                bound_ms=bound_ms, bound_by=bound_by, timing="device_ms")
+                library_kernels=library_kernels, bound_ms=bound_ms, bound_by=bound_by,
+                timing="device_ms", **extra)
             if route != "fma":
                 rows[kernel].update(
                     fma_max_abs_err=max(err["fma"][g] for g in grads),
@@ -650,8 +675,9 @@ def _steps(engine, ids, labels, n):
 
 def phase_train(ids):
     """bench.py's step on the port: GPT-2 124M, bf16 auto_cast, AdamW; then
-    the same step in f32. Returns the launch counts of the timed bf16 steps
-    (the main path's run)."""
+    the same step in f32 (the FMA forward and the 3xTF32 backward pair).
+    Returns the launch counts of the timed bf16 steps (the main path's run)
+    and of the four f32 steps, each {kernel: n}."""
     from paddle_tpu_torch.amp import auto_cast
     from paddle_tpu_torch.models import GPTConfig
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -678,7 +704,8 @@ def phase_train(ids):
             raise AssertionError(f"the bf16 train steps' flash forwards took {fwd_routes}, "
                                  f"expected all {steps * cfg.num_layers} on the tensor cores")
         n = steps * cfg.num_layers
-        if bwd_routes != {"mma": {"dkdv": n, "dq": n}, "fma": {"dkdv": 0, "dq": 0}}:
+        if bwd_routes != {"mma": {"dkdv": n, "dq": n}, "tf32x3": {"dkdv": 0, "dq": 0},
+                          "fma": {"dkdv": 0, "dq": 0}}:
             raise AssertionError(f"the bf16 train steps' flash backwards took {bwd_routes}, "
                                  f"expected all {n} of each on the tensor cores")
         if not all(math.isfinite(x) for x in losses):
@@ -704,19 +731,37 @@ def phase_train(ids):
          wall_ms_untraced=median_ms, wall_ms_traced=wall, kernel_ms=kernel_ms,
          device_busy_share=kernel_ms / median_ms, top_kernels=top)
 
-    # the same step without autocast: every product in f32 (no TF32)
+    # the same step without autocast: every product at f32 accuracy (no
+    # TF32 in PyTorch's own; the flash backward pair in 3xTF32)
+    _reset_launch_counts()
     f32_losses, f32_ms = _steps(engine, ids, labels, 4)
+    f32_launches = _launch_counts()
+    f32_fwd_routes, f32_bwd_routes = dict(fa.launches_by_route), _bwd_routes()
+    n = 4 * cfg.num_layers
+    if f32_fwd_routes != {"mma": 0, "fma": n} or f32_bwd_routes != {
+            "mma": {"dkdv": 0, "dq": 0}, "tf32x3": {"dkdv": n, "dq": n},
+            "fma": {"dkdv": 0, "dq": 0}}:
+        raise AssertionError(f"the 4 f32 train steps' flash kernels took {f32_fwd_routes} "
+                             f"and {f32_bwd_routes}, expected {n} FMA forwards and {n} "
+                             f"3xTF32 launches of each backward kernel")
     if not all(math.isfinite(x) for x in f32_losses):
         raise AssertionError(f"non-finite f32 training loss: {f32_losses}")
     f32_median = statistics.median(f32_ms[1:])
+    wall, kernel_ms, top = device_profile(lambda: engine.step(ids, labels), top=10)
     emit(phase="train_f32", model="gpt2-124m", batch=list(ids.shape),
          warmup_steps=1, timed_steps=3, losses=f32_losses, step_ms=f32_ms[1:],
-         step_ms_median=f32_median, tokens_per_s=ids.numel() / (f32_median / 1e3))
-    return launches
+         step_ms_median=f32_median, tokens_per_s=ids.numel() / (f32_median / 1e3),
+         launches=f32_launches, flash_fwd_launches_by_route=f32_fwd_routes,
+         flash_bwd_launches_by_route=f32_bwd_routes)
+    emit(phase="profile", what="train_step_f32", batch=list(ids.shape),
+         wall_ms_untraced=f32_median, wall_ms_traced=wall, kernel_ms=kernel_ms,
+         device_busy_share=kernel_ms / f32_median, top_kernels=top)
+    return launches, f32_launches
 
 
 def phase_train_vs_cpu():
-    """One f32 step at full width, 2 layers, [1, 1024]: card vs CPU."""
+    """One f32 step at full width, 2 layers, [1, 1024]: card (the 3xTF32
+    backward pair) vs CPU."""
     from paddle_tpu_torch.models import GPTConfig
 
     cfg = GPTConfig(num_layers=2)
@@ -735,9 +780,10 @@ def phase_train_vs_cpu():
     if set(n_gpu.values()) != {cfg.num_layers} or set(n_cpu.values()) != {0}:
         raise AssertionError(f"launches: card {n_gpu}, CPU {n_cpu}")
     n = cfg.num_layers
-    if r_gpu != {"mma": {"dkdv": 0, "dq": 0}, "fma": {"dkdv": n, "dq": n}}:
+    if r_gpu != {"mma": {"dkdv": 0, "dq": 0}, "tf32x3": {"dkdv": n, "dq": n},
+                 "fma": {"dkdv": 0, "dq": 0}}:
         raise AssertionError(f"the f32 step's flash backwards took {r_gpu}, expected the "
-                             f"FMA pair")
+                             f"3xTF32 pair")
     loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
     if not loss_err <= TRAIN_LOSS_RTOL:
         raise AssertionError(f"card vs CPU loss {l_gpu} vs {l_cpu}")
@@ -1207,7 +1253,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    launches = phase_train(ids)
+    launches, f32_launches = phase_train(ids)
     torch.cuda.empty_cache()
     phase_train_vs_cpu()
     torch.cuda.empty_cache()
@@ -1218,8 +1264,9 @@ def main() -> int:
     phase_probe(per_source["lm_loss"] or None)
 
     # the training main path runs attention in bf16 at [8, 1024, 12, 64] (the
-    # tensor-core forward and backward pair), scoring in f32 (the FMA
-    # forward); the library ops are reported at the composition's shapes:
+    # tensor-core forward and backward pair), the f32 steps in f32 (the FMA
+    # forward, the 3xTF32 backward pair), scoring in f32 (the FMA forward);
+    # the library ops are reported at the composition's shapes:
     # LayerNorm in f32 (black-listed under O1), the LM loss with bf16 h and
     # an f32 master W (the bf16 tensor-core kernels) and in f32 (the FMA
     # forward, the 3xTF32 tensor-core backward)
@@ -1227,11 +1274,15 @@ def main() -> int:
     rows = [  # (name, path, record, source, replaces)
         ("flash_attention_fwd", "train", fwd["slice_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_fwd_f32", "score", fwd["slice_f32_causal"],
+        ("flash_attention_fwd_f32", "score, train_f32", fwd["slice_f32_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_bwd_dkdv", "train", bwd["train_bf16_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
         ("flash_attention_bwd_dq", "train", bwd["train_bf16_causal"]["dq"],
+         "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
+        ("flash_attention_bwd_dkdv_f32", "train_f32", bwd["train_f32_causal"]["dkdv"],
+         "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
+        ("flash_attention_bwd_dq_f32", "train_f32", bwd["train_f32_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
         ("layer_norm_fwd", "library_ops", ln_recs[torch.float32]["layer_norm_fwd"],
          "layer_norm.cu", pallas + "layer_norm.py:92"),
@@ -1257,7 +1308,10 @@ def main() -> int:
     # (3xTF32) from the f32 pass
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
     counts = {**launches,
-              "flash_attention_fwd_f32": score_launches,
+              "flash_attention_fwd_f32": score_launches
+              + f32_launches["flash_attention_fwd"],
+              "flash_attention_bwd_dkdv_f32": f32_launches["flash_attention_bwd_dkdv"],
+              "flash_attention_bwd_dq_f32": f32_launches["flash_attention_bwd_dq"],
               **{k: lib_f32[k] for k in ("layer_norm_fwd", "layer_norm_infer",
                                          "layer_norm_bwd")},
               "lm_loss_fwd": lib_bf16["lm_loss_fwd_mma"],

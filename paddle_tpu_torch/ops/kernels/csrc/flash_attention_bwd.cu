@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a), CUDA C++: the FA2 dK/dV and
-// dQ kernels, on the FP32 units (f32) and on the bf16 tensor cores (bf16).
+// dQ kernels, on the FP32 units, on the bf16 tensor cores (bf16) and on the
+// TF32 tensor cores in 3xTF32 (f32).
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
 // `_bwd_dkdv_kernel` and `_bwd_dq_kernel` (pl.pallas_call at lines 242 and
@@ -29,13 +30,15 @@
 // and dq 3 (19.3 GFLOP), since each recomputes S and dP. On the FP32 units
 // (67 TFLOP/s, no TF32) that is 0.385 ms for dkdv and 0.289 ms for dq; in
 // bf16 on tensor cores (989 TFLOP/s) 26 and 20 us, just above the bytes each
-// must move (76 and 64 MB: 23 and 19 us at 3.35 TB/s).
+// must move (76 and 64 MB: 23 and 19 us at 3.35 TB/s); in f32 as three TF32
+// products each (495 TFLOP/s) 0.156 and 0.117 ms.
 //
-// Two kernels for each function, picked by dtype (flash_attention.py's
-// backward_route): flash_bwd_{dkdv,dq}_kernel (f32, and bf16 when timed as
-// the predecessor) do every product with FMA on the FP32 units;
+// Three kernels for each function, picked by dtype (flash_attention.py's
+// backward_route): flash_bwd_{dkdv,dq}_kernel do every product with FMA on
+// the FP32 units (the predecessors, timed beside the others);
 // flash_bwd_{dkdv,dq}_mma_kernel (bf16) run every product on the bf16
-// tensor cores.
+// tensor cores; flash_bwd_{dkdv,dq}_tf32_kernel (f32) on the TF32 tensor
+// cores, each product as three (3xTF32), which keeps f32 accuracy.
 //
 // FMA kernels. Thread (ty = tid/16, tx = tid%16) of 128 owns 8 rows of the
 // CTA's own tile (kv rows for dkdv, q rows for dq) and, for the S and dP
@@ -83,6 +86,33 @@
 // not (flash_attention.py `_mma_operand`). Shared memory: six tiles of 64
 // rows of d + 8 bf16 (55 KB at d = 64, 104 KB at d = 128), and for dkdv two
 // 64-float lse and delta rows.
+//
+// 3xTF32 kernels (mma.sync.m16n8k8 .tf32, the TF32 fragments and split_tf32
+// of mma_sync.cuh). The bf16 pair's grids, splits, causal order, warps and
+// cp.async double buffers, on f32 tiles of 64 rows of d + 4 floats (105 KB
+// at d = 64, 204 KB at d = 128). Each f32 value is split into a TF32 big and
+// small part where it is loaded, and each product is a_small b_big + a_big
+// b_small + a_big b_big: one TF32 pass errs by ~2^-11 of a product.
+//   - The other side's tile is taken in passes of 32 rows (16 at d = 128),
+//     so that the pass's S and dP tiles and the split P and dS fragments fit
+//     in registers beside dK and dV (dQ). S and dP read both operands
+//     through ldmatrix (an f32 [m][k] or [n][k] tile's 8 x 4 blocks are
+//     ldmatrix's 8 x 8 b16 blocks).
+//   - P and dS go from C fragments straight into A fragments with no
+//     shuffle: a C fragment holds columns 2tq and 2tq + 1 where an A
+//     fragment wants k tq and tq + 4, so k slot tq is read as column 2tq and
+//     slot tq + 4 as column 2tq + 1, and the accumulating products' B (dO
+//     and Q in dkdv, K in dq: k-major, which ldmatrix cannot transpose at 32
+//     bits) takes scalar loads in the same k order. Each P and dS value is
+//     split once.
+//   - The tensor core truncates as it accumulates, and dK, dV, dQ sum up to
+//     sq or sk rows: each pass is summed in a fresh accumulator and added in
+//     f32 (mma_sync.cuh add_frags). S and dP sum at most 16 k8 steps and
+//     keep one accumulator.
+//   - exp as exp2(fma(s, scale, -lse) * log2e) on the MUFU: the argument
+//     rounds once, as expf's does in the FMA kernels. Masked entries get P =
+//     0 by index.
+//   - Outputs leave as float2 stores from the C fragments.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -487,12 +517,14 @@ constexpr int dq_mma_smem_bytes() {
   return 6 * 64 * (D + MPAD) * 2;  // Q, dO, two K and two V tiles
 }
 
-// rows r0.. of a [rows, D] bf16 operand with row stride ss -> dst [64][D +
-// MPAD], asynchronously; rows past `rows` as zeros
-template <int D>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long ss, int r0, int rows) {
-  mma_sync::stage_rows<64, NTHREADS>(dst, D + MPAD, src, ss, D / 8, r0, rows);
+// rows r0.. of a [rows, D] bf16 or f32 operand with row stride ss -> dst
+// [64][D + 16 bytes] (D + MPAD bf16, D + FPAD f32), asynchronously; rows past
+// `rows` as zeros
+template <int D, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ss, int r0,
+                                           int rows) {
+  constexpr int V = 16 / sizeof(T);  // elements in 16 bytes
+  mma_sync::stage_rows<64, NTHREADS>(dst, D + V, src, ss, D / V, r0, rows);
 }
 
 // lse and delta of q rows q0..q0+63 -> dst[0..63], dst[64..127] (one float a
@@ -833,6 +865,342 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dq_mma_kernel(const Par
   store_rows<D>(acc, sQ + warp * 16 * LD, LD, dq_out, p.dq_ss, w0, p.sq);
 }
 
+// ------------------------------------------- 3xTF32 tensor-core kernels (f32)
+
+// a staged f32 row's padding: 4 elements (16 bytes), as MPAD for bf16
+constexpr int FPAD = 4;
+
+// other-side rows a pass: the pass's S and dP tiles, and the P and dS A
+// fragments made from them, live in registers beside the warp's [16, D]
+// accumulators (64 at d = 64 for dK and dV, 128 at d = 128)
+template <int D>
+constexpr int TF32_PASS = D <= 64 ? 32 : 16;
+
+// n8 tiles of an accumulating product summed in one fresh accumulator: 4
+// (32 output columns), 2 at d = 128, where dK and dV alone take 128
+// registers and the pass's temporaries must fit beside them
+template <int D>
+constexpr int TF32_GROUP = D <= 64 ? 4 : 2;
+
+// a warp's [16, D] f32 accumulator: groups of TF32_GROUP n8 C fragments
+template <int D>
+using Tf32Acc = float[D / (8 * TF32_GROUP<D>)][1][TF32_GROUP<D>][4];
+
+template <int D>
+constexpr int tf32_smem_bytes(Which which) {
+  // two own tiles and two double-buffered other tiles of 64 rows of D + FPAD
+  // floats; dkdv adds two [lse 64 | delta 64] rows
+  return 6 * 64 * (D + FPAD) * 4 + (which == Which::kDkdv ? 2 * 128 * 4 : 0);
+}
+
+// the A register that holds C fragment entry e of an n8 tile made into the A
+// fragment of a k8 step: {c0, c2, c1, c3}, so that A's k slot tq is the
+// tile's column 2tq and slot tq + 4 its column 2tq + 1
+__device__ __forceinline__ constexpr int a_slot(int e) { return ((e & 1) << 1) | (e >> 1); }
+
+// s = own_s . other_s^T and dp = own_p . other_p^T for the warp's 16 own rows
+// and NJ n8 tiles of other rows (one pass), summed over d in 3xTF32
+// (mma_sync.cuh). A fragments (own rows, [m][k]) through ldmatrix at the byte
+// addresses a_* (a_lane), B fragments (other rows, [n][k]) at b_* (b_lane,
+// at the pass's first row); each value is split where it is loaded. The sum
+// over d (at most 16 k8 steps) stays in one accumulator, fresh each pass.
+template <int D, int NJ>
+__device__ __forceinline__ void tf32_scores(float (&s)[1][NJ][4], float (&dp)[1][NJ][4],
+                                            unsigned a_s, unsigned b_s, unsigned a_p,
+                                            unsigned b_p) {
+  using namespace mma_sync;
+  constexpr int LD = D + FPAD;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[0][j][e] = dp[0][j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      unsigned r[4], ab[1][4], as[1][4], bb[NJ][2], bs[NJ][2];
+      ldsm_x4((m ? a_p : a_s) + ks * 32, r);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) split_tf32(r[x], ab[0][x], as[0][x]);
+#pragma unroll
+      for (int np = 0; np < NJ / 2; ++np) {
+        ldsm_x4((m ? b_p : b_s) + (np * 16 * LD + ks * 8) * 4, r);
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          split_tf32(r[x], bb[2 * np + (x >> 1)][x & 1], bs[2 * np + (x >> 1)][x & 1]);
+      }
+      if (m)
+        mma_tf32x3(dp, ab, as, bb, bs);
+      else
+        mma_tf32x3(s, ab, as, bb, bs);
+    }
+  }
+}
+
+// acc[16 own rows, D] += A . B over NK k8 steps in 3xTF32. A: the split P or
+// dS fragments of the pass (a_slot's k order). B: rows (k) of a staged
+// [k][n] f32 tile from `rows` (the pass's first), read in the same k order
+// by scalar loads, since ldmatrix cannot transpose 32-bit elements (at a row
+// stride of 4 banks the 32 lanes meet no shared bank). Each group of
+// TF32_GROUP n8 tiles sums the pass in a fresh accumulator, added to acc in
+// f32: the tensor core truncates as it accumulates, and acc sums up to sq or
+// sk rows.
+template <int D, int NK>
+__device__ __forceinline__ void tf32_product(Tf32Acc<D>& acc, const unsigned (&ab)[NK][1][4],
+                                             const unsigned (&as)[NK][1][4],
+                                             const float* rows) {
+  using namespace mma_sync;
+  constexpr int LD = D + FPAD;
+  constexpr int G = TF32_GROUP<D>;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const float* b = rows + 2 * tq * LD + gq;
+#pragma unroll
+  for (int g = 0; g < D / (8 * G); ++g) {
+    float part[1][G][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      unsigned bb[G][2], bs[G][2];
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          split_tf32(__float_as_uint(b[(kk * 8 + e) * LD + (g * G + j) * 8]), bb[j][e], bs[j][e]);
+      mma_tf32x3(part, ab[kk], as[kk], bb, bs);
+    }
+    add_frags(acc[g], part);
+  }
+}
+
+// A warp's f32 [16, D] accumulator out to rows w0.. of a [rows, D] f32
+// output of row stride ss, a float2 a lane and row
+template <int D>
+__device__ __forceinline__ void store_rows_f32(const Tf32Acc<D>& acc, float* out, long long ss,
+                                               int w0, int rows) {
+  constexpr int G = TF32_GROUP<D>;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = w0 + gq + 8 * i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int g = 0; g < D / (8 * G); ++g)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        *reinterpret_cast<float2*>(out + row * ss + (g * G + j) * 8 + 2 * tq) =
+            make_float2(acc[g][0][j][2 * i], acc[g][0][j][2 * i + 1]);
+  }
+}
+
+// dK/dV in 3xTF32: the bf16 kernel's grid, split, causal order and cp.async
+// double buffer of Q, dO, lse and delta, on f32 tiles. Each q tile is taken
+// in passes of QC columns: S^T = K_w Q^T and dP^T = V_w dO^T (tf32_scores),
+// P^T and dS^T straight into split A fragments, dV += P^T dO and dK += dS^T Q
+// (tf32_product).
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkdv_tf32_kernel(const Params p) {
+  using namespace mma_sync;
+  constexpr int LD = D + FPAD;
+  constexpr int QC = TF32_PASS<D>;   // q columns a pass
+  constexpr int NJ = QC / 8;           // n8 tiles of S^T a pass = k8 steps of dV, dK
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);  // [BK][LD]
+  float* sV = sK + BK * LD;                     // [BK][LD]
+  float* sQ = sV + BK * LD;                     // 2 x [BQ][LD]
+  float* sdO = sQ + 2 * BQ * LD;                // 2 x [BQ][LD]
+  float* sStat = sdO + 2 * BQ * LD;             // 2 x [lse | delta]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int k0 = blockIdx.y * BK;  // causal: the first kv tiles see the most q tiles
+  const int w0 = k0 + warp * 16;   // this warp's first kv row
+
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* lse = p.lse + static_cast<long long>(bh) * p.sq;
+  const float* delta = p.delta + static_cast<long long>(bh) * p.sq;
+
+  // causal: q tiles that end before this kv tile starts see none of it
+  const int n_q = (p.sq + BQ - 1) / BQ;
+  const int qt0 = p.causal ? k0 / BQ : 0;
+  stage_tile<D>(sK, k, p.k_ss, k0, p.sk);
+  stage_tile<D>(sV, v, p.v_ss, k0, p.sk);
+  if (qt0 < n_q) {
+    stage_tile<D>(sQ, q, p.q_ss, qt0 * BQ, p.sq);
+    stage_tile<D>(sdO, dout, p.do_ss, qt0 * BQ, p.sq);
+    stage_row_stats(sStat, lse, delta, qt0 * BQ, p.sq);
+  }
+  cp_async_commit();
+
+  const unsigned kA = smem_u32(sK + warp * 16 * LD + a_lane(lane, LD, 4));
+  const unsigned vA = smem_u32(sV + warp * 16 * LD + a_lane(lane, LD, 4));
+  const unsigned bl = b_lane(lane, LD, 4) * 4;
+
+  Tf32Acc<D> dk = {}, dv = {};
+
+  for (int qt = qt0; qt < n_q; ++qt) {
+    const int q0 = qt * BQ;
+    const int buf = (qt - qt0) & 1;
+    cp_async_wait<0>();  // q tile qt has landed ...
+    __syncthreads();     // ... for every thread; tile qt - 1's buffers are free
+    if (qt + 1 < n_q) {
+      stage_tile<D>(sQ + (buf ^ 1) * BQ * LD, q, p.q_ss, q0 + BQ, p.sq);
+      stage_tile<D>(sdO + (buf ^ 1) * BQ * LD, dout, p.do_ss, q0 + BQ, p.sq);
+      stage_row_stats(sStat + (buf ^ 1) * 128, lse, delta, q0 + BQ, p.sq);
+      cp_async_commit();
+    }
+    const float* tQ = sQ + buf * BQ * LD;
+    const float* tdO = sdO + buf * BQ * LD;
+    const float* st = sStat + buf * 128;
+    const bool masked = (p.causal && w0 + 15 > q0) || q0 + BQ > p.sq || w0 + 16 > p.sk;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < BQ; c0 += QC) {
+      float s[1][NJ][4], dp[1][NJ][4];
+      tf32_scores<D, NJ>(s, dp, kA, smem_u32(tQ + c0 * LD) + bl, vA,
+                         smem_u32(tdO + c0 * LD) + bl);
+
+      // P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale, with
+      // lse and delta those of the columns (q rows), split into the A
+      // fragments of dV's and dK's k8 steps
+      unsigned pb[NJ][1][4], ps[NJ][1][4], db[NJ][1][4], dsm[NJ][1][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = c0 + j * 8 + 2 * tq;
+        const float2 l2 = *reinterpret_cast<const float2*>(st + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(st + 64 + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse_c = (e & 1) ? l2.y : l2.x;
+          const float delta_c = (e & 1) ? d2.y : d2.x;
+          float pe = exp2_approx(fmaf(s[0][j][e], p.scale, -lse_c) * LOG2E);
+          if (masked) {
+            const int qpos = q0 + col + (e & 1);
+            const int kpos = w0 + gq + (e >> 1) * 8;
+            if ((p.causal && kpos > qpos) || qpos >= p.sq || kpos >= p.sk) pe = 0.f;
+          }
+          const float ds = pe * (dp[0][j][e] - delta_c) * p.scale;
+          split_tf32(__float_as_uint(pe), pb[j][0][a_slot(e)], ps[j][0][a_slot(e)]);
+          split_tf32(__float_as_uint(ds), db[j][0][a_slot(e)], dsm[j][0][a_slot(e)]);
+        }
+      }
+      tf32_product<D, NJ>(dv, pb, ps, tdO + c0 * LD);
+      tf32_product<D, NJ>(dk, db, dsm, tQ + c0 * LD);
+    }
+  }
+
+  cp_async_wait<0>();  // a causal kv tile past sq ran no q tile
+  store_rows_f32<D>(dk, static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh, p.dk_ss, w0,
+                    p.sk);
+  store_rows_f32<D>(dv, static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh, p.dv_ss, w0,
+                    p.sk);
+}
+
+// dQ in 3xTF32: the bf16 kernel's grid, causal order and cp.async double
+// buffer of K and V, on f32 tiles. Each kv tile is taken in passes of KC
+// columns: S = Q_w K^T and dP = dO_w V^T (tf32_scores), dS straight into
+// split A fragments, dQ += dS K (tf32_product).
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dq_tf32_kernel(const Params p) {
+  using namespace mma_sync;
+  constexpr int LD = D + FPAD;
+  constexpr int KC = TF32_PASS<D>;   // kv columns a pass
+  constexpr int NJ = KC / 8;           // n8 tiles of S a pass = k8 steps of dQ
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);  // [BQ][LD]
+  float* sdO = sQ + BQ * LD;                    // [BQ][LD]
+  float* sK = sdO + BQ * LD;                    // 2 x [BK][LD]
+  float* sV = sK + 2 * BK * LD;                 // 2 x [BK][LD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  const int w0 = q0 + warp * 16;                     // this warp's first q row
+
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* lse = p.lse + static_cast<long long>(bh) * p.sq;
+  const float* delta = p.delta + static_cast<long long>(bh) * p.sq;
+
+  // causal: kv tiles starting past this tile's last query row contribute nothing
+  int n_kv = (p.sk + BK - 1) / BK;
+  if (p.causal) {
+    const int last_q = min(q0 + BQ, p.sq) - 1;
+    n_kv = min(n_kv, last_q / BK + 1);
+  }
+  stage_tile<D>(sQ, q, p.q_ss, q0, p.sq);
+  stage_tile<D>(sdO, dout, p.do_ss, q0, p.sq);
+  stage_tile<D>(sK, k, p.k_ss, 0, p.sk);
+  stage_tile<D>(sV, v, p.v_ss, 0, p.sk);
+  cp_async_commit();
+
+  const unsigned qA = smem_u32(sQ + warp * 16 * LD + a_lane(lane, LD, 4));
+  const unsigned dA = smem_u32(sdO + warp * 16 * LD + a_lane(lane, LD, 4));
+  const unsigned bl = b_lane(lane, LD, 4) * 4;
+  // rows gq and gq + 8: lse and delta (0 past sq: masked)
+  float lse_r[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = w0 + gq + 8 * i;
+    lse_r[i] = row < p.sq ? lse[row] : 0.f;
+    dlt[i] = row < p.sq ? delta[row] : 0.f;
+  }
+
+  Tf32Acc<D> acc = {};
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait<0>();  // tile kt has landed ...
+    __syncthreads();     // ... for every thread; tile kt - 1's buffers are free
+    if (kt + 1 < n_kv) {
+      stage_tile<D>(sK + ((kt + 1) & 1) * BK * LD, k, p.k_ss, k0 + BK, p.sk);
+      stage_tile<D>(sV + ((kt + 1) & 1) * BK * LD, v, p.v_ss, k0 + BK, p.sk);
+      cp_async_commit();
+    }
+    const float* tK = sK + (kt & 1) * BK * LD;
+    const float* tV = sV + (kt & 1) * BK * LD;
+    const bool masked = (p.causal && k0 + BK - 1 > w0) || k0 + BK > p.sk || w0 + 16 > p.sq;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < BK; c0 += KC) {
+      float s[1][NJ][4], dp[1][NJ][4];
+      tf32_scores<D, NJ>(s, dp, qA, smem_u32(tK + c0 * LD) + bl, dA,
+                         smem_u32(tV + c0 * LD) + bl);
+
+      // P = exp(S scale - lse) and dS = P (dP - delta) scale, split into the
+      // A fragments of dQ's k8 steps
+      unsigned db[NJ][1][4], dsm[NJ][1][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pe = exp2_approx(fmaf(s[0][j][e], p.scale, -lse_r[e >> 1]) * LOG2E);
+          if (masked) {
+            const int kpos = k0 + c0 + j * 8 + 2 * tq + (e & 1);
+            const int qpos = w0 + gq + (e >> 1) * 8;
+            if ((p.causal && kpos > qpos) || kpos >= p.sk || qpos >= p.sq) pe = 0.f;
+          }
+          const float ds = pe * (dp[0][j][e] - dlt[e >> 1]) * p.scale;
+          split_tf32(__float_as_uint(ds), db[j][0][a_slot(e)], dsm[j][0][a_slot(e)]);
+        }
+      }
+      tf32_product<D, NJ>(acc, db, dsm, tK + c0 * LD);
+    }
+  }
+
+  store_rows_f32<D>(acc, static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh, p.dq_ss, w0,
+                    p.sq);
+}
+
 template <int D>
 cudaError_t launch_mma(Which which, const Params& p, int bh, cudaStream_t stream) {
   if (which == Which::kDkdv) {
@@ -853,28 +1221,55 @@ cudaError_t launch_mma(Which which, const Params& p, int bh, cudaStream_t stream
   return cudaGetLastError();
 }
 
-// The tensor-core route: every bf16 operand and output 16-byte aligned, with
-// batch, seq and head strides multiples of 8 elements (cp.async and the
-// epilogue move 16-byte pieces); else cudaErrorInvalidValue.
-int run_mma(Which which, const Params& p, int head_dim, int batch, void* stream) {
+template <int D>
+cudaError_t launch_tf32(Which which, const Params& p, int bh, cudaStream_t stream) {
+  if (which == Which::kDkdv) {
+    constexpr int smem = tf32_smem_bytes<D>(Which::kDkdv);
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_tf32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(bh, (p.sk + BK - 1) / BK);
+    flash_bwd_dkdv_tf32_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+  } else {
+    constexpr int smem = tf32_smem_bytes<D>(Which::kDq);
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tf32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(bh, (p.sq + BQ - 1) / BQ);
+    flash_bwd_dq_tf32_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+// The tensor-core routes, bf16 (f32 = false) or 3xTF32 (f32 = true): every
+// operand and output 16-byte aligned, with batch, seq and head strides
+// multiples of 8 bf16 or 4 f32 elements (cp.async and the epilogues move
+// 16-byte pieces); else cudaErrorInvalidValue.
+int run_tc(Which which, const Params& p, bool f32, int head_dim, int batch, void* stream) {
   const int bh = batch * p.heads;
   if (bh == 0 || p.sq == 0 || p.sk == 0) return static_cast<int>(cudaErrorInvalidValue);
   using mma_sync::aligned16;
+  const int vec = f32 ? 4 : 8;
   const bool ok =
-      aligned16(p.q, {p.q_sb, p.q_ss, p.q_sh}) && aligned16(p.k, {p.k_sb, p.k_ss, p.k_sh}) &&
-      aligned16(p.v, {p.v_sb, p.v_ss, p.v_sh}) &&
-      aligned16(p.dout, {p.do_sb, p.do_ss, p.do_sh}) &&
-      (which == Which::kDkdv ? aligned16(p.dk, {p.dk_sb, p.dk_ss, p.dk_sh}) &&
-                                   aligned16(p.dv, {p.dv_sb, p.dv_ss, p.dv_sh})
-                             : aligned16(p.dq, {p.dq_sb, p.dq_ss, p.dq_sh}));
+      aligned16(p.q, {p.q_sb, p.q_ss, p.q_sh}, vec) &&
+      aligned16(p.k, {p.k_sb, p.k_ss, p.k_sh}, vec) &&
+      aligned16(p.v, {p.v_sb, p.v_ss, p.v_sh}, vec) &&
+      aligned16(p.dout, {p.do_sb, p.do_ss, p.do_sh}, vec) &&
+      (which == Which::kDkdv ? aligned16(p.dk, {p.dk_sb, p.dk_ss, p.dk_sh}, vec) &&
+                                   aligned16(p.dv, {p.dv_sb, p.dv_ss, p.dv_sh}, vec)
+                             : aligned16(p.dq, {p.dq_sb, p.dq_ss, p.dq_sh}, vec));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   switch (head_dim) {
-    case 32: return static_cast<int>(launch_mma<32>(which, p, bh, st));
-    case 64: return static_cast<int>(launch_mma<64>(which, p, bh, st));
-    case 128: return static_cast<int>(launch_mma<128>(which, p, bh, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 32: e = f32 ? launch_tf32<32>(which, p, bh, st) : launch_mma<32>(which, p, bh, st); break;
+    case 64: e = f32 ? launch_tf32<64>(which, p, bh, st) : launch_mma<64>(which, p, bh, st); break;
+    case 128:
+      e = f32 ? launch_tf32<128>(which, p, bh, st) : launch_mma<128>(which, p, bh, st);
+      break;
+    default: e = cudaErrorInvalidValue;
   }
+  return static_cast<int>(e);
 }
 
 int run(Which which, const Params& p, int dtype, int head_dim, int batch, void* stream) {
@@ -910,6 +1305,30 @@ Params common(const void* q, const void* k, const void* v, const void* dout,
   return p;
 }
 
+// the dK/dV call's Params: outputs dk, dv with strides[12..17]
+Params dkdv_params(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, int heads, int sq,
+                   int sk, const long long* strides, float scale, int causal) {
+  Params p = common(q, k, v, dout, lse, delta, heads, sq, sk, strides, strides + 3,
+                    strides + 6, strides + 9, scale, causal);
+  p.dk = dk;
+  p.dv = dv;
+  p.dk_sb = strides[12]; p.dk_ss = strides[13]; p.dk_sh = strides[14];
+  p.dv_sb = strides[15]; p.dv_ss = strides[16]; p.dv_sh = strides[17];
+  return p;
+}
+
+// the dQ call's Params: output dq with strides[12..14]
+Params dq_params(const void* q, const void* k, const void* v, const void* dout,
+                 const void* lse, const void* delta, void* dq, int heads, int sq, int sk,
+                 const long long* strides, float scale, int causal) {
+  Params p = common(q, k, v, dout, lse, delta, heads, sq, sk, strides, strides + 3,
+                    strides + 6, strides + 9, scale, causal);
+  p.dq = dq;
+  p.dq_sb = strides[12]; p.dq_ss = strides[13]; p.dq_sh = strides[14];
+  return p;
+}
+
 }  // namespace
 
 // q, dout: [batch, sq, heads, head_dim]; k, v: [batch, sk, heads, head_dim],
@@ -925,13 +1344,10 @@ extern "C" int flash_attention_bwd_dkdv(const void* q, const void* k, const void
                                         int head_dim, int batch, int heads, int sq, int sk,
                                         const long long* strides, float scale, int causal,
                                         void* stream) {
-  Params p = common(q, k, v, dout, lse, delta, heads, sq, sk, strides, strides + 3,
-                    strides + 6, strides + 9, scale, causal);
-  p.dk = dk;
-  p.dv = dv;
-  p.dk_sb = strides[12]; p.dk_ss = strides[13]; p.dk_sh = strides[14];
-  p.dv_sb = strides[15]; p.dv_ss = strides[16]; p.dv_sh = strides[17];
-  return run(Which::kDkdv, p, dtype, head_dim, batch, stream);
+  return run(Which::kDkdv,
+             dkdv_params(q, k, v, dout, lse, delta, dk, dv, heads, sq, sk, strides, scale,
+                         causal),
+             dtype, head_dim, batch, stream);
 }
 
 // dQ: [batch, sq, heads, head_dim] (strides[12..14]).
@@ -940,28 +1356,24 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       void* dq, int dtype, int head_dim, int batch,
                                       int heads, int sq, int sk, const long long* strides,
                                       float scale, int causal, void* stream) {
-  Params p = common(q, k, v, dout, lse, delta, heads, sq, sk, strides, strides + 3,
-                    strides + 6, strides + 9, scale, causal);
-  p.dq = dq;
-  p.dq_sb = strides[12]; p.dq_ss = strides[13]; p.dq_sh = strides[14];
-  return run(Which::kDq, p, dtype, head_dim, batch, stream);
+  return run(Which::kDq,
+             dq_params(q, k, v, dout, lse, delta, dq, heads, sq, sk, strides, scale, causal),
+             dtype, head_dim, batch, stream);
 }
 
-// The tensor-core pair: bf16 operands and outputs as the two entries above
-// take them (no dtype argument), aligned as run_mma says.
+// The tensor-core pairs: operands and outputs as the two entries above take
+// them (no dtype argument: bf16 for _mma, f32 for _tf32), aligned as run_tc
+// says.
 extern "C" int flash_attention_bwd_dkdv_mma(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse,
                                             const void* delta, void* dk, void* dv,
                                             int head_dim, int batch, int heads, int sq,
                                             int sk, const long long* strides, float scale,
                                             int causal, void* stream) {
-  Params p = common(q, k, v, dout, lse, delta, heads, sq, sk, strides, strides + 3,
-                    strides + 6, strides + 9, scale, causal);
-  p.dk = dk;
-  p.dv = dv;
-  p.dk_sb = strides[12]; p.dk_ss = strides[13]; p.dk_sh = strides[14];
-  p.dv_sb = strides[15]; p.dv_ss = strides[16]; p.dv_sh = strides[17];
-  return run_mma(Which::kDkdv, p, head_dim, batch, stream);
+  return run_tc(Which::kDkdv,
+                dkdv_params(q, k, v, dout, lse, delta, dk, dv, heads, sq, sk, strides, scale,
+                            causal),
+                false, head_dim, batch, stream);
 }
 
 extern "C" int flash_attention_bwd_dq_mma(const void* q, const void* k, const void* v,
@@ -970,9 +1382,30 @@ extern "C" int flash_attention_bwd_dq_mma(const void* q, const void* k, const vo
                                           int batch, int heads, int sq, int sk,
                                           const long long* strides, float scale, int causal,
                                           void* stream) {
-  Params p = common(q, k, v, dout, lse, delta, heads, sq, sk, strides, strides + 3,
-                    strides + 6, strides + 9, scale, causal);
-  p.dq = dq;
-  p.dq_sb = strides[12]; p.dq_ss = strides[13]; p.dq_sh = strides[14];
-  return run_mma(Which::kDq, p, head_dim, batch, stream);
+  return run_tc(Which::kDq,
+                dq_params(q, k, v, dout, lse, delta, dq, heads, sq, sk, strides, scale, causal),
+                false, head_dim, batch, stream);
+}
+
+extern "C" int flash_attention_bwd_dkdv_tf32(const void* q, const void* k, const void* v,
+                                             const void* dout, const void* lse,
+                                             const void* delta, void* dk, void* dv,
+                                             int head_dim, int batch, int heads, int sq,
+                                             int sk, const long long* strides, float scale,
+                                             int causal, void* stream) {
+  return run_tc(Which::kDkdv,
+                dkdv_params(q, k, v, dout, lse, delta, dk, dv, heads, sq, sk, strides, scale,
+                            causal),
+                true, head_dim, batch, stream);
+}
+
+extern "C" int flash_attention_bwd_dq_tf32(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse,
+                                           const void* delta, void* dq, int head_dim,
+                                           int batch, int heads, int sq, int sk,
+                                           const long long* strides, float scale, int causal,
+                                           void* stream) {
+  return run_tc(Which::kDq,
+                dq_params(q, k, v, dout, lse, delta, dq, heads, sq, sk, strides, scale, causal),
+                true, head_dim, batch, stream);
 }

@@ -171,15 +171,15 @@ __device__ __forceinline__ int bt_lane(int lane, int ld) {
   return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
 }
 
-// rows r0 .. r0 + ROWS - 1 of a bf16 operand of `vecs` 16-byte pieces a row
-// and row stride ss -> dst [ROWS][ld], by the block's NT threads,
+// rows r0 .. r0 + ROWS - 1 of a bf16 or f32 operand of `vecs` 16-byte pieces
+// a row and row stride ss -> dst [ROWS][ld], by the block's NT threads,
 // asynchronously (the caller commits); rows past `rows` as zeros
-template <int ROWS, int NT>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld,
-                                           const __nv_bfloat16* src, long long ss, int vecs,
+template <int ROWS, int NT, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src, long long ss, int vecs,
                                            int r0, int rows) {
+  constexpr int V = 16 / sizeof(T);  // elements in 16 bytes
   for (int idx = threadIdx.x; idx < ROWS * vecs; idx += NT) {
-    const int r = idx / vecs, c = (idx - r * vecs) * 8;
+    const int r = idx / vecs, c = (idx - r * vecs) * V;
     const bool ok = r0 + r < rows;
     cp_async16(smem_u32(dst + r * ld + c), src + (ok ? r0 + r : 0) * ss + c, ok ? 16 : 0);
   }
@@ -211,12 +211,13 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], __nv_bf
   }
 }
 
-// host: a bf16 operand that is copied in 16-byte pieces starts 16-byte
-// aligned, and each of its strides is a multiple of 8 elements
-inline bool aligned16(const void* ptr, std::initializer_list<long long> strides) {
+// host: an operand that is copied in 16-byte pieces starts 16-byte aligned,
+// and each of its strides is a multiple of the `vec` elements in 16 bytes
+// (8 bf16, 4 f32)
+inline bool aligned16(const void* ptr, std::initializer_list<long long> strides, int vec = 8) {
   if (reinterpret_cast<unsigned long long>(ptr) % 16) return false;
   for (long long s : strides)
-    if (s % 8) return false;
+    if (s % vec) return false;
   return true;
 }
 

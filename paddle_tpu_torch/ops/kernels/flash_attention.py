@@ -11,12 +11,14 @@ raise; on CPU tensors they take the plain versions, the same arithmetic in
 plain PyTorch. ``delta = rowsum(dO * O) - g_lse`` is plain PyTorch on both
 devices, as the JAX package computes it outside its kernels.
 
-Each function has two kernels, picked by dtype (``forward_route``,
-``backward_route``): bf16 takes the tensor-core kernels (``"mma"``), f32
-the FMA kernels on the FP32 units (``"fma"``). The tensor-core kernels copy
-16-byte pieces, so a view whose start or strides are not 16-byte aligned is
-handed over as an aligned contiguous copy (``_mma_operand``; the fused qkv
-projection's views are aligned and are read in place).
+Kernels are picked by dtype (``forward_route``, ``backward_route``): bf16
+takes the tensor-core kernels (``"mma"``); the f32 forward takes the FMA
+kernel on the FP32 units (``"fma"``), the f32 backward the TF32 tensor-core
+pair in 3xTF32 (``"tf32x3"``: each product as three TF32 ones, at f32
+accuracy). The tensor-core kernels copy 16-byte pieces, so a view whose
+start or strides are not 16-byte aligned is handed over as an aligned
+contiguous copy (``_mma_operand``; the fused qkv projection's views are
+aligned and are read in place).
 
 ``launches`` counts the forward's kernel launches (either kernel) and
 ``launches_by_route`` the same by kernel; ``launches_bwd_by_route[route]``
@@ -36,8 +38,8 @@ from ._common import NEG_INF, pick_block
 #: kernel launches since import (chip_smoke.py resets and reads them)
 launches = 0        # forward, either kernel
 launches_by_route = {"mma": 0, "fma": 0}   # forward, by kernel
-launches_bwd_by_route = {"mma": {"dkdv": 0, "dq": 0},   # backward, by kernel
-                         "fma": {"dkdv": 0, "dq": 0}}
+launches_bwd_by_route = {r: {"dkdv": 0, "dq": 0}        # backward, by kernel
+                         for r in ("mma", "tf32x3", "fma")}
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,13 +61,13 @@ _SIGNATURES = {
     "flash_attention_bwd_dq": ("flash_attention_bwd",
                                [_PTR] * 7 + [_INT] * 6
                                + [_STRIDES, ctypes.c_float, _INT, _PTR]),
-    "flash_attention_bwd_dkdv_mma": ("flash_attention_bwd",
-                                     [_PTR] * 8 + [_INT] * 5
-                                     + [_STRIDES, ctypes.c_float, _INT, _PTR]),
-    "flash_attention_bwd_dq_mma": ("flash_attention_bwd",
-                                   [_PTR] * 7 + [_INT] * 5
-                                   + [_STRIDES, ctypes.c_float, _INT, _PTR]),
 }
+# the tensor-core pairs (bf16, 3xTF32) take no dtype argument
+_SIGNATURES.update({
+    f"flash_attention_bwd_{k}_{r}": ("flash_attention_bwd",
+                                     [_PTR] * n + [_INT] * 5
+                                     + [_STRIDES, ctypes.c_float, _INT, _PTR])
+    for k, n in (("dkdv", 8), ("dq", 7)) for r in ("mma", "tf32")})
 
 
 def supported(seq_q: int, seq_k: int, head_dim: int) -> bool:
@@ -100,10 +102,12 @@ def forward_route(dtype, head_dim: int) -> str:
 def backward_route(dtype, head_dim: int) -> str:
     """The backward pair's kernels (dK/dV and dQ) for q, k, v and dO of
     ``dtype`` and ``head_dim``: ``"mma"`` (the bf16 tensor-core kernels) for
-    bfloat16, ``"fma"`` (FMA on the FP32 units) for float32: the forward's
-    table. Picked by dtype alone, never by failure; other head dims raise
-    ValueError, other dtypes TypeError."""
-    return forward_route(dtype, head_dim)
+    bfloat16, ``"tf32x3"`` (the TF32 tensor-core kernels in 3xTF32, f32
+    accuracy) for float32, at every head dim in ``HEAD_DIMS``. Picked by
+    dtype alone, never by failure; other head dims raise ValueError, other
+    dtypes TypeError. (The FMA pair, ``"fma"``, is the predecessor both
+    pairs are timed against.)"""
+    return "tf32x3" if forward_route(dtype, head_dim) == "fma" else "mma"
 
 
 def launches_bwd(kernel: str) -> int:
@@ -227,23 +231,30 @@ def _call(name, device, *args):
 
 
 def _mma_operand(x):
-    """x as the tensor-core kernel reads it: x itself where its start and its
-    batch, seq and head strides are 16-byte aligned (bf16, so strides a
-    multiple of 8; the fused qkv projection's views are), else an aligned
-    contiguous copy."""
-    if x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3]):
+    """x as the tensor-core kernels read it: x itself where its start and its
+    batch, seq and head strides are 16-byte aligned (strides a multiple of 8
+    bf16 or 4 f32 elements; the fused qkv projection's views are), else an
+    aligned contiguous copy."""
+    vec = 16 // x.element_size()
+    if x.data_ptr() % 16 == 0 and all(s % vec == 0 for s in x.stride()[:3]):
         return x
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _forced(route, dtype):
-    """A route forced by its caller, checked: "fma" at either dtype, "mma"
-    only at bf16 (the tensor-core kernels take nothing else)."""
-    if route not in ("mma", "fma"):
-        raise ValueError(f"route must be 'mma' or 'fma', got {route!r}")
-    if route == "mma" and dtype != torch.bfloat16:
-        raise ValueError(f"the tensor-core kernels take bfloat16 inputs, got {dtype}")
+_ROUTE_DTYPE = {"mma": torch.bfloat16, "tf32x3": torch.float32}
+
+
+def _forced(route, dtype, routes=("mma", "fma")):
+    """A route forced by its caller, checked against the function's
+    ``routes`` (the forward's "mma" and "fma", the backward's also
+    "tf32x3"): "fma" at either dtype, "mma" only at bf16 and "tf32x3" only
+    at f32 (each tensor-core pair takes nothing else)."""
+    if route not in routes:
+        raise ValueError(f"route must be one of {routes}, got {route!r}")
+    if route in _ROUTE_DTYPE and dtype != _ROUTE_DTYPE[route]:
+        raise ValueError(f"the {route!r} kernels take {_ROUTE_DTYPE[route]} inputs, "
+                         f"got {dtype}")
     return route
 
 
@@ -290,16 +301,17 @@ def _check_bwd(q, k, v, do, lse, delta):
 def _launch_bwd(kernel, q, k, v, do, lse, delta, outs, causal, sm_scale, route):
     """One backward kernel ("dkdv" or "dq") of ``backward_route`` on CUDA
     tensors, writing ``outs``. ``route`` forces a kernel: chip_smoke.py and
-    the card tests check and time the FMA kernels at bf16 with "fma"; no
-    path passes it."""
+    the card tests check and time the FMA kernels, the tensor-core pairs'
+    predecessors, with "fma"; no path passes it."""
     _check_bwd(q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
-    route = backward_route(q.dtype, d) if route is None else _forced(route, q.dtype)
+    route = (backward_route(q.dtype, d) if route is None
+             else _forced(route, q.dtype, ("mma", "tf32x3", "fma")))
     name = f"flash_attention_bwd_{kernel}"
     dtype_arg = ()
-    if route == "mma":
+    if route != "fma":
         q, k, v, do = (_mma_operand(x) for x in (q, k, v, do))
-        name += "_mma"
+        name += "_tf32" if route == "tf32x3" else "_mma"
     else:
         dtype_arg = (_DTYPE_CODES[q.dtype],)
     strides = (_LL * 18)(*_strides(q, k, v, do, *outs))

@@ -80,7 +80,7 @@ _PAIRS_LOOP = """#pragma unroll
           if (active & (1u << (j0 + jj))) add_frags(acc[j0 + jj], part[jj]);
       }
 """
-_SPLIT = ("  big = x + 0x1000u;\n"
+SPLIT_TF32 = ("  big = x + 0x1000u;\n"
           "  small = __float_as_uint(__uint_as_float(x) - __uint_as_float(big & 0xffffe000u));")
 
 #: variant -> [(file in csrc/, text, replacement)]
@@ -93,7 +93,7 @@ VARIANTS = {
               "        mma_tf32x3(part, ab, as, bb, bs);\n      }\n      add_frags(sacc, part);",
               "      }\n      add_frags(sacc, part);")],
     "no_product": [("lm_loss.cu", "            mma_tf32x3(part, ab[ks], as[ks], bb, bs);\n", "")],
-    "no_split": [("mma_sync.cuh", _SPLIT, "  big = x;\n  small = x;")],
+    "no_split": [("mma_sync.cuh", SPLIT_TF32, "  big = x;\n  small = x;")],
     # other designs
     "divided_stager": [("lm_loss.cu", """    for (int r = warp; r < R; r += NT / 32) {
       const bool ok = r0 + r < rows;
@@ -108,7 +108,7 @@ VARIANTS = {
     }""")],
     "unroll_s": [("lm_loss.cu", "    for (int k0 = 0; k0 < kw; k0 += 16) {",
                   "#pragma unroll 2\n    for (int k0 = 0; k0 < kw; k0 += 16) {")],
-    "trunc_split": [("mma_sync.cuh", _SPLIT,
+    "trunc_split": [("mma_sync.cuh", SPLIT_TF32,
                      "  big = x;\n  small = __float_as_uint(__uint_as_float(x) - "
                      "__uint_as_float(x & 0xffffe000u));")],
     "column_pairs": [("lm_loss.cu", _PRODUCT_LOOP, _PAIRS_LOOP)],
@@ -133,11 +133,11 @@ VARIANTS = {
 }
 
 
-def edited(name: str, sources: dict) -> dict:
-    """``sources`` ({file: text}) with variant ``name``'s edits; ValueError
-    unless each edit's text occurs exactly once."""
+def edited(name: str, sources: dict, variants: dict = VARIANTS) -> dict:
+    """``sources`` ({file: text}) with the edits of ``variants[name]``;
+    ValueError unless each edit's text occurs exactly once."""
     out = dict(sources)
-    for fname, old, new in VARIANTS[name]:
+    for fname, old, new in variants[name]:
         n = out[fname].count(old)
         if n != 1:
             raise ValueError(f"variant {name!r}: its edit of {fname} matches {n} times")
@@ -197,25 +197,34 @@ def main(argv=None) -> int:
     check()
     if args.check:
         return 0
-    names = args.variants or list(VARIANTS)
-    sources = {f: (CSRC / f).read_text() for f in ("lm_loss.cu", "mma_sync.cuh")}
+    run_variants(args.variants or list(VARIANTS), VARIANTS, ("lm_loss.cu", "mma_sync.cuh"),
+                 "lm_loss", _RUN)
+    return 0
+
+
+def run_variants(names, variants, files, library, script) -> None:
+    """Build each variant of ``names`` (edits of ``files`` in csrc/, as
+    ``variants`` names them) in its own copy of the package under a
+    temporary directory, all builds of ``library`` at once; then run
+    ``script`` (python -c, the variant's name as its argument) in each copy,
+    in the order given and again in reverse."""
+    sources = {f: (CSRC / f).read_text() for f in files}
     with tempfile.TemporaryDirectory() as tmp:
         roots = {}
         for name in names:
             root = Path(tmp) / name
             shutil.copytree(PACKAGE, root / PACKAGE.name,
                             ignore=shutil.ignore_patterns("build", "__pycache__"))
-            for fname, text in edited(name, sources).items():
+            for fname, text in edited(name, sources, variants).items():
                 (root / PACKAGE.name / "ops" / "kernels" / "csrc" / fname).write_text(text)
             roots[name] = root
         build = ("from paddle_tpu_torch.ops.kernels import _build; "
-                 "_build.build(['lm_loss'])")
+                 f"_build.build([{library!r}])")
         procs = [subprocess.Popen([sys.executable, "-c", build], cwd=r) for r in roots.values()]
         if any(p.wait() != 0 for p in procs):
             raise RuntimeError("a variant did not build")
         for name in names + names[::-1]:
-            subprocess.run([sys.executable, "-c", _RUN, name], cwd=roots[name], check=True)
-    return 0
+            subprocess.run([sys.executable, "-c", script, name], cwd=roots[name], check=True)
 
 
 if __name__ == "__main__":

@@ -39,7 +39,11 @@ at 1e-2 in each (b, h) head's relative Frobenius norm (causal P[0, 0] = 1
 makes dV[0] = dO[0], so max|ref| is ~50x a typical entry, and the max limit
 alone passes a q or kv tile dropped far from the diagonal), to their
 route's launch counts, to the same bits twice, and to HMMA in their SASS
-with no spills.
+with no spills. At f32 the pair takes the TF32 tensor cores in 3xTF32; it
+and its FMA predecessor are held to 1e-4 x max(1, max|ref|) and to 5e-6 in
+each head's relative Frobenius norm (GRAD_F32_FROB_TOL; one TF32 pass errs
+by ~1e-4 there), to their route's launch counts, to the same bits twice,
+and to TF32 HMMA in their SASS with no spills.
 """
 import numpy as np
 import pytest
@@ -110,6 +114,7 @@ def _head_rel_frob(got, ref):
 
 
 BF16_GRAD_FROB_TOL = 1e-2
+GRAD_F32_FROB_TOL = 5e-6
 
 
 def _bwd_inputs(cuda, dt, b, sq, sk, h, d, causal, seed):
@@ -133,7 +138,7 @@ def _bwd_inputs(cuda, dt, b, sq, sk, h, d, causal, seed):
 ])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, causal, sq, sk, d):
     """Each wrapper launches once, on the route of its dtype (bf16 the
-    tensor-core kernels, f32 the FMA ones)."""
+    tensor-core kernels, f32 the 3xTF32 ones)."""
     dt = getattr(torch, dtype)
     q, k, v, do, lse, delta = _bwd_inputs(cuda, dt, 2, sq, sk, 3, d, causal, seed=7)
     route = fa.backward_route(dt, d)
@@ -150,9 +155,9 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, causal, sq, sk, d):
         tol = 1e-4 * max(1.0, scale) if dt == torch.float32 else 2e-2 * scale
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= tol, (name, err, tol)
-        if dt == torch.bfloat16:
-            frob = _head_rel_frob(got, ref)
-            assert frob <= BF16_GRAD_FROB_TOL, (name, frob)
+        frob = _head_rel_frob(got, ref)
+        assert frob <= (BF16_GRAD_FROB_TOL if dt == torch.bfloat16 else GRAD_F32_FROB_TOL), \
+            (name, frob)
 
 
 @pytest.mark.parametrize("causal,sq,sk,d", [
@@ -205,11 +210,12 @@ def test_flash_bwd_mma_kernels_are_deterministic(cuda):
 
 
 def test_flash_bwd_routes_under_autograd(cuda):
-    """Autograd through flash_attention reaches the tensor-core pair at bf16
-    and the FMA pair at f32, once each; f32 on the tensor cores raises."""
+    """Autograd through flash_attention reaches the bf16 tensor-core pair at
+    bf16 and the 3xTF32 pair at f32, once each; each tensor-core pair forced
+    at the other dtype raises."""
     rng = np.random.RandomState(25)
     base = rng.randn(2, 192, 3, 4, 64).astype(np.float32)
-    for dt, route in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+    for dt, route in ((torch.bfloat16, "mma"), (torch.float32, "tf32x3")):
         qkv = torch.from_numpy(base).to(cuda, dt).requires_grad_()
         q, k, v = qkv.unbind(dim=2)
         before = _bwd_routes()
@@ -219,11 +225,89 @@ def test_flash_bwd_routes_under_autograd(cuda):
         assert _bwd_moved(before) == {r: one if r == route else {"dkdv": 0, "dq": 0}
                                       for r in before}
         assert bool(torch.isfinite(qkv.grad).all()) and bool(qkv.grad.any())
-    args = _bwd_inputs(cuda, torch.float32, 1, 128, 128, 2, 64, True, seed=26)
-    with pytest.raises(ValueError):
-        fa.flash_attention_bwd_dkdv(*args, causal=True, route="mma")
-    with pytest.raises(ValueError):
-        fa.flash_attention_bwd_dq(*args, causal=True, route="mma")
+    for dt, route in ((torch.float32, "mma"), (torch.bfloat16, "tf32x3")):
+        args = _bwd_inputs(cuda, dt, 1, 128, 128, 2, 64, True, seed=26)
+        with pytest.raises(ValueError):
+            fa.flash_attention_bwd_dkdv(*args, causal=True, route=route)
+        with pytest.raises(ValueError):
+            fa.flash_attention_bwd_dq(*args, causal=True, route=route)
+
+
+@pytest.mark.parametrize("causal,sq,sk,d", [
+    (True, 256, 256, 64),
+    (False, 256, 256, 64),
+    (True, 200, 200, 64),       # ragged tiles
+    (True, 200, 200, 32),
+    (False, 77, 300, 128),      # sq != sk, ragged
+    (True, 128, 320, 64),       # top-left causal with sq < sk
+    (True, 300, 100, 128),      # sq > sk
+    (True, 1000, 1000, 128),
+    (False, 130, 130, 32),
+])
+def test_flash_bwd_tf32_kernels_and_their_predecessor_match_plain(cuda, causal, sq, sk, d):
+    """f32: the 3xTF32 pair (the default route) and the FMA pair
+    (route="fma") against the plain version at 1e-4 x max(1, max|ref|) and
+    GRAD_F32_FROB_TOL in each head's relative Frobenius norm; each wrapper
+    launches once on its route; outputs are f32 of the inputs' shapes."""
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, torch.float32, 2, sq, sk, 3, d, causal,
+                                          seed=27)
+    assert fa.backward_route(torch.float32, d) == "tf32x3"
+    want = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=causal)
+    for route in ("tf32x3", "fma"):
+        before = _bwd_routes()
+        forced = None if route == "tf32x3" else "fma"
+        dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=causal,
+                                             route=forced)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal, route=forced)
+        torch.cuda.synchronize()
+        one = {"dkdv": 1, "dq": 1}
+        assert _bwd_moved(before) == {r: one if r == route else {"dkdv": 0, "dq": 0}
+                                      for r in before}
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            assert got.dtype == torch.float32 and got.shape == ref.shape
+            tol = 1e-4 * max(1.0, ref.abs().max().item())
+            assert _err(got, ref) <= tol, (route, name, _err(got, ref), tol)
+            frob = _head_rel_frob(got, ref)
+            assert frob <= GRAD_F32_FROB_TOL, (route, name, frob)
+
+
+def test_flash_bwd_tf32_kernels_are_deterministic(cuda):
+    """No atomics and a fixed summation order: two calls of the 3xTF32 pair
+    give the same bits, causal and not, at every head dim."""
+    for causal, d in ((True, 64), (False, 32), (True, 128)):
+        args = _bwd_inputs(cuda, torch.float32, 2, 320, 320, 4, d, causal, seed=28)
+        first = (*fa.flash_attention_bwd_dkdv(*args, causal=causal),
+                 fa.flash_attention_bwd_dq(*args, causal=causal))
+        second = (*fa.flash_attention_bwd_dkdv(*args, causal=causal),
+                  fa.flash_attention_bwd_dq(*args, causal=causal))
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), (causal, d)
+
+
+def test_flash_bwd_tf32_reads_strided_and_unaligned_views(cuda):
+    """The fused qkv projection's f32 views are read in place; a q view
+    starting 4 bytes off a 16-byte boundary is copied to an aligned one
+    first. Both give the bits of fresh contiguous copies of the inputs."""
+    rng = np.random.RandomState(29)
+    qkv = torch.from_numpy(rng.randn(2, 192, 3, 4, 64).astype(np.float32)).to(cuda)
+    q, k, v = qkv.unbind(dim=2)
+    do = torch.from_numpy(rng.randn(2, 192, 4, 64).astype(np.float32)).to(cuda)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=True)
+    delta = fa.attention_delta(o, do)
+    flat = torch.from_numpy(rng.randn(2 * 192 * 4 * 64 + 1).astype(np.float32)).to(cuda)
+    shifted = flat[1:].view(2, 192, 4, 64)
+    assert fa._mma_operand(q) is q and fa._mma_operand(shifted) is not shifted
+    def fresh(x):   # a new contiguous allocation (16-byte aligned)
+        return x.clone(memory_format=torch.contiguous_format)
+
+    for qq in (q, shifted):
+        got = (fa.flash_attention_bwd_dq(qq, k, v, do, lse, delta, causal=True),
+               *fa.flash_attention_bwd_dkdv(qq, k, v, do, lse, delta, causal=True))
+        args = (fresh(qq), fresh(k), fresh(v), do, lse, delta)
+        want = (fa.flash_attention_bwd_dq(*args, causal=True),
+                *fa.flash_attention_bwd_dkdv(*args, causal=True))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_flash_autograd_goes_through_the_kernels(cuda):
@@ -853,6 +937,36 @@ def test_forward_mma_kernels_use_tensor_cores_without_spills(cuda):
         assert fma and not any("HMMA" in body for body in fma)
     if tool is None:
         pytest.skip("no cuobjdump under CUDA's bin/ or triton/backends/nvidia/bin/")
+
+
+def test_flash_bwd_tf32_kernels_use_tf32_tensor_cores_without_spills(cuda):
+    """flash_bwd_dkdv_tf32_kernel and flash_bwd_dq_tf32_kernel, every
+    instance (d 32, 64, 128), hold TF32 HMMA (HMMA.1688.F32.TF32) in their
+    SASS, and ptxas reports 0 spill bytes and at most 255 registers for
+    each; the bf16 pair holds no TF32 HMMA."""
+    import re
+    import subprocess
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    pat = "flash_bwd_(dkdv|dq)_tf32_kernel"
+    _build.load("flash_attention_bwd")
+    report = {k: r for k, r in _build.ptxas_report("flash_attention_bwd").items()
+              if re.search(pat, k)}
+    assert len(report) == 2 * len(fa.HEAD_DIMS), sorted(report)
+    for name, r in report.items():
+        assert r.get("spill_stores") == 0 and r.get("spill_loads") == 0, (name, r)
+        assert r.get("registers", 256) <= 255, (name, r)
+    tool = _cuobjdump()
+    if tool is None:
+        pytest.skip("no cuobjdump under CUDA's bin/ or triton/backends/nvidia/bin/")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("flash_attention_bwd"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = {part.split(None, 1)[0]: part for part in sass.split("Function : ")[1:]}
+    tf32 = [body for k, body in funcs.items() if re.search(pat, k)]
+    assert len(tf32) == len(report) and all("HMMA.1688.F32.TF32" in b for b in tf32)
+    bf16 = [body for k, body in funcs.items() if re.search("flash_bwd_(dkdv|dq)_mma_kernel", k)]
+    assert bf16 and not any("TF32" in b for b in bf16)
 
 
 def test_lm_loss_autograd_goes_through_the_kernels(cuda):

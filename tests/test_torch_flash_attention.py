@@ -11,7 +11,11 @@ other summation order); forward bf16 2e-2 x max|o| (p is rounded to bf16
 against the running max in the Pallas kernel and the final max in the
 plain version); gradients as stated above the backward tests. The kernels
 themselves are held against the plain versions on the card by
-chip_smoke.py and tests/test_torch_cuda.py.
+chip_smoke.py and tests/test_torch_cuda.py. Also here: the routing tables,
+the checks of a forced route and of the tensor-core kernels' operand
+alignment, and the numerics the 3xTF32 backward pair relies on (a plain
+emulation of its TF32 products against the Pallas backward: three terms
+reach the card's f32 limits, one pass does not).
 """
 import importlib
 
@@ -24,6 +28,7 @@ import torch
 from paddle_tpu.ops.pallas import _common as jax_common
 from paddle_tpu_torch.ops.kernels import _common as port_common
 from paddle_tpu_torch.ops.kernels import flash_attention as port_fa
+from tf32_emulation import GRAD_F32_FROB_TOL, tf32_product
 
 # the pallas package re-exports the function under the module's name
 jax_fa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
@@ -259,16 +264,66 @@ def test_mma_operand_reads_aligned_views_in_place_and_copies_the_rest():
         assert torch.equal(y, x)
 
 
+def test_mma_operand_takes_the_f32_stride_rule():
+    """f32 operands of the 3xTF32 pair: 16 bytes are 4 elements, so the
+    fused projection's views and a seq stride of 4 h d + 4 are read in
+    place; a view starting 4 bytes off a 16-byte boundary, or a seq stride
+    of 4 h d + 2, becomes an aligned contiguous copy with the same values."""
+    qkv = torch.zeros(2, 128, 3, 12, 64).normal_()
+    for x in qkv.unbind(dim=2):
+        assert port_fa._mma_operand(x) is x
+    padded4 = torch.zeros(2, 128, 4 * 64 + 4).normal_()[..., :256].view(2, 128, 4, 64)
+    assert padded4.stride(1) == 260 and port_fa._mma_operand(padded4) is padded4
+    flat = torch.zeros(2 * 128 * 4 * 64 + 1).normal_()
+    shifted = flat[1:].view(2, 128, 4, 64)
+    padded2 = torch.zeros(2, 128, 4 * 64 + 2).normal_()[..., :256].view(2, 128, 4, 64)
+    for x in (shifted, padded2):
+        y = port_fa._mma_operand(x)
+        assert y is not x and y.is_contiguous() and y.data_ptr() % 16 == 0
+        assert torch.equal(y, x)
+
+
 # ----------------------------------------------------------- backward route
 
 @pytest.mark.parametrize("dtype,head_dim,route", [
     ("bfloat16", 32, "mma"), ("bfloat16", 64, "mma"), ("bfloat16", 128, "mma"),
-    ("float32", 32, "fma"), ("float32", 64, "fma"), ("float32", 128, "fma"),
+    ("float32", 32, "tf32x3"), ("float32", 64, "tf32x3"), ("float32", 128, "tf32x3"),
 ])
 def test_backward_route_table(dtype, head_dim, route):
-    """bf16 takes the tensor-core backward pair, f32 the FMA pair, at every
-    head dim the kernels take (the training path is bf16)."""
+    """bf16 takes the bf16 tensor-core backward pair, f32 the 3xTF32 pair,
+    at every head dim the kernels take, d = 128 included (its dK/dV instance
+    builds without spills, so no head dim is left on the FMA pair); the
+    forward keeps the FMA kernel at f32."""
     assert port_fa.backward_route(getattr(torch, dtype), head_dim) == route
+    assert port_fa.forward_route(torch.float32, head_dim) == "fma"
+
+
+@pytest.mark.parametrize("route,dtype,ok", [
+    ("mma", "bfloat16", True), ("mma", "float32", False),
+    ("tf32x3", "float32", True), ("tf32x3", "bfloat16", False),
+    ("fma", "float32", True), ("fma", "bfloat16", True),
+    ("wgmma", "bfloat16", False),
+])
+def test_forced_backward_route_rules(route, dtype, ok):
+    """A route forced on the backward (chip_smoke.py and the card tests time
+    the FMA predecessors with it): "fma" at either dtype, "mma" only at
+    bf16, "tf32x3" only at f32, nothing else."""
+    dt = getattr(torch, dtype)
+    routes = ("mma", "tf32x3", "fma")
+    if ok:
+        assert port_fa._forced(route, dt, routes) == route
+    else:
+        with pytest.raises(ValueError):
+            port_fa._forced(route, dt, routes)
+
+
+def test_forced_forward_route_refuses_tf32x3():
+    """The forward has no 3xTF32 kernel: its forced routes are "mma" (bf16)
+    and "fma"."""
+    assert port_fa._forced("fma", torch.float32) == "fma"
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError):
+            port_fa._forced("tf32x3", dt)
 
 
 def test_backward_route_refuses_what_no_kernel_takes():
@@ -290,6 +345,7 @@ def test_cpu_backward_launches_no_kernel_of_either_route(dtype):
     do = torch.from_numpy(np.random.RandomState(19).randn(1, 128, 2, 32)
                           .astype(np.float32)).to(dt)
     before = {r: dict(c) for r, c in port_fa.launches_bwd_by_route.items()}
+    assert set(before) == {"mma", "tf32x3", "fma"}
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     o = port_fa.flash_attention(*leaves, causal=True)
     grads = torch.autograd.grad(o, leaves, do)
@@ -303,3 +359,80 @@ def test_cpu_backward_launches_no_kernel_of_either_route(dtype):
         assert g.dtype == dt and torch.equal(g, w)
     for g, w in zip(grads, want):
         assert torch.equal(g, w)
+
+
+# ------------------------------------------------- 3xTF32 backward numerics
+
+def _head_rel_frob(got, want):
+    """max over the (b, h) heads of ||got - want||_F / ||want||_F ([b, s, h, d]
+    numpy arrays), as chip_smoke.py's head_rel_frob."""
+    err = np.sqrt(np.square(got - want).sum(axis=(1, 3)))
+    return float((err / np.sqrt(np.square(want).sum(axis=(1, 3)))).max())
+
+
+def _tf32_flash_backward(q, k, v, do, lse, delta, causal, terms):
+    """dq, dk, dv ([b, s, h, d]) as the 3xTF32 pair computes them, every
+    product through ``tf32_product``: S = Q Kᵀ (dkdv takes Sᵀ = K Qᵀ, the
+    same elementwise products) and dP = dO Vᵀ, P = exp(S scale − lse), dS =
+    P (dP − delta) scale in f32, then dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    s = tf32_product(qh, kh.transpose(-1, -2), terms) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+        s = s.masked_fill(~keep, port_common.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = tf32_product(doh, vh.transpose(-1, -2), terms)
+    ds = p * (dp - delta[..., None]) * scale
+    grads = (tf32_product(ds, kh, terms), tf32_product(ds.transpose(-1, -2), qh, terms),
+             tf32_product(p.transpose(-1, -2), doh, terms))
+    return [g.transpose(1, 2).numpy() for g in grads]
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tf32x3_backward_reaches_the_f32_limits_and_one_pass_does_not(causal, terms):
+    """The numerics the 3xTF32 pair relies on, at [1, 128, 2, 64]: the
+    emulated dq, dk, dv against jax.vjp through the Pallas kernels
+    (interpret mode). Three terms come within the card's f32 limits,
+    GRAD_F32_TOL x max(1, max|ref|) = 1e-4 x ... and GRAD_F32_FROB_TOL in
+    each head's relative Frobenius norm (a quarter of it, as the plain
+    version's own f32 rounding is in the reference too); one TF32 pass falls
+    outside the Frobenius limit by more than 10x, so the card's limit tells
+    them apart."""
+    q, k, v = _inputs(1, 128, 128, 2, 64, seed=30)
+    cot = np.random.RandomState(31).randn(1, 128, 2, 64).astype(np.float32)
+    want = _jax_grads(q, k, v, cot, causal)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, cot))
+    o, lse = port_fa.flash_attention_plain(tq, tk, tv, causal=causal)
+    delta = port_fa.attention_delta(o, tdo)
+    got = _tf32_flash_backward(tq, tk, tv, tdo, lse, delta, causal, terms)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        frob = _head_rel_frob(g, w)
+        if terms == 3:
+            np.testing.assert_allclose(g, w, atol=1e-4 * max(1.0, np.abs(w).max()), rtol=0,
+                                       err_msg=name)
+            assert frob <= GRAD_F32_FROB_TOL / 4, (name, frob)
+        else:
+            assert frob > 10 * GRAD_F32_FROB_TOL, (name, frob)
+
+
+def test_backward_variants_tool_edits_apply_to_the_kernel_sources():
+    """tools/flash_bwd_variants.py, which checks and times the 3xTF32 pair's
+    mutants on the card, names edits that each match the kernel sources
+    exactly once: one pass and two terms drop two and one of mma_tf32x3's
+    three passes, one accumulator sums dK, dV and dQ straight into their
+    running accumulators (no fresh one a pass, no add_frags)."""
+    from paddle_tpu_torch.tools import flash_bwd_variants as tool
+
+    tool.check()
+    sources = {f: (tool.CSRC / f).read_text() for f in tool.FILES}
+    passes = sources["mma_sync.cuh"].count("  mma_tf32_all(d, ")
+    assert passes == 3
+    for name, dropped in (("two_term", 1), ("one_pass", 2)):
+        out = tool.edited(name, sources, tool.VARIANTS)
+        assert out["mma_sync.cuh"].count("  mma_tf32_all(d, ") == passes - dropped
+    bwd = sources["flash_attention_bwd.cu"]
+    one = tool.edited("one_accumulator", sources, tool.VARIANTS)["flash_attention_bwd.cu"]
+    assert one.count("add_frags(") == bwd.count("add_frags(") - 1
+    assert "mma_tf32x3(acc[g], " in one and "mma_tf32x3(acc[g], " not in bwd

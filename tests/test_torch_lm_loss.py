@@ -39,6 +39,7 @@ from paddle_tpu.ops.pallas import lm_loss as jax_lm
 from paddle_tpu_torch.models import GPTForPretraining, gpt_tiny, load_jax_state
 from paddle_tpu_torch.ops.kernels import layer_norm as ln
 from paddle_tpu_torch.ops.kernels import lm_loss as lm
+from tf32_emulation import GRAD_F32_FROB_TOL, tf32_product
 
 LOSS_TOL = 2e-5
 GRAD_TOL = 1e-6
@@ -260,42 +261,6 @@ def test_backward_plan_limits():
         lm._plan("wgmma", torch.bfloat16, 768)
 
 
-# The card holds the 3xTF32 backward's dh and dW of f32 h to this limit on
-# ||got - ref||_F / ||ref||_F against the plain f32 version (chip_smoke.py
-# and tests/test_torch_cuda.py: GRAD_F32_FROB_TOL).
-GRAD_F32_FROB_TOL = 5e-6
-
-
-def _tf32_split(x):
-    """x = big + small as the kernel hands them to the TF32 tensor cores
-    (``split_tf32`` in csrc/mma_sync.cuh), emulated by bit operations on the
-    int32 view: big is x rounded to TF32 at mantissa bit 13, to nearest with
-    ties away from zero (0x1000 added to the bits, the low 13 dropped, as
-    cvt.rna.tf32.f32 rounds); small = x - big exactly, with its low 13 bits
-    dropped as the tensor core drops them. (Ties to even would differ on one
-    value in 8192, by one TF32 step.)"""
-    bits = x.contiguous().view(torch.int32)
-    big = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-    small = ((x - big).view(torch.int32) & ~0x1FFF).view(torch.float32)
-    return big, small
-
-
-def _tf32_product(a, b, terms):
-    """a @ b as the kernel's TF32 mma.sync passes give it: each operand split
-    by ``_tf32_split``; ``terms`` 3 sums a_small b_big + a_big b_small +
-    a_big b_big (3xTF32), 2 drops a_small b_big, 1 is a_big b_big alone. A
-    TF32 product is exact in f32; the sums here are f32 matmuls (the kernel
-    adds short tensor-core sums in f32 too)."""
-    a_big, a_small = _tf32_split(a)
-    b_big, b_small = _tf32_split(b)
-    out = torch.zeros(a.shape[0], b.shape[1])
-    if terms == 3:
-        out = out + a_small @ b_big
-    if terms >= 2:
-        out = out + a_big @ b_small
-    return out + a_big @ b_big
-
-
 def _tf32_backward(h, w, labels, lse, g, terms):
     """dh and dW as the two kernels compute them: dh's S = h . Wᵀ (A = h),
     dW's Sᵀ = W . hᵀ (A = W), then dl in f32 and dl . W, dlᵀ . h (A = dl)."""
@@ -304,8 +269,8 @@ def _tf32_backward(h, w, labels, lse, g, terms):
     def dl(s):
         return (torch.exp(s - lse[:, None]) - onehot) * g[:, None]
 
-    dh = _tf32_product(dl(_tf32_product(h, w.t(), terms)), w, terms)
-    dw = _tf32_product(dl(_tf32_product(w, h.t(), terms).t()).t(), h, terms)
+    dh = tf32_product(dl(tf32_product(h, w.t(), terms)), w, terms)
+    dw = tf32_product(dl(tf32_product(w, h.t(), terms).t()).t(), h, terms)
     return dh, dw
 
 
