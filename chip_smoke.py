@@ -11,16 +11,15 @@ each:
    CUDA versions, then the kernel build time and ptxas's report.
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and a few edge cases, with kernel, plain, bound and
-   library (yardstick only) times: the flash forward (bf16 on the tensor
-   cores, with its FMA predecessor checked and timed beside it; f32 on the
-   FMA kernel), then the FA2 backward's dK/dV and dQ kernels (bf16 on the
-   bf16 tensor cores, f32 on the TF32 tensor cores in 3xTF32, each with the
-   FMA pair checked and timed beside it), with SDPA's FA2 (flash backend)
-   forward and backward pinned as the bf16 yardstick and SDPA's default
-   dispatch as the f32 one.
+   library (yardstick only) times: the flash forward (bf16 on the bf16
+   tensor cores, f32 on the TF32 tensor cores in 3xTF32, each with its FMA
+   predecessor checked and timed beside it), then the FA2 backward's dK/dV
+   and dQ kernels (the same routes, each with the FMA pair checked and
+   timed beside it), with SDPA's FA2 (flash backend) forward and backward
+   pinned as the bf16 yardstick and SDPA's default dispatch as the f32 one.
 3. scoring forward of GPT-2 124M (random weights from a seed), ids [8, 1024]:
-   the flash kernel (the FMA one: scoring is f32) must launch exactly once
-   per layer, the logits must be
+   the flash kernel (the 3xTF32 one: scoring is f32) must launch exactly
+   once per layer, the logits must be
    finite and the last position of one sequence must match the same
    weights run on the CPU.
 4. serving: ServingEngine answers 8 greedy requests of 17-500 prompt tokens;
@@ -37,26 +36,28 @@ each:
    the loss is finite and falls; every gradient is finite and not all zero.
    Step time, tokens/s, peak memory, and one profiled step's busy share;
    then 1 + 3 steps of the same step in f32 (train_f32: 12 launches a step
-   of the FMA forward and of each 3xTF32 backward kernel), its step time and
-   one profiled f32 step.
+   of each 3xTF32 kernel, the forward and the backward pair), its step time
+   and one profiled f32 step.
 7. train_vs_cpu: one f32 step at full width and 2 layers, ids [1, 1024], on
-   the card (the 3xTF32 backward pair) and on the CPU (plain path): loss and
-   every gradient.
+   the card (the 3xTF32 forward and backward pair) and on the CPU (plain
+   path): loss and every gradient.
 8. library_ops, the direct-call LayerNorm and LM-loss ops (the JAX
    package's examples/pallas_library_ops.py at full width): each of their
    six kernels against its plain version at GPT-2 124M's shapes (LayerNorm
    [8192, 768] f32 and bf16; LM loss h [8192, 768], W [50304, 768], bf16 h
    with an f32 W and f32, plus vocab 50257, a bf16 W and labels of -100,
-   at both dtypes of h), with kernel, plain, bound and library times. The
-   LM-loss routes: bf16 h takes the bf16 tensor-core forward and backward
-   (their times include the bf16 copy of the f32 W, timed beside them); f32
-   h the FMA forward and the 3xTF32 tensor-core backward (f32 accuracy, held
-   also in relative Frobenius norm); the FMA kernels are checked and timed
-   beside every tensor-core one as the redesign's predecessors. Then the
+   at both dtypes of h, and f32 at gpt_345m's hidden 1024), with kernel,
+   plain, bound and library times. The LM-loss routes: bf16 h takes the
+   bf16 tensor-core forward and backward (their times include the bf16
+   copy of the f32 W, timed beside them); f32 h the 3xTF32 tensor-core
+   forward and backward (f32 accuracy; the gradients held also in relative
+   Frobenius norm), past H = 768 the FMA backward; the FMA kernels are
+   checked and timed beside every tensor-core one as the redesign's
+   predecessors. Then the
    composition they exist for: the 124M model's hidden state before ln_f
    through the kernel LayerNorm and the kernel LM loss with the tied
    embedding, in f32 (loss and the gradients of wte and ln_f against the
-   model's own route; the 3xTF32 backward) and with the LayerNorm's output
+   model's own route; the 3xTF32 forward and backward) and with the LayerNorm's output
    cast to bf16 (loss, dh and dwte against the plain versions; the bf16
    tensor-core backward). Each kernel of a pass launches once in it.
 9. lmloss_compile_probe: the LM-loss forward's stripped variants at the
@@ -101,10 +102,12 @@ GRAD_F32_TOL = 1e-4     # backward kernels vs plain, f32: times max(1, max|ref|)
 GRAD_F32_FROB_TOL = 5e-6  # ... the f32 gradients of the 3xTF32 kernels and of
                         # their FMA predecessors, besides GRAD_F32_TOL: LM-loss dh
                         # and dW of f32 h, ||got - ref||_F / ||ref||_F; the flash
-                        # backward's dq, dk, dv in each (b, h) head (head_rel_frob).
-                        # f32 sums in another order read ~4e-7; a TF32 product
-                        # without its error compensation ~2e-4 (LM loss) or ~5e-4
-                        # (flash), and the LM loss's dh passes GRAD_F32_TOL then
+                        # backward's dq, dk, dv in each (b, h) head (head_rel_frob);
+                        # and, besides F32_TOL, the f32 flash forward's o in each
+                        # (b, h) head. f32 sums in another order read ~4e-7; a
+                        # TF32 product without its error compensation ~2e-4 (LM
+                        # loss) or ~4e-4 (flash), and the LM loss's dh passes
+                        # GRAD_F32_TOL then
 GRAD_BF16_FROB_TOL = 1e-2  # ... bf16, besides BF16_TOL x max|ref|: each (b, h)
                         # head's ||got - ref||_F / ||ref||_F (causal P[0, 0] = 1
                         # makes dV[0] = dO[0], so max|ref| is ~50x a typical
@@ -241,13 +244,19 @@ def head_rel_frob(got, want):
 def phase_kernels_fwd():
     """Flash forward vs its plain version; returns the records by case.
 
-    bf16 takes the tensor-core kernel (checked for its route) and its FMA
+    Each case takes the kernel of its dtype's route (checked for it: bf16
+    the bf16 tensor-core kernel, f32 the 3xTF32 one), and the FMA
     predecessor (the private route="fma") is held to the same limits on the
-    same inputs: o at BF16_TOL x max|o|, lse at F32_TOL x max(1, max|lse|)
-    (exact bf16 products summed in f32: one dropped kv tile moves a row's lse
-    by far more). f32 takes the FMA kernel, at F32_TOL. The slice cases are
-    timed: kernel, FMA predecessor and SDPA by ``device_ms`` (tens of
-    microseconds), the plain version by ``cuda_ms``."""
+    same inputs. bf16: o at BF16_TOL x max|o|, lse at F32_TOL x max(1,
+    max|lse|) (exact bf16 products summed in f32: one dropped kv tile moves
+    a row's lse by far more). f32: o and lse at F32_TOL, and o at
+    GRAD_F32_FROB_TOL in each (b, h) head's relative Frobenius norm
+    (``head_rel_frob``: a TF32 product without its error compensation errs
+    by ~4e-4 there). The slice cases are timed: kernel, FMA predecessor and
+    SDPA (default dispatch, with the name of its kernel) by ``device_ms``
+    (tens of microseconds), the plain version by ``cuda_ms``; the f32
+    bound counts three TF32 products each (f32 accuracy), the FP32 units'
+    bound beside it."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -258,6 +267,9 @@ def phase_kernels_fwd():
         ("slice_f32_noncausal", 8, 1024, 1024, 12, 64, False, f32, False),
         ("sq128_sk1024_f32_causal", 8, 128, 1024, 12, 64, True, f32, False),
         ("d32_f32_causal", 8, 1024, 1024, 24, 32, True, f32, False),
+        ("d128_f32_causal", 8, 1024, 1024, 6, 128, True, f32, False),
+        ("ragged1000_f32_causal", 8, 1000, 1000, 12, 64, True, f32, False),
+        ("fused_qkv_view_f32_causal", 8, 1024, 1024, 12, 64, True, f32, False),
         ("slice_bf16_noncausal", 8, 1024, 1024, 12, 64, False, bf16, False),
         ("d32_bf16_causal", 8, 1024, 1024, 24, 32, True, bf16, False),
         ("d32_bf16_noncausal", 8, 1024, 1024, 24, 32, False, bf16, False),
@@ -281,54 +293,64 @@ def phase_kernels_fwd():
             v = torch.randn(b, sk, h, d, device="cuda", generator=gen).to(dtype)
         scale = 1.0 / math.sqrt(d)
         route = fa.forward_route(dtype, d)
-        before = dict(fa.launches_by_route)
-        o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        moved = {r: n - before[r] for r, n in fa.launches_by_route.items()}
-        if moved != {r: int(r == route) for r in moved}:
-            raise AssertionError(f"flash forward {name} took the routes {moved}, "
-                                 f"expected {route}")
         po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
         if dtype == f32:
             tol_o = tol_lse = F32_TOL
         else:
             tol_o = BF16_TOL * po.float().abs().max().item()
             tol_lse = _f32_tol(plse)
-        outs = {route: (o, lse)}
-        if dtype == bf16:   # the FMA kernel, the tensor-core kernel's predecessor
-            outs["fma"] = fa._launch(q, k, v, causal, scale, route="fma")
+        errs, frob = {}, {}
+        for r in (route, "fma"):   # the kernel, then its FMA predecessor
+            before = dict(fa.launches_by_route)
+            ro, rlse = (fa.flash_attention_with_lse(q, k, v, causal=causal) if r == route
+                        else fa._launch(q, k, v, causal, scale, route="fma"))
             torch.cuda.synchronize()
-        errs = {}
-        for r, (ro, rlse) in outs.items():
+            moved = {x: n - before[x] for x, n in fa.launches_by_route.items()}
+            if moved != {x: int(x == r) for x in moved}:
+                raise AssertionError(f"flash forward {name} ({r}) took the routes {moved}")
             errs[r] = ((ro.float() - po.float()).abs().max().item(),
                        (rlse - plse).abs().max().item())
-            if not (errs[r][0] <= tol_o and errs[r][1] <= tol_lse):
+            frob[r] = head_rel_frob(ro, po) if dtype == f32 else None
+            if not (errs[r][0] <= tol_o and errs[r][1] <= tol_lse
+                    and (frob[r] is None or frob[r] <= GRAD_F32_FROB_TOL)):
                 raise AssertionError(f"flash kernel ({r}) disagrees with its plain version "
                                      f"on {name}: |do| {errs[r][0]} (tol {tol_o}), "
-                                     f"|dlse| {errs[r][1]} (tol {tol_lse})")
+                                     f"|dlse| {errs[r][1]} (tol {tol_lse}), head relative "
+                                     f"Frobenius {frob[r]} (tol {GRAD_F32_FROB_TOL})")
+            del ro, rlse
         rec = dict(case=name, shape=[b, sq, sk, h, d], causal=causal,
                    dtype=str(dtype).replace("torch.", ""), kernel_route=route,
                    max_abs_err_o=errs[route][0], max_abs_err_lse=errs[route][1],
-                   tol_o=tol_o, tol_lse=tol_lse)
-        if "fma" in errs and route != "fma":
-            rec.update(fma_max_abs_err_o=errs["fma"][0], fma_max_abs_err_lse=errs["fma"][1])
+                   tol_o=tol_o, tol_lse=tol_lse, fma_max_abs_err_o=errs["fma"][0],
+                   fma_max_abs_err_lse=errs["fma"][1])
+        if dtype == f32:
+            rec.update(rel_frob_o=frob[route], fma_rel_frob_o=frob["fma"],
+                       frob_tol=GRAD_F32_FROB_TOL)
         if timed:
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             bound_ms, bound_by = attention_bound(b, h, sq, sk, d, causal, dtype)
+            if route == "tf32x3":
+                # f32 accuracy on the tensor cores: three TF32 products each
+                rec["fp32_bound_ms"] = bound_ms
+                bound_ms, bound_by = attention_bound(b, h, sq, sk, d, causal, dtype, 6,
+                                                     peak="tf32")
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                        is_causal=causal)
+
             rec.update(
                 kernel_ms=device_ms(lambda: fa.flash_attention_with_lse(q, k, v, causal=causal)),
+                fma_kernel_ms=device_ms(lambda: fa._launch(q, k, v, causal, scale,
+                                                           route="fma")),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal),
                                  iters=3),
-                library_ms=device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal)),
+                library_ms=device_ms(sdpa), library_kernels=device_profile(sdpa, top=2)[2],
                 bound_ms=bound_ms, bound_by=bound_by, timing="device_ms")
-            if dtype == bf16:
-                rec["fma_kernel_ms"] = device_ms(
-                    lambda: fa._launch(q, k, v, causal, scale, route="fma"))
             del qt, kt, vt
         emit(phase="kernel_vs_plain", kernel="flash_attention_fwd", **rec)
         recs[name] = rec
-        del q, k, v, o, lse, po, plse, outs
+        del q, k, v, po, plse
     torch.cuda.empty_cache()
     return recs
 
@@ -502,10 +524,11 @@ def phase_score(model, cpu_model, ids):
         logits = model(ids)
     torch.cuda.synchronize()
     launches, routes = fa.launches, dict(fa.launches_by_route)
-    if launches != cfg.num_layers or routes != {"mma": 0, "fma": cfg.num_layers}:
+    if launches != cfg.num_layers or routes != {"mma": 0, "tf32x3": cfg.num_layers,
+                                                 "fma": 0}:
         raise AssertionError(f"scoring forward launched the flash kernel "
                              f"{launches} times ({routes}), expected {cfg.num_layers} "
-                             f"on the FMA kernel (f32)")
+                             f"on the 3xTF32 kernel (f32)")
     if tuple(logits.shape) != (*ids.shape, cfg.vocab_size):
         raise AssertionError(f"logits shape {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()):
@@ -675,7 +698,7 @@ def _steps(engine, ids, labels, n):
 
 def phase_train(ids):
     """bench.py's step on the port: GPT-2 124M, bf16 auto_cast, AdamW; then
-    the same step in f32 (the FMA forward and the 3xTF32 backward pair).
+    the same step in f32 (the 3xTF32 forward and backward pair).
     Returns the launch counts of the timed bf16 steps (the main path's run)
     and of the four f32 steps, each {kernel: n}."""
     from paddle_tpu_torch.amp import auto_cast
@@ -700,7 +723,7 @@ def phase_train(ids):
             if n != steps * cfg.num_layers:
                 raise AssertionError(f"{steps} train steps launched {name} {n} "
                                      f"times, expected {steps * cfg.num_layers}")
-        if fwd_routes != {"mma": steps * cfg.num_layers, "fma": 0}:
+        if fwd_routes != {"mma": steps * cfg.num_layers, "tf32x3": 0, "fma": 0}:
             raise AssertionError(f"the bf16 train steps' flash forwards took {fwd_routes}, "
                                  f"expected all {steps * cfg.num_layers} on the tensor cores")
         n = steps * cfg.num_layers
@@ -732,18 +755,18 @@ def phase_train(ids):
          device_busy_share=kernel_ms / median_ms, top_kernels=top)
 
     # the same step without autocast: every product at f32 accuracy (no
-    # TF32 in PyTorch's own; the flash backward pair in 3xTF32)
+    # TF32 in PyTorch's own; the flash forward and backward pair in 3xTF32)
     _reset_launch_counts()
     f32_losses, f32_ms = _steps(engine, ids, labels, 4)
     f32_launches = _launch_counts()
     f32_fwd_routes, f32_bwd_routes = dict(fa.launches_by_route), _bwd_routes()
     n = 4 * cfg.num_layers
-    if f32_fwd_routes != {"mma": 0, "fma": n} or f32_bwd_routes != {
+    if f32_fwd_routes != {"mma": 0, "tf32x3": n, "fma": 0} or f32_bwd_routes != {
             "mma": {"dkdv": 0, "dq": 0}, "tf32x3": {"dkdv": n, "dq": n},
             "fma": {"dkdv": 0, "dq": 0}}:
         raise AssertionError(f"the 4 f32 train steps' flash kernels took {f32_fwd_routes} "
-                             f"and {f32_bwd_routes}, expected {n} FMA forwards and {n} "
-                             f"3xTF32 launches of each backward kernel")
+                             f"and {f32_bwd_routes}, expected {n} 3xTF32 launches of the "
+                             f"forward and of each backward kernel")
     if not all(math.isfinite(x) for x in f32_losses):
         raise AssertionError(f"non-finite f32 training loss: {f32_losses}")
     f32_median = statistics.median(f32_ms[1:])
@@ -761,8 +784,9 @@ def phase_train(ids):
 
 def phase_train_vs_cpu():
     """One f32 step at full width, 2 layers, [1, 1024]: card (the 3xTF32
-    backward pair) vs CPU."""
+    forward and backward pair) vs CPU."""
     from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     cfg = GPTConfig(num_layers=2)
     gen = torch.Generator().manual_seed(3)
@@ -774,16 +798,17 @@ def phase_train_vs_cpu():
         _reset_launch_counts()
         loss = engine.step(ids, labels).item()
         out[device] = (loss, {n: p.grad.cpu() for n, p in model.named_parameters()},
-                       _launch_counts(), _bwd_routes())
+                       _launch_counts(), (dict(fa.launches_by_route), _bwd_routes()))
         del model, engine
     (l_gpu, g_gpu, n_gpu, r_gpu), (l_cpu, g_cpu, n_cpu, _) = out["cuda"], out["cpu"]
     if set(n_gpu.values()) != {cfg.num_layers} or set(n_cpu.values()) != {0}:
         raise AssertionError(f"launches: card {n_gpu}, CPU {n_cpu}")
     n = cfg.num_layers
-    if r_gpu != {"mma": {"dkdv": 0, "dq": 0}, "tf32x3": {"dkdv": n, "dq": n},
-                 "fma": {"dkdv": 0, "dq": 0}}:
-        raise AssertionError(f"the f32 step's flash backwards took {r_gpu}, expected the "
-                             f"3xTF32 pair")
+    if r_gpu != ({"mma": 0, "tf32x3": n, "fma": 0},
+                 {"mma": {"dkdv": 0, "dq": 0}, "tf32x3": {"dkdv": n, "dq": n},
+                  "fma": {"dkdv": 0, "dq": 0}}):
+        raise AssertionError(f"the f32 step's flash kernels took {r_gpu}, expected the "
+                             f"3xTF32 forward and pair")
     loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
     if not loss_err <= TRAIN_LOSS_RTOL:
         raise AssertionError(f"card vs CPU loss {l_gpu} vs {l_cpu}")
@@ -897,22 +922,26 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
     """The three LM-loss kernels against their plain versions at GPT-2 124M's
     LM head: h [8192, 768], W [vocab, 768], labels roll(ids, -1). Timed: bf16
     h with an f32 master W (the on-chip amp configuration; the tensor-core
-    backward, its time including W's bf16 copy, with the FMA backward at the
-    same inputs and the copy alone timed beside it) and f32 (the 3xTF32
-    backward, with the FMA backward at the same inputs timed beside it);
-    checked only: GPT-2's own vocabulary 50257 (a ragged last vocab tile) in
-    f32 and at bf16 h with an f32 and a bf16 W, labels of -100 (their rows'
-    loss is the logsumexp), and every label -100 (dh and dW the softmax term
-    alone, so that max|ref| scales with it), each at bf16 h and at f32. The
-    forward takes the tensor cores at bf16 h, the FMA kernel at f32; its
-    loss and lse are held at F32_TOL x max(1, max|ref|) at bf16 h (exact
-    products summed in f32). The f32 dh and dW are also held to
-    GRAD_F32_FROB_TOL in relative Frobenius norm. Wherever the backward
-    takes a tensor-core route, the FMA kernels (the predecessors: backward,
-    and at bf16 h the forward) are checked at the same inputs and limits.
-    The library yardstick is cross_entropy(linear(h, W).float()) and its
+    forward and backward, their time including W's bf16 copy, with the FMA
+    kernels at the same inputs and the copy alone timed beside them) and f32
+    (the 3xTF32 forward and backward, with the FMA kernels at the same
+    inputs timed beside them); checked only: GPT-2's own vocabulary 50257 (a
+    ragged last vocab tile) in f32 and at bf16 h with an f32 and a bf16 W,
+    labels of -100 (their rows' loss is the logsumexp), and every label -100
+    (dh and dW the softmax term alone, so that max|ref| scales with it),
+    each at bf16 h and at f32, and f32 at gpt_345m's hidden 1024 (the
+    3xTF32 forward, which streams the hidden dim and takes any H; the FMA
+    backward past H = 768). The forward takes the bf16 tensor cores at bf16
+    h, the 3xTF32 kernel at f32; its loss and lse are held at F32_TOL x
+    max(1, max|ref|) at bf16 h (exact products summed in f32) and F32_TOL at
+    f32. The f32 dh and dW are also held to GRAD_F32_FROB_TOL in relative
+    Frobenius norm. Wherever a function takes a tensor-core route, its FMA
+    kernel (the predecessor) is checked at the same inputs and limits. The
+    library yardstick is cross_entropy(linear(h, W).float()) and its
     autograd backward (dh and dW together), timed like the plain version in
-    true f32 (no TF32). Returns {case: {kernel: record}}."""
+    true f32 (no TF32). The f32 rows' bounds count three TF32 products each
+    (f32 accuracy), the FP32 units' bound beside them. Returns {case:
+    {kernel: record}}."""
     from paddle_tpu_torch.ops.kernels import lm_loss as lm
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -925,6 +954,8 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
     minus100[::97] = -100
     all_minus100 = torch.full_like(labels, -100)
     w50257 = w32[:50257].contiguous()
+    w1024 = torch.randn(vocab, 1024, device="cuda", generator=gen) * 0.02
+    h1024 = torch.randn(n, 1024, device="cuda", generator=gen)
     cases = [  # (name, h, W, labels, timed)
         ("bf16_h_f32_w", h32.bfloat16(), w32, labels, True),
         ("f32", h32, w32, labels, True),
@@ -936,12 +967,14 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
         ("all_minus100_bf16_h_f32_w", h32.bfloat16(), w32, all_minus100, False),
         ("vocab50257_bf16_h_bf16_w", h32.bfloat16(), w50257.bfloat16(), labels % 50257,
          False),
+        ("h1024_f32", h1024, w1024, labels, False),
     ]
     out = {}
     for name, hh, w, lab, timed in cases:
         dt = hh.dtype
         f32 = dt == torch.float32
-        route = lm.backward_plan(dt, h).route
+        hid = hh.shape[1]
+        route = lm.backward_plan(dt, hid).route
         fwd_route = lm.forward_route(dt)
         before = {k: dict(c) for k, c in lm.launches_by_route.items()}
         loss, lse = lm.lm_loss_fwd(hh, w, lab)
@@ -950,7 +983,9 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
         torch.cuda.synchronize()
         moved = {r: {k: c[k] - before[r][k] for k in c}
                  for r, c in lm.launches_by_route.items()}
-        if (moved[fwd_route]["fwd"], moved[route]["dh"], moved[route]["dw"]) != (1, 1, 1):
+        want_moved = {r: {"fwd": int(r == fwd_route), "dh": int(r == route),
+                          "dw": int(r == route)} for r in moved}
+        if moved != want_moved:
             raise AssertionError(f"lm_loss {name}: took the routes {moved}, expected the "
                                  f"forward on {fwd_route} and the backward on {route}")
         ploss, plse = lm.lm_loss_fwd_plain(hh, w, lab)
@@ -978,12 +1013,12 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
         err_dh, tol_dh, frob_dh = grad_err("dh", dh, pdh)
         err_dw, tol_dw, frob_dw = grad_err("dw", dw, pdw)
         fma, fma_err, fma_frob = {}, {}, {}
+        # the FMA kernels at the same inputs: the tensor-core kernels'
+        # predecessors, held to the same limits
+        if fwd_route != "fma":
+            fma["lm_loss_fwd"] = lambda: lm.lm_loss_fwd(hh, w, lab, route="fma")
+            fma_err["lm_loss_fwd"] = fwd_err("fma", fma["lm_loss_fwd"]())
         if route != "fma":
-            # the FMA kernels at the same inputs: the tensor-core kernels'
-            # predecessors, held to the same limits
-            if fwd_route != "fma":
-                fma["lm_loss_fwd"] = lambda: lm.lm_loss_fwd(hh, w, lab, route="fma")
-                fma_err["lm_loss_fwd"] = fwd_err("fma", fma["lm_loss_fwd"]())
             fma["lm_loss_dh"] = lambda: lm._bwd_launch(hh, w, lab, lse, g, False, route="fma")
             fma["lm_loss_dw"] = lambda: lm._bwd_launch(hh, w, lab, lse, g, True, route="fma")
             for k, ref in (("lm_loss_dh", pdh), ("lm_loss_dw", pdw)):
@@ -999,7 +1034,7 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
                     or torch.get_float32_matmul_precision() != "highest"):
                 raise AssertionError("f32 matmuls may take TF32: the plain version and the "
                                      "library yardstick must run in true f32")
-            v = w.shape[0]
+            v, h = w.shape
             hl = hh.detach().clone().requires_grad_()
             wl = w.detach().clone().requires_grad_()
             labl = lab.long()
@@ -1034,17 +1069,18 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
                 # the FMA kernels timed beside the tensor-core ones, and the W
                 # cast that the bf16 tensor-core calls include
                 cast_ms = (cuda_ms(lambda: w.to(torch.bfloat16), iters=20)
-                           if route == "mma" and w.dtype != torch.bfloat16 else 0.0)
+                           if fwd_route == "mma" and w.dtype != torch.bfloat16 else 0.0)
                 for kernel, fn in fma.items():
                     extra[kernel].update(
                         w_cast_ms=cast_ms, fma_max_abs_err=fma_err[kernel],
                         fma_kernel_ms=cuda_ms(fn, iters=3, warmup=1),
-                        **({"fma_rel_frob": fma_frob[kernel]} if f32 else {}))
+                        **({"fma_rel_frob": fma_frob[kernel]} if kernel in fma_frob
+                           else {}))
             for kernel, (fn, err, tol, frob, plain_ms, lib_ms, products,
                          nbytes) in rows.items():
                 flops = products * n * v * h
                 bound_ms, bound_by = _bound(flops, nbytes, dt)
-                if kernel != "lm_loss_fwd" and route == "tf32x3":
+                if extra[kernel]["kernel_route"] == "tf32x3":
                     # f32 accuracy on the tensor cores: three TF32 products
                     extra[kernel]["fp32_bound_ms"] = bound_ms
                     bound_ms, bound_by = _bound(3 * flops, nbytes, "tf32")
@@ -1064,11 +1100,12 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
             del hl, wl, lib_loss
         else:
             emit(phase="kernel_vs_plain", kernel="lm_loss (fwd, dh, dw)", case=name,
-                 shape=[n, w.shape[0], h], routes=[fwd_route, route],
+                 shape=[n, w.shape[0], hid], routes=[fwd_route, route],
                  max_abs_err=[err_f, err_dh, err_dw], tol=[tol_f, tol_dh, tol_dw],
                  rel_frob=[frob_dh, frob_dw] if f32 else None,
-                 fma_max_abs_err=[fma_err[k] for k in fma] if fma else None,
-                 fma_rel_frob=[fma_frob[k] for k in fma_frob] if f32 and fma else None)
+                 fma_max_abs_err={k: fma_err[k] for k in fma} if fma else None,
+                 fma_rel_frob={k: fma_frob[k] for k in fma_frob} if f32 and fma_frob
+                 else None)
         out[name] = recs
         del loss, lse, dh, dw, ploss, plse, pdh, pdw
         torch.cuda.empty_cache()
@@ -1083,9 +1120,8 @@ def _library_counts():
     return {"layer_norm_fwd": ln.launches_fwd, "layer_norm_infer": ln.launches_infer,
             "layer_norm_bwd": ln.launches_bwd, "lm_loss_fwd": lm.launches_fwd,
             "lm_loss_dh": lm.launches_dh, "lm_loss_dw": lm.launches_dw,
-            "lm_loss_fwd_mma": by_route["mma"]["fwd"], "lm_loss_fwd_fma": by_route["fma"]["fwd"],
             **{f"lm_loss_{k}_{r}": by_route[r][k] for r in ("mma", "tf32x3", "fma")
-               for k in ("dh", "dw")}}
+               for k in ("fwd", "dh", "dw")}}
 
 
 def _reset_library_counts():
@@ -1103,10 +1139,10 @@ def phase_library_ops(ids):
     depth, twice. In f32: the hidden state before ln_f through the kernel
     LayerNorm (no_grad: the inference forward, held against the model's
     ln_f; then with grad), the tied LM head and loss through the kernel LM
-    loss (the FMA backward), mean over rows; loss and the gradients of wte,
-    ln_f.weight and ln_f.bias against the model's own route (plain
-    LayerNorm, chunked fused loss); the LM loss's forward on the FMA kernel,
-    its backward on the 3xTF32 tensor-core kernels. Then with the kernel
+    loss, mean over rows; loss and the gradients of wte, ln_f.weight and
+    ln_f.bias against the model's own route (plain LayerNorm, chunked fused
+    loss); the LM loss's forward and backward on the 3xTF32 tensor-core
+    kernels, none on the FMA ones. Then with the kernel
     LayerNorm's output cast to bf16 against the f32 tied wte (the bf16
     tensor-core forward and backward): loss, dh and dwte against the plain
     versions on the card at the same dtypes. Returns the launch counts of
@@ -1140,8 +1176,7 @@ def phase_library_ops(ids):
     torch.cuda.synchronize()
     launches = _library_counts()
     pass_s = time.perf_counter() - t0
-    want = {k: 0 if k.endswith("_mma") or k in ("lm_loss_dh_fma", "lm_loss_dw_fma") else 1
-            for k in launches}
+    want = {k: 0 if k.endswith(("_mma", "_fma")) else 1 for k in launches}
     if launches != want:
         raise AssertionError(f"the f32 library_ops pass launched {launches}, expected {want}")
     ln_err = (h_inf - h_ref).abs().max().item()
@@ -1264,12 +1299,12 @@ def main() -> int:
     phase_probe(per_source["lm_loss"] or None)
 
     # the training main path runs attention in bf16 at [8, 1024, 12, 64] (the
-    # tensor-core forward and backward pair), the f32 steps in f32 (the FMA
-    # forward, the 3xTF32 backward pair), scoring in f32 (the FMA forward);
+    # tensor-core forward and backward pair), the f32 steps and scoring in
+    # f32 (the 3xTF32 forward, and in the steps the 3xTF32 backward pair);
     # the library ops are reported at the composition's shapes:
     # LayerNorm in f32 (black-listed under O1), the LM loss with bf16 h and
-    # an f32 master W (the bf16 tensor-core kernels) and in f32 (the FMA
-    # forward, the 3xTF32 tensor-core backward)
+    # an f32 master W (the bf16 tensor-core kernels) and in f32 (the 3xTF32
+    # tensor-core forward and backward)
     pallas = "paddle_tpu/ops/pallas/"
     rows = [  # (name, path, record, source, replaces)
         ("flash_attention_fwd", "train", fwd["slice_bf16_causal"],
@@ -1304,7 +1339,7 @@ def main() -> int:
          "lm_loss.cu", pallas + "lm_loss.py:279"),
     ]
     # LayerNorm from the f32 pass; the LM loss's bf16 tensor-core forward
-    # and backward from the bf16 pass, its f32-h forward (FMA) and backward
+    # and backward from the bf16 pass, its f32-h forward and backward
     # (3xTF32) from the f32 pass
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
     counts = {**launches,
@@ -1315,7 +1350,7 @@ def main() -> int:
               **{k: lib_f32[k] for k in ("layer_norm_fwd", "layer_norm_infer",
                                          "layer_norm_bwd")},
               "lm_loss_fwd": lib_bf16["lm_loss_fwd_mma"],
-              "lm_loss_fwd_f32": lib_f32["lm_loss_fwd_fma"],
+              "lm_loss_fwd_f32": lib_f32["lm_loss_fwd_tf32x3"],
               "lm_loss_dh": lib_bf16["lm_loss_dh_mma"],
               "lm_loss_dw": lib_bf16["lm_loss_dw_mma"],
               "lm_loss_dh_f32": lib_f32["lm_loss_dh_tf32x3"],

@@ -88,11 +88,13 @@
 // 64-float lse and delta rows.
 //
 // 3xTF32 kernels (mma.sync.m16n8k8 .tf32, the TF32 fragments and split_tf32
-// of mma_sync.cuh). The bf16 pair's grids, splits, causal order, warps and
-// cp.async double buffers, on f32 tiles of 64 rows of d + 4 floats (105 KB
-// at d = 64, 204 KB at d = 128). Each f32 value is split into a TF32 big and
-// small part where it is loaded, and each product is a_small b_big + a_big
-// b_small + a_big b_big: one TF32 pass errs by ~2^-11 of a product.
+// of mma_sync.cuh, and the accumulator, product and epilogue they share
+// there with the f32 forward). The bf16 pair's grids, splits, causal
+// order, warps and cp.async double buffers, on f32 tiles of 64 rows of d +
+// 4 floats (105 KB at d = 64, 204 KB at d = 128). Each f32 value is split
+// into a TF32 big and small part where it is loaded, and each product is
+// a_small b_big + a_big b_small + a_big b_big: one TF32 pass errs by ~2^-11
+// of a product.
 //   - The other side's tile is taken in passes of 32 rows (16 at d = 128),
 //     so that the pass's S and dP tiles and the split P and dS fragments fit
 //     in registers beside dK and dV (dQ). S and dP read both operands
@@ -867,36 +869,18 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dq_mma_kernel(const Par
 
 // ------------------------------------------- 3xTF32 tensor-core kernels (f32)
 
-// a staged f32 row's padding: 4 elements (16 bytes), as MPAD for bf16
-constexpr int FPAD = 4;
-
 // other-side rows a pass: the pass's S and dP tiles, and the P and dS A
 // fragments made from them, live in registers beside the warp's [16, D]
 // accumulators (64 at d = 64 for dK and dV, 128 at d = 128)
 template <int D>
 constexpr int TF32_PASS = D <= 64 ? 32 : 16;
 
-// n8 tiles of an accumulating product summed in one fresh accumulator: 4
-// (32 output columns), 2 at d = 128, where dK and dV alone take 128
-// registers and the pass's temporaries must fit beside them
-template <int D>
-constexpr int TF32_GROUP = D <= 64 ? 4 : 2;
-
-// a warp's [16, D] f32 accumulator: groups of TF32_GROUP n8 C fragments
-template <int D>
-using Tf32Acc = float[D / (8 * TF32_GROUP<D>)][1][TF32_GROUP<D>][4];
-
 template <int D>
 constexpr int tf32_smem_bytes(Which which) {
   // two own tiles and two double-buffered other tiles of 64 rows of D + FPAD
   // floats; dkdv adds two [lse 64 | delta 64] rows
-  return 6 * 64 * (D + FPAD) * 4 + (which == Which::kDkdv ? 2 * 128 * 4 : 0);
+  return 6 * 64 * (D + mma_sync::FPAD) * 4 + (which == Which::kDkdv ? 2 * 128 * 4 : 0);
 }
-
-// the A register that holds C fragment entry e of an n8 tile made into the A
-// fragment of a k8 step: {c0, c2, c1, c3}, so that A's k slot tq is the
-// tile's column 2tq and slot tq + 4 its column 2tq + 1
-__device__ __forceinline__ constexpr int a_slot(int e) { return ((e & 1) << 1) | (e >> 1); }
 
 // s = own_s . other_s^T and dp = own_p . other_p^T for the warp's 16 own rows
 // and NJ n8 tiles of other rows (one pass), summed over d in 3xTF32
@@ -934,60 +918,6 @@ __device__ __forceinline__ void tf32_scores(float (&s)[1][NJ][4], float (&dp)[1]
       else
         mma_tf32x3(s, ab, as, bb, bs);
     }
-  }
-}
-
-// acc[16 own rows, D] += A . B over NK k8 steps in 3xTF32. A: the split P or
-// dS fragments of the pass (a_slot's k order). B: rows (k) of a staged
-// [k][n] f32 tile from `rows` (the pass's first), read in the same k order
-// by scalar loads, since ldmatrix cannot transpose 32-bit elements (at a row
-// stride of 4 banks the 32 lanes meet no shared bank). Each group of
-// TF32_GROUP n8 tiles sums the pass in a fresh accumulator, added to acc in
-// f32: the tensor core truncates as it accumulates, and acc sums up to sq or
-// sk rows.
-template <int D, int NK>
-__device__ __forceinline__ void tf32_product(Tf32Acc<D>& acc, const unsigned (&ab)[NK][1][4],
-                                             const unsigned (&as)[NK][1][4],
-                                             const float* rows) {
-  using namespace mma_sync;
-  constexpr int LD = D + FPAD;
-  constexpr int G = TF32_GROUP<D>;
-  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-  const float* b = rows + 2 * tq * LD + gq;
-#pragma unroll
-  for (int g = 0; g < D / (8 * G); ++g) {
-    float part[1][G][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      unsigned bb[G][2], bs[G][2];
-#pragma unroll
-      for (int j = 0; j < G; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          split_tf32(__float_as_uint(b[(kk * 8 + e) * LD + (g * G + j) * 8]), bb[j][e], bs[j][e]);
-      mma_tf32x3(part, ab[kk], as[kk], bb, bs);
-    }
-    add_frags(acc[g], part);
-  }
-}
-
-// A warp's f32 [16, D] accumulator out to rows w0.. of a [rows, D] f32
-// output of row stride ss, a float2 a lane and row
-template <int D>
-__device__ __forceinline__ void store_rows_f32(const Tf32Acc<D>& acc, float* out, long long ss,
-                                               int w0, int rows) {
-  constexpr int G = TF32_GROUP<D>;
-  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = w0 + gq + 8 * i;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int g = 0; g < D / (8 * G); ++g)
-#pragma unroll
-      for (int j = 0; j < G; ++j)
-        *reinterpret_cast<float2*>(out + row * ss + (g * G + j) * 8 + 2 * tq) =
-            make_float2(acc[g][0][j][2 * i], acc[g][0][j][2 * i + 1]);
   }
 }
 

@@ -43,7 +43,8 @@
 //   p and dl never leave the chip, each staged tile is reused by 32 or 128
 //   rows, the forward splits the vocab so that ~1000 CTAs fill 132 SMs.
 //   The FMA backward stays the route for f32 h past H = 768 and for bf16 h
-//   past 1536 (bit for bit as it was); the FMA forward for all f32 h.
+//   past 1536 (bit for bit as it was); the FMA forward is the predecessor of
+//   both tensor-core forwards, timed beside them, and no route takes it.
 //
 // The tensor-core backward (lm_grad_mma_kernel, the route for bf16 h): dh
 // and dW again as one template with the roles swapped, now with both
@@ -130,10 +131,13 @@
 //   running sums in f32. No atomics and a fixed order: two calls give the
 //   same bits.
 //
-// The tensor-core forward (lm_fwd_mma_*, the route for bf16 h; f32 h keeps
-// the FMA forward lm_fwd_full_*): a GEMM with a row-reduction epilogue, on
-// mma.sync.m16n8k16 bf16 with f32 accumulation. W is read in bf16 (the
-// wrapper casts an f32 W once a call, inside the call's time).
+// The tensor-core forwards (lm_fwd_mma_*, the route for bf16 h, and
+// lm_fwd_tf32_full, the route for f32 h): a GEMM with a row-reduction
+// epilogue, one body (fwd_mma_body) for both dtypes: on mma.sync.m16n8k16
+// bf16 with f32 accumulation, or on mma.sync.m16n8k8 TF32 in 3xTF32 (each
+// operand split into a TF32 big and small part and three products summed,
+// f32 accuracy). W is read in h's dtype (the wrapper casts a W of the other
+// dtype once a call, inside the call's time; to f32 exactly).
 //   Bound: 2 N V H = 633 GFLOP, 0.64 ms on the bf16 tensor cores.
 //   Tiles: a CTA takes 128 rows of h against 128-row vocab tiles, 8 warps of
 //   32 x 64. It has none of the backward's [32, H] f32 accumulator, so the
@@ -152,6 +156,21 @@
 //   (lm_loss_fwd_mma_splits: 2112 CTAs, 8 waves of 2 an SM on 132 SMs, a
 //   function of the shapes only) and lm_merge_kernel merges the splits in
 //   order: no atomics, and two calls give the same bits.
+//   3xTF32 at f32 h: bound 3 x 2 N V H = 1.90 TFLOP at 495 TFLOP/s, 3.84
+//   ms (the FP32 units' bound of the same work at f32: 9.45 ms). The same
+//   tiles, ring (a stage now 32 hidden columns: the same 128 bytes a row,
+//   so any H a multiple of 128 still fits, with no cap) and epilogue; each
+//   k8 step loads 2 A and 4 B fragments through ldmatrix, splits their 24
+//   values (3 ALU instructions each) and issues 48 mma. The tensor core
+//   truncates as it accumulates: one accumulator across the hidden loop
+//   (288 products into each at H = 768) moved the loss by 1.3e-5, and at H
+//   = 1280 the lse by enough to push the backward's dh past its f32 limit
+//   (PERF.md), so each slice (12 products) goes into a fresh accumulator,
+//   added to S in f32. That takes 64 more registers: beside the split
+//   fragments (48), more than the 128 a thread of two CTAs an SM, so it
+//   runs one (8 warps) an SM, 16 waves of the same 2112 CTAs. mma.sync's
+//   TF32 pipe takes ~7.7 cycles a product on each sub-partition, so the
+//   three passes alone need ~7.7 ms at this shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1063,8 +1082,8 @@ cudaError_t tf32_dispatch(const MmaParams& p, int hc, int stages, cudaStream_t s
   }
 }
 
-// The FMA forward kernels, one per (h dtype, W dtype): the f32 route, and
-// the predecessor of the tensor-core forward when timed at bf16 h. Plain
+// The FMA forward kernels, one per (h dtype, W dtype): the predecessor of
+// the tensor-core forwards, timed beside them at either dtype of h. Plain
 // functions rather than template instances, so that their names read
 // plainly in ptxas's report.
 #define LM_FWD_KERNEL(NAME, TH, TW)                                          \
@@ -1081,15 +1100,15 @@ LM_FWD_KERNEL(lm_fwd_full_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 
 constexpr int FM = 128;        // h rows a CTA: 4 warp rows of 32
 constexpr int FN = 128;        // W rows (vocab columns) a tile: 2 warp columns of 64
-constexpr int FK = 64;         // hidden columns a stage
-constexpr int FLD = FK + MPAD;  // row stride (bf16) of a staged slice
 constexpr int FSTAGES = 3;
-constexpr int FWD_MMA_SMEM = FSTAGES * (FM + FN) * FLD * 2;  // 110,592 bytes
-constexpr int FWD_MMA_CTAS = 2112;  // 8 waves of 2 CTAs on each of 132 SMs
+// a stage: 128 bytes of each row (64 bf16 or 32 f32 hidden columns) and a
+// 16-byte pad, in either dtype 110,592 bytes
+constexpr int FWD_MMA_SMEM = FSTAGES * (FM + FN) * (128 + 16);
+constexpr int FWD_MMA_CTAS = 2112;  // 8 waves of 2 CTAs (16 of 1) on each of 132 SMs
 
 struct FwdMmaParams {
-  const __nv_bfloat16* h;   // [n, hdim]
-  const __nv_bfloat16* w;   // [v, hdim]
+  const void* h;            // [n, hdim], bf16 or f32
+  const void* w;            // [v, hdim], h's dtype
   const int* labels;        // [n]
   float* part;              // [3][splits][n]: m, l, picked
   int n, v, hdim;
@@ -1106,12 +1125,28 @@ struct FwdMmaParams {
 // At the end the partials merge over the quad, then over the two warp
 // columns in shared memory, in a fixed order. PICK: the label's logit;
 // MASK: columns >= v_true masked. Columns past v never count.
-template <bool PICK, bool MASK>
+// T: h's and W's dtype. bf16: mma.sync.m16n8k16; a stage holds 64 hidden
+// columns, 4 k16 steps of 2 A and 4 B ldmatrix and 16 mma. f32 (3xTF32):
+// mma.sync.m16n8k8 .tf32; a stage holds 32 hidden columns (the same 128
+// bytes a row), 4 k8 steps of 2 A and 4 B ldmatrix (an f32 tile's 8 x 4
+// blocks are ldmatrix's 8 x 8 b16 blocks), each value split into its TF32
+// big and small parts where it is loaded (24 values), and 48 mma. Each
+// slice is summed in a fresh accumulator and added to S in f32: the tensor
+// core truncates as it accumulates, and one accumulator across the hidden
+// loop (3 H / 8 products into each) drifted enough to move the loss by
+// 1.3e-5 at H = 768 (PERF.md).
+template <typename T, bool PICK, bool MASK>
 __device__ __forceinline__ void fwd_mma_body(const FwdMmaParams& p) {
   using namespace mma_sync;
+  constexpr bool TF32 = std::is_same<T, float>::value;
+  constexpr int V = 16 / sizeof(T);      // elements in 16 bytes
+  constexpr int FK = 8 * V;              // hidden columns a stage (128 bytes)
+  constexpr int FLD = FK + V;            // row stride of a staged slice
   extern __shared__ float4 smem4[];
   __shared__ float red[2][3][FM];  // (m, l, picked) of each warp column
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);  // FSTAGES x [FM + FN][FLD]
+  T* ring = reinterpret_cast<T*>(smem4);  // FSTAGES x [FM + FN][FLD]
+  const T* h = static_cast<const T*>(p.h);
+  const T* w = static_cast<const T*>(p.w);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
   const int gq = lane >> 2, tq = lane & 3;
@@ -1126,16 +1161,15 @@ __device__ __forceinline__ void fwd_mma_body(const FwdMmaParams& p) {
   auto stage = [&](int g) {
     const int t = g / nk, kc = (g - t * nk) * FK;
     const int v0 = (blockIdx.y + t * gridDim.y) * FN;
-    __nv_bfloat16* dst = ring + (g % FSTAGES) * (FM + FN) * FLD;
+    T* dst = ring + (g % FSTAGES) * (FM + FN) * FLD;
 #pragma unroll
-    for (int i = 0; i < (FM + FN) * FK / 8 / NT; ++i) {   // 8 pieces of 16 bytes a thread
+    for (int i = 0; i < (FM + FN) * FK / V / NT; ++i) {   // 8 pieces of 16 bytes a thread
       const int idx = tid + i * NT;
-      const int r = idx >> 3, c = (idx & 7) * 8;
+      const int r = idx >> 3, c = (idx & 7) * V;
       const bool is_h = r < FM;
       const int row = is_h ? r0 + r : v0 + r - FM;
       const bool ok = row < (is_h ? p.n : p.v);
-      const __nv_bfloat16* src = (is_h ? p.h : p.w) +
-                                 static_cast<long long>(ok ? row : 0) * p.hdim + kc + c;
+      const T* src = (is_h ? h : w) + static_cast<long long>(ok ? row : 0) * p.hdim + kc + c;
       cp_async16(smem_u32(dst + r * FLD + c), src, ok ? 16 : 0);
     }
   };
@@ -1159,9 +1193,9 @@ __device__ __forceinline__ void fwd_mma_body(const FwdMmaParams& p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
 
-  // ldmatrix lane offsets (bf16 elements) inside a stage
-  const int a_off = wm * 32 * FLD + a_lane(lane, FLD);
-  const int b_off = (FM + wn * 64) * FLD + b_lane(lane, FLD);
+  // ldmatrix lane offsets (elements) inside a stage
+  const int a_off = wm * 32 * FLD + a_lane(lane, FLD, V);
+  const int b_off = (FM + wn * 64) * FLD + b_lane(lane, FLD, V);
 
 #pragma unroll
   for (int g = 0; g < FSTAGES - 1; ++g) {
@@ -1174,21 +1208,45 @@ __device__ __forceinline__ void fwd_mma_body(const FwdMmaParams& p) {
     if (g + FSTAGES - 1 < total) stage(g + FSTAGES - 1);
     cp_async_commit();
     const unsigned buf = smem_u32(ring + (g % FSTAGES) * (FM + FN) * FLD);
+    if constexpr (!TF32) {
 #pragma unroll
-    for (int kk = 0; kk < FK / 16; ++kk) {
-      unsigned a[2][4];
-      ldsm_x4(buf + (a_off + kk * 16) * 2, a[0]);
-      ldsm_x4(buf + (a_off + 16 * FLD + kk * 16) * 2, a[1]);
+      for (int kk = 0; kk < FK / 16; ++kk) {
+        unsigned a[2][4];
+        ldsm_x4(buf + (a_off + kk * 16) * 2, a[0]);
+        ldsm_x4(buf + (a_off + 16 * FLD + kk * 16) * 2, a[1]);
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        unsigned b[4];
-        ldsm_x4(buf + (b_off + np * 16 * FLD + kk * 16) * 2, b);
+        for (int np = 0; np < 4; ++np) {
+          unsigned b[4];
+          ldsm_x4(buf + (b_off + np * 16 * FLD + kk * 16) * 2, b);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
+            mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+          }
         }
       }
+    } else {
+      float run[2][8][4] = {};   // the slice's products, a fresh accumulator
+#pragma unroll
+      for (int kk = 0; kk < FK / 8; ++kk) {
+        unsigned a[2][4], ab[2][4], as[2][4], bb[8][2], bs[8][2];
+        ldsm_x4(buf + (a_off + kk * 8) * 4, a[0]);
+        ldsm_x4(buf + (a_off + 16 * FLD + kk * 8) * 4, a[1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) split_tf32(a[mt][x], ab[mt][x], as[mt][x]);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          unsigned b[4];
+          ldsm_x4(buf + (b_off + np * 16 * FLD + kk * 8) * 4, b);
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            split_tf32(b[x], bb[2 * np + (x >> 1)][x & 1], bs[2 * np + (x >> 1)][x & 1]);
+        }
+        mma_tf32x3(run, ab, as, bb, bs);
+      }
+      add_frags(acc, run);
     }
     if ((g + 1) % nk) continue;
 
@@ -1265,23 +1323,54 @@ __device__ __forceinline__ void fwd_mma_body(const FwdMmaParams& p) {
   }
 }
 
+cudaError_t merge_launch(const float* part, int splits, int n, void* loss, void* lse,
+                         cudaStream_t st) {
+  lm_merge_kernel<<<(n + NT - 1) / NT, NT, 0, st>>>(part, splits, n, static_cast<float*>(loss),
+                                                    static_cast<float*>(lse));
+  return cudaGetLastError();
+}
+
 // The tensor-core forward's instances: `full` is the public one (label pick
 // and masking at v_true); `bare` (product and online logsumexp only) and
 // `picked` (plus the label pick) are the compile probe's stripped variants.
 #define LM_FWD_MMA_KERNEL(NAME, PICK, MASK)                                   \
   __global__ void __launch_bounds__(NT, 2) NAME(const FwdMmaParams p) {       \
-    fwd_mma_body<PICK, MASK>(p);                                              \
+    fwd_mma_body<__nv_bfloat16, PICK, MASK>(p);                               \
   }
 LM_FWD_MMA_KERNEL(lm_fwd_mma_full, true, true)
 LM_FWD_MMA_KERNEL(lm_fwd_mma_bare, false, false)
 LM_FWD_MMA_KERNEL(lm_fwd_mma_picked, true, false)
 #undef LM_FWD_MMA_KERNEL
 
-cudaError_t merge_launch(const float* part, int splits, int n, void* loss, void* lse,
-                         cudaStream_t st) {
-  lm_merge_kernel<<<(n + NT - 1) / NT, NT, 0, st>>>(part, splits, n, static_cast<float*>(loss),
-                                                    static_cast<float*>(lse));
-  return cudaGetLastError();
+// The 3xTF32 forward (the route for f32 h): one CTA an SM, since the
+// slice's fresh accumulator and the split fragments (64 + 48 registers)
+// beside the running S (64) do not fit in the 128 registers a thread that
+// two CTAs an SM would leave
+__global__ void __launch_bounds__(NT, 1) lm_fwd_tf32_full(const FwdMmaParams p) {
+  fwd_mma_body<float, true, true>(p);
+}
+
+// the tensor-core forward `kernel` on h, w with 16-byte aligned rows (vec
+// elements in 16 bytes), then the merge of its vocab splits
+cudaError_t fwd_tc_launch(void (*kernel)(const FwdMmaParams), const void* h, const void* w,
+                          const void* labels, void* loss, void* lse, void* part, int n, int v,
+                          int hdim, int v_true, int splits, int vec, cudaStream_t st) {
+  if (!shape_ok(n, v, hdim) || splits < 1 || !mma_sync::aligned16(h, {hdim}, vec) ||
+      !mma_sync::aligned16(w, {hdim}, vec))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       FWD_MMA_SMEM);
+  if (e != cudaSuccess) return e;
+  FwdMmaParams p;
+  p.h = h;
+  p.w = w;
+  p.labels = static_cast<const int*>(labels);
+  p.part = static_cast<float*>(part);
+  p.n = n; p.v = v; p.hdim = hdim; p.v_true = v_true;
+  kernel<<<dim3((n + FM - 1) / FM, splits), NT, FWD_MMA_SMEM, st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return merge_launch(p.part, splits, n, loss, lse, st);
 }
 
 }  // namespace
@@ -1339,28 +1428,26 @@ extern "C" int lm_loss_fwd_mma_splits(int n, int v) {
 extern "C" int lm_loss_fwd_mma(const void* h, const void* w, const void* labels, void* loss,
                                void* lse, void* part, int n, int v, int hdim, int v_true,
                                int splits, int variant, void* stream) {
-  if (!shape_ok(n, v, hdim) || splits < 1 || !mma_sync::aligned16(h, {hdim}) ||
-      !mma_sync::aligned16(w, {hdim}))
-    return static_cast<int>(cudaErrorInvalidValue);
   void (*kernel)(const FwdMmaParams) = variant == 0   ? lm_fwd_mma_full
                                        : variant == 1 ? lm_fwd_mma_bare
                                        : variant == 2 ? lm_fwd_mma_picked
                                                       : nullptr;
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       FWD_MMA_SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  FwdMmaParams p;
-  p.h = static_cast<const __nv_bfloat16*>(h);
-  p.w = static_cast<const __nv_bfloat16*>(w);
-  p.labels = static_cast<const int*>(labels);
-  p.part = static_cast<float*>(part);
-  p.n = n; p.v = v; p.hdim = hdim; p.v_true = v_true;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kernel<<<dim3((n + FM - 1) / FM, splits), NT, FWD_MMA_SMEM, st>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(merge_launch(p.part, splits, n, loss, lse, st));
+  return static_cast<int>(fwd_tc_launch(kernel, h, w, labels, loss, lse, part, n, v, hdim,
+                                        v_true, splits, 8, static_cast<cudaStream_t>(stream)));
+}
+
+// The 3xTF32 forward: h [n, hdim] and w [v, hdim] both f32 (the wrapper
+// casts a bf16 W once a call, exactly), contiguous and 16-byte aligned; the
+// other arguments as lm_loss_fwd_mma's, with the same splits. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for operands it does not
+// take.
+extern "C" int lm_loss_fwd_tf32(const void* h, const void* w, const void* labels, void* loss,
+                                void* lse, void* part, int n, int v, int hdim, int v_true,
+                                int splits, void* stream) {
+  return static_cast<int>(fwd_tc_launch(lm_fwd_tf32_full, h, w, labels, loss, lse, part, n, v,
+                                        hdim, v_true, splits, 4,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 // dh (dw = 0: out [n, hdim] in h's dtype) or dW (dw = 1: out [v, hdim] in

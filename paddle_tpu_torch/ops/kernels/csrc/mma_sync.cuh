@@ -5,7 +5,8 @@
 // mma.sync.m16n8k16 product with f32 accumulation, the TF32
 // mma.sync.m16n8k8 product and its error-compensated 3xTF32 form (f32
 // operands at f32 accuracy), the MUFU exp2, a warp's 16-row bf16 epilogue,
-// and the host's alignment check of a staged operand.
+// the flash kernels' 3xTF32 accumulator, product and f32 epilogue, and the
+// host's alignment check of a staged operand.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * gq + tq):
 //   A (16 x 16, row): a0 = (row gq, k 2tq..+1), a1 = (gq + 8, 2tq..+1),
@@ -208,6 +209,82 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], __nv_bf
     if (w0 + r < rows)
       *reinterpret_cast<uint4*>(out + (w0 + r) * ss + c) =
           *reinterpret_cast<const uint4*>(stage + r * ld + c);
+  }
+}
+
+// a staged f32 row's padding: 4 elements (16 bytes), as MPAD for bf16
+constexpr int FPAD = 4;
+
+// The flash-attention kernels' 3xTF32 products (flash_attention_fwd.cu's
+// O += P V, flash_attention_bwd.cu's dV, dK and dQ): a warp's [16, D] f32
+// accumulator, its A fragments made from C fragments, the product that
+// reads a k-major B, and the epilogue.
+//
+// n8 tiles of an accumulating product summed in one fresh accumulator: 4
+// (32 output columns), 2 at d = 128, where dK and dV alone take 128
+// registers and the pass's temporaries must fit beside them
+template <int D>
+constexpr int TF32_GROUP = D <= 64 ? 4 : 2;
+
+// a warp's [16, D] f32 accumulator: groups of TF32_GROUP n8 C fragments
+template <int D>
+using Tf32Acc = float[D / (8 * TF32_GROUP<D>)][1][TF32_GROUP<D>][4];
+
+// the A register that holds C fragment entry e of an n8 tile made into the A
+// fragment of a k8 step: {c0, c2, c1, c3}, so that A's k slot tq is the
+// tile's column 2tq and slot tq + 4 its column 2tq + 1
+__device__ __forceinline__ constexpr int a_slot(int e) { return ((e & 1) << 1) | (e >> 1); }
+
+// acc[16 own rows, D] += A . B over NK k8 steps in 3xTF32. A: the split P or
+// dS fragments of the pass or kv tile (a_slot's k order). B: rows (k) of a staged
+// [k][n] f32 tile from `rows` (the pass's first), read in the same k order
+// by scalar loads, since ldmatrix cannot transpose 32-bit elements (at a row
+// stride of 4 banks the 32 lanes meet no shared bank). Each group of
+// TF32_GROUP n8 tiles sums the pass in a fresh accumulator, added to acc in
+// f32: the tensor core truncates as it accumulates, and acc sums up to sq or
+// sk rows.
+template <int D, int NK>
+__device__ __forceinline__ void tf32_product(Tf32Acc<D>& acc, const unsigned (&ab)[NK][1][4],
+                                             const unsigned (&as)[NK][1][4],
+                                             const float* rows) {
+  constexpr int LD = D + FPAD;
+  constexpr int G = TF32_GROUP<D>;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const float* b = rows + 2 * tq * LD + gq;
+#pragma unroll
+  for (int g = 0; g < D / (8 * G); ++g) {
+    float part[1][G][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      unsigned bb[G][2], bs[G][2];
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          split_tf32(__float_as_uint(b[(kk * 8 + e) * LD + (g * G + j) * 8]), bb[j][e], bs[j][e]);
+      mma_tf32x3(part, ab[kk], as[kk], bb, bs);
+    }
+    add_frags(acc[g], part);
+  }
+}
+
+// A warp's f32 [16, D] accumulator out to rows w0.. of a [rows, D] f32
+// output of row stride ss, a float2 a lane and row
+template <int D>
+__device__ __forceinline__ void store_rows_f32(const Tf32Acc<D>& acc, float* out, long long ss,
+                                               int w0, int rows) {
+  constexpr int G = TF32_GROUP<D>;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = w0 + gq + 8 * i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int g = 0; g < D / (8 * G); ++g)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        *reinterpret_cast<float2*>(out + row * ss + (g * G + j) * 8 + 2 * tq) =
+            make_float2(acc[g][0][j][2 * i], acc[g][0][j][2 * i + 1]);
   }
 }
 

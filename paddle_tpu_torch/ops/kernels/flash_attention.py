@@ -12,15 +12,16 @@ plain PyTorch. ``delta = rowsum(dO * O) - g_lse`` is plain PyTorch on both
 devices, as the JAX package computes it outside its kernels.
 
 Kernels are picked by dtype (``forward_route``, ``backward_route``): bf16
-takes the tensor-core kernels (``"mma"``); the f32 forward takes the FMA
-kernel on the FP32 units (``"fma"``), the f32 backward the TF32 tensor-core
-pair in 3xTF32 (``"tf32x3"``: each product as three TF32 ones, at f32
-accuracy). The tensor-core kernels copy 16-byte pieces, so a view whose
-start or strides are not 16-byte aligned is handed over as an aligned
-contiguous copy (``_mma_operand``; the fused qkv projection's views are
-aligned and are read in place).
+takes the bf16 tensor-core kernels (``"mma"``), f32 the TF32 tensor-core
+kernels in 3xTF32 (``"tf32x3"``: each product as three TF32 ones, at f32
+accuracy), forward and backward. The FMA kernels on the FP32 units
+(``"fma"``) are their predecessors, which no route takes. The tensor-core
+kernels copy 16-byte pieces, so a view whose start or strides are not
+16-byte aligned is handed over as an aligned contiguous copy
+(``_mma_operand``; the fused qkv projection's views are aligned and are
+read in place).
 
-``launches`` counts the forward's kernel launches (either kernel) and
+``launches`` counts the forward's kernel launches (any kernel) and
 ``launches_by_route`` the same by kernel; ``launches_bwd_by_route[route]``
 counts the backward's, ``"dkdv"`` and ``"dq"`` apart (``launches_bwd``
 sums a function's over the routes). Blocks are fixed by the kernels
@@ -36,8 +37,8 @@ import torch
 from ._common import NEG_INF, pick_block
 
 #: kernel launches since import (chip_smoke.py resets and reads them)
-launches = 0        # forward, either kernel
-launches_by_route = {"mma": 0, "fma": 0}   # forward, by kernel
+launches = 0        # forward, any kernel
+launches_by_route = {"mma": 0, "tf32x3": 0, "fma": 0}   # forward, by kernel
 launches_bwd_by_route = {r: {"dkdv": 0, "dq": 0}        # backward, by kernel
                          for r in ("mma", "tf32x3", "fma")}
 
@@ -52,9 +53,10 @@ _SIGNATURES = {
     "flash_attention_fwd": ("flash_attention_fwd",
                             [_PTR] * 5 + [_INT] * 6 + [_LL] * 12
                             + [ctypes.c_float, _INT, _PTR]),
-    "flash_attention_fwd_mma": ("flash_attention_fwd",
-                                [_PTR] * 5 + [_INT] * 5 + [_LL] * 12
-                                + [ctypes.c_float, _INT, _PTR]),
+    # the tensor-core forwards (bf16, 3xTF32) take no dtype argument
+    **{f"flash_attention_fwd_{r}": ("flash_attention_fwd",
+                                    [_PTR] * 5 + [_INT] * 5 + [_LL] * 12
+                                    + [ctypes.c_float, _INT, _PTR]) for r in ("mma", "tf32")},
     "flash_attention_bwd_dkdv": ("flash_attention_bwd",
                                  [_PTR] * 8 + [_INT] * 6
                                  + [_STRIDES, ctypes.c_float, _INT, _PTR]),
@@ -84,30 +86,35 @@ def supported(seq_q: int, seq_k: int, head_dim: int) -> bool:
     )
 
 
+#: the route of each dtype, forward and backward, and the dtype each
+#: tensor-core route takes
+_ROUTES = {torch.bfloat16: "mma", torch.float32: "tf32x3"}
+_ROUTE_DTYPE = {r: dt for dt, r in _ROUTES.items()}
+
+
 def forward_route(dtype, head_dim: int) -> str:
     """The forward kernel for q, k, v of ``dtype`` and ``head_dim``:
-    ``"mma"`` (the bf16 tensor-core kernel) for bfloat16, ``"fma"`` (FMA on
-    the FP32 units) for float32. Picked by dtype alone, never by failure.
-    Both kernels take the head dims in ``HEAD_DIMS``; others raise
-    ValueError, other dtypes TypeError."""
+    ``"mma"`` (the bf16 tensor-core kernel) for bfloat16, ``"tf32x3"`` (the
+    TF32 tensor-core kernel in 3xTF32, f32 accuracy) for float32, at every
+    head dim in ``HEAD_DIMS``. Picked by dtype alone, never by failure;
+    other head dims raise ValueError, other dtypes TypeError. (The FMA
+    kernel, ``"fma"``, is the predecessor both are timed against.)"""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernels take head_dim in {HEAD_DIMS}, got {head_dim}")
-    if dtype == torch.bfloat16:
-        return "mma"
-    if dtype == torch.float32:
-        return "fma"
-    raise TypeError(f"flash_attention takes float32 or bfloat16, got {dtype}")
+    if dtype not in _ROUTES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got {dtype}")
+    return _ROUTES[dtype]
 
 
 def backward_route(dtype, head_dim: int) -> str:
     """The backward pair's kernels (dK/dV and dQ) for q, k, v and dO of
     ``dtype`` and ``head_dim``: ``"mma"`` (the bf16 tensor-core kernels) for
     bfloat16, ``"tf32x3"`` (the TF32 tensor-core kernels in 3xTF32, f32
-    accuracy) for float32, at every head dim in ``HEAD_DIMS``. Picked by
-    dtype alone, never by failure; other head dims raise ValueError, other
-    dtypes TypeError. (The FMA pair, ``"fma"``, is the predecessor both
-    pairs are timed against.)"""
-    return "tf32x3" if forward_route(dtype, head_dim) == "fma" else "mma"
+    accuracy) for float32, at every head dim in ``HEAD_DIMS``: the
+    forward's table. Picked by dtype alone, never by failure; other head
+    dims raise ValueError, other dtypes TypeError. (The FMA pair, ``"fma"``,
+    is the predecessor both pairs are timed against.)"""
+    return forward_route(dtype, head_dim)
 
 
 def launches_bwd(kernel: str) -> int:
@@ -242,14 +249,11 @@ def _mma_operand(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-_ROUTE_DTYPE = {"mma": torch.bfloat16, "tf32x3": torch.float32}
-
-
-def _forced(route, dtype, routes=("mma", "fma")):
-    """A route forced by its caller, checked against the function's
-    ``routes`` (the forward's "mma" and "fma", the backward's also
-    "tf32x3"): "fma" at either dtype, "mma" only at bf16 and "tf32x3" only
-    at f32 (each tensor-core pair takes nothing else)."""
+def _forced(route, dtype):
+    """A route forced by its caller (chip_smoke.py and the card tests, on the
+    forward or the backward): "fma" at either dtype, "mma" only at bf16 and
+    "tf32x3" only at f32 (each tensor-core kernel takes nothing else)."""
+    routes = ("mma", "tf32x3", "fma")
     if route not in routes:
         raise ValueError(f"route must be one of {routes}, got {route!r}")
     if route in _ROUTE_DTYPE and dtype != _ROUTE_DTYPE[route]:
@@ -261,7 +265,8 @@ def _forced(route, dtype, routes=("mma", "fma")):
 def _launch(q, k, v, causal, sm_scale, route=None):
     """(o, lse) from the forward kernel of ``forward_route`` on CUDA tensors.
     ``route`` forces a kernel: chip_smoke.py and the card tests time and
-    check the FMA kernel at bf16 with "fma"; no path passes it."""
+    check the FMA kernel, the tensor-core kernels' predecessor, with "fma";
+    no path passes it."""
     global launches
     _check(q, k, v)
     b, sq, h, d = q.shape
@@ -269,11 +274,12 @@ def _launch(q, k, v, causal, sm_scale, route=None):
     route = forward_route(q.dtype, d) if route is None else _forced(route, q.dtype)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    if route == "mma":
+    if route != "fma":
         q, k, v = (_mma_operand(x) for x in (q, k, v))
-        _call("flash_attention_fwd_mma", q.device, q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), o.data_ptr(), lse.data_ptr(), d, b, h, sq, sk,
-              *_strides(q, k, v, o), float(sm_scale), int(bool(causal)))
+        _call("flash_attention_fwd_tf32" if route == "tf32x3" else "flash_attention_fwd_mma",
+              q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              lse.data_ptr(), d, b, h, sq, sk, *_strides(q, k, v, o), float(sm_scale),
+              int(bool(causal)))
     else:
         _call("flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
               v.data_ptr(), o.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
@@ -305,8 +311,7 @@ def _launch_bwd(kernel, q, k, v, do, lse, delta, outs, causal, sm_scale, route):
     predecessors, with "fma"; no path passes it."""
     _check_bwd(q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
-    route = (backward_route(q.dtype, d) if route is None
-             else _forced(route, q.dtype, ("mma", "tf32x3", "fma")))
+    route = backward_route(q.dtype, d) if route is None else _forced(route, q.dtype)
     name = f"flash_attention_bwd_{kernel}"
     dtype_arg = ()
     if route != "fma":

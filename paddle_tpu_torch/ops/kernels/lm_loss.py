@@ -21,11 +21,13 @@ same rounding points). The routes are picked by h2's dtype and hidden
 size, never by failure (``forward_route``, ``backward_plan``):
 - bf16 h2: the bf16 tensor-core kernels (``"mma"``), forward at every
   hidden, backward while its tiles fit (H <= 1536);
-- f32 h2: the FMA forward on the FP32 units (``"fma"``), and the backward
-  on the TF32 tensor cores with error compensation (``"tf32x3"``: each
-  operand split into two TF32 parts and three products summed, which
-  holds f32 accuracy) while its f32 tiles fit (H <= 768);
-- past those sizes the FMA backward (``"fma"``, W rounded on load).
+- f32 h2: the TF32 tensor-core kernels with error compensation
+  (``"tf32x3"``: each operand split into two TF32 parts and three
+  products summed, which holds f32 accuracy), forward at every hidden,
+  backward while its f32 tiles fit (H <= 768);
+- past those sizes the FMA backward on the FP32 units (``"fma"``, W
+  rounded on load). The FMA forward is the predecessor of both
+  tensor-core forwards; no route takes it.
 The tensor-core kernels read W in their operand dtype: a W of the other
 dtype is cast once in the forward's call and once per backward, the copy
 shared by dh and dW, as the JAX ``_fwd`` and ``_bwd`` do (to f32 the cast
@@ -55,6 +57,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "lm_loss_fwd": [_PTR] * 6 + [_INT] * 7 + [_PTR],
     "lm_loss_fwd_mma": [_PTR] * 6 + [_INT] * 6 + [_PTR],
+    "lm_loss_fwd_tf32": [_PTR] * 6 + [_INT] * 5 + [_PTR],
     "lm_loss_fwd_mma_splits": [_INT, _INT],
     "lm_loss_bwd": [_PTR] * 6 + [_INT] * 6 + [_PTR],
     "lm_loss_bwd_mma": [_PTR] * 6 + [_INT] * 9 + [_PTR],
@@ -89,22 +92,23 @@ def supported(n_rows: int, vocab: int, hidden: int) -> bool:
 
 # ------------------------------------------------------------------- routes
 
+#: the dtype each tensor-core route reads h2 and W in (and h2 must have)
+_OPERAND = {"mma": torch.bfloat16, "tf32x3": torch.float32}
+
+
 def forward_route(h_dtype) -> str:
-    """The forward's kernel for h2 of ``h_dtype``: ``"mma"`` (the bf16
-    tensor-core kernel, any hidden a multiple of 128) for bfloat16, ``"fma"``
-    (FMA on the FP32 units) for float32."""
-    if h_dtype == torch.bfloat16:
-        return "mma"
-    if h_dtype == torch.float32:
-        return "fma"
+    """The forward's kernel for h2 of ``h_dtype``, at any hidden a multiple
+    of 128: ``"mma"`` (the bf16 tensor-core kernel) for bfloat16,
+    ``"tf32x3"`` (the TF32 tensor-core kernel in 3xTF32, f32 accuracy) for
+    float32."""
+    for route, dtype in _OPERAND.items():
+        if h_dtype == dtype:
+            return route
     raise TypeError(f"lm_head_cross_entropy takes float32 or bfloat16 h2, got {h_dtype}")
 
 
 #: shared memory a CTA may take on the H100 (227 KB)
 _MAX_SMEM = 232448
-
-#: the dtype each tensor-core backward reads h2 and W in (and h2 must have)
-_OPERAND = {"mma": torch.bfloat16, "tf32x3": torch.float32}
 
 
 class BackwardPlan(NamedTuple):
@@ -277,20 +281,22 @@ def lm_loss_fwd(h2, w, labels, variant="full", v_true=None, route=None):
     """(loss, lse): the kernel of ``forward_route`` on CUDA tensors, the
     plain version on CPU tensors. ``variant`` and ``v_true`` select the
     compile probe's stripped forwards (``"bare"``, ``"picked"``: instances
-    of the tensor-core kernel, bf16 h2); the launch counters count the
-    public ``"full"`` forward. ``route`` forces a kernel (chip_smoke.py and
-    the card tests time and check the FMA kernel at bf16 h with "fma"; no
-    path passes it)."""
+    of the bf16 tensor-core kernel); the launch counters count the public
+    ``"full"`` forward. ``route`` forces a kernel: "fma" (the tensor-core
+    kernels' predecessor, at either dtype; chip_smoke.py and the card tests
+    check and time it with it), "mma" only at bf16 h2, "tf32x3" only at
+    f32; no path passes it."""
     global launches_fwd
     if not h2.is_cuda:
         return lm_loss_fwd_plain(h2, w, labels, v_true, pick=variant != "bare")
     h2, w, labels = _prepare(h2, w, labels)
     if route is None:
         route = forward_route(h2.dtype)
-    elif route not in ("mma", "fma"):
-        raise ValueError(f"the forward's route must be 'mma' or 'fma', got {route!r}")
-    if route == "mma" and h2.dtype != torch.bfloat16:
-        raise ValueError("the tensor-core forward takes bf16 h2")
+    elif route != "fma" and route not in _OPERAND:
+        raise ValueError(f"the forward's route must be 'mma', 'tf32x3' or 'fma', "
+                         f"got {route!r}")
+    if route in _OPERAND and h2.dtype != _OPERAND[route]:
+        raise ValueError(f"the {route!r} forward takes {_OPERAND[route]} h2, got {h2.dtype}")
     if variant != "full" and route != "mma":
         raise ValueError(f"the {variant!r} forward is an instance of the tensor-core kernel")
     n, hdim = h2.shape
@@ -298,13 +304,17 @@ def lm_loss_fwd(h2, w, labels, variant="full", v_true=None, route=None):
     v_true = v if v_true is None else int(v_true)
     loss = torch.empty(n, dtype=torch.float32, device=h2.device)
     lse = torch.empty_like(loss)
-    if route == "mma":
-        w_read = w if w.dtype == torch.bfloat16 else _aligned(w.to(torch.bfloat16))
+    if route in _OPERAND:
+        op = _OPERAND[route]
+        w_read = w if w.dtype == op else _aligned(w.to(op))
         splits = _kernel("lm_loss_fwd_mma_splits")(n, v)  # CTAs sharing a row tile's vocab
         part = torch.empty((3, splits, n), dtype=torch.float32, device=h2.device)
-        _call("lm_loss_fwd_mma", h2.device, h2.data_ptr(), w_read.data_ptr(),
-              labels.data_ptr(), loss.data_ptr(), lse.data_ptr(), part.data_ptr(), n, v,
-              hdim, v_true, splits, _VARIANTS[variant])
+        args = (h2.data_ptr(), w_read.data_ptr(), labels.data_ptr(), loss.data_ptr(),
+                lse.data_ptr(), part.data_ptr(), n, v, hdim, v_true, splits)
+        if route == "mma":
+            _call("lm_loss_fwd_mma", h2.device, *args, _VARIANTS[variant])
+        else:
+            _call("lm_loss_fwd_tf32", h2.device, *args)
     else:
         splits = _kernel("lm_loss_fwd_splits")(n, v)
         part = torch.empty((3, splits, n), dtype=torch.float32, device=h2.device)

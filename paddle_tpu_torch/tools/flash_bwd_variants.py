@@ -9,7 +9,8 @@ sources: what its accuracy rests on.
 A variant is a list of edits of ``flash_attention_bwd.cu`` or
 ``mma_sync.cuh`` (``VARIANTS``): the three mutants of the 3xTF32 design
 (one TF32 pass, two terms, and each of dK, dV and dQ summed in one
-tensor-core accumulator over the whole loop instead of a fresh one a pass),
+tensor-core accumulator over the whole loop instead of a fresh one a pass:
+an edit of mma_sync.cuh's tf32_product, which the f32 flash forward shares),
 and the TF32 split left out (big = small = x), which gives wrong results
 by design and times the split's instructions.
 Each is built in its own copy of the package under a temporary directory,
@@ -40,9 +41,9 @@ VARIANTS = {
     "one_pass": [("mma_sync.cuh",
                   "  mma_tf32_all(d, a_small, b_big);\n  mma_tf32_all(d, a_big, b_small);\n", "")],
     "two_term": [("mma_sync.cuh", "  mma_tf32_all(d, a_small, b_big);\n", "")],
-    "one_accumulator": [("flash_attention_bwd.cu", "      mma_tf32x3(part, ab[kk], as[kk], bb, bs);",
+    "one_accumulator": [("mma_sync.cuh", "      mma_tf32x3(part, ab[kk], as[kk], bb, bs);",
                          "      mma_tf32x3(acc[g], ab[kk], as[kk], bb, bs);"),
-                        ("flash_attention_bwd.cu", "    add_frags(acc[g], part);\n", "")],
+                        ("mma_sync.cuh", "    add_frags(acc[g], part);\n", "")],
     "no_split": [("mma_sync.cuh", SPLIT_TF32, "  big = x;\n  small = x;")],
 }
 
@@ -110,7 +111,8 @@ def main(argv=None) -> int:
     check()
     if args.check:
         return 0
-    run_variants(args.variants or list(VARIANTS), VARIANTS, FILES, "flash_attention_bwd", _RUN)
+    run_variants(args.variants or list(VARIANTS), VARIANTS, FILES, ("flash_attention_bwd",),
+                 _RUN)
     return 0
 
 

@@ -198,14 +198,14 @@ def main(argv=None) -> int:
     if args.check:
         return 0
     run_variants(args.variants or list(VARIANTS), VARIANTS, ("lm_loss.cu", "mma_sync.cuh"),
-                 "lm_loss", _RUN)
+                 ("lm_loss",), _RUN)
     return 0
 
 
-def run_variants(names, variants, files, library, script) -> None:
+def run_variants(names, variants, files, libraries, script) -> None:
     """Build each variant of ``names`` (edits of ``files`` in csrc/, as
     ``variants`` names them) in its own copy of the package under a
-    temporary directory, all builds of ``library`` at once; then run
+    temporary directory, all builds of the ``libraries`` at once; then run
     ``script`` (python -c, the variant's name as its argument) in each copy,
     in the order given and again in reverse."""
     sources = {f: (CSRC / f).read_text() for f in files}
@@ -219,7 +219,7 @@ def run_variants(names, variants, files, library, script) -> None:
                 (root / PACKAGE.name / "ops" / "kernels" / "csrc" / fname).write_text(text)
             roots[name] = root
         build = ("from paddle_tpu_torch.ops.kernels import _build; "
-                 f"_build.build([{library!r}])")
+                 f"_build.build({list(libraries)!r})")
         procs = [subprocess.Popen([sys.executable, "-c", build], cwd=r) for r in roots.values()]
         if any(p.wait() != 0 for p in procs):
             raise RuntimeError("a variant did not build")

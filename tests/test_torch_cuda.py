@@ -31,8 +31,14 @@ The tensor-core forwards (flash attention and the LM loss at bf16) hold
 their f32 outputs, lse and the per-row loss, at 1e-4 x max(1, max|ref|):
 bf16 inputs are exact in f32 and both versions sum the products in f32, so
 only the order differs (a dropped kv or vocab tile moves them by far more);
-the flash o at 2e-2 x max|o|. Their FMA predecessors, reached with the
-private ``route="fma"``, are held to the same limits on the same inputs.
+the flash o at 2e-2 x max|o|. At f32 both forwards take the TF32 tensor
+cores in 3xTF32: loss, lse and o at 1e-4, and the flash o also at 5e-6 in
+each (b, h) head's relative Frobenius norm (GRAD_F32_FROB_TOL; one TF32
+pass errs by ~4e-4 there), with TF32 HMMA in their SASS and no spills.
+Their FMA predecessors, reached with the private ``route="fma"``, are held
+to the same limits on the same inputs. The f32 backward pair, whose
+helpers the flash forward now shares from mma_sync.cuh, is held to the bits
+it gave before they moved.
 The FA2 backward pair at bf16 takes the tensor-core kernels; they and
 their FMA predecessors are held to the plain version at 2e-2 x max|ref| and
 at 1e-2 in each (b, h) head's relative Frobenius norm (causal P[0, 0] = 1
@@ -284,6 +290,59 @@ def test_flash_bwd_tf32_kernels_are_deterministic(cuda):
             assert torch.equal(a, b), (causal, d)
 
 
+#: sha256 (first 16 hex digits) of the f32 backward pair's dq, dk and dv bits
+#: on _bwd_bits_inputs, as the build before the 3xTF32 helpers moved from
+#: flash_attention_bwd.cu into mma_sync.cuh gave them on the H100 (the
+#: forward now shares them); a change to the pair's arithmetic changes them
+BWD_TF32_BITS = {"2x320x4x64_1": "8c7c1573db664da5", "2x200x3x32_0": "085f7d317da1b611",
+                 "2x300x2x128_1": "6c7e633b53816c35", "1x1024x2x64_1": "8c2663996cad311b"}
+
+
+def _bwd_bits_inputs(b, s, h, d, causal, seed):
+    """q, k, v, dO and the forward's lse and delta as f32 numpy arrays: lse
+    and delta from float64 einsums (numpy's own loops, no BLAS), so that
+    they do not depend on a library's summation order."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (rng.randn(b, s, h, d).astype(np.float32) for _ in range(4))
+    sc = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), k.astype(np.float64)) / np.sqrt(d)
+    if causal:
+        sc = np.where(np.tril(np.ones((s, s), dtype=bool)), sc, -1e30)
+    m = sc.max(axis=-1, keepdims=True)
+    p = np.exp(sc - m)
+    l = p.sum(axis=-1, keepdims=True)
+    o = np.einsum("bhqk,bkhd->bqhd", p / l, v.astype(np.float64))
+    lse = np.ascontiguousarray((m + np.log(l))[..., 0], dtype=np.float32)
+    delta = np.ascontiguousarray(np.einsum("bqhd,bqhd->bhq", do.astype(np.float64), o),
+                                 dtype=np.float32)
+    return q, k, v, do, lse, delta
+
+
+def _bwd_tf32_digests():
+    """{case: digest} of the f32 backward pair's outputs (BWD_TF32_BITS)."""
+    import hashlib
+
+    out = {}
+    for i, (b, s, h, d, causal) in enumerate(((2, 320, 4, 64, True), (2, 200, 3, 32, False),
+                                              (2, 300, 2, 128, True), (1, 1024, 2, 64, True))):
+        args = [torch.from_numpy(x).cuda() for x in _bwd_bits_inputs(b, s, h, d, causal, 40 + i)]
+        dk, dv = fa.flash_attention_bwd_dkdv(*args, causal=causal)
+        dq = fa.flash_attention_bwd_dq(*args, causal=causal)
+        digest = hashlib.sha256()
+        for g in (dq, dk, dv):
+            digest.update(g.cpu().numpy().tobytes())
+        out[f"{b}x{s}x{h}x{d}_{int(causal)}"] = digest.hexdigest()[:16]
+    return out
+
+
+def test_flash_bwd_tf32_bits_unchanged_by_the_shared_helpers(cuda):
+    """The 3xTF32 backward pair gives the bits it gave before its TF32
+    helpers (FPAD, TF32_GROUP, Tf32Acc, a_slot, tf32_product,
+    store_rows_f32) moved into mma_sync.cuh for the forward to share: d 32,
+    64 and 128, causal and not, ragged, s = 1024."""
+    assert fa.backward_route(torch.float32, 64) == "tf32x3"
+    assert _bwd_tf32_digests() == BWD_TF32_BITS
+
+
 def test_flash_bwd_tf32_reads_strided_and_unaligned_views(cuda):
     """The fused qkv projection's f32 views are read in place; a q view
     starting 4 bytes off a 16-byte boundary is copied to an aligned one
@@ -322,12 +381,17 @@ def test_flash_autograd_goes_through_the_kernels(cuda):
     for dev in ("cuda", "cpu"):
         qkv = torch.from_numpy(base).to(dev).requires_grad_()
         q, k, v = qkv.unbind(dim=2)
-        before = _launch_counts()
+        before = _launch_counts(), dict(fa.launches_by_route), _bwd_routes()
         o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
         ((o * g_o.to(dev)).sum() + (lse * g_lse.to(dev)).sum()).backward()
         after = _launch_counts()
         expect = 1 if dev == "cuda" else 0
-        assert [a - b for a, b in zip(after, before)] == [expect] * 3
+        assert [a - b for a, b in zip(after, before[0])] == [expect] * 3
+        assert {r: fa.launches_by_route[r] - before[1][r] for r in before[1]} == {
+            r: expect * (r == "tf32x3") for r in before[1]}
+        assert _bwd_moved(before[2]) == {r: {"dkdv": expect * (r == "tf32x3"),
+                                             "dq": expect * (r == "tf32x3")}
+                                         for r in before[2]}
         grads.append(qkv.grad.cpu())
     assert (grads[0] - grads[1]).abs().max().item() <= 1e-4
 
@@ -361,7 +425,7 @@ def test_flash_mma_kernel_and_its_predecessor_match_plain(cuda, causal, sq, sk, 
                   else fa._launch(q, k, v, causal, 1.0 / d ** 0.5, route="fma"))
         torch.cuda.synchronize()
         assert {r: fa.launches_by_route[r] - before[r] for r in before} == {
-            "mma": int(route == "mma"), "fma": int(route == "fma")}
+            r: int(r == route) for r in before}
         assert o.dtype == torch.bfloat16 and lse.shape == plse.shape
         assert _err(o, po) <= 2e-2 * po.float().abs().max().item(), route
         assert _err(lse, plse) <= _f32_tol(plse), route
@@ -387,21 +451,79 @@ def test_flash_mma_kernel_reads_the_fused_qkv_views_in_place(cuda):
 
 
 def test_flash_forward_routes_and_determinism(cuda):
-    """bf16 launches the tensor-core forward and f32 the FMA one, directly
-    and under autograd; two calls give the same bits."""
+    """bf16 launches the bf16 tensor-core forward and f32 the 3xTF32 one,
+    directly and under autograd, at every head dim; two calls give the same
+    bits; each tensor-core route refuses the other dtype."""
     rng = np.random.RandomState(20)
-    base = rng.randn(2, 192, 4, 64).astype(np.float32)
-    for dt, route in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
-        x = torch.from_numpy(base).to(cuda, dt).requires_grad_()
-        before = dict(fa.launches_by_route)
-        o1, lse1 = fa.flash_attention_with_lse(x, x, x, causal=True)
-        o1.float().sum().backward()
-        o2, lse2 = fa.flash_attention_with_lse(x, x, x, causal=True)
-        assert {r: fa.launches_by_route[r] - before[r] for r in before} == {
-            "mma": 2 * (route == "mma"), "fma": 2 * (route == "fma")}
-        assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    for d in fa.HEAD_DIMS:
+        base = rng.randn(2, 192, 4, d).astype(np.float32)
+        for dt, route in ((torch.bfloat16, "mma"), (torch.float32, "tf32x3")):
+            x = torch.from_numpy(base).to(cuda, dt).requires_grad_()
+            before = dict(fa.launches_by_route)
+            o1, lse1 = fa.flash_attention_with_lse(x, x, x, causal=True)
+            o1.float().sum().backward()
+            o2, lse2 = fa.flash_attention_with_lse(x, x, x, causal=True)
+            assert {r: fa.launches_by_route[r] - before[r] for r in before} == {
+                r: 2 * (r == route) for r in before}
+            assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    xb = x.detach().bfloat16()
     with pytest.raises(ValueError):
-        fa._launch(x, x, x, True, 0.125, route="mma")     # f32 on the tensor cores
+        fa._launch(x, x, x, True, 0.125, route="mma")     # f32 on the bf16 tensor cores
+    with pytest.raises(ValueError):
+        fa._launch(xb, xb, xb, True, 0.125, route="tf32x3")  # bf16 in 3xTF32
+
+
+@pytest.mark.parametrize("causal,sq,sk,d", [
+    (True, 256, 256, 64),
+    (False, 256, 256, 64),
+    (True, 200, 200, 32),       # ragged tiles
+    (False, 77, 300, 128),      # sq != sk, ragged
+    (True, 128, 1024, 128),     # top-left causal with sq < sk
+    (True, 1000, 1000, 64),
+    (False, 1000, 1000, 32),
+    (True, 300, 100, 128),      # sq > sk
+    (True, 1024, 1024, 128),
+])
+def test_flash_tf32_kernel_and_its_predecessor_match_plain(cuda, causal, sq, sk, d):
+    """f32: the 3xTF32 forward (the default route) and the FMA kernel
+    (route="fma") against the plain version, o and lse at 1e-4 and o at
+    GRAD_F32_FROB_TOL in each (b, h) head's relative Frobenius norm; each
+    launches once on its route; o is f32 of q's shape."""
+    rng = np.random.RandomState(30)
+    q, k, v = (torch.from_numpy(rng.randn(2, s, 3, d).astype(np.float32)).to(cuda)
+               for s in (sq, sk, sk))
+    assert fa.forward_route(torch.float32, d) == "tf32x3"
+    po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
+    for route in ("tf32x3", "fma"):
+        before = dict(fa.launches_by_route)
+        o, lse = (fa.flash_attention_with_lse(q, k, v, causal=causal) if route == "tf32x3"
+                  else fa._launch(q, k, v, causal, 1.0 / d ** 0.5, route="fma"))
+        torch.cuda.synchronize()
+        assert {r: fa.launches_by_route[r] - before[r] for r in before} == {
+            r: int(r == route) for r in before}
+        assert o.dtype == torch.float32 and o.shape == q.shape and lse.shape == plse.shape
+        assert _err(o, po) <= 1e-4 and _err(lse, plse) <= 1e-4, route
+        assert _head_rel_frob(o, po) <= GRAD_F32_FROB_TOL, (route, _head_rel_frob(o, po))
+
+
+def test_flash_tf32_kernel_reads_strided_and_unaligned_views(cuda):
+    """The fused qkv projection's f32 views are read in place by the 3xTF32
+    forward, and a q view starting 4 bytes off a 16-byte boundary is copied
+    to an aligned one first: both give the bits of fresh contiguous copies,
+    at every head dim."""
+    rng = np.random.RandomState(31)
+    for d in fa.HEAD_DIMS:
+        qkv = torch.from_numpy(rng.randn(2, 192, 3, 4, d).astype(np.float32)).to(cuda)
+        q, k, v = qkv.unbind(dim=2)
+        flat = torch.from_numpy(rng.randn(2 * 192 * 4 * d + 1).astype(np.float32)).to(cuda)
+        shifted = flat[1:].view(2, 192, 4, d)
+        assert all(fa._mma_operand(x) is x for x in (q, k, v))
+        assert fa._mma_operand(shifted) is not shifted
+        for qq in (q, shifted):
+            got = fa.flash_attention_with_lse(qq, k, v, causal=True)
+            want = fa.flash_attention_with_lse(*(x.clone(memory_format=torch.contiguous_format)
+                                                 for x in (qq, k, v)), causal=True)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), d
 
 
 def test_flash_kernel_reads_strided_qkv_views(cuda):
@@ -430,10 +552,13 @@ def test_scoring_forward_launches_once_per_layer_and_matches_cpu(cuda):
     cpu = GPTForPretraining(cfg, device="cpu", seed=3)
     ids = torch.from_numpy(np.random.RandomState(5).randint(0, 1024, (2, 128)))
     fa.launches = 0
+    before = dict(fa.launches_by_route)
     with torch.no_grad():
         got = gpu(ids.to(cuda))
     torch.cuda.synchronize()
     assert fa.launches == cfg.num_layers
+    assert {r: fa.launches_by_route[r] - before[r] for r in before} == {
+        r: cfg.num_layers * (r == "tf32x3") for r in before}
     with torch.no_grad():
         want = cpu(ids)
     assert (got.cpu() - want).abs().max().item() <= 1e-4
@@ -744,22 +869,90 @@ def test_lm_loss_mma_forward_and_its_predecessor_match_plain(cuda, wtype, n, v, 
         assert torch.equal(loss[ignored], lse[ignored])
 
 
+@pytest.mark.parametrize("wtype,n,v,hdim,labels", [
+    ("float32", 1024, 500, 128, "random"),      # ragged vocab tile
+    ("bfloat16", 1024, 640, 256, "minus100"),   # bf16 W cast to f32 in the call
+    ("float32", 1000, 50257, 768, "minus100"),  # ragged rows, GPT-2's vocab
+    ("float32", 2048, 50304, 768, "random"),
+    ("float32", 1024, 384, 1024, "all_minus100"),  # gpt_345m's hidden
+    ("bfloat16", 1024, 257, 1536, "minus100"),  # one column past a tile
+])
+def test_lm_loss_tf32x3_forward_and_its_predecessor_match_plain(cuda, wtype, n, v, hdim,
+                                                               labels):
+    """f32 h: the 3xTF32 forward (the default route, at every hidden: it
+    streams the hidden dim) and the FMA forward (route="fma", its
+    predecessor) against the plain f32 version, loss and lse at 1e-4, each
+    launched once on its route; a label of -100 picks nothing; two calls
+    give the same bits."""
+    rng = np.random.RandomState(32)
+    h = torch.from_numpy(rng.randn(n, hdim).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.randn(v, hdim).astype(np.float32) * 0.05).to(cuda,
+                                                                         getattr(torch, wtype))
+    lab = torch.from_numpy(rng.randint(0, v, (n,)).astype(np.int32)).to(cuda)
+    if labels == "minus100":
+        lab[::7] = -100
+    elif labels == "all_minus100":
+        lab.fill_(-100)
+    assert lm.forward_route(torch.float32) == "tf32x3"
+    ploss, plse = lm.lm_loss_fwd_plain(h, w, lab)
+    for route in ("tf32x3", "fma"):
+        before = {r: dict(c) for r, c in lm.launches_by_route.items()}
+        loss, lse = lm.lm_loss_fwd(h, w, lab, route=None if route == "tf32x3" else "fma")
+        torch.cuda.synchronize()
+        assert {r: lm.launches_by_route[r]["fwd"] - before[r]["fwd"] for r in before} == {
+            r: int(r == route) for r in before}
+        assert _err(lse, plse) <= 1e-4 and _err(loss, ploss) <= 1e-4, route
+        ignored = lab == -100
+        assert torch.equal(loss[ignored], lse[ignored])
+    again = lm.lm_loss_fwd(h, w, lab)
+    first = lm.lm_loss_fwd(h, w, lab)
+    assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+
+
+def test_lm_loss_tf32x3_forward_reads_views_and_refuses_other_dtypes(cuda):
+    """The 3xTF32 forward takes any h and W: a strided or 4-byte-shifted view
+    is made contiguous and aligned first (the loss is the same bits as a
+    fresh copy's); its C entry refuses unaligned operands
+    (cudaErrorInvalidValue, 1) rather than reading them."""
+    rng = np.random.RandomState(33)
+    big = torch.from_numpy(rng.randn(1024, 2 * 256).astype(np.float32)).to(cuda)
+    h = big[:, ::2]                                  # strided columns
+    flat = torch.from_numpy(rng.randn(300 * 256 + 1).astype(np.float32) * 0.05).to(cuda)
+    w = flat[1:].view(300, 256)                      # 4 bytes off a 16-byte boundary
+    lab = torch.from_numpy(rng.randint(0, 300, (1024,)).astype(np.int32)).to(cuda)
+    got = lm.lm_loss_fwd(h, w, lab)
+    want = lm.lm_loss_fwd(h.contiguous(), w.clone(), lab)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    fn = lm._kernel("lm_loss_fwd_tf32")
+    splits = lm._kernel("lm_loss_fwd_mma_splits")(1024, 300)
+    part = torch.empty((3, splits, 1024), device=cuda)
+    out = torch.empty(1024, device=cuda)
+    hc = h.contiguous()
+    err = fn(hc.data_ptr(), w.data_ptr(), lab.data_ptr(), out.data_ptr(), out.data_ptr(),
+             part.data_ptr(), 1024, 300, 256, 300, splits,
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 1
+
+
 def test_lm_loss_forward_routes_and_determinism(cuda):
-    """bf16 h launches the tensor-core forward, f32 h the FMA one, directly
-    and under autograd; two calls give the same bits; the stripped variants
-    are tensor-core instances only."""
+    """bf16 h launches the bf16 tensor-core forward, f32 h the 3xTF32 one,
+    directly and under autograd; two calls give the same bits; the stripped
+    variants are bf16 tensor-core instances only; each tensor-core route
+    refuses the other dtype of h."""
     h, w, lab, _ = _lm_inputs(cuda, 2048, 1000, 768, torch.float32, seed=22)
-    for hh, route in ((h, "mma"), (h.float(), "fma")):
+    for hh, route in ((h, "mma"), (h.float(), "tf32x3")):
         before = {r: c["fwd"] for r, c in lm.launches_by_route.items()}
         first = lm.lm_loss_fwd(hh, w, lab)
         second = lm.lm_head_cross_entropy(hh.detach().requires_grad_(), w, lab)
         assert {r: c["fwd"] - before[r] for r, c in lm.launches_by_route.items()} == {
-            "mma": 2 * (route == "mma"), "tf32x3": 0, "fma": 2 * (route == "fma")}
+            r: 2 * (r == route) for r in before}
         assert torch.equal(first[0], second)
     with pytest.raises(ValueError):
         lm.lm_loss_fwd(h.float(), w, lab, variant="bare")
     with pytest.raises(ValueError):
         lm.lm_loss_fwd(h.float(), w, lab, route="mma")
+    with pytest.raises(ValueError):
+        lm.lm_loss_fwd(h, w, lab, route="tf32x3")
 
 
 def test_lm_loss_mma_backward_is_deterministic(cuda):
@@ -906,20 +1099,22 @@ def test_forward_mma_kernels_use_tensor_cores_without_spills(cuda):
     """The tensor-core kernels of flash attention and the LM-loss forward,
     flash_fwd_mma_kernel, flash_bwd_dkdv_mma_kernel and
     flash_bwd_dq_mma_kernel (d 32, 64, 128 each) and lm_fwd_mma_* (full,
-    bare, picked), hold HMMA instructions in their SASS, and ptxas reports 0
-    spill bytes and at most 255 registers for each; the FMA kernels beside
-    them hold none."""
+    bare, picked), and the 3xTF32 forwards flash_fwd_tf32_kernel (d 32, 64,
+    128) and lm_fwd_tf32_full, hold HMMA instructions in their SASS (the
+    3xTF32 ones TF32 HMMA, HMMA.1688.F32.TF32, the bf16 ones none), and
+    ptxas reports 0 spill bytes and at most 255 registers for each; the FMA
+    kernels beside them hold none."""
     import re
     import subprocess
 
     from paddle_tpu_torch.ops.kernels import _build
 
     tool = _cuobjdump()
-    for lib, new, old, count in (("flash_attention_fwd", "flash_fwd_mma_kernel",
-                                  "flash_fwd_kernel", 3),
+    for lib, new, old, count in (("flash_attention_fwd", "flash_fwd_(mma|tf32)_kernel",
+                                  "flash_fwd_kernel", 6),
                                  ("flash_attention_bwd", "flash_bwd_(dkdv|dq)_mma_kernel",
                                   "flash_bwd_(dkdv|dq)_kernel", 6),
-                                 ("lm_loss", "lm_fwd_mma_", "lm_fwd_full_", 3)):
+                                 ("lm_loss", "lm_fwd_(mma_|tf32_full)", "lm_fwd_full_", 4)):
         _build.load(lib)
         report = {k: r for k, r in _build.ptxas_report(lib).items() if re.search(new, k)}
         assert len(report) == count, sorted(report)
@@ -931,8 +1126,10 @@ def test_forward_mma_kernels_use_tensor_cores_without_spills(cuda):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))],
                               capture_output=True, text=True, check=True).stdout
         funcs = {part.split(None, 1)[0]: part for part in sass.split("Function : ")[1:]}
-        mma = [body for k, body in funcs.items() if re.search(new, k)]
-        assert len(mma) == count and all("HMMA" in body for body in mma), sorted(funcs)
+        mma = {k: body for k, body in funcs.items() if re.search(new, k)}
+        assert len(mma) == count and all("HMMA" in body for body in mma.values()), sorted(funcs)
+        for k, body in mma.items():
+            assert ("HMMA.1688.F32.TF32" in body) == ("tf32" in k), k
         fma = [body for k, body in funcs.items() if re.search(old, k)]
         assert fma and not any("HMMA" in body for body in fma)
     if tool is None:

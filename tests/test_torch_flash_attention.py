@@ -13,9 +13,9 @@ plain version); gradients as stated above the backward tests. The kernels
 themselves are held against the plain versions on the card by
 chip_smoke.py and tests/test_torch_cuda.py. Also here: the routing tables,
 the checks of a forced route and of the tensor-core kernels' operand
-alignment, and the numerics the 3xTF32 backward pair relies on (a plain
-emulation of its TF32 products against the Pallas backward: three terms
-reach the card's f32 limits, one pass does not).
+alignment, and the numerics the 3xTF32 forward and backward pair rely on
+(a plain emulation of their TF32 products against the Pallas forward and
+backward: three terms reach the card's f32 limits, one pass does not).
 """
 import importlib
 
@@ -226,12 +226,22 @@ def test_backward_wrappers_on_cpu_are_the_plain_version():
 
 @pytest.mark.parametrize("dtype,head_dim,route", [
     ("bfloat16", 32, "mma"), ("bfloat16", 64, "mma"), ("bfloat16", 128, "mma"),
-    ("float32", 32, "fma"), ("float32", 64, "fma"), ("float32", 128, "fma"),
+    ("float32", 32, "tf32x3"), ("float32", 64, "tf32x3"), ("float32", 128, "tf32x3"),
 ])
 def test_forward_route_table(dtype, head_dim, route):
-    """bf16 takes the tensor-core forward, f32 the FMA one, at every head
-    dim the kernels take (the training path is bf16, scoring f32)."""
-    assert port_fa.forward_route(getattr(torch, dtype), head_dim) == route
+    """bf16 takes the bf16 tensor-core forward, f32 the 3xTF32 one, at every
+    head dim the kernels take (the training path is bf16, scoring and the
+    f32 step f32); on the CPU both are the plain version and move no launch
+    count of any route."""
+    dt = getattr(torch, dtype)
+    assert port_fa.forward_route(dt, head_dim) == route
+    assert set(port_fa.launches_by_route) == {"mma", "tf32x3", "fma"}
+    q, k, v = (torch.from_numpy(x).to(dt) for x in _inputs(1, 64, 64, 2, head_dim, seed=4))
+    before = (port_fa.launches, dict(port_fa.launches_by_route))
+    o, lse = port_fa.flash_attention_with_lse(q, k, v, causal=True)
+    assert (port_fa.launches, port_fa.launches_by_route) == before
+    po, plse = port_fa.flash_attention_plain(q, k, v, causal=True)
+    assert torch.equal(o, po) and torch.equal(lse, plse)
 
 
 def test_forward_route_refuses_what_no_kernel_takes():
@@ -292,10 +302,10 @@ def test_mma_operand_takes_the_f32_stride_rule():
 def test_backward_route_table(dtype, head_dim, route):
     """bf16 takes the bf16 tensor-core backward pair, f32 the 3xTF32 pair,
     at every head dim the kernels take, d = 128 included (its dK/dV instance
-    builds without spills, so no head dim is left on the FMA pair); the
-    forward keeps the FMA kernel at f32."""
+    builds without spills, so no head dim is left on the FMA pair): the
+    forward's table, stated by the backward too."""
     assert port_fa.backward_route(getattr(torch, dtype), head_dim) == route
-    assert port_fa.forward_route(torch.float32, head_dim) == "fma"
+    assert port_fa.forward_route(getattr(torch, dtype), head_dim) == route
 
 
 @pytest.mark.parametrize("route,dtype,ok", [
@@ -309,21 +319,33 @@ def test_forced_backward_route_rules(route, dtype, ok):
     the FMA predecessors with it): "fma" at either dtype, "mma" only at
     bf16, "tf32x3" only at f32, nothing else."""
     dt = getattr(torch, dtype)
-    routes = ("mma", "tf32x3", "fma")
     if ok:
-        assert port_fa._forced(route, dt, routes) == route
+        assert port_fa._forced(route, dt) == route
     else:
         with pytest.raises(ValueError):
-            port_fa._forced(route, dt, routes)
+            port_fa._forced(route, dt)
 
 
-def test_forced_forward_route_refuses_tf32x3():
-    """The forward has no 3xTF32 kernel: its forced routes are "mma" (bf16)
-    and "fma"."""
-    assert port_fa._forced("fma", torch.float32) == "fma"
-    for dt in (torch.float32, torch.bfloat16):
+@pytest.mark.parametrize("route,dtype,ok", [
+    ("mma", "bfloat16", True), ("mma", "float32", False),
+    ("tf32x3", "float32", True), ("tf32x3", "bfloat16", False),
+    ("fma", "float32", True), ("fma", "bfloat16", True),
+    ("wgmma", "float32", False),
+])
+def test_forced_forward_route_rules(route, dtype, ok):
+    """A route forced on the forward (chip_smoke.py and the card tests time
+    the FMA predecessor with it): "tf32x3" only at f32, "mma" only at bf16,
+    "fma" at both, nothing else. The forward's launch refuses a route its
+    inputs' dtype does not take before it builds or launches anything."""
+    dt = getattr(torch, dtype)
+    if ok:
+        assert port_fa._forced(route, dt) == route
+    else:
+        q, k, v = (torch.from_numpy(x).to(dt) for x in _inputs(1, 64, 64, 2, 64, seed=5))
+        before = dict(port_fa.launches_by_route)
         with pytest.raises(ValueError):
-            port_fa._forced("tf32x3", dt)
+            port_fa._launch(q, k, v, True, 0.125, route=route)
+        assert port_fa.launches_by_route == before
 
 
 def test_backward_route_refuses_what_no_kernel_takes():
@@ -417,12 +439,56 @@ def test_tf32x3_backward_reaches_the_f32_limits_and_one_pass_does_not(causal, te
             assert frob > 10 * GRAD_F32_FROB_TOL, (name, frob)
 
 
+# -------------------------------------------------- 3xTF32 forward numerics
+
+def _tf32_flash_forward(q, k, v, causal, terms):
+    """o ([b, s, h, d] numpy) and lse ([b, h, s]) as the 3xTF32 forward
+    computes them: S = Q Kᵀ and O = P V through ``tf32_product``, the
+    online softmax's arithmetic in f32 (here over the whole row at once)."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    s = tf32_product(qh, kh.transpose(-1, -2), terms) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+        s = s.masked_fill(~keep, port_common.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = tf32_product(p, vh, terms) / l
+    return o.transpose(1, 2).numpy(), (m + torch.log(l))[..., 0].numpy()
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tf32x3_forward_reaches_the_f32_limits_and_one_pass_does_not(causal, terms):
+    """The numerics the 3xTF32 forward relies on, at [1, 128, 2, 64]: the
+    emulated o and lse against the Pallas forward in interpret mode. Three
+    terms come within the card's f32 limits: o and lse at F32_TOL = 1e-4,
+    and o at GRAD_F32_FROB_TOL in each (b, h) head's relative Frobenius
+    norm (within a quarter of it, as the reference's own f32 rounding is in
+    the comparison too). One TF32 pass falls outside the Frobenius limit by
+    more than 10x, so the card's limit tells them apart."""
+    q, k, v = _inputs(1, 128, 128, 2, 64, seed=32)
+    jo, jlse = jax_fa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k),
+                                               jnp.asarray(v), causal=causal)
+    jo, jlse = np.asarray(jo), np.asarray(jlse)
+    o, lse = _tf32_flash_forward(*(torch.from_numpy(x) for x in (q, k, v)), causal, terms)
+    frob = _head_rel_frob(o, jo)
+    if terms == 3:
+        np.testing.assert_allclose(o, jo, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(lse, jlse, atol=1e-4, rtol=0)
+        assert frob <= GRAD_F32_FROB_TOL / 4, frob
+    else:
+        assert frob > 10 * GRAD_F32_FROB_TOL, frob
+
+
 def test_backward_variants_tool_edits_apply_to_the_kernel_sources():
     """tools/flash_bwd_variants.py, which checks and times the 3xTF32 pair's
     mutants on the card, names edits that each match the kernel sources
     exactly once: one pass and two terms drop two and one of mma_tf32x3's
     three passes, one accumulator sums dK, dV and dQ straight into their
-    running accumulators (no fresh one a pass, no add_frags)."""
+    running accumulators (no fresh one a pass, no add_frags): an edit of
+    mma_sync.cuh's tf32_product, which the backward pair calls."""
     from paddle_tpu_torch.tools import flash_bwd_variants as tool
 
     tool.check()
@@ -432,7 +498,40 @@ def test_backward_variants_tool_edits_apply_to_the_kernel_sources():
     for name, dropped in (("two_term", 1), ("one_pass", 2)):
         out = tool.edited(name, sources, tool.VARIANTS)
         assert out["mma_sync.cuh"].count("  mma_tf32_all(d, ") == passes - dropped
-    bwd = sources["flash_attention_bwd.cu"]
-    one = tool.edited("one_accumulator", sources, tool.VARIANTS)["flash_attention_bwd.cu"]
-    assert one.count("add_frags(") == bwd.count("add_frags(") - 1
-    assert "mma_tf32x3(acc[g], " in one and "mma_tf32x3(acc[g], " not in bwd
+    hdr = sources["mma_sync.cuh"]
+    one = tool.edited("one_accumulator", sources, tool.VARIANTS)["mma_sync.cuh"]
+    assert one.count("add_frags(") == hdr.count("add_frags(") - 1
+    assert "mma_tf32x3(acc[g], " in one and "mma_tf32x3(acc[g], " not in hdr
+    assert sources["flash_attention_bwd.cu"].count("tf32_product<D, NJ>(") == 3
+
+
+def test_forward_variants_tool_edits_apply_to_the_flash_sources():
+    """tools/tf32_fwd_variants.py, which checks and times the 3xTF32
+    forwards' mutants and other designs on the card, names edits that each
+    match the kernel sources exactly once. For the flash forward: one pass
+    drops two of mma_tf32x3's three passes; one accumulator sums O straight
+    into its running accumulator in tf32_product (which the forward calls);
+    q_resident loads and splits the warp's Q fragments once, before the kv
+    loop, in place of each tile; s_unrolled and pv16 change only the d =
+    128 instance's unroll factor and pass width; an edit that no longer
+    matches raises."""
+    from paddle_tpu_torch.tools import tf32_fwd_variants as tool
+
+    tool.check()
+    sources = {f: (tool.CSRC / f).read_text() for f in tool.FILES}
+    assert "tf32_product<D, PV / 8>(oacc, " in sources["flash_attention_fwd.cu"]
+    out = tool.edited("one_pass", sources, tool.VARIANTS)["mma_sync.cuh"]
+    assert out.count("  mma_tf32_all(d, ") == 1
+    one = tool.edited("one_accumulator", sources, tool.VARIANTS)["mma_sync.cuh"]
+    assert "mma_tf32x3(acc[g], " in one and "add_frags(acc[g], part)" not in one
+    src = sources["flash_attention_fwd.cu"]
+    res = tool.edited("q_resident", sources, tool.VARIANTS)["flash_attention_fwd.cu"]
+    assert "mma_tf32x3(s, qb[ks], qs[ks], bb, bs);" in res
+    assert res.count("ldsm_x4(qa + ks * 32, qr);") == src.count("ldsm_x4(qa + ks * 32, qr);") == 1
+    assert res.index("ldsm_x4(qa + ks * 32, qr);") < res.rindex("for (int kt = 0; kt < n_kv;")
+    both = tool.edited("s_unrolled_pv16", sources, tool.VARIANTS)["flash_attention_fwd.cu"]
+    assert "constexpr int SU = KS;" in both and "constexpr int SU = KS;" not in src
+    assert "constexpr int TF32_PV = D <= 64 ? 32 : 16;" in both
+    with pytest.raises(ValueError):
+        tool.edited("q_resident", tool.edited("q_resident", sources, tool.VARIANTS),
+                    tool.VARIANTS)

@@ -13,9 +13,10 @@ tests/test_pallas_lm_loss.py (f32 and bf16 values, gradients, the
 route's inputs (bf16 h, f32 W) at vocab 500 with -100 labels, the
 backward's route and hidden-chunk plan (``backward_plan``), the forward's
 route (``forward_route``), the compile probe's variants as instances of
-the tensor-core forward, and the numerics the 3xTF32 backward relies on
-(a plain emulation of TF32 products: three terms reach the card's f32
-limit, two terms and one pass do not).
+the tensor-core forward, and the numerics the 3xTF32 forward and backward
+rely on (a plain emulation of TF32 products: three terms reach the card's
+f32 limit, fewer do not), with the edits of the tools that check their
+mutants on the card.
 
 Tolerances: f32 loss 2e-5 and gradients of the mean loss 1e-6 absolute (the
 same f32 products and logsumexp in another order; gradients are ~1e-4);
@@ -319,19 +320,82 @@ def test_backward_variants_tool_edits_apply_to_the_kernel_sources():
         tool.edited("one_pass", tool.edited("two_term", sources))
 
 
-@pytest.mark.parametrize("dtype,route", [("bfloat16", "mma"), ("float32", "fma")])
+def test_forward_variants_tool_edits_apply_to_the_lm_loss_sources():
+    """tools/tf32_fwd_variants.py, which checks and times the 3xTF32
+    forwards' mutants and other designs on the card, names edits that each
+    match the kernel sources exactly once. For the LM-loss forward: two
+    terms drops one of mma_tf32x3's three passes; one_accumulator sums S
+    straight into its running accumulator (no fresh one a slice, no
+    add_frags); two_ctas does so too, splits the B fragments a pair of n8
+    tiles at a time and gives the instance two CTAs an SM."""
+    from paddle_tpu_torch.tools import tf32_fwd_variants as tool
+
+    tool.check()
+    sources = {f: (tool.CSRC / f).read_text() for f in tool.FILES}
+    out = tool.edited("two_term", sources, tool.VARIANTS)["mma_sync.cuh"]
+    assert out.count("  mma_tf32_all(d, ") == 2
+    src = sources["lm_loss.cu"]
+    assert "add_frags(acc, run);" in src and "__launch_bounds__(NT, 1) lm_fwd_tf32_full(" in src
+    for name in ("one_accumulator", "two_ctas"):
+        one = tool.edited(name, sources, tool.VARIANTS)["lm_loss.cu"]
+        assert "add_frags(acc, run);" not in one and "float (&run)[2][8][4] = acc;" in one
+    two = tool.edited("two_ctas", sources, tool.VARIANTS)["lm_loss.cu"]
+    assert "__launch_bounds__(NT, 2) lm_fwd_tf32_full(" in two
+    assert "mma_tf32x3(d, ab, as, bb, bs);" in two and "mma_tf32x3(run, " not in two
+
+
+@pytest.mark.parametrize("dtype,route", [("bfloat16", "mma"), ("float32", "tf32x3")])
 def test_forward_route_table(dtype, route):
     """The forward's route follows h2's dtype alone: bf16 h2 (with a bf16 or
-    an f32 W) takes the tensor-core forward at every hidden, f32 h2 the FMA
-    one; on the CPU both are the plain version and launch nothing."""
+    an f32 W) takes the bf16 tensor-core forward, f32 h2 the 3xTF32 one, at
+    every hidden; on the CPU both are the plain version and move no launch
+    count of any route."""
     assert lm.forward_route(getattr(torch, dtype)) == route
     h, w, lab = _data(1024, 300, 256, seed=13)
     th = torch.from_numpy(h).to(getattr(torch, dtype))
-    before = {r: dict(c) for r, c in lm.launches_by_route.items()}
+    before = ({r: dict(c) for r, c in lm.launches_by_route.items()}, lm.launches_fwd)
     loss, lse = lm.lm_loss_fwd(th, torch.from_numpy(w), torch.from_numpy(lab))
     want = lm.lm_loss_fwd_plain(th, torch.from_numpy(w), torch.from_numpy(lab))
-    assert lm.launches_by_route == before
+    assert (lm.launches_by_route, lm.launches_fwd) == before
     assert torch.equal(loss, want[0]) and torch.equal(lse, want[1])
+
+
+def _tf32_forward(h, w, labels, terms):
+    """(loss, lse) as the 3xTF32 forward computes them: S = h . Wᵀ through
+    ``tf32_product``, the logsumexp and the label's logit in f32 (a label
+    outside [0, V) picks nothing)."""
+    s = tf32_product(h, w.t(), terms)
+    m = s.amax(dim=1)
+    lse = m + torch.log(torch.exp(s - m[:, None]).sum(dim=1))
+    picked = (s * lm._onehot(labels, w.shape[0], s)).sum(dim=1)
+    return (lse - picked).numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+def test_tf32x3_forward_reaches_the_f32_limit_and_one_pass_does_not(terms):
+    """The numerics the 3xTF32 forward relies on, at N = 1024, V = 640, H =
+    256 with labels of -100: the emulated loss and lse against the Pallas
+    forward in interpret mode. Three terms come within the card's f32 limit
+    (chip_smoke.py's F32_TOL = 1e-4 absolute, a tenth of it here, as the
+    reference's own f32 rounding is in the comparison too); one TF32 pass
+    errs by more than twice the limit on the loss (the label's logit
+    carries a TF32 product's ~2^-11 relative error undamped), so the card's
+    limit catches it."""
+    h, w, lab = _data(1024, 640, 256, seed=25)
+    lab[[1, 300, 1023]] = -100
+    # the JAX forward as lm_head_cross_entropy calls it: W padded to a
+    # multiple of 512 rows, the pad masked from v_true = 640 on
+    wp = np.concatenate([w, np.zeros((384, 256), np.float32)])
+    want = [np.asarray(x) for x in jax_lm._fwd(jnp.asarray(h), jnp.asarray(wp),
+                                                jnp.asarray(lab), 256, 512, 640)]
+    loss, lse = _tf32_forward(torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(lab),
+                              terms)
+    err = max(np.abs(loss - want[0]).max(), np.abs(lse - want[1]).max())
+    if terms == 3:
+        assert err <= 1e-5, err
+        np.testing.assert_array_equal(loss[[1, 300, 1023]], lse[[1, 300, 1023]])
+    else:
+        assert err > 2e-4, err
 
 
 def test_forward_route_refuses_other_dtypes():

@@ -1,14 +1,15 @@
 """Plain emulation of the port's 3xTF32 tensor-core products, shared by the
 CPU tests of the kernels that use them (tests/test_torch_lm_loss.py, the
-LM-loss backward at f32 h; tests/test_torch_flash_attention.py, the FA2
-backward pair at f32): what each kernel's f32 results rest on, checked
-against the JAX package's f32 results without a card."""
+LM-loss forward and backward at f32 h; tests/test_torch_flash_attention.py,
+the flash forward and the FA2 backward pair at f32): what each kernel's f32
+results rest on, checked against the JAX package's f32 results without a
+card."""
 import torch
 
-# The card holds a 3xTF32 kernel's f32 gradients to this limit on
-# ||got - ref||_F / ||ref||_F against the plain f32 version (chip_smoke.py
-# and tests/test_torch_cuda.py: GRAD_F32_FROB_TOL; the flash backward's per
-# (b, h) head).
+# The card holds a 3xTF32 kernel's f32 gradients, and the f32 flash
+# forward's o, to this limit on ||got - ref||_F / ||ref||_F against the plain
+# f32 version (chip_smoke.py and tests/test_torch_cuda.py:
+# GRAD_F32_FROB_TOL; the flash kernels' per (b, h) head).
 GRAD_F32_FROB_TOL = 5e-6
 
 
