@@ -16,7 +16,8 @@ each:
    predecessor checked and timed beside it), then the FA2 backward's dK/dV
    and dQ kernels (the same routes, each with the FMA pair checked and
    timed beside it), with SDPA's FA2 (flash backend) forward and backward
-   pinned as the bf16 yardstick and SDPA's default dispatch as the f32 one.
+   pinned as the bf16 yardstick and SDPA's default dispatch as the f32 one;
+   the bf16 kernels also at gpt_1p3b's [4, 2048, 16, 128], timed.
 3. scoring forward of GPT-2 124M (random weights from a seed), ids [8, 1024]:
    the flash kernel (the 3xTF32 one: scoring is f32) must launch exactly
    once per layer, the logits must be
@@ -41,6 +42,17 @@ each:
 7. train_vs_cpu: one f32 step at full width and 2 layers, ids [1, 1024], on
    the card (the 3xTF32 forward and backward pair) and on the CPU (plain
    path): loss and every gradient.
+7b. bench: the port's bench.py counterpart (paddle_tpu_torch.bench.run) in
+   this process, bf16 auto_cast: medium (gpt_345m, [8, 1024], 2 + 10 steps in
+   3 windows: tokens/s a window, spread, MFU against 989 TFLOP/s, peak
+   memory, 24 tensor-core launches a step of each flash kernel, one
+   profiled step); base with 4 in-program microbatches against 1 (peak
+   memory lower at 4); medium under full and selective recompute (48
+   forwards a step with the replay, 24 of each backward kernel; peak memory
+   under full below the run without recompute); gpt_1p3b ([4, 2048], head
+   dim 128) under full recompute; greedy decode at base (decode tokens/s,
+   slot independence). Every loss finite and, but for gpt_1p3b's 3 steps,
+   falling.
 8. library_ops, the direct-call LayerNorm and LM-loss ops (the JAX
    package's examples/pallas_library_ops.py at full width): each of their
    six kernels against its plain version at GPT-2 124M's shapes (LayerNorm
@@ -63,8 +75,8 @@ each:
 9. lmloss_compile_probe: the LM-loss forward's stripped variants at the
    probe's defaults, checked and timed, with ptxas's registers and spills.
 10. the ``kernels`` line: every ported kernel with the path that launched
-   it (the training main path's timed steps, the f32 steps, scoring, or a
-   library_ops pass; the flash backward and the LM-loss backward once for
+   it (the training main path's timed steps, the f32 steps, scoring, the
+   bench's gpt_1p3b run for the d = 128 rows, or a library_ops pass; the flash backward and the LM-loss backward once for
    each dtype, the route in ``kernel_route``), its
    launches there and its numbers from the kernel_vs_plain phases at that
    path's shape and dtype.
@@ -76,14 +88,15 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
@@ -193,13 +206,13 @@ def attention_bound(b, h, sq, sk, d, causal, dtype, products=2, seq_tensors=None
 
 
 def phase_env():
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    from paddle_tpu_torch.bench import card_name_and_power_limit
+    from paddle_tpu_torch.ops.kernels import _build
+
+    card = card_name_and_power_limit()
     print(card, flush=True)
     emit(phase="env", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0))
-    from paddle_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
     per_source = _build.build()
@@ -264,6 +277,7 @@ def phase_kernels_fwd():
     cases = [  # (name, b, sq, sk, h, d, causal, dtype, timed)
         ("slice_f32_causal", 8, 1024, 1024, 12, 64, True, f32, True),
         ("slice_bf16_causal", 8, 1024, 1024, 12, 64, True, bf16, True),
+        ("1p3b_bf16_causal", 4, 2048, 2048, 16, 128, True, bf16, True),
         ("slice_f32_noncausal", 8, 1024, 1024, 12, 64, False, f32, False),
         ("sq128_sk1024_f32_causal", 8, 128, 1024, 12, 64, True, f32, False),
         ("d32_f32_causal", 8, 1024, 1024, 24, 32, True, f32, False),
@@ -410,6 +424,7 @@ def phase_kernels_bwd():
         ("train_f32_causal", 8, 1024, 1024, 12, 64, True, f32, True),
         ("sq512_sk1024_f32_noncausal", 8, 512, 1024, 12, 64, False, f32, True),
         ("d128_bf16_causal", 8, 1024, 1024, 6, 128, True, bf16, True),
+        ("1p3b_bf16_causal", 4, 2048, 2048, 16, 128, True, bf16, True),
         ("d32_bf16_causal", 8, 1024, 1024, 24, 32, True, bf16, False),
         ("train_bf16_noncausal", 8, 1024, 1024, 12, 64, False, bf16, False),
         ("ragged200_d32_bf16_causal", 8, 200, 200, 12, 32, True, bf16, False),
@@ -554,11 +569,13 @@ def device_profile(fn, top=5):
     """Run fn under torch.profiler; returns (traced wall ms, summed CUDA
     kernel ms, the ``top`` kernels with the most time). One stream, so
     kernel times do not overlap. A trace without a single kernel record
-    (seen once on the H100 in a call of SDPA's backward) is taken once
-    more, with another call of fn; a second such trace raises."""
+    (seen on the H100 in calls of SDPA's backward and of its bf16 forward,
+    twice in a row in one run) is taken again, with another call of fn, up
+    to four traces in all; a fourth such trace raises."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    torch.cuda.synchronize()
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
@@ -572,7 +589,7 @@ def device_profile(fn, top=5):
         if total > 0:
             break
     else:
-        raise AssertionError("the profiler recorded no device time in two traces")
+        raise AssertionError("the profiler recorded no device time in four traces")
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
     return wall, total, [[name[:80], ms] for name, ms in ranked]
 
@@ -826,6 +843,184 @@ def phase_train_vs_cpu():
          loss_rtol=TRAIN_LOSS_RTOL, params=len(g_cpu),
          grad_worst_rel_err=worst[name], grad_worst_param=name,
          grad_tol=TRAIN_GRAD_TOL)
+
+
+def _route_counts():
+    """The flash kernels' launches by route: (forward, backward pair)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    return dict(fa.launches_by_route), _bwd_routes()
+
+
+def _check_mma_launches(what, fwd, bwd, n_fwd, n_bwd):
+    """Every launch on the bf16 tensor cores: n_fwd forwards and n_bwd of
+    each backward kernel, none on another route."""
+    want = ({"mma": n_fwd, "tf32x3": 0, "fma": 0},
+            {"mma": {"dkdv": n_bwd, "dq": n_bwd}, "tf32x3": {"dkdv": 0, "dq": 0},
+             "fma": {"dkdv": 0, "dq": 0}})
+    if (fwd, bwd) != want:
+        raise AssertionError(f"{what}: the flash kernels took {fwd} and {bwd}, "
+                             f"expected {want}")
+
+
+def _bench_run(what, cfg, batch, seq, steps, warmup, per_step_fwd, per_step_bwd,
+               falls=True, **kw):
+    """One run of the port's bench (paddle_tpu_torch.bench.run) on the card,
+    with the flash kernels' counts set to 0 just before it and read just
+    after: every step (warm-up included) launches per_step_fwd forwards and
+    per_step_bwd of each backward kernel on the bf16 tensor cores. The loss
+    is finite and, where ``falls``, lower after the run than at its first
+    step. Emits the bench line with the launches; returns (payload,
+    forward launches, backward launches of each kernel)."""
+    from paddle_tpu_torch import bench
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_launch_counts()
+    row = bench.run(cfg, batch, seq, steps, warmup, device="cuda", **kw)
+    torch.cuda.synchronize()
+    fwd, bwd = _route_counts()
+    n = steps + warmup
+    _check_mma_launches(what, fwd, bwd, n * per_step_fwd, n * per_step_bwd)
+    ex = row["extra"]
+    first, final = ex["first_loss"], ex["final_loss"]
+    if not (math.isfinite(first) and math.isfinite(final)):
+        raise AssertionError(f"{what}: non-finite loss {first}, {final}")
+    if falls and not final < first:
+        raise AssertionError(f"{what}: the loss did not fall ({first} -> {final})")
+    emit(phase="bench", case=what, tokens_per_s=row["value"], **ex,
+         launches_per_step={"flash_attention_fwd": per_step_fwd,
+                            "flash_attention_bwd_dkdv": per_step_bwd,
+                            "flash_attention_bwd_dq": per_step_bwd})
+    return row, fwd["mma"], bwd["mma"]["dkdv"]
+
+
+def phase_bench():
+    """The port's bench.py counterpart (``paddle_tpu_torch.bench.run``) in this
+    process, on the paths of bench.py's knobs, all under bf16 auto_cast:
+
+    - medium (gpt_345m, [8, 1024]): bench.py's 2 warm-up and 10 timed steps
+      in 3 windows; tokens/s a window, spread, MFU, peak memory; 24 launches
+      a step of the flash forward and of each backward kernel; then one
+      profiled step of the same model after 6 (profile train_step_medium);
+    - base ([8, 1024], 1 + 4 steps) with 4 in-program microbatches against
+      1: 4 x 12 launches of each kernel a step; the peak memory must be
+      lower at K = 4;
+    - medium (1 + 3 steps) with full and with selective recompute: 48
+      forwards a step (24 and their replay) and 24 of each backward kernel;
+      the peak memory under full must be lower than the medium run's
+      without recompute (selective's is reported);
+    - gpt_1p3b ([4, 2048], head dim 128), full recompute, 1 + 2 steps: 48
+      forwards and 24 of each backward kernel a step at d = 128, a finite
+      loss, peak memory;
+    - decode at base: greedy ``generate`` of 64 tokens after a 128-token
+      prompt for 8 rows (a warm-up call, then a timed one: decode tokens/s).
+      Slot independence: the rows in reversed slots give the same bf16
+      tokens, and rows 0 and 5 alone give the batch's tokens at f32 (at
+      bf16 a batch of one takes other GEMM kernels, whose rounding can
+      break a tie of the bf16 logits: how many tokens agree is reported).
+
+    Every loss is finite, and falls except in the 3 steps of gpt_1p3b.
+    Returns the gpt_1p3b run's launches {kernel: n}."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.models import GPTForPretraining, gpt_1p3b
+
+    med_cfg, batch, seq, steps, warmup = bench.bench_config("medium")
+    nl = med_cfg.num_layers
+    medium, _, _ = _bench_run("medium", med_cfg, batch, seq, steps, warmup, nl, nl)
+    peak_none = medium["extra"]["max_memory_allocated_bytes"]
+
+    # one profiled medium step (where the time goes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, engine = _train_engine(med_cfg, "cuda")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, med_cfg.vocab_size, (batch, seq)).astype(np.int64)).cuda()
+    labels = torch.roll(ids, -1, 1)
+    with auto_cast(dtype="bfloat16"):
+        _, step_ms = _steps(engine, ids, labels, 6)
+        wall, kernel_ms, top = device_profile(lambda: engine.step(ids, labels), top=12)
+    untraced = statistics.median(step_ms[3:])
+    emit(phase="profile", what="train_step_medium", batch=[batch, seq],
+         wall_ms_untraced=untraced, wall_ms_traced=wall, kernel_ms=kernel_ms,
+         device_busy_share=kernel_ms / untraced, top_kernels=top)
+    del model, engine, ids, labels
+
+    base_cfg = bench.bench_config("base")[0]
+    peaks = {}
+    for k in (1, 4):
+        row, _, _ = _bench_run(f"base_accum{k}", base_cfg, 8, 1024, 4, 1,
+                               k * base_cfg.num_layers, k * base_cfg.num_layers,
+                               accum=k)
+        peaks[k] = row["extra"]["max_memory_allocated_bytes"]
+    if not peaks[4] < peaks[1]:
+        raise AssertionError(f"peak memory at 4 microbatches {peaks[4]} is not below "
+                             f"the plain step's {peaks[1]}")
+
+    for rc in ("full", "selective"):
+        row, _, _ = _bench_run(f"medium_recompute_{rc}", med_cfg, batch, seq, 3, 1,
+                               2 * nl, nl, recompute=rc)
+        peaks[rc] = row["extra"]["max_memory_allocated_bytes"]
+    if not peaks["full"] < peak_none:
+        raise AssertionError(f"peak memory under full recompute {peaks['full']} is not "
+                             f"below the step's without it {peak_none}")
+
+    big = gpt_1p3b()
+    if big.hidden_size // big.num_heads != 128:
+        raise AssertionError("gpt_1p3b's head dim is not 128")
+    _, n_fwd, n_bwd = _bench_run("gpt_1p3b_recompute_full", big, 4, 2048, 2, 1,
+                                 2 * big.num_layers, big.num_layers, falls=False,
+                                 windows=1, recompute="full")
+    emit(phase="bench_memory", model_medium_none=peak_none,
+         medium_recompute_full=peaks["full"], medium_recompute_selective=peaks["selective"],
+         base_microbatches_1=peaks[1], base_microbatches_4=peaks[4],
+         unit="bytes, torch.cuda.max_memory_allocated")
+
+    # decode: bench.py's greedy generate at base, 8 rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    dm = GPTForPretraining(base_cfg, seed=0).eval()
+    prompt = torch.from_numpy(np.random.RandomState(1).randint(
+        0, base_cfg.vocab_size, (8, 128)).astype(np.int64)).cuda()
+
+    def greedy(ids):
+        return dm.generate(ids, max_new_tokens=64, temperature=0)
+
+    with auto_cast(dtype="bfloat16"):
+        greedy(prompt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = greedy(prompt)
+        int(out[0, -1])
+        decode_s = time.perf_counter() - t0
+        flipped = greedy(prompt.flip(0)).flip(0)
+        alone = {i: greedy(prompt[i:i + 1])[0] for i in (0, 5)}
+    if tuple(out.shape) != (8, 192) or not bool(((out >= 0) & (out < base_cfg.vocab_size)).all()):
+        raise AssertionError(f"generate gave {tuple(out.shape)} or ids out of the vocabulary")
+    # slot independence: in the same batch shape every row gives the same
+    # tokens in another slot beside other neighbours (bf16, exactly) ...
+    if not torch.equal(flipped, out):
+        raise AssertionError("bf16 greedy tokens changed with the rows' slots")
+    # ... and a row alone gives the batch's tokens at f32; at bf16 a batch of
+    # one takes other GEMM kernels, whose rounding can break a tie of the
+    # bf16 logits (one ulp is 2^-6 at their ~2.3), so it is reported
+    f32_out = greedy(prompt)
+    for i in (0, 5):
+        if not torch.equal(greedy(prompt[i:i + 1])[0], f32_out[i]):
+            raise AssertionError(f"f32: row {i} alone gave other greedy tokens than in "
+                                 f"the batch of 8")
+    same_prefix = {i: int((a != out[i]).nonzero()[0]) - 128 if bool((a != out[i]).any())
+                   else 64 for i, a in alone.items()}
+    emit(phase="bench_decode", model="gpt2-124m", amp="bfloat16 O1", batch=8,
+         prompt=128, new_tokens=64, seconds=decode_s,
+         decode_tokens_per_s=8 * 64 / decode_s, slots_flipped_equal=True,
+         f32_rows_alone_equal=[0, 5], bf16_alone_tokens_equal_before_divergence=same_prefix)
+    del dm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd_d128": n_fwd, "flash_attention_bwd_dkdv_d128": n_bwd,
+            "flash_attention_bwd_dq_d128": n_bwd}
 
 
 def _close_or_raise(what, got, want, dtype, grad=False, tol=None):
@@ -1292,6 +1487,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_vs_cpu()
     torch.cuda.empty_cache()
+    bench_launches = phase_bench()
 
     ln_recs = phase_layer_norm_kernels()
     lm_recs = phase_lm_loss_kernels(ids)
@@ -1299,7 +1495,8 @@ def main() -> int:
     phase_probe(per_source["lm_loss"] or None)
 
     # the training main path runs attention in bf16 at [8, 1024, 12, 64] (the
-    # tensor-core forward and backward pair), the f32 steps and scoring in
+    # tensor-core forward and backward pair; the bench's gpt_1p3b run at [4,
+    # 2048, 16, 128], its rows "_d128"), the f32 steps and scoring in
     # f32 (the 3xTF32 forward, and in the steps the 3xTF32 backward pair);
     # the library ops are reported at the composition's shapes:
     # LayerNorm in f32 (black-listed under O1), the LM loss with bf16 h and
@@ -1318,6 +1515,12 @@ def main() -> int:
         ("flash_attention_bwd_dkdv_f32", "train_f32", bwd["train_f32_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
         ("flash_attention_bwd_dq_f32", "train_f32", bwd["train_f32_causal"]["dq"],
+         "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
+        ("flash_attention_fwd_d128", "bench gpt_1p3b", fwd["1p3b_bf16_causal"],
+         "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
+        ("flash_attention_bwd_dkdv_d128", "bench gpt_1p3b", bwd["1p3b_bf16_causal"]["dkdv"],
+         "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
+        ("flash_attention_bwd_dq_d128", "bench gpt_1p3b", bwd["1p3b_bf16_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
         ("layer_norm_fwd", "library_ops", ln_recs[torch.float32]["layer_norm_fwd"],
          "layer_norm.cu", pallas + "layer_norm.py:92"),
@@ -1342,7 +1545,7 @@ def main() -> int:
     # and backward from the bf16 pass, its f32-h forward and backward
     # (3xTF32) from the f32 pass
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
-    counts = {**launches,
+    counts = {**launches, **bench_launches,
               "flash_attention_fwd_f32": score_launches
               + f32_launches["flash_attention_fwd"],
               "flash_attention_bwd_dkdv_f32": f32_launches["flash_attention_bwd_dkdv"],

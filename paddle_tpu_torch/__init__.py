@@ -3,9 +3,12 @@
 The JAX package ``paddle_tpu`` is the reference; this package mirrors its
 module paths (``models/gpt.py``, ``serving/engine.py``,
 ``ops/nn_functional.py``, ``ops/fused.py``, ``amp.py``, ``optimizer/``,
-``nn/clip.py``, ``distributed/engine.py``) and replaces each Pallas TPU
-kernel with a CUDA kernel written for Hopper (``ops/kernels/``);
-``tools/`` holds the port's command-line tools. It imports
+``nn/clip.py``, ``distributed/engine.py``, ``distributed/fleet/utils.py``,
+``observability/flops.py``) and replaces each Pallas TPU kernel with a CUDA
+kernel written for Hopper (``ops/kernels/``); ``bench.py`` is the
+counterpart of the repository's bench.py (``python -m
+paddle_tpu_torch.bench``) and ``tools/`` holds the port's command-line
+tools. It imports
 ``torch`` and never ``jax`` or ``paddle_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -21,6 +21,7 @@ O2.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -74,6 +75,20 @@ class auto_cast:
 def amp_ctx():
     """The active ``auto_cast`` of this thread, or None."""
     return getattr(_state, "ctx", None)
+
+
+@contextlib.contextmanager
+def amp_scope(ctx):
+    """Install ``ctx`` (an ``auto_cast`` or None) as this thread's context for
+    the block and restore the one before. A recomputed segment's replay runs
+    under its forward's context this way: the backward may run outside the
+    ``with auto_cast`` block, or on autograd's device thread."""
+    prev = getattr(_state, "ctx", None)
+    _state.ctx = ctx
+    try:
+        yield
+    finally:
+        _state.ctx = prev
 
 
 def autocast_dtype_for(name: str):

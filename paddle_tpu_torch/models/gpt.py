@@ -5,10 +5,11 @@ dict carries over by name (models/convert.py). What is ported: the
 no-cache forward (scoring and training; causal attention goes to the flash
 kernels on the card, forward and backward), the training loss
 ``forward(ids, labels)`` through the chunked fused LM-head cross entropy,
-dropout, and the contiguous KV-cache path with a scalar or a per-row offset
-(serving). Parameters are trainable; the serving engine runs under
-``no_grad``. Not ported yet: recompute, tensor parallelism and
-``generate()``.
+dropout, recompute ("full" and "selective", distributed/fleet/utils.py),
+the contiguous KV-cache path with a scalar or a per-row offset (serving),
+and ``generate`` (greedy, top-k / top-p sampling, beam search). Parameters
+are trainable; the serving engine and ``generate`` run under ``no_grad``.
+Not ported yet: tensor parallelism and the paged KV cache.
 
 Dropout draws from the model's own ``torch.Generator`` (on the model's
 device, seeded from the constructor's ``seed``), where the JAX model folds
@@ -16,15 +17,24 @@ the step's PRNG key: the masks differ by design.
 
 KV caches are updated in place, where the JAX model returns new arrays: the
 same tensors come back in the returned cache tuple.
+
+``generate`` runs eagerly, one step a token, where the JAX model compiles the
+whole decode into one program; sampled tokens come from the seeded Gumbel
+streams of serving/sampling.py, so they differ from JAX's by design while
+greedy and beam tokens agree exactly.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..amp import autocast_dtype_for
 from ..device import resolve_device
+from ..distributed.fleet.utils import recompute
 from ..ops import nn_functional as F
 from ..ops.fused import fused_linear_cross_entropy
+from ..serving.bucketing import resolve_bucket
+from ..serving.sampling import gumbel_noise, sample_tokens
 
 IGNORE_INDEX = -100  # ParallelCrossEntropy's default in the JAX model
 
@@ -32,7 +42,8 @@ IGNORE_INDEX = -100  # ParallelCrossEntropy's default in the JAX model
 class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12, num_heads=12,
                  ffn_hidden_size=None, max_seq_len=1024, dropout=0.0,
-                 attention_dropout=0.0, use_recompute=False, dtype="float32",
+                 attention_dropout=0.0, use_recompute=False,
+                 recompute_granularity="full", dtype="float32",
                  tie_word_embeddings=True):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -42,7 +53,10 @@ class GPTConfig:
         self.max_seq_len = max_seq_len
         self.dropout = dropout
         self.attention_dropout = attention_dropout
-        self.use_recompute = use_recompute  # not ported: the model refuses it
+        self.use_recompute = use_recompute
+        # "full" | "selective" (distributed/fleet/utils.py): selective saves
+        # the linear layers' outputs and recomputes the rest
+        self.recompute_granularity = recompute_granularity
         self.dtype = dtype
         self.tie_word_embeddings = tie_word_embeddings
 
@@ -55,6 +69,12 @@ def gpt_tiny(**kw):
 def gpt_345m(**kw):
     return GPTConfig(vocab_size=50304, hidden_size=1024, num_layers=24, num_heads=16,
                      max_seq_len=1024, **kw)
+
+
+def gpt_1p3b(**kw):
+    """GPT-3 1.3B (BASELINE config 4)."""
+    return GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24, num_heads=16,
+                     max_seq_len=2048, **kw)
 
 
 class Linear(nn.Linear):
@@ -156,19 +176,28 @@ class GPTBlock(nn.Module):
         self.ln2 = LayerNorm(config.hidden_size)
         self.mlp = GPTMLP(config)
         self.dropout = config.dropout
+        self.use_recompute = config.use_recompute
+        self.recompute_granularity = config.recompute_granularity
         self.generator = None  # the model's dropout generator (set by the model)
 
     def _drop(self, x):
         return F.dropout(x, self.dropout, training=self.training,
                          generator=self.generator)
 
+    def _forward(self, x):
+        h = x + self._drop(self.attn(self.ln1(x)))
+        return h + self._drop(self.mlp(self.ln2(h)))
+
     def forward(self, x, cache=None):
         if cache is not None:
             a, new_cache = self.attn(self.ln1(x), cache=cache)
             h = x + a
             return h + self.mlp(self.ln2(h)), new_cache
-        h = x + self._drop(self.attn(self.ln1(x)))
-        return h + self._drop(self.mlp(self.ln2(h)))
+        if self.use_recompute and self.training:
+            gens = () if self.generator is None else (self.generator,)
+            return recompute(self._forward, x, policy=self.recompute_granularity,
+                             generators=gens)
+        return self._forward(x)
 
 
 class GPTModel(nn.Module):
@@ -222,9 +251,6 @@ class GPTForPretraining(nn.Module):
 
     def __init__(self, config: GPTConfig, device=None, seed: int = 0):
         super().__init__()
-        if config.use_recompute:
-            raise NotImplementedError(
-                "recompute (use_recompute=True) is not ported yet; see ROADMAP.md")
         dev = resolve_device(device)
         self.config = config
         with torch.device("meta"):
@@ -258,9 +284,12 @@ class GPTForPretraining(nn.Module):
         """The LM head's [vocab, hidden] weight (the tied embedding or lm_head)."""
         return self.gpt.wte.weight if self.lm_head is None else self.lm_head.weight
 
-    def _head_logits(self, h):
-        """Hidden states -> vocab logits (shared by forward and serving)."""
-        return F.matmul(h, self._head_weight(), transpose_y=True)
+    def _head_logits(self, h, weight=None):
+        """Hidden states -> vocab logits (shared by forward, serving and
+        generate; ``weight`` replaces the head's weight, as generate's cast
+        copy does)."""
+        return F.matmul(h, self._head_weight() if weight is None else weight,
+                        transpose_y=True)
 
     def logits(self, input_ids):
         return self._head_logits(self.gpt(input_ids))
@@ -274,3 +303,206 @@ class GPTForPretraining(nn.Module):
                                           labels, transpose_y=True,
                                           ignore_index=IGNORE_INDEX)
         return F.mean(loss)
+
+    # ------------------------------------------------------------- decode
+    def _decode_setup(self, b, total):
+        """What a decode call runs on, under the active ``auto_cast``
+        (reference gpt.py:618-639): the weights with 2 or more dims cast once
+        to the matmul op's autocast dtype (1-D ones, biases and norm scales,
+        stay as they are), the head weight among them, and per layer a
+        zeroed contiguous [b, total, nh, hd] K and V cache in the attention
+        op's autocast dtype (the embedding's dtype without autocast)."""
+        cfg = self.config
+        w_dtype = autocast_dtype_for("matmul")
+        params = {n: (p.detach().to(w_dtype) if w_dtype is not None and p.dim() >= 2
+                      and p.is_floating_point() else p.detach())
+                  for n, p in self.named_parameters()}
+        gpt_params = {n[len("gpt."):]: p for n, p in params.items() if n.startswith("gpt.")}
+        head_w = params["gpt.wte.weight" if self.lm_head is None else "lm_head.weight"]
+        cache_dtype = autocast_dtype_for("attention") or self.gpt.wte.weight.dtype
+        nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        caches = [tuple(torch.zeros((b, total, nh, hd), dtype=cache_dtype,
+                                    device=self.device) for _ in range(2)) + (0,)
+                  for _ in range(cfg.num_layers)]
+        return gpt_params, head_w, caches
+
+    def _decode_body(self, gpt_params, ids, caches):
+        """The model body on ``gpt_params`` through the KV caches."""
+        return torch.func.functional_call(self.gpt, gpt_params, (ids,),
+                                          {"caches": caches})
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_k=0, top_p=1.0, eos_token_id=None, seed=0,
+                 decode_strategy=None, num_beams=1, length_penalty=1.0,
+                 prompt_bucket=None):
+        """Autoregressive decode with a KV cache (reference gpt.py:543): the
+        prefill fills fixed [b, total, nh, hd] caches, then each step emits
+        one token for every row. Greedy when temperature == 0 (first maximum
+        on ties, as argmax is in JAX); otherwise the logits are scaled by the
+        temperature, filtered to top-k then top-p, and drawn with the Gumbel
+        noise of serving/sampling.py: the token at position p of row i comes
+        from the stream (seed + i, p), as a ServingEngine request of seed
+        seed + i draws it. After eos_token_id every later position repeats
+        eos.
+
+        decode_strategy follows the reference's generate(): None picks greedy
+        or sampling from temperature; "beam_search" (or num_beams > 1) goes
+        to generate_beam. prompt_bucket (an int rung or a ladder) right-pads
+        the prompt to its rung; causal attention leaves the tokens as the
+        unpadded call's. Returns int64 [b, prompt + max_new_tokens] on the
+        model's device; the model's training mode is restored on exit."""
+        if decode_strategy not in (None, "greedy_search", "sampling",
+                                   "beam_search"):
+            raise ValueError(
+                f"decode_strategy must be 'greedy_search', 'sampling' or "
+                f"'beam_search', got {decode_strategy!r}")
+        if decode_strategy == "beam_search" or (decode_strategy is None
+                                                and num_beams > 1):
+            if num_beams < 2:
+                raise ValueError(
+                    "beam_search needs num_beams >= 2 (reference generate() "
+                    f"semantics), got {num_beams}")
+            if prompt_bucket is not None:
+                raise ValueError(
+                    "prompt_bucket is not supported with beam_search")
+            return self.generate_beam(
+                input_ids, max_new_tokens=max_new_tokens,
+                num_beams=int(num_beams),
+                length_penalty=length_penalty, eos_token_id=eos_token_id)
+        if num_beams > 1:
+            raise ValueError(
+                f"num_beams={num_beams} conflicts with "
+                f"decode_strategy={decode_strategy!r}; use 'beam_search'")
+        if decode_strategy == "greedy_search":
+            temperature = 0.0
+        ids = torch.as_tensor(input_ids).to(device=self.device, dtype=torch.long)
+        b, prompt = ids.shape
+        bucketed = prompt_bucket is not None
+        padded_len = resolve_bucket(prompt, prompt_bucket) if bucketed else prompt
+        total = padded_len + max_new_tokens
+        if total > self.config.max_seq_len:
+            raise ValueError(f"prompt {padded_len}"
+                             f"{' (bucketed)' if bucketed else ''} + "
+                             f"max_new_tokens {max_new_tokens} exceeds "
+                             f"max_seq_len {self.config.max_seq_len}")
+        if bucketed:
+            ids_in = torch.nn.functional.pad(ids, (0, padded_len - prompt))
+        else:
+            ids_in = ids
+        vocab = self.config.vocab_size
+        row_seeds = [int(seed) + i for i in range(b)]
+
+        def sample(logits, pos):
+            if temperature == 0:
+                return torch.argmax(logits.float(), dim=-1)
+            noise = gumbel_noise(row_seeds, [pos] * b, vocab, self.device)
+            return sample_tokens(logits, noise, [float(temperature)] * b,
+                                 [int(top_k)] * b, [float(top_p)] * b)
+
+        was_training = self.training
+        self.eval()
+        try:
+            gpt_params, head_w, caches = self._decode_setup(b, total)
+            h, caches = self._decode_body(gpt_params, ids_in, caches)
+            # logits from the last real position; decode resumes at the
+            # prompt's length, overwriting one pad row per token before any
+            # query attends to it
+            tok = sample(self._head_logits(h[:, prompt - 1], head_w), prompt)
+            caches = [(kc, vc, prompt) for kc, vc, _ in caches]
+            done = (torch.zeros(b, dtype=torch.bool, device=self.device)
+                    if eos_token_id is None else tok == eos_token_id)
+            out = [tok]
+            for t in range(1, max_new_tokens):
+                h, caches = self._decode_body(gpt_params, tok[:, None], caches)
+                nxt = sample(self._head_logits(h[:, 0], head_w), prompt + t)
+                if eos_token_id is not None:
+                    nxt = torch.where(done, eos_token_id, nxt)
+                    done = done | (nxt == eos_token_id)
+                out.append(nxt)
+                tok = nxt
+        finally:
+            if was_training:
+                self.train()
+        return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
+
+    @torch.no_grad()
+    def generate_beam(self, input_ids, max_new_tokens=32, num_beams=4,
+                      length_penalty=1.0, eos_token_id=None):
+        """Beam-search decode (reference gpt.py:770). The KV cache carries a
+        beam dim, [b*K, total, nh, hd]; each step log-softmaxes every beam's
+        logits in f32, takes the top K of the [K*V] continuations and
+        reorders the cache by gathering the parent beams' rows. A finished
+        beam emits a forced eos at log-prob 0, so its score freezes. Returns
+        the best beam per row, [b, prompt + max_new_tokens], ranked by
+        score / length**length_penalty (GNMT); positions after its eos
+        repeat eos. The top K breaks ties toward the lower index, as
+        jax.lax.top_k does (a stable descending sort)."""
+        cfg = self.config
+        K = int(num_beams)
+        ids = torch.as_tensor(input_ids).to(device=self.device, dtype=torch.long)
+        b, prompt = ids.shape
+        total = prompt + max_new_tokens
+        if total > cfg.max_seq_len:
+            raise ValueError(f"prompt {prompt} + max_new_tokens "
+                             f"{max_new_tokens} exceeds max_seq_len "
+                             f"{cfg.max_seq_len}")
+        dev = self.device
+        NEG = -1e30
+
+        def top(x, k):
+            vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+            return vals[..., :k], idx[..., :k]
+
+        was_training = self.training
+        self.eval()
+        try:
+            gpt_params, head_w, caches = self._decode_setup(b, total)
+            h, caches = self._decode_body(gpt_params, ids, caches)
+            logp0 = torch.log_softmax(self._head_logits(h[:, -1], head_w).float(), dim=-1)
+            vocab = logp0.shape[-1]
+            scores, tok0 = top(logp0, K)                      # [b, K]
+            toks = torch.zeros((b, K, max_new_tokens), dtype=torch.long, device=dev)
+            toks[:, :, 0] = tok0
+            finished = (torch.zeros((b, K), dtype=torch.bool, device=dev)
+                        if eos_token_id is None else tok0 == eos_token_id)
+            lengths = torch.ones((b, K), dtype=torch.float32, device=dev)
+            # row i -> beams i*K .. i*K+K-1
+            caches = [(kc.repeat_interleave(K, dim=0), vc.repeat_interleave(K, dim=0),
+                       prompt) for kc, vc, _ in caches]
+            if eos_token_id is not None:
+                eos_row = torch.full((vocab,), NEG, dtype=torch.float32, device=dev)
+                eos_row[eos_token_id] = 0.0
+            for t in range(1, max_new_tokens):
+                prev = toks[:, :, t - 1].reshape(b * K)
+                h, caches = self._decode_body(gpt_params, prev[:, None], caches)
+                logp = torch.log_softmax(self._head_logits(h[:, 0], head_w).float(),
+                                         dim=-1).reshape(b, K, vocab)
+                if eos_token_id is not None:
+                    # finished beams: only "emit eos again, score unchanged"
+                    logp = torch.where(finished[..., None], eos_row, logp)
+                cand = (scores[..., None] + logp).reshape(b, K * vocab)
+                scores, idx = top(cand, K)
+                beam_idx = idx // vocab
+                token = idx % vocab
+                toks = torch.gather(toks, 1, beam_idx[..., None].expand(-1, -1, max_new_tokens))
+                toks[:, :, t] = token
+                fin_g = torch.gather(finished, 1, beam_idx)
+                len_g = torch.gather(lengths, 1, beam_idx)
+                lengths = torch.where(fin_g, len_g, len_g + 1.0)
+                finished = fin_g if eos_token_id is None else fin_g | (token == eos_token_id)
+                # this step's K/V went in for the old beam order: each child
+                # takes its parent's rows, the new one included
+                rows = (torch.arange(b, device=dev)[:, None] * K + beam_idx).reshape(-1)
+                caches = [(kc[rows], vc[rows], off) for kc, vc, off in caches]
+        finally:
+            if was_training:
+                self.train()
+        norm = scores / torch.pow(lengths, float(length_penalty))
+        best = torch.argmax(norm, dim=1)
+        best_toks = toks[torch.arange(b, device=dev), best]     # [b, max_new]
+        if eos_token_id is not None:
+            is_eos = best_toks == eos_token_id
+            seen = (torch.cumsum(is_eos.long(), dim=1) - is_eos.long()) > 0
+            best_toks = torch.where(seen, eos_token_id, best_toks)
+        return torch.cat([ids, best_toks], dim=1)

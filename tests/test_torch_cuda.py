@@ -50,6 +50,11 @@ and its FMA predecessor are held to 1e-4 x max(1, max|ref|) and to 5e-6 in
 each head's relative Frobenius norm (GRAD_F32_FROB_TOL; one TF32 pass errs
 by ~1e-4 there), to their route's launch counts, to the same bits twice,
 and to TF32 HMMA in their SASS with no spills.
+Recompute on the card launches each layer's flash forward twice (the
+forward and its replay) and the backward pair once, and keeps the bf16
+gradients within 2e-2 x max|ref| of the step's without it; two
+microbatches of an f32 step give the plain step's loss (rtol 1e-5) and
+gradients (1e-4 x max(1, max|g|)) on the whole batch.
 """
 import numpy as np
 import pytest
@@ -1204,3 +1209,70 @@ def test_library_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         lm.lm_head_cross_entropy(h, torch.randn(256, 100, device=cuda),
                                  torch.zeros(1024, dtype=torch.long, device=cuda))
+
+
+def _recompute_step(cuda, granularity, ids, labels):
+    """One bf16-autocast forward and backward of gpt_tiny on the card (seed 6)
+    with ``granularity`` recompute (None: without it); returns the launches
+    by route and the gradients."""
+    cfg = gpt_tiny(use_recompute=granularity is not None,
+                   recompute_granularity=granularity or "full")
+    model = GPTForPretraining(cfg, seed=6)
+    before = (dict(fa.launches_by_route),
+              {r: dict(c) for r, c in fa.launches_bwd_by_route.items()})
+    with auto_cast(dtype="bfloat16"):
+        loss = model(torch.from_numpy(ids).to(cuda), torch.from_numpy(labels).to(cuda))
+    loss.backward()          # outside the block: the replay re-enters its context
+    torch.cuda.synchronize()
+    fwd = {r: n - before[0][r] for r, n in fa.launches_by_route.items()}
+    bwd = {r: {k: n - before[1][r][k] for k, n in c.items()}
+           for r, c in fa.launches_bwd_by_route.items()}
+    return fwd, bwd, {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("granularity", ["full", "selective"])
+def test_recompute_replays_the_flash_forward_and_keeps_the_bf16_gradients(cuda,
+                                                                          granularity):
+    """Under recompute every layer's flash forward launches twice (the
+    forward and its replay), the backward pair once; the gradients equal
+    the step's without recompute within the bf16 limit, 2e-2 x max|ref|
+    (the replay recomputes the same products on the same inputs)."""
+    rng = np.random.RandomState(11)
+    ids = rng.randint(0, 1024, (2, 128)).astype(np.int64)
+    labels = np.roll(ids, -1, 1)
+    n = gpt_tiny().num_layers
+    fwd0, bwd0, want = _recompute_step(cuda, None, ids, labels)
+    fwd1, bwd1, got = _recompute_step(cuda, granularity, ids, labels)
+    none = {"dkdv": 0, "dq": 0}
+    assert fwd0 == {"mma": n, "tf32x3": 0, "fma": 0}
+    assert fwd1 == {"mma": 2 * n, "tf32x3": 0, "fma": 0}
+    assert bwd0 == bwd1 == {"mma": {"dkdv": n, "dq": n}, "tf32x3": none, "fma": none}
+    for name, ref in want.items():
+        assert (got[name] - ref).abs().max().item() <= 2e-2 * ref.abs().max().item(), name
+
+
+def test_two_microbatches_match_the_plain_step_on_the_card(cuda):
+    """An f32 step of gpt_tiny with 2 microbatches of [2, 128] against the
+    plain step on the [4, 128] batch (every position labelled, so the mean
+    of the two means is the batch's mean): loss rtol 1e-5, gradients 1e-4 x
+    max(1, max|g|), 2 x 12 launches of each kernel against 12."""
+    rng = np.random.RandomState(12)
+    ids = rng.randint(0, 1024, (4, 128)).astype(np.int64)
+    labels = np.roll(ids, -1, 1)
+    out = []
+    for k in (1, 2):
+        model = GPTForPretraining(gpt_tiny(), seed=7)
+        eng = TrainStepEngine(model, AdamW(learning_rate=1e-3,
+                                           parameters=model.named_parameters()),
+                              microbatches=k)
+        counts = _launch_counts()
+        loss = eng.step(ids, labels).item()
+        torch.cuda.synchronize()
+        out.append((loss, [a - b for a, b in zip(_launch_counts(), counts)],
+                    {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    n = gpt_tiny().num_layers
+    assert out[0][1] == [n] * 3 and out[1][1] == [2 * n] * 3
+    assert out[1][0] == pytest.approx(out[0][0], rel=1e-5)
+    for name, ref in out[0][2].items():
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        assert (out[1][2][name] - ref).abs().max().item() <= tol, name

@@ -295,7 +295,3 @@ def test_a_served_model_trains_with_its_dropout():
         no_dropout = ref(torch.from_numpy(ids), torch.from_numpy(labels))
     assert not torch.equal(losses[0], no_dropout)
 
-
-def test_recompute_is_refused():
-    with pytest.raises(NotImplementedError, match="recompute"):
-        GPTForPretraining(gpt_tiny(use_recompute=True), device="cpu")
