@@ -42,6 +42,18 @@ each:
 7. train_vs_cpu: one f32 step at full width and 2 layers, ids [1, 1024], on
    the card (the 3xTF32 forward and backward pair) and on the CPU (plain
    path): loss and every gradient.
+7a. dp: data parallelism (phase_dp) at one rank a card, in processes of
+   the port's spawn with a deadline of their own: GPT-2 124M, global ids
+   [8, 1024], through fleet.init -> fleet.distributed_engine: the
+   replicated f32 reduce (at world 1 the single-GPU engine's steps bit for
+   bit), ZeRO (bit for bit up to 2 ranks), the bf16 and int8 payloads with
+   and without error feedback and ZeRO's bf16 and int8 (losses within 2e-2
+   of the f32 trajectory; the first step's reduced gradient within the
+   payload's rounding of the f32 run's, element by element), 12
+   tensor-core launches of each flash kernel a step a rank, the byte
+   counters against the payload functions, ZeRO's peak memory past one
+   rank; step ms, tokens/s per chip, payload bytes, the f32 payload's
+   all_reduce time and bus bandwidth.
 7b. bench: the port's bench.py counterpart (paddle_tpu_torch.bench.run) in
    this process, bf16 auto_cast: medium (gpt_345m, [8, 1024], 2 + 10 steps in
    3 windows: tokens/s a window, spread, MFU against 989 TFLOP/s, peak
@@ -75,7 +87,8 @@ each:
 9. lmloss_compile_probe: the LM-loss forward's stripped variants at the
    probe's defaults, checked and timed, with ptxas's registers and spills.
 10. the ``kernels`` line: every ported kernel with the path that launched
-   it (the training main path's timed steps, the f32 steps, scoring, the
+   it (the training main path's timed steps and the dp phase's runs on
+   rank 0, the f32 steps, scoring, the
    bench's gpt_1p3b run for the d = 128 rows, or a library_ops pass; the flash backward and the LM-loss backward once for
    each dtype, the route in ``kernel_route``), its
    launches there and its numbers from the kernel_vs_plain phases at that
@@ -845,6 +858,335 @@ def phase_train_vs_cpu():
          grad_tol=TRAIN_GRAD_TOL)
 
 
+DP_STEPS = 3            # steps of each dp run
+DP_TIMEOUT_S = 300      # the dp phase's ranks, all runs (~30 s on one card)
+DP_LOWP_RTOL = 2e-2     # bf16 / int8 payload losses vs the f32 trajectory: the JAX
+                        # package's bar (tests/test_grad_comm.py)
+DP_ZERO_RTOL = 1e-5     # ZeRO vs replicated losses past 2 ranks: NCCL may sum the
+                        # all_reduce (ring, tree or NVLS) in another order than the
+                        # reduce_scatter, so the f32 means differ in the last bits
+                        # (~1e-7 relative), and each step's update of ~lr moves the
+                        # loss by far less than 1e-5 of it
+DP_ZERO_MEM_SHARE = 0.8  # ZeRO's peak below replicated's by this share of the
+                         # AdamW state it shards, (1 - 1/N) x 8 x n bytes
+DP_GRAD_CHUNK = 1024     # FLAGS_grad_comm_chunk of the dp runs
+
+
+def _flat_grad(params):
+    """The gradients of {name: parameter} as one f32 host vector in sorted
+    name order (grad_comm's flat layout)."""
+    return torch.cat([params[nm].grad.detach().reshape(-1).float().cpu()
+                      for nm in sorted(params)])
+
+
+def _payload_bounds(g_local, world):
+    """Per element, the most a payload's rounding can move the first step's
+    reduced mean gradient from the f32 run's, given every rank's own mean
+    gradient g_r (this rank's is ``g_local``, [n] f32 on the host): {dtype:
+    [n] f32 on the host}, each twice the rounding bound.
+
+    bf16: each g_r rounds to bf16 (8 significant bits: relative error <=
+    2^-8) and the backend sums in bf16 (at most N - 1 more roundings of
+    partial sums, each <= 2^-8 of sum_r |g_r|), so the mean is off by <=
+    2^-8 sum_r |g_r|; the bound is 2^-7 sum_r |g_r|. int8: rank r's element of chunk c is off by
+    <= scale_rc / 2 = absmax_rc / 254, the f32 sum adds nothing of that
+    order, so the mean is off by <= sum_r absmax_rc / (254 N); the bound is
+    sum_r absmax_rc / (127 N). A dropped rank's share or a scale off by a
+    factor leaves the bound on most elements."""
+    from paddle_tpu_torch.distributed import collective
+
+    n = g_local.numel()
+    chunks = -(-n // DP_GRAD_CHUNK)
+    a = g_local.abs()
+    absmax = torch.nn.functional.pad(a, (0, chunks * DP_GRAD_CHUNK - n)).view(
+        chunks, DP_GRAD_CHUNK).amax(1)
+    sums = []
+    for t in (a, absmax):
+        t = t.cuda()
+        collective.all_reduce(t)
+        sums.append(t.cpu())
+        del t
+    return {"bf16": sums[0] * 2.0 ** -7,
+            "int8": (sums[1] / (127.0 * world)).repeat_interleave(DP_GRAD_CHUNK)[:n]}
+
+
+def dp_worker(out_dir):
+    """One rank of the dp phase (started by the port's spawn): bench.py's step
+    at GPT-2 124M through fleet.init -> fleet.distributed_engine on the
+    global ids [8, 1024], each run of phase_dp's list; writes its results
+    to ``out_dir/rank<r>.json``."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import grad_comm as gcm
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    torch.cuda.set_device(int(os.environ["FLAGS_selected_gpus"]))
+    cfg = GPTConfig()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (8, 1024)).astype(np.int64)).cuda()
+    labels = torch.roll(ids, -1, 1)
+    counters = (gcm.BYTES_MOVED, gcm.RS_BYTES, gcm.AG_BYTES)
+    out, kept = {"world": world, "rank": rank}, {}
+    first = {}  # the first step's reduced mean gradient of a run (host f32)
+    zero_scatter = gcm.zero_scatter
+
+    def zero_scatter_spy(*a, **kw):  # ZeRO's reduced slice, before clip and update
+        g, part = zero_scatter(*a, **kw)
+        if first.get("armed"):
+            first["zero_shard"], first["armed"] = g.cpu(), False
+        return g, part
+
+    gcm.zero_scatter = zero_scatter_spy
+
+    def check_grad(name, dtype):
+        """The first step's reduced gradient of a low-precision run against
+        the f32 run's, element by element, within _payload_bounds."""
+        if "zero_shard" in first:
+            got = first.pop("zero_shard")
+            lo = rank * got.numel()
+            hi = min(bounds["n"], lo + got.numel())
+            got = got[:max(0, hi - lo)]
+        else:
+            got, lo, hi = first.pop("replicated"), 0, bounds["n"]
+        err = (got - kept["f32_grad"][lo:hi]).abs()
+        bnd = bounds[dtype][lo:hi]
+        ratio = err / bnd
+        out[name].update(
+            grad_elems=hi - lo, grad_max_abs_err=float(err.max()),
+            grad_err_over_bound=float(ratio[bnd > 0].max()) if bool((bnd > 0).any()) else 0.0,
+            grad_violations=int((err > bnd).sum()))
+
+    def run(name, engine_of, dtype="f32", ef=False):
+        set_flags({"grad_comm_dtype": dtype, "grad_comm_error_feedback": ef,
+                   "grad_comm_chunk": DP_GRAD_CHUNK, "zero_update": False})
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = GPTForPretraining(cfg, seed=0)
+        opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                    weight_decay=0.01)
+        engine = engine_of(model, opt)
+        c0 = [c.get() for c in counters]
+        _reset_launch_counts()
+        losses, step_ms = [], []
+        first["armed"] = dtype != "f32"
+        with auto_cast(dtype="bfloat16"):
+            for i in range(DP_STEPS):
+                t0 = time.perf_counter()
+                losses.append(engine.step(ids, labels).item())
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0 and name != "plain" and getattr(engine, "_zero_opt", None) is None:
+                    first["replicated"] = _flat_grad(engine.params)
+        first["armed"] = False
+        launches = {"counts": _launch_counts(), "fwd": dict(fa.launches_by_route),
+                    "bwd": _bwd_routes()}
+        out[name] = {
+            "losses": losses, "step_ms": step_ms,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "bytes_per_step": [(c.get() - v) // DP_STEPS for c, v in zip(counters, c0)],
+            "launches": launches, "dtype": dtype,
+            "zero": getattr(engine, "_zero_opt", None) is not None,
+            "n": sum(p.numel() for p in model.parameters())}
+        if name in ("plain", "f32", "zero"):
+            # on the host: no run's peak counts another's
+            kept[name] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        if name == "f32":
+            kept["f32_grad"] = first.pop("replicated")
+        elif dtype != "f32":
+            check_grad(name, dtype)
+        first.clear()
+        del model, opt, engine
+
+    if world == 1:  # the single-GPU engine, before any process group exists
+        from paddle_tpu_torch.distributed import TrainStepEngine
+        run("plain", TrainStepEngine)
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": world, "mp_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy)
+    # this rank's own mean gradient at the first step's weights, on its rows
+    # (the gradient each run's first step hands to its reduce)
+    model = GPTForPretraining(cfg, seed=0)
+    with auto_cast(dtype="bfloat16"):
+        model(ids.chunk(world)[rank], labels.chunk(world)[rank]).backward()
+    g_local = _flat_grad(dict(model.named_parameters()))
+    del model
+    bounds = _payload_bounds(g_local, world)
+    bounds["n"] = g_local.numel()
+
+    def zero_engine(m, o):
+        return fleet.distributed_engine(m, o, zero_update=True)
+
+    run("f32", fleet.distributed_engine)
+    if world == 1 and not torch.equal(kept["f32_grad"], g_local):
+        raise AssertionError("dp world 1: the f32 run's first reduced gradient is not "
+                             "the rank's own gradient bit for bit")
+    del g_local
+    run("zero", zero_engine)
+    for dtype in ("bf16", "int8"):
+        for ef in (False, True):
+            run(f"{dtype}{'_ef' if ef else ''}", fleet.distributed_engine, dtype, ef)
+    run("zero_bf16", zero_engine, "bf16")
+    run("zero_int8_ef", zero_engine, "int8", True)
+    gcm.zero_scatter = zero_scatter
+    for a, b in (("plain", "f32"), ("zero", "f32")):
+        if a in kept:
+            out[f"{a}_vs_{b}_params_equal"] = all(
+                torch.equal(kept[a][n], kept[b][n]) for n in kept[b])
+            out[f"{a}_vs_{b}_max_abs_param_diff"] = max(
+                (kept[a][n] - kept[b][n]).abs().max().item() for n in kept[b])
+    # the f32 payload's all_reduce alone, 2 + 5 calls (CUDA events): its bus
+    # bandwidth, 2 (N - 1) / N x bytes / time, says which links carry it
+    from paddle_tpu_torch.distributed import collective
+
+    payload = torch.ones(out["f32"]["n"] + 1, device=ids.device)
+    for _ in range(2):
+        collective.all_reduce(payload)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        collective.all_reduce(payload)
+    end.record()
+    torch.cuda.synchronize()
+    ar_ms = start.elapsed_time(end) / 5
+    out["all_reduce_f32_payload_ms"] = ar_ms
+    out["all_reduce_busbw_gb_s"] = 2 * (world - 1) / world * payload.numel() * 4 / ar_ms / 1e6
+    del payload
+    out["payload_bytes"] = {d: gcm.payload_bytes(out["f32"]["n"], d, DP_GRAD_CHUNK)
+                            for d in ("f32", "bf16", "int8")}
+    out["zero_payload_bytes"] = {d: list(gcm.zero_payload_bytes(out["f32"]["n"], world, d,
+                                                                DP_GRAD_CHUNK))
+                                 for d in ("f32", "bf16", "int8")}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_dp(world=None):
+    """Data parallelism on the port, at ``world`` ranks (default: one per
+    card), in processes started by the port's ``spawn`` with a deadline of
+    their own (DP_TIMEOUT_S). Each rank runs GPT-2 124M at full width on the
+    global ids [8, 1024] (its 8/N rows), AdamW(1e-4, weight decay 0.01),
+    bf16 auto_cast, DP_STEPS steps a run, through fleet.init ->
+    fleet.distributed_engine: the replicated f32 reduce, ZeRO, the bf16
+    and int8 payloads with and without error feedback, and ZeRO at bf16 and
+    at int8 with error feedback (the all_to_all reduce) (and, at world 1,
+    the single-GPU engine first). Checks on every rank: at world 1 the f32
+    run is the single-GPU engine's bit for bit (losses and every parameter);
+    ZeRO is the replicated run's bit for bit up to 2 ranks and within
+    DP_ZERO_RTOL past them; the low-precision losses are finite, fall, and
+    stay within DP_LOWP_RTOL of the f32 trajectory, and their first step's
+    reduced mean gradient (ZeRO: the rank's slice of it) is the f32 run's
+    within the payload's rounding, element by element (_payload_bounds:
+    twice the bound for bf16 and for int8's chunk scales, from every rank's
+    own gradient); every run launches 12
+    tensor-core launches of each flash kernel a step; the byte counters
+    equal payload_bytes / zero_payload_bytes for the model's n; past one
+    rank ZeRO's peak memory is below the replicated run's by at least
+    DP_ZERO_MEM_SHARE x (1 - 1/N) x 8 x n bytes. Emits one line with step
+    ms, tokens/s per chip, peaks, payload bytes and the f32 payload's
+    all_reduce alone (ms, bus bandwidth) before the checks, and one
+    (dp_checks) after them; returns rank 0's flash launches over the runs
+    {kernel: n}."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed import spawn
+
+    world = world or torch.cuda.device_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        spawn(dp_worker, args=(d,), nprocs=world, timeout=DP_TIMEOUT_S)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    wall = time.perf_counter() - t0
+    lowp = ["bf16", "bf16_ef", "int8", "int8_ef", "zero_bf16", "zero_int8_ef"]
+    runs = ["f32", "zero"] + lowp
+    nl = 12
+    r0 = ranks[0]
+    ms = {name: statistics.median(r0[name]["step_ms"][1:]) for name in runs}
+    emit(phase="dp", model="gpt2-124m", world=world, global_batch=[8, 1024],
+         rows_per_rank=8 // world, steps=DP_STEPS, wall_s=wall,
+         losses={name: r0[name]["losses"] for name in runs + (["plain"] if world == 1
+                                                               else [])},
+         step_ms_median=ms,
+         tokens_per_s_per_chip={name: 8 * 1024 / world / (v / 1e3)
+                                for name, v in ms.items()},
+         peak_bytes_per_rank={name: [res[name]["peak_bytes"] for res in ranks]
+                              for name in runs},
+         n_params=r0["f32"]["n"], payload_bytes=r0["payload_bytes"],
+         zero_payload_bytes_rs_ag=r0["zero_payload_bytes"],
+         first_grad_max_abs_err_vs_f32={name: [res[name]["grad_max_abs_err"] for res in ranks]
+                                        for name in lowp},
+         first_grad_err_over_bound={name: [res[name]["grad_err_over_bound"] for res in ranks]
+                                    for name in lowp},
+         all_reduce_f32_payload_ms=[res["all_reduce_f32_payload_ms"] for res in ranks],
+         all_reduce_busbw_gb_s=[res["all_reduce_busbw_gb_s"] for res in ranks],
+         zero_vs_replicated_max_abs_param_diff=[res["zero_vs_f32_max_abs_param_diff"]
+                                                for res in ranks],
+         lowp_rtol=DP_LOWP_RTOL, zero_rtol=DP_ZERO_RTOL)
+    launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dkdv": 0,
+                "flash_attention_bwd_dq": 0}
+    for res in ranks:
+        r, n = res["rank"], res["f32"]["n"]
+        f32 = res["f32"]["losses"]
+        if world == 1 and not (res["plain"]["losses"] == f32
+                               and res["plain_vs_f32_params_equal"]):
+            raise AssertionError(f"dp world 1: the replicated f32 steps {f32} are not the "
+                                 f"single-GPU engine's {res['plain']['losses']} bit for bit")
+        zl = res["zero"]["losses"]
+        for name in runs:
+            if res[name]["zero"] != name.startswith("zero"):
+                raise AssertionError(f"dp rank {r} {name}: ZeRO engaged: {res[name]['zero']}")
+        if world <= 2:
+            if not (zl == f32 and res["zero_vs_f32_params_equal"]):
+                raise AssertionError(f"dp rank {r}: ZeRO {zl} is not the replicated "
+                                     f"step {f32} bit for bit")
+        elif not np.allclose(zl, f32, rtol=DP_ZERO_RTOL, atol=0):
+            raise AssertionError(f"dp rank {r}: ZeRO {zl} vs replicated {f32}")
+        for name in runs:
+            got = res[name]
+            ls = got["losses"]
+            if not all(math.isfinite(x) for x in ls) or not ls[-1] < ls[0]:
+                raise AssertionError(f"dp rank {r} {name}: losses {ls}")
+            if name in lowp:
+                if not np.allclose(ls, f32, rtol=DP_LOWP_RTOL):
+                    raise AssertionError(f"dp rank {r} {name}: {ls} vs f32 {f32}")
+                if got["grad_violations"] or got["grad_elems"] <= 0:
+                    raise AssertionError(
+                        f"dp rank {r} {name}: {got['grad_violations']} of "
+                        f"{got['grad_elems']} elements of the first reduced gradient "
+                        f"outside the payload's rounding of the f32 run's (worst "
+                        f"{got['grad_err_over_bound']} x the bound)")
+            _check_mma_launches(f"dp rank {r} {name}", got["launches"]["fwd"],
+                                got["launches"]["bwd"], DP_STEPS * nl, DP_STEPS * nl)
+            if r == 0:
+                for k in launches:
+                    launches[k] += got["launches"]["counts"][k]
+            dtype = got["dtype"]
+            want = ([sum(res["zero_payload_bytes"][dtype])] + res["zero_payload_bytes"][dtype]
+                    if got["zero"] else [res["payload_bytes"][dtype], 0, 0])
+            if got["bytes_per_step"] != want:
+                raise AssertionError(f"dp rank {r} {name}: bytes a step "
+                                     f"{got['bytes_per_step']} (moved, rs, ag), "
+                                     f"expected {want} for n = {n}")
+        if world > 1:
+            saved = res["f32"]["peak_bytes"] - res["zero"]["peak_bytes"]
+            need = DP_ZERO_MEM_SHARE * (1 - 1 / world) * 8 * n
+            if not saved >= need:
+                raise AssertionError(f"dp rank {r}: ZeRO saved {saved} bytes of peak "
+                                     f"memory, less than {need}")
+    emit(phase="dp_checks", world=world, passed=True, launches_rank0=launches)
+    return launches
+
+
 def _route_counts():
     """The flash kernels' launches by route: (forward, backward pair)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -924,7 +1266,8 @@ def phase_bench():
     Returns the gpt_1p3b run's launches {kernel: n}."""
     from paddle_tpu_torch import bench
     from paddle_tpu_torch.amp import auto_cast
-    from paddle_tpu_torch.models import GPTForPretraining, gpt_1p3b
+    from paddle_tpu_torch.models import GPTForPretraining
+    from paddle_tpu_torch.tools import bench_gpt_1p3b
 
     med_cfg, batch, seq, steps, warmup = bench.bench_config("medium")
     nl = med_cfg.num_layers
@@ -966,12 +1309,11 @@ def phase_bench():
         raise AssertionError(f"peak memory under full recompute {peaks['full']} is not "
                              f"below the step's without it {peak_none}")
 
-    big = gpt_1p3b()
+    big, b, seq, steps, warmup, kw = bench_gpt_1p3b.case(4)
     if big.hidden_size // big.num_heads != 128:
         raise AssertionError("gpt_1p3b's head dim is not 128")
-    _, n_fwd, n_bwd = _bench_run("gpt_1p3b_recompute_full", big, 4, 2048, 2, 1,
-                                 2 * big.num_layers, big.num_layers, falls=False,
-                                 windows=1, recompute="full")
+    _, n_fwd, n_bwd = _bench_run("gpt_1p3b_recompute_full", big, b, seq, steps, warmup,
+                                 2 * big.num_layers, big.num_layers, falls=False, **kw)
     emit(phase="bench_memory", model_medium_none=peak_none,
          medium_recompute_full=peaks["full"], medium_recompute_selective=peaks["selective"],
          base_microbatches_1=peaks[1], base_microbatches_4=peaks[4],
@@ -1120,13 +1462,15 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
     forward and backward, their time including W's bf16 copy, with the FMA
     kernels at the same inputs and the copy alone timed beside them) and f32
     (the 3xTF32 forward and backward, with the FMA kernels at the same
-    inputs timed beside them); checked only: GPT-2's own vocabulary 50257 (a
-    ragged last vocab tile) in f32 and at bf16 h with an f32 and a bf16 W,
-    labels of -100 (their rows' loss is the logsumexp), and every label -100
-    (dh and dW the softmax term alone, so that max|ref| scales with it),
-    each at bf16 h and at f32, and f32 at gpt_345m's hidden 1024 (the
-    3xTF32 forward, which streams the hidden dim and takes any H; the FMA
-    backward past H = 768). The forward takes the bf16 tensor cores at bf16
+    inputs timed beside them), and f32 at gpt_345m's hidden 1024, h [8192,
+    1024], W [50304, 1024] (the 3xTF32 forward, which streams the hidden dim
+    and takes any H; the FMA backward, the route past H = 768); checked
+    only: GPT-2's own vocabulary 50257 (a ragged last vocab tile) in f32 and
+    at bf16 h with an f32 and a bf16 W, labels of -100 (their rows' loss is
+    the logsumexp), and every label -100 (dh and dW the softmax term alone,
+    so that max|ref| scales with it), each at bf16 h and at f32. Each timed
+    record carries the launches of its checked call (``check_launches``).
+    The forward takes the bf16 tensor cores at bf16
     h, the 3xTF32 kernel at f32; its loss and lse are held at F32_TOL x
     max(1, max|ref|) at bf16 h (exact products summed in f32) and F32_TOL at
     f32. The f32 dh and dW are also held to GRAD_F32_FROB_TOL in relative
@@ -1162,7 +1506,7 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
         ("all_minus100_bf16_h_f32_w", h32.bfloat16(), w32, all_minus100, False),
         ("vocab50257_bf16_h_bf16_w", h32.bfloat16(), w50257.bfloat16(), labels % 50257,
          False),
-        ("h1024_f32", h1024, w1024, labels, False),
+        ("h1024_f32", h1024, w1024, labels, True),
     ]
     out = {}
     for name, hh, w, lab, timed in cases:
@@ -1286,7 +1630,9 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
                     case=name, shape=[n, v, h], dtype=f"h {str(dt)[6:]}, W {str(w.dtype)[6:]}",
                     max_abs_err=err, tol=tol, kernel_ms=kernel_ms,
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, tflops=flops / kernel_ms / 1e9, **extra[kernel])
+                    bound_by=bound_by, tflops=flops / kernel_ms / 1e9,
+                    check_launches=sum(moved[r][kernel[len("lm_loss_"):]] for r in moved),
+                    **extra[kernel])
                 emit(phase="kernel_vs_plain", kernel=kernel, **recs[kernel],
                      plain="lm_loss_bwd_plain (dh, dw)" if kernel != "lm_loss_fwd"
                      else "lm_loss_fwd_plain",
@@ -1487,6 +1833,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_vs_cpu()
     torch.cuda.empty_cache()
+    dp_launches = phase_dp()
     bench_launches = phase_bench()
 
     ln_recs = phase_layer_norm_kernels()
@@ -1504,13 +1851,13 @@ def main() -> int:
     # tensor-core forward and backward)
     pallas = "paddle_tpu/ops/pallas/"
     rows = [  # (name, path, record, source, replaces)
-        ("flash_attention_fwd", "train", fwd["slice_bf16_causal"],
+        ("flash_attention_fwd", "train, dp", fwd["slice_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_fwd_f32", "score, train_f32", fwd["slice_f32_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_bwd_dkdv", "train", bwd["train_bf16_causal"]["dkdv"],
+        ("flash_attention_bwd_dkdv", "train, dp", bwd["train_bf16_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq", "train", bwd["train_bf16_causal"]["dq"],
+        ("flash_attention_bwd_dq", "train, dp", bwd["train_bf16_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
         ("flash_attention_bwd_dkdv_f32", "train_f32", bwd["train_f32_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
@@ -1540,12 +1887,16 @@ def main() -> int:
          "lm_loss.cu", pallas + "lm_loss.py:261"),
         ("lm_loss_dw_f32", "library_ops", lm_recs["f32"]["lm_loss_dw"],
          "lm_loss.cu", pallas + "lm_loss.py:279"),
+        ("lm_loss_dh_f32_h1024", "lm_loss_kernels h1024_f32", lm_recs["h1024_f32"]["lm_loss_dh"],
+         "lm_loss.cu", pallas + "lm_loss.py:261"),
+        ("lm_loss_dw_f32_h1024", "lm_loss_kernels h1024_f32", lm_recs["h1024_f32"]["lm_loss_dw"],
+         "lm_loss.cu", pallas + "lm_loss.py:279"),
     ]
     # LayerNorm from the f32 pass; the LM loss's bf16 tensor-core forward
     # and backward from the bf16 pass, its f32-h forward and backward
     # (3xTF32) from the f32 pass
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
-    counts = {**launches, **bench_launches,
+    counts = {**{k: launches[k] + dp_launches[k] for k in launches}, **bench_launches,
               "flash_attention_fwd_f32": score_launches
               + f32_launches["flash_attention_fwd"],
               "flash_attention_bwd_dkdv_f32": f32_launches["flash_attention_bwd_dkdv"],
@@ -1557,7 +1908,9 @@ def main() -> int:
               "lm_loss_dh": lib_bf16["lm_loss_dh_mma"],
               "lm_loss_dw": lib_bf16["lm_loss_dw_mma"],
               "lm_loss_dh_f32": lib_f32["lm_loss_dh_tf32x3"],
-              "lm_loss_dw_f32": lib_f32["lm_loss_dw_tf32x3"]}
+              "lm_loss_dw_f32": lib_f32["lm_loss_dw_tf32x3"],
+              **{f"{k}_f32_h1024": lm_recs["h1024_f32"][k]["check_launches"]
+                 for k in ("lm_loss_dh", "lm_loss_dw")}}
     kernels = []
     for name, path, rec, src, replaces in rows:
         kernels.append({

@@ -1,9 +1,10 @@
 """Training benchmark of the port (counterpart of the repository's bench.py):
-GPT causal-LM training throughput on one card.
+GPT causal-LM training throughput per card.
 
     python -m paddle_tpu_torch.bench                                # base, on the card
     PADDLE_TPU_BENCH_MODEL=medium python -m paddle_tpu_torch.bench
     PADDLE_TPU_BENCH_DEVICE=cpu python -m paddle_tpu_torch.bench   # gpt_tiny, plain path
+    python -m paddle_tpu_torch.distributed.launch --nproc_per_node 4 -m paddle_tpu_torch.bench
 
 Prints ONE JSON line, bench.py's: {"metric":
 "gpt_pretrain_tokens_per_sec_per_chip", "value": N, "unit": "tokens/s/chip",
@@ -16,6 +17,21 @@ loss, MFU against the H100's dense bf16 peak (bench.py's accounting,
 observability/flops.py), the peak memory allocated, the decode tokens/s of
 ``generate`` (``PADDLE_TPU_BENCH_DECODE=1``), and the card's name and power
 limit.
+
+Under the launcher (``PADDLE_TRAINERS_NUM`` set) the run is bench.py's
+data-parallel one: every rank joins the group through ``fleet.init`` with
+``dp_degree`` = the world size, builds the engine with
+``fleet.distributed_engine``, rounds the global batch to a multiple of the
+world as bench.py does, and steps on the global batch (each rank takes its
+rows). ``value`` is then the global tokens/s divided by the world size,
+``devices`` the world size, the timing windows stay global tokens/s (as
+bench.py's), MFU stays per card, ``max_memory_allocated_bytes``
+is the largest over the ranks (each rank's in ``..._per_rank``), and
+``grad_comm`` gives the payload, ZeRO and the bytes a rank hands the
+gradient collectives a step. ``FLAGS_grad_comm_dtype``,
+``FLAGS_grad_comm_error_feedback``, ``FLAGS_grad_comm_chunk`` and
+``FLAGS_zero_update`` reach it through the environment. Only rank 0 prints,
+and decodes.
 
 The environment knobs are bench.py's: ``PADDLE_TPU_BENCH_MODEL`` (base or
 medium), ``_BATCH``, ``_STEPS``, ``_SEQ``, ``_WINDOWS``, ``_RECOMPUTE``
@@ -39,7 +55,8 @@ import torch
 
 from .amp import auto_cast
 from .device import resolve_device
-from .distributed import TrainStepEngine
+from .distributed import TrainStepEngine, collective, fleet
+from .distributed import grad_comm as _gc
 from .models import GPTConfig, GPTForPretraining, gpt_tiny
 from .observability import peak_flops_per_sec, transformer_flops_per_token
 from .optimizer import AdamW
@@ -106,15 +123,26 @@ def card_name_and_power_limit():
 
 
 def run(cfg, batch, seq, steps, warmup, *, windows=3, recompute=None, accum=1,
-        decode=False, device=None):
+        decode=False, device=None, dp=False):
     """bench.py's run on the port: returns the payload of its JSON line.
 
     cfg: a GPTConfig (copied; its max_seq_len follows seq). recompute: None,
     "full" or "selective". accum: microbatches a step. decode: also time
     greedy ``generate`` of 64 tokens after a prompt of up to 128. device:
-    None (the card; raises without one) or "cpu" (f32, no MFU)."""
+    None (the card; raises without one) or "cpu" (f32, no MFU). dp: the
+    data-parallel run over the launcher's ranks (module docstring)."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
+    n_dev, rank = 1, 0
+    if dp:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": -1, "mp_degree": 1}
+        fleet.init(is_collective=True, strategy=strategy, device=device)
+        n_dev, rank = fleet.worker_num(), fleet.worker_index()
+        if on_card:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if batch % n_dev:  # the batch dim shards over dp_degree = n_dev
+            batch = max(n_dev, batch - batch % n_dev)
     cfg = copy.copy(cfg)
     if seq != cfg.max_seq_len:
         cfg.max_seq_len = seq
@@ -126,10 +154,12 @@ def run(cfg, batch, seq, steps, warmup, *, windows=3, recompute=None, accum=1,
 
     model = GPTForPretraining(cfg, device=dev, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    engine = TrainStepEngine(model, AdamW(learning_rate=1e-4,
-                                          parameters=model.named_parameters(),
-                                          weight_decay=0.01))
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                weight_decay=0.01)
+    engine = (fleet.distributed_engine(model, opt) if dp
+              else TrainStepEngine(model, opt))
     k = engine.microbatches = max(1, int(accum))
+    bytes0 = _gc.BYTES_MOVED.get()
     t_ids, t_labels = (torch.from_numpy(a).to(dev) for a in (ids, labels))
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -150,11 +180,22 @@ def run(cfg, batch, seq, steps, warmup, *, windows=3, recompute=None, accum=1,
             final_loss = float(loss.item())   # the device read ends the window
             window_dts.append((time.perf_counter() - tw, wn))
         dt = time.perf_counter() - t0
-    peak_bytes = torch.cuda.max_memory_allocated(dev) if on_card else None
+    comm = None
+    if dp:
+        comm = {"dtype": _gc.comm_dtype(), "error_feedback": _gc.error_feedback(),
+                "zero_update": engine._zero_opt is not None,
+                "bytes_per_step": (_gc.BYTES_MOVED.get() - bytes0) // (warmup + steps)}
+    peak_bytes = peaks = None
+    if on_card:
+        peak_bytes = torch.cuda.max_memory_allocated(dev)
+        if dp:
+            peaks = [int(t.item()) for t in collective.all_gather(
+                None, torch.tensor([peak_bytes], dtype=torch.int64, device=dev))]
+            peak_bytes = max(peaks)
     del engine, model, loss
 
     decode_tps = None
-    if decode:
+    if decode and rank == 0:
         dm = GPTForPretraining(cfg, device=dev, seed=0).eval()
         n_new = 64
         p_len = max(1, min(128, cfg.max_seq_len - n_new))
@@ -168,7 +209,7 @@ def run(cfg, batch, seq, steps, warmup, *, windows=3, recompute=None, accum=1,
         decode_tps = round(batch * n_new / (time.perf_counter() - t0), 1)
         del dm, out
 
-    tokens_per_sec = steps * batch * seq / dt
+    tokens_per_sec = steps * batch * seq / dt / n_dev   # per card
     name = torch.cuda.get_device_name(dev) if on_card else "cpu"
     # MFU with bench.py's accounting (PaLM appendix B: 6N + 12*L*h*s model
     # FLOPs a token; no recompute) against the H100's dense bf16 peak
@@ -190,12 +231,14 @@ def run(cfg, batch, seq, steps, warmup, *, windows=3, recompute=None, accum=1,
             "first_loss": round(first_loss, 4) if first_loss is not None else None,
             "final_loss": round(final_loss, 4),
             "timing": _window_stats(window_dts, batch, seq),
-            "platform": "gpu" if on_card else "cpu", "device": name, "devices": 1,
+            "platform": "gpu" if on_card else "cpu", "device": name, "devices": n_dev,
             "card": card_name_and_power_limit() if on_card else None,
             "amp": "bfloat16 O1" if on_card else None,
             "mfu_vs_h100_bf16_peak": round(mfu, 4) if mfu else None,
             "mfu_param_flops_only": round(mfu_param, 4) if mfu_param else None,
             "max_memory_allocated_bytes": peak_bytes,
+            "max_memory_allocated_bytes_per_rank": peaks,
+            "grad_comm": comm,
             "decode_tokens_per_sec": decode_tps,
             "recompute": recompute,
             "microbatches": k if k > 1 else None,
@@ -228,8 +271,10 @@ def main():
                   windows=int(env.get("PADDLE_TPU_BENCH_WINDOWS", "3")),
                   recompute=recompute,
                   accum=int(env.get("PADDLE_TPU_BENCH_ACCUM", "0") or 0),
-                  decode=env.get("PADDLE_TPU_BENCH_DECODE") == "1", device=device)
-    print(json.dumps(payload), flush=True)
+                  decode=env.get("PADDLE_TPU_BENCH_DECODE") == "1", device=device,
+                  dp="PADDLE_TRAINERS_NUM" in env)
+    if fleet.worker_index() == 0:
+        print(json.dumps(payload), flush=True)
 
 
 if __name__ == "__main__":

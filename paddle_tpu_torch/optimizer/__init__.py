@@ -80,14 +80,17 @@ class Optimizer:
     @torch.no_grad()
     def _apply(self, params, grads, lr_val, step):
         """Run the rule over name -> tensor dicts; parameters and state are
-        written in place."""
-        update = funct.make_tree_update(self, list(params))
-        state = {n: self._state(n, p) for n, p in params.items()}
-        new_params, new_state = update(params, grads, state, lr_val, step)
+        written in place, one parameter at a time (its new values are copied
+        before the next parameter's are made, so the rule's temporaries are
+        one parameter's, not the model's)."""
+        update = funct.make_param_update(self)
         for n, p in params.items():
-            p.copy_(new_params[n])
-            for old, new in zip(state[n], new_state[n]):
+            state = self._state(n, p)
+            new_p, new_state = update(n, p, grads[n], state, lr_val, step)
+            p.copy_(new_p)
+            for old, new in zip(state, new_state):
                 old.copy_(new)
+            del new_p, new_state
 
     @torch.no_grad()
     def step(self):
@@ -109,10 +112,14 @@ class Optimizer:
             p.grad = None
 
     # ---- checkpoint (the JAX package's keys) ----
-    def state_dict(self):
+    def state_dict(self, states=None):
+        """The JAX package's keys. ``states`` (name -> state tuple) replaces
+        the optimizer's own: the engine passes the state it gathered from
+        ZeRO's flat shards."""
+        states = self._states if states is None else states
         out = {"_step_count": self._step_count}
         for i, n in enumerate(self._param_names):
-            for j, s in enumerate(self._states.get(n, ())):
+            for j, s in enumerate(states.get(n, ())):
                 out[f"param{i}_state{j}"] = s
         if isinstance(self._learning_rate, LRScheduler):
             out["LR_Scheduler"] = self._learning_rate.state_dict()

@@ -5,8 +5,9 @@ One function per rule, ``rule(param, grad, state, *, lr, ...) -> (new_param,
 new_state)``, with the JAX package's arithmetic: grads and params widened to
 f32, state kept in f32 for any param dtype (master moments), the same bias
 correction ``1 - beta**step``, the result cast back to the param's dtype.
-The rules allocate their results; ``distributed/engine.py`` and
-``Optimizer.step`` copy them into the parameters and state in place.
+The rules allocate their results; ``Optimizer._apply`` (one parameter at a
+time) and ZeRO's flat update (``make_flat_update``, one block at a time)
+copy them into the parameters and state in place.
 """
 from __future__ import annotations
 
@@ -90,21 +91,41 @@ RULES = {"sgd": sgd, "momentum": momentum, "adam": adam, "adamw": adamw}
 _NEEDS_STEP = {"adam", "adamw"}
 
 
-def make_tree_update(optimizer, names):
-    """update(params, grads, opt_state, lr, step) -> (new_params, new_opt) over
-    name -> tensor dicts, with the optimizer's per-parameter rule kwargs
-    (weight-decay exclusion through ``apply_decay_param_fun``)."""
+def make_param_update(optimizer):
+    """update(name, param, grad, state, lr, step) -> (new_param, new_state):
+    the optimizer's rule with parameter ``name``'s kwargs (weight-decay
+    exclusion through ``apply_decay_param_fun``)."""
     rule = RULES[optimizer._rule]
     needs_step = optimizer._rule in _NEEDS_STEP
-    kwargs_by_name = {n: optimizer._rule_kwargs(n) for n in names}
 
-    def update(params, grads, opt_state, lr, step):
-        new_params, new_opt = {}, {}
-        for n, p in params.items():
-            kw = dict(kwargs_by_name[n])
-            if needs_step:
-                kw["step"] = step
-            new_params[n], new_opt[n] = rule(p, grads[n], opt_state[n], lr=lr, **kw)
-        return new_params, new_opt
+    def update(name, param, grad, state, lr, step):
+        kw = optimizer._rule_kwargs(name)
+        if needs_step:
+            kw["step"] = step
+        return rule(param, grad, state, lr=lr, **kw)
+
+    return update
+
+
+def make_flat_update(optimizer, name, block=1 << 24):
+    """The ZeRO twin of ``make_param_update`` (the JAX engine's
+    ``_make_flat_update``): ONE uniform rule, with parameter ``name``'s
+    kwargs, over flat f32 ``[shard]`` vectors, written in place.
+
+    update(p_shard, g_shard, state_shards, lr, step) runs the rule on
+    ``block`` elements at a time (elementwise, so the blocks change no
+    result and bound the temporaries). The engine engages it only when every
+    parameter's kwargs equal ``name``'s; pad slots (zero parameter, gradient
+    and state) stay zero under every rule."""
+    param_update = make_param_update(optimizer)
+
+    def update(p_shard, g_shard, state_shards, lr, step):
+        for lo in range(0, p_shard.shape[0], block):
+            sl = slice(lo, lo + block)
+            new_p, new_state = param_update(name, p_shard[sl], g_shard[sl],
+                                            tuple(s[sl] for s in state_shards), lr, step)
+            p_shard[sl].copy_(new_p)
+            for s, ns in zip(state_shards, new_state):
+                s[sl].copy_(ns)
 
     return update

@@ -1276,3 +1276,56 @@ def test_two_microbatches_match_the_plain_step_on_the_card(cuda):
     for name, ref in out[0][2].items():
         tol = 1e-4 * max(1.0, ref.abs().max().item())
         assert (out[1][2][name] - ref).abs().max().item() <= tol, name
+
+
+def _dp_ranks(world, out_dir):
+    """tests/torch_dp_workers.py's cuda_dp_case in ``world`` ranks on NCCL
+    (one card each; NCCL refuses two ranks on one card)."""
+    import torch_dp_workers as W
+    from paddle_tpu_torch.distributed import spawn
+
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards")
+    spawn(W.cuda_dp_case, args=(str(out_dir),), nprocs=world, timeout=300)
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _same_run(a, b):
+    return a["losses"] == b["losses"] and all(
+        torch.equal(a["params"][n], p) for n, p in b["params"].items())
+
+
+def _check_low_precision(res):
+    for name in ("bf16", "bf16_ef", "int8", "int8_ef"):
+        ls = res[name]["losses"]
+        assert ls[-1] < ls[0], name
+        np.testing.assert_allclose(ls, res["f32"]["losses"], rtol=2e-2, err_msg=name)
+
+
+def test_dp_one_rank_on_nccl_is_the_single_gpu_engine_bit_for_bit(cuda, tmp_path):
+    (res,) = _dp_ranks(1, tmp_path)
+    assert _same_run(res["f32"], res["plain"])
+    assert _same_run(res["zero"], res["f32"])
+    _check_low_precision(res)
+
+
+def test_dp_two_ranks_on_nccl(cuda, tmp_path):
+    """At 2 ranks a + b is one sum in any order: ZeRO is the replicated
+    step bit for bit; every rank ends with the same weights."""
+    ranks = _dp_ranks(2, tmp_path)
+    for res in ranks:
+        assert _same_run(res["zero"], res["f32"])
+        _check_low_precision(res)
+    for name in ranks[0]:
+        assert _same_run(ranks[1][name], ranks[0][name]), name
+
+
+def test_dp_four_ranks_on_nccl(cuda, tmp_path):
+    """Past 2 ranks NCCL may sum the all_reduce and the reduce_scatter in
+    other orders: ZeRO's losses within 1e-5 of the replicated ones."""
+    ranks = _dp_ranks(4, tmp_path)
+    for res in ranks:
+        np.testing.assert_allclose(res["zero"]["losses"], res["f32"]["losses"], rtol=1e-5)
+        _check_low_precision(res)
+    for name in ranks[0]:
+        assert ranks[1][name]["losses"] == ranks[0][name]["losses"], name
