@@ -8,7 +8,9 @@ are built from the checkout's sources at first use. Phases, one JSON line
 each:
 
 1. environment: the card (nvidia-smi's name and power limit), torch and
-   CUDA versions, then the kernel build time and ptxas's report.
+   CUDA versions, then the kernel build time and ptxas's report (registers
+   and spills of every LM-loss backward instance by name; a spill in a
+   tensor-core one fails).
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and a few edge cases, with kernel, plain, bound and
    library (yardstick only) times: the flash forward (bf16 on the bf16
@@ -70,14 +72,15 @@ each:
    six kernels against its plain version at GPT-2 124M's shapes (LayerNorm
    [8192, 768] f32 and bf16; LM loss h [8192, 768], W [50304, 768], bf16 h
    with an f32 W and f32, plus vocab 50257, a bf16 W and labels of -100,
-   at both dtypes of h, and f32 at gpt_345m's hidden 1024), with kernel,
-   plain, bound and library times. The LM-loss routes: bf16 h takes the
-   bf16 tensor-core forward and backward (their times include the bf16
-   copy of the f32 W, timed beside them); f32 h the 3xTF32 tensor-core
-   forward and backward (f32 accuracy; the gradients held also in relative
-   Frobenius norm), past H = 768 the FMA backward; the FMA kernels are
-   checked and timed beside every tensor-core one as the redesign's
-   predecessors. Then the
+   at both dtypes of h; f32 at gpt_345m's hidden 1024 and at 2048, and bf16
+   h at gpt_1p3b's 2048), with kernel, plain, bound and library times. The
+   LM-loss routes: bf16 h takes the bf16 tensor-core forward and backward
+   (their times include the bf16 copy of the f32 W, timed beside them); f32
+   h the 3xTF32 tensor-core forward and backward (f32 accuracy; the
+   gradients held also in relative Frobenius norm); past the one-CTA tiles
+   (f32 H > 768, bf16 H > 1536) the backwards split the hidden dim across a
+   thread-block cluster; the FMA kernels are checked and timed beside every
+   tensor-core one as the redesign's predecessors. Then the
    composition they exist for: the 124M model's hidden state before ln_f
    through the kernel LayerNorm and the kernel LM loss with the tied
    embedding, in f32 (loss and the gradients of wte and ln_f against the
@@ -232,9 +235,30 @@ def phase_env():
     report = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                      if "registers" in ln or "spill" in ln]
               for name in per_source}
+    grads = {_instance_name(k): r for k, r in _build.ptxas_report("lm_loss").items()
+             if "lm_grad_" in k}
     emit(phase="build", seconds=time.perf_counter() - t0, per_source=per_source,
-         ptxas=report)
+         ptxas=report, lm_grad_ptxas=grads)
+    spilled = [k for k, r in grads.items() if "lm_grad_kernel" not in k
+               and (r.get("spill_stores") or r.get("spill_loads"))]
+    if spilled:
+        raise AssertionError(f"tensor-core LM-loss backward instances spill: {spilled}")
     return per_source
+
+
+def _instance_name(mangled):
+    """A kernel template instance's mangled name made readable enough to
+    tell the LM-loss backward's instances apart: lm_grad_tf32_kernel<DW,
+    TO, HC, CLUSTER> and lm_grad_mma_kernel<DW, TO, HC, ST, CLUSTER>."""
+    import re
+
+    m = re.search(r"\d+(lm_grad_\w+?_kernel|lm_grad_kernel)I(.*)EEv", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Lb([01])E|Li(\d+)E|(f)|13__nv_bfloat16", m.group(2))
+    names = [("true" if b == "1" else "false") if b else i or ("float" if f else "bf16")
+             for b, i, f in args]
+    return f"{m.group(1)}<{', '.join(names)}>"
 
 
 def _f32_tol(ref):
@@ -1468,8 +1492,14 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
     only: GPT-2's own vocabulary 50257 (a ragged last vocab tile) in f32 and
     at bf16 h with an f32 and a bf16 W, labels of -100 (their rows' loss is
     the logsumexp), and every label -100 (dh and dW the softmax term alone,
-    so that max|ref| scales with it), each at bf16 h and at f32. Each timed
-    record carries the launches of its checked call (``check_launches``).
+    so that max|ref| scales with it), each at bf16 h and at f32. Past the
+    one-CTA tiles the backward splits the hidden dim across a thread-block
+    cluster: timed at gpt_345m's f32 head (h1024_f32) and gpt_1p3b's bf16
+    one, h [8192, 2048] bf16 with W [50304, 2048] f32
+    (h2048_bf16_h_f32_w), checked at f32 H = 2048 (h2048_f32). Each timed
+    record carries the launches of its checked call (``check_launches``)
+    and the backward's plan (its cluster) and kernel instance; a cluster
+    route slower than its FMA predecessor fails.
     The forward takes the bf16 tensor cores at bf16
     h, the 3xTF32 kernel at f32; its loss and lse are held at F32_TOL x
     max(1, max|ref|) at bf16 h (exact products summed in f32) and F32_TOL at
@@ -1495,6 +1525,8 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
     w50257 = w32[:50257].contiguous()
     w1024 = torch.randn(vocab, 1024, device="cuda", generator=gen) * 0.02
     h1024 = torch.randn(n, 1024, device="cuda", generator=gen)
+    w2048 = torch.randn(vocab, 2048, device="cuda", generator=gen) * 0.02
+    h2048 = torch.randn(n, 2048, device="cuda", generator=gen)
     cases = [  # (name, h, W, labels, timed)
         ("bf16_h_f32_w", h32.bfloat16(), w32, labels, True),
         ("f32", h32, w32, labels, True),
@@ -1507,13 +1539,16 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
         ("vocab50257_bf16_h_bf16_w", h32.bfloat16(), w50257.bfloat16(), labels % 50257,
          False),
         ("h1024_f32", h1024, w1024, labels, True),
+        ("h2048_bf16_h_f32_w", h2048.bfloat16(), w2048, labels, True),
+        ("h2048_f32", h2048, w2048, labels, False),
     ]
     out = {}
     for name, hh, w, lab, timed in cases:
         dt = hh.dtype
         f32 = dt == torch.float32
         hid = hh.shape[1]
-        route = lm.backward_plan(dt, hid).route
+        plan = lm.backward_plan(dt, hid)
+        route = plan.route
         fwd_route = lm.forward_route(dt)
         before = {k: dict(c) for k, c in lm.launches_by_route.items()}
         loss, lse = lm.lm_loss_fwd(hh, w, lab)
@@ -1601,9 +1636,10 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
                                frob_dw, plain_bwd_ms, lib_bwd_ms, 4,
                                hb + wb + 4 * v * h + 12 * n),
             }
+            bwd = {"kernel_route": route, "plan": plan._asdict(),
+                   "instance": _lm_grad_instance(plan)}
             extra = {"lm_loss_fwd": {"kernel_route": fwd_route},
-                     "lm_loss_dh": {"kernel_route": route},
-                     "lm_loss_dw": {"kernel_route": route}}
+                     "lm_loss_dh": dict(bwd), "lm_loss_dw": dict(bwd)}
             if fma:
                 # the FMA kernels timed beside the tensor-core ones, and the W
                 # cast that the bf16 tensor-core calls include
@@ -1626,6 +1662,11 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
                 if frob is not None:
                     extra[kernel].update(rel_frob=frob, frob_tol=GRAD_F32_FROB_TOL)
                 kernel_ms = cuda_ms(fn, iters=5, warmup=1)
+                if (kernel != "lm_loss_fwd" and plan.cluster > 1
+                        and not kernel_ms < extra[kernel]["fma_kernel_ms"]):
+                    raise AssertionError(f"lm_loss {name} {kernel}: the cluster route took "
+                                         f"{kernel_ms} ms, its FMA predecessor "
+                                         f"{extra[kernel]['fma_kernel_ms']} ms")
                 recs[kernel] = dict(
                     case=name, shape=[n, v, h], dtype=f"h {str(dt)[6:]}, W {str(w.dtype)[6:]}",
                     max_abs_err=err, tol=tol, kernel_ms=kernel_ms,
@@ -1642,6 +1683,7 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
         else:
             emit(phase="kernel_vs_plain", kernel="lm_loss (fwd, dh, dw)", case=name,
                  shape=[n, w.shape[0], hid], routes=[fwd_route, route],
+                 instance=_lm_grad_instance(plan),
                  max_abs_err=[err_f, err_dh, err_dw], tol=[tol_f, tol_dh, tol_dw],
                  rel_frob=[frob_dh, frob_dw] if f32 else None,
                  fma_max_abs_err={k: fma_err[k] for k in fma} if fma else None,
@@ -1651,6 +1693,16 @@ def phase_lm_loss_kernels(ids, vocab=50304, h=768):
         del loss, lse, dh, dw, ploss, plse, pdh, pdw
         torch.cuda.empty_cache()
     return out
+
+
+def _lm_grad_instance(plan):
+    """The LM-loss backward's kernel instance that ``plan`` launches."""
+    if plan.route == "fma":
+        return "lm_grad_kernel"
+    name = "lm_grad_tf32_kernel" if plan.route == "tf32x3" else "lm_grad_mma_kernel"
+    return (f"{name}, HC {plan.hc}, {plan.stages} other buffers, "
+            + (f"a cluster of {plan.cluster} CTAs, slices of {plan.chunk} columns"
+               if plan.cluster > 1 else f"chunks of {plan.chunk} columns"))
 
 
 def _library_counts():
@@ -1891,6 +1943,10 @@ def main() -> int:
          "lm_loss.cu", pallas + "lm_loss.py:261"),
         ("lm_loss_dw_f32_h1024", "lm_loss_kernels h1024_f32", lm_recs["h1024_f32"]["lm_loss_dw"],
          "lm_loss.cu", pallas + "lm_loss.py:279"),
+        ("lm_loss_dh_bf16_h2048", "lm_loss_kernels h2048_bf16_h_f32_w",
+         lm_recs["h2048_bf16_h_f32_w"]["lm_loss_dh"], "lm_loss.cu", pallas + "lm_loss.py:261"),
+        ("lm_loss_dw_bf16_h2048", "lm_loss_kernels h2048_bf16_h_f32_w",
+         lm_recs["h2048_bf16_h_f32_w"]["lm_loss_dw"], "lm_loss.cu", pallas + "lm_loss.py:279"),
     ]
     # LayerNorm from the f32 pass; the LM loss's bf16 tensor-core forward
     # and backward from the bf16 pass, its f32-h forward and backward
@@ -1910,6 +1966,8 @@ def main() -> int:
               "lm_loss_dh_f32": lib_f32["lm_loss_dh_tf32x3"],
               "lm_loss_dw_f32": lib_f32["lm_loss_dw_tf32x3"],
               **{f"{k}_f32_h1024": lm_recs["h1024_f32"][k]["check_launches"]
+                 for k in ("lm_loss_dh", "lm_loss_dw")},
+              **{f"{k}_bf16_h2048": lm_recs["h2048_bf16_h_f32_w"][k]["check_launches"]
                  for k in ("lm_loss_dh", "lm_loss_dw")}}
     kernels = []
     for name, path, rec, src, replaces in rows:
@@ -1926,7 +1984,7 @@ def main() -> int:
             "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
-            **({"kernel_route": rec["kernel_route"]} if "kernel_route" in rec else {}),
+            **{k: rec[k] for k in ("kernel_route", "instance") if k in rec},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

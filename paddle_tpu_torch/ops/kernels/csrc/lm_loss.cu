@@ -42,9 +42,10 @@
 //   units, so its floor is the FP32 one; what it does about the bound: S,
 //   p and dl never leave the chip, each staged tile is reused by 32 or 128
 //   rows, the forward splits the vocab so that ~1000 CTAs fill 132 SMs.
-//   The FMA backward stays the route for f32 h past H = 768 and for bf16 h
-//   past 1536 (bit for bit as it was); the FMA forward is the predecessor of
-//   both tensor-core forwards, timed beside them, and no route takes it.
+//   The FMA backward is the tensor-core backwards' predecessor, and the
+//   route only past their cluster limit (H > 6144, bit for bit as it was);
+//   the FMA forward is the predecessor of both tensor-core forwards, timed
+//   beside them, and no route takes it.
 //
 // The tensor-core backward (lm_grad_mma_kernel, the route for bf16 h): dh
 // and dW again as one template with the roles swapped, now with both
@@ -84,7 +85,9 @@
 //   <= 768 columns over gridDim.y, each chunk recomputing S over the full
 //   H (which stays in shared memory); above H = 1024 the two other tiles no
 //   longer fit beside the own tile and the tile is single-buffered (the
-//   plan in lm_loss.py picks it; H <= 1536). Rows are padded by 16 bytes
+//   plan in lm_loss.py picks it; H <= 1536). Past H = 1536 the own tile
+//   does not fit at all, and the hidden dim splits across a cluster (the
+//   cluster route below). Rows are padded by 16 bytes
 //   (not swizzled): a row of H bf16 is a multiple of 256 bytes, so without
 //   the pad the 8 rows of an ldmatrix all start in one bank; with it they
 //   start 4 banks apart. No atomics and a fixed summation order: two calls
@@ -112,7 +115,8 @@
 //   through a cp.async double buffer (2 x 49,408 bytes; one single-buffered
 //   32-row tile was 3% slower), copied by rows and lanes: mma_sync.cuh's
 //   stage_rows divides by the row width for each 16-byte piece, 8% of the
-//   time here. Past H = 768 nothing fits and f32 h stays on the FMA kernel.
+//   time here. Past H = 768 nothing fits, and the hidden dim splits across
+//   a cluster (below).
 //   The TF32 mma.sync pipe takes ~7.7 cycles a product (the marginal cost
 //   of a pass, PERF.md), so three passes alone take ~16 ms. S = own .
 //   other^T is split over the hidden dim in eighths, one a warp, so that
@@ -131,6 +135,46 @@
 //   running sums in f32. No atomics and a fixed order: two calls give the
 //   same bits.
 //
+// The cluster route of both tensor-core backwards (the CLUSTER instances:
+// f32 h past H = 768, bf16 h past 1536, up to H = 6144): a thread-block
+// cluster of c CTAs on c SMs shares one 32-row own tile, split along the
+// hidden dim. Rank r holds the own tile's columns [r * chunk, + chunk)
+// resident, streams the same columns of each other tile, computes its
+// partial S over them, and accumulates only those columns of the gradient
+// from the other slice it already holds. chunk = ceil(units / c) x 128
+// (units = H / 128; the last slice may be narrower), so the one-CTA
+// kernels' tiles, accumulator instances and stagers serve as they are.
+//   The partial S meet through distributed shared memory (mma_sync.cuh):
+// each CTA sums its warps' partials as before and writes the [32, 16|32]
+// result to a slot of its shared memory; after a cluster barrier every CTA
+// reads that slot of every rank and adds them in f32 in rank order
+// 0..c-1, so that all get the same S and dl (two calls give the same bits;
+// no atomics). Slots alternate between two buffers, so one barrier a tile
+// orders a rank's reads of tile t before its peers write tile t + 2, and a
+// last arrive / wait keeps a CTA's shared memory until its peers are done.
+// Nothing is recomputed: gridDim.y's chunks recompute S over the full H for
+// each chunk, the cluster's ranks compute it once between them.
+//   Pipelined (ST 3): with a ring of three other tiles, a CTA arrives at
+// the barrier once tile t's partial S is in its slot and waits a half tile
+// later: in between runs the product of tile t - 1 while tile t + 2 loads;
+// the reads of the peers' slots are then in flight through the S of tile t
+// + 1, and summed after it. The arrive is one thread's cluster-scope
+// release fence after a CTA barrier, all threads arriving relaxed: a
+// release arrive in every thread cost 15% (the barrier's latency itself
+// hides behind the pipeline; issuing the prefetch after the arrive did not
+// help; PERF.md). Three [32, 768] bf16 tiles fit beside the own tile
+// (229,888 bytes), three [16, 768] f32 ones do not: f32 slices are at most
+// 512 columns (c = ceil(units / 4)) while 8 CTAs cover H (H <= 4096), and
+// past that at most 768 over two buffers in order (ST 2, the barrier inside
+// each tile). bf16 slices are at most 768 (c = ceil(units / 6)). H = 1024
+// f32 splits 512 + 512 (c 2), 2048 into 4 x 512; bf16 2048 768 + 768 + 512.
+//   Bound at gpt_345m's head (N = 8192, V = 50304, H = 1024, f32): 3 x 4 N
+// V H = 5.06 TFLOP each on the TF32 tensor cores, 10.2 ms; gpt_1p3b's
+// (H = 2048, bf16): 4 N V H = 3.38 TFLOP each, 3.41 ms. The launch
+// (cudaLaunchKernelEx with the cluster dimension; grid x = own tiles x c)
+// first asks cudaOccupancyMaxActiveClusters once an instance and cluster
+// size, and returns an error where the card cannot hold one cluster.
+
 // The tensor-core forwards (lm_fwd_mma_*, the route for bf16 h, and
 // lm_fwd_tf32_full, the route for f32 h): a GEMM with a row-reduction
 // epilogue, one body (fwd_mma_body) for both dtypes: on mma.sync.m16n8k16
@@ -578,8 +622,13 @@ constexpr int KQ = 4;           // hidden quarters of the S product
 constexpr int PST = OB + 8;     // row stride of the S partials (f32)
 constexpr int MAX_SMEM = 232448;
 
-int mma_smem_bytes(int hdim, int stages) {
-  return ((1 + stages) * MB * (hdim + MPAD) + MB * DLD) * 2 + KQ * MB * PST * 4;
+// the resident [32, width] own tile and `stages` [32, width] other tiles
+// (width: H, or a cluster's hidden slice), rows padded by 16 bytes; the
+// [32, 40] bf16 dl tile, four [32, 40] f32 partials of S and, in a cluster,
+// two [32, 32] f32 slots of the CTA's partial S
+int mma_smem_bytes(int width, int stages, bool cluster = false) {
+  return ((1 + stages) * MB * (width + MPAD) + MB * DLD) * 2 + KQ * MB * PST * 4 +
+         (cluster ? 2 * MB * OB * 4 : 0);
 }
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
@@ -630,35 +679,48 @@ __device__ __forceinline__ void store_acc(const float (&acc)[HC][2][2][4], unsig
 // DW = false: dh (own = h rows, other = W rows); DW = true: dW (own = W rows,
 // other = h rows). TO: the output's dtype. HC: the accumulator's width in
 // 128-column units (a warp holds HC pairs of n8 tiles for both own m16
-// tiles). ST: other-tile buffers (2: double-buffered; 1 where two do not fit).
-// blockIdx.x: own tile of 32 rows; blockIdx.y: hidden chunk.
+// tiles). ST: other-tile buffers (2: double-buffered; 1 where two do not fit;
+// 3: in a cluster, pipelined across the cluster barrier).
+// CLUSTER false: blockIdx.x is an own tile of 32 rows, blockIdx.y a hidden
+// chunk of p.chunk columns, and every CTA stages the full H and computes S
+// over it. CLUSTER true: the cluster's CTAs (along x) share one own tile;
+// rank r stages and accumulates the hidden slice r * p.chunk .. (+ p.chunk,
+// at most H), computes S over it, and the ranks' partial S are summed in
+// rank order through distributed shared memory (cluster_sum; in the
+// pipelined loop, ST 3, its halves apart), so that every CTA gets the same
+// dl.
 // S phase: warp w computes S[32 own, 16 other (w & 1)] over the hidden
-// quarter w >> 1; the four partials meet in shared memory. dl phase: thread
-// t owns S[t / 8][(t % 8) * 4 .. + 3]. Product phase: warp w owns the pairs of
-// columns c0 + (j * 8 + w) * 16, all 32 own rows.
-template <bool DW, typename TO, int HC, int ST>
+// quarter w >> 1 (of the staged columns); the four partials meet in shared
+// memory. dl phase: thread t owns S[t / 8][(t % 8) * 4 .. + 3]. Product
+// phase: warp w owns the pairs of columns c0 + (j * 8 + w) * 16, all 32 own
+// rows.
+template <bool DW, typename TO, int HC, int ST, bool CLUSTER>
 __global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
   using namespace mma_sync;
   extern __shared__ float4 smem4[];
-  const int ld = p.hdim + MPAD;
+  const int cl = CLUSTER ? static_cast<int>(cluster_nctarank()) : 1;
+  const int c0 = (CLUSTER ? static_cast<int>(cluster_ctarank()) : blockIdx.y) * p.chunk;
+  const int c_end = min(c0 + p.chunk, p.hdim);
+  const int k_lo = CLUSTER ? c0 : 0;            // the staged hidden columns, over which
+  const int k_n = CLUSTER ? c_end - c0 : p.hdim;  // this CTA computes S
+  const int ld = (CLUSTER ? p.chunk : p.hdim) + MPAD;
   __nv_bfloat16* s_own = reinterpret_cast<__nv_bfloat16*>(smem4);   // [MB][ld]
   __nv_bfloat16* s_oth = s_own + MB * ld;                           // ST x [OB][ld]
   float* s_part = reinterpret_cast<float*>(s_oth + ST * OB * ld);   // [KQ][MB][PST]
   __nv_bfloat16* s_dl = reinterpret_cast<__nv_bfloat16*>(s_part + KQ * MB * PST);  // [MB][DLD]
+  float* s_xs = reinterpret_cast<float*>(s_dl + MB * DLD);         // cluster: 2 x [MB][OB]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int kq = warp >> 1, nh = warp & 1;      // S: hidden quarter, 16 other columns
   const int gq = lane >> 2, tq = lane & 3;      // fragment row, column pair
   const int dr = tid >> 3, dc = (tid & 7) * 4;  // dl: own row, 4 other columns
-  const int a0 = blockIdx.x * MB;
-  const int c0 = blockIdx.y * p.chunk;
-  const int c_end = min(c0 + p.chunk, p.hdim);
+  const int a0 = (blockIdx.x / cl) * MB;
   const int na = DW ? p.v : p.n;
   const int nb = DW ? p.n : p.v;
-  const int vecs = p.hdim / 8;                  // 16-byte pieces a row
-  const int kw = p.hdim / KQ;                   // hidden columns a quarter
+  const int vecs = k_n / 8;                     // 16-byte pieces a staged row
+  const int kw = k_n / KQ;                      // hidden columns a quarter
 
-  const __nv_bfloat16* own = static_cast<const __nv_bfloat16*>(p.own);
-  const __nv_bfloat16* other = static_cast<const __nv_bfloat16*>(p.other);
+  const __nv_bfloat16* own = static_cast<const __nv_bfloat16*>(p.own) + k_lo;
+  const __nv_bfloat16* other = static_cast<const __nv_bfloat16*>(p.other) + k_lo;
 
   // rows r0.. of src (rows past `rows` as zeros) -> dst [32][ld], asynchronously
   auto stage = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0, int rows) {
@@ -697,44 +759,38 @@ __global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
   const unsigned oth_s =        // S: B, two n8 tiles of other rows nh * 16 ..
       (nh * 16 * ld + b_lane(lane, ld) + kq * kw) * 2;
   const unsigned oth_p =        // product: B (transposed), other rows = k
-      (bt_lane(lane, ld) + c0 + warp * 16) * 2;
-
-  stage(s_own, own, a0, na);
-  cp_async_commit();
+      (bt_lane(lane, ld) + c0 - k_lo + warp * 16) * 2;
   const int n_t = (nb + OB - 1) / OB;
-  if (ST == 2) {
-    stage(s_oth, other, 0, nb);
-    cp_async_commit();
-  }
-  for (int t = 0; t < n_t; ++t) {
-    const int b0 = t * OB;
-    if (ST == 1) {
-      stage(s_oth, other, b0, nb);
-      cp_async_commit();
-    }
-    // dW: the dl columns are tokens; their lse, g and label
-    float o_lse[4] = {0.f, 0.f, 0.f, 0.f}, o_g[4] = {0.f, 0.f, 0.f, 0.f};
-    int o_lab[4] = {-1, -1, -1, -1};
+
+  // the buffer that holds other tile t (shared-memory bytes), and this
+  // thread's cluster slot of tile t's partial S
+  auto buf = [&](int t) { return oth0 + (t % ST) * buf_bytes; };
+  auto slot = [&](int t) { return s_xs + ((t & 1) * MB + dr) * OB + dc; };
+
+  // dW: the dl columns of tile t are tokens; their lse, g and label
+  struct Tok {
+    float lse[4], g[4];
+    int lab[4];
+  };
+  auto tokens = [&](int t) {
+    Tok o = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}, {-1, -1, -1, -1}};
     if (DW) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int b = b0 + dc + e;
+        const int b = t * OB + dc + e;
         if (b < p.n) {
-          o_lse[e] = p.lse[b];
-          o_g[e] = p.g[b];
-          o_lab[e] = p.labels[b];
+          o.lse[e] = p.lse[b];
+          o.g[e] = p.g[b];
+          o.lab[e] = p.labels[b];
         }
       }
     }
-    cp_async_wait<0>();         // the own tile and tile t have landed
-    __syncthreads();            // ... for every thread; tile t - 1 is done with
-    if (ST == 2 && t + 1 < n_t) {   // the other buffer, which takes tile t + 1
-      stage(s_oth + ((t + 1) & 1) * OB * ld, other, b0 + OB, nb);
-      cp_async_commit();
-    }
-    const unsigned ob = oth0 + (ST == 2 ? (t & 1) : 0) * buf_bytes;
+    return o;
+  };
 
-    // S[32 own, 16 other of nh] over hidden quarter kq
+  // S[32 own, 16 other of nh] of tile t over hidden quarter kq -> s_part
+  auto s_phase = [&](int t) {
+    const unsigned ob = buf(t);
     float sacc[2][2][4];
 #pragma unroll
     for (int m = 0; m < 2; ++m)
@@ -763,37 +819,42 @@ __global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
           *reinterpret_cast<float2*>(s_part + (kq * MB + m * 16 + gq + 8 * i) * PST +
                                      nh * 16 + e * 8 + 2 * tq) =
               make_float2(sacc[m][e][2 * i], sacc[m][e][2 * i + 1]);
-    __syncthreads();
+  };
 
-    // dl = (exp(s - lse) - onehot) * g, rounded to bf16, into [own][other]
-    {
-      float4 part[KQ];
+  // this CTA's S at (dr, dc .. + 3): the four quarters' partials, in a fixed order
+  auto s_sum = [&](float (&s)[4]) {
+    float4 part[KQ];
 #pragma unroll
-      for (int q = 0; q < KQ; ++q)
-        part[q] = *reinterpret_cast<const float4*>(s_part + (q * MB + dr) * PST + dc);
-      const float s[4] = {(part[0].x + part[1].x) + (part[2].x + part[3].x),
-                          (part[0].y + part[1].y) + (part[2].y + part[3].y),
-                          (part[0].z + part[1].z) + (part[2].z + part[3].z),
-                          (part[0].w + part[1].w) + (part[2].w + part[3].w)};
-      const int a = a0 + dr;
-      float d[4];
+    for (int q = 0; q < KQ; ++q)
+      part[q] = *reinterpret_cast<const float4*>(s_part + (q * MB + dr) * PST + dc);
+    s[0] = (part[0].x + part[1].x) + (part[2].x + part[3].x);
+    s[1] = (part[0].y + part[1].y) + (part[2].y + part[3].y);
+    s[2] = (part[0].z + part[1].z) + (part[2].z + part[3].z);
+    s[3] = (part[0].w + part[1].w) + (part[2].w + part[3].w);
+  };
+
+  // dl = (exp(s - lse) - onehot) * g of tile t, rounded to bf16, into [own][other]
+  auto dl_phase = [&](int t, const float (&s)[4], const Tok& o) {
+    const int a = a0 + dr;
+    float d[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int b = b0 + dc + e;
-        const int tok = DW ? b : a, voc = DW ? a : b;
-        const float z = DW ? o_lse[e] : own_lse;
-        const float gg = DW ? o_g[e] : own_g;
-        const int lb = DW ? o_lab[e] : own_lab;
-        const float pr = expf(s[e] - z);
-        d[e] = (tok < p.n && voc < p.v) ? (pr - (voc == lb ? 1.f : 0.f)) * gg : 0.f;
-      }
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(s_dl + dr * DLD + dc);
-      dst[0] = __floats2bfloat162_rn(d[0], d[1]);
-      dst[1] = __floats2bfloat162_rn(d[2], d[3]);
+    for (int e = 0; e < 4; ++e) {
+      const int b = t * OB + dc + e;
+      const int tok = DW ? b : a, voc = DW ? a : b;
+      const float z = DW ? o.lse[e] : own_lse;
+      const float gg = DW ? o.g[e] : own_g;
+      const int lb = DW ? o.lab[e] : own_lab;
+      const float pr = expf(s[e] - z);
+      d[e] = (tok < p.n && voc < p.v) ? (pr - (voc == lb ? 1.f : 0.f)) * gg : 0.f;
     }
-    __syncthreads();
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(s_dl + dr * DLD + dc);
+    dst[0] = __floats2bfloat162_rn(d[0], d[1]);
+    dst[1] = __floats2bfloat162_rn(d[2], d[3]);
+  };
 
-    // acc[32 own, this warp's columns] += dl[32 own, 32 other] . other
+  // acc[32 own, this warp's columns] += dl[32 own, 32 other] . other tile t
+  auto product = [&](int t) {
+    const unsigned ob = buf(t);
 #pragma unroll
     for (int kk = 0; kk < OB; kk += 16) {
       unsigned a[2][4];
@@ -812,28 +873,161 @@ __global__ void __launch_bounds__(NT, 1) lm_grad_mma_kernel(const MmaParams p) {
         }
       }
     }
-    if (ST == 1) __syncthreads();   // the one buffer takes the next tile
+  };
+
+  stage(s_own, own, a0, na);
+  cp_async_commit();
+  if constexpr (ST != 3) {
+    // in order: tile t + 1 loads (ST 2) while tile t computes; in a
+    // cluster, the partial S meet at a barrier inside each tile
+    if (ST == 2) {
+      stage(s_oth, other, 0, nb);
+      cp_async_commit();
+    }
+    for (int t = 0; t < n_t; ++t) {
+      if (ST == 1) {
+        stage(s_oth, other, t * OB, nb);
+        cp_async_commit();
+      }
+      const Tok o = tokens(t);
+      cp_async_wait<0>();         // the own tile and tile t have landed
+      __syncthreads();            // ... for every thread; tile t - 1 is done with
+      if (ST == 2 && t + 1 < n_t) {   // the other buffer, which takes tile t + 1
+        stage(s_oth + ((t + 1) % ST) * OB * ld, other, (t + 1) * OB, nb);
+        cp_async_commit();
+      }
+      s_phase(t);
+      __syncthreads();
+      float s[4];
+      s_sum(s);
+      if constexpr (CLUSTER) cluster_sum(s, slot(t));
+      dl_phase(t, s, o);
+      __syncthreads();
+      product(t);
+      if (ST == 1) __syncthreads();   // the one buffer takes the next tile
+    }
+    if constexpr (CLUSTER) cluster_arrive();   // peers may still read this CTA's last S
+  } else {
+    // pipelined, in a cluster (three other buffers): between the barrier's
+    // arrive after tile t's partial S and its wait before tile t's dl run
+    // the product of tile t - 1 and the S of tile t + 1, while tile t + 2
+    // loads
+    stage(s_oth, other, 0, nb);
+    cp_async_commit();
+    if (1 < n_t) stage(s_oth + OB * ld, other, OB, nb);
+    cp_async_commit();
+    cp_async_wait<1>();           // the own tile and tile 0 have landed
+    __syncthreads();
+    s_phase(0);
+    __syncthreads();
+    {
+      float s[4];
+      s_sum(s);
+      float* x = slot(0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = s[i];
+    }
+    cluster_arrive();
+    for (int t = 0; t < n_t; ++t) {
+      const Tok o = tokens(t);
+      cp_async_wait<0>();         // tile t + 1 has landed for every thread, and
+      __syncthreads();            // every thread is done with tile t - 1's buffer,
+      if (t + 2 < n_t) {          // s_part and s_dl
+        stage(s_oth + ((t + 2) % 3) * OB * ld, other, (t + 2) * OB, nb);
+        cp_async_commit();
+      }
+      cluster_wait();             // every rank's partial S of tile t is in its slot
+      float v[4][4];
+      cluster_load(v, slot(t));   // in flight through the S of tile t + 1
+      if (t + 1 < n_t) {
+        s_phase(t + 1);
+        __syncthreads();
+      }
+      float s[4];
+      cluster_gather(s, v, slot(t));
+      dl_phase(t, s, o);
+      if (t + 1 < n_t) {          // this CTA's partial S of tile t + 1 to its slot
+        float s1[4];
+        s_sum(s1);
+        float* x = slot(t + 1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = s1[i];
+      }
+      cluster_arrive();           // (a CTA barrier too: s_dl is written); the last
+      product(t);                 // one keeps this CTA until its peers are done
+    }
   }
 
   store_acc(acc, active, static_cast<TO*>(p.out), a0, na, c0, p.hdim);
+  if constexpr (CLUSTER) cluster_wait();
 }
 
-template <bool DW, typename TO, int HC, int ST>
-cudaError_t mma_launch(const MmaParams& p, cudaStream_t st) {
-  const int smem = mma_smem_bytes(p.hdim, ST);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(lm_grad_mma_kernel<DW, TO, HC, ST>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// A cluster launch of a backward instance: `kernel` on (own tiles) x
+// `cluster` CTAs along x, in clusters of `cluster` that share an own tile,
+// with `smem` bytes of dynamic shared memory (the instance's attribute set
+// to `smem_max`, its widest slice's). The first launch of the instance at
+// each cluster size asks cudaOccupancyMaxActiveClusters whether the card
+// can hold one such cluster at `smem_max` and keeps the answer in `fits`;
+// where it cannot, cudaErrorLaunchOutOfResources and nothing runs.
+constexpr int MAX_CLUSTER = 8;  // CTAs a cluster may portably hold
+cudaError_t cluster_launch(void (*kernel)(MmaParams), const MmaParams& p, int na, int smem,
+                           int smem_max, int cluster, int (&fits)[MAX_CLUSTER + 1],
+                           cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem_max);
   if (e != cudaSuccess) return e;
-  const int na = DW ? p.v : p.n;
-  const dim3 grid((na + MB - 1) / MB, (p.hdim + p.chunk - 1) / p.chunk);
-  lm_grad_mma_kernel<DW, TO, HC, ST><<<grid, NT, smem, st>>>(p);
-  return cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((na + MB - 1) / MB) * cluster);
+  cfg.blockDim = dim3(NT);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (fits[cluster] == 0) {
+    cfg.dynamicSmemBytes = smem_max;
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg);
+    if (e != cudaSuccess) return e;
+    fits[cluster] = clusters > 0 ? 1 : -1;
+  }
+  if (fits[cluster] < 0) return cudaErrorLaunchOutOfResources;
+  cfg.dynamicSmemBytes = smem;
+  void* args[] = {const_cast<MmaParams*>(&p)};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// the instances: HC 2, 4, 6 double-buffered; HC 6 single-buffered (H > 1152)
+template <bool DW, typename TO, int HC, int ST, bool CLUSTER = false>
+cudaError_t mma_launch(const MmaParams& p, cudaStream_t st, int cluster = 1) {
+  const int smem = mma_smem_bytes(CLUSTER ? p.chunk : p.hdim, ST, CLUSTER);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  const int na = DW ? p.v : p.n;
+  if constexpr (CLUSTER) {
+    static int fits[MAX_CLUSTER + 1] = {};
+    return cluster_launch(lm_grad_mma_kernel<DW, TO, HC, ST, true>, p, na, smem,
+                          mma_smem_bytes(HC * 128, ST, true), cluster, fits, st);
+  } else {
+    cudaError_t e = cudaFuncSetAttribute(lm_grad_mma_kernel<DW, TO, HC, ST, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((na + MB - 1) / MB, (p.hdim + p.chunk - 1) / p.chunk);
+    lm_grad_mma_kernel<DW, TO, HC, ST, false><<<grid, NT, smem, st>>>(p);
+    return cudaGetLastError();
+  }
+}
+
+// the instances: HC 2, 4, 6 double-buffered; HC 6 single-buffered (H > 1152);
+// in clusters (H > 1536, slices of 640 or 768 columns) HC 6, pipelined over
+// three buffers
 template <bool DW, typename TO>
-cudaError_t mma_dispatch(const MmaParams& p, int hc, int stages, cudaStream_t st) {
+cudaError_t mma_dispatch(const MmaParams& p, int hc, int stages, int cluster, cudaStream_t st) {
+  if (cluster > 1)
+    return hc == 6 && stages == 3 ? mma_launch<DW, TO, 6, 3, true>(p, st, cluster)
+                                  : cudaErrorInvalidValue;
   if (stages == 2) {
     switch (hc) {
       case 2: return mma_launch<DW, TO, 2, 2>(p, st);
@@ -854,44 +1048,57 @@ constexpr int TPST = OT + 8;    // row stride of the S partials (f32)
 constexpr int TDLD = OT + 4;    // row stride of the f32 dl tile: the product's scalar A
                                 // loads, rows gq and columns tq, meet no shared bank
 
-// the resident [32, H] own tile and two [16, H] other tiles, rows padded by
-// 16 bytes; eight [32, 24] f32 partials of S; the [32, 20] dl tile
-int tf32_smem_bytes(int hdim) {
-  return ((MB + 2 * OT) * (hdim + 4) + KE * MB * TPST + MB * TDLD) * 4;
+// the resident [32, width] own tile and `stages` [16, width] other tiles
+// (width: H, or a cluster's hidden slice), rows padded by 16 bytes; eight
+// [32, 24] f32 partials of S; the [32, 20] dl tile; in a cluster, two [32,
+// 16] slots of the CTA's partial S
+int tf32_smem_bytes(int width, int stages = 2, bool cluster = false) {
+  return ((MB + stages * OT) * (width + 4) + KE * MB * TPST + MB * TDLD +
+          (cluster ? 2 * MB * OT : 0)) *
+         4;
 }
 
 // DW = false: dh (own = h rows, other = W rows); DW = true: dW (own = W rows,
 // other = h rows); both f32. TO: the output's dtype. HC: the accumulator's
-// width in 128-column units, as in lm_grad_mma_kernel. blockIdx.x: own tile
-// of 32 rows; blockIdx.y: hidden chunk. Other tiles of 16 rows go through a
-// cp.async double buffer. S phase: warp w computes S[32 own, 16 other] over
-// the hidden eighth w; the eight partials meet in shared memory. dl phase:
+// width in 128-column units, as in lm_grad_mma_kernel. CLUSTER as in
+// lm_grad_mma_kernel: false, blockIdx.x an own tile of 32 rows and
+// blockIdx.y a hidden chunk; true, the cluster's CTAs share an own tile,
+// each its hidden slice, and sum their partial S through distributed shared
+// memory. Other tiles of 16 rows go through a cp.async double buffer (ST
+// 2), or in a cluster a ring of three (ST 3, pipelined as in
+// lm_grad_mma_kernel). S
+// phase: warp w computes S[32 own, 16 other] over the hidden eighth w of the
+// staged columns; the eight partials meet in shared memory. dl phase:
 // thread t owns S[t / 8][(t % 8) * 2 .. + 1]. Product phase: warp w owns the
 // pairs of columns c0 + (j * 8 + w) * 16, all 32 own rows. Every product is
 // 3xTF32 (mma_sync.cuh), and each short run of it (16 hidden columns of S,
 // one tile's 16 other rows of the product) is summed in a fresh accumulator
 // and added to the running sum in f32.
-template <bool DW, typename TO, int HC>
+template <bool DW, typename TO, int HC, int ST, bool CLUSTER>
 __global__ void __launch_bounds__(NT, 1) lm_grad_tf32_kernel(const MmaParams p) {
   using namespace mma_sync;
   extern __shared__ float4 smem4[];
-  const int ld = p.hdim + 4;
+  const int cl = CLUSTER ? static_cast<int>(cluster_nctarank()) : 1;
+  const int c0 = (CLUSTER ? static_cast<int>(cluster_ctarank()) : blockIdx.y) * p.chunk;
+  const int c_end = min(c0 + p.chunk, p.hdim);
+  const int k_lo = CLUSTER ? c0 : 0;            // the staged hidden columns, over which
+  const int k_n = CLUSTER ? c_end - c0 : p.hdim;  // this CTA computes S
+  const int ld = (CLUSTER ? p.chunk : p.hdim) + 4;
   float* s_own = reinterpret_cast<float*>(smem4);   // [MB][ld]
-  float* s_oth = s_own + MB * ld;                   // 2 x [OT][ld]
-  float* s_part = s_oth + 2 * OT * ld;              // [KE][MB][TPST]
+  float* s_oth = s_own + MB * ld;                   // ST x [OT][ld]
+  float* s_part = s_oth + ST * OT * ld;             // [KE][MB][TPST]
   float* s_dl = s_part + KE * MB * TPST;            // [MB][TDLD]
+  float* s_xs = s_dl + MB * TDLD;                   // cluster: 2 x [MB][OT]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;      // fragment row, column
   const int dr = tid >> 3, dc = (tid & 7) * 2;  // dl: own row, 2 other columns
-  const int a0 = blockIdx.x * MB;
-  const int c0 = blockIdx.y * p.chunk;
-  const int c_end = min(c0 + p.chunk, p.hdim);
+  const int a0 = (blockIdx.x / cl) * MB;
   const int na = DW ? p.v : p.n;
   const int nb = DW ? p.n : p.v;
-  const int vecs = p.hdim / 4;                  // 16-byte pieces a row
-  const int kw = p.hdim / KE;                   // hidden columns an eighth (16k)
-  const float* own = static_cast<const float*>(p.own);
-  const float* other = static_cast<const float*>(p.other);
+  const int vecs = k_n / 4;                     // 16-byte pieces a staged row
+  const int kw = k_n / KE;                      // hidden columns an eighth (16k)
+  const float* own = static_cast<const float*>(p.own) + k_lo;
+  const float* other = static_cast<const float*>(p.other) + k_lo;
 
   // rows r0 .. r0 + R - 1 of src (rows past `rows` as zeros) -> dst [R][ld],
   // asynchronously: warp w copies rows w, w + 8, .., lane l its 16-byte
@@ -926,37 +1133,37 @@ __global__ void __launch_bounds__(NT, 1) lm_grad_tf32_kernel(const MmaParams p) 
   const unsigned own_a = smem_u32(s_own + a_lane(lane, ld, 4) + warp * kw);
   const unsigned oth_s = (b_lane(lane, ld, 4) + warp * kw) * 4;
   const unsigned oth0 = smem_u32(s_oth);
-
-  stage(s_own, own, MB, a0, na);
-  cp_async_commit();
-  stage(s_oth, other, OT, 0, nb);
-  cp_async_commit();
   const int n_t = (nb + OT - 1) / OT;
-  for (int t = 0; t < n_t; ++t) {
-    const int b0 = t * OT;
-    // dW: the dl columns are tokens; their lse, g and label
-    float o_lse[2] = {0.f, 0.f}, o_g[2] = {0.f, 0.f};
-    int o_lab[2] = {-1, -1};
+
+  // the buffer that holds other tile t, and this thread's cluster slot of
+  // tile t's partial S
+  auto buf = [&](int t) { return s_oth + (t % ST) * OT * ld; };
+  auto slot = [&](int t) { return s_xs + ((t & 1) * MB + dr) * OT + dc; };
+
+  // dW: the dl columns of tile t are tokens; their lse, g and label
+  struct Tok {
+    float lse[2], g[2];
+    int lab[2];
+  };
+  auto tokens = [&](int t) {
+    Tok o = {{0.f, 0.f}, {0.f, 0.f}, {-1, -1}};
     if (DW) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int b = b0 + dc + e;
+        const int b = t * OT + dc + e;
         if (b < p.n) {
-          o_lse[e] = p.lse[b];
-          o_g[e] = p.g[b];
-          o_lab[e] = p.labels[b];
+          o.lse[e] = p.lse[b];
+          o.g[e] = p.g[b];
+          o.lab[e] = p.labels[b];
         }
       }
     }
-    cp_async_wait<0>();         // the own tile and tile t have landed
-    __syncthreads();            // ... for every thread; tile t - 1 is done with
-    if (t + 1 < n_t) {          // the other buffer, which takes tile t + 1
-      stage(s_oth + ((t + 1) & 1) * OT * ld, other, OT, b0 + OT, nb);
-      cp_async_commit();
-    }
-    const unsigned ob = oth0 + (t & 1) * OT * ld * 4;
+    return o;
+  };
 
-    // S[32 own, 16 other] over hidden eighth `warp`
+  // S[32 own, 16 other] of tile t over hidden eighth `warp` -> s_part
+  auto s_phase = [&](int t) {
+    const unsigned ob = oth0 + (t % ST) * OT * ld * 4;
     float sacc[2][2][4] = {};
     for (int k0 = 0; k0 < kw; k0 += 16) {
       float part[2][2][4] = {};
@@ -986,93 +1193,183 @@ __global__ void __launch_bounds__(NT, 1) lm_grad_tf32_kernel(const MmaParams p) 
           *reinterpret_cast<float2*>(s_part + (warp * MB + m * 16 + gq + 8 * i) * TPST + e * 8 +
                                      2 * tq) =
               make_float2(sacc[m][e][2 * i], sacc[m][e][2 * i + 1]);
-    __syncthreads();
+  };
 
-    // dl = (exp(s - lse) - onehot) * g in f32, into [own][other]
-    {
-      float2 q8[KE];
+  // this CTA's S at (dr, dc .. + 1): the eight eighths' partials, in a fixed order
+  auto s_sum = [&](float (&s)[2]) {
+    float2 q8[KE];
 #pragma unroll
-      for (int q = 0; q < KE; ++q)
-        q8[q] = *reinterpret_cast<const float2*>(s_part + (q * MB + dr) * TPST + dc);
-      const float s[2] = {((q8[0].x + q8[1].x) + (q8[2].x + q8[3].x)) +
-                              ((q8[4].x + q8[5].x) + (q8[6].x + q8[7].x)),
-                          ((q8[0].y + q8[1].y) + (q8[2].y + q8[3].y)) +
-                              ((q8[4].y + q8[5].y) + (q8[6].y + q8[7].y))};
-      const int a = a0 + dr;
-      float d[2];
+    for (int q = 0; q < KE; ++q)
+      q8[q] = *reinterpret_cast<const float2*>(s_part + (q * MB + dr) * TPST + dc);
+    s[0] = ((q8[0].x + q8[1].x) + (q8[2].x + q8[3].x)) +
+           ((q8[4].x + q8[5].x) + (q8[6].x + q8[7].x));
+    s[1] = ((q8[0].y + q8[1].y) + (q8[2].y + q8[3].y)) +
+           ((q8[4].y + q8[5].y) + (q8[6].y + q8[7].y));
+  };
+
+  // dl = (exp(s - lse) - onehot) * g of tile t in f32, into [own][other]
+  auto dl_phase = [&](int t, const float (&s)[2], const Tok& o) {
+    const int a = a0 + dr;
+    float d[2];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int b = b0 + dc + e;
-        const int tok = DW ? b : a, voc = DW ? a : b;
-        const float z = DW ? o_lse[e] : own_lse;
-        const float gg = DW ? o_g[e] : own_g;
-        const int lb = DW ? o_lab[e] : own_lab;
-        const float pr = expf(s[e] - z);
-        d[e] = (tok < p.n && voc < p.v) ? (pr - (voc == lb ? 1.f : 0.f)) * gg : 0.f;
-      }
-      *reinterpret_cast<float2*>(s_dl + dr * TDLD + dc) = make_float2(d[0], d[1]);
+    for (int e = 0; e < 2; ++e) {
+      const int b = t * OT + dc + e;
+      const int tok = DW ? b : a, voc = DW ? a : b;
+      const float z = DW ? o.lse[e] : own_lse;
+      const float gg = DW ? o.g[e] : own_g;
+      const int lb = DW ? o.lab[e] : own_lab;
+      const float pr = expf(s[e] - z);
+      d[e] = (tok < p.n && voc < p.v) ? (pr - (voc == lb ? 1.f : 0.f)) * gg : 0.f;
     }
-    __syncthreads();
+    *reinterpret_cast<float2*>(s_dl + dr * TDLD + dc) = make_float2(d[0], d[1]);
+  };
 
-    // acc[32 own, this warp's columns] += dl[32 own, 16 other] . other, two
-    // k8 steps. The B fragments are scalar loads other[k][n + gq] (the tile
-    // is k-major here); at a row stride of 4 banks two lanes share a bank.
-    // Permuting k so that none does (rows 2tq, 2tq + 1, A pairs as float2)
-    // measured 7% slower (PERF.md), so the fragments keep their own order.
-    {
-      unsigned ab[2][2][4], as[2][2][4];   // [k8 step][m]
+  // acc[32 own, this warp's columns] += dl[32 own, 16 other] . other tile t,
+  // two k8 steps. The B fragments are scalar loads other[k][n + gq] (the tile
+  // is k-major here); at a row stride of 4 banks two lanes share a bank.
+  // Permuting k so that none does (rows 2tq, 2tq + 1, A pairs as float2)
+  // measured 7% slower (PERF.md), so the fragments keep their own order.
+  auto product = [&](int t) {
+    unsigned ab[2][2][4], as[2][2][4];   // [k8 step][m]
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
+    for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-        for (int m = 0; m < 2; ++m)
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {    // rows gq and gq + 8: (a0, a2), (a1, a3)
-            const float* row = s_dl + (m * 16 + gq + 8 * i) * TDLD + ks * 8;
-            split_tf32(__float_as_uint(row[tq]), ab[ks][m][i], as[ks][m][i]);
-            split_tf32(__float_as_uint(row[tq + 4]), ab[ks][m][i + 2], as[ks][m][i + 2]);
-          }
-      const float* ot = s_oth + (t & 1) * OT * ld + c0 + warp * 16 + gq;
-#pragma unroll
-      for (int j = 0; j < HC; ++j) {
-        if (active & (1u << j)) {
-          float part[2][2][4] = {};
-#pragma unroll
-          for (int ks = 0; ks < 2; ++ks) {
-            unsigned bb[2][2], bs[2][2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-#pragma unroll
-              for (int q = 0; q < 2; ++q)
-                split_tf32(__float_as_uint(ot[(ks * 8 + tq + 4 * q) * ld + j * 128 + e * 8]),
-                           bb[e][q], bs[e][q]);
-            mma_tf32x3(part, ab[ks], as[ks], bb, bs);
-          }
-          add_frags(acc[j], part);
+        for (int i = 0; i < 2; ++i) {    // rows gq and gq + 8: (a0, a2), (a1, a3)
+          const float* row = s_dl + (m * 16 + gq + 8 * i) * TDLD + ks * 8;
+          split_tf32(__float_as_uint(row[tq]), ab[ks][m][i], as[ks][m][i]);
+          split_tf32(__float_as_uint(row[tq + 4]), ab[ks][m][i + 2], as[ks][m][i + 2]);
         }
+    const float* ot = buf(t) + c0 - k_lo + warp * 16 + gq;
+#pragma unroll
+    for (int j = 0; j < HC; ++j) {
+      if (active & (1u << j)) {
+        float part[2][2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          unsigned bb[2][2], bs[2][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              split_tf32(__float_as_uint(ot[(ks * 8 + tq + 4 * q) * ld + j * 128 + e * 8]),
+                         bb[e][q], bs[e][q]);
+          mma_tf32x3(part, ab[ks], as[ks], bb, bs);
+        }
+        add_frags(acc[j], part);
       }
+    }
+  };
+
+  stage(s_own, own, MB, a0, na);
+  cp_async_commit();
+  stage(s_oth, other, OT, 0, nb);
+  cp_async_commit();
+  if constexpr (ST == 2) {
+    // in order: tile t + 1 loads while tile t computes; in a cluster, the
+    // partial S meet at a barrier inside each tile
+    for (int t = 0; t < n_t; ++t) {
+      const Tok o = tokens(t);
+      cp_async_wait<0>();         // the own tile and tile t have landed
+      __syncthreads();            // ... for every thread; tile t - 1 is done with
+      if (t + 1 < n_t) {          // the other buffer, which takes tile t + 1
+        stage(buf(t + 1), other, OT, (t + 1) * OT, nb);
+        cp_async_commit();
+      }
+      s_phase(t);
+      __syncthreads();
+      float s[2];
+      s_sum(s);
+      if constexpr (CLUSTER) cluster_sum(s, slot(t));
+      dl_phase(t, s, o);
+      __syncthreads();
+      product(t);
+    }
+    if constexpr (CLUSTER) cluster_arrive();   // peers may still read this CTA's last S
+  } else {
+    // pipelined, in a cluster (three other buffers): between the barrier's
+    // arrive after tile t's partial S and its wait before tile t's dl run
+    // the product of tile t - 1 and the S of tile t + 1, while tile t + 2
+    // loads
+    if (1 < n_t) stage(buf(1), other, OT, OT, nb);
+    cp_async_commit();
+    cp_async_wait<1>();           // the own tile and tile 0 have landed
+    __syncthreads();
+    s_phase(0);
+    __syncthreads();
+    {
+      float s[2];
+      s_sum(s);
+      float* x = slot(0);
+      x[0] = s[0];
+      x[1] = s[1];
+    }
+    cluster_arrive();
+    for (int t = 0; t < n_t; ++t) {
+      const Tok o = tokens(t);
+      cp_async_wait<0>();         // tile t + 1 has landed for every thread, and
+      __syncthreads();            // every thread is done with tile t - 1's buffer,
+      if (t + 2 < n_t) {          // s_part and s_dl
+        stage(buf(t + 2), other, OT, (t + 2) * OT, nb);
+        cp_async_commit();
+      }
+      cluster_wait();             // every rank's partial S of tile t is in its slot
+      float v[4][2];
+      cluster_load(v, slot(t));   // in flight through the S of tile t + 1
+      if (t + 1 < n_t) {
+        s_phase(t + 1);
+        __syncthreads();
+      }
+      float s[2];
+      cluster_gather(s, v, slot(t));
+      dl_phase(t, s, o);
+      if (t + 1 < n_t) {          // this CTA's partial S of tile t + 1 to its slot
+        float s1[2];
+        s_sum(s1);
+        float* x = slot(t + 1);
+        x[0] = s1[0];
+        x[1] = s1[1];
+      }
+      cluster_arrive();           // (a CTA barrier too: s_dl is written); the last
+      product(t);                 // one keeps this CTA until its peers are done
     }
   }
 
   store_acc(acc, active, static_cast<TO*>(p.out), a0, na, c0, p.hdim);
+  if constexpr (CLUSTER) cluster_wait();
 }
 
-template <bool DW, typename TO, int HC>
-cudaError_t tf32_launch(const MmaParams& p, cudaStream_t st) {
-  const int smem = tf32_smem_bytes(p.hdim);
+template <bool DW, typename TO, int HC, int ST = 2, bool CLUSTER = false>
+cudaError_t tf32_launch(const MmaParams& p, cudaStream_t st, int cluster = 1) {
+  const int smem = tf32_smem_bytes(CLUSTER ? p.chunk : p.hdim, ST, CLUSTER);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(lm_grad_tf32_kernel<DW, TO, HC>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
   const int na = DW ? p.v : p.n;
-  const dim3 grid((na + MB - 1) / MB, (p.hdim + p.chunk - 1) / p.chunk);
-  lm_grad_tf32_kernel<DW, TO, HC><<<grid, NT, smem, st>>>(p);
-  return cudaGetLastError();
+  if constexpr (CLUSTER) {
+    static int fits[MAX_CLUSTER + 1] = {};
+    return cluster_launch(lm_grad_tf32_kernel<DW, TO, HC, ST, true>, p, na, smem,
+                          tf32_smem_bytes(HC * 128, ST, true), cluster, fits, st);
+  } else {
+    cudaError_t e = cudaFuncSetAttribute(lm_grad_tf32_kernel<DW, TO, HC, ST, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((na + MB - 1) / MB, (p.hdim + p.chunk - 1) / p.chunk);
+    lm_grad_tf32_kernel<DW, TO, HC, ST, false><<<grid, NT, smem, st>>>(p);
+    return cudaGetLastError();
+  }
 }
 
-// the instances: HC 2, 4, 6, always double-buffered (H <= 768 fits); one
-// stage only
+// the instances: HC 2, 4, 6, double-buffered (H <= 768 fits); in clusters
+// (H > 768) HC 4 pipelined over three buffers (slices of 384 or 512
+// columns, H <= 4096) and HC 6 double-buffered in order (slices of 640 or
+// 768, H > 4096, where three buffers do not fit)
 template <bool DW, typename TO>
-cudaError_t tf32_dispatch(const MmaParams& p, int hc, int stages, cudaStream_t st) {
+cudaError_t tf32_dispatch(const MmaParams& p, int hc, int stages, int cluster, cudaStream_t st) {
+  if (cluster > 1) {
+    if (hc == 4 && stages == 3) return tf32_launch<DW, TO, 4, 3, true>(p, st, cluster);
+    if (hc == 6 && stages == 2) return tf32_launch<DW, TO, 6, 2, true>(p, st, cluster);
+    return cudaErrorInvalidValue;
+  }
   if (stages != 2) return cudaErrorInvalidValue;
   switch (hc) {
     case 2: return tf32_launch<DW, TO, 2>(p, st);
@@ -1479,18 +1776,25 @@ extern "C" int lm_loss_bwd(const void* h, const void* w, const void* labels, con
 // w are both of itype, contiguous and 16-byte aligned (the wrapper casts a W
 // of the other dtype once): bf16 on the bf16 tensor cores, f32 in 3xTF32.
 // The output dtype is given apart from the dtype read, since dW comes out
-// in the master W's. The plan (chunk columns a CTA, a multiple of 128; hc,
-// the accumulator instance, 2, 4 or 6 with chunk <= hc * 128; stages, 1 or
-// 2) comes from lm_loss.py's backward_plan. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a plan without an instance or beyond the shared
-// memory.
+// in the master W's. The plan comes from lm_loss.py's backward_plan: chunk,
+// the hidden columns a CTA accumulates (a multiple of 128); hc, the
+// accumulator instance, 2, 4 or 6 with chunk <= hc * 128; stages, the
+// other-tile buffers, 1 or 2, or 3 (a cluster's pipelined instances);
+// cluster, 1 (the hidden chunks over gridDim.y, each CTA computing S over
+// the full H) or 2..8 CTAs of a thread-block cluster that split the hidden
+// dim into slices of chunk columns (chunk * (cluster - 1) < hdim <= chunk *
+// cluster). Returns cudaGetLastError(); cudaErrorInvalidValue for a plan
+// without an instance or beyond the shared memory;
+// cudaErrorLaunchOutOfResources where the card cannot hold such a cluster.
 extern "C" int lm_loss_bwd_mma(const void* h, const void* w, const void* labels,
                                const void* lse, const void* g, void* out, int itype, int otype,
                                int n, int v, int hdim, int dw, int chunk, int hc, int stages,
-                               void* stream) {
+                               int cluster, void* stream) {
   if (!shape_ok(n, v, hdim) || chunk <= 0 || chunk % 128 || chunk > hc * 128 || itype < 0 ||
       itype > 1 || otype < 0 || otype > 1 || (!dw && otype != itype) ||
-      !mma_sync::aligned16(h, {hdim}) || !mma_sync::aligned16(w, {hdim}))
+      !mma_sync::aligned16(h, {hdim}) || !mma_sync::aligned16(w, {hdim}) || cluster < 1 ||
+      cluster > MAX_CLUSTER ||
+      (cluster > 1 && (chunk * (cluster - 1) >= hdim || chunk * cluster < hdim)))
     return static_cast<int>(cudaErrorInvalidValue);
   MmaParams p;
   p.own = dw ? w : h;
@@ -1503,13 +1807,13 @@ extern "C" int lm_loss_bwd_mma(const void* h, const void* w, const void* labels,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (itype == 1) {
-    if (!dw) e = mma_dispatch<false, __nv_bfloat16>(p, hc, stages, st);
-    else if (otype == 0) e = mma_dispatch<true, float>(p, hc, stages, st);
-    else e = mma_dispatch<true, __nv_bfloat16>(p, hc, stages, st);
+    if (!dw) e = mma_dispatch<false, __nv_bfloat16>(p, hc, stages, cluster, st);
+    else if (otype == 0) e = mma_dispatch<true, float>(p, hc, stages, cluster, st);
+    else e = mma_dispatch<true, __nv_bfloat16>(p, hc, stages, cluster, st);
   } else {
-    if (!dw) e = tf32_dispatch<false, float>(p, hc, stages, st);
-    else if (otype == 0) e = tf32_dispatch<true, float>(p, hc, stages, st);
-    else e = tf32_dispatch<true, __nv_bfloat16>(p, hc, stages, st);
+    if (!dw) e = tf32_dispatch<false, float>(p, hc, stages, cluster, st);
+    else if (otype == 0) e = tf32_dispatch<true, float>(p, hc, stages, cluster, st);
+    else e = tf32_dispatch<true, __nv_bfloat16>(p, hc, stages, cluster, st);
   }
   return static_cast<int>(e);
 }

@@ -5,8 +5,10 @@
 // mma.sync.m16n8k16 product with f32 accumulation, the TF32
 // mma.sync.m16n8k8 product and its error-compensated 3xTF32 form (f32
 // operands at f32 accuracy), the MUFU exp2, a warp's 16-row bf16 epilogue,
-// the flash kernels' 3xTF32 accumulator, product and f32 epilogue, and the
-// host's alignment check of a staged operand.
+// the flash kernels' 3xTF32 accumulator, product and f32 epilogue, the
+// thread-block cluster's rank, barrier and rank-ordered sum through
+// distributed shared memory, and the host's alignment check of a staged
+// operand.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * gq + tq):
 //   A (16 x 16, row): a0 = (row gq, k 2tq..+1), a1 = (gq + 8, 2tq..+1),
@@ -286,6 +288,103 @@ __device__ __forceinline__ void store_rows_f32(const Tf32Acc<D>& acc, float* out
         *reinterpret_cast<float2*>(out + row * ss + (g * G + j) * 8 + 2 * tq) =
             make_float2(acc[g][0][j][2 * i], acc[g][0][j][2 * i + 1]);
   }
+}
+
+// Thread-block clusters (sm_90): the CTAs of a cluster run at once on
+// neighbouring SMs and read each other's shared memory (distributed shared
+// memory). lm_loss.cu's backward splits the hidden dim of one own tile
+// across a cluster and sums the CTAs' partial S through them.
+//
+// this CTA's rank in its cluster, and the cluster's CTAs
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_nctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+// the cluster barrier in its two halves, each executed by every thread of
+// every CTA, and a thread waits before it arrives again. cluster_arrive is
+// the CTA's arrive after its threads' shared-memory writes: a CTA barrier,
+// then one thread's cluster-scope release fence, which is cumulative (it
+// orders every write the CTA barrier showed it), and every thread arrives
+// relaxed. A release arrive in all 256 threads cost 15% of lm_loss.cu's
+// cluster backward (PERF.md). cluster_wait returns once every thread of
+// the cluster has arrived and acquires what their fences released.
+__device__ __forceinline__ void cluster_arrive() {
+  __syncthreads();
+  if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// N consecutive f32 at shared address `local` of this CTA, read from the
+// same address in the shared memory of the cluster's CTA `rank`
+template <int N>
+__device__ __forceinline__ void ld_cluster(unsigned local, unsigned rank, float (&v)[N]) {
+  static_assert(N == 2 || N == 4, "a 2- or 4-float vector");
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(local), "r"(rank));
+  if constexpr (N == 2)
+    asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(v[0]), "=f"(v[1]) : "r"(a) : "memory");
+  else
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "r"(a) : "memory");
+}
+// The N floats at `slot` (this CTA's shared memory, 16-byte aligned at N =
+// 4) of every CTA of the cluster, summed in f32 in rank order 0, 1, .., so
+// that every CTA gets the same bits; after a cluster barrier that follows
+// every rank's write of its slot. In two halves, so that a caller can put
+// work between them: cluster_load starts the loads of the first four ranks
+// into v, cluster_gather sums them and the other ranks' (loaded there, four
+// at once) into s.
+template <int N>
+__device__ __forceinline__ void cluster_load(float (&v)[4][N], const float* slot) {
+  const unsigned local = smem_u32(slot);
+  const int n = static_cast<int>(cluster_nctarank());
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (q < n) ld_cluster(local, q, v[q]);
+}
+template <int N>
+__device__ __forceinline__ void cluster_gather(float (&s)[N], float (&v)[4][N], const float* slot) {
+  const unsigned local = smem_u32(slot);
+  const int n = static_cast<int>(cluster_nctarank());
+  for (int r0 = 0; r0 < n; r0 += 4) {
+    if (r0 > 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (r0 + q < n) ld_cluster(local, r0 + q, v[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (r0 + q < n) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) s[i] = r0 + q == 0 ? v[q][i] : s[i] + v[q][i];
+      }
+  }
+}
+// s (this CTA's partial) summed over the cluster's CTAs as above. Every
+// thread of every CTA calls it with its own slot: each writes s there, one
+// cluster barrier (a CTA barrier too), then each gathers. A caller that
+// calls again before the peers are done reading alternates between two
+// slots: the next call's barrier then orders those reads before the slot is
+// written again. Before it exits, a CTA arrives and waits once more, so that
+// no peer reads the slot of a CTA that has left.
+template <int N>
+__device__ __forceinline__ void cluster_sum(float (&s)[N], float* slot) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) slot[i] = s[i];
+  cluster_arrive();
+  cluster_wait();
+  float v[4][N];
+  cluster_load(v, slot);
+  cluster_gather(s, v, slot);
 }
 
 // host: an operand that is copied in 16-byte pieces starts 16-byte aligned,

@@ -20,14 +20,18 @@ or raise; on CPU tensors they take the plain versions (dense logits, the
 same rounding points). The routes are picked by h2's dtype and hidden
 size, never by failure (``forward_route``, ``backward_plan``):
 - bf16 h2: the bf16 tensor-core kernels (``"mma"``), forward at every
-  hidden, backward while its tiles fit (H <= 1536);
+  hidden; backward with one CTA an own tile while its tiles fit (H <=
+  1536), past that with the hidden dim split across a thread-block
+  cluster of 2 to 8 CTAs (up to H = 6144);
 - f32 h2: the TF32 tensor-core kernels with error compensation
   (``"tf32x3"``: each operand split into two TF32 parts and three
-  products summed, which holds f32 accuracy), forward at every hidden,
-  backward while its f32 tiles fit (H <= 768);
-- past those sizes the FMA backward on the FP32 units (``"fma"``, W
-  rounded on load). The FMA forward is the predecessor of both
-  tensor-core forwards; no route takes it.
+  products summed, which holds f32 accuracy), forward at every hidden;
+  backward with one CTA an own tile while its f32 tiles fit (H <= 768),
+  past that in a cluster (up to H = 6144);
+- past the cluster limit (H > 6144) the FMA backward on the FP32 units
+  (``"fma"``, W rounded on load), the tensor-core backwards'
+  predecessor. The FMA forward is the predecessor of both tensor-core
+  forwards; no route takes it.
 The tensor-core kernels read W in their operand dtype: a W of the other
 dtype is cast once in the forward's call and once per backward, the copy
 shared by dh and dW, as the JAX ``_fwd`` and ``_bwd`` do (to f32 the cast
@@ -60,7 +64,7 @@ _SIGNATURES = {
     "lm_loss_fwd_tf32": [_PTR] * 6 + [_INT] * 5 + [_PTR],
     "lm_loss_fwd_mma_splits": [_INT, _INT],
     "lm_loss_bwd": [_PTR] * 6 + [_INT] * 6 + [_PTR],
-    "lm_loss_bwd_mma": [_PTR] * 6 + [_INT] * 9 + [_PTR],
+    "lm_loss_bwd_mma": [_PTR] * 6 + [_INT] * 10 + [_PTR],
     "lm_loss_fwd_splits": [_INT, _INT],
 }
 _fns = {}
@@ -114,57 +118,96 @@ _MAX_SMEM = 232448
 class BackwardPlan(NamedTuple):
     """What the backward's launch takes: the ``route`` ("mma", "tf32x3" or
     "fma") and, for the tensor-core routes, the arguments of
-    ``lm_loss_bwd_mma``: the hidden columns a CTA accumulates (``chunk``;
-    the grid's y walks ceil(H / chunk) chunks, each recomputing the logits
-    over the full H), the accumulator instance ``hc`` (in 128-column units,
-    >= chunk / 128) and the other-operand buffers ``stages``. The FMA kernel
-    picks its own chunks (``pick_hc`` in csrc/lm_loss.cu), so they are 0
-    there."""
+    ``lm_loss_bwd_mma``: the hidden columns a CTA accumulates (``chunk``),
+    the accumulator instance ``hc`` (in 128-column units, >= chunk / 128),
+    the other-operand buffers ``stages`` and ``cluster``. With ``cluster``
+    1 every CTA holds a [32, H] own tile, and the grid's y walks ceil(H /
+    chunk) chunks, each recomputing the logits over the full H; with 2 to 8
+    the CTAs of a thread-block cluster share one own tile, rank r holding
+    its hidden slice [r * chunk, + chunk), and sum their partial logits
+    through distributed shared memory. The FMA kernel picks its own chunks
+    (``pick_hc`` in csrc/lm_loss.cu), so all are 0 there."""
     route: str
     chunk: int = 0
     hc: int = 0
     stages: int = 0
+    cluster: int = 0
 
 
-def _mma_smem(hidden: int, stages: int) -> int:
-    """The bf16 tensor-core kernel's shared memory: the resident [32, H]
-    own tile, ``stages`` [32, H] other tiles (rows padded by 8 bf16), the
-    [32, 40] bf16 dl tile and four [32, 40] f32 partials of S."""
-    return ((1 + stages) * 32 * (hidden + 8) + 32 * 40) * 2 + 4 * 32 * 40 * 4
+#: CTAs a thread-block cluster may portably hold, and the hidden size they
+#: cover in slices of at most 768 columns
+_MAX_CLUSTER = 8
+_MAX_HIDDEN = _MAX_CLUSTER * 768
 
 
-def _tf32_smem(hidden: int) -> int:
-    """The 3xTF32 kernel's shared memory: the resident [32, H] f32 own tile
-    and two [16, H] other tiles (rows padded by 4 f32), eight [32, 24] f32
-    partials of S and the [32, 20] f32 dl tile."""
-    return ((32 + 2 * 16) * (hidden + 4) + 8 * 32 * 24 + 32 * 20) * 4
+def _mma_smem(width: int, stages: int, cluster: int = 1) -> int:
+    """The bf16 tensor-core kernel's shared memory: the resident [32,
+    width] own tile (width: H, or a cluster's hidden slice), ``stages`` [32,
+    width] other tiles (rows padded by 8 bf16), the [32, 40] bf16 dl tile,
+    four [32, 40] f32 partials of S and, in a cluster, two [32, 32] f32
+    slots of the CTA's partial S."""
+    return (((1 + stages) * 32 * (width + 8) + 32 * 40) * 2 + 4 * 32 * 40 * 4
+            + (2 * 32 * 32 * 4 if cluster > 1 else 0))
+
+
+def _tf32_smem(width: int, cluster: int = 1, stages: int = 2) -> int:
+    """The 3xTF32 kernel's shared memory: the resident [32, width] f32 own
+    tile and ``stages`` [16, width] other tiles (rows padded by 4 f32), eight
+    [32, 24] f32 partials of S, the [32, 20] f32 dl tile and, in a cluster,
+    two [32, 16] f32 slots of the CTA's partial S."""
+    return ((32 + stages * 16) * (width + 4) + 8 * 32 * 24 + 32 * 20
+            + (2 * 32 * 16 if cluster > 1 else 0)) * 4
+
+
+def _plan_smem(plan: BackwardPlan, hidden: int) -> int:
+    """Shared memory a CTA of a tensor-core ``plan`` takes at ``hidden``."""
+    width = hidden if plan.cluster == 1 else plan.chunk
+    if plan.route == "tf32x3":
+        return _tf32_smem(width, plan.cluster, plan.stages)
+    return _mma_smem(width, plan.stages, plan.cluster)
 
 
 def _plan(route: str, h_dtype, hidden: int) -> BackwardPlan:
     """The plan of ``route`` for h2 of ``h_dtype`` and ``hidden`` columns;
-    ValueError where the route cannot take them."""
+    ValueError where the route cannot take them. Where the [32, H] own tile
+    fits, the hidden dim goes in ceil(units / 6) chunks over gridDim.y of
+    chunk = ceil(units / chunks) x 128 columns (units = H / 128): at most
+    768, the register accumulator's width. Past that a cluster of CTAs
+    shares the own tile, one slice of chunk columns each (the last may be
+    narrower), pipelined over three other buffers where they fit: bf16
+    slices of at most 768 columns; f32 slices of at most 512 while 8 CTAs
+    cover H (H <= 4096), else of at most 768 in order over two buffers. At
+    most 8 CTAs (H <= 6144)."""
     if route == "fma":
         return BackwardPlan("fma")
     if route not in _OPERAND:
         raise ValueError(f"route must be 'mma', 'tf32x3' or 'fma', got {route!r}")
     if h_dtype != _OPERAND[route]:
         raise ValueError(f"the {route!r} backward takes {_OPERAND[route]} h2, got {h_dtype}")
-    if not _fits(route, hidden):
-        raise ValueError(f"the {route!r} backward's tiles do not fit at hidden {hidden} "
-                         f"(bf16 up to 1536, f32 up to 768)")
     units = hidden // 128
     chunks = -(-units // 6)
     need = -(-units // chunks)
     hc = 2 if need <= 2 else 4 if need <= 4 else 6
-    if route == "tf32x3":
-        stages = 2
-    else:
-        stages = 2 if _mma_smem(hidden, 2) <= _MAX_SMEM else 1
-    return BackwardPlan(route, need * 128, hc, stages)
+    if _fits(route, hidden):
+        if route == "tf32x3":
+            stages = 2
+        else:
+            stages = 2 if _mma_smem(hidden, 2) <= _MAX_SMEM else 1
+        return BackwardPlan(route, need * 128, hc, stages, 1)
+    if hidden > _MAX_HIDDEN:
+        raise ValueError(f"the {route!r} backward takes hidden up to {_MAX_HIDDEN} "
+                         f"(clusters of at most {_MAX_CLUSTER} CTAs of 768 columns), "
+                         f"got {hidden}")
+    pipelined = route == "mma" or units <= 4 * _MAX_CLUSTER
+    cluster = -(-units // 4) if route == "tf32x3" and pipelined else chunks
+    need = -(-units // cluster)
+    return BackwardPlan(route, need * 128, 4 if need <= 4 else 6, 3 if pipelined else 2,
+                        cluster)
 
 
 def _fits(route: str, hidden: int) -> bool:
-    """Whether the tiles of a tensor-core route fit in shared memory."""
+    """Whether one CTA holds the [32, H] own tile of a tensor-core route
+    beside its other tiles in shared memory."""
     smem = _tf32_smem(hidden) if route == "tf32x3" else _mma_smem(hidden, 1)
     return smem <= _MAX_SMEM
 
@@ -174,14 +217,17 @@ def backward_plan(h_dtype, hidden: int) -> BackwardPlan:
     columns (a multiple of 128).
 
     bf16 h2 takes the bf16 tensor-core route (``"mma"``) and f32 h2 the
-    3xTF32 one (``"tf32x3"``) while their tiles fit in shared memory: bf16
-    up to H = 1536 (chunks of at most 768 columns, 96 accumulator floats a
-    thread; double-buffered up to H = 1024, single-buffered above), f32 up
-    to H = 768 (one chunk, 16-row other tiles double-buffered). Past those,
-    and for other dtypes, the FMA route."""
+    3xTF32 one (``"tf32x3"``) up to H = 6144. While a CTA's tiles fit in
+    shared memory, one CTA holds an own tile: bf16 up to H = 1536 (chunks of
+    at most 768 columns, 96 accumulator floats a thread; double-buffered
+    up to H = 1024, single-buffered above), f32 up to H = 768 (one chunk,
+    16-row other tiles double-buffered). Past those, a thread-block cluster
+    of 2 to 8 CTAs shares one, each CTA a hidden slice (``_plan``). Past H =
+    6144 (more than 8 slices of 768), and for other dtypes, the FMA
+    route."""
     route = "mma" if h_dtype == torch.bfloat16 else "tf32x3"
-    fits = h_dtype == _OPERAND[route] and _fits(route, hidden)
-    return _plan(route if fits else "fma", h_dtype, hidden)
+    takes = h_dtype == _OPERAND[route] and hidden <= _MAX_HIDDEN
+    return _plan(route if takes else "fma", h_dtype, hidden)
 
 
 # ------------------------------------------------------------ plain versions
@@ -354,7 +400,7 @@ def _bwd_launch(h2, w, labels, lse, g, dw, w_read=None, route=None):
         w_read = _aligned(w_read)
         _call("lm_loss_bwd_mma", h2.device, h2.data_ptr(), w_read.data_ptr(), *common,
               _DTYPE_CODES[h2.dtype], _DTYPE_CODES[out.dtype], n, v, hdim, int(dw),
-              plan.chunk, plan.hc, plan.stages)
+              plan.chunk, plan.hc, plan.stages, plan.cluster)
     else:
         _call("lm_loss_bwd", h2.device, h2.data_ptr(), w.data_ptr(), *common,
               _DTYPE_CODES[h2.dtype], _DTYPE_CODES[w.dtype], n, v, hdim, int(dw))

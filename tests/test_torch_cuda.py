@@ -21,11 +21,14 @@ LM-loss backward's tensor-core kernels (bf16 h) are also held to their
 plain versions with every label -100 (dh and dW the softmax term alone), to
 giving the same bits twice, to their route's launch counts, and to HMMA in
 their SASS with no spills. At f32 h the backward takes the 3xTF32 tensor
-cores up to H = 768: its f32 dh and dW, and the FMA kernel's (its
-predecessor), are held besides to 5e-6 in relative Frobenius norm
-(GRAD_F32_FROB_TOL): a TF32 product without its error compensation errs
-by ~2e-4 there while its dh passes the max limit, f32 sums in another
-order by ~4e-7. Its instances hold TF32 HMMA in their SASS.
+cores: its f32 dh and dW, and the FMA kernel's (its predecessor), are held
+besides to 5e-6 in relative Frobenius norm (GRAD_F32_FROB_TOL): a TF32
+product without its error compensation errs by ~2e-4 there while its dh
+passes the max limit, f32 sums in another order by ~4e-7. Its instances
+hold TF32 HMMA in their SASS. Past the one-CTA tiles (f32 H > 768, bf16 H
+> 1536) both tensor-core backwards split the hidden dim across a
+thread-block cluster: the same limits, the same bits twice, and a cluster
+launch the C entry refuses raises rather than falling back.
 
 The tensor-core forwards (flash attention and the LM loss at bf16) hold
 their f32 outputs, lse and the per-row loss, at 1e-4 x max(1, max|ref|):
@@ -722,7 +725,7 @@ def test_layer_norm_autograd_goes_through_the_kernels(cuda):
     ("float32", "float32", 1024, 500, 128),       # ragged vocab edge
     ("bfloat16", "bfloat16", 1024, 640, 256),
     ("bfloat16", "float32", 2048, 384, 768),      # bf16 h, f32 master W
-    ("float32", "float32", 1024, 300, 1280),      # two hidden chunks in dh / dW
+    ("float32", "float32", 1024, 300, 1280),      # a cluster of two in dh / dW
     ("float32", "bfloat16", 1000, 256, 128),      # ragged rows (the wrappers mask them)
     # bf16 h: the tensor-core backward, at the edges of its 32-row tiles
     ("bfloat16", "float32", 1024, 500, 128),      # ragged vocab
@@ -730,11 +733,17 @@ def test_layer_norm_autograd_goes_through_the_kernels(cuda):
     ("bfloat16", "float32", 1000, 256, 768),      # ragged rows
     ("bfloat16", "float32", 1024, 300, 1280),     # two hidden chunks, one other buffer
     ("bfloat16", "bfloat16", 1000, 500, 1280),
+    # past the one-CTA tiles: the hidden dim split across a cluster
+    ("float32", "float32", 1000, 500, 1024),      # 2 CTAs of 512; ragged rows and vocab
+    ("float32", "bfloat16", 1000, 300, 2048),     # 4 CTAs of 512
+    ("bfloat16", "float32", 1000, 500, 1664),     # 3 CTAs: 640 + 640 + 384
+    ("bfloat16", "bfloat16", 1000, 700, 2048),    # 3 CTAs: gpt_1p3b's width
 ])
 def test_lm_loss_kernels_match_plain(cuda, htype, wtype, n, v, hdim):
     """The forward (loss, lse), dh and dW against their plain versions, with
     a label of -100 and one at the last column; each wrapper launches once,
-    on the route backward_plan gives (tensor cores for bf16 h)."""
+    on the route backward_plan gives (the tensor cores at both dtypes, in a
+    cluster past the one-CTA tiles)."""
     ht, wt = getattr(torch, htype), getattr(torch, wtype)
     rng = np.random.RandomState(12)
     h = torch.from_numpy(rng.randn(n, hdim).astype(np.float32)).to(cuda, ht)
@@ -743,7 +752,7 @@ def test_lm_loss_kernels_match_plain(cuda, htype, wtype, n, v, hdim):
     labels[5], labels[6] = -100, v - 1
     g = torch.from_numpy(rng.rand(n).astype(np.float32)).to(cuda)
     route = lm.backward_plan(ht, hdim).route
-    assert route == ("mma" if ht == torch.bfloat16 else "tf32x3" if hdim <= 768 else "fma")
+    assert route == ("mma" if ht == torch.bfloat16 else "tf32x3")
     fwd_route = lm.forward_route(ht)
 
     def counts():
@@ -777,6 +786,12 @@ def test_lm_loss_kernels_match_plain(cuda, htype, wtype, n, v, hdim):
     ("float32", 2048, 1000, 640, "minus100"),   # one other buffer, 5 of 6 pairs
     ("bfloat16", 1024, 300, 768, "minus100"),   # bf16 W cast to f32; dW in bf16
     ("float32", 1024, 700, 256, "all_minus100"),
+    # past H = 768: the hidden dim split across a cluster
+    ("float32", 1000, 500, 1024, "minus100"),       # 2 CTAs of 512
+    ("float32", 1000, 300, 1280, "all_minus100"),   # 3 CTAs: 512 + 512 + 256
+    ("float32", 1000, 700, 2048, "minus100"),       # 4 CTAs of 512
+    ("float32", 1000, 300, 4224, "minus100"),       # 6 CTAs of <= 768, in order
+    ("bfloat16", 1000, 500, 2048, "all_minus100"),  # bf16 W cast to f32; dW in bf16
 ])
 def test_lm_loss_tf32x3_backward_and_its_predecessor_match_plain(cuda, wtype, n, v, hdim,
                                                                  labels):
@@ -974,12 +989,13 @@ def test_lm_loss_mma_backward_is_deterministic(cuda):
 
 
 def test_lm_loss_backward_routes(cuda):
-    """bf16 h launches the bf16 tensor-core kernels, f32 h the 3xTF32 ones up
-    to H = 768 and the FMA ones past it, through the direct calls and
-    through autograd; the private route="fma" reaches the FMA kernel at bf16
-    and f32 h (for timing it) and gives the same result within the
-    tolerances of the plain version; the tensor-core routes refuse the
-    other dtype of h."""
+    """bf16 h launches the bf16 tensor-core kernels and f32 h the 3xTF32
+    ones, past the one-CTA tiles in a cluster (f32 H = 1280, bf16 H = 2048),
+    and the FMA ones past the cluster limit (H = 6272), through the direct
+    calls and through autograd; the private route="fma" reaches the FMA
+    kernel at bf16 and f32 h (for timing it) and gives the same result
+    within the tolerances of the plain version; the tensor-core routes
+    refuse the other dtype of h."""
     h, w, labels, g = _lm_inputs(cuda, 1024, 640, 256, torch.float32, seed=17)
     _, lse = lm.lm_loss_fwd(h, w, labels)
     routes = ("mma", "tf32x3", "fma")
@@ -996,8 +1012,13 @@ def test_lm_loss_backward_routes(cuda):
 
     h1280 = torch.randn(1024, 1280, device=cuda)
     w1280 = torch.randn(300, 1280, device=cuda) * 0.05
+    h2048 = torch.randn(1024, 2048, device=cuda, dtype=torch.bfloat16)
+    w2048 = torch.randn(300, 2048, device=cuda) * 0.05
+    h6272 = torch.randn(1024, 6272, device=cuda)
+    w6272 = torch.randn(300, 6272, device=cuda) * 0.02
     for hh, ww, route in ((h, w, "mma"), (h.float(), w, "tf32x3"),
-                          (h1280, w1280, "fma")):
+                          (h1280, w1280, "tf32x3"), (h2048, w2048, "mma"),
+                          (h6272, w6272, "fma")):
         _, lse_r = lm.lm_loss_fwd(hh, ww, labels % ww.shape[0])
         before = counts()
         lm.lm_loss_dh(hh, ww, labels % ww.shape[0], lse_r, g)
@@ -1025,21 +1046,73 @@ def test_lm_loss_backward_routes(cuda):
 def test_lm_loss_bwd_mma_refuses_plans_without_an_instance(cuda):
     """The C entry of the tensor-core backward returns cudaErrorInvalidValue
     (1) for a plan without an instance (f32 single-buffered: the 3xTF32
-    kernel always double-buffers; bf16 HC 4 single-buffered) or an output
-    dtype dh cannot have, and launches nothing."""
+    kernel always double-buffers; bf16 HC 4 single-buffered; a bf16 cluster
+    at HC 4; an f32 cluster at HC 4 in order), an output dtype dh cannot
+    have, or a cluster it cannot take (9 CTAs; slices of 768 that do not
+    split H = 768 in two), and launches nothing."""
     h, w, labels, g = _lm_inputs(cuda, 1024, 640, 768, torch.float32, seed=19)
     lse = torch.zeros(1024, device=cuda)
     fn = lm._kernel("lm_loss_bwd_mma")
     stream = torch.cuda.current_stream().cuda_stream
-    for hh, itype, otype, dw, hc, stages in ((h.float(), 0, 0, 0, 6, 1),
-                                             (h, 1, 1, 0, 4, 1),
-                                             (h.float(), 0, 1, 0, 6, 2)):
+    for hh, itype, otype, dw, hc, stages, cluster in ((h.float(), 0, 0, 0, 6, 1, 1),
+                                                      (h, 1, 1, 0, 4, 1, 1),
+                                                      (h.float(), 0, 1, 0, 6, 2, 1),
+                                                      (h, 1, 1, 0, 4, 2, 2),
+                                                      (h.float(), 0, 0, 0, 4, 3, 9),
+                                                      (h.float(), 0, 0, 0, 6, 2, 2),
+                                                      (h.float(), 0, 0, 0, 4, 2, 2)):
         ww = w.to(hh.dtype)
         out = torch.empty(hh.shape, dtype=hh.dtype, device=cuda)
         err = fn(hh.data_ptr(), ww.data_ptr(), labels.data_ptr(), lse.data_ptr(),
                  g.data_ptr(), out.data_ptr(), itype, otype, 1024, 640, 768, dw, hc * 128, hc,
-                 stages, stream)
-        assert err == 1, (itype, otype, hc, stages)
+                 stages, cluster, stream)
+        assert err == 1, (itype, otype, hc, stages, cluster)
+
+
+def test_lm_loss_refused_cluster_launch_raises_and_counts_nothing(cuda, monkeypatch):
+    """No fallback: where the C entry refuses a cluster plan (here one of 9
+    CTAs, past the portable 8), the backward raises and no route's launch
+    count moves."""
+    h, w, labels, g = _lm_inputs(cuda, 1024, 640, 1024, torch.float32, seed=20)
+    hh = h.float()
+    _, lse = lm.lm_loss_fwd(hh, w, labels)
+    monkeypatch.setattr(lm, "backward_plan",
+                        lambda dtype, hidden: lm.BackwardPlan("tf32x3", 128, 4, 3, 9))
+    before = {r: dict(c) for r, c in lm.launches_by_route.items()}
+    with pytest.raises(RuntimeError):
+        lm.lm_loss_dh(hh, w, labels, lse, g)
+    assert lm.launches_by_route == before
+
+
+@pytest.mark.parametrize("hdim", [1664, 2048])
+def test_lm_loss_cluster_backward_softmax_term_alone(cuda, hdim):
+    """bf16 h past H = 1536 (a cluster of 3) with every label -100: dh and
+    dW are the softmax term alone; ragged rows and vocab; against the plain
+    version at the bf16 limits (dW f32 at DW_F32_TOL's 1e-3 x max|ref|)."""
+    h, w, labels, g = _lm_inputs(cuda, 1000, 500, hdim, torch.float32, seed=26)
+    labels.fill_(-100)
+    assert lm.backward_plan(h.dtype, hdim).cluster == 3
+    _, lse = lm.lm_loss_fwd(h, w, labels)
+    dh, dw = lm.lm_loss_dh(h, w, labels, lse, g), lm.lm_loss_dw(h, w, labels, lse, g)
+    pdh, pdw = lm.lm_loss_bwd_plain(h, w, labels, lse, g)
+    assert pdh.abs().max().item() > 0 and pdw.abs().max().item() > 0
+    assert _err(dh, pdh) <= _grad_tol(dh, pdh, h.dtype)
+    assert _err(dw, pdw) <= _grad_tol(dw, pdw, h.dtype)
+
+
+@pytest.mark.parametrize("htype,hdim", [("float32", 1024), ("float32", 2048),
+                                        ("bfloat16", 2048)])
+def test_lm_loss_cluster_backward_is_deterministic(cuda, htype, hdim):
+    """The cluster route sums the CTAs' partial S in rank order, with no
+    atomics: two calls on the same inputs give the same bits, dh and dW."""
+    h, w, labels, g = _lm_inputs(cuda, 1000, 700, hdim, torch.float32, seed=27)
+    hh = h.to(getattr(torch, htype))
+    assert lm.backward_plan(hh.dtype, hdim).cluster > 1
+    _, lse = lm.lm_loss_fwd(hh, w, labels)
+    first = (lm.lm_loss_dh(hh, w, labels, lse, g), lm.lm_loss_dw(hh, w, labels, lse, g))
+    second = (lm.lm_loss_dh(hh, w, labels, lse, g), lm.lm_loss_dw(hh, w, labels, lse, g))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _cuobjdump():
@@ -1065,7 +1138,9 @@ def _cuobjdump():
 
 def test_lm_loss_mma_kernels_use_tensor_cores_without_spills(cuda):
     """The built lm_loss library's tensor-core backward kernels (every
-    instance: 12 of lm_grad_mma_kernel, bf16; 9 of lm_grad_tf32_kernel, f32)
+    instance: 15 of lm_grad_mma_kernel, bf16, 3 of them the cluster route's,
+    pipelined; 15 of lm_grad_tf32_kernel, f32, 6 of them the cluster
+    route's, 3 pipelined and 3 in order)
     hold HMMA instructions in their SASS, TF32 HMMA (HMMA.1688.F32.TF32) in
     the f32 ones only, and ptxas reports 0 spill bytes and at most 255
     registers for each."""
@@ -1076,8 +1151,8 @@ def test_lm_loss_mma_kernels_use_tensor_cores_without_spills(cuda):
     _build.load("lm_loss")
     report = {k: r for k, r in _build.ptxas_report("lm_loss").items()
               if "lm_grad_mma_kernel" in k or "lm_grad_tf32_kernel" in k}
-    assert len(report) == 21, sorted(report)
-    assert sum("lm_grad_tf32_kernel" in k for k in report) == 9, sorted(report)
+    assert len(report) == 30, sorted(report)
+    assert sum("lm_grad_tf32_kernel" in k for k in report) == 15, sorted(report)
     for name, r in report.items():
         assert r.get("spill_stores") == 0 and r.get("spill_loads") == 0, (name, r)
         assert r.get("registers", 256) <= 255, (name, r)
@@ -1092,7 +1167,7 @@ def test_lm_loss_mma_kernels_use_tensor_cores_without_spills(cuda):
         funcs[name] = part
     mma = {k: body for k, body in funcs.items()
            if "lm_grad_mma_kernel" in k or "lm_grad_tf32_kernel" in k}
-    assert len(mma) == 21, sorted(funcs)
+    assert len(mma) == 30, sorted(funcs)
     for name, body in mma.items():
         assert "HMMA" in body, name
         assert ("HMMA.1688.F32.TF32" in body) == ("lm_grad_tf32_kernel" in name), name

@@ -15,8 +15,9 @@ backward's route and hidden-chunk plan (``backward_plan``), the forward's
 route (``forward_route``), the compile probe's variants as instances of
 the tensor-core forward, and the numerics the 3xTF32 forward and backward
 rely on (a plain emulation of TF32 products: three terms reach the card's
-f32 limit, fewer do not), with the edits of the tools that check their
-mutants on the card.
+f32 limit, fewer do not; also with S summed over a cluster's hidden
+slices), with the edits of the tools that check their mutants on the
+card.
 
 Tolerances: f32 loss 2e-5 and gradients of the mean loss 1e-6 absolute (the
 same f32 products and logsumexp in another order; gradients are ~1e-4);
@@ -40,7 +41,7 @@ from paddle_tpu.ops.pallas import lm_loss as jax_lm
 from paddle_tpu_torch.models import GPTForPretraining, gpt_tiny, load_jax_state
 from paddle_tpu_torch.ops.kernels import layer_norm as ln
 from paddle_tpu_torch.ops.kernels import lm_loss as lm
-from tf32_emulation import GRAD_F32_FROB_TOL, tf32_product
+from tf32_emulation import GRAD_F32_FROB_TOL, tf32_product, tf32_sliced_product
 
 LOSS_TOL = 2e-5
 GRAD_TOL = 1e-6
@@ -221,57 +222,97 @@ def test_bf16_h_f32_w_backward_ragged_vocab_and_minus_100_match_jax():
     ("bfloat16", 1280, "mma", 2, 640, 6, 1),     # two other tiles no longer fit
     ("float32", 128, "tf32x3", 1, 128, 2, 2),    # 3xTF32: 16-row other tiles,
     ("float32", 768, "tf32x3", 1, 768, 6, 2),    # double-buffered at every H
-    ("float32", 1024, "fma", None, 0, 0, 0),     # the FMA kernel picks its own chunks
-    ("float32", 1280, "fma", None, 0, 0, 0),
+    # past the one-CTA tiles: "cN", a cluster of N CTAs, one hidden slice each;
+    # f32 slices of <= 512 pipelined over three buffers up to H = 4096
+    ("float32", 1024, "tf32x3", "c2", 512, 4, 3),   # gpt_345m: 512 + 512
+    ("float32", 1280, "tf32x3", "c3", 512, 4, 3),   # 512 + 512 + 256
+    ("float32", 896, "tf32x3", "c2", 512, 4, 3),    # 512 + 384
+    ("float32", 2048, "tf32x3", "c4", 512, 4, 3),
+    ("float32", 4096, "tf32x3", "c8", 512, 4, 3),
+    ("float32", 4224, "tf32x3", "c6", 768, 6, 2),   # past it slices of <= 768, in order
+    ("float32", 6144, "tf32x3", "c8", 768, 6, 2),   # the cluster limit
+    ("float32", 6272, "fma", None, 0, 0, 0),        # past it: the FMA kernel picks its
+    ("bfloat16", 6272, "fma", None, 0, 0, 0),       # own chunks
+    ("bfloat16", 1664, "mma", "c3", 640, 6, 3),     # 640 + 640 + 384
+    ("bfloat16", 2048, "mma", "c3", 768, 6, 3),     # gpt_1p3b: 768 + 768 + 512
+    ("bfloat16", 2560, "mma", "c4", 640, 6, 3),
 ])
 def test_backward_plan_table(dtype, hidden, route, chunks, chunk, hc, stages):
     """The backward's route and the plan lm_loss_bwd_mma is launched with:
-    bf16 h takes the bf16 tensor cores, f32 h the TF32 ones (3xTF32) up to
-    H = 768 and the FMA kernel past it. The tensor-core grid's y is
-    ceil(H / chunk) hidden chunks (the C entry's grid), and the tiles fit in
-    the H100's 227 KB of shared memory."""
+    bf16 h takes the bf16 tensor cores, f32 h the TF32 ones (3xTF32), up to
+    H = 6144; past it the FMA kernel. While the [32, H] own tile fits, one
+    CTA holds it and the grid's y is ceil(H / chunk) hidden chunks (the C
+    entry's grid, cluster 1); past that a cluster of ceil(H / chunk) CTAs
+    shares it, each a slice of chunk columns (the last narrower), pipelined
+    over three other buffers, or in order over two where three do not fit
+    (f32 slices past 512). The tiles fit in the H100's 227 KB of shared
+    memory."""
     plan = lm.backward_plan(getattr(torch, dtype), hidden)
-    assert plan == (route, chunk, hc, stages)
+    cluster = int(chunks[1:]) if isinstance(chunks, str) else int(route != "fma")
+    assert plan == (route, chunk, hc, stages, cluster)
     if route != "fma":
-        assert -(-hidden // plan.chunk) == chunks and chunk <= hc * 128
-        smem = lm._tf32_smem(hidden) if route == "tf32x3" else lm._mma_smem(hidden, stages)
-        assert smem <= 232448
+        assert -(-hidden // plan.chunk) == (cluster if cluster > 1 else chunks)
+        assert chunk <= hc * 128 and lm._plan_smem(plan, hidden) <= 232448
+        assert lm._fits(route, hidden) == (cluster == 1)
+        if cluster > 1:
+            assert chunk * (cluster - 1) < hidden <= chunk * cluster
 
 
 def test_backward_plan_limits():
     """Past H = 1536 the bf16 tiles, past H = 768 the f32 tiles do not fit
-    in shared memory, and h takes the FMA kernel; forcing a tensor-core
-    route there or at the other dtype, or naming no route, raises."""
-    assert lm.backward_plan(torch.bfloat16, 1536).route == "mma"
-    assert lm.backward_plan(torch.bfloat16, 1664).route == "fma"
-    assert lm.backward_plan(torch.float32, 768).route == "tf32x3"
-    assert lm.backward_plan(torch.float32, 896).route == "fma"
+    in one CTA's shared memory, and h takes a cluster of 2 to 8 CTAs at
+    every H up to 6144, with the plans below those sizes as they were; past
+    6144 (and at other dtypes) the FMA kernel. Forcing a tensor-core route
+    past the cluster limit or at the other dtype, or naming no route,
+    raises."""
+    assert lm.backward_plan(torch.bfloat16, 1536) == ("mma", 768, 6, 1, 1)
+    assert lm.backward_plan(torch.bfloat16, 1664) == ("mma", 640, 6, 3, 3)
+    assert lm.backward_plan(torch.float32, 768) == ("tf32x3", 768, 6, 2, 1)
+    assert lm.backward_plan(torch.float32, 896) == ("tf32x3", 512, 4, 3, 2)
     assert lm.backward_plan(torch.float16, 768).route == "fma"
     assert lm._tf32_smem(768) <= 232448 < lm._tf32_smem(896)
+    assert lm._mma_smem(1536, 1) <= 232448 < lm._mma_smem(1664, 1)
+    for dtype, route, first in ((torch.float32, "tf32x3", 896), (torch.bfloat16, "mma", 1664)):
+        for hidden in range(first, 6144 + 1, 128):
+            plan = lm.backward_plan(dtype, hidden)
+            assert plan.route == route and 2 <= plan.cluster <= 8, (hidden, plan)
+            assert lm._plan_smem(plan, hidden) <= 232448, (hidden, plan)
+            assert plan.stages == (2 if route == "tf32x3" and hidden > 4096 else 3), hidden
+        for hidden in range(128, first, 128):
+            assert lm.backward_plan(dtype, hidden).cluster == 1
+        assert lm.backward_plan(dtype, 6272).route == "fma"
     assert lm._plan("fma", torch.bfloat16, 768).route == "fma"
     assert lm._plan("fma", torch.float32, 768).route == "fma"
     with pytest.raises(ValueError):
-        lm._plan("mma", torch.bfloat16, 1664)
+        lm._plan("mma", torch.bfloat16, 6272)
     with pytest.raises(ValueError):
         lm._plan("mma", torch.float32, 768)
     with pytest.raises(ValueError):
         lm._plan("tf32x3", torch.bfloat16, 768)
     with pytest.raises(ValueError):
-        lm._plan("tf32x3", torch.float32, 896)
+        lm._plan("tf32x3", torch.float32, 6272)
     with pytest.raises(ValueError):
         lm._plan("wgmma", torch.bfloat16, 768)
 
 
-def _tf32_backward(h, w, labels, lse, g, terms):
+def _tf32_backward(h, w, labels, lse, g, terms, slices=None):
     """dh and dW as the two kernels compute them: dh's S = h . Wᵀ (A = h),
-    dW's Sᵀ = W . hᵀ (A = W), then dl in f32 and dl . W, dlᵀ . h (A = dl)."""
+    dW's Sᵀ = W . hᵀ (A = W), then dl in f32 and dl . W, dlᵀ . h (A = dl).
+    ``slices`` (the cluster route's hidden slices) sums S's partials over
+    them in rank order (``tf32_sliced_product``); the products by dl give
+    each slice's own columns, so they are unchanged."""
     onehot = lm._onehot(labels, w.shape[0], torch.zeros(h.shape[0], w.shape[0]))
 
     def dl(s):
         return (torch.exp(s - lse[:, None]) - onehot) * g[:, None]
 
-    dh = tf32_product(dl(tf32_product(h, w.t(), terms)), w, terms)
-    dw = tf32_product(dl(tf32_product(w, h.t(), terms).t()).t(), h, terms)
+    def s_product(a, b):
+        if slices is None:
+            return tf32_product(a, b.t(), terms)
+        return tf32_sliced_product(a, b.t(), slices, terms)
+
+    dh = tf32_product(dl(s_product(h, w)), w, terms)
+    dw = tf32_product(dl(s_product(w, h).t()).t(), h, terms)
     return dh, dw
 
 
@@ -294,6 +335,38 @@ def test_tf32x3_reaches_the_f32_limit_and_fewer_terms_do_not(terms):
     _, lse = lm.lm_loss_fwd_plain(h, w, labels)
     pdh, pdw = lm.lm_loss_bwd_plain(h, w, labels, lse, g)
     dh, dw = _tf32_backward(h, w, labels, lse, g, terms)
+    for got, ref in ((dh, pdh), (dw, pdw)):
+        err = ((got - ref).norm() / ref.norm()).item()
+        if terms == 3:
+            assert err <= GRAD_F32_FROB_TOL / 4, err
+        else:
+            assert err > 10 * GRAD_F32_FROB_TOL, err
+
+
+@pytest.mark.parametrize("hid,cluster", [(1024, 2), (2048, 4)])
+@pytest.mark.parametrize("terms", [3, 2])
+def test_tf32x3_cluster_split_reaches_the_f32_limit_and_two_terms_do_not(terms, hid, cluster):
+    """The numerics of the cluster route at f32 h (N = 256, V = 2048, H =
+    1024 and 2048, GPT-2's scales): S's partials over the plan's hidden
+    slices (c 2 and 4, of 512 columns each), each in 3xTF32, summed
+    in f32 in rank order, then dl and the two products. Three terms come
+    within GRAD_F32_FROB_TOL / 4 of the plain f32 version in relative
+    Frobenius norm; the two-term mutant falls outside GRAD_F32_FROB_TOL
+    tenfold."""
+    plan = lm.backward_plan(torch.float32, hid)
+    assert plan.route == "tf32x3" and plan.cluster == cluster
+    slices = [(r * plan.chunk, min((r + 1) * plan.chunk, hid)) for r in range(cluster)]
+    assert slices[-1][1] == hid and all(a < b for a, b in slices)
+    rng = np.random.RandomState(29)
+    n, v = 256, 2048
+    h = torch.from_numpy(rng.randn(n, hid).astype(np.float32))
+    w = torch.from_numpy((rng.randn(v, hid) * 0.02).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, v, (n,)).astype(np.int32))
+    labels[::13] = -100
+    g = torch.from_numpy(rng.rand(n).astype(np.float32))
+    _, lse = lm.lm_loss_fwd_plain(h, w, labels)
+    pdh, pdw = lm.lm_loss_bwd_plain(h, w, labels, lse, g)
+    dh, dw = _tf32_backward(h, w, labels, lse, g, terms, slices)
     for got, ref in ((dh, pdh), (dw, pdw)):
         err = ((got - ref).norm() / ref.norm()).item()
         if terms == 3:

@@ -41,3 +41,15 @@ def tf32_product(a, b, terms):
     if terms >= 2:
         out = out + a_big @ b_small
     return out + a_big @ b_big
+
+
+def tf32_sliced_product(a, b, slices, terms):
+    """a @ b as the cluster route of the LM-loss backward gives it: the
+    contraction dim cut into ``slices`` ([(start, end)], one a CTA of the
+    cluster), each slice's product by ``tf32_product``, and the partials
+    added in f32 in rank order (the first, then each next one)."""
+    out = None
+    for lo, hi in slices:
+        part = tf32_product(a[..., lo:hi], b[..., lo:hi, :], terms)
+        out = part if out is None else out + part
+    return out
