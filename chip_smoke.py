@@ -51,11 +51,24 @@ each:
    bit), ZeRO (bit for bit up to 2 ranks), the bf16 and int8 payloads with
    and without error feedback and ZeRO's bf16 and int8 (losses within 2e-2
    of the f32 trajectory; the first step's reduced gradient within the
-   payload's rounding of the f32 run's, element by element), 12
-   tensor-core launches of each flash kernel a step a rank, the byte
-   counters against the payload functions, ZeRO's peak memory past one
-   rank; step ms, tokens/s per chip, payload bytes, the f32 payload's
-   all_reduce time and bus bandwidth.
+   payload's rounding of the f32 run's, element by element), FSDP at
+   prefetch depths 0 and 2, f32 and bf16 and int8 with error feedback
+   (f32 bit for bit against the replicated run up to 2 ranks; every depth
+   the same bits; its int8 bound on its own chunk grid, the padded
+   buckets), 12 tensor-core launches of each flash kernel a step a rank,
+   the byte counters against the payload functions, ZeRO's peak memory
+   and FSDP's allocated bytes after the steps past one rank; step ms,
+   tokens/s per chip, peaks and bytes held after the steps, payload
+   bytes, the f32 payload's all_reduce time and bus bandwidth.
+7c. ckpt: checkpoints (distributed/elastic.py) at GPT-2 124M, bf16
+   auto_cast: 4 steps with async saves every 2; a fresh engine restores
+   step 2 and takes steps 3 and 4 bit for bit (losses, parameters,
+   optimizer slots); a flipped byte in the newest checkpoint fails fsck
+   and restore_latest falls back; the capture's ms, the writer's ms and
+   the bytes. On two cards or more also ckpt_ranks: an FSDP checkpoint
+   saved at N ranks restores at N / 2 (FSDP) and at 1 (replicated) with
+   every parameter bit for bit; the save's peak above the bytes held
+   before it within two of the largest bucket.
 7b. bench: the port's bench.py counterpart (paddle_tpu_torch.bench.run) in
    this process, bf16 auto_cast: medium (gpt_345m, [8, 1024], 2 + 10 steps in
    3 windows: tokens/s a window, spread, MFU against 989 TFLOP/s, peak
@@ -90,8 +103,8 @@ each:
 9. lmloss_compile_probe: the LM-loss forward's stripped variants at the
    probe's defaults, checked and timed, with ptxas's registers and spills.
 10. the ``kernels`` line: every ported kernel with the path that launched
-   it (the training main path's timed steps and the dp phase's runs on
-   rank 0, the f32 steps, scoring, the
+   it (the training main path's timed steps, the dp phase's runs on
+   rank 0 and the ckpt phase's steps, the f32 steps, scoring, the
    bench's gpt_1p3b run for the d = 128 rows, or a library_ops pass; the flash backward and the LM-loss backward once for
    each dtype, the route in ``kernel_route``), its
    launches there and its numbers from the kernel_vs_plain phases at that
@@ -893,7 +906,11 @@ DP_ZERO_RTOL = 1e-5     # ZeRO vs replicated losses past 2 ranks: NCCL may sum t
                         # loss by far less than 1e-5 of it
 DP_ZERO_MEM_SHARE = 0.8  # ZeRO's peak below replicated's by this share of the
                          # AdamW state it shards, (1 - 1/N) x 8 x n bytes
+DP_FSDP_MEM_SHARE = 0.8  # FSDP's allocated bytes after the steps below ZeRO's by this
+                         # share of the f32 parameters it shards, (1 - 1/N) x 4 x n bytes
 DP_GRAD_CHUNK = 1024     # FLAGS_grad_comm_chunk of the dp runs
+CKPT_ALLOC_SLACK = 8 << 20  # the caching allocator's rounding of the save's two
+                            # allocations (up to 2 MiB each), with room to spare
 
 
 def _flat_grad(params):
@@ -903,11 +920,13 @@ def _flat_grad(params):
                       for nm in sorted(params)])
 
 
-def _payload_bounds(g_local, world):
+def _payload_bounds(g_local, world, buckets=None):
     """Per element, the most a payload's rounding can move the first step's
     reduced mean gradient from the f32 run's, given every rank's own mean
     gradient g_r (this rank's is ``g_local``, [n] f32 on the host): {dtype:
-    [n] f32 on the host}, each twice the rounding bound.
+    [n] f32 on the host}, each twice the rounding bound. ``buckets`` (FSDP's,
+    grad_comm.fsdp_buckets): the int8 chunks tile each padded bucket instead
+    of the flat vector.
 
     bf16: each g_r rounds to bf16 (8 significant bits: relative error <=
     2^-8) and the backend sums in bf16 (at most N - 1 more roundings of
@@ -920,10 +939,20 @@ def _payload_bounds(g_local, world):
     from paddle_tpu_torch.distributed import collective
 
     n = g_local.numel()
-    chunks = -(-n // DP_GRAD_CHUNK)
     a = g_local.abs()
-    absmax = torch.nn.functional.pad(a, (0, chunks * DP_GRAD_CHUNK - n)).view(
-        chunks, DP_GRAD_CHUNK).amax(1)
+    # flat index -> its place on the chunk grid (the padded buckets' under FSDP)
+    place = torch.arange(n)
+    if buckets is not None:
+        pad_off = 0
+        for b in buckets:
+            place[b["off"]:b["off"] + b["n"]] += pad_off - b["off"]
+            pad_off += b["pad"]
+        grid = pad_off
+    else:
+        grid = -(-n // DP_GRAD_CHUNK) * DP_GRAD_CHUNK
+    padded = torch.zeros(grid)
+    padded[place] = a
+    absmax = padded.view(-1, DP_GRAD_CHUNK).amax(1)
     sums = []
     for t in (a, absmax):
         t = t.cuda()
@@ -931,7 +960,7 @@ def _payload_bounds(g_local, world):
         sums.append(t.cpu())
         del t
     return {"bf16": sums[0] * 2.0 ** -7,
-            "int8": (sums[1] / (127.0 * world)).repeat_interleave(DP_GRAD_CHUNK)[:n]}
+            "int8": (sums[1] / (127.0 * world))[place // DP_GRAD_CHUNK]}
 
 
 def dp_worker(out_dir):
@@ -944,6 +973,7 @@ def dp_worker(out_dir):
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed import grad_comm as gcm
     from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models.gpt import GPTModel
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -955,10 +985,14 @@ def dp_worker(out_dir):
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (8, 1024)).astype(np.int64)).cuda()
     labels = torch.roll(ids, -1, 1)
+    with torch.device("meta"):
+        meta = torch.nn.Module()
+        meta.gpt = GPTModel(cfg)   # GPTForPretraining's names, tied head
+        shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
     counters = (gcm.BYTES_MOVED, gcm.RS_BYTES, gcm.AG_BYTES)
     out, kept = {"world": world, "rank": rank}, {}
     first = {}  # the first step's reduced mean gradient of a run (host f32)
-    zero_scatter = gcm.zero_scatter
+    zero_scatter, fsdp_scatter = gcm.zero_scatter, gcm.fsdp_scatter
 
     def zero_scatter_spy(*a, **kw):  # ZeRO's reduced slice, before clip and update
         g, part = zero_scatter(*a, **kw)
@@ -966,7 +1000,17 @@ def dp_worker(out_dir):
             first["zero_shard"], first["armed"] = g.cpu(), False
         return g, part
 
-    gcm.zero_scatter = zero_scatter_spy
+    def fsdp_scatter_spy(payload, rows, *a, **kw):  # FSDP's reduced shards, ditto
+        g, loss = fsdp_scatter(payload, rows, *a, **kw)
+        if first.get("armed"):
+            # the rank's shards in bucket order, back at their flat offsets
+            segs = [(lo, hi, c) for lo, hi, row, c in rows.segments if row == rank]
+            first["fsdp"] = (torch.cat([g[c:c + hi - lo] for lo, hi, c in segs]).cpu(),
+                             torch.cat([torch.arange(lo, hi) for lo, hi, _ in segs]))
+            first["armed"] = False
+        return g, loss
+
+    gcm.zero_scatter, gcm.fsdp_scatter = zero_scatter_spy, fsdp_scatter_spy
 
     def check_grad(name, dtype):
         """The first step's reduced gradient of a low-precision run against
@@ -975,20 +1019,26 @@ def dp_worker(out_dir):
             got = first.pop("zero_shard")
             lo = rank * got.numel()
             hi = min(bounds["n"], lo + got.numel())
-            got = got[:max(0, hi - lo)]
+            idx = torch.arange(lo, max(lo, hi))
+            got = got[:idx.numel()]
+        elif "fsdp" in first:
+            got, idx = first.pop("fsdp")
+            dtype = "int8_fsdp" if dtype == "int8" else dtype
         else:
-            got, lo, hi = first.pop("replicated"), 0, bounds["n"]
-        err = (got - kept["f32_grad"][lo:hi]).abs()
-        bnd = bounds[dtype][lo:hi]
+            got = first.pop("replicated")
+            idx = torch.arange(bounds["n"])
+        err = (got - kept["f32_grad"][idx]).abs()
+        bnd = bounds[dtype][idx]
         ratio = err / bnd
         out[name].update(
-            grad_elems=hi - lo, grad_max_abs_err=float(err.max()),
+            grad_elems=idx.numel(), grad_max_abs_err=float(err.max()),
             grad_err_over_bound=float(ratio[bnd > 0].max()) if bool((bnd > 0).any()) else 0.0,
             grad_violations=int((err > bnd).sum()))
 
-    def run(name, engine_of, dtype="f32", ef=False):
+    def run(name, engine_of, dtype="f32", ef=False, prefetch=2):
         set_flags({"grad_comm_dtype": dtype, "grad_comm_error_feedback": ef,
-                   "grad_comm_chunk": DP_GRAD_CHUNK, "zero_update": False})
+                   "grad_comm_chunk": DP_GRAD_CHUNK, "zero_update": False,
+                   "fsdp": False, "fsdp_prefetch": prefetch})
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1005,21 +1055,25 @@ def dp_worker(out_dir):
                 t0 = time.perf_counter()
                 losses.append(engine.step(ids, labels).item())
                 step_ms.append((time.perf_counter() - t0) * 1e3)
-                if i == 0 and name != "plain" and getattr(engine, "_zero_opt", None) is None:
+                if (i == 0 and name != "plain" and getattr(engine, "_zero_opt", None) is None
+                        and getattr(engine, "_fsdp_params", None) is None):
                     first["replicated"] = _flat_grad(engine.params)
         first["armed"] = False
         launches = {"counts": _launch_counts(), "fwd": dict(fa.launches_by_route),
                     "bwd": _bwd_routes()}
+        fsdp_on = getattr(engine, "_fsdp_params", None) is not None
         out[name] = {
             "losses": losses, "step_ms": step_ms,
             "peak_bytes": torch.cuda.max_memory_allocated(),
+            "allocated_after_bytes": torch.cuda.memory_allocated(),
             "bytes_per_step": [(c.get() - v) // DP_STEPS for c, v in zip(counters, c0)],
             "launches": launches, "dtype": dtype,
             "zero": getattr(engine, "_zero_opt", None) is not None,
-            "n": sum(p.numel() for p in model.parameters())}
-        if name in ("plain", "f32", "zero"):
-            # on the host: no run's peak counts another's
-            kept[name] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+            "fsdp": fsdp_on, "n": sum(math.prod(s) for s in shapes.values())}
+        if name in ("plain", "f32", "zero") or name.startswith("fsdp"):
+            # on the host: no run's peak counts another's (FSDP's gathered: a
+            # collective, every rank)
+            kept[name] = {n: p.cpu() for n, p in engine._full_params().items()}
         if name == "f32":
             kept["f32_grad"] = first.pop("replicated")
         elif dtype != "f32":
@@ -1042,9 +1096,15 @@ def dp_worker(out_dir):
     del model
     bounds = _payload_bounds(g_local, world)
     bounds["n"] = g_local.numel()
+    # FSDP's int8 chunks tile the padded buckets, not the flat vector
+    bounds["int8_fsdp"] = _payload_bounds(g_local, world, gcm.fsdp_buckets(
+        shapes, world, DP_GRAD_CHUNK, layer_key=GPTForPretraining.fsdp_layer_key))["int8"]
 
     def zero_engine(m, o):
         return fleet.distributed_engine(m, o, zero_update=True)
+
+    def fsdp_engine(m, o):
+        return fleet.distributed_engine(m, o, fsdp=True)
 
     run("f32", fleet.distributed_engine)
     if world == 1 and not torch.equal(kept["f32_grad"], g_local):
@@ -1057,8 +1117,14 @@ def dp_worker(out_dir):
             run(f"{dtype}{'_ef' if ef else ''}", fleet.distributed_engine, dtype, ef)
     run("zero_bf16", zero_engine, "bf16")
     run("zero_int8_ef", zero_engine, "int8", True)
-    gcm.zero_scatter = zero_scatter
-    for a, b in (("plain", "f32"), ("zero", "f32")):
+    for prefetch in (0, 2):
+        for dtype, ef in (("f32", False), ("bf16", True), ("int8", True)):
+            name = "fsdp" + ("" if dtype == "f32" else f"_{dtype}_ef") + f"_pf{prefetch}"
+            run(name, fsdp_engine, dtype, ef, prefetch)
+    gcm.zero_scatter, gcm.fsdp_scatter = zero_scatter, fsdp_scatter
+    for a, b in (("plain", "f32"), ("zero", "f32"), ("fsdp_pf0", "f32"), ("fsdp_pf2", "f32"),
+                 ("fsdp_pf2", "fsdp_pf0"), ("fsdp_bf16_ef_pf2", "fsdp_bf16_ef_pf0"),
+                 ("fsdp_int8_ef_pf2", "fsdp_int8_ef_pf0")):
         if a in kept:
             out[f"{a}_vs_{b}_params_equal"] = all(
                 torch.equal(kept[a][n], kept[b][n]) for n in kept[b])
@@ -1086,6 +1152,11 @@ def dp_worker(out_dir):
     out["zero_payload_bytes"] = {d: list(gcm.zero_payload_bytes(out["f32"]["n"], world, d,
                                                                 DP_GRAD_CHUNK))
                                  for d in ("f32", "bf16", "int8")}
+    shards = [b["shard"] for b in gcm.fsdp_buckets(
+        shapes, world, DP_GRAD_CHUNK, layer_key=GPTForPretraining.fsdp_layer_key)]
+    out["fsdp_payload_bytes"] = {d: list(gcm.fsdp_payload_bytes(shards, world, d,
+                                                                DP_GRAD_CHUNK)[:2])
+                                 for d in ("f32", "bf16", "int8")}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
@@ -1097,21 +1168,25 @@ def phase_dp(world=None):
     global ids [8, 1024] (its 8/N rows), AdamW(1e-4, weight decay 0.01),
     bf16 auto_cast, DP_STEPS steps a run, through fleet.init ->
     fleet.distributed_engine: the replicated f32 reduce, ZeRO, the bf16
-    and int8 payloads with and without error feedback, and ZeRO at bf16 and
-    at int8 with error feedback (the all_to_all reduce) (and, at world 1,
-    the single-GPU engine first). Checks on every rank: at world 1 the f32
-    run is the single-GPU engine's bit for bit (losses and every parameter);
-    ZeRO is the replicated run's bit for bit up to 2 ranks and within
-    DP_ZERO_RTOL past them; the low-precision losses are finite, fall, and
+    and int8 payloads with and without error feedback, ZeRO at bf16 and
+    at int8 with error feedback (the all_to_all reduce), and FSDP at
+    prefetch depths 0 and 2, f32 and bf16 and int8 with error feedback
+    (and, at world 1, the single-GPU engine first). Checks on every rank:
+    at world 1 the f32 run is the single-GPU engine's bit for bit (losses
+    and every parameter); ZeRO and f32 FSDP are the replicated run's bit for
+    bit up to 2 ranks and within DP_ZERO_RTOL past them; each FSDP payload
+    gives the same bits at both depths; the low-precision losses are finite, fall, and
     stay within DP_LOWP_RTOL of the f32 trajectory, and their first step's
     reduced mean gradient (ZeRO: the rank's slice of it) is the f32 run's
     within the payload's rounding, element by element (_payload_bounds:
     twice the bound for bf16 and for int8's chunk scales, from every rank's
     own gradient); every run launches 12
     tensor-core launches of each flash kernel a step; the byte counters
-    equal payload_bytes / zero_payload_bytes for the model's n; past one
-    rank ZeRO's peak memory is below the replicated run's by at least
-    DP_ZERO_MEM_SHARE x (1 - 1/N) x 8 x n bytes. Emits one line with step
+    equal payload_bytes / zero_payload_bytes / fsdp_payload_bytes for the
+    model's n; past one rank ZeRO's peak memory is below the replicated
+    run's by at least DP_ZERO_MEM_SHARE x (1 - 1/N) x 8 x n bytes, and
+    FSDP's allocated bytes after the steps below ZeRO's by at least
+    DP_FSDP_MEM_SHARE x (1 - 1/N) x 4 x n. Emits one line with step
     ms, tokens/s per chip, peaks, payload bytes and the f32 payload's
     all_reduce alone (ms, bus bandwidth) before the checks, and one
     (dp_checks) after them; returns rank 0's flash launches over the runs
@@ -1131,8 +1206,10 @@ def phase_dp(world=None):
             with open(os.path.join(d, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
     wall = time.perf_counter() - t0
-    lowp = ["bf16", "bf16_ef", "int8", "int8_ef", "zero_bf16", "zero_int8_ef"]
-    runs = ["f32", "zero"] + lowp
+    fsdp_runs = [f"fsdp{x}_pf{d}" for d in (0, 2) for x in ("", "_bf16_ef", "_int8_ef")]
+    lowp = ["bf16", "bf16_ef", "int8", "int8_ef", "zero_bf16", "zero_int8_ef"] + [
+        name for name in fsdp_runs if "_ef" in name]
+    runs = ["f32", "zero"] + [name for name in lowp if not name.startswith("fsdp")] + fsdp_runs
     nl = 12
     r0 = ranks[0]
     ms = {name: statistics.median(r0[name]["step_ms"][1:]) for name in runs}
@@ -1145,8 +1222,11 @@ def phase_dp(world=None):
                                 for name, v in ms.items()},
          peak_bytes_per_rank={name: [res[name]["peak_bytes"] for res in ranks]
                               for name in runs},
+         allocated_after_bytes_per_rank={name: [res[name]["allocated_after_bytes"]
+                                                for res in ranks] for name in runs},
          n_params=r0["f32"]["n"], payload_bytes=r0["payload_bytes"],
          zero_payload_bytes_rs_ag=r0["zero_payload_bytes"],
+         fsdp_payload_bytes_rs_ag=r0["fsdp_payload_bytes"],
          first_grad_max_abs_err_vs_f32={name: [res[name]["grad_max_abs_err"] for res in ranks]
                                         for name in lowp},
          first_grad_err_over_bound={name: [res[name]["grad_err_over_bound"] for res in ranks]
@@ -1154,6 +1234,8 @@ def phase_dp(world=None):
          all_reduce_f32_payload_ms=[res["all_reduce_f32_payload_ms"] for res in ranks],
          all_reduce_busbw_gb_s=[res["all_reduce_busbw_gb_s"] for res in ranks],
          zero_vs_replicated_max_abs_param_diff=[res["zero_vs_f32_max_abs_param_diff"]
+                                                for res in ranks],
+         fsdp_vs_replicated_max_abs_param_diff=[res["fsdp_pf0_vs_f32_max_abs_param_diff"]
                                                 for res in ranks],
          lowp_rtol=DP_LOWP_RTOL, zero_rtol=DP_ZERO_RTOL)
     launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dkdv": 0,
@@ -1165,16 +1247,26 @@ def phase_dp(world=None):
                                and res["plain_vs_f32_params_equal"]):
             raise AssertionError(f"dp world 1: the replicated f32 steps {f32} are not the "
                                  f"single-GPU engine's {res['plain']['losses']} bit for bit")
-        zl = res["zero"]["losses"]
         for name in runs:
             if res[name]["zero"] != name.startswith("zero"):
                 raise AssertionError(f"dp rank {r} {name}: ZeRO engaged: {res[name]['zero']}")
-        if world <= 2:
-            if not (zl == f32 and res["zero_vs_f32_params_equal"]):
-                raise AssertionError(f"dp rank {r}: ZeRO {zl} is not the replicated "
-                                     f"step {f32} bit for bit")
-        elif not np.allclose(zl, f32, rtol=DP_ZERO_RTOL, atol=0):
-            raise AssertionError(f"dp rank {r}: ZeRO {zl} vs replicated {f32}")
+            if res[name]["fsdp"] != name.startswith("fsdp"):
+                raise AssertionError(f"dp rank {r} {name}: FSDP engaged: {res[name]['fsdp']}")
+        # every prefetch depth gives the same bits
+        for name in ("fsdp", "fsdp_bf16_ef", "fsdp_int8_ef"):
+            a, b = res[f"{name}_pf2"], res[f"{name}_pf0"]
+            if not (a["losses"] == b["losses"]
+                    and res[f"{name}_pf2_vs_{name}_pf0_params_equal"]):
+                raise AssertionError(f"dp rank {r}: {name} at prefetch 2 {a['losses']} is not "
+                                     f"prefetch 0's {b['losses']} bit for bit")
+        for name in ("zero", "fsdp_pf0", "fsdp_pf2"):
+            got = res[name]["losses"]
+            if world <= 2:
+                if not (got == f32 and res[f"{name}_vs_f32_params_equal"]):
+                    raise AssertionError(f"dp rank {r}: {name} {got} is not the replicated "
+                                         f"step {f32} bit for bit")
+            elif not np.allclose(got, f32, rtol=DP_ZERO_RTOL, atol=0):
+                raise AssertionError(f"dp rank {r}: {name} {got} vs replicated {f32}")
         for name in runs:
             got = res[name]
             ls = got["losses"]
@@ -1195,8 +1287,13 @@ def phase_dp(world=None):
                 for k in launches:
                     launches[k] += got["launches"]["counts"][k]
             dtype = got["dtype"]
-            want = ([sum(res["zero_payload_bytes"][dtype])] + res["zero_payload_bytes"][dtype]
-                    if got["zero"] else [res["payload_bytes"][dtype], 0, 0])
+            if got["fsdp"]:
+                rs_ag = res["fsdp_payload_bytes"][dtype]
+            elif got["zero"]:
+                rs_ag = res["zero_payload_bytes"][dtype]
+            else:
+                rs_ag = None
+            want = [sum(rs_ag)] + rs_ag if rs_ag else [res["payload_bytes"][dtype], 0, 0]
             if got["bytes_per_step"] != want:
                 raise AssertionError(f"dp rank {r} {name}: bytes a step "
                                      f"{got['bytes_per_step']} (moved, rs, ag), "
@@ -1207,8 +1304,214 @@ def phase_dp(world=None):
             if not saved >= need:
                 raise AssertionError(f"dp rank {r}: ZeRO saved {saved} bytes of peak "
                                      f"memory, less than {need}")
+            for name in ("fsdp_pf0", "fsdp_pf2"):
+                held = res["zero"]["allocated_after_bytes"] - res[name]["allocated_after_bytes"]
+                need = DP_FSDP_MEM_SHARE * (1 - 1 / world) * 4 * n
+                if not held >= need:
+                    raise AssertionError(f"dp rank {r} {name}: FSDP holds {held} bytes fewer "
+                                         f"than ZeRO after the steps, less than {need}")
     emit(phase="dp_checks", world=world, passed=True, launches_rank0=launches)
     return launches
+
+
+def _same_state(a, b):
+    """Whether two engines hold the same parameters and optimizer slots, bit
+    for bit (gathered under ZeRO and FSDP: every rank calls it)."""
+    pa, oa, pb, ob = a._full_params(), a._full_opt(), b._full_params(), b._full_opt()
+    return pa.keys() == pb.keys() and all(
+        torch.equal(pa[n], pb[n]) and all(torch.equal(x, y) for x, y in zip(oa[n], ob[n]))
+        for n in pa)
+
+
+def _param_digests(engine):
+    """{name: sha256 of its f32 bytes} of the engine's full parameters."""
+    import hashlib
+
+    return {n: hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()
+            for n, t in engine._full_params().items()}
+
+
+def phase_ckpt(ids):
+    """Checkpoints on one card (distributed/elastic.py): bench.py's step at
+    GPT-2 124M, bf16 auto_cast, ids [8, 1024]. Engine A takes 4 steps with
+    checkpoints every 2 steps, written by the background writer (async);
+    engine B, fresh from another seed, restores step 2's checkpoint and
+    takes steps 3 and 4: its losses and every parameter and optimizer slot
+    must be A's bit for bit. Then one payload byte of the newest checkpoint
+    is flipped: fsck reports it, and restore_latest falls back to step 2.
+    Emits the capture's ms (on the step's thread), the writer's wall ms and
+    the bytes a checkpoint writes; 12 tensor-core launches of each flash
+    kernel a step. Returns the flash launches {kernel: n}."""
+    import io
+    import tempfile
+    import warnings
+
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed import elastic
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.tools import ckpt_fsck
+
+    cfg = GPTConfig()
+    labels = torch.roll(ids, -1, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d, auto_cast(dtype="bfloat16"):
+        _, a = _train_engine(cfg, "cuda")
+        mgr = a.enable_checkpointing(d, interval=2, keep=5, async_save=True)
+        losses, step_ms = _steps(a, ids, labels, 4)
+        t0 = time.perf_counter()
+        mgr.wait()
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        saved = [s for s, _ in mgr.checkpoints()]
+        if saved != [2, 4]:
+            raise AssertionError(f"ckpt: committed {saved}, expected [2, 4]")
+        _, b = _train_engine(cfg, "cuda", seed=1)
+        if elastic.restore_checkpoint(b, elastic.checkpoint_path(d, 2)) != 2:
+            raise AssertionError("ckpt: restored another step than 2")
+        resumed, _ = _steps(b, ids, labels, 2)
+        if resumed != losses[2:] or not _same_state(a, b):
+            raise AssertionError(f"ckpt: the resumed steps {resumed} (or the state after "
+                                 f"them) are not the uninterrupted run's {losses[2:]}")
+        launches = _launch_counts()
+        _check_mma_launches("ckpt", dict(fa.launches_by_route), _bwd_routes(), 6 * 12, 6 * 12)
+        del b
+        newest = elastic.checkpoint_path(d, 4)
+        payload = sorted(f for f in os.listdir(newest) if f.endswith(".npy"))[0]
+        with open(os.path.join(newest, payload), "r+b") as f:
+            f.seek(128)
+            byte = f.read(1)
+            f.seek(128)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        with contextlib.redirect_stdout(io.StringIO()):
+            fsck_rc = ckpt_fsck.main([d])
+        _, c = _train_engine(cfg, "cuda", seed=2)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fell_back = elastic.restore_latest(c, d)
+        if fsck_rc != 1 or fell_back != 2 or not any("corrupt" in str(w.message)
+                                                     for w in caught):
+            raise AssertionError(f"ckpt: a flipped byte in step 4's {payload}: fsck "
+                                 f"exit {fsck_rc}, restore_latest gave step {fell_back}")
+        stats = {"capture_ms": mgr.last_capture_ms, "save_ms": mgr.last_save_ms,
+                 "bytes_written": mgr.last_bytes}
+        a.disable_checkpointing()
+        del a, c
+    emit(phase="ckpt", model="gpt2-124m", batch=[8, 1024], amp="bf16", losses=losses,
+         resumed_losses=resumed, step_ms=step_ms, drain_ms=drain_ms, committed=saved,
+         fsck_exit_after_flip=fsck_rc, fell_back_to=fell_back, passed=True, **stats)
+    return launches
+
+
+def ckpt_rank_worker(out_dir, mode):
+    """One rank of phase_ckpt_ranks: GPT-2 124M through fleet, bf16
+    auto_cast, FSDP. ``save``: 2 steps, then a blocking save (its capture
+    gathers the shards: every rank calls it); the save's peak above the
+    bytes held before it must stay within two of the largest bucket (the
+    capture gathers one bucket at a time). ``restore``: the newest
+    checkpoint restored, then one step. Rank 0 writes its parameters'
+    digests (and the save's numbers: the second step's peak, the bytes held
+    after it, the save's peak) to ``out_dir/<mode>.json``."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed import elastic, fleet
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.set_device(int(os.environ["FLAGS_selected_gpus"]))
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    set_flags({"grad_comm_dtype": "f32", "grad_comm_error_feedback": False,
+               "zero_update": False, "fsdp": False, "fsdp_prefetch": 2})
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": world, "mp_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy)
+    cfg = GPTConfig()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (8, 1024)).astype(np.int64)).cuda()
+    labels = torch.roll(ids, -1, 1)
+    model = GPTForPretraining(cfg, seed=0 if mode == "save" else 5)
+    engine = fleet.distributed_engine(
+        model, AdamW(1e-4, parameters=model.named_parameters(), weight_decay=0.01), fsdp=True)
+    mgr = elastic.CheckpointManager(os.path.join(out_dir, "ckpt"), async_save=False)
+    out = {"world": world}
+    with auto_cast(dtype="bfloat16"):
+        if mode == "save":
+            out["losses"] = [engine.step(ids, labels).item()]
+            torch.cuda.reset_peak_memory_stats()
+            out["losses"].append(engine.step(ids, labels).item())
+            step_peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            mgr.save(engine, block=True)
+            torch.cuda.synchronize()
+            out.update(save_wall_ms=(time.perf_counter() - t0) * 1e3,
+                       capture_ms=mgr.last_capture_ms, bytes_written=mgr.last_bytes,
+                       step_peak_bytes=step_peak, held_bytes=held,
+                       save_peak_bytes=torch.cuda.max_memory_allocated())
+            # the capture holds one gathered bucket (and, on rank 0, one
+            # Linear weight's transposed copy) beyond the shards
+            bound = 2 * 4 * max(b["pad"] for b in engine._fsdp_layout()[0]) + CKPT_ALLOC_SLACK
+            out["save_extra_bound_bytes"] = bound
+            if out["save_peak_bytes"] - held > bound:
+                raise AssertionError(
+                    f"ckpt_ranks rank {fleet.worker_index()}: the save held "
+                    f"{out['save_peak_bytes'] - held} bytes beyond the shards, more than "
+                    f"{bound} (two of the largest bucket)")
+        else:
+            out["restored_step"] = mgr.restore(engine)
+    out["digests"] = _param_digests(engine)   # a collective under FSDP
+    if mode == "restore":
+        with auto_cast(dtype="bfloat16"):
+            out["next_loss"] = engine.step(ids, labels).item()
+        out["fsdp"] = engine._fsdp_params is not None
+    mgr.close()
+    if fleet.worker_index() == 0:
+        with open(os.path.join(out_dir, f"{mode}.json"), "w") as f:
+            json.dump(out, f)
+
+
+def phase_ckpt_ranks(world=4):
+    """A checkpoint across rank counts on ``world`` cards: an FSDP engine at
+    ``world`` ranks saves at step 2 (ranks of the port's spawn, one a card);
+    it is restored at world / 2 ranks under FSDP and in this process on one
+    card into the replicated engine; every parameter must be the saved one
+    bit for bit (sha256 of each)."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed import TrainStepEngine, elastic, spawn
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        res = {}
+        for mode, n in (("save", world), ("restore", max(1, world // 2))):
+            spawn(ckpt_rank_worker, args=(d, mode), nprocs=n, timeout=DP_TIMEOUT_S)
+            with open(os.path.join(d, f"{mode}.json")) as f:
+                res[mode] = json.load(f)
+        model = GPTForPretraining(GPTConfig(), seed=9)
+        engine = TrainStepEngine(model, AdamW(1e-4, parameters=model.named_parameters(),
+                                              weight_decay=0.01))
+        step1 = elastic.restore_latest(engine, os.path.join(d, "ckpt"))
+        one = _param_digests(engine)
+        del model, engine
+    want = res["save"]["digests"]
+    if not (res["restore"]["digests"] == want and one == want and step1 == 2
+            and res["restore"]["restored_step"] == 2 and res["restore"]["fsdp"]
+            and math.isfinite(res["restore"]["next_loss"])):
+        raise AssertionError(f"ckpt_ranks: the world-{world} FSDP checkpoint does not "
+                             f"restore bit for bit at world {world // 2} (FSDP) and 1")
+    saved = res["save"]
+    emit(phase="ckpt_ranks", model="gpt2-124m", save_world=world,
+         restore_worlds=[max(1, world // 2), 1], losses=saved["losses"],
+         save_wall_ms=saved["save_wall_ms"], capture_ms=saved["capture_ms"],
+         bytes_written=saved["bytes_written"], held_bytes_rank0=saved["held_bytes"],
+         step_peak_bytes_rank0=saved["step_peak_bytes"],
+         save_peak_bytes_rank0=saved["save_peak_bytes"],
+         save_extra_bound_bytes=saved["save_extra_bound_bytes"],
+         next_loss_at_half_world=res["restore"]["next_loss"], params=len(want), passed=True)
 
 
 def _route_counts():
@@ -1886,6 +2189,9 @@ def main() -> int:
     phase_train_vs_cpu()
     torch.cuda.empty_cache()
     dp_launches = phase_dp()
+    ckpt_launches = phase_ckpt(ids)
+    if torch.cuda.device_count() >= 2:
+        phase_ckpt_ranks(torch.cuda.device_count())
     bench_launches = phase_bench()
 
     ln_recs = phase_layer_norm_kernels()
@@ -1903,13 +2209,13 @@ def main() -> int:
     # tensor-core forward and backward)
     pallas = "paddle_tpu/ops/pallas/"
     rows = [  # (name, path, record, source, replaces)
-        ("flash_attention_fwd", "train, dp", fwd["slice_bf16_causal"],
+        ("flash_attention_fwd", "train, dp, ckpt", fwd["slice_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_fwd_f32", "score, train_f32", fwd["slice_f32_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_bwd_dkdv", "train, dp", bwd["train_bf16_causal"]["dkdv"],
+        ("flash_attention_bwd_dkdv", "train, dp, ckpt", bwd["train_bf16_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq", "train, dp", bwd["train_bf16_causal"]["dq"],
+        ("flash_attention_bwd_dq", "train, dp, ckpt", bwd["train_bf16_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
         ("flash_attention_bwd_dkdv_f32", "train_f32", bwd["train_f32_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
@@ -1952,7 +2258,8 @@ def main() -> int:
     # and backward from the bf16 pass, its f32-h forward and backward
     # (3xTF32) from the f32 pass
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
-    counts = {**{k: launches[k] + dp_launches[k] for k in launches}, **bench_launches,
+    counts = {**{k: launches[k] + dp_launches[k] + ckpt_launches[k] for k in launches},
+              **bench_launches,
               "flash_attention_fwd_f32": score_launches
               + f32_launches["flash_attention_fwd"],
               "flash_attention_bwd_dkdv_f32": f32_launches["flash_attention_bwd_dkdv"],

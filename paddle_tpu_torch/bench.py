@@ -27,10 +27,12 @@ rows). ``value`` is then the global tokens/s divided by the world size,
 ``devices`` the world size, the timing windows stay global tokens/s (as
 bench.py's), MFU stays per card, ``max_memory_allocated_bytes``
 is the largest over the ranks (each rank's in ``..._per_rank``), and
-``grad_comm`` gives the payload, ZeRO and the bytes a rank hands the
-gradient collectives a step. ``FLAGS_grad_comm_dtype``,
-``FLAGS_grad_comm_error_feedback``, ``FLAGS_grad_comm_chunk`` and
-``FLAGS_zero_update`` reach it through the environment. Only rank 0 prints,
+``grad_comm`` gives the payload, ZeRO, FSDP, the bytes a rank hands the
+gradient collectives a step and each rank's allocated bytes after the
+last step (``resident_bytes_per_rank``: FSDP's sharded state).
+``FLAGS_grad_comm_dtype``, ``FLAGS_grad_comm_error_feedback``,
+``FLAGS_grad_comm_chunk``, ``FLAGS_zero_update`` and ``FLAGS_fsdp`` reach it
+through the environment. Only rank 0 prints,
 and decodes.
 
 The environment knobs are bench.py's: ``PADDLE_TPU_BENCH_MODEL`` (base or
@@ -184,7 +186,12 @@ def run(cfg, batch, seq, steps, warmup, *, windows=3, recompute=None, accum=1,
     if dp:
         comm = {"dtype": _gc.comm_dtype(), "error_feedback": _gc.error_feedback(),
                 "zero_update": engine._zero_opt is not None,
+                "fsdp": engine._fsdp_params is not None,
                 "bytes_per_step": (_gc.BYTES_MOVED.get() - bytes0) // (warmup + steps)}
+        if on_card:
+            comm["resident_bytes_per_rank"] = [int(t.item()) for t in collective.all_gather(
+                None, torch.tensor([torch.cuda.memory_allocated(dev)], dtype=torch.int64,
+                                   device=dev))]
     peak_bytes = peaks = None
     if on_card:
         peak_bytes = torch.cuda.max_memory_allocated(dev)

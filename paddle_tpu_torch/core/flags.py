@@ -59,3 +59,38 @@ define_flag("zero_update", False,
             "ZeRO weight-update sharding: reduce-scatter, shard-local clip and "
             "update, all-gather of the new weights; the optimizer state lives "
             "as flat f32 1/N shards a rank. Also TrainStepEngine(zero_update=True)")
+define_flag("fsdp", False,
+            "fully sharded data parallelism (distributed/grad_comm.py's FSDP "
+            "step): parameters and optimizer state live only as per-layer "
+            "flat f32 1/N shards a rank between steps; each layer's weights "
+            "are all-gathered for the step's forward and backward, the "
+            "gradients reduce-scatter onto the owning shard, and the update "
+            "runs on the shards, with no trailing parameter gather. ZeRO's "
+            "eligibility gate; supersedes zero_update. Also "
+            "TrainStepEngine(fsdp=True)")
+define_flag("fsdp_prefetch", 2,
+            "gather-prefetch window of the FSDP forward: up to this many "
+            "per-layer all-gathers in flight ahead of the layer that waits "
+            "for its own, in the forward's order. 0 gathers just in time. "
+            "Clamped so the live window never exceeds the two largest "
+            "adjacent buckets; every depth gives the same bits")
+define_flag("ckpt_dir", os.environ.get("PADDLE_TPU_CKPT_DIR", ""),
+            "checkpoint directory (also PADDLE_TPU_CKPT_DIR). Non-empty: every "
+            "TrainStepEngine attaches a distributed/elastic.py "
+            "CheckpointManager at construction (crash-safe saves every "
+            "FLAGS_ckpt_interval steps, newest-valid restore). Empty = off")
+define_flag("ckpt_interval", 100,
+            "optimizer steps between automatic checkpoints; an interval that "
+            "fires while the previous async save is still writing skips "
+            "(ckpt.skipped)")
+define_flag("ckpt_keep", 3,
+            "retention: committed checkpoints beyond the newest N are removed "
+            "after each save (ckpt.gc_removed)")
+define_flag("ckpt_async", True,
+            "write checkpoints on a background thread behind a depth-1 queue "
+            "(the capture stays on the step's thread); False = the step "
+            "waits for the commit")
+define_flag("ckpt_rollback", False,
+            "a non-finite training loss restores the newest valid checkpoint "
+            "in place of the diverged state (ckpt.rollbacks); one loss read "
+            "a step while on")

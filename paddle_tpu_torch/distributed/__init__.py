@@ -3,9 +3,9 @@ one process per GPU on ``torch.distributed`` (NCCL on the card, gloo on the
 CPU). ``env`` (the environment contract and ``init_parallel_env``),
 ``collective`` (eager collectives), ``spawn`` and ``launch`` (starting the
 ranks), ``mesh`` (the data-parallel topology), ``fleet`` (the user's entry
-points), ``grad_comm`` (the one fused gradient reduce and ZeRO) and
-``engine`` (``TrainStepEngine``)."""
-from . import collective, fleet, grad_comm  # noqa: F401
+points), ``grad_comm`` (the one fused gradient reduce, ZeRO and FSDP),
+``engine`` (``TrainStepEngine``) and ``elastic`` (checkpoints)."""
+from . import collective, elastic, fleet, grad_comm  # noqa: F401
 from .collective import (ReduceOp, all_gather, all_reduce, barrier, broadcast,
                          get_group, new_group, reduce_scatter, wait)
 from .engine import TrainStepEngine
@@ -19,4 +19,5 @@ __all__ = ["TrainStepEngine", "ParallelEnv", "init_parallel_env", "get_rank",
            "get_world_size", "is_initialized", "ReduceOp", "new_group", "get_group",
            "all_reduce", "all_gather", "reduce_scatter", "broadcast", "barrier",
            "wait", "spawn", "DistributedStrategy", "HybridCommunicateGroup",
-           "get_hybrid_communicate_group", "fleet", "grad_comm", "collective"]
+           "get_hybrid_communicate_group", "fleet", "grad_comm", "collective",
+           "elastic"]

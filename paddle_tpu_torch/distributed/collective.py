@@ -110,17 +110,18 @@ def all_gather(tensor_list, tensor, group=None):
     return out
 
 
-def all_gather_into(output, tensor, group=None):
+def all_gather_into(output, tensor, group=None, sync_op=True):
     """The rank-order concatenation of every rank's ``tensor`` (the flat
     form the gradient reduce uses) written into the contiguous ``output``
-    (any shape of nranks x tensor.numel() elements)."""
+    (any shape of nranks x tensor.numel() elements). With ``sync_op``
+    false it returns the backend's work handle (None for the identity)."""
     pg, live = _pg(group)
     if not live:
         output.copy_(tensor.reshape(output.shape))
-        return output
-    _quiet(dist.all_gather_into_tensor, output.view(-1), tensor.contiguous().view(-1),
-           group=pg)
-    return output
+        return output if sync_op else None
+    work = _quiet(dist.all_gather_into_tensor, output.view(-1),
+                  tensor.contiguous().view(-1), group=pg, async_op=not sync_op)
+    return output if sync_op else work
 
 
 def reduce_scatter(tensor, tensor_or_tensor_list, op=ReduceOp.SUM, group=None):

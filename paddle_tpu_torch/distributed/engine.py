@@ -42,6 +42,31 @@ above, unchanged. Otherwise the step is grad_comm's (distributed/grad_comm.py):
   for every parameter and a clip that is None, ``ClipGradByGlobalNorm`` or
   ``ClipGradByValue``; otherwise it warns once and runs the replicated
   update, as the JAX engine does.
+- **FSDP** (``fsdp=True``, ``FLAGS_fsdp``; ZeRO's eligibility gate, and
+  it supersedes ZeRO): parameters and optimizer state live only as the
+  rank's f32 shards of per-layer buckets (``grad_comm.fsdp_buckets``; the
+  model's ``fsdp_layer_key`` groups them, one bucket a GPT block). A step
+  all-gathers each bucket into the parameters' storage, asynchronously, up
+  to ``FLAGS_fsdp_prefetch`` gathers ahead in the forward's order (each
+  module's forward pre-hook waits for its own bucket), runs the K
+  microbatches, releases the gathered storage, reduce-scatters the flat
+  gradient once (bucket-shard-major rows that carry the loss;
+  ``grad_comm.fsdp_pack`` / ``fsdp_scatter``), clips the shards
+  (``clip_shard``) and updates them bucket by bucket. There is no trailing
+  parameter gather: between steps a rank holds 1/N of the f32 parameters
+  and of the optimizer state, and the model's parameters are empty.
+  ``state_dict()`` and ``sync_to_model()`` gather them back (collectives:
+  every rank calls them). The first FSDP step gathers every bucket before
+  its forward and records the order in which the modules wait for them;
+  later steps prefetch in that order. The conversion to shards is one-way,
+  as in the reference: a step with fsdp turned off after it raises.
+  Past 2 ranks each rank's loss is the replicas' sum in the order its
+  reduce-scatter takes, so the losses may differ in the last bits between
+  ranks; the weights do not.
+- **Checkpoints** (``enable_checkpointing``, ``FLAGS_ckpt_dir``): every step
+  ends in the ``elastic.CheckpointManager``'s ``on_step`` (crash-safe saves
+  in the JAX package's layout, newest-valid restore, rollback on a
+  non-finite loss).
 - **Dropout.** Over more than one rank each microbatch reseeds the model's
   dropout generator (``model.generator``) from (seed, rank, step,
   microbatch), so ranks draw different masks and a run repeats exactly.
@@ -54,13 +79,16 @@ the JAX engine counts nothing on one replica. Without a process group no
 collective is called and the low-precision payloads still round-trip.
 
 PyTorch runs eagerly, so there is no compiled step to build, cache or
-donate into. Not ported yet (ROADMAP.md): telemetry and health,
-checkpoints, FSDP, hybrid meshes, CUDA graphs around the step, and the
-overlap of the reduce with the backward.
+donate into. Not ported yet (ROADMAP.md): telemetry and health, hybrid
+meshes, ``run_steps``, a world size changed in process (``reform_mesh``),
+CUDA graphs around the step, and the overlap of the reduce with the
+backward.
 """
 from __future__ import annotations
 
+import math
 import warnings
+import weakref
 
 import torch
 
@@ -68,6 +96,7 @@ from ..core import flags as _flags
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByValue
 from ..optimizer import functional as opt_funct
 from . import collective
+from . import elastic as _elastic
 from . import grad_comm as _gc
 from .mesh import get_hybrid_communicate_group
 
@@ -93,11 +122,11 @@ class TrainStepEngine:
     its state and its weight-decay decision go by the optimizer's name for
     it. ``hcg``: the topology (default: the one ``fleet.init`` set, if any);
     ``strategy``: a ``fleet.DistributedStrategy``, whose ``sharding`` turns
-    ZeRO on; ``microbatches`` (also a mutable attribute) is K and ``zero_update``
-    turns ZeRO on (module docstring)."""
+    ZeRO on; ``microbatches`` (also a mutable attribute) is K, ``zero_update``
+    turns ZeRO on and ``fsdp`` FSDP (module docstring)."""
 
     def __init__(self, model, optimizer, hcg=None, strategy=None,
-                 microbatches: int = 1, zero_update: bool = False):
+                 microbatches: int = 1, zero_update: bool = False, fsdp: bool = False):
         self.model = model
         self.optimizer = optimizer
         self.microbatches = max(1, int(microbatches))
@@ -123,12 +152,58 @@ class TrainStepEngine:
         self._zero_reason = "unset"    # cached fallback reason (None = ZeRO can run)
         self._grad_residual = None     # the rank's [n] f32 error-feedback buffer
         self._layouts = {}             # chunk -> grad_comm.FlatLayout
+        self._shapes = {nm: tuple(p.shape) for nm, p in self.params.items()}
+        self.fsdp = bool(fsdp)
+        self._fsdp_params = None       # the rank's per-bucket [shard] f32 parameters
+        self._fsdp_opt = None          # per slot, the rank's per-bucket [shard] f32 state
+        self._fsdp_warned = False
+        self._fsdp_cache = None        # ((nrep, chunk), buckets, FsdpRows)
+        self._fsdp_order = None        # bucket indices in the order the forward waits
+        self._fsdp_live = None         # the running step's _BucketGather
+        self._fsdp_hooked = False
         gen = getattr(model, "generator", None)
         self._seed = gen.initial_seed() if gen is not None else 0
+        # FLAGS_ckpt_dir / PADDLE_TPU_CKPT_DIR: checkpoints (distributed/elastic.py);
+        # None costs one flag read here and one None check a step
+        self._ckpt = _elastic.from_flags()
 
     @property
     def device(self) -> torch.device:
         return next(iter(self.params.values())).device
+
+    # ---- checkpoints (distributed/elastic.py) ----
+    def enable_checkpointing(self, dirname, interval=None, keep=None, async_save=None,
+                             rollback_on_nonfinite=None, resume=False):
+        """Attach a CheckpointManager on ``dirname`` (reference engine.py:305):
+        a save every ``interval`` steps, the newest ``keep`` kept; unset
+        arguments take the FLAGS_ckpt_* values. ``resume`` restores the
+        newest valid checkpoint now and starts fresh when there is none."""
+        if self._ckpt is not None:
+            self._ckpt.close()
+        self._ckpt = _elastic.CheckpointManager(
+            dirname,
+            interval=_flags.flag("ckpt_interval") if interval is None else interval,
+            keep=_flags.flag("ckpt_keep") if keep is None else keep,
+            async_save=_flags.flag("ckpt_async") if async_save is None else async_save,
+            rollback_on_nonfinite=(_flags.flag("ckpt_rollback")
+                                   if rollback_on_nonfinite is None
+                                   else rollback_on_nonfinite))
+        if resume:
+            try:
+                self._ckpt.restore(self)
+            except FileNotFoundError:
+                pass  # nothing saved yet: a fresh run
+        return self._ckpt
+
+    def disable_checkpointing(self) -> None:
+        if self._ckpt is not None:
+            self._ckpt.close()
+        self._ckpt = None
+
+    def _end_step(self):
+        if self._ckpt is not None:
+            self._ckpt.on_step(self, self._step_count, self.last_loss)
+        return self.last_loss
 
     def _to_device(self, x):
         return torch.as_tensor(x).to(self.device, non_blocking=True)
@@ -140,10 +215,16 @@ class TrainStepEngine:
         batch = [self._to_device(b) for b in batch]
         k = self.microbatches
         dtype = _gc.comm_dtype()
-        zero = self._zero_on()
-        if self.group is None and k == 1 and dtype == "f32" and not zero:
-            return self._plain_step(batch)
-        return self._comm_step(batch, k, dtype, zero)
+        fsdp, zero = self._fsdp_on(), self._zero_on()
+        if not fsdp and self._fsdp_params is not None:
+            raise ValueError("fsdp was turned off after the first fsdp step, but the "
+                             "conversion to shards is one-way: call sync_to_model() "
+                             "and build a new engine on the model")
+        if self.group is None and k == 1 and dtype == "f32" and not (zero or fsdp):
+            self._plain_step(batch)
+        else:
+            self._comm_step(batch, k, dtype, zero, fsdp)
+        return self._end_step()
 
     def _begin_step(self):
         opt = self.optimizer
@@ -171,18 +252,17 @@ class TrainStepEngine:
         lay = self._layouts.get(chunk)
         if lay is None:
             lay = self._layouts[chunk] = _gc.FlatLayout(
-                {n: tuple(p.shape) for n, p in self.params.items()},
-                _gc.replica_count(self.group), chunk)
+                self._shapes, _gc.replica_count(self.group), chunk)
         return lay
 
     def _n_grad_elems(self) -> int:
         return self._flat_layout(_gc.chunk_size()).n
 
     def _views(self, buf, layout):
-        return {nm: buf[layout.offsets[nm]:layout.offsets[nm] + p.numel()].view(p.shape)
-                for nm, p in self.params.items()}
+        return {nm: buf[layout.offsets[nm]:layout.offsets[nm] + math.prod(shape)].view(shape)
+                for nm, shape in self._shapes.items()}
 
-    def _comm_step(self, batch, k, dtype, zero):
+    def _comm_step(self, batch, k, dtype, zero, fsdp=False):
         group = self.group
         nrep = _gc.replica_count(group)
         for b in batch:
@@ -199,6 +279,17 @@ class TrainStepEngine:
         opt = self.optimizer
         lr_val = self._begin_step()
         n = layout.n
+        if fsdp:
+            self._fsdp_step(batch, k, layout, dtype, chunk, use_res, lr_val)
+            comm_bytes = 0
+            if group is not None:
+                rs_b, ag_b, _ = _gc.fsdp_payload_bytes(
+                    [b["shard"] for b in self._fsdp_layout()[0]], nrep, dtype, chunk)
+                _gc.RS_BYTES.increase(rs_b)
+                _gc.AG_BYTES.increase(ag_b)
+                comm_bytes = rs_b + ag_b
+            self._count_step(k, dtype, comm_bytes)
+            return self.last_loss
         # ZeRO's buffer also takes the all-gather of the new weights, one
         # [shard + 1] row a rank, once the reduce-scatter has consumed it
         buf, loss = self._accumulate(batch, k, layout,
@@ -224,12 +315,16 @@ class TrainStepEngine:
                 for nm, p in self.params.items():
                     p.grad = grads[nm]
                 comm_bytes = (0 if group is None else _gc.payload_bytes(n, dtype, chunk))
+        self._count_step(k, dtype, comm_bytes)
+        return self.last_loss
+
+    @staticmethod
+    def _count_step(k, dtype, comm_bytes):
         _gc.STEPS.increase()
         _gc.MICROBATCHES.increase(k)
         _gc.BYTES_MOVED.increase(comm_bytes)
         if dtype != "f32":
             _gc.LOWP_STEPS.increase()
-        return self.last_loss
 
     def _seed_dropout(self, i):
         """Over more than one rank: reseed the model's dropout generator for
@@ -239,11 +334,13 @@ class TrainStepEngine:
             gen.manual_seed(_fold_seed(self._seed, self.group.rank,
                                        self._step_count, i))
 
-    def _accumulate(self, batch, k, layout, size):
+    def _accumulate(self, batch, k, layout, size, after_backward=None):
         """Forward and backward of each of the k microbatches of ``batch``,
         their f32 gradients summed into a new flat f32 buffer of ``size``
         elements (``layout``'s offsets, zeros past n). Returns the buffer
-        and the mean loss, and leaves every ``grad`` None.
+        and the mean loss, and leaves every ``grad`` None. ``after_backward``
+        is called after the last backward, before its gradients are summed
+        (FSDP releases the gathered parameters there).
 
         The buffer is allocated after the first backward, when the
         activations are freed, and each gradient is copied into it and
@@ -259,6 +356,9 @@ class TrainStepEngine:
             loss = self.model(*(p[i] for p in parts))
             loss.backward()
             losses.append(loss.detach())
+            del loss
+            if i + 1 == k and after_backward is not None:
+                after_backward()
             with torch.no_grad():
                 if buf is None:
                     buf = torch.zeros(size, dtype=torch.float32, device=self.device)
@@ -319,9 +419,9 @@ class TrainStepEngine:
         return reason
 
     def _zero_on(self) -> bool:
-        """True when this step runs the ZeRO update (requested and
-        possible); a request that cannot run warns once."""
-        if not self._zero_requested():
+        """True when this step runs the ZeRO update (requested, possible,
+        and not superseded by FSDP); a request that cannot run warns once."""
+        if self._fsdp_on() or not self._zero_requested():
             return False
         reason = self._zero_fallback_reason()
         if reason is None:
@@ -386,33 +486,6 @@ class TrainStepEngine:
                 o = layout.offsets[nm] - base
                 self.params[nm].detach().view(-1)[a:b].copy_(rows[i, o + a:o + b])
 
-    def _gather_zero_opt(self):
-        """The optimizer state as {name: (slot, ...)} in each parameter's
-        shape: gathered from every rank's flat shards under ZeRO (a
-        collective: every rank must call it), else the optimizer's own."""
-        if self._zero_opt is None:
-            return dict(self.optimizer._states)
-        layout = self._flat_layout(_gc.chunk_size())
-        flats = []
-        for s in self._zero_opt:
-            full = torch.empty(layout.n_pad, dtype=torch.float32, device=s.device)
-            collective.all_gather_into(full, s, group=self.group)
-            flats.append(full)
-        out = {}
-        for nm in layout.names:
-            off, shape = layout.offsets[nm], layout.shapes[nm]
-            size = int(torch.Size(shape).numel())
-            out[nm] = tuple(f[off:off + size].reshape(shape).clone() for f in flats)
-        return out
-
-    def state_dict(self):
-        """{"model": the model's state dict, "optimizer": the optimizer's
-        (``Optimizer.state_dict`` keys)}; under ZeRO the optimizer state is
-        gathered from every rank's shards first."""
-        states = self._gather_zero_opt() if self._zero_opt is not None else None
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(states=states)}
-
     def zero_memory_model(self):
         """Optimizer-state bytes a rank holds: replicated against ZeRO's
         flat shards (~1/N), the JAX engine's accounting."""
@@ -426,3 +499,374 @@ class TrainStepEngine:
             "replicated_opt_bytes": slots * layout.n * 4,
             "sharded_opt_bytes_per_device": slots * layout.shard * 4,
         }
+
+    def state_dict(self):
+        """{"model": the model's state dict, "optimizer": the optimizer's
+        (``Optimizer.state_dict`` keys)}; under ZeRO the optimizer state,
+        under FSDP also the parameters, are gathered from every rank's
+        shards first (a collective: every rank must call it)."""
+        sharded = self._fsdp_params is not None or self._zero_opt is not None
+        states = self._full_opt() if sharded else None
+        model_sd = self.model.state_dict(keep_vars=True)
+        if self._fsdp_params is not None:
+            full = self._full_params()
+            by_id = {id(p): nm for nm, p in self.params.items()}
+            model_sd = {key: full[by_id[id(v)]] if id(v) in by_id else v
+                        for key, v in model_sd.items()}
+        return {"model": {key: v.detach() for key, v in model_sd.items()},
+                "optimizer": self.optimizer.state_dict(states=states)}
+
+    def sync_to_model(self):
+        """Write the engine's parameters back into the model (reference
+        engine.py:1967): under FSDP, gathered from every rank's shards into
+        new full storage (a collective: every rank must call it); otherwise
+        the model already holds them. The shards stay the state: the next
+        FSDP step gathers from them again. Returns the model."""
+        if self._fsdp_params is not None:
+            for nm, t in self._full_params().items():
+                self.params[nm].data = t
+        return self.model
+
+    # ---- the full state (state_dict, sync_to_model, checkpoints) ----
+    def _visit_params(self, visit):
+        """``visit(name, tensor)`` for every parameter, in its shape. Under
+        FSDP ``tensor`` is an f32 view of its bucket's gathered vector: one
+        bucket is gathered at a time and freed after its visits (a
+        collective: every rank calls it)."""
+        if self._fsdp_params is None:
+            for nm, p in self.params.items():
+                visit(nm, p.detach())
+            return
+        for bi, shard in enumerate(self._fsdp_params):
+            self._visit_bucket(bi, shard, visit)
+
+    def _visit_opt(self, visit):
+        """``visit(name, slot, tensor)`` for every f32 optimizer slot, in its
+        parameter's shape, slot by slot; zeros where the optimizer holds no
+        state yet. Under FSDP one bucket, under ZeRO one slot's flat vector,
+        is gathered at a time and freed after its visits (a collective)."""
+        if self._fsdp_opt is not None:
+            for j, col in enumerate(self._fsdp_opt):
+                for bi, shard in enumerate(col):
+                    self._visit_bucket(bi, shard, lambda nm, v: visit(nm, j, v))
+            return
+        if self._zero_opt is not None:
+            layout = self._flat_layout(_gc.chunk_size())
+            for j, s in enumerate(self._zero_opt):
+                full = torch.empty(layout.n_pad, dtype=torch.float32, device=s.device)
+                collective.all_gather_into(full, s, group=self.group)
+                for nm in layout.names:
+                    off, shape = layout.offsets[nm], layout.shapes[nm]
+                    visit(nm, j, full[off:off + math.prod(shape)].view(shape))
+                del full
+            return
+        states = self.optimizer._states
+        for j in range(self._zero_n_slots()):
+            for nm in self.params:
+                visit(nm, j, states[nm][j] if nm in states else torch.zeros(
+                    self._shapes[nm], dtype=torch.float32, device=self.device))
+
+    def _full_params(self):
+        """{name: a copy of the parameter in its dtype} (a collective under
+        FSDP)."""
+        out = {}
+        self._visit_params(lambda nm, t: out.__setitem__(
+            nm, t.to(self.params[nm].dtype, copy=True)))
+        return out
+
+    def _full_opt(self):
+        """{name: (slot, ...)}, copies in f32 (a collective under ZeRO and
+        FSDP; zeros where the optimizer holds no state yet)."""
+        out = {nm: [] for nm in self.params}
+        self._visit_opt(lambda nm, _j, t: out[nm].append(t.clone()))
+        return {nm: tuple(slots) for nm, slots in out.items()}
+
+    def _load_state(self, params, opt, step, opt_step):
+        """Install full parameters and optimizer state ({name: tensor} and
+        {name: (slot, ...)}, the port's layout; a restored checkpoint): the
+        ZeRO and FSDP shards are dropped, and the next sharded step
+        re-encodes them from the model and the optimizer, bit for bit."""
+        self._fsdp_params = self._fsdp_opt = self._zero_opt = None
+        with torch.no_grad():
+            for nm, p in self.params.items():
+                t = params[nm]
+                if tuple(t.shape) != self._shapes[nm]:
+                    raise ValueError(f"{nm}: checkpoint shape {tuple(t.shape)} != the "
+                                     f"model's {self._shapes[nm]}")
+                if p.numel() == t.numel():
+                    p.copy_(t)
+                else:   # FSDP released its storage
+                    p.data = t.to(device=p.device, dtype=p.dtype).clone()
+        for nm, slots in opt.items():
+            if any(tuple(s.shape) != self._shapes[nm] for s in slots):
+                raise ValueError(f"{nm}: checkpoint optimizer state shapes "
+                                 f"{[tuple(s.shape) for s in slots]} != {self._shapes[nm]}")
+        self.optimizer._states = {
+            nm: tuple(s.to(device=self.device, dtype=torch.float32).clone()
+                      for s in slots) for nm, slots in opt.items()}
+        self._step_count = int(step)
+        self.optimizer._step_count = int(opt_step)
+        self.last_loss = None
+
+    # ---- FSDP: fully sharded parameters ----
+    def _fsdp_requested(self) -> bool:
+        return bool(self.fsdp or _flags.flag("fsdp"))
+
+    def _fsdp_on(self) -> bool:
+        """True when this step runs FSDP (requested and possible: ZeRO's
+        gate); a request that cannot run warns once and runs the replicated
+        update."""
+        if not self._fsdp_requested():
+            return False
+        reason = self._zero_fallback_reason()
+        if reason is None:
+            return True
+        if not self._fsdp_warned:
+            warnings.warn("fsdp requested but falling back to the "
+                          f"replicated update: {reason}")
+            self._fsdp_warned = True
+        return False
+
+    def _fsdp_layout(self):
+        """(buckets, grad_comm.FsdpRows) for this group and chunk (cached):
+        the model's ``fsdp_layer_key`` or grad_comm.default_layer_key."""
+        nrep, chunk = _gc.replica_count(self.group), _gc.chunk_size()
+        if self._fsdp_cache is None or self._fsdp_cache[0] != (nrep, chunk):
+            buckets = _gc.fsdp_buckets(self._shapes, nrep, chunk,
+                                       layer_key=getattr(self.model, "fsdp_layer_key", None))
+            self._fsdp_cache = ((nrep, chunk), buckets, _gc.FsdpRows(buckets, nrep))
+        return self._fsdp_cache[1], self._fsdp_cache[2]
+
+    def _fsdp_prefetch(self) -> int:
+        return _gc.fsdp_prefetch_depth(self._fsdp_layout()[0],
+                                       int(_flags.flag("fsdp_prefetch")))
+
+    def fsdp_memory_model(self):
+        """Parameter and optimizer-state bytes a rank holds, replicated
+        against FSDP's shards, and the step's collective bytes (the JAX
+        engine's ``fsdp_memory_model``)."""
+        buckets, _ = self._fsdp_layout()
+        nrep = _gc.replica_count(self.group)
+        slots = self._zero_n_slots()
+        n = self._n_grad_elems()
+        shard_elems = [b["shard"] for b in buckets]
+        rs_b, ag_b, per_layer = _gc.fsdp_payload_bytes(
+            shard_elems, nrep, _gc.comm_dtype(), _gc.chunk_size())
+        depth = self._fsdp_prefetch()
+        return {
+            "prefetch": depth,
+            "window_bytes": _gc.fsdp_window_bytes(buckets, depth),
+            "window_bytes_jit": _gc.fsdp_window_bytes(buckets, 0),
+            "ahead_bytes": _gc.fsdp_prefetch_ahead_bytes(buckets, depth),
+            "replicas": nrep,
+            "n_grad_elems": n,
+            "opt_slots": slots,
+            "buckets": [{"key": b["key"], "n": b["n"], "pad": b["pad"],
+                         "shard": b["shard"], "ag_bytes": ab}
+                        for b, ab in zip(buckets, per_layer)],
+            "replicated_param_bytes": n * 4,
+            "sharded_param_bytes_per_device": sum(shard_elems) * 4,
+            "replicated_opt_bytes": slots * n * 4,
+            "sharded_opt_bytes_per_device": slots * sum(shard_elems) * 4,
+            "rs_bytes": rs_b,
+            "ag_bytes": ag_b,
+        }
+
+    def _shard_of(self, b, values):
+        """The rank's [shard] f32 slice of bucket ``b``'s padded vector of
+        ``values`` ({name: tensor}, each in its parameter's shape; zeros for
+        a name it lacks)."""
+        out = torch.zeros(b["shard"], dtype=torch.float32, device=self.device)
+        lo, off = self._rank() * b["shard"], 0
+        for nm in b["names"]:
+            size = math.prod(self._shapes[nm])
+            a, e = max(lo, off), min(lo + b["shard"], off + size)
+            if a < e and nm in values:
+                out[a - lo:e - lo] = values[nm].reshape(-1)[a - off:e - off]
+            off += size
+        return out
+
+    def _ensure_fsdp_state(self):
+        """The rank's per-bucket parameter and state shards, built at the first
+        FSDP step (one way; reference engine.py:1272) from the parameters
+        and the optimizer's state (ZeRO's shards gathered first), whose full
+        storage is then released."""
+        buckets, _ = self._fsdp_layout()
+        if self._fsdp_params is not None:
+            if [f.numel() for f in self._fsdp_params] != [b["shard"] for b in buckets]:
+                raise ValueError("the sharded parameters were built for another bucket "
+                                 "layout: FLAGS_grad_comm_chunk or the group changed "
+                                 "after the first fsdp step; rebuild the engine")
+            return
+        with torch.no_grad():
+            params = {nm: p.detach() for nm, p in self.params.items()}
+            self._fsdp_params = tuple(self._shard_of(b, params) for b in buckets)
+            del params
+            self._release_params()
+            # ZeRO's shards gathered; no zeros made for a state not built yet
+            states = (dict(self.optimizer._states) if self._zero_opt is None
+                      else self._full_opt())
+            self._fsdp_opt = tuple(
+                tuple(self._shard_of(b, {nm: states[nm][j] for nm in b["names"]
+                                         if nm in states}) for b in buckets)
+                for j in range(self._zero_n_slots()))
+        del states
+        self._zero_opt = None
+        self.optimizer._states.clear()
+
+    def _release_params(self):
+        for p in self.params.values():
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+
+    def _gather_bucket(self, bi, shard):
+        b = self._fsdp_layout()[0][bi]
+        full = torch.empty(b["pad"], dtype=torch.float32, device=self.device)
+        collective.all_gather_into(full, shard, group=self.group)
+        return full
+
+    def _visit_bucket(self, bi, shard, visit):
+        """``visit(name, view)`` for each parameter of bucket ``bi``, a view
+        of the bucket gathered from ``shard``; the gathered buffer is freed
+        when this returns."""
+        full, off = self._gather_bucket(bi, shard), 0
+        for nm in self._fsdp_layout()[0][bi]["names"]:
+            size = math.prod(self._shapes[nm])
+            visit(nm, full[off:off + size].view(self._shapes[nm]))
+            off += size
+
+    def _hook_modules(self):
+        """Forward pre-hooks on every module that owns a parameter: each waits
+        for its parameters' buckets while an FSDP step runs."""
+        if self._fsdp_hooked:
+            return
+        owner = {id(p): nm.rsplit(".", 1)[0] if "." in nm else ""
+                 for nm, p in self.model.named_parameters()}
+        bucket_of = {}
+        for bi, b in enumerate(self._fsdp_layout()[0]):
+            for nm in b["names"]:
+                bucket_of[nm] = bi
+        by_module = {}
+        for nm, p in self.params.items():
+            by_module.setdefault(owner[id(p)], set()).add(bucket_of[nm])
+        ref = weakref.ref(self)
+        for mod_name, bis in by_module.items():
+            bis = sorted(bis)
+
+            def hook(_module, _inputs, bis=bis):
+                eng = ref()
+                if eng is not None and eng._fsdp_live is not None:
+                    for bi in bis:
+                        eng._fsdp_live.wait(bi)
+
+            self.model.get_submodule(mod_name).register_forward_pre_hook(hook)
+        self._fsdp_hooked = True
+
+    def _fsdp_step(self, batch, k, layout, dtype, chunk, use_res, lr_val):
+        """One FSDP step (module docstring); sets last_loss."""
+        opt = self.optimizer
+        n = layout.n
+        self._ensure_fsdp_state()
+        self._hook_modules()
+        buckets, rows = self._fsdp_layout()
+        live = _BucketGather(self, buckets, self._fsdp_order, self._fsdp_prefetch())
+        self._fsdp_live = live
+        def release():
+            self._fsdp_live = None
+            live.close()
+            self._release_params()
+
+        try:
+            # the gathered parameters go after the last backward, before the
+            # flat gradient buffer is allocated
+            buf, loss = self._accumulate(batch, k, layout, n, after_backward=release)
+            if self._fsdp_order is None:
+                self._fsdp_order = list(live.seen)
+        finally:
+            release()
+        with torch.no_grad():
+            if k > 1:
+                buf.div_(k)
+            res = self._ensure_residual(n) if use_res else None
+            payload = _gc.fsdp_pack(buf, rows, loss, dtype, chunk, res)
+            del buf
+            g, self.last_loss = _gc.fsdp_scatter(payload, rows, self.group, dtype, chunk)
+            del payload
+            _gc.clip_shard(g, opt._grad_clip, self.group)
+            update = opt_funct.make_flat_update(opt, next(iter(self.params)),
+                                                block=_gc.BLOCK)
+            for bi, p_shard in enumerate(self._fsdp_params):
+                sl = slice(rows.soffs[bi], rows.soffs[bi + 1])
+                update(p_shard, g[sl], tuple(col[bi] for col in self._fsdp_opt),
+                       lr_val, self._step_count)
+
+
+class _BucketGather:
+    """The gathers of one FSDP step. ``order`` None (the first step): every
+    bucket is gathered before the forward, and ``seen`` records the order in
+    which the modules wait for them. Otherwise the buckets no module waited
+    for then are gathered first, and every other one when a module waits
+    for it, with up to ``depth`` gathers in flight along ``order`` (depth 0
+    and 1: just in time). A parameter's storage is its view of the bucket's
+    gathered [pad] buffer from the wait on, so a read before its bucket's
+    wait fails instead of reading an unfinished gather."""
+
+    def __init__(self, engine, buckets, order, depth):
+        self.engine, self.buckets = engine, buckets
+        self.order, self.depth = order, depth
+        self.pos = {bi: i for i, bi in enumerate(order or ())}
+        self.full = [None] * len(buckets)
+        self.work = [None] * len(buckets)
+        self.bound = [False] * len(buckets)
+        self.seen = []
+        first = [bi for bi in range(len(buckets)) if bi not in self.pos]
+        for bi in first:
+            self.issue(bi)
+        for bi in first:
+            self._finish(bi)
+        if order is not None and depth >= 2:
+            for bi in order[:depth]:
+                self.issue(bi)
+
+    def issue(self, bi):
+        if self.full[bi] is not None:
+            return
+        eng = self.engine
+        full = torch.empty(self.buckets[bi]["pad"], dtype=torch.float32, device=eng.device)
+        self.work[bi] = collective.all_gather_into(full, eng._fsdp_params[bi],
+                                                   group=eng.group, sync_op=False)
+        self.full[bi] = full
+
+    def _finish(self, bi):
+        if self.bound[bi]:
+            return
+        self.issue(bi)
+        if self.work[bi] is not None:
+            self.work[bi].wait()
+            self.work[bi] = None
+        eng, full, off = self.engine, self.full[bi], 0
+        for nm in self.buckets[bi]["names"]:
+            p = eng.params[nm]
+            size = math.prod(eng._shapes[nm])
+            v = full[off:off + size].view(eng._shapes[nm])
+            p.data = v if p.dtype == torch.float32 else v.to(p.dtype)
+            off += size
+        self.bound[bi] = True
+
+    def wait(self, bi):
+        """A module's forward needs bucket ``bi``: issue the gathers of the
+        window ahead of it, then wait for its own."""
+        if bi not in self.seen:
+            self.seen.append(bi)
+        i = self.pos.get(bi)
+        if i is not None and self.depth >= 2:
+            for nxt in self.order[i + 1:i + self.depth]:
+                self.issue(nxt)
+        self._finish(bi)
+
+    def close(self):
+        """Wait for every gather still in flight (a step never leaves one
+        behind) and drop the gathered buffers; a second call does nothing."""
+        for w in self.work or ():
+            if w is not None:
+                w.wait()
+        self.full = self.work = None

@@ -34,6 +34,7 @@ collectives a step: ``payload_bytes``, or ``zero_payload_bytes``' sum),
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -353,3 +354,189 @@ def zero_gather(new_p_shard, loss_part, group, nrep, ride_loss, out):
     if not ride_loss:
         loss = loss / nrep
     return rows[:, :shard], loss
+
+
+# ------------------------------------------------------------------- FSDP --
+
+def default_layer_key(name: str) -> str:
+    """The FSDP bucket key of a parameter without a model hook: its owning
+    module's path (a Linear's weight and bias share a bucket). A model
+    groups otherwise by defining ``fsdp_layer_key(name)`` (models/gpt.py:
+    one bucket a transformer block)."""
+    return name.rsplit(".", 1)[0] if "." in name else name
+
+
+def fsdp_buckets(param_shapes: Dict[str, tuple], nrep: int, chunk: int,
+                 layer_key=None):
+    """The per-layer buckets of the sorted-name flat parameter vector
+    (reference grad_comm.py:591): a bucket is a maximal run of names with
+    one layer key (a key that comes back later opens another bucket), so
+    each is a contiguous slice of the flat vector, padded to a multiple of
+    nrep x chunk (equal shards a rank and an exact int8 chunk grid).
+    Returns dicts {key, names, off (flat offset), n (elements), pad, shard
+    (pad // nrep)}. Only element counts enter, so the port's transposed
+    Linear weights give the JAX package's buckets."""
+    key_fn = layer_key or default_layer_key
+    unit = max(1, nrep) * max(1, chunk)
+    buckets: list = []
+    off = 0
+    for nm in sorted(param_shapes):
+        key = str(key_fn(nm))
+        size = math.prod(tuple(param_shapes[nm])) or 1
+        if not buckets or key != buckets[-1]["key"]:
+            buckets.append({"key": key, "names": [], "off": off, "n": 0})
+        buckets[-1]["names"].append(nm)
+        buckets[-1]["n"] += size
+        off += size
+    for b in buckets:
+        b["pad"] = -(-b["n"] // unit) * unit
+        b["shard"] = b["pad"] // max(1, nrep)
+    return buckets
+
+
+def fsdp_payload_bytes(shard_elems, nrep: int, dtype: str, chunk: int):
+    """(reduce_scatter_bytes, all_gather_bytes, per-bucket gather bytes) a
+    rank hands the FSDP step's collectives (the payload_bytes convention):
+    one f32 shard gather a bucket and no trailing gather; the scatter
+    carries the bucket-padded gradients plus one loss column a destination
+    row (int8: in the f32 scales exchange)."""
+    nrep = max(1, nrep)
+    s_total = int(sum(shard_elems))
+    if dtype == "f32":
+        rs = nrep * (s_total + 1) * 4
+    elif dtype == "bf16":
+        rs = nrep * (s_total + 1) * 2
+    else:  # int8 payload + one f32 scale per chunk + the loss column
+        rs = nrep * s_total * 1 + nrep * (s_total // chunk + 1) * 4
+    per_layer = [int(s) * 4 for s in shard_elems]
+    return rs, sum(per_layer), per_layer
+
+
+def fsdp_window_bytes(buckets, depth: int) -> int:
+    """Gathered bytes a depth-``depth`` prefetch window holds at once: the
+    most, over window positions in the sorted bucket order, of the summed
+    padded f32 bucket sizes (depth 0 and 1 hold one bucket). The
+    reference's formula, kept for the memory model's parity."""
+    gb = [int(b["pad"]) * 4 for b in buckets]
+    if not gb:
+        return 0
+    d = max(1, min(int(depth), len(gb)))
+    return max(sum(gb[i:i + d]) for i in range(len(gb) - d + 1))
+
+
+def fsdp_prefetch_ahead_bytes(buckets, depth: int) -> int:
+    """Bytes a depth-``depth`` window holds beyond the just-in-time one:
+    the padded f32 buckets 1..depth-1 (0 below depth 2)."""
+    if int(depth) < 2:
+        return 0
+    return sum(int(b["pad"]) * 4 for b in buckets[1:int(depth)])
+
+
+def fsdp_prefetch_depth(buckets, requested: int) -> int:
+    """The requested prefetch depth clamped so the window never holds more
+    than the two largest adjacent buckets (the largest d <= requested whose
+    fsdp_window_bytes fits under depth 2's); <= 0 stays 0."""
+    d = min(int(requested), max(1, len(buckets)))
+    if d <= 0:
+        return 0
+    cap = fsdp_window_bytes(buckets, 2)
+    while d > 2 and fsdp_window_bytes(buckets, d) > cap:
+        d -= 1
+    return d
+
+
+class FsdpRows:
+    """The bucket-shard-major permutation of the flat [n] vector that the
+    FSDP reduce-scatter scatters by (reference ``_rows``): row r holds rank
+    r's shard of every bucket, in bucket order, ``s_total`` elements, zeros
+    in the pads; rank r's shard of bucket b is row r's
+    [``soffs[b]``, ``soffs[b + 1]``)."""
+
+    def __init__(self, buckets, nrep: int):
+        self.nrep = max(1, nrep)
+        self.soffs = [0]
+        for b in buckets:
+            self.soffs.append(self.soffs[-1] + b["shard"])
+        self.s_total = self.soffs[-1]
+        self.n = sum(b["n"] for b in buckets)
+        self.segments = []  # (flat start, flat stop, row, column)
+        for bi, b in enumerate(buckets):
+            for r in range(self.nrep):
+                lo = r * b["shard"]
+                hi = min(b["n"], lo + b["shard"])
+                if lo < hi:
+                    self.segments.append((b["off"] + lo, b["off"] + hi, r,
+                                          self.soffs[bi]))
+
+    def to_rows(self, flat, rows):
+        """rows[r, c:c + len] = flat[a:b] for every segment (rows' pads are
+        left as they are)."""
+        for a, b, r, c in self.segments:
+            rows[r, c:c + b - a].copy_(flat[a:b])
+
+    def from_rows(self, rows, flat):
+        for a, b, r, c in self.segments:
+            flat[a:b].copy_(rows[r, c:c + b - a])
+
+
+def fsdp_pack(flat, rows: FsdpRows, loss, dtype, chunk, residual):
+    """The FSDP reduce-scatter's payload from this rank's mean gradient
+    ``flat`` ([n] f32, read once: the caller frees it afterwards) and mean
+    loss; residual as in reduce_local ([n] f32 flat order, updated in place,
+    or None). f32 / bf16: [nrep, s_total + 1] rows with the loss in every
+    row's last column; int8: (q [nrep, s_total / chunk, chunk], [scales |
+    loss] [nrep, s_total / chunk + 1])."""
+    nrep, s = rows.nrep, rows.s_total
+    if residual is not None:
+        flat.add_(residual)
+    if dtype == "f32":
+        out = torch.zeros((nrep, s + 1), dtype=torch.float32, device=flat.device)
+        rows.to_rows(flat, out)
+        out[:, s] = loss
+        return out
+    if dtype == "bf16":
+        b16 = flat.to(torch.bfloat16)
+        if residual is not None:
+            torch.sub(flat, b16.float(), out=residual)
+        out = torch.zeros((nrep, s + 1), dtype=torch.bfloat16, device=flat.device)
+        rows.to_rows(b16, out)
+        out[:, s] = loss
+        return out
+    # int8: each bucket shard is a chunk multiple, so the rows' chunks are
+    # the padded buckets' chunks (reference _scatter's grid), reordered
+    f = torch.zeros((nrep, s), dtype=torch.float32, device=flat.device)
+    rows.to_rows(flat, f)
+    q, scale = _quantize_int8(f.view(-1), chunk)
+    if residual is not None:
+        _sub_dequantized(f.view(-1), f.view(-1), q, scale, f.numel())
+        rows.from_rows(f, residual)
+    del f
+    aux = torch.empty((nrep, s // chunk + 1), dtype=torch.float32, device=q.device)
+    aux[:, :-1] = scale.view(nrep, s // chunk)
+    aux[:, -1] = loss
+    return q.view(nrep, s // chunk, chunk), aux
+
+
+def fsdp_scatter(payload, rows: FsdpRows, group, dtype, chunk):
+    """The ONE gradient reduce-scatter of the FSDP step (reference
+    ``_scatter``, grad_comm.py:863): returns (this rank's shards of the mean
+    gradient over the replicas [s_total] f32, in bucket order; the mean
+    loss). f32 / bf16: one ``reduce_scatter`` of the rows (the loss column
+    sums to the replicas' loss sum on every rank); int8: two
+    ``all_to_all``s, the payload and the scales with the loss, dequantised
+    and summed in f32 in rank order."""
+    nrep, s = rows.nrep, rows.s_total
+    if dtype in ("f32", "bf16"):
+        out = torch.empty(s + 1, dtype=payload.dtype, device=payload.device)
+        collective.reduce_scatter(out, payload.view(-1), group=group)
+        out = out.float()
+        return out[:s].div_(nrep), out[s] / nrep
+    q, aux = payload
+    qr = torch.empty_like(q)
+    ar = torch.empty_like(aux)
+    collective.all_to_all_single(qr, q, group=group)
+    collective.all_to_all_single(ar, aux, group=group)
+    g = torch.zeros(s, dtype=torch.float32, device=q.device)
+    for i in range(nrep):
+        _add_dequantized(g, qr[i], ar[i, :-1], s)
+    return g.div_(nrep), ar[:, -1].sum() / nrep

@@ -25,6 +25,8 @@ greedy and beam tokens agree exactly.
 """
 from __future__ import annotations
 
+import re
+
 import torch
 from torch import nn
 
@@ -235,6 +237,19 @@ class GPTModel(nn.Module):
             x = blk(x)
         return self.ln_f(x)
 
+    @staticmethod
+    def fsdp_layer_key(name: str) -> str:
+        """FSDP bucket of parameter ``name`` (reference gpt.py:231): one
+        bucket a transformer block, the token and position embeddings
+        together, everything else (the final norm) in a tail bucket. By
+        name prefix, so it holds for GPTForPretraining's ``gpt.`` names."""
+        m = re.match(r"(.*\bblocks\.\d+)\.", name)
+        if m:
+            return m.group(1)
+        if ".wte." in name or ".wpe." in name or name.startswith(("wte.", "wpe.")):
+            return "embeddings"
+        return "final"
+
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -275,6 +290,9 @@ class GPTForPretraining(nn.Module):
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, 0.02, generator=g)
+
+    # names here are 'gpt.blocks.N.*', 'gpt.wte.*', 'lm_head.*' (reference gpt.py:518)
+    fsdp_layer_key = staticmethod(GPTModel.fsdp_layer_key)
 
     @property
     def device(self) -> torch.device:

@@ -6,7 +6,8 @@ B = 4) on its own, so that it also runs under the launcher:
         -m paddle_tpu_torch.tools.bench_gpt_1p3b [global batch, default 8]
 
 Under the launcher it is the bench's data-parallel run (each rank takes
-B/N rows; ``FLAGS_zero_update=1`` for ZeRO); alone it runs on one card.
+B/N rows; ``FLAGS_zero_update=1`` for ZeRO, ``FLAGS_fsdp=1`` for FSDP);
+alone it runs on one card.
 Rank 0 prints the bench's JSON line (tokens/s per card, the peak memory of
 every rank).
 """

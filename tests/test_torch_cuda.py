@@ -57,8 +57,14 @@ Recompute on the card launches each layer's flash forward twice (the
 forward and its replay) and the backward pair once, and keeps the bf16
 gradients within 2e-2 x max|ref| of the step's without it; two
 microbatches of an f32 step give the plain step's loss (rtol 1e-5) and
-gradients (1e-4 x max(1, max|g|)) on the whole batch.
+gradients (1e-4 x max(1, max|g|)) on the whole batch. FSDP on NCCL at 1, 2
+and 4 ranks is the replicated step's bits up to 2 ranks (losses within 1e-5
+past them), every prefetch depth gives the same bits, its payloads stay
+within 2e-2 of f32, and its checkpoint resumes bit for bit; a bf16 step's
+checkpoint resumes bit for bit and a corrupted one falls back.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1404,3 +1410,106 @@ def test_dp_four_ranks_on_nccl(cuda, tmp_path):
         _check_low_precision(res)
     for name in ranks[0]:
         assert ranks[1][name]["losses"] == ranks[0][name]["losses"], name
+
+
+def _fsdp_ranks(world, out_dir):
+    """tests/torch_fsdp_workers.py's cuda_fsdp_case in ``world`` ranks on
+    NCCL (one card each)."""
+    import torch_fsdp_workers as FW
+    from paddle_tpu_torch.distributed import spawn
+
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards")
+    spawn(FW.cuda_fsdp_case, args=(str(out_dir),), nprocs=world, timeout=300)
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _check_fsdp(res, bit_equal):
+    for name in ("fsdp_pf0", "fsdp_pf2", "fsdp_bf16_ef", "fsdp_int8_ef", "fsdp_4"):
+        assert res[name]["engaged"], name
+    assert _same_run(res["fsdp_pf2"], res["fsdp_pf0"])   # every depth, the same bits
+    if bit_equal:
+        assert _same_run(res["fsdp_pf0"], res["f32"])
+    else:
+        np.testing.assert_allclose(res["fsdp_pf0"]["losses"], res["f32"]["losses"],
+                                   rtol=1e-5)
+    for name in ("fsdp_bf16_ef", "fsdp_int8_ef"):
+        ls = res[name]["losses"]
+        assert ls[-1] < ls[0], name
+        np.testing.assert_allclose(ls, res["f32"]["losses"], rtol=2e-2, err_msg=name)
+    # the checkpoint at step 2 resumes steps 3 and 4 of the uninterrupted run
+    assert res["resumed_step"] == 2
+    assert res["resumed"]["losses"] == res["fsdp_4"]["losses"][2:]
+    assert all(torch.equal(res["resumed"]["params"][n], p)
+               for n, p in res["fsdp_4"]["params"].items())
+
+
+def test_fsdp_one_rank_on_nccl(cuda, tmp_path):
+    (res,) = _fsdp_ranks(1, tmp_path)
+    _check_fsdp(res, bit_equal=True)
+
+
+def test_fsdp_two_ranks_on_nccl(cuda, tmp_path):
+    ranks = _fsdp_ranks(2, tmp_path)
+    for res in ranks:
+        _check_fsdp(res, bit_equal=True)
+    for name in ("f32", "fsdp_pf0", "fsdp_int8_ef", "resumed"):
+        assert _same_run(ranks[1][name], ranks[0][name]), name
+
+
+def test_fsdp_four_ranks_on_nccl(cuda, tmp_path):
+    """Past 2 ranks the reduce-scatter sums each rank's loss column in an
+    order of its own: the weights are every rank's the same, bit for bit,
+    and the losses to rounding."""
+    ranks = _fsdp_ranks(4, tmp_path)
+    for res in ranks:
+        _check_fsdp(res, bit_equal=False)
+    for r in ranks[1:]:
+        for name in ("fsdp_pf0", "resumed"):
+            assert all(torch.equal(r[name]["params"][n], p)
+                       for n, p in ranks[0][name]["params"].items()), name
+            np.testing.assert_allclose(r[name]["losses"], ranks[0][name]["losses"],
+                                       rtol=1e-6, err_msg=name)
+
+
+def test_ckpt_on_card_resumes_bf16_training_bit_for_bit(cuda, tmp_path):
+    """gpt_tiny under bf16 auto_cast on the card: an async save at step 2, a
+    fresh engine restores and takes steps 3 and 4 with the uninterrupted
+    run's losses and weights; a corrupted newest checkpoint falls back to
+    the one before."""
+    import warnings
+
+    from paddle_tpu_torch.distributed import elastic
+
+    ids = torch.randint(0, 1024, (4, 128), generator=torch.Generator().manual_seed(0))
+    ids = ids.to(cuda)
+    labels = torch.roll(ids, -1, 1)
+
+    def engine():
+        m = GPTForPretraining(gpt_tiny(), seed=3)
+        return m, TrainStepEngine(m, AdamW(1e-3, parameters=m.named_parameters()))
+
+    with auto_cast(dtype="bfloat16"):
+        m0, e0 = engine()
+        ref = [e0.step(ids, labels).item() for _ in range(4)]
+        m1, e1 = engine()
+        mgr = e1.enable_checkpointing(str(tmp_path), interval=1, keep=5, async_save=True)
+        [e1.step(ids, labels) for _ in range(2)]
+        e1.disable_checkpointing()
+        m2, e2 = engine()
+        assert elastic.restore_latest(e2, str(tmp_path)) == 2
+        got = [e2.step(ids, labels).item() for _ in range(2)]
+    assert got == ref[2:]
+    for (n, p), q in zip(m0.named_parameters(), m2.parameters()):
+        assert torch.equal(p, q), n
+    steps = [s for s, _ in mgr.checkpoints()]
+    assert steps == [1, 2]
+    newest = mgr.checkpoints()[-1][1]
+    payload = sorted(f for f in os.listdir(newest) if f.endswith(".npy"))[0]
+    with open(os.path.join(newest, payload), "r+b") as f:
+        f.seek(64)
+        f.write(b"\xff\xff\xff\xff")
+    _, e3 = engine()
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        assert elastic.restore_latest(e3, str(tmp_path)) == 1

@@ -51,6 +51,15 @@ def test_importing_every_port_module_loads_no_jax():
     assert "LOADED []" in res.stdout
 
 
+def test_the_fsdp_and_checkpoint_modules_are_among_them():
+    mods = set(_port_modules())
+    assert {"paddle_tpu_torch.distributed.elastic", "paddle_tpu_torch.distributed.grad_comm",
+            "paddle_tpu_torch.distributed.engine", "paddle_tpu_torch.tools.ckpt_fsck"} <= mods
+    helpers = [ROOT / "tests" / "torch_dp_workers.py", ROOT / "tests" / "torch_fsdp_workers.py"]
+    for path in helpers:   # the rank bodies run on the card's machine, which has no jax
+        assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, path.name
+
+
 def _imported_roots(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -117,6 +117,7 @@ def test_the_bench_under_a_two_rank_launch_prints_one_line(tmp_path):
     ex = row["extra"]
     assert ex["devices"] == 2 and ex["batch"] == 8 and ex["platform"] == "cpu"
     assert ex["grad_comm"] == {"dtype": "f32", "error_feedback": False,
-                               "zero_update": False, "bytes_per_step": (544256 + 1) * 4}
+                               "zero_update": False, "fsdp": False,
+                               "bytes_per_step": (544256 + 1) * 4}
     # value is per card: the windows' global rate over the world
     assert row["value"] < max(ex["timing"]["window_tokens_per_sec"])
