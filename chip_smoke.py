@@ -28,9 +28,27 @@ each:
 4. serving: ServingEngine answers 8 greedy requests of 17-500 prompt tokens;
    requests re-run solo give the same tokens, and the bucketed prefill's
    logits (dense masked attention) match the scoring forward's (kernel).
+4a. serve_paged: the same model served under bf16 auto_cast (O1) from the
+   contiguous cache, from bf16 pages and from int8 pages, and in f32 from
+   the contiguous cache and from pages (8 slots, 64-token pages, 258 pages),
+   32 requests of 64 new tokens submitted at once: 8 cold greedy prompts
+   (A), 12 greedy prompts behind one 256-token system prefix (B: a miss,
+   then partial prefix hits), 4 copies of one 192-token prompt (C: a miss,
+   then full hits that skip the prefill) and 8 sampled prompts (D). Hard:
+   the cache dtypes and kv_cache_bytes; paged tokens equal contiguous ones
+   for A and D at both dtypes, and for B and C at f32 but at a near-tie of
+   the scoring forward's logits (LOGITS_TOL); the partial hits' tail
+   prefill logits against the whole prompt's (LOGITS_TOL at f32, BF16_TOL x
+   max|ref| at bf16); 29 prefills, 3 skips and 14 prefix hits a paged run;
+   no page in use after it, none evicted, the zero page still zero; int8
+   pages within absmax/127 x 0.5 of the bf16 pages at layer 0 (later layers
+   read int8 K/V, their error is printed) and at most 0.55x their bytes.
+   Printed: TTFT and admission-to-first-token by class (miss, partial and
+   full hit), decode tokens/s, kv_cache_bytes, the most pages in use, the
+   prefix hit rate, int8 against bf16 tokens, wall seconds.
 5. profile: torch.profiler's CUDA kernel time in one scoring forward and in
-   one decode chunk, over their untraced wall time (the device's busy
-   share), with the kernels that take the most time.
+   one decode chunk (contiguous, then paged), over their untraced wall time
+   (the device's busy share), with the kernels that take the most time.
 6. train: TrainStepEngine steps of GPT-2 124M on ids [8, 1024] with
    labels = roll(ids, -1), AdamW(1e-4, weight_decay 0.01), under the port's
    bf16 auto_cast (bench.py's step): 3 warm-up and 10 timed steps on one
@@ -653,20 +671,21 @@ def phase_profile(model, ids, forward_ms):
          wall_ms_untraced=forward_ms, wall_ms_traced=wall, kernel_ms=kernel_ms,
          device_busy_share=kernel_ms / forward_ms, top_kernels=top)
 
-    eng = ServingEngine(model, slot_count=4, ladder=(64, 128, 256, 512),
-                        max_new_cap=32, steps_per_dispatch=8)
-    for n in (17, 60, 100, 150):
-        eng.submit(ids[0, :n].cpu().numpy(), max_new_tokens=32, temperature=0.0)
-    eng.step()                       # admits all four, runs the first chunk
-    t0 = time.perf_counter()
-    eng.step()                       # a decode chunk alone (ends in a device read)
-    chunk_ms = (time.perf_counter() - t0) * 1e3
-    wall, kernel_ms, top = device_profile(eng.step)
-    eng.run()
-    emit(phase="profile", what="decode_chunk", slots=4,
-         steps=eng.steps_per_dispatch, wall_ms_untraced=chunk_ms,
-         wall_ms_traced=wall, kernel_ms=kernel_ms,
-         device_busy_share=kernel_ms / chunk_ms, top_kernels=top)
+    for layout in ("contiguous", "paged"):
+        eng = ServingEngine(model, slot_count=4, ladder=(64, 128, 256, 512),
+                            max_new_cap=32, steps_per_dispatch=8, kv_layout=layout)
+        for n in (17, 60, 100, 150):
+            eng.submit(ids[0, :n].cpu().numpy(), max_new_tokens=32, temperature=0.0)
+        eng.step()                       # admits all four, runs the first chunk
+        t0 = time.perf_counter()
+        eng.step()                       # a decode chunk alone (ends in a device read)
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        wall, kernel_ms, top = device_profile(eng.step)
+        eng.run()
+        emit(phase="profile", what="decode_chunk", kv_layout=layout, slots=4,
+             steps=eng.steps_per_dispatch, wall_ms_untraced=chunk_ms,
+             wall_ms_traced=wall, kernel_ms=kernel_ms,
+             device_busy_share=kernel_ms / chunk_ms, top_kernels=top)
 
 
 def phase_serve(model, ids, logits):
@@ -715,6 +734,215 @@ def phase_serve(model, ids, logits):
          decode_tokens=decode_tokens, decode_s=decode_s, wall_s=wall,
          prefill_logits_max_abs_err_vs_score=prefill_err, tol=LOGITS_TOL,
          flash_launches=serve_launches)
+
+
+SERVE_PAGED_BYTES = {   # GPT-2 124M, 8 slots, max_seq_len 1024, 64-token pages
+    "contiguous_bf16": 2 * 12 * 8 * 1024 * 768 * 2,                 # K and V rows
+    "paged_bf16": 2 * 12 * 258 * 64 * 768 * 2 + 8 * 16 * 4,         # + the page table
+    "paged_int8": 2 * 12 * 258 * 64 * (768 + 12 * 4) + 8 * 16 * 4,  # + f32 scales
+}
+INT8_BOUND_SLACK = 1e-4  # int8 page error, past absmax/127 x 0.5: f32 rounding of
+                         # x / s and q x s, |x| <= 127 s, a few ulps of s
+
+
+def _serve_traffic(vocab):
+    """serve_paged's 32 requests: (class, prompt, sampling kwargs)."""
+    rng = np.random.RandomState(0)
+
+    def fresh(n):
+        return rng.randint(0, vocab, (n,)).astype(np.int64)
+
+    greedy = {"temperature": 0.0}
+    work = [("A", fresh(n), greedy) for n in (17, 60, 100, 150, 220, 300, 400, 500)]
+    system = fresh(256)                                          # 4 whole pages
+    tails = np.linspace(8, 160, 12).astype(int)
+    work += [("B", np.concatenate([system, fresh(int(t))]), greedy) for t in tails]
+    repeat = fresh(192)                                          # 3 whole pages
+    work += [("C", repeat.copy(), greedy) for _ in range(4)]
+    work += [("D", fresh(n), {"temperature": 0.8, "top_k": 50, "top_p": 0.95,
+                              "seed": 100 + i})
+             for i, n in enumerate((32, 96, 160, 224, 288, 352, 416, 480))]
+    return work
+
+
+def _prompt_pages(eng, prompt):
+    """The pool pages a paged engine's trie holds for prompt's whole pages."""
+    pages, children = [], eng._prefix._root
+    for chunk in eng._prefix._chunks(prompt):
+        node = children[chunk]
+        pages.append(node.page)
+        children = node.children
+    return pages
+
+
+def phase_serve_paged(model):
+    """GPT-2 124M served from the contiguous cache and from pages (bf16 and
+    int8 pages under bf16 auto_cast, f32 pages without it), on one traffic
+    of 32 requests: misses, partial prefix hits, full hits and sampled ones."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.serving import ServingEngine
+
+    counters = ("serving.prefill_dispatches", "serving.prefill_skips",
+                "serving.prefix_hits")
+    work = _serve_traffic(model.config.vocab_size)
+    engines = {   # name -> (autocast dtype, kv_layout, kv_cache_dtype)
+        "contiguous_bf16": ("bfloat16", "contiguous", None),
+        "paged_bf16": ("bfloat16", "paged", "auto"),
+        "paged_int8": ("bfloat16", "paged", "int8"),
+        "contiguous_f32": (None, "contiguous", None),
+        "paged_f32": (None, "paged", "auto"),
+    }
+    repeat = next(p for c, p, _ in work if c == "C")
+    out, kv_pages_of = {}, {}
+    for name, (amp, layout, kv_dtype) in engines.items():
+        paged = layout == "paged"
+        with auto_cast(enable=amp is not None, dtype=amp or "bfloat16"):
+            eng = ServingEngine(model, slot_count=8, ladder=(64, 128, 256, 512),
+                                max_new_cap=64, steps_per_dispatch=8,
+                                kv_layout=layout, kv_page_tokens=64,
+                                kv_num_pages=258 if paged else None,
+                                kv_cache_dtype=kv_dtype)
+        partial_logits = {}
+
+        def hook(req, logits, keep=partial_logits):
+            if req.prefix_hit:
+                keep[req.id] = logits[0].float().cpu()
+
+        eng._prefill_hook = hook
+        c0 = {c: monitor.stat(c).get() for c in counters}
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=64, **kw) for _, p, kw in work]
+        peak_pages = 0
+        while eng.queue_depth() or eng.occupancy():    # run(), reading the pool
+            eng.step()
+            peak_pages = max(peak_pages, eng._pool.in_use if paged else 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not all(r.done and r.outcome == "length" and len(r.tokens) == 64
+                   for r in reqs):
+            raise AssertionError(f"serve_paged {name}: not every request completed")
+        counts = {c: monitor.stat(c).get() - c0[c] for c in counters}
+        rec = {"engine": name, "tokens": [r.tokens for r in reqs],
+               "kv_cache_bytes": eng.kv_cache_bytes(), "counts": counts,
+               "decode_tokens_per_s": eng.decode_tokens / eng.decode_seconds,
+               "wall_s": wall}
+        cache = eng._pool_state["k"][0] if paged else eng._kcs[0]
+        want_dtype = torch.float32 if amp is None else (
+            torch.int8 if kv_dtype == "int8" else torch.bfloat16)
+        if cache.dtype != want_dtype or eng._cache_dtype != (
+                torch.float32 if amp is None else torch.bfloat16):
+            raise AssertionError(f"serve_paged {name}: cache {cache.dtype}, "
+                                 f"compute {eng._cache_dtype}")
+        if name in SERVE_PAGED_BYTES and rec["kv_cache_bytes"] != SERVE_PAGED_BYTES[name]:
+            raise AssertionError(f"serve_paged {name}: kv_cache_bytes "
+                                 f"{rec['kv_cache_bytes']} != {SERVE_PAGED_BYTES[name]}")
+
+        # TTFT (submit to first token, queueing included) and admission to
+        # first token, by what the trie did for the request
+        rec["ttft_ms"], rec["admit_to_first_ms"] = {}, {}
+        for cls, sel in (("miss", lambda r: not r.prefix_hit),
+                         ("partial_hit", lambda r: r.prefix_hit and r.tail_bucket),
+                         ("full_hit", lambda r: r.prefix_hit and not r.tail_bucket)):
+            for key, start in (("ttft_ms", "submit_ts"), ("admit_to_first_ms", "admit_ts")):
+                ms = [(r.first_token_ts - getattr(r, start)) * 1e3 for r in reqs if sel(r)]
+                if ms:
+                    rec[key][cls] = {"p50": statistics.median(ms), "max": max(ms),
+                                     "n": len(ms)}
+        if paged:
+            st = eng.stats()
+            rec.update(peak_pages_in_use=peak_pages, pages_in_use=st["pages_in_use"],
+                       pages_cached=st["pages_cached"], prefix=st["prefix"])
+            if counts != {"serving.prefill_dispatches": 29, "serving.prefill_skips": 3,
+                          "serving.prefix_hits": 14}:
+                raise AssertionError(f"serve_paged {name}: counters {counts}")
+            if (st["pages_in_use"] != 0 or st["pages_cached"] < 7
+                    or st["prefix"]["evicted_pages"] != 0):
+                raise AssertionError(f"serve_paged {name}: pool after the run {st}")
+            state = eng._pool_state
+            for pool in (*state["k"], *state["v"], *state["ks"], *state["vs"]):
+                if pool[0].any():
+                    raise AssertionError(f"serve_paged {name}: the zero page was written")
+            # the partial hits' tail prefill against the whole prompt's prefill
+            worst = 0.0
+            for r in reqs:
+                if r.id in partial_logits:
+                    ref = eng.score_prompt(r.prompt_ids).float().cpu()
+                    err = (partial_logits[r.id] - ref).abs().max().item()
+                    tol = LOGITS_TOL if amp is None else BF16_TOL * ref.abs().max().item()
+                    if not err <= tol:
+                        raise AssertionError(f"serve_paged {name}: partial-hit prefill "
+                                             f"logits differ by {err} (tol {tol})")
+                    worst = max(worst, err / tol)
+            rec["partial_hit_logits_err_over_tol"] = worst
+            if amp is not None:     # the C prompt's pages, every layer
+                pages = torch.tensor(_prompt_pages(eng, repeat), device=cache.device)
+                kv_pages_of[kv_dtype] = [
+                    [pool[pages] for pool in pools]
+                    for pools in zip(*(state[n] for n in ("k", "v", "ks", "vs") if state[n]))]
+        else:
+            if counts["serving.prefill_dispatches"] != len(work):
+                raise AssertionError(f"serve_paged {name}: counters {counts}")
+        out[name] = rec
+        del eng
+        torch.cuda.empty_cache()
+
+    # int8 pages against the bf16 pages of the C prompt (3 whole pages):
+    # layer 0's K/V come from the same embeddings in both engines, so they
+    # meet the quantization bound; later layers read int8 K/V before them,
+    # so their error is printed, not held
+    rel = []
+    for layer, ((kb, vb), (kq, vq, ks, vs)) in enumerate(zip(
+            kv_pages_of["auto"], kv_pages_of["int8"])):
+        for ref, q, s in ((kb, kq, ks), (vb, vq, vs)):
+            ref = ref.float()
+            deq = q.float() * s[..., None]
+            err = (deq - ref).abs()
+            bound = ref.abs().amax(-1, keepdim=True) / 127 * (0.5 + INT8_BOUND_SLACK)
+            if layer == 0 and not bool((err <= bound).all()):
+                raise AssertionError("serve_paged: int8 layer-0 K/V past absmax/127 x 0.5 "
+                                     f"(worst {(err / bound).max().item()} of the bound)")
+            rel.append((err.max() / ref.abs().max()).item())
+
+    # exact tokens where the arithmetic is the same; B and C at f32 differ
+    # only at a near-tie of the scoring forward's logits
+    classes = [c for c, _, _ in work]
+    mismatched, ties = {}, []
+    for amp in ("bf16", "f32"):
+        want, got = out[f"contiguous_{amp}"]["tokens"], out[f"paged_{amp}"]["tokens"]
+        diff = [i for i in range(len(work)) if want[i] != got[i]]
+        mismatched[amp] = [(classes[i], i) for i in diff]
+        if [i for i in diff if classes[i] in "AD"]:
+            raise AssertionError(f"serve_paged {amp}: paged tokens differ from "
+                                 f"contiguous for misses {mismatched[amp]}")
+        if amp != "f32":
+            continue
+        for i in diff:
+            j = next(n for n, (a, b) in enumerate(zip(want[i], got[i])) if a != b)
+            prefix = np.concatenate([work[i][1], np.asarray(want[i][:j], np.int64)])
+            with torch.no_grad():
+                lg = model(torch.from_numpy(prefix)[None].cuda())[0, -1].float()
+            gap = abs(lg[want[i][j]].item() - lg[got[i][j]].item())
+            ties.append({"request": i, "class": classes[i], "position": j,
+                         "tokens": [want[i][j], got[i][j]], "logit_gap": gap})
+            if not gap <= LOGITS_TOL:
+                raise AssertionError(f"serve_paged f32: request {i} ({classes[i]}) "
+                                     f"differs at token {j} where the logits are "
+                                     f"{gap} apart (tol {LOGITS_TOL})")
+    agree = [a == b for a, b in zip(out["paged_int8"]["tokens"],
+                                    out["paged_bf16"]["tokens"])]
+    for rec in out.values():
+        emit(phase="serve_paged", **{k: v for k, v in rec.items() if k != "tokens"})
+    emit(phase="serve_paged", summary=True, requests=len(work),
+         classes={c: classes.count(c) for c in "ABCD"},
+         paged_vs_contiguous_mismatches=mismatched, f32_near_ties=ties,
+         int8_vs_bf16_requests_equal=sum(agree),
+         int8_kv_max_rel_err_by_layer=[max(rel[2 * i:2 * i + 2])
+                                       for i in range(len(rel) // 2)],
+         int8_bytes_over_bf16=out["paged_int8"]["kv_cache_bytes"]
+         / out["paged_bf16"]["kv_cache_bytes"])
+    if out["paged_int8"]["kv_cache_bytes"] > 0.55 * out["paged_bf16"]["kv_cache_bytes"]:
+        raise AssertionError("serve_paged: int8 pool above 0.55x the bf16 pool")
 
 
 def _launch_counts():
@@ -2180,6 +2408,7 @@ def main() -> int:
     del cpu_model
     phase_serve(model, ids, logits)
     del logits
+    phase_serve_paged(model)
     phase_profile(model, ids, forward_ms)
     del model
     torch.cuda.empty_cache()

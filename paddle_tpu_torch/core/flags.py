@@ -94,3 +94,15 @@ define_flag("ckpt_rollback", False,
             "a non-finite training loss restores the newest valid checkpoint "
             "in place of the diverged state (ckpt.rollbacks); one loss read "
             "a step while on")
+define_flag("kv_page_tokens", 64,
+            "tokens per KV-cache page for the paged serving layout "
+            "(serving/kv_pages.py). Smaller pages waste fewer bytes on the "
+            "last partial page per sequence and share finer-grained "
+            "prefixes; larger pages shrink the page table and the gather. "
+            "Any positive value works; prefix reuse only shares whole pages")
+define_flag("kv_cache_dtype", "auto",
+            "paged KV-cache storage dtype: 'auto' stores pages in the "
+            "attention compute dtype, 'bf16' casts pages to bfloat16, "
+            "'int8' stores chunk-scaled int8 pages (one f32 absmax/127 "
+            "scale per (page, token, head), dequantized inside the "
+            "attention read). Only the paged layout honors this")

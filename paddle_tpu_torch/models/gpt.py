@@ -7,9 +7,9 @@ kernels on the card, forward and backward), the training loss
 ``forward(ids, labels)`` through the chunked fused LM-head cross entropy,
 dropout, recompute ("full" and "selective", distributed/fleet/utils.py),
 the contiguous KV-cache path with a scalar or a per-row offset (serving),
-and ``generate`` (greedy, top-k / top-p sampling, beam search). Parameters
-are trainable; the serving engine and ``generate`` run under ``no_grad``.
-Not ported yet: tensor parallelism and the paged KV cache.
+the paged KV cache (serving/kv_pages.py), and ``generate`` (greedy, top-k /
+top-p sampling, beam search). Parameters are trainable; the serving engine
+and ``generate`` run under ``no_grad``. Not ported yet: tensor parallelism.
 
 Dropout draws from the model's own ``torch.Generator`` (on the model's
 device, seeded from the constructor's ``seed``), where the JAX model folds
@@ -35,6 +35,7 @@ from ..device import resolve_device
 from ..distributed.fleet.utils import recompute
 from ..ops import nn_functional as F
 from ..ops.fused import fused_linear_cross_entropy
+from ..serving import kv_pages
 from ..serving.bucketing import resolve_bucket
 from ..serving.sampling import gumbel_noise, sample_tokens
 
@@ -128,12 +129,25 @@ class GPTAttention(nn.Module):
                 training=self.training, generator=self.generator)
             return self.out_proj(out.reshape(b, s, self.hidden_size))
 
+        dev = x.device
+        if hasattr(cache, "page_table"):
+            # paged serving cache (serving/kv_pages.py): scatter this chunk's
+            # K/V through the rows' page tables, gather the logical cache back
+            # (int8 pages dequantized) and mask exactly like the per-row
+            # contiguous branch; unallocated entries alias the zero page, so
+            # the gathered values match a zeroed contiguous cache
+            kc, vc, new_cache = kv_pages.update_and_read(cache, k, v)
+            qpos = cache.offset.to(torch.long)[:, None] + torch.arange(s, device=dev)[None, :]
+            mask = (torch.arange(kc.shape[1], device=dev)[None, None, :]
+                    <= qpos[:, :, None])[:, None]                      # [b, 1, s, T]
+            out = F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)
+            return self.out_proj(out.reshape(b, s, self.hidden_size)), new_cache
+
         # KV cache = (k_cache, v_cache, offset), [b, T, nh, hd] buffers; the
         # new chunk writes positions [offset, offset + s) and attends to
         # every cached position <= its own
         kc, vc, offset = cache
         total = kc.shape[1]
-        dev = x.device
         if torch.is_tensor(offset) and offset.dim() == 1:
             # per-row offsets (serving slot cache): each row writes its chunk
             # at its own position; rows past a row's offset are masked, so
@@ -219,8 +233,12 @@ class GPTModel(nn.Module):
         if caches is not None:
             off = caches[0][2]
             if torch.is_tensor(off) and off.dim() == 1:  # per-row offsets -> [b, s]
+                # clamped to the position table: a paged tail prefill's
+                # right-pad may run past it (its rows are discarded; the JAX
+                # gather clamps)
                 pos = (off.to(device=dev, dtype=torch.long)[:, None]
-                       + torch.arange(s, device=dev)[None, :])
+                       + torch.arange(s, device=dev)[None, :]).clamp_max(
+                           self.config.max_seq_len - 1)
             else:
                 pos = int(off) + torch.arange(s, device=dev)
         else:
@@ -324,25 +342,31 @@ class GPTForPretraining(nn.Module):
 
     # ------------------------------------------------------------- decode
     def _decode_setup(self, b, total):
-        """What a decode call runs on, under the active ``auto_cast``
-        (reference gpt.py:618-639): the weights with 2 or more dims cast once
-        to the matmul op's autocast dtype (1-D ones, biases and norm scales,
-        stay as they are), the head weight among them, and per layer a
-        zeroed contiguous [b, total, nh, hd] K and V cache in the attention
-        op's autocast dtype (the embedding's dtype without autocast)."""
+        """What a decode call runs on: ``_decode_weights``' weights (the head
+        weight among them) and per layer a zeroed contiguous [b, total, nh,
+        hd] K and V cache in its cache dtype."""
         cfg = self.config
-        w_dtype = autocast_dtype_for("matmul")
-        params = {n: (p.detach().to(w_dtype) if w_dtype is not None and p.dim() >= 2
-                      and p.is_floating_point() else p.detach())
-                  for n, p in self.named_parameters()}
+        params, cache_dtype = self._decode_weights()
         gpt_params = {n[len("gpt."):]: p for n, p in params.items() if n.startswith("gpt.")}
         head_w = params["gpt.wte.weight" if self.lm_head is None else "lm_head.weight"]
-        cache_dtype = autocast_dtype_for("attention") or self.gpt.wte.weight.dtype
         nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
         caches = [tuple(torch.zeros((b, total, nh, hd), dtype=cache_dtype,
                                     device=self.device) for _ in range(2)) + (0,)
                   for _ in range(cfg.num_layers)]
         return gpt_params, head_w, caches
+
+    def _decode_weights(self):
+        """(name -> weight, KV cache dtype) as decode runs under the active
+        ``auto_cast`` (reference gpt.py:618-639, serving/engine.py:345-374):
+        floating weights with 2 or more dims cast to the matmul op's autocast
+        dtype, the rest detached as they are; the cache in the attention op's
+        autocast dtype, or the embedding's dtype without autocast. Shared by
+        ``generate`` and the serving engine."""
+        w_dtype = autocast_dtype_for("matmul")
+        params = {n: (p.detach().to(w_dtype) if w_dtype is not None and p.dim() >= 2
+                      and p.is_floating_point() else p.detach())
+                  for n, p in self.named_parameters()}
+        return params, autocast_dtype_for("attention") or self.gpt.wte.weight.dtype
 
     def _decode_body(self, gpt_params, ids, caches):
         """The model body on ``gpt_params`` through the KV caches."""

@@ -1,28 +1,45 @@
-"""Serving engine: bucketed prefill + slot KV cache + continuous-batching decode
-(counterpart of paddle_tpu/serving/engine.py, contiguous KV layout).
+"""Serving engine: bucketed prefill + slot or paged KV cache +
+continuous-batching decode (counterpart of paddle_tpu/serving/engine.py).
 
 - **Bucketed prefill.** A request's prompt is right-padded to its ladder
-  rung and run through the model with a rung-sized cache at offset 0; the
-  hidden state at the last real position gives the first token. The cache is
-  a view of the request's slot row in the engine's
-  ``[slots, max_seq_len, nh, hd]`` buffers, so the prompt's K/V land in place
-  (the JAX engine builds a fresh rung cache and scatters it into the row).
+  rung and run through the model; the hidden state at the last real
+  position gives the first token. Contiguous layout: the cache is a view of
+  the request's slot row in the engine's ``[slots, max_seq_len, nh, hd]``
+  buffers at offset 0, so the prompt's K/V land in place (the JAX engine
+  builds a fresh rung cache and scatters it into the row).
+- **Paged layout** (``kv_layout="paged"``, kv_pages.py): per-layer page
+  pools and one ``[slots, max_pages]`` page table; the radix prefix cache
+  (prefix_cache.py) shares whole prompt pages between requests. Admission
+  has three shapes: a miss prefills the whole prompt at base 0; a partial
+  hit prefills only the unshared tail, at its own rung, at base = shared
+  tokens; a full hit (page-aligned prompt, every page cached) dispatches no
+  prefill and seats the slot at offset ``plen - 1`` in replay mode, so its
+  first decode step re-derives the last prompt position (its K/V write goes
+  to the scratch page) and samples the first token from the stream of
+  position ``plen``. Pages are reserved at admission for the request's
+  worst case; a request that does not fit waits in the queue, and one that
+  can never fit raises ``PoolExhausted``. A paged prefill gathers only the
+  pages under ``base + rung`` positions, so a miss runs at the contiguous
+  prefill's shapes.
 - **Decode chunks.** One dispatch runs ``steps_per_dispatch`` single-token
   steps for every slot, with per-slot offsets, sampling parameters, EOS and
   budget masks held on the device; the host reads tokens back once per
-  chunk. Idle slots keep writing their (masked) tip row, clamped to the
-  buffer.
-- **Continuous batching.** A finished request retires its slot at the end
-  of the chunk, and queued requests are prefilled into free slots between
-  chunks.
+  chunk (and stages the page table once per chunk). Idle slots keep
+  writing their (masked) tip row, clamped to the buffer, or the scratch
+  page.
+- **Continuous batching.** A finished request retires its slot (and, paged,
+  releases its pages) at the end of the chunk, and queued requests are
+  prefilled into free slots between chunks.
 
 Weights are snapshotted at construction (a private copy of the model, in
 eval mode; the caller's model keeps its mode, so a model can be served and
-then trained with its dropout); call ``refresh_params()`` after updating
-the model. Not ported yet: the
-paged KV layout and prefix cache, speculative decoding, drain/SIGTERM, the
-telemetry sinks and the executable registry (PyTorch runs eagerly; there is
-nothing to compile).
+then trained with its dropout), cast as ``generate`` casts them under the
+``auto_cast`` active at construction (matrices in the matmul autocast dtype,
+the KV cache in the attention autocast dtype); every prefill and decode
+chunk runs under that captured context, wherever ``run()`` is called. Call
+``refresh_params()`` after updating the model. Not ported yet: speculative
+decoding, the replica router, drain/SIGTERM, the telemetry sinks and the
+executable registry (PyTorch runs eagerly; there is nothing to compile).
 """
 from __future__ import annotations
 
@@ -31,12 +48,16 @@ import itertools
 import threading
 import time
 from collections import deque
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..amp import amp_ctx, amp_scope
+from ..core import flags, monitor
+from . import kv_pages
 from .bucketing import DEFAULT_LADDER, bucket_for, clip_ladder
+from .prefix_cache import RadixPrefixCache
 from .sampling import gumbel_noise, sample_tokens
 
 _NO_EOS = -1
@@ -59,8 +80,14 @@ class Request:
                              else None)
         self.seed = int(seed)
         self.tokens: List[int] = []      # generated tokens (incl. eos if hit)
+        self.prefix_hit = False          # paged: >= 1 page matched the trie
+        self.shared_tokens = 0           # paged: prompt tokens served from
+                                         # shared pages (no prefill)
+        self.tail_bucket: Optional[int] = None  # paged: the prefill's rung
+                                                # (0 on a full hit)
         self.bucket: Optional[int] = None
         self.slot: Optional[int] = None
+        self.queue_depth_at_submit = 0
         self.submit_ts: Optional[float] = None
         self.admit_ts: Optional[float] = None
         self.first_token_ts: Optional[float] = None
@@ -107,11 +134,16 @@ class Request:
 
 
 class ServingEngine:
-    """Continuous-batching GPT serving over a slot-based KV cache.
+    """Continuous-batching GPT serving over a slot-based or paged KV cache.
 
     model: a GPTForPretraining of this package; the engine runs on the
     model's device. slot_count fixes the decode batch; ladder the prefill
     rungs (clipped to what fits max_seq_len with max_new_cap headroom).
+    kv_layout "contiguous" (a [slots, max_seq_len] row a slot) or "paged";
+    the paged layout takes kv_page_tokens (FLAGS_kv_page_tokens),
+    kv_num_pages (default slots x max_pages + 2 reserved pages: the
+    contiguous worst case, so the pool never runs out) and kv_cache_dtype
+    "auto" | "bf16" | "int8" (FLAGS_kv_cache_dtype).
 
     One thread drives it: submit() is thread-safe, step()/run() must be called
     from one thread.
@@ -121,13 +153,16 @@ class ServingEngine:
                  ladder: Sequence[int] = DEFAULT_LADDER,
                  max_seq_len: Optional[int] = None,
                  max_new_cap: int = 64, steps_per_dispatch: int = 8,
-                 kv_layout: str = "contiguous"):
-        if kv_layout != "contiguous":
-            raise NotImplementedError(
-                f"kv_layout {kv_layout!r} is not ported yet; the port serves "
-                "from the contiguous slot cache")
+                 kv_layout: str = "contiguous",
+                 kv_page_tokens: Optional[int] = None,
+                 kv_num_pages: Optional[int] = None,
+                 kv_cache_dtype: Optional[str] = None):
+        if kv_layout not in ("contiguous", "paged"):
+            raise ValueError(
+                f"kv_layout must be 'contiguous' or 'paged', got {kv_layout!r}")
         cfg = model.config
         self.model = model      # its mode stays the caller's; the copy serves in eval
+        self.kv_layout = kv_layout
         self.slot_count = int(slot_count)
         if self.slot_count < 1:
             raise ValueError(f"slot_count must be >= 1, got {slot_count}")
@@ -147,20 +182,50 @@ class ServingEngine:
         self._lock = threading.Lock()
         self._queue: deque[Request] = deque()
         self._completed: List[Request] = []
+        self._steps = 0
         # host-clock time spent in decode chunks and the tokens they emitted
         # (decode tokens/s = decode_tokens / decode_seconds)
         self.decode_seconds = 0.0
         self.decode_tokens = 0
+        # private hook (chip_smoke.py): called as hook(request, logits [1, V])
+        # after every prefill dispatch
+        self._prefill_hook = None
+        # the reference's executables are traced under the context active
+        # when they are built; here every prefill and decode runs under it
+        self._amp = amp_ctx()
         self._net = None
         self.refresh_params()
 
         nh = cfg.num_heads
         hd = cfg.hidden_size // cfg.num_heads
         S, T = self.slot_count, self.max_seq_len
-        self._kcs = [torch.zeros((S, T, nh, hd), dtype=self._cache_dtype,
-                                 device=self.device)
-                     for _ in range(cfg.num_layers)]
-        self._vcs = [torch.zeros_like(kc) for kc in self._kcs]
+        if kv_layout == "paged":
+            pt = int(kv_page_tokens if kv_page_tokens is not None
+                     else flags.flag("kv_page_tokens"))
+            if pt < 1:
+                raise ValueError(f"kv_page_tokens must be >= 1, got {pt}")
+            self.page_tokens = pt
+            self.max_pages = -(-T // pt)                  # ceil(T / pt)
+            mode = (kv_cache_dtype if kv_cache_dtype is not None
+                    else flags.flag("kv_cache_dtype"))
+            self._store_dtype, self._kv_quantized = kv_pages.resolve_store_dtype(
+                mode, self._cache_dtype)
+            self.num_pages = int(kv_num_pages if kv_num_pages is not None
+                                 else S * self.max_pages + kv_pages.RESERVED_PAGES)
+            self._pool = kv_pages.PagePool(self.num_pages)
+            self._prefix = RadixPrefixCache(self._pool, pt)
+            self._pool_state = kv_pages.make_pool_state(
+                cfg.num_layers, self.num_pages, pt, nh, hd, S, self.max_pages,
+                self._store_dtype, self._kv_quantized, device=self.device)
+            self._tables = np.zeros((S, self.max_pages), np.int32)
+            self._slot_pages: List[List[int]] = [[] for _ in range(S)]
+            self._replay = np.zeros(S, bool)
+            self._kcs = self._vcs = None
+        else:
+            self._kcs = [torch.zeros((S, T, nh, hd), dtype=self._cache_dtype,
+                                     device=self.device)
+                         for _ in range(cfg.num_layers)]
+            self._vcs = [torch.zeros_like(kc) for kc in self._kcs]
 
         # host-side per-slot state (tiny arrays, staged once per chunk)
         self._offsets = np.zeros(S, np.int64)
@@ -176,13 +241,17 @@ class ServingEngine:
 
     # ------------------------------------------------------------- params
     def refresh_params(self) -> None:
-        """Re-snapshot the model's weights into the engine's private copy."""
+        """Re-snapshot the model's weights into the engine's private copy,
+        cast by ``GPTForPretraining._decode_weights`` under the ``auto_cast``
+        captured at construction (reference engine.py:345-374)."""
         if self._net is None:
             self._net = copy.deepcopy(self.model)
-        else:
-            self._net.load_state_dict(self.model.state_dict())
         self._net.eval()
-        self._cache_dtype = self._net.gpt.wte.weight.dtype
+        with amp_scope(self._amp):
+            weights, self._cache_dtype = self.model._decode_weights()
+        with torch.no_grad():
+            for name, p in self._net.named_parameters():
+                p.data = weights[name].clone()
 
     # ------------------------------------------------------------- public
     def submit(self, prompt_ids, max_new_tokens: int = 32,
@@ -200,6 +269,7 @@ class ServingEngine:
                                         self.max_new_cap, room))
         req.submit_ts = time.perf_counter()
         with self._lock:
+            req.queue_depth_at_submit = len(self._queue)
             self._queue.append(req)
         return req
 
@@ -207,9 +277,10 @@ class ServingEngine:
         """Admit queued requests into free slots (bucketed prefill), then
         run ONE decode chunk for all slots. Returns the number of live
         slots after the step (0 = fully drained)."""
-        self._admit()
-        if self._active.any():
-            self._decode_step()
+        with amp_scope(self._amp):
+            self._admit()
+            if self._active.any():
+                self._decode_step()
         return int(self._active.sum())
 
     def run(self, max_steps: Optional[int] = None) -> List[Request]:
@@ -226,25 +297,82 @@ class ServingEngine:
 
     @torch.no_grad()
     def score_prompt(self, prompt_ids) -> torch.Tensor:
-        """Next-token logits [vocab] of a prompt, computed exactly as
-        admission's bucketed prefill does, on a scratch cache (no slot is
-        touched)."""
+        """Next-token logits [vocab] of a prompt, computed exactly as a
+        contiguous admission's bucketed prefill does, on a scratch cache (no
+        slot or page is touched)."""
         prompt = np.asarray(prompt_ids, np.int64).reshape(-1)
-        return self._prefill(prompt, bucket_for(len(prompt), self.ladder),
-                             slot=None)[0]
+        with amp_scope(self._amp):
+            return self._prefill(prompt, bucket_for(len(prompt), self.ladder),
+                                 slot=None)[0]
+
+    def stats(self) -> Dict[str, Any]:
+        """The reference's ``stats()`` keys but its executable counts (the
+        port runs eagerly and compiles nothing); ``draining`` is always
+        False (drain is not ported)."""
+        out = {
+            "steps": self._steps,
+            "completed": len(self._completed),
+            "queued": len(self._queue),
+            "active_slots": int(self._active.sum()),
+            "draining": False,
+            "slot_count": self.slot_count,
+            "ladder": self.ladder,
+            "kv_layout": self.kv_layout,
+            "kv_cache_bytes": self.kv_cache_bytes(),
+        }
+        if self.kv_layout == "paged":
+            out.update({
+                "page_tokens": self.page_tokens,
+                "num_pages": self.num_pages,
+                "pages_in_use": self._pool.in_use,
+                "pages_cached": self._pool.cached,
+                "prefix": self._prefix.stats(),
+            })
+        return out
+
+    def kv_cache_bytes(self) -> int:
+        """Device bytes held by the KV cache: per-slot rows (contiguous) or
+        pools + scales + page table (paged)."""
+        if self.kv_layout == "paged":
+            return kv_pages.pool_state_bytes(self._pool_state)
+        return sum(t.numel() * t.element_size() for t in (*self._kcs, *self._vcs))
+
+    def prefix_match_len(self, prompt_ids) -> int:
+        """Tokens of this prompt already cached as shared pages (0 on the
+        contiguous layout); no refcount side effects."""
+        if self.kv_layout != "paged":
+            return 0
+        return self._prefix.peek([int(t) for t in prompt_ids])
+
+    def flush_prefix_cache(self) -> int:
+        """Evict every refcount-zero cached prefix page; returns the count
+        freed (a cold trie with a warm engine)."""
+        if self.kv_layout != "paged":
+            return 0
+        return self._prefix.flush()
+
+    def occupancy(self) -> float:
+        return float(self._active.sum()) / self.slot_count
+
+    def queue_depth(self) -> int:
+        return len(self._queue)
 
     # ---- prefill -------------------------------------------------------
+    def _prefill_logits(self, ids: np.ndarray, bucket: int, caches) -> torch.Tensor:
+        """Run ``ids`` right-padded to ``bucket`` through the model on
+        ``caches``; the last real position's logits [1, V]. Causal masking
+        makes the right-pad inert."""
+        n = len(ids)
+        padded = torch.zeros((1, bucket), dtype=torch.long)
+        padded[0, :n] = torch.from_numpy(ids)
+        h, _ = self._net.gpt(padded.to(self.device), caches=caches)
+        return self._net._head_logits(h[:, n - 1])
+
     def _prefill(self, prompt: np.ndarray, bucket: int,
                  slot: Optional[int]) -> torch.Tensor:
-        """Run the padded prompt through the model with a rung-sized cache at
-        offset 0 (the slot row's first ``bucket`` positions, or a scratch
-        cache when slot is None); returns the last real position's logits
-        [1, V]. Causal masking makes the right-pad inert."""
+        """Contiguous prefill: a rung-sized cache at offset 0, the slot row's
+        first ``bucket`` positions, or a scratch cache when slot is None."""
         cfg = self._net.config
-        plen = len(prompt)
-        padded = torch.zeros((1, bucket), dtype=torch.long)
-        padded[0, :plen] = torch.from_numpy(prompt)
-        padded = padded.to(self.device)
         if slot is None:
             nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
             caches = [(torch.zeros((1, bucket, nh, hd), dtype=self._cache_dtype,
@@ -255,8 +383,65 @@ class ServingEngine:
         else:
             caches = [(kc[slot:slot + 1, :bucket], vc[slot:slot + 1, :bucket], 0)
                       for kc, vc in zip(self._kcs, self._vcs)]
-        h, _ = self._net.gpt(padded, caches=caches)
-        return self._net._head_logits(h[:, plen - 1])
+        return self._prefill_logits(prompt, bucket, caches)
+
+    def _prefill_paged(self, tail: np.ndarray, bucket: int, base: int,
+                       slot: int) -> torch.Tensor:
+        """Paged prefill of the unshared tail at ``base``, writing through the
+        slot's page-table row. Only the pages under ``base + bucket``
+        positions are gathered; pad positions write the scratch page (their
+        table entries may be the zero page, which is never written)."""
+        pt, dev = self.page_tokens, self.device
+        n_pages = min(-(-(base + bucket) // pt), self.max_pages)
+        table = torch.from_numpy(self._tables[slot:slot + 1, :n_pages]).to(
+            device=dev, dtype=torch.long)
+        wmask = (torch.arange(bucket) < len(tail))[None].to(dev)
+        caches = kv_pages.layer_views(
+            self._pool_state, table, torch.tensor([base], device=dev), wmask,
+            pt, self._cache_dtype)
+        return self._prefill_logits(tail, bucket, caches)
+
+    def _first_token(self, req: Request, logits: torch.Tensor) -> int:
+        """Sample the first token (at position plen) from prefill logits;
+        the int() is the device sync."""
+        if self._prefill_hook is not None:
+            self._prefill_hook(req, logits)
+        plen = len(req.prompt_ids)
+        noise = (None if req.temperature == 0.0 else gumbel_noise(
+            [req.seed], [plen], logits.shape[-1], self.device))
+        return int(sample_tokens(logits, noise, [req.temperature],
+                                 [req.top_k], [req.top_p])[0])
+
+    def _seat(self, req: Request, slot: int, offset: int, last_tok: int,
+              remaining: int) -> None:
+        self._offsets[slot] = offset
+        self._last_tok[slot] = last_tok
+        self._active[slot] = True
+        self._temps[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        self._topp[slot] = req.top_p
+        self._eos[slot] = (req.eos_token_id if req.eos_token_id is not None
+                           else _NO_EOS)
+        self._remaining[slot] = remaining
+        self._seeds[slot] = req.seed
+        self._slot_req[slot] = req
+
+    def _after_first_token(self, req: Request, slot: int, first: int) -> None:
+        """Record the prefill's token; retire the request at once when it is
+        eos or the budget is one token, else seat it for decode."""
+        req.first_token_ts = time.perf_counter()
+        req.slot = slot
+        req.tokens.append(first)
+        self._count_tokens(1)
+        eos = req.eos_token_id if req.eos_token_id is not None else _NO_EOS
+        if (eos != _NO_EOS and first == eos) or req.max_new_tokens <= 1:
+            req.finish_reason = ("eos" if eos != _NO_EOS and first == eos
+                                 else "length")
+            if self.kv_layout == "paged":
+                self._release_slot(slot)
+            self._finish(req)
+            return
+        self._seat(req, slot, len(req.prompt_ids), first, req.max_new_tokens - 1)
 
     @torch.no_grad()
     def _admit(self) -> None:
@@ -270,48 +455,148 @@ class ServingEngine:
                     return
                 req = self._queue.popleft()
             slot = free[0]
-            plen = len(req.prompt_ids)
+            if self.kv_layout == "paged":
+                if not self._admit_paged(req, slot):
+                    return
+                continue
             req.admit_ts = time.perf_counter()    # queue wait ends here
+            monitor.stat("serving.prefill_dispatches").increase()
             try:
-                logits = self._prefill(req.prompt_ids, req.bucket, slot)
-                noise = (None if req.temperature == 0.0 else gumbel_noise(
-                    [req.seed], [plen], logits.shape[-1], self.device))
-                # the first token sits at position plen
-                tok = sample_tokens(logits, noise, [req.temperature],
-                                    [req.top_k], [req.top_p])
-                first = int(tok[0])                 # device sync = first token
+                first = self._first_token(
+                    req, self._prefill(req.prompt_ids, req.bucket, slot))
             except Exception:
                 self._finish(req, outcome="error")
                 raise
-            req.first_token_ts = time.perf_counter()
+            self._after_first_token(req, slot, first)
+
+    # ---- paged admission -----------------------------------------------
+    def _pages_reserved_inflight(self) -> int:
+        """Worst-case pages still to be allocated by active slots (each
+        slot's final offset is offsets + remaining; shared and own pages
+        already in its table row don't count)."""
+        pt = self.page_tokens
+        total = 0
+        for i in np.nonzero(self._active)[0]:
+            end = min(int(self._offsets[i]) + int(self._remaining[i]),
+                      self.max_seq_len)
+            need = -(-end // pt) - int((self._tables[i] != 0).sum())
+            total += max(0, need)
+        return total
+
+    def _release_slot(self, slot: int) -> None:
+        """Drop the slot's page references (shared pages decref; own pages
+        free or park for prefix reuse) and reset its table row to the zero
+        page."""
+        for p in self._slot_pages[slot]:
+            self._prefix.release(int(p))
+        self._slot_pages[slot] = []
+        self._tables[slot, :] = 0
+        self._replay[slot] = False
+
+    def _admit_paged(self, req: Request, slot: int) -> bool:
+        """Seat a request on the paged cache (a miss, a partial hit or a full
+        hit; module docstring). Returns False (request requeued at the
+        front) when the pool cannot cover this request's worst case on top
+        of the in-flight reservations; admission retries once decode retires
+        a slot and frees pages."""
+        pt = self.page_tokens
+        plen = len(req.prompt_ids)
+        req.admit_ts = time.perf_counter()    # queue wait ends here
+        shared = self._prefix.match(req.prompt_ids)
+        k_shared = len(shared)
+        monitor.stat("serving.prefix_lookups").increase()
+        need_new = -(-(plen + req.max_new_tokens) // pt) - k_shared
+        avail = self._pool.available
+        if avail < self._pages_reserved_inflight() + need_new:
+            for p in shared:
+                self._prefix.release(int(p))
+            if not self._active.any():
+                raise kv_pages.PoolExhausted(
+                    f"pool of {self.num_pages} pages cannot fit one request "
+                    f"needing {need_new} fresh pages ({avail} available); "
+                    "raise kv_num_pages or lower max_new_cap")
+            req.admit_ts = None
+            with self._lock:
+                self._queue.appendleft(req)
+            return False
+        if shared:
+            monitor.stat("serving.prefix_hits").increase()
+            req.prefix_hit = True
+            req.shared_tokens = k_shared * pt
+        self._tables[slot, :] = 0
+        self._tables[slot, :k_shared] = shared
+        self._slot_pages[slot] = [int(p) for p in shared]
+
+        if k_shared * pt >= plen:
+            # full hit: a replay seat, no prefill; the first token comes out
+            # of the decode chunk at position plen
+            monitor.stat("serving.prefill_skips").increase()
+            req.tail_bucket = 0
             req.slot = slot
-            req.tokens.append(first)
-            eos = req.eos_token_id if req.eos_token_id is not None else _NO_EOS
-            if (eos != _NO_EOS and first == eos) or req.max_new_tokens <= 1:
-                req.finish_reason = ("eos" if eos != _NO_EOS and first == eos
-                                     else "length")
-                self._finish(req)
-                continue
-            self._offsets[slot] = plen
-            self._last_tok[slot] = first
-            self._active[slot] = True
-            self._temps[slot] = req.temperature
-            self._topk[slot] = req.top_k
-            self._topp[slot] = req.top_p
-            self._eos[slot] = eos
-            self._remaining[slot] = req.max_new_tokens - 1
-            self._seeds[slot] = req.seed
-            self._slot_req[slot] = req
+            self._replay[slot] = True
+            self._seat(req, slot, plen - 1, int(req.prompt_ids[-1]),
+                       req.max_new_tokens)
+            return True
+
+        base = k_shared * pt
+        tbucket = bucket_for(plen - base, self.ladder)
+        req.tail_bucket = tbucket
+        npages_prompt = -(-plen // pt)
+        if not self._prefix.ensure_free(npages_prompt - k_shared):
+            raise kv_pages.PoolExhausted(   # the reservation check above makes
+                "page reservation accounting violated")  # this unreachable
+        for pi in range(k_shared, npages_prompt):
+            page = self._pool.alloc()
+            self._tables[slot, pi] = page
+            self._slot_pages[slot].append(page)
+        monitor.stat("serving.prefill_dispatches").increase()
+        try:
+            first = self._first_token(req, self._prefill_paged(
+                req.prompt_ids[base:], tbucket, base, slot))
+        except Exception:
+            self._finish(req, outcome="error")
+            raise
+        # publish this prompt's fully written pages for later sharers
+        full_pages = plen // pt
+        if full_pages > k_shared:
+            self._prefix.insert(
+                req.prompt_ids[:full_pages * pt],
+                [int(p) for p in self._tables[slot, :full_pages]])
+        self._after_first_token(req, slot, first)
+        return True
+
+    def _prealloc_decode_pages(self) -> None:
+        """Between chunks: make sure every active slot's table row covers
+        the positions the next chunk may write (the table is fixed within a
+        chunk). Evicts LRU cached prefixes under pressure; admission
+        reservations guarantee success."""
+        pt = self.page_tokens
+        for i in np.nonzero(self._active)[0]:
+            first = int(self._offsets[i]) + (1 if self._replay[i] else 0)
+            last = min(int(self._offsets[i]) + self.steps_per_dispatch,
+                       self.max_seq_len) - 1
+            for pi in range(first // pt, last // pt + 1):
+                if self._tables[i, pi] == 0:
+                    if not self._prefix.ensure_free(1):
+                        raise kv_pages.PoolExhausted(
+                            f"decode needs a page for slot {i} and none is "
+                            "free or evictable (reservation accounting "
+                            "violated)")
+                    page = self._pool.alloc()
+                    self._tables[i, pi] = page
+                    self._slot_pages[i].append(page)
 
     # ---- decode --------------------------------------------------------
     @torch.no_grad()
     def _decode_chunk(self, greedy_only: bool):
         """``steps_per_dispatch`` decode steps for every slot, state on the
         device. Returns the per-step tokens, was-active and eos-hit masks
-        [n_inner, S] and the final per-slot state, all as numpy."""
+        [n_inner, S] and the final per-slot state (paged: with the replay
+        flags), all as numpy."""
         dev = self.device
         T = self.max_seq_len
         vocab = self._net.config.vocab_size
+        paged = self.kv_layout == "paged"
 
         def put(a):
             return torch.as_tensor(a).to(dev)
@@ -319,10 +604,24 @@ class ServingEngine:
         off, tok, active = put(self._offsets), put(self._last_tok), put(self._active)
         remaining, eos = put(self._remaining), put(self._eos)
         temps, topk, topp = put(self._temps), put(self._topk), put(self._topp)
+        if paged:
+            tables = self._pool_state["tables"]
+            tables.copy_(torch.from_numpy(self._tables))   # once per chunk
+            tables = tables.long()
+            replay = put(self._replay)
         toks, was_active, hits = [], [], []
         for _ in range(self.steps_per_dispatch):
+            # an idle slot at the tip would index past the buffer (and past
+            # the position embedding): clamp; its row is masked and, paged,
+            # its write goes to the scratch page
             off_m = off.clamp_max(T - 1)
-            caches = [(kc, vc, off_m) for kc, vc in zip(self._kcs, self._vcs)]
+            if paged:
+                # idle rows and replaying rows write to the scratch page
+                caches = kv_pages.layer_views(
+                    self._pool_state, tables, off_m, active & ~replay,
+                    self.page_tokens, self._cache_dtype)
+            else:
+                caches = [(kc, vc, off_m) for kc, vc in zip(self._kcs, self._vcs)]
             h, _ = self._net.gpt(tok[:, None], caches=caches)
             logits = self._net._head_logits(h[:, 0])                # [S, V]
             act = active.long()
@@ -340,19 +639,24 @@ class ServingEngine:
             toks.append(nxt)
             was_active.append(active)
             hits.append(hit_eos)
+            if paged:
+                replay = replay & ~active
             active = active & ~hit_eos & (new_remaining > 0) & (new_off < T)
             off, tok, remaining = new_off, nxt, new_remaining
         out = [torch.stack(toks), torch.stack(was_active), torch.stack(hits),
-               off, tok, active, remaining]
+               off, tok, active, remaining] + ([replay] if paged else [])
         return [t.cpu().numpy() for t in out]
 
     def _decode_step(self) -> None:
         # an all-greedy slot set skips the sampling work entirely
         greedy_only = not self._temps[self._active].any()
+        paged = self.kv_layout == "paged"
         t0 = time.perf_counter()
         try:
-            (toks, was_active, hits, off, tok, active,
-             remaining) = self._decode_chunk(greedy_only)
+            if paged:
+                self._prealloc_decode_pages()
+            (toks, was_active, hits, off, tok, active, remaining,
+             *replay) = self._decode_chunk(greedy_only)
         except Exception:
             # a failed dispatch takes every in-flight request with it
             for slot in np.nonzero(self._active)[0]:
@@ -364,25 +668,41 @@ class ServingEngine:
         self._last_tok = tok.copy()
         self._active = active.copy()
         self._remaining = remaining.copy()
+        if paged:
+            self._replay = replay[0].copy()
         n_inner = toks.shape[0]
+        self._steps += n_inner
         now = time.perf_counter()
         self.decode_seconds += now - t0    # the chunk ends in a device read
-        self.decode_tokens += int(was_active.sum())
+        emitted = int(was_active.sum())
+        self.decode_tokens += emitted
         for j in range(n_inner):
             alive_after = (was_active[j + 1] if j + 1 < n_inner
                            else self._active)
             for slot in np.nonzero(was_active[j])[0]:
                 req = self._slot_req[slot]
                 req.tokens.append(int(toks[j, slot]))
+                if req.first_token_ts is None:   # a replay seat's first token
+                    req.first_token_ts = now
                 if not alive_after[slot]:     # retired at this inner step
                     req.finish_reason = "eos" if hits[j, slot] else "length"
                     self._slot_req[slot] = None
+                    if paged:
+                        self._release_slot(slot)
                     self._finish(req, now)
+        self._count_tokens(emitted)
+        monitor.stat("serving.steps").increase(n_inner)
 
     # ---- bookkeeping ---------------------------------------------------
+    @staticmethod
+    def _count_tokens(n: int) -> None:
+        if n:
+            monitor.stat("serving.tokens").increase(n)
+
     def _finish(self, req: Request, now: Optional[float] = None,
                 outcome: Optional[str] = None) -> None:
         req.done_ts = now if now is not None else time.perf_counter()
         req.outcome = outcome or req.outcome or req.finish_reason or "ok"
         if req.outcome != "error":
             self._completed.append(req)
+        monitor.stat("serving.requests").increase()

@@ -578,20 +578,26 @@ def test_scoring_forward_launches_once_per_layer_and_matches_cpu(cuda):
     assert (got.cpu() - want).abs().max().item() <= 1e-4
 
 
-def test_engine_on_card_gives_the_cpu_engine_tokens(cuda):
+@pytest.mark.parametrize("layout", [{}, {"kv_layout": "paged", "kv_page_tokens": 8}],
+                         ids=["contiguous", "paged"])
+def test_engine_on_card_gives_the_cpu_engine_tokens(cuda, layout):
+    """f32 gpt_tiny served on the card and on the CPU: the same tokens, greedy
+    and sampled; paged, the repeated 16-token prompt is a full prefix hit."""
     cfg = gpt_tiny()
     rng = np.random.RandomState(6)
-    prompts = [rng.randint(0, 1024, (n,)).astype(np.int64) for n in (5, 30, 9, 17, 3)]
+    prompts = [rng.randint(0, 1024, (n,)).astype(np.int64) for n in (5, 30, 9, 17, 3, 16)]
+    prompts.append(prompts[-1])
     out = []
     for device in ("cuda", "cpu"):
         model = GPTForPretraining(cfg, device=device, seed=4)
         eng = ServingEngine(model, slot_count=3, ladder=(8, 16, 32), max_new_cap=16,
-                            steps_per_dispatch=4)
+                            steps_per_dispatch=4, **layout)
         reqs = [eng.submit(p, max_new_tokens=8, temperature=0.0) for p in prompts]
         reqs.append(eng.submit(prompts[1], max_new_tokens=8, temperature=0.7,
                                top_k=20, seed=9))
         eng.run()
         assert all(r.done for r in reqs)
+        assert reqs[6].prefix_hit == bool(layout)
         out.append([r.tokens for r in reqs])
     assert out[0] == out[1]
 

@@ -60,6 +60,11 @@ def test_the_fsdp_and_checkpoint_modules_are_among_them():
         assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, path.name
 
 
+def test_the_paged_serving_modules_are_among_them():
+    assert {"paddle_tpu_torch.serving.kv_pages", "paddle_tpu_torch.serving.prefix_cache",
+            "paddle_tpu_torch.serving.engine"} <= set(_port_modules())
+
+
 def _imported_roots(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

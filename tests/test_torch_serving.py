@@ -205,7 +205,13 @@ def test_refresh_params_snapshots_weights(models):
     assert not torch.equal(eng.score_prompt(prompt), before)
 
 
-def test_engine_rejects_unported_layouts(models):
-    _, pm = models
-    with pytest.raises(NotImplementedError):
-        _engine(pm, kv_layout="paged")
+@pytest.mark.parametrize("kw", [{"kv_layout": "ragged"},
+                                {"kv_layout": "paged", "kv_cache_dtype": "fp8"}],
+                         ids=["layout", "page_dtype"])
+def test_engine_rejects_unported_layouts(models, kw):
+    """An unknown KV layout or page dtype raises ValueError, as the JAX
+    engine's constructor does."""
+    jm, pm = models
+    for cls, model in ((JaxEngine, jm), (ServingEngine, pm)):
+        with pytest.raises(ValueError):
+            _engine(model, cls, **kw)
