@@ -101,7 +101,9 @@ each:
 8. library_ops, the direct-call LayerNorm and LM-loss ops (the JAX
    package's examples/pallas_library_ops.py at full width): each of their
    six kernels against its plain version at GPT-2 124M's shapes (LayerNorm
-   [8192, 768] f32 and bf16; LM loss h [8192, 768], W [50304, 768], bf16 h
+   [8192, h] f32 and bf16 at h = 768, 1024 and 2048, after the events'
+   floor, each with its share of the bytes bound; LM loss h [8192, 768],
+   W [50304, 768], bf16 h
    with an f32 W and f32, plus vocab 50257, a bf16 W and labels of -100,
    at both dtypes of h; f32 at gpt_345m's hidden 1024 and at 2048, and bf16
    h at gpt_1p3b's 2048), with kernel, plain, bound and library times. The
@@ -115,9 +117,10 @@ each:
    composition they exist for: the 124M model's hidden state before ln_f
    through the kernel LayerNorm and the kernel LM loss with the tied
    embedding, in f32 (loss and the gradients of wte and ln_f against the
-   model's own route; the 3xTF32 forward and backward) and with the LayerNorm's output
-   cast to bf16 (loss, dh and dwte against the plain versions; the bf16
-   tensor-core backward). Each kernel of a pass launches once in it.
+   model's own route; the 3xTF32 forward and backward) and with the hidden
+   state cast to bf16 before the bf16 LayerNorm (its output, loss, dh, dwte
+   and ln_f's gradients against the plain versions; the bf16 tensor-core
+   backward). Each kernel of a pass launches once in it.
 9. lmloss_compile_probe: the LM-loss forward's stripped variants at the
    probe's defaults, checked and timed, with ptxas's registers and spills.
 10. the ``kernels`` line: every ported kernel with the path that launched
@@ -1935,19 +1938,30 @@ def _close_or_raise(what, got, want, dtype, grad=False, tol=None):
     return err, tol
 
 
-def phase_layer_norm_kernels(n=8192, h=768):
-    """The three LayerNorm kernels against their plain versions at GPT-2
-    124M's final-LayerNorm shape ([8, 1024, 768] as [8192, 768]), f32 and
-    bf16; torch's layer_norm (and its autograd backward) is the library
-    yardstick. Kernel, plain and library times are device times with a cold
-    L2 (``device_ms``); ``wall_ms`` is the CUDA-event time of the wrapper's
-    call in a loop, host time and a warm L2 included. Returns {dtype:
-    {kernel: record}}."""
+def events_floor_ms():
+    """``device_ms`` of one trivial launch (a one-element fill): the time
+    the events' window adds to any call it measures."""
+    t = torch.empty(1, device="cuda")
+    return device_ms(t.zero_)
+
+
+def phase_layer_norm_kernels(n=8192, widths=(768, 1024, 2048)):
+    """The three LayerNorm kernels against their plain versions at [n, h]
+    for the hidden widths of GPT-2 124M (its final LayerNorm, [8, 1024, 768]
+    as [8192, 768]), gpt_345m and gpt_1p3b, f32 and bf16; torch's layer_norm
+    (and its autograd backward) is the library yardstick. Kernel, plain and
+    library times are device times with a cold L2 (``device_ms``), printed
+    after the events' floor (``events_floor_ms``); ``bound_share`` is the
+    bound over the kernel's time; ``wall_ms`` is the CUDA-event time of the
+    wrapper's call in a loop, host time and a warm L2 included. Returns
+    {(dtype, h): {kernel: record}}."""
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
 
+    emit(phase="events_floor", ms=events_floor_ms(),
+         what="device_ms of a one-element fill")
     gen = torch.Generator(device="cuda").manual_seed(4)
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for h, dtype in ((h, d) for h in widths for d in (torch.float32, torch.bfloat16)):
         x = (torch.randn(n, h, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
         dy = torch.randn(n, h, device="cuda", generator=gen).to(dtype)
         g = 1 + 0.1 * torch.randn(h, device="cuda", generator=gen)
@@ -1966,6 +1980,10 @@ def phase_layer_norm_kernels(n=8192, h=768):
         err_dx, tol_dx = _close_or_raise(f"{name} dx", dx, pdx, dtype, grad=True)
         err_dgb = max(_close_or_raise(f"{name} {k}", got, ref, torch.float32, True)[0]
                       for k, got, ref in (("dg", dg, pdg), ("db", db, pdb)))
+        again = ln.layer_norm_bwd(x, g, dy, mu, rstd)
+        if not all(torch.equal(a, b) for a, b in zip((dx, dg, db), again)):
+            raise AssertionError(f"{name}: two backward calls give other bits")
+        del again
 
         gx, bx = g.to(dtype), b.to(dtype)       # torch's op takes one dtype
         xl = x.detach().clone().requires_grad_()
@@ -1996,15 +2014,17 @@ def phase_layer_norm_kernels(n=8192, h=768):
         recs = {}
         for kernel, r in rows.items():
             bound_ms, bound_by = _bound(r["flops"], r["nbytes"], torch.float32)
+            kernel_ms = device_ms(r["fn"])
             recs[kernel] = dict(
-                case=f"final_ln_{str(dtype)[6:]}", shape=[n, h], dtype=str(dtype)[6:],
-                max_abs_err=r["err"], tol=r["tol"], kernel_ms=device_ms(r["fn"]),
+                case=f"ln_{h}_{str(dtype)[6:]}", shape=[n, h], dtype=str(dtype)[6:],
+                max_abs_err=r["err"], tol=r["tol"], kernel_ms=kernel_ms,
                 plain_ms=device_ms(r["plain"]), library_ms=r["library_ms"],
-                bound_ms=bound_ms, bound_by=bound_by, wall_ms=cuda_ms(r["fn"], iters=50))
+                bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+                wall_ms=cuda_ms(r["fn"], iters=50))
             emit(phase="kernel_vs_plain", kernel=kernel, **recs[kernel],
                  library="torch.nn.functional.layer_norm" + (
                      " autograd backward (dx, dg, db)" if kernel == "layer_norm_bwd" else ""))
-        out[dtype] = recs
+        out[(dtype, h)] = recs
         del x, dy, oi, o, mu, rstd, dx, dg, db, po, pmu, prstd, pdx, pdg, pdb, xl, ol
     torch.cuda.empty_cache()
     return out
@@ -2266,11 +2286,13 @@ def phase_library_ops(ids):
     loss, mean over rows; loss and the gradients of wte, ln_f.weight and
     ln_f.bias against the model's own route (plain LayerNorm, chunked fused
     loss); the LM loss's forward and backward on the 3xTF32 tensor-core
-    kernels, none on the FMA ones. Then with the kernel
-    LayerNorm's output cast to bf16 against the f32 tied wte (the bf16
-    tensor-core forward and backward): loss, dh and dwte against the plain
-    versions on the card at the same dtypes. Returns the launch counts of
-    each pass ({"f32": ..., "bf16": ...})."""
+    kernels, none on the FMA ones. Then the hidden state cast to bf16
+    through the bf16 LayerNorm kernels (inference and training forward,
+    backward) and the LM loss against the f32 tied wte (the bf16
+    tensor-core forward and backward): the LayerNorm's output, loss, dh,
+    dwte and ln_f's gradients against the plain versions on the card at the
+    same dtypes. Returns the launch counts of each pass ({"f32": ...,
+    "bf16": ...})."""
     from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
     from paddle_tpu_torch.ops.kernels import lm_loss as lm
@@ -2330,15 +2352,20 @@ def phase_library_ops(ids):
          ln_inference_vs_ln_f_max_abs_err=ln_err, launches=launches, pass_s=pass_s)
     del grads, ref
 
-    # bf16 h against the f32 master wte: the tensor-core route
+    # the hidden state in bf16 through the bf16 LayerNorm (inference, then
+    # training forward and backward), h against the f32 master wte: the
+    # tensor-core route
     model.zero_grad(set_to_none=True)
     with torch.no_grad():
-        x = hidden_before_ln_f()
+        xb = hidden_before_ln_f().to(torch.bfloat16)
     lab = labels.reshape(-1)
+    w_ln, b_ln, eps = gpt.ln_f.weight, gpt.ln_f.bias, gpt.ln_f.epsilon
     t0 = time.perf_counter()
     _reset_library_counts()
-    hidden = ln.layer_norm(x, gpt.ln_f.weight, gpt.ln_f.bias, gpt.ln_f.epsilon)
-    hb = hidden.reshape(-1, hidden.shape[-1]).to(torch.bfloat16)
+    with torch.no_grad():
+        h_inf = ln.layer_norm(xb, w_ln, b_ln, eps)
+    hidden = ln.layer_norm(xb, w_ln, b_ln, eps)
+    hb = hidden.reshape(-1, hidden.shape[-1])
     hb.retain_grad()
     rows = lm.lm_head_cross_entropy(hb, gpt.wte.weight, lab)
     loss = rows.mean()
@@ -2346,8 +2373,7 @@ def phase_library_ops(ids):
     torch.cuda.synchronize()
     bf16_launches = _library_counts()
     bf16_pass_s = time.perf_counter() - t0
-    want = {k: 0 if k.endswith(("_fma", "_tf32x3")) or k == "layer_norm_infer" else 1
-            for k in bf16_launches}
+    want = {k: 0 if k.endswith(("_fma", "_tf32x3")) else 1 for k in bf16_launches}
     if bf16_launches != want:
         raise AssertionError(f"the bf16 library_ops pass launched {bf16_launches}, "
                              f"expected {want}")
@@ -2356,20 +2382,31 @@ def phase_library_ops(ids):
     ploss, plse = lm.lm_loss_fwd_plain(hbd, wte, lab)
     g = torch.full_like(plse, 1.0 / plse.numel())
     pdh, pdw = lm.lm_loss_bwd_plain(hbd, wte, lab, plse, g)
+    x2 = xb.reshape(hb.shape)
+    pho, pmu, prstd = ln.layer_norm_fwd_plain(x2, w_ln.detach(), b_ln.detach(), eps)
+    _, pdg, pdb = ln.layer_norm_bwd_plain(x2, w_ln.detach(), hb.grad, pmu, prstd)
     bf16 = torch.bfloat16
-    errs = {"loss": _close_or_raise("bf16 library_ops loss", rows, ploss, bf16,
+    if not torch.equal(h_inf.reshape(hb.shape), hbd):
+        raise AssertionError("bf16 LayerNorm: the inference and training forwards differ")
+    errs = {"ln_out": _close_or_raise("bf16 library_ops LayerNorm", hbd, pho, bf16),
+            "loss": _close_or_raise("bf16 library_ops loss", rows, ploss, bf16,
                                     tol=_f32_tol(ploss)),
             "dh": _close_or_raise("bf16 library_ops dh", hb.grad, pdh, bf16, grad=True),
             "dwte": _close_or_raise("bf16 library_ops dwte", gpt.wte.weight.grad, pdw, bf16,
-                                    grad=True)}
+                                    grad=True),
+            "dln_w": _close_or_raise("bf16 library_ops dln_f.weight", w_ln.grad, pdg,
+                                     torch.float32, grad=True),
+            "dln_b": _close_or_raise("bf16 library_ops dln_f.bias", b_ln.grad, pdb,
+                                     torch.float32, grad=True)}
     if hb.grad.dtype != bf16 or gpt.wte.weight.grad.dtype != torch.float32:
         raise AssertionError(f"dh {hb.grad.dtype}, dwte {gpt.wte.weight.grad.dtype}")
     emit(phase="library_ops", model="gpt2-124m", batch=list(ids.shape),
-         dtype="h bfloat16 (ln_f output cast), wte float32", loss_kernels=loss.item(),
-         loss_plain=ploss.mean().item(), max_abs_err={k: e for k, (e, _) in errs.items()},
+         dtype="x bfloat16 (the hidden state before ln_f cast), wte float32",
+         loss_kernels=loss.item(), loss_plain=ploss.mean().item(),
+         max_abs_err={k: e for k, (e, _) in errs.items()},
          tol={k: t for k, (_, t) in errs.items()}, launches=bf16_launches,
          pass_s=bf16_pass_s)
-    del model, x, hidden, hb, rows, loss, ploss, plse, pdh, pdw
+    del model, xb, x2, h_inf, hidden, hb, rows, loss, ploss, plse, pdh, pdw, pho, pmu, prstd
     torch.cuda.empty_cache()
     return {"f32": launches, "bf16": bf16_launches}
 
@@ -2433,7 +2470,8 @@ def main() -> int:
     # 2048, 16, 128], its rows "_d128"), the f32 steps and scoring in
     # f32 (the 3xTF32 forward, and in the steps the 3xTF32 backward pair);
     # the library ops are reported at the composition's shapes:
-    # LayerNorm in f32 (black-listed under O1), the LM loss with bf16 h and
+    # LayerNorm in f32 (black-listed under O1) and in bf16 (GPT-2 124M's
+    # [8192, 768]), the LM loss with bf16 h and
     # an f32 master W (the bf16 tensor-core kernels) and in f32 (the 3xTF32
     # tensor-core forward and backward)
     pallas = "paddle_tpu/ops/pallas/"
@@ -2456,12 +2494,12 @@ def main() -> int:
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
         ("flash_attention_bwd_dq_d128", "bench gpt_1p3b", bwd["1p3b_bf16_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
-        ("layer_norm_fwd", "library_ops", ln_recs[torch.float32]["layer_norm_fwd"],
-         "layer_norm.cu", pallas + "layer_norm.py:92"),
-        ("layer_norm_infer", "library_ops", ln_recs[torch.float32]["layer_norm_infer"],
-         "layer_norm.cu", pallas + "layer_norm.py:119"),
-        ("layer_norm_bwd", "library_ops", ln_recs[torch.float32]["layer_norm_bwd"],
-         "layer_norm.cu", pallas + "layer_norm.py:137"),
+        *((f"layer_norm_{k}{suffix}", f"library_ops {pass_}",
+           ln_recs[(dtype, 768)][f"layer_norm_{k}"], "layer_norm.cu",
+           pallas + f"layer_norm.py:{line}")
+          for suffix, pass_, dtype in (("", "f32", torch.float32),
+                                       ("_bf16", "bf16", torch.bfloat16))
+          for k, line in (("fwd", 92), ("infer", 119), ("bwd", 137))),
         ("lm_loss_fwd", "library_ops", lm_recs["bf16_h_f32_w"]["lm_loss_fwd"],
          "lm_loss.cu", pallas + "lm_loss.py:162"),
         ("lm_loss_dh", "library_ops", lm_recs["bf16_h_f32_w"]["lm_loss_dh"],
@@ -2483,9 +2521,9 @@ def main() -> int:
         ("lm_loss_dw_bf16_h2048", "lm_loss_kernels h2048_bf16_h_f32_w",
          lm_recs["h2048_bf16_h_f32_w"]["lm_loss_dw"], "lm_loss.cu", pallas + "lm_loss.py:279"),
     ]
-    # LayerNorm from the f32 pass; the LM loss's bf16 tensor-core forward
-    # and backward from the bf16 pass, its f32-h forward and backward
-    # (3xTF32) from the f32 pass
+    # LayerNorm at f32 from the f32 pass and at bf16 from the bf16 pass;
+    # the LM loss's bf16 tensor-core forward and backward from the bf16
+    # pass, its f32-h forward and backward (3xTF32) from the f32 pass
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
     counts = {**{k: launches[k] + dp_launches[k] + ckpt_launches[k] for k in launches},
               **bench_launches,
@@ -2495,6 +2533,8 @@ def main() -> int:
               "flash_attention_bwd_dq_f32": f32_launches["flash_attention_bwd_dq"],
               **{k: lib_f32[k] for k in ("layer_norm_fwd", "layer_norm_infer",
                                          "layer_norm_bwd")},
+              **{f"{k}_bf16": lib_bf16[k] for k in ("layer_norm_fwd", "layer_norm_infer",
+                                                   "layer_norm_bwd")},
               "lm_loss_fwd": lib_bf16["lm_loss_fwd_mma"],
               "lm_loss_fwd_f32": lib_f32["lm_loss_fwd_tf32x3"],
               "lm_loss_dh": lib_bf16["lm_loss_dh_mma"],

@@ -12,13 +12,12 @@ xhat from them.
 On CUDA tensors the three wrappers launch the kernels of
 ``csrc/layer_norm.cu`` or raise; on CPU tensors they take the plain
 versions, the same arithmetic in plain PyTorch. The backward's dg and db are
-f32 sums (per-CTA partials added by a second kernel of the same source) and
-come back in the weight's dtype, as in the JAX package.
+f32 sums (the CTAs' and clusters' partials added inside the same launch, in
+a fixed order) and come back in the weight's dtype, as in the JAX package.
 
 ``launches_fwd``, ``launches_infer`` and ``launches_bwd`` count launches of
-the training forward, the inference forward and the backward (one per call;
-the backward's call runs the column-sum kernel after the row kernel). This
-is a direct-call library op, as in the JAX package: nothing routes the
+the training forward, the inference forward and the backward (one per call).
+This is a direct-call library op, as in the JAX package: nothing routes the
 model's LayerNorm here (``ops/nn_functional.layer_norm`` is the model's).
 """
 from __future__ import annotations
@@ -34,15 +33,16 @@ launches_infer = 0   # inference forward
 launches_bwd = 0     # backward (dx, then dg and db)
 
 _LANES = 128
-MAX_HIDDEN = 8192    # the CUDA kernels keep a row in the registers of <= 8 warps
+MAX_HIDDEN = 8192    # the CUDA kernels keep a row in the registers of <= 16 warps
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "layer_norm_fwd": [_PTR] * 6 + [_INT] * 3 + [ctypes.c_float, _INT, _PTR],
-    "layer_norm_bwd": [_PTR] * 8 + [_INT] * 4 + [_PTR],
-    "layer_norm_bwd_parts": [_INT],
+    "layer_norm_bwd": [_PTR] * 9 + [_INT] * 4 + [_PTR],
+    "layer_norm_bwd_clusters": [_INT] * 3,
 }
 _fns = {}
+_tickets = {}        # (device, stream) -> the backward's tickets (8 int32)
 
 
 def supported(n_rows: int, hidden: int) -> bool:
@@ -100,6 +100,18 @@ def _call(name, device, *args):
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
+def _ticket(device):
+    """The backward's tickets on the current stream of ``device``: one int32
+    for each column slice of a cluster (8), zero before and after every
+    launch (the slice's last CTA resets it), so a stream's calls share them
+    and calls on two streams never do."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets[key] = torch.zeros(8, dtype=torch.int32, device=device)
+    return t
+
+
 def _aligned(t):
     """t contiguous with a 16-byte aligned start (the kernels' vector loads)."""
     t = t.contiguous()
@@ -154,8 +166,9 @@ def layer_norm_fwd(x2, weight, bias, eps=1e-5, stats=True):
 
 
 def layer_norm_bwd(x2, weight, dy, mu, rstd):
-    """(dx, dg, db) with dg, db f32: the CUDA kernels on CUDA tensors, the
-    plain version on CPU tensors."""
+    """(dx, dg, db) with dg, db f32: one launch of the CUDA kernel on CUDA
+    tensors (the same bits on every call), the plain version on CPU
+    tensors."""
     global launches_bwd
     if not x2.is_cuda:
         return layer_norm_bwd_plain(x2, weight, dy, mu, rstd)
@@ -169,13 +182,17 @@ def layer_norm_bwd(x2, weight, dy, mu, rstd):
             raise ValueError(f"{name} must be a float32 [{n}] tensor on {x2.device}")
     x2, dy, mu, rstd = _aligned(x2), _aligned(dy), mu.contiguous(), rstd.contiguous()
     g = _f32(weight)
-    parts = _kernel("layer_norm_bwd_parts")(n)
+    code = _DTYPE_CODES[x2.dtype]
+    with torch.cuda.device(x2.device):
+        clusters = _kernel("layer_norm_bwd_clusters")(n, h, code)
+    if clusters < 1:
+        raise RuntimeError(f"layer_norm_bwd has no launch shape: CUDA error {-clusters}")
     dx = torch.empty_like(x2)
-    part = torch.empty((2, parts, h), dtype=torch.float32, device=x2.device)
+    part = torch.empty((clusters, 2, h), dtype=torch.float32, device=x2.device)
     dgdb = torch.empty((2, h), dtype=torch.float32, device=x2.device)
     _call("layer_norm_bwd", x2.device, x2.data_ptr(), g.data_ptr(), dy.data_ptr(),
           mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(), part.data_ptr(),
-          dgdb.data_ptr(), _DTYPE_CODES[x2.dtype], n, h, parts)
+          dgdb.data_ptr(), _ticket(x2.device).data_ptr(), code, n, h, clusters)
     launches_bwd += 1
     return dx, dgdb[0], dgdb[1]
 

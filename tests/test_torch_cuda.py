@@ -13,7 +13,9 @@ max(1, max|ref|) for gradients (summation order; TF32 is turned off); bf16
 kernel and the final max in the plain version; the backward rounds P and dS
 to bf16 where both versions do, but sums in another order). The LayerNorm
 and LM-loss kernels are held to the same two tolerances against their plain
-versions (sums in another order; bf16 outputs round once in both), except
+versions (sums in another order; bf16 outputs round once in both; the
+LayerNorm backward also to the same bits twice, and its bf16 instances to
+128-bit global accesses with no spills), except
 the f32 dW of bf16 h: 1e-3 x max|ref| (dl rounds to bf16 at the same point
 in both, so only the sum order differs; at bf16 tolerance a dW without its
 softmax term would pass wherever the labels' -h spikes set max|ref|). The
@@ -679,15 +681,25 @@ def _err(got, ref):
 
 
 @pytest.mark.parametrize("dtype,n,h", [
-    ("float32", 37, 768),      # ragged rows: 37 is no multiple of the 8 rows a CTA
+    ("float32", 37, 768),      # fewer rows than the persistent grid's groups
     ("bfloat16", 37, 768),
+    ("float32", 1, 768),       # one row: one CTA, a cluster of one
+    ("bfloat16", 1, 768),
     ("float32", 300, 128),
     ("bfloat16", 64, 256),
+    ("bfloat16", 300, 128),    # half of each warp masked
     ("float32", 9, 2048),      # two warps a row
+    ("bfloat16", 8192, 768),   # the timed widths: GPT-2 124M, gpt_345m, gpt_1p3b
+    ("bfloat16", 8192, 1024),
+    ("bfloat16", 8192, 2048),
+    ("bfloat16", 65536, 768),  # every group walks many rows
+    ("float32", 300, 8192),    # sixteen warps a row in the backward
+    ("bfloat16", 300, 8192),   # eight warps a row
 ])
 def test_layer_norm_kernels_match_plain(cuda, dtype, n, h):
     """The training forward, the inference forward and the backward (dx, dg,
-    db) against their plain versions; each wrapper launches once."""
+    db) against their plain versions; each wrapper launches once (the
+    backward's partial sums included)."""
     dt = getattr(torch, dtype)
     rng = np.random.RandomState(10)
     x = torch.from_numpy(rng.randn(n, h).astype(np.float32) * 2 + 0.5).to(cuda, dt)
@@ -708,6 +720,30 @@ def test_layer_norm_kernels_match_plain(cuda, dtype, n, h):
     for got, ref in ((dx, pdx), (dg, pdg), (db, pdb)):
         tol = _tol(ref, dt) if got.dtype == dt else 1e-4 * max(1.0, ref.abs().max().item())
         assert _err(got, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,n,h", [("bfloat16", 8192, 768), ("float32", 8192, 1024),
+                                     ("bfloat16", 300, 8192), ("float32", 5, 256)])
+def test_layer_norm_backward_is_deterministic(cuda, dtype, n, h):
+    """Two backward calls on the same inputs give the same bits of dx, dg and
+    db (the clusters' partials are added in a fixed order; the ticket only
+    picks the cluster that adds them), one launch each, and leave the
+    ticket at zero."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.randn(n, h).astype(np.float32)).to(cuda, dt)
+    g = torch.from_numpy(rng.rand(h).astype(np.float32) + 0.5).to(cuda)
+    b = torch.from_numpy(rng.randn(h).astype(np.float32)).to(cuda)
+    dy = torch.from_numpy(rng.randn(n, h).astype(np.float32)).to(cuda, dt)
+    _, mu, rstd = ln.layer_norm_fwd(x, g, b, stats=True)
+    before = ln.launches_bwd
+    first = ln.layer_norm_bwd(x, g, dy, mu, rstd)
+    second = ln.layer_norm_bwd(x, g, dy, mu, rstd)
+    torch.cuda.synchronize()
+    assert ln.launches_bwd == before + 2
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    assert not ln._ticket(x.device).any()
 
 
 def test_layer_norm_autograd_goes_through_the_kernels(cuda):
@@ -1185,6 +1221,37 @@ def test_lm_loss_mma_kernels_use_tensor_cores_without_spills(cuda):
         assert ("HMMA.1688.F32.TF32" in body) == ("lm_grad_tf32_kernel" in name), name
     fma = [body for k, body in funcs.items() if "lm_grad_kernel" in k]
     assert fma and not any("HMMA" in body for body in fma)
+
+
+def test_layer_norm_bf16_kernels_move_16_bytes_an_access_without_spills(cuda):
+    """Every bf16 instance of the LayerNorm kernels (20 of ln_fwd_kernel,
+    training and inference, and 10 of ln_bwd_kernel) holds 128-bit global
+    loads and stores in its SASS (LDG.E[.qualifiers].128, STG.E.128) and no
+    64-bit ones (the 8-byte bf16 accesses of the kernels before), and
+    ptxas reports 0 spill bytes for each."""
+    import re
+    import subprocess
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    _build.load("layer_norm")
+    bf16 = {k: r for k, r in _build.ptxas_report("layer_norm").items()
+            if "__nv_bfloat16" in k and ("ln_fwd_kernel" in k or "ln_bwd_kernel" in k)}
+    assert len(bf16) == 30, sorted(bf16)
+    for name, r in bf16.items():
+        assert r.get("spill_stores") == 0 and r.get("spill_loads") == 0, (name, r)
+    tool = _cuobjdump()
+    if tool is None:
+        pytest.skip("no cuobjdump under CUDA's bin/ or triton/backends/nvidia/bin/")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("layer_norm"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = {part.split(None, 1)[0]: part for part in sass.split("Function : ")[1:]}
+    bodies = {k: body for k, body in funcs.items() if k in bf16}
+    assert len(bodies) == 30, sorted(funcs)
+    for name, body in bodies.items():
+        assert re.search(r"LDG\.E(\.\w+)*\.128", body), name
+        assert re.search(r"STG\.E(\.\w+)*\.128", body), name
+        assert not re.search(r"(LDG|STG)\.E(\.\w+)*\.64\b", body), name
 
 
 def test_forward_mma_kernels_use_tensor_cores_without_spills(cuda):

@@ -5,7 +5,8 @@ CPU as its own tests run it) on the same numpy inputs.
 The port's CPU path is the kernels' plain versions, reached through the
 public ``layer_norm`` and autograd. Covered: the shapes and cases of
 tests/test_pallas_layernorm.py (values, gradients of x, weight and bias,
-bf16 input with f32 statistics, the ``supported`` predicate), the training
+bf16 input with f32 statistics, the ``supported`` predicate), the widths
+the card times (768, 1024, 2048) at both dtypes, the training
 and inference forwards, and the plain versions against each other.
 
 Tolerances: f32 values 1e-5 and gradients 2e-5, times max(1, max|ref|) (the
@@ -102,6 +103,50 @@ def test_bf16_grads_match_jax():
         _close(got.float().numpy(), np.asarray(ref, np.float32), BF16_TOL)
 
 
+TIMED_WIDTHS = [(dtype, hidden) for hidden in (768, 1024, 2048)
+                for dtype in ("float32", "bfloat16")]
+
+
+def _as(x, dtype):
+    """numpy f32 data as a JAX and a torch array of ``dtype``."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    return jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+
+
+@pytest.mark.parametrize("dtype,hidden", TIMED_WIDTHS)
+def test_values_match_jax_at_the_timed_widths(dtype, hidden):
+    """The widths the card times (GPT-2 124M, gpt_345m, gpt_1p3b) at a few
+    rows: the plain forward, which the card holds the kernels to, against
+    the Pallas kernel in interpret mode, f32 and bf16 x."""
+    x, g, b = _data((3,), hidden, seed=hidden)
+    jx, tx = _as(x, dtype)
+    want = jax_ln(jx, jnp.asarray(g), jnp.asarray(b))
+    got = ln.layer_norm(tx, torch.from_numpy(g), torch.from_numpy(b))
+    assert str(got.dtype) == f"torch.{dtype}" and str(want.dtype) == dtype
+    _close(got.float().numpy(), np.asarray(want, np.float32),
+           F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype,hidden", TIMED_WIDTHS)
+def test_grads_match_jax_at_the_timed_widths(dtype, hidden):
+    """d/dx, d/dweight, d/dbias at the timed widths through the Pallas
+    custom_vjp (interpret mode) and the port's autograd Function: dx in x's
+    dtype, dweight and dbias f32."""
+    x, g, b = _data((2, 2), hidden, seed=hidden + 1)
+    w = np.random.RandomState(hidden + 2).randn(2, 2, hidden).astype(np.float32)
+    jx, tx = _as(x, dtype)
+    want = jax.grad(lambda a, c, d: (jax_ln(a, c, d).astype(jnp.float32)
+                                     * jnp.asarray(w)).sum(),
+                    argnums=(0, 1, 2))(jx, jnp.asarray(g), jnp.asarray(b))
+    tx.requires_grad_()
+    tg, tb = (torch.from_numpy(a).requires_grad_() for a in (g, b))
+    (ln.layer_norm(tx, tg, tb).float() * torch.from_numpy(w)).sum().backward()
+    tol = GRAD_TOL if dtype == "float32" else BF16_TOL
+    for got, ref in zip((tx.grad, tg.grad, tb.grad), want):
+        assert str(got.dtype).replace("torch.", "") == str(ref.dtype)
+        _close(got.float().numpy(), np.asarray(ref, np.float32), tol)
+
+
 @pytest.mark.parametrize("n,h", [(16384, 768), (16, 100), (1, 128), (0, 128),
                                  (8, 129), (3, 8192)])
 def test_supported_predicate_is_the_jax_packages(n, h):
@@ -140,3 +185,19 @@ def test_plain_versions_match_the_formulas():
     for a, r in zip(got, ref_grads):
         _close(a.numpy(), r.float().numpy(), GRAD_TOL)
     _close(o.numpy(), ref.float().detach().numpy(), F32_TOL)
+
+
+def test_variants_tool_edits_apply_to_the_kernel_source():
+    """tools/layer_norm_variants.py, which times the backward's row walk
+    alone and its in-launch column sums on the card, names edits that each
+    match csrc/layer_norm.cu exactly once; an edit that no longer matches
+    raises."""
+    from paddle_tpu_torch.tools import layer_norm_variants as tool
+
+    tool.check()
+    sources = {tool.SRC: (tool.CSRC / tool.SRC).read_text()}
+    no_tail = tool.edited("no_tail", sources, tool.VARIANTS)[tool.SRC]
+    assert no_tail.count("store_dx<T, L, NV>(dx, last_row") == 2
+    with pytest.raises(ValueError):
+        tool.edited("no_final", tool.edited("no_final", sources, tool.VARIANTS),
+                    tool.VARIANTS)
