@@ -59,9 +59,30 @@ each:
    then 1 + 3 steps of the same step in f32 (train_f32: 12 launches a step
    of each 3xTF32 kernel, the forward and the backward pair), its step time
    and one profiled f32 step.
+6a. train_rules: the optimizer surface on the same step (GPT-2 124M, ids
+   [8, 1024], bf16 O1), every case from the same seed-0 weights. Eight
+   engines, 1 + 3 steps each, each rule with a scheduler: Adamax +
+   OneCycleLR + ClipGradByGlobalNorm(group_name, auto_skip_clip), Adagrad +
+   PiecewiseDecay, Adadelta + ExponentialDecay, centered RMSProp with
+   momentum + CosineAnnealingWarmRestarts, Lamb (LayerNorm weights and
+   biases excluded from its decay) + NoamDecay, Lars + MultiStepDecay,
+   AdamW with weight_decay=L2Decay(0.01) + CyclicLR, Adam +
+   ReduceOnPlateau fed the loss. Then the eager path, 3 steps each:
+   GradScaler around LookAhead(AdamW, k=2), ModelAverage (apply() then
+   restore() gives the parameters back bit for bit), Momentum with
+   L1Decay after clip_grad_norm_, and amp.decorate(level="O2") with AdamW
+   (parameters bf16, state f32). Hard: 12 tensor-core launches of each
+   flash kernel a step, finite falling losses, the JAX package's state
+   slots (count, f32, the parameter's shape), the learning rates the
+   steps read equal to the schedulers' host twins. Printed: step ms and
+   peak memory of each case.
 7. train_vs_cpu: one f32 step at full width and 2 layers, ids [1, 1024], on
    the card (the 3xTF32 forward and backward pair) and on the CPU (plain
-   path): loss and every gradient.
+   path): loss and every gradient. Then the same step with each of the six
+   new rules on the card: loss and gradients at the same bars; the new
+   parameters and state against the rule run on the CPU on the card's own
+   gradient (RULE_STEP_TOL) and against the CPU's whole step
+   (RULE_FLIP_LRS x lr).
 7a. dp: data parallelism (phase_dp) at one rank a card, in processes of
    the port's spawn with a deadline of their own: GPT-2 124M, global ids
    [8, 1024], through fleet.init -> fleet.distributed_engine: the
@@ -124,8 +145,8 @@ each:
 9. lmloss_compile_probe: the LM-loss forward's stripped variants at the
    probe's defaults, checked and timed, with ptxas's registers and spills.
 10. the ``kernels`` line: every ported kernel with the path that launched
-   it (the training main path's timed steps, the dp phase's runs on
-   rank 0 and the ckpt phase's steps, the f32 steps, scoring, the
+   it (the training main path's timed steps, the train_rules runs, the dp
+   phase's runs on rank 0 and the ckpt phase's steps, the f32 steps, scoring, the
    bench's gpt_1p3b run for the d = 128 rows, or a library_ops pass; the flash backward and the LM-loss backward once for
    each dtype, the route in ``kernel_route``), its
    launches there and its numbers from the kernel_vs_plain phases at that
@@ -1082,7 +1103,8 @@ def phase_train(ids):
 
 def phase_train_vs_cpu():
     """One f32 step at full width, 2 layers, [1, 1024]: card (the 3xTF32
-    forward and backward pair) vs CPU."""
+    forward and backward pair) vs CPU; then the same step with each new
+    optimizer rule (``_rules_vs_cpu``)."""
     from paddle_tpu_torch.models import GPTConfig
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -1124,6 +1146,384 @@ def phase_train_vs_cpu():
          loss_rtol=TRAIN_LOSS_RTOL, params=len(g_cpu),
          grad_worst_rel_err=worst[name], grad_worst_param=name,
          grad_tol=TRAIN_GRAD_TOL)
+    _rules_vs_cpu(cfg, ids, labels, l_cpu, g_cpu)
+
+
+# the JAX package's optimizer slots (paddle_tpu/optimizer/functional.py:18-39):
+# count per rule, each f32 and of its parameter's shape
+JAX_SLOTS = {"sgd": 0, "momentum": 1, "adam": 2, "adamw": 2, "adamax": 2, "adagrad": 1,
+             "adadelta": 2, "rmsprop": 3, "lamb": 2, "lars": 1}
+
+
+def _is_layer_norm(name):
+    return ".ln" in name
+
+
+def _train_rule_cases():
+    """train_rules' engine cases: (case, optimizer class name, its kwargs,
+    the scheduler's factory (called twice: the optimizer's and its host
+    twin), what the case shows). Learning rates by each rule's step size
+    on a first step: the Adam-like rules move an entry by ~lr (and centered
+    RMSProp by up to ~4.6 lr), Adadelta by ~lr x 4.5e-3 at most, Lamb each
+    tensor by ~lr of its norm, Lars by ~lr x lars_coeff of its norm."""
+    from paddle_tpu_torch.optimizer import ClipGradByGlobalNorm, L2Decay
+    from paddle_tpu_torch.optimizer import lr
+
+    return [
+        ("adamax_onecycle_clip", "Adamax",
+         {"grad_clip": ClipGradByGlobalNorm(1.0, group_name="train_rules",
+                                            auto_skip_clip=True)},
+         lambda: lr.OneCycleLR(max_learning_rate=3e-4, total_steps=4)),
+        ("adagrad_piecewise", "Adagrad", {},
+         lambda: lr.PiecewiseDecay(boundaries=[2], values=[3e-4, 1e-4])),
+        ("adadelta_exponential", "Adadelta", {},
+         lambda: lr.ExponentialDecay(learning_rate=0.5, gamma=0.9)),
+        ("rmsprop_centered_cosine_restarts", "RMSProp", {"centered": True, "momentum": 0.9},
+         lambda: lr.CosineAnnealingWarmRestarts(learning_rate=5e-5, T_0=2)),
+        ("lamb_noam", "Lamb", {"exclude_from_weight_decay_fn": _is_layer_norm},
+         lambda: lr.NoamDecay(d_model=768, warmup_steps=4, learning_rate=1.0)),
+        ("lars_multistep", "Lars", {"exclude_from_weight_decay": ["bias"]},
+         lambda: lr.MultiStepDecay(learning_rate=2.0, milestones=[2], gamma=0.5)),
+        ("adamw_l2decay_cyclic", "AdamW", {"weight_decay": L2Decay(0.01)},
+         lambda: lr.CyclicLR(base_learning_rate=1e-5, max_learning_rate=1e-4,
+                             step_size_up=2)),
+        ("adam_reduce_on_plateau", "Adam", {},
+         lambda: lr.ReduceOnPlateau(learning_rate=1e-4, factor=0.5, patience=1)),
+    ]
+
+
+def _check_slots(what, opt, params):
+    """Every parameter's optimizer state: JAX_SLOTS[rule] f32 tensors of its
+    shape."""
+    want = JAX_SLOTS[opt._rule]
+    for n, p in params.items():
+        st = opt._states.get(n, ())
+        if len(st) != want or any(s.dtype != torch.float32 or s.shape != p.shape
+                                  for s in st):
+            raise AssertionError(f"{what}: {n}'s optimizer state is "
+                                 f"{[(s.dtype, tuple(s.shape)) for s in st]}, expected "
+                                 f"{want} f32 slots of {tuple(p.shape)}")
+    return want
+
+
+def _falls(what, losses):
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+
+
+def phase_train_rules(ids, cfg=None):
+    """The optimizer surface on the training path at GPT-2 124M (``cfg``),
+    ids [8, 1024], labels roll(ids, -1), bf16 auto_cast O1, random weights
+    from seed 0 (the same start for every case).
+
+    (a) one TrainStepEngine per case of ``_train_rule_cases``, 1 warm-up and
+    3 timed steps, the scheduler stepped after each (ReduceOnPlateau fed the
+    step's loss as a 0-d card tensor): 12 tensor-core launches of each flash
+    kernel a step, none on another route; finite losses, the last below the
+    first; every parameter's state JAX_SLOTS[rule] f32 slots of its shape;
+    the learning rate each step read equal to the scheduler's host twin
+    stepped beside it (fed the losses as floats); step ms (median of the 3)
+    and peak memory.
+    (b) the eager path, 3 steps each, the loss's backward and the
+    optimizer's step outside any engine: GradScaler (2^15) around
+    LookAhead(AdamW(MultiplicativeDecay 1e-4 x 0.95^t), k=2), with unscale_
+    on the inner optimizer (no inf may be found, the scale stays);
+    ModelAverage over AdamW(LambdaDecay 1e-4 / (1 + t)) stepped by
+    ``minimize`` (its apply() then restore() gives every parameter back bit
+    for bit); Momentum (InverseTimeDecay 0.05, gamma 0.5) with
+    weight_decay=L1Decay(1e-6) after clip_grad_norm_(1.0) (each global norm
+    after it at most 1); last, as it leaves the model bf16,
+    amp.decorate(level="O2") with AdamW(NaturalExpDecay 1e-4, gamma 0.1)
+    under auto_cast O2 (parameters bf16, state f32).
+    Each: 12 tensor-core launches of each flash
+    kernel a step, finite falling losses.
+    Returns the flash launches of every run, {kernel: n}."""
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.amp import GradScaler, auto_cast, decorate
+    from paddle_tpu_torch.distributed import TrainStepEngine
+    from paddle_tpu_torch.incubate import LookAhead, ModelAverage
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.nn import clip_grad_norm_
+    from paddle_tpu_torch.optimizer import lr as lrs
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    cfg = cfg or GPTConfig()
+    per_step = cfg.num_layers
+    labels = torch.roll(ids, -1, 1)
+    model = GPTForPretraining(cfg, device=ids.device, seed=0)
+    init = {n: t.detach().cpu().clone() for n, t in model.state_dict().items()}
+    total = dict.fromkeys(_launch_counts(), 0)
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        model.load_state_dict(init)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+
+    def read_launches(what, steps):
+        torch.cuda.synchronize()
+        _check_mma_launches(what, dict(fa.launches_by_route), _bwd_routes(),
+                            steps * per_step, steps * per_step)
+        for k, v in _launch_counts().items():
+            total[k] += v
+
+    for case, rule, kw, make_sched in _train_rule_cases():
+        fresh()
+        sched, twin = make_sched(), make_sched()
+        opt = getattr(optim, rule)(learning_rate=sched, parameters=model.named_parameters(),
+                                   **kw)
+        engine = TrainStepEngine(model, opt)
+        plateau = isinstance(sched, lrs.ReduceOnPlateau)
+        losses, step_ms, lr_read, lr_twin = [], [], [], []
+        with auto_cast(dtype="bfloat16"):
+            for _ in range(4):
+                lr_read.append(opt.get_lr())
+                lr_twin.append(twin())
+                t0 = time.perf_counter()
+                loss = engine.step(ids, labels)
+                losses.append(loss.item())
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                if plateau:
+                    sched.step(loss)
+                    twin.step(losses[-1])
+                else:
+                    sched.step()
+                    twin.step()
+        read_launches(f"train_rules {case}", 4)
+        peak = torch.cuda.max_memory_allocated()
+        _falls(f"train_rules {case}", losses)
+        slots = _check_slots(f"train_rules {case}", opt, engine.params)
+        if lr_read != lr_twin or sched.state_dict() != twin.state_dict():
+            raise AssertionError(f"train_rules {case}: the step read learning rates "
+                                 f"{lr_read}, its scheduler's host twin {lr_twin}")
+        emit(phase="train_rules", case=case, model="gpt2-124m", batch=list(ids.shape),
+             amp="bfloat16 O1", optimizer=rule, scheduler=type(sched).__name__,
+             clip=type(opt._grad_clip).__name__ if opt._grad_clip else None,
+             weight_decay=opt._weight_decay, warmup_steps=1, timed_steps=3,
+             losses=losses, learning_rates=lr_read, step_ms=step_ms[1:],
+             step_ms_median=statistics.median(step_ms[1:]), state_slots=slots,
+             max_memory_allocated_bytes=peak,
+             launches_per_step={k: per_step for k in total})
+        del engine, opt
+
+    def eager(case, opt, step, steps=3, level="O1"):
+        losses, step_ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            with auto_cast(dtype="bfloat16", level=level):
+                loss = model(ids, labels)
+            step(loss)
+            losses.append(loss.item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            opt._learning_rate.step()
+        read_launches(f"train_rules {case}", steps)
+        _falls(f"train_rules {case}", losses)
+        return {"losses": losses, "step_ms": step_ms,
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+    # GradScaler around LookAhead: the scaler reads _parameter_list, so it
+    # unscales the inner optimizer, then steps the LookAhead
+    fresh()
+    inner = optim.AdamW(lrs.MultiplicativeDecay(1e-4, lr_lambda=lambda t: 0.95),
+                        parameters=model.named_parameters())
+    look, scaler = LookAhead(inner, alpha=0.5, k=2), GradScaler(init_loss_scaling=2.0 ** 15)
+    found = []
+
+    def scaled_step(loss):
+        scaler.scale(loss).backward()
+        scaler.unscale_(inner)
+        found.append(scaler._found_inf)
+        scaler.step(look)
+        scaler.update()
+        look.clear_grad()
+
+    res = eager("grad_scaler_lookahead", inner, scaled_step)
+    if any(found) or scaler._scale != 2.0 ** 15 or look._steps != 3:
+        raise AssertionError(f"train_rules grad_scaler_lookahead: found_inf {found}, scale "
+                             f"{scaler._scale}, lookahead steps {look._steps}")
+    _check_slots("train_rules grad_scaler_lookahead", inner, dict(model.named_parameters()))
+    emit(phase="train_rules", case="grad_scaler_lookahead", optimizer="LookAhead(AdamW, "
+         "alpha=0.5, k=2)", scheduler="MultiplicativeDecay", loss_scaling=scaler._scale,
+         **res)
+    del look, inner, scaler
+
+    fresh()
+    opt = optim.AdamW(lrs.LambdaDecay(1e-4, lr_lambda=lambda t: 1.0 / (1 + t)),
+                      parameters=model.named_parameters())
+    avg = ModelAverage(parameters=model.named_parameters())
+
+    def averaged_step(loss):
+        opt.minimize(loss)
+        opt.clear_gradients()
+        avg.step()
+
+    res = eager("model_average", opt, averaged_step)
+    with torch.no_grad():
+        before = [p.detach().clone() for p in model.parameters()]
+        avg.apply(need_restore=False)
+        moved = sum(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
+        avg.restore()
+        back = all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
+    if not back or moved == 0:
+        raise AssertionError(f"train_rules model_average: apply() moved {moved} "
+                             f"parameters, restore() gave them back: {back}")
+    emit(phase="train_rules", case="model_average", optimizer="AdamW + ModelAverage",
+         scheduler="LambdaDecay", params_moved_by_apply=moved, restored_bit_for_bit=back,
+         **res)
+    del opt, avg, before
+
+    fresh()
+    opt = optim.Momentum(lrs.InverseTimeDecay(0.05, gamma=0.5), momentum=0.9,
+                         parameters=model.named_parameters(),
+                         weight_decay=optim.L1Decay(1e-6))
+    norms = []
+
+    def clipped_step(loss):
+        loss.backward()
+        norms.append(clip_grad_norm_(model.parameters(), max_norm=1.0).item())
+        opt.step()
+        opt.clear_grad()
+
+    res = eager("momentum_l1_clip_grad_norm", opt, clipped_step)
+    if not all(n <= 1.0 + 1e-4 for n in norms):
+        raise AssertionError(f"train_rules momentum_l1_clip_grad_norm: norms {norms}")
+    emit(phase="train_rules", case="momentum_l1_clip_grad_norm", optimizer="Momentum",
+         scheduler="InverseTimeDecay", weight_decay="L1Decay(1e-6)",
+         global_norms_after_clip=norms, **res)
+    del opt
+
+    fresh()
+    opt = optim.AdamW(lrs.NaturalExpDecay(1e-4, gamma=0.1),
+                      parameters=model.named_parameters())
+    decorate(model, opt, level="O2")
+
+    def o2_step(loss):
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+
+    res = eager("decorate_o2", opt, o2_step, level="O2")
+    dtypes = {str(p.dtype) for p in model.parameters()}
+    if dtypes != {"torch.bfloat16"}:
+        raise AssertionError(f"train_rules decorate_o2: parameters {dtypes}")
+    _check_slots("train_rules decorate_o2", opt, dict(model.named_parameters()))
+    emit(phase="train_rules", case="decorate_o2", optimizer="AdamW", amp="bfloat16 O2",
+         scheduler="NaturalExpDecay", param_dtypes=sorted(dtypes), **res)
+    del opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="train_rules", case="all", launches=total,
+         wall_s=time.perf_counter() - t_phase)
+    return total
+
+
+RULE_STEP_TOL = 1e-6    # card vs CPU, one rule's update of the same f32 weights and
+                        # gradient: times max(1, max|p|) (the same elementwise f32
+                        # arithmetic; Lamb's and Lars's norms sum in another order)
+RULE_FLIP_LRS = 10      # card vs the CPU's whole step, each parameter: times lr (a
+                        # gradient within rounding of 0 may take the other sign, and
+                        # no first step moves an entry by more than ~4.6 lr)
+
+
+def _rules_vs_cpu(cfg, ids, labels, l_cpu, g_cpu):
+    """train_vs_cpu for each new rule: one f32 engine step on the card (the
+    3xTF32 forward and backward pair) from the CPU run's weights (seed 1),
+    held to the CPU: the loss (TRAIN_LOSS_RTOL) and every gradient
+    (TRAIN_GRAD_TOL x max|g|) against the CPU step's; the new parameters
+    and state against the rule run on the CPU on the card's gradient
+    (RULE_STEP_TOL x max(1, max|p|)); the new parameters against the CPU's
+    whole step, the rule on the CPU's gradient (RULE_FLIP_LRS x lr)."""
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.distributed import TrainStepEngine
+    from paddle_tpu_torch.models import GPTForPretraining
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    cases = [("Adamax", {"learning_rate": 1e-3}), ("Adagrad", {"learning_rate": 1e-3}),
+             ("Adadelta", {"learning_rate": 0.5}),
+             ("RMSProp", {"learning_rate": 1e-4, "centered": True, "momentum": 0.9}),
+             ("Lamb", {"learning_rate": 1e-2, "exclude_from_weight_decay_fn": _is_layer_norm}),
+             ("Lars", {"learning_rate": 2.0, "exclude_from_weight_decay": ["bias"]})]
+    t_phase = time.perf_counter()
+    p0 = {n: p.detach().clone()
+          for n, p in GPTForPretraining(cfg, device="cpu", seed=1).named_parameters()}
+    model = GPTForPretraining(cfg, device="cuda", seed=1)
+    init = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    n = cfg.num_layers
+    f32_routes = ({"mma": 0, "tf32x3": n, "fma": 0},
+                  {"mma": {"dkdv": 0, "dq": 0}, "tf32x3": {"dkdv": n, "dq": n},
+                   "fma": {"dkdv": 0, "dq": 0}})
+
+    def cpu_rule(rule, kw, grads):
+        params = {nm: t.clone() for nm, t in p0.items()}
+        opt = getattr(optim, rule)(parameters=list(params.items()), **kw)
+        opt._apply(params, grads, opt.get_lr(), 1)
+        return params, opt._states
+
+    for rule, kw in cases:
+        model.load_state_dict(init)
+        model.zero_grad(set_to_none=True)
+        opt = getattr(optim, rule)(parameters=model.named_parameters(), **kw)
+        _reset_launch_counts()
+        loss = TrainStepEngine(model, opt).step(ids, labels).item()
+        torch.cuda.synchronize()
+        routes = (dict(fa.launches_by_route), _bwd_routes())
+        if routes != f32_routes:
+            raise AssertionError(f"train_vs_cpu {rule}: the flash kernels took {routes}")
+        grads = {nm: p.grad.cpu() for nm, p in model.named_parameters()}
+        card = {nm: p.detach().cpu() for nm, p in model.named_parameters()}
+        states = {nm: [s.cpu() for s in st] for nm, st in opt._states.items()}
+        ref, ref_states = cpu_rule(rule, kw, grads)
+        run, _ = cpu_rule(rule, kw, g_cpu)
+        lr_ = opt.get_lr()
+        loss_err = abs(loss - l_cpu) / abs(l_cpu)
+        if not loss_err <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"train_vs_cpu {rule}: loss {loss} vs {l_cpu}")
+        worst = {"grad": 0.0, "rule": 0.0, "state": 0.0, "step_over_lr": 0.0}
+        apart = total = 0
+        for nm, g in g_cpu.items():
+            scale = g.abs().max().item()
+            err = (grads[nm] - g).abs().max().item()
+            worst["grad"] = max(worst["grad"], err / scale if scale else err)
+            if not err <= TRAIN_GRAD_TOL * scale:
+                raise AssertionError(f"train_vs_cpu {rule}: gradient of {nm}: {err} "
+                                     f"(max|g| {scale})")
+            bar = max(1.0, ref[nm].abs().max().item())
+            err = (card[nm] - ref[nm]).abs().max().item()
+            worst["rule"] = max(worst["rule"], err / bar)
+            if not err <= RULE_STEP_TOL * bar:
+                raise AssertionError(f"train_vs_cpu {rule}: the card's update of {nm} is "
+                                     f"{err} from the CPU rule's on the same gradient")
+            for a, b in zip(states[nm], ref_states[nm], strict=True):
+                err = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                worst["state"] = max(worst["state"], err)
+                if a.dtype != torch.float32 or not err <= RULE_STEP_TOL:
+                    raise AssertionError(f"train_vs_cpu {rule}: state of {nm}: {err}")
+            diff = (card[nm] - run[nm]).abs()
+            worst["step_over_lr"] = max(worst["step_over_lr"], diff.max().item() / lr_)
+            if not diff.max().item() <= RULE_FLIP_LRS * lr_:
+                raise AssertionError(f"train_vs_cpu {rule}: {nm} is {diff.max().item()} "
+                                     f"from the CPU's whole step (lr {lr_})")
+            apart += int((diff > 1e-5).sum())
+            total += diff.numel()
+        if len(states) != len(g_cpu) or any(len(st) != JAX_SLOTS[opt._rule]
+                                            for st in states.values()):
+            raise AssertionError(f"train_vs_cpu {rule}: the state is not JAX's slots")
+        emit(phase="train_vs_cpu_rules", rule=rule, lr=lr_, dtype="float32",
+             model="gpt2-124m width, 2 layers", batch=list(ids.shape), loss_card=loss,
+             loss_cpu=l_cpu, loss_rel_err=loss_err, grad_worst_rel_err=worst["grad"],
+             update_worst_err=worst["rule"], state_worst_err=worst["state"],
+             rule_step_tol=RULE_STEP_TOL, vs_cpu_step_worst_over_lr=worst["step_over_lr"],
+             vs_cpu_step_bound_over_lr=RULE_FLIP_LRS, entries_apart_1e5=apart,
+             entries=total, state_slots=JAX_SLOTS[opt._rule])
+        del opt
+    del model
+    emit(phase="train_vs_cpu_rules", rule="all", rules=len(cases),
+         wall_s=time.perf_counter() - t_phase)
 
 
 DP_STEPS = 3            # steps of each dp run
@@ -2452,6 +2852,7 @@ def main() -> int:
 
     launches, f32_launches = phase_train(ids)
     torch.cuda.empty_cache()
+    rules_launches = phase_train_rules(ids)
     phase_train_vs_cpu()
     torch.cuda.empty_cache()
     dp_launches = phase_dp()
@@ -2476,13 +2877,15 @@ def main() -> int:
     # tensor-core forward and backward)
     pallas = "paddle_tpu/ops/pallas/"
     rows = [  # (name, path, record, source, replaces)
-        ("flash_attention_fwd", "train, dp, ckpt", fwd["slice_bf16_causal"],
+        ("flash_attention_fwd", "train, train_rules, dp, ckpt", fwd["slice_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_fwd_f32", "score, train_f32", fwd["slice_f32_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_bwd_dkdv", "train, dp, ckpt", bwd["train_bf16_causal"]["dkdv"],
+        ("flash_attention_bwd_dkdv", "train, train_rules, dp, ckpt",
+         bwd["train_bf16_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq", "train, dp, ckpt", bwd["train_bf16_causal"]["dq"],
+        ("flash_attention_bwd_dq", "train, train_rules, dp, ckpt",
+         bwd["train_bf16_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
         ("flash_attention_bwd_dkdv_f32", "train_f32", bwd["train_f32_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
@@ -2525,7 +2928,8 @@ def main() -> int:
     # the LM loss's bf16 tensor-core forward and backward from the bf16
     # pass, its f32-h forward and backward (3xTF32) from the f32 pass
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
-    counts = {**{k: launches[k] + dp_launches[k] + ckpt_launches[k] for k in launches},
+    counts = {**{k: launches[k] + rules_launches[k] + dp_launches[k] + ckpt_launches[k]
+                 for k in launches},
               **bench_launches,
               "flash_attention_fwd_f32": score_launches
               + f32_launches["flash_attention_fwd"],

@@ -14,10 +14,19 @@ final LayerNorm, and the port does the same.
 Levels: O1 casts white-listed ops to the low dtype and black-listed ops to
 f32 and leaves the rest in their input dtype; O2 casts every op to the low
 dtype except the black-listed ones (f32). Parameters stay f32 either way
-(master weights; the optimizer updates them in f32). The port's ops of
-``ops/`` take the lookup; plain tensor code around them (the model's
+(the optimizer updates them in f32) unless ``decorate(level="O2")`` casts
+them to the low dtype; the optimizer state stays f32 then too. The port's
+ops of ``ops/`` take the lookup; plain tensor code around them (the model's
 residual adds, reshapes) does not, where the JAX package casts those too at
 O2.
+
+``GradScaler`` is the JAX package's dynamic loss scaling (paddle's
+check_finite_and_unscale and update_loss_scaling): ``unscale_`` scales
+every gradient of the optimizer's parameters in place and reads back to
+the host whether one was not finite, once a step, as the JAX package does;
+``step`` then skips the optimizer's step. It reads the optimizer's
+``_parameter_list``, so around ``incubate.LookAhead`` call ``unscale_`` on
+the inner optimizer before ``step(lookahead)``.
 """
 from __future__ import annotations
 
@@ -114,3 +123,115 @@ def cast_inputs(name: str, *tensors):
         return tensors
     return tuple(t.to(dtype) if t is not None and t.is_floating_point()
                  and t.dtype != dtype else t for t in tensors)
+
+
+def decorate(models, optimizers=None, level="O1", dtype="bfloat16", master_weight=None,
+             save_dtype=None):
+    """At O2, cast every floating parameter of ``models`` (a module or a list)
+    to ``dtype`` in place (``p.data``), so the optimizers' references stay
+    valid and their f32 state stays f32; O1 changes nothing. Returns
+    ``models``, or ``(models, optimizers)`` when optimizers are given."""
+    if level == "O2":
+        low = _DTYPES[dtype] if isinstance(dtype, str) else dtype
+        for m in models if isinstance(models, (list, tuple)) else [models]:
+            for p in m.parameters():
+                if p.is_floating_point():
+                    p.data = p.data.to(low)
+    if optimizers is None:
+        return models
+    return models, optimizers
+
+
+class GradScaler:
+    def __init__(self, enable=True, init_loss_scaling=2.0 ** 15, incr_ratio=2.0,
+                 decr_ratio=0.5, incr_every_n_steps=1000, decr_every_n_nan_or_inf=1,
+                 use_dynamic_loss_scaling=True):
+        self._enable = enable
+        self._scale = float(init_loss_scaling) if enable else 1.0
+        self._incr_ratio = incr_ratio
+        self._decr_ratio = decr_ratio
+        self._incr_every_n_steps = incr_every_n_steps
+        self._decr_every_n = decr_every_n_nan_or_inf
+        self._dynamic = use_dynamic_loss_scaling
+        self._good_steps = 0
+        self._bad_steps = 0
+        self._found_inf = False
+        self._unscaled = False
+
+    def scale(self, var):
+        if not self._enable:
+            return var
+        return var * self._scale
+
+    @torch.no_grad()
+    def _unscale(self, optimizer):
+        """Every grad times 1 / scale, in place; one host read of whether
+        any was not finite."""
+        if not self._enable:
+            return
+        inv = 1.0 / self._scale
+        found = None
+        for p in optimizer._parameter_list:
+            if p.grad is None:
+                continue
+            bad = ~torch.isfinite(p.grad).all()
+            found = bad if found is None else found | bad
+            p.grad.mul_(inv)
+        self._found_inf = found is not None and bool(found)
+        self._unscaled = True
+
+    def unscale_(self, optimizer):
+        self._unscale(optimizer)
+
+    def minimize(self, optimizer, scaled_loss):
+        scaled_loss.backward()
+        self.step(optimizer)
+        self.update()
+
+    def step(self, optimizer):
+        if not self._enable:
+            optimizer.step()
+            return
+        if not self._unscaled:
+            self._unscale(optimizer)
+        if not self._found_inf:
+            optimizer.step()
+        self._unscaled = False
+
+    def update(self):
+        if not (self._enable and self._dynamic):
+            return
+        if self._found_inf:
+            self._bad_steps += 1
+            self._good_steps = 0
+            if self._bad_steps >= self._decr_every_n:
+                self._scale = max(self._scale * self._decr_ratio, 1.0)
+                self._bad_steps = 0
+        else:
+            self._good_steps += 1
+            self._bad_steps = 0
+            if self._good_steps >= self._incr_every_n_steps:
+                self._scale *= self._incr_ratio
+                self._good_steps = 0
+
+    def is_enable(self):
+        return self._enable
+
+    def is_use_dynamic_loss_scaling(self):
+        return self._dynamic
+
+    def get_loss_scaling(self):
+        return torch.tensor(self._scale, dtype=torch.float32)
+
+    def set_init_loss_scaling(self, v):
+        self._scale = float(v)
+
+    def state_dict(self):
+        return {"scale": self._scale, "incr_ratio": self._incr_ratio,
+                "decr_ratio": self._decr_ratio, "good_steps": self._good_steps,
+                "bad_steps": self._bad_steps}
+
+    def load_state_dict(self, d):
+        self._scale = d["scale"]
+        self._good_steps = d.get("good_steps", 0)
+        self._bad_steps = d.get("bad_steps", 0)

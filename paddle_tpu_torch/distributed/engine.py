@@ -6,8 +6,10 @@ engine.py:1497, and grad_comm's accumulation and ZeRO steps).
 ``step(ids, labels)`` advances the step count, reads the learning rate,
 runs the model's forward (which returns the scalar loss) and backward under
 whatever ``amp.auto_cast`` the caller holds, clips the gradients with the
-optimizer's rule, and applies the optimizer's rule to the f32 parameters and
-f32 state in place. It returns the loss.
+optimizer's rule, and applies the optimizer's rule (any of the ten, with
+its per-parameter kwargs) to the f32 parameters and f32 state in place. It
+returns the loss. As in the JAX engine, an ``L1Decay`` is not applied here:
+only the eager ``Optimizer.step`` adds it.
 
 One process, K = 1, f32 payload, no ZeRO, no process group: the plain step
 above, unchanged. Otherwise the step is grad_comm's (distributed/grad_comm.py):
@@ -38,10 +40,11 @@ above, unchanged. Otherwise the step is grad_comm's (distributed/grad_comm.py):
   gathers it back. The JAX engine shards the optimizer state of
   ``strategy.sharding`` or a ``sharding_degree`` above 1 by GSPMD specs
   instead; the flat shards give
-  the same numbers. ZeRO needs one elementwise rule with the same kwargs
-  for every parameter and a clip that is None, ``ClipGradByGlobalNorm`` or
-  ``ClipGradByValue``; otherwise it warns once and runs the replicated
-  update, as the JAX engine does.
+  the same numbers. ZeRO needs one elementwise rule
+  (``functional.ELEMENTWISE_RULES``: not Lamb or Lars, whose norms are per
+  parameter) with the same kwargs for every parameter and a clip that is
+  None, ``ClipGradByGlobalNorm`` or ``ClipGradByValue``; otherwise it warns
+  once and runs the replicated update, as the JAX engine does.
 - **FSDP** (``fsdp=True``, ``FLAGS_fsdp``; ZeRO's eligibility gate, and
   it supersedes ZeRO): parameters and optimizer state live only as the
   rank's f32 shards of per-layer buckets (``grad_comm.fsdp_buckets``; the
@@ -406,8 +409,9 @@ class TrainStepEngine:
         reason = None
         if not names:
             reason = "no trainable parameters"
-        elif opt._rule not in opt_funct.RULES:
-            reason = f"optimizer rule {opt._rule!r} is not uniform-elementwise"
+        elif opt._rule not in opt_funct.ELEMENTWISE_RULES:
+            reason = (f"optimizer rule {opt._rule!r} is not uniform-elementwise "
+                      "(needs per-parameter norms)")
         elif any(opt._rule_kwargs(nm) != opt._rule_kwargs(names[0]) for nm in names):
             reason = ("per-parameter rule kwargs differ (e.g. weight-decay "
                       "exclusions): the flat shard update needs ONE uniform rule")

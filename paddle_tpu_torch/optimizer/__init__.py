@@ -2,20 +2,40 @@
 
 An ``Optimizer`` holds its parameters by name, its learning rate (a float or
 an ``lr.LRScheduler``), a grad-clip rule and one f32 state tuple per
-parameter. ``step()`` reads ``p.grad``, clips, runs the functional rule
-(``optimizer/functional.py``) and writes parameters and state in place;
-``distributed/engine.py``'s ``TrainStepEngine`` runs the same rules over the
-same state. Ported: ``SGD``, ``Momentum``, ``Adam``, ``AdamW``.
+parameter. ``step()`` reads ``p.grad``, clips, adds an ``L1Decay`` penalty,
+runs the functional rule (``optimizer/functional.py``) and writes
+parameters and state in place; ``distributed/engine.py``'s
+``TrainStepEngine`` runs the same rules over the same state. All ten of the
+JAX package's rules: ``SGD``, ``Momentum``, ``Adam``, ``AdamW``,
+``Adamax``, ``Adagrad``, ``Adadelta``, ``RMSProp``, ``Lars``
+(``LarsMomentum``) and ``Lamb``.
 
 ``parameters`` may be ``model.named_parameters()`` (names are the module
 paths) or bare tensors (named ``param_<i>``); ``apply_decay_param_fun``
-receives those names.
+receives those names, and so does Lamb's ``exclude_from_weight_decay_fn``:
+the JAX package passes that one the parameter, the one place where the two
+APIs differ. Lars excludes a parameter whose name contains one of
+``exclude_from_weight_decay``.
+
+``weight_decay`` is a float, an ``L2Decay`` (its coefficient is the rule's
+decay) or an ``L1Decay`` (the penalty ``grad + coeff * sign(param)`` in
+``step``, not folded into the rule); anything else raises ``TypeError``. A
+parameter whose ``regularizer`` attribute is an ``L1Decay`` takes that one.
+Only the rules of ``_DECAY_RULES`` take ``weight_decay``; Lamb and Lars
+have their own.
+
+As the JAX package does: ``set_lr`` replaces a scheduler with a float;
+``clear_grad`` ignores ``set_to_zero``; Adam's and AdamW's ``lazy_mode``
+and ``multi_precision``, and AdamW's ``lr_ratio``, are accepted and have no
+effect; Adagrad ignores ``initial_accumulator_value``; the engine applies
+no ``L1Decay``, only ``step`` does.
 """
 from __future__ import annotations
 
 import torch
 
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue  # noqa: F401
+from ..regularizer import L1Decay, L2Decay, WeightDecayRegularizer  # noqa: F401
 from . import functional as funct
 from . import lr  # noqa: F401
 from .lr import LRScheduler
@@ -34,6 +54,10 @@ def _named(parameters):
 
 class Optimizer:
     _rule = "sgd"
+    # the rules that take the optimizer's weight_decay (L2, or AdamW's
+    # decoupled decay)
+    _DECAY_RULES = frozenset({"sgd", "momentum", "adam", "adamax", "adagrad",
+                              "adadelta", "rmsprop", "adamw"})
 
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, apply_decay_param_fun=None):
@@ -42,11 +66,16 @@ class Optimizer:
         self._parameter_list = [p for _, p in named]
         self._learning_rate = learning_rate
         self._grad_clip = grad_clip
+        self._l1_decay = None
         if weight_decay is None:
             weight_decay = 0.0
-        if not isinstance(weight_decay, (int, float)):
-            raise TypeError("the port takes weight_decay as a float (L1Decay and "
-                            "L2Decay objects are not ported)")
+        elif getattr(weight_decay, "_is_l1", False):
+            self._l1_decay, weight_decay = weight_decay, 0.0
+        elif isinstance(weight_decay, WeightDecayRegularizer):
+            weight_decay = weight_decay._coeff
+        elif not isinstance(weight_decay, (int, float)):
+            raise TypeError("weight_decay is a float, an L2Decay or an L1Decay, got "
+                            f"{type(weight_decay).__name__}")
         self._weight_decay = float(weight_decay)
         self._hyper = {}
         self._states = {}  # name -> state tuple (f32)
@@ -59,16 +88,20 @@ class Optimizer:
             return self._learning_rate()
         return float(self._learning_rate)
 
+    def set_lr(self, value):
+        self._learning_rate = float(value)
+
     # ---- core ----
     def _rule_kwargs(self, name):
         """Hyperparameters of the rule for parameter ``name``; weight decay is
         0 for it when ``apply_decay_param_fun(name)`` is false."""
         kw = dict(self._hyper)
-        wd = self._weight_decay
-        if (self._apply_decay_param_fun is not None
-                and not self._apply_decay_param_fun(name)):
-            wd = 0.0
-        kw["weight_decay"] = wd
+        if self._rule in self._DECAY_RULES:
+            wd = self._weight_decay
+            if (self._apply_decay_param_fun is not None
+                    and not self._apply_decay_param_fun(name)):
+                wd = 0.0
+            kw["weight_decay"] = wd
         return kw
 
     def _state(self, name, param):
@@ -103,13 +136,27 @@ class Optimizer:
         if self._grad_clip is not None:
             named_grads = self._grad_clip(named_grads)
         by_name = dict(zip(self._param_names, self._parameter_list))
-        grads = dict(named_grads)
+        grads = {}
+        for n, g in named_grads:
+            reg = getattr(by_name[n], "regularizer", None)
+            if not getattr(reg, "_is_l1", False):
+                reg = self._l1_decay
+            grads[n] = g if reg is None else reg.apply(by_name[n], g)
         self._apply({n: by_name[n] for n in grads}, grads, self.get_lr(),
                     self._step_count)
 
-    def clear_grad(self):
+    def clear_grad(self, set_to_zero=False):
         for p in self._parameter_list:
             p.grad = None
+
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None, no_grad_set=None):
+        """Backward of ``loss``, then ``step()``; returns ``(None, [(param,
+        grad), ...])`` as the JAX package's dygraph ``minimize`` does."""
+        loss.backward()
+        self.step()
+        return None, [(p, p.grad) for p in self._parameter_list]
 
     # ---- checkpoint (the JAX package's keys) ----
     def state_dict(self, states=None):
@@ -138,6 +185,8 @@ class Optimizer:
             if states:
                 self._states[n] = tuple(states)
 
+    set_dict = set_state_dict
+
 
 class SGD(Optimizer):
     _rule = "sgd"
@@ -158,8 +207,8 @@ class Adam(Optimizer):
     _rule = "adam"
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
-                 parameters=None, weight_decay=None, grad_clip=None,
-                 apply_decay_param_fun=None):
+                 parameters=None, weight_decay=None, grad_clip=None, lazy_mode=False,
+                 multi_precision=True, apply_decay_param_fun=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          apply_decay_param_fun)
         self._hyper = {"beta1": float(beta1), "beta2": float(beta2),
@@ -172,13 +221,105 @@ class AdamW(Optimizer):
     _rule = "adamw"
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
-                 parameters=None, weight_decay=0.01, apply_decay_param_fun=None,
-                 grad_clip=None):
+                 parameters=None, weight_decay=0.01, lr_ratio=None,
+                 apply_decay_param_fun=None, grad_clip=None, lazy_mode=False,
+                 multi_precision=True):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          apply_decay_param_fun)
         self._hyper = {"beta1": float(beta1), "beta2": float(beta2),
                        "epsilon": float(epsilon)}
 
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "LRScheduler", "lr",
-           "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue"]
+class Adamax(Optimizer):
+    _rule = "adamax"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 apply_decay_param_fun=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         apply_decay_param_fun)
+        self._hyper = {"beta1": beta1, "beta2": beta2, "epsilon": epsilon}
+
+
+class Adagrad(Optimizer):
+    _rule = "adagrad"
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None, weight_decay=None,
+                 grad_clip=None, initial_accumulator_value=0.0,
+                 apply_decay_param_fun=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         apply_decay_param_fun)
+        self._hyper = {"epsilon": epsilon}
+
+
+class Adadelta(Optimizer):
+    _rule = "adadelta"
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95, parameters=None,
+                 weight_decay=None, grad_clip=None, apply_decay_param_fun=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         apply_decay_param_fun)
+        self._hyper = {"epsilon": epsilon, "rho": rho}
+
+
+class RMSProp(Optimizer):
+    _rule = "rmsprop"
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None, grad_clip=None,
+                 apply_decay_param_fun=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         apply_decay_param_fun)
+        self._hyper = {"rho": rho, "epsilon": epsilon, "momentum": momentum,
+                       "centered": centered}
+
+
+class Lars(Optimizer):
+    """LARS momentum: a parameter whose name contains one of
+    ``exclude_from_weight_decay`` takes no ``lars_weight_decay``."""
+
+    _rule = "lars"
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay=None, epsilon=0.0):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._hyper = {"momentum": momentum, "lars_coeff": lars_coeff,
+                       "lars_weight_decay": lars_weight_decay, "epsilon": epsilon}
+        self._exclude_names = list(exclude_from_weight_decay or [])
+
+    def _rule_kwargs(self, name):
+        kw = dict(self._hyper)
+        if any(s in name for s in self._exclude_names):
+            kw["exclude_from_decay"] = True
+        return kw
+
+
+LarsMomentum = Lars
+
+
+class Lamb(Optimizer):
+    """LAMB: ``exclude_from_weight_decay_fn(name)`` true takes no
+    ``lamb_weight_decay`` (the JAX package calls it with the parameter)."""
+
+    _rule = "lamb"
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01, beta1=0.9,
+                 beta2=0.999, epsilon=1e-6, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay_fn=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._hyper = {"beta1": beta1, "beta2": beta2, "epsilon": epsilon,
+                       "lamb_weight_decay": lamb_weight_decay}
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _rule_kwargs(self, name):
+        kw = dict(self._hyper)
+        if self._exclude_fn is not None and self._exclude_fn(name):
+            kw["exclude_from_decay"] = True
+        return kw
+
+
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax", "Adagrad",
+           "Adadelta", "RMSProp", "Lars", "LarsMomentum", "Lamb", "LRScheduler", "lr",
+           "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue", "L1Decay",
+           "L2Decay"]

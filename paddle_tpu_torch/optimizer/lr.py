@@ -1,10 +1,11 @@
 """Learning-rate schedulers (counterpart of paddle_tpu/optimizer/lr.py).
 
 The port's own copy of the JAX package's pure-Python schedulers, so it need
-not import that package. Ported: ``LRScheduler``, ``LinearWarmup``,
-``CosineAnnealingDecay``, ``PolynomialDecay`` and ``StepDecay``; the rest of
-the family is listed in ROADMAP.md. As in paddle, user code steps a
-scheduler; the optimizer reads its current value.
+not import that package: all sixteen, with the same arithmetic in Python
+floats. As in paddle, user code steps a scheduler; the optimizer reads its
+current value. ``ReduceOnPlateau.step(metrics)`` takes a float or a 0-d
+torch tensor (read with ``.item()``, one host read), where the JAX package
+takes its own ``Tensor``.
 """
 from __future__ import annotations
 
@@ -35,11 +36,56 @@ class LRScheduler:
         return self.last_lr
 
     def state_dict(self):
-        return {k: v for k, v in self.__dict__.items()
-                if isinstance(v, (int, float, bool, str))}
+        return {k: v for k, v in self.__dict__.items() if isinstance(v, (int, float, bool, str))}
 
     def set_state_dict(self, state_dict):
         self.__dict__.update(state_dict)
+
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0, last_epoch=-1, verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return (self.base_lr * self.d_model ** -0.5
+                * min(step ** -0.5, step * self.warmup_steps ** -1.5))
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for i, b in enumerate(self.boundaries):
+            if self.last_epoch < b:
+                return self.values[i]
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
 
 
 class PolynomialDecay(LRScheduler):
@@ -82,6 +128,26 @@ class LinearWarmup(LRScheduler):
         return self.lr_after
 
 
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1, verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * self.gamma ** n
+
+
 class StepDecay(LRScheduler):
     def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1, verbose=False):
         self.step_size = step_size
@@ -90,6 +156,27 @@ class StepDecay(LRScheduler):
 
     def get_lr(self):
         return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = float(learning_rate)
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
 
 
 class CosineAnnealingDecay(LRScheduler):
@@ -101,3 +188,127 @@ class CosineAnnealingDecay(LRScheduler):
     def get_lr(self):
         return (self.eta_min + (self.base_lr - self.eta_min)
                 * (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2)
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0, last_epoch=-1, verbose=False):
+        self.T_0 = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = self.last_epoch
+        t_i = self.T_0
+        while t >= t_i:
+            t -= t_i
+            t_i *= self.T_mult
+        return self.eta_min + (self.base_lr - self.eta_min) * (1 + math.cos(math.pi * t / t_i)) / 2
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3, anneal_strategy="cos",
+                 three_phase=False, last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _interp(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1)
+        return (end - start) * pct + start
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up_steps = int(self.phase_pct * self.total_steps)
+        if step <= up_steps:
+            return self._interp(self.initial_lr, self.max_lr, step / max(up_steps, 1))
+        down = (step - up_steps) / max(self.total_steps - up_steps, 1)
+        return self._interp(self.max_lr, self.end_lr, down)
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up, step_size_down=None,
+                 mode="triangular", exp_gamma=1.0, scale_fn=None, scale_mode="cycle",
+                 last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_size_up = step_size_up
+        self.step_size_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.step_size_up + self.step_size_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        if x <= self.step_size_up:
+            pct = x / self.step_size_up
+        else:
+            pct = 1 - (x - self.step_size_up) / self.step_size_down
+        amp = (self.max_lr - self.base_lr) * pct
+        if self.mode == "triangular2":
+            amp = amp / (2.0 ** (cycle - 1))
+        elif self.mode == "exp_range":
+            amp = amp * (self.exp_gamma ** self.last_epoch)
+        return self.base_lr + amp
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10, threshold=1e-4,
+                 threshold_mode="rel", cooldown=0, min_lr=0, epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.cooldown_counter = 0
+        self.num_bad_epochs = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = float(learning_rate)
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def get_lr(self):
+        return self.last_lr
+
+    def _is_better(self, current, best):
+        if self.mode == "min":
+            if self.threshold_mode == "rel":
+                return current < best * (1 - self.threshold)
+            return current < best - self.threshold
+        if self.threshold_mode == "rel":
+            return current > best * (1 + self.threshold)
+        return current > best + self.threshold
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        import torch
+
+        if isinstance(metrics, torch.Tensor):
+            metrics = float(metrics.item())
+        self.last_epoch += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.best is None or self._is_better(metrics, self.best):
+            self.best = metrics
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.num_bad_epochs > self.patience:
+            new_lr = max(self.last_lr * self.factor, self.min_lr)
+            if self.last_lr - new_lr > self.epsilon:
+                self.last_lr = new_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0

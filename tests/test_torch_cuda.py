@@ -1586,3 +1586,115 @@ def test_ckpt_on_card_resumes_bf16_training_bit_for_bit(cuda, tmp_path):
     with warnings.catch_warnings(record=True):
         warnings.simplefilter("always")
         assert elastic.restore_latest(e3, str(tmp_path)) == 1
+
+
+# each new optimizer rule as chip_smoke.py's train_rules phase sets it (lr 1e-3
+# but Adadelta's, whose step is lr x sqrt(eps) / sqrt(mean g^2) x g)
+RULES_ON_CARD = {
+    "Adamax": {},
+    "Adagrad": {},
+    "Adadelta": {"learning_rate": 0.5},
+    "RMSProp": {"centered": True, "momentum": 0.9},
+    "Lamb": {"exclude_from_weight_decay_fn": lambda n: ".ln" in n},
+    "Lars": {"exclude_from_weight_decay": ["bias"]},
+}
+
+
+def _rule_step(device, rule, ids, labels):
+    from paddle_tpu_torch import optimizer
+
+    model = GPTForPretraining(gpt_tiny(), device=device, seed=6)
+    opt = getattr(optimizer, rule)(parameters=model.named_parameters(),
+                                   **{"learning_rate": 1e-3, **RULES_ON_CARD[rule]})
+    counts = _launch_counts()
+    loss = TrainStepEngine(model, opt).step(ids, labels).item()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"loss": loss, "launched": [a - b for a, b in zip(_launch_counts(), counts)],
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+            "states": {n: tuple(s.cpu() for s in st) for n, st in opt._states.items()},
+            "lr": opt.get_lr()}
+
+
+@pytest.mark.parametrize("rule", sorted(RULES_ON_CARD))
+def test_each_new_rule_steps_gpt_tiny_on_card_as_on_cpu(cuda, rule):
+    """One f32 TrainStepEngine step of gpt_tiny ([2, 128]) with ``rule`` on
+    the card and on the CPU: the card's step goes through the three flash
+    kernels; loss rtol 1e-5 and gradients 1e-4 x max(1, max|g|), as
+    test_gpt_tiny_train_step_on_card_matches_cpu holds them. The card's new
+    parameters and state against the CPU rule run on the card's own
+    gradients from the same weights: 1e-6 x max(1, max|ref|) (the same f32
+    elementwise arithmetic; Lamb's and Lars's norms sum in another order).
+    Against the CPU's whole step, the parameters stay within 10 x lr of it
+    and at most 0.1% of the entries more than 1e-5 apart: these rules
+    divide by a root of the gradient's square (or by a norm), so an entry
+    whose gradient is within rounding of 0 may take the other sign, and the
+    largest first step of an entry is ~4.6 x lr (centered RMSProp at rho
+    0.95: g / sqrt(0.0475 g^2))."""
+    from paddle_tpu_torch import optimizer
+
+    rng = np.random.RandomState(11)
+    ids = rng.randint(0, 1024, (2, 128)).astype(np.int64)
+    labels = np.roll(ids, -1, 1)
+    card = _rule_step("cuda", rule, ids, labels)
+    cpu = _rule_step("cpu", rule, ids, labels)
+    n = gpt_tiny().num_layers
+    assert card["launched"] == [n, n, n] and cpu["launched"] == [0, 0, 0]
+    assert card["loss"] == pytest.approx(cpu["loss"], rel=1e-5)
+    # the CPU rule on the card's gradients
+    ref = GPTForPretraining(gpt_tiny(), device="cpu", seed=6)
+    ref_opt = getattr(optimizer, rule)(parameters=ref.named_parameters(),
+                                       **{"learning_rate": 1e-3, **RULES_ON_CARD[rule]})
+    ref_opt._step_count = 1
+    ref_opt._apply(dict(ref.named_parameters()), card["grads"], card["lr"], 1)
+    apart = total = 0
+    for name, g_cpu in cpu["grads"].items():
+        tol = 1e-4 * max(1.0, g_cpu.abs().max().item())
+        assert (card["grads"][name] - g_cpu).abs().max().item() <= tol, name
+        want = dict(ref.named_parameters())[name].detach()
+        got = card["params"][name]
+        assert (got - want).abs().max().item() <= 1e-6 * max(1.0, want.abs().max().item())
+        assert len(card["states"][name]) == len(ref_opt._states[name])
+        for a, b in zip(card["states"][name], ref_opt._states[name]):
+            assert a.dtype == torch.float32
+            assert (a - b).abs().max().item() <= 1e-6 * max(1.0, b.abs().max().item()), name
+        diff = (got - cpu["params"][name]).abs()
+        assert diff.max().item() <= 10 * card["lr"], name
+        apart += int((diff > 1e-5).sum())
+        total += diff.numel()
+    assert apart <= 1e-3 * total, (apart, total)
+
+
+def test_grad_scaler_on_card_grads(cuda):
+    """GradScaler on the card: a step with an inf gradient is skipped
+    (parameters and state bit-unchanged, the scale halved, one host read of
+    the flag); a good step equals the CPU's on the same unscaled gradients
+    (1e-6 x max(1, max|p|))."""
+    from paddle_tpu_torch.amp import GradScaler
+
+    gen = torch.Generator().manual_seed(4)
+    w0 = torch.randn(64, 32, generator=gen)
+    grads = [torch.randn(64, 32, generator=gen) for _ in range(2)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        w = w0.clone().to(device).requires_grad_()
+        opt = AdamW(1e-2, parameters=[("w", w)])
+        scaler = GradScaler(init_loss_scaling=2.0 ** 12)
+        w.grad = grads[0].to(device) * scaler._scale
+        w.grad[3, 4] = float("inf")
+        before = w.detach().clone()
+        scaler.step(opt)
+        scaler.update()
+        assert scaler._found_inf and torch.equal(w.detach(), before) and not opt._states
+        assert scaler.get_loss_scaling().item() == 2.0 ** 11
+        opt.clear_grad()
+        loss = (w * grads[1].to(device)).sum()
+        scaler.scale(loss).backward()
+        assert w.grad.device.type == device
+        scaler.step(opt)
+        scaler.update()
+        assert not scaler._found_inf
+        runs[device] = w.detach().cpu()
+    tol = 1e-6 * max(1.0, runs["cpu"].abs().max().item())
+    assert (runs["cuda"] - runs["cpu"]).abs().max().item() <= tol

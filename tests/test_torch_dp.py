@@ -17,7 +17,11 @@ moves an entry by about lr where a gradient within rounding of 0 takes the
 other sign); bf16 and int8 payloads, losses rtol 1e-4 against JAX at the
 same payload and 2e-2 against the f32 trajectory (the JAX package's bar,
 tests/test_grad_comm.py); ZeRO against the port's replicated update at f32,
-bit for bit.
+bit for bit. The rules besides AdamW (``W.RULE_KW``): Adamax, Adagrad,
+Adadelta and RMSProp under ZeRO bit for bit against the replicated update
+and under the f32 bars against the JAX engine's ``zero_update=True``; Lamb
+and Lars, whose norms are per parameter, warn once under ZeRO and run the
+replicated update, bit for bit.
 """
 import jax
 import numpy as np
@@ -251,3 +255,47 @@ def test_the_eager_collectives_and_the_fleet_queries(ranks):
         assert got["broadcast"] == [2.0, 10.0]
         assert got["wait"] == [rank + 1.0, 10.0]
         assert got["all_to_all"] == ([0, 1, 10, 11] if rank == 0 else [2, 3, 12, 13])
+
+
+ELEMENTWISE = ["Adamax", "Adagrad", "Adadelta", "RMSProp"]
+
+
+def jax_zero_rule(rule):
+    """The JAX engine's 3 ZeRO steps with ``rule`` at dp 2 (f32): (losses,
+    parameters in the port's layout)."""
+    key = ("zero_rule", rule)
+    if key not in _JAX:
+        jm = _jax_model()
+        hcg = HybridCommunicateGroup(dp_degree=2, devices=jax.devices()[:2])
+        kw = {"learning_rate": W.LR, **W.RULE_KW[rule]}
+        opt = getattr(paddle.optimizer, rule)(parameters=jm.parameters(), **kw)
+        eng = JaxEngine(jm, opt, hcg=hcg, zero_update=True)
+        ids, labels = (paddle.to_tensor(t.numpy()) for t in W.batch())
+        losses = [float(eng.step(ids, labels).item()) for _ in range(W.STEPS)]
+        assert eng._zero_opt is not None
+        _JAX[key] = (losses, {n: v.numpy() for n, v in state_from_jax(
+            {n: np.asarray(a) for n, a in eng.params.items()}).items()})
+    return _JAX[key]
+
+
+@pytest.mark.parametrize("rule", ELEMENTWISE)
+def test_elementwise_rules_run_zero_bit_for_bit_and_match_the_jax_engine(ranks, rule):
+    for rank, r in enumerate(ranks):
+        rep, zer = r["rules"][rule]["replicated"], r["rules"][rule]["zero"]
+        assert zer["zero_engaged"] and not zer["warnings"]
+        assert zer["losses"] == rep["losses"] and zer["digest"] == rep["digest"], rank
+    mine = ranks[0]["rules"][rule]["zero"]
+    losses, params = jax_zero_rule(rule)
+    np.testing.assert_allclose(mine["losses"], losses, rtol=1e-5)
+    assert mine["losses"][-1] < mine["losses"][0]
+    assert_params_close(mine["params"], params)
+
+
+@pytest.mark.parametrize("rule", ["Lamb", "Lars"])
+def test_lamb_and_lars_never_run_on_zero_shards(ranks, rule):
+    for r in ranks:
+        rep, zer = r["rules"][rule]["replicated"], r["rules"][rule]["zero"]
+        assert not zer["zero_engaged"]
+        assert len(zer["warnings"]) == 1
+        assert "falling back" in zer["warnings"][0] and rule.lower() in zer["warnings"][0]
+        assert zer["losses"] == rep["losses"] and zer["digest"] == rep["digest"]

@@ -11,7 +11,9 @@ on a 2-device mesh with the parameters replicated (tests/test_torch_dp.py),
 the port in one process on the global batch. A run of one package trains 2
 steps and saves; the other restores and trains 2 more, held to the saving
 package's own continuation: losses rtol 1e-5, parameters under
-``assert_params_close``.
+``assert_params_close``. The same both ways with Lamb and with RMSProp
+(centered, momentum 0.9: three slots), whose slots the checkpoint carries
+in the JAX package's order.
 """
 import json
 import os
@@ -498,11 +500,12 @@ def _state():
     return {n: np.asarray(v._data) for n, v in _jax_model().state_dict().items()}
 
 
-def _jax_engine(zero=False):
+def _jax_engine(zero=False, rule="AdamW"):
     jm = _jax_model()
     hcg = HybridCommunicateGroup(dp_degree=2, devices=jax.devices()[:2])
-    opt = paddle.optimizer.AdamW(learning_rate=W.LR, parameters=jm.parameters(),
-                                 weight_decay=0.01)
+    kw = {"weight_decay": 0.01} if rule == "AdamW" else W.RULE_KW[rule]
+    opt = getattr(paddle.optimizer, rule)(parameters=jm.parameters(),
+                                          **{"learning_rate": W.LR, **kw})
     return JaxEngine(jm, opt, hcg=hcg, zero_update=zero)
 
 
@@ -511,10 +514,9 @@ def _jax_params(eng):
         {n: np.asarray(a) for n, a in eng.params.items()}).items()}
 
 
-def _port_engine(state):
+def _port_engine(state, rule="AdamW"):
     m = W._model(state)
-    return TrainStepEngine(m, AdamW(W.LR, parameters=m.named_parameters(),
-                                    weight_decay=0.01))
+    return TrainStepEngine(m, W.make_opt(m.named_parameters(), rule))
 
 
 @pytest.mark.parametrize("zero", [False, True], ids=["replicated", "zero"])
@@ -558,6 +560,41 @@ def test_a_port_checkpoint_resumes_in_the_jax_package(tmp_path, mode):
     assert jelastic.restore_latest(je, str(tmp_path)) == 2
     assert [int(w) for w in np.asarray(jax.random.key_data(je._key))] == [0, pe._seed]
     jids, jlabels = paddle.to_tensor(ids.numpy()), paddle.to_tensor(labels.numpy())
+    got = [float(je.step(jids, jlabels).item()) for _ in range(2)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert_params_close({n: torch.from_numpy(v) for n, v in _jax_params(je).items()},
+                        want_params)
+
+
+@pytest.mark.parametrize("rule", ["Lamb", "RMSProp"])
+def test_a_rule_checkpoint_crosses_both_ways(tmp_path, rule):
+    """A JAX checkpoint of ``rule`` resumes in the port, and the port's in
+    the JAX package: 2 steps, save, 2 more, against the saving package's
+    own continuation."""
+    ids, labels = W.batch()
+    jids, jlabels = paddle.to_tensor(ids.numpy()), paddle.to_tensor(labels.numpy())
+    slots = len(W.make_opt([torch.zeros(1)], rule)._state("param_0", torch.zeros(1)))
+    assert slots == {"Lamb": 2, "RMSProp": 3}[rule]
+
+    je = _jax_engine(rule=rule)
+    [je.step(jids, jlabels) for _ in range(2)]
+    jelastic.CheckpointManager(str(tmp_path / "j"), async_save=False).save(je, block=True)
+    manifest = verify_checkpoint(elastic.list_checkpoints(str(tmp_path / "j"))[0][1])
+    assert {k.rsplit(".", 1)[1] for k in manifest["opt"]} == {str(j) for j in range(slots)}
+    want = [float(je.step(jids, jlabels).item()) for _ in range(2)]
+    pe = _port_engine({n: np.zeros_like(v) for n, v in _state().items()}, rule)
+    assert restore_latest(pe, str(tmp_path / "j")) == 2
+    np.testing.assert_allclose(_losses(pe, ids, labels, 2), want, rtol=1e-5)
+    assert_params_close({n: p.detach() for n, p in pe.model.named_parameters()},
+                        _jax_params(je))
+
+    pe = _port_engine(_state(), rule)
+    _losses(pe, ids, labels, 2)
+    CheckpointManager(str(tmp_path / "p"), async_save=False).save(pe, block=True)
+    want = _losses(pe, ids, labels, 2)
+    want_params = {n: t.numpy() for n, t in pe._full_params().items()}
+    je = _jax_engine(rule=rule)
+    assert jelastic.restore_latest(je, str(tmp_path / "p")) == 2
     got = [float(je.step(jids, jlabels).item()) for _ in range(2)]
     np.testing.assert_allclose(got, want, rtol=1e-5)
     assert_params_close({n: torch.from_numpy(v) for n, v in _jax_params(je).items()},

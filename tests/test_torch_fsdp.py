@@ -16,7 +16,9 @@ Bars: f32 against JAX, losses rtol 1e-5 and parameters under
 against JAX at the same payload; FSDP against the port's replicated step at
 f32, bit for bit (losses, gathered parameters and optimizer slots), and
 every prefetch depth bit for bit; the checkpoint's parameters bit for bit
-in every target.
+in every target. Adamax, Adagrad, Adadelta and RMSProp run FSDP bit for bit
+against the replicated update; Lamb and Lars warn once and run the
+replicated update, bit for bit.
 """
 import functools
 import math
@@ -197,6 +199,27 @@ def test_an_ineligible_clip_warns_once_and_is_the_replicated_step(ranks):
         assert len(fs["warnings"]) == 1 and "fsdp requested but falling back" in fs["warnings"][0]
         assert not fs["fsdp_engaged"]
         assert fs["losses"] == rep["losses"] and fs["digest"] == rep["digest"]
+
+
+@pytest.mark.parametrize("rule", sorted(FW.W.RULE_KW))
+def test_each_rule_under_fsdp_is_the_replicated_step(ranks, rule):
+    elementwise = rule not in ("Lamb", "Lars")
+    for r in ranks[0]:
+        fs, rep = r["rules"][rule]["fsdp"], r["rules"][rule]["replicated"]
+        assert fs["fsdp_engaged"] == elementwise
+        if elementwise:
+            assert not fs["warnings"]
+        else:
+            assert len(fs["warnings"]) == 1
+            assert "fsdp requested but falling back" in fs["warnings"][0]
+            assert rule.lower() in fs["warnings"][0]
+        assert fs["losses"] == rep["losses"] and fs["digest"] == rep["digest"]
+    if elementwise:
+        fs, rep = (ranks[0][0]["rules"][rule][m] for m in ("fsdp", "replicated"))
+        for n, slots in rep["opt"].items():
+            assert len(fs["opt"][n]) == len(slots)
+            for a, b in zip(fs["opt"][n], slots):
+                assert torch.equal(a, b), n
 
 
 def test_a_world4_fsdp_checkpoint_restores_at_world2_bit_for_bit(ranks):

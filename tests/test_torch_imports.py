@@ -60,6 +60,14 @@ def test_the_fsdp_and_checkpoint_modules_are_among_them():
         assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, path.name
 
 
+def test_the_optimizer_surface_modules_are_among_them():
+    assert {"paddle_tpu_torch.regularizer", "paddle_tpu_torch.incubate",
+            "paddle_tpu_torch.incubate.optimizer", "paddle_tpu_torch.optimizer.lr",
+            "paddle_tpu_torch.amp"} <= set(_port_modules())
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"regularizer.py", "incubate/__init__.py", "incubate/optimizer.py"} <= scanned
+
+
 def test_the_paged_serving_modules_are_among_them():
     assert {"paddle_tpu_torch.serving.kv_pages", "paddle_tpu_torch.serving.prefix_cache",
             "paddle_tpu_torch.serving.engine"} <= set(_port_modules())

@@ -46,6 +46,22 @@ def _digest(params):
     return h.hexdigest()
 
 
+# the optimizers of the rule cases: each rule's own hyperparameters, lr LR
+RULE_KW = {"Adamax": {}, "Adagrad": {}, "Adadelta": {"learning_rate": 0.5},
+           "RMSProp": {"centered": True, "momentum": 0.9}, "Lamb": {}, "Lars": {}}
+
+
+def make_opt(params, rule="AdamW", opt_kw=None):
+    """``rule``'s optimizer over ``params`` at lr LR (AdamW with weight decay
+    0.01; the others with RULE_KW's settings), plus ``opt_kw``."""
+    from paddle_tpu_torch import optimizer
+
+    kw = {"learning_rate": LR}
+    kw.update({"weight_decay": 0.01} if rule == "AdamW" else RULE_KW[rule])
+    kw.update(opt_kw or {})
+    return getattr(optimizer, rule)(parameters=params, **kw)
+
+
 def _model(state, **cfg_kw):
     from paddle_tpu_torch.models import GPTForPretraining, gpt_tiny, load_jax_state
 
@@ -53,19 +69,18 @@ def _model(state, **cfg_kw):
 
 
 def train(state, steps=STEPS, k=1, dtype="f32", ef=False, zero=False, unequal=False,
-          hcg=None, opt_kw=None, keep_engine=False):
+          hcg=None, opt_kw=None, keep_engine=False, rule="AdamW"):
     """A fresh model and engine through fleet.distributed_engine; ``steps``
     steps on the global batch. Returns the losses, the parameters, their
     digest, the counters' increments, the residual's size and max, and the
     warnings raised."""
     import paddle_tpu_torch as P
     from paddle_tpu_torch.distributed import TrainStepEngine, fleet
-    from paddle_tpu_torch.optimizer import AdamW
 
     P.set_flags({"grad_comm_dtype": dtype, "grad_comm_error_feedback": ef,
                  "zero_update": False, "grad_comm_chunk": 1024})
     m = _model(state)
-    opt = AdamW(LR, parameters=m.named_parameters(), weight_decay=0.01, **(opt_kw or {}))
+    opt = make_opt(m.named_parameters(), rule, opt_kw)
     if hcg is None:
         e = fleet.distributed_engine(m, opt, microbatches=k, zero_update=zero)
     else:
@@ -154,6 +169,14 @@ def case_fallbacks(state, rank):
     return out
 
 
+def case_rules(state, rank):
+    """Each rule of RULE_KW replicated and under ZeRO: the elementwise ones
+    engage it, Lamb and Lars warn and fall back."""
+    return {rule: {"replicated": _strip(train(state, rule=rule), rank),
+                   "zero": _strip(train(state, zero=True, rule=rule), rank)}
+            for rule in RULE_KW}
+
+
 def case_sharding_degree(state, rank):
     """sharding_degree = 2 (dp 1) runs the ZeRO update without the flag."""
     from paddle_tpu_torch.distributed.mesh import HybridCommunicateGroup
@@ -230,7 +253,8 @@ def case_collectives(state, rank):
 
 
 CASES = {"payloads": case_payloads, "zero_vs_replicated": case_zero_vs_replicated,
-         "fallbacks": case_fallbacks, "sharding_degree": case_sharding_degree,
+         "fallbacks": case_fallbacks, "rules": case_rules,
+         "sharding_degree": case_sharding_degree,
          "dropout": case_dropout, "divisibility": case_divisibility,
          "collectives": case_collectives}
 

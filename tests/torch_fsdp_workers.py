@@ -33,12 +33,11 @@ def _flags(**kw):
     P.set_flags(base)
 
 
-def _engine(state, fsdp=True, zero=False, k=1, opt_kw=None):
+def _engine(state, fsdp=True, zero=False, k=1, opt_kw=None, rule="AdamW"):
     from paddle_tpu_torch.distributed import fleet
-    from paddle_tpu_torch.optimizer import AdamW
 
     m = W._model(state)
-    opt = AdamW(W.LR, parameters=m.named_parameters(), weight_decay=0.01, **(opt_kw or {}))
+    opt = W.make_opt(m.named_parameters(), rule, opt_kw)
     return m, fleet.distributed_engine(m, opt, microbatches=k, zero_update=zero, fsdp=fsdp)
 
 
@@ -50,13 +49,14 @@ def _full(e):
 
 
 def train(state, steps=STEPS, k=1, dtype="f32", ef=False, fsdp=True, zero=False,
-          unequal=False, prefetch=2, opt_kw=None, flag=False):
+          unequal=False, prefetch=2, opt_kw=None, flag=False, rule="AdamW"):
     """A fresh FSDP (or other) engine's ``steps`` steps on the global batch:
     losses, gathered parameters and state, their digest, the counters'
     increments, the memory model, what each rank holds, warnings."""
     _flags(grad_comm_dtype=dtype, grad_comm_error_feedback=ef, fsdp_prefetch=prefetch,
            fsdp=flag)
-    m, e = _engine(state, fsdp=fsdp and not flag, zero=zero, k=k, opt_kw=opt_kw)
+    m, e = _engine(state, fsdp=fsdp and not flag, zero=zero, k=k, opt_kw=opt_kw,
+                   rule=rule)
     ids, labels = W.batch(unequal=unequal)
     c0 = W._counters()
     with warnings.catch_warnings(record=True) as caught:
@@ -123,6 +123,14 @@ def case_modes(state, rank):
             "clip_replicated": _strip(train(state, fsdp=False, opt_kw=clip), rank)}
 
 
+def case_rules(state, rank):
+    """Each rule of RULE_KW replicated and under FSDP: the elementwise ones
+    engage it, Lamb and Lars warn and fall back."""
+    return {rule: {"replicated": _strip(train(state, fsdp=False, rule=rule), rank),
+                   "fsdp": _strip(train(state, rule=rule), rank)}
+            for rule in W.RULE_KW}
+
+
 def case_restore_world4(state, rank, ckpt_dir):
     """The world-4 FSDP checkpoint restored at world 2 into FSDP, ZeRO and
     replicated engines: the restored parameters, then 3 more steps each."""
@@ -147,7 +155,7 @@ def case_restore_world4(state, rank, ckpt_dir):
 
 
 CASES = {"payloads": case_payloads, "vs_replicated": case_vs_replicated,
-         "prefetch": case_prefetch, "modes": case_modes}
+         "prefetch": case_prefetch, "modes": case_modes, "rules": case_rules}
 
 
 def _join(world):
