@@ -46,6 +46,26 @@ each:
    Printed: TTFT and admission-to-first-token by class (miss, partial and
    full hit), decode tokens/s, kv_cache_bytes, the most pages in use, the
    prefix hit rate, int8 against bf16 tokens, wall seconds.
+4b. serve_spec: speculative decoding on the same model (f32 and bf16 O1, 8
+   slots, spec_ladder (4,)), 16 requests of 64 new tokens at once: 12 greedy
+   prompts of 17-400 tokens, every other one speculating (one given an eos
+   that fires inside a window), and 4 sampled ones (T 0.8, top_k 50, top_p
+   0.95), two speculating. Six engines: no draft (the baseline); the
+   target as its own draft (self) and a 2-layer draft of the same width
+   from seed 1 (reject), contiguous and paged (64-token pages; the paged
+   runs submit the 128-token speculating prompt once more, a full-hit
+   replay seat); the self draft under bf16 O1. Hard: greedy tokens equal
+   the baseline's but at a near-tie of the scoring forward's logits
+   (LOGITS_TOL; bf16 BF16_TOL x max|logit|), the non-spec sampled ones
+   exactly (f32); the self draft's f32 greedy acceptance >= 0.9, the reject
+   draft's proposals >= 100; the spec counters equal the requests' counts,
+   proposals equal the windows' n_draft and accepted + bonus <= emitted;
+   paged: no page in use after the run, the replay seat speculated, the
+   zero page still zero, and the reject draft's rollbacks freed pages;
+   the draft cache in the target's cache dtype. Printed: decode tokens/s
+   against the baseline's, verify dispatches and target forwards per
+   emitted token, acceptance, verify dispatch and decode chunk ms (p50,
+   max), pages freed by rollback, wall seconds.
 5. profile: torch.profiler's CUDA kernel time in one scoring forward and in
    one decode chunk (contiguous, then paged), over their untraced wall time
    (the device's busy share), with the kernels that take the most time.
@@ -799,6 +819,22 @@ def _prompt_pages(eng, prompt):
     return pages
 
 
+def _first_divergence(model, prompt, want, got):
+    """Where two greedy token lists first part: (index, the two tokens'
+    logit gap, max |logit|) in the f32 scoring forward of the prompt and
+    their common prefix; None where they agree."""
+    j = next((n for n, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if j is None:
+        if len(want) != len(got):
+            raise AssertionError(f"token lists of {len(want)} and {len(got)} agree "
+                                 "up to the shorter one's end")
+        return None
+    prefix = np.concatenate([prompt, np.asarray(want[:j], np.int64)])
+    with torch.no_grad():
+        lg = model(torch.from_numpy(prefix)[None].cuda())[0, -1].float()
+    return j, abs(lg[want[j]].item() - lg[got[j]].item()), lg.abs().max().item()
+
+
 def phase_serve_paged(model):
     """GPT-2 124M served from the contiguous cache and from pages (bf16 and
     int8 pages under bf16 auto_cast, f32 pages without it), on one traffic
@@ -942,11 +978,7 @@ def phase_serve_paged(model):
         if amp != "f32":
             continue
         for i in diff:
-            j = next(n for n, (a, b) in enumerate(zip(want[i], got[i])) if a != b)
-            prefix = np.concatenate([work[i][1], np.asarray(want[i][:j], np.int64)])
-            with torch.no_grad():
-                lg = model(torch.from_numpy(prefix)[None].cuda())[0, -1].float()
-            gap = abs(lg[want[i][j]].item() - lg[got[i][j]].item())
+            j, gap, _ = _first_divergence(model, work[i][1], want[i], got[i])
             ties.append({"request": i, "class": classes[i], "position": j,
                          "tokens": [want[i][j], got[i][j]], "logit_gap": gap})
             if not gap <= LOGITS_TOL:
@@ -967,6 +999,207 @@ def phase_serve_paged(model):
          / out["paged_bf16"]["kv_cache_bytes"])
     if out["paged_int8"]["kv_cache_bytes"] > 0.55 * out["paged_bf16"]["kv_cache_bytes"]:
         raise AssertionError("serve_paged: int8 pool above 0.55x the bf16 pool")
+
+
+SPEC_EOS_REQUEST = 4     # serve_spec: a speculating greedy request given an eos from its
+                         # baseline stream, in the middle of a whole accepted window
+SPEC_REPEAT_REQUEST = 2  # ... the 128-token (two whole pages) speculating prompt the
+                         # paged engines submit once more: a full-hit replay seat
+SPEC_SELF_MIN_ACCEPT = 0.9   # self draft, f32 greedy: accepted / proposed (1.0 but
+                             # for ties of the window's and the draft's logits)
+SPEC_REJECT_MIN_PROPOSED = 100
+
+
+def _spec_traffic(vocab):
+    """serve_spec's 16 requests, (prompt, submit kwargs): 12 greedy prompts
+    of 17-400 tokens, every other one speculating, and 4 sampled ones, two
+    speculating."""
+    rng = np.random.RandomState(1)
+    work = [(rng.randint(0, vocab, (n,)).astype(np.int64),
+             {"temperature": 0.0, "speculate_k": 4 if i % 2 == 0 else 0})
+            for i, n in enumerate((17, 50, 128, 90, 160, 200, 230, 260, 300, 330, 370, 400))]
+    work += [(rng.randint(0, vocab, (n,)).astype(np.int64),
+              {"temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": 200 + i,
+               "speculate_k": 4 if i < 2 else 0})
+             for i, n in enumerate((40, 120, 240, 360))]
+    return work
+
+
+def _spec_eos(tokens):
+    """An eos for the baseline stream ``tokens``: the first token from index
+    6 on that sits in the middle of a window of 5 (k = 4 accepted + bonus,
+    after the prefill's token) and does not occur before; the stream cut
+    there."""
+    i = next(i for i in range(6, len(tokens))
+             if (i - 1) % 5 == 2 and tokens.index(tokens[i]) == i)
+    return tokens[i], tokens[:i + 1]
+
+
+def phase_serve_spec(model):
+    """Speculative decoding on GPT-2 124M: the engine without a draft (the
+    baseline), with the target itself as its draft (self: accepts all but
+    ties) and with a 2-layer draft of the same width (reject: rejects almost
+    all), contiguous and paged at f32, and the self draft under bf16 O1."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.serving import ServingEngine
+
+    counters = ("serving.verify_dispatches", "serving.spec.proposed",
+                "serving.spec.accepted", "serving.spec.bonus", "serving.steps",
+                "serving.tokens", "serving.draft_prefill_dispatches")
+    drafts = {None: None, "self": model,
+              "reject": GPTForPretraining(GPTConfig(num_layers=2), seed=1)}
+    engines = {   # name -> (autocast dtype, kv_layout, draft)
+        "baseline_f32": (None, "contiguous", None),
+        "self_f32": (None, "contiguous", "self"),
+        "reject_f32": (None, "contiguous", "reject"),
+        "paged_self_f32": (None, "paged", "self"),
+        "paged_reject_f32": (None, "paged", "reject"),
+        "self_bf16": ("bfloat16", "contiguous", "self"),
+    }
+    work = _spec_traffic(model.config.vocab_size)
+    greedy = [i for i, (_, kw) in enumerate(work) if kw["temperature"] == 0.0]
+    out, eos, ties = {}, None, []
+    for name, (amp, layout, dkey) in engines.items():
+        paged = layout == "paged"
+        with auto_cast(enable=amp is not None, dtype=amp or "bfloat16"):
+            eng = ServingEngine(model, slot_count=8, ladder=(64, 128, 256, 512),
+                                max_new_cap=64, steps_per_dispatch=8, kv_layout=layout,
+                                kv_page_tokens=64, draft_model=drafts[dkey],
+                                spec_ladder=(4,))
+        # each dispatch's wall time (both end in a device read) and the
+        # windows' n_draft, read where the engine passes them
+        times = {"verify": [], "decode": []}
+        drafted = [0]
+
+        def timed(fn, key):
+            def call(*args):
+                t = time.perf_counter()
+                res = fn(*args)
+                times[key].append((time.perf_counter() - t) * 1e3)
+                if key == "verify":
+                    drafted[0] += int(args[1].sum())
+                return res
+            return call
+
+        eng._verify = timed(eng._verify, "verify")
+        eng._decode_chunk = timed(eng._decode_chunk, "decode")
+        jobs = [(p, {k: v for k, v in kw.items() if dkey or k != "speculate_k"})
+                for p, kw in work]
+        if eos is not None:
+            jobs[SPEC_EOS_REQUEST][1]["eos_token_id"] = eos
+        if paged:
+            jobs.append(jobs[SPEC_REPEAT_REQUEST])
+        c0 = {c: monitor.stat(c).get() for c in counters}
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=64, **kw) for p, kw in jobs]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c: monitor.stat(c).get() - c0[c] for c in counters}
+        tokens = [[int(t) for t in r.tokens] for r in reqs]
+        if name == "baseline_f32":
+            eos, tokens[SPEC_EOS_REQUEST] = _spec_eos(tokens[SPEC_EOS_REQUEST])
+        ok = [r.done and (r.outcome == "length" and len(r.tokens) == 64
+                          or r.outcome == "eos" and r.eos_token_id is not None)
+              for r in reqs]
+        if not all(ok):
+            raise AssertionError(f"serve_spec {name}: not every request completed: {ok}")
+
+        want_dtype = torch.float32 if amp is None else torch.bfloat16
+        if eng._cache_dtype != want_dtype or (
+                dkey and eng._dkcs[0].dtype != eng._cache_dtype):
+            raise AssertionError(f"serve_spec {name}: cache {eng._cache_dtype}, draft cache "
+                                 f"{eng._dkcs[0].dtype if dkey else None}")
+        spec = [(r.spec_proposed, r.spec_accepted, r.spec_bonus) for r in reqs]
+        proposed, accepted, bonus = (sum(x) for x in zip(*spec))
+        if (counts["serving.spec.proposed"], counts["serving.spec.accepted"],
+                counts["serving.spec.bonus"]) != (proposed, accepted, bonus) \
+                or proposed != drafted[0] or accepted + bonus > eng.decode_tokens \
+                or any(a + b > len(r.tokens) for (_, a, b), r in zip(spec, reqs)) \
+                or any(p and not r.speculate_k for (p, _, _), r in zip(spec, reqs)):
+            raise AssertionError(f"serve_spec {name}: spec counts {counts}, requests' "
+                                 f"{(proposed, accepted, bonus)}, windows' n_draft "
+                                 f"{drafted[0]}, decode tokens {eng.decode_tokens}")
+        greedy_spec = [spec[i] for i in greedy if work[i][1]["speculate_k"]]
+        greedy_accept = (sum(a for _, a, _ in greedy_spec)
+                         / max(1, sum(p for p, _, _ in greedy_spec)))
+        if dkey == "self" and amp is None and not greedy_accept >= SPEC_SELF_MIN_ACCEPT:
+            raise AssertionError(f"serve_spec {name}: greedy acceptance {greedy_accept}")
+        if dkey == "reject" and not proposed >= SPEC_REJECT_MIN_PROPOSED:
+            raise AssertionError(f"serve_spec {name}: {proposed} proposals")
+        rec = {"engine": name, "requests": len(reqs),
+               "decode_tokens_per_s": eng.decode_tokens / eng.decode_seconds,
+               "decode_tokens": eng.decode_tokens, "decode_s": eng.decode_seconds,
+               "verify_dispatches": counts["serving.verify_dispatches"],
+               "decode_chunks": len(times["decode"]),
+               "target_forwards": counts["serving.steps"],
+               "verify_dispatches_per_token":
+                   counts["serving.verify_dispatches"] / eng.decode_tokens,
+               "target_forwards_per_token": counts["serving.steps"] / eng.decode_tokens,
+               "draft_prefills": counts["serving.draft_prefill_dispatches"],
+               "proposed": proposed, "accepted": accepted, "bonus": bonus,
+               "acceptance": accepted / proposed if proposed else None,
+               "greedy_acceptance": greedy_accept if greedy_spec and proposed else None,
+               "rollback_pages": eng.rollback_pages, "wall_s": wall}
+        for key, ms in times.items():
+            if ms:
+                rec[f"{key}_ms"] = {"p50": statistics.median(ms), "max": max(ms),
+                                    "n": len(ms)}
+        if paged:
+            st = eng.stats()
+            copy = reqs[-1]
+            if (st["pages_in_use"] != 0 or st["prefix"]["full_hits"] < 1
+                    or not (copy.prefix_hit and copy.tail_bucket == 0
+                            and copy.spec_proposed > 0)):
+                raise AssertionError(f"serve_spec {name}: pool after the run {st}, "
+                                     f"the repeated prompt {copy!r}")
+            if dkey == "reject" and not eng.rollback_pages > 0:
+                raise AssertionError(f"serve_spec {name}: truncate_row freed no page")
+            for pool in (*eng._pool_state["k"], *eng._pool_state["v"]):
+                if pool[0].any():
+                    raise AssertionError(f"serve_spec {name}: the zero page was written")
+            rec.update(pages_cached=st["pages_cached"], prefix=st["prefix"])
+        out[name] = (rec, tokens)
+        del eng, reqs
+        gc.collect()        # the timing wrappers hold the engine in a cycle
+        torch.cuda.empty_cache()
+
+    # greedy tokens against the baseline's but at a near-tie of the f32
+    # scoring forward (LOGITS_TOL; bf16: BF16_TOL x max|logit|); the
+    # non-spec sampled rows exactly (f32)
+    base = out["baseline_f32"][1]
+    for name, (rec, tokens) in out.items():
+        if name == "baseline_f32":
+            continue
+        bf16 = name.endswith("bf16")
+        pairs = [(i, i) for i in greedy]
+        if name.startswith("paged"):
+            pairs.append((len(tokens) - 1, SPEC_REPEAT_REQUEST))
+        for i, b in pairs:
+            div = _first_divergence(model, work[b][0], base[b], tokens[i])
+            if div is None:
+                continue
+            j, gap, top = div
+            tol = BF16_TOL * top if bf16 else LOGITS_TOL
+            ties.append({"engine": name, "request": i, "position": j,
+                         "tokens": [base[b][j], tokens[i][j]], "logit_gap": gap, "tol": tol})
+            if not gap <= tol:
+                raise AssertionError(f"serve_spec {name}: request {i} differs from the "
+                                     f"baseline at token {j} where the logits are {gap} "
+                                     f"apart (tol {tol})")
+        for i, (_, kw) in enumerate(work):
+            if kw["temperature"] and not kw["speculate_k"] and not bf16 \
+                    and tokens[i] != base[i]:
+                raise AssertionError(f"serve_spec {name}: non-spec sampled request {i} "
+                                     "differs from the baseline")
+    base_tps = out["baseline_f32"][0]["decode_tokens_per_s"]
+    for rec, _ in out.values():
+        emit(phase="serve_spec", **rec, tokens_per_s_over_baseline=rec["decode_tokens_per_s"]
+             / base_tps)
+    emit(phase="serve_spec", summary=True, eos_request=SPEC_EOS_REQUEST, eos_token=eos,
+         eos_after_tokens=len(base[SPEC_EOS_REQUEST]), near_ties=ties)
 
 
 def _launch_counts():
@@ -2813,11 +3046,32 @@ def phase_library_ops(ids):
 
 def phase_probe(build_seconds):
     """The LM-loss compile probe's port at its defaults (rows 4096, vocab
-    8192, hidden 768, bf16): each forward variant checked and timed."""
+    8192, hidden 768, bf16): each forward variant checked and timed, then
+    the library call of the same loss on the probe's inputs (row P's
+    library time)."""
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.ops.kernels import lm_loss as lm
     from paddle_tpu_torch.tools import lmloss_compile_probe as probe
 
-    return probe.run(build_seconds=build_seconds,
+    recs = probe.run(build_seconds=build_seconds,
                      emit=lambda rec: emit(phase="lmloss_compile_probe", **rec))
+    rows, vocab, hidden = 4096, 8192, 768        # the probe's defaults and inputs
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h = torch.randn(rows, hidden, device="cuda", generator=gen).bfloat16()
+    w = (torch.randn(vocab, hidden, device="cuda", generator=gen) * 0.05).bfloat16()
+    labels = torch.randint(0, vocab - 64, (rows,), device="cuda", generator=gen,
+                           dtype=torch.int32).long()
+    with torch.no_grad():
+        def library():
+            return tF.cross_entropy(tF.linear(h, w).float(), labels, reduction="none")
+
+        err = (library() - lm.lm_head_cross_entropy(h, w, labels.int())).abs().max().item()
+        emit(phase="lmloss_compile_probe", variant="library",
+             call="F.cross_entropy(F.linear(h, W).float(), labels, reduction='none')",
+             rows=rows, vocab=vocab, hidden=hidden, dtype="bfloat16",
+             library_ms=cuda_ms(library), max_abs_diff_vs_full=err)
+    return recs
 
 
 def main() -> int:
@@ -2846,6 +3100,7 @@ def main() -> int:
     phase_serve(model, ids, logits)
     del logits
     phase_serve_paged(model)
+    phase_serve_spec(model)
     phase_profile(model, ids, forward_ms)
     del model
     torch.cuda.empty_cache()

@@ -1,9 +1,12 @@
 """Serving (counterpart of paddle_tpu/serving/): bucketed prefill, slot or
-paged KV cache with a radix prefix cache, continuous batching.
+paged KV cache with a radix prefix cache, continuous batching, speculative
+decoding with a draft model.
 
 core.monitor counters: serving.prefill_dispatches, serving.prefix_lookups,
 serving.prefix_hits, serving.prefill_skips (the paged layout's full hits),
-serving.steps, serving.tokens, serving.requests.
+serving.steps, serving.tokens, serving.requests; speculative decoding's
+serving.draft_prefill_dispatches, serving.verify_dispatches and
+serving.spec.proposed / .accepted / .bonus.
 """
 from .bucketing import DEFAULT_LADDER, bucket_for, clip_ladder, resolve_bucket
 from .engine import Request, ServingEngine

@@ -30,6 +30,21 @@ continuous-batching decode (counterpart of paddle_tpu/serving/engine.py).
 - **Continuous batching.** A finished request retires its slot (and, paged,
   releases its pages) at the end of the chunk, and queued requests are
   prefilled into free slots between chunks.
+- **Speculative decoding** (``draft_model=``, ``spec_ladder=``,
+  ``submit(speculate_k=)``; reference engine.py:944-1980). A request that
+  opts in snaps its k up to a ladder rung, and the draft prefills its whole
+  prompt into the slot's row of the draft's own contiguous cache (in either
+  layout). While any active slot speculates, a dispatch is one verify: the
+  draft runs k + 1 single-token steps (the last only writes position
+  off + k, so a window accepted whole leaves no hole in the draft cache),
+  then the target scores ``[slots, k + 1]`` in one forward through its
+  cache, and ``spec_commit`` accepts the longest agreeing prefix (greedy)
+  or runs the leftover-distribution rule (sampled). Non-spec rows ride
+  along with an empty window and emit the token a decode step would.
+  Rejected rows are rewound by offset; on the paged layout the window
+  writes through a ``[slots, k + 1]`` mask and ``kv_pages.truncate_row``
+  frees the pages past the accepted frontier. The host reads a dispatch's
+  results back once.
 
 Weights are snapshotted at construction (a private copy of the model, in
 eval mode; the caller's model keeps its mode, so a model can be served and
@@ -37,9 +52,10 @@ then trained with its dropout), cast as ``generate`` casts them under the
 ``auto_cast`` active at construction (matrices in the matmul autocast dtype,
 the KV cache in the attention autocast dtype); every prefill and decode
 chunk runs under that captured context, wherever ``run()`` is called. Call
-``refresh_params()`` after updating the model. Not ported yet: speculative
-decoding, the replica router, drain/SIGTERM, the telemetry sinks and the
-executable registry (PyTorch runs eagerly; there is nothing to compile).
+``refresh_params()`` after updating the model (and the draft). Not ported
+yet: the replica router, drain/SIGTERM, the telemetry sinks (among them the
+speculative metrics and trace span) and the executable registry with
+``precompile`` (PyTorch runs eagerly; there is nothing to compile).
 """
 from __future__ import annotations
 
@@ -58,9 +74,87 @@ from ..core import flags, monitor
 from . import kv_pages
 from .bucketing import DEFAULT_LADDER, bucket_for, clip_ladder
 from .prefix_cache import RadixPrefixCache
-from .sampling import gumbel_noise, sample_tokens
+from .sampling import (filtered_probs, gumbel_noise, residual_sample,
+                       sample_tokens, spec_draws)
 
 _NO_EOS = -1
+
+
+def spec_commit(logits, props, off, tok, active, n_draft, eos, remaining,
+                max_seq_len: int, dlogits=None, temps=None, top_k=None,
+                top_p=None, uniforms=None, noise=None):
+    """Acceptance and commit of one verify window (reference
+    ``_spec_commit``, engine.py:1467-1561), on tensors of one device.
+
+    logits [S, k+1, V]: the target's window scores; column j predicts the
+    token at position off + j + 1. props [S, k]: the draft's proposals.
+    off, tok, active, n_draft, eos, remaining [S]: the slots' state
+    (n_draft = 0 on a non-spec row). Greedy when ``dlogits`` is None: accept
+    the longest prefix that agrees with the target's argmax and emit the
+    argmax row. Otherwise dlogits [S, k, V] are the draft's scores of its
+    proposals, temps / top_k / top_p [S] the rows' sampling, uniforms [S, k]
+    the ACCEPT_SALT draws and noise [S, k+1, V] the plain stream's Gumbel
+    noise of positions off + 1 .. off + k + 1 (sampling.spec_draws): accept
+    proposal j when u_j < p_t(d_j) / p_d(d_j) (exact agreement on rows at
+    temperature 0); the column after the accepted prefix takes the bonus
+    draw (``sample_tokens`` on the plain stream, the token a decode step
+    would draw) when the whole window was accepted or the row drafted
+    nothing, and the residual draw after a rejection. The commit cuts at the
+    first EOS, then at the budget; a row at max_seq_len stops.
+
+    Returns new_off, new_tok, new_active, new_remaining, emit [S, k+1],
+    m (tokens committed), a (proposals accepted), hit_eos."""
+    S, k = props.shape
+    dev = logits.device
+    cols = torch.arange(k + 1, device=dev)[None, :]
+    in_window = torch.arange(k, device=dev)[None, :] < n_draft[:, None]
+    tgt_greedy = torch.argmax(logits, dim=-1)                  # [S, k+1]
+    exact = tgt_greedy[:, :k] == props
+    if dlogits is None:
+        accept = exact & in_window
+        a = torch.cumprod(accept.long(), dim=1).sum(dim=1)
+        emit = tgt_greedy
+    else:
+        V = logits.shape[-1]
+        rep = (lambda x: torch.as_tensor(x, device=dev).repeat_interleave(k))
+        t_rep, k_rep, p_rep = rep(temps), rep(top_k), rep(top_p)
+        p_t = filtered_probs(logits[:, :k].reshape(S * k, V), t_rep, k_rep,
+                             p_rep).reshape(S, k, V)
+        p_d = filtered_probs(dlogits.reshape(S * k, V), t_rep, k_rep,
+                             p_rep).reshape(S, k, V)
+        pt_d = p_t.gather(-1, props[..., None])[..., 0]          # [S, k]
+        pd_d = p_d.gather(-1, props[..., None])[..., 0]
+        ratio = pt_d / pd_d.clamp_min(1e-38)
+        greedy_row = (temps == 0.0)[:, None]
+        accept = torch.where(greedy_row, exact, uniforms < ratio) & in_window
+        a = torch.cumprod(accept.long(), dim=1).sum(dim=1)
+        rows = torch.arange(S, device=dev)
+        greedy_fix = tgt_greedy[rows, a]
+        noise_a = noise[rows, a]                                 # [S, V]
+        bonus_tok = sample_tokens(logits[rows, a], noise_a, temps, top_k, top_p)
+        a_k = a.clamp(0, k - 1)
+        resampled = residual_sample(p_t[rows, a_k], p_d[rows, a_k], noise_a)
+        final_tok = torch.where(
+            temps == 0.0, greedy_fix,
+            torch.where(a >= n_draft, bonus_tok, resampled))
+        props_pad = torch.cat([props, props[:, -1:]], dim=1)
+        emit = torch.where(cols < a[:, None], props_pad, final_tok[:, None])
+    # cut at the first emitted EOS, then at the budget: where a sequential
+    # decode would stop
+    m_raw = a + 1
+    is_eos = ((eos[:, None] != _NO_EOS) & (emit == eos[:, None])
+              & (cols < m_raw[:, None]))
+    m = torch.where(is_eos.any(dim=1), torch.argmax(is_eos.long(), dim=1) + 1,
+                    m_raw)
+    m = torch.minimum(m, remaining) * active.long()
+    new_off = off + m
+    last_emit = emit.gather(1, (m - 1).clamp(0, k)[:, None])[:, 0]
+    new_tok = torch.where(active, last_emit, tok)
+    new_remaining = remaining - m
+    hit_eos = active & (eos != _NO_EOS) & (new_tok == eos)
+    new_active = (active & ~hit_eos & (new_remaining > 0)
+                  & (new_off < max_seq_len))
+    return new_off, new_tok, new_active, new_remaining, emit, m, a, hit_eos
 
 
 class Request:
@@ -69,7 +163,7 @@ class Request:
     _ids = itertools.count()
 
     def __init__(self, prompt_ids, max_new_tokens, temperature, top_k, top_p,
-                 eos_token_id, seed):
+                 eos_token_id, seed, speculate_k=0):
         self.id = next(Request._ids)
         self.prompt_ids = np.asarray(prompt_ids, np.int64).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
@@ -79,6 +173,13 @@ class Request:
         self.eos_token_id = (int(eos_token_id) if eos_token_id is not None
                              else None)
         self.seed = int(seed)
+        # speculative decoding (reference :82-89): > 0 drafts this many
+        # tokens a verify window (snapped up to a spec_ladder rung); the
+        # counts add up over the request's verify dispatches
+        self.speculate_k = int(speculate_k)
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_bonus = 0
         self.tokens: List[int] = []      # generated tokens (incl. eos if hit)
         self.prefix_hit = False          # paged: >= 1 page matched the trie
         self.shared_tokens = 0           # paged: prompt tokens served from
@@ -143,7 +244,9 @@ class ServingEngine:
     the paged layout takes kv_page_tokens (FLAGS_kv_page_tokens),
     kv_num_pages (default slots x max_pages + 2 reserved pages: the
     contiguous worst case, so the pool never runs out) and kv_cache_dtype
-    "auto" | "bf16" | "int8" (FLAGS_kv_cache_dtype).
+    "auto" | "bf16" | "int8" (FLAGS_kv_cache_dtype). draft_model (a
+    GPTForPretraining of the target's vocabulary, on its device) enables
+    speculative decoding, with windows of the spec_ladder rungs.
 
     One thread drives it: submit() is thread-safe, step()/run() must be called
     from one thread.
@@ -156,12 +259,33 @@ class ServingEngine:
                  kv_layout: str = "contiguous",
                  kv_page_tokens: Optional[int] = None,
                  kv_num_pages: Optional[int] = None,
-                 kv_cache_dtype: Optional[str] = None):
+                 kv_cache_dtype: Optional[str] = None,
+                 draft_model=None, spec_ladder: Sequence[int] = (4,)):
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
                 f"kv_layout must be 'contiguous' or 'paged', got {kv_layout!r}")
         cfg = model.config
         self.model = model      # its mode stays the caller's; the copy serves in eval
+        # speculative decoding (reference :189-208): acceptance compares
+        # token ids, so the vocabularies must agree
+        self.draft_model = draft_model
+        if draft_model is not None:
+            if draft_model.config.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_model.config.vocab_size} != target "
+                    f"vocab {cfg.vocab_size}: speculative acceptance "
+                    "compares token ids, the vocabularies must agree")
+            if draft_model.device != model.device:
+                raise ValueError(
+                    f"draft model on {draft_model.device}, target on "
+                    f"{model.device}: put both on one device")
+            self.spec_ladder = tuple(sorted(int(k) for k in spec_ladder))
+            if not self.spec_ladder or min(self.spec_ladder) < 1:
+                raise ValueError(
+                    f"spec_ladder must be non-empty positive rungs, got "
+                    f"{spec_ladder!r}")
+        else:
+            self.spec_ladder = ()
         self.kv_layout = kv_layout
         self.slot_count = int(slot_count)
         if self.slot_count < 1:
@@ -187,13 +311,15 @@ class ServingEngine:
         # (decode tokens/s = decode_tokens / decode_seconds)
         self.decode_seconds = 0.0
         self.decode_tokens = 0
+        # pages kv_pages.truncate_row freed after verify windows (paged)
+        self.rollback_pages = 0
         # private hook (chip_smoke.py): called as hook(request, logits [1, V])
         # after every prefill dispatch
         self._prefill_hook = None
         # the reference's executables are traced under the context active
         # when they are built; here every prefill and decode runs under it
         self._amp = amp_ctx()
-        self._net = None
+        self._net = self._dnet = None
         self.refresh_params()
 
         nh = cfg.num_heads
@@ -226,6 +352,18 @@ class ServingEngine:
                                      device=self.device)
                          for _ in range(cfg.num_layers)]
             self._vcs = [torch.zeros_like(kc) for kc in self._kcs]
+        # the draft's cache is contiguous in both layouts (reference
+        # :296-309): a rejected row rewinds by offset alone, stale rows past
+        # it are masked and rewritten before any query reads them
+        if draft_model is not None:
+            dcfg = draft_model.config
+            dnh, dhd = dcfg.num_heads, dcfg.hidden_size // dcfg.num_heads
+            self._dkcs = [torch.zeros((S, T, dnh, dhd), dtype=self._cache_dtype,
+                                      device=self.device)
+                          for _ in range(dcfg.num_layers)]
+            self._dvcs = [torch.zeros_like(kc) for kc in self._dkcs]
+        else:
+            self._dkcs = self._dvcs = None
 
         # host-side per-slot state (tiny arrays, staged once per chunk)
         self._offsets = np.zeros(S, np.int64)
@@ -237,31 +375,55 @@ class ServingEngine:
         self._eos = np.full(S, _NO_EOS, np.int64)
         self._remaining = np.zeros(S, np.int64)
         self._seeds = np.zeros(S, np.int64)
+        # per-slot window rung, 0 = plain decode (reference :321-324)
+        self._spec_k = np.zeros(S, np.int64)
         self._slot_req: List[Optional[Request]] = [None] * S
 
     # ------------------------------------------------------------- params
     def refresh_params(self) -> None:
-        """Re-snapshot the model's weights into the engine's private copy,
-        cast by ``GPTForPretraining._decode_weights`` under the ``auto_cast``
-        captured at construction (reference engine.py:345-374)."""
+        """Re-snapshot the model's (and the draft's) weights into the
+        engine's private copies, cast by ``GPTForPretraining._decode_weights``
+        under the ``auto_cast`` captured at construction (reference
+        engine.py:345-374)."""
         if self._net is None:
             self._net = copy.deepcopy(self.model)
-        self._net.eval()
         with amp_scope(self._amp):
             weights, self._cache_dtype = self.model._decode_weights()
-        with torch.no_grad():
-            for name, p in self._net.named_parameters():
-                p.data = weights[name].clone()
+        self._load(self._net, weights)
+        if self.draft_model is not None:
+            if self._dnet is None:
+                self._dnet = copy.deepcopy(self.draft_model)
+            with amp_scope(self._amp):
+                dweights, _ = self.draft_model._decode_weights()
+            self._load(self._dnet, dweights)
+
+    @staticmethod
+    @torch.no_grad()
+    def _load(net, weights) -> None:
+        net.eval()
+        for name, p in net.named_parameters():
+            p.data = weights[name].clone()
 
     # ------------------------------------------------------------- public
     def submit(self, prompt_ids, max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-               eos_token_id=None, seed: int = 0) -> Request:
+               eos_token_id=None, seed: int = 0,
+               speculate_k: int = 0) -> Request:
         """Enqueue a request; returns the live Request handle (tokens fill
         in as the engine runs). max_new_tokens is clamped to the engine cap
-        and to the cache room left after the prompt's bucket."""
+        and to the cache room left after the prompt's bucket. speculate_k >
+        0 opts the request into speculative decoding (snapped up to a
+        spec_ladder rung; needs a draft model)."""
+        if speculate_k:
+            if speculate_k < 0:
+                raise ValueError(
+                    f"speculate_k must be >= 0, got {speculate_k}")
+            if self.draft_model is None:
+                raise ValueError(
+                    "speculate_k > 0 needs a draft model: construct the "
+                    "engine with draft_model=")
         req = Request(prompt_ids, max_new_tokens, temperature, top_k, top_p,
-                      eos_token_id, seed)
+                      eos_token_id, seed, speculate_k)
         plen = len(req.prompt_ids)
         req.bucket = bucket_for(plen, self.ladder)  # raises if oversize
         room = self.max_seq_len - req.bucket
@@ -275,12 +437,13 @@ class ServingEngine:
 
     def step(self) -> int:
         """Admit queued requests into free slots (bucketed prefill), then
-        run ONE decode chunk for all slots. Returns the number of live
-        slots after the step (0 = fully drained)."""
+        run ONE dispatch for all slots: a verify window while an active slot
+        speculates, else a decode chunk. Returns the number of live slots
+        after the step (0 = fully drained)."""
         with amp_scope(self._amp):
             self._admit()
             if self._active.any():
-                self._decode_step()
+                self._advance_step()
         return int(self._active.sum())
 
     def run(self, max_steps: Optional[int] = None) -> List[Request]:
@@ -320,6 +483,8 @@ class ServingEngine:
             "kv_layout": self.kv_layout,
             "kv_cache_bytes": self.kv_cache_bytes(),
         }
+        if self.draft_model is not None:
+            out["spec_ladder"] = self.spec_ladder
         if self.kv_layout == "paged":
             out.update({
                 "page_tokens": self.page_tokens,
@@ -425,6 +590,28 @@ class ServingEngine:
         self._remaining[slot] = remaining
         self._seeds[slot] = req.seed
         self._slot_req[slot] = req
+        self._seat_spec(req, slot)
+
+    def _seat_spec(self, req: Request, slot: int) -> None:
+        """Speculative set-up at every seating (reference :983-1022): a
+        reused slot drops its predecessor's rung; a speculating request
+        snaps its k up to a ladder rung and the draft prefills the whole
+        prompt into the slot's draft row (also for a paged full-hit replay
+        seat: the draft cache shares no prefix, and the verify's rewrite of
+        position plen - 1 writes the same values)."""
+        if req.speculate_k <= 0 or self.draft_model is None:
+            self._spec_k[slot] = 0
+            return
+        self._spec_k[slot] = next(
+            (r for r in self.spec_ladder if r >= req.speculate_k),
+            self.spec_ladder[-1])
+        monitor.stat("serving.draft_prefill_dispatches").increase()
+        bucket, plen = req.bucket, len(req.prompt_ids)
+        padded = torch.zeros((1, bucket), dtype=torch.long)
+        padded[0, :plen] = torch.from_numpy(req.prompt_ids)
+        caches = [(kc[slot:slot + 1, :bucket], vc[slot:slot + 1, :bucket], 0)
+                  for kc, vc in zip(self._dkcs, self._dvcs)]
+        self._dnet.gpt(padded.to(self.device), caches=caches)
 
     def _after_first_token(self, req: Request, slot: int, first: int) -> None:
         """Record the prefill's token; retire the request at once when it is
@@ -565,23 +752,26 @@ class ServingEngine:
         self._after_first_token(req, slot, first)
         return True
 
-    def _prealloc_decode_pages(self) -> None:
-        """Between chunks: make sure every active slot's table row covers
-        the positions the next chunk may write (the table is fixed within a
-        chunk). Evicts LRU cached prefixes under pressure; admission
-        reservations guarantee success."""
+    def _prealloc_pages(self, ahead) -> None:
+        """Between dispatches: make sure every active slot's table row
+        covers the positions the next dispatch may write, off .. off +
+        ahead[i] (a replay slot's position off goes to the scratch page; the
+        table is fixed within a dispatch). A decode chunk writes
+        steps_per_dispatch positions; a verify n_draft + 1, n_draft <=
+        remaining - 1 (reference :1785-1798). Evicts LRU cached prefixes
+        under pressure; admission reservations guarantee success."""
         pt = self.page_tokens
+        ahead = np.broadcast_to(ahead, self._active.shape)
         for i in np.nonzero(self._active)[0]:
             first = int(self._offsets[i]) + (1 if self._replay[i] else 0)
-            last = min(int(self._offsets[i]) + self.steps_per_dispatch,
-                       self.max_seq_len) - 1
+            last = min(int(self._offsets[i]) + int(ahead[i]), self.max_seq_len - 1)
             for pi in range(first // pt, last // pt + 1):
                 if self._tables[i, pi] == 0:
                     if not self._prefix.ensure_free(1):
                         raise kv_pages.PoolExhausted(
-                            f"decode needs a page for slot {i} and none is "
-                            "free or evictable (reservation accounting "
-                            "violated)")
+                            f"the next dispatch needs a page for slot {i} and "
+                            "none is free or evictable (reservation "
+                            "accounting violated)")
                     page = self._pool.alloc()
                     self._tables[i, pi] = page
                     self._slot_pages[i].append(page)
@@ -654,15 +844,11 @@ class ServingEngine:
         t0 = time.perf_counter()
         try:
             if paged:
-                self._prealloc_decode_pages()
+                self._prealloc_pages(self.steps_per_dispatch - 1)
             (toks, was_active, hits, off, tok, active, remaining,
              *replay) = self._decode_chunk(greedy_only)
         except Exception:
-            # a failed dispatch takes every in-flight request with it
-            for slot in np.nonzero(self._active)[0]:
-                req = self._slot_req[slot]
-                if req is not None and req.done_ts is None:
-                    self._finish(req, outcome="error")
+            self._fail_active()
             raise
         self._offsets = off.copy()
         self._last_tok = tok.copy()
@@ -693,7 +879,184 @@ class ServingEngine:
         self._count_tokens(emitted)
         monitor.stat("serving.steps").increase(n_inner)
 
+    # ---- speculative decoding: dispatch choice and verify ----------------
+    def _spec_dispatch_rung(self) -> int:
+        """The window of the next dispatch (reference :1742-1772): the
+        largest rung among active speculating slots, or 0 for a decode
+        chunk. The contiguous layout falls back while an active slot sits on
+        row T - 1: the window's writes would collapse onto that row."""
+        if self.draft_model is None or not self._active.any():
+            return 0
+        rungs = self._spec_k[self._active]
+        if not rungs.any():
+            return 0
+        if (self.kv_layout != "paged"
+                and int(self._offsets[self._active].max()) >= self.max_seq_len - 1):
+            return 0
+        return int(rungs.max())
+
+    def _advance_step(self) -> None:
+        """One dispatch: a verify window while an active slot speculates
+        (non-spec slots ride along with an empty window), else a decode
+        chunk (reference :1774-1783)."""
+        k = self._spec_dispatch_rung()
+        if k:
+            self._verify_step(k)
+        else:
+            self._decode_step()
+
+    @torch.no_grad()
+    def _verify(self, k: int, n_draft: np.ndarray, greedy_only: bool) -> np.ndarray:
+        """One verify dispatch (reference ``_build_verify`` and
+        ``_build_verify_paged``, :1563-1740): k + 1 draft steps, one [S,
+        k+1] target window, ``spec_commit``. Returns, from one device read,
+        int64 [S, k+1 + 8]: emit, then m, a, hit_eos, new_off, new_tok,
+        new_active, new_remaining, new_replay."""
+        dev = self.device
+        S = self.slot_count
+        vocab = self._net.config.vocab_size
+        paged = self.kv_layout == "paged"
+
+        def put(a):
+            return torch.as_tensor(a).to(dev)
+
+        off, tok, active = put(self._offsets), put(self._last_tok), put(self._active)
+        remaining, eos, nd = put(self._remaining), put(self._eos), put(n_draft)
+        temps, topk, topp = put(self._temps), put(self._topk), put(self._topp)
+        if not greedy_only:
+            dnoise, uniforms, pnoise = (t.to(dev) for t in spec_draws(
+                self._seeds, self._offsets, n_draft,
+                self._active & (self._temps != 0.0), k, vocab))
+        # the draft: k + 1 steps over its contiguous cache; the last only
+        # writes position off + k (its proposal is never used), so a window
+        # accepted whole leaves the draft cache dense up to the new frontier
+        cur, props, dlogits = tok, [], []
+        for i in range(k + 1):
+            caches = [(kc, vc, off + i) for kc, vc in zip(self._dkcs, self._dvcs)]
+            h, _ = self._dnet.gpt(cur[:, None], caches=caches)
+            if i == k:
+                break
+            dl = self._dnet._head_logits(h[:, 0])                 # [S, V]
+            if greedy_only:
+                cur = torch.argmax(dl, dim=-1)
+            else:
+                cur = sample_tokens(dl, dnoise[i], temps, topk, topp)
+                dlogits.append(dl)
+            props.append(cur)
+        props = torch.stack(props, dim=1)                          # [S, k]
+
+        # the target: one [S, k + 1] window through its cache
+        win = torch.cat([tok[:, None], props], dim=1)
+        if paged:
+            tables = self._pool_state["tables"]
+            tables.copy_(torch.from_numpy(self._tables))
+            replay = put(self._replay)
+            cols = torch.arange(k + 1, device=dev)[None, :]
+            # columns past a row's window have no pages: the scratch page; a
+            # replay row's column 0 re-derives a shared prompt position
+            wmask = (active[:, None] & (cols <= nd[:, None])
+                     & ~(replay[:, None] & (cols == 0)))
+            caches = kv_pages.layer_views(
+                self._pool_state, tables.long(), off, wmask, self.page_tokens,
+                self._cache_dtype)
+        else:
+            caches = [(kc, vc, off) for kc, vc in zip(self._kcs, self._vcs)]
+        h, _ = self._net.gpt(win, caches=caches)
+        logits = self._net._head_logits(
+            h.reshape(S * (k + 1), -1)).reshape(S, k + 1, -1)
+        if greedy_only:
+            out = spec_commit(logits, props, off, tok, active, nd, eos,
+                              remaining, self.max_seq_len)
+        else:
+            out = spec_commit(logits, props, off, tok, active, nd, eos,
+                              remaining, self.max_seq_len,
+                              dlogits=torch.stack(dlogits, dim=1), temps=temps,
+                              top_k=topk, top_p=topp, uniforms=uniforms,
+                              noise=pnoise)
+        new_off, new_tok, new_active, new_remaining, emit, m, a, hits = out
+        new_replay = (replay & ~active) if paged else torch.zeros_like(active)
+        state = torch.stack([m, a, hits.long(), new_off, new_tok,
+                             new_active.long(), new_remaining,
+                             new_replay.long()], dim=1)
+        return torch.cat([emit, state], dim=1).cpu().numpy()
+
+    def _verify_step(self, k: int) -> None:
+        """The host half of a verify dispatch (reference :1800-1945): the
+        windows, then each slot's tokens, its spec counts, the paged
+        rollback past the accepted frontier, and the retirements."""
+        greedy_only = not self._temps[self._active].any()
+        paged = self.kv_layout == "paged"
+        # the window, clamped so it never outruns the budget (paged writes
+        # stay inside the admission reservation) or the cache end; 0 on
+        # non-spec rows, which then emit one decode token (reference
+        # :1821-1826)
+        n_draft = np.minimum(self._spec_k, np.maximum(self._remaining - 1, 0))
+        n_draft = np.minimum(
+            n_draft, np.maximum(self.max_seq_len - 2 - self._offsets, 0))
+        n_draft = np.where(self._active, n_draft, 0)
+        active_before = self._active.copy()
+        t0 = time.perf_counter()
+        try:
+            if paged:
+                self._prealloc_pages(n_draft)
+            res = self._verify(k, n_draft, greedy_only)
+        except Exception:
+            self._fail_active()
+            raise
+        emit = res[:, :k + 1]
+        m, a, hits, off, tok, active, remaining, replay = res[:, k + 1:].T
+        self._offsets = off.copy()
+        self._last_tok = tok.copy()
+        self._active = active.astype(bool)
+        self._remaining = remaining.copy()
+        if paged:
+            self._replay = replay.astype(bool)
+        self._steps += 1
+        now = time.perf_counter()
+        self.decode_seconds += now - t0    # the dispatch ends in a device read
+        emitted = proposed = accepted = bonus = 0
+        for slot in np.nonzero(active_before)[0]:
+            req = self._slot_req[slot]
+            ms, acc_all = int(m[slot]), int(a[slot])
+            req.tokens.extend(int(t) for t in emit[slot, :ms])
+            if req.first_token_ts is None:   # a replay seat's first token
+                req.first_token_ts = now
+            nd, acc, bn = int(n_draft[slot]), min(ms, acc_all), int(ms > acc_all)
+            req.spec_proposed += nd
+            req.spec_accepted += acc
+            req.spec_bonus += bn
+            emitted += ms
+            proposed += nd
+            accepted += acc
+            bonus += bn
+            if paged:
+                # the pages wholly past the accepted frontier hold only
+                # rejected rows: always the slot's own
+                self.rollback_pages += kv_pages.truncate_row(
+                    self._tables, self._slot_pages[slot], self._prefix.release,
+                    slot, int(self._offsets[slot]) // self.page_tokens + 1)
+            if not self._active[slot]:
+                req.finish_reason = "eos" if hits[slot] else "length"
+                self._slot_req[slot] = None
+                if paged:
+                    self._release_slot(slot)
+                self._finish(req, now)
+        self.decode_tokens += emitted
+        self._count_tokens(emitted)
+        monitor.stat("serving.steps").increase()
+        monitor.stat("serving.verify_dispatches").increase()
+        monitor.stat("serving.spec.proposed").increase(proposed)
+        monitor.stat("serving.spec.accepted").increase(accepted)
+        monitor.stat("serving.spec.bonus").increase(bonus)
+
     # ---- bookkeeping ---------------------------------------------------
+    def _fail_active(self) -> None:
+        """A failed dispatch takes every in-flight request with it."""
+        for slot in np.nonzero(self._active)[0]:
+            req = self._slot_req[slot]
+            if req is not None and req.done_ts is None:
+                self._finish(req, outcome="error")
+
     @staticmethod
     def _count_tokens(n: int) -> None:
         if n:

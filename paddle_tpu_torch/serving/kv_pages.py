@@ -31,7 +31,8 @@ dequantized in f32 inside the read.
 
 Host side, :class:`PagePool` is a refcounting block allocator (free list +
 LRU-evictable set of refcount-zero pages still referenced by the radix
-prefix cache, prefix_cache.py).
+prefix cache, prefix_cache.py); :func:`truncate_row` frees a slot's pages
+past the accepted frontier after a speculative verify window.
 """
 from __future__ import annotations
 
@@ -233,6 +234,34 @@ def update_and_read(cache: PagedLayerCache, k, v):
         cache.k_pool, cache.v_pool, table, cache.offset + s, cache.write_mask,
         pt, cache.compute_dtype, cache.k_scale, cache.v_scale)
     return kc, vc, new_cache
+
+
+def truncate_row(tables, slot_pages: List[int], release, slot: int,
+                 keep_pages: int) -> int:
+    """Speculative decoding's rollback of a paged slot (reference
+    kv_pages.py:261): drop the page-table entries from ``keep_pages`` on and
+    return their pages to the pool.
+
+    After a verify window is partly rejected the slot's offset rewinds to
+    the accepted frontier; the pages past ``keep_pages`` (the page holding
+    the next write position, plus one) hold only rejected rows. They are
+    always the slot's own: shared prefix pages and published prompt pages
+    lie below ``new_off // page_tokens``, generation starting at the prompt
+    length, so releasing them through the prefix cache frees them.
+
+    tables: host [slots, max_pages] int32; slot_pages: the slot's page list
+    (mutated); release: RadixPrefixCache.release. Returns the pages freed.
+    """
+    freed = 0
+    for pi in range(keep_pages, tables.shape[1]):
+        page = int(tables[slot, pi])
+        if page == ZERO_PAGE:
+            continue
+        tables[slot, pi] = ZERO_PAGE
+        slot_pages.remove(page)
+        release(page)
+        freed += 1
+    return freed
 
 
 def make_pool_state(num_layers: int, num_pages: int, page_tokens: int,

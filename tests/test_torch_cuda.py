@@ -73,7 +73,7 @@ import torch
 
 from paddle_tpu_torch.amp import auto_cast
 from paddle_tpu_torch.distributed import TrainStepEngine
-from paddle_tpu_torch.models import GPTForPretraining, gpt_tiny
+from paddle_tpu_torch.models import GPTConfig, GPTForPretraining, gpt_tiny
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import layer_norm as ln
 from paddle_tpu_torch.ops.kernels import lm_loss as lm
@@ -602,6 +602,53 @@ def test_engine_on_card_gives_the_cpu_engine_tokens(cuda, layout):
         assert reqs[6].prefix_hit == bool(layout)
         out.append([r.tokens for r in reqs])
     assert out[0] == out[1]
+
+
+SPEC_TIE_TOL = 2e-3   # chip_smoke.py's LOGITS_TOL: f32 logits, card vs CPU
+
+
+@pytest.mark.parametrize("layout", [{}, {"kv_layout": "paged", "kv_page_tokens": 8}],
+                         ids=["contiguous", "paged"])
+def test_spec_engine_on_card_gives_the_cpu_spec_engine_tokens(cuda, layout):
+    """f32 gpt_tiny with a 1-layer draft, speculating and plain requests
+    mixed, on the card and on the CPU: the same greedy tokens and spec
+    counts. The card's [slots, k + 1] verify window and [slots, 1] draft
+    steps run other GEMM shapes than the CPU's, so a request may part at a
+    near-tie: where the two logits of the CPU model's scoring forward of the
+    common prefix are at most SPEC_TIE_TOL apart (chip_smoke.py's serve_spec
+    allows the same), and only there; the tokens after it are not
+    compared."""
+    cfg = gpt_tiny()
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(0, 1024, (n,)).astype(np.int64) for n in (5, 30, 9, 17, 3, 16)]
+    prompts.append(prompts[-1])
+    out = []
+    for device in ("cuda", "cpu"):
+        model = GPTForPretraining(cfg, device=device, seed=4)
+        draft = GPTForPretraining(GPTConfig(vocab_size=1024, hidden_size=128, num_layers=1,
+                                            num_heads=4, max_seq_len=128),
+                                  device=device, seed=5)
+        eng = ServingEngine(model, slot_count=3, ladder=(8, 16, 32), max_new_cap=16,
+                            steps_per_dispatch=4, draft_model=draft, spec_ladder=(4,),
+                            **layout)
+        reqs = [eng.submit(p, max_new_tokens=12, temperature=0.0,
+                           speculate_k=4 if i % 2 == 0 else 0)
+                for i, p in enumerate(prompts)]
+        eng.run()
+        assert all(r.done for r in reqs) and reqs[0].spec_proposed > 0
+        assert reqs[6].prefix_hit == bool(layout)
+        out.append(reqs)
+    cpu_model = model
+    for got, want in zip(*out):
+        if got.tokens == want.tokens:
+            assert (got.spec_proposed, got.spec_accepted, got.spec_bonus) == (
+                want.spec_proposed, want.spec_accepted, want.spec_bonus)
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(got.tokens, want.tokens)) if a != b)
+        prefix = np.concatenate([want.prompt_ids, np.asarray(want.tokens[:j], np.int64)])
+        with torch.no_grad():
+            lg = cpu_model(torch.from_numpy(prefix)[None])[0, -1]
+        assert abs(lg[got.tokens[j]] - lg[want.tokens[j]]).item() <= SPEC_TIE_TOL
 
 
 def _train_step(device, ids, labels, amp_dtype=None):
