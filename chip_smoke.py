@@ -119,6 +119,24 @@ each:
    and FSDP's allocated bytes after the steps past one rank; step ms,
    tokens/s per chip, peaks and bytes held after the steps, payload
    bytes, the f32 payload's all_reduce time and bus bandwidth.
+7d. dp_eager: the eager data-parallel entry points (phase_dp_eager) at one
+   rank a card, in processes of the port's spawn with a deadline of their
+   own: GPT-2 124M on each rank's rows of the global ids [8, 1024], 1 + 3
+   steps a run of fleet.init -> fleet.distributed_model (DataParallel past
+   one rank) -> fleet.distributed_optimizer (the meta chain in
+   HybridParallelOptimizer) -> loss.backward(); opt.step(); opt.clear_grad():
+   f32, bf16 through strategy.amp, strategy.lamb, gradient merge (k 2, avg),
+   dgc (sparsity 0.999), fp16_allreduce, group_sharded_parallel os_g without
+   and with offload; the engine's step (f32, bf16 through strategy.amp, 2
+   microbatches) as the yardstick. Hard: f32 eager and gradient merge are
+   the engine's step (bit for bit at world 1, within 1e-5 x max(1, max|p|)
+   past it); offload is the run without it bit for bit, with its state in
+   pinned host memory and 0.8 x 8n fewer bytes on the card; Lamb swapped in;
+   DGC kept >= k entries of every gradient; every loss finite and falling;
+   12 launches a step of each flash kernel on its dtype's route; past one
+   rank one collective a Reducer bucket a step and the same weights on
+   every rank. Printed: step ms and tokens/s per card of eager and engine,
+   peaks and after-step bytes, buckets and collectives a step.
 7c. ckpt: checkpoints (distributed/elastic.py) at GPT-2 124M, bf16
    auto_cast: 4 steps with async saves every 2; a fresh engine restores
    step 2 and takes steps 3 and 4 bit for bit (losses, parameters,
@@ -166,7 +184,7 @@ each:
    probe's defaults, checked and timed, with ptxas's registers and spills.
 10. the ``kernels`` line: every ported kernel with the path that launched
    it (the training main path's timed steps, the train_rules runs, the dp
-   phase's runs on rank 0 and the ckpt phase's steps, the f32 steps, scoring, the
+   and dp_eager phases' runs on rank 0 and the ckpt phase's steps, the f32 steps, scoring, the
    bench's gpt_1p3b run for the d = 128 rows, or a library_ops pass; the flash backward and the LM-loss backward once for
    each dtype, the route in ``kernel_route``), its
    launches there and its numbers from the kernel_vs_plain phases at that
@@ -2178,6 +2196,348 @@ def phase_dp(world=None):
     return launches
 
 
+DP_EAGER_STEPS = 3          # timed steps of each dp_eager run, after 1 warm-up
+DP_EAGER_TIMEOUT_S = 480    # the dp_eager phase's ranks, all runs
+DP_EAGER_TOL = 1e-5         # eager vs the engine (f32): losses rtol, and past one rank
+                            # each parameter within this x max(1, max|p|) (the Reducer's
+                            # per-bucket all_reduce sums in another order than the
+                            # engine's one flat reduce; at world 1 bit for bit)
+DP_EAGER_OFFLOAD_SHARE = 0.8  # offload: card bytes after the steps below the run without
+                              # offload by this share of AdamW's 8 x n bytes of state
+DP_EAGER_DGC_SPARSITY = 0.999
+DP_EAGER_BF16_RUNS = ("bf16_amp", "fp16_allreduce", "os_g", "os_g_offload", "engine_bf16")
+
+
+def _chain(opt):
+    """The optimizers of a fleet.distributed_optimizer chain, outermost first."""
+    out = [opt]
+    while hasattr(out[-1], "_inner_opt") or hasattr(out[-1], "_optim"):
+        o = out[-1]
+        out.append(o._inner_opt if hasattr(o, "_inner_opt") else o._optim)
+    return out
+
+
+def dp_eager_worker(out_dir):
+    """One rank of the dp_eager phase (started by the port's spawn): GPT-2
+    124M through the eager entry points, fleet.init -> fleet.distributed_model
+    -> fleet.distributed_optimizer -> loss.backward(); opt.step();
+    opt.clear_grad(), on this rank's rows of the global ids [8, 1024]; each
+    run of phase_dp_eager's list. Writes its results to
+    ``out_dir/rank<r>.json``."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed import collective, fleet, group_sharded_parallel
+    from paddle_tpu_torch.distributed.fleet import meta_optimizers as meta
+    from paddle_tpu_torch.distributed.fleet import utils as futils
+    from paddle_tpu_torch.distributed.meta_parallel import Reducer
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    torch.cuda.set_device(int(os.environ["FLAGS_selected_gpus"]))
+    cfg = GPTConfig()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (8, 1024)).astype(np.int64)).cuda()
+    labels = torch.roll(ids, -1, 1)
+    ids_r, labels_r = ids.chunk(world)[rank], labels.chunk(world)[rank]
+    half = ids_r.shape[0] // 2
+    out, kept = {"world": world, "rank": rank}, {}
+
+    def strategy(**kw):
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs = {"dp_degree": world, "mp_degree": 1}
+        for k, v in kw.items():
+            setattr(s, k, v)
+        fleet.init(is_collective=True, strategy=s)
+        return s
+
+    def fresh():
+        futils._reducer_cache.clear()   # its Reducers hold the last run's parameters
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = GPTForPretraining(cfg, seed=0)
+        return model, AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                            weight_decay=0.01)
+
+    def reducer_of(model):
+        mine = {id(p) for p in model.parameters()}
+        return next((r for slots in futils._reducer_cache.values() for r in slots.values()
+                     if r.params and id(r.params[0]) in mine), None)
+
+    def drive(name, model, step, ctx_of=contextlib.nullcontext, extra=None):
+        """1 warm-up and DP_EAGER_STEPS timed calls of ``step``; the flash
+        launches of the timed calls."""
+        losses, step_ms, calls = [], [], []
+        for i in range(1 + DP_EAGER_STEPS):
+            if i == 1:
+                red = reducer_of(model)
+                calls.append(red.n_collectives if red is not None else 0)
+                _reset_launch_counts()
+            t0 = time.perf_counter()
+            with ctx_of():
+                losses.append(step())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {"counts": _launch_counts(), "fwd": dict(fa.launches_by_route),
+                    "bwd": _bwd_routes()}
+        red = reducer_of(model)
+        calls.append(red.n_collectives if red is not None else 0)
+        # the losses' mean over the ranks (the engine's loss), one collective
+        mean = torch.tensor(losses, dtype=torch.float64, device=ids.device)
+        collective.all_reduce(mean)
+        params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+        out[name] = {
+            "losses": losses, "mean_losses": (mean / world).tolist(), "step_ms": step_ms,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "allocated_after_bytes": torch.cuda.memory_allocated(),
+            "launches": launches,
+            "collectives_per_step": (calls[1] - calls[0]) / DP_EAGER_STEPS,
+            "buckets": len((red or Reducer(list(model.parameters())))._buckets),
+            "digest": _digest(params), "n": sum(p.numel() for p in params.values()),
+            **(extra or {})}
+        if name in ("f32", "engine_f32", "gm", "engine_k2", "os_g", "os_g_offload"):
+            kept[name] = params
+
+    def eager(name, flags=None, halves=False, amp=False):
+        s = strategy(**(flags or {}))
+        model, opt = fresh()
+        dp_model = fleet.distributed_model(model)
+        opt_d = fleet.distributed_optimizer(opt, s)
+
+        def micro(sl):
+            loss = dp_model(ids_r[sl], labels_r[sl])
+            loss.backward()
+            opt_d.step()
+            opt_d.clear_grad()
+            return loss.item()
+
+        def step():
+            if halves:   # gradient merge: two micro-steps, one update
+                return (micro(slice(0, half)) + micro(slice(half, None))) / 2
+            return micro(slice(None))
+
+        drive(name, model, step, opt_d.amp_context if amp else contextlib.nullcontext,
+              {"wrapper": type(dp_model).__name__, "applied": fleet.fleet._applied_meta_list,
+               "chain": [type(o).__name__ for o in _chain(opt_d)]})
+        return opt_d
+
+    def engine(name, k=1, amp=False):
+        strategy(amp=amp)
+        model, opt = fresh()
+        eng = fleet.distributed_engine(model, fleet.distributed_optimizer(opt), microbatches=k)
+        drive(name, model, lambda: eng.step(ids, labels).item())
+
+    def sharded(name, offload):
+        strategy()
+        model, opt = fresh()
+        model_s, opt_s = group_sharded_parallel(model, opt, "os_g", offload=offload)
+
+        def step():
+            with auto_cast(dtype="bfloat16"):
+                loss = model_s(ids_r, labels_r)
+            loss.backward()
+            opt_s.step()
+            opt_s.clear_grad()
+            return loss.item()
+
+        states = opt._states
+        drive(name, model, step)
+        out[name]["state_on_pinned_host"] = bool(states) and all(
+            t.device.type == "cpu" and t.is_pinned() for st in states.values() for t in st)
+        out[name]["state_on_card"] = bool(states) and all(
+            t.is_cuda for st in states.values() for t in st)
+
+    eager("f32")
+    engine("engine_f32")
+    eager("bf16_amp", {"amp": True}, amp=True)
+    engine("engine_bf16", amp=True)
+    eager("gm", {"gradient_merge": True,
+                 "gradient_merge_configs": {"k_steps": 2, "avg": True}}, halves=True)
+    engine("engine_k2", k=2)
+    opt_d = eager("lamb", {"lamb": True})
+    out["lamb"]["inner"] = type(_chain(opt_d)[-1]).__name__
+    del opt_d
+    opt_d = eager("dgc", {"dgc": True,
+                          "dgc_configs": {"sparsity": [DP_EAGER_DGC_SPARSITY]}})
+    dgc = next(o for o in _chain(opt_d) if isinstance(o, meta.DGCOptimizer))
+    kept_over_k = []
+    for p in dgc._inner_opt._parameter_list:
+        k = max(1, round(p.numel() * (1 - DP_EAGER_DGC_SPARSITY)))
+        kept_over_k.append((p.numel() - int((dgc._residual[id(p)] != 0).sum())) / k)
+    out["dgc"].update(min_kept_over_k=min(kept_over_k), n_residuals=len(dgc._residual))
+    del opt_d, dgc
+    eager("fp16_allreduce", {"fp16_allreduce": True, "amp": True}, amp=True)
+    sharded("os_g", False)
+    sharded("os_g_offload", True)
+    futils._reducer_cache.clear()
+    for a, b in (("f32", "engine_f32"), ("gm", "engine_k2"), ("os_g_offload", "os_g")):
+        out[f"{a}_vs_{b}_params_equal"] = all(torch.equal(kept[a][n], kept[b][n])
+                                              for n in kept[b])
+        out[f"{a}_vs_{b}_param_err_over_scale"] = max(
+            (kept[a][n] - kept[b][n]).abs().max().item()
+            / max(1.0, kept[b][n].abs().max().item()) for n in kept[b])
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _digest(params):
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in sorted(params):
+        h.update(params[n].numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_dp_eager(world=None):
+    """The eager data-parallel entry points on the port at ``world`` ranks
+    (default: one a card), in processes of the port's spawn with a deadline
+    of their own (DP_EAGER_TIMEOUT_S). Each rank runs GPT-2 124M at full
+    width on its rows of the global ids [8, 1024], AdamW(1e-4, weight decay
+    0.01), 1 warm-up and DP_EAGER_STEPS timed steps a run, through fleet.init
+    -> fleet.distributed_model -> fleet.distributed_optimizer ->
+    loss.backward(); opt.step(); opt.clear_grad(): f32; bf16 through
+    strategy.amp (the AMP meta's amp_context); strategy.lamb (AdamW swapped
+    for Lamb; f32, where its steps of ~lr x 0.02 move the loss, which they
+    do not through bf16 products); strategy.gradient_merge (k_steps 2, avg;
+    f32, the rows' two halves a step); strategy.dgc (sparsity 0.999; f32,
+    likewise); strategy.fp16_allreduce (bf16); group_sharded_parallel at os_g without
+    and with offload (bf16 auto_cast); and the engine's replicated step
+    (fleet.distributed_engine) on the global batch, f32, bf16 (strategy.amp)
+    and at 2 microbatches, as the yardstick.
+
+    Checks on every rank: f32 eager is the engine's step (losses and every
+    parameter; bit for bit at world 1, within DP_EAGER_TOL past it), and
+    gradient merge the engine's at 2 microbatches likewise; offload gives
+    the run without it bit for bit, its state sits in pinned host memory
+    after the steps (the other run's on the card), and the card holds at
+    least DP_EAGER_OFFLOAD_SHARE x 8n fewer bytes after the steps; the Lamb
+    run's optimizer is a Lamb; DGC kept at least round(numel x 0.001)
+    entries of every gradient at the last step; every loss is finite and
+    falls; every bf16 run launches each tensor-core flash kernel 12 times a
+    step; past one rank the Reducer runs one collective a bucket a step (its
+    own bucket count) and every rank holds the same weights. Emits one line
+    with step ms, tokens/s per card, peak and after-step bytes, buckets and
+    collectives a step, for eager and for the engine, before the checks;
+    returns rank 0's flash launches of the timed steps, {"bf16": {kernel:
+    n}, "f32": {kernel: n}}."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed import spawn
+
+    world = world or torch.cuda.device_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        spawn(dp_eager_worker, args=(d,), nprocs=world, timeout=DP_EAGER_TIMEOUT_S)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    runs = ["f32", "engine_f32", "bf16_amp", "engine_bf16", "gm", "engine_k2", "lamb",
+            "dgc", "fp16_allreduce", "os_g", "os_g_offload"]
+    ms = {name: statistics.median(r0[name]["step_ms"][1:]) for name in runs}
+    tps = {name: 8 * 1024 / world / (v / 1e3) for name, v in ms.items()}
+    n = r0["f32"]["n"]
+    emit(phase="dp_eager", model="gpt2-124m", world=world, global_batch=[8, 1024],
+         rows_per_rank=8 // world, steps=DP_EAGER_STEPS, wall_s=wall,
+         step_ms_median=ms, tokens_per_s_per_card=tps,
+         eager_over_engine={"f32": tps["f32"] / tps["engine_f32"],
+                            "bf16": tps["bf16_amp"] / tps["engine_bf16"],
+                            "gradient_merge": tps["gm"] / tps["engine_k2"]},
+         losses={name: r0[name]["mean_losses"] for name in runs},
+         peak_bytes_per_rank={name: [res[name]["peak_bytes"] for res in ranks]
+                              for name in runs},
+         allocated_after_bytes_per_rank={name: [res[name]["allocated_after_bytes"]
+                                                for res in ranks] for name in runs},
+         buckets=r0["f32"]["buckets"],
+         collectives_per_step={name: r0[name]["collectives_per_step"] for name in runs},
+         offload_bytes_saved_per_rank=[res["os_g"]["allocated_after_bytes"]
+                                       - res["os_g_offload"]["allocated_after_bytes"]
+                                       for res in ranks],
+         n_params=n, chain={name: r0[name].get("chain") for name in runs},
+         eager_vs_engine_param_err_over_scale=[res["f32_vs_engine_f32_param_err_over_scale"]
+                                               for res in ranks],
+         gm_vs_engine_k2_param_err_over_scale=[res["gm_vs_engine_k2_param_err_over_scale"]
+                                               for res in ranks],
+         dgc_min_kept_over_k=[res["dgc"]["min_kept_over_k"] for res in ranks])
+    launches = {"bf16": dict.fromkeys(_launch_counts_keys(), 0),
+                "f32": dict.fromkeys(_launch_counts_keys(), 0)}
+    for res in ranks:
+        r = res["rank"]
+        for a, b, what in (("f32", "engine_f32", "f32 eager vs the engine"),
+                           ("gm", "engine_k2", "gradient merge vs the engine at 2 "
+                                               "microbatches")):
+            la, lb = res[a]["mean_losses"], res[b]["mean_losses"]
+            if not np.allclose(la, lb, rtol=DP_EAGER_TOL, atol=0):
+                raise AssertionError(f"dp_eager rank {r}: {what}: losses {la} vs {lb}")
+            if world == 1:
+                if not res[f"{a}_vs_{b}_params_equal"]:
+                    raise AssertionError(f"dp_eager rank {r}: {what}: parameters not bit "
+                                         "for bit")
+            elif not res[f"{a}_vs_{b}_param_err_over_scale"] <= DP_EAGER_TOL:
+                raise AssertionError(f"dp_eager rank {r}: {what}: {la} vs {lb}, parameter "
+                                     f"error {res[f'{a}_vs_{b}_param_err_over_scale']} "
+                                     "x max(1, max|p|)")
+        if not (res["os_g_offload_vs_os_g_params_equal"]
+                and res["os_g_offload"]["losses"] == res["os_g"]["losses"]):
+            raise AssertionError(f"dp_eager rank {r}: offload is not the run without it "
+                                 "bit for bit")
+        if not (res["os_g_offload"]["state_on_pinned_host"] and res["os_g"]["state_on_card"]):
+            raise AssertionError(f"dp_eager rank {r}: the offloaded state is not in pinned "
+                                 "host memory (or the other run's not on the card)")
+        saved = (res["os_g"]["allocated_after_bytes"]
+                 - res["os_g_offload"]["allocated_after_bytes"])
+        if not saved >= DP_EAGER_OFFLOAD_SHARE * 8 * n:
+            raise AssertionError(f"dp_eager rank {r}: offload saved {saved} bytes of the "
+                                 f"card, less than {DP_EAGER_OFFLOAD_SHARE} x 8 x {n}")
+        if res["lamb"]["inner"] != "Lamb":
+            raise AssertionError(f"dp_eager rank {r}: strategy.lamb ran {res['lamb']['inner']}")
+        if not res["dgc"]["min_kept_over_k"] >= 1:
+            raise AssertionError(f"dp_eager rank {r}: DGC kept fewer than k entries of a "
+                                 f"gradient ({res['dgc']['min_kept_over_k']} x k)")
+        for name in runs:
+            got = res[name]
+            ls = got["mean_losses"]
+            if not all(math.isfinite(x) for x in ls) or not ls[-1] < ls[0]:
+                raise AssertionError(f"dp_eager rank {r} {name}: losses {ls}")
+            if name in DP_EAGER_BF16_RUNS:
+                _check_mma_launches(f"dp_eager rank {r} {name}", got["launches"]["fwd"],
+                                    got["launches"]["bwd"], DP_EAGER_STEPS * 12,
+                                    DP_EAGER_STEPS * 12)
+            else:   # f32: the 3xTF32 kernels, two forwards a step at 2 microbatches
+                nf = DP_EAGER_STEPS * 12 * (2 if name in ("gm", "engine_k2") else 1)
+                fwd, bwd = got["launches"]["fwd"], got["launches"]["bwd"]
+                if (fwd["tf32x3"], bwd["tf32x3"]["dkdv"], bwd["tf32x3"]["dq"]) != (nf,) * 3:
+                    raise AssertionError(f"dp_eager rank {r} {name}: the flash kernels took "
+                                         f"{fwd} and {bwd}, expected {nf} 3xTF32 each")
+            if r == 0:
+                key = "bf16" if name in DP_EAGER_BF16_RUNS else "f32"
+                for k in launches[key]:
+                    launches[key][k] += got["launches"]["counts"][k]
+            if world > 1:
+                if name.startswith("engine"):
+                    continue
+                if got["collectives_per_step"] != got["buckets"]:
+                    raise AssertionError(
+                        f"dp_eager rank {r} {name}: {got['collectives_per_step']} "
+                        f"collectives a step, the Reducer has {got['buckets']} buckets")
+                if got["digest"] != r0[name]["digest"]:
+                    raise AssertionError(f"dp_eager rank {r} {name}: weights differ from "
+                                         "rank 0's")
+    emit(phase="dp_eager_checks", world=world, passed=True, launches_rank0=launches)
+    return launches
+
+
+def _launch_counts_keys():
+    return ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+
+
 def _same_state(a, b):
     """Whether two engines hold the same parameters and optimizer slots, bit
     for bit (gathered under ZeRO and FSDP: every rank calls it)."""
@@ -3111,6 +3471,7 @@ def main() -> int:
     phase_train_vs_cpu()
     torch.cuda.empty_cache()
     dp_launches = phase_dp()
+    dp_eager_launches = phase_dp_eager()
     ckpt_launches = phase_ckpt(ids)
     if torch.cuda.device_count() >= 2:
         phase_ckpt_ranks(torch.cuda.device_count())
@@ -3132,19 +3493,20 @@ def main() -> int:
     # tensor-core forward and backward)
     pallas = "paddle_tpu/ops/pallas/"
     rows = [  # (name, path, record, source, replaces)
-        ("flash_attention_fwd", "train, train_rules, dp, ckpt", fwd["slice_bf16_causal"],
+        ("flash_attention_fwd", "train, train_rules, dp, dp_eager, ckpt",
+         fwd["slice_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_fwd_f32", "score, train_f32", fwd["slice_f32_causal"],
+        ("flash_attention_fwd_f32", "score, train_f32, dp_eager", fwd["slice_f32_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_bwd_dkdv", "train, train_rules, dp, ckpt",
+        ("flash_attention_bwd_dkdv", "train, train_rules, dp, dp_eager, ckpt",
          bwd["train_bf16_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq", "train, train_rules, dp, ckpt",
+        ("flash_attention_bwd_dq", "train, train_rules, dp, dp_eager, ckpt",
          bwd["train_bf16_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
-        ("flash_attention_bwd_dkdv_f32", "train_f32", bwd["train_f32_causal"]["dkdv"],
+        ("flash_attention_bwd_dkdv_f32", "train_f32, dp_eager", bwd["train_f32_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq_f32", "train_f32", bwd["train_f32_causal"]["dq"],
+        ("flash_attention_bwd_dq_f32", "train_f32, dp_eager", bwd["train_f32_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
         ("flash_attention_fwd_d128", "bench gpt_1p3b", fwd["1p3b_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
@@ -3184,12 +3546,11 @@ def main() -> int:
     # pass, its f32-h forward and backward (3xTF32) from the f32 pass
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
     counts = {**{k: launches[k] + rules_launches[k] + dp_launches[k] + ckpt_launches[k]
-                 for k in launches},
+                 + dp_eager_launches["bf16"][k] for k in launches},
               **bench_launches,
-              "flash_attention_fwd_f32": score_launches
-              + f32_launches["flash_attention_fwd"],
-              "flash_attention_bwd_dkdv_f32": f32_launches["flash_attention_bwd_dkdv"],
-              "flash_attention_bwd_dq_f32": f32_launches["flash_attention_bwd_dq"],
+              **{f"{k}_f32": f32_launches[k] + dp_eager_launches["f32"][k]
+                 + (score_launches if k == "flash_attention_fwd" else 0)
+                 for k in _launch_counts_keys()},
               **{k: lib_f32[k] for k in ("layer_norm_fwd", "layer_norm_infer",
                                          "layer_norm_bwd")},
               **{f"{k}_bf16": lib_bf16[k] for k in ("layer_norm_fwd", "layer_norm_infer",

@@ -6,7 +6,8 @@ module paths (``models/gpt.py``, ``serving/engine.py``,
 ``nn/clip.py``, ``distributed/engine.py``, ``distributed/fleet/utils.py``,
 ``observability/flops.py``, ``core/flags.py``, ``core/monitor.py``,
 ``distributed/{env,collective,spawn,mesh,grad_comm}.py``,
-``distributed/launch/`` and ``distributed/fleet/``) and replaces each Pallas TPU kernel with a CUDA
+``distributed/launch/``, ``distributed/fleet/``,
+``distributed/meta_parallel/`` and ``framework/io.py``) and replaces each Pallas TPU kernel with a CUDA
 kernel written for Hopper (``ops/kernels/``); ``bench.py`` is the
 counterpart of the repository's bench.py (``python -m
 paddle_tpu_torch.bench``) and ``tools/`` holds the port's command-line
@@ -18,5 +19,17 @@ on the CPU every kernel wrapper takes its plain PyTorch version.
 """
 from .core.flags import get_flags, set_flags
 from .device import resolve_device
+from .framework.io import load, save
 
-__all__ = ["resolve_device", "set_flags", "get_flags"]
+
+def __getattr__(name):
+    # DataParallel loads the distributed package, which ``import
+    # paddle_tpu_torch`` does not need
+    if name == "DataParallel":
+        from .distributed.meta_parallel import DataParallel
+
+        return DataParallel
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["resolve_device", "set_flags", "get_flags", "save", "load", "DataParallel"]

@@ -125,6 +125,21 @@ def cast_inputs(name: str, *tensors):
                  and t.dtype != dtype else t for t in tensors)
 
 
+def amp_guard_from_configs(cfg, force_bf16=False):
+    """The ``auto_cast`` of a strategy's ``AMPConfig`` (the one mapping the
+    eager AMP meta-optimizer and the engine's ``strategy.amp`` share): its
+    dtype, O2 when ``use_pure_fp16``, else O1, and its white and black
+    lists. ``force_bf16`` turns float16 into bfloat16 (the engine's step
+    has no loss scaling)."""
+    dtype = getattr(cfg, "dtype", "bfloat16")
+    if force_bf16 and dtype == "float16":
+        dtype = "bfloat16"
+    return auto_cast(dtype=dtype,
+                     level="O2" if getattr(cfg, "use_pure_fp16", False) else "O1",
+                     custom_white_list=getattr(cfg, "custom_white_list", None),
+                     custom_black_list=getattr(cfg, "custom_black_list", None))
+
+
 def decorate(models, optimizers=None, level="O1", dtype="bfloat16", master_weight=None,
              save_dtype=None):
     """At O2, cast every floating parameter of ``models`` (a module or a list)

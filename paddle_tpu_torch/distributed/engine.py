@@ -66,6 +66,21 @@ above, unchanged. Otherwise the step is grad_comm's (distributed/grad_comm.py):
   Past 2 ranks each rank's loss is the replicas' sum in the order its
   reduce-scatter takes, so the losses may differ in the last bits between
   ranks; the weights do not.
+- **strategy.amp** (JAX engine.py:778-790): the forward of every step runs
+  under ``amp.amp_guard_from_configs(strategy.amp_configs,
+  force_bf16=True)`` (float16 becomes bfloat16: the step has no loss
+  scaling), inside whatever ``auto_cast`` the caller holds.
+- **Offload** (the optimizer's ``_offload``, set by the group-sharded
+  wrappers; JAX engine.py:167-185): the optimizer state stays in pinned
+  host memory between steps and is moved to the card for the update, in
+  the replicated update (``Optimizer._apply``) and in ZeRO's (the rank's
+  flat shards). The numbers are those without it. FSDP with offload raises
+  (ROADMAP.md Queue 1 item 3).
+- **GroupShardedStage3's marks** (``dist_attr`` on the model's parameters)
+  under ``sharding_degree > 1`` run the FSDP step below. The JAX engine
+  shards only the marked parameters along their marked dim; FSDP shards
+  every parameter in whole per-layer buckets. Both give the replicated
+  step's numbers.
 - **Checkpoints** (``enable_checkpointing``, ``FLAGS_ckpt_dir``): every step
   ends in the ``elastic.CheckpointManager``'s ``on_step`` (crash-safe saves
   in the JAX package's layout, newest-valid restore, rollback on a
@@ -97,6 +112,7 @@ import torch
 
 from ..core import flags as _flags
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByValue
+from ..optimizer import _to_host
 from ..optimizer import functional as opt_funct
 from . import collective
 from . import elastic as _elastic
@@ -149,6 +165,13 @@ class TrainStepEngine:
             self.params[opt_names[id(p)]] = p
         self._step_count = optimizer._step_count
         self.last_loss = None
+        self._offload = bool(getattr(optimizer, "_offload", False))
+        self._stage3 = any(getattr(p, "dist_attr", None) is not None
+                           for p in self.params.values())
+        if hasattr(model, "sync_in_backward"):
+            model.sync_in_backward = False  # GroupShardedStage3: the engine reduces
+        amp_on = strategy is not None and getattr(strategy, "amp", False)
+        self._amp_cfg = strategy.amp_configs if amp_on else None
         self.zero_update = bool(zero_update)
         self._zero_opt = None          # the rank's flat [shard] f32 state slots
         self._zero_warned = False
@@ -237,10 +260,20 @@ class TrainStepEngine:
             p.grad = None
         return opt.get_lr()
 
+    def _forward(self, batch):
+        """The model's loss on ``batch``, under the strategy's amp when it
+        has one."""
+        if self._amp_cfg is None:
+            return self.model(*batch)
+        from ..amp import amp_guard_from_configs
+
+        with amp_guard_from_configs(self._amp_cfg, force_bf16=True):
+            return self.model(*batch)
+
     def _plain_step(self, batch):
         opt = self.optimizer
         lr_val = self._begin_step()
-        loss = self.model(*batch)
+        loss = self._forward(batch)
         loss.backward()
         with torch.no_grad():
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -356,7 +389,7 @@ class TrainStepEngine:
         attached, losses = set(), []
         for i in range(k):
             self._seed_dropout(i)
-            loss = self.model(*(p[i] for p in parts))
+            loss = self._forward([p[i] for p in parts])
             loss.backward()
             losses.append(loss.detach())
             del loss
@@ -463,7 +496,7 @@ class TrainStepEngine:
                 if nm in states:
                     o = layout.offsets[nm] - lo
                     s[o + a:o + b] = states[nm][j].reshape(-1)[a:b]
-            slots.append(s)
+            slots.append(_to_host(s, s.is_cuda) if self._offload else s)
         self._zero_opt = tuple(slots)
         states.clear()  # the flat shards are the state now
         return self._zero_opt
@@ -479,8 +512,13 @@ class TrainStepEngine:
         _gc.clip_shard(g, opt._grad_clip, group)
         update = opt_funct.make_flat_update(opt, next(iter(self.params)),
                                             block=_gc.BLOCK)
-        update(p_shard, g, self._ensure_zero_opt(layout), lr_val, self._step_count)
-        del g
+        slots = self._ensure_zero_opt(layout)
+        work = tuple(t.to(self.device, non_blocking=True) for t in slots)
+        update(p_shard, g, work, lr_val, self._step_count)
+        if self._offload:   # back to the host shards
+            for t, w in zip(slots, work):
+                t.copy_(w)
+        del g, work
         rows, self.last_loss = _gc.zero_gather(p_shard, loss_part, group, layout.nrep,
                                                dtype != "int8", out=buf)
         del p_shard
@@ -557,8 +595,8 @@ class TrainStepEngine:
         if self._zero_opt is not None:
             layout = self._flat_layout(_gc.chunk_size())
             for j, s in enumerate(self._zero_opt):
-                full = torch.empty(layout.n_pad, dtype=torch.float32, device=s.device)
-                collective.all_gather_into(full, s, group=self.group)
+                full = torch.empty(layout.n_pad, dtype=torch.float32, device=self.device)
+                collective.all_gather_into(full, s.to(self.device), group=self.group)
                 for nm in layout.names:
                     off, shape = layout.offsets[nm], layout.shapes[nm]
                     visit(nm, j, full[off:off + math.prod(shape)].view(shape))
@@ -614,7 +652,9 @@ class TrainStepEngine:
 
     # ---- FSDP: fully sharded parameters ----
     def _fsdp_requested(self) -> bool:
-        return bool(self.fsdp or _flags.flag("fsdp"))
+        return bool(self.fsdp or _flags.flag("fsdp")
+                    or (self._stage3 and self.hcg is not None
+                        and self.hcg.degrees["sharding"] > 1))
 
     def _fsdp_on(self) -> bool:
         """True when this step runs FSDP (requested and possible: ZeRO's
@@ -622,6 +662,9 @@ class TrainStepEngine:
         update."""
         if not self._fsdp_requested():
             return False
+        if self._offload:
+            raise NotImplementedError("FSDP with an offloaded optimizer state is not "
+                                      "ported (ROADMAP.md Queue 1 item 3)")
         reason = self._zero_fallback_reason()
         if reason is None:
             return True

@@ -33,6 +33,7 @@ class ParallelEnv:
         self.device_id = int(os.environ.get("FLAGS_selected_gpus", "0").split(",")[0])
         self.master_addr = os.environ.get("MASTER_ADDR", "")
         self.master_port = os.environ.get("MASTER_PORT", "")
+        self.trainer_endpoints = os.environ.get("PADDLE_TRAINER_ENDPOINTS", "").split(",")
 
     @property
     def local_rank(self):

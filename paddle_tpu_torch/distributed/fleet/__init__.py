@@ -1,18 +1,35 @@
-"""fleet of the port (counterpart of paddle_tpu/distributed/fleet/):
-``init``, the worker queries, ``barrier_worker``, ``distributed_engine``,
-``DistributedStrategy`` and ``recompute``.
+"""fleet of the port (counterpart of paddle_tpu/distributed/fleet/): ``init``,
+the role makers and worker queries, ``barrier_worker``, the eager entry
+points ``distributed_model`` / ``distributed_optimizer`` / ``minimize``,
+``distributed_engine``, ``save_persistables``, ``DistributedStrategy`` and
+``recompute``.
+
+The eager (dygraph) data-parallel script, one process a rank::
 
     from paddle_tpu_torch.distributed import fleet
-    strategy = fleet.DistributedStrategy()
-    strategy.hybrid_configs = {"dp_degree": world, "mp_degree": 1}
-    fleet.init(is_collective=True, strategy=strategy)   # joins the process group
+    fleet.init(is_collective=True, strategy=strategy)     # joins the process group
+    model = fleet.distributed_model(model)                 # DataParallel past one rank
+    opt = fleet.distributed_optimizer(opt, strategy)       # meta chain + HybridParallelOptimizer
+    loss = model(ids, labels)                              # this rank's rows
+    loss.backward(); opt.step(); opt.clear_grad()          # bucketed gradient average at step
+
+The fused step, on the global batch::
+
     engine = fleet.distributed_engine(model, optimizer)
-    loss = engine.step(ids, labels)                      # the global batch
+    loss = engine.step(ids, labels)
 
 ``init`` joins the job's process group (``env.init_parallel_env``; NCCL on
 the card, gloo with ``device="cpu"``) and builds the topology
-(``mesh.HybridCommunicateGroup``). The planner of
-``distributed_engine(auto=True)`` is not ported.
+(``mesh.HybridCommunicateGroup``). ``distributed_model`` wraps the model
+in ``DataParallel`` (with the strategy's ``find_unused_parameters``) only
+in data-parallel mode past one rank, and returns it as it is otherwise (a pipeline degree above 1 is refused by the
+topology, ROADMAP.md Queue 1 item 11). ``distributed_optimizer`` compiles
+the strategy into the meta-optimizer chain (``meta_optimizers``) and wraps
+it in ``HybridParallelOptimizer``; ``_applied_meta_list`` names what was
+applied. ``distributed_engine`` unwraps that chain (and a
+``GroupShardedOptimizerStage2``) down to the optimizer. Not ported
+(ROADMAP.md Queue 1 item 3): the planner of ``distributed_engine(auto=True)``,
+``fleet.fs``, ``fleet.dataset`` and ``fleet.elastic``.
 """
 from __future__ import annotations
 
@@ -20,15 +37,48 @@ from typing import Optional
 
 from ..env import ParallelEnv, get_rank, init_parallel_env
 from ..mesh import HybridCommunicateGroup, set_hybrid_communicate_group
+from . import utils
 from .distributed_strategy import DistributedStrategy
+from .hybrid_parallel_optimizer import HybridParallelOptimizer
 from .utils import recompute
+
+
+class RoleMakerBase:
+    def __init__(self, is_collective=True, **kwargs):
+        self._is_collective = is_collective
+        self._env = ParallelEnv()
+
+    def worker_index(self):
+        return self._env.rank
+
+    def worker_num(self):
+        return self._env.world_size
+
+    def is_first_worker(self):
+        return self._env.rank == 0
+
+    def is_worker(self):
+        return True
+
+    def is_server(self):
+        return False
+
+
+class PaddleCloudRoleMaker(RoleMakerBase):
+    pass
+
+
+class UserDefinedRoleMaker(RoleMakerBase):
+    pass
 
 
 class Fleet:
     def __init__(self):
+        self._role_maker = None
         self._strategy: Optional[DistributedStrategy] = None
         self._hcg: Optional[HybridCommunicateGroup] = None
         self._is_initialized = False
+        self._applied_meta_list = []
 
     def init(self, role_maker=None, is_collective=True, strategy=None,
              log_level="INFO", device=None):
@@ -37,6 +87,7 @@ class Fleet:
         if not is_collective:
             raise NotImplementedError("the port runs collective training only "
                                       "(parameter-server mode is not ported)")
+        self._role_maker = role_maker or PaddleCloudRoleMaker(is_collective=is_collective)
         self._strategy = strategy or DistributedStrategy()
         init_parallel_env(device=device)
         hc = self._strategy.hybrid_configs
@@ -60,39 +111,97 @@ class Fleet:
     def is_first_worker(self):
         return self.worker_index() == 0
 
+    def worker_endpoints(self, to_string=False):
+        eps = ParallelEnv().trainer_endpoints
+        return ",".join(eps) if to_string else eps
+
     def barrier_worker(self):
         from .. import collective
 
         collective.barrier()
 
+    # ---- the eager entry points (reference fleet_base.py:1038-1061) ----
+    def distributed_model(self, model):
+        """``DataParallel(model)`` in data-parallel mode past one rank, else
+        ``model`` itself (the engine shards for the other modes)."""
+        from ..meta_parallel import DataParallel
+
+        if not self._is_initialized:
+            self.init()
+        hcg = self._hcg
+        if hcg.get_parallel_mode() == "data_parallel" and hcg.nranks > 1:
+            return DataParallel(model, find_unused_parameters=bool(
+                self._strategy.find_unused_parameters))
+        return model
+
+    def distributed_optimizer(self, optimizer, strategy=None, model=None):
+        """The strategy's meta-optimizer chain around ``optimizer`` (its rule
+        swapped first by ``lars`` / ``lamb``), inside a
+        ``HybridParallelOptimizer``. ``model``: the model whose blocks
+        ``recompute`` turns on."""
+        from .meta_optimizers import StrategyCompiler
+
+        if strategy is not None:
+            self._strategy = strategy
+        if not self._is_initialized:
+            self.init()
+        optimizer, applied = StrategyCompiler().compile(
+            optimizer, self._strategy, self._hcg, model=model)
+        self._applied_meta_list = applied
+        return HybridParallelOptimizer(optimizer, self._hcg, self._strategy)
+
+    def minimize(self, optimizer, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        return optimizer.minimize(loss)
+
     def distributed_engine(self, model, optimizer, loss_fn=None, auto=False,
                            sample_batch=None, **kw):
         """The data-parallel ``TrainStepEngine`` of this fleet's topology and
-        strategy; ``kw`` (``microbatches``, ``zero_update``) go to it."""
+        strategy; ``kw`` (``microbatches``, ``zero_update``, ``fsdp``) go to
+        it. ``optimizer`` may be ``distributed_optimizer``'s chain."""
         from ..engine import TrainStepEngine
 
         if auto:
             raise NotImplementedError("distributed_engine(auto=True): the topology "
-                                      "planner is not ported")
+                                      "planner is not ported (ROADMAP.md Queue 1 item 3)")
         if loss_fn is not None:
             raise NotImplementedError("the port's engine takes a model whose "
                                       "forward returns the loss (loss_fn is not ported)")
         if not self._is_initialized:
             self.init()
-        return TrainStepEngine(model, optimizer, hcg=self._hcg,
-                               strategy=self._strategy, **kw)
+        inner = optimizer
+        while hasattr(inner, "_inner_opt") or hasattr(inner, "_optim"):
+            inner = inner._inner_opt if hasattr(inner, "_inner_opt") else inner._optim
+        return TrainStepEngine(model, inner, hcg=self._hcg, strategy=self._strategy, **kw)
+
+    # ---- checkpoints (reference fleet_base.py:824) ----
+    def save_persistables(self, executor_or_model, dirname, main_program=None, mode=0):
+        """``dirname/model.pdparams``: the model's state dict, in the file of
+        ``paddle_tpu_torch.save`` (which the JAX package loads)."""
+        from ...framework import io as fio
+
+        if hasattr(executor_or_model, "state_dict"):
+            fio.save(executor_or_model.state_dict(), dirname + "/model.pdparams")
 
 
 fleet = Fleet()
 
 init = fleet.init
+distributed_model = fleet.distributed_model
+distributed_optimizer = fleet.distributed_optimizer
 distributed_engine = fleet.distributed_engine
+minimize = fleet.minimize
 worker_index = fleet.worker_index
 worker_num = fleet.worker_num
+worker_endpoints = fleet.worker_endpoints
 is_first_worker = fleet.is_first_worker
 barrier_worker = fleet.barrier_worker
+save_persistables = fleet.save_persistables
 get_hybrid_communicate_group = fleet.get_hybrid_communicate_group
 
-__all__ = ["DistributedStrategy", "Fleet", "fleet", "init", "distributed_engine",
-           "worker_index", "worker_num", "is_first_worker", "barrier_worker",
-           "get_hybrid_communicate_group", "recompute"]
+__all__ = ["DistributedStrategy", "Fleet", "fleet", "init", "distributed_model",
+           "distributed_optimizer", "distributed_engine", "minimize", "worker_index",
+           "worker_num", "worker_endpoints", "is_first_worker", "barrier_worker",
+           "save_persistables", "get_hybrid_communicate_group", "recompute", "utils",
+           "HybridParallelOptimizer", "RoleMakerBase", "PaddleCloudRoleMaker",
+           "UserDefinedRoleMaker"]

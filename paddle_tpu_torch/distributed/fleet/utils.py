@@ -1,5 +1,6 @@
-"""Recompute, activation checkpointing (counterpart of
-paddle_tpu/distributed/fleet/utils.py's ``recompute``).
+"""Recompute, activation checkpointing, and the eager data-parallel helpers
+(counterpart of paddle_tpu/distributed/fleet/utils.py's ``recompute``,
+``fused_allreduce_gradients`` and ``broadcast_*_parameters``).
 
 The JAX package lowers a recomputed segment to ``jax.checkpoint`` with a
 policy; here it is ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``:
@@ -18,6 +19,16 @@ CUDA RNG states that ``preserve_rng_state`` restores: the port's
 ``torch.autocast``, so checkpoint does not carry it), and the states of the
 ``generators`` the segment draws from (the model's dropout generator), each
 put back as it was after the replay.
+
+``fused_allreduce_gradients(parameter_list, hcg)`` averages the gradients
+over the data-parallel group with the bucketed ``Reducer``, one collective
+a bucket; the Reducers are kept in an LRU of at most 4 a group, keyed by the
+trainable members, so freezing or unfreezing a parameter rebuilds the
+buckets. ``broadcast_dp_parameters`` / ``broadcast_sharding_parameters`` /
+``broadcast_mp_parameters`` broadcast every parameter from the group's first
+rank (the port shards nothing over mp, so the mp one skips nothing). The
+JAX package's ``fs`` (``LocalFS``, ``HDFSClient``) is not ported (ROADMAP.md
+Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -95,3 +106,58 @@ def recompute(function, *args, policy=None, preserve_rng_state=True,
                                              policy_fn)
     return checkpoint(segment, *args, use_reentrant=False,
                       preserve_rng_state=preserve_rng_state, **kw)
+
+
+def allreduce_gradients_over(parameter_list, group, find_unused_parameters=False):
+    """Average the gradients of ``parameter_list`` over ``group`` with the
+    group's cached Reducer (module docstring). Returns the Reducer."""
+    from ..meta_parallel.data_parallel import Reducer
+
+    params = [p for p in parameter_list if p.requires_grad and p.numel()]
+    key = (tuple(id(p) for p in params), bool(find_unused_parameters))
+    slots = _reducer_cache.setdefault(id(group), {})
+    red = slots.pop(key, None)  # pop and put back: dict order is recency
+    if red is None:
+        while len(slots) >= 4:  # the least recently used goes
+            slots.pop(next(iter(slots)))
+        red = Reducer(params, group=group, find_unused_parameters=find_unused_parameters)
+    slots[key] = red
+    red.sync()
+    return red
+
+
+_reducer_cache = {}  # id(group) -> {(trainable ids, find_unused): Reducer} (LRU, at most 4)
+
+
+def fused_allreduce_gradients(parameter_list, hcg, find_unused_parameters=False):
+    """Reference hybrid_parallel_util.py:142: the bucketed average over
+    ``hcg``'s data-parallel group; nothing for a group of one rank.
+    ``find_unused_parameters``: a missing gradient counts as zeros (the
+    Reducer's), which the port's callers take from the strategy: its ranks
+    are processes that may disagree on which parameters a step used."""
+    group = hcg.get_data_parallel_group() if hcg else None
+    if group is None or group.nranks <= 1:
+        return None
+    return allreduce_gradients_over(parameter_list, group, find_unused_parameters)
+
+
+@torch.no_grad()
+def _broadcast_group_parameters(model, group):
+    from .. import collective
+
+    if group is None or group.nranks <= 1:
+        return
+    for p in model.parameters():
+        collective.broadcast(p.data, src=group.ranks[0], group=group)
+
+
+def broadcast_mp_parameters(model, hcg):
+    _broadcast_group_parameters(model, hcg.get_model_parallel_group())
+
+
+def broadcast_dp_parameters(model, hcg):
+    _broadcast_group_parameters(model, hcg.get_data_parallel_group())
+
+
+def broadcast_sharding_parameters(model, hcg):
+    _broadcast_group_parameters(model, hcg.get_sharding_parallel_group())

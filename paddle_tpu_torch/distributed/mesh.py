@@ -95,6 +95,8 @@ class HybridCommunicateGroup:
                     if self.global_rank in ranks:
                         mine = CommGroup(axis, ranks, pg)
                 self._groups[axis] = mine
+        # mp is 1: its group is the rank alone
+        self._groups["mp"] = CommGroup("mp", [self.global_rank])
         self._dp_rank, self._sharding_rank = dp_i, sh_i
 
     # ---- reference accessor surface ----
@@ -124,6 +126,9 @@ class HybridCommunicateGroup:
 
     def get_sharding_parallel_group(self):
         return self._groups["sharding"]
+
+    def get_model_parallel_group(self):
+        return self._groups["mp"]
 
     def get_check_parallel_group(self):
         return self._groups["data"]

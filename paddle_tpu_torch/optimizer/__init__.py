@@ -24,6 +24,12 @@ parameter whose ``regularizer`` attribute is an ``L1Decay`` takes that one.
 Only the rules of ``_DECAY_RULES`` take ``weight_decay``; Lamb and Lars
 have their own.
 
+``_offload`` (set by ``GroupShardedOptimizerStage2(offload=True)`` or
+``GroupShardedStage3(offload=True)``, as in the JAX package) keeps the state
+on the host between steps, in pinned memory when the parameter is on a
+card: each parameter's state is moved to the parameter's device for its
+update and copied back, so the numbers are those of the run without it.
+
 As the JAX package does: ``set_lr`` replaces a scheduler with a float;
 ``clear_grad`` ignores ``set_to_zero``; Adam's and AdamW's ``lazy_mode``
 and ``multi_precision``, and AdamW's ``lr_ratio``, are accepted and have no
@@ -52,8 +58,14 @@ def _named(parameters):
     return out
 
 
+def _to_host(t, pin):
+    t = t.to("cpu", copy=True)
+    return t.pin_memory() if pin else t
+
+
 class Optimizer:
     _rule = "sgd"
+    _offload = False  # state on the host between steps (module docstring)
     # the rules that take the optimizer's weight_decay (L2, or AdamW's
     # decoupled decay)
     _DECAY_RULES = frozenset({"sgd", "momentum", "adam", "adamax", "adagrad",
@@ -119,11 +131,17 @@ class Optimizer:
         update = funct.make_param_update(self)
         for n, p in params.items():
             state = self._state(n, p)
-            new_p, new_state = update(n, p, grads[n], state, lr_val, step)
+            if self._offload:
+                if any(s.device.type != "cpu" for s in state):
+                    state = self._states[n] = tuple(_to_host(s, p.is_cuda) for s in state)
+                work = tuple(s.to(p.device, non_blocking=True) for s in state)
+            else:
+                work = state
+            new_p, new_state = update(n, p, grads[n], work, lr_val, step)
             p.copy_(new_p)
             for old, new in zip(state, new_state):
                 old.copy_(new)
-            del new_p, new_state
+            del new_p, new_state, work
 
     @torch.no_grad()
     def step(self):

@@ -111,3 +111,13 @@ def test_every_kernel_source_has_a_stable_build_key():
         assert p == _build.library_path(n)
         assert p.parent == _build.BUILD_DIR and p.name.startswith(n + "-")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_the_eager_fleet_modules_are_among_them():
+    assert {"paddle_tpu_torch.framework.io", "paddle_tpu_torch.distributed.meta_parallel",
+            "paddle_tpu_torch.distributed.meta_parallel.data_parallel",
+            "paddle_tpu_torch.distributed.meta_parallel.sharding",
+            "paddle_tpu_torch.distributed.fleet.meta_optimizers",
+            "paddle_tpu_torch.distributed.fleet.hybrid_parallel_optimizer"} <= set(_port_modules())
+    path = ROOT / "tests" / "torch_fleet_workers.py"   # rank bodies; the card's machine has no jax
+    assert not {r for r in _imported_roots(path) if r in FORBIDDEN}
