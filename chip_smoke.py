@@ -66,6 +66,31 @@ each:
    against the baseline's, verify dispatches and target forwards per
    emitted token, acceptance, verify dispatch and decode chunk ms (p50,
    max), pages freed by rollback, wall seconds.
+4c. serve_fleet: the serving fleet on the same model (f32, paged, 64-token
+   pages, ladder (64, 128, 256), max_seq_len 512): a loadgen Scenario (seed
+   7, 48 Poisson arrivals over 3.27 s from 4 Zipf tenants, each with its
+   own 192-token prefix, tails of 16-64 tokens, 32 new tokens, greedy).
+   Reference: one 16-slot engine serves all 48 at once. Fleet: a
+   ReplicaRouter over two 8-slot replicas r0 and r1 (stepped one after the
+   other on the card's one stream), driven by LoadGenerator.run on the wall
+   clock, tracer and metrics registry on; r0 begins draining at the first
+   submission from the 24th on that lands on it. Hard: every request's
+   tokens equal the reference's but at a near-tie of the scoring forward's
+   logits (LOGITS_TOL); prefix_routed > 0; r0 admits nothing after its
+   drain and every re-placed request completes on r1; route.requests and
+   serve.requests 48, route.replaced the number re-placed, both in the
+   registry's Prometheus text; from the written chrome trace, every
+   request's serve.queue_wait, serve.prefill and serve.decode carry its
+   request id and its route.place span id as parent; r0 drained, removed,
+   and the card's allocated bytes fall by at least its pages and weights.
+   Then SIGTERM in mid-decode on a third engine (admission closes, drain()
+   completes the 8 requests, one preemption counted, no page in use), a
+   drain(timeout_s=0) on a fourth (8 requests "drained", pages released),
+   and a CapacityController (injected clock) that scales out on a page
+   alert through a spawn on the card (r1 shed: the spawned r2 serves 8
+   requests, the reference's tokens) and back in, reaping r2. Printed with
+   the card's name and power limit: both decode tokens/s, p50 route.place
+   host us, elastic.drain_ms, r0's drain, the phase's seconds.
 5. profile: torch.profiler's CUDA kernel time in one scoring forward and in
    one decode chunk (contiguous, then paged), over their untraced wall time
    (the device's busy share), with the kernels that take the most time.
@@ -196,6 +221,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -203,6 +229,7 @@ import math
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1218,6 +1245,325 @@ def phase_serve_spec(model):
              / base_tps)
     emit(phase="serve_spec", summary=True, eos_request=SPEC_EOS_REQUEST, eos_token=eos,
          eos_after_tokens=len(base[SPEC_EOS_REQUEST]), near_ties=ties)
+
+
+FLEET_PREFIX_TOKENS = 192   # serve_fleet: each tenant's shared prompt prefix, 3 pages of 64
+FLEET_SCENARIO_S = 3.27     # ... the scenario's span: 48 Poisson arrivals at seed 7
+FLEET_REQUESTS = 48
+FLEET_DRAIN_AFTER = 24      # ... submissions before r0 begins draining
+FLEET_ENGINE = dict(ladder=(64, 128, 256), max_seq_len=512, max_new_cap=32,
+                    steps_per_dispatch=8, kv_layout="paged", kv_page_tokens=64)
+
+
+def _fleet_scenario():
+    """serve_fleet's traffic: 48 Poisson arrivals (16/s, seed 7) from 4
+    Zipf-skewed tenants, tails of 16-64 tokens, 32 new tokens each."""
+    from paddle_tpu_torch.serving import loadgen
+
+    return loadgen.Scenario(
+        "serve_fleet", seed=7, duration_s=FLEET_SCENARIO_S,
+        arrival={"process": "poisson", "rate_rps": 16.0},
+        prompt_len={"dist": "lognormal", "median": 32, "sigma": 0.5, "min": 16, "max": 64},
+        max_new={"dist": "fixed", "value": 32}, tenants=loadgen.zipf_tenants(4))
+
+
+class _DrainAfter:
+    """The LoadGenerator's target: the router, with ``begin_drain(name)``
+    at the first submission from the n-th on that lands on ``name`` (so
+    its queue holds work to re-place), and the time the drain takes."""
+
+    def __init__(self, router, name, n):
+        self.router, self.name, self.n = router, name, n
+        self.submitted, self.replaced = 0, None
+        self.admitted_at_drain = self.drained_at_submission = None
+        self.t_drain = self.drain_s = None
+
+    def submit(self, prompt_ids, **kw):
+        req = self.router.submit(prompt_ids, **kw)
+        self.submitted += 1
+        if (self.replaced is None and self.submitted >= self.n
+                and self.router.recent_placements()[-1]["replica"] == self.name):
+            self.drained_at_submission = self.submitted
+            eng = self.router.replicas[self.name]
+            self.t_drain = time.perf_counter()
+            self.replaced = self.router.begin_drain(self.name)
+            self.admitted_at_drain = len(eng._completed) + int(eng._active.sum())
+        return req
+
+    def step(self):
+        live = self.router.step()
+        if (self.t_drain is not None and self.drain_s is None
+                and self.router.drained(self.name)):
+            self.drain_s = time.perf_counter() - self.t_drain
+        return live
+
+    def pending(self):
+        return self.router.pending()
+
+
+def _tokens_or_tie(model, what, prompt, want, got):
+    """got equals want, or they first part where the scoring forward's two
+    logits are at most LOGITS_TOL apart (a near-tie: other GEMM shapes);
+    returns the tie or None."""
+    d = _first_divergence(model, prompt, want, got)
+    if d is None:
+        return None
+    j, gap, _ = d
+    if not gap <= LOGITS_TOL:
+        raise AssertionError(f"serve_fleet {what}: tokens differ at {j} where the logits "
+                             f"are {gap} apart (tol {LOGITS_TOL})")
+    return {"what": what, "position": j, "logit_gap": gap}
+
+
+def phase_serve_fleet(model):
+    """The serving fleet on GPT-2 124M (f32, paged, 64-token pages): one
+    16-slot engine serves the 48 requests as the reference; then a
+    ReplicaRouter over two 8-slot replicas, driven by the LoadGenerator on
+    the wall clock, drains r0 after 24 submissions and removes it; SIGTERM
+    and a timed-out drain on engines of their own; a CapacityController
+    (injected clock) scales out through a spawn on the card and back in.
+    The replicas step one after the other on the card's one stream."""
+    import signal
+
+    from paddle_tpu_torch.bench import card_name_and_power_limit
+    from paddle_tpu_torch.distributed import membership
+    from paddle_tpu_torch.observability import (CapacityController, CapacityPolicy,
+                                                metrics, slo, tracer)
+    from paddle_tpu_torch.serving import LoadGenerator, ReplicaRouter, ServingEngine
+
+    card = card_name_and_power_limit()
+    t_phase = time.perf_counter()
+    vocab = model.config.vocab_size
+    sc = _fleet_scenario()
+    rows = sc.schedule()
+    if len(rows) != FLEET_REQUESTS:
+        raise AssertionError(f"serve_fleet: the scenario has {len(rows)} arrivals")
+    rng = np.random.RandomState(7)
+    prefixes = {t["name"]: rng.randint(0, vocab, (FLEET_PREFIX_TOKENS,)).astype(np.int64)
+                for t in sc.tenants}
+
+    def prompt_of(row):
+        tail = sc.prompt_tokens(row["i"], row["prompt_len"], vocab)
+        return np.concatenate([prefixes[row["tenant"]], np.asarray(tail, np.int64)])
+
+    prompts = [prompt_of(r) for r in rows]
+
+    # the reference: one engine of 16 slots, all 48 requests at once
+    ref = ServingEngine(model, slot_count=16, **FLEET_ENGINE)
+    t0 = time.perf_counter()
+    ref_reqs = [ref.submit(p, max_new_tokens=32) for p in prompts]
+    ref.run()
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    if not all(r.done and r.outcome == "length" and len(r.tokens) == 32 for r in ref_reqs):
+        raise AssertionError("serve_fleet: the reference engine left a request unfinished")
+    want = [r.tokens for r in ref_reqs]
+    ref_tps = ref.decode_tokens / ref.decode_seconds
+    ref_occ = ref.decode_tokens / (ref._steps * ref.slot_count)
+    del ref, ref_reqs
+    torch.cuda.empty_cache()
+
+    # the fleet: registry and tracer on, the LoadGenerator on the wall clock
+    metrics.reset()
+    reg = metrics.enable()
+    tr = tracer.get_tracer()
+    tr.clear()
+    tr.enable()
+    engines = {n: ServingEngine(model, slot_count=8, **FLEET_ENGINE) for n in ("r0", "r1")}
+    router = ReplicaRouter(engines)
+    target = _DrainAfter(router, "r0", FLEET_DRAIN_AFTER)
+    lg = LoadGenerator(sc, target, prompt_fn=prompt_of, time_scale=1.0)
+    t0 = time.perf_counter()
+    handles = lg.run()
+    torch.cuda.synchronize()
+    fleet_wall = time.perf_counter() - t0
+    tr.disable()
+    r0, r1 = engines["r0"], engines["r1"]
+    replaced = {tuple(r.prompt_ids): r for r in target.replaced}
+    final = [req if req.done else replaced[tuple(req.prompt_ids)] for _, req in handles]
+    ties = [t for i, req in enumerate(final)
+            if (t := _tokens_or_tie(model, f"fleet request {i}", prompts[i], want[i],
+                                    req.tokens)) is not None]
+    if not all(r.done and r.outcome == "length" and len(r.tokens) == 32 for r in final):
+        raise AssertionError("serve_fleet: a fleet request did not complete")
+    if not router.prefix_routed > 0:
+        raise AssertionError("serve_fleet: no placement followed a cached prefix")
+    r1_done = {id(r) for r in r1._completed}
+    if target.replaced is None or not (
+            target.replaced and all(id(r) in r1_done for r in target.replaced)):
+        raise AssertionError("serve_fleet: a re-placed request did not complete on r1")
+    if len(r0._completed) != target.admitted_at_drain:
+        raise AssertionError(f"serve_fleet: r0 admitted {len(r0._completed)} requests, "
+                             f"{target.admitted_at_drain} before its drain")
+    counters = reg.snapshot(include_monitor=False)["counters"]
+    if (counters.get("route.requests") != FLEET_REQUESTS
+            or counters.get("route.replaced") != len(target.replaced)
+            or counters.get("serve.requests") != FLEET_REQUESTS):
+        raise AssertionError(f"serve_fleet: counters {counters}")
+    prom = reg.to_prometheus().splitlines()
+    for line in (f"paddle_tpu_serve_requests_total {FLEET_REQUESTS}",
+                 f"paddle_tpu_route_requests_total {FLEET_REQUESTS}"):
+        if line not in prom:
+            raise AssertionError(f"serve_fleet: the Prometheus text lacks {line!r}")
+    fleet_tps = ((r0.decode_tokens + r1.decode_tokens)
+                 / (r0.decode_seconds + r1.decode_seconds))
+    # mean active share of the slots over the decode steps
+    fleet_occ = ((r0.decode_tokens + r1.decode_tokens)
+                 / (r0._steps * r0.slot_count + r1._steps * r1.slot_count))
+
+    # the trace, from its file: every request's queue wait, prefill (a
+    # partial prefix hit's tail) and decode carry its request id and its
+    # placement's span id as their parent
+    with tempfile.TemporaryDirectory() as out_dir:
+        path = tr.export_chrome_trace(os.path.join(out_dir, "serve_fleet_trace.json"))
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = collections.defaultdict(list)
+    for e in events:
+        a = e.get("args") or {}
+        if "request" in a and e["name"].startswith("serve."):
+            spans[a["request"]].append(e)
+    places = [e for e in events if e["name"] == "route.place"]
+    for req in final:
+        ctx = req.trace_ctx
+        place = [e for e in places if e["args"]["span_id"] == ctx.parent_span]
+        if len(place) != 1 or place[0]["args"]["request_id"] != ctx.request_id:
+            raise AssertionError(f"serve_fleet trace: request {req.id} has no placement span")
+        mine = spans[req.id]
+        for name in ("serve.queue_wait", "serve.prefill", "serve.decode"):
+            got = [e for e in mine if e["name"] == name]
+            if len(got) != 1 or got[0]["args"].get("request_id") != ctx.request_id \
+                    or got[0]["args"].get("parent_span") != ctx.parent_span:
+                raise AssertionError(f"serve_fleet trace: request {req.id}'s {name} "
+                                     f"spans {got}")
+    place_us = statistics.median(e["dur"] for e in places)
+
+    # r0 drained: removed, its weights and pages freed
+    if not router.drained("r0"):
+        raise AssertionError("serve_fleet: r0 is not drained")
+    r0_bytes = r0.kv_cache_bytes() + sum(p.numel() * p.element_size()
+                                         for p in r0._net.parameters())
+    before = torch.cuda.memory_allocated()
+    router.remove_replica("r0")
+    del r0, engines["r0"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = before - torch.cuda.memory_allocated()
+    if freed < r0_bytes:
+        raise AssertionError(f"serve_fleet: removing r0 freed {freed} B, "
+                             f"below its {r0_bytes} B of pages and weights")
+
+    # SIGTERM in mid-decode: admission closes, drain() completes the slots
+    sig = ServingEngine(model, slot_count=8, **FLEET_ENGINE)
+    sig_reqs = [sig.submit(p, max_new_tokens=32) for p in prompts[:8]]
+    sig.step()
+    sig.step()
+    prev = signal.getsignal(signal.SIGTERM)
+    pre0 = membership.PREEMPTIONS.get()
+    try:
+        sig.install_sigterm_handler()
+        os.kill(os.getpid(), signal.SIGTERM)
+        if not sig._draining:
+            raise AssertionError("serve_fleet: SIGTERM did not close admission")
+        try:
+            sig.submit(prompts[8], max_new_tokens=32)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("serve_fleet: a draining engine took a request")
+        t0 = time.perf_counter()
+        sig.drain()
+        sig_drain_s = time.perf_counter() - t0
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    drain_ms = reg.histogram("elastic.drain_ms").snapshot()["max"]
+    if not (all(r.outcome == "length" and len(r.tokens) == 32 for r in sig_reqs)
+            and sig.stats()["pages_in_use"] == 0 and sig.stats()["draining"]
+            and membership.PREEMPTIONS.get() == pre0 + 1):
+        raise AssertionError("serve_fleet: the SIGTERM drain left work or pages")
+    ties += [t for i, r in enumerate(sig_reqs)
+             if (t := _tokens_or_tie(model, f"sigterm request {i}", prompts[i], want[i],
+                                     r.tokens)) is not None]
+    del sig
+
+    # drain(timeout_s=0): the active requests finish "drained", pages freed
+    cut = ServingEngine(model, slot_count=8, **FLEET_ENGINE)
+    cut_reqs = [cut.submit(p, max_new_tokens=32) for p in prompts[:8]]
+    cut.step()
+    in_use = cut.stats()["pages_in_use"]
+    cut.drain(timeout_s=0)
+    st = cut.stats()
+    if not (in_use > 0 and st["pages_in_use"] == 0 and not cut._completed
+            and all(r.outcome == "drained" for r in cut_reqs)):
+        raise AssertionError(f"serve_fleet: drain(timeout_s=0) left {st['pages_in_use']} "
+                             f"pages in use of {in_use}, outcomes "
+                             f"{[r.outcome for r in cut_reqs]}")
+    del cut
+
+    # capacity: a page alert scales out through a spawn on the card, the
+    # spawned replica serves (r1 shed), then idle with budget scales back in
+    clock = [10.0]
+    spawned = []
+
+    def spawn(name):
+        spawned.append(name)
+        return ServingEngine(model, slot_count=8, **FLEET_ENGINE)
+
+    spec = slo.ratio_slo("serve.availability", "serve.errors", "serve.requests", 0.99,
+                         windows=[slo.BurnWindow(40.0, 10.0, 2.0, "page")])
+    judge = slo.SloEngine(specs=[spec])
+    judge.tick(now=0.0, snapshot={"counters": {"serve.requests": 100.0}})
+    judge.tick(now=10.0, snapshot={"counters": {"serve.requests": 200.0,
+                                                "serve.errors": 50.0}})
+    ctl = CapacityController(router, spawn, slo_engine=judge, clock=lambda: clock[0],
+                             policy=CapacityPolicy(min_replicas=1, max_replicas=2,
+                                                   cooldown_s=5.0, idle_sustain_s=1.0))
+    decisions = [ctl.poll()]
+    router.shed("r1")
+    cap_reqs = [router.submit(p, max_new_tokens=32) for p in prompts[:8]]
+    router.run()
+    on_r2 = {id(r) for r in router.replicas["r2"]._completed}
+    router.unshed("r1")
+    for t in (100.0, 101.0):     # idle since the first poll: in, then reaped
+        clock[0] = t
+        judge.tick(now=t, snapshot={"counters": {"serve.requests": 200.0,
+                                                 "serve.errors": 50.0}})
+        decisions.append(ctl.poll())
+    r2_done = all(r.done and id(r) in on_r2 for r in cap_reqs)
+    if not ([d["action"] for d in decisions] == ["scale_out", "scale_in", "hold"]
+            and spawned == ["r2"] and sorted(router.replicas) == ["r1"]
+            and ctl.scale_outs == 1 and ctl.scale_ins == 1 and r2_done):
+        raise AssertionError(f"serve_fleet capacity: {[_d(d) for d in decisions]}, "
+                             f"replicas {sorted(router.replicas)}")
+    ties += [t for i, r in enumerate(cap_reqs)
+             if (t := _tokens_or_tie(model, f"spawned replica request {i}", prompts[i],
+                                     want[i], r.tokens)) is not None]
+    metrics.reset()
+    tr.clear()
+    torch.cuda.empty_cache()
+
+    wall = time.perf_counter() - t_phase
+    emit(phase="serve_fleet", card=card, requests=FLEET_REQUESTS,
+         reference_decode_tokens_per_s=ref_tps, fleet_decode_tokens_per_s=fleet_tps,
+         fleet_over_reference=fleet_tps / ref_tps, reference_occupancy=ref_occ,
+         fleet_occupancy=fleet_occ, reference_wall_s=ref_wall,
+         fleet_wall_s=fleet_wall, route_place_p50_us=place_us,
+         elastic_drain_ms=drain_ms, sigterm_drain_s=sig_drain_s,
+         r0_drain_s=target.drain_s, r0_drained_at_submission=target.drained_at_submission,
+         replaced=len(target.replaced),
+         prefix_routed=router.prefix_routed, routed=dict(router.routed),
+         r0_freed_bytes=freed, r0_pages_and_weights_bytes=r0_bytes,
+         capacity=[_d(d) for d in decisions], near_ties=ties, phase_s=wall)
+    for what, v in (("fleet decode tokens/s", fleet_tps),
+                    ("single-engine decode tokens/s", ref_tps),
+                    ("p50 route.place us", place_us),
+                    ("elastic.drain_ms", drain_ms), ("serve_fleet seconds", wall)):
+        print(f"serve_fleet: {what} {v:.3f} ({card})", flush=True)
+
+
+def _d(decision):
+    """A capacity decision without its wall clock and signals."""
+    return {k: v for k, v in decision.items() if k not in ("ts", "signals")}
 
 
 def _launch_counts():
@@ -3461,6 +3807,7 @@ def main() -> int:
     del logits
     phase_serve_paged(model)
     phase_serve_spec(model)
+    phase_serve_fleet(model)
     phase_profile(model, ids, forward_ms)
     del model
     torch.cuda.empty_cache()

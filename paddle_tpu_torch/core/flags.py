@@ -94,6 +94,20 @@ define_flag("ckpt_rollback", False,
             "a non-finite training loss restores the newest valid checkpoint "
             "in place of the diverged state (ckpt.rollbacks); one loss read "
             "a step while on")
+define_flag("elastic_lease_s", 5.0,
+            "membership heartbeat lease duration in seconds "
+            "(distributed/membership.py). A worker whose lease key is older "
+            "than this is treated as departed at the next coordinator poll "
+            "(elastic.lease_expiries counter); heartbeats refresh at a third "
+            "of the lease so one missed beat never evicts")
+define_flag("elastic_check_interval", 1,
+            "optimizer steps between ElasticCoordinator membership polls "
+            "when driving through coordinator.on_step(). 1 = re-form at the "
+            "very next step boundary after a join/leave lands")
+define_flag("elastic_drain_timeout_s", 30.0,
+            "serving-replica drain bound: a SIGTERM'd ServingEngine stops "
+            "admission and runs active slots to completion for at most this "
+            "long before retiring (elastic.drain_ms histogram)")
 define_flag("kv_page_tokens", 64,
             "tokens per KV-cache page for the paged serving layout "
             "(serving/kv_pages.py). Smaller pages waste fewer bytes on the "

@@ -52,15 +52,36 @@ then trained with its dropout), cast as ``generate`` casts them under the
 ``auto_cast`` active at construction (matrices in the matmul autocast dtype,
 the KV cache in the attention autocast dtype); every prefill and decode
 chunk runs under that captured context, wherever ``run()`` is called. Call
-``refresh_params()`` after updating the model (and the draft). Not ported
-yet: the replica router, drain/SIGTERM, the telemetry sinks (among them the
-speculative metrics and trace span) and the executable registry with
-``precompile`` (PyTorch runs eagerly; there is nothing to compile).
+``refresh_params()`` after updating the model (and the draft).
+
+Fleet and telemetry (reference engine.py:156-240, :388-527, :2061-2202):
+- **Drain.** ``begin_drain()`` closes admission (``submit`` raises, queued
+  requests stay queued for the router to re-place); ``drain(timeout_s)``
+  runs the active slots to completion, or on timeout finishes each as
+  ``outcome="drained"`` and releases its pages, then ``retire()``s the
+  ``register_replica`` lease. ``install_sigterm_handler()`` makes SIGTERM
+  close admission: the handler only flips the flag (no CUDA work, no lock);
+  the preemption is counted on the serving thread at its next call.
+- **Telemetry**, each dark until enabled: a ``sink`` (``serve_request`` and
+  ``serve_step`` records, and an ``exec_registry`` rollup), the metrics
+  registry (``serve.*`` histograms and gauges, ``serve.replica.<name>.*``
+  once a router names the replica, ``spec.accept_rate``), the tracer's
+  spans (``serve.enqueue``, ``serve.queue_wait``, ``serve.prefill``,
+  ``serve.decode``, ``serve.request``, ``serve.retire``,
+  ``serve.prefix_replay``, ``serve.decode_step``, ``serve.verify_step``;
+  tagged with the router's ``TraceContext``) and flight-recorder dumps on a
+  failed dispatch. ``core.monitor`` counts ``serving.outcome.<outcome>``
+  for every finished request.
+Not ported: the executable registry with ``precompile`` (PyTorch runs
+eagerly; there is nothing to compile). The rollup record keeps the
+reference's executable labels (``serve.prefill_b<rung>``,
+``serve.decode_<family>``, ...) with the port's dispatch counts.
 """
 from __future__ import annotations
 
 import copy
 import itertools
+import signal
 import threading
 import time
 from collections import deque
@@ -71,6 +92,10 @@ import torch
 
 from ..amp import amp_ctx, amp_scope
 from ..core import flags, monitor
+from ..observability import exporter as _obs_exporter
+from ..observability import flight_recorder as _obs_flight
+from ..observability import metrics as _obs_metrics
+from ..observability import tracer as _obs_tracer
 from . import kv_pages
 from .bucketing import DEFAULT_LADDER, bucket_for, clip_ladder
 from .prefix_cache import RadixPrefixCache
@@ -78,6 +103,10 @@ from .sampling import (filtered_probs, gumbel_noise, residual_sample,
                        sample_tokens, spec_draws)
 
 _NO_EOS = -1
+
+# slot-occupancy fractions live in (0, 1]: linear buckets, not the default
+# log-spaced latency boundaries
+_OCCUPANCY_BUCKETS = tuple(round(0.1 * i, 1) for i in range(1, 11))
 
 
 def spec_commit(logits, props, off, tok, active, n_draft, eos, remaining,
@@ -163,8 +192,15 @@ class Request:
     _ids = itertools.count()
 
     def __init__(self, prompt_ids, max_new_tokens, temperature, top_k, top_p,
-                 eos_token_id, seed, speculate_k=0):
+                 eos_token_id, seed, trace_ctx=None, tenant=None,
+                 speculate_k=0):
         self.id = next(Request._ids)
+        # tenant attribution (loadgen.py scenarios), carried into the
+        # serve_request record; None = untagged
+        self.tenant = tenant if tenant is None else str(tenant)
+        # fleet trace identity (fleet.TraceContext, set by the router):
+        # engine-side spans carry its request id and placement span
+        self.trace_ctx = trace_ctx
         self.prompt_ids = np.asarray(prompt_ids, np.int64).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
@@ -194,8 +230,9 @@ class Request:
         self.first_token_ts: Optional[float] = None
         self.done_ts: Optional[float] = None
         self.finish_reason: Optional[str] = None  # "eos" | "length"
-        # terminal disposition: "eos" | "length" | "ok", or "error" when the
-        # prefill or decode dispatch raised
+        # terminal disposition: "eos" | "length" | "ok", "drained" (a drain
+        # timeout cut it short) or "error" (a prefill or decode dispatch
+        # raised)
         self.outcome: Optional[str] = None
 
     @property
@@ -223,6 +260,15 @@ class Request:
             return None
         return (self.done_ts - self.first_token_ts) / (len(self.tokens) - 1)
 
+    def trace_args(self, **kw) -> dict:
+        """Span args of this request's trace events: the local id plus the
+        fleet request id and parent placement span, if any."""
+        out = {"request": self.id}
+        if self.trace_ctx is not None:
+            out.update(self.trace_ctx.span_args())
+        out.update(kw)
+        return out
+
     def output_ids(self):
         """[prompt + generated] (no post-EOS padding)."""
         return np.concatenate(
@@ -246,7 +292,10 @@ class ServingEngine:
     contiguous worst case, so the pool never runs out) and kv_cache_dtype
     "auto" | "bf16" | "int8" (FLAGS_kv_cache_dtype). draft_model (a
     GPTForPretraining of the target's vocabulary, on its device) enables
-    speculative decoding, with windows of the spec_ladder rungs.
+    speculative decoding, with windows of the spec_ladder rungs. sink: an
+    object with write(dict)/close() receiving one "serve_request" record a
+    finished request and one "serve_step" record a dispatch (None = no
+    telemetry).
 
     One thread drives it: submit() is thread-safe, step()/run() must be called
     from one thread.
@@ -256,7 +305,7 @@ class ServingEngine:
                  ladder: Sequence[int] = DEFAULT_LADDER,
                  max_seq_len: Optional[int] = None,
                  max_new_cap: int = 64, steps_per_dispatch: int = 8,
-                 kv_layout: str = "contiguous",
+                 sink=None, kv_layout: str = "contiguous",
                  kv_page_tokens: Optional[int] = None,
                  kv_num_pages: Optional[int] = None,
                  kv_cache_dtype: Optional[str] = None,
@@ -302,11 +351,27 @@ class ServingEngine:
         # chunk, at the cost of retired slots idling masked until it ends
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
         self.device = model.device
+        self.sink = sink
+        # PADDLE_TPU_METRICS_PORT / PADDLE_TPU_FLIGHT_DIR opt-ins: one getenv
+        # each when unset
+        _obs_exporter.ensure_started_from_env()
+        _obs_flight.ensure_from_env()
 
         self._lock = threading.Lock()
         self._queue: deque[Request] = deque()
         self._completed: List[Request] = []
         self._steps = 0
+        # drain state (distributed/membership.py protocol): once draining,
+        # submit() refuses and admission stops; active slots run to the end
+        self._draining = False
+        self._sigterm_pending = False    # set by the SIGTERM handler
+        self._replica_agent = None
+        self._prev_sigterm = None
+        # set by the ReplicaRouter (or the owner): _finish then also
+        # publishes serve.replica.<name>.* metrics
+        self.replica_name: Optional[str] = None
+        # dispatches by the reference's executable label (the rollup record)
+        self._dispatches: Dict[str, int] = {}
         # host-clock time spent in decode chunks and the tokens they emitted
         # (decode tokens/s = decode_tokens / decode_seconds)
         self.decode_seconds = 0.0
@@ -407,13 +472,21 @@ class ServingEngine:
     # ------------------------------------------------------------- public
     def submit(self, prompt_ids, max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-               eos_token_id=None, seed: int = 0,
-               speculate_k: int = 0) -> Request:
+               eos_token_id=None, seed: int = 0, trace_ctx=None,
+               tenant=None, speculate_k: int = 0) -> Request:
         """Enqueue a request; returns the live Request handle (tokens fill
         in as the engine runs). max_new_tokens is clamped to the engine cap
-        and to the cache room left after the prompt's bucket. speculate_k >
-        0 opts the request into speculative decoding (snapped up to a
-        spec_ladder rung; needs a draft model)."""
+        and to the cache room left after the prompt's bucket. trace_ctx
+        (fleet.TraceContext) threads a fleet request id and parent span
+        through every span of the request; tenant tags its serve_request
+        record. speculate_k > 0 opts the request into speculative decoding
+        (snapped up to a spec_ladder rung; needs a draft model). Raises
+        while the engine drains."""
+        self._settle_sigterm()
+        if self._draining:
+            raise RuntimeError(
+                "ServingEngine is draining (SIGTERM/begin_drain): admission "
+                "is closed; submit to a live replica")
         if speculate_k:
             if speculate_k < 0:
                 raise ValueError(
@@ -423,7 +496,8 @@ class ServingEngine:
                     "speculate_k > 0 needs a draft model: construct the "
                     "engine with draft_model=")
         req = Request(prompt_ids, max_new_tokens, temperature, top_k, top_p,
-                      eos_token_id, seed, speculate_k)
+                      eos_token_id, seed, trace_ctx=trace_ctx, tenant=tenant,
+                      speculate_k=speculate_k)
         plen = len(req.prompt_ids)
         req.bucket = bucket_for(plen, self.ladder)  # raises if oversize
         room = self.max_seq_len - req.bucket
@@ -433,13 +507,19 @@ class ServingEngine:
         with self._lock:
             req.queue_depth_at_submit = len(self._queue)
             self._queue.append(req)
+        tr = _obs_tracer.get_tracer()
+        if tr.enabled:
+            tr.instant("serve.enqueue", **req.trace_args(
+                queue_depth=req.queue_depth_at_submit))
         return req
 
     def step(self) -> int:
-        """Admit queued requests into free slots (bucketed prefill), then
-        run ONE dispatch for all slots: a verify window while an active slot
-        speculates, else a decode chunk. Returns the number of live slots
-        after the step (0 = fully drained)."""
+        """Admit queued requests into free slots (bucketed prefill; none
+        while draining), then run ONE dispatch for all slots: a verify
+        window while an active slot speculates, else a decode chunk.
+        Returns the number of live slots after the step (0 = fully
+        drained)."""
+        self._settle_sigterm()
         with amp_scope(self._amp):
             self._admit()
             if self._active.any():
@@ -451,12 +531,115 @@ class ServingEngine:
         returns the requests completed during this call."""
         done0 = len(self._completed)
         steps = 0
-        while self._queue or self._active.any():
+        while (self._queue and not self._draining) or self._active.any():
             self.step()
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break
+        if steps:
+            self._emit_registry_rollup()
         return self._completed[done0:]
+
+    # ---------------------------------------------------- elastic replica
+    def register_replica(self, store, replica_id: str,
+                         lease_s: Optional[float] = None):
+        """Join the serving fleet: heartbeat a ``replica/<rid>`` lease under
+        the current membership generation (distributed/membership.py).
+        Returns the WorkerAgent; ``retire()`` (and so ``drain()``) releases
+        the lease."""
+        from ..distributed.membership import WorkerAgent
+
+        agent = WorkerAgent(store, replica_id, lease_s=lease_s,
+                            kind="replica")
+        agent.register()
+        agent.start_heartbeat()
+        self._replica_agent = agent
+        return agent
+
+    def begin_drain(self, reason: str = "drain") -> None:
+        """Stop admission now (submit() refuses, queued requests stay
+        queued for a live replica); active slots keep decoding. Idempotent.
+        reason "sigterm" counts ``elastic.preemptions``."""
+        if self._draining:
+            return
+        self._draining = True
+        if reason == "sigterm":
+            self._count_preemption()
+
+    @staticmethod
+    def _count_preemption() -> None:
+        from ..distributed import membership as _membership
+
+        _membership.PREEMPTIONS.increase()
+        mreg = _obs_metrics.active_registry()
+        if mreg is not None:
+            mreg.counter("elastic.preemptions").inc()
+
+    def _settle_sigterm(self) -> None:
+        """Count a SIGTERM the handler noted (on the serving thread: the
+        counters take locks the handler must not)."""
+        if self._sigterm_pending:
+            self._sigterm_pending = False
+            self._count_preemption()
+
+    def drain(self, timeout_s: Optional[float] = None) -> List[Request]:
+        """Run active slots to completion (admission closed), deregister the
+        replica lease, and return the requests completed during the drain.
+        Bounded by ``timeout_s`` (FLAGS_elastic_drain_timeout_s): past it,
+        every request still decoding finishes as ``outcome="drained"`` (not
+        a completion) and its slot and pages are released. Records
+        ``elastic.drain_ms`` in the metrics registry."""
+        self._settle_sigterm()
+        self.begin_drain()
+        tmo = float(timeout_s if timeout_s is not None
+                    else flags.flag("elastic_drain_timeout_s"))
+        t0 = time.perf_counter()
+        done0 = len(self._completed)
+        while self._active.any():
+            if time.perf_counter() - t0 > tmo:
+                for slot in np.nonzero(self._active)[0]:
+                    req = self._slot_req[slot]
+                    self._active[slot] = False
+                    self._slot_req[slot] = None
+                    if self.kv_layout == "paged":
+                        self._release_slot(slot)
+                    if req is not None and req.done_ts is None:
+                        self._finish(req, outcome="drained")
+                break
+            with amp_scope(self._amp):
+                self._advance_step()
+        drain_ms = (time.perf_counter() - t0) * 1000.0
+        mreg = _obs_metrics.active_registry()
+        if mreg is not None:
+            mreg.histogram("elastic.drain_ms").observe(drain_ms)
+        self._emit_registry_rollup()
+        self.retire()
+        return self._completed[done0:]
+
+    def retire(self) -> None:
+        """Deregister the replica lease (graceful leave; reason "sigterm"
+        while draining). Idempotent; a no-op without register_replica."""
+        self._settle_sigterm()
+        if self._replica_agent is not None:
+            self._replica_agent.announce_leave(
+                "sigterm" if self._draining else "leave")
+            self._replica_agent = None
+
+    def install_sigterm_handler(self) -> None:
+        """SIGTERM -> close admission, then chain the previous handler. The
+        handler only sets two flags: no CUDA work, no lock the serving
+        thread may hold. The drain itself runs on the serving thread:
+        run() returns once the active slots empty, or the owner calls
+        drain()."""
+        def _on_sigterm(signum, frame):
+            if not self._draining:
+                self._sigterm_pending = True
+                self._draining = True
+            prev = self._prev_sigterm
+            if callable(prev):
+                prev(signum, frame)
+
+        self._prev_sigterm = signal.signal(signal.SIGTERM, _on_sigterm)
 
     @torch.no_grad()
     def score_prompt(self, prompt_ids) -> torch.Tensor:
@@ -470,14 +653,13 @@ class ServingEngine:
 
     def stats(self) -> Dict[str, Any]:
         """The reference's ``stats()`` keys but its executable counts (the
-        port runs eagerly and compiles nothing); ``draining`` is always
-        False (drain is not ported)."""
+        port runs eagerly and compiles nothing)."""
         out = {
             "steps": self._steps,
             "completed": len(self._completed),
             "queued": len(self._queue),
             "active_slots": int(self._active.sum()),
-            "draining": False,
+            "draining": self._draining,
             "slot_count": self.slot_count,
             "ladder": self.ladder,
             "kv_layout": self.kv_layout,
@@ -606,6 +788,7 @@ class ServingEngine:
             (r for r in self.spec_ladder if r >= req.speculate_k),
             self.spec_ladder[-1])
         monitor.stat("serving.draft_prefill_dispatches").increase()
+        self._note_dispatch(f"serve.dprefill_b{req.bucket}")
         bucket, plen = req.bucket, len(req.prompt_ids)
         padded = torch.zeros((1, bucket), dtype=torch.long)
         padded[0, :plen] = torch.from_numpy(req.prompt_ids)
@@ -613,10 +796,43 @@ class ServingEngine:
                   for kc, vc in zip(self._dkcs, self._dvcs)]
         self._dnet.gpt(padded.to(self.device), caches=caches)
 
+    @staticmethod
+    def _note_queue_wait(req: Request) -> None:
+        """The ``serve.queue_wait`` span and histogram, submit to admission."""
+        tr = _obs_tracer.get_tracer()
+        if tr.enabled:
+            tr.record_complete("serve.queue_wait", req.submit_ts,
+                               req.admit_ts, req.trace_args())
+        mreg = _obs_metrics.active_registry()
+        if mreg is not None:
+            mreg.histogram("serve.queue_wait_ms").observe(
+                req.queue_wait_s * 1e3)
+
+    @staticmethod
+    def _note_prefill(req: Request, **span_args) -> None:
+        """The ``serve.prefill`` span and histogram, admission to the first
+        token (reference :1071-1082, :1253-1261)."""
+        tr = _obs_tracer.get_tracer()
+        if tr.enabled:
+            tr.record_complete("serve.prefill", req.admit_ts,
+                               req.first_token_ts, req.trace_args(**span_args))
+        mreg = _obs_metrics.active_registry()
+        if mreg is not None:
+            mreg.histogram("serve.prefill_ms").observe(
+                (req.first_token_ts - req.admit_ts) * 1e3)
+
+    def _prefill_failed(self, req: Request, e: Exception, **where) -> None:
+        """A prefill dispatch raised: dump the flight ring, finish the
+        request as an error (the caller re-raises)."""
+        fr = _obs_flight.get()
+        if fr is not None:
+            fr.dump("serve_prefill_exception",
+                    {"request": req.id, **where, "error": repr(e)})
+        self._finish(req, outcome="error")
+
     def _after_first_token(self, req: Request, slot: int, first: int) -> None:
         """Record the prefill's token; retire the request at once when it is
         eos or the budget is one token, else seat it for decode."""
-        req.first_token_ts = time.perf_counter()
         req.slot = slot
         req.tokens.append(first)
         self._count_tokens(1)
@@ -632,6 +848,8 @@ class ServingEngine:
 
     @torch.no_grad()
     def _admit(self) -> None:
+        if self._draining:
+            return
         while True:
             with self._lock:
                 if not self._queue:
@@ -648,12 +866,16 @@ class ServingEngine:
                 continue
             req.admit_ts = time.perf_counter()    # queue wait ends here
             monitor.stat("serving.prefill_dispatches").increase()
+            self._note_dispatch(f"serve.prefill_b{req.bucket}")
             try:
                 first = self._first_token(
                     req, self._prefill(req.prompt_ids, req.bucket, slot))
-            except Exception:
-                self._finish(req, outcome="error")
+            except Exception as e:
+                self._prefill_failed(req, e, bucket=req.bucket)
                 raise
+            req.first_token_ts = time.perf_counter()
+            self._note_queue_wait(req)
+            self._note_prefill(req, bucket=req.bucket, slot=slot)
             self._after_first_token(req, slot, first)
 
     # ---- paged admission -----------------------------------------------
@@ -713,6 +935,7 @@ class ServingEngine:
         self._tables[slot, :] = 0
         self._tables[slot, :k_shared] = shared
         self._slot_pages[slot] = [int(p) for p in shared]
+        self._note_queue_wait(req)
 
         if k_shared * pt >= plen:
             # full hit: a replay seat, no prefill; the first token comes out
@@ -720,6 +943,10 @@ class ServingEngine:
             monitor.stat("serving.prefill_skips").increase()
             req.tail_bucket = 0
             req.slot = slot
+            tr = _obs_tracer.get_tracer()
+            if tr.enabled:
+                tr.instant("serve.prefix_replay", **req.trace_args(
+                    slot=slot, shared_tokens=req.shared_tokens))
             self._replay[slot] = True
             self._seat(req, slot, plen - 1, int(req.prompt_ids[-1]),
                        req.max_new_tokens)
@@ -737,12 +964,15 @@ class ServingEngine:
             self._tables[slot, pi] = page
             self._slot_pages[slot].append(page)
         monitor.stat("serving.prefill_dispatches").increase()
+        self._note_dispatch(f"serve.prefill_b{tbucket}")
         try:
             first = self._first_token(req, self._prefill_paged(
                 req.prompt_ids[base:], tbucket, base, slot))
-        except Exception:
-            self._finish(req, outcome="error")
+        except Exception as e:
+            self._prefill_failed(req, e, bucket=tbucket, base=base)
             raise
+        req.first_token_ts = time.perf_counter()
+        self._note_prefill(req, bucket=tbucket, base=base, slot=slot)
         # publish this prompt's fully written pages for later sharers
         full_pages = plen // pt
         if full_pages > k_shared:
@@ -840,15 +1070,17 @@ class ServingEngine:
     def _decode_step(self) -> None:
         # an all-greedy slot set skips the sampling work entirely
         greedy_only = not self._temps[self._active].any()
+        family = "greedy" if greedy_only else "sample"
         paged = self.kv_layout == "paged"
+        self._note_dispatch(f"serve.decode_{family}")
         t0 = time.perf_counter()
         try:
             if paged:
                 self._prealloc_pages(self.steps_per_dispatch - 1)
             (toks, was_active, hits, off, tok, active, remaining,
              *replay) = self._decode_chunk(greedy_only)
-        except Exception:
-            self._fail_active()
+        except Exception as e:
+            self._dispatch_failed("serve_decode_exception", e, family=family)
             raise
         self._offsets = off.copy()
         self._last_tok = tok.copy()
@@ -857,8 +1089,12 @@ class ServingEngine:
         if paged:
             self._replay = replay[0].copy()
         n_inner = toks.shape[0]
-        self._steps += n_inner
         now = time.perf_counter()
+        tr = _obs_tracer.get_tracer()
+        if tr.enabled:
+            tr.record_complete("serve.decode_step", t0, now,
+                               {"step": self._steps, "family": family})
+        self._steps += n_inner
         self.decode_seconds += now - t0    # the chunk ends in a device read
         emitted = int(was_active.sum())
         self.decode_tokens += emitted
@@ -878,6 +1114,13 @@ class ServingEngine:
                     self._finish(req, now)
         self._count_tokens(emitted)
         monitor.stat("serving.steps").increase(n_inner)
+        occupancy = float(was_active.mean())
+        mreg = _obs_metrics.active_registry()
+        if mreg is not None:
+            mreg.histogram("serve.decode_step_ms").observe((now - t0) * 1e3)
+            self._note_step_gauges(mreg, occupancy)
+        self._emit_step_record(n_inner, int(was_active[0].sum()), occupancy,
+                               emitted)
 
     # ---- speculative decoding: dispatch choice and verify ----------------
     def _spec_dispatch_rung(self) -> int:
@@ -985,7 +1228,9 @@ class ServingEngine:
         windows, then each slot's tokens, its spec counts, the paged
         rollback past the accepted frontier, and the retirements."""
         greedy_only = not self._temps[self._active].any()
+        family = "greedy" if greedy_only else "sample"
         paged = self.kv_layout == "paged"
+        self._note_dispatch(f"serve.verify_{family}_k{k}")
         # the window, clamped so it never outruns the budget (paged writes
         # stay inside the admission reservation) or the cache end; 0 on
         # non-spec rows, which then emit one decode token (reference
@@ -1000,8 +1245,9 @@ class ServingEngine:
             if paged:
                 self._prealloc_pages(n_draft)
             res = self._verify(k, n_draft, greedy_only)
-        except Exception:
-            self._fail_active()
+        except Exception as e:
+            self._dispatch_failed("serve_verify_exception", e, family=family,
+                                  k=k)
             raise
         emit = res[:, :k + 1]
         m, a, hits, off, tok, active, remaining, replay = res[:, k + 1:].T
@@ -1011,9 +1257,14 @@ class ServingEngine:
         self._remaining = remaining.copy()
         if paged:
             self._replay = replay.astype(bool)
-        self._steps += 1
         now = time.perf_counter()
+        tr = _obs_tracer.get_tracer()
+        if tr.enabled:
+            tr.record_complete("serve.verify_step", t0, now,
+                               {"step": self._steps, "family": family, "k": k})
+        self._steps += 1
         self.decode_seconds += now - t0    # the dispatch ends in a device read
+        mreg = _obs_metrics.active_registry()
         emitted = proposed = accepted = bonus = 0
         for slot in np.nonzero(active_before)[0]:
             req = self._slot_req[slot]
@@ -1029,6 +1280,9 @@ class ServingEngine:
             proposed += nd
             accepted += acc
             bonus += bn
+            if nd and mreg is not None:
+                mreg.histogram("spec.accept_rate",
+                               boundaries=_OCCUPANCY_BUCKETS).observe(acc / nd)
             if paged:
                 # the pages wholly past the accepted frontier hold only
                 # rejected rows: always the slot's own
@@ -1048,14 +1302,82 @@ class ServingEngine:
         monitor.stat("serving.spec.proposed").increase(proposed)
         monitor.stat("serving.spec.accepted").increase(accepted)
         monitor.stat("serving.spec.bonus").increase(bonus)
+        occupancy = float(active_before.mean())
+        if mreg is not None:
+            mreg.counter("serve.spec.proposed").inc(proposed)
+            mreg.counter("serve.spec.accepted").inc(accepted)
+            mreg.counter("serve.spec.bonus").inc(bonus)
+            mreg.histogram("serve.decode_step_ms").observe((now - t0) * 1e3)
+            self._note_step_gauges(mreg, occupancy)
+        # one target forward a verify dispatch: steps_per_dispatch 1
+        self._emit_step_record(1, int(active_before.sum()), occupancy, emitted,
+                               spec=True, spec_window=k, spec_proposed=proposed,
+                               spec_accepted=accepted, spec_bonus=bonus)
 
     # ---- bookkeeping ---------------------------------------------------
-    def _fail_active(self) -> None:
-        """A failed dispatch takes every in-flight request with it."""
+    def _dispatch_failed(self, reason: str, e: Exception, **where) -> None:
+        """A failed decode or verify dispatch dumps the flight ring and
+        takes every in-flight request with it, each finished as an error
+        (the caller re-raises)."""
+        fr = _obs_flight.get()
+        if fr is not None:
+            fr.dump(reason, {"step": self._steps, **where, "error": repr(e)})
         for slot in np.nonzero(self._active)[0]:
             req = self._slot_req[slot]
             if req is not None and req.done_ts is None:
                 self._finish(req, outcome="error")
+
+    def _note_dispatch(self, label: str) -> None:
+        self._dispatches[label] = self._dispatches.get(label, 0) + 1
+
+    def _note_step_gauges(self, mreg, occupancy: float) -> None:
+        mreg.histogram("serve.occupancy",
+                       boundaries=_OCCUPANCY_BUCKETS).observe(occupancy)
+        mreg.gauge("serve.queue_depth").set(len(self._queue))
+        mreg.gauge("serve.active_slots").set(int(self._active.sum()))
+        if self.kv_layout == "paged":
+            mreg.gauge("serve.pages_in_use").set(self._pool.in_use)
+            mreg.gauge("serve.pages_cached").set(self._pool.cached)
+            mreg.gauge("serve.prefix_hit_rate").set(self._prefix.hit_rate)
+
+    def _emit_step_record(self, n_steps: int, active_slots: int,
+                          occupancy: float, tokens: int, **spec) -> None:
+        """One ``serve_step`` record a dispatch to the sink and the flight
+        ring (reference :1956-1980, :2098-2119); occupancy is the mean over
+        the dispatch's steps (retired slots idle masked until it ends)."""
+        fr = _obs_flight.get()
+        if self.sink is None and fr is None:
+            return
+        rec = {"event": "serve_step", "step": self._steps, "ts": time.time(),
+               "steps_per_dispatch": n_steps, "active_slots": active_slots,
+               "slot_count": self.slot_count, "occupancy": round(occupancy, 4),
+               "queue_depth": len(self._queue), "tokens": tokens, **spec}
+        if self.kv_layout == "paged":
+            rec["pages_in_use"] = self._pool.in_use
+            rec["pages_cached"] = self._pool.cached
+            rec["prefix_hit_rate"] = round(self._prefix.hit_rate, 4)
+        if self.sink is not None:
+            self.sink.write(rec)
+        if fr is not None:
+            fr.record(rec)
+
+    def _emit_registry_rollup(self) -> None:
+        """Cumulative ``exec_registry`` record for the sink and the flight
+        ring (reference :816-830). The port compiles nothing: the record
+        keeps the reference's executable labels, each with its dispatch
+        count, and no hit, miss or compile fields."""
+        fr = _obs_flight.get()
+        if self.sink is None and fr is None:
+            return
+        rec = {"event": "exec_registry", "ts": time.time(), "registry": "serve",
+               "entries": len(self._dispatches),
+               "dispatches": sum(self._dispatches.values()),
+               "labels": {lbl: {"dispatches": n}
+                          for lbl, n in sorted(self._dispatches.items())}}
+        if self.sink is not None:
+            self.sink.write(rec)
+        if fr is not None:
+            fr.record(rec)
 
     @staticmethod
     def _count_tokens(n: int) -> None:
@@ -1064,8 +1386,75 @@ class ServingEngine:
 
     def _finish(self, req: Request, now: Optional[float] = None,
                 outcome: Optional[str] = None) -> None:
+        """The request leaves the engine (reference :2127-2202): normal
+        completions inherit finish_reason ("ok" as the fallback) and join
+        ``_completed``; "error" and "drained" are passed explicitly and stay
+        out of it. Counts ``serving.outcome.<outcome>``, closes the
+        request's spans and writes its ``serve_request`` record."""
         req.done_ts = now if now is not None else time.perf_counter()
         req.outcome = outcome or req.outcome or req.finish_reason or "ok"
-        if req.outcome != "error":
+        if req.outcome not in ("error", "drained"):
             self._completed.append(req)
         monitor.stat("serving.requests").increase()
+        monitor.stat("serving.outcome." + req.outcome).increase()
+        tr = _obs_tracer.get_tracer()
+        if tr.enabled:
+            # enqueue (instant at submit) -> queue_wait -> prefill (at
+            # admission) -> decode -> request envelope -> retire marker
+            if req.first_token_ts is not None:
+                tr.record_complete("serve.decode", req.first_token_ts,
+                                   req.done_ts,
+                                   req.trace_args(tokens=len(req.tokens)))
+            tr.record_complete("serve.request", req.submit_ts, req.done_ts,
+                               req.trace_args(finish=req.finish_reason))
+            tr.instant("serve.retire", **req.trace_args(slot=req.slot))
+        mreg = _obs_metrics.active_registry()
+        if mreg is not None:
+            mreg.counter("serve.requests").inc()
+            if req.outcome == "error":
+                mreg.counter("serve.errors").inc()
+            if req.ttft_s is not None:
+                mreg.histogram("serve.ttft_ms").observe(req.ttft_s * 1e3)
+            if req.tpot_s is not None:
+                mreg.histogram("serve.tpot_ms").observe(req.tpot_s * 1e3)
+            if self.replica_name:
+                pfx = f"serve.replica.{self.replica_name}."
+                mreg.counter(pfx + "requests").inc()
+                if req.outcome == "error":
+                    mreg.counter(pfx + "errors").inc()
+                if req.ttft_s is not None:
+                    mreg.histogram(pfx + "ttft_ms").observe(req.ttft_s * 1e3)
+        fr = _obs_flight.get()
+        if self.sink is None and fr is None:
+            return
+        wall = max(req.done_ts - req.submit_ts, 1e-9)
+
+        def r6(v):
+            return round(v, 6) if v is not None else None
+
+        rec = {
+            "event": "serve_request", "request_id": req.id, "ts": time.time(),
+            "prompt_len": int(len(req.prompt_ids)),
+            "bucket": req.bucket, "slot": req.slot,
+            "new_tokens": len(req.tokens),
+            "finish_reason": req.finish_reason, "outcome": req.outcome,
+            "ttft_s": r6(req.ttft_s), "queue_wait_s": r6(req.queue_wait_s),
+            "tpot_s": r6(req.tpot_s), "wall_s": round(wall, 6),
+            "tokens_per_sec": round(len(req.tokens) / wall, 2),
+            "queue_depth_at_submit": req.queue_depth_at_submit,
+            "layout": self.kv_layout, "prefix_hit": req.prefix_hit,
+            "shared_tokens": req.shared_tokens,
+        }
+        if req.speculate_k:
+            rec["spec_k"] = req.speculate_k
+            rec["spec_proposed"] = req.spec_proposed
+            rec["spec_accepted"] = req.spec_accepted
+            rec["spec_bonus"] = req.spec_bonus
+        if req.tenant is not None:
+            rec["tenant"] = req.tenant
+        if req.trace_ctx is not None:
+            rec["fleet_request_id"] = req.trace_ctx.request_id
+        if self.sink is not None:
+            self.sink.write(rec)
+        if fr is not None:
+            fr.record(rec)

@@ -604,6 +604,47 @@ def test_engine_on_card_gives_the_cpu_engine_tokens(cuda, layout):
     assert out[0] == out[1]
 
 
+def test_router_over_two_engines_on_card_gives_one_engines_tokens(cuda):
+    """GPT-2 124M's width (2 layers), f32: 8 greedy requests behind two
+    shared 128-token prefixes, served by one paged engine of 8 slots and by
+    a ReplicaRouter over two paged engines of 4 slots (placement by queue,
+    occupancy and prefix locality; the second replica drains after half
+    the traffic, its queued work re-placed). The slot counts and the
+    prefix hits differ, so the GEMM shapes do: a request may part at a
+    near-tie of its scoring forward's logits (at most SPEC_TIE_TOL apart,
+    chip_smoke.py's LOGITS_TOL), and only there."""
+    from paddle_tpu_torch.serving import ReplicaRouter
+
+    cfg = GPTConfig(num_layers=2)
+    model = GPTForPretraining(cfg, seed=3)
+    rng = np.random.RandomState(8)
+    prefixes = [rng.randint(0, cfg.vocab_size, (128,)) for _ in range(2)]
+    prompts = [np.concatenate([prefixes[i % 2], rng.randint(0, cfg.vocab_size, (n,))])
+               for i, n in enumerate((7, 20, 33, 46, 59, 72, 85, 98))]
+    kw = dict(ladder=(64, 128, 256), max_new_cap=16, max_seq_len=512,
+              kv_layout="paged", kv_page_tokens=64)
+    one = ServingEngine(model, slot_count=8, **kw)
+    want = [one.submit(p, max_new_tokens=16) for p in prompts]
+    one.run()
+    router = ReplicaRouter([ServingEngine(model, slot_count=4, **kw) for _ in range(2)])
+    got = [router.submit(p, max_new_tokens=16) for p in prompts[:4]]
+    router.step()
+    got += [router.submit(p, max_new_tokens=16) for p in prompts[4:]]
+    replaced = {tuple(r.prompt_ids): r for r in router.begin_drain("r1")}
+    router.run()
+    got = [r if r.done else replaced[tuple(r.prompt_ids)] for r in got]
+    assert router.drained("r1") and router.stats()["prefix_routed"] > 0
+    assert all(r.done and len(r.tokens) == 16 for r in got + want)
+    for g, w in zip(got, want):
+        if g.tokens == w.tokens:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(g.tokens, w.tokens)) if a != b)
+        prefix = np.concatenate([w.prompt_ids, np.asarray(w.tokens[:j], np.int64)])
+        with torch.no_grad():
+            lg = model(torch.from_numpy(prefix)[None].cuda())[0, -1]
+        assert abs(lg[g.tokens[j]] - lg[w.tokens[j]]).item() <= SPEC_TIE_TOL
+
+
 SPEC_TIE_TOL = 2e-3   # chip_smoke.py's LOGITS_TOL: f32 logits, card vs CPU
 
 

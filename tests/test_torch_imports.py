@@ -121,3 +121,35 @@ def test_the_eager_fleet_modules_are_among_them():
             "paddle_tpu_torch.distributed.fleet.hybrid_parallel_optimizer"} <= set(_port_modules())
     path = ROOT / "tests" / "torch_fleet_workers.py"   # rank bodies; the card's machine has no jax
     assert not {r for r in _imported_roots(path) if r in FORBIDDEN}
+
+
+FLEET_MODULES = (
+    "paddle_tpu_torch.serving.router", "paddle_tpu_torch.serving.loadgen",
+    "paddle_tpu_torch.observability.metrics", "paddle_tpu_torch.observability.tracer",
+    "paddle_tpu_torch.observability.step_telemetry", "paddle_tpu_torch.observability.fleet",
+    "paddle_tpu_torch.observability.flight_recorder", "paddle_tpu_torch.observability.slo",
+    "paddle_tpu_torch.observability.capacity", "paddle_tpu_torch.observability.exporter",
+    "paddle_tpu_torch.distributed.store", "paddle_tpu_torch.distributed._py_store",
+    "paddle_tpu_torch.distributed.membership")
+
+
+def test_the_serving_fleet_modules_are_among_them():
+    assert set(FLEET_MODULES) <= set(_port_modules())
+    for mod in FLEET_MODULES:   # the AST scan's view of each, by name
+        path = ROOT / (mod.replace(".", "/") + ".py")
+        assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, mod
+
+
+@pytest.mark.parametrize("mod", FLEET_MODULES)
+def test_each_serving_fleet_module_alone_loads_no_jax(mod):
+    """Imported alone in a fresh process, each new module (and what it
+    imports) loads neither jax nor the JAX package."""
+    code = (f"import importlib, sys; importlib.import_module({mod!r}); "
+            f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r}); "
+            "print('LOADED', bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
