@@ -91,6 +91,28 @@ each:
    requests, the reference's tokens) and back in, reaping r2. Printed with
    the card's name and power limit: both decode tokens/s, p50 route.place
    host us, elastic.drain_ms, r0's drain, the phase's seconds.
+4d. quant: int8 quantization (incubate/quantization.py) on the same model:
+   bench_decode's run (8 rows, 128-token prompt, 64 new tokens, bf16 O1,
+   the second of two calls) of the model, of its weight-only int8 copy and
+   of a dynamic int8 copy in turns (plain, int8, dynamic, dynamic, int8,
+   plain), with the CUDA kernels a decode token launches; each model's card
+   bytes against those reckoned from GPTConfig (243431424 against
+   497903616). Hard: the weight-only model's int8 weights and scales equal
+   the CPU's, its f32 scoring logits of ids[:1] within LOGITS_TOL of the
+   CPU's with 12 launches of the 3xTF32 flash forward; the int8
+   activations and int32 accumulators of a dynamic and a static projection
+   (qkv and fc2 at 8 and 1024 rows) bit-equal to the CPU's; the weight-only
+   model served (f32, 8 slots, contiguous and 64-token pages) gives each of
+   8 greedy requests the tokens of its own greedy generate but at a
+   near-tie (LOGITS_TOL); QAT (ImperativeQuantAware on a fresh 124M, one
+   eager calibrating forward, then 1 + 3 TrainStepEngine steps, AdamW
+   1e-4, bf16 O1): finite falling losses, 12 tensor-core launches of each
+   flash kernel a step, every activation scale unmoved inside the engine,
+   then convert to weight_only_int8 and a greedy bf16 generate; PTQ: 48
+   scales from two calibration batches, static_int8 and a greedy f32
+   generate. Printed with the card's name and power limit: decode tokens/s
+   of the three, kernels a token, card bytes, the int8 and bf16 GEMM ms at
+   [1024, 768] x [768, 2304], the QAT step ms, the phase's seconds.
 5. profile: torch.profiler's CUDA kernel time in one scoring forward and in
    one decode chunk (contiguous, then paged), over their untraced wall time
    (the device's busy share), with the kernels that take the most time.
@@ -1559,6 +1581,285 @@ def phase_serve_fleet(model):
                     ("p50 route.place us", place_us),
                     ("elastic.drain_ms", drain_ms), ("serve_fleet seconds", wall)):
         print(f"serve_fleet: {what} {v:.3f} ({card})", flush=True)
+
+
+def quant_model_bytes(cfg, quantized):
+    """Bytes of GPT's parameters and buffers reckoned from ``cfg``: f32, or
+    with every projection weight-only int8 (a QuantizedLinear's int8 weight,
+    its f32 per-row scale and bias); embeddings and LayerNorms f32."""
+    h, f = cfg.hidden_size, cfg.ffn_hidden_size
+    proj = ((3 * h, h), (h, h), (f, h), (h, f))          # (out, in) of qkv, out, fc1, fc2
+    weights, rows = sum(o * i for o, i in proj), sum(o for o, _ in proj)
+    block = (weights + 8 * rows if quantized else 4 * (weights + rows)) + 4 * 4 * h
+    return 4 * (cfg.vocab_size * h + cfg.max_seq_len * h + 2 * h) + cfg.num_layers * block
+
+
+def _kernels_per_decode_token(model, prompt):
+    """CUDA kernels one greedy decode token launches (torch.profiler: a
+    3-token ``generate`` less a 2-token one, under the active autocast)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for n in (2, 3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.generate(prompt, max_new_tokens=n, temperature=0)
+            torch.cuda.synchronize()
+        counts.append(sum(e.device_type == torch.autograd.DeviceType.CUDA
+                          for e in prof.events()))
+    return counts[1] - counts[0]
+
+
+def _card_bytes(model):
+    return sum(t.numel() * t.element_size() for t in (*model.parameters(), *model.buffers()))
+
+
+def phase_quant(model, ids):
+    """incubate.quantization on GPT-2 124M (``model``, f32, seed-0 weights):
+
+    - decode: bench_decode's run (8 rows, a 128-token prompt, 64 new tokens,
+      bf16 O1, the second of two calls) of the plain model, of its
+      weight-only int8 copy (``quantize_model``) and of a dynamic int8 copy,
+      in the order plain, int8, dynamic, dynamic, int8, plain: decode
+      tokens/s of each, and each model's card bytes against
+      ``quant_model_bytes``;
+    - the weight-only model's f32 scoring logits of ids[:1] against the
+      same quantization run on the CPU (LOGITS_TOL), its int8 weights and
+      scales bit-equal to the CPU's, and 12 launches of the 3xTF32 flash
+      forward;
+    - a dynamic and a static projection at the model's widths (qkv
+      [rows, 768] x [768, 2304], fc2 [rows, 3072] x [3072, 768]; rows 8,
+      a decode step, padded for torch._int_mm, and 1024): int8
+      activations and the int32 accumulator bit-equal to the CPU's; the
+      int8 GEMM's and the bf16 GEMM's ms at 1024 rows;
+    - the weight-only model served (f32, 8 slots) from the contiguous cache
+      and from 64-token pages: 8 greedy requests of 32 new tokens, each
+      equal to the model's own greedy ``generate`` but at a near-tie of
+      the scoring forward's logits (LOGITS_TOL);
+    - QAT: ``ImperativeQuantAware().quantize`` on a fresh seed-0 124M, one
+      eager calibrating forward, then TrainStepEngine (AdamW 1e-4, bf16
+      O1) 1 + 3 steps on ids [8, 1024]: losses finite and falling, 12
+      tensor-core launches of each flash kernel a step, the activation
+      scales frozen inside the engine; ``convert`` to weight_only_int8 and
+      a greedy bf16 ``generate``;
+    - PTQ: calibrate on two batches, ``convert`` to static_int8 and a greedy
+      f32 ``generate``.
+
+    Every number is printed with the card's name and power limit."""
+    import copy
+
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.bench import card_name_and_power_limit
+    from paddle_tpu_torch.distributed import TrainStepEngine
+    from paddle_tpu_torch.incubate import quantization as Q
+    from paddle_tpu_torch.models import GPTForPretraining
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.serving import ServingEngine
+
+    card = card_name_and_power_limit()
+    t_phase = time.perf_counter()
+    cfg = model.config
+    vocab, nl = cfg.vocab_size, cfg.num_layers
+    qm = Q.quantize_model(copy.deepcopy(model)).eval()
+    dm = Q.quantize_model(copy.deepcopy(model), "dynamic_int8")
+    n_q = sum(isinstance(m, Q.QuantizedLinear) for m in qm.modules())
+    if n_q != 4 * nl or any(isinstance(m, torch.nn.Linear) for m in qm.modules()):
+        raise AssertionError(f"quant: {n_q} QuantizedLinear layers, expected {4 * nl} "
+                             "and no Linear left")
+    card_bytes = {"f32": _card_bytes(model), "weight_only_int8": _card_bytes(qm)}
+    want_bytes = {"f32": quant_model_bytes(cfg, False),
+                  "weight_only_int8": quant_model_bytes(cfg, True)}
+    if card_bytes != want_bytes:
+        raise AssertionError(f"quant: card bytes {card_bytes}, reckoned {want_bytes}")
+
+    # decode: bench_decode's run, the second of two calls, in turns
+    prompt = torch.from_numpy(np.random.RandomState(1).randint(
+        0, vocab, (8, 128)).astype(np.int64)).cuda()
+    models = {"bf16": model, "weight_only_int8": qm, "dynamic_int8": dm}
+    decode_tps = {k: [] for k in models}
+    outs = {}
+    with auto_cast(dtype="bfloat16"):
+        for name in ("bf16", "weight_only_int8", "dynamic_int8",
+                     "dynamic_int8", "weight_only_int8", "bf16"):
+            m = models[name]
+            m.generate(prompt, max_new_tokens=64, temperature=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = m.generate(prompt, max_new_tokens=64, temperature=0)
+            int(out[0, -1])
+            decode_tps[name].append(8 * 64 / (time.perf_counter() - t0))
+            outs[name] = out
+    for name, out in outs.items():
+        if tuple(out.shape) != (8, 192) or not bool(((out >= 0) & (out < vocab)).all()):
+            raise AssertionError(f"quant: {name} generate gave {tuple(out.shape)} or ids "
+                                 "out of the vocabulary")
+    agree = {k: float((outs[k][:, 128:] == outs["bf16"][:, 128:]).float().mean())
+             for k in ("weight_only_int8", "dynamic_int8")}
+    with auto_cast(dtype="bfloat16"):
+        kernels_per_token = {k: _kernels_per_decode_token(m, prompt) for k, m in models.items()}
+    del dm
+
+    # f32 scoring on the card against the CPU, through the 3xTF32 forward
+    cpu_q = Q.quantize_model(GPTForPretraining(cfg, device="cpu", seed=0).eval())
+    cpu_state = cpu_q.state_dict()
+    for name, t in qm.state_dict().items():
+        if name.endswith(("_w_int8", "_scale")) and not torch.equal(t.cpu(), cpu_state[name]):
+            raise AssertionError(f"quant: {name} differs between the card and the CPU")
+    _reset_launch_counts()
+    with torch.no_grad():
+        logits = qm(ids[:1])
+    torch.cuda.synchronize()
+    routes = dict(fa.launches_by_route)
+    if routes != {"mma": 0, "tf32x3": nl, "fma": 0}:
+        raise AssertionError(f"quant: the f32 scoring forward's flash launches {routes}, "
+                             f"expected {nl} 3xTF32")
+    with torch.no_grad():
+        ref = cpu_q(ids[:1].cpu())
+    score_err = (logits.cpu() - ref).abs().max().item()
+    if not (bool(torch.isfinite(logits).all()) and score_err <= LOGITS_TOL):
+        raise AssertionError(f"quant: card vs CPU logits differ by {score_err}")
+    del logits, ref, cpu_q, cpu_state
+
+    # int8 activations and int32 accumulators at the model's widths
+    blk = qm.gpt.blocks[0]
+    gen = torch.Generator().manual_seed(5)
+    acc_cases = []
+    for lname, layer in (("qkv_proj", blk.attn.qkv_proj), ("fc2", blk.mlp.fc2)):
+        w_card = layer._w_int8
+        k = w_card.shape[1]
+        for rows in (8, 1024):
+            x = torch.randn(rows, k, generator=gen)
+            for how, quant in (("dynamic", Q._quantize_rows),
+                               ("static", lambda a: Q._quantize_static(a, torch.tensor(0.02)))):
+                x_q, _ = quant(x)
+                x_qc, _ = quant(x.cuda())
+                acc = Q._int8_mm(x_qc, w_card)
+                if not (torch.equal(x_qc.cpu(), x_q)
+                        and torch.equal(acc.cpu(), Q._int8_mm(x_q, w_card.cpu()))):
+                    raise AssertionError(f"quant: {how} {lname} at {rows} rows: the card's "
+                                         "int8 activations or int32 accumulator differ")
+                acc_cases.append(f"{how} {lname} [{rows}, {k}] x [{k}, {w_card.shape[0]}]")
+    w8 = blk.attn.qkv_proj._w_int8
+    x8 = torch.randint(-127, 128, (1024, w8.shape[1]), dtype=torch.int8, device=w8.device)
+    xb, wb = x8.to(torch.bfloat16), w8.to(torch.bfloat16)
+    int8_gemm_ms = cuda_ms(lambda: Q._int8_mm(x8, w8), iters=50)
+    bf16_gemm_ms = cuda_ms(lambda: torch.matmul(xb, wb.t()), iters=50)
+
+    # the quantized model served: each request's tokens = generate's
+    serve_prompts = [ids[i, :n].cpu().numpy() for i, n in
+                     enumerate((17, 40, 64, 90, 128, 150, 200, 33))]
+    ties, engine_tps = [], {}
+    want = [qm.generate(torch.from_numpy(p)[None].cuda(), max_new_tokens=32,
+                        temperature=0)[0, len(p):].tolist() for p in serve_prompts]
+    for layout in ("contiguous", "paged"):
+        kw = dict(kv_layout="paged", kv_page_tokens=64) if layout == "paged" else {}
+        eng = ServingEngine(qm, slot_count=8, ladder=(64, 128, 256), max_new_cap=32,
+                            steps_per_dispatch=8, **kw)
+        if eng._net.gpt.blocks[0].mlp.fc1._w_int8.dtype != torch.int8:
+            raise AssertionError(f"quant: the {layout} engine does not serve int8 weights")
+        reqs = [eng.submit(p, max_new_tokens=32, temperature=0.0) for p in serve_prompts]
+        eng.run()
+        engine_tps[layout] = eng.decode_tokens / eng.decode_seconds
+        for p, r, w in zip(serve_prompts, reqs, want):
+            d = _first_divergence(qm, p, w, r.tokens)
+            if d is not None:
+                if not d[1] <= LOGITS_TOL:
+                    raise AssertionError(f"quant: {layout} engine tokens differ from "
+                                         f"generate's at {d[0]}, logits {d[1]} apart")
+                ties.append({"layout": layout, "prompt": len(p), "position": d[0],
+                             "logit_gap": d[1]})
+        del eng
+    del qm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # QAT through the engine (bf16 O1), then convert
+    qat_model = GPTForPretraining(cfg, seed=0)
+    qat = Q.ImperativeQuantAware()
+    qat.quantize(qat_model)
+    qats = [m for m in qat_model.modules() if isinstance(m, Q.QATLinear)]
+    if len(qats) != 4 * nl:
+        raise AssertionError(f"quant: {len(qats)} QATLinear layers")
+    labels = torch.roll(ids, -1, 1)
+    opt = AdamW(learning_rate=1e-4, parameters=qat_model.named_parameters(),
+                weight_decay=0.01)
+    engine = TrainStepEngine(qat_model, opt)
+    with auto_cast(dtype="bfloat16"):
+        with torch.no_grad():
+            qat_model(ids, labels)            # eager: calibrates the moving averages
+        scales0 = [float(m._act_scale) for m in qats]
+        if min(scales0) <= 0:
+            raise AssertionError("quant: the eager forward left an activation scale at 0")
+        losses, _ = _steps(engine, ids, labels, 1)
+        _reset_launch_counts()
+        timed, qat_ms = _steps(engine, ids, labels, 3)
+        qat_launches, fwd_routes, bwd_routes = (_launch_counts(), dict(fa.launches_by_route),
+                                                _bwd_routes())
+    losses += timed
+    n = 3 * nl
+    if (set(qat_launches.values()) != {n} or fwd_routes["mma"] != n
+            or bwd_routes["mma"] != {"dkdv": n, "dq": n}):
+        raise AssertionError(f"quant: 3 QAT steps launched {qat_launches} ({fwd_routes}, "
+                             f"{bwd_routes}), expected {n} of each on the tensor cores")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"quant: QAT losses {losses} not finite or not falling")
+    if [float(m._act_scale) for m in qats] != scales0:
+        raise AssertionError("quant: an activation scale moved inside the engine")
+    del engine, opt
+    qat.convert(qat_model.eval())
+    if sum(isinstance(m, Q.QuantizedLinear) for m in qat_model.modules()) != 4 * nl:
+        raise AssertionError("quant: convert left a QATLinear")
+    with auto_cast(dtype="bfloat16"):
+        qat_out = qat_model.generate(prompt, max_new_tokens=32, temperature=0)
+    if not bool(((qat_out >= 0) & (qat_out < vocab)).all()):
+        raise AssertionError("quant: the converted QAT model's ids leave the vocabulary")
+    del qat_model, qat_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # PTQ: two calibration batches, static int8, greedy f32 generate
+    pm = copy.deepcopy(model)
+    ptq = Q.PostTrainingQuantization(pm)
+    for rows in (slice(0, 2), slice(2, 4)):
+        ptq.collect(ids[rows, :512])
+    if len(ptq.scales) != 4 * nl or min(ptq.scales.values()) <= 0:
+        raise AssertionError(f"quant: PTQ recorded {len(ptq.scales)} scales")
+    ptq.convert("static_int8")
+    if any(m._forward_pre_hooks for m in pm.modules()):
+        raise AssertionError("quant: PTQ left a calibration hook")
+    static_out = pm.generate(prompt, max_new_tokens=32, temperature=0)
+    plain_out = model.generate(prompt, max_new_tokens=32, temperature=0)
+    if not bool(((static_out >= 0) & (static_out < vocab)).all()):
+        raise AssertionError("quant: the static int8 model's ids leave the vocabulary")
+    static_agree = float((static_out[:, 128:] == plain_out[:, 128:]).float().mean())
+    del pm, static_out, plain_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    wall = time.perf_counter() - t_phase
+    emit(phase="quant", model="gpt2-124m", card=card,
+         decode={"amp": "bfloat16 O1", "batch": 8, "prompt": 128, "new_tokens": 64,
+                 "tokens_per_s": decode_tps,
+                 "ratio_to_bf16": {k: statistics.mean(v) / statistics.mean(decode_tps["bf16"])
+                                   for k, v in decode_tps.items()},
+                 "greedy_tokens_equal_bf16_share": agree,
+                 "cuda_kernels_per_token": kernels_per_token},
+         card_bytes=card_bytes, card_bytes_ratio=card_bytes["weight_only_int8"] / card_bytes["f32"],
+         score_logits_max_abs_err_vs_cpu=score_err, score_tol=LOGITS_TOL,
+         score_launches_by_route=routes, accumulator_bit_equal=acc_cases,
+         int8_gemm_ms=int8_gemm_ms, bf16_gemm_ms=bf16_gemm_ms,
+         gemm=f"[1024, {w8.shape[1]}] x [{w8.shape[1]}, {w8.shape[0]}]",
+         engine_decode_tokens_per_s=engine_tps,
+         engine_near_ties=ties, qat={"losses": losses, "step_ms": qat_ms,
+                                     "launches": qat_launches, "act_scales_frozen": True},
+         ptq={"scales": len(ptq.scales), "static_greedy_tokens_equal_f32_share": static_agree},
+         seconds=wall)
+    for what, v in (*((f"{k} decode tokens/s", statistics.mean(t)) for k, t in decode_tps.items()),
+                    ("weight_only_int8 card bytes", card_bytes["weight_only_int8"]),
+                    ("f32 card bytes", card_bytes["f32"]), ("int8 GEMM ms", int8_gemm_ms),
+                    ("bf16 GEMM ms", bf16_gemm_ms), ("QAT step ms", statistics.median(qat_ms)),
+                    ("quant seconds", wall)):
+        print(f"quant: {what} {v:.4f} ({card})", flush=True)
 
 
 def _d(decision):
@@ -3808,6 +4109,7 @@ def main() -> int:
     phase_serve_paged(model)
     phase_serve_spec(model)
     phase_serve_fleet(model)
+    phase_quant(model, ids)
     phase_profile(model, ids, forward_ms)
     del model
     torch.cuda.empty_cache()

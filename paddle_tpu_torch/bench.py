@@ -38,7 +38,8 @@ and decodes.
 The environment knobs are bench.py's: ``PADDLE_TPU_BENCH_MODEL`` (base or
 medium), ``_BATCH``, ``_STEPS``, ``_SEQ``, ``_WINDOWS``, ``_RECOMPUTE``
 ("selective", or any other value for full), ``_ACCUM`` (in-program
-microbatches) and ``_DECODE``. The knobs whose machinery the port does not
+microbatches), ``_DECODE`` and ``_DECODE_INT8`` (the decode model's
+projections weight-only int8). The knobs whose machinery the port does not
 have yet stop the script (``UNPORTED``). Unlike bench.py there is no
 degraded retry and no history file: a failure fails the run, and nothing is
 written.
@@ -59,6 +60,7 @@ from .amp import auto_cast
 from .device import resolve_device
 from .distributed import TrainStepEngine, collective, fleet
 from .distributed import grad_comm as _gc
+from .incubate.quantization import quantize_model
 from .models import GPTConfig, GPTForPretraining, gpt_tiny
 from .observability import peak_flops_per_sec, transformer_flops_per_token
 from .optimizer import AdamW
@@ -75,8 +77,6 @@ UNPORTED = {
                                  "follow-up 2)",
     "PADDLE_TPU_BENCH_AUTOTUNE_CACHE": "a block-size autotune of the flash "
                                        "kernels (ROADMAP.md Queue 2 follow-up 2)",
-    "PADDLE_TPU_BENCH_DECODE_INT8": "weight-only int8 decode (ROADMAP.md "
-                                    "Queue 1 item 8, serving)",
     "PADDLE_TPU_BENCH_CE_CHUNK": "a setting of the fused loss's chunk, which "
                                  "ops/fused.py fixes (ROADMAP.md Queue 1 item 6)",
 }
@@ -125,12 +125,14 @@ def card_name_and_power_limit():
 
 
 def run(cfg, batch, seq, steps, warmup, *, windows=3, recompute=None, accum=1,
-        decode=False, device=None, dp=False):
+        decode=False, decode_int8=False, device=None, dp=False):
     """bench.py's run on the port: returns the payload of its JSON line.
 
     cfg: a GPTConfig (copied; its max_seq_len follows seq). recompute: None,
     "full" or "selective". accum: microbatches a step. decode: also time
-    greedy ``generate`` of 64 tokens after a prompt of up to 128. device:
+    greedy ``generate`` of 64 tokens after a prompt of up to 128;
+    decode_int8: of the decode model with every projection weight-only int8
+    (``incubate.quantization.quantize_model``). device:
     None (the card; raises without one) or "cpu" (f32, no MFU). dp: the
     data-parallel run over the launcher's ranks (module docstring)."""
     dev = resolve_device(device)
@@ -204,6 +206,8 @@ def run(cfg, batch, seq, steps, warmup, *, windows=3, recompute=None, accum=1,
     decode_tps = None
     if decode and rank == 0:
         dm = GPTForPretraining(cfg, device=dev, seed=0).eval()
+        if decode_int8:
+            quantize_model(dm)
         n_new = 64
         p_len = max(1, min(128, cfg.max_seq_len - n_new))
         prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, p_len))
@@ -278,7 +282,8 @@ def main():
                   windows=int(env.get("PADDLE_TPU_BENCH_WINDOWS", "3")),
                   recompute=recompute,
                   accum=int(env.get("PADDLE_TPU_BENCH_ACCUM", "0") or 0),
-                  decode=env.get("PADDLE_TPU_BENCH_DECODE") == "1", device=device,
+                  decode=env.get("PADDLE_TPU_BENCH_DECODE") == "1",
+                  decode_int8=env.get("PADDLE_TPU_BENCH_DECODE_INT8") == "1", device=device,
                   dp="PADDLE_TRAINERS_NUM" in env)
     if fleet.worker_index() == 0:
         print(json.dumps(payload), flush=True)

@@ -262,12 +262,17 @@ class TrainStepEngine:
 
     def _forward(self, batch):
         """The model's loss on ``batch``, under the strategy's amp when it
-        has one."""
+        has one, and under the trace flag (jit.py): the JAX engine traces
+        the model, so host-side state such as a QATLinear's activation
+        scale stays frozen here too."""
+        from ..jit import _tracing
+
         if self._amp_cfg is None:
-            return self.model(*batch)
+            with _tracing():
+                return self.model(*batch)
         from ..amp import amp_guard_from_configs
 
-        with amp_guard_from_configs(self._amp_cfg, force_bf16=True):
+        with amp_guard_from_configs(self._amp_cfg, force_bf16=True), _tracing():
             return self.model(*batch)
 
     def _plain_step(self, batch):

@@ -16,7 +16,9 @@ segment again to rebuild what it needs. The policies keep the JAX names:
 The replay runs under what the forward ran under, beyond the global CPU and
 CUDA RNG states that ``preserve_rng_state`` restores: the port's
 ``amp.auto_cast`` context active at forward time (it is not
-``torch.autocast``, so checkpoint does not carry it), and the states of the
+``torch.autocast``, so checkpoint does not carry it), the trace flag of
+jit.py (a replay inside the engine's step leaves a QATLinear's activation
+scale alone, as the JAX package's traced replay does), and the states of the
 ``generators`` the segment draws from (the model's dropout generator), each
 put back as it was after the replay.
 
@@ -39,6 +41,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ...amp import amp_ctx, amp_scope
+from ...jit import in_jit_trace, trace_scope
 
 #: ops whose outputs "selective" saves: products with no batch dims
 SAVED_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
@@ -80,7 +83,7 @@ def recompute(function, *args, policy=None, preserve_rng_state=True,
     if not torch.is_grad_enabled() or not any(
             torch.is_tensor(a) and a.requires_grad for a in args):
         return function(*args)
-    amp = amp_ctx()
+    amp, traced = amp_ctx(), in_jit_trace()
     gens = list(generators) if preserve_rng_state else []
     fwd_states = [g.get_state() for g in gens]
     calls = 0
@@ -94,7 +97,7 @@ def recompute(function, *args, policy=None, preserve_rng_state=True,
         for g, s in zip(gens, fwd_states):
             g.set_state(s)
         try:
-            with amp_scope(amp):
+            with amp_scope(amp), trace_scope(traced):
                 return function(*a)
         finally:
             for g, s in zip(gens, now):

@@ -9,7 +9,10 @@ Names are the same in both packages. The JAX Linear layers store their
 weight ``[in, out]`` (``F.linear`` is ``a @ w + b``); ``nn.Linear`` stores
 ``[out, in]``, so every Linear weight is transposed. Embeddings (``wte``,
 which the LM head shares, and ``wpe``) and 1-D parameters carry over as they
-are.
+are. A quantized or QAT state (incubate/quantization.py; quantize the port's
+model the same way before loading) carries a QuantizedLinear's int8
+``._w_int8`` and a QATLinear's ``.inner.weight`` transposed too, and the
+scales, biases and activation scales as they are.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ _LINEAR_WEIGHTS = (".qkv_proj.weight", ".out_proj.weight", ".fc1.weight",
 
 
 def _is_linear_weight(name: str) -> bool:
-    return name.endswith(_LINEAR_WEIGHTS) or name == "lm_head.weight"
+    leaf = "." + name
+    return (name.endswith(_LINEAR_WEIGHTS) or name == "lm_head.weight"
+            or leaf.endswith(("._w_int8", ".inner.weight")))
 
 
 def state_from_jax(numpy_state: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

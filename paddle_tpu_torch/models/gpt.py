@@ -33,6 +33,7 @@ from torch import nn
 from ..amp import autocast_dtype_for
 from ..device import resolve_device
 from ..distributed.fleet.utils import recompute
+from ..jit import _tracing
 from ..ops import nn_functional as F
 from ..ops.fused import fused_linear_cross_entropy
 from ..serving import kv_pages
@@ -320,12 +321,20 @@ class GPTForPretraining(nn.Module):
         """The LM head's [vocab, hidden] weight (the tied embedding or lm_head)."""
         return self.gpt.wte.weight if self.lm_head is None else self.lm_head.weight
 
-    def _head_logits(self, h, weight=None):
+    def _head_logits(self, h, params=None):
         """Hidden states -> vocab logits (shared by forward, serving and
-        generate; ``weight`` replaces the head's weight, as generate's cast
-        copy does)."""
-        return F.matmul(h, self._head_weight() if weight is None else weight,
-                        transpose_y=True)
+        generate). ``params`` (``_decode_weights``' names) replaces the head's
+        weights, as generate's cast copy does. An untied head runs as its
+        module, as the reference's ``self.lm_head(h)``: a Linear, or the
+        quantized or QAT layer that incubate/quantization.py swapped in."""
+        if self.lm_head is None:
+            w = self.gpt.wte.weight if params is None else params["gpt.wte.weight"]
+            return F.matmul(h, w, transpose_y=True)
+        if params is None:
+            return self.lm_head(h)
+        head = {n[len("lm_head."):]: p for n, p in params.items()
+                if n.startswith("lm_head.")}
+        return torch.func.functional_call(self.lm_head, head, (h,))
 
     def logits(self, input_ids):
         return self._head_logits(self.gpt(input_ids))
@@ -333,39 +342,50 @@ class GPTForPretraining(nn.Module):
     def forward(self, input_ids, labels=None):
         if labels is None:
             return self.logits(input_ids)
+        h = self.gpt(input_ids)
+        if self.lm_head is not None and type(self.lm_head) is not Linear:
+            # a quantized or QAT head: its logits, then the reference's
+            # softmax_with_cross_entropy (f32, ignored positions 0)
+            logits = self._head_logits(h).float()
+            lb = labels.to(device=logits.device, dtype=torch.long)
+            ignored = lb == IGNORE_INDEX
+            picked = logits.gather(-1, lb.masked_fill(ignored, 0)[..., None])[..., 0]
+            return F.mean(torch.where(ignored, 0.0, torch.logsumexp(logits, -1) - picked))
         # chunked LM head + cross entropy: the [b, s, vocab] logits are never
         # materialized; the mean runs over every position, ignored ones as 0
-        loss = fused_linear_cross_entropy(self.gpt(input_ids), self._head_weight(),
-                                          labels, transpose_y=True,
-                                          ignore_index=IGNORE_INDEX)
+        loss = fused_linear_cross_entropy(h, self._head_weight(), labels,
+                                          transpose_y=True, ignore_index=IGNORE_INDEX)
         return F.mean(loss)
 
     # ------------------------------------------------------------- decode
     def _decode_setup(self, b, total):
-        """What a decode call runs on: ``_decode_weights``' weights (the head
-        weight among them) and per layer a zeroed contiguous [b, total, nh,
-        hd] K and V cache in its cache dtype."""
+        """What a decode call runs on: ``_decode_weights``' weights (all of
+        them, for the head, and the body's under their ``gpt.``-less names)
+        and per layer a zeroed contiguous [b, total, nh, hd] K and V cache in
+        its cache dtype."""
         cfg = self.config
         params, cache_dtype = self._decode_weights()
         gpt_params = {n[len("gpt."):]: p for n, p in params.items() if n.startswith("gpt.")}
-        head_w = params["gpt.wte.weight" if self.lm_head is None else "lm_head.weight"]
         nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
         caches = [tuple(torch.zeros((b, total, nh, hd), dtype=cache_dtype,
                                     device=self.device) for _ in range(2)) + (0,)
                   for _ in range(cfg.num_layers)]
-        return gpt_params, head_w, caches
+        return gpt_params, params, caches
 
     def _decode_weights(self):
-        """(name -> weight, KV cache dtype) as decode runs under the active
+        """(name -> tensor, KV cache dtype) as decode runs under the active
         ``auto_cast`` (reference gpt.py:618-639, serving/engine.py:345-374):
-        floating weights with 2 or more dims cast to the matmul op's autocast
-        dtype, the rest detached as they are; the cache in the attention op's
-        autocast dtype, or the embedding's dtype without autocast. Shared by
-        ``generate`` and the serving engine."""
+        the parameters and buffers (a quantized layer's int8 weight and
+        scales are buffers), floating ones with 2 or more dims cast to the
+        matmul op's autocast dtype, the rest detached as they are; the cache
+        in the attention op's autocast dtype, or the embedding's dtype
+        without autocast. Shared by ``generate`` and the serving engine."""
         w_dtype = autocast_dtype_for("matmul")
+        state = dict(self.named_parameters())
+        state.update(self.named_buffers())
         params = {n: (p.detach().to(w_dtype) if w_dtype is not None and p.dim() >= 2
                       and p.is_floating_point() else p.detach())
-                  for n, p in self.named_parameters()}
+                  for n, p in state.items()}
         return params, autocast_dtype_for("attention") or self.gpt.wte.weight.dtype
 
     def _decode_body(self, gpt_params, ids, caches):
@@ -374,6 +394,7 @@ class GPTForPretraining(nn.Module):
                                           {"caches": caches})
 
     @torch.no_grad()
+    @_tracing()      # the JAX model traces its decode (jit.py)
     def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
                  top_k=0, top_p=1.0, eos_token_id=None, seed=0,
                  decode_strategy=None, num_beams=1, length_penalty=1.0,
@@ -445,19 +466,19 @@ class GPTForPretraining(nn.Module):
         was_training = self.training
         self.eval()
         try:
-            gpt_params, head_w, caches = self._decode_setup(b, total)
+            gpt_params, params, caches = self._decode_setup(b, total)
             h, caches = self._decode_body(gpt_params, ids_in, caches)
             # logits from the last real position; decode resumes at the
             # prompt's length, overwriting one pad row per token before any
             # query attends to it
-            tok = sample(self._head_logits(h[:, prompt - 1], head_w), prompt)
+            tok = sample(self._head_logits(h[:, prompt - 1], params), prompt)
             caches = [(kc, vc, prompt) for kc, vc, _ in caches]
             done = (torch.zeros(b, dtype=torch.bool, device=self.device)
                     if eos_token_id is None else tok == eos_token_id)
             out = [tok]
             for t in range(1, max_new_tokens):
                 h, caches = self._decode_body(gpt_params, tok[:, None], caches)
-                nxt = sample(self._head_logits(h[:, 0], head_w), prompt + t)
+                nxt = sample(self._head_logits(h[:, 0], params), prompt + t)
                 if eos_token_id is not None:
                     nxt = torch.where(done, eos_token_id, nxt)
                     done = done | (nxt == eos_token_id)
@@ -469,6 +490,7 @@ class GPTForPretraining(nn.Module):
         return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
 
     @torch.no_grad()
+    @_tracing()      # the JAX model traces its decode (jit.py)
     def generate_beam(self, input_ids, max_new_tokens=32, num_beams=4,
                       length_penalty=1.0, eos_token_id=None):
         """Beam-search decode (reference gpt.py:770). The KV cache carries a
@@ -499,9 +521,9 @@ class GPTForPretraining(nn.Module):
         was_training = self.training
         self.eval()
         try:
-            gpt_params, head_w, caches = self._decode_setup(b, total)
+            gpt_params, params, caches = self._decode_setup(b, total)
             h, caches = self._decode_body(gpt_params, ids, caches)
-            logp0 = torch.log_softmax(self._head_logits(h[:, -1], head_w).float(), dim=-1)
+            logp0 = torch.log_softmax(self._head_logits(h[:, -1], params).float(), dim=-1)
             vocab = logp0.shape[-1]
             scores, tok0 = top(logp0, K)                      # [b, K]
             toks = torch.zeros((b, K, max_new_tokens), dtype=torch.long, device=dev)
@@ -518,7 +540,7 @@ class GPTForPretraining(nn.Module):
             for t in range(1, max_new_tokens):
                 prev = toks[:, :, t - 1].reshape(b * K)
                 h, caches = self._decode_body(gpt_params, prev[:, None], caches)
-                logp = torch.log_softmax(self._head_logits(h[:, 0], head_w).float(),
+                logp = torch.log_softmax(self._head_logits(h[:, 0], params).float(),
                                          dim=-1).reshape(b, K, vocab)
                 if eos_token_id is not None:
                     # finished beams: only "emit eos again, score unchanged"

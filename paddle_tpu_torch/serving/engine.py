@@ -51,8 +51,11 @@ eval mode; the caller's model keeps its mode, so a model can be served and
 then trained with its dropout), cast as ``generate`` casts them under the
 ``auto_cast`` active at construction (matrices in the matmul autocast dtype,
 the KV cache in the attention autocast dtype); every prefill and decode
-chunk runs under that captured context, wherever ``run()`` is called. Call
-``refresh_params()`` after updating the model (and the draft).
+chunk runs under that captured context, wherever ``run()`` is called, and
+under the trace flag of jit.py (the JAX engine traces them). Call
+``refresh_params()`` after updating the model (and the draft); the
+snapshot takes parameters and buffers, so a model re-quantized with
+incubate/quantization.py serves its new int8 weights.
 
 Fleet and telemetry (reference engine.py:156-240, :388-527, :2061-2202):
 - **Drain.** ``begin_drain()`` closes admission (``submit`` raises, queued
@@ -92,6 +95,7 @@ import torch
 
 from ..amp import amp_ctx, amp_scope
 from ..core import flags, monitor
+from ..jit import _tracing
 from ..observability import exporter as _obs_exporter
 from ..observability import flight_recorder as _obs_flight
 from ..observability import metrics as _obs_metrics
@@ -384,7 +388,7 @@ class ServingEngine:
         # the reference's executables are traced under the context active
         # when they are built; here every prefill and decode runs under it
         self._amp = amp_ctx()
-        self._net = self._dnet = None
+        self._dnet = None
         self.refresh_params()
 
         nh = cfg.num_heads
@@ -450,24 +454,24 @@ class ServingEngine:
         engine's private copies, cast by ``GPTForPretraining._decode_weights``
         under the ``auto_cast`` captured at construction (reference
         engine.py:345-374)."""
-        if self._net is None:
-            self._net = copy.deepcopy(self.model)
         with amp_scope(self._amp):
             weights, self._cache_dtype = self.model._decode_weights()
-        self._load(self._net, weights)
+        self._net = self._load(self.model, weights)
         if self.draft_model is not None:
-            if self._dnet is None:
-                self._dnet = copy.deepcopy(self.draft_model)
             with amp_scope(self._amp):
                 dweights, _ = self.draft_model._decode_weights()
-            self._load(self._dnet, dweights)
+            self._dnet = self._load(self.draft_model, dweights)
 
     @staticmethod
     @torch.no_grad()
-    def _load(net, weights) -> None:
-        net.eval()
-        for name, p in net.named_parameters():
-            p.data = weights[name].clone()
+    def _load(model, weights):
+        """A copy of ``model`` (made at every refresh: a quantization swap may
+        have changed its layers) in eval mode, its parameters and buffers
+        set to ``weights``."""
+        net = copy.deepcopy(model).eval()
+        for name, t in (*net.named_parameters(), *net.named_buffers()):
+            t.data = weights[name].clone()
+        return net
 
     # ------------------------------------------------------------- public
     def submit(self, prompt_ids, max_new_tokens: int = 32,
@@ -520,7 +524,7 @@ class ServingEngine:
         Returns the number of live slots after the step (0 = fully
         drained)."""
         self._settle_sigterm()
-        with amp_scope(self._amp):
+        with amp_scope(self._amp), _tracing():
             self._admit()
             if self._active.any():
                 self._advance_step()
@@ -606,7 +610,7 @@ class ServingEngine:
                     if req is not None and req.done_ts is None:
                         self._finish(req, outcome="drained")
                 break
-            with amp_scope(self._amp):
+            with amp_scope(self._amp), _tracing():
                 self._advance_step()
         drain_ms = (time.perf_counter() - t0) * 1000.0
         mreg = _obs_metrics.active_registry()
@@ -647,7 +651,7 @@ class ServingEngine:
         contiguous admission's bucketed prefill does, on a scratch cache (no
         slot or page is touched)."""
         prompt = np.asarray(prompt_ids, np.int64).reshape(-1)
-        with amp_scope(self._amp):
+        with amp_scope(self._amp), _tracing():
             return self._prefill(prompt, bucket_for(len(prompt), self.ladder),
                                  slot=None)[0]
 

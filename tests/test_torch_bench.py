@@ -6,6 +6,7 @@ bench.py's module scope imports only numpy, so it is imported here as is.
 import json
 
 import pytest
+import torch
 
 import bench as jax_bench
 from paddle_tpu.observability.flops import \
@@ -89,6 +90,39 @@ def test_an_unported_knob_stops_the_script(monkeypatch, capsys, knob):
     with pytest.raises(SystemExit, match=f"{knob} is not ported: .*ROADMAP.md"):
         bench.main()
     assert capsys.readouterr().out == ""
+
+
+def test_the_int8_decode_knob_quantizes_every_projection(monkeypatch, capsys):
+    """PADDLE_TPU_BENCH_DECODE_INT8=1 (bench.py's knob): the decode model's
+    4 projections a block become weight-only int8 QuantizedLinears (the
+    tied head stays the embedding) and decode reports its tokens/s."""
+    from paddle_tpu_torch.incubate.quantization import QuantizedLinear
+    from paddle_tpu_torch.models import GPTForPretraining
+
+    decoded = []
+    real = GPTForPretraining.generate
+
+    def spy(self, *a, **k):
+        decoded.append([(n, type(m).__name__, getattr(m, "mode", None))
+                        for n, m in self.named_modules()
+                        if isinstance(m, (torch.nn.Linear, QuantizedLinear))])
+        return real(self, *a, **k)
+
+    monkeypatch.setattr(GPTForPretraining, "generate", spy)
+    monkeypatch.setenv("PADDLE_TPU_BENCH_DEVICE", "cpu")
+    monkeypatch.setenv("PADDLE_TPU_BENCH_STEPS", "1")
+    monkeypatch.setenv("PADDLE_TPU_BENCH_BATCH", "2")
+    monkeypatch.setenv("PADDLE_TPU_BENCH_WINDOWS", "1")
+    monkeypatch.setenv("PADDLE_TPU_BENCH_DECODE", "1")
+    monkeypatch.setenv("PADDLE_TPU_BENCH_DECODE_INT8", "1")
+    bench.main()
+    ex = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["extra"]
+    assert ex["decode_tokens_per_sec"] > 0
+    assert len(decoded) == 2 and decoded[0] == decoded[1]
+    assert len(decoded[0]) == 8 and {(t, m) for _, t, m in decoded[0]} == {
+        ("QuantizedLinear", "weight_only_int8")}
+    assert {n.rsplit(".", 1)[1] for n, _, _ in decoded[0]} == {
+        "qkv_proj", "out_proj", "fc1", "fc2"}
 
 
 def test_an_unknown_model_stops_the_script(monkeypatch):

@@ -1786,3 +1786,33 @@ def test_grad_scaler_on_card_grads(cuda):
         runs[device] = w.detach().cpu()
     tol = 1e-6 * max(1.0, runs["cpu"].abs().max().item())
     assert (runs["cuda"] - runs["cpu"]).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("rows", [8, 17, 1024])
+def test_int8_projection_accumulator_on_card_is_the_cpus(cuda, rows):
+    """A dynamic and a static int8 projection at GPT-2 124M's qkv shape
+    ([rows, 768] x [768, 2304]; 8 rows is a decode step at 8 slots, below
+    torch._int_mm's 17 on the card, so the rows are padded): the int8
+    activations and the int32 accumulator bit for bit against the CPU's,
+    and the f32 outputs within 1e-6 x max|ref|."""
+    from paddle_tpu_torch.incubate import quantization as Q
+
+    rng = np.random.RandomState(rows)
+    x = torch.from_numpy(rng.randn(rows, 768).astype(np.float32))
+    w = torch.from_numpy((rng.randn(2304, 768) * 0.02).astype(np.float32))
+    b = torch.from_numpy((rng.randn(2304) * 0.1).astype(np.float32))
+    q, s = Q.quantize_weight(w)
+    qc, sc = Q.quantize_weight(w.cuda())
+    assert torch.equal(qc.cpu(), q) and torch.equal(sc.cpu(), s)
+    for quant in (Q._quantize_rows, lambda a: Q._quantize_static(a, torch.tensor(0.02))):
+        x_q, _ = quant(x)
+        x_qc, _ = quant(x.cuda())
+        assert torch.equal(x_qc.cpu(), x_q)
+        acc = Q._int8_mm(x_qc, qc)
+        assert acc.dtype == torch.int32 and tuple(acc.shape) == (rows, 2304)
+        assert torch.equal(acc.cpu(), Q._int8_mm(x_q, q))
+    for fn, args in ((Q.dynamic_int8_matmul, ()), (Q.static_int8_matmul, (0.02,)),
+                     (Q.weight_only_int8_matmul, ())):
+        want = fn(x, q, s, *args, bias=b)
+        got = fn(x.cuda(), qc, sc, *args, bias=b.cuda()).cpu()
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item(), fn
