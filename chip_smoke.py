@@ -143,6 +143,27 @@ each:
    slots (count, f32, the parameter's shape), the learning rates the
    steps read equal to the schedulers' host twins. Printed: step ms and
    peak memory of each case.
+6b. train_obs: the train step's observability and its last entry points
+   on the same step (GPT-2 124M, [8, 1024], AdamW 1e-4, bf16 O1). Hard:
+   3 steps from one saved state with everything off and with telemetry
+   (the bench's flop model), the health monitor at interval 1, the flight
+   recorder, the metrics registry and the tracer on give the same losses
+   and parameters bit for bit; one more step's health record holds every
+   parameter's grad norm, weight norm and update ratio within 1e-4 of a
+   plain recomputation from its gradient and weights (OBS_HEALTH_RTOL),
+   no non-finite entry; an inf gradient hooked onto OBS_POISON is named by
+   the record (and no other parameter) and dumped (health_nonfinite);
+   every telemetry record has 8192 tokens, mfu = tokens/s x flops a token
+   / 989 TFLOP/s and a peak within the card's memory; run_steps(steps=4)
+   equals 4 steps bit for bit and saves at step 4 for an interval of 3;
+   prefetch at depth 2 over 4 host batches gives step()'s losses bit for
+   bit, with 8 pinned side-stream copies and depths 2, 2, 2, 1 in the
+   records; train.step_ms and ckpt.save_ms have counts; every step
+   launches each flash kernel 12 times on the tensor cores. Printed: the
+   step ms (median and mean of 20, in turns) with everything off, with
+   telemetry, with health at interval 1 and at interval 10, the telemetry's
+   MFU beside the bench's for the same step, the h2d issue ms, and one
+   traced step off and at health interval 1 (kernel ms, top kernels).
 7. train_vs_cpu: one f32 step at full width and 2 layers, ids [1, 1024], on
    the card (the 3xTF32 forward and backward pair) and on the CPU (plain
    path): loss and every gradient. Then the same step with each of the six
@@ -230,12 +251,13 @@ each:
 9. lmloss_compile_probe: the LM-loss forward's stripped variants at the
    probe's defaults, checked and timed, with ptxas's registers and spills.
 10. the ``kernels`` line: every ported kernel with the path that launched
-   it (the training main path's timed steps, the train_rules runs, the dp
-   and dp_eager phases' runs on rank 0 and the ckpt phase's steps, the f32 steps, scoring, the
-   bench's gpt_1p3b run for the d = 128 rows, or a library_ops pass; the flash backward and the LM-loss backward once for
-   each dtype, the route in ``kernel_route``), its
-   launches there and its numbers from the kernel_vs_plain phases at that
-   path's shape and dtype.
+   it (the training main path's timed steps, the train_obs steps, the
+   train_rules runs, the dp and dp_eager phases' runs on rank 0 and the
+   ckpt phase's steps, the f32 steps, scoring, the bench's gpt_1p3b run
+   for the d = 128 rows, or a library_ops pass; the flash backward and the
+   LM-loss backward once for each dtype, the route in ``kernel_route``),
+   its launches there and its numbers from the kernel_vs_plain phases at
+   that path's shape and dtype.
 
 Any failure raises (exit code 1). Without a CUDA card, or without the
 package beside it, the script exits non-zero before printing a result. The
@@ -2049,6 +2071,239 @@ def phase_train_vs_cpu():
 
 # the JAX package's optimizer slots (paddle_tpu/optimizer/functional.py:18-39):
 # count per rule, each f32 and of its parameter's shape
+OBS_HEALTH_RTOL = 1e-4   # train_obs: the health record's norms against a plain recomputation
+OBS_POISON = "gpt.blocks.5.mlp.fc1.bias"   # ... the parameter whose gradient is made inf
+OBS_TIMED_STEPS = 5      # ... steps of each observability setting a turn (four turns)
+
+
+def _clone_state(engine):
+    """A copy of the engine's parameters and optimizer slots."""
+    return ({n: p.detach().clone() for n, p in engine.params.items()},
+            {n: tuple(s.clone() for s in slots)
+             for n, slots in engine.optimizer._states.items()})
+
+
+def _load_state(engine, state, step=0):
+    params, opt = state
+    engine._load_state(params, opt, step, step)
+
+
+def _same_params(a, b):
+    return all(torch.equal(p, b.params[n]) for n, p in a.params.items())
+
+
+def _obs_on(engine, flight_dir, interval=1):
+    """Telemetry (the bench's flop model), health at ``interval``, the flight
+    recorder, the metrics registry and the tracer, all on."""
+    from paddle_tpu_torch.observability import (flight_recorder, metrics, tracer,
+                                                transformer_flops_per_token)
+
+    cfg = engine.model.config
+    tele = engine.enable_telemetry(flops_per_token=transformer_flops_per_token(
+        engine._n_params(), cfg.num_layers, cfg.hidden_size, cfg.max_seq_len))
+    health = engine.enable_health(interval=interval)
+    flight_recorder.enable(flight_dir)
+    metrics.enable()
+    tracer.get_tracer().enable()
+    return tele, health
+
+
+def _obs_off(engine):
+    from paddle_tpu_torch.observability import flight_recorder, health, metrics, tracer
+
+    engine.disable_telemetry()
+    engine.disable_health()
+    flight_recorder.disable()
+    metrics.disable()
+    tracer.get_tracer().disable()
+    tracer.get_tracer().clear()
+    health.reset()
+
+
+def phase_train_obs(ids):
+    """The train step's observability and its last entry points on the
+    training main path (GPT-2 124M, [8, 1024], AdamW, bf16 O1; module
+    docstring, item 6b). Returns the flash launches {kernel: n}."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.bench import card_name_and_power_limit
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.observability import (flight_recorder, metrics,
+                                                peak_flops_per_sec,
+                                                transformer_flops_per_token)
+
+    card = card_name_and_power_limit()
+    t_phase = time.perf_counter()
+    cfg = GPTConfig()
+    labels = torch.roll(ids, -1, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_launch_counts()
+    n_steps = 0
+    with tempfile.TemporaryDirectory() as d, auto_cast(dtype="bfloat16"):
+        # 1. the same 3 steps from one saved state, everything off, then on
+        _, a = _train_engine(cfg, "cuda")
+        _, b = _train_engine(cfg, "cuda", seed=1)
+        state = _clone_state(a)
+        _load_state(b, state)
+        off_losses, _ = _steps(a, ids, labels, 3)
+        tele, health = _obs_on(b, os.path.join(d, "flight"))
+        on_losses, _ = _steps(b, ids, labels, 3)
+        n_steps += 6
+        if off_losses != on_losses or not _same_params(a, b):
+            raise AssertionError(f"train_obs: observability changed the step: losses "
+                                 f"{off_losses} (off) against {on_losses} (on)")
+        # 2. one more step's health record against its gradients, recomputed
+        prev = {n: p.detach().clone() for n, p in b.params.items()}
+        _steps(b, ids, labels, 1)
+        n_steps += 1
+        rec = health.recent()[-1]
+        worst = 0.0
+        for n, p in b.params.items():
+            g = p.grad.double()
+            want = {"grad_norm": g.norm().item(),
+                    "weight_norm": prev[n].double().norm().item()}
+            want["update_ratio"] = ((p.detach().double() - prev[n].double()).norm().item()
+                                    / want["weight_norm"]) if want["weight_norm"] else 0.0
+            for key, w in want.items():
+                got = rec["per_param"][n][key]
+                err = abs(got - w) / max(abs(w), 1e-30)
+                worst = max(worst, err)
+                if err > OBS_HEALTH_RTOL:
+                    raise AssertionError(f"train_obs: health {key} of {n} {got} against "
+                                         f"{w} recomputed")
+        g_all = math.sqrt(sum(p.grad.double().pow(2).sum().item()
+                              for p in b.params.values()))
+        if abs(rec["grad_norm"] - g_all) > OBS_HEALTH_RTOL * g_all or rec["nonfinite_count"]:
+            raise AssertionError(f"train_obs: health grad_norm {rec['grad_norm']} against "
+                                 f"{g_all}, nonfinite {rec['nonfinite_count']}")
+        del prev
+        # 4. the telemetry records
+        peak = peak_flops_per_sec("h100")
+        fpt = transformer_flops_per_token(b._n_params(), cfg.num_layers, cfg.hidden_size,
+                                          cfg.max_seq_len)
+        for r in tele.sink.records:
+            want_mfu = r["tokens_per_sec"] * fpt / peak
+            mem = r["device_memory"]
+            if (r["tokens"] != ids.numel() or abs(r["mfu"] - want_mfu) > 1e-4
+                    or not 0 < mem["peak_bytes_in_use"] <= mem["bytes_limit"]):
+                raise AssertionError(f"train_obs: telemetry record {r}")
+        tele_mfu = statistics.median(r["mfu"] for r in tele.sink.records)
+        # 3. a non-finite gradient named by the health record and dumped
+        poison = b.params[OBS_POISON].register_hook(lambda g: g * float("inf"))
+        _steps(b, ids, labels, 1)
+        n_steps += 1
+        poison.remove()
+        bad = health.recent()[-1]
+        fr = flight_recorder.get()
+        dumps = [os.path.basename(p) for p in fr.dumps]
+        if (bad["first_nonfinite_param"] != OBS_POISON
+                or {n for n, pp in bad["per_param"].items() if pp["nonfinite"]} != {OBS_POISON}
+                or not any("health_nonfinite" in x for x in dumps)):
+            raise AssertionError(f"train_obs: the poisoned {OBS_POISON}: record names "
+                                 f"{bad['first_nonfinite_param']}, dumps {dumps}")
+        reg = metrics.active_registry()
+        step_ms_count = reg.histogram("train.step_ms").snapshot()["count"]
+        _obs_off(b)
+        del a, b
+
+        # 5. run_steps against step(), a checkpoint interval inside its window
+        _, a = _train_engine(cfg, "cuda")
+        _, b = _train_engine(cfg, "cuda", seed=1)
+        state = _clone_state(a)
+        _load_state(b, state)
+        loop, _ = _steps(a, ids, labels, 4)
+        metrics.enable()
+        mgr = b.enable_checkpointing(os.path.join(d, "ckpt"), interval=3, keep=2,
+                                     async_save=True)
+        fused = b.run_steps(ids, labels, steps=4).tolist()
+        mgr.wait()
+        saved = [s for s, _ in mgr.checkpoints()]
+        save_count = metrics.active_registry().histogram("ckpt.save_ms").snapshot()["count"]
+        metrics.disable()
+        b.disable_checkpointing()
+        n_steps += 8
+        if fused != loop or not _same_params(a, b) or saved != [4]:
+            raise AssertionError(f"train_obs: run_steps {fused} against 4 steps {loop}; "
+                                 f"checkpoints {saved}, expected [4]")
+        if not step_ms_count or not save_count:
+            raise AssertionError(f"train_obs: histogram counts train.step_ms "
+                                 f"{step_ms_count}, ckpt.save_ms {save_count}")
+        # 6. prefetch against step() on 4 distinct batches from the host
+        gen = torch.Generator().manual_seed(7)
+        host = [torch.randint(0, cfg.vocab_size, tuple(ids.shape), generator=gen)
+                for _ in range(4)]
+        batches = [(x, torch.roll(x, -1, 1)) for x in host]
+        _load_state(a, state)
+        _load_state(b, state)
+        plain = [a.step(x.cuda(), y.cuda()).item() for x, y in batches]
+        ptele = b.enable_telemetry()
+        pre = [b.step(*pb).item() for pb in b.prefetch(batches, depth=2)]
+        n_steps += 8
+        pf = b.prefetcher
+        precs = ptele.sink.records
+        b.disable_telemetry()
+        if (pre != plain or pf.puts != 8 or pf.batches != 4
+                or [r.get("prefetch_depth") for r in precs] != [2, 2, 2, 1]
+                or not all("h2d_ms" in r for r in precs)):
+            raise AssertionError(f"train_obs: prefetch {pre} against step() {plain}; "
+                                 f"puts {pf.puts}, depths "
+                                 f"{[r.get('prefetch_depth') for r in precs]}")
+        h2d_ms = [r["h2d_ms"] for r in precs]
+        del state
+
+        # 9. step time of each setting in one call, in turns, after a
+        # warm-up step of each (the stats' buffers allocated once)
+        settings = ("off", "telemetry", "health_1", "health_10")
+        times = {s: [] for s in settings}
+        b.enable_telemetry()
+        b.enable_health(interval=1)
+        _steps(b, ids, labels, 2)
+        b.disable_telemetry()
+        b.disable_health()
+        n_steps += 2
+        for s in (settings + settings[::-1]) * 2:
+            if s == "telemetry":
+                b.enable_telemetry()
+            elif s != "off":
+                b.enable_health(interval=int(s.split("_")[1]))
+            _, ms = _steps(b, ids, labels, OBS_TIMED_STEPS)
+            n_steps += OBS_TIMED_STEPS
+            times[s] += ms
+            b.disable_telemetry()
+            b.disable_health()
+        launches = _launch_counts()
+        _check_mma_launches("train_obs", dict(fa.launches_by_route), _bwd_routes(),
+                            n_steps * cfg.num_layers, n_steps * cfg.num_layers)
+        # where a health step's time goes: one traced step off, one at interval 1
+        profiles = {}
+        for s in ("off", "health_1"):
+            if s != "off":
+                b.enable_health(interval=1)
+            wall, kernel_ms, top = device_profile(lambda: b.step(ids, labels).item(), top=8)
+            profiles[s] = {"wall_ms_traced": wall, "kernel_ms": kernel_ms, "top_kernels": top}
+            b.disable_health()
+        del a, b
+    med = {s: statistics.median(v) for s, v in times.items()}
+    mean = {s: statistics.fmean(v) for s, v in times.items()}
+    bench_mfu = fpt * ids.numel() / (med["off"] / 1e3) / peak
+    emit(phase="train_obs", model="gpt2-124m", batch=list(ids.shape), amp="bfloat16 O1",
+         card=card, bit_equal_on_off=True, health_worst_rel_err=worst,
+         poisoned=OBS_POISON, run_steps_losses=fused, checkpoints=saved,
+         prefetch_losses=pre, prefetch_h2d_ms=h2d_ms, steps=n_steps, launches=launches,
+         step_ms={s: v for s, v in times.items()}, step_ms_median=med, step_ms_mean=mean,
+         cost_vs_off_median={s: med[s] / med["off"] - 1 for s in settings[1:]},
+         cost_vs_off_mean={s: mean[s] / mean["off"] - 1 for s in settings[1:]},
+         telemetry_mfu_median=tele_mfu, bench_mfu_of_off_median=bench_mfu,
+         flops_per_token=fpt, health_fetches=monitor.stat("health.fetches").get(),
+         profiles=profiles, seconds=time.perf_counter() - t_phase)
+    for s in settings:
+        print(f"train_obs: {s} step ms median {med[s]:.3f} mean {mean[s]:.3f} ({card})",
+              flush=True)
+    return launches
+
+
 JAX_SLOTS = {"sgd": 0, "momentum": 1, "adam": 2, "adamw": 2, "adamax": 2, "adagrad": 1,
              "adadelta": 2, "rmsprop": 3, "lamb": 2, "lars": 1}
 
@@ -4116,6 +4371,8 @@ def main() -> int:
 
     launches, f32_launches = phase_train(ids)
     torch.cuda.empty_cache()
+    obs_launches = phase_train_obs(ids)
+    torch.cuda.empty_cache()
     rules_launches = phase_train_rules(ids)
     phase_train_vs_cpu()
     torch.cuda.empty_cache()
@@ -4142,15 +4399,15 @@ def main() -> int:
     # tensor-core forward and backward)
     pallas = "paddle_tpu/ops/pallas/"
     rows = [  # (name, path, record, source, replaces)
-        ("flash_attention_fwd", "train, train_rules, dp, dp_eager, ckpt",
+        ("flash_attention_fwd", "train, train_obs, train_rules, dp, dp_eager, ckpt",
          fwd["slice_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_fwd_f32", "score, train_f32, dp_eager", fwd["slice_f32_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_bwd_dkdv", "train, train_rules, dp, dp_eager, ckpt",
+        ("flash_attention_bwd_dkdv", "train, train_obs, train_rules, dp, dp_eager, ckpt",
          bwd["train_bf16_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq", "train, train_rules, dp, dp_eager, ckpt",
+        ("flash_attention_bwd_dq", "train, train_obs, train_rules, dp, dp_eager, ckpt",
          bwd["train_bf16_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
         ("flash_attention_bwd_dkdv_f32", "train_f32, dp_eager", bwd["train_f32_causal"]["dkdv"],
@@ -4194,8 +4451,8 @@ def main() -> int:
     # the LM loss's bf16 tensor-core forward and backward from the bf16
     # pass, its f32-h forward and backward (3xTF32) from the f32 pass
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
-    counts = {**{k: launches[k] + rules_launches[k] + dp_launches[k] + ckpt_launches[k]
-                 + dp_eager_launches["bf16"][k] for k in launches},
+    counts = {**{k: launches[k] + obs_launches[k] + rules_launches[k] + dp_launches[k]
+                 + ckpt_launches[k] + dp_eager_launches["bf16"][k] for k in launches},
               **bench_launches,
               **{f"{k}_f32": f32_launches[k] + dp_eager_launches["f32"][k]
                  + (score_launches if k == "flash_attention_fwd" else 0)

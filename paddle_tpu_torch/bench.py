@@ -38,8 +38,12 @@ and decodes.
 The environment knobs are bench.py's: ``PADDLE_TPU_BENCH_MODEL`` (base or
 medium), ``_BATCH``, ``_STEPS``, ``_SEQ``, ``_WINDOWS``, ``_RECOMPUTE``
 ("selective", or any other value for full), ``_ACCUM`` (in-program
-microbatches), ``_DECODE`` and ``_DECODE_INT8`` (the decode model's
-projections weight-only int8). The knobs whose machinery the port does not
+microbatches), ``_SCAN`` ("1": warm-up and timed steps each one
+``engine.run_steps`` call, the timed region one window), ``_PREFETCH``
+("1": the steps fed through ``engine.prefetch``, each window ended by a
+device read), ``_DECODE`` and ``_DECODE_INT8`` (the decode model's
+projections weight-only int8). ``extra`` records ``scan`` and
+``prefetch`` as bench.py does. The knobs whose machinery the port does not
 have yet stop the script (``UNPORTED``). Unlike bench.py there is no
 degraded retry and no history file: a failure fails the run, and nothing is
 written.
@@ -62,16 +66,12 @@ from .distributed import TrainStepEngine, collective, fleet
 from .distributed import grad_comm as _gc
 from .incubate.quantization import quantize_model
 from .models import GPTConfig, GPTForPretraining, gpt_tiny
-from .observability import peak_flops_per_sec, transformer_flops_per_token
+from .observability import card_peak_flops_per_sec, transformer_flops_per_token
 from .optimizer import AdamW
 
 #: bench.py's knobs whose machinery the port lacks, with the ROADMAP.md item
 #: that brings it; any value stops the script
 UNPORTED = {
-    "PADDLE_TPU_BENCH_SCAN": "K steps in one program (CUDA graphs around the "
-                             "step, ROADMAP.md Queue 1 item 6)",
-    "PADDLE_TPU_BENCH_PREFETCH": "the engine's prefetch of staged batches "
-                                 "(ROADMAP.md Queue 1 item 6, host time)",
     "PADDLE_TPU_BENCH_AUTOTUNE": "a block-size autotune of the flash kernels, "
                                  "whose tiles are fixed (ROADMAP.md Queue 2 "
                                  "follow-up 2)",
@@ -125,11 +125,14 @@ def card_name_and_power_limit():
 
 
 def run(cfg, batch, seq, steps, warmup, *, windows=3, recompute=None, accum=1,
-        decode=False, decode_int8=False, device=None, dp=False):
+        decode=False, decode_int8=False, device=None, dp=False, scan=False,
+        prefetch=False):
     """bench.py's run on the port: returns the payload of its JSON line.
 
     cfg: a GPTConfig (copied; its max_seq_len follows seq). recompute: None,
-    "full" or "selective". accum: microbatches a step. decode: also time
+    "full" or "selective". accum: microbatches a step. scan: the warm-up
+    and the timed steps each one ``run_steps`` call (one window); prefetch:
+    the steps fed through ``engine.prefetch`` (module docstring). decode: also time
     greedy ``generate`` of 64 tokens after a prompt of up to 128;
     decode_int8: of the decode model with every projection weight-only int8
     (``incubate.quantization.quantize_model``). device:
@@ -168,21 +171,53 @@ def run(cfg, batch, seq, steps, warmup, *, windows=3, recompute=None, accum=1,
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     window_dts = []
+
+    def repeat_batch(n):   # bench.py's: the batch already on the card passes through
+        for _ in range(n):
+            yield t_ids, t_labels
+
     with auto_cast(enable=on_card, dtype="bfloat16"):
         first_loss = None
-        for _ in range(warmup):
-            loss = engine.step(t_ids, t_labels)
-            if first_loss is None:
-                first_loss = float(loss.item())
+        if scan:
+            loss = engine.run_steps(t_ids, t_labels, steps=warmup)
+            first_loss = float(loss[0].item())
+        elif prefetch:
+            for pb in engine.prefetch(repeat_batch(warmup)):
+                loss = engine.step(*pb)
+                if first_loss is None:
+                    first_loss = float(loss.item())
+        else:
+            for _ in range(warmup):
+                loss = engine.step(t_ids, t_labels)
+                if first_loss is None:
+                    first_loss = float(loss.item())
         if on_card:
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        for wn in _window_plan(steps, windows):
-            tw = time.perf_counter()
-            for _ in range(wn):
-                loss = engine.step(t_ids, t_labels)
-            final_loss = float(loss.item())   # the device read ends the window
-            window_dts.append((time.perf_counter() - tw, wn))
+        if scan:   # one call: one window
+            final_loss = float(engine.run_steps(t_ids, t_labels, steps=steps)[-1].item())
+            window_dts.append((time.perf_counter() - t0, steps))
+        elif prefetch:
+            ends, acc = set(), 0
+            for wn in _window_plan(steps, windows):
+                acc += wn
+                ends.add(acc)
+            tw, done_prev, done = t0, 0, 0
+            for pb in engine.prefetch(repeat_batch(steps)):
+                loss = engine.step(*pb)
+                done += 1
+                if done in ends:
+                    final_loss = float(loss.item())   # the window boundary's read
+                    now = time.perf_counter()
+                    window_dts.append((now - tw, done - done_prev))
+                    tw, done_prev = now, done
+        else:
+            for wn in _window_plan(steps, windows):
+                tw = time.perf_counter()
+                for _ in range(wn):
+                    loss = engine.step(t_ids, t_labels)
+                final_loss = float(loss.item())   # the device read ends the window
+                window_dts.append((time.perf_counter() - tw, wn))
         dt = time.perf_counter() - t0
     comm = None
     if dp:
@@ -224,7 +259,7 @@ def run(cfg, batch, seq, steps, warmup, *, windows=3, recompute=None, accum=1,
     name = torch.cuda.get_device_name(dev) if on_card else "cpu"
     # MFU with bench.py's accounting (PaLM appendix B: 6N + 12*L*h*s model
     # FLOPs a token; no recompute) against the H100's dense bf16 peak
-    peak = peak_flops_per_sec("h100") if "H100" in name else None
+    peak = card_peak_flops_per_sec(name) if on_card else None
     flops_tok = transformer_flops_per_token(n_params, cfg.num_layers,
                                             cfg.hidden_size, seq)
     mfu = flops_tok * tokens_per_sec / peak if peak else None
@@ -252,6 +287,8 @@ def run(cfg, batch, seq, steps, warmup, *, windows=3, recompute=None, accum=1,
             "grad_comm": comm,
             "decode_tokens_per_sec": decode_tps,
             "recompute": recompute,
+            "scan": "1" if scan else None,
+            "prefetch": "1" if prefetch else None,
             "microbatches": k if k > 1 else None,
         },
     }
@@ -284,7 +321,9 @@ def main():
                   accum=int(env.get("PADDLE_TPU_BENCH_ACCUM", "0") or 0),
                   decode=env.get("PADDLE_TPU_BENCH_DECODE") == "1",
                   decode_int8=env.get("PADDLE_TPU_BENCH_DECODE_INT8") == "1", device=device,
-                  dp="PADDLE_TRAINERS_NUM" in env)
+                  dp="PADDLE_TRAINERS_NUM" in env,
+                  scan=env.get("PADDLE_TPU_BENCH_SCAN") == "1",
+                  prefetch=env.get("PADDLE_TPU_BENCH_PREFETCH") == "1")
     if fleet.worker_index() == 0:
         print(json.dumps(payload), flush=True)
 

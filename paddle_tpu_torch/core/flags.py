@@ -94,6 +94,23 @@ define_flag("ckpt_rollback", False,
             "a non-finite training loss restores the newest valid checkpoint "
             "in place of the diverged state (ckpt.rollbacks); one loss read "
             "a step while on")
+define_flag("health_monitor", False,
+            "compute training-health statistics (global + per-parameter "
+            "grad/weight norms, update-to-weight ratios, non-finite "
+            "localization) on the train step's interval steps "
+            "(observability/health.py): one packed f32 [4P] buffer fetched "
+            "to the host in one copy; off-interval steps launch nothing. Also "
+            "enabled by PADDLE_TPU_HEALTH_DIR (which adds a health.jsonl "
+            "sink). Read at engine construction")
+define_flag("health_interval", 10,
+            "steps between health statistics: the stats are computed and "
+            "fetched (ONE transfer of one f32 [4P] array) only on steps that "
+            "are a multiple of this, with the registry feed and JSONL write")
+define_flag("health_spike_factor", 10.0,
+            "grad-norm spike threshold: a fetched global grad norm above "
+            "factor*EMA(grad_norm) bumps health.spikes and triggers a "
+            "flight-recorder dump (reason health_grad_spike). <= 0 disables "
+            "spike detection")
 define_flag("elastic_lease_s", 5.0,
             "membership heartbeat lease duration in seconds "
             "(distributed/membership.py). A worker whose lease key is older "

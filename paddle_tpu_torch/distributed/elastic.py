@@ -41,10 +41,15 @@ reads the directory. Every rank restores the full state and the next ZeRO or
 FSDP step shards it again, at the new rank count.
 
 Counters (core/monitor.py): ckpt.saves, .restores, .bytes, .skipped,
-.corrupt, .failures, .rollbacks, .gc_removed. ``PADDLE_TPU_CKPT_SLOW_WRITE_MS``
-sleeps that long after each payload file (widens the window of a mid-save
-kill for the tests). Not ported: ``live_reshard`` (a world size changed in
-process), the flight-recorder dumps and the metrics histograms.
+.corrupt, .failures, .rollbacks, .gc_removed. With the metrics registry on,
+each commit observes the ``ckpt.save_ms`` and ``ckpt.capture_ms``
+histograms, and a commit by the background writer ``ckpt.overlap_ms`` (the
+writer's wall while the step's thread kept stepping). With the flight
+recorder on, a corrupt checkpoint skipped by the restore walk dumps
+``ckpt_corrupt``, a failed save ``ckpt_save_failed`` and a rollback
+``ckpt_rollback``. ``PADDLE_TPU_CKPT_SLOW_WRITE_MS`` sleeps that long after
+each payload file (widens the window of a mid-save kill for the tests). Not
+ported: ``live_reshard`` (a world size changed in process).
 """
 from __future__ import annotations
 
@@ -64,6 +69,8 @@ import torch
 
 from ..core import flags as _flags
 from ..core import monitor as _monitor
+from ..observability import flight_recorder as _obs_flight
+from ..observability import metrics as _obs_metrics
 from . import collective
 
 SAVES = _monitor.stat("ckpt.saves")
@@ -415,6 +422,9 @@ def restore_latest(engine, dirname: str) -> int:
             last_err = e
             CORRUPT.increase()
             warnings.warn(f"skipping corrupt checkpoint {path}: {e}")
+            fr = _obs_flight.get()
+            if fr is not None:
+                fr.dump("ckpt_corrupt", {"path": path, "error": str(e)})
             continue
         restored = restore_checkpoint(engine, path, manifest)
         RESTORES.increase()
@@ -479,7 +489,7 @@ class CheckpointManager:
             if snap is None:
                 return
             try:
-                self._commit(snap)
+                self._commit(snap, overlap=True)
             except Exception as e:
                 self._note_failure(snap.step, e)
             finally:
@@ -490,9 +500,12 @@ class CheckpointManager:
     def _note_failure(self, step, e):
         self.last_error = e
         FAILURES.increase()
+        fr = _obs_flight.get()
+        if fr is not None:
+            fr.dump("ckpt_save_failed", {"step": step, "error": repr(e)})
         warnings.warn(f"checkpoint save failed at step {step}: {e!r}")
 
-    def _commit(self, snap):
+    def _commit(self, snap, overlap=False):
         t0 = time.perf_counter()
         _path, nbytes = write_checkpoint(snap, self.dirname,
                                          slow_write_ms=self._slow_write_ms)
@@ -501,6 +514,13 @@ class CheckpointManager:
         SAVES.increase()
         BYTES_WRITTEN.increase(nbytes)
         self.last_saved_step = snap.step
+        reg = _obs_metrics.active_registry()
+        if reg is not None:
+            reg.histogram("ckpt.save_ms").observe(self.last_save_ms)
+            reg.histogram("ckpt.capture_ms").observe(snap.capture_ms)
+            if overlap:
+                # the writer's wall while the training thread kept stepping
+                reg.histogram("ckpt.overlap_ms").observe(self.last_save_ms)
         self._gc()
 
     def _gc(self):
@@ -574,21 +594,26 @@ class CheckpointManager:
         if _multi(engine):
             collective.barrier(engine.group)
 
-    def on_step(self, engine, step: int, loss=None) -> Optional[int]:
+    def on_step(self, engine, step: int, loss=None, window: int = 1) -> Optional[int]:
         """The engine's per-step hook: with rollback on, a non-finite loss
         restores the newest valid checkpoint (returns its step); else a save
-        when ``step`` lands on the interval."""
+        when any step of ``(step - window, step]`` lands on the interval
+        (``window``: the optimizer steps this call covers, K for
+        ``run_steps``)."""
         if self._closed:
             return None
         if self.rollback_on_nonfinite and loss is not None:
             lv = float(loss)
             if not math.isfinite(lv):
                 return self._rollback(engine, step, lv)
-        if step % self.interval == 0:
+        if step // self.interval > (step - window) // self.interval:
             self.save(engine)
         return None
 
     def _rollback(self, engine, step, loss_value):
+        fr = _obs_flight.get()
+        if fr is not None:
+            fr.dump("ckpt_rollback", {"step": step, "loss": loss_value})
         self._settle(engine)
         try:
             restored = restore_latest(engine, self.dirname)

@@ -85,6 +85,32 @@ above, unchanged. Otherwise the step is grad_comm's (distributed/grad_comm.py):
   ends in the ``elastic.CheckpointManager``'s ``on_step`` (crash-safe saves
   in the JAX package's layout, newest-valid restore, rollback on a
   non-finite loss).
+- **Observability** (reference engine.py:219-301, :702-727): telemetry
+  (``enable_telemetry``, ``PADDLE_TPU_TELEMETRY_DIR``: one
+  ``StepTelemetry`` record a step, with the grad_comm step's
+  ``microbatches``, ``grad_comm_*``, ``zero_update`` and ``fsdp*`` fields),
+  the health monitor (``enable_health``, ``FLAGS_health_monitor``,
+  ``PADDLE_TPU_HEALTH_DIR``: observability/health.py's stats on interval
+  steps, from the pre-clip gradients; under ZeRO and FSDP each rank's
+  partial is summed over the replicas by one all_reduce on those steps,
+  which every rank takes alike), the flight recorder's step records and
+  its ``train_step_exception`` / ``run_steps_exception`` / ``train_loss``
+  dumps, the metrics registry's ``train.step_ms``, ``train.h2d_ms`` and
+  ``train.run_steps_ms`` histograms, and the tracer's ``engine.step``,
+  ``engine.accum_step`` and ``engine.run_steps`` spans. Their wall time
+  ends in a device read of the loss, taken only while telemetry, the
+  flight recorder or the metrics registry is on: with all of them off a
+  step launches and syncs nothing more than without them. An eager step
+  compiles nothing, so ``compiled`` is always False.
+- **run_steps** (reference :1716) takes K optimizer steps in one call on a
+  batch with a leading [K] axis, or on one batch K times (``steps=K``): a
+  loop over the K = 1 step (the plain step; under a group, the f32 reduce
+  whatever ``microbatches`` and the payload flag say, as the reference's
+  scan of its plain step), one telemetry record with ``steps_fused``, no
+  health stats, one checkpoint hook with ``window=K``. It refuses ZeRO and
+  FSDP. **prefetch** (reference :1940) stages the next batches on the card
+  on a side stream (``prefetcher.DevicePrefetcher``); ``step`` records
+  their ``h2d_ms`` and ``prefetch_depth``.
 - **Dropout.** Over more than one rank each microbatch reseeds the model's
   dropout generator (``model.generator``) from (seed, rank, step,
   microbatch), so ranks draw different masks and a run repeats exactly.
@@ -97,29 +123,38 @@ the JAX engine counts nothing on one replica. Without a process group no
 collective is called and the low-precision payloads still round-trip.
 
 PyTorch runs eagerly, so there is no compiled step to build, cache or
-donate into. Not ported yet (ROADMAP.md): telemetry and health, hybrid
-meshes, ``run_steps``, a world size changed in process (``reform_mesh``),
-CUDA graphs around the step, and the overlap of the reduce with the
-backward.
+donate into. Not ported yet (ROADMAP.md): hybrid meshes, a world size
+changed in process (``reform_mesh``), CUDA graphs around the step (under
+``run_steps`` too), and the overlap of the reduce with the backward.
 """
 from __future__ import annotations
 
 import math
+import time
 import warnings
 import weakref
 
 import torch
 
 from ..core import flags as _flags
+from ..core import monitor as _monitor
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByValue
+from ..observability import exporter as _obs_exporter
+from ..observability import flight_recorder as _obs_flight
+from ..observability import health as _obs_health
+from ..observability import metrics as _obs_metrics
+from ..observability import tracer as _obs_tracer
+from ..observability.step_telemetry import JsonlSink, StepTelemetry
 from ..optimizer import _to_host
 from ..optimizer import functional as opt_funct
 from . import collective
 from . import elastic as _elastic
 from . import grad_comm as _gc
+from . import prefetcher as _pf
 from .mesh import get_hybrid_communicate_group
 
 _M64 = (1 << 64) - 1
+_NAN_LOSS_STEPS = _monitor.stat("engine.nan_loss_steps")
 
 
 def _fold_seed(*xs) -> int:
@@ -189,6 +224,20 @@ class TrainStepEngine:
         self._fsdp_hooked = False
         gen = getattr(model, "generator", None)
         self._seed = gen.initial_seed() if gen is not None else 0
+        self._pending_h2d = None       # (h2d_ms, depth) staged by prefetch()
+        self.prefetcher = None         # the last DevicePrefetcher prefetch() built
+        # PADDLE_TPU_TELEMETRY_DIR attaches a JSONL sink; otherwise telemetry
+        # stays None and the step pays one None check for it
+        self.telemetry = StepTelemetry.from_env(
+            device=self.device if self.params else None)
+        if self.telemetry is not None and self.telemetry.flops_per_token is None:
+            self.telemetry.flops_per_token = 6 * self._n_params()
+        # PADDLE_TPU_METRICS_PORT / PADDLE_TPU_FLIGHT_DIR: one getenv each
+        _obs_exporter.ensure_started_from_env()
+        _obs_flight.ensure_from_env()
+        # FLAGS_health_monitor / PADDLE_TPU_HEALTH_DIR; None (the default)
+        # leaves the step as it was
+        self._health = _obs_health.from_env_or_flags(self._shapes)
         # FLAGS_ckpt_dir / PADDLE_TPU_CKPT_DIR: checkpoints (distributed/elastic.py);
         # None costs one flag read here and one None check a step
         self._ckpt = _elastic.from_flags()
@@ -196,6 +245,116 @@ class TrainStepEngine:
     @property
     def device(self) -> torch.device:
         return next(iter(self.params.values())).device
+
+    def _n_params(self) -> int:
+        return sum(math.prod(shape) for shape in self._shapes.values())
+
+    # ---- observability (observability/) ----
+    def enable_telemetry(self, sink=None, path=None, flops_per_token=None,
+                         peak_flops=None, collect_live_buffers=False) -> StepTelemetry:
+        """Attach per-step telemetry (reference engine.py:251). The default
+        flop model is parameter-only (6*N per token); pass flops_per_token
+        from observability.transformer_flops_per_token for the bench's
+        accounting with the attention term. collect_live_buffers=True adds
+        the caching allocator's live count and bytes to each record."""
+        if sink is None and path is not None:
+            sink = JsonlSink(path)
+        self.telemetry = StepTelemetry(
+            sink=sink,
+            flops_per_token=(flops_per_token if flops_per_token is not None
+                             else 6 * self._n_params()),
+            peak_flops=peak_flops, collect_live_buffers=collect_live_buffers,
+            device=self.device)
+        return self.telemetry
+
+    def disable_telemetry(self) -> None:
+        if self.telemetry is not None:
+            self.telemetry.close()
+        self.telemetry = None
+
+    def enable_health(self, interval=None, spike_factor=None, sink=None, path=None,
+                      ring_capacity: int = 64):
+        """Attach the TrainingHealthMonitor (reference engine.py:279): grad,
+        weight and update norms and non-finite attribution, computed on
+        steps that are a multiple of ``interval`` and fetched as ONE packed
+        f32 [4P] copy (observability/health.py)."""
+        if sink is None and path is not None:
+            sink = JsonlSink(path)
+        self._health = _obs_health.TrainingHealthMonitor(
+            self._shapes, interval=interval, spike_factor=spike_factor, sink=sink,
+            ring_capacity=ring_capacity)
+        return self._health
+
+    def disable_health(self) -> None:
+        if self._health is not None:
+            self._health.close()
+        self._health = None
+
+    def _health_due(self, health) -> bool:
+        return health is not None and health.wants(self._step_count)
+
+    def _health_begin(self, health, grads, weights):
+        """The health stats' first half on an interval step, else None:
+        ``grads`` (pre-clip) and ``weights`` (before the update), {name:
+        tensor} of every parameter (health.begin_stats)."""
+        if not self._health_due(health):
+            return None
+        return health.begin_stats([grads[n] for n in health.names],
+                                  [weights[n] for n in health.names])
+
+    def _health_end(self, health, begun):
+        """The packed [4P] stats of a replicated step, after its update."""
+        if begun is None:
+            return None
+        return health.end_stats(begun, [self.params[n] for n in health.names])
+
+    def _health_sum(self, part):
+        """A rank's partial [4P] summed over the replicas (interval steps
+        only, which every rank takes alike)."""
+        if self.group is not None:
+            collective.all_reduce(part, group=self.group)
+        return part
+
+    @staticmethod
+    def _batch_stats(batch, lead_axes=0):
+        """(samples, tokens) per call from the first batch tensor: the
+        leading dim is the sample axis. Tokens are counted only for integer
+        id batches ([b, s] LM inputs): dim 1 of a float feature matrix is
+        features, not sequence."""
+        if not batch:
+            return None, None
+        shape = tuple(batch[0].shape)[lead_axes:]
+        if not shape:
+            return None, None
+        samples = int(shape[0])
+        dt = batch[0].dtype
+        tokens = None
+        if len(shape) >= 2 and not (dt.is_floating_point or dt.is_complex
+                                    or dt == torch.bool):
+            tokens = samples * int(shape[1])
+        return samples, tokens
+
+    def _obs_step_tail(self, fr, mreg, rec, t0, t1, h2d_ms, loss_val,
+                       hist="train.step_ms"):
+        """The shared tail of step and run_steps (reference engine.py:702):
+        the metrics histograms, and the step record into the flight
+        recorder's ring, whose non-finite loss counts
+        ``engine.nan_loss_steps`` and dumps ``train_loss``."""
+        if mreg is not None:
+            mreg.histogram(hist).observe((t1 - t0) * 1e3)
+            if h2d_ms:
+                mreg.histogram("train.h2d_ms").observe(h2d_ms)
+        if fr is not None:
+            if rec is None:
+                rec = {"event": "train_step", "step": self._step_count,
+                       "wall_time_s": t1 - t0, "loss": loss_val,
+                       "h2d_ms": h2d_ms, "compiled": False}
+            fr.record(rec)
+            lv = rec.get("loss")
+            if lv is not None and not math.isfinite(lv):
+                # a diverged step: the dump's ring tail ends with this record
+                _NAN_LOSS_STEPS.increase()
+                fr.on_nan_inf("train_loss", {"step": self._step_count})
 
     # ---- checkpoints (distributed/elastic.py) ----
     def enable_checkpointing(self, dirname, interval=None, keep=None, async_save=None,
@@ -234,23 +393,209 @@ class TrainStepEngine:
     def _to_device(self, x):
         return torch.as_tensor(x).to(self.device, non_blocking=True)
 
+    def _place(self, batch, timed):
+        """``batch`` on the model's device, and the copies' issue wall ms
+        when ``timed``."""
+        t0 = time.perf_counter() if timed else None
+        batch = [self._to_device(b) for b in batch]
+        return batch, ((time.perf_counter() - t0) * 1e3 if timed else None)
+
+    def _check_not_sharded(self):
+        if self._fsdp_params is not None:
+            raise ValueError("fsdp was turned off after the first fsdp step, but the "
+                             "conversion to shards is one-way: call sync_to_model() "
+                             "and build a new engine on the model")
+
+    def _check_batch(self, batch, k=1):
+        """The batch dim must split into k microbatches on every replica."""
+        nrep = _gc.replica_count(self.group)
+        for b in batch:
+            if b.dim() and b.shape[0] % (k * nrep):
+                raise ValueError(
+                    f"batch dim {b.shape[0]} is not divisible by microbatches = {k} "
+                    f"x replicas = {nrep}; pad or resize the batch")
+
     def step(self, *batch):
         """One optimizer step on ``batch`` (tensors or arrays, moved to the
         model's device; under a group, the global batch). Returns the loss
         (a detached 0-dim tensor; under a group, the mean over ranks)."""
-        batch = [self._to_device(b) for b in batch]
+        tele = self.telemetry
+        fr = _obs_flight.get()
+        mreg = _obs_metrics.active_registry()
+        # a batch staged by prefetch() is on the card already: its copy
+        # stats were taken when it was issued
+        staged, self._pending_h2d = self._pending_h2d, None
+        batch, h2d_ms = self._place(batch, tele is not None and staged is None)
+        prefetch_depth = None
+        if staged is not None:
+            h2d_ms, prefetch_depth = staged
         k = self.microbatches
         dtype = _gc.comm_dtype()
         fsdp, zero = self._fsdp_on(), self._zero_on()
-        if not fsdp and self._fsdp_params is not None:
-            raise ValueError("fsdp was turned off after the first fsdp step, but the "
-                             "conversion to shards is one-way: call sync_to_model() "
-                             "and build a new engine on the model")
-        if self.group is None and k == 1 and dtype == "f32" and not (zero or fsdp):
-            self._plain_step(batch)
-        else:
-            self._comm_step(batch, k, dtype, zero, fsdp)
+        if not fsdp:
+            self._check_not_sharded()
+        health = self._health
+        t0 = time.perf_counter()
+        try:
+            if self.group is None and k == 1 and dtype == "f32" and not (zero or fsdp):
+                hbuf, comm_bytes = self._plain_step(batch, health), None
+            else:
+                hbuf, comm_bytes = self._comm_step(batch, k, dtype, zero, fsdp, health)
+            # an honest wall time ends in a device read, only when read
+            loss_val = (self.last_loss.item()
+                        if tele is not None or fr is not None or mreg is not None
+                        else None)
+        except Exception as e:
+            if fr is not None:
+                fr.dump("train_step_exception",
+                        {"step": self._step_count, "error": repr(e)})
+            raise
+        t1 = time.perf_counter()
+        # the reference's grad_comm step (its _accum_step), by its own test
+        accum = k > 1 or dtype != "f32" or zero or fsdp
+        tr = _obs_tracer.get_tracer()
+        if tr.enabled:
+            args = {"step": self._step_count, "compiled": False}
+            if accum:
+                args.update(microbatches=k, grad_comm_dtype=dtype, zero_update=zero,
+                            fsdp=fsdp)
+            tr.record_complete("engine.accum_step" if accum else "engine.step", t0, t1,
+                               args)
+        if hbuf is not None:
+            health.on_step(self._step_count, hbuf)
+        rec = None
+        if tele is not None:
+            samples, tokens = self._batch_stats(batch)
+            comm = {}
+            if accum:
+                fsdp_pf = self._fsdp_prefetch() if fsdp else 0
+                comm = dict(
+                    microbatches=k, grad_comm_dtype=dtype,
+                    grad_comm_bytes=comm_bytes or 0,
+                    extra=({"fsdp": True, "fsdp_prefetch": fsdp_pf,
+                            "fsdp_window_bytes": _gc.fsdp_window_bytes(
+                                self._fsdp_layout()[0], fsdp_pf)} if fsdp
+                           else {"zero_update": True} if zero else None))
+            rec = tele.record_step(
+                step=self._step_count, wall_time=t1 - t0, samples=samples,
+                tokens=tokens, loss=loss_val, h2d_ms=h2d_ms,
+                prefetch_depth=prefetch_depth, **comm)
+        if fr is not None or mreg is not None:
+            self._obs_step_tail(fr, mreg, rec, t0, t1, h2d_ms, loss_val)
         return self._end_step()
+
+    train_batch = step
+
+    def run_steps(self, *batch, steps=None):
+        """K optimizer steps in one call (reference engine.py:1716); returns
+        their losses [K] (a detached f32 tensor).
+
+        Either pass batch tensors with a leading [K] step axis, or one
+        step's batch and ``steps=K`` to reuse it every step (moved to the
+        card once). Each step is the K = 1 step whatever ``microbatches``
+        says, with its own learning rate read from the optimizer; under a
+        group, the f32 reduce. One telemetry record (``steps_fused``), one
+        ``train.run_steps_ms`` observation, one ``engine.run_steps`` span
+        and one checkpoint hook covering the K steps (``window=K``: an
+        interval that falls inside them saves at their end). The health
+        monitor does not ride it; use step() for monitored runs. ZeRO and
+        FSDP raise, as in the reference."""
+        if self._fsdp_on():
+            raise ValueError(
+                "run_steps (the fused K-step scan lane) does not compose "
+                "with fsdp: the scan carries the replicated params/opt-"
+                "state dicts while the fsdp path owns per-layer flat 1/N "
+                "shards per data replica. Use step() (one dispatch per "
+                "optimizer step, L bucket all-gathers + one reduce-"
+                "scatter) or disable fsdp for this engine.")
+        if self._zero_on():
+            raise ValueError(
+                "run_steps (the fused K-step scan lane) does not compose "
+                "with zero_update: the scan carries the replicated "
+                "opt-state dict while the ZeRO path owns flat 1/N shards "
+                "per data replica. Use step() (one dispatch per optimizer "
+                "step, one reduce-scatter + one all-gather) or disable "
+                "zero_update for this engine.")
+        self._check_not_sharded()
+        fixed = steps is not None
+        tele = self.telemetry
+        fr = _obs_flight.get()
+        mreg = _obs_metrics.active_registry()
+        batch, h2d_ms = self._place(batch, tele is not None)
+        k = int(steps) if fixed else int(batch[0].shape[0])
+        if k < 1:
+            raise ValueError(f"run_steps needs at least one step, got K={k}")
+        each = [batch] * k if fixed else [[b[i] for b in batch] for i in range(k)]
+        self._check_batch(each[0])
+        step0 = self._step_count + 1
+        t0 = time.perf_counter()
+        try:
+            losses = []
+            for b in each:
+                if self.group is None:
+                    self._plain_step(b)
+                else:
+                    self._comm_step(b, 1, "f32", False)
+                losses.append(self.last_loss)
+            losses = torch.stack(losses)
+            loss_val = (losses[-1].item()
+                        if tele is not None or fr is not None or mreg is not None
+                        else None)
+        except Exception as e:
+            if fr is not None:
+                fr.dump("run_steps_exception",
+                        {"step0": step0, "steps": k, "error": repr(e)})
+            raise
+        t1 = time.perf_counter()
+        tr = _obs_tracer.get_tracer()
+        if tr.enabled:
+            tr.record_complete("engine.run_steps", t0, t1,
+                               {"steps": k, "step0": step0, "compiled": False})
+        self.last_loss = losses[-1]
+        rec = None
+        if tele is not None:
+            samples, tokens = self._batch_stats(batch, lead_axes=0 if fixed else 1)
+            rec = tele.record_step(
+                step=self._step_count, wall_time=t1 - t0,
+                samples=samples * k if samples else None,
+                tokens=tokens * k if tokens else None,
+                loss=loss_val, h2d_ms=h2d_ms, extra={"steps_fused": k})
+        if fr is not None or mreg is not None:
+            self._obs_step_tail(fr, mreg, rec, t0, t1, h2d_ms, loss_val,
+                                hist="train.run_steps_ms")
+        if self._ckpt is not None:
+            self._ckpt.on_step(self, self._step_count, self.last_loss, window=k)
+        return losses
+
+    def prefetch(self, loader, depth: int = 2):
+        """Iterate ``loader`` as batches on the card (reference
+        engine.py:1940): the copies of the next ``depth`` batches are issued
+        on a side stream while the current step runs::
+
+            for batch in engine.prefetch(loader):
+                engine.step(*batch)
+
+        step() takes the staged tensors as they are (one copy a batch) and
+        records the prefetcher's ``h2d_ms`` / ``prefetch_depth``. The
+        loader may yield tensors or arrays, laid out as step(*batch) takes
+        them."""
+        pf = _pf.DevicePrefetcher(self.device, depth=depth)
+        self.prefetcher = pf
+
+        def batches():
+            for batch in loader:
+                if not isinstance(batch, (tuple, list)):
+                    batch = (batch,)
+                self._check_batch([torch.as_tensor(b) for b in batch],
+                                  self.microbatches)
+                yield batch
+
+        def placed():
+            for batch in pf.iterate(batches()):
+                self._pending_h2d = (pf.last_h2d_ms, pf.last_depth)
+                yield batch
+
+        return placed()
 
     def _begin_step(self):
         opt = self.optimizer
@@ -275,7 +620,9 @@ class TrainStepEngine:
         with amp_guard_from_configs(self._amp_cfg, force_bf16=True), _tracing():
             return self.model(*batch)
 
-    def _plain_step(self, batch):
+    def _plain_step(self, batch, health=None):
+        """Sets last_loss; returns the packed health stats on an interval
+        step of ``health``, else None."""
         opt = self.optimizer
         lr_val = self._begin_step()
         loss = self._forward(batch)
@@ -283,10 +630,12 @@ class TrainStepEngine:
         with torch.no_grad():
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                      for n, p in self.params.items()}
+            hb = self._health_begin(health, grads, self.params)
             grads = opt_funct.clip_grads(grads, opt._grad_clip)
             opt._apply(self.params, grads, lr_val, self._step_count)
+            hbuf = self._health_end(health, hb)
         self.last_loss = loss.detach()
-        return self.last_loss
+        return hbuf
 
     # ---- the grad_comm step ----
     def _flat_layout(self, chunk):
@@ -303,14 +652,12 @@ class TrainStepEngine:
         return {nm: buf[layout.offsets[nm]:layout.offsets[nm] + math.prod(shape)].view(shape)
                 for nm, shape in self._shapes.items()}
 
-    def _comm_step(self, batch, k, dtype, zero, fsdp=False):
+    def _comm_step(self, batch, k, dtype, zero, fsdp=False, health=None):
+        """Sets last_loss; returns (the packed health stats on an interval
+        step of ``health``, else None; the bytes handed the collectives)."""
         group = self.group
         nrep = _gc.replica_count(group)
-        for b in batch:
-            if b.dim() and b.shape[0] % (k * nrep):
-                raise ValueError(
-                    f"batch dim {b.shape[0]} is not divisible by microbatches = {k} "
-                    f"x replicas = {nrep}; pad or resize the batch")
+        self._check_batch(batch, k)
         if nrep > 1:
             r = group.rank
             batch = [b.chunk(nrep)[r] if b.dim() else b for b in batch]
@@ -321,7 +668,7 @@ class TrainStepEngine:
         lr_val = self._begin_step()
         n = layout.n
         if fsdp:
-            self._fsdp_step(batch, k, layout, dtype, chunk, use_res, lr_val)
+            hbuf = self._fsdp_step(batch, k, layout, dtype, chunk, use_res, lr_val, health)
             comm_bytes = 0
             if group is not None:
                 rs_b, ag_b, _ = _gc.fsdp_payload_bytes(
@@ -330,7 +677,7 @@ class TrainStepEngine:
                 _gc.AG_BYTES.increase(ag_b)
                 comm_bytes = rs_b + ag_b
             self._count_step(k, dtype, comm_bytes)
-            return self.last_loss
+            return hbuf, comm_bytes
         # ZeRO's buffer also takes the all-gather of the new weights, one
         # [shard + 1] row a rank, once the reduce-scatter has consumed it
         buf, loss = self._accumulate(batch, k, layout,
@@ -340,7 +687,8 @@ class TrainStepEngine:
                 buf[:n].div_(k)
             res = self._ensure_residual(n) if use_res else None
             if zero:
-                self._zero_step(buf, layout, loss, dtype, chunk, res, lr_val)
+                hbuf = self._zero_step(buf, layout, loss, dtype, chunk, res, lr_val,
+                                       health)
                 rs_b, ag_b = ((0, 0) if group is None else
                               _gc.zero_payload_bytes(n, nrep, dtype, chunk))
                 _gc.RS_BYTES.increase(rs_b)
@@ -351,13 +699,15 @@ class TrainStepEngine:
                                                        chunk, res)
                 grads = {nm: v.to(self.params[nm].dtype)
                          for nm, v in self._views(red, layout).items()}
+                hb = self._health_begin(health, grads, self.params)
                 clipped = opt_funct.clip_grads(grads, opt._grad_clip)
                 opt._apply(self.params, clipped, lr_val, self._step_count)
+                hbuf = self._health_end(health, hb)
                 for nm, p in self.params.items():
                     p.grad = grads[nm]
                 comm_bytes = (0 if group is None else _gc.payload_bytes(n, dtype, chunk))
         self._count_step(k, dtype, comm_bytes)
-        return self.last_loss
+        return hbuf, comm_bytes
 
     @staticmethod
     def _count_step(k, dtype, comm_bytes):
@@ -506,20 +856,31 @@ class TrainStepEngine:
         states.clear()  # the flat shards are the state now
         return self._zero_opt
 
-    def _zero_step(self, buf, layout, loss, dtype, chunk, res, lr_val):
+    def _zero_step(self, buf, layout, loss, dtype, chunk, res, lr_val, health=None):
+        """Returns the packed health stats on an interval step, else None."""
         group, opt = self.group, self.optimizer
         lo = self._rank() * layout.shard
         g, loss_part = _gc.zero_scatter(buf, layout, loss, group, dtype, chunk, res)
         p_shard = torch.zeros(layout.shard, dtype=torch.float32, device=self.device)
+        spans = []   # (name, shard start, shard stop) of the rank's pieces
         for nm, a, b in layout.pieces(lo, lo + layout.shard):
             o = layout.offsets[nm] - lo
             p_shard[o + a:o + b] = self.params[nm].detach().reshape(-1)[a:b]
+            spans.append((nm, o + a, o + b))
+        hb = None
+        if self._health_due(health):
+            ordinal = {nm: i for i, nm in enumerate(layout.names)}
+            hb = health.begin_stats([g[a:b] for _, a, b in spans],
+                                    [p_shard[a:b] for _, a, b in spans],
+                                    [ordinal[nm] for nm, _, _ in spans])
         _gc.clip_shard(g, opt._grad_clip, group)
         update = opt_funct.make_flat_update(opt, next(iter(self.params)),
                                             block=_gc.BLOCK)
         slots = self._ensure_zero_opt(layout)
         work = tuple(t.to(self.device, non_blocking=True) for t in slots)
         update(p_shard, g, work, lr_val, self._step_count)
+        hbuf = None if hb is None else self._health_sum(
+            health.end_stats(hb, [p_shard[a:b] for _, a, b in spans]))
         if self._offload:   # back to the host shards
             for t, w in zip(slots, work):
                 t.copy_(w)
@@ -532,6 +893,7 @@ class TrainStepEngine:
             for nm, a, b in layout.pieces(base, base + layout.shard):
                 o = layout.offsets[nm] - base
                 self.params[nm].detach().view(-1)[a:b].copy_(rows[i, o + a:o + b])
+        return hbuf
 
     def zero_memory_model(self):
         """Optimizer-state bytes a rank holds: replicated against ZeRO's
@@ -813,8 +1175,9 @@ class TrainStepEngine:
             self.model.get_submodule(mod_name).register_forward_pre_hook(hook)
         self._fsdp_hooked = True
 
-    def _fsdp_step(self, batch, k, layout, dtype, chunk, use_res, lr_val):
-        """One FSDP step (module docstring); sets last_loss."""
+    def _fsdp_step(self, batch, k, layout, dtype, chunk, use_res, lr_val, health=None):
+        """One FSDP step (module docstring); sets last_loss. Returns the
+        packed health stats on an interval step, else None."""
         opt = self.optimizer
         n = layout.n
         self._ensure_fsdp_state()
@@ -843,6 +1206,13 @@ class TrainStepEngine:
             del buf
             g, self.last_loss = _gc.fsdp_scatter(payload, rows, self.group, dtype, chunk)
             del payload
+            hb = None
+            if self._health_due(health):
+                spans = self._fsdp_spans(buckets)
+                hb = health.begin_stats(
+                    [g[rows.soffs[bi] + a:rows.soffs[bi] + b] for _, bi, a, b in spans],
+                    [self._fsdp_params[bi][a:b] for _, bi, a, b in spans],
+                    [o for o, _, _, _ in spans])
             _gc.clip_shard(g, opt._grad_clip, self.group)
             update = opt_funct.make_flat_update(opt, next(iter(self.params)),
                                                 block=_gc.BLOCK)
@@ -850,6 +1220,26 @@ class TrainStepEngine:
                 sl = slice(rows.soffs[bi], rows.soffs[bi + 1])
                 update(p_shard, g[sl], tuple(col[bi] for col in self._fsdp_opt),
                        lr_val, self._step_count)
+            if hb is None:
+                return None
+            return self._health_sum(health.end_stats(
+                hb, [self._fsdp_params[bi][a:b] for _, bi, a, b in spans]))
+
+    def _fsdp_spans(self, buckets):
+        """(ordinal in sorted-name order, bucket, start, stop) of every piece
+        of a parameter in the rank's bucket shards (start, stop in the
+        bucket's shard)."""
+        ordinal = {nm: i for i, nm in enumerate(sorted(self._shapes))}
+        r, out = self._rank(), []
+        for bi, b in enumerate(buckets):
+            lo, off = r * b["shard"], 0
+            for nm in b["names"]:
+                size = math.prod(self._shapes[nm])
+                a, e = max(lo, off), min(lo + b["shard"], off + size)
+                if a < e:
+                    out.append((ordinal[nm], bi, a - lo, e - lo))
+                off += size
+        return out
 
 
 class _BucketGather:

@@ -4,7 +4,12 @@
 - ``tracer``: thread-safe host span recorder -> chrome-trace JSON.
 - ``metrics``: typed registry (counters/gauges/log-bucket histograms with
   p50/p90/p99) absorbing the ``core.monitor`` counters into one snapshot.
-- ``step_telemetry``: the ``InMemorySink`` / ``JsonlSink`` record sinks.
+- ``step_telemetry``: ``StepTelemetry``, one record a train step (wall
+  time, tokens/s, TFLOP/s, MFU, the card's memory, the counters), and the
+  ``InMemorySink`` / ``JsonlSink`` record sinks (PADDLE_TPU_TELEMETRY_DIR).
+- ``health``: the train step's health stats (grad, weight and update norms,
+  non-finite attribution by parameter name) on interval steps, fetched as
+  ONE packed buffer (FLAGS_health_monitor / PADDLE_TPU_HEALTH_DIR).
 - ``exporter``: stdlib-HTTP pull endpoint (Prometheus text + JSON),
   enabled via PADDLE_TPU_METRICS_PORT.
 - ``flight_recorder``: bounded ring of recent serve records dumped to disk
@@ -16,10 +21,10 @@
   ReplicaRouter's spawn/drain machinery.
 
 Everything is off by default and stdlib-only at import time. Not ported
-yet (ROADMAP.md Queue 1 item 10): the training ``StepTelemetry``,
-``health`` and ``exec_introspect``.
+yet (ROADMAP.md Queue 1 item 10): ``exec_introspect``, which reads compiled
+programs.
 """
-from . import capacity, exporter, fleet, flight_recorder, metrics, slo  # noqa: F401
+from . import capacity, exporter, fleet, flight_recorder, health, metrics, slo  # noqa: F401
 from .capacity import (  # noqa: F401
     CapacityController, CapacityPolicy, active_controller,
     install_controller, uninstall_controller,
@@ -34,7 +39,11 @@ from .fleet import (  # noqa: F401
     register_router, uninstall_collector,
 )
 from .flight_recorder import FlightRecorder  # noqa: F401
-from .flops import PEAK_TFLOPS, peak_flops_per_sec, transformer_flops_per_token
+from .flops import (  # noqa: F401
+    PEAK_TFLOPS, card_peak_flops_per_sec, peak_flops_per_sec,
+    transformer_flops_per_token,
+)
+from .health import TrainingHealthMonitor, segment_layout  # noqa: F401
 from .metrics import (  # noqa: F401
     Counter, Gauge, Histogram, MetricRegistry, active_registry,
     default_registry, estimate_percentile, log_buckets,
@@ -47,15 +56,17 @@ from .slo import (  # noqa: F401
     default_windows, install_engine, latency_slo, ratio_slo,
     uninstall_engine,
 )
-from .step_telemetry import InMemorySink, JsonlSink  # noqa: F401
+from .step_telemetry import InMemorySink, JsonlSink, StepTelemetry  # noqa: F401
 from .tracer import Tracer, enabled, get_tracer, span  # noqa: F401
 
 __all__ = [
     "Tracer", "get_tracer", "span", "enabled",
     "CapacityController", "CapacityPolicy", "capacity",
     "install_controller", "uninstall_controller", "active_controller",
-    "JsonlSink", "InMemorySink",
+    "JsonlSink", "InMemorySink", "StepTelemetry",
+    "TrainingHealthMonitor", "segment_layout", "health",
     "transformer_flops_per_token", "peak_flops_per_sec", "PEAK_TFLOPS",
+    "card_peak_flops_per_sec",
     "Counter", "Gauge", "Histogram", "MetricRegistry",
     "default_registry", "active_registry", "estimate_percentile",
     "log_buckets", "merge_histogram_snapshots",

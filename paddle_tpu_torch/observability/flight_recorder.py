@@ -2,7 +2,7 @@
 (counterpart of paddle_tpu/observability/flight_recorder.py).
 
 Black-box instrument for post-mortem debugging: while enabled it tees the
-most recent serving records into a bounded in-memory ring
+most recent StepTelemetry / serving records into a bounded in-memory ring
 (no I/O on the hot path), and on a trigger writes everything it knows to a
 fresh directory:
 
@@ -13,8 +13,9 @@ fresh directory:
                         registry snapshot (when metrics are active)
 
 Triggers:
-- an uncaught exception in the serving engine's prefill, decode or verify
-  dispatch (the engine dumps before re-raising), a failed elastic
+- an uncaught exception in ``TrainStepEngine.step`` / ``run_steps`` or the
+  serving engine's prefill, decode or verify dispatch (the engines dump
+  before re-raising), a failed elastic
   reformation (``elastic_reform_<gen>``), a page-severity SLO fire,
 - ``on_nan_inf()`` from a caller that detected a non-finite value,
 - an explicit `FlightRecorder.dump()`.
@@ -25,9 +26,8 @@ construction) or programmatically via `enable(out_dir)`. Off by default:
 None check. NaN-triggered dumps are rate-limited (``nan_dump_limit``) so a
 diverged run doesn't fill the disk with one dump per step.
 
-Stdlib-only. Not ported yet: the reference's ``health_tail`` section (the
-training-health monitor's last records) comes with ``health.py``; a dump
-here has no such key.
+Stdlib-only. A dump's ``state.json`` carries ``health_tail``, the
+training-health monitor's last records, when a monitor is live.
 """
 from __future__ import annotations
 
@@ -152,6 +152,16 @@ class FlightRecorder:
             fc = _fleet.flight_context()
             if fc:
                 state.update(fc)  # "fleet" + "router_placements" keys
+        except Exception:
+            pass
+        try:
+            # training-health tail: the last decoded health records (grad
+            # norms, nonfinite attribution) when a monitor is live — the
+            # post-mortem context a health-triggered dump points at
+            from . import health as _health
+            hm = _health.get_monitor()
+            if hm is not None:
+                state["health_tail"] = hm.recent(32)
         except Exception:
             pass
         return state

@@ -26,3 +26,9 @@ def peak_flops_per_sec(card: str) -> float | None:
     without a datasheet number here (the CPU)."""
     tf = PEAK_TFLOPS.get(card)
     return tf * 1e12 if tf is not None else None
+
+
+def card_peak_flops_per_sec(device_name: str) -> float | None:
+    """``peak_flops_per_sec`` of a card named ``device_name``
+    (``torch.cuda.get_device_name``); None for a card without a number here."""
+    return peak_flops_per_sec("h100") if "H100" in device_name else None

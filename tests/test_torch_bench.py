@@ -130,3 +130,36 @@ def test_an_unknown_model_stops_the_script(monkeypatch):
     monkeypatch.setenv("PADDLE_TPU_BENCH_MODEL", "large")
     with pytest.raises(SystemExit, match="'base' or 'medium'"):
         bench.main()
+
+
+def _cpu_main(monkeypatch, capsys, **knobs):
+    monkeypatch.setenv("PADDLE_TPU_BENCH_DEVICE", "cpu")
+    monkeypatch.setenv("PADDLE_TPU_BENCH_STEPS", "3")
+    monkeypatch.setenv("PADDLE_TPU_BENCH_BATCH", "4")
+    for knob in ("PADDLE_TPU_BENCH_SCAN", "PADDLE_TPU_BENCH_PREFETCH"):
+        monkeypatch.delenv(knob, raising=False)
+    for knob, value in knobs.items():
+        monkeypatch.setenv(knob, value)
+    bench.main()
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])["extra"]
+
+
+@pytest.mark.parametrize("knob", ["PADDLE_TPU_BENCH_SCAN", "PADDLE_TPU_BENCH_PREFETCH"])
+def test_the_scan_and_prefetch_knobs_take_the_plain_runs_steps(monkeypatch, capsys, knob):
+    """bench.py's _SCAN (the warm-up and the timed steps each one run_steps
+    call, one window) and _PREFETCH (the steps through engine.prefetch):
+    the plain run's losses, the knob recorded as bench.py records it. One
+    intra-op thread: the same bits in both runs, and no spinning against
+    other test processes."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        plain = _cpu_main(monkeypatch, capsys)
+        ex = _cpu_main(monkeypatch, capsys, **{knob: "1"})
+    finally:
+        torch.set_num_threads(was)
+    assert (ex["first_loss"], ex["final_loss"]) == (plain["first_loss"], plain["final_loss"])
+    scan = knob.endswith("SCAN")
+    assert (ex["scan"], ex["prefetch"]) == (("1", None) if scan else (None, "1"))
+    assert plain["scan"] is plain["prefetch"] is None
+    assert ex["timing"]["windows"] == (1 if scan else 3)

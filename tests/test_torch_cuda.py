@@ -1816,3 +1816,84 @@ def test_int8_projection_accumulator_on_card_is_the_cpus(cuda, rows):
         want = fn(x, q, s, *args, bias=b)
         got = fn(x.cuda(), qc, sc, *args, bias=b.cuda()).cpu()
         assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item(), fn
+
+
+def test_prefetch_copies_on_a_side_stream_the_step_waits_for(cuda):
+    """DevicePrefetcher on the card: host tensors (pageable and pinned) are
+    copied on its side stream, a tensor already on the card passes through,
+    and a batch read on the current stream right after it is handed out,
+    with no synchronize, holds the host's values; the copied tensors are
+    recorded on the current stream."""
+    from paddle_tpu_torch.distributed.prefetcher import DevicePrefetcher
+
+    rng = np.random.RandomState(3)
+    host = [torch.from_numpy(rng.randint(0, 1 << 30, (8, 1 << 20)).astype(np.int64))
+            for _ in range(3)]
+    on_card = torch.arange(5, device="cuda")
+    batches = [(host[0], on_card), (host[1].pin_memory(), on_card), (host[2], on_card)]
+    pf = DevicePrefetcher("cuda", depth=2)
+    got, depths = [], []
+    for placed in pf.iterate(batches):
+        assert placed[0].is_cuda and placed[1] is on_card
+        got.append(placed[0] * 1)          # read on the current stream at once
+        depths.append(pf.last_depth)
+    assert pf._stream is not None and pf._stream != torch.cuda.current_stream()
+    assert (pf.puts, pf.skipped_puts, pf.batches) == (3, 3, 3) and depths == [2, 2, 1]
+    for g, h in zip(got, host):
+        assert torch.equal(g.cpu(), h)
+
+
+def test_observability_on_leaves_the_card_step_bit_equal(cuda, tmp_path):
+    """gpt_tiny under bf16 O1 on the card: 3 steps with telemetry, the
+    health monitor at interval 1, the flight recorder, the metrics registry
+    and the tracer on give the losses and parameters of 3 steps with all of
+    them off, bit for bit; the health record's grad norms are the gradients'
+    (rtol 1e-4); the records carry the card's memory; run_steps and 3
+    prefetched steps give the losses of step() on the same batches."""
+    from paddle_tpu_torch.observability import flight_recorder, health, metrics, tracer
+
+    rng = np.random.RandomState(13)
+    batches = [(lambda ids: (ids, np.roll(ids, -1, 1)))(
+        rng.randint(0, 1024, (4, 128)).astype(np.int64)) for _ in range(3)]
+    models, losses = [], []
+    try:
+        for on in (False, True):
+            model = GPTForPretraining(gpt_tiny(), seed=7)
+            eng = TrainStepEngine(model, AdamW(learning_rate=1e-3,
+                                               parameters=model.named_parameters()))
+            if on:
+                tele = eng.enable_telemetry()
+                mon = eng.enable_health(interval=1)
+                flight_recorder.enable(str(tmp_path))
+                metrics.enable()
+                tracer.get_tracer().enable()
+            with auto_cast(dtype="bfloat16"):
+                losses.append([eng.step(*b).item() for b in batches])
+            models.append(model)
+        rec = mon.recent()[-1]
+        for n, p in models[1].named_parameters():
+            want = p.grad.double().norm().item()
+            assert rec["per_param"][n]["grad_norm"] == pytest.approx(want, rel=1e-4), n
+        mem = tele.sink.records[-1]["device_memory"]
+        assert 0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"] <= mem["bytes_limit"]
+    finally:
+        flight_recorder.disable()
+        metrics.disable()
+        tracer.get_tracer().disable()
+        health.reset()
+    assert losses[0] == losses[1]
+    for (n, p), (_, q) in zip(models[0].named_parameters(), models[1].named_parameters()):
+        assert torch.equal(p, q), n
+    out = []
+    for mode in ("step", "run_steps", "prefetch"):
+        model = GPTForPretraining(gpt_tiny(), seed=7)
+        eng = TrainStepEngine(model, AdamW(learning_rate=1e-3,
+                                           parameters=model.named_parameters()))
+        with auto_cast(dtype="bfloat16"):
+            if mode == "step":
+                out.append([eng.step(*batches[0]).item() for _ in range(3)])
+            elif mode == "run_steps":
+                out.append(eng.run_steps(*batches[0], steps=3).tolist())
+            else:
+                out.append([eng.step(*b).item() for b in eng.prefetch([batches[0]] * 3)])
+    assert out[0] == out[1] == out[2]

@@ -55,7 +55,8 @@ def test_the_fsdp_and_checkpoint_modules_are_among_them():
     mods = set(_port_modules())
     assert {"paddle_tpu_torch.distributed.elastic", "paddle_tpu_torch.distributed.grad_comm",
             "paddle_tpu_torch.distributed.engine", "paddle_tpu_torch.tools.ckpt_fsck"} <= mods
-    helpers = [ROOT / "tests" / "torch_dp_workers.py", ROOT / "tests" / "torch_fsdp_workers.py"]
+    helpers = [ROOT / "tests" / "torch_dp_workers.py", ROOT / "tests" / "torch_fsdp_workers.py",
+               ROOT / "tests" / "torch_obs_workers.py"]
     for path in helpers:   # the rank bodies run on the card's machine, which has no jax
         assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, path.name
 
@@ -131,11 +132,21 @@ FLEET_MODULES = (
     "paddle_tpu_torch.observability.capacity", "paddle_tpu_torch.observability.exporter",
     "paddle_tpu_torch.distributed.store", "paddle_tpu_torch.distributed._py_store",
     "paddle_tpu_torch.distributed.membership")
+# the train step's observability and its last entry points
+TRAIN_OBS_MODULES = ("paddle_tpu_torch.observability.health",
+                     "paddle_tpu_torch.distributed.prefetcher", "paddle_tpu_torch.core.monitor")
 
 
 def test_the_serving_fleet_modules_are_among_them():
     assert set(FLEET_MODULES) <= set(_port_modules())
     for mod in FLEET_MODULES:   # the AST scan's view of each, by name
+        path = ROOT / (mod.replace(".", "/") + ".py")
+        assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, mod
+
+
+def test_the_train_obs_modules_are_among_them():
+    assert set(TRAIN_OBS_MODULES) <= set(_port_modules())
+    for mod in TRAIN_OBS_MODULES:
         path = ROOT / (mod.replace(".", "/") + ".py")
         assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, mod
 
