@@ -250,10 +250,39 @@ each:
    backward). Each kernel of a pass launches once in it.
 9. lmloss_compile_probe: the LM-loss forward's stripped variants at the
    probe's defaults, checked and timed, with ptxas's registers and spills.
+7e. tp_sp: tensor and sequence parallelism (phase_tp_sp). On one card:
+   each flash kernel on both routes (bf16 tensor cores, f32 3xTF32) at
+   the ring's block shape [8, 256, 12, 64], causal (the diagonal block)
+   and not (a past block), against its plain version (the kernel phases'
+   limits); ring_attention_virtual (distributed/meta_parallel/
+   sequence_parallel.py: P ranks of the ring run on one card) at P = 2
+   and 4 over [8, 1024, 12, 64] causal, bf16 and f32, forward and the
+   backward of sum(o * dO), against flash_attention over the whole
+   sequence: o, dq, dk, dv within BF16_TOL / F32_TOL (GRAD_F32_TOL for an
+   f32 gradient) of max|ref| and within RING_BF16_FROB_TOL /
+   RING_F32_FROB_TOL in each (b, h) head's relative Frobenius norm, and
+   exactly P (P + 1) / 2 launches of the forward and of each backward
+   kernel on the dtype's route (10 at P = 4) and none on another; the
+   ring's and the whole kernel's forward + backward ms. Then, in a spawned
+   rank, GPT-2 124M's bf16 step (ids [8, 1024], AdamW 1e-4) built on the mp
+   layers through fleet.init -> fleet.distributed_engine at mp_degree = 1
+   equals phase_train's engine from the same weights bit for bit over 3
+   steps, losses and every parameter, with 12 tensor-core launches of each
+   flash kernel a step. On two cards or more also, one rank a card through
+   fleet.init -> fleet.distributed_engine, GPT-2 124M on the global ids
+   [8, 1024], 3 steps at f32 and 3 at bf16 a run: at four cards dp 2 x mp
+   2, mp 4, dp 2 x sp 2 ring, sp 4 Ulysses and mp 2 x sp 2 ring (at two,
+   mp 2 and sp 2 ring). Hard: every loss finite and falling; f32 losses
+   within TP_SP_F32_RTOL of the one-card f32 engine's on the same batch
+   and weights, bf16 within TP_SP_BF16_RTOL of the run's f32; every rank
+   launches 12 x (its causal ring blocks: sp rank + 1; else 1) of each
+   flash kernel a step, on the dtype's route. Printed: step ms, tokens/s
+   per card, peak bytes per rank and flash forwards a step per rank.
 10. the ``kernels`` line: every ported kernel with the path that launched
    it (the training main path's timed steps, the train_obs steps, the
-   train_rules runs, the dp and dp_eager phases' runs on rank 0 and the
-   ckpt phase's steps, the f32 steps, scoring, the bench's gpt_1p3b run
+   train_rules runs, the dp and dp_eager phases' runs on rank 0, the
+   ckpt phase's steps and the tp_sp phase's bf16 step at mp 1 and its
+   virtual rings, the f32 steps, scoring, the bench's gpt_1p3b run
    for the d = 128 rows, or a library_ops pass; the flash backward and the
    LM-loss backward once for each dtype, the route in ``kernel_route``),
    its launches there and its numbers from the kernel_vs_plain phases at
@@ -3640,6 +3669,267 @@ def phase_ckpt_ranks(world=4):
          next_loss_at_half_world=res["restore"]["next_loss"], params=len(want), passed=True)
 
 
+TP_SP_STEPS = 3           # steps of each tp_sp run, at f32 and at bf16
+TP_SP_TIMEOUT_S = 600     # the tp_sp phase's ranks, all runs
+TP_SP_F32_RTOL = 1e-4     # tp_sp past one card: each f32 loss against the one-card
+                          # engine's on the same global batch and weights (f32 sums
+                          # in other orders over the mp all-reduces, the sp
+                          # blocks and the replica reduce; a wrong shard is off by
+                          # O(1e-2) or more)
+TP_SP_BF16_RTOL = 2e-2    # ... each bf16 loss against the same run's f32 loss (the
+                          # dp phase's bar for a bf16 trajectory against f32)
+RING_F32_FROB_TOL = 1e-5  # virtual ring against flash_attention over the whole
+                          # sequence, f32: o, dq, dk, dv in each (b, h) head's
+                          # relative Frobenius norm (both f32-accurate; the ring
+                          # sums its blocks in another order), and F32_TOL /
+                          # GRAD_F32_TOL x max(1, max|ref|) on the largest entry
+RING_BF16_FROB_TOL = GRAD_BF16_FROB_TOL  # ... bf16: each block's o and gradients
+                          # round to bf16 before the f32 merge, where the whole
+                          # kernel rounds once; and BF16_TOL x max|ref|
+TP_SP_RUNS = {  # run: (hybrid_configs, sep_impl); a world runs those whose degrees fill it
+    "dp2_mp2": ({"dp_degree": 2, "mp_degree": 2}, "ulysses"),
+    "mp4": ({"dp_degree": 1, "mp_degree": 4}, "ulysses"),
+    "dp2_sp2_ring": ({"dp_degree": 2, "sep_degree": 2}, "ring"),
+    "sp4_ulysses": ({"dp_degree": 1, "sep_degree": 4}, "ulysses"),
+    "mp2_sp2_ring": ({"dp_degree": 1, "mp_degree": 2, "sep_degree": 2}, "ring"),
+    "mp2": ({"dp_degree": 1, "mp_degree": 2}, "ulysses"),
+    "sp2_ring": ({"dp_degree": 1, "sep_degree": 2}, "ring"),
+}
+
+
+def _tp_sp_runs(world):
+    return [name for name, (deg, _) in TP_SP_RUNS.items()
+            if math.prod(deg.values()) == world]
+
+
+def _ring_blocks(sp_rank, sp, impl):
+    """Flash launches a layer takes on an sp rank: the causal ring's blocks
+    up to its own, one otherwise."""
+    return sp_rank + 1 if impl == "ring" and sp > 1 else 1
+
+
+def tp_sp_worker(out_dir):
+    """One rank of the tp_sp phase (started by the port's spawn): GPT-2 124M
+    on the global ids [8, 1024] through fleet.init -> fleet.distributed_engine.
+    At world 1: phase_train's step (TrainStepEngine, no process group) and
+    then the step built on the mp layers through fleet at mp_degree = 1, 3
+    bf16 steps each, from the same weights. Past one rank: each run of
+    _tp_sp_runs(world) at f32 and at bf16, TP_SP_STEPS steps each. Writes
+    ``out_dir/rank<r>.json``."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed import TrainStepEngine, fleet
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    torch.cuda.set_device(int(os.environ["FLAGS_selected_gpus"]))
+    cfg = GPTConfig()
+    gen = torch.Generator().manual_seed(0)   # main()'s ids
+    ids = torch.randint(0, cfg.vocab_size, (8, 1024), generator=gen).cuda()
+    labels = torch.roll(ids, -1, 1)
+    out = {"world": world, "rank": rank}
+
+    def run(name, engine_of, dtype):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = GPTForPretraining(cfg, seed=0)
+        engine = engine_of(model, AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                                        weight_decay=0.01))
+        _reset_launch_counts()
+        ctx = auto_cast(dtype="bfloat16") if dtype == "bf16" else contextlib.nullcontext()
+        with ctx:
+            losses, step_ms = _steps(engine, ids, labels, TP_SP_STEPS)
+        rec = {"losses": losses, "step_ms": step_ms,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "fwd": dict(fa.launches_by_route), "bwd": _bwd_routes()}
+        if world == 1:
+            rec["digests"] = _param_digests(engine)
+        out[f"{name}_{dtype}"] = rec
+        del model, engine
+
+    if world == 1:   # before any process group: phase_train's engine
+        run("plain", TrainStepEngine, "bf16")
+    for name in (["mp1"] if world == 1 else _tp_sp_runs(world)):
+        degrees, impl = TP_SP_RUNS.get(name, ({"dp_degree": 1, "mp_degree": 1}, "ulysses"))
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = degrees
+        strategy.sep_impl = impl
+        fleet.init(is_collective=True, strategy=strategy)
+        hcg = fleet.get_hybrid_communicate_group()
+        out[name] = {"sp_rank": hcg.get_sep_parallel_rank(),
+                     "mp_rank": hcg.get_model_parallel_rank(), "impl": impl,
+                     "sp": hcg.get_sep_parallel_world_size(),
+                     "mp": hcg.get_model_parallel_world_size()}
+        for dtype in (("bf16",) if world == 1 else ("f32", "bf16")):
+            run(name, fleet.distributed_engine, dtype)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _ring_case(P, dtype, b=8, s=1024, h=12, d=64):
+    """ring_attention_virtual at P ranks against flash_attention over the
+    whole sequence, causal, forward and backward of sum(o * do); returns the
+    record (errors, launches by route, ms)."""
+    from paddle_tpu_torch.distributed.meta_parallel import sequence_parallel as sp
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(P)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g).to(dtype).cuda() for _ in range(4))
+
+    def grads(fn):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*x)
+        o.backward(do)
+        return [o.detach()] + [t.grad for t in x]
+
+    want = grads(lambda q_, k_, v_: fa.flash_attention(q_, k_, v_, causal=True))
+    _reset_launch_counts()
+    got = grads(lambda q_, k_, v_: sp.ring_attention_virtual(q_, k_, v_, P, causal=True))
+    route = "mma" if dtype == torch.bfloat16 else "tf32x3"
+    n = P * (P + 1) // 2
+    _check_route_launches(f"tp_sp ring P={P} {dtype}", *_route_counts(), n, n, route)
+    rec = {"P": P, "dtype": str(dtype).split(".")[-1], "shape": [b, s, h, d],
+           "block_shape": [b, s // P, h, d], "causal": True,
+           "launches": {"flash_attention_fwd": n, "flash_attention_bwd_dkdv": n,
+                        "flash_attention_bwd_dq": n}, "route": route}
+    frob_tol = RING_F32_FROB_TOL if dtype == torch.float32 else RING_BF16_FROB_TOL
+    for name, a, w, grad in zip(("o", "dq", "dk", "dv"), got, want, (False, True, True, True)):
+        err, tol = _close_or_raise(f"tp_sp ring P={P} {name}", a, w, dtype, grad=grad)
+        frob = head_rel_frob(a, w)
+        if not frob <= frob_tol:
+            raise AssertionError(f"tp_sp ring P={P} {dtype} {name}: head relative "
+                                 f"Frobenius error {frob} (tol {frob_tol})")
+        rec[f"max_abs_err_{name}"], rec[f"tol_{name}"], rec[f"head_frob_{name}"] = err, tol, frob
+    rec["ring_fwd_bwd_ms"] = cuda_ms(lambda: grads(
+        lambda q_, k_, v_: sp.ring_attention_virtual(q_, k_, v_, P, causal=True)), iters=5)
+    rec["whole_fwd_bwd_ms"] = cuda_ms(lambda: grads(
+        lambda q_, k_, v_: fa.flash_attention(q_, k_, v_, causal=True)), iters=5)
+    return rec
+
+
+def _block_kernels_vs_plain(P=4, b=8, s=1024, h=12, d=64):
+    """Each flash kernel, both routes, at the ring's block shape [b, s/P, h,
+    d], causal (the diagonal block) and not (a past block), against its
+    plain version."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    out = {}
+    g = torch.Generator().manual_seed(11)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn(b, s // P, h, d, generator=g).to(dtype).cuda()
+                       for _ in range(4))
+        for causal in (True, False):
+            key = f"{str(dtype).split('.')[-1]}_{'causal' if causal else 'plain'}"
+            o, lse = fa._launch(q, k, v, causal, 1 / math.sqrt(d))
+            o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal)
+            delta = fa.attention_delta(o_ref, do)
+            dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse_ref, delta, causal)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+            refs = fa.flash_attention_bwd_plain(q, k, v, do, lse_ref, delta, causal)
+            errs = {"o": _close_or_raise(f"tp_sp block {key} o", o, o_ref, dtype)[0],
+                    "lse": _close_or_raise(f"tp_sp block {key} lse", lse, lse_ref, dtype,
+                                           tol=_f32_tol(lse_ref))[0]}
+            for name, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+                errs[name] = _close_or_raise(f"tp_sp block {key} {name}", a, w, dtype,
+                                             grad=True)[0]
+                frob = head_rel_frob(a, w)
+                tol = GRAD_F32_FROB_TOL if dtype == torch.float32 else GRAD_BF16_FROB_TOL
+                if not frob <= tol:
+                    raise AssertionError(f"tp_sp block {key} {name}: head relative "
+                                         f"Frobenius error {frob} (tol {tol})")
+            out[key] = errs
+    return out
+
+
+def phase_tp_sp(ids):
+    """Tensor and sequence parallelism (phase docstring item 7e). Returns the
+    flash launches of its path on this process and rank 0: {"bf16": {kernel:
+    n}, "f32": {kernel: n}}."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.models import GPTConfig
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    blocks = _block_kernels_vs_plain()
+    rings = [_ring_case(P, dtype) for dtype in (torch.bfloat16, torch.float32)
+             for P in (2, 4)]
+    for rec in rings:
+        emit(phase="tp_sp_ring", **rec)
+    counts = {"bf16": collections.Counter(), "f32": collections.Counter()}
+    for rec in rings:
+        counts["bf16" if rec["route"] == "mma" else "f32"].update(rec["launches"])
+    ref_f32 = None
+    if world >= 2:   # the one-card f32 engine on the same global batch and weights
+        _, engine = _train_engine(GPTConfig(), "cuda")
+        ref_f32, _ = _steps(engine, ids, torch.roll(ids, -1, 1), TP_SP_STEPS)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        worlds = [1] + ([world] if world >= 2 else [])
+        ranks = {}
+        for w in worlds:
+            spawn(tp_sp_worker, args=(d,), nprocs=w, timeout=TP_SP_TIMEOUT_S)
+            ranks[w] = []
+            for r in range(w):
+                with open(os.path.join(d, f"rank{r}.json")) as f:
+                    ranks[w].append(json.load(f))
+    one = ranks[1][0]
+    nl = GPTConfig().num_layers
+    plain, mp1 = one["plain_bf16"], one["mp1_bf16"]
+    if not (plain["losses"] == mp1["losses"] and plain["digests"] == mp1["digests"]):
+        raise AssertionError("tp_sp: the step on the mp layers through fleet at mp_degree=1 "
+                             "is not phase_train's step bit for bit")
+    _check_mma_launches("tp_sp mp1", mp1["fwd"], mp1["bwd"], TP_SP_STEPS * nl,
+                        TP_SP_STEPS * nl)
+    counts["bf16"].update({k: TP_SP_STEPS * nl for k in _launch_counts_keys()})
+    emit(phase="tp_sp", what="mp1_vs_train", losses=mp1["losses"], step_ms=mp1["step_ms"],
+         plain_step_ms=plain["step_ms"], peak_bytes=mp1["peak_bytes"], bit_for_bit=True,
+         params=len(mp1["digests"]))
+    if world >= 2:
+        rs = ranks[world]
+        r0 = rs[0]
+        for name in _tp_sp_runs(world):
+            rec = {"phase": "tp_sp", "run": name, "world": world,
+                   "hybrid_configs": TP_SP_RUNS[name][0], "sep_impl": TP_SP_RUNS[name][1],
+                   "global_batch": list(ids.shape), "one_card_f32_losses": ref_f32}
+            for dtype, route in (("f32", "tf32x3"), ("bf16", "mma")):
+                runs = [r[f"{name}_{dtype}"] for r in rs]
+                losses = runs[0]["losses"]
+                if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+                    raise AssertionError(f"tp_sp {name} {dtype}: losses {losses}")
+                want = ref_f32 if dtype == "f32" else r0[f"{name}_f32"]["losses"]
+                rtol = TP_SP_F32_RTOL if dtype == "f32" else TP_SP_BF16_RTOL
+                rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+                if not rel <= rtol:
+                    raise AssertionError(f"tp_sp {name} {dtype}: losses {losses} against "
+                                         f"{want}: relative {rel} (rtol {rtol})")
+                for r, run in zip(rs, runs):   # every rank's launches, on its route
+                    n = TP_SP_STEPS * nl * _ring_blocks(r[name]["sp_rank"], r[name]["sp"],
+                                                        r[name]["impl"])
+                    _check_route_launches(f"tp_sp {name} {dtype} rank {r['rank']}",
+                                          run["fwd"], run["bwd"], n, n, route)
+                med = statistics.median(runs[0]["step_ms"][1:])
+                rec[dtype] = {"losses": losses, "rel_err": rel, "rtol": rtol,
+                              "step_ms": runs[0]["step_ms"], "step_ms_median": med,
+                              "tokens_per_s_per_card": ids.numel() / (med / 1e3) / world,
+                              "peak_bytes_per_rank": [r["peak_bytes"] for r in runs],
+                              "flash_fwd_per_step_per_rank": [
+                                  sum(r["fwd"].values()) // TP_SP_STEPS for r in runs]}
+            emit(**rec)
+    emit(phase="tp_sp", what="checks", passed=True, world=world, block_kernels=blocks,
+         seconds=time.perf_counter() - t0)
+    return {k: dict(v) for k, v in counts.items()}
+
+
 def _route_counts():
     """The flash kernels' launches by route: (forward, backward pair)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -3650,9 +3940,16 @@ def _route_counts():
 def _check_mma_launches(what, fwd, bwd, n_fwd, n_bwd):
     """Every launch on the bf16 tensor cores: n_fwd forwards and n_bwd of
     each backward kernel, none on another route."""
-    want = ({"mma": n_fwd, "tf32x3": 0, "fma": 0},
-            {"mma": {"dkdv": n_bwd, "dq": n_bwd}, "tf32x3": {"dkdv": 0, "dq": 0},
-             "fma": {"dkdv": 0, "dq": 0}})
+    _check_route_launches(what, fwd, bwd, n_fwd, n_bwd, "mma")
+
+
+def _check_route_launches(what, fwd, bwd, n_fwd, n_bwd, route):
+    """Every launch on ``route``: n_fwd forwards and n_bwd of each backward
+    kernel, none on another route."""
+    routes = ("mma", "tf32x3", "fma")
+    want = ({r: n_fwd if r == route else 0 for r in routes},
+            {r: {"dkdv": n_bwd if r == route else 0, "dq": n_bwd if r == route else 0}
+             for r in routes})
     if (fwd, bwd) != want:
         raise AssertionError(f"{what}: the flash kernels took {fwd} and {bwd}, "
                              f"expected {want}")
@@ -4381,6 +4678,8 @@ def main() -> int:
     ckpt_launches = phase_ckpt(ids)
     if torch.cuda.device_count() >= 2:
         phase_ckpt_ranks(torch.cuda.device_count())
+    tp_sp_launches = phase_tp_sp(ids)
+    torch.cuda.empty_cache()
     bench_launches = phase_bench()
 
     ln_recs = phase_layer_norm_kernels()
@@ -4399,20 +4698,23 @@ def main() -> int:
     # tensor-core forward and backward)
     pallas = "paddle_tpu/ops/pallas/"
     rows = [  # (name, path, record, source, replaces)
-        ("flash_attention_fwd", "train, train_obs, train_rules, dp, dp_eager, ckpt",
+        ("flash_attention_fwd", "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp",
          fwd["slice_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_fwd_f32", "score, train_f32, dp_eager", fwd["slice_f32_causal"],
+        ("flash_attention_fwd_f32", "score, train_f32, dp_eager, tp_sp",
+         fwd["slice_f32_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_bwd_dkdv", "train, train_obs, train_rules, dp, dp_eager, ckpt",
+        ("flash_attention_bwd_dkdv", "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp",
          bwd["train_bf16_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq", "train, train_obs, train_rules, dp, dp_eager, ckpt",
+        ("flash_attention_bwd_dq", "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp",
          bwd["train_bf16_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
-        ("flash_attention_bwd_dkdv_f32", "train_f32, dp_eager", bwd["train_f32_causal"]["dkdv"],
+        ("flash_attention_bwd_dkdv_f32", "train_f32, dp_eager, tp_sp",
+         bwd["train_f32_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq_f32", "train_f32, dp_eager", bwd["train_f32_causal"]["dq"],
+        ("flash_attention_bwd_dq_f32", "train_f32, dp_eager, tp_sp",
+         bwd["train_f32_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
         ("flash_attention_fwd_d128", "bench gpt_1p3b", fwd["1p3b_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
@@ -4452,9 +4754,11 @@ def main() -> int:
     # pass, its f32-h forward and backward (3xTF32) from the f32 pass
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
     counts = {**{k: launches[k] + obs_launches[k] + rules_launches[k] + dp_launches[k]
-                 + ckpt_launches[k] + dp_eager_launches["bf16"][k] for k in launches},
+                 + ckpt_launches[k] + dp_eager_launches["bf16"][k]
+                 + tp_sp_launches["bf16"][k] for k in launches},
               **bench_launches,
               **{f"{k}_f32": f32_launches[k] + dp_eager_launches["f32"][k]
+                 + tp_sp_launches["f32"][k]
                  + (score_launches if k == "flash_attention_fwd" else 0)
                  for k in _launch_counts_keys()},
               **{k: lib_f32[k] for k in ("layer_norm_fwd", "layer_norm_infer",

@@ -2,7 +2,8 @@
 paddle_tpu/distributed/collective.py's ``ReduceOp``, ``new_group``,
 ``get_group``, ``all_reduce``, ``all_gather``, ``reduce_scatter``,
 ``broadcast``, ``barrier`` and ``wait``; ``all_to_all_single`` for the int8
-ZeRO reduce).
+ZeRO reduce and Ulysses attention; ``ring_exchange``, the point-to-point
+step of ring attention).
 
 ``group`` is a ``mesh.CommGroup`` or None (every rank). Without
 torch.distributed, or for a group that carries no process group, a
@@ -150,6 +151,29 @@ def all_to_all_single(output, tensor, group=None):
         return output
     dist.all_to_all_single(output.view(-1), tensor.contiguous().view(-1), group=pg)
     return output
+
+
+def ring_exchange(tensors, group=None):
+    """Send each of ``tensors`` to the next rank of ``group`` (its rank
+    order, wrapping around) and receive the previous rank's, in one
+    ``batch_isend_irecv``; returns the received tensors (new tensors of the
+    same shapes and dtypes, in order). On a group of one rank, or one
+    without a process group, it returns ``tensors`` themselves."""
+    pg, live = _pg(group)
+    n = _nranks(group)
+    if not live or n == 1:
+        return list(tensors)
+    ranks = group.ranks if group is not None else list(range(n))
+    me = ranks.index(dist.get_rank())
+    nxt, prv = ranks[(me + 1) % n], ranks[(me - 1) % n]
+    outs = [torch.empty_like(t) for t in tensors]
+    ops = []
+    for t, o in zip(tensors, outs):
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), nxt, pg))
+        ops.append(dist.P2POp(dist.irecv, o, prv, pg))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return outs
 
 
 def broadcast(tensor, src=0, group=None, sync_op=True):

@@ -185,7 +185,7 @@ def capture_snapshot(engine) -> Optional[Snapshot]:
     such gathered buffer beyond the step's state. Ranks other than 0 get
     None."""
     t0 = time.perf_counter()
-    rank0 = engine._rank() == 0
+    rank0 = _world_rank(engine) == 0
     lin = linear_weights(engine)
     snap_params, snap_opt = {}, {}
 
@@ -355,7 +355,7 @@ def _restore_opt(engine, path, manifest, lin):
             full[int(sh["slot"]), int(sh["offset"]):int(sh["offset"]) + len(arr)] = arr
         out, off = {}, 0
         for nm in sorted(engine.params):
-            shape = _jax_shape(engine._shapes[nm], nm in lin)
+            shape = _jax_shape(engine._full_shapes[nm], nm in lin)
             size = math.prod(shape)
             out[nm] = tuple(_from_jax(full[j, off:off + size].reshape(shape), nm in lin)
                             for j in range(slots))
@@ -437,7 +437,13 @@ def restore_latest(engine, dirname: str) -> int:
 
 # ---------------------------------------------------------------- manager
 def _multi(engine) -> bool:
-    return engine.group is not None and engine.group.nranks > 1
+    return engine.world_group is not None and engine.world_group.nranks > 1
+
+
+def _world_rank(engine) -> int:
+    """The engine's rank among every rank (its replica rank at mp = 1):
+    rank 0 writes."""
+    return 0 if engine.world_group is None else engine.world_group.rank
 
 
 class CheckpointManager:
@@ -541,7 +547,7 @@ class CheckpointManager:
         if not _multi(engine):
             return busy
         t = torch.tensor([int(busy)], dtype=torch.int32, device=engine.device)
-        collective.broadcast(t, src=engine.group.ranks[0], group=engine.group)
+        collective.broadcast(t, src=engine.world_group.ranks[0], group=engine.world_group)
         return bool(t.item())
 
     # ---- public API ----
@@ -553,7 +559,7 @@ class CheckpointManager:
         calls it; rank 0 writes."""
         if self._closed:
             raise RuntimeError("CheckpointManager is closed")
-        rank = engine._rank()
+        rank = _world_rank(engine)
         if not (self.async_save and not block):
             snap = capture_snapshot(engine)
             if rank == 0:
@@ -592,7 +598,7 @@ class CheckpointManager:
         directory holds every commit before any rank reads it."""
         self.wait()
         if _multi(engine):
-            collective.barrier(engine.group)
+            collective.barrier(engine.world_group)
 
     def on_step(self, engine, step: int, loss=None, window: int = 1) -> Optional[int]:
         """The engine's per-step hook: with rollback on, a non-finite loss

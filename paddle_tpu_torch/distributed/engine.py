@@ -111,6 +111,25 @@ above, unchanged. Otherwise the step is grad_comm's (distributed/grad_comm.py):
   FSDP. **prefetch** (reference :1940) stages the next batches on the card
   on a side stream (``prefetcher.DevicePrefetcher``); ``step`` records
   their ``h2d_ms`` and ``prefetch_depth``.
+- **Tensor and sequence parallelism** (``hybrid_configs`` ``mp_degree`` and
+  ``sep_degree``; the model built from the mp layers after ``fleet.init``,
+  meta_parallel/mp_layers.py). Each rank takes its replica's rows (its
+  ``dp x sharding`` index) and, under sp, its sp index's block of the
+  sequence dim of every batch tensor with one; mp ranks take the same
+  data. The forward runs inside ``sequence_parallel_scope`` (the
+  strategy's ``sep_impl``, "ulysses" by default) when sp > 1. The loss is
+  the global mean (the rank's mean over equal shards, averaged by the
+  reduce), every gradient is reduced over ``hcg.replica_group()`` (the
+  ranks with this rank's mp coordinate, dp x sharding x sp), and the
+  global-norm clip sums the squares of mp-sharded gradients over the mp
+  group and counts replicated ones once. ZeRO and microbatches compose
+  with both. ``state_dict()`` gathers the mp shards into the logical
+  tensors (an mp = 1 model's) and ``set_state_dict()`` slices them back,
+  so an mp run's state resumes at mp = 1 and, through the checkpoints, in
+  the JAX package. At mp > 1 or sp > 1 these raise ``NotImplementedError``
+  (ROADMAP.md Queue 1 item 9): FSDP, the bf16 and int8 payloads, the
+  health monitor, and at mp > 1 Lamb, Lars and ``ClipGradByNorm`` (norms of
+  whole parameters).
 - **Dropout.** Over more than one rank each microbatch reseeds the model's
   dropout generator (``model.generator``) from (seed, rank, step,
   microbatch), so ranks draw different masks and a run repeats exactly.
@@ -123,12 +142,13 @@ the JAX engine counts nothing on one replica. Without a process group no
 collective is called and the low-precision payloads still round-trip.
 
 PyTorch runs eagerly, so there is no compiled step to build, cache or
-donate into. Not ported yet (ROADMAP.md): hybrid meshes, a world size
-changed in process (``reform_mesh``), CUDA graphs around the step (under
+donate into. Not ported yet (ROADMAP.md): pipeline and expert axes, a world
+size changed in process (``reform_mesh``), CUDA graphs around the step (under
 ``run_steps`` too), and the overlap of the reduce with the backward.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 import warnings
@@ -138,7 +158,7 @@ import torch
 
 from ..core import flags as _flags
 from ..core import monitor as _monitor
-from ..nn.clip import ClipGradByGlobalNorm, ClipGradByValue
+from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue, _sq_norm
 from ..observability import exporter as _obs_exporter
 from ..observability import flight_recorder as _obs_flight
 from ..observability import health as _obs_health
@@ -152,6 +172,10 @@ from . import elastic as _elastic
 from . import grad_comm as _gc
 from . import prefetcher as _pf
 from .mesh import get_hybrid_communicate_group
+from .meta_parallel import mp_layers as _mpl
+from .meta_parallel import sequence_parallel as _sp
+
+_ITEM9 = "ROADMAP.md Queue 1 item 9"
 
 _M64 = (1 << 64) - 1
 _NAN_LOSS_STEPS = _monitor.stat("engine.nan_loss_steps")
@@ -186,8 +210,15 @@ class TrainStepEngine:
         self.microbatches = max(1, int(microbatches))
         self.hcg = hcg if hcg is not None else get_hybrid_communicate_group()
         self.strategy = strategy
-        self.group = (self.hcg.replica_group()
-                      if self.hcg is not None and self.hcg.distributed else None)
+        dist_on = self.hcg is not None and self.hcg.distributed
+        self.group = self.hcg.replica_group() if dist_on else None
+        # every rank (checkpoints write from its first rank and agree over it)
+        self.world_group = self.hcg.get_check_parallel_group() if dist_on else None
+        deg = self.hcg.degrees if self.hcg is not None else {}
+        self._mp, self._spd = deg.get("mp", 1), deg.get("sp", 1)
+        self._mp_group = self.hcg.get_model_parallel_group() if self._mp > 1 else None
+        self._sp_group = self.hcg.get_sep_parallel_group() if self._spd > 1 else None
+        self._sp_impl = getattr(strategy, "sep_impl", "ulysses") or "ulysses"
         opt_names = {id(p): n for n, p in zip(optimizer._param_names,
                                                optimizer._parameter_list)}
         self.params = {}
@@ -214,6 +245,12 @@ class TrainStepEngine:
         self._grad_residual = None     # the rank's [n] f32 error-feedback buffer
         self._layouts = {}             # chunk -> grad_comm.FlatLayout
         self._shapes = {nm: tuple(p.shape) for nm, p in self.params.items()}
+        # the mp-sharded parameters: {name: (dim, blocks)} (mp_layers.mp_slice)
+        self._mp_splits = {}
+        if self._mp > 1:
+            self._check_mp_model(model, opt_names)
+        self._full_shapes = {nm: _mpl.logical_shape(shape, self._mp_splits.get(nm), self._mp)
+                             for nm, shape in self._shapes.items()}
         self.fsdp = bool(fsdp)
         self._fsdp_params = None       # the rank's per-bucket [shard] f32 parameters
         self._fsdp_opt = None          # per slot, the rank's per-bucket [shard] f32 state
@@ -248,6 +285,69 @@ class TrainStepEngine:
 
     def _n_params(self) -> int:
         return sum(math.prod(shape) for shape in self._shapes.values())
+
+    # ---- tensor and sequence parallelism ----
+    @property
+    def _tp(self) -> bool:
+        """mp or sp above one rank."""
+        return self._mp > 1 or self._spd > 1
+
+    def _check_mp_model(self, model, opt_names):
+        """The model's mp layers must be this topology's shards; the rules
+        and clips that need a whole parameter's norm raise."""
+        if getattr(model, "mp_size", self._mp) != self._mp:
+            raise ValueError(f"the model was built over {model.mp_size} model-parallel "
+                             f"ranks, the topology has mp_degree={self._mp}: build the "
+                             "model after fleet.init")
+        by_id = {id(p): nm for nm, p in model.named_parameters()}
+        splits = _mpl.sharded_parameters(model)
+        for pid, opt_nm in opt_names.items():
+            if pid in by_id and by_id[pid] in splits and opt_nm in self.params:
+                split, size = splits[by_id[pid]]
+                if size != self._mp:
+                    raise ValueError(f"{by_id[pid]} is split over {size} ranks, the "
+                                     f"topology's mp_degree is {self._mp}")
+                self._mp_splits[opt_nm] = split
+        opt = self.optimizer
+        if opt._rule in ("lamb", "lars"):
+            raise NotImplementedError(
+                f"{opt._rule} at mp_degree={self._mp}: its trust ratio needs whole "
+                f"parameters' norms ({_ITEM9})")
+        if isinstance(opt._grad_clip, ClipGradByNorm):
+            raise NotImplementedError(
+                f"ClipGradByNorm at mp_degree={self._mp}: it needs whole parameters' "
+                f"norms ({_ITEM9})")
+
+    def _mp_full(self, nm, t):
+        """The logical tensor of parameter ``nm``'s shard ``t`` (gathered
+        over the mp group, a collective); ``t`` for a whole parameter."""
+        split = self._mp_splits.get(nm)
+        if split is None:
+            return t
+        parts = collective.all_gather(None, t.contiguous(), group=self._mp_group)
+        return _mpl.mp_gather(parts, split)
+
+    def _mp_shard(self, nm, t):
+        """This rank's shard of parameter ``nm``'s logical tensor ``t``."""
+        split = self._mp_splits.get(nm)
+        if split is None:
+            return t
+        return _mpl.mp_slice(t, split, self._mp_group.rank, self._mp).contiguous()
+
+    def _clip(self, grads):
+        """The optimizer's clip over {name: grad}; at mp > 1 the global norm
+        sums the sharded gradients' squares over the mp group and counts
+        the replicated ones once."""
+        clip = self.optimizer._grad_clip
+        if self._mp_group is None or not isinstance(clip, ClipGradByGlobalNorm):
+            return opt_funct.clip_grads(grads, clip)
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        sq = torch.stack([
+            sum((_sq_norm(g) for n, g in grads.items() if n in self._mp_splits), zero),
+            sum((_sq_norm(g) for n, g in grads.items() if n not in self._mp_splits), zero)])
+        collective.all_reduce(sq[:1], group=self._mp_group)
+        scale = clip.clip_norm / torch.clamp(torch.sqrt(sq.sum()), min=clip.clip_norm)
+        return {n: (g * scale).to(g.dtype) for n, g in grads.items()}
 
     # ---- observability (observability/) ----
     def enable_telemetry(self, sink=None, path=None, flops_per_token=None,
@@ -406,14 +506,38 @@ class TrainStepEngine:
                              "conversion to shards is one-way: call sync_to_model() "
                              "and build a new engine on the model")
 
+    def _row_blocks(self):
+        """(this rank's row block, the number of row blocks): dp x sharding."""
+        if self.group is None:
+            return 0, 1
+        return self.hcg.batch_index()
+
     def _check_batch(self, batch, k=1):
-        """The batch dim must split into k microbatches on every replica."""
-        nrep = _gc.replica_count(self.group)
+        """The batch dim must split into k microbatches on every replica, and
+        under sp the sequence dim into sp blocks."""
+        nrep = self._row_blocks()[1]
         for b in batch:
             if b.dim() and b.shape[0] % (k * nrep):
                 raise ValueError(
                     f"batch dim {b.shape[0]} is not divisible by microbatches = {k} "
                     f"x replicas = {nrep}; pad or resize the batch")
+            if self._spd > 1 and b.dim() >= 2 and b.shape[1] % self._spd:
+                raise ValueError(
+                    f"sequence dim {b.shape[1]} is not divisible by sep_degree = "
+                    f"{self._spd}; pad or resize the batch")
+
+    def _local_batch(self, batch):
+        """This rank's part of the global batch: its replica's rows, and
+        under sp its block of the sequence dim."""
+        r, nrep = self._row_blocks()
+        out = []
+        for b in batch:
+            if b.dim() and nrep > 1:
+                b = b.chunk(nrep)[r]
+            if self._spd > 1 and b.dim() >= 2:
+                b = b.chunk(self._spd, dim=1)[self._sp_group.rank]
+            out.append(b)
+        return out
 
     def step(self, *batch):
         """One optimizer step on ``batch`` (tensors or arrays, moved to the
@@ -435,6 +559,10 @@ class TrainStepEngine:
         if not fsdp:
             self._check_not_sharded()
         health = self._health
+        if self._tp and (health is not None or dtype != "f32"):
+            what = "the health monitor" if health is not None else f"the {dtype} payload"
+            raise NotImplementedError(f"{what} at mp_degree={self._mp}, "
+                                      f"sep_degree={self._spd} ({_ITEM9})")
         t0 = time.perf_counter()
         try:
             if self.group is None and k == 1 and dtype == "f32" and not (zero or fsdp):
@@ -612,12 +740,16 @@ class TrainStepEngine:
         scale stays frozen here too."""
         from ..jit import _tracing
 
-        if self._amp_cfg is None:
-            with _tracing():
-                return self.model(*batch)
-        from ..amp import amp_guard_from_configs
+        with contextlib.ExitStack() as stack:
+            if self._sp_group is not None:
+                stack.enter_context(_sp.sequence_parallel_scope(self._sp_group,
+                                                                self._sp_impl))
+            if self._amp_cfg is not None:
+                from ..amp import amp_guard_from_configs
 
-        with amp_guard_from_configs(self._amp_cfg, force_bf16=True), _tracing():
+                stack.enter_context(amp_guard_from_configs(self._amp_cfg,
+                                                           force_bf16=True))
+            stack.enter_context(_tracing())
             return self.model(*batch)
 
     def _plain_step(self, batch, health=None):
@@ -631,7 +763,7 @@ class TrainStepEngine:
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                      for n, p in self.params.items()}
             hb = self._health_begin(health, grads, self.params)
-            grads = opt_funct.clip_grads(grads, opt._grad_clip)
+            grads = self._clip(grads)
             opt._apply(self.params, grads, lr_val, self._step_count)
             hbuf = self._health_end(health, hb)
         self.last_loss = loss.detach()
@@ -658,9 +790,7 @@ class TrainStepEngine:
         group = self.group
         nrep = _gc.replica_count(group)
         self._check_batch(batch, k)
-        if nrep > 1:
-            r = group.rank
-            batch = [b.chunk(nrep)[r] if b.dim() else b for b in batch]
+        batch = self._local_batch(batch)
         chunk = _gc.chunk_size()
         use_res = dtype != "f32" and _gc.error_feedback()
         layout = self._flat_layout(chunk)
@@ -700,7 +830,7 @@ class TrainStepEngine:
                 grads = {nm: v.to(self.params[nm].dtype)
                          for nm, v in self._views(red, layout).items()}
                 hb = self._health_begin(health, grads, self.params)
-                clipped = opt_funct.clip_grads(grads, opt._grad_clip)
+                clipped = self._clip(grads)
                 opt._apply(self.params, clipped, lr_val, self._step_count)
                 hbuf = self._health_end(health, hb)
                 for nm, p in self.params.items():
@@ -873,7 +1003,10 @@ class TrainStepEngine:
             hb = health.begin_stats([g[a:b] for _, a, b in spans],
                                     [p_shard[a:b] for _, a, b in spans],
                                     [ordinal[nm] for nm, _, _ in spans])
-        _gc.clip_shard(g, opt._grad_clip, group)
+        mp = None
+        if self._mp_group is not None:   # the shard's pieces of mp-sharded parameters
+            mp = ([(a, b) for nm, a, b in spans if nm in self._mp_splits], self._mp_group)
+        _gc.clip_shard(g, opt._grad_clip, group, mp)
         update = opt_funct.make_flat_update(opt, next(iter(self.params)),
                                             block=_gc.BLOCK)
         slots = self._ensure_zero_opt(layout)
@@ -913,17 +1046,38 @@ class TrainStepEngine:
         """{"model": the model's state dict, "optimizer": the optimizer's
         (``Optimizer.state_dict`` keys)}; under ZeRO the optimizer state,
         under FSDP also the parameters, are gathered from every rank's
-        shards first (a collective: every rank must call it)."""
-        sharded = self._fsdp_params is not None or self._zero_opt is not None
+        shards first, and at mp > 1 every mp-sharded parameter and its state
+        into the logical tensor, an mp = 1 model's (a collective: every rank
+        must call it)."""
+        sharded = (self._fsdp_params is not None or self._zero_opt is not None
+                   or bool(self._mp_splits))
         states = self._full_opt() if sharded else None
         model_sd = self.model.state_dict(keep_vars=True)
-        if self._fsdp_params is not None:
+        if self._fsdp_params is not None or self._mp_splits:
             full = self._full_params()
             by_id = {id(p): nm for nm, p in self.params.items()}
             model_sd = {key: full[by_id[id(v)]] if id(v) in by_id else v
                         for key, v in model_sd.items()}
         return {"model": {key: v.detach() for key, v in model_sd.items()},
                 "optimizer": self.optimizer.state_dict(states=states)}
+
+    def set_state_dict(self, state):
+        """Install a ``state_dict()`` (logical tensors, from any mp degree and
+        sharding): the rank's mp shards are sliced out, and ZeRO and FSDP
+        re-shard at the next step. Every rank calls it."""
+        model_sd, opt_sd = state["model"], state.get("optimizer", {})
+        by_id = {id(p): nm for nm, p in self.params.items()}
+        params = {by_id[id(p)]: model_sd[key]
+                  for key, p in self.model.named_parameters() if id(p) in by_id}
+        opt = {}
+        for i, nm in enumerate(self.optimizer._param_names):
+            slots = []
+            while f"param{i}_state{len(slots)}" in opt_sd:
+                slots.append(torch.as_tensor(opt_sd[f"param{i}_state{len(slots)}"]))
+            if slots and nm in self.params:
+                opt[nm] = tuple(slots)
+        step = int(opt_sd.get("_step_count", 0))
+        self._load_state(params, opt, step, step)
 
     def sync_to_model(self):
         """Write the engine's parameters back into the model (reference
@@ -944,7 +1098,7 @@ class TrainStepEngine:
         collective: every rank calls it)."""
         if self._fsdp_params is None:
             for nm, p in self.params.items():
-                visit(nm, p.detach())
+                visit(nm, self._mp_full(nm, p.detach()))
             return
         for bi, shard in enumerate(self._fsdp_params):
             self._visit_bucket(bi, shard, visit)
@@ -966,14 +1120,15 @@ class TrainStepEngine:
                 collective.all_gather_into(full, s.to(self.device), group=self.group)
                 for nm in layout.names:
                     off, shape = layout.offsets[nm], layout.shapes[nm]
-                    visit(nm, j, full[off:off + math.prod(shape)].view(shape))
+                    visit(nm, j, self._mp_full(nm, full[off:off + math.prod(shape)].view(
+                        shape)))
                 del full
             return
         states = self.optimizer._states
         for j in range(self._zero_n_slots()):
             for nm in self.params:
-                visit(nm, j, states[nm][j] if nm in states else torch.zeros(
-                    self._shapes[nm], dtype=torch.float32, device=self.device))
+                visit(nm, j, self._mp_full(nm, states[nm][j] if nm in states else torch.zeros(
+                    self._shapes[nm], dtype=torch.float32, device=self.device)))
 
     def _full_params(self):
         """{name: a copy of the parameter in its dtype} (a collective under
@@ -992,24 +1147,28 @@ class TrainStepEngine:
 
     def _load_state(self, params, opt, step, opt_step):
         """Install full parameters and optimizer state ({name: tensor} and
-        {name: (slot, ...)}, the port's layout; a restored checkpoint): the
-        ZeRO and FSDP shards are dropped, and the next sharded step
-        re-encodes them from the model and the optimizer, bit for bit."""
+        {name: (slot, ...)}, the port's layout, logical tensors; a restored
+        checkpoint): the rank's mp shards are sliced out, the ZeRO and FSDP
+        shards are dropped, and the next sharded step re-encodes them from
+        the model and the optimizer, bit for bit."""
         self._fsdp_params = self._fsdp_opt = self._zero_opt = None
+        for nm, slots in opt.items():
+            if any(tuple(s.shape) != self._full_shapes[nm] for s in slots):
+                raise ValueError(f"{nm}: checkpoint optimizer state shapes "
+                                 f"{[tuple(s.shape) for s in slots]} != "
+                                 f"{self._full_shapes[nm]}")
+        opt = {nm: tuple(self._mp_shard(nm, s) for s in slots) for nm, slots in opt.items()}
         with torch.no_grad():
             for nm, p in self.params.items():
                 t = params[nm]
-                if tuple(t.shape) != self._shapes[nm]:
+                if tuple(t.shape) != self._full_shapes[nm]:
                     raise ValueError(f"{nm}: checkpoint shape {tuple(t.shape)} != the "
-                                     f"model's {self._shapes[nm]}")
+                                     f"model's {self._full_shapes[nm]}")
+                t = self._mp_shard(nm, t)
                 if p.numel() == t.numel():
                     p.copy_(t)
                 else:   # FSDP released its storage
                     p.data = t.to(device=p.device, dtype=p.dtype).clone()
-        for nm, slots in opt.items():
-            if any(tuple(s.shape) != self._shapes[nm] for s in slots):
-                raise ValueError(f"{nm}: checkpoint optimizer state shapes "
-                                 f"{[tuple(s.shape) for s in slots]} != {self._shapes[nm]}")
         self.optimizer._states = {
             nm: tuple(s.to(device=self.device, dtype=torch.float32).clone()
                       for s in slots) for nm, slots in opt.items()}
@@ -1029,6 +1188,9 @@ class TrainStepEngine:
         update."""
         if not self._fsdp_requested():
             return False
+        if self._tp:
+            raise NotImplementedError(f"FSDP at mp_degree={self._mp}, sep_degree="
+                                      f"{self._spd} ({_ITEM9})")
         if self._offload:
             raise NotImplementedError("FSDP with an offloaded optimizer state is not "
                                       "ported (ROADMAP.md Queue 1 item 3)")

@@ -20,7 +20,17 @@ The fused step, on the global batch::
 
 ``init`` joins the job's process group (``env.init_parallel_env``; NCCL on
 the card, gloo with ``device="cpu"``) and builds the topology
-(``mesh.HybridCommunicateGroup``). ``distributed_model`` wraps the model
+(``mesh.HybridCommunicateGroup``) of ``hybrid_configs``: ``dp_degree``,
+``sharding_degree``, ``mp_degree`` (tensor parallelism: build the model
+after ``init``, its mp layers take the rank's shards) and ``sep_degree``
+(sequence parallelism: ``strategy.sep_impl`` "ulysses", the default, or
+"ring", reaches the engine), all composed in one ``distributed_engine``::
+
+    strategy.hybrid_configs = {"dp_degree": 2, "mp_degree": 2, "sep_degree": 2}
+    strategy.sep_impl = "ring"
+    fleet.init(is_collective=True, strategy=strategy)
+    model = GPTForPretraining(gpt_tiny())                  # this rank's shards
+    engine = fleet.distributed_engine(model, optimizer)    # global batch in ``distributed_model`` wraps the model
 in ``DataParallel`` (with the strategy's ``find_unused_parameters``) only
 in data-parallel mode past one rank, and returns it as it is otherwise (a pipeline degree above 1 is refused by the
 topology, ROADMAP.md Queue 1 item 11). ``distributed_optimizer`` compiles
@@ -123,12 +133,19 @@ class Fleet:
     # ---- the eager entry points (reference fleet_base.py:1038-1061) ----
     def distributed_model(self, model):
         """``DataParallel(model)`` in data-parallel mode past one rank, else
-        ``model`` itself (the engine shards for the other modes)."""
+        ``model`` itself (the engine shards for the other modes). Under mp or
+        sp above one rank the eager path raises: ``distributed_engine``
+        runs them (ROADMAP.md Queue 1 item 9)."""
         from ..meta_parallel import DataParallel
 
         if not self._is_initialized:
             self.init()
         hcg = self._hcg
+        if hcg.degrees["mp"] > 1 or hcg.degrees["sp"] > 1:
+            raise NotImplementedError(
+                f"fleet.distributed_model at mp_degree={hcg.degrees['mp']}, sep_degree="
+                f"{hcg.degrees['sp']}: the eager path runs data parallelism; use "
+                "fleet.distributed_engine (ROADMAP.md Queue 1 item 9)")
         if hcg.get_parallel_mode() == "data_parallel" and hcg.nranks > 1:
             return DataParallel(model, find_unused_parameters=bool(
                 self._strategy.find_unused_parameters))

@@ -18,17 +18,23 @@ CUDA RNG states that ``preserve_rng_state`` restores: the port's
 ``amp.auto_cast`` context active at forward time (it is not
 ``torch.autocast``, so checkpoint does not carry it), the trace flag of
 jit.py (a replay inside the engine's step leaves a QATLinear's activation
-scale alone, as the JAX package's traced replay does), and the states of the
-``generators`` the segment draws from (the model's dropout generator), each
-put back as it was after the replay.
+scale alone, as the JAX package's traced replay does), the sequence-parallel
+scope (meta_parallel/sequence_parallel.py: the replay's attention runs over
+the ranks again), the RNG tracker's draw source (its generator on the
+segment's device) and the states of the ``generators`` the segment draws
+from (the model's dropout generator), each put back as it was after the
+replay.
 
 ``fused_allreduce_gradients(parameter_list, hcg)`` averages the gradients
-over the data-parallel group with the bucketed ``Reducer``, one collective
-a bucket; the Reducers are kept in an LRU of at most 4 a group, keyed by the
-trainable members, so freezing or unfreezing a parameter rebuilds the
-buckets. ``broadcast_dp_parameters`` / ``broadcast_sharding_parameters`` /
-``broadcast_mp_parameters`` broadcast every parameter from the group's first
-rank (the port shards nothing over mp, so the mp one skips nothing). The
+over the data replicas (``hcg.replica_group()``: dp x sharding x sp, the
+ranks that hold the same shards) with the bucketed ``Reducer``, one
+collective a bucket; the Reducers are kept in an LRU of at most 4 a group,
+keyed by the trainable members, so freezing or unfreezing a parameter
+rebuilds the buckets. ``broadcast_dp_parameters`` /
+``broadcast_sharding_parameters`` / ``broadcast_mp_parameters`` broadcast
+every parameter from the group's first rank; the mp one skips the
+parameters the mp layers shard, which differ by construction (reference
+:197-201). The
 JAX package's ``fs`` (``LocalFS``, ``HDFSClient``) is not ported (ROADMAP.md
 Queue 1 item 3).
 """
@@ -83,8 +89,14 @@ def recompute(function, *args, policy=None, preserve_rng_state=True,
     if not torch.is_grad_enabled() or not any(
             torch.is_tensor(a) and a.requires_grad for a in args):
         return function(*args)
-    amp, traced = amp_ctx(), in_jit_trace()
+    from ...ops.nn_functional import current_draw_source, draw_source
+    from ..meta_parallel import sequence_parallel as _sp
+
+    amp, traced, sp_ctx, draw = amp_ctx(), in_jit_trace(), _sp.current(), current_draw_source()
     gens = list(generators) if preserve_rng_state else []
+    if draw is not None and preserve_rng_state:
+        dev = next(a.device for a in args if torch.is_tensor(a))
+        gens.append(draw.generator(dev))
     fwd_states = [g.get_state() for g in gens]
     calls = 0
 
@@ -97,7 +109,8 @@ def recompute(function, *args, policy=None, preserve_rng_state=True,
         for g, s in zip(gens, fwd_states):
             g.set_state(s)
         try:
-            with amp_scope(amp), trace_scope(traced):
+            with amp_scope(amp), trace_scope(traced), _sp.scope_of(sp_ctx), \
+                    draw_source(draw):
                 return function(*a)
         finally:
             for g, s in zip(gens, now):
@@ -134,28 +147,33 @@ _reducer_cache = {}  # id(group) -> {(trainable ids, find_unused): Reducer} (LRU
 
 def fused_allreduce_gradients(parameter_list, hcg, find_unused_parameters=False):
     """Reference hybrid_parallel_util.py:142: the bucketed average over
-    ``hcg``'s data-parallel group; nothing for a group of one rank.
+    ``hcg``'s data replicas (``replica_group``); nothing for a group of one
+    rank.
     ``find_unused_parameters``: a missing gradient counts as zeros (the
     Reducer's), which the port's callers take from the strategy: its ranks
     are processes that may disagree on which parameters a step used."""
-    group = hcg.get_data_parallel_group() if hcg else None
+    group = hcg.replica_group() if hcg else None
     if group is None or group.nranks <= 1:
         return None
     return allreduce_gradients_over(parameter_list, group, find_unused_parameters)
 
 
 @torch.no_grad()
-def _broadcast_group_parameters(model, group):
+def _broadcast_group_parameters(model, group, skip=()):
     from .. import collective
 
     if group is None or group.nranks <= 1:
         return
-    for p in model.parameters():
-        collective.broadcast(p.data, src=group.ranks[0], group=group)
+    for name, p in model.named_parameters():
+        if name not in skip:
+            collective.broadcast(p.data, src=group.ranks[0], group=group)
 
 
 def broadcast_mp_parameters(model, hcg):
-    _broadcast_group_parameters(model, hcg.get_model_parallel_group())
+    from ..meta_parallel.mp_layers import sharded_parameters
+
+    _broadcast_group_parameters(model, hcg.get_model_parallel_group(),
+                                skip=sharded_parameters(model))
 
 
 def broadcast_dp_parameters(model, hcg):

@@ -320,21 +320,33 @@ def zero_scatter(buf, layout: FlatLayout, loss, group, dtype, chunk, residual):
     return g, loss_part
 
 
-def clip_shard(g, clip, group):
+def clip_shard(g, clip, group, mp=None):
     """Grad clip on the rank's slice of the flat mean gradient, in place.
     ByValue is elementwise; ByGlobalNorm needs the global sum of squares,
     one scalar all_reduce (summed in another order than the replicated
     per-parameter clip, so a clipped ZeRO run matches it to rounding, not
-    bit for bit). Other rules need per-parameter norms: the engine runs the
-    replicated update for them."""
+    bit for bit). ``mp`` = (spans of ``g`` that hold mp-sharded parameters,
+    the mp group): their squares are also summed over the mp group, the
+    others counted once. Other rules need per-parameter norms: the engine
+    runs the replicated update for them."""
     from ..nn.clip import ClipGradByGlobalNorm, ClipGradByValue
 
     if clip is None:
         return g
     if isinstance(clip, ClipGradByGlobalNorm):
-        sq = torch.dot(g, g).reshape(1)
-        collective.all_reduce(sq, group=group)
-        gn = torch.sqrt(sq[0])
+        if mp is None:
+            sq = torch.dot(g, g).reshape(1)
+            collective.all_reduce(sq, group=group)
+        else:
+            spans, mp_group = mp
+            sharded = torch.zeros(g.shape, dtype=torch.bool, device=g.device)
+            for a, b in spans:
+                sharded[a:b] = True
+            gs, gr = g[sharded], g[~sharded]
+            sq = torch.stack([torch.dot(gs, gs), torch.dot(gr, gr)])
+            collective.all_reduce(sq, group=group)
+            collective.all_reduce(sq[:1], group=mp_group)
+        gn = torch.sqrt(sq.sum())
         return g.mul_(clip.clip_norm / torch.clamp(gn, min=clip.clip_norm))
     if isinstance(clip, ClipGradByValue):
         return g.clamp_(clip.min, clip.max)

@@ -1,14 +1,20 @@
-"""Data-parallel topology of the port (counterpart of
-paddle_tpu/distributed/mesh.py's ``HybridCommunicateGroup``).
+"""Topology of the port (counterpart of paddle_tpu/distributed/mesh.py's
+``HybridCommunicateGroup``).
 
 The ranks of the process group form the reference's grid in its axis order
-(pp, dp, sharding, sp, ep, mp; row-major). This slice runs pure data
-parallelism: the data replicas are ``dp x sharding`` (every rank), and a
-degree of mp, pp, sp or ep above 1 raises ``NotImplementedError``
-(tensor and sequence parallelism, ROADMAP.md Queue 1 item 9; pipeline and
-expert parallelism, item 11). Without a process group the topology is one
-rank and its groups carry no process group: collectives over them are the
-identity.
+(pp, dp, sharding, sp, ep, mp; row-major), so a rank's coordinates are
+``rank = ((dp_i * sharding + sharding_i) * sp + sp_i) * mp + mp_i``. Each
+rank holds its own 1/mp shard of the tensor-parallel layers
+(meta_parallel/mp_layers.py) and its own 1/sp of the sequence
+(meta_parallel/sequence_parallel.py); collectives run over the groups built
+here, one process group a line of each axis above one rank (every rank
+joins every ``new_group`` call, as torch.distributed asks). The data
+replicas are the ranks that hold the same shards: ``dp x sharding x sp``,
+the ranks with this rank's mp coordinate (``replica_group``). A degree of
+pp or ep above 1 raises ``NotImplementedError`` (pipeline and expert
+parallelism, ROADMAP.md Queue 1 item 11). Without a process group the
+topology is one rank and its groups carry no process group: collectives
+over them are the identity.
 """
 from __future__ import annotations
 
@@ -17,9 +23,7 @@ from typing import List, Optional
 import torch.distributed as dist
 
 AXES_ORDER = ("pp", "dp", "sharding", "sp", "ep", "mp")
-_NOT_PORTED = {"mp": "ROADMAP.md Queue 1 item 9 (tensor parallelism)",
-               "sp": "ROADMAP.md Queue 1 item 9 (sequence parallelism)",
-               "pp": "ROADMAP.md Queue 1 item 11 (pipeline parallelism)",
+_NOT_PORTED = {"pp": "ROADMAP.md Queue 1 item 11 (pipeline parallelism)",
                "ep": "ROADMAP.md Queue 1 item 11 (expert parallelism)"}
 
 
@@ -51,57 +55,66 @@ class CommGroup:
 
 class HybridCommunicateGroup:
     """Topology facade with the reference's accessor surface. ``dp_degree``
-    -1 fills the world: world size / sharding_degree."""
+    -1 fills the world: world size / (sharding x sp x mp)."""
 
     def __init__(self, dp_degree=-1, mp_degree=1, pp_degree=1, sharding_degree=1,
                  sp_degree=1, ep_degree=1):
-        for axis, d in (("mp", mp_degree), ("pp", pp_degree), ("sp", sp_degree),
-                        ("ep", ep_degree)):
+        for axis, d in (("pp", pp_degree), ("ep", ep_degree)):
             if d is not None and d > 1:
                 raise NotImplementedError(
-                    f"{axis}_degree={d}: the port runs data parallelism only; "
-                    f"{axis} needs {_NOT_PORTED[axis]}")
+                    f"{axis}_degree={d}: the port runs the dp, sharding, sp and mp "
+                    f"axes; {axis} needs {_NOT_PORTED[axis]}")
         self.distributed = dist.is_initialized()
         world = dist.get_world_size() if self.distributed else 1
         self.global_rank = dist.get_rank() if self.distributed else 0
-        sharding = max(1, int(sharding_degree))
+        sharding, sp, mp = (max(1, int(d or 1)) for d in (sharding_degree, sp_degree,
+                                                          mp_degree))
+        others = sharding * sp * mp
         if dp_degree is None or dp_degree <= 0:
-            if world % sharding:
-                raise ValueError(f"sharding_degree={sharding} does not divide the "
-                                 f"world of {world} ranks")
-            dp_degree = world // sharding
-        if dp_degree * sharding != world:
-            raise ValueError(f"dp_degree={dp_degree} x sharding_degree={sharding} "
-                             f"must equal the world of {world} ranks")
-        self.degrees = {"pp": 1, "dp": int(dp_degree), "sharding": sharding,
-                        "sp": 1, "ep": 1, "mp": 1}
+            if world % others:
+                raise ValueError(f"sharding_degree={sharding} x sp_degree={sp} x "
+                                 f"mp_degree={mp} does not divide the world of "
+                                 f"{world} ranks")
+            dp_degree = world // others
+        dp_degree = int(dp_degree)
+        if dp_degree * others != world:
+            raise ValueError(f"dp_degree={dp_degree} x sharding_degree={sharding} x "
+                             f"sp_degree={sp} x mp_degree={mp} must equal the world "
+                             f"of {world} ranks")
+        self.degrees = {"pp": 1, "dp": dp_degree, "sharding": sharding,
+                        "sp": sp, "ep": 1, "mp": mp}
         self.nranks = world
         world_pg = dist.group.WORLD if self.distributed else None
-        # rank = dp_index * sharding + sharding_index (row-major)
-        dp_i, sh_i = divmod(self.global_rank, sharding)
+        # row-major coordinates of this rank in (dp, sharding, sp, mp)
+        shape = (dp_degree, sharding, sp, mp)
+        self._coord = _unravel(self.global_rank, shape)
         self._groups = {"data": CommGroup("data", range(world), world_pg)}
-        for axis, ranks_of in (("dp", lambda j: [j + sharding * i for i in range(dp_degree)]),
-                               ("sharding", lambda i: [i * sharding + j for j in range(sharding)])):
-            deg = self.degrees[axis]
-            if deg == world:
+        lines = {"dp": (0,), "sharding": (1,), "sp": (2,), "mp": (3,),
+                 "replica": (0, 1, 2)}
+        for axis, dims in lines.items():
+            size = 1
+            for d in dims:
+                size *= shape[d]
+            if size == world:
                 self._groups[axis] = CommGroup(axis, range(world), world_pg)
-            elif deg == 1:
+            elif size == 1:
                 self._groups[axis] = CommGroup(axis, [self.global_rank])
-            else:  # every rank joins the creation of every subgroup
+            else:  # every rank joins the creation of every line's group
                 mine = None
-                for idx in range(world // deg):
-                    ranks = ranks_of(idx)
+                for ranks in _lines(shape, dims):
                     pg = dist.new_group(ranks)
                     if self.global_rank in ranks:
                         mine = CommGroup(axis, ranks, pg)
                 self._groups[axis] = mine
-        # mp is 1: its group is the rank alone
-        self._groups["mp"] = CommGroup("mp", [self.global_rank])
-        self._dp_rank, self._sharding_rank = dp_i, sh_i
+        self._dp_rank, self._sharding_rank, self._sp_rank, self._mp_rank = self._coord
 
     # ---- reference accessor surface ----
     def get_parallel_mode(self):
-        return "sharding_parallel" if self.degrees["sharding"] > 1 else "data_parallel"
+        if self.degrees["sharding"] > 1:
+            return "sharding_parallel"
+        if self.degrees["mp"] > 1:
+            return "tensor_parallel"
+        return "data_parallel"
 
     def topology(self):
         return self.degrees
@@ -127,17 +140,67 @@ class HybridCommunicateGroup:
     def get_sharding_parallel_group(self):
         return self._groups["sharding"]
 
+    def get_model_parallel_world_size(self):
+        return self.degrees["mp"]
+
+    def get_model_parallel_rank(self):
+        return self._mp_rank
+
     def get_model_parallel_group(self):
         return self._groups["mp"]
+
+    def get_sep_parallel_world_size(self):
+        return self.degrees["sp"]
+
+    def get_sep_parallel_rank(self):
+        return self._sp_rank
+
+    def get_sep_parallel_group(self):
+        return self._groups["sp"]
 
     def get_check_parallel_group(self):
         return self._groups["data"]
 
-    # ---- the port's addition ----
+    # ---- the port's additions ----
     def replica_group(self) -> CommGroup:
-        """The data replicas, dp x sharding (every rank): the group of the
-        engine's gradient reduce (the JAX engine's ``_batch_axes``)."""
-        return self._groups["data"]
+        """The data replicas, dp x sharding x sp: the ranks with this rank's
+        mp coordinate, which hold the same parameter shards. The group of
+        the engine's gradient reduce (the JAX engine's batch axes, with sp,
+        whose ranks each see their own positions)."""
+        return self._groups["replica"]
+
+    def batch_index(self):
+        """(this rank's row block, the number of row blocks): its index in
+        dp x sharding, where the JAX engine's batch sharding puts it."""
+        return (self._dp_rank * self.degrees["sharding"] + self._sharding_rank,
+                self.degrees["dp"] * self.degrees["sharding"])
+
+
+def _unravel(rank, shape):
+    coord = []
+    for size in reversed(shape):
+        rank, c = divmod(rank, size)
+        coord.append(c)
+    return tuple(reversed(coord))
+
+
+def _lines(shape, dims):
+    """The rank lists of the lines (or planes) of the grid ``shape`` along
+    ``dims``, in rank order of their first member; each list in row-major
+    order of its varying coordinates."""
+    import itertools
+
+    fixed = [d for d in range(len(shape)) if d not in dims]
+    strides = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        strides[d] = strides[d + 1] * shape[d + 1]
+    out = []
+    for base in itertools.product(*(range(shape[d]) for d in fixed)):
+        start = sum(c * strides[d] for c, d in zip(base, fixed))
+        ranks = [start + sum(c * strides[d] for c, d in zip(var, dims))
+                 for var in itertools.product(*(range(shape[d]) for d in dims))]
+        out.append(ranks)
+    return out
 
 
 _global_hcg: Optional[HybridCommunicateGroup] = None

@@ -1,18 +1,21 @@
 """meta_parallel of the port (counterpart of
 paddle_tpu/distributed/meta_parallel/): ``DataParallel`` and the
-group-sharded wrappers. The tensor-parallel layers and the RNG tracker
-(ROADMAP.md Queue 1 item 9) and the pipeline and MoE layers (item 11) are
-not ported: their names raise ``NotImplementedError`` saying so.
+group-sharded wrappers, the tensor-parallel layers (``mp_layers``), the RNG
+tracker (``parallel_layers``) and ring and Ulysses attention
+(``sequence_parallel``). The pipeline and MoE layers (ROADMAP.md Queue 1
+item 11) are not ported: their names raise ``NotImplementedError`` saying
+so.
 """
+from . import sequence_parallel
 from .data_parallel import DataParallel, Reducer, sync_params_buffers
+from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+                        VocabParallelEmbedding, split)
+from .parallel_layers import (RNGStatesTracker, get_rng_state_tracker,
+                              model_parallel_random_seed)
 from .sharding import (GroupShardedOptimizerStage2, GroupShardedStage2,
                        GroupShardedStage3, group_sharded_parallel)
 
 _NOT_PORTED = {
-    **dict.fromkeys(("ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
-                     "ParallelCrossEntropy", "get_rng_state_tracker",
-                     "model_parallel_random_seed"),
-                    "ROADMAP.md Queue 1 item 9 (tensor parallelism)"),
     **dict.fromkeys(("LayerDesc", "PipelineLayer", "SharedLayerDesc", "PipelineParallel",
                      "PipelineParallelWithInterleave"),
                     "ROADMAP.md Queue 1 item 11 (pipeline parallelism)"),
@@ -28,4 +31,7 @@ def __getattr__(name):
 
 
 __all__ = ["DataParallel", "Reducer", "sync_params_buffers", "GroupShardedOptimizerStage2",
-           "GroupShardedStage2", "GroupShardedStage3", "group_sharded_parallel"]
+           "GroupShardedStage2", "GroupShardedStage3", "group_sharded_parallel",
+           "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
+           "ParallelCrossEntropy", "split", "RNGStatesTracker", "get_rng_state_tracker",
+           "model_parallel_random_seed", "sequence_parallel"]

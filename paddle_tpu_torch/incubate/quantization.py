@@ -200,8 +200,9 @@ class QuantizedLinear(torch.nn.Module):
 
 
 def _linear_kinds():
-    """Module classes the quantization swaps take: ``torch.nn.Linear`` (the
-    JAX package's single-replica tensor-parallel layers have no port yet)."""
+    """Module classes the quantization swaps take: ``torch.nn.Linear``, the
+    port's tensor-parallel layers among them (dense Linears at mp = 1; a
+    layer sharded over mp > 1 ranks raises in ``_swap_sublayers``)."""
     return (torch.nn.Linear,)
 
 
@@ -223,6 +224,11 @@ def _swap_sublayers(layer, match, make):
                 break
         if skip or not match(sub):
             continue
+        if getattr(sub, "mp_size", 1) > 1:
+            raise NotImplementedError(
+                f"{name}: quantizing a layer sharded over {sub.mp_size} model-parallel "
+                "ranks; quantization runs on single-replica models (ROADMAP.md Queue 1 "
+                "item 9)")
         setattr(parent, parts[-1], make(sub, name))
     return layer
 

@@ -1,8 +1,8 @@
 """Models of the port (counterpart of paddle_tpu/models/)."""
-from .convert import load_jax_state, state_from_jax
+from .convert import gather_to_jax, load_jax_state, state_from_jax
 from .gpt import (GPTAttention, GPTBlock, GPTConfig, GPTForPretraining, GPTMLP,
                   GPTModel, gpt_1p3b, gpt_345m, gpt_tiny)
 
 __all__ = ["GPTAttention", "GPTBlock", "GPTConfig", "GPTForPretraining",
            "GPTMLP", "GPTModel", "gpt_1p3b", "gpt_345m", "gpt_tiny", "load_jax_state",
-           "state_from_jax"]
+           "state_from_jax", "gather_to_jax"]

@@ -9,7 +9,23 @@ dropout, recompute ("full" and "selective", distributed/fleet/utils.py),
 the contiguous KV-cache path with a scalar or a per-row offset (serving),
 the paged KV cache (serving/kv_pages.py), and ``generate`` (greedy, top-k /
 top-p sampling, beam search). Parameters are trainable; the serving engine
-and ``generate`` run under ``no_grad``. Not ported yet: tensor parallelism.
+and ``generate`` run under ``no_grad``.
+
+Tensor parallelism: the model is built from the mp layers
+(distributed/meta_parallel/mp_layers.py), as the JAX model is, over the mp
+group of the topology that ``fleet.init`` set when the model is built.
+Each rank holds its shards (qkv and fc1 by output, with qkv split per head
+into its heads of q, of k and of v; out_proj and fc2 by input; wte and an
+untied lm_head by vocab rows) and runs ``num_heads / mp`` heads. At mp = 1
+the layers are the dense ones, bit for bit, and the loss is the fused
+chunked one; at mp > 1 the loss is vocab-sharded logits ->
+``ParallelCrossEntropy`` -> mean, as the JAX model's is (its
+``_can_fuse_loss``). Random weights are drawn as the logical tensors and
+sliced, so every mp degree starts from the mp = 1 weights. Decode and
+serving are single-replica, as in the reference: ``generate`` and the
+serving engine raise on an mp > 1 model. Under sequence parallelism
+(distributed/meta_parallel/sequence_parallel.py) each rank holds ``s / sp``
+positions, and its position embedding starts at its block's offset.
 
 Dropout draws from the model's own ``torch.Generator`` (on the model's
 device, seeded from the constructor's ``seed``), where the JAX model folds
@@ -33,6 +49,13 @@ from torch import nn
 from ..amp import autocast_dtype_for
 from ..device import resolve_device
 from ..distributed.fleet.utils import recompute
+from ..distributed.meta_parallel import sequence_parallel as _sp
+from ..distributed.meta_parallel.mp_layers import (ColumnParallelLinear,
+                                                   ParallelCrossEntropy,
+                                                   RowParallelLinear,
+                                                   VocabParallelEmbedding, copy_to_mp,
+                                                   gather_from_mp, logical_shape, mp_info,
+                                                   mp_slice, sharded_parameters)
 from ..jit import _tracing
 from ..ops import nn_functional as F
 from ..ops.fused import fused_linear_cross_entropy
@@ -112,11 +135,18 @@ class Embedding(nn.Module):
 class GPTAttention(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
-        self.num_heads = config.num_heads
+        _, _, mp = mp_info()
+        if config.num_heads % mp:
+            raise ValueError(f"num_heads {config.num_heads} is not divisible by the "
+                             f"model-parallel degree {mp}")
+        # this rank's heads (all of them at mp = 1)
+        self.num_heads = config.num_heads // mp
         self.head_dim = config.hidden_size // config.num_heads
-        self.hidden_size = config.hidden_size
-        self.qkv_proj = Linear(config.hidden_size, 3 * config.hidden_size)
-        self.out_proj = Linear(config.hidden_size, config.hidden_size)
+        self.hidden_size = config.hidden_size // mp
+        self.qkv_proj = ColumnParallelLinear(config.hidden_size, 3 * config.hidden_size,
+                                             gather_output=False, mp_blocks=3)
+        self.out_proj = RowParallelLinear(config.hidden_size, config.hidden_size,
+                                          input_is_parallel=True)
         self.attn_dropout = config.attention_dropout
         self.generator = None  # the model's dropout generator (set by the model)
 
@@ -178,8 +208,10 @@ class GPTAttention(nn.Module):
 class GPTMLP(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
-        self.fc1 = Linear(config.hidden_size, config.ffn_hidden_size)
-        self.fc2 = Linear(config.ffn_hidden_size, config.hidden_size)
+        self.fc1 = ColumnParallelLinear(config.hidden_size, config.ffn_hidden_size,
+                                        gather_output=False)
+        self.fc2 = RowParallelLinear(config.ffn_hidden_size, config.hidden_size,
+                                     input_is_parallel=True)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=True))
@@ -221,7 +253,7 @@ class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
         self.config = config
-        self.wte = Embedding(config.vocab_size, config.hidden_size)
+        self.wte = VocabParallelEmbedding(config.vocab_size, config.hidden_size)
         self.wpe = Embedding(config.max_seq_len, config.hidden_size)
         self.blocks = nn.ModuleList([GPTBlock(config) for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size)
@@ -242,8 +274,8 @@ class GPTModel(nn.Module):
                            self.config.max_seq_len - 1)
             else:
                 pos = int(off) + torch.arange(s, device=dev)
-        else:
-            pos = torch.arange(s, device=dev)
+        else:   # under sp, this rank's block of positions
+            pos = _sp.position_offset(s) + torch.arange(s, device=dev)
         x = self.wte(input_ids) + self.wpe(pos)
         x = F.dropout(x, self.dropout, training=self.training, generator=self.generator)
         if caches is not None:
@@ -287,10 +319,13 @@ class GPTForPretraining(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
+        self.mp_group, _, self.mp_size = mp_info()
         with torch.device("meta"):
             self.gpt = GPTModel(config)
             self.lm_head = (None if config.tie_word_embeddings else
-                            Linear(config.hidden_size, config.vocab_size, bias=False))
+                            ColumnParallelLinear(config.hidden_size, config.vocab_size,
+                                                 has_bias=False, gather_output=False))
+        self.loss_fn = ParallelCrossEntropy(ignore_index=IGNORE_INDEX)
         self.to_empty(device="cpu")
         self.init_weights(seed)
         self.to(device=dev, dtype=_DTYPES[config.dtype])
@@ -301,14 +336,21 @@ class GPTForPretraining(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
+        """Each matrix drawn as its logical tensor and sliced to the rank's
+        shard: the same weights at every mp degree."""
         g = torch.Generator().manual_seed(int(seed))
+        _, mp_rank, _ = mp_info(self.mp_group)
+        splits = sharded_parameters(self)
         for name, p in self.named_parameters():
             if name.endswith(".bias"):
                 p.zero_()
             elif p.dim() == 1:
                 p.fill_(1.0)
             else:
-                p.normal_(0.0, 0.02, generator=g)
+                split, size = splits.get(name, (None, 1))
+                full = torch.empty(logical_shape(p.shape, split, size))
+                p.copy_(mp_slice(full.normal_(0.0, 0.02, generator=g), split, mp_rank,
+                                 size))
 
     # names here are 'gpt.blocks.N.*', 'gpt.wte.*', 'lm_head.*' (reference gpt.py:518)
     fsdp_layer_key = staticmethod(GPTModel.fsdp_layer_key)
@@ -321,17 +363,27 @@ class GPTForPretraining(nn.Module):
         """The LM head's [vocab, hidden] weight (the tied embedding or lm_head)."""
         return self.gpt.wte.weight if self.lm_head is None else self.lm_head.weight
 
+    def _sharded_logits(self, h):
+        """Hidden states -> this rank's vocab slice of the logits (all of
+        them at mp = 1): the tied head through ``copy_to_mp`` (its input's
+        gradient is summed over the mp ranks), an untied one as its
+        column-parallel module."""
+        if self.lm_head is None:
+            return F.matmul(copy_to_mp(h, self.mp_group), self.gpt.wte.weight,
+                            transpose_y=True)
+        return self.lm_head(h)
+
     def _head_logits(self, h, params=None):
         """Hidden states -> vocab logits (shared by forward, serving and
         generate). ``params`` (``_decode_weights``' names) replaces the head's
         weights, as generate's cast copy does. An untied head runs as its
         module, as the reference's ``self.lm_head(h)``: a Linear, or the
-        quantized or QAT layer that incubate/quantization.py swapped in."""
-        if self.lm_head is None:
-            w = self.gpt.wte.weight if params is None else params["gpt.wte.weight"]
-            return F.matmul(h, w, transpose_y=True)
+        quantized or QAT layer that incubate/quantization.py swapped in. At
+        mp > 1 the ranks' vocab slices are gathered: the logical logits."""
         if params is None:
-            return self.lm_head(h)
+            return gather_from_mp(self._sharded_logits(h), self.mp_group)
+        if self.lm_head is None:
+            return F.matmul(h, params["gpt.wte.weight"], transpose_y=True)
         head = {n[len("lm_head."):]: p for n, p in params.items()
                 if n.startswith("lm_head.")}
         return torch.func.functional_call(self.lm_head, head, (h,))
@@ -343,7 +395,11 @@ class GPTForPretraining(nn.Module):
         if labels is None:
             return self.logits(input_ids)
         h = self.gpt(input_ids)
-        if self.lm_head is not None and type(self.lm_head) is not Linear:
+        if self.mp_size > 1:
+            # vocab-sharded logits -> ParallelCrossEntropy -> mean (the
+            # reference's path when _can_fuse_loss is false)
+            return F.mean(self.loss_fn(self._sharded_logits(h), labels))
+        if self.lm_head is not None and not isinstance(self.lm_head, ColumnParallelLinear):
             # a quantized or QAT head: its logits, then the reference's
             # softmax_with_cross_entropy (f32, ignored positions 0)
             logits = self._head_logits(h).float()
@@ -379,7 +435,15 @@ class GPTForPretraining(nn.Module):
         scales are buffers), floating ones with 2 or more dims cast to the
         matmul op's autocast dtype, the rest detached as they are; the cache
         in the attention op's autocast dtype, or the embedding's dtype
-        without autocast. Shared by ``generate`` and the serving engine."""
+        without autocast. Shared by ``generate`` and the serving engine,
+        which are single-replica: an mp > 1 model raises."""
+        if self.mp_size > 1:
+            raise NotImplementedError(
+                f"decode on a model sharded over {self.mp_size} model-parallel ranks: "
+                "generate and serving are single-replica inference paths, as in the "
+                "reference (gpt.py:566-567; mp decode would shard the head and sum "
+                "the logits). Gather the weights into an mp = 1 model "
+                "(TrainStepEngine.state_dict) to decode (ROADMAP.md Queue 1 item 9)")
         w_dtype = autocast_dtype_for("matmul")
         state = dict(self.named_parameters())
         state.update(self.named_buffers())

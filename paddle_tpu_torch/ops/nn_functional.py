@@ -16,7 +16,9 @@ their statistics and to determinism instead.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as TF
@@ -75,8 +77,32 @@ def gelu(x, approximate=False):
     return TF.gelu(x, approximate="tanh" if approximate else "none")
 
 
+_draw = threading.local()
+
+
+@contextlib.contextmanager
+def draw_source(state):
+    """Dropout inside the block draws from ``state.generator(device)`` in
+    preference to the generator its caller passes (the RNG tracker's
+    ``rng_state``, distributed/meta_parallel/parallel_layers.py)."""
+    prev = getattr(_draw, "state", None)
+    _draw.state = state
+    try:
+        yield
+    finally:
+        _draw.state = prev
+
+
+def current_draw_source():
+    """The draw source ``draw_source`` installed, or None."""
+    return getattr(_draw, "state", None)
+
+
 def _keep_mask(shape, keep, device, generator):
     """Bernoulli(keep) as ``uniform < keep`` (jax.random.bernoulli's form)."""
+    state = getattr(_draw, "state", None)
+    if state is not None:
+        generator = state.generator(device)
     return torch.rand(shape, generator=generator, device=device) < keep
 
 
@@ -113,12 +139,25 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training=True, generator=None):
     """Inputs [batch, seq, heads, head_dim] (paddle convention).
 
-    Mask-free attention without dropout goes to the flash kernels when
-    ``_use_flash`` allows (CUDA tensors); everything else takes the dense
-    path. Attention dropout (training only) drops attention weights, as
-    paddle does, from ``generator``."""
+    Inside a sequence-parallel scope (distributed/meta_parallel/
+    sequence_parallel.py) mask-free attention without dropout goes to the
+    scope's ring or Ulysses attention over the ranks' sequence shards, as
+    in the JAX package; a mask or dropout there raises (each rank holds
+    only its own positions). Otherwise mask-free attention without dropout
+    goes to the flash kernels when ``_use_flash`` allows (CUDA tensors);
+    everything else takes the dense path. Attention dropout (training only)
+    drops attention weights, as paddle does, from ``generator``."""
     q, k, v, attn_mask = cast_inputs("attention", query, key, value, attn_mask)
     attn_dropout = dropout_p if training else 0.0
+    from ..distributed.meta_parallel import sequence_parallel as _sp
+
+    if _sp.active():
+        if attn_mask is not None or attn_dropout != 0.0:
+            raise NotImplementedError(
+                "attention with a mask or dropout under sequence parallelism: each "
+                "rank holds only its positions and the ring and Ulysses kernels take "
+                "neither (ROADMAP.md Queue 1 item 9)")
+        return _sp.apply_ring_attention(q, k, v, causal=is_causal)
     scale = 1.0 / math.sqrt(q.shape[-1])
     if attn_mask is None and attn_dropout == 0.0 and _use_flash(q, k):
         return _fa.flash_attention(q, k, v, causal=is_causal, sm_scale=scale)

@@ -1897,3 +1897,48 @@ def test_observability_on_leaves_the_card_step_bit_equal(cuda, tmp_path):
             else:
                 out.append([eng.step(*b).item() for b in eng.prefetch([batches[0]] * 3)])
     assert out[0] == out[1] == out[2]
+
+
+RING_F32_FROB_TOL = 1e-5   # chip_smoke.py's: the ring sums its blocks in another order
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("P", [2, 4])
+def test_ring_over_virtual_ranks_matches_flash_on_the_whole_sequence(cuda, P, dtype):
+    """ring_attention_virtual at P ranks on one card, causal, forward and
+    backward, against flash_attention over the whole sequence: o, dq, dk,
+    dv within the kernel limits (2e-2 x max|ref| bf16; 1e-4, x max(1,
+    max|ref|) for a gradient, f32) and each (b, h) head's relative
+    Frobenius norm (1e-2 bf16, RING_F32_FROB_TOL f32); P (P + 1) / 2
+    launches of the forward and of each backward kernel, on the dtype's
+    route only."""
+    from paddle_tpu_torch.distributed.meta_parallel import sequence_parallel as sp
+
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(P)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 512, 4, 64).astype(np.float32)).to(cuda, dt)
+                   for _ in range(4))
+
+    def run(fn):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*x)
+        o.backward(do)
+        return [o.detach()] + [t.grad for t in x]
+
+    want = run(lambda a, b, c: fa.flash_attention(a, b, c, causal=True))
+    f0, bwd0 = dict(fa.launches_by_route), _bwd_routes()
+    got = run(lambda a, b, c: sp.ring_attention_virtual(a, b, c, P, causal=True))
+    torch.cuda.synchronize()
+    route = "mma" if dt == torch.bfloat16 else "tf32x3"
+    n = P * (P + 1) // 2
+    assert {r: fa.launches_by_route[r] - f0[r] for r in f0} == {
+        r: n if r == route else 0 for r in f0}
+    assert _bwd_moved(bwd0) == {r: {"dkdv": n if r == route else 0, "dq": n if r == route else 0}
+                                for r in bwd0}
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = w.float().abs().max().item()
+        tol = (2e-2 * scale if dt == torch.bfloat16
+               else 1e-4 * (max(1.0, scale) if i else 1.0))
+        assert (g.float() - w.float()).abs().max().item() <= tol, i
+        frob = BF16_GRAD_FROB_TOL if dt == torch.bfloat16 else RING_F32_FROB_TOL
+        assert _head_rel_frob(g, w) <= frob, i

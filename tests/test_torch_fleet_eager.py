@@ -665,10 +665,13 @@ def test_the_strategys_switches_and_configs_are_jaxs():
 def test_the_names_not_ported_raise_naming_their_roadmap_items():
     from paddle_tpu_torch.distributed import meta_parallel
 
-    for name, item in (("ColumnParallelLinear", "item 9"), ("PipelineLayer", "item 11"),
-                       ("MoELayer", "item 11"), ("get_rng_state_tracker", "item 9")):
+    for name, item in (("LayerDesc", "item 11"), ("PipelineLayer", "item 11"),
+                       ("MoELayer", "item 11"), ("SwitchGate", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(meta_parallel, name)
+    # the tensor-parallel names are ported (item 9)
+    assert callable(meta_parallel.ColumnParallelLinear)
+    assert callable(meta_parallel.get_rng_state_tracker)
     with pytest.raises(AttributeError):
         meta_parallel.no_such_name
     with pytest.raises(NotImplementedError, match="planner"):

@@ -121,12 +121,16 @@ def test_one_process_topology_and_its_limits():
     assert not hcg.distributed and hcg.nranks == 1
     assert hcg.topology()["dp"] == 1 and hcg.get_parallel_mode() == "data_parallel"
     assert hcg.replica_group().process_group is None
-    for kw, item in (({"mp_degree": 2}, "item 9"), ({"sp_degree": 2}, "item 9"),
-                     ({"pp_degree": 2}, "item 11"), ({"ep_degree": 4}, "item 11")):
+    for kw, item in (({"pp_degree": 2}, "item 11"), ({"pp_degree": 4}, "item 11"),
+                     ({"ep_degree": 2}, "item 11"), ({"ep_degree": 4}, "item 11")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
             HybridCommunicateGroup(**kw)
     with pytest.raises(ValueError, match="must equal the world"):
         HybridCommunicateGroup(dp_degree=2)
+    # mp and sp are ported: one rank cannot hold two of their ranks
+    for kw in ({"mp_degree": 2}, {"sp_degree": 2}):
+        with pytest.raises(ValueError, match="does not divide the world of 1 ranks"):
+            HybridCommunicateGroup(**kw)
 
 
 def test_strategy_merges_dicts_and_fleet_refuses_the_planner():

@@ -56,7 +56,7 @@ def test_the_fsdp_and_checkpoint_modules_are_among_them():
     assert {"paddle_tpu_torch.distributed.elastic", "paddle_tpu_torch.distributed.grad_comm",
             "paddle_tpu_torch.distributed.engine", "paddle_tpu_torch.tools.ckpt_fsck"} <= mods
     helpers = [ROOT / "tests" / "torch_dp_workers.py", ROOT / "tests" / "torch_fsdp_workers.py",
-               ROOT / "tests" / "torch_obs_workers.py"]
+               ROOT / "tests" / "torch_obs_workers.py", ROOT / "tests" / "torch_tp_workers.py"]
     for path in helpers:   # the rank bodies run on the card's machine, which has no jax
         assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, path.name
 
@@ -164,3 +164,10 @@ def test_each_serving_fleet_module_alone_loads_no_jax(mod):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+def test_the_tensor_and_sequence_parallel_modules_are_among_them():
+    assert {"paddle_tpu_torch.distributed.meta_parallel.mp_layers",
+            "paddle_tpu_torch.distributed.meta_parallel.parallel_layers",
+            "paddle_tpu_torch.distributed.meta_parallel.sequence_parallel"} <= set(
+                _port_modules())
