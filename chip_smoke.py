@@ -278,12 +278,40 @@ each:
    launches 12 x (its causal ring blocks: sp rank + 1; else 1) of each
    flash kernel a step, on the dtype's route. Printed: step ms, tokens/s
    per card, peak bytes per rank and flash forwards a step per rank.
+7f. pp: pipeline and expert parallelism (phase_pp). On one card: each
+   flash kernel on both routes, causal, at the pipe's micro-batch shapes
+   [4, 1024, 12, 64] and [2, 1024, 12, 64], against its plain version (the
+   kernel phases' limits); GPT-2 124M's GPTForPretrainingPipe (weights
+   converted from GPTForPretraining(seed=0)'s, ids [8, 1024]) through
+   distributed/pipeline_schedule.py over a VirtualRing (all stages on
+   this card) at S = 2 and 4 (V = 1) and S = 2, V = 2, M = S micro-batches,
+   f32 and bf16: the loss and every parameter's gradient against the same
+   Pipe at pp = 1 in relative Frobenius norm (PP_RING_F32_FROB_TOL /
+   PP_RING_BF16_FROB_TOL), and exactly 12 S launches of each flash kernel
+   on the dtype's route; then, in a spawned rank, the Pipe through
+   fleet.init -> fleet.distributed_model -> fleet.distributed_engine at
+   pp_degree = 1, 3 f32 and 3 bf16 steps (AdamW 1e-4): f32 losses within
+   TP_SP_F32_RTOL of phase_train's model's f32 engine on the same batch and
+   weights, bf16 within TP_SP_BF16_RTOL of the f32 ones, 12 launches a step
+   of each flash kernel on the dtype's route. MoELayer at d_model 768,
+   d_hidden 3072, 8 experts, top_k 2, capacity 1.25 over 8192 tokens: f32
+   output and every gradient within MOE_F32_FROB_TOL (relative Frobenius)
+   of the same layer on the CPU; bf16 under auto_cast finite. On two cards
+   or more also, one rank a card: at four cards pp 4, pp 2 x dp 2, pp 2 x
+   mp 2 and pp 2 x dp 2 at V = 2 (at two, pp 2), 4 micro-batches, f32 and
+   bf16, 3 steps each, against the one-card f32 engine (TP_SP_F32_RTOL) and
+   the run's f32 (TP_SP_BF16_RTOL); every rank launches its stage's layers
+   x V x 4 of each flash kernel a step (bubble ticks run no body), on the
+   dtype's route. Printed: losses, step ms, tokens/s per card, peak bytes
+   and flash forwards a step per rank, the schedule's ticks and bubble
+   share; the MoE's forward + backward ms and peak bytes.
 10. the ``kernels`` line: every ported kernel with the path that launched
    it (the training main path's timed steps, the train_obs steps, the
    train_rules runs, the dp and dp_eager phases' runs on rank 0, the
-   ckpt phase's steps and the tp_sp phase's bf16 step at mp 1 and its
-   virtual rings, the f32 steps, scoring, the bench's gpt_1p3b run
-   for the d = 128 rows, or a library_ops pass; the flash backward and the
+   ckpt phase's steps, the tp_sp phase's bf16 step at mp 1 and its
+   virtual rings, the pp phase's virtual rings and its pp = 1 steps, the
+   f32 steps, scoring, the bench's gpt_1p3b run for the d = 128 rows, or a
+   library_ops pass; the flash backward and the
    LM-loss backward once for each dtype, the route in ``kernel_route``),
    its launches there and its numbers from the kernel_vs_plain phases at
    that path's shape and dtype.
@@ -3930,6 +3958,348 @@ def phase_tp_sp(ids):
     return {k: dict(v) for k, v in counts.items()}
 
 
+PP_STEPS = 3              # steps of each pp run, at f32 and at bf16
+PP_TIMEOUT_S = 600        # the pp phase's ranks, all runs
+PP_MICRO = 4              # pipeline micro-batches of the pp > 1 runs
+PP_RING_F32_FROB_TOL = 1e-5   # virtual ring vs the same Pipe at pp = 1, f32: the loss
+                          # (relative) and each parameter's gradient in relative
+                          # Frobenius norm (the micro-batches sum the gradients in
+                          # another order; a dropped or doubled micro-batch, or a
+                          # cotangent summed over the ring, is off by O(1e-1))
+PP_RING_BF16_FROB_TOL = 3e-2  # ... bf16 (each micro-batch's products round to bf16
+                          # on their own rows)
+MOE_F32_FROB_TOL = 1e-5   # MoELayer on the card vs the same layer on the CPU, f32:
+                          # output and every gradient, relative Frobenius
+PP_RUNS = {  # run: (hybrid_configs, num_virtual_stages); a world runs those that fill it
+    "pp4": ({"dp_degree": 1, "pp_degree": 4}, 1),
+    "pp2_dp2": ({"dp_degree": 2, "pp_degree": 2}, 1),
+    "pp2_mp2": ({"dp_degree": 1, "pp_degree": 2, "mp_degree": 2}, 1),
+    "pp2_v2_dp2": ({"dp_degree": 2, "pp_degree": 2}, 2),
+    "pp2": ({"dp_degree": 1, "pp_degree": 2}, 1),
+}
+
+
+def _pp_runs(world):
+    return [name for name, (deg, _) in PP_RUNS.items() if math.prod(deg.values()) == world]
+
+
+def _pp_flash_per_step(deg, virtual, micro, layers):
+    """Flash launches a step of each kernel on one rank: its stage's layers
+    on every micro-batch (bubble ticks run no body); at pp 1 one pass over
+    the layers on the whole batch."""
+    pp = deg.get("pp_degree", 1)
+    if pp == 1:
+        return layers
+    return layers // (pp * virtual) * virtual * micro
+
+
+def _bubble(pp, virtual, micro):
+    """Ticks of the schedule and the share of a rank's ticks that are idle."""
+    ticks = micro * virtual + pp - 1
+    return ticks, 1 - micro * virtual / ticks
+
+
+def _pipe_from_gpt(gpt_state, cfg, virtual=1, micro=PP_MICRO, stages=None):
+    """GPTForPretrainingPipe of ``stages`` stages (default: the pp degree of
+    the topology fleet.init set last, or 1) on the card, with
+    GPTForPretraining's weights (``gpt_state``, logical, on the CPU): the
+    rank's stage and mp shards."""
+    from paddle_tpu_torch.distributed.mesh import get_hybrid_communicate_group
+    from paddle_tpu_torch.models import (GPTForPretrainingPipe, load_jax_state,
+                                         pipe_state_from_gpt)
+
+    hcg = get_hybrid_communicate_group()
+    stages = stages or (hcg.get_pipe_parallel_world_size() if hcg is not None else 1)
+    model = GPTForPretrainingPipe(cfg, num_stages=stages, num_microbatches=micro,
+                                  num_virtual_stages=virtual, device="cpu")
+    state = pipe_state_from_gpt(gpt_state, stages, virtual)
+    load_jax_state(model, {n: t.numpy() for n, t in state.items()})
+    return model.cuda()
+
+
+def pp_worker(out_dir):
+    """One rank of the pp phase (started by the port's spawn): GPT-2 124M's
+    Pipe on the global ids [8, 1024] through fleet.init ->
+    fleet.distributed_model -> fleet.distributed_engine, from
+    GPTForPretraining(seed=0)'s weights. At world 1 pp_degree = 1 (one pass
+    over the stages); past one rank each run of _pp_runs(world). f32 and
+    bf16, PP_STEPS steps each. Writes ``out_dir/rank<r>.json``."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    torch.cuda.set_device(int(os.environ["FLAGS_selected_gpus"]))
+    cfg = GPTConfig()
+    gpt_state = {n: t.detach() for n, t in
+                 GPTForPretraining(cfg, device="cpu", seed=0).state_dict().items()}
+    gen = torch.Generator().manual_seed(0)   # main()'s ids
+    ids = torch.randint(0, cfg.vocab_size, (8, 1024), generator=gen).cuda()
+    labels = torch.roll(ids, -1, 1)
+    out = {"world": world, "rank": rank}
+    names = _pp_runs(world) if world > 1 else ["pp1"]
+    for name in names:
+        degrees, virtual = PP_RUNS.get(name, ({"dp_degree": 1, "pp_degree": 1}, 1))
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = degrees
+        fleet.init(is_collective=True, strategy=strategy)
+        hcg = fleet.get_hybrid_communicate_group()
+        out[name] = {"stage": hcg.get_stage_id(), "pp": hcg.get_pipe_parallel_world_size(),
+                     "mp_rank": hcg.get_model_parallel_rank()}
+        for dtype in ("f32", "bf16"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = fleet.distributed_model(_pipe_from_gpt(gpt_state, cfg, virtual))
+            engine = fleet.distributed_engine(model, AdamW(
+                learning_rate=1e-4, parameters=model.named_parameters(), weight_decay=0.01))
+            _reset_launch_counts()
+            ctx = auto_cast(dtype="bfloat16") if dtype == "bf16" else contextlib.nullcontext()
+            with ctx:
+                losses, step_ms = _steps(engine, ids, labels, PP_STEPS)
+            out[f"{name}_{dtype}"] = {
+                "losses": losses, "step_ms": step_ms,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "fwd": dict(fa.launches_by_route), "bwd": _bwd_routes()}
+            del model, engine
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _pp_virtual_ring(gpt_state, cfg, ids, S, V, dtype):
+    """The Pipe's S stages (V chunks each) through the schedule over a
+    VirtualRing(S) on this card against the same Pipe at pp = 1 (one pass
+    over the stages), M = S micro-batches: the loss and every parameter's
+    gradient. Returns the record (errors, launches, ms)."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed.meta_parallel.sequence_parallel import VirtualRing
+    model = _pipe_from_gpt(gpt_state, cfg, V, micro=S, stages=S)   # all S stages here
+    labels = torch.roll(ids, -1, 1)
+    ctx = (lambda: auto_cast(dtype="bfloat16")) if dtype == torch.bfloat16 else (
+        contextlib.nullcontext)
+
+    def run(ring):
+        model.pipeline_ring = ring
+        model.zero_grad(set_to_none=True)
+        with ctx():
+            loss = model(ids, labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    want_loss, want = run(None)
+    _reset_launch_counts()
+    got_loss, got = run(VirtualRing(S))
+    route = "mma" if dtype == torch.bfloat16 else "tf32x3"
+    n = cfg.num_layers * S       # every layer on each of the S micro-batches
+    _check_route_launches(f"pp ring S={S} V={V} {dtype}", *_route_counts(), n, n, route)
+    tol = PP_RING_F32_FROB_TOL if dtype == torch.float32 else PP_RING_BF16_FROB_TOL
+    rel_loss = abs(got_loss - want_loss) / abs(want_loss)
+    errs = {name: rel_frob(got[name], w) for name, w in want.items()}
+    worst = max(errs, key=errs.get)
+    if not (rel_loss <= tol and errs[worst] <= tol and math.isfinite(got_loss)):
+        raise AssertionError(f"pp ring S={S} V={V} {dtype}: loss {got_loss} against "
+                             f"{want_loss} (relative {rel_loss}), {worst}'s gradient "
+                             f"relative Frobenius {errs[worst]} (tol {tol})")
+    ring_ms = cuda_ms(lambda: run(VirtualRing(S)), iters=2, warmup=0)
+    plain_ms = cuda_ms(lambda: run(None), iters=2, warmup=0)
+    del model
+    return {"S": S, "V": V, "dtype": str(dtype).split(".")[-1], "micro_batches": S,
+            "ticks": _bubble(S, V, S)[0],
+            "loss": got_loss, "pp1_loss": want_loss, "rel_loss": rel_loss,
+            "max_grad_rel_frob": errs[worst], "worst_param": worst, "tol": tol,
+            "launches": {"flash_attention_fwd": n, "flash_attention_bwd_dkdv": n,
+                         "flash_attention_bwd_dq": n}, "route": route,
+            "ring_fwd_bwd_ms": ring_ms, "pp1_fwd_bwd_ms": plain_ms}
+
+
+def _pp_micro_kernels_vs_plain(mbs=(4, 2), s=1024, h=12, d=64):
+    """Each flash kernel, both routes, causal, at the pipe's micro-batch
+    shapes [8 / M, s, h, d], against its plain version."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    out = {}
+    g = torch.Generator().manual_seed(13)
+    for b in mbs:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn(b, s, h, d, generator=g).to(dtype).cuda()
+                           for _ in range(4))
+            key = f"b{b}_{str(dtype).split('.')[-1]}"
+            o, lse = fa._launch(q, k, v, True, 1 / math.sqrt(d))
+            o_ref, lse_ref = fa.flash_attention_plain(q, k, v, True)
+            delta = fa.attention_delta(o_ref, do)
+            dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse_ref, delta, True)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse_ref, delta, True)
+            refs = fa.flash_attention_bwd_plain(q, k, v, do, lse_ref, delta, True)
+            errs = {"o": _close_or_raise(f"pp micro {key} o", o, o_ref, dtype)[0],
+                    "lse": _close_or_raise(f"pp micro {key} lse", lse, lse_ref, dtype,
+                                           tol=_f32_tol(lse_ref))[0]}
+            for name, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+                errs[name] = _close_or_raise(f"pp micro {key} {name}", a, w, dtype,
+                                             grad=True)[0]
+                frob = head_rel_frob(a, w)
+                tol = GRAD_F32_FROB_TOL if dtype == torch.float32 else GRAD_BF16_FROB_TOL
+                if not frob <= tol:
+                    raise AssertionError(f"pp micro {key} {name}: head relative "
+                                         f"Frobenius error {frob} (tol {tol})")
+            out[key] = errs
+    return out
+
+
+def _moe_case(dtype, tokens=8192, d_model=768, d_hidden=3072, experts=8, top_k=2,
+              capacity_factor=1.25):
+    """MoELayer at GPT-2 124M's width on the card: its forward and backward
+    of sum(y * dy); f32 against the same layer on the CPU (output and
+    every gradient); bf16 under auto_cast, against the card's f32. Returns
+    the record (errors, ms, peak bytes)."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed.meta_parallel import MoELayer
+
+    torch.manual_seed(0)
+    cpu = MoELayer(d_model, d_hidden, experts, top_k=top_k, capacity_factor=capacity_factor)
+    card = MoELayer(d_model, d_hidden, experts, top_k=top_k,
+                    capacity_factor=capacity_factor).cuda()
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(tokens, d_model, generator=g)
+    dy = torch.randn(tokens, d_model, generator=g)
+
+    def grads(layer, xin, dyin, cast=False):
+        layer.zero_grad(set_to_none=True)
+        xin = xin.clone().requires_grad_()
+        ctx = auto_cast(dtype="bfloat16") if cast else contextlib.nullcontext()
+        with ctx:
+            y = layer(xin)
+        y.backward(dyin.to(y.dtype))
+        return {"y": y.detach().float(), "x": xin.grad.float(),
+                **{n: p.grad.float() for n, p in layer.named_parameters()}}
+
+    xc, dyc = x.cuda(), dy.cuda()
+    cast = dtype == torch.bfloat16
+    xin = xc.to(dtype)
+    grads(card, xin, dyc, cast)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = grads(card, xin, dyc, cast)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    ms = cuda_ms(lambda: grads(card, xin, dyc, cast), iters=3, warmup=1)
+    cap = card.capacity(tokens)
+    rec = {"dtype": str(dtype).split(".")[-1], "tokens": tokens, "d_model": d_model,
+           "d_hidden": d_hidden, "experts": experts, "top_k": top_k,
+           "capacity_factor": capacity_factor, "capacity": cap,
+           "dispatch_bytes_f32": tokens * experts * cap * 4, "fwd_bwd_ms": ms,
+           "peak_bytes_above_inputs": peak}
+    if not all(torch.isfinite(t).all() for t in got.values()):
+        raise AssertionError(f"moe {dtype}: non-finite output or gradient")
+    if dtype == torch.float32:
+        want = grads(cpu, x, dy)
+        errs = {n: rel_frob(got[n].cpu(), w) for n, w in want.items()}
+        worst = max(errs, key=errs.get)
+        if not errs[worst] <= MOE_F32_FROB_TOL:
+            raise AssertionError(f"moe f32 card vs CPU: {worst} relative Frobenius "
+                                 f"{errs[worst]} (tol {MOE_F32_FROB_TOL})")
+        rec.update(max_rel_frob_vs_cpu=errs[worst], worst=worst, tol=MOE_F32_FROB_TOL)
+    else:
+        want = grads(card, xc, dyc)
+        rec["y_rel_frob_vs_card_f32"] = rel_frob(got["y"], want["y"])
+    del card, cpu
+    return rec
+
+
+def phase_pp(ids, one_card=True):
+    """Pipeline and expert parallelism (phase docstring item 7f). Returns the
+    flash launches of its path on this process and rank 0: {"bf16": {kernel:
+    n}, "f32": {kernel: n}}. ``one_card`` false leaves out the micro-batch
+    kernel checks, the virtual rings and the MoE (a multi-card call's)."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    cfg = GPTConfig()
+    nl = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    micro = _pp_micro_kernels_vs_plain() if one_card else None
+    counts = {"bf16": collections.Counter(), "f32": collections.Counter()}
+    # the one-card f32 engine of phase_train's model on the same batch and weights
+    _, engine = _train_engine(cfg, "cuda")
+    ref_f32, _ = _steps(engine, ids, torch.roll(ids, -1, 1), PP_STEPS)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt_state = {n: t.detach() for n, t in
+                 GPTForPretraining(cfg, device="cpu", seed=0).state_dict().items()}
+    for S, V in ((2, 1), (4, 1), (2, 2)) if one_card else ():
+        for dtype in (torch.float32, torch.bfloat16):
+            rec = _pp_virtual_ring(gpt_state, cfg, ids, S, V, dtype)
+            counts["bf16" if rec["route"] == "mma" else "f32"].update(rec["launches"])
+            emit(phase="pp_ring", **rec)
+            gc.collect()
+            torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = {}
+        for w in [1] + ([world] if world >= 2 else []):
+            spawn(pp_worker, args=(d,), nprocs=w, timeout=PP_TIMEOUT_S)
+            ranks[w] = []
+            for r in range(w):
+                with open(os.path.join(d, f"rank{r}.json")) as f:
+                    ranks[w].append(json.load(f))
+    for w, names in [(1, ["pp1"])] + ([(world, _pp_runs(world))] if world >= 2 else []):
+        rs = ranks.get(w, [])
+        for name in names:
+            degrees, virtual = PP_RUNS.get(name, ({"dp_degree": 1, "pp_degree": 1}, 1))
+            pp = degrees["pp_degree"]
+            ticks, idle = _bubble(pp, virtual, PP_MICRO)
+            rec = {"phase": "pp", "run": name, "world": w, "hybrid_configs": degrees,
+                   "num_virtual_stages": virtual, "global_batch": list(ids.shape),
+                   "micro_batches": PP_MICRO if pp > 1 else 1,
+                   "schedule_ticks": ticks if pp > 1 else 1,
+                   "bubble_share": idle if pp > 1 else 0.0,
+                   "one_card_f32_losses": ref_f32}
+            per_step = _pp_flash_per_step(degrees, virtual, PP_MICRO, nl)
+            for dtype, route in (("f32", "tf32x3"), ("bf16", "mma")):
+                runs_ = [r[f"{name}_{dtype}"] for r in rs]
+                losses = runs_[0]["losses"]
+                if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+                    raise AssertionError(f"pp {name} {dtype}: losses {losses}")
+                want = ref_f32 if dtype == "f32" else rs[0][f"{name}_f32"]["losses"]
+                rtol = TP_SP_F32_RTOL if dtype == "f32" else TP_SP_BF16_RTOL
+                rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+                if not rel <= rtol:
+                    raise AssertionError(f"pp {name} {dtype}: losses {losses} against "
+                                         f"{want}: relative {rel} (rtol {rtol})")
+                for r, run in zip(rs, runs_):   # every rank's launches, on its route
+                    n = PP_STEPS * per_step
+                    _check_route_launches(f"pp {name} {dtype} rank {r['rank']}",
+                                          run["fwd"], run["bwd"], n, n, route)
+                if w == 1:
+                    counts[dtype].update({k: PP_STEPS * per_step
+                                          for k in _launch_counts_keys()})
+                med = statistics.median(runs_[0]["step_ms"][1:])
+                rec[dtype] = {"losses": losses, "rel_err": rel, "rtol": rtol,
+                              "step_ms": runs_[0]["step_ms"], "step_ms_median": med,
+                              "tokens_per_s_per_card": ids.numel() / (med / 1e3) / w,
+                              "peak_bytes_per_rank": [r["peak_bytes"] for r in runs_],
+                              "flash_fwd_per_step_per_rank": [
+                                  sum(r["fwd"].values()) // PP_STEPS for r in runs_]}
+            emit(**rec)
+    moe = [_moe_case(dtype) for dtype in (torch.float32, torch.bfloat16)] if one_card else []
+    for rec in moe:
+        emit(phase="pp_moe", **rec)
+    emit(phase="pp", what="checks", passed=True, world=world, micro_kernels=micro,
+         seconds=time.perf_counter() - t0)
+    return {k: dict(v) for k, v in counts.items()}
+
+
 def _route_counts():
     """The flash kernels' launches by route: (forward, backward pair)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -4680,6 +5050,8 @@ def main() -> int:
         phase_ckpt_ranks(torch.cuda.device_count())
     tp_sp_launches = phase_tp_sp(ids)
     torch.cuda.empty_cache()
+    pp_launches = phase_pp(ids)
+    torch.cuda.empty_cache()
     bench_launches = phase_bench()
 
     ln_recs = phase_layer_norm_kernels()
@@ -4698,22 +5070,25 @@ def main() -> int:
     # tensor-core forward and backward)
     pallas = "paddle_tpu/ops/pallas/"
     rows = [  # (name, path, record, source, replaces)
-        ("flash_attention_fwd", "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp",
+        ("flash_attention_fwd",
+         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp",
          fwd["slice_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_fwd_f32", "score, train_f32, dp_eager, tp_sp",
+        ("flash_attention_fwd_f32", "score, train_f32, dp_eager, tp_sp, pp",
          fwd["slice_f32_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_bwd_dkdv", "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp",
+        ("flash_attention_bwd_dkdv",
+         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp",
          bwd["train_bf16_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq", "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp",
+        ("flash_attention_bwd_dq",
+         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp",
          bwd["train_bf16_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
-        ("flash_attention_bwd_dkdv_f32", "train_f32, dp_eager, tp_sp",
+        ("flash_attention_bwd_dkdv_f32", "train_f32, dp_eager, tp_sp, pp",
          bwd["train_f32_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq_f32", "train_f32, dp_eager, tp_sp",
+        ("flash_attention_bwd_dq_f32", "train_f32, dp_eager, tp_sp, pp",
          bwd["train_f32_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
         ("flash_attention_fwd_d128", "bench gpt_1p3b", fwd["1p3b_bf16_causal"],
@@ -4755,10 +5130,10 @@ def main() -> int:
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
     counts = {**{k: launches[k] + obs_launches[k] + rules_launches[k] + dp_launches[k]
                  + ckpt_launches[k] + dp_eager_launches["bf16"][k]
-                 + tp_sp_launches["bf16"][k] for k in launches},
+                 + tp_sp_launches["bf16"][k] + pp_launches["bf16"][k] for k in launches},
               **bench_launches,
               **{f"{k}_f32": f32_launches[k] + dp_eager_launches["f32"][k]
-                 + tp_sp_launches["f32"][k]
+                 + tp_sp_launches["f32"][k] + pp_launches["f32"][k]
                  + (score_launches if k == "flash_attention_fwd" else 0)
                  for k in _launch_counts_keys()},
               **{k: lib_f32[k] for k in ("layer_norm_fwd", "layer_norm_infer",

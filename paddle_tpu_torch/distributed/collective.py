@@ -153,11 +153,12 @@ def all_to_all_single(output, tensor, group=None):
     return output
 
 
-def ring_exchange(tensors, group=None):
+def ring_exchange(tensors, group=None, reverse=False):
     """Send each of ``tensors`` to the next rank of ``group`` (its rank
     order, wrapping around) and receive the previous rank's, in one
     ``batch_isend_irecv``; returns the received tensors (new tensors of the
-    same shapes and dtypes, in order). On a group of one rank, or one
+    same shapes and dtypes, in order). ``reverse``: send to the previous
+    rank and receive the next one's. On a group of one rank, or one
     without a process group, it returns ``tensors`` themselves."""
     pg, live = _pg(group)
     n = _nranks(group)
@@ -166,6 +167,8 @@ def ring_exchange(tensors, group=None):
     ranks = group.ranks if group is not None else list(range(n))
     me = ranks.index(dist.get_rank())
     nxt, prv = ranks[(me + 1) % n], ranks[(me - 1) % n]
+    if reverse:
+        nxt, prv = prv, nxt
     outs = [torch.empty_like(t) for t in tensors]
     ops = []
     for t, o in zip(tensors, outs):

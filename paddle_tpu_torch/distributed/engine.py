@@ -130,6 +130,20 @@ above, unchanged. Otherwise the step is grad_comm's (distributed/grad_comm.py):
   (ROADMAP.md Queue 1 item 9): FSDP, the bf16 and int8 payloads, the
   health monitor, and at mp > 1 Lamb, Lars and ``ClipGradByNorm`` (norms of
   whole parameters).
+- **Pipeline and expert parallelism** (``pp_degree``, ``ep_degree``; the
+  model built after ``fleet.init``: ``GPTForPretrainingPipe`` holds the
+  rank's stage, meta_parallel/moe.py's experts the rank's 1/ep). pp and ep
+  ranks take the same rows, as mp ranks do; the pipeline itself runs
+  inside the model's forward (distributed/pipeline_schedule.py). Every
+  gradient is reduced over ``replica_group()`` (the ranks with this rank's
+  pp, ep and mp coordinates); the global-norm clip sums the squares of each
+  gradient over the groups of the axes that split it (a stage's over pp,
+  an expert's over ep, a shard's over mp) and counts the rest once. ZeRO
+  and microbatches compose with them as with mp; ``state_dict()``,
+  ``set_state_dict()`` and the checkpoints move the logical tensors (a
+  Pipe's ``[S, Lp, ...]`` whole), so a pp run resumes at pp = 1 and in the
+  JAX engine. At pp or ep above one rank what item 9 refuses at mp is
+  refused naming ROADMAP.md Queue 1 item 11.
 - **Dropout.** Over more than one rank each microbatch reseeds the model's
   dropout generator (``model.generator``) from (seed, rank, step,
   microbatch), so ranks draw different masks and a run repeats exactly.
@@ -142,9 +156,9 @@ the JAX engine counts nothing on one replica. Without a process group no
 collective is called and the low-precision payloads still round-trip.
 
 PyTorch runs eagerly, so there is no compiled step to build, cache or
-donate into. Not ported yet (ROADMAP.md): pipeline and expert axes, a world
-size changed in process (``reform_mesh``), CUDA graphs around the step (under
-``run_steps`` too), and the overlap of the reduce with the backward.
+donate into. Not ported yet (ROADMAP.md): a world size changed in process
+(``reform_mesh``), CUDA graphs around the step (under ``run_steps`` too),
+and the overlap of the reduce with the backward.
 """
 from __future__ import annotations
 
@@ -176,6 +190,9 @@ from .meta_parallel import mp_layers as _mpl
 from .meta_parallel import sequence_parallel as _sp
 
 _ITEM9 = "ROADMAP.md Queue 1 item 9"
+_ITEM11 = "ROADMAP.md Queue 1 item 11"
+# the axes that split a parameter, in the order a logical tensor is sliced
+_SPLIT_AXES = ("pp", "ep", "mp")
 
 _M64 = (1 << 64) - 1
 _NAN_LOSS_STEPS = _monitor.stat("engine.nan_loss_steps")
@@ -216,7 +233,13 @@ class TrainStepEngine:
         self.world_group = self.hcg.get_check_parallel_group() if dist_on else None
         deg = self.hcg.degrees if self.hcg is not None else {}
         self._mp, self._spd = deg.get("mp", 1), deg.get("sp", 1)
-        self._mp_group = self.hcg.get_model_parallel_group() if self._mp > 1 else None
+        self._pp, self._ep = deg.get("pp", 1), deg.get("ep", 1)
+        self._axis_groups = {}
+        for axis, get in (("pp", "get_pipe_parallel_group"), ("ep", "get_expert_parallel_group"),
+                          ("mp", "get_model_parallel_group")):
+            if deg.get(axis, 1) > 1:
+                self._axis_groups[axis] = getattr(self.hcg, get)()
+        self._mp_group = self._axis_groups.get("mp")
         self._sp_group = self.hcg.get_sep_parallel_group() if self._spd > 1 else None
         self._sp_impl = getattr(strategy, "sep_impl", "ulysses") or "ulysses"
         opt_names = {id(p): n for n, p in zip(optimizer._param_names,
@@ -245,11 +268,12 @@ class TrainStepEngine:
         self._grad_residual = None     # the rank's [n] f32 error-feedback buffer
         self._layouts = {}             # chunk -> grad_comm.FlatLayout
         self._shapes = {nm: tuple(p.shape) for nm, p in self.params.items()}
-        # the mp-sharded parameters: {name: (dim, blocks)} (mp_layers.mp_slice)
-        self._mp_splits = {}
-        if self._mp > 1:
-            self._check_mp_model(model, opt_names)
-        self._full_shapes = {nm: _mpl.logical_shape(shape, self._mp_splits.get(nm), self._mp)
+        # the split parameters: {name: [(axis, (dim, blocks)), ...]} in
+        # _SPLIT_AXES order (mp_layers.mp_slice)
+        self._splits = {}
+        if self._axis_groups:
+            self._check_split_model(model, opt_names)
+        self._full_shapes = {nm: self._logical_shape(nm, shape)
                              for nm, shape in self._shapes.items()}
         self.fsdp = bool(fsdp)
         self._fsdp_params = None       # the rank's per-bucket [shard] f32 parameters
@@ -286,66 +310,96 @@ class TrainStepEngine:
     def _n_params(self) -> int:
         return sum(math.prod(shape) for shape in self._shapes.values())
 
-    # ---- tensor and sequence parallelism ----
+    # ---- tensor, sequence, pipeline and expert parallelism ----
     @property
     def _tp(self) -> bool:
-        """mp or sp above one rank."""
-        return self._mp > 1 or self._spd > 1
+        """mp, sp, pp or ep above one rank."""
+        return self._mp > 1 or self._spd > 1 or self._pp > 1 or self._ep > 1
 
-    def _check_mp_model(self, model, opt_names):
-        """The model's mp layers must be this topology's shards; the rules
-        and clips that need a whole parameter's norm raise."""
-        if getattr(model, "mp_size", self._mp) != self._mp:
+    def _refusal(self, what):
+        """What item 9 (mp, sp) or item 11 (pp, ep) still refuses."""
+        item = _ITEM11 if self._pp > 1 or self._ep > 1 else _ITEM9
+        return NotImplementedError(
+            f"{what} at mp_degree={self._mp}, sep_degree={self._spd}, "
+            f"pp_degree={self._pp}, ep_degree={self._ep} ({item})")
+
+    def _check_split_model(self, model, opt_names):
+        """The model's split layers must be this topology's shards; the
+        rules and clips that need a whole parameter's norm raise."""
+        if self._mp > 1 and getattr(model, "mp_size", self._mp) != self._mp:
             raise ValueError(f"the model was built over {model.mp_size} model-parallel "
                              f"ranks, the topology has mp_degree={self._mp}: build the "
                              "model after fleet.init")
         by_id = {id(p): nm for nm, p in model.named_parameters()}
-        splits = _mpl.sharded_parameters(model)
-        for pid, opt_nm in opt_names.items():
-            if pid in by_id and by_id[pid] in splits and opt_nm in self.params:
-                split, size = splits[by_id[pid]]
-                if size != self._mp:
-                    raise ValueError(f"{by_id[pid]} is split over {size} ranks, the "
-                                     f"topology's mp_degree is {self._mp}")
-                self._mp_splits[opt_nm] = split
+        for axis in _SPLIT_AXES:
+            if axis not in self._axis_groups:
+                continue
+            degree = self.hcg.degrees[axis]
+            splits = _mpl.sharded_parameters(model, axis)
+            for pid, opt_nm in opt_names.items():
+                if pid in by_id and by_id[pid] in splits and opt_nm in self.params:
+                    split, size = splits[by_id[pid]]
+                    if size != degree:
+                        raise ValueError(f"{by_id[pid]} is split over {size} ranks, the "
+                                         f"topology's {axis}_degree is {degree}: build the "
+                                         "model after fleet.init")
+                    self._splits.setdefault(opt_nm, []).append((axis, split))
         opt = self.optimizer
         if opt._rule in ("lamb", "lars"):
-            raise NotImplementedError(
-                f"{opt._rule} at mp_degree={self._mp}: its trust ratio needs whole "
-                f"parameters' norms ({_ITEM9})")
+            raise self._refusal(f"{opt._rule} (its trust ratio needs whole parameters' "
+                                "norms)")
         if isinstance(opt._grad_clip, ClipGradByNorm):
-            raise NotImplementedError(
-                f"ClipGradByNorm at mp_degree={self._mp}: it needs whole parameters' "
-                f"norms ({_ITEM9})")
+            raise self._refusal("ClipGradByNorm (it needs whole parameters' norms)")
+
+    def _logical_shape(self, nm, shape):
+        for axis, split in self._splits.get(nm, ()):
+            shape = _mpl.logical_shape(shape, split, self.hcg.degrees[axis])
+        return tuple(shape)
 
     def _mp_full(self, nm, t):
         """The logical tensor of parameter ``nm``'s shard ``t`` (gathered
-        over the mp group, a collective); ``t`` for a whole parameter."""
-        split = self._mp_splits.get(nm)
-        if split is None:
-            return t
-        parts = collective.all_gather(None, t.contiguous(), group=self._mp_group)
-        return _mpl.mp_gather(parts, split)
+        over the groups of the axes that split it, a collective); ``t`` for
+        a whole parameter."""
+        for axis, split in reversed(self._splits.get(nm, ())):
+            parts = collective.all_gather(None, t.contiguous(), group=self._axis_groups[axis])
+            t = _mpl.mp_gather(parts, split)
+        return t
 
     def _mp_shard(self, nm, t):
         """This rank's shard of parameter ``nm``'s logical tensor ``t``."""
-        split = self._mp_splits.get(nm)
-        if split is None:
-            return t
-        return _mpl.mp_slice(t, split, self._mp_group.rank, self._mp).contiguous()
+        for axis, split in self._splits.get(nm, ()):
+            g = self._axis_groups[axis]
+            t = _mpl.mp_slice(t, split, g.rank, g.nranks)
+        return t.contiguous() if nm in self._splits else t
+
+    def _split_mask(self, nm) -> int:
+        """Bit i set when axis _SPLIT_AXES[i] splits parameter ``nm``."""
+        return sum(1 << _SPLIT_AXES.index(a) for a, _ in self._splits.get(nm, ()))
+
+    def _sum_split_squares(self, sq):
+        """``sq`` [8]: the squares of the gradients split by each subset of
+        _SPLIT_AXES (index = its bit mask); each entry summed over the
+        groups of its axes, in place."""
+        for i, axis in enumerate(_SPLIT_AXES):
+            if axis in self._axis_groups:
+                idx = [m for m in range(8) if m >> i & 1]
+                part = sq[idx].contiguous()
+                collective.all_reduce(part, group=self._axis_groups[axis])
+                sq[idx] = part
+        return sq
 
     def _clip(self, grads):
-        """The optimizer's clip over {name: grad}; at mp > 1 the global norm
-        sums the sharded gradients' squares over the mp group and counts
-        the replicated ones once."""
+        """The optimizer's clip over {name: grad}; with split parameters the
+        global norm sums each gradient's squares over the groups of the
+        axes that split it and counts the replicated ones once."""
         clip = self.optimizer._grad_clip
-        if self._mp_group is None or not isinstance(clip, ClipGradByGlobalNorm):
+        if not self._splits or not isinstance(clip, ClipGradByGlobalNorm):
             return opt_funct.clip_grads(grads, clip)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        sq = torch.stack([
-            sum((_sq_norm(g) for n, g in grads.items() if n in self._mp_splits), zero),
-            sum((_sq_norm(g) for n, g in grads.items() if n not in self._mp_splits), zero)])
-        collective.all_reduce(sq[:1], group=self._mp_group)
+        parts = [[] for _ in range(8)]
+        for n, g in grads.items():
+            parts[self._split_mask(n)].append(_sq_norm(g))
+        sq = self._sum_split_squares(torch.stack([sum(p, zero) for p in parts]))
         scale = clip.clip_norm / torch.clamp(torch.sqrt(sq.sum()), min=clip.clip_norm)
         return {n: (g * scale).to(g.dtype) for n, g in grads.items()}
 
@@ -560,9 +614,8 @@ class TrainStepEngine:
             self._check_not_sharded()
         health = self._health
         if self._tp and (health is not None or dtype != "f32"):
-            what = "the health monitor" if health is not None else f"the {dtype} payload"
-            raise NotImplementedError(f"{what} at mp_degree={self._mp}, "
-                                      f"sep_degree={self._spd} ({_ITEM9})")
+            raise self._refusal("the health monitor" if health is not None
+                                else f"the {dtype} payload")
         t0 = time.perf_counter()
         try:
             if self.group is None and k == 1 and dtype == "f32" and not (zero or fsdp):
@@ -1003,10 +1056,11 @@ class TrainStepEngine:
             hb = health.begin_stats([g[a:b] for _, a, b in spans],
                                     [p_shard[a:b] for _, a, b in spans],
                                     [ordinal[nm] for nm, _, _ in spans])
-        mp = None
-        if self._mp_group is not None:   # the shard's pieces of mp-sharded parameters
-            mp = ([(a, b) for nm, a, b in spans if nm in self._mp_splits], self._mp_group)
-        _gc.clip_shard(g, opt._grad_clip, group, mp)
+        split = None
+        if self._splits:   # the shard's pieces of split parameters, by their axes
+            split = ([(a, b, self._split_mask(nm)) for nm, a, b in spans],
+                     self._sum_split_squares)
+        _gc.clip_shard(g, opt._grad_clip, group, split)
         update = opt_funct.make_flat_update(opt, next(iter(self.params)),
                                             block=_gc.BLOCK)
         slots = self._ensure_zero_opt(layout)
@@ -1046,14 +1100,14 @@ class TrainStepEngine:
         """{"model": the model's state dict, "optimizer": the optimizer's
         (``Optimizer.state_dict`` keys)}; under ZeRO the optimizer state,
         under FSDP also the parameters, are gathered from every rank's
-        shards first, and at mp > 1 every mp-sharded parameter and its state
-        into the logical tensor, an mp = 1 model's (a collective: every rank
-        must call it)."""
+        shards first, and at mp, pp or ep > 1 every split parameter and its
+        state into the logical tensor, a one-rank model's (a collective:
+        every rank must call it)."""
         sharded = (self._fsdp_params is not None or self._zero_opt is not None
-                   or bool(self._mp_splits))
+                   or bool(self._splits))
         states = self._full_opt() if sharded else None
         model_sd = self.model.state_dict(keep_vars=True)
-        if self._fsdp_params is not None or self._mp_splits:
+        if self._fsdp_params is not None or self._splits:
             full = self._full_params()
             by_id = {id(p): nm for nm, p in self.params.items()}
             model_sd = {key: full[by_id[id(v)]] if id(v) in by_id else v
@@ -1062,8 +1116,8 @@ class TrainStepEngine:
                 "optimizer": self.optimizer.state_dict(states=states)}
 
     def set_state_dict(self, state):
-        """Install a ``state_dict()`` (logical tensors, from any mp degree and
-        sharding): the rank's mp shards are sliced out, and ZeRO and FSDP
+        """Install a ``state_dict()`` (logical tensors, from any mp, pp or ep
+        degree and sharding): the rank's shards are sliced out, and ZeRO and FSDP
         re-shard at the next step. Every rank calls it."""
         model_sd, opt_sd = state["model"], state.get("optimizer", {})
         by_id = {id(p): nm for nm, p in self.params.items()}
@@ -1189,8 +1243,7 @@ class TrainStepEngine:
         if not self._fsdp_requested():
             return False
         if self._tp:
-            raise NotImplementedError(f"FSDP at mp_degree={self._mp}, sep_degree="
-                                      f"{self._spd} ({_ITEM9})")
+            raise self._refusal("FSDP")
         if self._offload:
             raise NotImplementedError("FSDP with an offloaded optimizer state is not "
                                       "ported (ROADMAP.md Queue 1 item 3)")

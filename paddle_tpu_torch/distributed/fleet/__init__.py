@@ -30,10 +30,24 @@ after ``init``, its mp layers take the rank's shards) and ``sep_degree``
     strategy.sep_impl = "ring"
     fleet.init(is_collective=True, strategy=strategy)
     model = GPTForPretraining(gpt_tiny())                  # this rank's shards
-    engine = fleet.distributed_engine(model, optimizer)    # global batch in ``distributed_model`` wraps the model
-in ``DataParallel`` (with the strategy's ``find_unused_parameters``) only
-in data-parallel mode past one rank, and returns it as it is otherwise (a pipeline degree above 1 is refused by the
-topology, ROADMAP.md Queue 1 item 11). ``distributed_optimizer`` compiles
+    engine = fleet.distributed_engine(model, optimizer)    # global batch in
+
+``distributed_model`` wraps the model in ``DataParallel`` (with the strategy's ``find_unused_parameters``) only
+in data-parallel mode past one rank; at ``pp_degree > 1`` a
+``PipelineLayer`` becomes the eager ``PipelineParallel`` facade and a
+pipeline-stacked model (``GPTForPretrainingPipe``, whose stages run
+distributed/pipeline_schedule.py over the pp group inside the engine's
+step) passes through, as in the reference; otherwise it returns the model
+as it is. Pipeline and expert parallelism (``pp_degree``, ``ep_degree``)::
+
+    strategy.hybrid_configs = {"dp_degree": 2, "pp_degree": 2}
+    fleet.init(is_collective=True, strategy=strategy)
+    model = GPTForPretrainingPipe(GPTConfig(), num_microbatches=4)   # this rank's stage
+    model = fleet.distributed_model(model)
+    engine = fleet.distributed_engine(model, optimizer)
+    loss = engine.step(ids, labels)                        # the global batch
+
+``distributed_optimizer`` compiles
 the strategy into the meta-optimizer chain (``meta_optimizers``) and wraps
 it in ``HybridParallelOptimizer``; ``_applied_meta_list`` names what was
 applied. ``distributed_engine`` unwraps that chain (and a
@@ -133,14 +147,32 @@ class Fleet:
     # ---- the eager entry points (reference fleet_base.py:1038-1061) ----
     def distributed_model(self, model):
         """``DataParallel(model)`` in data-parallel mode past one rank, else
-        ``model`` itself (the engine shards for the other modes). Under mp or
-        sp above one rank the eager path raises: ``distributed_engine``
-        runs them (ROADMAP.md Queue 1 item 9)."""
-        from ..meta_parallel import DataParallel
+        ``model`` itself (the engine shards for the other modes). At pp above
+        one rank (reference fleet/__init__.py:99-118) a ``PipelineLayer``
+        becomes ``PipelineParallel``, a pipeline-stacked model passes
+        through, anything else raises. Under mp or sp above one rank the
+        eager path raises: ``distributed_engine`` runs them (ROADMAP.md
+        Queue 1 item 9); so does ep (item 11: the eager reducer would
+        average the experts' shards)."""
+        from ..meta_parallel import DataParallel, PipelineLayer, PipelineParallel
 
         if not self._is_initialized:
             self.init()
         hcg = self._hcg
+        if hcg.get_pipe_parallel_world_size() > 1:
+            if isinstance(model, PipelineLayer):
+                return PipelineParallel(model, hcg, self._strategy)
+            if not getattr(model, "_pipeline_stacked", False):
+                # pipeline-stacked models (e.g. GPTForPretrainingPipe) run the
+                # schedule inside the engine and need no wrapper
+                raise RuntimeError(
+                    "pp_degree > 1 requires a PipelineLayer or a pipeline-stacked model")
+            return model
+        if hcg.degrees["ep"] > 1:
+            raise NotImplementedError(
+                f"fleet.distributed_model at ep_degree={hcg.degrees['ep']}: the eager "
+                "path averages every gradient over the ranks; use "
+                "fleet.distributed_engine (ROADMAP.md Queue 1 item 11)")
         if hcg.degrees["mp"] > 1 or hcg.degrees["sp"] > 1:
             raise NotImplementedError(
                 f"fleet.distributed_model at mp_degree={hcg.degrees['mp']}, sep_degree="

@@ -320,32 +320,38 @@ def zero_scatter(buf, layout: FlatLayout, loss, group, dtype, chunk, residual):
     return g, loss_part
 
 
-def clip_shard(g, clip, group, mp=None):
+def clip_shard(g, clip, group, split=None):
     """Grad clip on the rank's slice of the flat mean gradient, in place.
     ByValue is elementwise; ByGlobalNorm needs the global sum of squares,
     one scalar all_reduce (summed in another order than the replicated
     per-parameter clip, so a clipped ZeRO run matches it to rounding, not
-    bit for bit). ``mp`` = (spans of ``g`` that hold mp-sharded parameters,
-    the mp group): their squares are also summed over the mp group, the
-    others counted once. Other rules need per-parameter norms: the engine
-    runs the replicated update for them."""
+    bit for bit). ``split`` = (spans (start, stop, mask) of ``g`` by the
+    bit mask of the axes that split their parameter, and the engine's
+    function that sums a [8] vector of squares by mask over those axes'
+    groups): a split parameter's squares are also summed over its axes,
+    the others counted once. Other rules need per-parameter norms: the
+    engine runs the replicated update for them."""
     from ..nn.clip import ClipGradByGlobalNorm, ClipGradByValue
 
     if clip is None:
         return g
     if isinstance(clip, ClipGradByGlobalNorm):
-        if mp is None:
+        if split is None:
             sq = torch.dot(g, g).reshape(1)
             collective.all_reduce(sq, group=group)
         else:
-            spans, mp_group = mp
-            sharded = torch.zeros(g.shape, dtype=torch.bool, device=g.device)
-            for a, b in spans:
-                sharded[a:b] = True
-            gs, gr = g[sharded], g[~sharded]
-            sq = torch.stack([torch.dot(gs, gs), torch.dot(gr, gr)])
+            spans, sum_split = split
+            parts = [[] for _ in range(8)]
+            covered = torch.zeros(g.shape, dtype=torch.bool, device=g.device)
+            for a, b, m in spans:
+                if m:
+                    parts[m].append(torch.dot(g[a:b], g[a:b]))
+                    covered[a:b] = True
+            rest = g[~covered]
+            parts[0].append(torch.dot(rest, rest))
+            sq = torch.stack([torch.stack(p).sum() if p else g.new_zeros(()) for p in parts])
             collective.all_reduce(sq, group=group)
-            collective.all_reduce(sq[:1], group=mp_group)
+            sum_split(sq)
         gn = torch.sqrt(sq.sum())
         return g.mul_(clip.clip_norm / torch.clamp(gn, min=clip.clip_norm))
     if isinstance(clip, ClipGradByValue):

@@ -3,28 +3,31 @@
 
 The ranks of the process group form the reference's grid in its axis order
 (pp, dp, sharding, sp, ep, mp; row-major), so a rank's coordinates are
-``rank = ((dp_i * sharding + sharding_i) * sp + sp_i) * mp + mp_i``. Each
-rank holds its own 1/mp shard of the tensor-parallel layers
+``rank = ((((pp_i * dp + dp_i) * sharding + sh_i) * sp + sp_i) * ep + ep_i)
+* mp + mp_i``. Each rank holds its pipeline stage's layers
+(distributed/pipeline_schedule.py, models/gpt.py's
+``GPTForPretrainingPipe``), its 1/ep of the experts
+(meta_parallel/moe.py), its own 1/mp shard of the tensor-parallel layers
 (meta_parallel/mp_layers.py) and its own 1/sp of the sequence
-(meta_parallel/sequence_parallel.py); collectives run over the groups built
-here, one process group a line of each axis above one rank (every rank
-joins every ``new_group`` call, as torch.distributed asks). The data
+(meta_parallel/sequence_parallel.py); collectives run over the groups
+built here, one process group a line of each axis above one rank (every
+rank joins every ``new_group`` call, as torch.distributed asks). The data
 replicas are the ranks that hold the same shards: ``dp x sharding x sp``,
-the ranks with this rank's mp coordinate (``replica_group``). A degree of
-pp or ep above 1 raises ``NotImplementedError`` (pipeline and expert
-parallelism, ROADMAP.md Queue 1 item 11). Without a process group the
-topology is one rank and its groups carry no process group: collectives
-over them are the identity.
+the ranks with this rank's pp, ep and mp coordinates (``replica_group``).
+Without a process group the topology is one rank and its groups carry no
+process group: collectives over them are the identity.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import torch.distributed as dist
 
 AXES_ORDER = ("pp", "dp", "sharding", "sp", "ep", "mp")
-_NOT_PORTED = {"pp": "ROADMAP.md Queue 1 item 11 (pipeline parallelism)",
-               "ep": "ROADMAP.md Queue 1 item 11 (expert parallelism)"}
+# the lines the port builds a group for: one axis each, and the replicas
+_LINES = {"pp": ("pp",), "dp": ("dp",), "sharding": ("sharding",), "sp": ("sp",),
+          "ep": ("ep",), "mp": ("mp",), "replica": ("dp", "sharding", "sp")}
 
 
 class CommGroup:
@@ -55,46 +58,38 @@ class CommGroup:
 
 class HybridCommunicateGroup:
     """Topology facade with the reference's accessor surface. ``dp_degree``
-    -1 fills the world: world size / (sharding x sp x mp)."""
+    -1 fills the world: world size / (pp x sharding x sp x ep x mp)."""
 
     def __init__(self, dp_degree=-1, mp_degree=1, pp_degree=1, sharding_degree=1,
                  sp_degree=1, ep_degree=1):
-        for axis, d in (("pp", pp_degree), ("ep", ep_degree)):
-            if d is not None and d > 1:
-                raise NotImplementedError(
-                    f"{axis}_degree={d}: the port runs the dp, sharding, sp and mp "
-                    f"axes; {axis} needs {_NOT_PORTED[axis]}")
         self.distributed = dist.is_initialized()
         world = dist.get_world_size() if self.distributed else 1
         self.global_rank = dist.get_rank() if self.distributed else 0
-        sharding, sp, mp = (max(1, int(d or 1)) for d in (sharding_degree, sp_degree,
-                                                          mp_degree))
-        others = sharding * sp * mp
+        deg = {a: max(1, int(d or 1)) for a, d in (
+            ("pp", pp_degree), ("sharding", sharding_degree), ("sp", sp_degree),
+            ("ep", ep_degree), ("mp", mp_degree))}
+        others = math.prod(deg.values())
+        names = " x ".join(f"{a}_degree={d}"
+                           for a, d in deg.items() if d > 1 or a in ("sharding", "sp", "mp"))
         if dp_degree is None or dp_degree <= 0:
             if world % others:
-                raise ValueError(f"sharding_degree={sharding} x sp_degree={sp} x "
-                                 f"mp_degree={mp} does not divide the world of "
-                                 f"{world} ranks")
+                raise ValueError(f"{names} does not divide the world of {world} ranks")
             dp_degree = world // others
         dp_degree = int(dp_degree)
         if dp_degree * others != world:
-            raise ValueError(f"dp_degree={dp_degree} x sharding_degree={sharding} x "
-                             f"sp_degree={sp} x mp_degree={mp} must equal the world "
+            raise ValueError(f"dp_degree={dp_degree} x {names} must equal the world "
                              f"of {world} ranks")
-        self.degrees = {"pp": 1, "dp": dp_degree, "sharding": sharding,
-                        "sp": sp, "ep": 1, "mp": mp}
+        self.degrees = {"pp": deg["pp"], "dp": dp_degree, "sharding": deg["sharding"],
+                        "sp": deg["sp"], "ep": deg["ep"], "mp": deg["mp"]}
         self.nranks = world
         world_pg = dist.group.WORLD if self.distributed else None
-        # row-major coordinates of this rank in (dp, sharding, sp, mp)
-        shape = (dp_degree, sharding, sp, mp)
-        self._coord = _unravel(self.global_rank, shape)
+        # row-major coordinates of this rank in AXES_ORDER
+        shape = tuple(self.degrees[a] for a in AXES_ORDER)
+        self._coord = dict(zip(AXES_ORDER, _unravel(self.global_rank, shape)))
         self._groups = {"data": CommGroup("data", range(world), world_pg)}
-        lines = {"dp": (0,), "sharding": (1,), "sp": (2,), "mp": (3,),
-                 "replica": (0, 1, 2)}
-        for axis, dims in lines.items():
-            size = 1
-            for d in dims:
-                size *= shape[d]
+        for axis, axes in _LINES.items():
+            dims = tuple(AXES_ORDER.index(a) for a in axes)
+            size = math.prod(shape[d] for d in dims)
             if size == world:
                 self._groups[axis] = CommGroup(axis, range(world), world_pg)
             elif size == 1:
@@ -106,10 +101,14 @@ class HybridCommunicateGroup:
                     if self.global_rank in ranks:
                         mine = CommGroup(axis, ranks, pg)
                 self._groups[axis] = mine
-        self._dp_rank, self._sharding_rank, self._sp_rank, self._mp_rank = self._coord
+        c = self._coord
+        self._dp_rank, self._sharding_rank, self._sp_rank = c["dp"], c["sharding"], c["sp"]
+        self._mp_rank, self._pp_rank, self._ep_rank = c["mp"], c["pp"], c["ep"]
 
     # ---- reference accessor surface ----
     def get_parallel_mode(self):
+        if self.degrees["pp"] > 1:
+            return "pipeline"
         if self.degrees["sharding"] > 1:
             return "sharding_parallel"
         if self.degrees["mp"] > 1:
@@ -149,6 +148,24 @@ class HybridCommunicateGroup:
     def get_model_parallel_group(self):
         return self._groups["mp"]
 
+    def get_pipe_parallel_world_size(self):
+        return self.degrees["pp"]
+
+    def get_stage_id(self):
+        return self._pp_rank
+
+    def get_pipe_parallel_group(self):
+        return self._groups["pp"]
+
+    def get_expert_parallel_world_size(self):
+        return self.degrees["ep"]
+
+    def get_expert_parallel_rank(self):
+        return self._ep_rank
+
+    def get_expert_parallel_group(self):
+        return self._groups["ep"]
+
     def get_sep_parallel_world_size(self):
         return self.degrees["sp"]
 
@@ -164,9 +181,9 @@ class HybridCommunicateGroup:
     # ---- the port's additions ----
     def replica_group(self) -> CommGroup:
         """The data replicas, dp x sharding x sp: the ranks with this rank's
-        mp coordinate, which hold the same parameter shards. The group of
-        the engine's gradient reduce (the JAX engine's batch axes, with sp,
-        whose ranks each see their own positions)."""
+        pp, ep and mp coordinates, which hold the same parameter shards. The
+        group of the engine's gradient reduce (the JAX engine's batch axes,
+        with sp, whose ranks each see their own positions)."""
         return self._groups["replica"]
 
     def batch_index(self):

@@ -1,37 +1,29 @@
 """meta_parallel of the port (counterpart of
 paddle_tpu/distributed/meta_parallel/): ``DataParallel`` and the
 group-sharded wrappers, the tensor-parallel layers (``mp_layers``), the RNG
-tracker (``parallel_layers``) and ring and Ulysses attention
-(``sequence_parallel``). The pipeline and MoE layers (ROADMAP.md Queue 1
-item 11) are not ported: their names raise ``NotImplementedError`` saying
-so.
+tracker (``parallel_layers``), ring and Ulysses attention
+(``sequence_parallel``), the pipeline layers and the eager pipeline facade
+(``pp_layers``, ``pipeline_parallel``; the stacked pipeline is
+distributed/pipeline_schedule.py) and the mixture of experts on the ep
+axis (``moe``).
 """
 from . import sequence_parallel
 from .data_parallel import DataParallel, Reducer, sync_params_buffers
+from .moe import ExpertFFN, GShardGate, MoELayer, NaiveGate, SwitchGate
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
                         VocabParallelEmbedding, split)
 from .parallel_layers import (RNGStatesTracker, get_rng_state_tracker,
                               model_parallel_random_seed)
+from .pipeline_parallel import PipelineParallel, PipelineParallelWithInterleave
+from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc
 from .sharding import (GroupShardedOptimizerStage2, GroupShardedStage2,
                        GroupShardedStage3, group_sharded_parallel)
-
-_NOT_PORTED = {
-    **dict.fromkeys(("LayerDesc", "PipelineLayer", "SharedLayerDesc", "PipelineParallel",
-                     "PipelineParallelWithInterleave"),
-                    "ROADMAP.md Queue 1 item 11 (pipeline parallelism)"),
-    **dict.fromkeys(("GShardGate", "MoELayer", "NaiveGate", "SwitchGate"),
-                    "ROADMAP.md Queue 1 item 11 (expert parallelism)"),
-}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"meta_parallel.{name} is not ported: {_NOT_PORTED[name]}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
 
 __all__ = ["DataParallel", "Reducer", "sync_params_buffers", "GroupShardedOptimizerStage2",
            "GroupShardedStage2", "GroupShardedStage3", "group_sharded_parallel",
            "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
            "ParallelCrossEntropy", "split", "RNGStatesTracker", "get_rng_state_tracker",
-           "model_parallel_random_seed", "sequence_parallel"]
+           "model_parallel_random_seed", "sequence_parallel", "LayerDesc",
+           "SharedLayerDesc", "PipelineLayer", "PipelineParallel",
+           "PipelineParallelWithInterleave", "NaiveGate", "GShardGate", "SwitchGate",
+           "ExpertFFN", "MoELayer"]

@@ -158,18 +158,20 @@ def logical_shape(shape, split, size):
     return tuple(shape)
 
 
-def sharded_parameters(model):
-    """{name: (split, mp size)} of every parameter of ``model`` that an mp
-    layer splits (by the layers' ``mp_splits``; names as
+def sharded_parameters(model, axis="mp"):
+    """{name: (split, size)} of every parameter of ``model`` that a layer
+    splits over ``axis`` (by the modules' ``<axis>_splits`` and
+    ``<axis>_size``: "mp" here, "pp" for GPTForPretrainingPipe's stages,
+    "ep" for the experts of meta_parallel/moe.py; names as
     ``model.named_parameters()`` gives them)."""
     out = {}
     for mname, m in model.named_modules():
-        splits = getattr(m, "mp_splits", None)
+        splits = getattr(m, f"{axis}_splits", None)
         if not splits:
             continue
         for pn, split in splits.items():
             if getattr(m, pn, None) is not None:
-                out[f"{mname}.{pn}" if mname else pn] = (split, m.mp_size)
+                out[f"{mname}.{pn}" if mname else pn] = (split, getattr(m, f"{axis}_size"))
     return out
 
 

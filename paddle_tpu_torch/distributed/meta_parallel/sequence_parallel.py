@@ -26,7 +26,7 @@ launch raises); on CPU tensors they take the kernels' plain versions, as
 every kernel wrapper of the port does.
 
 The ring's per-rank bodies are generators that yield at each exchange of
-KV blocks; ``_drive`` runs them and does the exchange:
+KV blocks; ``drive`` runs them and does the exchange:
 ``collective.ring_exchange`` for this rank of a process group
 (``ring_attention``), or a rotation among P bodies run in this process
 (``ring_attention_virtual``: P virtual ranks on one device, which
@@ -171,7 +171,7 @@ def _ring_bwd_body(q, k, v, o, lse, do, rank, size, causal, scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _drive(bodies, exchange):
+def drive(bodies, exchange):
     """Advance the bodies in lockstep: each yield is one exchange of the
     messages (``exchange``: the bodies' messages -> what each receives).
     Returns the bodies' return values."""
@@ -191,7 +191,7 @@ def _drive(bodies, exchange):
     return out
 
 
-class _GroupRing:
+class GroupRing:
     """This rank of a process group's ring."""
 
     def __init__(self, group):
@@ -199,20 +199,21 @@ class _GroupRing:
         self.size = 1 if group is None else group.nranks
         self.ranks = [0 if group is None else group.rank]
 
-    def exchange(self, msgs):
-        return [tuple(collective.ring_exchange(list(msgs[0]), self.group))]
+    def exchange(self, msgs, reverse=False):
+        return [tuple(collective.ring_exchange(list(msgs[0]), self.group, reverse))]
 
 
 class VirtualRing:
     """``size`` ranks of a ring run in this process: rank i receives rank
-    i - 1's message."""
+    i - 1's message (``reverse``: rank i + 1's)."""
 
     def __init__(self, size):
         self.size = int(size)
         self.ranks = list(range(self.size))
 
-    def exchange(self, msgs):
-        return [msgs[(i - 1) % self.size] for i in range(self.size)]
+    def exchange(self, msgs, reverse=False):
+        step = -1 if reverse else 1
+        return [msgs[(i - step) % self.size] for i in range(self.size)]
 
 
 class _RingAttention(torch.autograd.Function):
@@ -223,7 +224,7 @@ class _RingAttention(torch.autograd.Function):
     def forward(ctx, causal, scale, ring, *qkv):
         n = len(ring.ranks)
         qs, ks, vs = qkv[:n], qkv[n:2 * n], qkv[2 * n:]
-        res = _drive([_ring_fwd_body(q, k, v, r, ring.size, causal, scale)
+        res = drive([_ring_fwd_body(q, k, v, r, ring.size, causal, scale)
                       for r, q, k, v in zip(ring.ranks, qs, ks, vs)], ring.exchange)
         outs = [o for o, _ in res]
         ctx.save_for_backward(*qkv, *outs, *(lse for _, lse in res))
@@ -237,7 +238,7 @@ class _RingAttention(torch.autograd.Function):
         saved = ctx.saved_tensors
         qs, ks, vs = saved[:n], saved[n:2 * n], saved[2 * n:3 * n]
         outs, lses = saved[3 * n:4 * n], saved[4 * n:]
-        res = _drive([_ring_bwd_body(q, k, v, o, lse, g, r, ring.size, ctx.causal, ctx.scale)
+        res = drive([_ring_bwd_body(q, k, v, o, lse, g, r, ring.size, ctx.causal, ctx.scale)
                       for r, q, k, v, o, lse, g in zip(ring.ranks, qs, ks, vs, outs, lses,
                                                        g_outs)], ring.exchange)
         return (None, None, None, *(r[0] for r in res), *(r[1] for r in res),
@@ -248,7 +249,7 @@ def ring_attention(q, k, v, group=None, causal: bool = False,
                    sm_scale: float | None = None):
     """This rank's shards [b, s/sp, h, d] of q, k, v in ``group`` (its
     rank-th block of the sequence) -> its shard of the output."""
-    return _RingAttention.apply(bool(causal), _scale(q, sm_scale), _GroupRing(group),
+    return _RingAttention.apply(bool(causal), _scale(q, sm_scale), GroupRing(group),
                                 q, k, v)[0]
 
 

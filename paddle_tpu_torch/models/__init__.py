@@ -1,8 +1,10 @@
 """Models of the port (counterpart of paddle_tpu/models/)."""
-from .convert import gather_to_jax, load_jax_state, state_from_jax
-from .gpt import (GPTAttention, GPTBlock, GPTConfig, GPTForPretraining, GPTMLP,
-                  GPTModel, gpt_1p3b, gpt_345m, gpt_tiny)
+from .convert import (gather_to_jax, gpt_state_from_pipe, load_jax_state,
+                      pipe_state_from_gpt, state_from_jax)
+from .gpt import (GPTAttention, GPTBlock, GPTConfig, GPTForPretraining,
+                  GPTForPretrainingPipe, GPTMLP, GPTModel, gpt_1p3b, gpt_345m, gpt_tiny)
 
 __all__ = ["GPTAttention", "GPTBlock", "GPTConfig", "GPTForPretraining",
+           "GPTForPretrainingPipe", "pipe_state_from_gpt", "gpt_state_from_pipe",
            "GPTMLP", "GPTModel", "gpt_1p3b", "gpt_345m", "gpt_tiny", "load_jax_state",
            "state_from_jax", "gather_to_jax"]

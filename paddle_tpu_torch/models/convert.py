@@ -23,6 +23,18 @@ fc1 by output, out_proj and fc2 by input, wte and an untied lm_head by
 vocab rows; everything else whole. ``gather_to_jax(shards)`` is the
 inverse: the ranks' port states (in mp rank order) -> the JAX model's
 numpy state, bit for bit.
+
+Pipeline parallelism: ``GPTForPretrainingPipe``'s names are the JAX Pipe's
+and so is its layout (stacked ``[S, Lp, ...]`` or ``[V, S, Lp, ...]``
+stage leaves, ``[in, out]`` matrices), so nothing is transposed; with
+``pp_size`` above one a rank takes its stage of every stacked leaf (dim 0,
+dim 1 with ``virtual_stages`` V > 1), then its mp shards (the stacked
+qkv per head along its last dim, fc1 by output, proj and fc2 by input,
+wte and the untied ``lm_head_w`` by vocab). ``gather_to_jax(shards,
+mp_size, virtual_stages)`` takes the ranks' states in (pp, mp) rank order.
+``pipe_state_from_gpt`` / ``gpt_state_from_pipe`` map between
+GPTForPretraining's state and the Pipe's (logical tensors, the port's
+layouts), so one set of weights runs through both models.
 """
 from __future__ import annotations
 
@@ -41,13 +53,42 @@ _MP_SPLITS = ((".qkv_proj.weight", (0, 3)), (".qkv_proj.bias", (0, 3)),
               (".wte.weight", (0, 1)), (".lm_head.weight", (0, 1)))
 
 
+# GPTForPretrainingPipe's stacked leaves, and their mp splits over the last
+# dims (with the untied head's)
+PIPE_STACKED = ("qkv_w", "qkv_b", "proj_w", "proj_b", "ln1_s", "ln1_b", "ln2_s", "ln2_b",
+                "fc1_w", "fc1_b", "fc2_w", "fc2_b")
+PIPE_MP_SPLITS = {"qkv_w": (-1, 3), "qkv_b": (-1, 3), "proj_w": (-2, 1),
+                  "fc1_w": (-1, 1), "fc1_b": (-1, 1), "fc2_w": (-2, 1),
+                  "lm_head_w": (-1, 1)}
+# GPTForPretraining's block parameters -> the Pipe's stacked names
+# (transposed: the [out, in] Linear weights)
+_BLOCK_OF_PIPE = {"qkv_w": ("attn.qkv_proj.weight", True), "qkv_b": ("attn.qkv_proj.bias", False),
+                  "proj_w": ("attn.out_proj.weight", True),
+                  "proj_b": ("attn.out_proj.bias", False),
+                  "ln1_s": ("ln1.weight", False), "ln1_b": ("ln1.bias", False),
+                  "ln2_s": ("ln2.weight", False), "ln2_b": ("ln2.bias", False),
+                  "fc1_w": ("mlp.fc1.weight", True), "fc1_b": ("mlp.fc1.bias", False),
+                  "fc2_w": ("mlp.fc2.weight", True), "fc2_b": ("mlp.fc2.bias", False)}
+_TOP_OF_PIPE = {"wte.weight": "gpt.wte.weight", "wpe.weight": "gpt.wpe.weight",
+                "ln_f.weight": "gpt.ln_f.weight", "ln_f.bias": "gpt.ln_f.bias"}
+
+
 def mp_split_of(name: str):
     """(dim, blocks) of parameter ``name``'s mp split in the port's layout,
     or None for a parameter every mp rank holds whole."""
+    if name in PIPE_MP_SPLITS:
+        return PIPE_MP_SPLITS[name]
     leaf = "." + name
     for suffix, split in _MP_SPLITS:
         if leaf.endswith(suffix):
             return split
+    return None
+
+
+def pp_split_of(name: str, virtual_stages: int = 1):
+    """(dim, 1) of a stacked Pipe leaf's stage dim, or None."""
+    if name in PIPE_STACKED:
+        return (1 if virtual_stages > 1 else 0, 1)
     return None
 
 
@@ -58,7 +99,8 @@ def _is_linear_weight(name: str) -> bool:
 
 
 def state_from_jax(numpy_state: Dict[str, np.ndarray], mp_rank: int = 0,
-                   mp_size: int = 1) -> Dict[str, torch.Tensor]:
+                   mp_size: int = 1, pp_rank: int = 0, pp_size: int = 1,
+                   virtual_stages: int = 1) -> Dict[str, torch.Tensor]:
     from ..distributed.meta_parallel.mp_layers import mp_slice
 
     out = {}
@@ -70,20 +112,26 @@ def state_from_jax(numpy_state: Dict[str, np.ndarray], mp_rank: int = 0,
                                  f"shape {arr.shape}")
             arr = arr.T
         t = torch.from_numpy(np.array(arr, order="C", copy=True))
-        if mp_size > 1:
-            t = mp_slice(t, mp_split_of(name), mp_rank, mp_size).contiguous()
+        t = mp_slice(t, pp_split_of(name, virtual_stages), pp_rank, pp_size)
+        t = mp_slice(t, mp_split_of(name), mp_rank, mp_size).contiguous()
         out[name] = t
     return out
 
 
-def gather_to_jax(shards: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
-    """The JAX model's numpy state from the mp ranks' port states (in mp
-    rank order; one state at mp = 1)."""
+def gather_to_jax(shards: List[Dict[str, torch.Tensor]], mp_size: int = None,
+                  virtual_stages: int = 1) -> Dict[str, np.ndarray]:
+    """The JAX model's numpy state from the ranks' port states, in (pp, mp)
+    rank order (``mp_size`` of them a stage; all of them when None; one
+    state at mp = pp = 1)."""
     from ..distributed.meta_parallel.mp_layers import mp_gather
 
+    mp_size = mp_size or len(shards)
+    stages = [shards[i:i + mp_size] for i in range(0, len(shards), mp_size)]
     out = {}
     for name in shards[0]:
-        t = mp_gather([sd[name].detach().cpu() for sd in shards], mp_split_of(name))
+        per_stage = [mp_gather([sd[name].detach().cpu() for sd in st], mp_split_of(name))
+                     for st in stages]
+        t = mp_gather(per_stage, pp_split_of(name, virtual_stages))
         arr = t.numpy()
         out[name] = np.ascontiguousarray(arr.T if _is_linear_weight(name) else arr)
     return out
@@ -97,5 +145,42 @@ def load_jax_state(model: torch.nn.Module,
 
     size = getattr(model, "mp_size", 1)
     rank = mp_info(model.mp_group)[1] if size > 1 else 0
-    model.load_state_dict(state_from_jax(numpy_state, rank, size), strict=True)
+    pp = dict(pp_rank=getattr(model, "pp_rank", 0), pp_size=getattr(model, "pp_size", 1),
+              virtual_stages=getattr(model, "num_virtual_stages", 1))
+    model.load_state_dict(state_from_jax(numpy_state, rank, size, **pp), strict=True)
     return model
+
+
+def pipe_state_from_gpt(state: Dict[str, torch.Tensor], num_stages: int,
+                        num_virtual_stages: int = 1) -> Dict[str, torch.Tensor]:
+    """GPTForPretraining's state (logical tensors, the port's layout) as
+    GPTForPretrainingPipe's logical state for ``num_stages`` x
+    ``num_virtual_stages``: block l is layer l % Lp of logical stage
+    l // Lp, stage v S + r at leaf [v, r] (V > 1) or [r]."""
+    S, V = int(num_stages), int(num_virtual_stages)
+    n_layers = 1 + max(int(k.split(".")[2]) for k in state if k.startswith("gpt.blocks."))
+    lp = n_layers // (S * V)
+    out = {pn: state[gn].clone() for pn, gn in _TOP_OF_PIPE.items()}
+    if "lm_head.weight" in state:
+        out["lm_head_w"] = state["lm_head.weight"].t().contiguous()
+    for pn, (bn, transposed) in _BLOCK_OF_PIPE.items():
+        layers = [state[f"gpt.blocks.{i}.{bn}"] for i in range(n_layers)]
+        t = torch.stack([x.t() if transposed else x for x in layers])
+        lead = (V, S, lp) if V > 1 else (S, lp)
+        out[pn] = t.reshape(lead + t.shape[1:]).contiguous()
+    return out
+
+
+def gpt_state_from_pipe(state: Dict[str, torch.Tensor],
+                        num_virtual_stages: int = 1) -> Dict[str, torch.Tensor]:
+    """The inverse of ``pipe_state_from_gpt``."""
+    n_lead = 3 if num_virtual_stages > 1 else 2
+    out = {gn: state[pn].clone() for pn, gn in _TOP_OF_PIPE.items()}
+    if "lm_head_w" in state:
+        out["lm_head.weight"] = state["lm_head_w"].t().contiguous()
+    for pn, (bn, transposed) in _BLOCK_OF_PIPE.items():
+        t = state[pn]
+        t = t.reshape((-1,) + t.shape[n_lead:])
+        for i, x in enumerate(t):
+            out[f"gpt.blocks.{i}.{bn}"] = (x.t() if transposed else x).contiguous()
+    return out

@@ -46,7 +46,7 @@ import re
 import torch
 from torch import nn
 
-from ..amp import autocast_dtype_for
+from ..amp import autocast_dtype_for, cast_inputs
 from ..device import resolve_device
 from ..distributed.fleet.utils import recompute
 from ..distributed.meta_parallel import sequence_parallel as _sp
@@ -55,11 +55,13 @@ from ..distributed.meta_parallel.mp_layers import (ColumnParallelLinear,
                                                    RowParallelLinear,
                                                    VocabParallelEmbedding, copy_to_mp,
                                                    gather_from_mp, logical_shape, mp_info,
-                                                   mp_slice, sharded_parameters)
+                                                   mp_slice, reduce_from_mp,
+                                                   sharded_parameters)
 from ..jit import _tracing
 from ..ops import nn_functional as F
 from ..ops.fused import fused_linear_cross_entropy
 from ..serving import kv_pages
+from .convert import PIPE_MP_SPLITS, PIPE_STACKED
 from ..serving.bucketing import resolve_bucket
 from ..serving.sampling import gumbel_noise, sample_tokens
 
@@ -634,3 +636,212 @@ class GPTForPretraining(nn.Module):
             seen = (torch.cumsum(is_eos.long(), dim=1) - is_eos.long()) > 0
             best_toks = torch.where(seen, eos_token_id, best_toks)
         return torch.cat([ids, best_toks], dim=1)
+
+
+class GPTForPretrainingPipe(nn.Module):
+    """Pipeline-parallel GPT (reference gpt.py:249; the reference's
+    GPTForPretrainingPipe / PipelineLayer, fleet/meta_parallel/pp_layers.py:159
+    and pipeline_parallel.py:31).
+
+    The transformer body is stacked per-stage parameters under the JAX
+    model's names and layout (``qkv_w [S, Lp, H, 3H]``, ``proj_w [S, Lp, H,
+    H]``, ..., ``[in, out]`` matrices; ``[V, S, Lp, ...]`` with
+    ``num_virtual_stages`` V > 1, leaf [v, r] logical stage v S + r), S =
+    ``num_stages`` (default the topology's pp degree) and Lp = layers / (S V).
+    When the topology's pp degree is S, each pp rank holds only its stage
+    (a stage dim of 1, ``pp_splits``) and under mp its mp shards
+    (``mp_splits``: qkv per head, its heads of q, of k and of v; fc1 by
+    output; proj and fc2 by input, followed by ``reduce_from_mp``), and the
+    body runs as distributed/pipeline_schedule.py's ``spmd_pipeline`` (or
+    ``spmd_pipeline_interleaved``) over the pp group on
+    ``num_microbatches`` micro-batches. Otherwise it holds every stage and
+    the body is one pass over the layers in logical order, on the whole
+    batch; setting ``pipeline_ring`` to a ``VirtualRing(S)`` runs the S
+    stages through the schedule in this process instead.
+
+    The embeddings, ``ln_f`` and the loss are replicated over pp (every pp
+    rank computes them from the replicated last-stage output). The loss is
+    the chunked fused LM loss when the embeddings are tied and mp <= 1, as
+    in the reference; otherwise mp-sharded logits and
+    ``ParallelCrossEntropy``. Attention is ``ops.nn_functional``'s
+    ``scaled_dot_product_attention`` (the flash kernels on the card; the
+    reference's dense masked einsum computes the same function).
+    ``use_recompute`` checkpoints each block. Weights are drawn from
+    ``seed`` as the logical tensors and sliced (N(0, 0.02) matrices and
+    embeddings, zero biases, unit norm scales), so every pp and mp degree
+    starts from the same weights; models/convert.py loads the JAX model's
+    or GPTForPretraining's. ``device`` defaults to ``cuda``.
+    ``forward(ids, labels)`` -> the scalar loss; ``forward(ids)`` -> logits."""
+
+    _STACKED = PIPE_STACKED
+    _pipeline_stacked = True  # fleet.distributed_model's pp marker
+
+    def __init__(self, config: GPTConfig, num_stages=None, num_microbatches=None,
+                 num_virtual_stages=1, device=None, seed: int = 0):
+        super().__init__()
+        from ..distributed.mesh import get_hybrid_communicate_group
+
+        dev = resolve_device(device)
+        hcg = get_hybrid_communicate_group()
+        self.config = config
+        if config.dropout or config.attention_dropout:
+            raise ValueError(
+                "GPTForPretrainingPipe does not support dropout yet (needs per-stage "
+                "RNG plumbing through the SPMD schedule); set dropout=0")
+        pp = hcg.degrees["pp"] if hcg is not None else 1
+        self.num_stages = int(num_stages or pp)
+        self.num_virtual_stages = V = int(num_virtual_stages)
+        S = self.num_stages
+        if config.num_layers % (S * V):
+            raise ValueError(f"num_layers {config.num_layers} not divisible by pp x virtual "
+                             f"= {S} x {V}")
+        if pp > 1 and pp != S:
+            raise ValueError(f"num_stages {S} differs from the topology's pp_degree {pp}")
+        self.layers_per_stage = Lp = config.num_layers // (S * V)
+        self.num_microbatches = int(num_microbatches or max(1, S))
+        self.mp_group, self.mp_rank, self.mp_size = mp_info()
+        mp = self.mp_size
+        if config.num_heads % mp:
+            raise ValueError(f"num_heads {config.num_heads} is not divisible by the "
+                             f"model-parallel degree {mp}")
+        self.pp_group = hcg.get_pipe_parallel_group() if pp > 1 else None
+        self.pp_size, self.pp_rank = (pp, hcg.get_stage_id()) if pp > 1 else (1, 0)
+        self.pipeline_ring = None
+        H, FF = config.hidden_size, config.ffn_hidden_size
+        lead = ((V,) if V > 1 else ()) + (S // self.pp_size, Lp)
+        shapes = {"qkv_w": (H, 3 * H // mp), "qkv_b": (3 * H // mp,),
+                  "proj_w": (H // mp, H), "proj_b": (H,), "ln1_s": (H,), "ln1_b": (H,),
+                  "ln2_s": (H,), "ln2_b": (H,), "fc1_w": (H, FF // mp), "fc1_b": (FF // mp,),
+                  "fc2_w": (FF // mp, H), "fc2_b": (H,)}
+        self.mp_splits = {n: sp for n, sp in PIPE_MP_SPLITS.items()
+                          if n in shapes or not config.tie_word_embeddings}
+        self.pp_splits = {n: (len(lead) - 2, 1) for n in self._STACKED}
+        with torch.device("meta"):
+            self.wte = VocabParallelEmbedding(config.vocab_size, H)
+            self.wpe = Embedding(config.max_seq_len, H)
+            self.ln_f = LayerNorm(H)
+            for n in self._STACKED:
+                self.register_parameter(n, nn.Parameter(torch.empty(lead + shapes[n])))
+            self.lm_head_w = (None if config.tie_word_embeddings else
+                              nn.Parameter(torch.empty(H, config.vocab_size // mp)))
+        self.loss_fn = ParallelCrossEntropy(ignore_index=IGNORE_INDEX)
+        self.to_empty(device="cpu")
+        self.init_weights(seed)
+        self.to(device=dev, dtype=_DTYPES[config.dtype])
+
+    @torch.no_grad()
+    def init_weights(self, seed: int = 0) -> None:
+        """Each parameter drawn as its logical tensor (every stage, every mp
+        shard) and sliced to the rank's stage and mp shard."""
+        g = torch.Generator().manual_seed(int(seed))
+        wte_split = self.wte.mp_splits["weight"]
+        for name, p in self.named_parameters():
+            if name.endswith(("_b", ".bias")):
+                p.zero_()
+            elif name.endswith(("_s", "ln_f.weight")):
+                p.fill_(1.0)
+            else:
+                mp_split = wte_split if name == "wte.weight" else self.mp_splits.get(name)
+                pp_split = self.pp_splits.get(name)
+                shape = logical_shape(logical_shape(p.shape, mp_split, self.mp_size),
+                                      pp_split, self.pp_size)
+                full = torch.empty(shape).normal_(0.0, 0.02, generator=g)
+                p.copy_(mp_slice(mp_slice(full, pp_split, self.pp_rank, self.pp_size),
+                                 mp_split, self.mp_rank, self.mp_size))
+
+    @property
+    def device(self) -> torch.device:
+        return self.wte.weight.device
+
+    def stage_params(self):
+        return {n: getattr(self, n) for n in self._STACKED}
+
+    def _body(self, lp, h):
+        """The layers of ``lp`` ({name: [n, ...]}) on h, in order."""
+        cfg = self.config
+        nh, hd = cfg.num_heads // self.mp_size, cfg.hidden_size // cfg.num_heads
+        group = self.mp_group if self.mp_size > 1 else None
+        for i in range(lp["qkv_w"].shape[0]):
+            layer = {n: t[i] for n, t in lp.items()}
+            if cfg.use_recompute and self.training:
+                h = recompute(lambda x, layer=layer: _pipe_block_fwd(x, layer, nh, hd, group),
+                              h, policy=cfg.recompute_granularity)
+            else:
+                h = _pipe_block_fwd(h, layer, nh, hd, group)
+        return h
+
+    def hidden(self, input_ids):
+        """The final hidden states (after ln_f) of ``input_ids``."""
+        from ..distributed.pipeline_schedule import (microbatch_merge, microbatch_split,
+                                                     spmd_pipeline,
+                                                     spmd_pipeline_interleaved)
+
+        s = input_ids.shape[1]
+        pos = _sp.position_offset(s) + torch.arange(s, device=input_ids.device)
+        x = self.wte(input_ids) + self.wpe(pos)
+        params = self.stage_params()
+        ring = self.pipeline_ring if self.pipeline_ring is not None else self.pp_group
+        V = self.num_virtual_stages
+        if ring is None:
+            # one pass over every stage in logical order (the leading [V, S]
+            # or [S] dims flatten chunk-major, the order they execute in)
+            n_lead = 3 if V > 1 else 2
+            h = self._body({n: p.reshape((-1,) + p.shape[n_lead:]) for n, p in params.items()},
+                           x)
+        else:
+            mb = microbatch_split(x, self.num_microbatches)
+            if V > 1:
+                out = spmd_pipeline_interleaved(self._body, params, mb, ring, V)
+            else:
+                out = spmd_pipeline(self._body, params, mb, ring)
+            h = microbatch_merge(out)
+        return self.ln_f(h)
+
+    def forward(self, input_ids, labels=None):
+        h = self.hidden(input_ids)
+        cfg = self.config
+        if labels is not None and cfg.tie_word_embeddings and self.mp_size <= 1:
+            # chunked fused LM loss (ops/fused.py), as in GPTForPretraining
+            return F.mean(fused_linear_cross_entropy(h, self.wte.weight, labels,
+                                                     transpose_y=True,
+                                                     ignore_index=IGNORE_INDEX))
+        hp = copy_to_mp(h, self.mp_group)
+        if cfg.tie_word_embeddings:
+            logits = F.matmul(hp, self.wte.weight, transpose_y=True)
+        else:
+            logits = F.matmul(hp, self.lm_head_w)
+        if labels is None:
+            return gather_from_mp(logits, self.mp_group)
+        return F.mean(self.loss_fn(logits, labels))
+
+
+def _in_out_linear(x, w, b=None):
+    """``x @ w + b`` with an ``[in, out]`` weight, under the autocast lookup
+    of ``"linear"`` (GPTBlock's products)."""
+    x, w, b = cast_inputs("linear", x, w, b)
+    return torch.nn.functional.linear(x, w.t(), b)
+
+
+def _row_linear(x, w, b, group):
+    """The row-parallel product: the ranks' partial products summed by
+    ``reduce_from_mp``, then the bias once (RowParallelLinear's order)."""
+    if group is None:
+        return _in_out_linear(x, w, b)
+    out = reduce_from_mp(_in_out_linear(x, w), group)
+    return out + cast_inputs("linear", out, b)[1]
+
+
+def _pipe_block_fwd(x, p, nh, hd, group=None):
+    """One transformer block on the stacked weights of one layer (reference
+    gpt.py:413), GPTBlock's arithmetic: this rank's ``nh`` heads; under mp
+    (``group``) the column products take ``copy_to_mp`` of their input and
+    the row products are summed over the mp ranks."""
+    b, s, H = x.shape
+    h = copy_to_mp(F.layer_norm(x, H, p["ln1_s"], p["ln1_b"]), group)
+    qkv = _in_out_linear(h, p["qkv_w"], p["qkv_b"]).view(b, s, 3, nh, hd)
+    q, k, v = qkv.unbind(dim=2)
+    o = F.scaled_dot_product_attention(q, k, v, is_causal=True).reshape(b, s, nh * hd)
+    x = x + _row_linear(o, p["proj_w"], p["proj_b"], group)
+    h2 = copy_to_mp(F.layer_norm(x, H, p["ln2_s"], p["ln2_b"]), group)
+    m = F.gelu(_in_out_linear(h2, p["fc1_w"], p["fc1_b"]), approximate=True)
+    return x + _row_linear(m, p["fc2_w"], p["fc2_b"], group)

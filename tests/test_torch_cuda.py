@@ -1942,3 +1942,72 @@ def test_ring_over_virtual_ranks_matches_flash_on_the_whole_sequence(cuda, P, dt
         assert (g.float() - w.float()).abs().max().item() <= tol, i
         frob = BF16_GRAD_FROB_TOL if dt == torch.bfloat16 else RING_F32_FROB_TOL
         assert _head_rel_frob(g, w) <= frob, i
+
+
+def _rel_frob(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("V", [1, 2])
+def test_pipeline_over_a_virtual_ring_on_card_matches_pp_one(cuda, V):
+    """GPTForPretrainingPipe's two stages (V chunks each) through the
+    schedule over a VirtualRing(2) on the card, 2 micro-batches, f32: the
+    loss (rtol 1e-5) and every parameter's gradient (1e-5 relative
+    Frobenius) of the same Pipe at pp = 1, and 2 x 4 launches of each
+    3xTF32 flash kernel."""
+    from paddle_tpu_torch.distributed.meta_parallel.sequence_parallel import VirtualRing
+    from paddle_tpu_torch.models import GPTForPretrainingPipe
+
+    cfg = GPTConfig(vocab_size=1024, hidden_size=128, num_layers=4, num_heads=4,
+                    max_seq_len=256)
+    m = GPTForPretrainingPipe(cfg, num_stages=2, num_microbatches=2, num_virtual_stages=V,
+                              device=cuda, seed=1)
+    rng = np.random.RandomState(V)
+    ids = torch.from_numpy(rng.randint(0, 1024, (4, 256))).to(cuda)
+    labels = torch.roll(ids, -1, 1)
+
+    def run(ring):
+        m.pipeline_ring = ring
+        m.zero_grad(set_to_none=True)
+        loss = m(ids, labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: p.grad.clone() for n, p in m.named_parameters()}
+
+    want_loss, want = run(None)
+    f0, bwd0 = dict(fa.launches_by_route), _bwd_routes()
+    got_loss, got = run(VirtualRing(2))
+    n = cfg.num_layers * 2
+    assert {r: fa.launches_by_route[r] - f0[r] for r in f0} == {
+        r: n if r == "tf32x3" else 0 for r in f0}
+    assert _bwd_moved(bwd0) == {r: {"dkdv": n if r == "tf32x3" else 0,
+                                    "dq": n if r == "tf32x3" else 0} for r in bwd0}
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    for name, w in want.items():
+        assert _rel_frob(got[name], w) <= 1e-5, name
+
+
+def test_moe_layer_on_card_matches_the_cpu(cuda):
+    """MoELayer (4 experts, top 2, capacity 1.25, so tokens overflow) on the
+    card against the same layer on the CPU, f32: the output and every
+    gradient of sum(y * dy) within 1e-5 relative Frobenius."""
+    from paddle_tpu_torch.distributed.meta_parallel import MoELayer
+
+    torch.manual_seed(0)
+    cpu = MoELayer(64, 128, 4, top_k=2, capacity_factor=1.25)
+    card = MoELayer(64, 128, 4, top_k=2, capacity_factor=1.25).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(3)
+    x, dy = (torch.from_numpy(rng.randn(2, 256, 64).astype(np.float32)) for _ in range(2))
+
+    def grads(layer, x, dy):
+        x = x.clone().requires_grad_()
+        y = layer(x)
+        y.backward(dy)
+        return {"y": y.detach(), "x": x.grad, **{n: p.grad for n, p in layer.named_parameters()}}
+
+    want = grads(cpu, x, dy)
+    got = grads(card, x.to(cuda), dy.to(cuda))
+    for name, w in want.items():
+        assert torch.isfinite(got[name]).all(), name
+        assert _rel_frob(got[name].cpu(), w) <= 1e-5, name

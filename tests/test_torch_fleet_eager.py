@@ -665,10 +665,16 @@ def test_the_strategys_switches_and_configs_are_jaxs():
 def test_the_names_not_ported_raise_naming_their_roadmap_items():
     from paddle_tpu_torch.distributed import meta_parallel
 
-    for name, item in (("LayerDesc", "item 11"), ("PipelineLayer", "item 11"),
-                       ("MoELayer", "item 11"), ("SwitchGate", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(meta_parallel, name)
+    # the pipeline and MoE names are ported (item 11)
+    from paddle_tpu_torch.distributed.meta_parallel import moe, pipeline_parallel, pp_layers
+
+    for name, module in (("LayerDesc", pp_layers), ("SharedLayerDesc", pp_layers),
+                         ("PipelineLayer", pp_layers), ("PipelineParallel", pipeline_parallel),
+                         ("PipelineParallelWithInterleave", pipeline_parallel),
+                         ("MoELayer", moe), ("NaiveGate", moe), ("GShardGate", moe),
+                         ("SwitchGate", moe)):
+        assert getattr(meta_parallel, name) is getattr(module, name), name
+        assert name in meta_parallel.__all__
     # the tensor-parallel names are ported (item 9)
     assert callable(meta_parallel.ColumnParallelLinear)
     assert callable(meta_parallel.get_rng_state_tracker)

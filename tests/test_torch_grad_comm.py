@@ -121,14 +121,16 @@ def test_one_process_topology_and_its_limits():
     assert not hcg.distributed and hcg.nranks == 1
     assert hcg.topology()["dp"] == 1 and hcg.get_parallel_mode() == "data_parallel"
     assert hcg.replica_group().process_group is None
-    for kw, item in (({"pp_degree": 2}, "item 11"), ({"pp_degree": 4}, "item 11"),
-                     ({"ep_degree": 2}, "item 11"), ({"ep_degree": 4}, "item 11")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-            HybridCommunicateGroup(**kw)
+    # the pp and ep axes build their groups: one rank, its own stage and experts
+    assert hcg.get_pipe_parallel_world_size() == hcg.get_expert_parallel_world_size() == 1
+    assert hcg.get_pipe_parallel_group().ranks == hcg.get_expert_parallel_group().ranks == [0]
+    assert hcg.get_stage_id() == hcg.get_expert_parallel_rank() == 0
+    assert hcg.topology() == {"pp": 1, "dp": 1, "sharding": 1, "sp": 1, "ep": 1, "mp": 1}
     with pytest.raises(ValueError, match="must equal the world"):
         HybridCommunicateGroup(dp_degree=2)
-    # mp and sp are ported: one rank cannot hold two of their ranks
-    for kw in ({"mp_degree": 2}, {"sp_degree": 2}):
+    # every axis is ported: one rank cannot hold two of an axis's ranks
+    for kw in ({"mp_degree": 2}, {"sp_degree": 2}, {"pp_degree": 2}, {"pp_degree": 4},
+               {"ep_degree": 2}, {"ep_degree": 4}):
         with pytest.raises(ValueError, match="does not divide the world of 1 ranks"):
             HybridCommunicateGroup(**kw)
 

@@ -56,7 +56,8 @@ def test_the_fsdp_and_checkpoint_modules_are_among_them():
     assert {"paddle_tpu_torch.distributed.elastic", "paddle_tpu_torch.distributed.grad_comm",
             "paddle_tpu_torch.distributed.engine", "paddle_tpu_torch.tools.ckpt_fsck"} <= mods
     helpers = [ROOT / "tests" / "torch_dp_workers.py", ROOT / "tests" / "torch_fsdp_workers.py",
-               ROOT / "tests" / "torch_obs_workers.py", ROOT / "tests" / "torch_tp_workers.py"]
+               ROOT / "tests" / "torch_obs_workers.py", ROOT / "tests" / "torch_tp_workers.py",
+               ROOT / "tests" / "torch_pp_workers.py"]
     for path in helpers:   # the rank bodies run on the card's machine, which has no jax
         assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, path.name
 
@@ -171,3 +172,16 @@ def test_the_tensor_and_sequence_parallel_modules_are_among_them():
             "paddle_tpu_torch.distributed.meta_parallel.parallel_layers",
             "paddle_tpu_torch.distributed.meta_parallel.sequence_parallel"} <= set(
                 _port_modules())
+
+
+PP_EP_MODULES = ("paddle_tpu_torch.distributed.pipeline_schedule",
+                 "paddle_tpu_torch.distributed.meta_parallel.pp_layers",
+                 "paddle_tpu_torch.distributed.meta_parallel.pipeline_parallel",
+                 "paddle_tpu_torch.distributed.meta_parallel.moe")
+
+
+def test_the_pipeline_and_expert_parallel_modules_are_among_them():
+    assert set(PP_EP_MODULES) <= set(_port_modules())
+    for mod in PP_EP_MODULES:   # the AST scan's view of each, by name
+        path = ROOT / (mod.replace(".", "/") + ".py")
+        assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, mod
