@@ -19,7 +19,9 @@ each:
    and dQ kernels (the same routes, each with the FMA pair checked and
    timed beside it), with SDPA's FA2 (flash backend) forward and backward
    pinned as the bf16 yardstick and SDPA's default dispatch as the f32 one;
-   the bf16 kernels also at gpt_1p3b's [4, 2048, 16, 128], timed.
+   the bf16 kernels also at gpt_1p3b's [4, 2048, 16, 128], timed, and at
+   ERNIE-3.0-base's [16, 512, 12, 64] non-causal (bf16 forward and pair,
+   f32 forward), timed.
 3. scoring forward of GPT-2 124M (random weights from a seed), ids [8, 1024]:
    the flash kernel (the 3xTF32 one: scoring is f32) must launch exactly
    once per layer, the logits must be
@@ -305,11 +307,47 @@ each:
    dtype's route. Printed: losses, step ms, tokens/s per card, peak bytes
    and flash forwards a step per rank, the schedule's ticks and bubble
    share; the MoE's forward + backward ms and peak bytes.
+11. vision: BASELINE config 2 (phase_vision). ResNet-50 (seed 0) at
+   [128, 3, 224, 224], 1000 classes, through TrainStepEngine(model,
+   Momentum(0.1, 0.9), loss_fn=CrossEntropyLoss()) (what
+   fleet.distributed_engine builds at one card), 3 warm-up and 10 timed
+   steps on one batch: bf16 O1 (one profiled step), f32 with cuDNN's TF32
+   off (the script's policy: f32 is f32) and f32 with it on (PyTorch's
+   default for convolutions). Hard: every loss finite, falling over the
+   warm-up steps (later steps of Momentum 0.1 on one batch of random
+   labels swing), finite running statistics. Then ResNet-18 (10 classes) at [8, 3, 64, 64], one
+   f32 engine step on the card and on the CPU from the same weights: the
+   loss (TRAIN_LOSS_RTOL), each parameter's update (VISION_GRAD_TOL) and
+   each running statistic (VISION_STATS_TOL). On two cards or more also
+   ResNet-50 at dp = cards through fleet.init -> fleet.distributed_engine
+   (batch norm's statistics over the ranks' global batch), f32,
+   MULTI_CARD_STEPS steps: the first loss within MULTI_CARD_FIRST_RTOL and
+   the later ones within VISION_MULTI_RTOL of the one-card engine's on the
+   same global batch, the same running statistics on every rank. Printed: images/s, step ms and peak memory of each run,
+   with the card's name and power limit.
+12. ernie: BASELINE config 3's model (phase_ernie). ERNIE-3.0-base (seed 0)
+   at [16, 512] with 15% MLM labels, token types and NSP labels, bf16 O1,
+   AdamW(1e-4), 2 warm-up and 5 timed steps of each: at the published
+   dropout (0.1, 0.1) with a padding mask (the dense attention path: no
+   flash launch) and at attention_dropout = 0 with no mask (12 tensor-core
+   launches a step of the flash forward and of each backward kernel,
+   non-causal). Then the eval forward in f32 with no mask (12 launches of
+   the 3xTF32 flash forward; hidden states within LOGITS_TOL of the same
+   forward through the dense path) and one f32 step of ernie_tiny at [4,
+   128] on the card (the 3xTF32 forward and pair) and on the CPU: the loss
+   and every gradient (ERNIE_VS_CPU_TOL). On two cards or more also
+   ERNIE-3.0-base (no dropout, no mask) at sharding_degree = cards (ZeRO)
+   through fleet, f32, MULTI_CARD_STEPS steps: the first loss within
+   MULTI_CARD_FIRST_RTOL and the later ones within MULTI_CARD_RTOL of the
+   one-card engine's, each rank holding 1/cards of the optimizer state. Printed: tokens/s, step ms and peak memory of each
+   step kind, with the card's name and power limit.
 10. the ``kernels`` line: every ported kernel with the path that launched
    it (the training main path's timed steps, the train_obs steps, the
    train_rules runs, the dp and dp_eager phases' runs on rank 0, the
    ckpt phase's steps, the tp_sp phase's bf16 step at mp 1 and its
    virtual rings, the pp phase's virtual rings and its pp = 1 steps, the
+   ernie phase's flash steps (rows 1-3, and 1f for its f32 eval forward;
+   the "_ernie" rows at its [16, 512, 12, 64] non-causal shape), the
    f32 steps, scoring, the bench's gpt_1p3b run for the d = 128 rows, or a
    library_ops pass; the flash backward and the
    LM-loss backward once for each dtype, the route in ``kernel_route``),
@@ -536,6 +574,8 @@ def phase_kernels_fwd():
         ("slice_f32_causal", 8, 1024, 1024, 12, 64, True, f32, True),
         ("slice_bf16_causal", 8, 1024, 1024, 12, 64, True, bf16, True),
         ("1p3b_bf16_causal", 4, 2048, 2048, 16, 128, True, bf16, True),
+        ("ernie_bf16_noncausal", 16, 512, 512, 12, 64, False, bf16, True),
+        ("ernie_f32_noncausal", 16, 512, 512, 12, 64, False, f32, True),
         ("slice_f32_noncausal", 8, 1024, 1024, 12, 64, False, f32, False),
         ("sq128_sk1024_f32_causal", 8, 128, 1024, 12, 64, True, f32, False),
         ("d32_f32_causal", 8, 1024, 1024, 24, 32, True, f32, False),
@@ -683,6 +723,7 @@ def phase_kernels_bwd():
         ("sq512_sk1024_f32_noncausal", 8, 512, 1024, 12, 64, False, f32, True),
         ("d128_bf16_causal", 8, 1024, 1024, 6, 128, True, bf16, True),
         ("1p3b_bf16_causal", 4, 2048, 2048, 16, 128, True, bf16, True),
+        ("ernie_bf16_noncausal", 16, 512, 512, 12, 64, False, bf16, True),
         ("d32_bf16_causal", 8, 1024, 1024, 24, 32, True, bf16, False),
         ("train_bf16_noncausal", 8, 1024, 1024, 12, 64, False, bf16, False),
         ("ragged200_d32_bf16_causal", 8, 200, 200, 12, 32, True, bf16, False),
@@ -4300,6 +4341,437 @@ def phase_pp(ids, one_card=True):
     return {k: dict(v) for k, v in counts.items()}
 
 
+VISION_BATCH = 128        # vision: ResNet-50's global batch, [128, 3, 224, 224]
+VISION_WARMUP, VISION_STEPS = 3, 10   # ... warm-up and timed steps of each run
+VISION_LR = 0.1           # ... Momentum(0.1, 0.9), the reference's ResNet recipe
+VISION_GRAD_TOL = 1e-3    # vision_vs_cpu: each parameter's update (lr x its
+                          # gradient) on the card against the CPU's, times the
+                          # largest entry of the CPU's (f32 sums in other orders;
+                          # TRAIN_GRAD_TOL's bar; a wrong convolution or batch norm
+                          # is off by O(1))
+VISION_STATS_TOL = 1e-4   # ... each running statistic, times its largest entry (a
+                          # forward's batch mean and variance: no backward in them)
+ERNIE_BATCH = (16, 512)   # ernie: ERNIE-3.0-base's [batch, seq]
+ERNIE_WARMUP, ERNIE_STEPS = 2, 5      # ... warm-up and timed steps of each step kind
+ERNIE_LR = 1e-4           # ... AdamW(1e-4, weight decay 0.01)
+ERNIE_VS_CPU_TOL = 1e-3   # ernie_vs_cpu: each gradient of ernie_tiny's f32 step on the
+                          # card (the 3xTF32 flash forward and pair) against the CPU's
+                          # dense path, times its largest entry (TRAIN_GRAD_TOL's bar)
+MULTI_CARD_STEPS = 3      # vision and ernie past one card: steps of each run
+MULTI_CARD_FIRST_RTOL = 1e-5  # ... the first f32 loss (a forward from the same weights:
+                          # batch norm's statistics and the valid-label mean over
+                          # the ranks, sums in other orders) against the one-card
+                          # engine's on the same global batch; per-rank statistics
+                          # or denominators move it by 1e-3 or more
+MULTI_CARD_RTOL = 1e-3    # ... each later f32 loss (ERNIE; GPT's phases hold 1e-4)
+VISION_MULTI_RTOL = 2e-2  # ... each later ResNet loss: Momentum 0.1 on one batch
+                          # amplifies the first gradient's rounding step by step
+                          # (its f32 update differs from its own f64 one by 1e-3 to
+                          # 3e-1 of an entry, tests/test_torch_vision.py): 3.5e-3 to
+                          # 4.9e-3 at step 3 on four H100s; an unreduced gradient
+                          # is off by O(1e-1)
+MULTI_CARD_TIMEOUT_S = 600
+
+
+def _image_batch(b, hw, classes, seed, device="cuda"):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, 3, hw, hw, generator=g)
+    y = torch.randint(0, classes, (b,), generator=g)
+    return x.to(device), y.to(device)
+
+
+def _vision_engine(model, engine_of=None):
+    """``model``'s engine with Momentum(VISION_LR, 0.9) and loss_fn=CrossEntropyLoss()
+    (``engine_of``: fleet.distributed_engine in a rank; TrainStepEngine by
+    default)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import TrainStepEngine
+    from paddle_tpu_torch.optimizer import Momentum
+
+    opt = Momentum(learning_rate=VISION_LR, momentum=0.9, parameters=model.named_parameters())
+    return (engine_of or TrainStepEngine)(model, opt, loss_fn=nn.CrossEntropyLoss())
+
+
+def _vision_run(what, x, y, amp, cudnn_tf32=False, profile=False):
+    """ResNet-50 (seed 0) through the engine with loss_fn, VISION_WARMUP +
+    VISION_STEPS steps on one batch; the record."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.vision.models import resnet50
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    try:
+        model = resnet50(seed=0)
+        engine = _vision_engine(model)
+        torch.cuda.reset_peak_memory_stats()
+        ctx = auto_cast(dtype="bfloat16") if amp else contextlib.nullcontext()
+        with ctx:
+            losses, step_ms = _steps(engine, x, y, VISION_WARMUP + VISION_STEPS)
+            # Momentum(0.1, 0.9) on one batch of random labels falls over the
+            # warm-up steps, then swings (7.7 -> 5.4 -> 9.5 -> 7.1 at bf16 on
+            # an H100): every loss finite, the fall held where it is not yet
+            # chaotic
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"vision {what}: non-finite loss {losses}")
+            _falls(f"vision {what}", losses[:VISION_WARMUP])
+            med = statistics.median(step_ms[VISION_WARMUP:])
+            rec = dict(phase="vision", run=what, model="resnet50", batch=list(x.shape),
+                       classes=1000, optimizer=f"Momentum({VISION_LR}, 0.9)",
+                       loss_fn="CrossEntropyLoss", amp="bfloat16 O1" if amp else None,
+                       cudnn_allow_tf32=cudnn_tf32, warmup_steps=VISION_WARMUP,
+                       timed_steps=VISION_STEPS, losses=losses,
+                       step_ms=step_ms[VISION_WARMUP:], step_ms_median=med,
+                       images_per_s=x.shape[0] / (med / 1e3),
+                       max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+            if profile:
+                wall, kernel_ms, top = device_profile(lambda: engine.step(x, y), top=8)
+                rec.update(profiled_wall_ms=wall, kernel_ms=kernel_ms,
+                           device_busy_share=kernel_ms / med, top_kernels=top)
+        buffers = {n: b.float().cpu() for n, b in model.named_buffers()}
+        if not all(bool(torch.isfinite(b).all()) for b in buffers.values()):
+            raise AssertionError(f"vision {what}: non-finite running statistics")
+        emit(**rec)
+        return rec
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _vision_vs_cpu():
+    """One f32 engine step of ResNet-18 at [8, 3, 64, 64] (10 classes) on the
+    card and on the CPU from the same weights: the loss, each parameter's
+    update and each running statistic."""
+    from paddle_tpu_torch.vision.models import resnet18
+
+    x, y = _image_batch(8, 64, 10, seed=1, device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = resnet18(num_classes=10, seed=0, device=device)
+        p0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        engine = _vision_engine(model)
+        loss = engine.step(x, y).item()
+        out[device] = (loss, {n: p.detach().cpu() - p0[n] for n, p in model.named_parameters()},
+                       {n: b.cpu() for n, b in model.named_buffers()})
+        del model, engine
+    (l_gpu, d_gpu, s_gpu), (l_cpu, d_cpu, s_cpu) = out["cuda"], out["cpu"]
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"vision_vs_cpu: card loss {l_gpu} vs CPU {l_cpu}")
+    worst = {}
+    for kind, got, want, tol in (("update", d_gpu, d_cpu, VISION_GRAD_TOL),
+                                 ("stat", s_gpu, s_cpu, VISION_STATS_TOL)):
+        for name, w in want.items():
+            scale = w.abs().max().item()
+            err = (got[name] - w).abs().max().item()
+            worst[f"{kind} {name}"] = err / scale if scale else err
+            if not err <= tol * scale:
+                raise AssertionError(f"vision_vs_cpu: {kind} of {name}: {err} "
+                                     f"(max|ref| {scale}, tol {tol})")
+    name = max(worst, key=worst.get)
+    rec = dict(phase="vision_vs_cpu", model="resnet18", batch=[8, 3, 64, 64],
+               dtype="float32", cudnn_allow_tf32=False, loss_card=l_gpu, loss_cpu=l_cpu,
+               loss_rel_err=loss_err, worst_rel_err=worst[name], worst=name,
+               update_tol=VISION_GRAD_TOL, stats_tol=VISION_STATS_TOL,
+               params=len(d_cpu), stats=len(s_cpu))
+    emit(**rec)
+    return rec
+
+
+def vision_worker(out_dir):
+    """One rank of the vision phase past one card: ResNet-50 (seed 0) through
+    fleet.init (dp_degree = world) -> fleet.distributed_engine(model,
+    Momentum, loss_fn=CrossEntropyLoss()) on the global batch [128, 3, 224,
+    224], f32, MULTI_CARD_STEPS steps. Writes ``out_dir/rank<r>.json``."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.vision.models import resnet50
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    torch.cuda.set_device(int(os.environ["FLAGS_selected_gpus"]))
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": world}
+    fleet.init(is_collective=True, strategy=strategy)
+    x, y = _image_batch(VISION_BATCH, 224, 1000, seed=0)
+    model = resnet50(seed=0)
+    engine = _vision_engine(model, engine_of=fleet.distributed_engine)
+    losses, step_ms = _steps(engine, x, y, MULTI_CARD_STEPS)
+    import hashlib
+
+    stats = hashlib.sha256(b"".join(b.float().cpu().numpy().tobytes()
+                                    for _, b in model.named_buffers())).hexdigest()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "losses": losses, "step_ms": step_ms, "stats": stats,
+                   "peak_bytes": torch.cuda.max_memory_allocated()}, f)
+
+
+def phase_vision():
+    """BASELINE config 2 on the port (phase docstring item 11)."""
+    import tempfile
+
+    from paddle_tpu_torch.bench import card_name_and_power_limit
+    from paddle_tpu_torch.distributed import spawn
+
+    t0 = time.perf_counter()
+    card = card_name_and_power_limit()
+    x, y = _image_batch(VISION_BATCH, 224, 1000, seed=0)
+    runs = [_vision_run("bf16", x, y, amp=True, profile=True),
+            _vision_run("f32", x, y, amp=False),
+            _vision_run("f32_cudnn_tf32", x, y, amp=False, cudnn_tf32=True)]
+    vs_cpu = _vision_vs_cpu()
+    world = torch.cuda.device_count()
+    if world >= 2:
+        ref = _vision_run("f32_reference_3_steps", x, y, amp=False)["losses"][
+            :MULTI_CARD_STEPS]
+        with tempfile.TemporaryDirectory() as d:
+            spawn(vision_worker, args=(d,), nprocs=world, timeout=MULTI_CARD_TIMEOUT_S)
+            ranks = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(world)]
+        losses = ranks[0]["losses"]
+        first = abs(losses[0] - ref[0]) / abs(ref[0])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        if not (first <= MULTI_CARD_FIRST_RTOL and rel <= VISION_MULTI_RTOL
+                and len({r["stats"] for r in ranks}) == 1):
+            raise AssertionError(f"vision dp{world}: losses {losses} against one card's "
+                                 f"{ref} (relative {first} at the first, {rel} at most), "
+                                 f"running statistics alike on every rank: "
+                                 f"{len({r['stats'] for r in ranks}) == 1}")
+        med = statistics.median(ranks[0]["step_ms"][1:])
+        emit(phase="vision", run=f"dp{world}_f32", world=world, losses=losses,
+             one_card_losses=ref, first_rel_err=first, rel_err=rel,
+             rtol=[MULTI_CARD_FIRST_RTOL, VISION_MULTI_RTOL],
+             step_ms=ranks[0]["step_ms"], step_ms_median=med,
+             images_per_s=VISION_BATCH / (med / 1e3),
+             peak_bytes_per_rank=[r["peak_bytes"] for r in ranks], same_stats=True)
+    for rec in runs:
+        print(f"vision: resnet50 {rec['run']} {rec['images_per_s']:.1f} images/s, "
+              f"{rec['step_ms_median']:.2f} ms a step, peak "
+              f"{rec['max_memory_allocated_bytes'] / 2**30:.2f} GiB ({card})", flush=True)
+    emit(phase="vision", what="checks", passed=True, vs_cpu_worst=vs_cpu["worst_rel_err"],
+         seconds=time.perf_counter() - t0)
+
+
+def _ernie_batch(cfg, b, s, seed, device="cuda"):
+    """ids, MLM labels (15%, -100 elsewhere), token types, a padding mask
+    (each row valid to a random length of at least s / 2) and NSP labels."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+    labels = torch.where(torch.rand(b, s, generator=g) < 0.15, ids, -100)
+    types = (torch.arange(s)[None, :] >= torch.randint(8, s - 8, (b, 1), generator=g)).long()
+    lengths = torch.randint(s // 2, s + 1, (b, 1), generator=g)
+    mask = (torch.arange(s)[None, :] < lengths).long()
+    nsp = torch.randint(0, 2, (b,), generator=g)
+    return [t.to(device) for t in (ids, labels, types, mask, nsp)]
+
+
+def _ernie_engine(model, engine_of=None):
+    from paddle_tpu_torch.distributed import TrainStepEngine
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=ERNIE_LR, parameters=model.named_parameters(),
+                weight_decay=0.01)
+    return (engine_of or TrainStepEngine)(model, opt)
+
+
+def _ernie_step_run(what, cfg, batch, steps=(ERNIE_WARMUP, ERNIE_STEPS)):
+    """ErnieForPretraining(cfg, seed 0) through the engine, bf16 O1: the
+    record and the flash launches of the timed steps."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.models import ErnieForPretraining
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = ErnieForPretraining(cfg, seed=0)
+    engine = _ernie_engine(model)
+    torch.cuda.reset_peak_memory_stats()
+    with auto_cast(dtype="bfloat16"):
+        losses, _ = _ernie_steps(engine, batch, steps[0])
+        _reset_launch_counts()
+        timed, step_ms = _ernie_steps(engine, batch, steps[1])
+        launches = _launch_counts()
+        routes = _route_counts()
+    losses += timed
+    _falls(f"ernie {what}", losses)
+    med = statistics.median(step_ms)
+    ids = batch[0]
+    rec = dict(phase="ernie", run=what, model="ernie-3.0-base", batch=list(ids.shape),
+               amp="bfloat16 O1", optimizer=f"AdamW({ERNIE_LR}, weight_decay=0.01)",
+               dropout=cfg.dropout, attention_dropout=cfg.attention_dropout,
+               padding_mask=len(batch) > 3 and batch[3] is not None,
+               warmup_steps=steps[0], timed_steps=steps[1], losses=losses,
+               step_ms=step_ms, step_ms_median=med,
+               tokens_per_s=ids.numel() / (med / 1e3),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches, flash_fwd_launches_by_route=routes[0],
+               flash_bwd_launches_by_route=routes[1])
+    emit(**rec)
+    del model, engine
+    return rec, launches, routes
+
+
+def _ernie_steps(engine, batch, n):
+    losses, step_ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(engine.step(*batch).item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms
+
+
+def _ernie_vs_cpu():
+    """One f32 step of ernie_tiny at [4, 128], no mask (the card's 3xTF32 flash
+    forward and pair; the CPU's dense path): the loss and every gradient."""
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_tiny
+
+    cfg = ernie_tiny()
+    ids, labels, types, _, nsp = _ernie_batch(cfg, 4, 128, seed=2, device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = ErnieForPretraining(cfg, seed=1, device=device)
+        engine = _ernie_engine(model)
+        _reset_launch_counts()
+        loss = engine.step(ids, labels, types, None, nsp).item()
+        out[device] = (loss, {n: p.grad.cpu() for n, p in model.named_parameters()},
+                       _route_counts())
+        del model, engine
+    (l_gpu, g_gpu, r_gpu), (l_cpu, g_cpu, _) = out["cuda"], out["cpu"]
+    _check_route_launches("ernie_vs_cpu", *r_gpu, cfg.num_layers, cfg.num_layers, "tf32x3")
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"ernie_vs_cpu: card loss {l_gpu} vs CPU {l_cpu}")
+    worst = {}
+    for name, g in g_cpu.items():
+        scale = g.abs().max().item()
+        err = (g_gpu[name] - g).abs().max().item()
+        worst[name] = err / scale if scale else err
+        if not err <= ERNIE_VS_CPU_TOL * scale:
+            raise AssertionError(f"ernie_vs_cpu: gradient of {name}: {err} (max|g| {scale})")
+    name = max(worst, key=worst.get)
+    rec = dict(phase="ernie_vs_cpu", model="ernie_tiny", batch=[4, 128], dtype="float32",
+               loss_card=l_gpu, loss_cpu=l_cpu, loss_rel_err=loss_err,
+               grad_worst_rel_err=worst[name], grad_worst_param=name,
+               grad_tol=ERNIE_VS_CPU_TOL)
+    emit(**rec)
+    return rec
+
+
+def ernie_worker(out_dir):
+    """One rank of the ernie phase past one card: ErnieForPretraining(ernie_base(
+    attention_dropout=0, dropout=0), seed 0) through fleet.init
+    (sharding_degree = world, ZeRO) -> fleet.distributed_engine on the global
+    batch [16, 512] without a mask, f32, MULTI_CARD_STEPS steps. Writes
+    ``out_dir/rank<r>.json``."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_base
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    torch.cuda.set_device(int(os.environ["FLAGS_selected_gpus"]))
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"sharding_degree": world}
+    strategy.sharding = True
+    fleet.init(is_collective=True, strategy=strategy)
+    cfg = ernie_base(dropout=0.0, attention_dropout=0.0)
+    ids, labels, types, _, nsp = _ernie_batch(cfg, *ERNIE_BATCH, seed=0)
+    model = ErnieForPretraining(cfg, seed=0)
+    engine = _ernie_engine(model, engine_of=fleet.distributed_engine)
+    losses, step_ms = _ernie_steps(engine, (ids, labels, types, None, nsp), MULTI_CARD_STEPS)
+    held = sum(t.numel() for t in engine._zero_opt) if engine._zero_opt is not None else 0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "losses": losses, "step_ms": step_ms,
+                   "opt_elems_held": held,
+                   "opt_elems_replicated": 2 * sum(p.numel() for p in model.parameters()),
+                   "peak_bytes": torch.cuda.max_memory_allocated()}, f)
+
+
+def phase_ernie():
+    """BASELINE config 3's model on the port (phase docstring item 12).
+    Returns the flash launches of its bf16 and f32 runs: {"bf16": {kernel:
+    n}, "f32": {kernel: n}}."""
+    import tempfile
+
+    from paddle_tpu_torch.bench import card_name_and_power_limit
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_base
+
+    t0 = time.perf_counter()
+    card = card_name_and_power_limit()
+    cfg = ernie_base()
+    batch = _ernie_batch(cfg, *ERNIE_BATCH, seed=0)
+    n = cfg.num_layers
+    dense, dense_launches, dense_routes = _ernie_step_run("published_dropout_masked", cfg,
+                                                         batch)
+    _check_route_launches("ernie dense step", *dense_routes, 0, 0, "mma")
+    flash_cfg = ernie_base(attention_dropout=0.0)
+    ids, labels, types, _, nsp = batch
+    flash, flash_launches, flash_routes = _ernie_step_run(
+        "attention_dropout_0_no_mask", flash_cfg, [ids, labels, types, None, nsp])
+    _check_route_launches("ernie flash step", *flash_routes, n * ERNIE_STEPS,
+                          n * ERNIE_STEPS, "mma")
+    # the eval forward, f32, no mask: the 3xTF32 flash forward, against the
+    # same forward through the dense path (a mask of ones)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = ErnieForPretraining(flash_cfg, seed=0).eval()
+    with torch.no_grad():
+        _reset_launch_counts()
+        h_flash, pooled = model.ernie(ids, types)
+        torch.cuda.synchronize()
+        eval_routes = _route_counts()
+        eval_launches = _launch_counts()
+        h_dense, _ = model.ernie(ids, types, torch.ones_like(ids))
+    _check_route_launches("ernie eval forward", *eval_routes, n, 0, "tf32x3")
+    if not (bool(torch.isfinite(h_flash).all()) and bool(torch.isfinite(pooled).all())):
+        raise AssertionError("ernie eval forward: non-finite hidden states")
+    eval_err = (h_flash - h_dense).abs().max().item()
+    if not eval_err <= LOGITS_TOL * max(1.0, h_dense.abs().max().item()):
+        raise AssertionError(f"ernie eval forward: flash vs dense hidden states {eval_err}")
+    del model, h_flash, h_dense, pooled
+    emit(phase="ernie", run="eval_f32_no_mask", batch=list(ids.shape),
+         flash_fwd_launches_by_route=eval_routes[0], flash_vs_dense_max_abs_err=eval_err,
+         tol=LOGITS_TOL)
+    vs_cpu = _ernie_vs_cpu()
+    world = torch.cuda.device_count()
+    if world >= 2:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref_model = ErnieForPretraining(ernie_base(dropout=0.0, attention_dropout=0.0), seed=0)
+        ref, _ = _ernie_steps(_ernie_engine(ref_model), (ids, labels, types, None, nsp),
+                              MULTI_CARD_STEPS)
+        del ref_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as d:
+            spawn(ernie_worker, args=(d,), nprocs=world, timeout=MULTI_CARD_TIMEOUT_S)
+            ranks = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(world)]
+        losses = ranks[0]["losses"]
+        first = abs(losses[0] - ref[0]) / abs(ref[0])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        share = max(r["opt_elems_held"] for r in ranks) / ranks[0]["opt_elems_replicated"]
+        if not (first <= MULTI_CARD_FIRST_RTOL and rel <= MULTI_CARD_RTOL
+                and share <= 1.0 / world + 0.01):
+            raise AssertionError(f"ernie sharding {world}: losses {losses} against one "
+                                 f"card's {ref} (relative {rel}); optimizer state share "
+                                 f"{share}")
+        med = statistics.median(ranks[0]["step_ms"][1:])
+        emit(phase="ernie", run=f"sharding{world}_f32", world=world, losses=losses,
+             one_card_losses=ref, first_rel_err=first, rel_err=rel,
+             rtol=[MULTI_CARD_FIRST_RTOL, MULTI_CARD_RTOL], opt_state_share=share,
+             step_ms=ranks[0]["step_ms"], step_ms_median=med,
+             tokens_per_s=ids.numel() / (med / 1e3),
+             peak_bytes_per_rank=[r["peak_bytes"] for r in ranks])
+    for rec in (dense, flash):
+        print(f"ernie: ernie-3.0-base {rec['run']} {rec['tokens_per_s']:.0f} tokens/s, "
+              f"{rec['step_ms_median']:.2f} ms a step, peak "
+              f"{rec['max_memory_allocated_bytes'] / 2**30:.2f} GiB ({card})", flush=True)
+    emit(phase="ernie", what="checks", passed=True, vs_cpu_worst=vs_cpu["grad_worst_rel_err"],
+         seconds=time.perf_counter() - t0)
+    return {"bf16": {k: flash_launches[k] + dense_launches[k] for k in flash_launches},
+            "f32": eval_launches}
+
+
 def _route_counts():
     """The flash kernels' launches by route: (forward, backward pair)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -5052,6 +5524,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     pp_launches = phase_pp(ids)
     torch.cuda.empty_cache()
+    phase_vision()
+    torch.cuda.empty_cache()
+    ernie_launches = phase_ernie()
+    torch.cuda.empty_cache()
     bench_launches = phase_bench()
 
     ln_recs = phase_layer_norm_kernels()
@@ -5071,18 +5547,18 @@ def main() -> int:
     pallas = "paddle_tpu/ops/pallas/"
     rows = [  # (name, path, record, source, replaces)
         ("flash_attention_fwd",
-         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp",
+         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp, ernie",
          fwd["slice_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_fwd_f32", "score, train_f32, dp_eager, tp_sp, pp",
+        ("flash_attention_fwd_f32", "score, train_f32, dp_eager, tp_sp, pp, ernie",
          fwd["slice_f32_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_bwd_dkdv",
-         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp",
+         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp, ernie",
          bwd["train_bf16_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
         ("flash_attention_bwd_dq",
-         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp",
+         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp, ernie",
          bwd["train_bf16_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
         ("flash_attention_bwd_dkdv_f32", "train_f32, dp_eager, tp_sp, pp",
@@ -5091,6 +5567,14 @@ def main() -> int:
         ("flash_attention_bwd_dq_f32", "train_f32, dp_eager, tp_sp, pp",
          bwd["train_f32_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
+        ("flash_attention_fwd_ernie", "ernie", fwd["ernie_bf16_noncausal"],
+         "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
+        ("flash_attention_bwd_dkdv_ernie", "ernie", bwd["ernie_bf16_noncausal"]["dkdv"],
+         "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
+        ("flash_attention_bwd_dq_ernie", "ernie", bwd["ernie_bf16_noncausal"]["dq"],
+         "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
+        ("flash_attention_fwd_f32_ernie", "ernie", fwd["ernie_f32_noncausal"],
+         "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_fwd_d128", "bench gpt_1p3b", fwd["1p3b_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_bwd_dkdv_d128", "bench gpt_1p3b", bwd["1p3b_bf16_causal"]["dkdv"],
@@ -5130,12 +5614,16 @@ def main() -> int:
     lib_f32, lib_bf16 = library_launches["f32"], library_launches["bf16"]
     counts = {**{k: launches[k] + obs_launches[k] + rules_launches[k] + dp_launches[k]
                  + ckpt_launches[k] + dp_eager_launches["bf16"][k]
-                 + tp_sp_launches["bf16"][k] + pp_launches["bf16"][k] for k in launches},
+                 + tp_sp_launches["bf16"][k] + pp_launches["bf16"][k]
+                 + ernie_launches["bf16"][k] for k in launches},
               **bench_launches,
               **{f"{k}_f32": f32_launches[k] + dp_eager_launches["f32"][k]
                  + tp_sp_launches["f32"][k] + pp_launches["f32"][k]
+                 + ernie_launches["f32"][k]
                  + (score_launches if k == "flash_attention_fwd" else 0)
                  for k in _launch_counts_keys()},
+              **{f"{k}_ernie": ernie_launches["bf16"][k] for k in _launch_counts_keys()},
+              "flash_attention_fwd_f32_ernie": ernie_launches["f32"]["flash_attention_fwd"],
               **{k: lib_f32[k] for k in ("layer_norm_fwd", "layer_norm_infer",
                                          "layer_norm_bwd")},
               **{f"{k}_bf16": lib_bf16[k] for k in ("layer_norm_fwd", "layer_norm_infer",

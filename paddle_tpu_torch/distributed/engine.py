@@ -144,6 +144,23 @@ above, unchanged. Otherwise the step is grad_comm's (distributed/grad_comm.py):
   Pipe's ``[S, Lp, ...]`` whole), so a pp run resumes at pp = 1 and in the
   JAX engine. At pp or ep above one rank what item 9 refuses at mp is
   refused naming ROADMAP.md Queue 1 item 11.
+- **loss_fn and state buffers.** With ``loss_fn`` (JAX engine.py:802-808)
+  the model eats ``batch[:n_in]`` and ``loss_fn(*outputs, *batch[n_in:])``
+  is the loss. The model's buffers (batch norm's ``_mean`` and
+  ``_variance``) live in the model, are updated in place by each
+  forward (every microbatch's, as the JAX package's eager op updates
+  them), are carried across steps, ZeRO and FSDP, come back in
+  ``state_dict()`` and go in with ``set_state_dict()``. The JAX engine's
+  ``functional_call`` drops those updates and leaves the running
+  statistics at their initial values (ROADMAP.md, "Deliberate
+  differences"). Under a replica group of more than one rank the forward
+  runs inside ``nn_functional.batch_group_scope``: the batch statistics
+  and the valid-label denominators of a mean are the global batch's, as
+  under the JAX engine's pjit of its K = 1 step, so every rank ends the
+  step with the same running statistics. With K > 1 microbatches they are
+  those of microbatch i of every rank together; the JAX engine's
+  shard_map accumulation takes them per rank. The elastic checkpoints do
+  not carry buffers yet (ROADMAP.md Queue 1 item 11).
 - **Dropout.** Over more than one rank each microbatch reseeds the model's
   dropout generator (``model.generator``) from (seed, rank, step,
   microbatch), so ranks draw different masks and a run repeats exactly.
@@ -180,6 +197,7 @@ from ..observability import metrics as _obs_metrics
 from ..observability import tracer as _obs_tracer
 from ..observability.step_telemetry import JsonlSink, StepTelemetry
 from ..optimizer import _to_host
+from ..ops import nn_functional as F
 from ..optimizer import functional as opt_funct
 from . import collective
 from . import elastic as _elastic
@@ -198,6 +216,19 @@ _M64 = (1 << 64) - 1
 _NAN_LOSS_STEPS = _monitor.stat("engine.nan_loss_steps")
 
 
+def model_input_count(n_batch_args, num_model_inputs=None):
+    """How many leading batch tensors feed the model when a loss_fn is given
+    (the rest go to loss_fn after the model's outputs): all but the last
+    (at least 1) unless ``num_model_inputs`` says (the JAX engine's rule,
+    paddle_tpu/distributed/engine.py ``model_input_count``)."""
+    if num_model_inputs is not None:
+        if not 1 <= num_model_inputs <= n_batch_args:
+            raise ValueError(f"num_model_inputs={num_model_inputs} out of range for "
+                             f"{n_batch_args} batch args")
+        return num_model_inputs
+    return max(1, n_batch_args - 1)
+
+
 def _fold_seed(*xs) -> int:
     """A 63-bit seed mixed from the integers ``xs`` (splitmix64 steps)."""
     h = 0x9E3779B97F4A7C15
@@ -211,7 +242,11 @@ def _fold_seed(*xs) -> int:
 
 class TrainStepEngine:
     """Fused train step of ``model`` (whose ``forward(*batch)`` returns the
-    scalar loss) with ``optimizer``, on the model's device.
+    scalar loss) with ``optimizer``, on the model's device. With ``loss_fn``
+    the model eats the first ``model_input_count(len(batch),
+    num_model_inputs)`` batch tensors (all but the last by default) and
+    ``loss_fn(*outputs, *rest)`` gives the loss, the JAX engine's
+    convention.
 
     Every trainable parameter of the model must be one of the optimizer's;
     its state and its weight-decay decision go by the optimizer's name for
@@ -220,10 +255,13 @@ class TrainStepEngine:
     ZeRO on; ``microbatches`` (also a mutable attribute) is K, ``zero_update``
     turns ZeRO on and ``fsdp`` FSDP (module docstring)."""
 
-    def __init__(self, model, optimizer, hcg=None, strategy=None,
-                 microbatches: int = 1, zero_update: bool = False, fsdp: bool = False):
+    def __init__(self, model, optimizer, loss_fn=None, hcg=None, strategy=None,
+                 num_model_inputs=None, microbatches: int = 1, zero_update: bool = False,
+                 fsdp: bool = False):
         self.model = model
         self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.num_model_inputs = num_model_inputs
         self.microbatches = max(1, int(microbatches))
         self.hcg = hcg if hcg is not None else get_hybrid_communicate_group()
         self.strategy = strategy
@@ -551,7 +589,7 @@ class TrainStepEngine:
         """``batch`` on the model's device, and the copies' issue wall ms
         when ``timed``."""
         t0 = time.perf_counter() if timed else None
-        batch = [self._to_device(b) for b in batch]
+        batch = [None if b is None else self._to_device(b) for b in batch]
         return batch, ((time.perf_counter() - t0) * 1e3 if timed else None)
 
     def _check_not_sharded(self):
@@ -571,6 +609,8 @@ class TrainStepEngine:
         under sp the sequence dim into sp blocks."""
         nrep = self._row_blocks()[1]
         for b in batch:
+            if b is None:
+                continue
             if b.dim() and b.shape[0] % (k * nrep):
                 raise ValueError(
                     f"batch dim {b.shape[0]} is not divisible by microbatches = {k} "
@@ -586,6 +626,9 @@ class TrainStepEngine:
         r, nrep = self._row_blocks()
         out = []
         for b in batch:
+            if b is None:
+                out.append(b)
+                continue
             if b.dim() and nrep > 1:
                 b = b.chunk(nrep)[r]
             if self._spd > 1 and b.dim() >= 2:
@@ -595,7 +638,8 @@ class TrainStepEngine:
 
     def step(self, *batch):
         """One optimizer step on ``batch`` (tensors or arrays, moved to the
-        model's device; under a group, the global batch). Returns the loss
+        model's device; under a group, the global batch; a None, such as an
+        optional input the model skips, passes through as None). Returns the loss
         (a detached 0-dim tensor; under a group, the mean over ranks)."""
         tele = self.telemetry
         fr = _obs_flight.get()
@@ -767,7 +811,7 @@ class TrainStepEngine:
             for batch in loader:
                 if not isinstance(batch, (tuple, list)):
                     batch = (batch,)
-                self._check_batch([torch.as_tensor(b) for b in batch],
+                self._check_batch([None if b is None else torch.as_tensor(b) for b in batch],
                                   self.microbatches)
                 yield batch
 
@@ -787,10 +831,12 @@ class TrainStepEngine:
         return opt.get_lr()
 
     def _forward(self, batch):
-        """The model's loss on ``batch``, under the strategy's amp when it
-        has one, and under the trace flag (jit.py): the JAX engine traces
-        the model, so host-side state such as a QATLinear's activation
-        scale stays frozen here too."""
+        """The model's loss on ``batch`` (through ``loss_fn`` when given),
+        under the strategy's amp when it has one, and under the trace flag
+        (jit.py): the JAX engine traces the model, so host-side state such
+        as a QATLinear's activation scale stays frozen here too. Under a
+        replica group, inside ``batch_group_scope``: batch norm's statistics
+        and the losses' valid-label means are the global batch's."""
         from ..jit import _tracing
 
         with contextlib.ExitStack() as stack:
@@ -803,7 +849,15 @@ class TrainStepEngine:
                 stack.enter_context(amp_guard_from_configs(self._amp_cfg,
                                                            force_bf16=True))
             stack.enter_context(_tracing())
-            return self.model(*batch)
+            if self.group is not None:
+                stack.enter_context(F.batch_group_scope(self.group))
+            if self.loss_fn is None:
+                return self.model(*batch)
+            n_in = model_input_count(len(batch), self.num_model_inputs)
+            out = self.model(*batch[:n_in])
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            loss = self.loss_fn(*outs, *batch[n_in:])
+            return loss[0] if isinstance(loss, (tuple, list)) else loss
 
     def _plain_step(self, batch, health=None):
         """Sets last_loss; returns the packed health stats on an interval
@@ -922,7 +976,7 @@ class TrainStepEngine:
         An f32 parameter's ``grad`` then becomes its view of the buffer, and
         autograd accumulates the later microbatches into it in place; a
         gradient of another dtype is added after each backward."""
-        parts = [b.chunk(k) if b.dim() else [b] * k for b in batch]
+        parts = [b.chunk(k) if b is not None and b.dim() else [b] * k for b in batch]
         buf = views = None
         attached, losses = set(), []
         for i in range(k):
@@ -1118,7 +1172,8 @@ class TrainStepEngine:
     def set_state_dict(self, state):
         """Install a ``state_dict()`` (logical tensors, from any mp, pp or ep
         degree and sharding): the rank's shards are sliced out, and ZeRO and FSDP
-        re-shard at the next step. Every rank calls it."""
+        re-shard at the next step; the model's buffers (batch norm's running
+        statistics) are copied in. Every rank calls it."""
         model_sd, opt_sd = state["model"], state.get("optimizer", {})
         by_id = {id(p): nm for nm, p in self.params.items()}
         params = {by_id[id(p)]: model_sd[key]
@@ -1132,6 +1187,10 @@ class TrainStepEngine:
                 opt[nm] = tuple(slots)
         step = int(opt_sd.get("_step_count", 0))
         self._load_state(params, opt, step, step)
+        with torch.no_grad():
+            for key, buf in self.model.named_buffers():
+                if key in model_sd:
+                    buf.copy_(torch.as_tensor(model_sd[key]))
 
     def sync_to_model(self):
         """Write the engine's parameters back into the model (reference

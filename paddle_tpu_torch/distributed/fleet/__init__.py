@@ -206,22 +206,21 @@ class Fleet:
     def distributed_engine(self, model, optimizer, loss_fn=None, auto=False,
                            sample_batch=None, **kw):
         """The data-parallel ``TrainStepEngine`` of this fleet's topology and
-        strategy; ``kw`` (``microbatches``, ``zero_update``, ``fsdp``) go to
-        it. ``optimizer`` may be ``distributed_optimizer``'s chain."""
+        strategy, with ``loss_fn`` when given (the model eats all but the
+        last batch tensor); ``kw`` (``num_model_inputs``, ``microbatches``,
+        ``zero_update``, ``fsdp``) go to it. ``optimizer`` may be ``distributed_optimizer``'s chain."""
         from ..engine import TrainStepEngine
 
         if auto:
             raise NotImplementedError("distributed_engine(auto=True): the topology "
                                       "planner is not ported (ROADMAP.md Queue 1 item 3)")
-        if loss_fn is not None:
-            raise NotImplementedError("the port's engine takes a model whose "
-                                      "forward returns the loss (loss_fn is not ported)")
         if not self._is_initialized:
             self.init()
         inner = optimizer
         while hasattr(inner, "_inner_opt") or hasattr(inner, "_optim"):
             inner = inner._inner_opt if hasattr(inner, "_inner_opt") else inner._optim
-        return TrainStepEngine(model, inner, hcg=self._hcg, strategy=self._strategy, **kw)
+        return TrainStepEngine(model, inner, loss_fn=loss_fn, hcg=self._hcg,
+                               strategy=self._strategy, **kw)
 
     # ---- checkpoints (reference fleet_base.py:824) ----
     def save_persistables(self, executor_or_model, dirname, main_program=None, mode=0):

@@ -1,4 +1,5 @@
-"""Carry weights from the JAX package's GPT into the port.
+"""Carry weights from the JAX package's GPT, ERNIE / BERT, ResNet, ResNeXt
+and LeNet into the port, and back.
 
 Input is the JAX model's state as numpy arrays::
 
@@ -9,7 +10,12 @@ Names are the same in both packages. The JAX Linear layers store their
 weight ``[in, out]`` (``F.linear`` is ``a @ w + b``); ``nn.Linear`` stores
 ``[out, in]``, so every Linear weight is transposed. Embeddings (``wte``,
 which the LM head shares, and ``wpe``) and 1-D parameters carry over as they
-are. A quantized or QAT state (incubate/quantization.py; quantize the port's
+are; so do convolution weights (``[out, in / groups, *k]`` in both
+packages), batch norm's ``_mean`` and ``_variance`` buffers and ERNIE's
+embeddings. The Linear weights of the other models are ERNIE's
+``qkv_proj``, ``out_proj``, ``fc1``, ``fc2``, ``pooler``,
+``mlm_transform``, ``nsp_head`` and an untied ``mlm_decoder``, ResNet's
+``fc`` and LeNet's ``fc.0`` to ``fc.2``. A quantized or QAT state (incubate/quantization.py; quantize the port's
 model the same way before loading) carries a QuantizedLinear's int8
 ``._w_int8`` and a QATLinear's ``.inner.weight`` transposed too, and the
 scales, biases and activation scales as they are.
@@ -38,6 +44,7 @@ layouts), so one set of weights runs through both models.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, List
 
 import numpy as np
@@ -92,10 +99,16 @@ def pp_split_of(name: str, virtual_stages: int = 1):
     return None
 
 
+# the Linear weights of ERNIE's heads, ResNet's fc and LeNet's fc.0 - fc.2
+_OTHER_LINEAR_WEIGHTS = re.compile(
+    r"(^|\.)(pooler|mlm_transform|nsp_head|mlm_decoder|fc(\.\d+)?)\.weight$")
+
+
 def _is_linear_weight(name: str) -> bool:
     leaf = "." + name
     return (name.endswith(_LINEAR_WEIGHTS) or name == "lm_head.weight"
-            or leaf.endswith(("._w_int8", ".inner.weight")))
+            or leaf.endswith(("._w_int8", ".inner.weight"))
+            or _OTHER_LINEAR_WEIGHTS.search(name) is not None)
 
 
 def state_from_jax(numpy_state: Dict[str, np.ndarray], mp_rank: int = 0,

@@ -2011,3 +2011,106 @@ def test_moe_layer_on_card_matches_the_cpu(cuda):
     for name, w in want.items():
         assert torch.isfinite(got[name]).all(), name
         assert _rel_frob(got[name].cpu(), w) <= 1e-5, name
+
+
+@pytest.mark.parametrize("case", ["conv_same_stride2", "conv_nhwc_groups", "max_pool_pads",
+                                  "avg_pool_exclusive", "batch_norm_train", "cross_entropy"])
+def test_vision_ops_on_card_match_the_cpu(cuda, case):
+    """The vision path's ops (ops/nn_functional.py: cuDNN's convolutions, the
+    pools, batch norm, cross entropy) on the card against the CPU, f32
+    with TF32 off: output and input gradient within 1e-4 x max(1,
+    max|ref|) (f32 sums in other orders)."""
+    from paddle_tpu_torch.ops import nn_functional as F
+
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(4, 8, 17, 15).astype(np.float32))
+    w = torch.from_numpy((rng.randn(6, 8, 3, 3) * 0.2).astype(np.float32))
+    wg = torch.from_numpy((rng.randn(3, 3, 4, 6) * 0.2).astype(np.float32))
+    fns = {
+        "conv_same_stride2": lambda x, dev: F.conv2d(x, w.to(dev), padding="SAME", stride=2),
+        "conv_nhwc_groups": lambda x, dev: F.conv2d(x.permute(0, 2, 3, 1), wg.to(dev),
+                                                    padding=[1, 0, 2, 1], groups=2,
+                                                    data_format="NHWC"),
+        "max_pool_pads": lambda x, dev: F.max_pool2d(x, 3, 2, padding=[0, 2, 1, 0]),
+        "avg_pool_exclusive": lambda x, dev: F.avg_pool2d(x, 4, 3, padding="SAME"),
+        "batch_norm_train": lambda x, dev: F.batch_norm(
+            x, torch.zeros(8, device=dev), torch.ones(8, device=dev), training=True),
+        "cross_entropy": lambda x, dev: F.cross_entropy(
+            x.flatten(2).mean(-1), torch.tensor([1, -100, 7, 3], device=dev)),
+    }
+    out = {}
+    for dev in ("cpu", cuda):
+        xi = x.to(dev).clone().requires_grad_()
+        y = fns[case](xi, dev)
+        y.backward(torch.ones_like(y))
+        out[str(dev)] = (y.detach().cpu(), xi.grad.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert (got - want).abs().max() <= 1e-4 * max(1.0, want.abs().max().item()), case
+
+
+def test_resnet18_engine_step_on_card_matches_the_cpu(cuda):
+    """One f64 TrainStepEngine step of ResNet-18 (loss_fn=CrossEntropyLoss(),
+    Momentum 0.1) at [8, 3, 64, 64] on the card (cuDNN's f64 convolutions)
+    against the CPU from the same weights: the loss and each running
+    statistic within 1e-6 of the CPU's largest entry, each parameter's
+    update within that plus one f32 ulp at 1 (1.2e-7: the optimizer keeps
+    its state in f32 and writes the parameters through it, so a weight
+    near 1 may round one ulp apart). In f64 because at these weights and
+    inputs the step's f32 updates differ from its own f64 ones by 1.7e-2 of
+    an entry on the CPU alone (batch norm over channels of tiny batch
+    variance; tests/test_torch_vision.py)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import TrainStepEngine
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(8, 3, 64, 64).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, (8,)).astype(np.int64))
+    res = {}
+    for dev in ("cpu", cuda):
+        m = resnet18(num_classes=10, seed=0, device=dev).double()
+        p0 = {n: p.detach().cpu().clone() for n, p in m.named_parameters()}
+        eng = TrainStepEngine(m, Momentum(0.1, parameters=m.named_parameters()),
+                              loss_fn=nn.CrossEntropyLoss())
+        loss = eng.step(x.double(), y).item()
+        res[str(dev)] = (loss, {n: p.detach().cpu() - p0[n] for n, p in m.named_parameters()},
+                         {n: b.cpu() for n, b in m.named_buffers()})
+    (lg, dg, sg), (lc, dc, sc) = res["cuda"], res["cpu"]
+    assert abs(lg - lc) <= 1e-6 * abs(lc)
+    for name, w in dc.items():
+        assert (dg[name] - w).abs().max() <= 1e-6 * w.abs().max() + 1.2e-7, name
+    for name, w in sc.items():
+        assert (sg[name] - w).abs().max() <= 1e-6 * w.abs().max(), name
+
+
+def test_ernie_noncausal_flash_on_card_matches_the_cpu(cuda):
+    """ernie_tiny's f32 MLM + NSP loss and gradients at [2, 128] with token
+    types and without a mask: on the
+    card each layer launches the 3xTF32 flash forward and backward pair,
+    non-causally; on the CPU the dense path. Loss at 1e-5, each gradient
+    at 1e-3 of its largest entry (chip_smoke.py's ernie_vs_cpu bars)."""
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_tiny
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    rng = np.random.RandomState(2)
+    ids = torch.from_numpy(rng.randint(0, 1024, (2, 128)).astype(np.int64))
+    labels = torch.where(torch.from_numpy(rng.rand(2, 128)) < 0.15, ids, -100)
+    types = torch.from_numpy((np.arange(128)[None, :] >= 50).repeat(2, 0).astype(np.int64))
+    nsp = torch.tensor([0, 1])
+    res = {}
+    for dev in ("cpu", cuda):
+        m = ErnieForPretraining(ernie_tiny(), seed=1, device=dev)
+        before = dict(fa.launches_by_route), {r: dict(c) for r, c in
+                                              fa.launches_bwd_by_route.items()}
+        loss = m(ids.to(dev), labels.to(dev), types.to(dev), None, nsp.to(dev))
+        loss.backward()
+        fwd = fa.launches_by_route["tf32x3"] - before[0]["tf32x3"]
+        bwd = fa.launches_bwd_by_route["tf32x3"]["dq"] - before[1]["tf32x3"]["dq"]
+        res[str(dev)] = (loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()},
+                         fwd, bwd)
+    (lg, gg, fg, bg), (lc, gc_, fc, bc) = res["cuda"], res["cpu"]
+    assert (fg, bg, fc, bc) == (2, 2, 0, 0)
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for name, w in gc_.items():
+        assert (gg[name] - w).abs().max() <= 1e-3 * w.abs().max(), name

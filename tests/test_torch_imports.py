@@ -185,3 +185,24 @@ def test_the_pipeline_and_expert_parallel_modules_are_among_them():
     for mod in PP_EP_MODULES:   # the AST scan's view of each, by name
         path = ROOT / (mod.replace(".", "/") + ".py")
         assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, mod
+
+
+VISION_ERNIE_MODULES = (
+    "paddle_tpu_torch.ops.activation",
+    "paddle_tpu_torch.nn.layers", "paddle_tpu_torch.nn.layers.common",
+    "paddle_tpu_torch.nn.layers.activation", "paddle_tpu_torch.nn.layers.container",
+    "paddle_tpu_torch.nn.layers.conv_pool", "paddle_tpu_torch.nn.layers.norm",
+    "paddle_tpu_torch.nn.layers.loss", "paddle_tpu_torch.vision",
+    "paddle_tpu_torch.vision.models", "paddle_tpu_torch.vision.models.resnet",
+    "paddle_tpu_torch.vision.models.lenet", "paddle_tpu_torch.models.ernie")
+
+
+def test_the_vision_and_ernie_modules_are_among_them():
+    assert set(VISION_ERNIE_MODULES) <= set(_port_modules())
+    for mod in VISION_ERNIE_MODULES:   # the AST scan's view of each, by name
+        path = ROOT / (mod.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / mod.replace(".", "/") / "__init__.py"
+        assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, mod
+    path = ROOT / "tests" / "torch_vision_workers.py"   # rank bodies: no jax
+    assert not {r for r in _imported_roots(path) if r in FORBIDDEN}
