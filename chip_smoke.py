@@ -341,6 +341,26 @@ each:
    MULTI_CARD_FIRST_RTOL and the later ones within MULTI_CARD_RTOL of the
    one-card engine's, each rank holding 1/cards of the optimizer state. Printed: tokens/s, step ms and peak memory of each
    step kind, with the card's name and power limit.
+13. mnist: BASELINE config 1 (phase_mnist): the MNIST LeNet dygraph
+   example (paddle_tpu_torch/examples/train_mnist_dygraph.py) at its size:
+   LeNet (seed 0), Adam(1e-3), CrossEntropyLoss, the synthetic MNIST of 512
+   samples in batches of 64 from a DistributedBatchSampler seeded by the
+   epoch, DataLoader(num_workers=2), 3 epochs (after one untimed epoch),
+   on the card and on the CPU with the same weights and batches: each epoch's mean loss within
+   MNIST_CPU_RTOL of the CPU's and the last below MNIST_FALL x the
+   first's. hapi's Model.fit with Accuracy() on the same batches from the
+   same weights gives the loop's losses bit for bit (cuDNN deterministic
+   for the phase), evaluate on mode="test" reads accuracy above
+   MNIST_MIN_ACC, and fit(accumulate_grad_batches=2) without metrics takes
+   the engine route with a falling loss. The trained LeNet saved and loaded
+   into a fresh one gives its logits bit for bit. Then the checkpoints'
+   buffers: ResNet-18 (10 classes) at [16, 3, 32, 32] takes 3 engine
+   steps, saves, and 2 more; a fresh engine restored from the checkpoint
+   takes the same 2: its losses, batch norm's running statistics and eval
+   logits are the uninterrupted run's bit for bit. Printed with the card's
+   name and power limit: images/s of the loop and of fit, reader_cost's
+   share of fit, the device's busy share over one epoch (torch.profiler),
+   the phase's seconds. No kernel of ops/kernels/ runs on this path.
 10. the ``kernels`` line: every ported kernel with the path that launched
    it (the training main path's timed steps, the train_obs steps, the
    train_rules runs, the dp and dp_eager phases' runs on rank 0, the
@@ -4772,6 +4792,221 @@ def phase_ernie():
             "f32": eval_launches}
 
 
+MNIST_SIZE = 512          # mnist: the example's training samples, batch 64, 3 epochs
+MNIST_EPOCHS = 3
+MNIST_WORKERS = 2         # ... the DataLoader's worker threads
+MNIST_CPU_RTOL = 1e-4     # ... each epoch's mean loss on the card against the CPU's
+MNIST_FALL = 0.7          # ... the last epoch's mean loss below this share of the first's
+                          # (tests/test_mnist_e2e.py's bar)
+MNIST_MIN_ACC = 0.2       # ... evaluate's accuracy on mode="test" (the same test's bar)
+RESUME_BATCH = (16, 3, 32, 32)   # the resume check's ResNet-18 batch, 10 classes
+RESUME_STEPS = (3, 2)     # ... steps before the save, and after it in both runs
+
+
+def _mnist_loader(device, workers=MNIST_WORKERS):
+    """The example's loader on ``device``: MNIST (train, MNIST_SIZE) in
+    batches of 64 from a DistributedBatchSampler (1 rank, shuffled, seeded
+    by the epoch), MNIST_WORKERS worker threads."""
+    from paddle_tpu_torch.examples import train_mnist_dygraph as ex
+    from paddle_tpu_torch.io import DistributedBatchSampler
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    ds = MNIST(mode="train", size=MNIST_SIZE)
+    sampler = DistributedBatchSampler(ds, ex.BATCH, num_replicas=1, rank=0, shuffle=True)
+    return ex.make_loader(ds, device, sampler, num_workers=workers)
+
+
+def _fit_callbacks(sampler):
+    """(a callback that seeds ``sampler`` by the epoch, as the example's loop
+    does (fit does not call set_epoch, in either package), and one that
+    keeps every train batch's (loss, reader_cost))."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class SetEpoch(Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            sampler.set_epoch(epoch)
+
+    class Logs(Callback):
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.rows.append((logs["loss"], logs["reader_cost"]))
+
+    return SetEpoch(), Logs()
+
+
+def _mnist_resume():
+    """ResNet-18 (10 classes, seed 0) through TrainStepEngine(Momentum(0.01),
+    loss_fn=CrossEntropyLoss()) on the card: RESUME_STEPS[0] steps, a
+    blocking save, RESUME_STEPS[1] more; a fresh engine (seed 1) restores
+    and takes the same steps. Its losses, buffers and eval logits must be
+    the uninterrupted run's bit for bit."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import TrainStepEngine
+    from paddle_tpu_torch.distributed.elastic import CheckpointManager
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    x, y = _image_batch(RESUME_BATCH[0], RESUME_BATCH[2], 10, seed=3)
+
+    def engine(seed):
+        m = resnet18(num_classes=10, seed=seed)
+        return TrainStepEngine(m, Momentum(0.01, parameters=m.named_parameters()),
+                               loss_fn=nn.CrossEntropyLoss())
+
+    def outcome(eng):
+        losses = [eng.step(x, y).item() for _ in range(RESUME_STEPS[1])]
+        eng.model.eval()
+        with torch.no_grad():
+            logits = eng.model(x)
+        eng.model.train()
+        return losses, {n: t.clone() for n, t in eng.model.named_buffers()}, logits
+
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, async_save=False)
+        eng = engine(0)
+        for _ in range(RESUME_STEPS[0]):
+            eng.step(x, y)
+        mgr.save(eng, block=True)
+        want = outcome(eng)
+        fresh = engine(1)
+        mgr.restore(fresh)
+        got = outcome(fresh)
+        mgr.close()
+    same_bufs = got[1].keys() == want[1].keys() and all(
+        torch.equal(got[1][n], t) for n, t in want[1].items())
+    if not (got[0] == want[0] and same_bufs and torch.equal(got[2], want[2])):
+        raise AssertionError(f"mnist resume: resumed losses {got[0]} vs {want[0]}, buffers "
+                             f"equal {same_bufs}, eval logits equal "
+                             f"{torch.equal(got[2], want[2])}")
+    if not any(n.endswith("._mean") and bool(t.abs().max() > 0) for n, t in want[1].items()):
+        raise AssertionError("mnist resume: no running mean moved from its start")
+    return dict(losses=want[0], buffers=len(want[1]), batch=list(RESUME_BATCH),
+                steps=list(RESUME_STEPS), bit_equal=True)
+
+
+def phase_mnist():
+    """BASELINE config 1 on the port (phase docstring item 13)."""
+    from paddle_tpu_torch import load, nn, save
+    from paddle_tpu_torch.bench import card_name_and_power_limit
+    from paddle_tpu_torch.examples import train_mnist_dygraph as ex
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    t0 = time.perf_counter()
+    card = card_name_and_power_limit()
+    images = MNIST_SIZE * MNIST_EPOCHS
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # cuDNN's backward the same bits each run
+    try:
+        # one untimed epoch first: CUDA's and cuDNN's set-up stay out of the
+        # timed loop
+        ex.train(LeNet(seed=0), _mnist_loader("cuda"), 1)
+        # 1. the example's loop on the card and on the CPU: the same weights
+        #    and batches
+        runs = {}
+        for device in ("cuda", "cpu"):
+            model = LeNet(seed=0, device=device)
+            loader = _mnist_loader(device)
+            batch_losses = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            means = ex.train(model, loader, MNIST_EPOCHS, batch_losses)
+            torch.cuda.synchronize()
+            runs[device] = dict(model=model, means=means, batch_losses=batch_losses,
+                                s=time.perf_counter() - t)
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(gpu["means"], cpu["means"]))
+        if not rel <= MNIST_CPU_RTOL:
+            raise AssertionError(f"mnist loop: card epochs {gpu['means']} vs CPU "
+                                 f"{cpu['means']} (relative {rel})")
+        if not gpu["means"][-1] < MNIST_FALL * gpu["means"][0]:
+            raise AssertionError(f"mnist loop: the loss did not fall to {MNIST_FALL}x: "
+                                 f"{gpu['means']}")
+        loop_ips = images / gpu["s"]
+        emit(phase="mnist", run="loop", model="lenet", size=MNIST_SIZE, batch=ex.BATCH,
+             epochs=MNIST_EPOCHS, num_workers=MNIST_WORKERS, epoch_losses=gpu["means"],
+             cpu_epoch_losses=cpu["means"], rel_err=rel, rtol=MNIST_CPU_RTOL,
+             seconds=gpu["s"], cpu_seconds=cpu["s"], images_per_s=loop_ips, card=card)
+
+        # 2. Model.fit with Accuracy() on the same batches from the same
+        #    weights: the loop's losses, bit for bit
+        model = LeNet(seed=0)
+        loader = _mnist_loader("cuda")
+        fit = Model(model).prepare(Adam(learning_rate=ex.LR, parameters=model.named_parameters()),
+                                   nn.CrossEntropyLoss(), Accuracy())
+        set_epoch, logs = _fit_callbacks(loader.batch_sampler)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fit.fit(loader, epochs=MNIST_EPOCHS, verbose=0, callbacks=[set_epoch, logs])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        fit_losses = [r[0] for r in logs.rows]
+        if fit_losses != gpu["batch_losses"]:
+            worst = max(abs(a - b) / abs(b) for a, b in zip(fit_losses, gpu["batch_losses"]))
+            raise AssertionError(f"mnist fit: {len(fit_losses)} losses against the loop's "
+                                 f"{len(gpu['batch_losses'])}, relative {worst} at most")
+        ev = fit.evaluate(MNIST(mode="test", size=MNIST_SIZE), batch_size=ex.BATCH, verbose=0)
+        if not ev["acc"] > MNIST_MIN_ACC:
+            raise AssertionError(f"mnist evaluate: accuracy {ev['acc']}")
+        reader_s = sum(r[1] for r in logs.rows)
+        emit(phase="mnist", run="fit", metrics=["acc"], losses_equal_loop=True,
+             eval_loss=ev["loss"], eval_acc=ev["acc"], seconds=fit_s,
+             images_per_s=images / fit_s, reader_cost_s=reader_s,
+             reader_cost_share=reader_s / fit_s, card=card)
+
+        # fit(accumulate_grad_batches=2) without metrics: the engine route
+        model = LeNet(seed=0)
+        loader = _mnist_loader("cuda")
+        acc = Model(model).prepare(Adam(learning_rate=ex.LR, parameters=model.named_parameters()),
+                                   nn.CrossEntropyLoss())
+        set_epoch, logs = _fit_callbacks(loader.batch_sampler)
+        acc.fit(loader, epochs=MNIST_EPOCHS, verbose=0, accumulate_grad_batches=2,
+                callbacks=[set_epoch, logs])
+        if acc._engine is None:
+            raise AssertionError("mnist fit(accumulate_grad_batches=2) took the eager route")
+        acc_losses = [r[0] for r in logs.rows]
+        per_epoch = len(acc_losses) // MNIST_EPOCHS
+        _falls("mnist fit accumulate 2", [float(np.mean(acc_losses[:per_epoch])),
+                                         float(np.mean(acc_losses[-per_epoch:]))])
+        emit(phase="mnist", run="fit_accumulate_2", route="engine", losses=acc_losses)
+
+        # 3. save / load: the reloaded LeNet's logits bit-equal to the trained one's
+        test = MNIST(mode="test", size=MNIST_SIZE)
+        batch = torch.from_numpy(np.stack([test[i][0] for i in range(ex.BATCH)])).cuda()
+        trained = gpu["model"].eval()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "lenet.pdparams")
+            save(trained.state_dict(), path)
+            reloaded = LeNet(seed=1)
+            reloaded.load_state_dict(load(path))
+        with torch.no_grad():
+            if not torch.equal(reloaded.eval()(batch), trained(batch)):
+                raise AssertionError("mnist save/load: the reloaded logits differ")
+        emit(phase="mnist", run="save_load", logits_bit_equal=True)
+
+        # the device's busy share over one epoch of the loop
+        model, loader = LeNet(seed=0), _mnist_loader("cuda")
+        wall, kernel_ms, top = device_profile(lambda: ex.train(model, loader, 1), top=5)
+        emit(phase="mnist", run="profile", epoch_wall_ms=wall, kernel_ms=kernel_ms,
+             device_busy_share=kernel_ms / wall, top_kernels=top, card=card)
+
+        # 4. the repaired resume: a ResNet-18's buffers survive a checkpoint
+        emit(phase="mnist", run="resume", model="resnet18", **_mnist_resume())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    seconds = time.perf_counter() - t0
+    print(f"mnist: lenet loop {loop_ips:.0f} images/s, fit {images / fit_s:.0f} images/s, "
+          f"reader_cost {reader_s / fit_s:.4f} of fit, device busy {kernel_ms / wall:.4f} "
+          f"of an epoch, {seconds:.1f} s ({card})", flush=True)
+    emit(phase="mnist", what="checks", passed=True, seconds=seconds, card=card)
+
+
 def _route_counts():
     """The flash kernels' launches by route: (forward, backward pair)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -5525,6 +5760,8 @@ def main() -> int:
     pp_launches = phase_pp(ids)
     torch.cuda.empty_cache()
     phase_vision()
+    torch.cuda.empty_cache()
+    phase_mnist()
     torch.cuda.empty_cache()
     ernie_launches = phase_ernie()
     torch.cuda.empty_cache()

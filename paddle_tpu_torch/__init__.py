@@ -7,7 +7,8 @@ module paths (``models/gpt.py``, ``serving/engine.py``,
 ``observability/flops.py``, ``core/flags.py``, ``core/monitor.py``,
 ``distributed/{env,collective,spawn,mesh,grad_comm}.py``,
 ``distributed/launch/``, ``distributed/fleet/``,
-``distributed/meta_parallel/`` and ``framework/io.py``) and replaces each Pallas TPU kernel with a CUDA
+``distributed/meta_parallel/``, ``framework/io.py``, ``io/``, ``reader.py``,
+``vision/``, ``metric/``, ``hapi/`` and ``callbacks.py``) and replaces each Pallas TPU kernel with a CUDA
 kernel written for Hopper (``ops/kernels/``); ``bench.py`` is the
 counterpart of the repository's bench.py (``python -m
 paddle_tpu_torch.bench``) and ``tools/`` holds the port's command-line
@@ -22,14 +23,23 @@ from .device import resolve_device
 from .framework.io import load, save
 
 
+#: loaded at first use, so ``import paddle_tpu_torch`` stays light:
+#: name -> (module, attribute or None for the module itself)
+_LAZY = {"DataParallel": (".distributed.meta_parallel", "DataParallel"),
+         "Model": (".hapi.model", "Model"), "summary": (".hapi.summary", "summary"),
+         "flops": (".hapi.dynamic_flops", "flops"), "batch": (".reader", "batch"),
+         **{m: ("." + m, None) for m in ("io", "reader", "metric", "callbacks", "hapi",
+                                         "vision")}}
+
+
 def __getattr__(name):
-    # DataParallel loads the distributed package, which ``import
-    # paddle_tpu_torch`` does not need
-    if name == "DataParallel":
-        from .distributed.meta_parallel import DataParallel
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
 
-        return DataParallel
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module, attr = _LAZY[name]
+    mod = importlib.import_module(module, __name__)
+    return mod if attr is None else getattr(mod, attr)
 
 
-__all__ = ["resolve_device", "set_flags", "get_flags", "save", "load", "DataParallel"]
+__all__ = ["resolve_device", "set_flags", "get_flags", "save", "load", *_LAZY]

@@ -5,16 +5,28 @@ rollback on a non-finite loss.
 **The format is the JAX package's.** A checkpoint is a directory
 ``ckpt_<step>`` of ``.npy`` payloads and a ``manifest.json`` that lists them
 with their sha256 and checksums itself. Parameters are per-name ``params``
-sections and the optimizer state per-name ``opt`` sections (``name.slot``),
-all in the JAX package's layout: every ``nn.Linear`` weight, found by module
-type, and each of its optimizer slots is stored ``[in, out]``, transposed
-on write and on read (models/convert.py's rule). The port writes ``opt``
+sections, the optimizer state per-name ``opt`` sections (``name.slot``) and
+the model's persistent buffers (batch norm's ``_mean`` and ``_variance``)
+per-name ``buffers`` sections, all in the JAX package's layout: every
+Linear weight, found by module type (``torch.nn.Linear`` and the port's
+``nn.Linear``), and each of its optimizer slots is stored ``[in, out]``,
+transposed on write and on read (models/convert.py's rule), and the
+manifest's ``linear_layout: "in_out"`` marks that the port's ``nn.Linear``
+weights are among them. The port wrote those ``[out, in]`` before it wrote
+``buffers``: a checkpoint without the mark holds them ``[out, in]`` when it
+has a ``torch_generator`` field (only the port writes one), else as the
+shapes of its non-square port Linear weights say; one where they are all
+square is refused (``stored_linears``). The port writes ``opt``
 sections under ZeRO and FSDP too (gathered), as the reference's FSDP capture
 does, and reads a JAX ZeRO checkpoint's flat ``zero_opt`` section (split at
 the sorted-name offsets in the JAX shapes). The manifest's ``key`` is a
 threefry key's data, uint32 ``[2]``: the port writes its dropout seed s as
 ``[s >> 32, s & 0xffffffff]``, which ``jax.random.key(s)`` has, and reads a
-JAX key back into its seed. It also writes its dropout generator's state
+JAX key back into its seed. The JAX package reads ``params`` and ``opt``
+and passes over ``buffers`` (its engine keeps no running statistics); a
+checkpoint without ``buffers`` (the JAX package's, or the port's before
+it wrote them) restores with the model's buffers left as they are and a
+warning that counts them. It also writes its dropout generator's state
 (``torch_generator``), which the JAX package ignores: a run resumed in the
 port draws the masks the uninterrupted run draws.
 
@@ -86,6 +98,8 @@ FORMAT_VERSION = 1
 CKPT_PREFIX = "ckpt_"
 TMP_PREFIX = ".tmp."
 MANIFEST = "manifest.json"
+# the manifest's mark of the port's Linear layout (module docstring)
+LINEAR_LAYOUT = "in_out"
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -122,11 +136,45 @@ def _fsync_dir(dirname: str) -> None:
 
 
 # ---------------------------------------------------------------- layout
-def linear_weights(engine) -> set:
-    """The engine's names of every ``nn.Linear`` weight of its model (by
-    module type): the tensors the JAX package stores transposed."""
-    ids = {id(m.weight) for m in engine.model.modules() if isinstance(m, torch.nn.Linear)}
+def linear_weights(engine, port_linear=True) -> set:
+    """The engine's names of the Linear weights of its model, by module type:
+    ``torch.nn.Linear``'s and, with ``port_linear``, the port's ``nn.Linear``'s
+    (which store ``[out, in]`` too): the tensors the JAX package stores
+    transposed."""
+    from ..nn.layers.common import Linear
+
+    types = (torch.nn.Linear, Linear) if port_linear else torch.nn.Linear
+    ids = {id(m.weight) for m in engine.model.modules() if isinstance(m, types)}
     return {nm for nm, p in engine.params.items() if id(p) in ids}
+
+
+def stored_linears(engine, path, manifest) -> set:
+    """The names of the Linear weights that the checkpoint at ``path`` stores
+    ``[in, out]`` (module docstring): ``torch.nn.Linear``'s always; the
+    port's ``nn.Linear``'s under the ``linear_layout`` mark, not in a
+    checkpoint with ``torch_generator`` and without the mark (the port's
+    older layout), and otherwise where the saved shapes of the non-square
+    ones say so. Raises ValueError when nothing tells."""
+    every = linear_weights(engine)
+    torch_only = linear_weights(engine, port_linear=False)
+    port = every - torch_only
+    if not port or manifest.get("linear_layout") == LINEAR_LAYOUT:
+        return every
+    if "torch_generator" in manifest:
+        return torch_only
+    transposed = set()
+    for nm in port:
+        shape = tuple(engine._full_shapes[nm])
+        saved = manifest["params"].get(nm)
+        if saved is not None and shape[0] != shape[1]:
+            transposed.add(tuple(saved["shape"]) == shape[::-1])
+    if len(transposed) != 1:
+        raise ValueError(
+            f"{path}: cannot tell whether its nn.Linear weights are stored [in, out] "
+            "(the JAX package's layout) or [out, in] (the port's before it marked "
+            "linear_layout): " + ("every one is square" if not transposed
+                                  else "their shapes disagree"))
+    return every if transposed.pop() else torch_only
 
 
 def _jax_shape(shape, linear):
@@ -154,19 +202,21 @@ def _seed_words(seed: int):
 class Snapshot:
     """A host-owned copy of one training state (numpy only), safe to hand to
     the writer thread: params {name: {"shape", "dtype", "pieces": [(ranges,
-    array)]}}, opt the same keyed ``name.slot``, in the JAX layout."""
+    array)]}}, opt the same keyed ``name.slot``, in the JAX layout; buffers
+    the same keyed by the model's buffer names, in their own dtype."""
 
     __slots__ = ("step", "opt_step", "key_words", "key_shape", "params", "opt",
-                 "generator", "capture_ms")
+                 "buffers", "generator", "capture_ms")
 
-    def __init__(self, step, opt_step, key_words, key_shape, params, opt, generator,
-                 capture_ms):
+    def __init__(self, step, opt_step, key_words, key_shape, params, opt, buffers,
+                 generator, capture_ms):
         self.step = step
         self.opt_step = opt_step
         self.key_words = key_words
         self.key_shape = key_shape
         self.params = params
         self.opt = opt
+        self.buffers = buffers
         self.generator = generator  # {"device", "state" (hex)} or None
         self.capture_ms = capture_ms
 
@@ -177,13 +227,21 @@ def _entry(arr):
             "pieces": [([[0, d] for d in arr.shape], arr)]}
 
 
+def model_buffers(model) -> dict:
+    """{name: buffer} of the model's persistent buffers (those its
+    ``state_dict()`` carries), in state-dict order."""
+    ids = {id(b) for _, b in model.named_buffers()}
+    return {k: v for k, v in model.state_dict(keep_vars=True).items() if id(v) in ids}
+
+
 def capture_snapshot(engine) -> Optional[Snapshot]:
     """The step thread's half of a save: the engine's full state copied to
     host memory in the JAX layout. Under ZeRO or FSDP it gathers the shards,
     a collective every rank must call, one bucket (FSDP) or one optimizer
     slot (ZeRO) at a time, each freed before the next: a save holds one
-    such gathered buffer beyond the step's state. Ranks other than 0 get
-    None."""
+    such gathered buffer beyond the step's state. The model's buffers are
+    replicated (every rank's forward updates them alike), so rank 0's copy
+    is taken. Ranks other than 0 get None."""
     t0 = time.perf_counter()
     rank0 = _world_rank(engine) == 0
     lin = linear_weights(engine)
@@ -197,14 +255,15 @@ def capture_snapshot(engine) -> Optional[Snapshot]:
     engine._visit_opt(lambda nm, j, t: keep(snap_opt, f"{nm}.{j}", nm, t))
     if not rank0:
         return None
+    snap_buffers = {k: _entry(_to_host(b, False)) for k, b in model_buffers(engine.model).items()}
     gen = getattr(engine.model, "generator", None)
     gen_state = None if gen is None else {
         "device": gen.device.type, "state": gen.get_state().numpy().tobytes().hex()}
     return Snapshot(step=int(engine._step_count),
                     opt_step=int(engine.optimizer._step_count),
                     key_words=_seed_words(engine._seed), key_shape=[2],
-                    params=snap_params, opt=snap_opt, generator=gen_state,
-                    capture_ms=(time.perf_counter() - t0) * 1e3)
+                    params=snap_params, opt=snap_opt, buffers=snap_buffers,
+                    generator=gen_state, capture_ms=(time.perf_counter() - t0) * 1e3)
 
 
 # ---------------------------------------------------------------- commit
@@ -266,7 +325,8 @@ def write_checkpoint(snap: Snapshot, dirname: str,
                 "key": {"words": snap.key_words, "shape": snap.key_shape},
                 "params": section("params", snap.params),
                 "opt": None if snap.opt is None else section("opt", snap.opt),
-                "zero_opt": None}
+                "buffers": section("buffers", snap.buffers),
+                "linear_layout": LINEAR_LAYOUT, "zero_opt": None}
     if snap.generator is not None:
         manifest["torch_generator"] = snap.generator
     manifest["manifest_checksum"] = manifest_digest(manifest)
@@ -300,7 +360,8 @@ def verify_checkpoint(path: str) -> dict:
     if manifest_digest(manifest) != manifest.get("manifest_checksum"):
         raise CheckpointCorrupt(f"{path}: manifest checksum mismatch")
     for kind, entries in (("params", manifest.get("params") or {}),
-                          ("opt", manifest.get("opt") or {})):
+                          ("opt", manifest.get("opt") or {}),
+                          ("buffers", manifest.get("buffers") or {})):
         for key, ent in entries.items():
             for sh in ent["shards"]:
                 _verify_payload(path, kind, key, sh)
@@ -324,10 +385,10 @@ def _verify_payload(path, kind, key, sh):
 
 
 # ---------------------------------------------------------------- restore
-def _merge_entry(path, ent):
+def _merge_entry(path, ent, dtype=np.float32):
     """The saved pieces of one entry (each with its [start, stop) range a
-    dim) merged into one f32 host array."""
-    out = np.zeros(tuple(ent["shape"]), np.float32)
+    dim) merged into one host array of ``dtype``."""
+    out = np.zeros(tuple(ent["shape"]), dtype)
     for sh in ent["shards"]:
         piece = np.load(os.path.join(path, sh["file"]))
         out[tuple(slice(a, b) for a, b in sh["ranges"])] = piece
@@ -379,14 +440,37 @@ def _restore_opt(engine, path, manifest, lin):
     return out
 
 
+def _restore_buffers(engine, path, manifest):
+    """The ``buffers`` section into the model's buffers, each in its own
+    dtype and device; without the section they stay as they are, with a
+    warning that counts them."""
+    bufs = model_buffers(engine.model)
+    saved = manifest.get("buffers")
+    if saved is None:
+        if bufs:
+            warnings.warn(f"{path} has no buffers section: {len(bufs)} buffers of the "
+                          "model keep their current values")
+        return
+    with torch.no_grad():
+        for key, buf in bufs.items():
+            if key not in saved:
+                raise KeyError(f"checkpoint missing buffer {key}")
+            ent = saved[key]
+            if tuple(ent["shape"]) != tuple(buf.shape):
+                raise ValueError(f"{key}: checkpoint shape {tuple(ent['shape'])} != the "
+                                 f"model's {tuple(buf.shape)}")
+            buf.copy_(torch.from_numpy(_merge_entry(path, ent, np.dtype(ent["dtype"]))))
+
+
 def restore_checkpoint(engine, path: str, manifest: Optional[dict] = None) -> int:
     """Load one checkpoint (verified here unless ``manifest`` is given) into
     the engine, whatever its rank count or sharding: the full parameters go
-    into the model and the optimizer state into the optimizer, and a ZeRO
+    into the model, its buffers into the model's buffers and the optimizer
+    state into the optimizer, and a ZeRO
     or FSDP engine shards them again at its next step. Returns the step."""
     if manifest is None:
         manifest = verify_checkpoint(path)
-    lin = linear_weights(engine)
+    lin = stored_linears(engine, path, manifest)
     params = {}
     for nm in engine.params:
         if nm not in manifest["params"]:
@@ -395,6 +479,7 @@ def restore_checkpoint(engine, path: str, manifest: Optional[dict] = None) -> in
     opt = _restore_opt(engine, path, manifest, lin)
     engine._load_state(params, opt, int(manifest["step"]),
                        int(manifest.get("opt_step", manifest["step"])))
+    _restore_buffers(engine, path, manifest)
     key = manifest.get("key")
     if key and key.get("words"):
         w = [int(x) & 0xFFFFFFFF for x in key["words"]]

@@ -159,8 +159,8 @@ above, unchanged. Otherwise the step is grad_comm's (distributed/grad_comm.py):
   under the JAX engine's pjit of its K = 1 step, so every rank ends the
   step with the same running statistics. With K > 1 microbatches they are
   those of microbatch i of every rank together; the JAX engine's
-  shard_map accumulation takes them per rank. The elastic checkpoints do
-  not carry buffers yet (ROADMAP.md Queue 1 item 11).
+  shard_map accumulation takes them per rank. The elastic checkpoints
+  carry them too (distributed/elastic.py's ``buffers`` sections).
 - **Dropout.** Over more than one rank each microbatch reseeds the model's
   dropout generator (``model.generator``) from (seed, rank, step,
   microbatch), so ranks draw different masks and a run repeats exactly.

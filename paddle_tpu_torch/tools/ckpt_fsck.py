@@ -27,7 +27,7 @@ def fsck_one(path, quiet=False):
     row = {"path": path}
     try:
         manifest = elastic.verify_checkpoint(path)
-        n_files = sum(len(e["shards"]) for kind in ("params", "opt")
+        n_files = sum(len(e["shards"]) for kind in ("params", "opt", "buffers")
                       for e in (manifest.get(kind) or {}).values())
         zero = manifest.get("zero_opt")
         if zero is not None:

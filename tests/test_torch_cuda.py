@@ -2114,3 +2114,118 @@ def test_ernie_noncausal_flash_on_card_matches_the_cpu(cuda):
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for name, w in gc_.items():
         assert (gg[name] - w).abs().max() <= 1e-3 * w.abs().max(), name
+
+
+def test_loader_pins_in_its_workers_and_moves_batches_to_the_card(cuda):
+    """DataLoader(device=cuda, num_workers=2): the workers collate into pinned
+    host tensors, the iterator hands out card tensors with the CPU loader's
+    values, and close() ends the worker threads."""
+    import threading
+
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    ds = MNIST(size=256)
+    batches = [[3, 1, 4, 1, 5], [9, 2, 6], [255, 0]]
+    card = DataLoader(ds, batch_sampler=batches, num_workers=2, device=cuda, timeout=60)
+    host = card._collate()([ds[i] for i in batches[0]])
+    assert all(t.is_pinned() for t in host)
+    it = iter(card)
+    got = [[t for t in b] for b in it]
+    it.close()
+    want = list(DataLoader(ds, batch_sampler=batches, device="cpu"))
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.is_cuda and torch.equal(a.cpu(), b)
+    assert not [t for t in threading.enumerate() if t.name.startswith("paddle_tpu_torch-io")]
+
+
+def test_model_fit_on_card_gives_the_example_loops_losses(cuda):
+    """LeNet (seed 0) on the card, cuDNN deterministic: hapi's Model.fit with
+    Accuracy() over the example's batches gives the example loop's losses
+    bit for bit; fit(accumulate_grad_batches=2) without metrics takes the
+    engine route."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.examples import train_mnist_dygraph as ex
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    batches = [list(range(i, i + 64)) for i in range(0, 256, 64)]
+    ds = MNIST(size=256)
+
+    class Losses(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = []
+        ex.train(LeNet(seed=0, device=cuda), ex.make_loader(ds, cuda, batches), 2, want)
+        m = LeNet(seed=0, device=cuda)
+        model = Model(m).prepare(Adam(learning_rate=ex.LR, parameters=m.named_parameters()),
+                                 nn.CrossEntropyLoss(), Accuracy())
+        rec = Losses()
+        model.fit(ex.make_loader(ds, cuda, batches), epochs=2, verbose=0, callbacks=[rec])
+        assert rec.losses == want and model._engine is None
+        m = LeNet(seed=0, device=cuda)
+        model = Model(m).prepare(Adam(learning_rate=ex.LR, parameters=m.named_parameters()),
+                                 nn.CrossEntropyLoss())
+        model.fit(ex.make_loader(ds, cuda, batches), epochs=2, verbose=0,
+                  accumulate_grad_batches=2)
+        assert model._engine is not None
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def test_a_resumed_resnet18_on_card_has_the_uninterrupted_buffers(cuda, tmp_path):
+    """ResNet-18 on the card (cuDNN deterministic): 3 engine steps, a
+    checkpoint, 2 more; a fresh engine restored from it takes the same 2
+    with the same losses, buffers and eval logits, bit for bit."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import TrainStepEngine
+    from paddle_tpu_torch.distributed.elastic import CheckpointManager, restore_latest
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(16, 3, 32, 32).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.randint(0, 10, (16,)).astype(np.int64)).to(cuda)
+
+    def engine(seed):
+        m = resnet18(num_classes=10, seed=seed, device=cuda)
+        return TrainStepEngine(m, Momentum(0.01, parameters=m.named_parameters()),
+                               loss_fn=nn.CrossEntropyLoss())
+
+    def outcome(eng):
+        losses = [eng.step(x, y).item() for _ in range(2)]
+        eng.model.eval()
+        with torch.no_grad():
+            logits = eng.model(x)
+        return losses, {n: b.clone() for n, b in eng.model.named_buffers()}, logits
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eng = engine(0)
+        for _ in range(3):
+            eng.step(x, y)
+        CheckpointManager(str(tmp_path), async_save=False).save(eng, block=True)
+        want = outcome(eng)
+        fresh = engine(1)
+        assert restore_latest(fresh, str(tmp_path)) == 3
+        got = outcome(fresh)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert got[0] == want[0]
+    for n, b in want[1].items():
+        assert torch.equal(got[1][n], b), n
+    assert torch.equal(got[2], want[2])

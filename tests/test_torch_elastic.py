@@ -31,11 +31,12 @@ import torch
 import paddle_tpu as paddle
 import paddle_tpu_torch as P
 import torch_dp_workers as W
+import torch_elastic_workers as EW
 from paddle_tpu.distributed import elastic as jelastic
 from paddle_tpu.distributed.engine import TrainStepEngine as JaxEngine
 from paddle_tpu.distributed.mesh import HybridCommunicateGroup
 from paddle_tpu_torch.core import monitor
-from paddle_tpu_torch.distributed import TrainStepEngine, elastic
+from paddle_tpu_torch.distributed import TrainStepEngine, elastic, spawn
 from paddle_tpu_torch.distributed.elastic import (CheckpointCorrupt, CheckpointManager,
                                                   restore_latest, verify_checkpoint)
 from paddle_tpu_torch.models import state_from_jax
@@ -631,3 +632,222 @@ def test_the_sequential_of_linears_crosses_both_ways(tmp_path):
     jelastic.restore_latest(je2, str(tmp_path / "p"))
     np.testing.assert_allclose([float(je2.step(jx, jy).item()) for _ in range(2)], cont,
                                rtol=1e-5)
+
+
+# ------------------------------------------------------ the model's buffers
+#
+# A ResNet-18's batch norm updates its running statistics (buffers) on every
+# engine step; a checkpoint carries them in its ``buffers`` sections. The
+# resumed run's buffers and eval logits must equal the uninterrupted run's
+# bit for bit (the same steps on the same batch: the CPU's arithmetic is
+# deterministic under torch.use_deterministic_algorithms).
+
+def _bufs_and_logits_equal(a, b, what):
+    assert a["losses"] == b["losses"], what
+    assert a["buffers"].keys() == b["buffers"].keys()
+    assert any(n.endswith("._mean") for n in a["buffers"])
+    for n in a["buffers"]:
+        assert torch.equal(a["buffers"][n], b["buffers"][n]), f"{what}: {n}"
+    assert torch.equal(a["logits"], b["logits"]), f"{what}: eval logits"
+
+
+def test_a_resumed_resnet18_has_the_uninterrupted_buffers_and_eval_logits(tmp_path):
+    torch.set_num_threads(1)
+    x, y = EW.resnet_batch()
+    eng = EW.resnet_engine(0)
+    [eng.step(x, y) for _ in range(EW.SAVED_STEPS)]
+    CheckpointManager(str(tmp_path), async_save=False).save(eng, block=True)
+    manifest = verify_checkpoint(elastic.list_checkpoints(str(tmp_path))[0][1])
+    want_keys = set(elastic.model_buffers(eng.model))
+    assert set(manifest["buffers"]) == want_keys and len(want_keys) == 40
+    assert manifest["linear_layout"] == "in_out"
+    assert manifest["params"]["fc.weight"]["shape"] == [512, 10]
+    uninterrupted = EW.outcome(eng, x, y, EW.RESUMED_STEPS)
+
+    fresh = EW.resnet_engine(1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")   # a checkpoint with buffers restores silently
+        assert restore_latest(fresh, str(tmp_path)) == EW.SAVED_STEPS
+    _bufs_and_logits_equal(EW.outcome(fresh, x, y, EW.RESUMED_STEPS), uninterrupted, "dp1")
+    assert ckpt_fsck.main([str(tmp_path), "--quiet"]) == 0
+
+
+def test_a_resumed_resnet18_over_two_gloo_ranks_has_the_uninterrupted_buffers(tmp_path):
+    spawn(EW.resnet_resume, args=(str(tmp_path), str(tmp_path / "ckpt")), nprocs=2,
+          timeout=240)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    for mode in ("replicated", "zero"):
+        for r, res in enumerate(ranks):
+            assert res[mode]["step"] == EW.SAVED_STEPS
+            _bufs_and_logits_equal(res[mode]["resumed"], res[mode]["uninterrupted"],
+                                   f"{mode} rank {r}")
+        for n, b in ranks[0][mode]["resumed"]["buffers"].items():   # replicated
+            assert torch.equal(b, ranks[1][mode]["resumed"]["buffers"][n]), n
+
+
+def _save_in_the_older_layout(eng, dirname, monkeypatch):
+    """Save ``eng`` as the port wrote checkpoints before its buffers sections:
+    its own nn.Linear weights and their slots stored ``[out, in]`` (only
+    torch.nn.Linear's transposed), no ``buffers`` section and no
+    ``linear_layout`` mark, the manifest checksummed again. Returns the path."""
+    newer = elastic.linear_weights
+    with monkeypatch.context() as m:
+        m.setattr(elastic, "linear_weights",
+                  lambda e, port_linear=True: newer(e, port_linear=False))
+        CheckpointManager(dirname, async_save=False).save(eng, block=True)
+    path = elastic.list_checkpoints(dirname)[-1][1]
+    mpath = os.path.join(path, elastic.MANIFEST)
+    with open(mpath) as f:
+        manifest = json.load(f)
+    assert manifest.pop("linear_layout") == "in_out"
+    for ent in manifest.pop("buffers").values():
+        for sh in ent["shards"]:
+            os.remove(os.path.join(path, sh["file"]))
+    manifest["manifest_checksum"] = elastic.manifest_digest(manifest)
+    with open(mpath, "w") as f:
+        json.dump(manifest, f, sort_keys=True)
+    return path
+
+
+def _assert_same_state(got, want):
+    for n, p in got.model.named_parameters():
+        assert torch.equal(p, dict(want.model.named_parameters())[n]), n
+    assert got.optimizer._states.keys() == want.optimizer._states.keys()
+    for n, slots in got.optimizer._states.items():
+        for a, b in zip(slots, want.optimizer._states[n]):
+            assert torch.equal(a, b), n
+
+
+def test_a_checkpoint_without_buffers_restores_and_warns(tmp_path, monkeypatch):
+    """A ResNet-18 checkpoint in the port's older layout (fc.weight stored
+    [10, 512]) restores: its parameters and optimizer state exactly, its
+    buffers left as the fresh model holds them, with a warning."""
+    x, y = EW.resnet_batch()
+    eng = EW.resnet_engine(0)
+    [eng.step(x, y) for _ in range(2)]
+    path = _save_in_the_older_layout(eng, str(tmp_path), monkeypatch)
+    with open(os.path.join(path, elastic.MANIFEST)) as f:
+        assert json.load(f)["params"]["fc.weight"]["shape"] == [10, 512]
+    fresh = EW.resnet_engine(1)
+    before = {n: b.clone() for n, b in fresh.model.named_buffers()}
+    with pytest.warns(UserWarning, match="no buffers section: 40 buffers"):
+        assert restore_latest(fresh, str(tmp_path)) == 2
+    for n, b in fresh.model.named_buffers():
+        assert torch.equal(b, before[n]), n
+    _assert_same_state(fresh, eng)
+
+
+def _square_engine(seed, generator):
+    """Two square port nn.Linears (the case the saved shapes cannot tell
+    apart), with a dropout generator on the model or without one."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer as popt
+
+    torch.manual_seed(seed)
+    pm = pnn.Sequential(pnn.Linear(6, 6, device="cpu"), pnn.ReLU(),
+                        pnn.Linear(6, 6, device="cpu"))
+    if generator:
+        pm.generator = torch.Generator().manual_seed(seed)
+    return TrainStepEngine(pm, popt.Momentum(learning_rate=0.1,
+                                             parameters=pm.named_parameters()),
+                           loss_fn=pnn.CrossEntropyLoss())
+
+
+@pytest.mark.parametrize("generator", [True, False], ids=["generator", "no_generator"])
+def test_an_older_checkpoint_of_square_linears_restores_or_is_refused(
+        tmp_path, monkeypatch, generator):
+    """Without the linear_layout mark, a torch_generator field says the port
+    wrote the checkpoint ([out, in], restored as it is); with neither, square
+    weights cannot say which package wrote them, and the restore refuses
+    rather than guess."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(8, 6).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 6, (8,)).astype(np.int64))
+    eng = _square_engine(0, generator)
+    _losses(eng, x, y, 2)
+    _save_in_the_older_layout(eng, str(tmp_path), monkeypatch)
+    fresh = _square_engine(1, generator)
+    if generator:
+        assert restore_latest(fresh, str(tmp_path)) == 2
+        _assert_same_state(fresh, eng)
+    else:
+        with pytest.raises(ValueError, match="every one is square"):
+            restore_latest(fresh, str(tmp_path))
+
+
+def _bn_net(pkg, device=None):
+    """Conv (no bias) -> BatchNorm -> ReLU -> pool -> Linear, in either
+    package (tests/test_torch_vision.py's)."""
+    kw = {} if device is None else {"device": device}
+    nn = pkg
+    return nn.Sequential(nn.Conv2D(3, 8, 3, padding=1, bias_attr=False, **kw),
+                         nn.BatchNorm2D(8, **kw), nn.ReLU(), nn.AdaptiveAvgPool2D(2),
+                         nn.Flatten(), nn.Linear(32, 5, **kw))
+
+
+def _bn_batch():
+    rng = np.random.RandomState(4)
+    return (rng.randn(8, 3, 6, 6).astype(np.float32),
+            rng.randint(0, 5, (8,)).astype(np.int64))
+
+
+def _jax_bn_engine():
+    from torch_numpy_init import numpy_init
+
+    with numpy_init(2):
+        jm = _bn_net(paddle.nn)
+    return JaxEngine(jm, paddle.optimizer.Momentum(learning_rate=0.1,
+                                                   parameters=jm.parameters()),
+                     loss_fn=paddle.nn.CrossEntropyLoss(),
+                     hcg=HybridCommunicateGroup(dp_degree=1, devices=jax.devices()[:1]))
+
+
+def _port_bn_engine(seed):
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer as popt
+
+    torch.manual_seed(seed)
+    pm = _bn_net(pnn, device="cpu")
+    return TrainStepEngine(pm, popt.Momentum(learning_rate=0.1,
+                                             parameters=pm.named_parameters()),
+                           loss_fn=pnn.CrossEntropyLoss())
+
+
+def test_a_port_checkpoint_with_buffers_resumes_in_the_jax_package(tmp_path):
+    """The JAX reader passes over the buffers section (its engine keeps no
+    running statistics) and verifies the manifest: 2 port steps, save, 2
+    more, against the JAX engine restored there (losses rtol 1e-5; train
+    mode normalizes by the batch's statistics)."""
+    x, y = _bn_batch()
+    pe = _port_bn_engine(0)
+    _losses(pe, torch.from_numpy(x), torch.from_numpy(y), 2)
+    CheckpointManager(str(tmp_path), async_save=False).save(pe, block=True)
+    saved_mean = dict(pe.model.named_buffers())["1._mean"].numpy().copy()
+    want = _losses(pe, torch.from_numpy(x), torch.from_numpy(y), 2)
+    path = elastic.list_checkpoints(str(tmp_path))[0][1]
+    manifest = jelastic.verify_checkpoint(path)   # the reference's verifier
+    assert set(manifest["buffers"]) == {"1._mean", "1._variance"}
+    np.testing.assert_array_equal(np.load(os.path.join(
+        path, manifest["buffers"]["1._mean"]["shards"][0]["file"])), saved_mean)
+    je = _jax_bn_engine()
+    assert jelastic.restore_latest(je, str(tmp_path)) == 2
+    got = [float(je.step(paddle.to_tensor(x), paddle.to_tensor(y)).item()) for _ in range(2)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_a_jax_checkpoint_restores_in_the_port_with_its_buffers_left(tmp_path):
+    """A JAX checkpoint has no buffers section: the port restores its
+    parameters, leaves the model's buffers as they are and says how many."""
+    x, y = _bn_batch()
+    je = _jax_bn_engine()
+    [je.step(paddle.to_tensor(x), paddle.to_tensor(y)) for _ in range(2)]
+    jelastic.CheckpointManager(str(tmp_path), async_save=False).save(je, block=True)
+    want = [float(je.step(paddle.to_tensor(x), paddle.to_tensor(y)).item()) for _ in range(2)]
+    pe = _port_bn_engine(5)
+    before = {n: b.clone() for n, b in pe.model.named_buffers()}
+    with pytest.warns(UserWarning, match="no buffers section: 2 buffers"):
+        assert restore_latest(pe, str(tmp_path)) == 2
+    for n, b in pe.model.named_buffers():
+        assert torch.equal(b, before[n]), n
+    np.testing.assert_allclose(_losses(pe, torch.from_numpy(x), torch.from_numpy(y), 2),
+                               want, rtol=1e-5)

@@ -102,6 +102,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     model = GPTForPretraining(gpt_tiny(), device="cpu")
     assert model.device == torch.device("cpu")
+    # hapi.Model follows its network's tensors; a network that holds none
+    # runs on the card, and so refuses here rather than running on the CPU
+    from paddle_tpu_torch.hapi import Model
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(torch.nn.ReLU()).predict_batch([torch.ones(2)])
+    assert Model(torch.nn.Linear(2, 2)).device == torch.device("cpu")
 
 
 def test_every_kernel_source_has_a_stable_build_key():
@@ -206,3 +213,43 @@ def test_the_vision_and_ernie_modules_are_among_them():
         assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, mod
     path = ROOT / "tests" / "torch_vision_workers.py"   # rank bodies: no jax
     assert not {r for r in _imported_roots(path) if r in FORBIDDEN}
+
+
+DATA_HAPI_MODULES = (
+    "paddle_tpu_torch.io", "paddle_tpu_torch.reader", "paddle_tpu_torch.vision.datasets",
+    "paddle_tpu_torch.vision.transforms", "paddle_tpu_torch.metric",
+    "paddle_tpu_torch.hapi", "paddle_tpu_torch.hapi.callbacks", "paddle_tpu_torch.hapi.model",
+    "paddle_tpu_torch.hapi.summary", "paddle_tpu_torch.hapi.dynamic_flops",
+    "paddle_tpu_torch.callbacks", "paddle_tpu_torch.examples",
+    "paddle_tpu_torch.examples.train_mnist_dygraph")
+
+
+def test_the_data_and_hapi_modules_are_among_them():
+    assert set(DATA_HAPI_MODULES) <= set(_port_modules())
+    for mod in DATA_HAPI_MODULES:   # the AST scan's view of each, by name
+        path = ROOT / (mod.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / mod.replace(".", "/") / "__init__.py"
+        assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, mod
+    path = ROOT / "tests" / "torch_elastic_workers.py"   # rank bodies: no jax
+    assert not {r for r in _imported_roots(path) if r in FORBIDDEN}
+
+
+def test_the_top_level_names_load_lazily():
+    """``import paddle_tpu_torch`` loads none of the data and hapi modules;
+    their top-level names load them at first use."""
+    code = ("import sys, paddle_tpu_torch as P\n"
+            "lazy = ('paddle_tpu_torch.io', 'paddle_tpu_torch.hapi', 'paddle_tpu_torch.metric',"
+            " 'paddle_tpu_torch.reader', 'paddle_tpu_torch.distributed')\n"
+            "assert not [m for m in lazy if m in sys.modules], sorted(sys.modules)\n"
+            "from paddle_tpu_torch.hapi import Model, flops, summary\n"
+            "from paddle_tpu_torch.reader import batch\n"
+            "assert (P.Model, P.summary, P.flops, P.batch) == (Model, summary, flops, batch)\n"
+            "assert P.io.DataLoader and P.metric.Accuracy and P.callbacks.EarlyStopping\n"
+            "assert P.hapi.Model is Model and P.vision.datasets.MNIST\n"
+            "print('OK')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "OK" in res.stdout, res.stdout + res.stderr
