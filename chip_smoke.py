@@ -161,11 +161,12 @@ each:
    prefetch at depth 2 over 4 host batches gives step()'s losses bit for
    bit, with 8 pinned side-stream copies and depths 2, 2, 2, 1 in the
    records; train.step_ms and ckpt.save_ms have counts; every step
-   launches each flash kernel 12 times on the tensor cores. Printed: the
-   step ms (median and mean of 20, in turns) with everything off, with
-   telemetry, with health at interval 1 and at interval 10, the telemetry's
-   MFU beside the bench's for the same step, the h2d issue ms, and one
-   traced step off and at health interval 1 (kernel ms, top kernels).
+   launches each flash kernel 12 times on the tensor cores (50 steps in
+   the phase). Printed: the step ms (median and mean of 6, in two turns)
+   with everything off, with telemetry, with health at interval 1 and at
+   interval 10, the telemetry's MFU beside the bench's for the same step,
+   the h2d issue ms, and one traced step off and at health interval 1
+   (kernel ms, top kernels).
 7. train_vs_cpu: one f32 step at full width and 2 layers, ids [1, 1024], on
    the card (the 3xTF32 forward and backward pair) and on the CPU (plain
    path): loss and every gradient. Then the same step with each of the six
@@ -189,12 +190,13 @@ each:
    and FSDP's allocated bytes after the steps past one rank; step ms,
    tokens/s per chip, peaks and bytes held after the steps, payload
    bytes, the f32 payload's all_reduce time and bus bandwidth.
-7d. dp_eager: the eager data-parallel entry points (phase_dp_eager) at one
-   rank a card, in processes of the port's spawn with a deadline of their
-   own: GPT-2 124M on each rank's rows of the global ids [8, 1024], 1 + 3
-   steps a run of fleet.init -> fleet.distributed_model (DataParallel past
-   one rank) -> fleet.distributed_optimizer (the meta chain in
-   HybridParallelOptimizer) -> loss.backward(); opt.step(); opt.clear_grad():
+7d. dp_eager: the eager data-parallel entry points (_dp_eager_checks) at
+   one rank a card, in the dp phase's processes (ranks_worker runs a rank
+   of dp, then of dp_eager; one deadline for both): GPT-2 124M on each
+   rank's rows of the global ids [8, 1024], 1 + 3 steps a run of
+   fleet.init -> fleet.distributed_model (DataParallel past one rank) ->
+   fleet.distributed_optimizer (the meta chain in HybridParallelOptimizer)
+   -> loss.backward(); opt.step(); opt.clear_grad():
    f32, bf16 through strategy.amp, strategy.lamb, gradient merge (k 2, avg),
    dgc (sparsity 0.999), fp16_allreduce, group_sharded_parallel os_g without
    and with offload; the engine's step (f32, bf16 through strategy.amp, 2
@@ -266,11 +268,12 @@ each:
    exactly P (P + 1) / 2 launches of the forward and of each backward
    kernel on the dtype's route (10 at P = 4) and none on another; the
    ring's and the whole kernel's forward + backward ms. Then, in a spawned
-   rank, GPT-2 124M's bf16 step (ids [8, 1024], AdamW 1e-4) built on the mp
-   layers through fleet.init -> fleet.distributed_engine at mp_degree = 1
-   equals phase_train's engine from the same weights bit for bit over 3
-   steps, losses and every parameter, with 12 tensor-core launches of each
-   flash kernel a step. On two cards or more also, one rank a card through
+   rank (which goes on to run phase 7f's one-card rank), GPT-2 124M's bf16
+   step (ids [8, 1024], AdamW 1e-4) built on the mp layers through
+   fleet.init -> fleet.distributed_engine at mp_degree = 1 equals
+   phase_train's engine from the same weights bit for bit over 3 steps,
+   losses and every parameter, with 12 tensor-core launches of each flash
+   kernel a step. On two cards or more also, one rank a card through
    fleet.init -> fleet.distributed_engine, GPT-2 124M on the global ids
    [8, 1024], 3 steps at f32 and 3 at bf16 a run: at four cards dp 2 x mp
    2, mp 4, dp 2 x sp 2 ring, sp 4 Ulysses and mp 2 x sp 2 ring (at two,
@@ -290,7 +293,7 @@ each:
    f32 and bf16: the loss and every parameter's gradient against the same
    Pipe at pp = 1 in relative Frobenius norm (PP_RING_F32_FROB_TOL /
    PP_RING_BF16_FROB_TOL), and exactly 12 S launches of each flash kernel
-   on the dtype's route; then, in a spawned rank, the Pipe through
+   on the dtype's route; then, in phase 7e's spawned rank, the Pipe through
    fleet.init -> fleet.distributed_model -> fleet.distributed_engine at
    pp_degree = 1, 3 f32 and 3 bf16 steps (AdamW 1e-4): f32 losses within
    TP_SP_F32_RTOL of phase_train's model's f32 engine on the same batch and
@@ -361,6 +364,31 @@ each:
    name and power limit: images/s of the loop and of fit, reader_cost's
    share of fit, the device's busy share over one epoch (torch.profiler),
    the phase's seconds. No kernel of ops/kernels/ runs on this path.
+14. rec: BASELINE config 5 (phase_rec): Wide&Deep through
+   paddle_tpu_torch/tools/northstar_bench.py's widedeep leg at full width
+   (vocab 1,000,000, 26 sparse fields, 13 dense features, embedding dim 8,
+   the tower (128, 64, 32), batch 512, Adam(1e-3) on the tower; both tables,
+   wide dim 1 and deep dim 8, on a live PSServer in host RAM with
+   server-side SGD at lr 0.05; 2 untimed and 30 timed steps; ids, features
+   and labels from RandomState(0)), then the same leg on the CPU for
+   REC_CHECK_STEPS steps on a fresh server: each of those steps' losses
+   within REC_CPU_RTOL and the rows of REC_SAMPLE pulled ids in both tables
+   after them within REC_ROWS_ATOL; the CPU run's pushes must have moved
+   those rows (each row's largest entry, against a fresh server's pull of
+   the same ids) by at least REC_ROWS_MIN_MOVE and past REC_ROWS_ATOL for a
+   share REC_ROWS_MOVED_SHARE of them, so that a push the card missed
+   shows. DeepFM with trainer-side tables ([1e6,
+   8] and [1e6, 1] on the card) at the same widths, DEEPFM_STEPS steps,
+   losses within DEEPFM_CPU_RTOL of the CPU's. Then the launcher's PS mode
+   (python -m paddle_tpu_torch.distributed.launch --run_mode ps --server_num
+   2 --trainer_num 2) over the port's Wide&Deep example, both trainers on
+   this card: exit 0, finite losses of both trainers, and each server's
+   saved tables hold exactly the ids of the batches with id % 2 equal to
+   its index. Printed with the card's name and power limit: Wide&Deep
+   examples/s over the 30 timed steps, the step's shares in pull_sparse and
+   push_sparse, the device's busy share over REC_PROFILE_STEPS steps,
+   DeepFM examples/s, the pod's wall seconds and the phase's. No kernel of
+   ops/kernels/ runs on this path.
 10. the ``kernels`` line: every ported kernel with the path that launched
    it (the training main path's timed steps, the train_obs steps, the
    train_rules runs, the dp and dp_eager phases' runs on rank 0, the
@@ -374,6 +402,9 @@ each:
    its launches there and its numbers from the kernel_vs_plain phases at
    that path's shape and dtype.
 
+Before the ``kernels`` line, a ``seconds`` line: each phase's wall seconds
+and the script's (model builds included).
+
 Any failure raises (exit code 1). Without a CUDA card, or without the
 package beside it, the script exits non-zero before printing a result. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -386,7 +417,9 @@ import gc
 import json
 import math
 import os
+import signal
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -2191,7 +2224,7 @@ def phase_train_vs_cpu():
 # count per rule, each f32 and of its parameter's shape
 OBS_HEALTH_RTOL = 1e-4   # train_obs: the health record's norms against a plain recomputation
 OBS_POISON = "gpt.blocks.5.mlp.fc1.bias"   # ... the parameter whose gradient is made inf
-OBS_TIMED_STEPS = 5      # ... steps of each observability setting a turn (four turns)
+OBS_TIMED_STEPS = 3      # ... steps of each observability setting a turn (two turns)
 
 
 def _clone_state(engine):
@@ -2381,7 +2414,7 @@ def phase_train_obs(ids):
         b.disable_telemetry()
         b.disable_health()
         n_steps += 2
-        for s in (settings + settings[::-1]) * 2:
+        for s in settings + settings[::-1]:
             if s == "telemetry":
                 b.enable_telemetry()
             elif s != "off":
@@ -2842,18 +2875,18 @@ def _payload_bounds(g_local, world, buckets=None):
 
     n = g_local.numel()
     a = g_local.abs()
-    # flat index -> its place on the chunk grid (the padded buckets' under FSDP)
-    place = torch.arange(n)
     if buckets is not None:
+        # flat index -> its place on the padded buckets' chunk grid
+        place = torch.arange(n)
         pad_off = 0
         for b in buckets:
             place[b["off"]:b["off"] + b["n"]] += pad_off - b["off"]
             pad_off += b["pad"]
-        grid = pad_off
-    else:
-        grid = -(-n // DP_GRAD_CHUNK) * DP_GRAD_CHUNK
-    padded = torch.zeros(grid)
-    padded[place] = a
+        padded = torch.zeros(pad_off)
+        padded[place] = a
+    else:   # the flat vector's own grid: no index vectors of n entries
+        padded = torch.zeros(-(-n // DP_GRAD_CHUNK) * DP_GRAD_CHUNK)
+        padded[:n] = a
     absmax = padded.view(-1, DP_GRAD_CHUNK).amax(1)
     sums = []
     for t in (a, absmax):
@@ -2861,8 +2894,10 @@ def _payload_bounds(g_local, world, buckets=None):
         collective.all_reduce(t)
         sums.append(t.cpu())
         del t
+    scale = sums[1] / (127.0 * world)
     return {"bf16": sums[0] * 2.0 ** -7,
-            "int8": (sums[1] / (127.0 * world))[place // DP_GRAD_CHUNK]}
+            "int8": (scale[place // DP_GRAD_CHUNK] if buckets is not None
+                     else scale.repeat_interleave(DP_GRAD_CHUNK)[:n])}
 
 
 def dp_worker(out_dir):
@@ -2917,23 +2952,28 @@ def dp_worker(out_dir):
     def check_grad(name, dtype):
         """The first step's reduced gradient of a low-precision run against
         the f32 run's, element by element, within _payload_bounds."""
+        # idx: the flat offsets compared, a slice where they are contiguous
+        # (no gathered copies of the 124M-entry vectors)
         if "zero_shard" in first:
             got = first.pop("zero_shard")
             lo = rank * got.numel()
-            hi = min(bounds["n"], lo + got.numel())
-            idx = torch.arange(lo, max(lo, hi))
-            got = got[:idx.numel()]
+            hi = max(lo, min(bounds["n"], lo + got.numel()))
+            idx = slice(lo, hi)
+            got = got[:hi - lo]
         elif "fsdp" in first:
             got, idx = first.pop("fsdp")
             dtype = "int8_fsdp" if dtype == "int8" else dtype
         else:
             got = first.pop("replicated")
-            idx = torch.arange(bounds["n"])
-        err = (got - kept["f32_grad"][idx]).abs()
-        bnd = bounds[dtype][idx]
+            idx = slice(0, bounds["n"])
+        # the passes over the 124M entries on the card, the host being the slow side
+        dev = ids.device
+        at = idx if isinstance(idx, slice) else idx.to(dev)
+        bnd = bounds[dtype].to(dev)[at]
+        err = (got.to(dev) - kept["f32_grad"].to(dev)[at]).abs()
         ratio = err / bnd
         out[name].update(
-            grad_elems=idx.numel(), grad_max_abs_err=float(err.max()),
+            grad_elems=got.numel(), grad_max_abs_err=float(err.max()),
             grad_err_over_bound=float(ratio[bnd > 0].max()) if bool((bnd > 0).any()) else 0.0,
             grad_violations=int((err > bnd).sum()))
 
@@ -3063,10 +3103,25 @@ def dp_worker(out_dir):
         json.dump(out, f)
 
 
+def ranks_worker(jobs):
+    """One rank of several phases, in one process (one start-up for all):
+    ``jobs`` [(worker name, out_dir)] run in turn, the flags a worker sets
+    put back after it."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.core.flags import get_flags
+
+    for name, out_dir in jobs:
+        before = get_flags(["grad_comm_dtype", "grad_comm_error_feedback", "grad_comm_chunk",
+                            "zero_update", "fsdp", "fsdp_prefetch"])
+        globals()[name](out_dir)
+        set_flags(before)
+
+
 def phase_dp(world=None):
     """Data parallelism on the port, at ``world`` ranks (default: one per
-    card), in processes started by the port's ``spawn`` with a deadline of
-    their own (DP_TIMEOUT_S). Each rank runs GPT-2 124M at full width on the
+    card), in processes started by the port's ``spawn`` that then run the
+    dp_eager phase (ranks_worker; deadline DP_TIMEOUT_S +
+    DP_EAGER_TIMEOUT_S). Each rank runs GPT-2 124M at full width on the
     global ids [8, 1024] (its 8/N rows), AdamW(1e-4, weight decay 0.01),
     bf16 auto_cast, DP_STEPS steps a run, through fleet.init ->
     fleet.distributed_engine: the replicated f32 reduce, ZeRO, the bf16
@@ -3091,8 +3146,8 @@ def phase_dp(world=None):
     DP_FSDP_MEM_SHARE x (1 - 1/N) x 4 x n. Emits one line with step
     ms, tokens/s per chip, peaks, payload bytes and the f32 payload's
     all_reduce alone (ms, bus bandwidth) before the checks, and one
-    (dp_checks) after them; returns rank 0's flash launches over the runs
-    {kernel: n}."""
+    (dp_checks) after them; then _dp_eager_checks. Returns rank 0's flash
+    launches over the runs {kernel: n}, and _dp_eager_checks's."""
     import tempfile
 
     from paddle_tpu_torch.distributed import spawn
@@ -3102,11 +3157,16 @@ def phase_dp(world=None):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
-        spawn(dp_worker, args=(d,), nprocs=world, timeout=DP_TIMEOUT_S)
-        ranks = []
-        for r in range(world):
-            with open(os.path.join(d, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        dirs = [os.path.join(d, k) for k in ("dp", "dp_eager")]
+        for k in dirs:
+            os.mkdir(k)
+        spawn(ranks_worker, args=(list(zip(("dp_worker", "dp_eager_worker"), dirs)),),
+              nprocs=world, timeout=DP_TIMEOUT_S + DP_EAGER_TIMEOUT_S)
+        ranks, eager_ranks = [], []
+        for k, into in zip(dirs, (ranks, eager_ranks)):
+            for r in range(world):
+                with open(os.path.join(k, f"rank{r}.json")) as f:
+                    into.append(json.load(f))
     wall = time.perf_counter() - t0
     fsdp_runs = [f"fsdp{x}_pf{d}" for d in (0, 2) for x in ("", "_bf16_ef", "_int8_ef")]
     lowp = ["bf16", "bf16_ef", "int8", "int8_ef", "zero_bf16", "zero_int8_ef"] + [
@@ -3213,7 +3273,7 @@ def phase_dp(world=None):
                     raise AssertionError(f"dp rank {r} {name}: FSDP holds {held} bytes fewer "
                                          f"than ZeRO after the steps, less than {need}")
     emit(phase="dp_checks", world=world, passed=True, launches_rank0=launches)
-    return launches
+    return launches, _dp_eager_checks(eager_ranks, world, wall)
 
 
 DP_EAGER_STEPS = 3          # timed steps of each dp_eager run, after 1 warm-up
@@ -3242,7 +3302,7 @@ def dp_eager_worker(out_dir):
     124M through the eager entry points, fleet.init -> fleet.distributed_model
     -> fleet.distributed_optimizer -> loss.backward(); opt.step();
     opt.clear_grad(), on this rank's rows of the global ids [8, 1024]; each
-    run of phase_dp_eager's list. Writes its results to
+    run of _dp_eager_checks's list. Writes its results to
     ``out_dir/rank<r>.json``."""
     from paddle_tpu_torch.amp import auto_cast
     from paddle_tpu_torch.distributed import collective, fleet, group_sharded_parallel
@@ -3307,7 +3367,10 @@ def dp_eager_worker(out_dir):
         # the losses' mean over the ranks (the engine's loss), one collective
         mean = torch.tensor(losses, dtype=torch.float64, device=ids.device)
         collective.all_reduce(mean)
-        params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+        keep = name in ("f32", "engine_f32", "gm", "engine_k2", "os_g", "os_g_offload")
+        # the weights on the host where a check reads them (the digest: past one rank)
+        params = ({n: p.detach().float().cpu() for n, p in model.named_parameters()}
+                  if keep or world > 1 else None)
         out[name] = {
             "losses": losses, "mean_losses": (mean / world).tolist(), "step_ms": step_ms,
             "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -3315,9 +3378,10 @@ def dp_eager_worker(out_dir):
             "launches": launches,
             "collectives_per_step": (calls[1] - calls[0]) / DP_EAGER_STEPS,
             "buckets": len((red or Reducer(list(model.parameters())))._buckets),
-            "digest": _digest(params), "n": sum(p.numel() for p in params.values()),
+            "digest": _digest(params) if world > 1 else None,
+            "n": sum(p.numel() for p in model.parameters()),
             **(extra or {})}
-        if name in ("f32", "engine_f32", "gm", "engine_k2", "os_g", "os_g_offload"):
+        if keep:
             kept[name] = params
 
     def eager(name, flags=None, halves=False, amp=False):
@@ -3411,11 +3475,13 @@ def _digest(params):
     return h.hexdigest()
 
 
-def phase_dp_eager(world=None):
-    """The eager data-parallel entry points on the port at ``world`` ranks
-    (default: one a card), in processes of the port's spawn with a deadline
-    of their own (DP_EAGER_TIMEOUT_S). Each rank runs GPT-2 124M at full
-    width on its rows of the global ids [8, 1024], AdamW(1e-4, weight decay
+def _dp_eager_checks(ranks, world, wall):
+    """The dp_eager phase's checks on ``ranks``, each rank's
+    dp_eager_worker results at ``world`` ranks, one a card, in the
+    processes phase_dp starts for both phases (``wall``: their seconds):
+    the eager data-parallel entry points on the port. Each rank runs GPT-2
+    124M at full width on its rows of the global ids [8, 1024],
+    AdamW(1e-4, weight decay
     0.01), 1 warm-up and DP_EAGER_STEPS timed steps a run, through fleet.init
     -> fleet.distributed_model -> fleet.distributed_optimizer ->
     loss.backward(); opt.step(); opt.clear_grad(): f32; bf16 through
@@ -3443,21 +3509,6 @@ def phase_dp_eager(world=None):
     collectives a step, for eager and for the engine, before the checks;
     returns rank 0's flash launches of the timed steps, {"bf16": {kernel:
     n}, "f32": {kernel: n}}."""
-    import tempfile
-
-    from paddle_tpu_torch.distributed import spawn
-
-    world = world or torch.cuda.device_count()
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        spawn(dp_eager_worker, args=(d,), nprocs=world, timeout=DP_EAGER_TIMEOUT_S)
-        ranks = []
-        for r in range(world):
-            with open(os.path.join(d, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-    wall = time.perf_counter() - t0
     r0 = ranks[0]
     runs = ["f32", "engine_f32", "bf16_amp", "engine_bf16", "gm", "engine_k2", "lamb",
             "dgc", "fp16_allreduce", "os_g", "os_g_offload"]
@@ -3935,9 +3986,11 @@ def _block_kernels_vs_plain(P=4, b=8, s=1024, h=12, d=64):
 
 
 def phase_tp_sp(ids):
-    """Tensor and sequence parallelism (phase docstring item 7e). Returns the
-    flash launches of its path on this process and rank 0: {"bf16": {kernel:
-    n}, "f32": {kernel: n}}."""
+    """Tensor and sequence parallelism (phase docstring item 7e). Its
+    one-card process then runs the pp phase's one-card rank (ranks_worker).
+    Returns the flash launches of its path on this process and rank 0,
+    {"bf16": {kernel: n}, "f32": {kernel: n}}, and that pp rank's results
+    (phase_pp's ``one_card_ranks``)."""
     import tempfile
 
     from paddle_tpu_torch.distributed import spawn
@@ -3965,8 +4018,16 @@ def phase_tp_sp(ids):
     with tempfile.TemporaryDirectory() as d:
         worlds = [1] + ([world] if world >= 2 else [])
         ranks = {}
+        pp_dir = os.path.join(d, "pp")
+        os.mkdir(pp_dir)
         for w in worlds:
-            spawn(tp_sp_worker, args=(d,), nprocs=w, timeout=TP_SP_TIMEOUT_S)
+            if w == 1:   # the same process then runs the pp phase's one-card rank
+                spawn(ranks_worker, args=([("tp_sp_worker", d), ("pp_worker", pp_dir)],),
+                      nprocs=1, timeout=TP_SP_TIMEOUT_S + PP_TIMEOUT_S)
+                with open(os.path.join(pp_dir, "rank0.json")) as f:
+                    pp_one = [json.load(f)]
+            else:
+                spawn(tp_sp_worker, args=(d,), nprocs=w, timeout=TP_SP_TIMEOUT_S)
             ranks[w] = []
             for r in range(w):
                 with open(os.path.join(d, f"rank{r}.json")) as f:
@@ -4016,7 +4077,7 @@ def phase_tp_sp(ids):
             emit(**rec)
     emit(phase="tp_sp", what="checks", passed=True, world=world, block_kernels=blocks,
          seconds=time.perf_counter() - t0)
-    return {k: dict(v) for k, v in counts.items()}
+    return {k: dict(v) for k, v in counts.items()}, pp_one
 
 
 PP_STEPS = 3              # steps of each pp run, at f32 and at bf16
@@ -4273,11 +4334,13 @@ def _moe_case(dtype, tokens=8192, d_model=768, d_hidden=3072, experts=8, top_k=2
     return rec
 
 
-def phase_pp(ids, one_card=True):
+def phase_pp(ids, one_card=True, one_card_ranks=None):
     """Pipeline and expert parallelism (phase docstring item 7f). Returns the
     flash launches of its path on this process and rank 0: {"bf16": {kernel:
     n}, "f32": {kernel: n}}. ``one_card`` false leaves out the micro-batch
-    kernel checks, the virtual rings and the MoE (a multi-card call's)."""
+    kernel checks, the virtual rings and the MoE (a multi-card call's).
+    ``one_card_ranks``: pp_worker's results at one rank where phase_tp_sp's
+    process ran it, else that rank is spawned here."""
     import tempfile
 
     from paddle_tpu_torch.distributed import spawn
@@ -4309,6 +4372,9 @@ def phase_pp(ids, one_card=True):
     with tempfile.TemporaryDirectory() as d:
         ranks = {}
         for w in [1] + ([world] if world >= 2 else []):
+            if w == 1 and one_card_ranks is not None:
+                ranks[w] = one_card_ranks
+                continue
             spawn(pp_worker, args=(d,), nprocs=w, timeout=PP_TIMEOUT_S)
             ranks[w] = []
             for r in range(w):
@@ -5005,6 +5071,200 @@ def phase_mnist():
           f"reader_cost {reader_s / fit_s:.4f} of fit, device busy {kernel_ms / wall:.4f} "
           f"of an epoch, {seconds:.1f} s ({card})", flush=True)
     emit(phase="mnist", what="checks", passed=True, seconds=seconds, card=card)
+
+
+REC_CHECK_STEPS = 10      # rec: Wide&Deep's first steps held against the CPU's
+REC_CPU_RTOL = 1e-4       # ... each of their losses on the card against the CPU's
+REC_SAMPLE = 4096         # ... pulled ids whose rows of both tables are compared after them
+REC_ROWS_ATOL = 1e-7      # ... each row entry, absolute
+REC_ROWS_MIN_MOVE = 1e-6  # ... the CPU run's largest move of a sampled row over the steps, each
+REC_ROWS_MOVED_SHARE = 0.99  # table, and its share of rows moved past REC_ROWS_ATOL, at least
+REC_PROFILE_STEPS = 5     # ... steps in the profiled window (the device's busy share)
+DEEPFM_STEPS = 5          # DeepFM with the [1e6, 8] table on the card, each step's
+DEEPFM_CPU_RTOL = 1e-4    # ... loss against the CPU's
+REC_POD_TIMEOUT_S = 240   # the launcher's 2-server, 2-trainer pod
+
+
+def _rec_deepfm(device):
+    """DeepFM at the widedeep leg's widths with trainer-side tables (a [1e6,
+    8] and a [1e6, 1] Embedding on ``device``), Adam(1e-3), DEEPFM_STEPS
+    steps of the leg's batches: (losses, seconds of the steps after the
+    first)."""
+    from paddle_tpu_torch.models import DeepFM, ctr_loss
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.tools.northstar_bench import WIDEDEEP as W
+
+    net = DeepFM(sparse_feature_dim=W["vocab"], embedding_dim=W["embedding_dim"],
+                 num_fields=W["fields"], dense_dim=W["dense_dim"], device=device, seed=0)
+    opt = Adam(learning_rate=W["lr"], parameters=net.named_parameters())
+    rs = np.random.RandomState(0)
+    losses = []
+    for step in range(DEEPFM_STEPS):
+        if step == 1:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        ids = rs.randint(0, W["vocab"], (W["batch"], W["fields"])).astype(np.int64)
+        dense = rs.rand(W["batch"], W["dense_dim"]).astype(np.float32)
+        lab = rs.randint(0, 2, (W["batch"], 1)).astype(np.int64)
+        loss = ctr_loss(net(torch.from_numpy(ids).to(device),
+                            torch.from_numpy(dense).to(device)),
+                        torch.from_numpy(lab).to(device))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    return losses, time.perf_counter() - t
+
+
+def _rec_pod():
+    """The launcher's PS mode: 2 servers and 2 trainers of the port's
+    Wide&Deep example, both trainers on card 0, trainer 0 saving the tables,
+    in a temporary directory, within REC_POD_TIMEOUT_S; every process it
+    started is ended and the directory removed after. Checks exit 0, finite
+    losses of both trainers, and that each server's saved tables hold
+    exactly the ids of the trainers' batches with id % 2 equal to its index.
+    Returns (seconds, {trainer: losses}, {server: {table: ids held}})."""
+    import shutil
+
+    from paddle_tpu_torch.examples import train_widedeep_ps as ex
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = tempfile.mkdtemp(prefix="rec_pod_")
+    log_dir, save = os.path.join(d, "log"), os.path.join(d, "tables", "wd")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch", "--run_mode", "ps",
+           "--server_num", "2", "--trainer_num", "2", "--devices", "0", "--log_dir", log_dir,
+           os.path.join(root, "paddle_tpu_torch", "examples", "train_widedeep_ps.py"),
+           "--save", save]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, start_new_session=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        out, _ = proc.communicate(timeout=REC_POD_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"rec pod: the launcher exited {proc.returncode}:\n"
+                                 f"{out[-4000:]}")
+        losses = {}
+        for r in range(2):
+            with open(os.path.join(log_dir, f"trainer.{r}")) as f:
+                last = [ln for ln in f.read().splitlines() if ln.startswith("LOSSES ")]
+            losses[r] = json.loads(last[-1][len("LOSSES "):]) if last else []
+            if len(losses[r]) != ex.STEPS or not all(math.isfinite(x) for x in losses[r]):
+                raise AssertionError(f"rec pod: trainer {r} losses {losses[r]}")
+        used = np.unique(np.concatenate([ex.batch(r)[0].reshape(-1) for r in range(2)]))
+        held = {}
+        for s in range(2):
+            held[s] = {}
+            for t_cfg in ex.TABLES:
+                rec = np.dtype([("id", "<u8"), ("row", "<f4", (t_cfg.dim,))])
+                ids = np.fromfile(f"{save}.part{s}.sparse.{t_cfg.table_id}", dtype=rec)["id"]
+                want = used[used % 2 == s].astype(np.uint64)
+                if not np.array_equal(np.sort(ids), want):
+                    raise AssertionError(f"rec pod: server {s} table {t_cfg.table_id} holds "
+                                         f"{ids.size} ids, {int((ids % 2 != s).sum())} not "
+                                         f"its own; {want.size} expected")
+                held[s][t_cfg.table_id] = int(ids.size)
+        return seconds, losses, held
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _rec_initial_rows(ids, dims):
+    """The rows ``ids`` hold before any push: a fresh server's pull (the
+    table draws each id's first row from the id alone). ``dims``: {table id:
+    row width}. Returns {table id: [len(ids), width] numpy}."""
+    from paddle_tpu_torch.distributed.ps import PSClient, PSServer, SparseTableConfig
+
+    server = PSServer(0, [SparseTableConfig(table_id=t, dim=d) for t, d in dims.items()], [])
+    client = PSClient([f"127.0.0.1:{server.port}"])
+    try:
+        for t, d in dims.items():
+            client.register_table_dim(t, d)
+        return {t: client.pull_sparse(t, ids) for t in dims}
+    finally:
+        client.close()
+        server.stop()
+
+
+def phase_rec():
+    """BASELINE config 5 on the port (phase docstring item 14)."""
+    from paddle_tpu_torch.bench import card_name_and_power_limit
+    from paddle_tpu_torch.tools.northstar_bench import bench_widedeep
+
+    t0 = time.perf_counter()
+    card = card_name_and_power_limit()
+
+    # 1. Wide&Deep at full width, both tables on a live PSServer: the card's
+    #    run against the CPU's (each on a fresh server, from the same rows)
+    def profile(step):
+        wall, kernel_ms, top = device_profile(
+            lambda: [step() for _ in range(REC_PROFILE_STEPS)], top=5)
+        return dict(steps=REC_PROFILE_STEPS, wall_ms=wall, kernel_ms=kernel_ms,
+                    device_busy_share=kernel_ms / wall, top_kernels=top)
+
+    gpu = bench_widedeep(False, "cuda", check_steps=REC_CHECK_STEPS, sample=REC_SAMPLE,
+                         profile=profile)
+    cpu = bench_widedeep(False, "cpu", steps=REC_CHECK_STEPS - gpu["warmup"],
+                         check_steps=REC_CHECK_STEPS, sample=REC_SAMPLE)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gpu["losses"][:REC_CHECK_STEPS],
+                                                 cpu["losses"][:REC_CHECK_STEPS]))
+    if not rel <= REC_CPU_RTOL:
+        raise AssertionError(f"rec widedeep: card losses {gpu['losses'][:REC_CHECK_STEPS]} "
+                             f"vs CPU {cpu['losses']} (relative {rel})")
+    if not np.array_equal(gpu["sample_ids"], cpu["sample_ids"]):
+        raise AssertionError("rec widedeep: the card's and the CPU's runs pulled other ids")
+    row_err = {t: float(np.abs(gpu["sample_rows"][t] - cpu["sample_rows"][t]).max())
+               for t in gpu["sample_rows"]}
+    if not max(row_err.values()) <= REC_ROWS_ATOL:
+        raise AssertionError(f"rec widedeep: table rows off the CPU's by {row_err}")
+    # how far the CPU run's pushes moved the sampled rows (each row: its
+    # largest entry's move): a push the card missed would show past the limit
+    first = _rec_initial_rows(cpu["sample_ids"], {t: r.shape[1]
+                                                  for t, r in cpu["sample_rows"].items()})
+    moved = {t: np.abs(cpu["sample_rows"][t] - first[t]).max(1) for t in first}
+    move = {t: {"max": float(m.max()), "median": float(np.median(m)),
+                "share_past_atol": float((m > REC_ROWS_ATOL).mean())} for t, m in moved.items()}
+    for t, m in move.items():
+        if not (m["max"] >= REC_ROWS_MIN_MOVE and m["share_past_atol"] >= REC_ROWS_MOVED_SHARE):
+            raise AssertionError(f"rec widedeep: table {t}'s sampled rows moved {m} over "
+                                 f"{REC_CHECK_STEPS} steps: too little for REC_ROWS_ATOL "
+                                 f"{REC_ROWS_ATOL} to show a missed push")
+    prof = gpu["profile"]
+    emit(phase="rec", run="widedeep", **{k: v for k, v in gpu.items()
+                                          if k not in ("sample_ids", "sample_rows", "profile")},
+         cpu_losses=cpu["losses"], cpu_step_ms=cpu["step_ms"],
+         cpu_pull_sparse_share=cpu["pull_sparse_share"],
+         cpu_push_sparse_share=cpu["push_sparse_share"], loss_rel_err=rel, rtol=REC_CPU_RTOL,
+         rows_max_abs_err=row_err, rows_atol=REC_ROWS_ATOL, rows_moved=move,
+         sample_ids=REC_SAMPLE, profile=prof)
+
+    # 2. DeepFM with trainer-side tables on the card, against the CPU
+    fm_gpu, fm_s = _rec_deepfm(torch.device("cuda"))
+    fm_cpu, _ = _rec_deepfm(torch.device("cpu"))
+    fm_rel = max(abs(a - b) / abs(b) for a, b in zip(fm_gpu, fm_cpu))
+    if not fm_rel <= DEEPFM_CPU_RTOL:
+        raise AssertionError(f"rec deepfm: card losses {fm_gpu} vs CPU {fm_cpu} "
+                             f"(relative {fm_rel})")
+    fm_eps = (DEEPFM_STEPS - 1) * gpu["batch"] / fm_s
+    emit(phase="rec", run="deepfm", use_ps=False, steps=DEEPFM_STEPS, losses=fm_gpu,
+         cpu_losses=fm_cpu, loss_rel_err=fm_rel, rtol=DEEPFM_CPU_RTOL,
+         examples_per_s=fm_eps, timed_steps=DEEPFM_STEPS - 1, card=card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the launcher's PS mode: 2 servers, 2 trainers on this card
+    pod_s, pod_losses, held = _rec_pod()
+    emit(phase="rec", run="pod", servers=2, trainers=2, seconds=pod_s, losses=pod_losses,
+         ids_held=held, own_ids_only=True, card=card)
+    seconds = time.perf_counter() - t0
+    print(f"rec: widedeep {gpu['value']:.0f} examples/s (pull {gpu['pull_sparse_share']:.3f}, "
+          f"push {gpu['push_sparse_share']:.3f} of a step, device busy "
+          f"{prof['device_busy_share']:.4f}), deepfm {fm_eps:.0f} examples/s, pod "
+          f"{pod_s:.1f} s, {seconds:.1f} s ({card})", flush=True)
+    emit(phase="rec", what="checks", passed=True, seconds=seconds, card=card)
 
 
 def _route_counts():
@@ -5710,6 +5970,18 @@ def phase_probe(build_seconds):
     return recs
 
 
+PHASE_SECONDS = {}
+
+
+def _timed(name, fn, *args):
+    """fn(*args), its wall seconds kept under ``name`` (the ``seconds`` line)."""
+    t = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -5722,55 +5994,57 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    per_source = phase_env()
-    fwd = phase_kernels_fwd()
-    bwd = phase_kernels_bwd()
+    t_script = time.perf_counter()
+    per_source = _timed("env", phase_env)
+    fwd = _timed("kernels_fwd", phase_kernels_fwd)
+    bwd = _timed("kernels_bwd", phase_kernels_bwd)
 
     cfg = GPTConfig()      # GPT-2 124M at full width and depth
     model = GPTForPretraining(cfg, seed=0)
     cpu_model = GPTForPretraining(cfg, device="cpu", seed=0)
     gen = torch.Generator().manual_seed(0)
     ids = torch.randint(0, cfg.vocab_size, (8, 1024), generator=gen).cuda()
-    logits, score_launches, forward_ms = phase_score(model, cpu_model, ids)
+    logits, score_launches, forward_ms = _timed("score", phase_score, model, cpu_model, ids)
     del cpu_model
-    phase_serve(model, ids, logits)
+    _timed("serve", phase_serve, model, ids, logits)
     del logits
-    phase_serve_paged(model)
-    phase_serve_spec(model)
-    phase_serve_fleet(model)
-    phase_quant(model, ids)
-    phase_profile(model, ids, forward_ms)
+    _timed("serve_paged", phase_serve_paged, model)
+    _timed("serve_spec", phase_serve_spec, model)
+    _timed("serve_fleet", phase_serve_fleet, model)
+    _timed("quant", phase_quant, model, ids)
+    _timed("profile", phase_profile, model, ids, forward_ms)
     del model
     torch.cuda.empty_cache()
 
-    launches, f32_launches = phase_train(ids)
+    launches, f32_launches = _timed("train", phase_train, ids)
     torch.cuda.empty_cache()
-    obs_launches = phase_train_obs(ids)
+    obs_launches = _timed("train_obs", phase_train_obs, ids)
     torch.cuda.empty_cache()
-    rules_launches = phase_train_rules(ids)
-    phase_train_vs_cpu()
+    rules_launches = _timed("train_rules", phase_train_rules, ids)
+    _timed("train_vs_cpu", phase_train_vs_cpu)
     torch.cuda.empty_cache()
-    dp_launches = phase_dp()
-    dp_eager_launches = phase_dp_eager()
-    ckpt_launches = phase_ckpt(ids)
+    dp_launches, dp_eager_launches = _timed("dp", phase_dp)   # and dp_eager
+    ckpt_launches = _timed("ckpt", phase_ckpt, ids)
     if torch.cuda.device_count() >= 2:
-        phase_ckpt_ranks(torch.cuda.device_count())
-    tp_sp_launches = phase_tp_sp(ids)
+        _timed("ckpt_ranks", phase_ckpt_ranks, torch.cuda.device_count())
+    tp_sp_launches, pp_one_card = _timed("tp_sp", phase_tp_sp, ids)   # and pp's rank
     torch.cuda.empty_cache()
-    pp_launches = phase_pp(ids)
+    pp_launches = _timed("pp", phase_pp, ids, True, pp_one_card)
     torch.cuda.empty_cache()
-    phase_vision()
+    _timed("vision", phase_vision)
     torch.cuda.empty_cache()
-    phase_mnist()
+    _timed("mnist", phase_mnist)
     torch.cuda.empty_cache()
-    ernie_launches = phase_ernie()
+    _timed("rec", phase_rec)
     torch.cuda.empty_cache()
-    bench_launches = phase_bench()
+    ernie_launches = _timed("ernie", phase_ernie)
+    torch.cuda.empty_cache()
+    bench_launches = _timed("bench", phase_bench)
 
-    ln_recs = phase_layer_norm_kernels()
-    lm_recs = phase_lm_loss_kernels(ids)
-    library_launches = phase_library_ops(ids)
-    phase_probe(per_source["lm_loss"] or None)
+    ln_recs = _timed("layer_norm_kernels", phase_layer_norm_kernels)
+    lm_recs = _timed("lm_loss_kernels", phase_lm_loss_kernels, ids)
+    library_launches = _timed("library_ops", phase_library_ops, ids)
+    _timed("probe", phase_probe, per_source["lm_loss"] or None)
 
     # the training main path runs attention in bf16 at [8, 1024, 12, 64] (the
     # tensor-core forward and backward pair; the bench's gpt_1p3b run at [4,
@@ -5892,6 +6166,7 @@ def main() -> int:
             "library_ms": rec["library_ms"],
             **{k: rec[k] for k in ("kernel_route", "instance") if k in rec},
         })
+    emit(phase="seconds", total=time.perf_counter() - t_script, **PHASE_SECONDS)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,9 @@ packages), batch norm's ``_mean`` and ``_variance`` buffers and ERNIE's
 embeddings. The Linear weights of the other models are ERNIE's
 ``qkv_proj``, ``out_proj``, ``fc1``, ``fc2``, ``pooler``,
 ``mlm_transform``, ``nsp_head`` and an untied ``mlm_decoder``, ResNet's
-``fc`` and LeNet's ``fc.0`` to ``fc.2``. A quantized or QAT state (incubate/quantization.py; quantize the port's
+``fc``, LeNet's ``fc.0`` to ``fc.2``, and the CTR models' (models/rec.py)
+top-level ``mlp.<i>`` and ``out`` (their embeddings, the wide one
+``[vocab, 1]`` too, carry over as they are). A quantized or QAT state (incubate/quantization.py; quantize the port's
 model the same way before loading) carries a QuantizedLinear's int8
 ``._w_int8`` and a QATLinear's ``.inner.weight`` transposed too, and the
 scales, biases and activation scales as they are.
@@ -99,9 +101,11 @@ def pp_split_of(name: str, virtual_stages: int = 1):
     return None
 
 
-# the Linear weights of ERNIE's heads, ResNet's fc and LeNet's fc.0 - fc.2
+# the Linear weights of ERNIE's heads, ResNet's fc, LeNet's fc.0 - fc.2 and
+# the CTR models' tower (top-level names only: GPT's ``mlp.fc1`` is no match)
 _OTHER_LINEAR_WEIGHTS = re.compile(
-    r"(^|\.)(pooler|mlm_transform|nsp_head|mlm_decoder|fc(\.\d+)?)\.weight$")
+    r"(^|\.)(pooler|mlm_transform|nsp_head|mlm_decoder|fc(\.\d+)?)\.weight$"
+    r"|^(mlp\.\d+|out)\.weight$")
 
 
 def _is_linear_weight(name: str) -> bool:

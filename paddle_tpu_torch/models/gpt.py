@@ -42,6 +42,7 @@ greedy and beam tokens agree exactly.
 from __future__ import annotations
 
 import re
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 from torch import nn
@@ -67,6 +68,37 @@ from ..serving.sampling import gumbel_noise, sample_tokens
 
 IGNORE_INDEX = -100  # ParallelCrossEntropy's default in the JAX model
 
+DRAW_BLOCK = 1 << 22    # entries a generator of draw_normals draws, at most a whole row more
+
+
+def draw_normals(shapes, seed, out=None):
+    """N(0, 0.02) host f32 tensors of ``shapes``, the GPT models' initial
+    matrices. Each is cut into blocks of whole rows (dim 0) of about
+    DRAW_BLOCK entries, and block j of tensor i is drawn by its own
+    generator, seeded from (seed, i, j), on torch.get_num_threads() threads:
+    the values depend on the shapes and the seed alone. ``out``: for each
+    shape, a contiguous host tensor to draw into, or None for a new one."""
+    tensors = [o if o is not None else torch.empty(sh)
+               for sh, o in zip(shapes, out or [None] * len(shapes))]
+    jobs = []
+    for i, t in enumerate(tensors):
+        rows = max(1, DRAW_BLOCK // max(1, t[0].numel()))
+        for j, block in enumerate(t.split(rows)):
+            jobs.append((block, ((int(seed) * 1_000_003 + i) * 65_537 + j) % (1 << 63)))
+
+    @torch.no_grad()    # grad mode is per thread
+    def draw(job):
+        block, key = job
+        block.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(key))
+
+    threads = min(torch.get_num_threads(), len(jobs))
+    if threads > 1:
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(draw, jobs))
+    else:
+        for job in jobs:
+            draw(job)
+    return tensors
 
 class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12, num_heads=12,
@@ -338,21 +370,24 @@ class GPTForPretraining(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
-        """Each matrix drawn as its logical tensor and sliced to the rank's
-        shard: the same weights at every mp degree."""
-        g = torch.Generator().manual_seed(int(seed))
+        """Each matrix drawn as its logical tensor (draw_normals) and sliced
+        to the rank's shard: the same weights at every mp degree."""
         _, mp_rank, _ = mp_info(self.mp_group)
         splits = sharded_parameters(self)
+        mats = []
         for name, p in self.named_parameters():
             if name.endswith(".bias"):
                 p.zero_()
             elif p.dim() == 1:
                 p.fill_(1.0)
             else:
-                split, size = splits.get(name, (None, 1))
-                full = torch.empty(logical_shape(p.shape, split, size))
-                p.copy_(mp_slice(full.normal_(0.0, 0.02, generator=g), split, mp_rank,
-                                 size))
+                mats.append((p, *splits.get(name, (None, 1))))
+        shapes = [tuple(logical_shape(p.shape, split, size)) for p, split, size in mats]
+        fulls = draw_normals(shapes, seed, out=[p if shape == tuple(p.shape) else None
+                                                for (p, _, _), shape in zip(mats, shapes)])
+        for (p, split, size), full in zip(mats, fulls):
+            if full is not p:
+                p.copy_(mp_slice(full, split, mp_rank, size))
 
     # names here are 'gpt.blocks.N.*', 'gpt.wte.*', 'lm_head.*' (reference gpt.py:518)
     fsdp_layer_key = staticmethod(GPTModel.fsdp_layer_key)
@@ -733,8 +768,8 @@ class GPTForPretrainingPipe(nn.Module):
     def init_weights(self, seed: int = 0) -> None:
         """Each parameter drawn as its logical tensor (every stage, every mp
         shard) and sliced to the rank's stage and mp shard."""
-        g = torch.Generator().manual_seed(int(seed))
         wte_split = self.wte.mp_splits["weight"]
+        mats = []
         for name, p in self.named_parameters():
             if name.endswith(("_b", ".bias")):
                 p.zero_()
@@ -745,7 +780,12 @@ class GPTForPretrainingPipe(nn.Module):
                 pp_split = self.pp_splits.get(name)
                 shape = logical_shape(logical_shape(p.shape, mp_split, self.mp_size),
                                       pp_split, self.pp_size)
-                full = torch.empty(shape).normal_(0.0, 0.02, generator=g)
+                mats.append((p, tuple(shape), mp_split, pp_split))
+        fulls = draw_normals([shape for _, shape, _, _ in mats], seed,
+                             out=[p if shape == tuple(p.shape) else None
+                                  for p, shape, _, _ in mats])
+        for (p, _, mp_split, pp_split), full in zip(mats, fulls):
+            if full is not p:
                 p.copy_(mp_slice(mp_slice(full, pp_split, self.pp_rank, self.pp_size),
                                  mp_split, self.mp_rank, self.mp_size))
 

@@ -2229,3 +2229,30 @@ def test_a_resumed_resnet18_on_card_has_the_uninterrupted_buffers(cuda, tmp_path
     for n, b in want[1].items():
         assert torch.equal(got[1][n], b), n
     assert torch.equal(got[2], want[2])
+
+
+def test_ps_lookup_with_rows_on_card_pushes_the_cpu_merged_gradient(cuda):
+    """distributed_lookup_table with ids and rows on the card: the rows come
+    up in one copy, and the backward pushes the merged gradient the CPU run
+    pushes (the same cotangent, merged on the host in the same order), so
+    the table rows after are the same bits."""
+    from paddle_tpu_torch.distributed.ps import (PSClient, PSServer, SparseTableConfig,
+                                                 distributed_lookup_table)
+
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 50, (64, 5)).astype(np.int64)     # repeated ids
+    w = rng.randn(64, 5, 8).astype(np.float32)
+    uniq = np.unique(ids).astype(np.uint64)
+    after = {}
+    for dev in (cuda, torch.device("cpu")):
+        server = PSServer(0, [SparseTableConfig(table_id=0, dim=8, learning_rate=0.5)])
+        client = PSClient([f"127.0.0.1:{server.port}"])
+        try:
+            rows = distributed_lookup_table(torch.from_numpy(ids).to(dev), client, 0, 8)
+            assert rows.device.type == dev.type and rows.is_leaf and rows.requires_grad
+            (rows * torch.from_numpy(w).to(dev)).sum().backward()
+            after[dev.type] = client.pull_sparse(0, uniq, 8)
+        finally:
+            client.close()
+            server.stop()
+    np.testing.assert_array_equal(after["cuda"], after["cpu"])

@@ -144,3 +144,29 @@ def test_seeded_init_is_deterministic():
     assert all(p.requires_grad for p in a.parameters())   # trainable
     assert torch.equal(a.gpt.ln_f.weight, torch.ones(128))
     assert torch.equal(a.gpt.ln_f.bias, torch.zeros(128))
+
+
+def test_initial_draws_depend_on_the_shapes_and_seed_alone():
+    """draw_normals: the same values on one thread and on four, and drawn
+    into a given tensor; every block of DRAW_BLOCK entries of rows has its
+    own generator; N(0, 0.02)."""
+    from paddle_tpu_torch.models.gpt import DRAW_BLOCK, draw_normals
+
+    rows = DRAW_BLOCK // 64
+    shapes = [(2 * rows + 5, 64), (7, 3)]
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        one = draw_normals(shapes, 3)
+        torch.set_num_threads(4)
+        into = torch.empty(shapes[0])
+        four = draw_normals(shapes, 3, out=[into, None])
+    finally:
+        torch.set_num_threads(threads)
+    assert four[0] is into
+    assert all(torch.equal(a, b) for a, b in zip(one, four))
+    assert not torch.equal(draw_normals(shapes, 4)[1], one[1])
+    blocks = one[0].split(rows)
+    assert [b.shape[0] for b in blocks] == [rows, rows, 5]
+    assert not torch.equal(blocks[0][:5], blocks[1][:5])
+    assert abs(one[0].std().item() - 0.02) < 1e-4 and abs(one[0].mean().item()) < 1e-4

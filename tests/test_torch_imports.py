@@ -75,6 +75,17 @@ def test_the_paged_serving_modules_are_among_them():
             "paddle_tpu_torch.serving.engine"} <= set(_port_modules())
 
 
+def test_the_parameter_server_and_rec_modules_are_among_them():
+    assert {"paddle_tpu_torch.core.native", "paddle_tpu_torch.distributed.ps",
+            "paddle_tpu_torch.distributed.ps.service", "paddle_tpu_torch.distributed.ps.runtime",
+            "paddle_tpu_torch.distributed.ps.layers", "paddle_tpu_torch.distributed.fleet.dataset",
+            "paddle_tpu_torch.models.rec", "paddle_tpu_torch.examples.train_widedeep_ps",
+            "paddle_tpu_torch.tools.northstar_bench"} <= set(_port_modules())
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"core/native/__init__.py", "distributed/ps/service.py", "models/rec.py",
+            "distributed/fleet/dataset.py"} <= scanned
+
+
 def _imported_roots(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
