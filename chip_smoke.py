@@ -389,6 +389,26 @@ each:
    push_sparse, the device's busy share over REC_PROFILE_STEPS steps,
    DeepFM examples/s, the pod's wall seconds and the phase's. No kernel of
    ops/kernels/ runs on this path.
+15. tensor_api: the tensor API (paddle_tpu_torch's top-level namespace;
+   phase_tensor_api). Every function of the namespace, from the table of
+   tensor_api_cases (which fails when a name of ops.__all__ has no case),
+   on the card against the CPU on inputs seeded with numpy: values equal
+   for integer, bool and index results and within TENSOR_API_TOL by result
+   dtype for floats, decompositions by reconstruction
+   (TENSOR_API_REC_TOL) and their unique parts, random ops by dtype,
+   shape, device, range and moments over TENSOR_API_DRAWS draws and the
+   same draws after seed on the card's generator. Then GPT-2 124M's block
+   0 (seed-0 GPTForPretraining) on x = wte(ids) + wpe at [8, 1024, 768],
+   written only in the namespace (tensor_api_block: matmul, reshape,
+   transpose, split, softmax, a triu / where mask, LayerNorm from mean,
+   var and rsqrt, the tanh GELU, add), against GPTBlock.forward at f32
+   and under bf16 auto_cast O1: the output and the gradients (by
+   paddle_tpu_torch.grad against torch autograd) of x and every parameter
+   within BLOCK_F32_TOL / BLOCK_BF16_TOL relative Frobenius, one launch of
+   each flash kernel on the dtype's route in GPTBlock's checked call.
+   Printed: both forward + backward ms, the errors, the phase's seconds
+   (at most TENSOR_API_MAX_S). No kernel of ops/kernels/ runs in the
+   namespace's ops.
 10. the ``kernels`` line: every ported kernel with the path that launched
    it (the training main path's timed steps, the train_obs steps, the
    train_rules runs, the dp and dp_eager phases' runs on rank 0, the
@@ -396,6 +416,7 @@ each:
    virtual rings, the pp phase's virtual rings and its pp = 1 steps, the
    ernie phase's flash steps (rows 1-3, and 1f for its f32 eval forward;
    the "_ernie" rows at its [16, 512, 12, 64] non-causal shape), the
+   tensor_api phase's GPTBlock calls (rows 1-3 and 1f-3f, one each), the
    f32 steps, scoring, the bench's gpt_1p3b run for the d = 128 rows, or a
    library_ops pass; the flash backward and the
    LM-loss backward once for each dtype, the route in ``kernel_route``),
@@ -5970,6 +5991,546 @@ def phase_probe(build_seconds):
     return recs
 
 
+# ---- phase tensor_api: the tensor API (paddle_tpu_torch's namespace) on the card ----
+
+TENSOR_API_TOL = {      # card vs CPU, (rtol, atol) by result dtype: elementwise
+    "float32": (2e-5, 2e-6),    # approximations and sum orders differ by a few
+    "float64": (1e-9, 1e-11),   # ulps (TF32 off); bf16 / f16 one ulp or two
+    "bfloat16": (2e-2, 2e-2), "float16": (2e-3, 2e-3),
+    "complex64": (2e-5, 2e-6), "complex128": (1e-9, 1e-11)}
+TENSOR_API_REC_TOL = 1e-9   # an f64 decomposition's reconstruction of its input
+TENSOR_API_DRAWS = 100_000  # draws of each random op for its moments (5 std errors)
+BLOCK_F32_TOL = 1e-4    # the namespace's decoder block vs GPTBlock, f32: forward
+                        # and each gradient in relative Frobenius norm (the
+                        # block's f32 products against the flash 3xTF32 kernels;
+                        # a dropped mask, scale or term is off by O(1))
+BLOCK_BF16_TOL = 3e-2   # ... under bf16 auto_cast O1: bf16 products in both,
+                        # P rounded to bf16 before P V in both, sums in other orders
+TENSOR_API_MAX_S = 30   # the phase's wall seconds
+
+
+def tensor_api_block(P, x, p, heads, eps=1e-5):
+    """One GPT-2 decoder block (pre-LN, causal, tanh-approximate GELU) written
+    only in the tensor API of ``P``: ``paddle_tpu_torch``, or ``paddle_tpu``
+    (the CPU tests run it in both). ``p`` holds GPTBlock's parameters under
+    its names, Linear weights ``[out, in]``."""
+    b, s, h = x.shape
+    d = h // heads
+
+    def layer_norm(v, g, beta):
+        mu = P.mean(v, axis=-1, keepdim=True)
+        var = P.var(v, axis=-1, unbiased=False, keepdim=True)
+        return P.add(P.multiply(P.multiply(P.subtract(v, mu), P.rsqrt(P.add(var, eps))), g),
+                     beta)
+
+    def linear(v, name):
+        return P.add(P.matmul(v, p[name + ".weight"], transpose_y=True), p[name + ".bias"])
+
+    def heads_of(t):
+        return P.transpose(P.reshape(t, [b, s, heads, d]), [0, 2, 1, 3])
+
+    qkv = linear(layer_norm(x, p["ln1.weight"], p["ln1.bias"]), "attn.qkv_proj")
+    q, k, v = [heads_of(t) for t in P.split(qkv, 3, axis=-1)]
+    scores = P.multiply(P.matmul(q, k, transpose_y=True), 1.0 / math.sqrt(d))
+    future = P.cast(P.triu(P.ones([s, s]), 1), "bool")
+    att = P.matmul(P.softmax(P.where(future, -1e9, scores), axis=-1), v)
+    att = P.reshape(P.transpose(att, [0, 2, 1, 3]), [b, s, h])
+    h1 = P.add(x, linear(att, "attn.out_proj"))
+    ff = linear(P.gelu(linear(layer_norm(h1, p["ln2.weight"], p["ln2.bias"]), "mlp.fc1"),
+                       approximate=True), "mlp.fc2")
+    return P.add(h1, ff)
+
+
+class _L(list):
+    """A case argument that is a list of tensors."""
+
+
+def _arr(rng, shape, kind="f32"):
+    if kind == "i64":
+        return rng.randint(-5, 6, shape).astype(np.int64)
+    if kind == "nat":
+        return rng.randint(1, 10, shape).astype(np.int64)
+    if kind == "bool":
+        return rng.rand(*shape) > 0.5
+    if kind == "c64":
+        return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    lo_hi = {"pos": (0.5, 2.5), "unit": (-0.9, 0.9), "gt1": (1.2, 3.0), "prob": (0.05, 0.95)}
+    a = rng.uniform(*lo_hi[kind], shape) if kind in lo_hi else rng.standard_normal(shape)
+    return a.astype(np.float64 if kind == "f64" else np.float32)
+
+
+def _spd(rng, n):
+    a = rng.standard_normal((n, n))
+    return a @ a.T + n * np.eye(n)
+
+
+def _one(kind="f32", shape=(3, 4)):
+    return lambda r: [_arr(r, shape, kind)]
+
+
+def _two(k1="f32", k2="f32", s1=(3, 4), s2=(3, 4)):
+    return lambda r: [_arr(r, s1, k1), _arr(r, s2, k2)]
+
+
+_UNARY_DOMAIN = {
+    "log": "pos", "log2": "pos", "log10": "pos", "log1p": "pos", "sqrt": "pos", "rsqrt": "pos",
+    "reciprocal": "pos", "tan": "unit", "asin": "unit", "acos": "unit", "atanh": "unit",
+    "erfinv": "unit", "acosh": "gt1", "digamma": "pos", "lgamma": "pos", "logit": "prob"}
+_ONE_ARG = (     # ops of one [3, 4] tensor (their domain above), at their defaults
+    "abs acos acosh angle asin asinh atan atanh ceil celu conj cos cosh deg2rad digamma elu erf "
+    "erfinv exp expm1 exponent floor frac gelu hardshrink hardsigmoid hardswish hardtanh i0 i1 "
+    "imag isfinite isinf isnan leaky_relu lgamma log log10 log1p log2 log_sigmoid log_softmax "
+    "logit mish neg rad2deg real reciprocal relu relu6 round rrelu rsqrt selu sgn sigmoid sign "
+    "silu sin sinh softmax softplus softshrink softsign sqrt square swiglu swish tan tanh "
+    "tanhshrink thresholded_relu trunc glu clone assign clone_detached logcumsumexp "
+    "cumsum cumprod cummax cummin t flatten squeeze sort logsumexp std var mean sum prod max "
+    "min amax amin median nanmedian nansum nanmean argmax argmin count_nonzero diff "
+    "is_complex is_floating_point is_integer is_empty is_tensor numel rank shape all any "
+    "atleast_1d atleast_2d atleast_3d unbind unstack nonzero triu tril diag diagonal trace "
+    "zeros_like ones_like empty_like tolist stanh nan_to_num").split()
+_TWO_ARG = (     # ops of two [3, 4] tensors
+    "add subtract multiply divide remainder mod floor_mod floor_divide pow maximum minimum fmax "
+    "fmin atan2 hypot copysign nextafter logaddexp heaviside equal not_equal less_than "
+    "less_equal greater_than greater_equal isclose allclose equal_all kron inner outer "
+    "complex dist").split()
+_INT_BINARY = "gcd lcm bitwise_and bitwise_or bitwise_xor bitwise_left_shift bitwise_right_shift"
+_BOOL_UNARY_BINARY = {"logical_not": 1, "bitwise_not": 1, "logical_and": 2, "logical_or": 2,
+                      "logical_xor": 2}
+I64 = np.int64
+
+
+def _explicit_cases():
+    """(name, build, kwargs) of the ops that take other inputs than one or
+    two [3, 4] tensors."""
+    sq = lambda r: [_spd(r, 4)]     # noqa: E731
+    return [
+        ("to_tensor", lambda r: [[1.5, 2.0]], {}), ("to_tensor", lambda r: [[1, 2]], {}),
+        ("zeros", lambda r: [[2, 3]], {}), ("ones", lambda r: [[2, 3]], {"dtype": "int32"}),
+        ("full", lambda r: [[2, 2], 1.5], {}), ("empty", lambda r: [[2, 3]], {}),
+        ("full_like", _one(), {"fill_value": 2}), ("arange", lambda r: [1, 10, 2], {}),
+        ("linspace", lambda r: [0.0, 1.0, 7], {}), ("logspace", lambda r: [0.0, 2.0, 5], {}),
+        ("eye", lambda r: [3, 4], {}), ("diagflat", _one("f32", (2, 2)), {}),
+        ("diag_embed", _one("f32", (2, 3)), {}),
+        ("fill_diagonal_tensor", lambda r: [_arr(r, (3, 4)), _arr(r, (3,))], {}),
+        ("meshgrid", lambda r: [_arr(r, (3,)), _arr(r, (4,))], {}),
+        ("tril_indices", lambda r: [4, 3], {}), ("triu_indices", lambda r: [4, 4, 1], {}),
+        ("scale", _one(), {"scale": 2.0, "bias": 1.0}),
+        ("clip", _one(), {"min": -0.5, "max": 0.5}),
+        ("lerp", lambda r: [_arr(r, (3, 4)), _arr(r, (3, 4)), _arr(r, (3, 4), "prob")], {}),
+        ("increment", _one(), {"value": 2.0}), ("rsqrt_", _one("pos"), {}),
+        ("multiplex", lambda r: [_L([_arr(r, (3, 4)), _arr(r, (3, 4))]),
+                                 np.array([[0], [1], [1]], I64)], {}),
+        ("addmm", lambda r: [_arr(r, (3, 5)), _arr(r, (3, 4)), _arr(r, (4, 5))], {"beta": 0.5}),
+        ("add_n", lambda r: [_L([_arr(r, (3, 4)), _arr(r, (3, 4))])], {}),
+        ("renorm", _one("f32", (3, 4, 2)), {"p": 2, "axis": 1, "max_norm": 1.0}),
+        ("ldexp", lambda r: [_arr(r, (3, 4)), _arr(r, (3, 4), "nat")], {}),
+        ("quantile", _one("f32", (3, 4, 5)), {"q": [0.2, 0.5], "axis": 1}),
+        ("nanquantile", lambda r: [np.array([[1, np.nan, 3, 4], [2, 1, 5, np.nan]], np.float32)],
+         {"q": 0.5, "axis": 1}),
+        ("kthvalue", _one("f32", (3, 5)), {"k": 2}),
+        ("mode", lambda r: [np.array([[3, 1, 1, 2, 2], [0, 0, 4, 4, 1]], np.float32)], {}),
+        ("cast", _one(), {"dtype": "bfloat16"}), ("astype", _one(), {"dtype": "int32"}),
+        ("reshape", _one(), {"shape": [2, 6]}), ("reshape_", _one(), {"shape": [6, 2]}),
+        ("transpose", _one("f32", (2, 3, 4)), {"perm": [2, 0, 1]}),
+        ("moveaxis", _one("f32", (2, 3, 4)), {"source": 0, "destination": -1}),
+        ("swapaxes", _one("f32", (2, 3, 4)), {"axis0": 0, "axis1": 2}),
+        ("concat", lambda r: [_L([_arr(r, (2, 3)), _arr(r, (1, 3))])], {}),
+        ("stack", lambda r: [_L([_arr(r, (2, 3)), _arr(r, (2, 3))])], {"axis": 1}),
+        ("vstack", lambda r: [_L([_arr(r, (3,)), _arr(r, (3,))])], {}),
+        ("hstack", lambda r: [_L([_arr(r, (2, 3)), _arr(r, (2, 1))])], {}),
+        ("dstack", lambda r: [_L([_arr(r, (2, 3)), _arr(r, (2, 3))])], {}),
+        ("split", _one("f32", (6, 2)), {"num_or_sections": [2, -1, 1]}),
+        ("chunk", _one("f32", (4, 2)), {"chunks": 2}),
+        ("squeeze_", _one("f32", (3, 1, 4)), {"axis": 1}),
+        ("unsqueeze", _one(), {"axis": [0, 2]}), ("unsqueeze_", _one(), {"axis": 1}),
+        ("expand", _one("f32", (3, 1)), {"shape": [2, -1, 4]}),
+        ("broadcast_to", _one("f32", (1, 4)), {"shape": [3, 4]}),
+        ("expand_as", lambda r: [_arr(r, (1, 4)), _arr(r, (3, 4))], {}),
+        ("broadcast_tensors", lambda r: [_L([_arr(r, (3, 1)), _arr(r, (1, 4))])], {}),
+        ("broadcast_shape", lambda r: [[3, 1], [1, 4]], {}),
+        ("tile", _one(), {"repeat_times": [2, 1]}),
+        ("repeat_interleave", _one(), {"repeats": 2, "axis": 1}),
+        ("flip", _one(), {"axis": [0, 1]}), ("reverse", _one(), {"axis": 0}),
+        ("rot90", _one("f32", (2, 3, 4)), {"k": -1, "axes": (1, 2)}),
+        ("roll", _one(), {"shifts": (1, -2), "axis": (0, 1)}),
+        ("where", lambda r: [_arr(r, (3, 4), "bool"), _arr(r, (3, 4), "i64"), 2.5], {}),
+        ("masked_select", lambda r: [_arr(r, (3, 4)), _arr(r, (3, 4), "bool")], {}),
+        ("masked_fill", lambda r: [_arr(r, (3, 4)), _arr(r, (3, 4), "bool"), 2.0], {}),
+        ("gather", lambda r: [_arr(r, (4, 3)), np.array([3, 0, 0], I64)], {}),
+        ("gather_nd", lambda r: [_arr(r, (3, 4, 2)), np.array([[0, 1], [2, 3]], I64)], {}),
+        ("take_along_axis", lambda r: [_arr(r, (3, 4)), np.array([[0, 3], [1, 1], [2, 0]], I64),
+                                       1], {}),
+        ("put_along_axis", lambda r: [_arr(r, (3, 4)), np.array([[0, 0], [3, 3], [1, 2]], I64),
+                                      _arr(r, (3, 2)), 1], {"reduce": "add"}),
+        ("scatter", lambda r: [_arr(r, (4, 3)), np.array([2, 0, 2], I64), _arr(r, (3, 3))],
+         {"overwrite": False}),
+        ("scatter_", lambda r: [_arr(r, (4, 3)), np.array([2, 0], I64), _arr(r, (2, 3))], {}),
+        ("scatter_nd_add", lambda r: [_arr(r, (3, 4)), np.array([[0, 1], [2, 2], [0, 1]], I64),
+                                      _arr(r, (3,))], {}),
+        ("scatter_nd", lambda r: [np.array([[1], [0], [1]], I64), _arr(r, (3, 4)), [2, 4]], {}),
+        ("index_select", lambda r: [_arr(r, (3, 4)), np.array([3, 1], I64), 1], {}),
+        ("index_sample", lambda r: [_arr(r, (3, 4)), np.array([[0, 3], [1, 1], [2, 0]], I64)],
+         {}),
+        ("index_add", lambda r: [_arr(r, (3, 4)), np.array([0, 2, 0], I64), 0, _arr(r, (3, 4))],
+         {}),
+        ("index_put", lambda r: [_arr(r, (3, 4)), _L([np.array([0, 0], I64),
+                                                      np.array([1, 1], I64)]), _arr(r, (2,))],
+         {"accumulate": True}),
+        ("argsort", lambda r: [np.array([[1, 2, 2, 3, 2], [5, 5, 1, 1, 0]], np.float32)],
+         {"descending": True}),
+        ("topk", lambda r: [np.array([[1, 2, 2, 3, 2], [5, 5, 1, 1, 0]], np.float32), 3], {}),
+        ("unique", lambda r: [np.array([3, 1, 2, 1, 3, 3], I64)],
+         {"return_index": True, "return_inverse": True, "return_counts": True}),
+        ("unique_consecutive", lambda r: [np.array([1, 1, 2, 2, 3, 1, 1], I64)],
+         {"return_inverse": True, "return_counts": True}),
+        ("searchsorted", lambda r: [np.array([1.0, 2.0, 2.0, 4.0], np.float32),
+                                    np.array([[0.5, 2.0], [2.5, 9.0]], np.float32)],
+         {"right": True}),
+        ("bucketize", lambda r: [np.array([0.5, 2.0, 3.0], np.float32),
+                                 np.array([1.0, 2.0, 4.0], np.float32)], {}),
+        ("pad", _one("f32", (2, 3, 4, 5)), {"pad": [2, 1, 1, 3], "mode": "reflect"}),
+        ("strided_slice", _one("f32", (5, 6)), {"axes": [1], "starts": [5], "ends": [0],
+                                                "strides": [-2]}),
+        ("slice", _one("f32", (5, 6)), {"axes": [0, 1], "starts": [1, -3], "ends": [3, 100]}),
+        ("crop", _one("f32", (5, 6)), {"shape": [2, 3], "offsets": [1, 2]}),
+        ("shard_index", lambda r: [np.array([[1], [6], [12], [19]], I64), 20, 2, 1], {}),
+        ("tensordot", lambda r: [_arr(r, (3, 4, 5)), _arr(r, (4, 5, 2))], {}),
+        ("as_real", _one("c64"), {}), ("as_complex", _one("f32", (3, 2)), {}),
+        ("view", _one(), {"shape_or_dtype": [4, 3]}),
+        ("getitem", lambda r: [_arr(r, (3, 4)), (slice(None, None, 2), slice(3, 0, -1))], {}),
+        ("setitem", lambda r: [_arr(r, (3, 4)), (slice(None), 2), 5.0], {}),
+        ("tanh_", _one(), {}), ("maxout", _one("f32", (4, 4, 2)), {"groups": 2}),
+        ("prelu", lambda r: [_arr(r, (2, 3, 4)), _arr(r, (3,), "pos")], {}),
+        ("matmul", lambda r: [_arr(r, (2, 3, 4)), _arr(r, (5, 4))], {"transpose_y": True}),
+        ("mm", lambda r: [_arr(r, (3, 4)), _arr(r, (4, 2))], {}),
+        ("bmm", lambda r: [_arr(r, (2, 3, 4)), _arr(r, (2, 4, 5))], {}),
+        ("mv", lambda r: [_arr(r, (3, 4)), _arr(r, (4,))], {}),
+        ("dot", _two(), {}), ("einsum", lambda r: ["bij,bkj->bik", _arr(r, (2, 3, 4)),
+                                                    _arr(r, (2, 5, 4))], {}),
+        ("norm", _one(), {"p": 1, "axis": 1}), ("vector_norm", _one(), {"p": 3.0}),
+        ("cross", _two("f32", "f32", (4, 3), (4, 3)), {}),
+        ("cholesky", sq, {}), ("inverse", sq, {}), ("inv", sq, {}),
+        ("pinv", _one("f64", (4, 3)), {}),
+        ("solve", lambda r: [_spd(r, 4), _arr(r, (4, 2), "f64")], {}),
+        ("triangular_solve", lambda r: [np.triu(_spd(r, 4)), _arr(r, (4, 2), "f64")], {}),
+        ("cholesky_solve", lambda r: [_arr(r, (4, 2), "f64"), np.linalg.cholesky(_spd(r, 4))],
+         {}),
+        ("det", sq, {}), ("slogdet", _one("f64", (3, 3)), {}),
+        ("matrix_power", sq, {"n": -2}), ("matrix_rank", _one("f64", (4, 3)), {}),
+        ("multi_dot", lambda r: [_L([_arr(r, (3, 4)), _arr(r, (4, 5)), _arr(r, (5, 2))])], {}),
+        ("cond", _one("f64", (4, 4)), {}), ("eigvalsh", sq, {}),
+        ("lstsq", lambda r: [_arr(r, (6, 3), "f64"), _arr(r, (6, 2), "f64")], {}),
+        ("cov", _one("f64", (3, 6)), {}), ("corrcoef", _one("f64", (3, 6)), {}),
+        ("histogram", _one("f32", (50,)), {"bins": 7}),
+        ("bincount", lambda r: [_arr(r, (20,), "nat"), _arr(r, (20,))], {"minlength": 12}),
+        ("check_shape", lambda r: [[2, 3]], {}),
+    ]
+
+
+def tensor_api_cases():
+    """Every function of the namespace with at least one case: (name, build,
+    kwargs, check), check "value" (the same on both devices, by result
+    dtype: TENSOR_API_TOL), "decomposition" or "random"."""
+    cases = []
+    for name in _ONE_ARG:
+        cases.append((name, _one(_UNARY_DOMAIN.get(name, "f32"),
+                                 (4, 4) if name in ("glu", "swiglu") else (3, 4)), {}, "value"))
+    for name in ("exp", "sqrt", "sum", "mean", "cumsum", "floor", "abs", "sign"):
+        cases.append((name, _one("nat" if name == "sqrt" else "i64"), {}, "value"))
+    for name in ("add", "multiply", "relu", "gelu", "softmax", "mean", "matmul"):
+        build = (lambda r: [_arr(r, (3, 4)).astype(np.float32), _arr(r, (4, 3))]) \
+            if name == "matmul" else _two() if name in ("add", "multiply") else _one()
+        cases.append((name, build, {"bf16": True}, "value"))
+    for name in _TWO_ARG:
+        cases.append((name, _two("f32", "pos" if name in ("divide", "remainder", "mod",
+                                                          "floor_mod", "floor_divide")
+                                 else "f32", (3, 4), (4,) if name == "inner" else (3, 4)),
+                      {}, "value"))
+    cases.append(("multiply", lambda r: [_arr(r, (3, 4), "i64"), 2.5], {}, "value"))
+    cases.append(("divide", _two("i64", "nat"), {}, "value"))
+    for name in _INT_BINARY.split():
+        cases.append((name, _two("nat", "nat"), {}, "value"))
+    for name, n in _BOOL_UNARY_BINARY.items():
+        cases.append((name, _one("bool") if n == 1 else _two("bool", "bool"), {}, "value"))
+    cases += [(n, b, kw, "value") for n, b, kw in _explicit_cases()]
+    sq = lambda r: [_spd(r, 5)]     # noqa: E731
+    for name, build in (("svd", _one("f64", (5, 3))), ("qr", _one("f64", (5, 3))),
+                        ("eigh", sq), ("eig", _one("f64", (4, 4))),
+                        ("eigvals", _one("f64", (4, 4))), ("lu", _one("f64", (4, 4))),
+                        ("lu_unpack", _one("f64", (4, 4)))):
+        cases.append((name, build, {}, "decomposition"))
+    for name in ("rand", "randn", "standard_normal", "normal", "uniform", "randint",
+                 "randint_like", "randperm", "bernoulli", "multinomial", "poisson",
+                 "gumbel_softmax"):
+        cases.append((name, None, {}, "random"))
+    return cases
+
+
+def _on(a, dev, bf16=False):
+    if isinstance(a, _L):
+        return [_on(x, dev, bf16) for x in a]
+    if isinstance(a, np.ndarray):
+        t = torch.from_numpy(a.copy()).to(dev)
+        return t.to(torch.bfloat16) if bf16 and t.is_floating_point() else t
+    return a
+
+
+def _tensor_api_call(P, name, build, kwargs, dev, seed):
+    """Op ``name`` of ``P`` on ``dev`` (the current place set to it), on the
+    inputs of ``build`` from RandomState(seed); the result on the CPU."""
+    kwargs = dict(kwargs)
+    bf16 = kwargs.pop("bf16", False)
+    P.set_device("cpu" if dev == "cpu" else "gpu")
+    args = [_on(a, dev, bf16) for a in build(np.random.RandomState(seed))]
+    with torch.no_grad():
+        out = getattr(P, name)(*args, **kwargs)
+    return _to_cpu(out)
+
+
+def _to_cpu(out):
+    if isinstance(out, (list, tuple)):
+        return type(out)(_to_cpu(o) for o in out)
+    return out.cpu() if torch.is_tensor(out) else out
+
+
+def _tensor_api_close(what, got, want):
+    """``got`` (card) against ``want`` (CPU): structure, dtype, shape; integer,
+    bool and index values equal, floats within TENSOR_API_TOL. Returns the
+    largest absolute difference."""
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            raise AssertionError(f"tensor_api {what}: {got!r} against {want!r}")
+        return max([_tensor_api_close(f"{what}[{i}]", g, w)
+                    for i, (g, w) in enumerate(zip(got, want))] or [0.0])
+    if not torch.is_tensor(want):
+        if got != want:
+            raise AssertionError(f"tensor_api {what}: {got!r} against {want!r}")
+        return 0.0
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"tensor_api {what}: {got.dtype} {tuple(got.shape)} against "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not (want.is_floating_point() or want.is_complex()):
+        if not torch.equal(got, want):
+            raise AssertionError(f"tensor_api {what}: {got} against {want}")
+        return 0.0
+    rtol, atol = TENSOR_API_TOL[str(want.dtype).replace("torch.", "")]
+    g, w = got.to(torch.complex128 if want.is_complex() else torch.float64), \
+        want.to(torch.complex128 if want.is_complex() else torch.float64)
+    if not torch.allclose(g, w, rtol=rtol, atol=atol, equal_nan=True):
+        raise AssertionError(f"tensor_api {what}: max |card - cpu| "
+                             f"{(g - w).abs().nan_to_num().max().item():.3e} past "
+                             f"rtol {rtol} atol {atol}")
+    return (g - w).abs().nan_to_num().max().item() if w.numel() else 0.0
+
+
+def _decomposition_check(P, name, build, seed):
+    """The card's factors by what is unique: values against the CPU's, the
+    input rebuilt within TENSOR_API_REC_TOL, orthogonality."""
+    a = build(np.random.RandomState(seed))[0]
+    A = torch.from_numpy(a).cuda()
+    rec = lambda got: _tensor_api_close(name + " reconstruction", got.cpu(),  # noqa: E731
+                                        torch.from_numpy(a).to(got.dtype))
+    P.set_device("gpu")
+    if name == "svd":
+        u, s, v = P.linalg.svd(A)
+        _tensor_api_close("svd s", s.cpu(), P.linalg.svd(A.cpu())[1])
+        rec(u @ torch.diag(s) @ v.T)
+        _tensor_api_close("svd v^T v", (v.T @ v).cpu(), torch.eye(v.shape[1], dtype=v.dtype))
+    elif name == "qr":
+        q, r = P.linalg.qr(A)
+        _tensor_api_close("qr |r|", r.abs().cpu(), P.linalg.qr(A.cpu())[1].abs())
+        rec(q @ r)
+        _tensor_api_close("qr q^T q", (q.T @ q).cpu(), torch.eye(q.shape[1], dtype=q.dtype))
+    elif name == "eigh":
+        w, v = P.linalg.eigh(A)
+        _tensor_api_close("eigh w", w.cpu(), P.linalg.eigh(A.cpu())[0])
+        rec(v @ torch.diag(w) @ v.T)
+    elif name in ("eig", "eigvals"):
+        w = P.linalg.eig(A)[0] if name == "eig" else P.linalg.eigvals(A)
+        ref = P.linalg.eigvals(A.cpu())
+        key = lambda z: (round(z.real, 9), round(z.imag, 9))  # noqa: E731
+        _tensor_api_close(name + " sorted w", torch.tensor(sorted(w.cpu().tolist(), key=key)),
+                          torch.tensor(sorted(ref.tolist(), key=key)))
+        if name == "eig":
+            v = P.linalg.eig(A)[1]
+            _tensor_api_close("eig A v = v w", (A.to(v.dtype) @ v).cpu(),
+                              (v @ torch.diag(w)).cpu())
+    else:   # lu, lu_unpack
+        lu_, piv = P.linalg.lu(A)
+        p_, l_, u_ = P.linalg.lu_unpack(lu_, piv)
+        rec(p_ @ l_ @ u_)
+
+
+def _random_check(P, name):
+    """A random op on the card's generator: dtype and shape as on the CPU,
+    the card's device, the range, the first two moments within 5 standard
+    errors, and the same draws again after ``seed``."""
+    n = TENSOR_API_DRAWS
+    draws = {
+        "rand": (lambda: P.rand([n]), (0, 1), 0.5, 1 / 12),
+        "randn": (lambda: P.randn([n]), None, 0.0, 1.0),
+        "standard_normal": (lambda: P.standard_normal([n], dtype="float64"), None, 0.0, 1.0),
+        "normal": (lambda: P.normal(2.0, 0.5, [n]), None, 2.0, 0.25),
+        "uniform": (lambda: P.uniform([n], min=-2.0, max=2.0), (-2, 2), 0.0, 16 / 12),
+        "randint": (lambda: P.randint(0, 10, [n]), (0, 9), 4.5, 99 / 12),
+        "randint_like": (lambda: P.randint_like(P.zeros([n], dtype="int32"), 0, 5), (0, 4),
+                         2.0, 2.0),
+        "randperm": (lambda: P.randperm(1000), (0, 999), None, None),
+        "bernoulli": (lambda: P.bernoulli(P.full([n], 0.3)), (0, 1), 0.3, 0.21),
+        "multinomial": (lambda: P.multinomial(P.to_tensor([0.2, 0.3, 0.5]), n,
+                                              replacement=True), (0, 2), 1.3, 0.61),
+        "poisson": (lambda: P.poisson(P.full([n], 3.0)), None, 3.0, 3.0),
+        "gumbel_softmax": (lambda: P.gumbel_softmax(P.zeros([n, 2]))[:, 0], (0, 1), 0.5, None),
+    }
+    fn, rng, mean, var = draws[name]
+    P.set_device("cpu")
+    cpu = fn()
+    P.set_device("gpu")
+    P.seed(2024)
+    a = fn()
+    P.seed(2024)
+    b = fn()
+    if a.device.type != "cuda" or a.dtype != cpu.dtype or a.shape != cpu.shape:
+        raise AssertionError(f"tensor_api {name}: {a.device} {a.dtype} {tuple(a.shape)} against "
+                             f"the CPU's {cpu.dtype} {tuple(cpu.shape)}")
+    if not torch.equal(a, b):
+        raise AssertionError(f"tensor_api {name}: the card's draws differ after the same seed")
+    x = a.double()
+    if rng is not None and (x.min() < rng[0] or x.max() > rng[1]):
+        raise AssertionError(f"tensor_api {name}: draws outside {rng}")
+    if name == "randperm":
+        if not torch.equal(x.sort().values.cpu(), torch.arange(1000, dtype=torch.float64)):
+            raise AssertionError("tensor_api randperm: not a permutation")
+        return
+    if abs(x.mean().item() - mean) > 5 * ((var or 0.25) / x.numel()) ** 0.5:
+        raise AssertionError(f"tensor_api {name}: mean {x.mean().item()} against {mean}")
+    if var is not None and abs(x.var().item() - var) > 5 * var * (2 / x.numel()) ** 0.5 * 1.5:
+        raise AssertionError(f"tensor_api {name}: var {x.var().item()} against {var}")
+
+
+def tensor_api_namespace_names():
+    """The functions the table must cover: the op namespace and the top
+    level's in-place helpers."""
+    from paddle_tpu_torch import ops
+
+    return set(ops.__all__) | {"tanh_", "squeeze_", "unsqueeze_", "scatter_", "tolist"}
+
+
+def run_tensor_api_table(P=None):
+    """Every case of ``tensor_api_cases`` on the card against the CPU;
+    returns {"cases": n, "max_abs_err": largest value difference}. Raises
+    when a function of the namespace has no case, or a case disagrees."""
+    if P is None:
+        import paddle_tpu_torch as P
+    cases = tensor_api_cases()
+    missing = tensor_api_namespace_names() - {c[0] for c in cases}
+    if missing:
+        raise AssertionError(f"tensor_api: no case for {sorted(missing)}")
+    place = P.get_place()
+    worst = 0.0
+    case_s = {}
+    try:
+        for i, (name, build, kwargs, check) in enumerate(cases):
+            t = time.perf_counter()
+            if check == "value":
+                got = _tensor_api_call(P, name, build, kwargs, "cuda", i)
+                want = _tensor_api_call(P, name, build, kwargs, "cpu", i)
+                worst = max(worst, _tensor_api_close(name, got, want))
+            elif check == "decomposition":
+                _decomposition_check(P, name, build, i)
+            else:
+                _random_check(P, name)
+            case_s[f"{name}-{i}"] = time.perf_counter() - t
+    finally:
+        P.set_device(place)
+    slowest = dict(sorted(case_s.items(), key=lambda kv: -kv[1])[:8])
+    return {"cases": len(cases), "max_abs_err": worst, "slowest_s": slowest}
+
+
+def _block_run(P, block, params, x, w, heads, ctx, namespace):
+    """Forward and the gradients of sum(out * w) w.r.t. x and every
+    parameter: the namespace's block (gradients by ``P.grad``), or
+    GPTBlock.forward (by torch.autograd)."""
+    with ctx():
+        out = tensor_api_block(P, x, params, heads) if namespace else block(x)
+    loss = (out.float() * w).sum()
+    grad = P.grad if namespace else torch.autograd.grad
+    return out, grad(loss, [x, *params.values()])
+
+
+def phase_tensor_api():
+    """The ported tensor API on the card: the namespace table against the
+    CPU, then GPT-2 124M's block 0 written in the namespace against
+    GPTBlock.forward at f32 and under bf16 auto_cast O1."""
+    import contextlib as _ctx
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.bench import card_name_and_power_limit
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    table = run_tensor_api_table(P)
+    table_s = time.perf_counter() - t0
+
+    t_model = time.perf_counter()
+    cfg = GPTConfig()
+    model = GPTForPretraining(cfg, seed=0)
+    block = model.gpt.blocks[0].eval()
+    params = dict(block.named_parameters())
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (8, 1024), generator=gen).cuda()
+    with torch.no_grad():
+        x0 = model.gpt.wte(ids) + model.gpt.wpe(torch.arange(1024, device="cuda"))
+    del model
+    model_s = time.perf_counter() - t_model
+    w = torch.from_numpy(np.random.RandomState(1).standard_normal((8, 1024, 768))
+                         .astype(np.float32)).cuda()
+    recs, launches = {}, {}
+    for dtype, ctx, tol in (("float32", _ctx.nullcontext, BLOCK_F32_TOL),
+                            ("bfloat16_O1", lambda: auto_cast(dtype="bfloat16"), BLOCK_BF16_TOL)):
+        x = x0.clone().requires_grad_(True)
+        ns_out, ns_grads = _block_run(P, block, params, x, w, cfg.num_heads, ctx, True)
+        _reset_launch_counts()
+        ref_out, ref_grads = _block_run(P, block, params, x, w, cfg.num_heads, ctx, False)
+        torch.cuda.synchronize()
+        launches[dtype] = _launch_counts()
+        route = "tf32x3" if dtype == "float32" else "mma"
+        if launches[dtype] != {"flash_attention_fwd": 1, "flash_attention_bwd_dkdv": 1,
+                               "flash_attention_bwd_dq": 1} or \
+                fa.launches_by_route[route] != 1 or fa.launches_bwd_by_route[route]["dq"] != 1:
+            raise AssertionError(f"tensor_api {dtype}: GPTBlock launched {launches[dtype]}, "
+                                 f"{dict(fa.launches_by_route)}, expected one {route} each")
+        if ns_out.dtype != ref_out.dtype or not torch.isfinite(ns_out).all():
+            raise AssertionError(f"tensor_api {dtype}: block out {ns_out.dtype} against "
+                                 f"GPTBlock's {ref_out.dtype}")
+        errs = {"out": rel_frob(ns_out, ref_out)}
+        for name, g, r in zip(["x", *params], ns_grads, ref_grads):
+            errs["d" + name] = rel_frob(g, r)
+        bad = {k: e for k, e in errs.items() if not e <= tol}
+        if bad:
+            raise AssertionError(f"tensor_api {dtype}: relative Frobenius errors past {tol}: "
+                                 f"{bad}")
+        ns_ms = cuda_ms(lambda: _block_run(P, block, params, x, w, cfg.num_heads, ctx, True),
+                        iters=5)
+        ref_ms = cuda_ms(lambda: _block_run(P, block, params, x, w, cfg.num_heads, ctx, False),
+                         iters=5)
+        recs[dtype] = {"namespace_fwd_bwd_ms": ns_ms, "gptblock_fwd_bwd_ms": ref_ms,
+                       "max_rel_frob": max(errs.values()), "rel_frob": errs, "tol": tol,
+                       "out_dtype": str(ns_out.dtype)}
+    seconds = time.perf_counter() - t0
+    emit(phase="tensor_api", card=card_name_and_power_limit(), table=table, table_s=table_s,
+         model_s=model_s,
+         block={"model": "gpt2-124m block 0", "x": [8, 1024, 768], "heads": cfg.num_heads,
+                **recs}, launches=launches, seconds=seconds)
+    if seconds > TENSOR_API_MAX_S:
+        raise AssertionError(f"tensor_api took {seconds:.1f} s, past {TENSOR_API_MAX_S} s")
+    del block, params, x0, w
+    torch.cuda.empty_cache()
+    return {"float32": launches["float32"], "bf16": launches["bfloat16_O1"]}
+
+
 PHASE_SECONDS = {}
 
 
@@ -6045,6 +6606,7 @@ def main() -> int:
     lm_recs = _timed("lm_loss_kernels", phase_lm_loss_kernels, ids)
     library_launches = _timed("library_ops", phase_library_ops, ids)
     _timed("probe", phase_probe, per_source["lm_loss"] or None)
+    tensor_api_launches = _timed("tensor_api", phase_tensor_api)
 
     # the training main path runs attention in bf16 at [8, 1024, 12, 64] (the
     # tensor-core forward and backward pair; the bench's gpt_1p3b run at [4,
@@ -6058,24 +6620,24 @@ def main() -> int:
     pallas = "paddle_tpu/ops/pallas/"
     rows = [  # (name, path, record, source, replaces)
         ("flash_attention_fwd",
-         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp, ernie",
+         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp, ernie, tensor_api",
          fwd["slice_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_fwd_f32", "score, train_f32, dp_eager, tp_sp, pp, ernie",
+        ("flash_attention_fwd_f32", "score, train_f32, dp_eager, tp_sp, pp, ernie, tensor_api",
          fwd["slice_f32_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_bwd_dkdv",
-         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp, ernie",
+         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp, ernie, tensor_api",
          bwd["train_bf16_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
         ("flash_attention_bwd_dq",
-         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp, ernie",
+         "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp, ernie, tensor_api",
          bwd["train_bf16_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
-        ("flash_attention_bwd_dkdv_f32", "train_f32, dp_eager, tp_sp, pp",
+        ("flash_attention_bwd_dkdv_f32", "train_f32, dp_eager, tp_sp, pp, tensor_api",
          bwd["train_f32_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq_f32", "train_f32, dp_eager, tp_sp, pp",
+        ("flash_attention_bwd_dq_f32", "train_f32, dp_eager, tp_sp, pp, tensor_api",
          bwd["train_f32_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
         ("flash_attention_fwd_ernie", "ernie", fwd["ernie_bf16_noncausal"],
@@ -6126,11 +6688,12 @@ def main() -> int:
     counts = {**{k: launches[k] + obs_launches[k] + rules_launches[k] + dp_launches[k]
                  + ckpt_launches[k] + dp_eager_launches["bf16"][k]
                  + tp_sp_launches["bf16"][k] + pp_launches["bf16"][k]
-                 + ernie_launches["bf16"][k] for k in launches},
+                 + ernie_launches["bf16"][k] + tensor_api_launches["bf16"][k]
+                 for k in launches},
               **bench_launches,
               **{f"{k}_f32": f32_launches[k] + dp_eager_launches["f32"][k]
                  + tp_sp_launches["f32"][k] + pp_launches["f32"][k]
-                 + ernie_launches["f32"][k]
+                 + ernie_launches["f32"][k] + tensor_api_launches["float32"][k]
                  + (score_launches if k == "flash_attention_fwd" else 0)
                  for k in _launch_counts_keys()},
               **{f"{k}_ernie": ernie_launches["bf16"][k] for k in _launch_counts_keys()},

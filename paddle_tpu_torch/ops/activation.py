@@ -4,8 +4,12 @@ Paddle's semantics and defaults, PyTorch inside. Each op looks itself up
 under ``amp.auto_cast`` by the JAX op name (``cast_inputs``): ``softmax``
 and ``log_softmax`` are black-listed (f32 under O1), the rest keep their
 input dtype at O1. ``rrelu`` in training draws its slopes from an explicit
-``torch.Generator`` (torch's default one when None), where the JAX op
-draws from its global key: the slopes differ by design.
+``torch.Generator`` (torch's default one when None), and
+``gumbel_softmax`` its noise from the device's generator of
+``core/random.py``, where the JAX ops draw from the global key: the draws
+differ by design. The in-place ops (``relu_``, ``elu_``, ``tanh_``,
+``softmax_``) write into their input through torch's in-place ops, which
+raise on a leaf that requires grad (the reference rebinds its buffer there).
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import torch
 import torch.nn.functional as TF
 
 from ..amp import cast_inputs
+from ..core import random as random_mod
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -142,3 +147,39 @@ def maxout(x, groups, axis=1, name=None):
 def glu(x, axis=-1, name=None):
     (x,) = cast_inputs("glu", x)
     return TF.glu(x, dim=axis)
+
+
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None):
+    (x,) = cast_inputs("gumbel_softmax", x)
+    u = torch.empty_like(x).uniform_(1e-20, 1.0, generator=random_mod.generator(x.device))
+    y = torch.softmax((x - torch.log(-torch.log(u))) / temperature, dim=axis)
+    if hard:
+        y_hard = (y == y.amax(dim=axis, keepdim=True)).to(y.dtype)
+        y = (y_hard - y).detach() + y
+    return y
+
+
+def swiglu(x, y=None, name=None):
+    """silu(x) * y, or of the two halves of x's last axis without y."""
+    if y is None:
+        (x,) = cast_inputs("swiglu", x)
+        x, y = torch.chunk(x, 2, dim=-1)
+    else:
+        x, y = cast_inputs("swiglu", x, y)
+    return TF.silu(x) * y
+
+
+def relu_(x, name=None):
+    return x.relu_()
+
+
+def elu_(x, alpha=1.0, name=None):
+    return TF.elu_(x, alpha)
+
+
+def tanh_(x, name=None):
+    return x.tanh_()
+
+
+def softmax_(x, axis=-1, dtype=None, name=None):
+    return x.copy_(softmax(x, axis, dtype))

@@ -2256,3 +2256,19 @@ def test_ps_lookup_with_rows_on_card_pushes_the_cpu_merged_gradient(cuda):
             client.close()
             server.stop()
     np.testing.assert_array_equal(after["cuda"], after["cpu"])
+
+
+def test_the_tensor_api_table_on_card_matches_the_cpu(cuda):
+    """chip_smoke.py's tensor_api table: every function of the namespace on
+    the card against the CPU (values by result dtype at chip_smoke.py's
+    TENSOR_API_TOL, decompositions by reconstruction, random ops by dtype,
+    device, moments and determinism under seed on the card's generator)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    rec = cs.run_tensor_api_table()
+    assert rec["cases"] >= len(cs.tensor_api_namespace_names())

@@ -264,3 +264,22 @@ def test_the_top_level_names_load_lazily():
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and "OK" in res.stdout, res.stdout + res.stderr
+
+
+TENSOR_API_MODULES = (
+    "paddle_tpu_torch.core.dtype", "paddle_tpu_torch.core.place", "paddle_tpu_torch.core.random",
+    "paddle_tpu_torch.core.autograd", "paddle_tpu_torch.autograd", "paddle_tpu_torch.ops",
+    "paddle_tpu_torch.ops._helpers", "paddle_tpu_torch.ops.attribute",
+    "paddle_tpu_torch.ops.creation", "paddle_tpu_torch.ops.math",
+    "paddle_tpu_torch.ops.reduction", "paddle_tpu_torch.ops.manipulation",
+    "paddle_tpu_torch.ops.linalg", "paddle_tpu_torch.ops.activation",
+    "paddle_tpu_torch.tools.op_coverage")
+
+
+def test_the_tensor_api_modules_are_among_them():
+    assert set(TENSOR_API_MODULES) <= set(_port_modules())
+    for mod in TENSOR_API_MODULES:   # the AST scan's view of each, by name
+        path = ROOT / (mod.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / mod.replace(".", "/") / "__init__.py"
+        assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, mod
