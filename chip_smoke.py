@@ -408,14 +408,47 @@ each:
    each flash kernel on the dtype's route in GPTBlock's checked call.
    Printed: both forward + backward ms, the errors, the phase's seconds
    (at most TENSOR_API_MAX_S). No kernel of ops/kernels/ runs in the
-   namespace's ops.
+   namespace's ops. The table also holds the nn API's second half
+   (nn_api_cases, which fail when a name of NN_FUNCTIONAL_NEW,
+   NN_LAYERS_NEW, nn.initializer or nn.utils has no case): each new
+   nn.functional op on the card against the CPU as above; each new layer
+   built on the CPU and a copy on the card, in eval, on the same inputs;
+   each initializer through create_parameter on the card (deterministic
+   ones equal to the CPU's, random ones by moments, bounds and the same
+   draws after seed, Orthogonal by |q^T q - I| < NN_ORTHO_TOL); nn.utils on
+   a Linear and its copy; the dropouts of this slice by their generator and
+   keep share, class_center_sample by its set.
+16. nn_transformer: paddle_tpu_torch.nn.TransformerEncoder at
+   ERNIE-3.0-base width (phase_nn_transformer): d_model 768, 12 heads
+   (head dim 64), dim_feedforward 3072, 12 layers, gelu, post-norm, no
+   dropout, no mask, weights from nn.initializer after seed(0). f32 at [2,
+   512]: the card (the 3xTF32 flash forward and pair, 12 launches each)
+   against the same module on the CPU and against it in f64 on the card,
+   the output and every gradient of sum(out * w) within NN_TF_F32_TOL +
+   NN_TF_F32_COND x the CPU's own error against f64, relative Frobenius,
+   leaf by leaf (python -m paddle_tpu_torch.tools.nn_transformer_control
+   reads the same check with the flash kernels' 3xTF32 product cut to two
+   or one TF32 pass). bf16 auto_cast O1
+   at [16, 512]: one forward + backward with 12 tensor-core launches of the
+   flash forward and of each backward kernel, non-causal (the main path's
+   count on the kernels line, rows 1e-3e), its output within
+   NN_TF_BF16_TOL of the card's f32 output, then timed. A MultiHeadAttention
+   with a boolean key-padding mask (the dense route, no launch) and an
+   nn.Transformer of 2 + 2 layers with generate_square_subsequent_mask
+   (its encoder through the 3xTF32 kernels), each against the CPU within
+   NN_TF_SMALL_TOL. Printed with the card's name and power limit: forward
+   + backward ms and tokens/s of the bf16 step, the f32 forward ms, the
+   errors, the phase's seconds (at most NN_TF_MAX_S).
 10. the ``kernels`` line: every ported kernel with the path that launched
    it (the training main path's timed steps, the train_obs steps, the
    train_rules runs, the dp and dp_eager phases' runs on rank 0, the
    ckpt phase's steps, the tp_sp phase's bf16 step at mp 1 and its
    virtual rings, the pp phase's virtual rings and its pp = 1 steps, the
-   ernie phase's flash steps (rows 1-3, and 1f for its f32 eval forward;
-   the "_ernie" rows at its [16, 512, 12, 64] non-causal shape), the
+   ernie phase's flash steps (the "_ernie" rows at its [16, 512, 12, 64]
+   non-causal shape, with the nn_transformer phase's bf16 step; the
+   "_f32_ernie" row for ERNIE's f32 eval forward and the forwards of
+   nn_transformer's f32 check at [2, 512]; that check's f32 backward pair
+   on the causal f32 rows, which have no non-causal twin), the
    tensor_api phase's GPTBlock calls (rows 1-3 and 1f-3f, one each), the
    f32 steps, scoring, the bench's gpt_1p3b run for the d = 128 rows, or a
    library_ops pass; the flash backward and the
@@ -6282,8 +6315,11 @@ def _tensor_api_call(P, name, build, kwargs, dev, seed):
     bf16 = kwargs.pop("bf16", False)
     P.set_device("cpu" if dev == "cpu" else "gpu")
     args = [_on(a, dev, bf16) for a in build(np.random.RandomState(seed))]
+    fn = P
+    for part in name.split("."):     # "nn.functional.<name>" and the like
+        fn = getattr(fn, part)
     with torch.no_grad():
-        out = getattr(P, name)(*args, **kwargs)
+        out = fn(*args, **kwargs)
     return _to_cpu(out)
 
 
@@ -6408,6 +6444,389 @@ def _random_check(P, name):
         raise AssertionError(f"tensor_api {name}: var {x.var().item()} against {var}")
 
 
+# ---- the nn API's second half (paddle_tpu_torch.nn) in the tensor_api table ----
+
+NN_FUNCTIONAL_NEW = (     # the nn.functional names of ROADMAP Queue 1 item 16
+    "affine_grid alpha_dropout bilinear class_center_sample conv1d_transpose "
+    "conv2d_transpose conv3d_transpose cosine_embedding_loss cosine_similarity ctc_loss "
+    "diag_embed dice_loss dropout2d dropout3d fold gather_tree grid_sample group_norm "
+    "hinge_embedding_loss hsigmoid_loss instance_norm interpolate local_response_norm "
+    "log_loss margin_cross_entropy margin_ranking_loss max_unpool1d max_unpool2d "
+    "max_unpool3d normalize npair_loss pixel_shuffle rms_norm sequence_mask "
+    "sigmoid_focal_loss sparse_attention square_error_cost temporal_shift unfold upsample "
+    "zeropad2d").split()
+NN_LAYERS_NEW = (         # and its layers
+    "AlphaDropout Bilinear CosineSimilarity Dropout2D Dropout3D Fold Pad1D Pad2D Pad3D "
+    "PairwiseDistance PixelShuffle SpectralNorm Unfold Upsample UpsamplingBilinear2D "
+    "UpsamplingNearest2D ZeroPad2D GroupNorm InstanceNorm1D InstanceNorm2D InstanceNorm3D "
+    "LocalResponseNorm RMSNorm CTCLoss CosineEmbeddingLoss HSigmoidLoss HingeEmbeddingLoss "
+    "MarginRankingLoss Conv1DTranspose Conv2DTranspose Conv3DTranspose MaxUnPool1D "
+    "MaxUnPool2D MaxUnPool3D MultiHeadAttention TransformerEncoderLayer TransformerEncoder "
+    "TransformerDecoderLayer TransformerDecoder Transformer").split()
+
+
+def _nn_functional_cases():
+    f = "nn.functional."
+    lab = lambda r, shape, hi: r.randint(0, hi, shape).astype(I64)  # noqa: E731
+    ties = lambda r, shape: r.randint(0, 4, shape).astype(np.float32)  # noqa: E731
+    pooled = lambda nd: (lambda r: list(_unpool_inputs(r, nd)))  # noqa: E731
+    return [
+        (f + "conv1d_transpose", lambda r: [_arr(r, (2, 4, 7)), _arr(r, (4, 3, 3))],
+         {"stride": 2, "padding": 1, "output_padding": 1}),
+        (f + "conv2d_transpose", lambda r: [_arr(r, (2, 4, 9, 9)), _arr(r, (4, 3, 3, 3)),
+                                            _arr(r, (3,))],
+         {"stride": 2, "padding": 1, "output_size": [18, 18]}),
+        (f + "conv2d_transpose", lambda r: [_arr(r, (2, 4, 5, 5)), _arr(r, (4, 2, 3, 3))],
+         {"padding": [1, 0, 2, 1], "groups": 2, "dilation": 2}),
+        (f + "conv3d_transpose", lambda r: [_arr(r, (1, 2, 3, 4, 4)), _arr(r, (2, 2, 2, 2, 2))],
+         {"stride": 2}),
+        (f + "max_pool2d", lambda r: [ties(r, (2, 3, 7, 6))],
+         {"kernel_size": 3, "stride": 1, "return_mask": True}),
+        (f + "max_unpool1d", pooled(1), {"kernel_size": 2}),
+        (f + "max_unpool2d", pooled(2), {"kernel_size": 2}),
+        (f + "max_unpool3d", pooled(3), {"kernel_size": 2}),
+        (f + "group_norm", lambda r: [_arr(r, (2, 6, 4, 3)), 3, _arr(r, (6,)), _arr(r, (6,))],
+         {}),
+        (f + "instance_norm", lambda r: [_arr(r, (2, 3, 5, 4))], {}),
+        (f + "local_response_norm", lambda r: [_arr(r, (2, 7, 3, 3)), 4], {"k": 2.0}),
+        (f + "rms_norm", lambda r: [_arr(r, (3, 5, 8)), _arr(r, (8,))], {}),
+        (f + "normalize", lambda r: [_arr(r, (3, 5))], {"p": 1, "axis": -1}),
+        (f + "interpolate", lambda r: [_arr(r, (2, 3, 8, 5))],
+         {"size": [5, 12], "mode": "bicubic"}),
+        (f + "interpolate", lambda r: [_arr(r, (2, 8, 5, 3))],
+         {"size": [3, 7], "mode": "bilinear", "data_format": "NHWC"}),
+        (f + "interpolate", lambda r: [_arr(r, (1, 2, 8, 5))], {"size": [12, 3]}),
+        (f + "upsample", lambda r: [_arr(r, (1, 2, 4, 3, 5))],
+         {"scale_factor": 2, "mode": "trilinear", "data_format": "NCDHW"}),
+        (f + "pixel_shuffle", lambda r: [_arr(r, (2, 8, 3, 3)), 2], {}),
+        (f + "unfold", lambda r: [_arr(r, (2, 3, 6, 7)), 3], {"strides": 2, "paddings": 1}),
+        (f + "fold", lambda r: [_arr(r, (2, 27, 12)), [6, 7], 3],
+         {"strides": 2, "paddings": 1}),
+        (f + "affine_grid", lambda r: [_arr(r, (2, 2, 3)), [2, 1, 4, 5]],
+         {"align_corners": False}),
+        (f + "grid_sample", lambda r: [_arr(r, (2, 3, 5, 4)), _arr(r, (2, 3, 6, 2), "unit")],
+         {"padding_mode": "zeros", "align_corners": False}),
+        (f + "grid_sample", lambda r: [_arr(r, (2, 3, 5, 4)), _arr(r, (2, 3, 6, 2), "unit")],
+         {"mode": "nearest", "padding_mode": "border"}),
+        (f + "temporal_shift", lambda r: [_arr(r, (6, 8, 2, 2)), 3], {}),
+        (f + "zeropad2d", lambda r: [_arr(r, (2, 3, 4, 4)), [1, 2, 0, 3]], {}),
+        (f + "diag_embed", lambda r: [_arr(r, (2, 3, 4))], {"offset": 1, "dim1": 0, "dim2": 2}),
+        (f + "sequence_mask", lambda r: [np.array([[3, 0], [5, 2]], I64)], {}),
+        (f + "sigmoid_focal_loss", lambda r: [_arr(r, (4, 3)), _arr(r, (4, 3), "bool")
+                                              .astype(np.float32)], {}),
+        (f + "margin_ranking_loss", lambda r: [_arr(r, (5,)), _arr(r, (5,)),
+                                               np.sign(_arr(r, (5,)))], {"margin": 0.2}),
+        (f + "cosine_similarity", lambda r: [_arr(r, (4, 6)), _arr(r, (4, 6))], {}),
+        (f + "cosine_embedding_loss", lambda r: [_arr(r, (4, 6)), _arr(r, (4, 6)),
+                                                 np.array([1, -1, 1, -1], I64)], {}),
+        (f + "square_error_cost", _two(), {}),
+        (f + "dice_loss", lambda r: [_arr(r, (3, 4, 5), "prob"), lab(r, (3, 4, 1), 5)], {}),
+        (f + "log_loss", lambda r: [_arr(r, (6, 1), "prob"), _arr(r, (6, 1), "bool")
+                                    .astype(np.float32)], {}),
+        (f + "npair_loss", lambda r: [_arr(r, (5, 4)), _arr(r, (5, 4)),
+                                      np.array([0, 1, 0, 2, 1], I64)], {}),
+        (f + "hinge_embedding_loss", lambda r: [_arr(r, (3, 4)), np.where(
+            _arr(r, (3, 4), "bool"), 1, -1).astype(I64)], {}),
+        (f + "hsigmoid_loss", lambda r: [_arr(r, (4, 6)), lab(r, (4,), 7), 7, _arr(r, (6, 6)),
+                                         _arr(r, (6, 1))], {}),
+        (f + "hsigmoid_loss", lambda r: [_arr(r, (3, 6)), lab(r, (3,), 5), 5, _arr(r, (5, 6)),
+                                         None, np.array([[0, 2, -1], [1, 3, 4], [0, -1, -1]],
+                                                        I64),
+                                         np.array([[1, 0, 0], [0, 1, 1], [1, 0, 0]], I64)],
+         {}),
+        (f + "margin_cross_entropy", lambda r: [_arr(r, (4, 6), "unit"), lab(r, (4,), 6)],
+         {"return_softmax": True, "reduction": "none"}),
+        (f + "ctc_loss", lambda r: [_arr(r, (12, 2, 5)), np.array([[1, 2, 2], [3, 4, 0]], I64),
+                                    np.array([12, 9], I64), np.array([3, 2], I64)], {}),
+        (f + "bilinear", lambda r: [_arr(r, (4, 3)), _arr(r, (4, 5)), _arr(r, (2, 3, 5)),
+                                    _arr(r, (2,))], {}),
+        (f + "sparse_attention", lambda r: [_arr(r, (2, 2, 5, 8)), _arr(r, (2, 2, 5, 8)),
+                                            _arr(r, (2, 2, 5, 8)),
+                                            np.tile(np.array([0, 1, 3, 4, 6, 8], np.int32),
+                                                    (2, 2, 1)),
+                                            np.tile(np.array([0, 0, 1, 2, 1, 3, 0, 4],
+                                                             np.int32), (2, 2, 1))], {}),
+        (f + "gather_tree", lambda r: [r.randint(0, 10, (5, 2, 3)).astype(I64),
+                                       r.randint(0, 3, (5, 2, 3)).astype(I64)], {}),
+        ("nn.initializer.calculate_gain", lambda r: ["leaky_relu", 0.3], {}),
+    ]
+
+
+def _unpool_inputs(r, nd):
+    """A max pool's values and mask (kernel 2) on the CPU, as numpy."""
+    import paddle_tpu_torch.nn.functional as TNF
+
+    shape = {1: (2, 3, 8), 2: (2, 2, 6, 4), 3: (1, 2, 4, 4, 2)}[nd]
+    v, i = getattr(TNF, f"max_pool{nd}d")(torch.from_numpy(_arr(r, shape)), 2,
+                                           return_mask=True)
+    return v.numpy(), i.numpy()
+
+
+def _nn_layer_cases():
+    """(name, build(rng) -> (constructor, inputs)): each new layer on the
+    CPU and a copy of it on the card, in eval, on the same inputs."""
+    def layer(name, args=(), kw=None, *shapes):
+        return (f"nn.{name}", lambda r: (
+            lambda: getattr(_nn(), name)(*args, **(kw or {})),
+            [s(r) if callable(s) else _arr(r, s) for s in shapes]))
+
+    ids = lambda shape, hi: (lambda r: r.randint(0, hi, shape).astype(I64))  # noqa: E731
+    sign = lambda shape: (lambda r: np.where(r.rand(*shape) > 0.5, 1, -1).astype(I64))  # noqa
+    d, h, ff = 32, 4, 64
+    return [
+        layer("AlphaDropout", (0.4,), None, (4, 5)),
+        layer("Bilinear", (3, 4, 2), None, (5, 3), (5, 4)),
+        layer("CosineSimilarity", (), {"axis": -1}, (4, 6), (4, 6)),
+        layer("Dropout2D", (0.4,), None, (2, 3, 4, 4)),
+        layer("Dropout3D", (0.4,), None, (2, 3, 2, 2, 2)),
+        layer("Fold", ([5, 6], 3), {"paddings": 1}, (2, 18, 30)),
+        layer("Pad1D", ([1, 2],), {"mode": "reflect"}, (2, 3, 5)),
+        layer("Pad2D", ([1, 0, 2, 1],), {"value": 0.5}, (1, 2, 3, 4)),
+        layer("Pad3D", ([1, 1, 0, 1, 1, 0],), {"mode": "replicate"}, (1, 2, 2, 3, 3)),
+        layer("PairwiseDistance", (), None, (4, 5), (4, 5)),
+        layer("PixelShuffle", (2,), None, (1, 8, 2, 3)),
+        layer("SpectralNorm", ((4, 3, 2),), {"dim": 1, "power_iters": 3}, (4, 3, 2)),
+        layer("Unfold", (3,), {"strides": 2}, (2, 2, 7, 6)),
+        layer("Upsample", (), {"size": [7, 5], "mode": "bilinear"}, (1, 2, 4, 6)),
+        layer("UpsamplingBilinear2D", (), {"size": [3, 9]}, (1, 2, 6, 4)),
+        layer("UpsamplingNearest2D", (), {"scale_factor": 3}, (1, 2, 2, 2)),
+        layer("ZeroPad2D", ([2, 1, 0, 1],), None, (1, 2, 3, 3)),
+        layer("GroupNorm", (2, 6), None, (2, 6, 3, 3)),
+        layer("InstanceNorm1D", (3,), None, (2, 3, 7)),
+        layer("InstanceNorm2D", (3,), None, (2, 3, 4, 4)),
+        layer("InstanceNorm3D", (2,), None, (1, 2, 3, 3, 3)),
+        layer("LocalResponseNorm", (3,), None, (2, 5, 3, 3)),
+        layer("RMSNorm", (6,), None, (2, 3, 6)),
+        layer("CTCLoss", (), None, (9, 2, 4), lambda r: np.array([[1, 2], [3, 3]], I64),
+              lambda r: np.array([9, 7], I64), lambda r: np.array([2, 2], I64)),
+        layer("CosineEmbeddingLoss", (), {"margin": 0.2}, (4, 5), (4, 5), sign((4,))),
+        layer("HSigmoidLoss", (4, 6), None, (3, 4), ids((3,), 6)),
+        layer("HingeEmbeddingLoss", (), None, (3, 4), sign((3, 4))),
+        layer("MarginRankingLoss", (), None, (6,), (6,), lambda r: np.sign(_arr(r, (6,)))),
+        layer("Conv1DTranspose", (3, 2, 3), {"stride": 2, "padding": 1}, (2, 3, 5)),
+        layer("Conv2DTranspose", (4, 6, 3), {"stride": 2, "groups": 2, "output_padding": 1},
+              (1, 4, 3, 3)),
+        layer("Conv3DTranspose", (2, 3, 2), {"stride": 2}, (1, 2, 2, 3, 2)),
+        ("nn.MaxUnPool1D", lambda r: (lambda: _nn().MaxUnPool1D(2),
+                                      list(_unpool_inputs(r, 1)))),
+        ("nn.MaxUnPool2D", lambda r: (lambda: _nn().MaxUnPool2D(2),
+                                      list(_unpool_inputs(r, 2)))),
+        ("nn.MaxUnPool3D", lambda r: (lambda: _nn().MaxUnPool3D(2),
+                                      list(_unpool_inputs(r, 3)))),
+        layer("MultiHeadAttention", (d, h), {"kdim": 16}, (2, 6, d), (2, 9, 16), (2, 9, d)),
+        layer("TransformerEncoderLayer", (d, h, ff), {"normalize_before": True}, (2, 6, d)),
+        ("nn.TransformerEncoder", lambda r: (
+            lambda: _nn().TransformerEncoder(_nn().TransformerEncoderLayer(
+                d, h, ff, activation="gelu"), 2), [_arr(r, (2, 6, d))])),
+        layer("TransformerDecoderLayer", (d, h, ff), None, (2, 5, d), (2, 7, d)),
+        ("nn.TransformerDecoder", lambda r: (
+            lambda: _nn().TransformerDecoder(_nn().TransformerDecoderLayer(d, h, ff), 2),
+            [_arr(r, (2, 5, d)), _arr(r, (2, 7, d))])),
+        ("nn.Transformer", lambda r: (
+            lambda: _nn().Transformer(d, h, 1, 1, ff),
+            [_arr(r, (2, 7, d)), _arr(r, (2, 5, d)), None,
+             _nn().Transformer.generate_square_subsequent_mask(5, "cpu").numpy()])),
+    ]
+
+
+def _nn():
+    import paddle_tpu_torch.nn as nn
+
+    return nn
+
+
+def _nn_layer_check(P, name, build, seed):
+    """A layer built on the CPU (torch seeded), its copy on the card, both in
+    eval on the same inputs: the card's output against the CPU's."""
+    import copy
+
+    make, inputs = build(np.random.RandomState(seed))
+    P.set_device("cpu")
+    torch.manual_seed(seed)
+    cpu = make().eval()
+    card = copy.deepcopy(cpu).cuda()
+    with torch.no_grad():
+        want = cpu(*[_on(a, "cpu") for a in inputs])
+        got = card(*[_on(a, "cuda") for a in inputs])
+    return _tensor_api_close(name, _to_cpu(got), _to_cpu(want))
+
+
+NN_INIT_MOMENTS = {   # initializer -> (make, JAX-layout shape, mean, std, bound)
+    "Normal": (lambda I: I.Normal(0.5, 2.0), (300, 200), 0.5, 2.0, None),
+    "normal": (lambda I: I.normal(0.0, 0.1), (300, 200), 0.0, 0.1, None),
+    "TruncatedNormal": (lambda I: I.TruncatedNormal(0.0, 1.0), (300, 200), 0.0, 0.8796, 2.0),
+    "Uniform": (lambda I: I.Uniform(-1.0, 1.0), (300, 200), 0.0, 1 / 3 ** 0.5, 1.0),
+    "uniform": (lambda I: I.uniform(0.0, 2.0), (300, 200), 1.0, 1 / 3 ** 0.5, None),
+    "XavierNormal": (lambda I: I.XavierNormal(), (300, 100), 0.0, (2 / 400) ** 0.5, None),
+    "XavierUniform": (lambda I: I.XavierUniform(), (300, 100), 0.0, (2 / 400) ** 0.5,
+                      (6 / 400) ** 0.5),
+    "KaimingNormal": (lambda I: I.KaimingNormal(), (256, 64), 0.0, (2 / 256) ** 0.5, None),
+    "KaimingUniform": (lambda I: I.KaimingUniform(), (256, 64), 0.0, (2 / 256) ** 0.5,
+                       (6 / 256) ** 0.5),
+}
+NN_ORTHO_TOL = 1e-5    # an f32 orthogonal matrix's |q^T q - I| (f32 rounding of q)
+NN_INIT_VALUES = {    # deterministic initializers: the card's parameter equals the CPU's
+    "Constant": lambda I: I.Constant(0.25), "constant": lambda I: I.constant(-1.0),
+    "Assign": lambda I: I.Assign(np.arange(24, dtype=np.float32).reshape(4, 6)),
+    "Dirac": lambda I: I.Dirac(groups=2), "Bilinear": lambda I: I.Bilinear(),
+}
+
+
+def _nn_init_check(P, name):
+    """An initializer through create_parameter on the card: device, dtype,
+    shape; values equal to the CPU's (deterministic ones), or moments within
+    5 standard errors, bounds and the same draws after ``seed`` (random
+    ones); Orthogonal by orthonormality; set_global_initializer by the bias
+    it gives."""
+    I = P.nn.initializer
+
+    def param(make, shape, dev):
+        P.set_device(dev)
+        return P.create_parameter(shape, attr=P.ParamAttr(initializer=make(I))).detach()
+
+    if name in NN_INIT_VALUES:
+        shape = (4, 6, 3, 3) if name in ("Dirac", "Bilinear") else (4, 6)
+        got = param(NN_INIT_VALUES[name], shape, "gpu")
+        want = param(NN_INIT_VALUES[name], shape, "cpu")
+        if got.device.type != "cuda":
+            raise AssertionError(f"tensor_api nn.initializer.{name}: on {got.device}")
+        return _tensor_api_close(f"nn.initializer.{name}", got.cpu(), want)
+    if name == "set_global_initializer":
+        I.set_global_initializer(I.Constant(0.5), I.Constant(0.3))
+        try:
+            P.set_device("gpu")
+            b = P.create_parameter([7], is_bias=True)
+            w = P.create_parameter([2, 3])
+        finally:
+            I.set_global_initializer(None)
+        if not (bool((b == 0.3).all()) and bool((w == 0.5).all()) and b.is_cuda):
+            raise AssertionError(f"tensor_api set_global_initializer: {b} {w}")
+        return 0.0
+    if name == "Orthogonal":
+        for shape in ((64, 256), (256, 64)):
+            q = param(lambda I: I.Orthogonal(), shape, "gpu").double()
+            gram = q.T @ q if shape[0] >= shape[1] else q @ q.T
+            err = (gram.cpu() - torch.eye(min(shape), dtype=torch.float64)).abs().max().item()
+            if not (q.is_cuda and err < NN_ORTHO_TOL):
+                raise AssertionError(f"tensor_api Orthogonal {shape}: |q^T q - I| {err}")
+        return 0.0
+    if name == "Initializer":
+        return 0.0 if issubclass(I.Normal, I.Initializer) else 1.0
+    make, shape, mean, std, bound = NN_INIT_MOMENTS[name]
+    P.seed(2024)
+    a = param(make, shape, "gpu")
+    P.seed(2024)
+    b = param(make, shape, "gpu")
+    if a.device.type != "cuda" or a.dtype != torch.float32 or tuple(a.shape) != shape:
+        raise AssertionError(f"tensor_api nn.initializer.{name}: {a.device} {a.dtype} "
+                             f"{tuple(a.shape)}")
+    if not torch.equal(a, b):
+        raise AssertionError(f"tensor_api nn.initializer.{name}: draws differ after seed")
+    x, n = a.double(), a.numel()
+    if abs(x.mean().item() - mean) > 5 * std / n ** 0.5 or \
+            abs(x.std().item() / std - 1) > 5 * (0.5 / n) ** 0.5 * 2 or \
+            (bound is not None and x.abs().max().item() > bound + 1e-6):
+        raise AssertionError(f"tensor_api nn.initializer.{name}: mean {x.mean().item()} std "
+                             f"{x.std().item()} against {mean}, {std}")
+    return 0.0
+
+
+def _nn_utils_check(P, name):
+    """nn.utils on a Linear (5 -> 3) built on the CPU and its copy on the
+    card: outputs, the normalized weights and vectors against the CPU's."""
+    import copy
+
+    U = P.nn.utils
+    P.set_device("cpu")
+    torch.manual_seed(0)
+    cpu = P.nn.Linear(5, 3)
+    x = torch.from_numpy(_arr(np.random.RandomState(0), (4, 5)))
+    if name in ("weight_norm", "remove_weight_norm"):
+        U.weight_norm(cpu, dim=0)
+    elif name == "spectral_norm":
+        U.spectral_norm(cpu, n_power_iterations=2)
+    card = copy.deepcopy(cpu).cuda()
+    if name == "remove_weight_norm":
+        U.remove_weight_norm(cpu)
+        U.remove_weight_norm(card)
+    if name in ("parameters_to_vector", "vector_to_parameters"):
+        vec = torch.arange(18, dtype=torch.float32)
+        if name == "vector_to_parameters":
+            U.vector_to_parameters(vec, cpu.parameters())
+            U.vector_to_parameters(vec.cuda(), card.parameters())
+        return _tensor_api_close(name, U.parameters_to_vector(card.parameters()).detach().cpu(),
+                                 U.parameters_to_vector(cpu.parameters()).detach())
+    with torch.no_grad():
+        return max(_tensor_api_close(f"nn.utils.{name}", card(x.cuda()).cpu(), cpu(x)),
+                   _tensor_api_close(f"nn.utils.{name} weight", card.weight.cpu(), cpu.weight))
+
+
+def _nn_random_check(P, name):
+    """A dropout of this slice (functional or layer, in training) on the card:
+    the same mask from the same generator seed, the keep share within 5
+    standard errors (whole channels for the 2-D and 3-D forms); and
+    class_center_sample's set: every positive, its size, the remap."""
+    if name == "nn.functional.class_center_sample":
+        P.set_device("gpu")
+        P.seed(5)
+        label = torch.tensor([7, 2, 7, 19, 2, 0], device="cuda")
+        remap, sampled = P.nn.functional.class_center_sample(label, 20, 8)
+        s = sampled.tolist()
+        if not (remap.is_cuda and len(s) == 8 and s == sorted(set(s))
+                and {0, 2, 7, 19} <= set(s) and [s[i] for i in remap.tolist()] == label.tolist()):
+            raise AssertionError(f"tensor_api class_center_sample: {s} {remap.tolist()}")
+        return
+    p, n, c = 0.3, 400, 50
+    x = torch.ones(n, c, 2, 2, device="cuda")
+    if name.startswith("nn.functional."):
+        fn = getattr(P.nn.functional, name.rsplit(".", 1)[1])
+        run = lambda s: fn(x if "3d" not in name else x[..., None],  # noqa: E731
+                           p, generator=torch.Generator("cuda").manual_seed(s))
+    else:
+        layer = getattr(P.nn, name.rsplit(".", 1)[1])(p).train()
+
+        def run(s):
+            layer.generator = torch.Generator("cuda").manual_seed(s)
+            return layer(x if "3D" not in name else x[..., None])
+    a, b = run(1), run(1)
+    if not (a.is_cuda and torch.equal(a, b)) or torch.equal(a, run(2)):
+        raise AssertionError(f"tensor_api {name}: the masks do not follow the generator")
+    if "alpha" in name.lower():
+        kept = (a == a.max()).double().mean().item()
+        units = a.numel()
+    else:
+        per = (a != 0).reshape(n, c, -1)
+        if not bool((per.all(-1) == per.any(-1)).all()):
+            raise AssertionError(f"tensor_api {name}: a channel partly dropped")
+        kept, units = per.all(-1).double().mean().item(), n * c
+    if abs(kept - (1 - p)) > 5 * (p * (1 - p) / units) ** 0.5:
+        raise AssertionError(f"tensor_api {name}: kept {kept} against {1 - p}")
+
+
+def nn_api_cases():
+    """The nn API's cases (name, build, kwargs, check): "value",
+    "layer", "init", "utils" or "random"."""
+    cases = [(n, b, kw, "value") for n, b, kw in _nn_functional_cases()]
+    cases += [(n, b, {}, "layer") for n, b in _nn_layer_cases()]
+    I = _nn().initializer
+    cases += [(f"nn.initializer.{n}", None, {}, "init") for n in I.__all__
+              if n != "calculate_gain"]
+    cases += [(f"nn.utils.{n}", None, {}, "utils") for n in _nn().utils.__all__]
+    cases += [(f"nn.functional.{n}", None, {}, "random")
+              for n in ("dropout2d", "dropout3d", "alpha_dropout", "class_center_sample")]
+    cases += [(f"nn.{n}", None, {}, "random") for n in ("Dropout2D", "Dropout3D", "AlphaDropout")]
+    return cases
+
+
+def nn_api_names():
+    """The nn names the table must cover."""
+    nn = _nn()
+    return ({f"nn.functional.{n}" for n in NN_FUNCTIONAL_NEW}
+            | {f"nn.initializer.{n}" for n in nn.initializer.__all__}
+            | {f"nn.utils.{n}" for n in nn.utils.__all__}
+            | {f"nn.{n}" for n in NN_LAYERS_NEW})
+
+
 def tensor_api_namespace_names():
     """The functions the table must cover: the op namespace and the top
     level's in-place helpers."""
@@ -6417,13 +6836,15 @@ def tensor_api_namespace_names():
 
 
 def run_tensor_api_table(P=None):
-    """Every case of ``tensor_api_cases`` on the card against the CPU;
-    returns {"cases": n, "max_abs_err": largest value difference}. Raises
-    when a function of the namespace has no case, or a case disagrees."""
+    """Every case of ``tensor_api_cases`` and ``nn_api_cases`` on the card
+    against the CPU; returns {"cases": n, "max_abs_err": largest value
+    difference}. Raises when a function of the namespace has no case, or a
+    case disagrees."""
     if P is None:
         import paddle_tpu_torch as P
-    cases = tensor_api_cases()
-    missing = tensor_api_namespace_names() - {c[0] for c in cases}
+    cases = tensor_api_cases() + nn_api_cases()
+    names = tensor_api_namespace_names() | nn_api_names()
+    missing = names - {c[0] for c in cases}
     if missing:
         raise AssertionError(f"tensor_api: no case for {sorted(missing)}")
     place = P.get_place()
@@ -6438,6 +6859,14 @@ def run_tensor_api_table(P=None):
                 worst = max(worst, _tensor_api_close(name, got, want))
             elif check == "decomposition":
                 _decomposition_check(P, name, build, i)
+            elif check == "layer":
+                worst = max(worst, _nn_layer_check(P, name, build, i))
+            elif check == "init":
+                worst = max(worst, _nn_init_check(P, name.rsplit(".", 1)[1]))
+            elif check == "utils":
+                worst = max(worst, _nn_utils_check(P, name.rsplit(".", 1)[1]))
+            elif name.startswith("nn."):
+                _nn_random_check(P, name)
             else:
                 _random_check(P, name)
             case_s[f"{name}-{i}"] = time.perf_counter() - t
@@ -6531,6 +6960,286 @@ def phase_tensor_api():
     return {"float32": launches["float32"], "bf16": launches["bfloat16_O1"]}
 
 
+# ---- phase nn_transformer: nn.TransformerEncoder at ERNIE-3.0-base width ----
+
+NN_TF_WIDTH = (768, 12, 3072, 12)   # d_model, heads (head dim 64), dim_feedforward, layers
+NN_TF_BATCH = (16, 512)             # the bf16 step's [batch, seq]
+NN_TF_CPU_BATCH = (2, 512)          # the f32 card-vs-CPU check's
+NN_TF_F32_TOL = 1e-4    # card (the 3xTF32 flash pair, f32 products, TF32 off) vs the CPU
+                        # (the dense path) and vs the module in f64 on the card, f32,
+                        # 12 post-norm layers: the output and each gradient of
+                        # sum(out * w) in relative Frobenius norm, leaf by leaf (sums
+                        # in other orders read ~1e-6; a dropped term or scale is off
+                        # by O(1)), plus NN_TF_F32_COND times the CPU's own error
+                        # against f64 at that leaf
+NN_TF_F32_COND = 10     # ... the top layers' q and k gradients pass the softmax's
+                        # Jacobian 3-4 decades below the value projection's: the
+                        # CPU's f32 reads ~3e-4 from f64 there (the phase's
+                        # cpu_vs_f64_max), 3xTF32 rounds a few times coarser than FP32.
+                        # Set between the least factor that passes 3xTF32 and those
+                        # that pass the kernels cut to two terms or one TF32 pass
+                        # (python -m paddle_tpu_torch.tools.nn_transformer_control;
+                        # both readings in PERF.md, PR 29)
+NN_TF_ZERO_TOL = 1e-2   # the k projection's bias, whose exact gradient is 0 (softmax
+                        # ignores a constant a query row): its norm on the card
+                        # against the q bias's
+NN_TF_BF16_TOL = 3e-2   # the bf16 O1 output against the card's f32 output, relative
+                        # Frobenius (bf16 products and P rounded to bf16, 12 layers)
+NN_TF_SMALL_TOL = 1e-4  # the masked MultiHeadAttention and the 2 + 2 layer Transformer,
+                        # card vs CPU, f32, relative Frobenius
+NN_TF_MAX_S = 40        # the phase's wall seconds
+
+
+def _nn_transformer_model(P, layers=NN_TF_WIDTH[3]):
+    """The phase's encoder on the CPU: gelu, post-norm, no dropout; every
+    layer a copy of the first (as nn.TransformerEncoder makes them), its
+    Linear weights XavierNormal and biases Normal(0, 0.02) from
+    nn.initializer after seed(0)."""
+    d, heads, ff, _ = NN_TF_WIDTH
+    P.set_device("cpu")
+    P.seed(0)
+    I = P.nn.initializer
+    layer = P.nn.TransformerEncoderLayer(
+        d, heads, ff, dropout=0.0, activation="gelu", normalize_before=False,
+        weight_attr=P.ParamAttr(initializer=I.XavierNormal()),
+        bias_attr=P.ParamAttr(initializer=I.Normal(0.0, 0.02)))
+    return P.nn.TransformerEncoder(layer, layers)
+
+
+def _nn_fwd_bwd(model, x, w):
+    out = model(x)
+    loss = (out.float() * w).sum()
+    return out, torch.autograd.grad(loss, [x, *model.parameters()])
+
+
+def nn_transformer_f32_runs(cpu_model, model):
+    """The phase's f32 runs at NN_TF_CPU_BATCH, on inputs from seed 0: the
+    output and every gradient of sum(out * w) of ``cpu_model`` (the dense
+    path), of its copy in f64 on the card (the dense path) and of ``model``,
+    its copy on the card (the 3xTF32 flash forward and pair). Returns
+    {"names", "card", "cpu", "f64": the tensors by name, "launches" and
+    "routes": the flash launches of the card's run, "cpu_s"}."""
+    import copy
+
+    rng = np.random.RandomState(0)
+    b, s = NN_TF_CPU_BATCH
+    x_np = rng.standard_normal((b, s, NN_TF_WIDTH[0])).astype(np.float32)
+    w_np = rng.standard_normal((b, s, NN_TF_WIDTH[0])).astype(np.float32)
+    t = time.perf_counter()
+    ref = _nn_fwd_bwd(cpu_model, torch.from_numpy(x_np).requires_grad_(True),
+                      torch.from_numpy(w_np))
+    cpu_s = time.perf_counter() - t
+    model64 = copy.deepcopy(cpu_model).double().cuda()
+    ref64 = _nn_fwd_bwd(model64, torch.from_numpy(x_np).double().cuda().requires_grad_(True),
+                        torch.from_numpy(w_np).double().cuda())
+    del model64
+    _reset_launch_counts()
+    got = _nn_fwd_bwd(model, torch.from_numpy(x_np).cuda().requires_grad_(True),
+                      torch.from_numpy(w_np).cuda())
+    torch.cuda.synchronize()
+    return {"names": ["out", "dx"] + [f"d{k}" for k, _ in model.named_parameters()],
+            "card": [got[0], *got[1]], "cpu": [ref[0], *ref[1]], "f64": [ref64[0], *ref64[1]],
+            "launches": _launch_counts(), "routes": _route_counts(), "cpu_s": cpu_s}
+
+
+def nn_tf_f32_readings(runs):
+    """{leaf: (card vs CPU, CPU vs f64, card vs f64)} in relative Frobenius
+    norm, for the output and each gradient of ``nn_transformer_f32_runs``
+    but the k projections' biases (exactly 0: nn_grad_errors holds them by
+    their size)."""
+    return {k: (rel_frob(g, c.to(g.device)), rel_frob(c.to(r.device), r), rel_frob(g, r))
+            for k, g, c, r in zip(runs["names"], runs["card"], runs["cpu"], runs["f64"])
+            if not k.endswith("k_proj.bias")}
+
+
+def nn_tf_f32_past(readings):
+    """The leaves whose card error, against the CPU or against f64, is past
+    NN_TF_F32_TOL + NN_TF_F32_COND x the CPU's own error against f64."""
+    return {k: r for k, r in readings.items()
+            if not max(r[0], r[2]) <= NN_TF_F32_TOL + NN_TF_F32_COND * r[1]}
+
+
+def nn_tf_f32_summary(readings):
+    """The worst leaf of each reading, and the least headroom: the largest
+    card error over its limit."""
+    def ratio(r):
+        return max(r[0], r[2]) / (NN_TF_F32_TOL + NN_TF_F32_COND * r[1])
+
+    worst = max(readings, key=lambda k: readings[k][0])
+    tight = max(readings, key=lambda k: ratio(readings[k]))
+    return {"max_rel_frob": readings[worst][0], "worst": worst,
+            "out_rel_frob": readings["out"][0],
+            "cpu_vs_f64_max": max(r[1] for r in readings.values()),
+            "card_vs_f64_max": max(r[2] for r in readings.values()),
+            "tightest": tight, "tightest_of_limit": ratio(readings[tight]),
+            "tol": [NN_TF_F32_TOL, NN_TF_F32_COND]}
+
+
+def phase_nn_transformer():
+    """nn.TransformerEncoder at ERNIE-3.0-base width through the flash
+    kernels (phase docstring item 16). Returns the flash launches of its
+    bf16 step and of its f32 runs: {"bf16": {kernel: n}, "f32": {kernel: n}}."""
+    import copy
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.bench import card_name_and_power_limit
+
+    t0 = time.perf_counter()
+    card = card_name_and_power_limit()
+    place = P.get_place()
+    n = NN_TF_WIDTH[3]
+    try:
+        cpu_model = _nn_transformer_model(P)
+        model = copy.deepcopy(cpu_model).cuda()
+        build_s = time.perf_counter() - t0
+        # f32, [2, 512]: the card (3xTF32 flash forward and pair) against the CPU
+        runs = nn_transformer_f32_runs(cpu_model, model)
+        del cpu_model
+        f32_launches = runs["launches"]
+        _check_route_launches("nn_transformer f32 vs cpu", *runs["routes"], n, n, "tf32x3")
+        nn_grad_errors(runs["names"], runs["card"], runs["cpu"])    # the k biases' size
+        readings, cpu_s = nn_tf_f32_readings(runs), runs["cpu_s"]
+        bad = nn_tf_f32_past(readings)
+        if bad or not bool(torch.isfinite(runs["card"][0]).all()):
+            raise AssertionError(f"nn_transformer f32 card vs CPU or f64 past {NN_TF_F32_TOL} "
+                                 f"+ {NN_TF_F32_COND} x the CPU's own error: {bad}")
+        del runs
+        # bf16 O1 at [16, 512]: the main path's step, 12 launches of each flash kernel
+        b, s = NN_TF_BATCH
+        g = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(b, s, NN_TF_WIDTH[0], device="cuda", generator=g)
+        w = torch.randn(b, s, NN_TF_WIDTH[0], device="cuda", generator=g)
+        with torch.no_grad():
+            out_f32 = model(x)
+        xg = x.clone().requires_grad_(True)
+
+        def step():
+            with auto_cast(dtype="bfloat16"):
+                return _nn_fwd_bwd(model, xg, w)
+
+        _reset_launch_counts()
+        out_bf16, grads = step()
+        torch.cuda.synchronize()
+        bf16_launches, bf16_routes = _launch_counts(), _route_counts()
+        _check_route_launches("nn_transformer bf16 step", *bf16_routes, n, n, "mma")
+        # post-norm: the last op is LayerNorm, black-listed under O1, so the
+        # output is f32 (as in the JAX package)
+        bf16_err, out_dtype = rel_frob(out_bf16, out_f32), str(out_bf16.dtype)
+        if not bf16_err <= NN_TF_BF16_TOL or not all(bool(torch.isfinite(q).all())
+                                                     for q in grads):
+            raise AssertionError(f"nn_transformer bf16: out {out_dtype}, {bf16_err} "
+                                 f"against the f32 output (tol {NN_TF_BF16_TOL})")
+        del out_bf16, grads
+        bf16_ms = cuda_ms(step, iters=5)
+        with torch.no_grad():
+            f32_fwd_ms = cuda_ms(lambda: model(x), iters=3)
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del model, x, w, xg, out_f32
+        gc.collect()
+        torch.cuda.empty_cache()
+        small = _nn_transformer_small(P)
+    finally:
+        P.set_device(place)
+    tokens = b * s
+    seconds = time.perf_counter() - t0
+    emit(phase="nn_transformer", card=card, model="TransformerEncoder d768 h12 ff3072 L12 "
+         "gelu post-norm", batch=[b, s], f32_vs_cpu={
+             "batch": list(NN_TF_CPU_BATCH), **nn_tf_f32_summary(readings),
+             "cpu_s": cpu_s},
+         bf16={"fwd_bwd_ms": bf16_ms, "tokens_per_s": tokens / (bf16_ms / 1e3),
+               "out_rel_frob_vs_f32": bf16_err, "tol": NN_TF_BF16_TOL,
+               "out_dtype": out_dtype, "peak_bytes": peak},
+         f32_fwd_ms=f32_fwd_ms, launches={"bf16": bf16_launches, "f32": f32_launches},
+         small=small, build_s=build_s, seconds=seconds)
+    print(f"nn_transformer: TransformerEncoder at ERNIE-3.0-base width [{b}, {s}] bf16 O1 "
+          f"{bf16_ms:.2f} ms forward + backward ({tokens / (bf16_ms / 1e3):.0f} tokens/s), "
+          f"f32 forward {f32_fwd_ms:.2f} ms ({card})", flush=True)
+    if seconds > NN_TF_MAX_S:
+        raise AssertionError(f"nn_transformer took {seconds:.1f} s, past {NN_TF_MAX_S} s")
+    return {"bf16": bf16_launches, "f32": f32_launches}
+
+
+def _nn_transformer_small(P):
+    """One MultiHeadAttention with a boolean key-padding mask (the dense
+    route: no flash launch) and one nn.Transformer of 2 + 2 layers with
+    generate_square_subsequent_mask (its encoder through the 3xTF32 flash
+    kernels, seq 256), f32, card against the CPU: outputs and gradients in
+    relative Frobenius norm (NN_TF_SMALL_TOL). Returns the errors."""
+    import copy
+
+    rng = np.random.RandomState(3)
+    d, heads = 256, 4
+    P.set_device("cpu")
+    torch.manual_seed(0)
+    mha = P.nn.MultiHeadAttention(d, heads)
+    tfm = P.nn.Transformer(d, heads, 2, 2, 512, dropout=0.0)
+    q = torch.from_numpy(rng.standard_normal((2, 200, d)).astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 256, d)).astype(np.float32))
+    keep = torch.ones(2, 1, 1, 256, dtype=torch.bool)
+    keep[1, ..., 180:] = False
+    src = torch.from_numpy(rng.standard_normal((2, 256, d)).astype(np.float32))
+    tgt = torch.from_numpy(rng.standard_normal((2, 64, d)).astype(np.float32))
+    errs = {}
+    for what, model, args in (("mha_bool_mask", mha, (q, kv, kv, keep)),
+                              ("transformer_2_2", tfm, (src, tgt))):
+        names, ref = _nn_small_run(model, args, None)
+        _reset_launch_counts()
+        _, got = _nn_small_run(copy.deepcopy(model).cuda(), [a.cuda() for a in args],
+                               P.nn.Transformer.generate_square_subsequent_mask(64, "cuda"))
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        want_fwd = 0 if what == "mha_bool_mask" else 2      # the encoder's two layers
+        if launches != {"flash_attention_fwd": want_fwd, "flash_attention_bwd_dkdv": want_fwd,
+                        "flash_attention_bwd_dq": want_fwd}:
+            raise AssertionError(f"nn_transformer {what}: launches {launches}")
+        errs[what] = max(nn_grad_errors(names, got, ref).values())
+        if not errs[what] <= NN_TF_SMALL_TOL:
+            raise AssertionError(f"nn_transformer {what}: card vs CPU {errs[what]} past "
+                                 f"{NN_TF_SMALL_TOL}")
+    return errs
+
+
+def nn_grad_errors(names, got, ref):
+    """Relative Frobenius errors of ``got`` against ``ref`` by name; a k
+    projection's bias, whose exact gradient is 0, is held instead by its
+    norm, at most NN_TF_ZERO_TOL of the q projection's bias gradient."""
+    errs = {}
+    for k, g, r in zip(names, got, ref):
+        if k.endswith("k_proj.bias"):
+            dq = got[names.index(k.replace("k_proj", "q_proj"))]
+            if not g.norm().item() <= NN_TF_ZERO_TOL * dq.norm().item():
+                raise AssertionError(f"nn_transformer {k}: |grad| {g.norm().item()} against "
+                                     f"the q bias's {dq.norm().item()}")
+            continue
+        errs[k] = rel_frob(g, r.to(g.device))
+    return errs
+
+
+def _nn_small_run(model, args, tgt_mask):
+    """(names, [output and gradients of sum(out * sin)]) over the inputs and
+    the parameters; the Transformer gets its square subsequent mask (on the
+    CPU when None)."""
+    import paddle_tpu_torch as P
+
+    args = [a.clone().requires_grad_(a.is_floating_point()) for a in args]
+    if isinstance(model, P.nn.Transformer):
+        mask = tgt_mask if tgt_mask is not None else \
+            P.nn.Transformer.generate_square_subsequent_mask(args[1].shape[1], "cpu")
+        out = model(args[0], args[1], None, mask)
+    else:
+        out = model(*args)
+    w = torch.sin(torch.arange(out.numel(), device=out.device, dtype=out.dtype)).reshape(
+        out.shape)
+    leaves = [a for a in args if a.requires_grad] + list(model.parameters())
+    names = ["out"] + [f"d{i}" for i, a in enumerate(args) if a.requires_grad] + [
+        f"d{k}" for k, _ in model.named_parameters()]
+    return names, [out.detach(), *torch.autograd.grad((out * w).sum(), leaves)]
+
+
 PHASE_SECONDS = {}
 
 
@@ -6607,6 +7316,7 @@ def main() -> int:
     library_launches = _timed("library_ops", phase_library_ops, ids)
     _timed("probe", phase_probe, per_source["lm_loss"] or None)
     tensor_api_launches = _timed("tensor_api", phase_tensor_api)
+    nn_launches = _timed("nn_transformer", phase_nn_transformer)
 
     # the training main path runs attention in bf16 at [8, 1024, 12, 64] (the
     # tensor-core forward and backward pair; the bench's gpt_1p3b run at [4,
@@ -6623,7 +7333,7 @@ def main() -> int:
          "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp, ernie, tensor_api",
          fwd["slice_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_fwd_f32", "score, train_f32, dp_eager, tp_sp, pp, ernie, tensor_api",
+        ("flash_attention_fwd_f32", "score, train_f32, dp_eager, tp_sp, pp, tensor_api",
          fwd["slice_f32_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_bwd_dkdv",
@@ -6634,19 +7344,23 @@ def main() -> int:
          "train, train_obs, train_rules, dp, dp_eager, ckpt, tp_sp, pp, ernie, tensor_api",
          bwd["train_bf16_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
-        ("flash_attention_bwd_dkdv_f32", "train_f32, dp_eager, tp_sp, pp, tensor_api",
+        ("flash_attention_bwd_dkdv_f32",
+         "train_f32, dp_eager, tp_sp, pp, tensor_api, nn_transformer",
          bwd["train_f32_causal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq_f32", "train_f32, dp_eager, tp_sp, pp, tensor_api",
+        ("flash_attention_bwd_dq_f32", "train_f32, dp_eager, tp_sp, pp, tensor_api, "
+         "nn_transformer",
          bwd["train_f32_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
-        ("flash_attention_fwd_ernie", "ernie", fwd["ernie_bf16_noncausal"],
+        ("flash_attention_fwd_ernie", "ernie, nn_transformer", fwd["ernie_bf16_noncausal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
-        ("flash_attention_bwd_dkdv_ernie", "ernie", bwd["ernie_bf16_noncausal"]["dkdv"],
+        ("flash_attention_bwd_dkdv_ernie", "ernie, nn_transformer",
+         bwd["ernie_bf16_noncausal"]["dkdv"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:242"),
-        ("flash_attention_bwd_dq_ernie", "ernie", bwd["ernie_bf16_noncausal"]["dq"],
+        ("flash_attention_bwd_dq_ernie", "ernie, nn_transformer",
+         bwd["ernie_bf16_noncausal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
-        ("flash_attention_fwd_f32_ernie", "ernie", fwd["ernie_f32_noncausal"],
+        ("flash_attention_fwd_f32_ernie", "ernie, nn_transformer", fwd["ernie_f32_noncausal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_fwd_d128", "bench gpt_1p3b", fwd["1p3b_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
@@ -6691,13 +7405,18 @@ def main() -> int:
                  + ernie_launches["bf16"][k] + tensor_api_launches["bf16"][k]
                  for k in launches},
               **bench_launches,
+              # the non-causal f32 forwards of ernie and nn_transformer on the
+              # "_f32_ernie" row; their backward pair on the f32 rows
               **{f"{k}_f32": f32_launches[k] + dp_eager_launches["f32"][k]
                  + tp_sp_launches["f32"][k] + pp_launches["f32"][k]
-                 + ernie_launches["f32"][k] + tensor_api_launches["float32"][k]
-                 + (score_launches if k == "flash_attention_fwd" else 0)
+                 + tensor_api_launches["float32"][k]
+                 + (score_launches if k == "flash_attention_fwd" else
+                    ernie_launches["f32"][k] + nn_launches["f32"][k])
                  for k in _launch_counts_keys()},
-              **{f"{k}_ernie": ernie_launches["bf16"][k] for k in _launch_counts_keys()},
-              "flash_attention_fwd_f32_ernie": ernie_launches["f32"]["flash_attention_fwd"],
+              **{f"{k}_ernie": ernie_launches["bf16"][k] + nn_launches["bf16"][k]
+                 for k in _launch_counts_keys()},
+              "flash_attention_fwd_f32_ernie": ernie_launches["f32"]["flash_attention_fwd"]
+              + nn_launches["f32"]["flash_attention_fwd"],
               **{k: lib_f32[k] for k in ("layer_norm_fwd", "layer_norm_infer",
                                          "layer_norm_bwd")},
               **{f"{k}_bf16": lib_bf16[k] for k in ("layer_norm_fwd", "layer_norm_infer",

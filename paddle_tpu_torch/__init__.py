@@ -135,6 +135,8 @@ def scatter_(x, index, updates, overwrite=True, name=None):
 _LAZY = {"DataParallel": (".distributed.meta_parallel", "DataParallel"),
          "Model": (".hapi.model", "Model"), "summary": (".hapi.summary", "summary"),
          "flops": (".hapi.dynamic_flops", "flops"), "batch": (".reader", "batch"),
+         "ParamAttr": (".nn.layer", "ParamAttr"),
+         "create_parameter": (".nn.layer", "create_parameter"),
          **{m: ("." + m, None) for m in ("io", "reader", "metric", "callbacks", "hapi",
                                          "vision", "nn", "optimizer", "distributed",
                                          "incubate", "jit", "regularizer", "models",

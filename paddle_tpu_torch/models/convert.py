@@ -168,6 +168,40 @@ def load_jax_state(model: torch.nn.Module,
     return model
 
 
+def layer_state_from_jax(module: torch.nn.Module,
+                         numpy_state: Dict[str, np.ndarray]) -> torch.nn.Module:
+    """Copy a JAX layer's state (``nn.Layer.state_dict()`` as numpy arrays)
+    into the port's ``module`` built the same way, and return it. Every
+    parameter that its layer made as the JAX one transposed (the flag that
+    ``make_param`` sets: a ``Linear`` weight, under any name, such as a
+    Transformer's ``self_attn.q_proj.weight`` or ``linear1.weight``) is
+    transposed from the JAX ``[in, out]``; everything else (convolutions,
+    transposed convolutions, norms, embeddings, biases, buffers) carries
+    over as it is. A name the module lacks, a missing one, or a shape that
+    does not fit raises."""
+    transposed = {n for n, p in module.named_parameters(remove_duplicate=False)
+                  if getattr(p, "_jax_transposed", False)}
+    own = module.state_dict()
+    unknown = sorted(set(numpy_state) - set(own))
+    missing = sorted(set(own) - set(numpy_state))
+    if unknown or missing:
+        raise ValueError(f"layer_state_from_jax: names the module lacks {unknown}, names "
+                         f"the state lacks {missing}")
+    out = {}
+    for name, arr in numpy_state.items():
+        arr = np.asarray(arr)
+        if name in transposed:
+            if arr.ndim != 2:
+                raise ValueError(f"{name}: expected a 2-D Linear weight, got {arr.shape}")
+            arr = arr.T
+        if tuple(arr.shape) != tuple(own[name].shape):
+            raise ValueError(f"{name}: the JAX shape {arr.shape} does not fit the port's "
+                             f"{tuple(own[name].shape)}")
+        out[name] = torch.from_numpy(np.array(arr, order="C", copy=True))
+    module.load_state_dict(out, strict=True)
+    return module
+
+
 def pipe_state_from_gpt(state: Dict[str, torch.Tensor], num_stages: int,
                         num_virtual_stages: int = 1) -> Dict[str, torch.Tensor]:
     """GPTForPretraining's state (logical tensors, the port's layout) as

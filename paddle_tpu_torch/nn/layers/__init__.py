@@ -4,27 +4,25 @@ from .activation import (CELU, ELU, GELU, GLU, SELU, Hardshrink, Hardsigmoid,  #
                          Mish, PReLU, ReLU, ReLU6, RReLU, Sigmoid, SiLU, Silu, Softmax,
                          Softmax2D, Softplus, Softshrink, Softsign, Swish, Tanh,
                          Tanhshrink, ThresholdedReLU)
-from .common import Dropout, Embedding, Flatten, Identity, Linear  # noqa: F401
+from .common import (AlphaDropout, Bilinear, CosineSimilarity, Dropout, Dropout2D,  # noqa: F401
+                     Dropout3D, Embedding, Flatten, Fold, Identity, Linear, Pad1D, Pad2D,
+                     Pad3D, PairwiseDistance, PixelShuffle, SpectralNorm, Unfold, Upsample,
+                     UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D)
 from .container import LayerDict, LayerList, ParameterList, Sequential  # noqa: F401
 from .conv_pool import (AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,  # noqa: F401
                         AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D,
-                        AvgPool1D, AvgPool2D, AvgPool3D, Conv1D, Conv2D, Conv3D,
-                        MaxPool1D, MaxPool2D, MaxPool3D)
-from .loss import (BCELoss, BCEWithLogitsLoss, CrossEntropyLoss, KLDivLoss, L1Loss,  # noqa: F401
-                   MSELoss, NLLLoss, SmoothL1Loss)
-from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, LayerNorm,  # noqa: F401
-                   SyncBatchNorm)
+                        AvgPool1D, AvgPool2D, AvgPool3D, Conv1D, Conv1DTranspose, Conv2D,
+                        Conv2DTranspose, Conv3D, Conv3DTranspose, MaxPool1D, MaxPool2D,
+                        MaxPool3D, MaxUnPool1D, MaxUnPool2D, MaxUnPool3D)
+from .decode import gather_tree  # noqa: F401
+from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,  # noqa: F401
+                   CrossEntropyLoss, CTCLoss, HingeEmbeddingLoss, HSigmoidLoss, KLDivLoss,
+                   L1Loss, MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss)
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,  # noqa: F401
+                   InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
+                   LocalResponseNorm, RMSNorm, SyncBatchNorm)
+from .transformer import (MultiHeadAttention, Transformer, TransformerDecoder,  # noqa: F401
+                          TransformerDecoderLayer, TransformerEncoder,
+                          TransformerEncoderLayer)
 
-__all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
-           "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D", "AvgPool1D",
-           "AvgPool2D", "AvgPool3D", "BCELoss", "BCEWithLogitsLoss", "BatchNorm",
-           "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "CELU", "Conv1D", "Conv2D",
-           "Conv3D", "CrossEntropyLoss", "Dropout", "ELU", "Embedding", "Flatten",
-           "GELU", "GLU", "Hardshrink", "Hardsigmoid", "Hardswish", "Hardtanh",
-           "Identity", "KLDivLoss", "L1Loss", "LayerDict", "LayerList", "LayerNorm",
-           "LeakyReLU", "Linear", "LogSigmoid", "LogSoftmax", "MSELoss", "MaxPool1D",
-           "MaxPool2D", "MaxPool3D", "Maxout", "Mish", "NLLLoss", "PReLU",
-           "ParameterList", "RReLU", "ReLU", "ReLU6", "SELU", "Sequential", "SiLU",
-           "Sigmoid", "Silu", "SmoothL1Loss", "Softmax", "Softmax2D", "Softplus",
-           "Softshrink", "Softsign", "Swish", "SyncBatchNorm", "Tanh", "Tanhshrink",
-           "ThresholdedReLU"]
+__all__ = sorted(n for n in dir() if n[0].isupper() or n == "gather_tree")

@@ -3,23 +3,21 @@ each calls its op of ops/activation.py with the arguments it was built
 with, as the JAX layers do."""
 from __future__ import annotations
 
-import torch
-from torch import nn
-
 from ...ops import activation as A
-from .common import init_const_, place
+from ..layer import Layer
+from .common import init_const_, make_param, place
 
 
 def _simple(name, fn):
     def __init__(self, *args, **kwargs):
-        nn.Module.__init__(self)
+        Layer.__init__(self)
         self._args = args
         self._kwargs = {k: v for k, v in kwargs.items() if k != "name"}
 
     def forward(self, x):
         return fn(x, *self._args, **self._kwargs)
 
-    return type(name, (nn.Module,), {"__init__": __init__, "forward": forward})
+    return type(name, (Layer,), {"__init__": __init__, "forward": forward})
 
 
 ReLU = _simple("ReLU", A.relu)
@@ -48,7 +46,7 @@ Maxout = _simple("Maxout", A.maxout)
 GLU = _simple("GLU", A.glu)
 
 
-class Softmax(nn.Module):
+class Softmax(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self.axis = axis
@@ -57,7 +55,7 @@ class Softmax(nn.Module):
         return A.softmax(x, self.axis)
 
 
-class LogSoftmax(nn.Module):
+class LogSoftmax(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self.axis = axis
@@ -66,12 +64,12 @@ class LogSoftmax(nn.Module):
         return A.log_softmax(x, self.axis)
 
 
-class PReLU(nn.Module):
+class PReLU(Layer):
     def __init__(self, num_parameters=1, init=0.25, weight_attr=None, data_format="NCHW",
                  name=None, device=None):
         super().__init__()
         self.data_format, self._init = data_format, init
-        self.weight = nn.Parameter(torch.empty(num_parameters))
+        self.weight = make_param((num_parameters,), weight_attr)
         self.reset_parameters()
         place(self, device)
 
@@ -82,7 +80,7 @@ class PReLU(nn.Module):
         return A.prelu(x, self.weight, self.data_format)
 
 
-class RReLU(nn.Module):
+class RReLU(Layer):
     """Training draws each slope from ``generator`` (an attribute; torch's
     default generator when None)."""
 
@@ -96,7 +94,7 @@ class RReLU(nn.Module):
                        generator=self.generator)
 
 
-class Softmax2D(nn.Module):
+class Softmax2D(Layer):
     """Softmax over the channel axis of CHW / NCHW inputs."""
 
     def forward(self, x):

@@ -1,5 +1,5 @@
 """Container layers (counterpart of paddle_tpu/nn/layers/container.py) on
-PyTorch's containers.
+PyTorch's containers (each also a ``Layer``).
 
 ``Sequential`` takes positional layers, ``(name, layer)`` pairs or an
 ``OrderedDict``, and indexes by int, slice (a new Sequential, renumbered
@@ -11,8 +11,10 @@ import collections
 
 from torch import nn
 
+from ..layer import Layer
 
-class Sequential(nn.Sequential):
+
+class Sequential(nn.Sequential, Layer):
     def __init__(self, *layers):
         if len(layers) == 1 and isinstance(layers[0], collections.OrderedDict):
             super().__init__(layers[0])
@@ -30,13 +32,13 @@ class Sequential(nn.Sequential):
         return super().__getitem__(idx)
 
 
-class LayerList(nn.ModuleList):
+class LayerList(nn.ModuleList, Layer):
     pass
 
 
-class LayerDict(nn.ModuleDict):
+class LayerDict(nn.ModuleDict, Layer):
     pass
 
 
-class ParameterList(nn.ParameterList):
+class ParameterList(nn.ParameterList, Layer):
     pass

@@ -1,10 +1,12 @@
 """Convolution and pooling layers (counterpart of
-paddle_tpu/nn/layers/conv_pool.py): ``Conv1D/2D/3D``, ``MaxPool1D/2D/3D``,
-``AvgPool1D/2D/3D`` and ``Adaptive{Avg,Max}Pool{1,2,3}D``.
+paddle_tpu/nn/layers/conv_pool.py): ``Conv1D/2D/3D``,
+``Conv1D/2D/3DTranspose``, ``MaxPool1D/2D/3D``, ``AvgPool1D/2D/3D``,
+``Adaptive{Avg,Max}Pool{1,2,3}D`` and ``MaxUnPool1D/2D/3D``.
 
-Weights are ``[out, in / groups, *k]``, as in PyTorch and the JAX layers,
-drawn from N(0, sqrt(2 / fan_in)) (the JAX layers' default), biases zero;
-``bias_attr=False`` leaves the bias out. At a channel-last ``data_format``
+Weights are ``[out, in / groups, *k]`` (a transposed convolution's ``[in,
+out / groups, *k]``), as in PyTorch and the JAX layers, drawn from N(0,
+sqrt(2 / fan_in)) with fan_in = in / groups * prod(k) (the JAX layers'
+default), biases zero; ``bias_attr=False`` leaves the bias out. At a channel-last ``data_format``
 the layer hands its weight to the op in the op's HWIO layout (the JAX
 layer passes its OIHW weight there, which the JAX op cannot take).
 ``padding_mode`` is accepted and, as in the JAX layers, not read. The
@@ -15,16 +17,14 @@ from __future__ import annotations
 
 import math
 
-import torch
-from torch import nn
-
 from ...ops import nn_functional as F
+from ..layer import Layer
 from .common import init_const_, init_normal_, make_param, place
 
 _ntuple = F._ntuple
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     _nd = 2
     _op = staticmethod(F.conv2d)
 
@@ -41,11 +41,13 @@ class _ConvNd(nn.Module):
         self.groups = groups
         self.padding_mode = padding_mode
         self.data_format = data_format
-        self.weight = nn.Parameter(torch.empty(
-            (out_channels, in_channels // groups) + self.kernel_size))
-        self.bias = make_param((out_channels,), bias_attr)
+        self.weight = make_param(self._weight_shape(), weight_attr)
+        self.bias = make_param((out_channels,), bias_attr, is_bias=True)
         self.reset_parameters()
         place(self, device)
+
+    def _weight_shape(self):
+        return (self.out_channels, self.in_channels // self.groups) + self.kernel_size
 
     def reset_parameters(self, generator=None):
         fan_in = self.in_channels // self.groups * math.prod(self.kernel_size)
@@ -90,7 +92,7 @@ class Conv3D(_ConvNd):
                          groups, padding_mode, weight_attr, bias_attr, data_format, device)
 
 
-class _Op(nn.Module):
+class _Op(Layer):
     """A parameterless layer: ``op(x, *args)``."""
     _op = None
 
@@ -200,3 +202,87 @@ class AdaptiveMaxPool3D(_Op):
     def __init__(self, output_size, return_mask=False, name=None):
         super().__init__(output_size, return_mask)
         self.output_size = output_size
+
+
+class _ConvTransposeNd(_ConvNd):
+    """A transposed convolution: weight ``[in, out / groups, *k]``; the
+    forward's ``output_size`` is accepted and not read (the op drops it, as
+    the JAX op does)."""
+    _op = staticmethod(F.conv2d_transpose)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
+                 output_padding=0, groups=1, dilation=1, weight_attr=None, bias_attr=None,
+                 data_format="NCHW", device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding, dilation,
+                         groups, "zeros", weight_attr, bias_attr, data_format, device)
+        self.output_padding = output_padding
+
+    def _weight_shape(self):
+        return (self.in_channels, self.out_channels // self.groups) + self.kernel_size
+
+    def forward(self, x, output_size=None):
+        return self._op(x, self.weight, self.bias, self.stride, self.padding,
+                        self.output_padding, self.groups, self.dilation, output_size,
+                        self.data_format)
+
+
+class Conv1DTranspose(_ConvTransposeNd):
+    _nd = 1
+    _op = staticmethod(F.conv1d_transpose)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
+                 output_padding=0, groups=1, dilation=1, weight_attr=None, bias_attr=None,
+                 data_format="NCL", device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding,
+                         output_padding, groups, dilation, weight_attr, bias_attr,
+                         data_format, device)
+
+
+class Conv2DTranspose(_ConvTransposeNd):
+    pass
+
+
+class Conv3DTranspose(_ConvTransposeNd):
+    _nd = 3
+    _op = staticmethod(F.conv3d_transpose)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
+                 output_padding=0, groups=1, dilation=1, weight_attr=None, bias_attr=None,
+                 data_format="NCDHW", device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding,
+                         output_padding, groups, dilation, weight_attr, bias_attr,
+                         data_format, device)
+
+
+class _MaxUnPoolNd(Layer):
+    _op = None
+
+    def __init__(self, kernel_size, stride=None, padding=0, data_format="NCHW",
+                 output_size=None, name=None):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.data_format, self.output_size = data_format, output_size
+
+    def forward(self, x, indices):
+        return type(self)._op(x, indices, self.kernel_size, self.stride, self.padding,
+                              self.data_format, self.output_size)
+
+
+class MaxUnPool1D(_MaxUnPoolNd):
+    _op = staticmethod(F.max_unpool1d)
+
+    def __init__(self, kernel_size, stride=None, padding=0, data_format="NCL",
+                 output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format, output_size)
+
+
+class MaxUnPool2D(_MaxUnPoolNd):
+    _op = staticmethod(F.max_unpool2d)
+
+
+class MaxUnPool3D(_MaxUnPoolNd):
+    _op = staticmethod(F.max_unpool3d)
+
+    def __init__(self, kernel_size, stride=None, padding=0, data_format="NCDHW",
+                 output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format, output_size)

@@ -42,7 +42,7 @@ ALIASES = {
     "depthwise_conv2d_transpose": "ops.nn_functional.conv2d_transpose",
     "det": "linalg.det", "dropout": "ops.nn_functional.dropout", "eigh": "linalg.eigh",
     "elementwise_pow": "pow", "frobenius_norm": "linalg.norm",
-    "full_batch_size_like": "full_like", "gather_tree": "ops.nn_functional.gather_tree",
+    "full_batch_size_like": "full_like", "gather_tree": "nn.functional.gather_tree",
     "gaussian_random": "normal", "graph_send_recv": "geometric.send_u_recv",
     "hard_shrink": "hardshrink", "hard_sigmoid": "hardsigmoid", "hard_swish": "hardswish",
     "huber_loss": "ops.nn_functional.smooth_l1_loss",
@@ -74,16 +74,11 @@ ALIASES = {
 WAIVED = {}
 
 # entries not ported yet: name -> the ROADMAP item that ports them
-_ITEM16 = "Queue 1 item 16 (the tensor API, second half: nn/functional)"
-_ITEM16_INIT = "Queue 1 item 16 (the tensor API, second half: nn/initializer)"
 _ITEM11_VISION = "Queue 1 item 11 (vision/ops.py)"
 _ITEM11_TEXT = "Queue 1 item 11 (text/)"
 _ITEM11_INCUBATE = "Queue 1 item 11 (the rest of incubate/)"
 _ITEM11_GEOMETRIC = "Queue 1 item 11 (geometric/)"
 MISSING_ITEMS = {
-    **{n: _ITEM16 for n in ("conv2d_transpose", "conv3d_transpose", "depthwise_conv2d_transpose",
-                            "gather_tree", "log_loss", "pixel_shuffle", "unfold")},
-    "truncated_gaussian_random": _ITEM16_INIT,
     **{n: _ITEM11_VISION for n in ("deformable_conv", "psroi_pool", "roi_align", "roi_pool",
                                    "yolo_box")},
     "viterbi_decode": _ITEM11_TEXT, "segment_pool": _ITEM11_INCUBATE,

@@ -93,6 +93,11 @@ def deterministic():
 def test_one_microbatch_is_the_plain_step_bit_for_bit(deterministic, monkeypatch):
     ids, labels = _batch(seed=7)
     (e1, m1), (e0, m0) = _port_engine(1), _port_engine()
+    # one process, no topology: the plain step (a hybrid topology left set by
+    # an earlier fleet.init would give the engines a group)
+    assert e1.group is None and e0.group is None, (
+        f"the engines have a group ({e1.group!r}, {e0.group!r}): a hybrid topology is set "
+        "in this process")
     # K = 1 never enters the accumulation loop
     monkeypatch.setattr(TrainStepEngine, "_accumulate", None)
     for _ in range(2):
@@ -110,3 +115,22 @@ def test_microbatches_is_a_mutable_attribute_and_an_indivisible_batch_raises():
         eng.step(ids, labels)
     eng.microbatches = 3
     assert np.isfinite(eng.step(ids, labels).item())
+
+
+def test_the_fleet_test_before_this_one_leaves_no_topology():
+    """The vision test that calls fleet.init, then the one-microbatch test,
+    in one process: both pass (the order of the test files no longer
+    matters)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    ids = ["tests/test_torch_vision.py::"
+           "test_fleet_distributed_engine_takes_loss_fn_and_num_model_inputs",
+           "tests/test_torch_accum.py::test_one_microbatch_is_the_plain_step_bit_for_bit"]
+    res = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+                          "-p", "no:randomly", *ids], cwd=str(root), capture_output=True,
+                         text=True, timeout=600, env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert res.returncode == 0 and "2 passed" in res.stdout, res.stdout[-3000:] + res.stderr[-2000:]

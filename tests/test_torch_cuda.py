@@ -2258,11 +2258,7 @@ def test_ps_lookup_with_rows_on_card_pushes_the_cpu_merged_gradient(cuda):
     np.testing.assert_array_equal(after["cuda"], after["cpu"])
 
 
-def test_the_tensor_api_table_on_card_matches_the_cpu(cuda):
-    """chip_smoke.py's tensor_api table: every function of the namespace on
-    the card against the CPU (values by result dtype at chip_smoke.py's
-    TENSOR_API_TOL, decompositions by reconstruction, random ops by dtype,
-    device, moments and determinism under seed on the card's generator)."""
+def _chip_smoke():
     import importlib.util
     from pathlib import Path
 
@@ -2270,5 +2266,48 @@ def test_the_tensor_api_table_on_card_matches_the_cpu(cuda):
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def test_the_tensor_api_table_on_card_matches_the_cpu(cuda):
+    """chip_smoke.py's tensor_api table: every function of the namespace on
+    the card against the CPU (values by result dtype at chip_smoke.py's
+    TENSOR_API_TOL, decompositions by reconstruction, random ops by dtype,
+    device, moments and determinism under seed on the card's generator),
+    with the nn cases: each nn.functional op, layer, initializer and
+    nn.utils function."""
+    cs = _chip_smoke()
     rec = cs.run_tensor_api_table()
-    assert rec["cases"] >= len(cs.tensor_api_namespace_names())
+    assert rec["cases"] >= len(cs.tensor_api_namespace_names() | cs.nn_api_names())
+
+
+def test_transformer_encoder_on_card_runs_the_flash_kernels(cuda):
+    """A 2-layer nn.TransformerEncoder (d_model 128, 2 heads of 64, seq 256)
+    built on the CPU and copied to the card: without a mask each layer
+    launches the flash forward and the FA2 pair (f32: the 3xTF32 route);
+    output and gradients within 1e-4 relative Frobenius of the CPU's (the k
+    projections' biases, whose exact gradient is 0, by their size)."""
+    import copy
+
+    import paddle_tpu_torch as P
+
+    cs = _chip_smoke()
+    place = P.get_place()
+    P.set_device("cpu")
+    try:
+        torch.manual_seed(0)
+        cpu = P.nn.TransformerEncoder(P.nn.TransformerEncoderLayer(128, 2, 256, dropout=0.0),
+                                      2)
+        card = copy.deepcopy(cpu).cuda()
+        x = torch.randn(2, 256, 128)
+        names, ref = cs._nn_small_run(cpu, [x], None)
+        cs._reset_launch_counts()
+        _, got = cs._nn_small_run(card, [x.cuda()], None)
+        torch.cuda.synchronize()
+        assert cs._launch_counts() == {"flash_attention_fwd": 2, "flash_attention_bwd_dkdv": 2,
+                                       "flash_attention_bwd_dq": 2}
+        assert fa.launches_by_route["tf32x3"] == 2
+        errs = cs.nn_grad_errors(names, got, ref)   # the k biases by their size (exactly 0)
+        assert max(errs.values()) <= 1e-4, errs
+    finally:
+        P.set_device(place)

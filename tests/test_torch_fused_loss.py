@@ -16,6 +16,7 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.ops.fused import fused_linear_cross_entropy as jax_flce
 from paddle_tpu_torch.ops.fused import fused_linear_cross_entropy as port_flce
+from torch_api_util import jax_flags_restored  # noqa: F401
 
 LOSS_ATOL = 2e-5
 GRAD_ATOL = 1e-5
@@ -72,7 +73,7 @@ def test_loss_and_grads_match_jax(shape, n_ignored, transpose_y):
 
 
 @pytest.mark.parametrize("chunk", [4, 6])
-def test_chunk_smaller_than_rows_with_padding_matches_jax(chunk):
+def test_chunk_smaller_than_rows_with_padding_matches_jax(chunk, jax_flags_restored):
     """30 rows in chunks of 4 or 6 (the last padded with ignore_index)."""
     h, w, labels = _data(2, 15, 40, 16, seed=1, n_ignored=3)
     paddle.set_flags({"fused_ce_chunk": chunk})

@@ -15,6 +15,7 @@ from paddle_tpu.models import GPTForPretraining as JaxGPT
 from paddle_tpu.models import gpt_tiny as jax_gpt_tiny
 from paddle_tpu_torch.models import (GPTForPretraining, gpt_tiny, load_jax_state,
                                      state_from_jax)
+from torch_api_util import jax_flags_restored  # noqa: F401
 
 ATOL = 1e-4
 
@@ -62,7 +63,7 @@ def test_logits_match_jax_dense_route(models):
                                atol=ATOL, rtol=0)
 
 
-def test_logits_match_jax_flash_route(models):
+def test_logits_match_jax_flash_route(models, jax_flags_restored):
     """JAX routed through the interpreted Pallas flash kernel (s = 128 meets
     its routing rule) against the port's CPU path."""
     jm, pm, _ = models

@@ -273,7 +273,12 @@ TENSOR_API_MODULES = (
     "paddle_tpu_torch.ops.creation", "paddle_tpu_torch.ops.math",
     "paddle_tpu_torch.ops.reduction", "paddle_tpu_torch.ops.manipulation",
     "paddle_tpu_torch.ops.linalg", "paddle_tpu_torch.ops.activation",
-    "paddle_tpu_torch.tools.op_coverage")
+    "paddle_tpu_torch.tools.op_coverage",
+    # the second half: nn's layer, initializer, functional and utils modules
+    "paddle_tpu_torch.nn", "paddle_tpu_torch.nn.layer", "paddle_tpu_torch.nn.initializer",
+    "paddle_tpu_torch.nn.functional", "paddle_tpu_torch.nn.utils",
+    "paddle_tpu_torch.nn.layers.transformer", "paddle_tpu_torch.nn.layers.decode",
+    "paddle_tpu_torch.ops.nn_functional")
 
 
 def test_the_tensor_api_modules_are_among_them():
@@ -283,3 +288,4 @@ def test_the_tensor_api_modules_are_among_them():
         if not path.exists():
             path = ROOT / mod.replace(".", "/") / "__init__.py"
         assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, mod
+

@@ -42,6 +42,7 @@ from paddle_tpu_torch.models import (GPTForPretraining, gpt_tiny, load_jax_state
                                      state_from_jax)
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import ServingEngine
+from torch_api_util import jax_flags_restored  # noqa: F401
 
 LR = 1e-3
 GRAD_ATOL = 2e-5
@@ -103,7 +104,7 @@ def test_loss_and_every_gradient_match_jax_at_f32():
                                    err_msg=n)
 
 
-def test_gradients_match_jax_through_its_flash_route():
+def test_gradients_match_jax_through_its_flash_route(jax_flags_restored):
     """The JAX model through its interpreted Pallas flash forward and FA2
     backward kernels (use_flash_attention) against the port's CPU path."""
     jm = _jax_model()

@@ -232,7 +232,22 @@ def test_the_jax_engine_leaves_running_stats_unchanged():
         assert not np.array_equal(ref["stats"][n], v), n
 
 
-def test_fleet_distributed_engine_takes_loss_fn_and_num_model_inputs():
+@pytest.fixture
+def fleet_undone():
+    """fleet.init in this process undone after the test: the process group,
+    the port's hybrid topology and the fleet singleton (a later engine in
+    the same process would otherwise pick the topology up)."""
+    yield
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import mesh as pmesh
+
+    pmesh.set_hybrid_communicate_group(None)
+    fleet.fleet.__init__()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def test_fleet_distributed_engine_takes_loss_fn_and_num_model_inputs(fleet_undone):
     """fleet.distributed_engine(model, opt, loss_fn=...) builds the engine (it
     raised before); num_model_inputs sends more batch tensors to the model."""
     from paddle_tpu_torch.distributed import fleet

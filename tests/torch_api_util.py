@@ -190,3 +190,16 @@ def on_cpu():
     yield
     tp.set_device(place)
     tp.set_default_dtype(default)
+
+
+@pytest.fixture
+def jax_flags_restored():
+    """The JAX package's flags (and which were set) as they were before the
+    test: its set_flags would reach every later test in the process."""
+    from paddle_tpu.core import flags
+
+    saved, was_set = dict(flags._REGISTRY), set(flags._explicitly_set)
+    yield
+    flags.set_flags({k: v for k, v in saved.items() if flags._REGISTRY[k] != v})
+    flags._explicitly_set.clear()
+    flags._explicitly_set.update(was_set)
