@@ -10,7 +10,8 @@ each:
 1. environment: the card (nvidia-smi's name and power limit), torch and
    CUDA versions, then the kernel build time and ptxas's report (registers
    and spills of every LM-loss backward instance by name; a spill in a
-   tensor-core one fails).
+   tensor-core one fails), and on the same ``build`` line the g++ build of
+   the FasterTokenizer's native library (core/native/tokenizer.cc).
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and a few edge cases, with kernel, plain, bound and
    library (yardstick only) times: the flash forward (bf16 on the bf16
@@ -439,14 +440,45 @@ each:
    NN_TF_SMALL_TOL. Printed with the card's name and power limit: forward
    + backward ms and tokens/s of the bf16 step, the f32 forward ms, the
    errors, the phase's seconds (at most NN_TF_MAX_S).
+17. text: the RNN layers, beam search, Viterbi and the tokenizer
+   (phase_text). (a) PaddleNLP's seq2seq with attention at its IWSLT'15
+   en-vi widths (source vocab 17191, target 7709, embedding and hidden
+   512, a 2-layer nn.LSTM encoder, an nn.RNN decoder over a user cell of
+   two LSTMCells with input feeding and dot attention masked by the source
+   lengths, Linear(512, 7709); Uniform(-0.1, 0.1) through ParamAttr,
+   dropout 0.2), batch 128, lengths 10-50 from RandomState(0), padded
+   target tokens out of the loss: first the card against the CPU at batch
+   4, lengths up to 12, dropout off (loss TEXT_LOSS_RTOL, each gradient
+   TEXT_GRAD_TOL x max|g|, beam-10 ids equal but at a near-tie,
+   text_beams_agree); then 2 + 5 f32 steps (Adam 1e-3,
+   ClipGradByGlobalNorm(5.0)), one bf16 O1 step whose loss is within
+   TEXT_BF16_RTOL of f32's on the same masks and whose encoder outputs are
+   f32, BeamSearchDecoder(beam_size=10) + dynamic_decode(max_step_num=50)
+   over the 128 sources (``finished`` read on the host each step), and
+   the loop LSTM's forward + backward beside torch.nn.LSTM's (cuDNN) at
+   [128, 50, 512], 2 layers. (b) the synthetic Conll05st (batch 256 through
+   the DataLoader), Embedding 128 -> 2-layer bidirect GRU 128 ->
+   Linear(256, 69) with lengths 1-32, ViterbiDecoder with BOS / EOS: the
+   emissions against the CPU (TEXT_TAGGER_TOL), the paths equal to the
+   CPU's on the same emissions, scores within TEXT_VITERBI_TOL. (c) 1024
+   sentences through the FasterTokenizer over a 40000-entry synthetic
+   vocab, ids equal to the Python oracle; 16 rows truncated to 512 (none
+   padded) through ERNIE-3.0-base in eval, f32 (12 3xTF32 flash forwards)
+   and bf16 O1 (12 tensor-core forwards, the main path's count on the
+   kernels line, rows 1e and 1fe), bf16 within TEXT_ERNIE_BF16_TOL of f32.
+   Printed with the card's name and power limit: step ms, target
+   tokens/s, peak memory, decode ms and steps, the yardstick, the tagger's
+   and Viterbi's ms, tokenize ms, ERNIE's bf16 forward ms, the phase's
+   seconds (at most TEXT_MAX_S).
 10. the ``kernels`` line: every ported kernel with the path that launched
    it (the training main path's timed steps, the train_obs steps, the
    train_rules runs, the dp and dp_eager phases' runs on rank 0, the
    ckpt phase's steps, the tp_sp phase's bf16 step at mp 1 and its
    virtual rings, the pp phase's virtual rings and its pp = 1 steps, the
    ernie phase's flash steps (the "_ernie" rows at its [16, 512, 12, 64]
-   non-causal shape, with the nn_transformer phase's bf16 step; the
-   "_f32_ernie" row for ERNIE's f32 eval forward and the forwards of
+   non-causal shape, with the nn_transformer phase's bf16 step and the
+   text phase's bf16 ERNIE forward; the "_f32_ernie" row for ERNIE's f32
+   eval forward, the text phase's f32 one and the forwards of
    nn_transformer's f32 check at [2, 512]; that check's f32 backward pair
    on the causal f32 rows, which have no non-causal twin), the
    tensor_api phase's GPTBlock calls (rows 1-3 and 1f-3f, one each), the
@@ -603,8 +635,15 @@ def phase_env():
               for name in per_source}
     grads = {_instance_name(k): r for k, r in _build.ptxas_report("lm_loss").items()
              if "lm_grad_" in k}
+    # the FasterTokenizer's native library (phase text): g++ at its first use
+    from paddle_tpu_torch.core import native
+
+    t1 = time.perf_counter()
+    native.load_library("tokenizer")
     emit(phase="build", seconds=time.perf_counter() - t0, per_source=per_source,
-         ptxas=report, lm_grad_ptxas=grads)
+         ptxas=report, lm_grad_ptxas=grads,
+         native={"tokenizer.cc": {"compiler": "g++", "seconds": time.perf_counter() - t1,
+                                  "library": native.library_path("tokenizer").name}})
     spilled = [k for k, r in grads.items() if "lm_grad_kernel" not in k
                and (r.get("spill_stores") or r.get("spill_loads"))]
     if spilled:
@@ -7240,6 +7279,550 @@ def _nn_small_run(model, args, tgt_mask):
     return names, [out.detach(), *torch.autograd.grad((out * w).sum(), leaves)]
 
 
+# ---- phase text: RNNs, beam search, Viterbi and the tokenizer at published widths ----
+
+TEXT_S2S = dict(src_vocab=17191, trg_vocab=7709, hidden=512, layers=2, dropout=0.2,
+                init=0.1)   # PaddleNLP examples/machine_translation/seq2seq (IWSLT'15 en-vi)
+TEXT_S2S_BATCH = 128
+TEXT_S2S_LENS = (10, 50)    # source and target lengths, drawn from RandomState(0)
+TEXT_S2S_STEPS = (2, 5)     # warm-up and timed f32 steps
+TEXT_BEAM = (10, 50)        # beam_size, max_step_num
+TEXT_S2S_CPU = (4, 12)      # the card-vs-CPU check: batch, longest length (dropout off)
+TEXT_LOSS_RTOL = 1e-5       # card vs CPU: the loss (TRAIN_LOSS_RTOL)
+TEXT_GRAD_TOL = 1e-3        # ... each gradient, times max|g| of that tensor (TRAIN_GRAD_TOL:
+                            # f32 sums in other orders through 12 steps of two LSTMs and
+                            # the attention; a wrong gradient is off by O(1))
+TEXT_SCORE_TOL = 1e-4       # ... each beam's score before the first parting, times
+                            # max(1, |score|)
+TEXT_NEAR_TIE = 2e-3        # ... where the beam ids part, the parting beams' scores lie this
+                            # close to another beam's (serve_spec's near-tie)
+TEXT_BF16_RTOL = 2e-2       # the bf16 O1 loss against f32's, same weights, batch and masks
+TEXT_TAGGER = dict(vocab=5000, emb=128, hidden=128, layers=2, tags=69, batch=256)
+TEXT_TAGGER_TOL = 1e-5      # card vs CPU: the tagger's emissions, times max(1, max|ref|)
+TEXT_VITERBI_TOL = 1e-5     # card vs CPU Viterbi scores on the same emissions, times
+                            # max(1, max|ref|); the paths equal
+TEXT_YARDSTICK = (128, 50, 512)   # the loop LSTM against cuDNN's: [batch, steps, hidden]
+TEXT_TOK = dict(vocab=40000, sentences=1024, rows=16, max_seq_len=512)
+TEXT_ERNIE_BF16_TOL = 3e-2  # ERNIE-3.0-base's bf16 O1 hidden states against f32's, relative
+                            # Frobenius (NN_TF_BF16_TOL)
+TEXT_MAX_S = 40             # the phase's wall seconds
+
+
+def text_seq2seq(P, cfg=None):
+    """PaddleNLP's seq2seq with attention (Seq2SeqAttnModel) on the port, on
+    the CPU: source and target embeddings, a ``layers``-deep nn.LSTM
+    encoder, an nn.RNN decoder over a user cell (input feeding, stacked
+    LSTMCells, dot attention over the encoder outputs masked by the source
+    lengths), Linear(hidden, trg_vocab); every weight Uniform(-init, init)
+    through a ParamAttr, drawn after seed(0). ``encode(src, src_len)`` ->
+    (encoder outputs, decoder states, mask); ``forward(src, src_len, trg)``
+    -> logits."""
+    cfg = cfg or TEXT_S2S
+    nn, F = P.nn, P.nn.functional
+    H, L, drop = cfg["hidden"], cfg["layers"], cfg["dropout"]
+
+    def attr():
+        return P.ParamAttr(initializer=nn.initializer.Uniform(-cfg["init"], cfg["init"]))
+
+    def rnn_attrs():
+        return dict(weight_ih_attr=attr(), weight_hh_attr=attr(), bias_ih_attr=attr(),
+                    bias_hh_attr=attr())
+
+    class AttentionCell(nn.RNNCellBase):
+        def __init__(self):
+            super().__init__()
+            self.dropout = nn.Dropout(drop)
+            self.lstm_cells = nn.LayerList([nn.LSTMCell(2 * H if i == 0 else H, H,
+                                                        **rnn_attrs()) for i in range(L)])
+            self.input_proj = nn.Linear(H, H, attr(), bias_attr=False)
+            self.output_proj = nn.Linear(2 * H, H, attr(), bias_attr=False)
+
+        def forward(self, step_input, states, encoder_output, encoder_padding_mask):
+            lstm_states, input_feed = states
+            x, new_states = torch.cat([step_input, input_feed], 1), []
+            for cell, st in zip(self.lstm_cells, lstm_states):
+                out, new = cell(x, st)
+                x = self.dropout(out)
+                new_states.append(new)
+            keys = self.input_proj(encoder_output)
+            scores = P.matmul(x.unsqueeze(1), keys, transpose_y=True) + encoder_padding_mask
+            ctx = P.matmul(F.softmax(scores), keys).squeeze(1)
+            out = self.output_proj(torch.cat([ctx, x], 1))
+            return out, [new_states, out]
+
+    class Seq2SeqAttn(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_emb = nn.Embedding(cfg["src_vocab"], H, weight_attr=attr())
+            self.encoder = nn.LSTM(H, H, L, dropout=drop, **rnn_attrs())
+            self.trg_emb = nn.Embedding(cfg["trg_vocab"], H, weight_attr=attr())
+            self.decoder = nn.RNN(AttentionCell())
+            self.output_layer = nn.Linear(H, cfg["trg_vocab"], attr(), bias_attr=False)
+
+        def encode(self, src, src_len):
+            enc, (h, c) = self.encoder(self.src_emb(src), sequence_length=src_len)
+            states = [[(h[i], c[i]) for i in range(L)],
+                      self.decoder.cell.get_initial_states(enc, shape=[H])]
+            keep = F.sequence_mask(src_len, src.shape[1], dtype="float32")
+            return enc, states, ((keep - 1.0) * 1e9).unsqueeze(1)
+
+        def forward(self, src, src_len, trg):
+            enc, states, mask = self.encode(src, src_len)
+            out, _ = self.decoder(self.trg_emb(trg), states, encoder_output=enc,
+                                  encoder_padding_mask=mask)
+            return self.output_layer(out)
+
+    place = P.get_place()
+    try:
+        P.set_device("cpu")
+        P.seed(0)
+        return Seq2SeqAttn()
+    finally:
+        P.set_device(place)
+
+
+def text_s2s_batch(rng, batch, lens, cfg=None, device="cpu"):
+    """(src, src_len, trg_in, label, trg_len): lengths drawn in [lens[0],
+    lens[1]], tokens from 3 up (0 is <s>, 1 </s>), each target ending in
+    </s>, padding 0."""
+    cfg = cfg or TEXT_S2S
+    lo, hi = lens
+    src_len = rng.randint(lo, hi + 1, batch)
+    trg_len = rng.randint(lo, hi + 1, batch)
+    src = rng.randint(3, cfg["src_vocab"], (batch, src_len.max()))
+    label = rng.randint(3, cfg["trg_vocab"], (batch, trg_len.max()))
+    for i in range(batch):
+        src[i, src_len[i]:] = 0
+        label[i, trg_len[i] - 1] = 1
+        label[i, trg_len[i]:] = 0
+    trg_in = np.concatenate([np.zeros((batch, 1), np.int64), label[:, :-1]], 1)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+                 for a in (src, src_len, trg_in, label, trg_len))
+
+
+def text_s2s_loss(P, model, batch):
+    """PaddleNLP's CrossEntropyCriterion: per-token cross entropy, padded
+    tokens masked out, the batch mean summed over time."""
+    src, src_len, trg_in, label, trg_len = batch
+    logits = model(src, src_len, trg_in)
+    ce = P.nn.functional.cross_entropy(logits, label, reduction="none").squeeze(-1)
+    mask = P.nn.functional.sequence_mask(trg_len, label.shape[1], dtype="float32")
+    return (ce * mask).mean(0).sum()
+
+
+def text_beam_decode(P, model, src, src_len, beam, max_steps):
+    """Beam search over ``model``'s decoder cell (BeamSearchDecoder with the
+    target embedding and the output layer, dynamic_decode): (ids [N, T,
+    beam], the raw per-step (scores, tokens, parents) [T, N, beam], steps,
+    the ms of finalize: gather_tree's walk on the host)."""
+    with torch.no_grad():
+        enc, states, mask = model.encode(src, src_len)
+        dec = P.nn.BeamSearchDecoder(model.decoder.cell, start_token=0, end_token=1,
+                                     beam_size=beam, embedding_fn=model.trg_emb,
+                                     output_fn=model.output_layer)
+        raw = {}
+        finalize = dec.finalize
+
+        def keep(outputs, final_states, lengths):
+            raw["out"] = outputs
+            t = time.perf_counter()
+            try:
+                return finalize(outputs, final_states, lengths)
+            finally:
+                raw["finalize_ms"] = (time.perf_counter() - t) * 1e3
+
+        dec.finalize = keep
+        ids, _ = P.nn.dynamic_decode(dec, inits=states, max_step_num=max_steps,
+                                     encoder_output=enc.repeat_interleave(beam, 0),
+                                     encoder_padding_mask=mask.repeat_interleave(beam, 0))
+    return ids, raw["out"], ids.shape[1], raw["finalize_ms"]
+
+
+def text_beams_agree(card, cpu):
+    """The raw beam outputs of the card and the CPU ([T, N, beam] scores,
+    tokens, parents): per batch row, tokens and parents equal up to the
+    first step where they part, the scores before it within TEXT_SCORE_TOL;
+    at that step the parting beams' CPU scores within TEXT_NEAR_TIE of
+    another beam's. Returns {"parted_rows", "first_parting_steps",
+    "max_score_err"}; raises past a limit."""
+    steps = min(len(card.scores), len(cpu.scores))
+    s_card, s_cpu = card.scores[:steps].cpu().numpy(), cpu.scores[:steps].cpu().numpy()
+    same = ((card.predicted_ids[:steps].cpu() == cpu.predicted_ids[:steps].cpu())
+            & (card.parent_ids[:steps].cpu() == cpu.parent_ids[:steps].cpu())).numpy()
+    parted, first, err = [], [], 0.0
+    for n in range(s_cpu.shape[1]):
+        bad = np.argwhere(~same[:, n])
+        t = int(bad[0][0]) if len(bad) else steps
+        if t:
+            e = np.abs(s_card[:t, n] - s_cpu[:t, n]) / np.maximum(1.0, np.abs(s_cpu[:t, n]))
+            err = max(err, float(e.max()))
+        if len(bad):
+            beams = sorted({int(b) for tt, b in bad if tt == t})
+            s = s_cpu[t, n]
+            gap = min(abs(s[b] - s[c]) for b in beams for c in range(len(s)) if c != b)
+            if not gap <= TEXT_NEAR_TIE:
+                raise AssertionError(f"text beams: row {n} parts at step {t} (beams {beams}) "
+                                     f"with a score gap {gap} past {TEXT_NEAR_TIE}")
+            parted.append(n)
+            first.append(t)
+    if not err <= TEXT_SCORE_TOL:
+        raise AssertionError(f"text beams: scores card vs CPU {err} past {TEXT_SCORE_TOL}")
+    return {"parted_rows": parted, "first_parting_steps": first, "max_score_err": err,
+            "steps": [len(card.scores), len(cpu.scores)]}
+
+
+def text_s2s_vs_cpu(P, cpu_model, model):
+    """The card copy against the CPU model, eval (no dropout), f32, at
+    TEXT_S2S_CPU: the loss (TEXT_LOSS_RTOL), every gradient (TEXT_GRAD_TOL
+    x max|g|) and the beams (text_beams_agree). Returns the readings."""
+    b, longest = TEXT_S2S_CPU
+    batch = text_s2s_batch(np.random.RandomState(1), b, (3, longest))
+    cpu_model.eval()
+    model.eval()
+    try:
+        l_cpu = text_s2s_loss(P, cpu_model, batch)
+        g_cpu = torch.autograd.grad(l_cpu, list(cpu_model.parameters()))
+        dev_batch = tuple(t.to(next(model.parameters()).device) for t in batch)
+        l_card = text_s2s_loss(P, model, dev_batch)
+        g_card = torch.autograd.grad(l_card, list(model.parameters()))
+        loss_err = abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item())
+        grad_err = {}
+        for (name, _), gc, gd in zip(cpu_model.named_parameters(), g_cpu, g_card):
+            grad_err[name] = (gd.cpu() - gc).abs().max().item() / gc.abs().max().item()
+        worst = max(grad_err, key=grad_err.get)
+        if not loss_err <= TEXT_LOSS_RTOL or not grad_err[worst] <= TEXT_GRAD_TOL:
+            raise AssertionError(f"text seq2seq card vs CPU: loss {loss_err} (tol "
+                                 f"{TEXT_LOSS_RTOL}), gradient {worst} {grad_err[worst]} "
+                                 f"(tol {TEXT_GRAD_TOL} x max|g|)")
+        beam = TEXT_BEAM[0]
+        raw_cpu = text_beam_decode(P, cpu_model, batch[0], batch[1], beam, longest)[1]
+        raw_card = text_beam_decode(P, model, dev_batch[0], dev_batch[1], beam, longest)[1]
+        beams = text_beams_agree(raw_card, raw_cpu)
+    finally:
+        cpu_model.train()
+        model.train()
+    return {"batch": b, "longest": longest, "loss_rel_err": loss_err,
+            "max_grad_err_of_max": grad_err[worst], "worst": worst, "beams": beams}
+
+
+def text_seq2seq_run(P, cpu_model, model, dev):
+    """Phase text (a): the card-vs-CPU check, then at TEXT_S2S_BATCH the beam
+    search from the initial weights (after training on random targets,
+    whose every sentence ends in </s>, the beams end at once), the f32
+    training steps (Adam 1e-3, ClipGradByGlobalNorm(5.0), published dropout
+    from a seeded generator), the bf16 O1 step and the loop LSTM against
+    cuDNN's. Returns the readings."""
+    from paddle_tpu_torch.amp import auto_cast
+
+    vs_cpu = text_s2s_vs_cpu(P, cpu_model, model)
+    gen = torch.Generator(device=dev)
+    model.encoder.generator = model.decoder.cell.dropout.generator = gen
+    opt = P.optimizer.Adam(1e-3, parameters=model.parameters(),
+                           grad_clip=P.nn.ClipGradByGlobalNorm(5.0))
+    batch = text_s2s_batch(np.random.RandomState(0), TEXT_S2S_BATCH, TEXT_S2S_LENS,
+                           device=dev)
+    tokens = int(batch[4].sum())
+
+    def step():
+        loss = text_s2s_loss(P, model, batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    # beam search over the batch's sources from the initial weights, eval
+    model.eval()
+    beam, max_steps = TEXT_BEAM
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ids, raw, steps, finalize_ms = text_beam_decode(P, model, batch[0], batch[1], beam,
+                                                    max_steps)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3
+    model.train()
+    if tuple(ids.shape) != (TEXT_S2S_BATCH, steps, beam) or not bool(
+            torch.isfinite(raw.scores).all()) or not bool(((ids >= 0)
+                                                           & (ids < TEXT_S2S["trg_vocab"])).all()):
+        raise AssertionError(f"text beam search: ids {tuple(ids.shape)}, scores finite "
+                             f"{bool(torch.isfinite(raw.scores).all())}")
+    del ids, raw
+    warm, timed = TEXT_S2S_STEPS
+    losses = [step().item() for _ in range(warm)]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses += [step() for _ in range(timed)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / timed
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    # bf16 O1 against f32 on the same weights, batch and dropout masks
+    gen.manual_seed(7)
+    with torch.no_grad():
+        l_f32 = text_s2s_loss(P, model, batch).item()
+    gen.manual_seed(7)
+    with auto_cast(dtype="bfloat16"):
+        l_bf16 = step().item()
+        with torch.no_grad():
+            enc_dtype = model.encode(batch[0], batch[1])[0].dtype
+    bf16_err = abs(l_bf16 - l_f32) / abs(l_f32)
+    if not (all(math.isfinite(x) for x in losses) and bf16_err <= TEXT_BF16_RTOL
+            and enc_dtype == torch.float32):
+        raise AssertionError(f"text seq2seq: losses {losses}, bf16 O1 loss {l_bf16} against "
+                             f"f32 {l_f32} (tol {TEXT_BF16_RTOL}), encoder outputs {enc_dtype}")
+    return {"vs_cpu": vs_cpu, "losses": losses, "step_ms": step_ms,
+            "target_tokens_per_s": tokens / (step_ms / 1e3), "target_tokens": tokens,
+            "peak_bytes": peak, "bf16_o1_loss": l_bf16, "f32_loss": l_f32,
+            "bf16_rel_err": bf16_err, "encoder_out_dtype_o1": "float32",
+            "decode": {"beam": beam, "max_step_num": max_steps, "steps": steps,
+                       "ms": decode_ms, "ms_per_step": decode_ms / steps,
+                       "gather_tree_ms": finalize_ms,
+                       "tokens_per_s": TEXT_S2S_BATCH * steps / (decode_ms / 1e3),
+                       "select_ms": text_beam_select_ms(dev, beam)},
+            "yardstick": text_lstm_yardstick(P, dev)}
+
+
+def text_beam_select_ms(dev, beam):
+    """One step's top-beam selection over [batch, beam * trg_vocab] f32: the
+    decoder's stable descending sort against torch.topk."""
+    flat = torch.randn(TEXT_S2S_BATCH, beam * TEXT_S2S["trg_vocab"], device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(5))
+    return {"sort_stable_ms": cuda_ms(lambda: torch.sort(flat, dim=-1, descending=True,
+                                                       stable=True), 5, 1),
+            "topk_ms": cuda_ms(lambda: torch.topk(flat, beam), 5, 1)}
+
+
+def text_lstm_yardstick(P, dev, shape=None):
+    """The port's loop LSTM (2 layers) forward + backward against
+    torch.nn.LSTM (cuDNN on the card) with the same weights, at ``shape``
+    [batch, steps, hidden]: ms of each and the outputs' largest difference."""
+    n, t, h = shape = shape or TEXT_YARDSTICK
+    place = P.get_place()
+    try:
+        P.set_device("cpu")
+        P.seed(2)
+        loop = P.nn.LSTM(h, h, 2).to(dev)
+    finally:
+        P.set_device(place)
+    lib = torch.nn.LSTM(h, h, 2, batch_first=True).to(dev)
+    with torch.no_grad():
+        for k in range(2):
+            cell = loop._all_layers[k].cell
+            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                getattr(lib, f"{name}_l{k}").copy_(getattr(cell, name))
+    x = torch.randn(n, t, h, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    x.requires_grad_(True)
+
+    def run(m):
+        out = m(x)[0]
+        out.sum().backward()
+        return out
+
+    diff = (run(loop) - run(lib)).abs().max().item()
+    return {"shape": list(shape), "layers": 2, "loop_fwd_bwd_ms": cuda_ms(lambda: run(loop), 3, 1),
+            "cudnn_fwd_bwd_ms": cuda_ms(lambda: run(lib), 3, 1), "max_abs_diff": diff}
+
+
+def text_tagger_run(P, dev):
+    """Phase text (b): the synthetic Conll05st at its defaults through the
+    DataLoader, Embedding -> 2-layer bidirect GRU -> Linear(2 hidden, 69)
+    emissions with the sentences' lengths, ViterbiDecoder with BOS / EOS;
+    the card against the CPU. Returns the readings."""
+    import copy
+
+    cfg = TEXT_TAGGER
+    nn = P.nn
+    place = P.get_place()
+    try:
+        P.set_device("cpu")
+        P.seed(1)
+        cpu_model = nn.Sequential(nn.Embedding(cfg["vocab"], cfg["emb"]),
+                                  nn.GRU(cfg["emb"], cfg["hidden"], cfg["layers"],
+                                         direction="bidirect"),
+                                  nn.Linear(2 * cfg["hidden"], cfg["tags"]))
+    finally:
+        P.set_device(place)
+    model = copy.deepcopy(cpu_model).to(dev).eval()
+    cpu_model.eval()
+    loader = P.io.DataLoader(P.text.Conll05st(), batch_size=cfg["batch"], device=dev)
+    words = next(iter(loader))[0]
+    rng = np.random.RandomState(2)
+    lengths = torch.from_numpy(rng.randint(1, words.shape[1] + 1, words.shape[0]))
+    trans = torch.from_numpy(rng.standard_normal((cfg["tags"], cfg["tags"])).astype(np.float32))
+
+    def emissions(m, w, lens):
+        with torch.no_grad():
+            return m[2](m[1](m[0](w), sequence_length=lens)[0])
+
+    pot = emissions(model, words, lengths.to(dev))
+    ref = emissions(cpu_model, words.cpu(), lengths)
+    tag_err = (pot.cpu() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+    decoder = P.text.ViterbiDecoder(trans.to(dev), include_bos_eos_tag=True)
+    scores, paths = decoder(pot, lengths.to(dev))
+    want_s, want_p = P.text.ViterbiDecoder(trans)(pot.cpu(), lengths)
+    score_err = (scores.cpu() - want_s).abs().max().item() / max(1.0, want_s.abs().max().item())
+    if not (tag_err <= TEXT_TAGGER_TOL and torch.equal(paths.cpu(), want_p)
+            and score_err <= TEXT_VITERBI_TOL):
+        raise AssertionError(f"text tagger: emissions card vs CPU {tag_err} (tol "
+                             f"{TEXT_TAGGER_TOL}), paths equal {torch.equal(paths.cpu(), want_p)}"
+                             f", scores {score_err} (tol {TEXT_VITERBI_TOL})")
+    lens_dev = lengths.to(dev)
+    return {"batch": list(words.shape), "emissions_rel_err": tag_err,
+            "viterbi_score_err": score_err, "paths_equal": True,
+            "fwd_ms": cuda_ms(lambda: emissions(model, words, lens_dev), 3, 1),
+            "viterbi_ms": cuda_ms(lambda: decoder(pot, lens_dev), 3, 1)}
+
+
+
+def text_vocab(n, rng):
+    """A synthetic WordPiece vocabulary of ``n`` entries: the specials, 3000
+    CJK ideographs, punctuation, whole words of 2-9 letters and "##"
+    continuations of 1-4 letters (about 3:1), all distinct."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]",
+             *[chr(0x4E00 + i) for i in range(3000)], *"!,.?;:'\"()-"]
+    seen = set(vocab)
+    while len(vocab) < n:
+        piece = rng.rand() < 0.25
+        w = "".join(letters[rng.randint(0, 26, rng.randint(1, 5) if piece
+                                        else rng.randint(2, 10))])
+        w = "##" + w if piece else w
+        if w not in seen:
+            seen.add(w)
+            vocab.append(w)
+    return vocab
+
+
+def text_sentences(vocab, count, words, rng):
+    """``count`` sentences of ``words`` words each: vocab words, words with a
+    continuation glued on, CJK runs, punctuation, capitalised and accented
+    words, unknown strings."""
+    whole = [w for w in vocab if w.isalpha() and w.isascii()]
+    pieces = [w[2:] for w in vocab if w.startswith("##")]
+    out = []
+    for _ in range(count):
+        parts = []
+        for k in rng.randint(0, 100, words):
+            w = whole[rng.randint(len(whole))]
+            if k < 15:
+                w += pieces[rng.randint(len(pieces))]
+            elif k < 25:
+                w = "".join(chr(0x4E00 + c) for c in rng.randint(0, 3000, rng.randint(1, 4)))
+            elif k < 30:
+                w = w + "!,.?;:"[rng.randint(6)]
+            elif k < 35:
+                w = w.capitalize()
+            elif k < 38:
+                w = w[:1] + "\xe9" + w[1:]
+            elif k < 40:
+                w = "".join(rng.choice(list("xyzq"), 12))
+            parts.append(w)
+        out.append(" ".join(parts))
+    return out
+
+
+def text_tokenizer_run(P, dev):
+    """Phase text (c): 1024 sentences through the FasterTokenizer over a
+    40000-entry synthetic vocab, the ids against the Python oracle
+    (basic_tokenize + wordpiece_tokenize); 16 long rows truncated to 512
+    (none padded) through ERNIE-3.0-base's forward in eval, f32 then bf16
+    O1. Returns (readings, {"bf16": launches, "f32": launches})."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.models import ErnieModel, ernie_base
+    from paddle_tpu_torch.text import faster_tokenizer as ft
+
+    cfg = TEXT_TOK
+    rng = np.random.RandomState(4)
+    vocab = text_vocab(cfg["vocab"], rng)
+    tok = P.text.FasterTokenizer(vocab)
+    texts = text_sentences(vocab, cfg["sentences"], 40, rng)
+    t = time.perf_counter()
+    ids, _ = tok(texts, device=dev)
+    torch.cuda.synchronize()
+    tok_ms = (time.perf_counter() - t) * 1e3
+    index = {w: i for i, w in enumerate(vocab)}
+    rows = ids.cpu().numpy()
+    for r, text in enumerate(texts):
+        want = [tok.cls_id] + [i for w in ft.basic_tokenize(text, True)
+                               for i in ft.wordpiece_tokenize(w, index, tok.unk_id)]
+        want.append(tok.sep_id)
+        if rows[r, :len(want)].tolist() != want or (rows[r, len(want):] != tok.pad_id).any():
+            raise AssertionError(f"text tokenizer: row {r} differs from the Python oracle")
+    n_tokens = int((ids != tok.pad_id).sum())
+    long_texts = text_sentences(vocab, cfg["rows"], 700, rng)
+    ids, tt = tok(long_texts, max_seq_len=cfg["max_seq_len"], device=dev)
+    if tuple(ids.shape) != (cfg["rows"], cfg["max_seq_len"]) or bool((ids == tok.pad_id).any()):
+        raise AssertionError(f"text tokenizer: the long rows {tuple(ids.shape)} are padded")
+    model = ErnieModel(ernie_base(), device=dev, seed=0).eval()
+    n = model.config.num_layers
+    _reset_launch_counts()
+    with torch.no_grad():
+        h32 = model(ids, token_type_ids=tt)[0]
+    torch.cuda.synchronize()
+    f32_launches, f32_routes = _launch_counts(), _route_counts()
+    _reset_launch_counts()
+    with torch.no_grad(), auto_cast(dtype="bfloat16"):
+        h16 = model(ids, token_type_ids=tt)[0]
+    torch.cuda.synchronize()
+    bf16_launches, bf16_routes = _launch_counts(), _route_counts()
+    _check_route_launches("text ernie f32", *f32_routes, n, 0, "tf32x3")
+    _check_route_launches("text ernie bf16", *bf16_routes, n, 0, "mma")
+    err = rel_frob(h16, h32)
+    if not (err <= TEXT_ERNIE_BF16_TOL and bool(torch.isfinite(h16).all())
+            and tuple(h16.shape) == (cfg["rows"], cfg["max_seq_len"], model.config.hidden_size)):
+        raise AssertionError(f"text ernie: bf16 O1 hidden {tuple(h16.shape)} {err} from f32 "
+                             f"(tol {TEXT_ERNIE_BF16_TOL})")
+
+    def fwd():
+        with torch.no_grad(), auto_cast(dtype="bfloat16"):
+            return model(ids, token_type_ids=tt)
+
+    fwd_ms = cuda_ms(fwd, 3, 1)
+    return ({"sentences": len(texts), "tokens": n_tokens, "tokenize_ms": tok_ms,
+             "tokens_per_s": n_tokens / (tok_ms / 1e3), "oracle_equal": True,
+             "ernie": {"batch": list(ids.shape), "bf16_fwd_ms": fwd_ms,
+                       "bf16_rel_frob_vs_f32": err, "tol": TEXT_ERNIE_BF16_TOL}},
+            {"bf16": bf16_launches, "f32": f32_launches})
+
+
+def phase_text():
+    """The RNN layers, beam search, Viterbi and the tokenizer at published
+    widths (phase docstring item 17). Returns the flash launches of its
+    ERNIE forwards: {"bf16": {kernel: n}, "f32": {kernel: n}}."""
+    import copy
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.bench import card_name_and_power_limit
+
+    t0 = time.perf_counter()
+    card = card_name_and_power_limit()
+    dev = torch.device("cuda")
+    cpu_model = text_seq2seq(P)
+    model = copy.deepcopy(cpu_model).to(dev)
+    build_s = time.perf_counter() - t0
+    s2s = text_seq2seq_run(P, cpu_model, model, dev)
+    del cpu_model, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tagger = text_tagger_run(P, dev)
+    tok, launches = text_tokenizer_run(P, dev)
+    seconds = time.perf_counter() - t0
+    emit(phase="text", card=card, seq2seq={"model": "seq2seq attention, IWSLT'15 en-vi widths "
+                                           "(PaddleNLP machine_translation/seq2seq)",
+                                           **TEXT_S2S, "batch": TEXT_S2S_BATCH, **s2s},
+         tagger=tagger, tokenizer=tok, launches=launches, build_s=build_s, seconds=seconds)
+    y, d = s2s["yardstick"], s2s["decode"]
+    print(f"text: seq2seq step {s2s['step_ms']:.1f} ms ({s2s['target_tokens_per_s']:.0f} target "
+          f"tokens/s), beam {d['beam']} decode {d['ms']:.1f} ms over {d['steps']} steps, loop "
+          f"LSTM {y['loop_fwd_bwd_ms']:.2f} ms vs cuDNN {y['cudnn_fwd_bwd_ms']:.2f} ms; tagger "
+          f"{tagger['fwd_ms']:.2f} ms + Viterbi {tagger['viterbi_ms']:.2f} ms; tokenizer "
+          f"{tok['tokenize_ms']:.1f} ms, ERNIE bf16 {tok['ernie']['bf16_fwd_ms']:.2f} ms "
+          f"({card})", flush=True)
+    if seconds > TEXT_MAX_S:
+        raise AssertionError(f"text took {seconds:.1f} s, past {TEXT_MAX_S} s")
+    return launches
+
+
 PHASE_SECONDS = {}
 
 
@@ -7317,6 +7900,8 @@ def main() -> int:
     _timed("probe", phase_probe, per_source["lm_loss"] or None)
     tensor_api_launches = _timed("tensor_api", phase_tensor_api)
     nn_launches = _timed("nn_transformer", phase_nn_transformer)
+    torch.cuda.empty_cache()
+    text_launches = _timed("text", phase_text)
 
     # the training main path runs attention in bf16 at [8, 1024, 12, 64] (the
     # tensor-core forward and backward pair; the bench's gpt_1p3b run at [4,
@@ -7352,7 +7937,7 @@ def main() -> int:
          "nn_transformer",
          bwd["train_f32_causal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
-        ("flash_attention_fwd_ernie", "ernie, nn_transformer", fwd["ernie_bf16_noncausal"],
+        ("flash_attention_fwd_ernie", "ernie, nn_transformer, text", fwd["ernie_bf16_noncausal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_bwd_dkdv_ernie", "ernie, nn_transformer",
          bwd["ernie_bf16_noncausal"]["dkdv"],
@@ -7360,7 +7945,8 @@ def main() -> int:
         ("flash_attention_bwd_dq_ernie", "ernie, nn_transformer",
          bwd["ernie_bf16_noncausal"]["dq"],
          "flash_attention_bwd.cu", pallas + "flash_attention.py:268"),
-        ("flash_attention_fwd_f32_ernie", "ernie, nn_transformer", fwd["ernie_f32_noncausal"],
+        ("flash_attention_fwd_f32_ernie", "ernie, nn_transformer, text",
+         fwd["ernie_f32_noncausal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
         ("flash_attention_fwd_d128", "bench gpt_1p3b", fwd["1p3b_bf16_causal"],
          "flash_attention_fwd.cu", pallas + "flash_attention.py:114"),
@@ -7414,9 +8000,10 @@ def main() -> int:
                     ernie_launches["f32"][k] + nn_launches["f32"][k])
                  for k in _launch_counts_keys()},
               **{f"{k}_ernie": ernie_launches["bf16"][k] + nn_launches["bf16"][k]
-                 for k in _launch_counts_keys()},
+                 + text_launches["bf16"][k] for k in _launch_counts_keys()},
               "flash_attention_fwd_f32_ernie": ernie_launches["f32"]["flash_attention_fwd"]
-              + nn_launches["f32"]["flash_attention_fwd"],
+              + nn_launches["f32"]["flash_attention_fwd"]
+              + text_launches["f32"]["flash_attention_fwd"],
               **{k: lib_f32[k] for k in ("layer_norm_fwd", "layer_norm_infer",
                                          "layer_norm_bwd")},
               **{f"{k}_bf16": lib_bf16[k] for k in ("layer_norm_fwd", "layer_norm_infer",

@@ -8,7 +8,7 @@ module paths (``models/gpt.py``, ``serving/engine.py``,
 ``distributed/{env,collective,spawn,mesh,grad_comm}.py``,
 ``distributed/launch/``, ``distributed/fleet/``,
 ``distributed/meta_parallel/``, ``framework/io.py``, ``io/``, ``reader.py``,
-``vision/``, ``metric/``, ``hapi/`` and ``callbacks.py``) and replaces each Pallas TPU kernel with a CUDA
+``vision/``, ``text/``, ``metric/``, ``hapi/`` and ``callbacks.py``) and replaces each Pallas TPU kernel with a CUDA
 kernel written for Hopper (``ops/kernels/``); ``bench.py`` is the
 counterpart of the repository's bench.py (``python -m
 paddle_tpu_torch.bench``) and ``tools/`` holds the port's command-line
@@ -140,7 +140,7 @@ _LAZY = {"DataParallel": (".distributed.meta_parallel", "DataParallel"),
          **{m: ("." + m, None) for m in ("io", "reader", "metric", "callbacks", "hapi",
                                          "vision", "nn", "optimizer", "distributed",
                                          "incubate", "jit", "regularizer", "models",
-                                         "serving", "observability")}}
+                                         "serving", "observability", "text")}}
 
 
 def __getattr__(name):

@@ -1,12 +1,14 @@
 """The port's native host runtime: C++ sources built with g++ at first use
 (counterpart of paddle_tpu/core/native/__init__.py).
 
-``ps_table.cc`` (the parameter server's tables and TCP service) and
+``ps_table.cc`` (the parameter server's tables and TCP service),
 ``data_feed.cc`` (the MultiSlot parser, in-memory store and shuffle behind
-the fleet datasets) are byte-for-byte copies of the JAX package's sources,
-so tables and feeds of either package speak the same wire protocol, draw the
-same per-id initial rows and write the same files. They run on the host: the
-card runs the dense compute around them. This split is the design.
+the fleet datasets) and ``tokenizer.cc`` (the FasterTokenizer's basic
+tokenizer and WordPiece, text/faster_tokenizer.py) are byte-for-byte copies
+of the JAX package's sources, so tables and feeds of either package speak
+the same wire protocol, draw the same per-id initial rows and write the
+same files, and both tokenizers give the same ids. They run on the host:
+the card runs the dense compute around them. This split is the design.
 
 ``load_library(name)`` compiles ``<name>.cc`` with ``g++ -O2 -std=c++17
 -shared -fPIC -pthread`` into ``build/`` beside this file (git-ignored), under

@@ -176,8 +176,8 @@ def layer_state_from_jax(module: torch.nn.Module,
     ``make_param`` sets: a ``Linear`` weight, under any name, such as a
     Transformer's ``self_attn.q_proj.weight`` or ``linear1.weight``) is
     transposed from the JAX ``[in, out]``; everything else (convolutions,
-    transposed convolutions, norms, embeddings, biases, buffers) carries
-    over as it is. A name the module lacks, a missing one, or a shape that
+    transposed convolutions, norms, embeddings, biases, buffers, the RNN
+    cells' ``[gates·H, in]`` weights) carries over as it is. A name the module lacks, a missing one, or a shape that
     does not fit raises."""
     transposed = {n for n, p in module.named_parameters(remove_duplicate=False)
                   if getattr(p, "_jax_transposed", False)}

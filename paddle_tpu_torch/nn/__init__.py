@@ -2,9 +2,10 @@
 ``Parameter``, ``ParamAttr``, the layers of ``nn/layers/`` under their
 Paddle names (their ops are ops/nn_functional.py's and
 ops/activation.py's), the submodules ``functional``, ``initializer`` and
-``utils``, and gradient clipping. The RNN layers and the beam-search
-decoder of the JAX package's ``nn/layers/rnn.py`` and ``decode.py`` (but
-``gather_tree``) are ROADMAP Queue 1 item 17."""
+``utils``, and gradient clipping; among the layers, the recurrent cells,
+``RNN`` / ``BiRNN`` and the ``SimpleRNN`` / ``LSTM`` / ``GRU`` stacks
+(``nn/layers/rnn.py``) and beam-search decoding (``BeamSearchDecoder``,
+``Decoder``, ``dynamic_decode``, ``gather_tree``; ``nn/layers/decode.py``)."""
 from . import functional, initializer, utils  # noqa: F401
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue, clip_grad_norm_
 from .layer import Layer, ParamAttr, Parameter, create_parameter  # noqa: F401

@@ -14,15 +14,17 @@ from .conv_pool import (AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
                         AvgPool1D, AvgPool2D, AvgPool3D, Conv1D, Conv1DTranspose, Conv2D,
                         Conv2DTranspose, Conv3D, Conv3DTranspose, MaxPool1D, MaxPool2D,
                         MaxPool3D, MaxUnPool1D, MaxUnPool2D, MaxUnPool3D)
-from .decode import gather_tree  # noqa: F401
+from .decode import BeamSearchDecoder, Decoder, dynamic_decode, gather_tree  # noqa: F401
 from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,  # noqa: F401
                    CrossEntropyLoss, CTCLoss, HingeEmbeddingLoss, HSigmoidLoss, KLDivLoss,
                    L1Loss, MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss)
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,  # noqa: F401
                    InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
                    LocalResponseNorm, RMSNorm, SyncBatchNorm)
+from .rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell, RNNCellBase,  # noqa: F401
+                  SimpleRNN, SimpleRNNCell)
 from .transformer import (MultiHeadAttention, Transformer, TransformerDecoder,  # noqa: F401
                           TransformerDecoderLayer, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = sorted(n for n in dir() if n[0].isupper() or n == "gather_tree")
+__all__ = sorted(n for n in dir() if n[0].isupper() or n in ("dynamic_decode", "gather_tree"))

@@ -75,13 +75,12 @@ WAIVED = {}
 
 # entries not ported yet: name -> the ROADMAP item that ports them
 _ITEM11_VISION = "Queue 1 item 11 (vision/ops.py)"
-_ITEM11_TEXT = "Queue 1 item 11 (text/)"
 _ITEM11_INCUBATE = "Queue 1 item 11 (the rest of incubate/)"
 _ITEM11_GEOMETRIC = "Queue 1 item 11 (geometric/)"
 MISSING_ITEMS = {
     **{n: _ITEM11_VISION for n in ("deformable_conv", "psroi_pool", "roi_align", "roi_pool",
                                    "yolo_box")},
-    "viterbi_decode": _ITEM11_TEXT, "segment_pool": _ITEM11_INCUBATE,
+    "segment_pool": _ITEM11_INCUBATE,
     "graph_send_recv": _ITEM11_GEOMETRIC,
 }
 

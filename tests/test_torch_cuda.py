@@ -2311,3 +2311,52 @@ def test_transformer_encoder_on_card_runs_the_flash_kernels(cuda):
         assert max(errs.values()) <= 1e-4, errs
     finally:
         P.set_device(place)
+
+
+def _text_small(cs):
+    """chip_smoke.py's text phase cut to small widths for the card tests."""
+    cs.TEXT_S2S = dict(src_vocab=500, trg_vocab=300, hidden=64, layers=2, dropout=0.2,
+                       init=0.1)
+    cs.TEXT_S2S_BATCH, cs.TEXT_S2S_LENS, cs.TEXT_S2S_STEPS = 16, (4, 12), (1, 2)
+    cs.TEXT_BEAM, cs.TEXT_YARDSTICK = (4, 12), (16, 12, 64)
+    cs.TEXT_TOK = dict(vocab=40000, sentences=64, rows=2, max_seq_len=128)
+    return cs
+
+
+def test_seq2seq_with_attention_on_card_matches_the_cpu(cuda):
+    """Phase text (a) at hidden 64: the card copy against the CPU (loss 1e-5,
+    gradients 1e-3 x max|g|, beam ids equal but at a near-tie), then its
+    f32 steps, the bf16 O1 step (loss within 2e-2, f32 encoder outputs),
+    the beam search and the loop LSTM against cuDNN's on the same weights."""
+    import copy
+
+    import paddle_tpu_torch as P
+
+    cs = _text_small(_chip_smoke())
+    cpu_model = cs.text_seq2seq(P)
+    rec = cs.text_seq2seq_run(P, cpu_model, copy.deepcopy(cpu_model).to(cuda), cuda)
+    assert rec["vs_cpu"]["loss_rel_err"] <= cs.TEXT_LOSS_RTOL
+    assert rec["decode"]["steps"] >= 1 and rec["yardstick"]["max_abs_diff"] <= 1e-4
+
+
+def test_bigru_tagger_and_viterbi_on_card_match_the_cpu(cuda):
+    """Phase text (b): the Conll05st batch through the 2-layer bidirect GRU
+    tagger on the card against the CPU (1e-5), Viterbi paths equal to the
+    CPU's on the same emissions, scores within 1e-5."""
+    import paddle_tpu_torch as P
+
+    rec = _chip_smoke().text_tagger_run(P, cuda)
+    assert rec["paths_equal"] and rec["batch"] == [256, 32]
+
+
+def test_tokenizer_feeds_ernie_base_on_card(cuda):
+    """Phase text (c) at 64 sentences and 2 rows of 128: the tokenizer's ids
+    equal the Python oracle's; ERNIE-3.0-base's forward launches the flash
+    forward once a layer on the 3xTF32 route at f32 and on the tensor cores
+    at bf16 O1, the bf16 hidden states within 3e-2 of f32's."""
+    import paddle_tpu_torch as P
+
+    cs = _text_small(_chip_smoke())
+    rec, launches = cs.text_tokenizer_run(P, cuda)
+    assert rec["oracle_equal"]
+    assert launches["bf16"]["flash_attention_fwd"] == launches["f32"]["flash_attention_fwd"] == 12

@@ -289,3 +289,26 @@ def test_the_tensor_api_modules_are_among_them():
             path = ROOT / mod.replace(".", "/") / "__init__.py"
         assert not {r for r in _imported_roots(path) if r in FORBIDDEN}, mod
 
+
+
+TEXT_MODULES = ("paddle_tpu_torch.nn.layers.rnn", "paddle_tpu_torch.nn.layers.decode",
+                "paddle_tpu_torch.text", "paddle_tpu_torch.text.datasets",
+                "paddle_tpu_torch.text.viterbi", "paddle_tpu_torch.text.faster_tokenizer")
+
+
+@pytest.mark.parametrize("mod", TEXT_MODULES)
+def test_each_rnn_and_text_module_alone_loads_no_jax(mod):
+    """The RNN layers, the decoder and paddle.text, each imported alone in a
+    fresh process: neither jax nor the JAX package loads; the native
+    tokenizer's source is the JAX package's, byte for byte."""
+    assert mod in set(_port_modules())
+    code = (f"import importlib, sys; importlib.import_module({mod!r}); "
+            f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r}); "
+            "print('LOADED', bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert ((PORT / "core" / "native" / "tokenizer.cc").read_bytes()
+            == (ROOT / "paddle_tpu" / "core" / "native" / "tokenizer.cc").read_bytes())

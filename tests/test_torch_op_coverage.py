@@ -16,9 +16,9 @@ from paddle_tpu_torch.tools import op_coverage as oc
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# the counts this port reached (ROADMAP Queue 1 items 15 and 16): no later
-# change may lose one
-IMPLEMENTED_AT_LEAST = 227
+# the counts this port reached (ROADMAP Queue 1 items 15, 16 and 17, the
+# last with text.viterbi_decode): no later change may lose one
+IMPLEMENTED_AT_LEAST = 228
 BACKWARD_IMPLEMENTED_AT_LEAST = 176
 
 
@@ -92,6 +92,7 @@ MODULES = {   # reference module -> its port counterpart
     "paddle_tpu.nn.initializer": "paddle_tpu_torch.nn.initializer",
     "paddle_tpu.nn.layer": "paddle_tpu_torch.nn.layer",
     "paddle_tpu.nn.utils": "paddle_tpu_torch.nn.utils",
+    "paddle_tpu.text": "paddle_tpu_torch.text",
 }
 
 # ROADMAP Queue 1 item 15's waiver list: reference names with no port counterpart
@@ -103,10 +104,6 @@ WAIVED = {
     "Node": "the reference's tape node; the port's graph is torch.autograd's grad_fn",
     "next_key": "JAX's functional RNG keys; the port draws from torch.Generators",
     "trace_key_scope": "JAX's functional RNG keys in traced programs",
-    # ROADMAP Queue 1 item 17: nn/layers/rnn.py and the rest of decode.py
-    **{n: "Queue 1 item 17 (nn/layers/rnn.py and decode.py)"
-       for n in ("RNN", "BiRNN", "SimpleRNN", "LSTM", "GRU", "RNNCellBase", "SimpleRNNCell",
-                 "LSTMCell", "GRUCell", "BeamSearchDecoder", "Decoder", "dynamic_decode")},
 }
 
 
